@@ -1,0 +1,44 @@
+"""The port stands alone: no module of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:  # relative: stays inside the file's package
+                continue
+            yield node.module or ""
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_port_files_exist():
+    assert len(FILES) > 10 and all(f.exists() for f in FILES)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported_modules(tree) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scanner_catches_forbidden_imports():
+    src = "import jax\nfrom repro.data import Cursor\nimport repro_torch.kernels\n"
+    found = [m for m in _imported_modules(ast.parse(src)) if _forbidden(m)]
+    assert found == ["jax", "repro.data"]
