@@ -12,11 +12,11 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
 2. Build: compiles every kernel of ``src/repro_torch/kernels/csrc/``
    (one ``nvcc`` per source, in parallel) into ``build/torch_kernels/``
    and prints the build seconds and the compiler's resource report.
-3. Kernel against its plain version on the card: ``mips_topk`` at the
-   serve shapes (n_q ∈ {8, 32, 512}, C = 173,520, d = 64, k = 10, window
-   [1, 173,511)) and adversarial cases (integer ties, C tail, k > C, a
-   starved ``valid``, an ``id_offset``, k = 256, d % 4 != 0, a catalog
-   off a 16-byte boundary). Values agree within
+3. Serve kernel against its plain version on the card: ``mips_topk`` at
+   the serve shapes (n_q ∈ {8, 32, 512}, C = 173,520, d = 64, k = 10,
+   window [1, 173,511)) and adversarial cases (integer ties, C tail,
+   k > C, a starved ``valid``, an ``id_offset``, k = 256, d % 4 != 0, a
+   catalog off a 16-byte boundary). Values agree within
    ``1e-5·max|score|`` (f32 fold order differs between the kernel and
    cuBLAS); ids agree exactly wherever neighbouring scores are further
    apart than that, and bit for bit on integer-valued inputs, where every
@@ -27,8 +27,32 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    serves waves of async requests and one bulk ``score()`` of 512
    histories; the ids are held against a dense on-card oracle, the
    kernel's launch count must have moved, and ``cache_misses`` must be 0.
-5. Prints the kernels' JSON line, the card's name and power limit, and
-   as the last line ``{"ok": true, "device": {...}}``.
+5. Train kernels against their plain versions on the card: ``mips_topk``
+   at SCE training's two selections (320 bucket centres against 25,600
+   positions at k = 320 under a mask with ≈ 25 % masked, and against the
+   173,520 catalog rows at k = 256), a starved mask and k = 512; the
+   three ``sce_gather`` kernels (forward, dX, dY) at the training shape
+   (n_b = b_x = 320, b_y = 256, d = 64) on a real selection, with every
+   bucket on the same candidates, with collisions and ``cand < 0``, and
+   ragged (b_x = 23, b_y = 50, d = 33, softcap 30). Losses within
+   ``1e-5·max|loss|``, gradients within ``rtol 2e-4``,
+   ``atol 1e-5·max|grad|`` of autograd through the plain version, rows of
+   dY no bucket selected exactly 0. Times each kernel, its plain version
+   and ``torch.bmm`` on pre-gathered candidates (the nearest one-call
+   yardstick; it computes the products alone) with a cold L2 cache.
+6. The trainer at full width: ``train("sasrec-sce", cfg=make_config(),
+   batch=128, steps=30, seed=0, device="cuda")``. Every loss finite, no
+   step skipped, the mean loss of the last 5 steps below that of the
+   first 5, ``mips_topk`` launched exactly 2 (once at k = 320, once at
+   k = 256) and each ``sce_gather`` kernel exactly once per step. Prints
+   the median step, the step's breakdown from CUDA events that the
+   trainer's own steps record through its ``mark`` hook, and the run's
+   peak device memory.
+7. Prints the kernels' JSON line, the card's name and power limit, and
+   as the last line ``{"ok": true, "device": {...}}``. ``mips_topk`` has
+   three entries: all its main-path launches timed at serving's largest
+   bucket, and its training selections (k = 320 over the positions,
+   k = 256 over the catalog), each with the trainer's launches at that k.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. ``--json PATH`` also writes every case, time and count to PATH.
@@ -37,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -167,15 +192,19 @@ def time_ms(fn, reps, flush):
     return total / reps
 
 
-def bound_ms(n_q, c, d, k):
-    """Least time for the work: inputs read once (q, y, the bool valid
-    mask), outputs written once, 2·n_q·C·d f32 FLOPs — the larger of the
-    byte time and the FLOP time, and which one it is."""
-    nbytes = 4 * (n_q * d + c * d) + c + 8 * n_q * k
-    flops = 2 * n_q * c * d
+def roofline_ms(nbytes, flops):
+    """The larger of the byte time and the f32 FLOP time at the card's
+    peaks, and which one it is."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_ms(n_q, c, d, k, *, valid=True):
+    """Least time for the work: inputs read once (q, y, the bool valid
+    mask when there is one), outputs written once, 2·n_q·C·d f32 FLOPs."""
+    nbytes = 4 * (n_q * d + c * d) + (c if valid else 0) + 8 * n_q * k
+    return roofline_ms(nbytes, 2 * n_q * c * d)
 
 
 def kernel_phase(dev):
@@ -430,6 +459,328 @@ def server_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Train kernels against their plain versions
+# ---------------------------------------------------------------------------
+N_POS = 128 * 200  # train_paper: batch 128 × L 200 positions
+N_B, B_X, B_Y = 320, 320, 256  # SCEConfig.from_alpha_beta(25,600, 173,511)
+
+
+def gather_case(name, x_b, y, idx, tgt, cand, pos, cap=None):
+    """The three sce_gather kernels against autograd through the plain
+    version on one input, for a random upstream cotangent. Returns the
+    case's max errors; raises on disagreement."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    g = torch.rand(pos.shape, device=pos.device,
+                   generator=torch.Generator(device=pos.device).manual_seed(5))
+    got_l = [t.clone().requires_grad_(True) for t in (x_b, y, pos)]
+    loss = ops.sce_gather_loss(got_l[0], got_l[1], idx, tgt, cand, got_l[2],
+                               logit_softcap=cap)
+    got = [loss.detach()] + list(torch.autograd.grad((loss * g).sum(), got_l))
+    want_l = [t.clone().requires_grad_(True) for t in (x_b, y, pos)]
+    wloss = ref.sce_gather_loss_ref(want_l[0], want_l[1], idx, tgt, cand,
+                                    want_l[2], cap)
+    want = [wloss.detach()] + list(torch.autograd.grad((wloss * g).sum(),
+                                                       want_l))
+    torch.cuda.synchronize()
+    errs = {}
+    for what, a, b, rtol in zip(("loss", "dx", "dy", "dpos"), got, want,
+                                (0.0, 2e-4, 2e-4, 2e-4)):
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+              f"{name}: {what} shape or finiteness")
+        err = (a - b).abs()
+        tol = 1e-5 * b.abs().max().item()
+        check(bool((err <= tol + rtol * b.abs()).all()),
+              f"{name}: {what} differs by {err.max().item():.3e} "
+              f"(tol {tol:.3e} + {rtol}·|want|)")
+        errs[what] = err.max().item()
+    touched = torch.zeros(y.shape[0], dtype=torch.bool, device=y.device)
+    touched[idx.long().reshape(-1)] = True
+    check(bool((got[2][~touched] == 0).all()),
+          f"{name}: a dY row no bucket selected is not exactly 0")
+    n_b, b_x, d = x_b.shape
+    print(f"  case {name}: n_b={n_b} b_x={b_x} b_y={idx.shape[1]} d={d} "
+          f"C={y.shape[0]} cap={cap} max err loss {errs['loss']:.3e} dX "
+          f"{errs['dx']:.3e} dY {errs['dy']:.3e} d_pos {errs['dpos']:.3e}; "
+          f"{int((~touched).sum())} untouched dY rows exactly 0 ok")
+    return {"name": name, "n_b": n_b, "b_x": b_x, "b_y": idx.shape[1],
+            "d": d, "C": y.shape[0], "cap": cap, "max_abs_err": errs}
+
+
+def gather_bounds(x_b, y, idx):
+    """Least times of the three kernels on these inputs: each reads x_b,
+    the distinct catalog rows it gathers, the ids and its per-row inputs
+    once and writes its outputs once; the forward does 2·n_b·b_x·b_y·d
+    f32 FLOPs, dX and dY twice that (the logits again, then a product of
+    the same size)."""
+    import torch
+
+    n_b, b_x, d = x_b.shape
+    b_y = idx.shape[1]
+    rows = int(torch.unique(idx).numel())
+    common = 4 * (n_b * b_x * d + rows * d + 2 * n_b * b_y)
+    flops = 2 * n_b * b_x * b_y * d
+    return {
+        "sce_gather_fwd": roofline_ms(common + 4 * 4 * n_b * b_x, flops),
+        "sce_gather_dx": roofline_ms(
+            common + 4 * 3 * n_b * b_x + 4 * n_b * b_x * d, 2 * flops),
+        "sce_gather_dy": roofline_ms(
+            common + 4 * 3 * n_b * b_x + 4 * y.shape[0] * d, 2 * flops),
+    }
+
+
+def train_kernel_phase(dev):
+    import torch
+
+    from repro_torch.core import sce
+    from repro_torch.kernels import ref, sce_prefetch
+    from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.kernels.ref import mips_topk_ref
+
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    def randint(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             device=dev).to(torch.float32)
+
+    # The selections of one training step at the paper's shape.
+    x = randn(N_POS, D)  # hidden states
+    y = randn(C_SERVE, D, scale=0.125)  # catalog rows
+    valid = torch.rand(N_POS, generator=g, device=dev) > 0.25
+    targets = torch.randint(1, N_ITEMS, (N_POS,), generator=g, device=dev,
+                            dtype=torch.int32)
+    cfg = sce.SCEConfig.from_alpha_beta(N_POS, N_ITEMS, use_kernel=True)
+    check((cfg.n_buckets, cfg.bucket_size_x, cfg.bucket_size_y)
+          == (N_B, B_X, B_Y), "the paper's SCE shape changed")
+    b = sce.make_bucket_centers(x, N_B, use_mix=True, valid_mask=valid,
+                                generator=g)
+    cases = [
+        run_case("train_positions_k320", b, x, B_X, valid=valid),
+        run_case("train_catalog_k256", b, y, B_Y),
+    ]
+    starved = torch.zeros(N_POS, dtype=torch.bool, device=dev)
+    starved[torch.randperm(N_POS, generator=g, device=dev)[:B_X // 3]] = True
+    cases.append(run_case("starved_k320", randint(-2, 3, 40, D),
+                          randint(-2, 3, N_POS, D), B_X, valid=starved,
+                          exact=True))
+    cases.append(run_case("k512_ties", randint(-2, 3, 64, D),
+                          randint(-2, 3, 20_000, D), 512, exact=True))
+
+    # The in-bucket loss on that real selection.
+    idx_x, idx_y = sce.select_buckets(b, x, y, cfg, valid_mask=valid)
+    ix = idx_x.long()
+    x_b = x[ix].contiguous()
+    tgt_b = targets[ix].to(torch.int32)
+    pos = torch.einsum("nxd,nxd->nx", x_b, y[tgt_b.long()]).contiguous()
+    gcases = [gather_case("train_shape", x_b, y, idx_y, tgt_b, idx_y, pos)]
+    same = idx_y[:1].expand(N_B, -1).contiguous()
+    gcases.append(gather_case("same_candidates", x_b, y, same, tgt_b, same,
+                              pos))
+    rows = torch.stack([torch.randperm(5_000, generator=g, device=dev)[:128]
+                        for _ in range(64)]).to(torch.int32)
+    tg = torch.randint(0, 5_000, (64, 100), generator=g, device=dev,
+                       dtype=torch.int32)
+    cand = rows.clone()
+    cand[:, 0] = tg[:, 0]
+    cand[:, -1] = -1
+    gcases.append(gather_case("collisions_cand_neg", randn(64, 100, D),
+                              randn(5_000, D), rows, tg, cand,
+                              randn(64, 100)))
+    rows = torch.stack([torch.randperm(300, generator=g, device=dev)[:50]
+                        for _ in range(7)]).to(torch.int32)
+    gcases.append(gather_case(
+        "ragged_d33_cap30", randn(7, 23, 33, scale=8.0), randn(300, 33),
+        rows, torch.randint(0, 300, (7, 23), generator=g, device=dev,
+                            dtype=torch.int32), rows,
+        30.0 * torch.tanh(randn(7, 23)), cap=30.0))
+
+    # Times at the training shape, cold L2.
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    timings = {}
+    for name, q, cat, k, vm in (("positions_k320", b, x, B_X, valid),
+                                ("catalog_k256", b, y, B_Y, None)):
+        def kernel():
+            return mips_topk(q, cat, k, valid=vm)
+
+        def plain():
+            return mips_topk_ref(q, cat, k, valid=vm)
+
+        def library():
+            s_ = torch.matmul(q, cat.T)
+            if vm is not None:
+                s_ = torch.where(vm[None, :], s_, NEG_INF)
+            return torch.topk(s_, k)
+
+        bd, by = bound_ms(q.shape[0], cat.shape[0], D, k,
+                          valid=vm is not None)
+        timings[name] = {"ms": time_ms(kernel, 20, flush),
+                         "plain_ms": time_ms(plain, 2, flush),
+                         "library_ms": time_ms(library, 20, flush),
+                         "bound_ms": bd, "bound_by": by}
+
+    g_up = torch.rand(pos.shape, generator=g, device=dev)
+    _, lse = sce_prefetch.sce_gather_fwd(x_b, y, idx_y, tgt_b, idx_y, pos)
+    y_b = y[idx_y.long()]
+    probs = torch.rand(N_B, B_X, B_Y, generator=g, device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in (x_b, y)]
+    out = (ref.sce_gather_loss_ref(leaves[0], leaves[1], idx_y, tgt_b, idx_y,
+                                   pos) * g_up).sum()
+    args = (x_b, y, idx_y, tgt_b, idx_y)
+    runs = {
+        "sce_gather_fwd": (
+            lambda: sce_prefetch.sce_gather_fwd(*args, pos),
+            lambda: ref.sce_gather_loss_ref(*args, pos),
+            lambda: torch.bmm(x_b, y_b.transpose(1, 2))),
+        "sce_gather_dx": (
+            lambda: sce_prefetch.sce_gather_dx(*args, lse, g_up),
+            lambda: torch.autograd.grad(out, leaves[0], retain_graph=True),
+            lambda: torch.bmm(probs, y_b)),
+        "sce_gather_dy": (
+            lambda: sce_prefetch.sce_gather_dy(*args, lse, g_up),
+            lambda: torch.autograd.grad(out, leaves[1], retain_graph=True),
+            lambda: torch.bmm(probs.transpose(1, 2), x_b)),
+    }
+    bounds = gather_bounds(x_b, y, idx_y)
+    with torch.no_grad():
+        for name, (kern, plain, lib) in runs.items():
+            timings[name] = {"ms": time_ms(kern, 20, flush),
+                             "plain_ms": time_ms(plain, 5, flush),
+                             "library_ms": time_ms(lib, 20, flush),
+                             "bound_ms": bounds[name][0],
+                             "bound_by": bounds[name][1]}
+    for name, t in timings.items():
+        print(f"  time {name}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return cases, gcases, timings
+
+
+# ---------------------------------------------------------------------------
+# The trainer at full width
+# ---------------------------------------------------------------------------
+TRAIN_STEPS = 30
+
+
+PHASES = ("h2d", "forward", "select", "loss_forward", "backward",
+          "optimizer")
+
+
+class StepMarks:
+    """The ``mark`` hook of ``launch/train.py::train``: a CUDA event where
+    each phase of each step ends (``"start"`` opens a step), read after
+    the run. The device timeline between two events includes any wait for
+    the host to enqueue the next launch."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __call__(self, name):
+        import torch
+
+        if name == "start":
+            self.steps.append([])
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.steps[-1].append((name, ev))
+
+    def breakdown(self, skip=1):
+        """Mean ms of each phase over the steps after the first ``skip``."""
+        sums = dict.fromkeys(PHASES, 0.0)
+        for marks in self.steps[skip:]:
+            names = [n for n, _ in marks]
+            check(names == ["start", *PHASES], f"phase marks {names}")
+            for (_, a), (name, b) in zip(marks, marks[1:]):
+                sums[name] += a.elapsed_time(b)
+        n = len(self.steps) - skip
+        return {f"{k}_ms": v / n for k, v in sums.items()}
+
+
+def train_phase(dev):
+    import statistics
+
+    import torch
+
+    from repro_torch.configs.sasrec_sce import make_config
+    from repro_torch.core import sce
+    from repro_torch.kernels import sce_prefetch
+    from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.launch.train import train
+
+    cfg = make_config()
+    counters = (mips_topk, sce_prefetch.sce_gather_fwd,
+                sce_prefetch.sce_gather_dx, sce_prefetch.sce_gather_dy)
+    marks = StepMarks()
+    torch.cuda.synchronize()
+    live_bytes = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters:  # the main path starts here
+        fn.launches = 0
+    mips_topk.launches_by_k.clear()
+    t0 = time.monotonic()
+    out = train("sasrec-sce", cfg=cfg, batch=N_POS // cfg.max_len,
+                steps=TRAIN_STEPS, seed=0, log_every=10, device=dev,
+                mark=marks)
+    wall_s = time.monotonic() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}  # ... ends here
+    by_k = dict(mips_topk.launches_by_k)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = out["losses"]
+    check(len(losses) == TRAIN_STEPS, f"{len(losses)} steps ran")
+    check(all(math.isfinite(v) for v in losses), "a training loss is not "
+          "finite")
+    check(out["skipped_steps"] == 0, f"{out['skipped_steps']} steps skipped")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"mean loss of the last 5 steps {last:.5f} is not "
+          f"below the first 5's {first:.5f}")
+    check(launches["mips_topk"] == 2 * TRAIN_STEPS
+          and by_k == {B_X: TRAIN_STEPS, B_Y: TRAIN_STEPS},
+          f"mips_topk launched {launches['mips_topk']} times ({by_k} by k) "
+          f"in {TRAIN_STEPS} steps")
+    for name in ("sce_gather_fwd", "sce_gather_dx", "sce_gather_dy"):
+        check(launches[name] == TRAIN_STEPS,
+              f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
+              f"steps")
+    median_ms = statistics.median(out["step_s"][1:]) * 1e3
+    print(f"  trainer: {TRAIN_STEPS} steps of batch {N_POS // cfg.max_len} "
+          f"× L {cfg.max_len}, C {cfg.catalog_loss_size}, in {wall_s:.2f} s; "
+          f"loss {losses[0]:.4f} → {losses[-1]:.4f} (mean of first 5 "
+          f"{first:.4f}, last 5 {last:.4f}); median step {median_ms:.3f} ms "
+          f"(host clock, steps 2–{TRAIN_STEPS}); launches {launches}, "
+          f"mips_topk by k {by_k}")
+    bd = marks.breakdown()
+    print("  step breakdown: " + " + ".join(
+        f"{p} {bd[p + '_ms']:.3f}" for p in PHASES)
+        + f" = {sum(bd.values()):.3f} ms (device events of the trainer's "
+        f"own steps, mean of steps 2–{TRAIN_STEPS})")
+    sce_cfg = sce.SCEConfig.from_alpha_beta(N_POS, cfg.n_items)
+    mem = {
+        "peak_bytes": peak, "live_bytes_before": live_bytes,
+        "sce_fused_peak_bytes": 4 * sce.sce_peak_elements(
+            sce_cfg, N_POS, cfg.catalog_loss_size, cfg.d_model,
+            fused=True)["total"],
+        "sce_plain_peak_bytes": 4 * sce.sce_peak_elements(
+            sce_cfg, N_POS, cfg.catalog_loss_size, cfg.d_model)["total"],
+        "full_ce_logit_bytes": sce.full_ce_memory_bytes(
+            N_POS, cfg.catalog_loss_size),
+    }
+    print(f"  peak device memory of the run: {peak / 2**20:.1f} MiB "
+          f"(torch.cuda.max_memory_allocated; params, AdamW state and "
+          f"activations included; {live_bytes / 2**20:.1f} MiB were live "
+          f"before it); SCE loss side, fused model "
+          f"{mem['sce_fused_peak_bytes'] / 2**20:.2f} MiB, plain path "
+          f"{mem['sce_plain_peak_bytes'] / 2**20:.1f} MiB; full CE logits "
+          f"N·C·4 B = {mem['full_ce_logit_bytes'] / 1e9:.2f} GB")
+    return {"losses": losses, "step_s": out["step_s"], "wall_s": wall_s,
+            "median_step_ms": median_ms, "launches": launches,
+            "mips_topk_launches_by_k": by_k, "breakdown": bd, "memory": mem}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=Path, default=None,
@@ -447,46 +798,87 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     card = smi()
-    print(f"[1/5] device: {card}; torch {torch.__version__}, CUDA "
+    print(f"[1/7] device: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     t0 = time.monotonic()
     libs = _build.build_all()
     build_s = time.monotonic() - t0
-    print(f"[2/5] build: {len(libs)} kernel libraries in {build_s:.2f} s")
+    print(f"[2/7] build: {len(libs)} kernel libraries in {build_s:.2f} s")
     for name in libs:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/5] kernel against its plain version:")
+    print("[3/7] serve kernel against its plain version:")
     cases, timings = kernel_phase(dev)
-    print("[4/5] server at full width:")
+    print("[4/7] server at full width:")
     server = server_phase(dev)
+    print("[5/7] train kernels against their plain versions:")
+    tcases, gcases, ttimes = train_kernel_phase(dev)
+    print("[6/7] trainer at full width:")
+    trainer = train_phase(dev)
 
     t = timings[512]  # the serve_p99 bucket
+    mips = {"route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mips_topk.cu",
+            "replaces": "src/repro/kernels/mips_topk.py:52"}
     kernels = [{
         "name": "mips_topk",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/mips_topk.cu",
-        "replaces": "src/repro/kernels/mips_topk.py:52",
-        "launches": server["launches"],
-        "max_abs_err": max(timings[b]["max_abs_err"] for b in BUCKETS),
+        **mips,
+        # serving's launches and training's, each path counted from 0
+        "launches": server["launches"] + trainer["launches"]["mips_topk"],
+        "max_abs_err": max([timings[b]["max_abs_err"] for b in BUCKETS]
+                           + [c["max_abs_err"] for c in tcases]),
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
     }]
+    # The same kernel at training's two selections, with the launches the
+    # trainer made at that k.
+    for name, k in (("positions_k320", B_X), ("catalog_k256", B_Y)):
+        tt = ttimes[name]
+        kernels.append({
+            "name": f"mips_topk_train_{name}",
+            **mips,
+            "launches": trainer["mips_topk_launches_by_k"][k],
+            "max_abs_err": next(c["max_abs_err"] for c in tcases
+                                if c["name"] == f"train_{name}"),
+            "ms": tt["ms"],
+            "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"],
+            "bound_by": tt["bound_by"],
+            "library_ms": tt["library_ms"],
+        })
+    for name, what, line in (("sce_gather_fwd", "loss", 79),
+                             ("sce_gather_dx", "dx", 152),
+                             ("sce_gather_dy", "dy", 203)):
+        tt = ttimes[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sce_gather.cu",
+            "replaces": f"src/repro/kernels/sce_prefetch.py:{line}",
+            "launches": trainer["launches"][name],
+            "max_abs_err": max(c["max_abs_err"][what] for c in gcases),
+            "ms": tt["ms"],
+            "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"],
+            "bound_by": tt["bound_by"],
+            "library_ms": tt["library_ms"],
+        })
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
             "card": card, "build_s": build_s, "cases": cases,
             "timings": {str(b): v for b, v in timings.items()},
-            "server": server, "kernels": kernels,
+            "server": server, "train_cases": tcases, "gather_cases": gcases,
+            "train_timings": ttimes, "trainer": trainer, "kernels": kernels,
         }, indent=1))
-    print("[5/5] summary")
+    print("[7/7] summary")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

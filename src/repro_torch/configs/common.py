@@ -1,14 +1,16 @@
 """Arch/shape registry (port of ``repro/configs/common.py``, own copy).
 
 Each ``configs/<id>.py`` registers one :class:`ArchSpec`: the published
-configuration, its input shapes and a reduced smoke configuration. The
-port registers only the archs it has ported.
+configuration, its input shapes, a reduced smoke configuration and the
+training policy the train step reads (loss, optimizer, dtype,
+microbatching, SCE candidate bucket size). The port registers only the
+archs it has ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 _REGISTRY: Dict[str, "ArchSpec"] = {}
 
@@ -28,6 +30,16 @@ class ArchSpec:
     make_config: Callable[[str], Any]  # shape name -> full model config
     make_smoke_config: Callable[[], Any]  # reduced config for CPU tests
     shapes: Tuple[ShapeSpec, ...]
+    optimizer: str = "adamw"
+    train_loss: str = "sce"
+    dtype: str = "float32"
+    # gradient-accumulation factor per shape name (1 = none)
+    microbatches: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    # dtype of the microbatch gradient accumulator
+    accum_dtype: str = "float32"
+    sce_bucket_size_y: int = 512
+    # in-loop evaluation protocol ("leave-one-out" for seqrec); not ported
+    eval_protocol: Optional[str] = None
 
     def shape(self, name: str) -> ShapeSpec:
         for s in self.shapes:

@@ -44,5 +44,10 @@ ARCH = register(
                 {"batch": 1, "n_candidates": N_ITEMS},
             ),
         ),
+        optimizer="adamw",
+        train_loss="sce",
+        eval_protocol="leave-one-out",
+        dtype="float32",
+        sce_bucket_size_y=256,
     )
 )

@@ -24,11 +24,11 @@
 // buffer in VMEM; ported as is, bucket 8 would run one block on one of
 // 132 SMs. Here the catalog is split instead:
 //   1. mips_topk_partial_kernel, grid (ceil(n_q / QB), S): S splits the
-//      catalog so that about 2×132 blocks are in flight. Each block stages
-//      its QB query rows in shared memory once and streams its split in
-//      (64, d) catalog tiles with cp.async into a double buffer, so the
-//      next tile's read overlaps this tile's arithmetic (the bytes side:
-//      bucket 8). Every thread computes an RM×4 register tile of scores
+//      catalog (the wrapper's plan, measured on the card). Each block
+//      stages its QB query rows in shared memory once and streams its
+//      split in (64, d) catalog tiles with cp.async into a double buffer,
+//      so the next tile's read overlaps this tile's arithmetic (the bytes
+//      side: bucket 8). Every thread computes an RM×4 register tile of scores
 //      from float4 shared-memory reads — 16·RM FMAs per 4+RM loads (the
 //      FLOP side: bucket 512). It then compares its own scores with its
 //      rows' current k-th entries; only the few that beat them go to a
@@ -42,7 +42,16 @@
 //      (the exhausted-row rule of topk_merge.py).
 // Candidate buffers fill in any order, but a rank under a strict total
 // order does not depend on it, and there are no global atomics: the result
-// is deterministic. k ≤ 256, d ≤ 256.
+// is deterministic. k ≤ 512, d ≤ 256.
+//
+// The per-row lists live in shared memory; each lane of a merging warp
+// holds SLOTS of a list's entries in registers while it ranks them: 8 for
+// k ≤ 256 (serving's k = 10, SCE training's catalog selection b_y = 256),
+// 16 for k ≤ 512 (the position selection, b_x = 320 at the paper's
+// shape). The merge is by merge path: it first puts the ≤ 64 candidates
+// in key order, then places each element by a binary search of the other
+// side, O(log k + log n) per element, where ranking it by a scan of the
+// other side costs O(k + n): a 320-entry list once per candidate.
 //
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -59,9 +68,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileC = 64;         // catalog rows per tile
 constexpr int kColsPerThread = 4;  // columns tx + 16*j of the tile
-constexpr int kMaxK = 256;
+constexpr int kMaxK = 512;
 constexpr int kMaxD = 256;
-constexpr int kListSlots = kMaxK / 32;  // list entries a lane holds
+constexpr int kSlotsSmall = 8;  // list entries a lane holds for k ≤ 256
+constexpr int kSlotsLarge = kMaxK / 32;  // ... and for k ≤ 512
 constexpr int kMaxSmem = 232448;   // 227 KB opt-in per block on sm_90
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -93,50 +103,88 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Merges n ≤ 64 candidates (cv, ci) into the sorted list (lv, li) of
-// length k, keeping the k first by the key. Each element's new place is
-// its rank: the number of list entries and candidates that precede it.
-// Ids are distinct apart from (NEG_INF, ID_PAD) pads, which keep their
-// list order, so the ranks are a permutation. One warp; every lane calls.
-__device__ void rank_merge(float* lv, int* li, int k, const float* cv,
-                           const int* ci, int n, int lane) {
-  float ev[kListSlots + 2];
-  int ei[kListSlots + 2];
-  int er[kListSlots + 2];
-#pragma unroll
-  for (int t = 0; t < kListSlots; ++t) {
-    const int j = lane + 32 * t;
-    er[t] = k;  // k = not kept
-    if (j < k) {
-      const float v = lv[j];
-      const int id = li[j];
-      int r = j;
-#pragma unroll 4
-      for (int c = 0; c < n; ++c) r += precedes(cv[c], ci[c], v, id);
-      ev[t] = v;
-      ei[t] = id;
-      er[t] = r;
-    }
-  }
+// length k, keeping the k first by the key; the merged list is unique
+// under it. By merge path: the candidates are first moved into key order
+// in their own buffer (each one's rank among them is a count over n);
+// then a candidate's new place is its rank among the candidates plus the
+// number of list entries that precede it, and a list entry's new place is
+// its index plus the number of candidates that precede it — each a binary
+// search of the other, sorted side. Pads (NEG_INF, ID_PAD) in the list
+// are preceded by every candidate, so they shift right in list order.
+// One warp; every lane calls; k ≤ 32·SLOTS.
+template <int SLOTS>
+__device__ void rank_merge(float* lv, int* li, int k, float* cv, int* ci,
+                           int n, int lane) {
+  float mv[2];
+  int mi[2];
+  int mr[2];
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
     const int c = lane + 32 * u;
-    er[kListSlots + u] = k;
+    mr[u] = -1;
     if (c < n) {
       const float v = cv[c];
       const int id = ci[c];
       int r = 0;
 #pragma unroll 4
-      for (int j = 0; j < k; ++j) r += precedes(lv[j], li[j], v, id);
-#pragma unroll 4
       for (int c2 = 0; c2 < n; ++c2) r += precedes(cv[c2], ci[c2], v, id);
-      ev[kListSlots + u] = v;
-      ei[kListSlots + u] = id;
-      er[kListSlots + u] = r;
+      mv[u] = v;
+      mi[u] = id;
+      mr[u] = r;
     }
   }
   __syncwarp();
 #pragma unroll
-  for (int t = 0; t < kListSlots + 2; ++t) {
+  for (int u = 0; u < 2; ++u) {
+    if (mr[u] >= 0) {
+      cv[mr[u]] = mv[u];
+      ci[mr[u]] = mi[u];
+    }
+  }
+  __syncwarp();
+
+  float ev[SLOTS + 2];
+  int ei[SLOTS + 2];
+  int er[SLOTS + 2];
+#pragma unroll
+  for (int t = 0; t < SLOTS; ++t) {
+    const int j = lane + 32 * t;
+    er[t] = k;  // k = not kept
+    if (j < k) {
+      const float v = lv[j];
+      const int id = li[j];
+      int lo = 0, hi = n;  // candidates preceding (v, id)
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (precedes(cv[mid], ci[mid], v, id)) lo = mid + 1;
+        else hi = mid;
+      }
+      ev[t] = v;
+      ei[t] = id;
+      er[t] = j + lo;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int c = lane + 32 * u;
+    er[SLOTS + u] = k;
+    if (c < n) {
+      const float v = cv[c];
+      const int id = ci[c];
+      int lo = 0, hi = k;  // list entries preceding (v, id)
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (precedes(lv[mid], li[mid], v, id)) lo = mid + 1;
+        else hi = mid;
+      }
+      ev[SLOTS + u] = v;
+      ei[SLOTS + u] = id;
+      er[SLOTS + u] = c + lo;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < SLOTS + 2; ++t) {
     if (er[t] < k) {
       lv[er[t]] = ev[t];
       li[er[t]] = ei[t];
@@ -150,6 +198,7 @@ __device__ void rank_merge(float* lv, int* li, int k, const float* cv,
 // into the warp's 32-slot buffer (bv, bi) and rank-merged. The next 32
 // pairs are read before the current ones are merged, to hide their
 // latency. Every lane calls.
+template <int SLOTS>
 __device__ void stream_merge(float* lv, int* li, int k, float* bv, int* bi,
                              const float* pv, const int* pi, long count,
                              int lane) {
@@ -170,7 +219,7 @@ __device__ void stream_merge(float* lv, int* li, int k, float* bv, int* bi,
         bi[pos] = id;
       }
       __syncwarp();
-      rank_merge(lv, li, k, bv, bi, __popc(mask), lane);
+      rank_merge<SLOTS>(lv, li, k, bv, bi, __popc(mask), lane);
       tv = lv[k - 1];
       ti = li[k - 1];
     }
@@ -225,7 +274,7 @@ __device__ __forceinline__ int valid_flag(const unsigned char* valid, long c0,
   return tid < nc && (valid == nullptr || valid[c0 + tid] != 0);
 }
 
-template <int RM>
+template <int RM, int SLOTS>
 __global__ void __launch_bounds__(kThreads)
 mips_topk_partial_kernel(const float* __restrict__ q,
                          const float* __restrict__ y,
@@ -364,8 +413,8 @@ mips_topk_partial_kernel(const float* __restrict__ q,
       const int r = warp * kRowsPerWarp + rr;
       const int n = cnt[r];
       if (n == 0) continue;  // warp-uniform
-      rank_merge(lv + r * k, li + r * k, k, cv + r * kTileC,
-                 ci + r * kTileC, n, lane);
+      rank_merge<SLOTS>(lv + r * k, li + r * k, k, cv + r * kTileC,
+                                ci + r * kTileC, n, lane);
       if (lane == 0) cnt[r] = 0;
     }
   }
@@ -383,6 +432,7 @@ mips_topk_partial_kernel(const float* __restrict__ q,
   }
 }
 
+template <int SLOTS>
 __global__ void __launch_bounds__(kThreads)
 mips_topk_merge_kernel(const float* __restrict__ part_vals,
                        const int* __restrict__ part_ids,
@@ -410,13 +460,13 @@ mips_topk_merge_kernel(const float* __restrict__ part_vals,
   const long hi = n * (warp + 1) / kWarps;
   const float* pv = part_vals + (long)row * n + lo;
   const int* pi = part_ids + (long)row * n + lo;
-  stream_merge(lv, li, k, buf_v + warp * 32, buf_i + warp * 32, pv, pi,
-               hi - lo, lane);
+  stream_merge<SLOTS>(lv, li, k, buf_v + warp * 32,
+                              buf_i + warp * 32, pv, pi, hi - lo, lane);
   __syncthreads();
 
   if (warp == 0) {
-    stream_merge(lv, li, k, buf_v, buf_i, wl_v + k, wl_i + k,
-                 (long)(kWarps - 1) * k, lane);
+    stream_merge<SLOTS>(lv, li, k, buf_v, buf_i, wl_v + k,
+                                wl_i + k, (long)(kWarps - 1) * k, lane);
     for (int j = lane; j < k; j += 32) {
       vals[(long)row * k + j] = lv[j];
       ids[(long)row * k + j] = lv[j] == kNegInf ? kIdPad : li[j];
@@ -426,23 +476,24 @@ mips_topk_merge_kernel(const float* __restrict__ part_vals,
 
 constexpr int kMaxDevices = 64;
 
-// Opts mips_topk_partial_kernel<RM> in to the full kMaxSmem of dynamic
-// shared memory, once per device (the attribute is per device context).
-template <int RM>
+// Opts mips_topk_partial_kernel<RM, SLOTS> in to the full
+// kMaxSmem of dynamic shared memory, once per device (the attribute is
+// per device context).
+template <int RM, int SLOTS>
 cudaError_t allow_max_smem() {
   static bool done[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(mips_topk_partial_kernel<RM>,
+  err = cudaFuncSetAttribute(mips_topk_partial_kernel<RM, SLOTS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kMaxSmem);
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
 }
 
-template <int RM>
+template <int RM, int SLOTS>
 cudaError_t launch_partial(const float* q, const float* y,
                            const unsigned char* valid, float* part_vals,
                            int* part_ids, int n_q, int c, int d, int k,
@@ -450,13 +501,50 @@ cudaError_t launch_partial(const float* q, const float* y,
                            cudaStream_t stream) {
   const size_t smem = partial_smem_bytes<RM>(d, k);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = allow_max_smem<RM>();
+  cudaError_t err = allow_max_smem<RM, SLOTS>();
   if (err != cudaSuccess) return err;
   const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
   const dim3 grid((n_q + 16 * RM - 1) / (16 * RM), n_split);
-  mips_topk_partial_kernel<RM><<<grid, kThreads, smem, stream>>>(
+  mips_topk_partial_kernel<RM, SLOTS>
+      <<<grid, kThreads, smem, stream>>>(
       q, y, valid, part_vals, part_ids, n_q, c, d, k, split_cols, id_offset,
       vec);
+  return cudaGetLastError();
+}
+
+// The partial pass at the block height rows_per_thread, then the merge,
+// both at list width SLOTS.
+template <int SLOTS>
+cudaError_t launch_pair(const float* q, const float* y,
+                        const unsigned char* valid, float* part_vals,
+                        int* part_ids, float* vals, int* ids, int n_q, int c,
+                        int d, int k, int rows_per_thread, int n_split,
+                        int split_cols, int id_offset, cudaStream_t s) {
+  cudaError_t err;
+  switch (rows_per_thread) {
+    case 1:
+      err = launch_partial<1, SLOTS>(
+          q, y, valid, part_vals, part_ids, n_q, c, d, k, n_split,
+          split_cols, id_offset, s);
+      break;
+    case 2:
+      err = launch_partial<2, SLOTS>(
+          q, y, valid, part_vals, part_ids, n_q, c, d, k, n_split,
+          split_cols, id_offset, s);
+      break;
+    case 4:
+      err = launch_partial<4, SLOTS>(
+          q, y, valid, part_vals, part_ids, n_q, c, d, k, n_split,
+          split_cols, id_offset, s);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  const size_t merge_smem =
+      (sizeof(float) + sizeof(int)) * kWarps * ((size_t)k + 32);
+  mips_topk_merge_kernel<SLOTS><<<n_q, kThreads, merge_smem, s>>>(
+      part_vals, part_ids, vals, ids, n_split, k);
   return cudaGetLastError();
 }
 
@@ -480,27 +568,13 @@ extern "C" int mips_topk_launch(const float* q, const float* y,
       (long)n_split * split_cols < (long)c)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (rows_per_thread) {
-    case 1:
-      err = launch_partial<1>(q, y, valid, part_vals, part_ids, n_q, c, d, k,
-                              n_split, split_cols, id_offset, s);
-      break;
-    case 2:
-      err = launch_partial<2>(q, y, valid, part_vals, part_ids, n_q, c, d, k,
-                              n_split, split_cols, id_offset, s);
-      break;
-    case 4:
-      err = launch_partial<4>(q, y, valid, part_vals, part_ids, n_q, c, d, k,
-                              n_split, split_cols, id_offset, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
-  const size_t merge_smem =
-      (sizeof(float) + sizeof(int)) * kWarps * ((size_t)k + 32);
-  mips_topk_merge_kernel<<<n_q, kThreads, merge_smem, s>>>(
-      part_vals, part_ids, vals, ids, n_split, k);
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      k <= 32 * kSlotsSmall
+          ? launch_pair<kSlotsSmall>(q, y, valid, part_vals, part_ids, vals,
+                                     ids, n_q, c, d, k, rows_per_thread,
+                                     n_split, split_cols, id_offset, s)
+          : launch_pair<kSlotsLarge>(q, y, valid, part_vals, part_ids, vals,
+                                     ids, n_q, c, d, k, rows_per_thread,
+                                     n_split, split_cols, id_offset, s);
+  return (int)err;
 }

@@ -5,10 +5,12 @@ It checks its inputs, plans the catalog split, allocates the outputs
 and the ``(n_q, S, k)`` candidate scratch, and launches the kernel pair
 on PyTorch's current stream. It takes CUDA tensors only: the CPU path is
 ``kernels/ref.py::mips_topk_ref``, chosen by ``kernels/ops.py``.
-``mips_topk.launches`` counts the calls that launched the kernel.
+``mips_topk.launches`` counts the calls that launched the kernel, and
+``mips_topk.launches_by_k`` counts them by ``k``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -18,9 +20,10 @@ import torch
 from repro_torch.kernels import _build
 
 TILE_C = 64  # catalog rows per tile (kTileC in the source)
-MAX_K = 256
+MAX_K = 512  # kMaxK in the source (lists of ≤ 256 and ≤ 512 entries)
 MAX_D = 256
 MAX_SMEM = 232448  # bytes of shared memory one block may opt in to on sm_90
+SMALL_K = 32  # k up to this may take blocks of 32 or 64 query rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,9 +40,10 @@ class Plan:
 def partial_smem_bytes(rows_per_thread: int, d: int, k: int) -> int:
     """Shared memory of one partial block, as ``partial_smem_bytes`` in
     the source lays it out (the source refuses a launch above
-    ``MAX_SMEM``, so a plan that disagreed would raise): staged queries and two catalog tiles at a row pitch of an
-    odd number of float4s, the tiles' valid flags, per-row candidate
-    counts, per-row candidate buffers and the per-row (value, id) lists."""
+    ``MAX_SMEM``, so a plan that disagreed would raise): staged queries
+    and two catalog tiles at a row pitch of an odd number of float4s,
+    the tiles' valid flags, per-row candidate counts, per-row candidate
+    buffers and the per-row (value, id) lists."""
     qb = 16 * rows_per_thread
     pitch = 4 * ((-(-d // 4)) | 1)
     return 4 * (qb * pitch + 2 * TILE_C * pitch) + 4 * (2 * TILE_C + qb) \
@@ -48,16 +52,26 @@ def partial_smem_bytes(rows_per_thread: int, d: int, k: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def plan(n_q: int, c: int, d: int, k: int, n_sm: int) -> Plan:
-    """Pick the block height and the catalog split for one call: the
-    smallest block that holds the bucket's rows (16, 32 or 64 rows),
-    shrunk while its shared memory would not fit, and enough splits that
-    about ``2·n_sm`` blocks are in flight."""
-    rm = 1 if n_q <= 16 else 2 if n_q <= 32 else 4
+    """Pick the block height and the catalog split for one call.
+
+    Block height: for ``k ≤ SMALL_K`` (serving) the smallest block that
+    holds the bucket's rows (16, 32 or 64), shrunk while its shared
+    memory would not fit; above it (SCE training's selections) 16 rows,
+    the fastest height at every split count there.
+    Splits: as many as keep all blocks in one wave of ``2·n_sm``, at
+    least one. At k 256 and 320 two 16-row blocks fit an SM (shared
+    memory and registers); shorter splits then run faster until the
+    blocks spill a mostly empty second wave, which costs a whole block's
+    time. ``probes/mips_topk_times.py sweep`` on the H100 read 13 splits
+    (260 blocks) fastest and 14 (280) slowest of the counts it tried at
+    both training selections (PERF.md §6). At serving's buckets
+    ``2·n_sm`` divides exactly."""
+    tiles = -(-c // TILE_C)
+    rm = 1 if n_q <= 16 or k > SMALL_K else 2 if n_q <= 32 else 4
     while rm > 1 and partial_smem_bytes(rm, d, k) > MAX_SMEM:
         rm //= 2
     n_qb = -(-n_q // (16 * rm))
-    tiles = -(-c // TILE_C)
-    n_split = min(tiles, max(1, -(-2 * n_sm // n_qb)))
+    n_split = min(tiles, max(1, 2 * n_sm // n_qb))
     split_cols = -(-tiles // n_split) * TILE_C
     return Plan(rm, -(-c // split_cols), split_cols)
 
@@ -111,7 +125,7 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0):
     ----------
     q : (n_q, d) float32 CUDA tensor, contiguous.
     y : (C, d) float32 CUDA tensor, contiguous (catalog, or a shard).
-    k : top-k size, clamped to ``C``; at most 256 after the clamp.
+    k : top-k size, clamped to ``C``; at most 512 after the clamp.
     valid : optional (C,) contiguous bool — rows with False are never
         selected.
     id_offset : global id of ``y``'s first row.
@@ -154,7 +168,9 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0):
             f"(n_q={n_q}, C={c}, d={d}, k={k}, plan={p})"
         )
     mips_topk.launches += 1
+    mips_topk.launches_by_k[k] += 1
     return vals, ids
 
 
 mips_topk.launches = 0
+mips_topk.launches_by_k = collections.Counter()

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the kernels (port of the slice of
-``repro/kernels/ref.py`` this package has kernels for).
+``repro/kernels/ref.py`` this package has kernels for: the MIPS top-k and
+the in-bucket SCE loss).
 
 They are the CPU path of ``kernels/ops.py`` and the yardstick the tests
 and ``chip_smoke.py`` hold each CUDA kernel against. No production path
@@ -10,6 +11,47 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.topk_merge import ID_PAD, NEG_INF, merge_topk_tile
+
+
+def _masked_neg_logits(x_b, y_b, tgt_b, cand_ids, logit_softcap=None):
+    """Collision- and validity-masked in-bucket negative logits (f32),
+    ``(n_b, b_x, b_y)``. A candidate equal to the position's target is
+    not a negative; a candidate with a negative id is an invalid slot
+    for every position. The softcap applies before the mask, so masked
+    slots stay at ``NEG_INF``, never ``−cap``."""
+    neg = torch.einsum("nxd,nyd->nxy", x_b.to(torch.float32),
+                       y_b.to(torch.float32))
+    if logit_softcap is not None:
+        neg = logit_softcap * torch.tanh(neg / logit_softcap)
+    collide = cand_ids[:, None, :] == tgt_b[:, :, None]
+    invalid = collide | (cand_ids < 0)[:, None, :]
+    return torch.where(invalid, NEG_INF, neg)
+
+
+def sce_bucket_loss_ref(x_b, y_b, tgt_b, cand_ids, pos_logit,
+                        logit_softcap=None):
+    """In-bucket CE (Algorithm 1, lines 12–15) over pre-gathered
+    candidates ``y_b`` (n_b, b_y, d) → (n_b, b_x) losses:
+    ``logsumexp([pos, negatives]) − pos`` with the masked slots of
+    :func:`_masked_neg_logits` left out. ``pos_logit`` arrives already
+    capped. Differentiable by autograd."""
+    neg = _masked_neg_logits(x_b, y_b, tgt_b, cand_ids, logit_softcap)
+    pos = pos_logit.to(torch.float32)
+    m = torch.maximum(neg.amax(dim=-1), pos)
+    s = torch.exp(neg - m[..., None]).sum(dim=-1) + torch.exp(pos - m)
+    return (m + torch.log(s) - pos).to(pos_logit.dtype)
+
+
+def sce_gather_loss_ref(x_b, y, idx_y, tgt_b, cand_ids, pos_logit,
+                        logit_softcap=None):
+    """The plain version of ``kernels/sce_prefetch.py``: gather the
+    candidate rows ``y[idx_y]`` (ids clamped to ``[0, C)``, as the
+    reference's ops layer does), then :func:`sce_bucket_loss_ref`. Its
+    autograd gradient of ``y`` is the scatter-add the dY kernel does
+    without the ``(n_b, b_y, d)`` tensor."""
+    y_b = y[idx_y.long().clamp(0, y.shape[0] - 1)]
+    return sce_bucket_loss_ref(x_b, y_b, tgt_b, cand_ids, pos_logit,
+                               logit_softcap)
 
 
 def mips_topk_ref(q, y, k: int, *, valid=None, chunk: int = 512,

@@ -1,0 +1,182 @@
+"""In-bucket SCE with the candidates gathered from the catalog, on the
+H100 — the wrappers of ``csrc/sce_gather.cu`` (port of ``sce_gather_loss``
+of ``repro/kernels/sce_prefetch.py``).
+
+Three kernels, one wrapper each, each with its own launch counter:
+
+* :func:`sce_gather_fwd` — per-(bucket, row) loss and logsumexp;
+* :func:`sce_gather_dx` — the gradient of ``x_b`` (n_b, b_x, d);
+* :func:`sce_gather_dy` — the gradient of the whole catalog ``y`` (C, d),
+  added into a zeroed buffer row by row (``atomicAdd``: not bitwise
+  repeatable, rows no bucket selected stay exactly 0).
+
+:class:`SCEGatherLoss` ties them together for autograd: the forward saves
+``lse``, the backward launches dX and dY and computes the positive's
+cotangent ``d_pos = (exp(pos − lse) − 1)·g`` as a plain tensor
+expression, as the reference's ``_loss_vjp_bwd`` does. The wrappers take
+CUDA tensors only; the CPU path is ``kernels/ref.py::sce_gather_loss_ref``,
+chosen by ``kernels/ops.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_D = 256  # kMaxD in the source
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The built library with its C signatures declared (pointers and the
+    stream as ``c_void_p``, ints as ``c_int``, the cap as ``c_float``)."""
+    lib = _build.load("sce_gather")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name in ("sce_gather_fwd_launch", "sce_gather_dx_launch",
+                 "sce_gather_dy_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 8 + [i] * 5 + [f, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(x_b, y, idx_y, tgt_b, cand_ids, *rows):
+    """Device, type, shape and contiguity of one call; returns
+    ``(n_b, b_x, b_y, C, d)``. ``rows`` are the (n_b, b_x) f32 inputs
+    (``pos`` or ``lse`` and ``g``)."""
+    tensors = (x_b, y, idx_y, tgt_b, cand_ids) + rows
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("sce_gather kernels take CUDA tensors only")
+    if any(t.device != x_b.device for t in tensors):
+        raise ValueError("sce_gather inputs lie on different devices")
+    if any(t.dtype != torch.float32 for t in (x_b, y) + rows):
+        raise TypeError("sce_gather takes float32 x_b, y, pos/lse and g")
+    if any(t.dtype != torch.int32 for t in (idx_y, tgt_b, cand_ids)):
+        raise TypeError("sce_gather takes int32 idx_y, tgt_b and cand_ids")
+    if x_b.ndim != 3 or y.ndim != 2 or x_b.shape[2] != y.shape[1]:
+        raise ValueError(f"need x_b (n_b, b_x, d), y (C, d); got "
+                         f"{tuple(x_b.shape)}, {tuple(y.shape)}")
+    n_b, b_x, d = x_b.shape
+    if idx_y.ndim != 2 or idx_y.shape[0] != n_b or cand_ids.shape != idx_y.shape:
+        raise ValueError(f"need idx_y and cand_ids (n_b, b_y); got "
+                         f"{tuple(idx_y.shape)}, {tuple(cand_ids.shape)}")
+    if any(t.shape != (n_b, b_x) for t in (tgt_b,) + rows):
+        raise ValueError(f"tgt_b, pos/lse and g must be ({n_b}, {b_x})")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("sce_gather takes contiguous tensors")
+    if not 0 < d <= MAX_D:
+        raise ValueError(f"d={d} outside (0, {MAX_D}]")
+    b_y, c = idx_y.shape[1], y.shape[0]
+    if min(n_b, b_x, b_y, c) == 0:
+        raise ValueError("sce_gather needs non-empty buckets and catalog")
+    return n_b, b_x, b_y, c, d
+
+
+def _cap(logit_softcap) -> float:
+    if logit_softcap is None:
+        return 0.0
+    if not logit_softcap > 0:
+        raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
+    return float(logit_softcap)
+
+
+def _launch(name, args, shape, device):
+    n_b, b_x, b_y, c, d = shape
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(_lib(), name)(
+            *[a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args[:-1]],
+            n_b, b_x, b_y, c, d, args[-1], stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{name} failed: cudaError {err} (n_b={n_b}, b_x={b_x}, "
+            f"b_y={b_y}, C={c}, d={d})"
+        )
+
+
+def sce_gather_fwd(x_b, y, idx_y, tgt_b, cand_ids, pos_logit, *,
+                   logit_softcap=None):
+    """Forward kernel: ``(loss, lse)``, each (n_b, b_x) f32. ``pos_logit``
+    arrives already capped; ``logit_softcap`` caps the in-bucket logits
+    before the mask. Matches ``ref.sce_gather_loss_ref``."""
+    shape = _check(x_b, y, idx_y, tgt_b, cand_ids, pos_logit)
+    loss = torch.empty_like(pos_logit)
+    lse = torch.empty_like(pos_logit)
+    _launch("sce_gather_fwd_launch",
+            (x_b, y, idx_y, tgt_b, cand_ids, pos_logit, loss, lse,
+             _cap(logit_softcap)), shape, x_b.device)
+    sce_gather_fwd.launches += 1
+    return loss, lse
+
+
+def sce_gather_dx(x_b, y, idx_y, tgt_b, cand_ids, lse, g, *,
+                  logit_softcap=None):
+    """dX kernel: the (n_b, b_x, d) gradient of ``x_b`` for the upstream
+    cotangent ``g`` (n_b, b_x) of the loss."""
+    shape = _check(x_b, y, idx_y, tgt_b, cand_ids, lse, g)
+    dx = torch.empty_like(x_b)
+    _launch("sce_gather_dx_launch",
+            (x_b, y, idx_y, tgt_b, cand_ids, lse, g, dx,
+             _cap(logit_softcap)), shape, x_b.device)
+    sce_gather_dx.launches += 1
+    return dx
+
+
+def sce_gather_dy(x_b, y, idx_y, tgt_b, cand_ids, lse, g, *,
+                  logit_softcap=None):
+    """dY kernel: the (C, d) gradient of the catalog ``y``; each selected
+    row ``idx_y[n, j]`` receives the sum over buckets, every other row is
+    exactly 0. The sum order varies from run to run (atomics)."""
+    shape = _check(x_b, y, idx_y, tgt_b, cand_ids, lse, g)
+    dy = torch.zeros_like(y)
+    _launch("sce_gather_dy_launch",
+            (x_b, y, idx_y, tgt_b, cand_ids, lse, g, dy,
+             _cap(logit_softcap)), shape, x_b.device)
+    sce_gather_dy.launches += 1
+    return dy
+
+
+sce_gather_fwd.launches = 0
+sce_gather_dx.launches = 0
+sce_gather_dy.launches = 0
+
+
+class SCEGatherLoss(torch.autograd.Function):
+    """``loss (n_b, b_x)`` of ``(x_b, y, idx_y, tgt_b, cand_ids,
+    pos_logit, logit_softcap)``; gradients for ``x_b``, ``y`` and
+    ``pos_logit`` (the ids get none)."""
+
+    @staticmethod
+    def forward(ctx, x_b, y, idx_y, tgt_b, cand_ids, pos_logit,
+                logit_softcap):
+        loss, lse = sce_gather_fwd(x_b, y, idx_y, tgt_b, cand_ids, pos_logit,
+                                   logit_softcap=logit_softcap)
+        ctx.save_for_backward(x_b, y, idx_y, tgt_b, cand_ids, pos_logit, lse)
+        ctx.logit_softcap = logit_softcap
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        x_b, y, idx_y, tgt_b, cand_ids, pos_logit, lse = ctx.saved_tensors
+        g = g.contiguous()
+        args = (x_b, y, idx_y, tgt_b, cand_ids, lse, g)
+        cap = ctx.logit_softcap
+        need = ctx.needs_input_grad
+        dx = sce_gather_dx(*args, logit_softcap=cap) if need[0] else None
+        dy = sce_gather_dy(*args, logit_softcap=cap) if need[1] else None
+        d_pos = (torch.exp(pos_logit - lse) - 1.0) * g if need[5] else None
+        return dx, dy, None, None, None, d_pos, None
+
+
+def sce_gather_loss(x_b, y, idx_y, tgt_b, cand_ids, pos_logit, *,
+                    logit_softcap=None):
+    """In-bucket SCE losses (n_b, b_x) on the card, differentiable in
+    ``x_b``, ``y`` and ``pos_logit``; the ``(n_b, b_y, d)`` candidate
+    tensor never exists. See the module docstring."""
+    return SCEGatherLoss.apply(x_b, y, idx_y, tgt_b, cand_ids, pos_logit,
+                               logit_softcap)

@@ -1,4 +1,5 @@
-"""Carry SASRec weights across from the JAX package.
+"""Carry SASRec weights and their AdamW state across from the JAX
+package.
 
 The port keeps the reference's parameter layout, so conversion is a
 copy: each numpy leaf of the JAX pytree becomes a tensor of the same
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.optim.optimizers import OptState
 
 TOP_KEYS = ("item_emb", "pos_emb", "ln_f_g", "ln_f_b", "layers")
 LAYER_KEYS = (
@@ -43,3 +45,22 @@ def sasrec_params_from_jax(tree: Mapping, *, device=None):
     out = {k: _tensor(tree[k], device) for k in TOP_KEYS if k != "layers"}
     out["layers"] = {k: _tensor(layers[k], device) for k in LAYER_KEYS}
     return out
+
+
+def adamw_state_from_jax(opt_state, *, device=None) -> OptState:
+    """The port's AdamW state from the reference's ``OptState(step,
+    inner={"m": tree, "v": tree})`` of a SASRec model, its leaves numpy
+    arrays (``jax.tree.map(np.asarray, opt_state)``): the step becomes a
+    0-d int32 tensor, ``m`` and ``v`` f32 trees in the parameters'
+    layout, on ``device`` (``cuda`` unless given; raises without CUDA).
+    """
+    device = resolve_device(device)
+    step, inner = opt_state
+    if set(inner) != {"m", "v"}:
+        raise KeyError(f"expected AdamW moments 'm', 'v', got {sorted(inner)}")
+    return OptState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=device),
+        inner={k: sasrec_params_from_jax(inner[k], device=device)
+               for k in ("m", "v")},
+    )

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py`` and no script of ``probes/`` imports ``jax`` or the JAX
+package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -8,7 +9,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
-]
+] + sorted((ROOT / "probes").glob("*.py"))
 
 
 def _imported_modules(tree):

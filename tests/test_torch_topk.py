@@ -165,6 +165,8 @@ def test_mips_topk_ref_chunk_invariant():
     (8, 173_520, 64, 10), (32, 173_520, 64, 10), (512, 173_520, 64, 10),
     (40, 20_000, 128, 256), (40, 30_000, 256, 256), (3, 7, 64, 7),
     (1, 1, 1, 1), (100, 1_037, 33, 17),
+    # SCE training's selections and the k cap (the merge-path plan)
+    (320, 25_600, 64, 320), (320, 173_520, 64, 256), (64, 20_000, 256, 512),
 ])
 def test_plan_covers_catalog_within_shared_memory(n_q, c, d, k):
     p = kernel.plan(n_q, c, d, k, n_sm=132)
