@@ -41,18 +41,45 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    and ``torch.bmm`` on pre-gathered candidates (the nearest one-call
    yardstick; it computes the products alone) with a cold L2 cache.
 6. The trainer at full width: ``train("sasrec-sce", cfg=make_config(),
-   batch=128, steps=30, seed=0, device="cuda")``. Every loss finite, no
-   step skipped, the mean loss of the last 5 steps below that of the
-   first 5, ``mips_topk`` launched exactly 2 (once at k = 320, once at
-   k = 256) and each ``sce_gather`` kernel exactly once per step. Prints
-   the median step, the step's breakdown from CUDA events that the
-   trainer's own steps record through its ``mark`` hook, and the run's
-   peak device memory.
-7. Prints the kernels' JSON line, the card's name and power limit, and
+   batch=128, steps=30, seed=0, eval_every=10, eval_users=128,
+   device="cuda")``. Every loss finite, no step skipped, the mean loss of
+   the last 5 steps below that of the first 5, ``mips_topk`` launched
+   exactly 2 (once at k = 320, once at k = 256) and each ``sce_gather``
+   kernel exactly once per step; three ``[eval]`` lines, each eval kernel
+   launched once per evaluation. Prints the median step (its evaluations
+   excluded: the trainer takes a step's time before its evaluation), the
+   step's breakdown from CUDA events that the trainer's own steps record
+   through its ``mark`` hook, and the run's peak device memory.
+7. Eval kernels against their plain versions on the card: ``eval_fused``
+   at B = 128 and 256 against the whole catalog (C = 173,520, k = 10,
+   window [1, 173,511)), with the LSE on (cap none and 30), on
+   integer-valued inputs, a ragged C with an ``id_offset``, and k above
+   the valid columns; ``eval_tgt_gather`` with each. Integer inputs:
+   ids, vals, ``gt``, ``eq`` and ``tgt`` equal bit for bit. Floats: vals
+   within ``1e-5·max|score|``, ids equal where consecutive scores are
+   more than ``1e-4·max|score|`` apart, ranks inside the band of a dense
+   f64 oracle (other scores within ``1e-5·max|score|`` of the target
+   may fall on either side), ``tgt`` within ``1e-5·max|score|``. The LSE
+   ``m + log s`` within 1e-5 relative. Every input: a target in the
+   kernel's top-k carries exactly ``tgt``, and ``eq ≥ 1`` on every row
+   whose target is valid. Times each kernel, its plain version and one
+   PyTorch computation of the same function with a cold L2 cache.
+8. The evaluation at full width: ``evaluate_streaming`` over 8 held-out
+   batches of 256 users (``eval_batch`` of ``Cursor(0, step)``, steps
+   0–7) on random weights from seed 0, folded into one
+   ``MetricAccumulator``; then the dense on-card oracle
+   (``core/metrics.py``). Streamed and dense ranks inside the f64 band,
+   HR/NDCG/COV@{1,5,10} side by side (HR and NDCG may differ by the
+   share of rows whose rank the band leaves open), the eval kernels'
+   launch counts, and the streaming evaluation's peak device memory
+   against the dense ``B·C·4 B``.
+9. Prints the kernels' JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``. ``mips_topk`` has
    three entries: all its main-path launches timed at serving's largest
    bucket, and its training selections (k = 320 over the positions,
    k = 256 over the catalog), each with the trainer's launches at that k.
+   ``eval_fused`` and ``eval_tgt_gather`` have two each: the evaluation
+   phase's B = 256 and the trainer's B = 128.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. ``--json PATH`` also writes every case, time and count to PATH.
@@ -80,6 +107,8 @@ K = 10
 BUCKETS = (8, 32, 512)
 NEG_INF = -1e30
 ID_PAD = 2**31 - 1
+EVAL_B = (128, 256)  # users per evaluation: the trainer's, the eval phase's
+KS = (1, 5, 10)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -665,19 +694,24 @@ def train_kernel_phase(dev):
 # The trainer at full width
 # ---------------------------------------------------------------------------
 TRAIN_STEPS = 30
+EVAL_EVERY = 10
 
 
 PHASES = ("h2d", "forward", "select", "loss_forward", "backward",
           "optimizer")
+EVAL_PHASES = ("h2d", "forward", "sweep", "fold")
 
 
 class StepMarks:
-    """The ``mark`` hook of ``launch/train.py::train``: a CUDA event where
-    each phase of each step ends (``"start"`` opens a step), read after
-    the run. The device timeline between two events includes any wait for
-    the host to enqueue the next launch."""
+    """The ``mark`` hook of ``launch/train.py::train`` (``phases``
+    ``PHASES``) and of ``eval/harness.py::evaluate_streaming``
+    (``EVAL_PHASES``): a CUDA event where each phase of each step ends
+    (``"start"`` opens a step), read after the run. The device timeline
+    between two events includes any wait for the host to enqueue the
+    next launch."""
 
-    def __init__(self):
+    def __init__(self, phases=PHASES):
+        self.phases = phases
         self.steps = []
 
     def __call__(self, name):
@@ -691,10 +725,10 @@ class StepMarks:
 
     def breakdown(self, skip=1):
         """Mean ms of each phase over the steps after the first ``skip``."""
-        sums = dict.fromkeys(PHASES, 0.0)
+        sums = dict.fromkeys(self.phases, 0.0)
         for marks in self.steps[skip:]:
             names = [n for n, _ in marks]
-            check(names == ["start", *PHASES], f"phase marks {names}")
+            check(names == ["start", *self.phases], f"phase marks {names}")
             for (_, a), (name, b) in zip(marks, marks[1:]):
                 sums[name] += a.elapsed_time(b)
         n = len(self.steps) - skip
@@ -708,13 +742,14 @@ def train_phase(dev):
 
     from repro_torch.configs.sasrec_sce import make_config
     from repro_torch.core import sce
-    from repro_torch.kernels import sce_prefetch
+    from repro_torch.kernels import eval_fused, sce_prefetch
     from repro_torch.kernels.mips_topk import mips_topk
     from repro_torch.launch.train import train
 
     cfg = make_config()
     counters = (mips_topk, sce_prefetch.sce_gather_fwd,
-                sce_prefetch.sce_gather_dx, sce_prefetch.sce_gather_dy)
+                sce_prefetch.sce_gather_dx, sce_prefetch.sce_gather_dy,
+                eval_fused.eval_fused, eval_fused.eval_tgt_gather)
     marks = StepMarks()
     torch.cuda.synchronize()
     live_bytes = torch.cuda.memory_allocated(dev)
@@ -724,7 +759,8 @@ def train_phase(dev):
     mips_topk.launches_by_k.clear()
     t0 = time.monotonic()
     out = train("sasrec-sce", cfg=cfg, batch=N_POS // cfg.max_len,
-                steps=TRAIN_STEPS, seed=0, log_every=10, device=dev,
+                steps=TRAIN_STEPS, seed=0, log_every=10,
+                eval_every=EVAL_EVERY, eval_users=EVAL_B[0], device=dev,
                 mark=marks)
     wall_s = time.monotonic() - t0
     launches = {fn.__name__: fn.launches for fn in counters}  # ... ends here
@@ -746,12 +782,23 @@ def train_phase(dev):
         check(launches[name] == TRAIN_STEPS,
               f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
               f"steps")
+    n_evals = TRAIN_STEPS // EVAL_EVERY
+    for name in ("eval_fused", "eval_tgt_gather"):
+        check(launches[name] == n_evals,
+              f"{name} launched {launches[name]} times in {n_evals} "
+              f"evaluations")
+    check(set(out.get("eval", {})) == {f"{m}@{k}" for m in ("hr", "ndcg",
+                                                           "cov")
+                                       for k in KS}, "no eval metrics")
     median_ms = statistics.median(out["step_s"][1:]) * 1e3
+    eval_s = wall_s - sum(out["step_s"])
     print(f"  trainer: {TRAIN_STEPS} steps of batch {N_POS // cfg.max_len} "
           f"× L {cfg.max_len}, C {cfg.catalog_loss_size}, in {wall_s:.2f} s; "
           f"loss {losses[0]:.4f} → {losses[-1]:.4f} (mean of first 5 "
           f"{first:.4f}, last 5 {last:.4f}); median step {median_ms:.3f} ms "
-          f"(host clock, steps 2–{TRAIN_STEPS}); launches {launches}, "
+          f"(host clock, steps 2–{TRAIN_STEPS}, evaluations excluded); "
+          f"{n_evals} evaluations of {EVAL_B[0]} users and set-up "
+          f"{eval_s:.2f} s (wall − Σ steps); launches {launches}, "
           f"mips_topk by k {by_k}")
     bd = marks.breakdown()
     print("  step breakdown: " + " + ".join(
@@ -778,7 +825,346 @@ def train_phase(dev):
           f"N·C·4 B = {mem['full_ce_logit_bytes'] / 1e9:.2f} GB")
     return {"losses": losses, "step_s": out["step_s"], "wall_s": wall_s,
             "median_step_ms": median_ms, "launches": launches,
+            "eval": out["eval"], "eval_and_setup_s": eval_s,
             "mips_topk_launches_by_k": by_k, "breakdown": bd, "memory": mem}
+
+
+# ---------------------------------------------------------------------------
+# Eval kernels against their plain versions
+# ---------------------------------------------------------------------------
+def rank_band(x, y, t, ok, gid, tol):
+    """Per row, the least and the most 0-based rank of the target that a
+    dense f64 oracle allows when valid scores within ``tol`` of it may
+    fall on either side (the target's own column left out); also the
+    dense f64 scores, masked to NEG_INF off the valid columns."""
+    import torch
+
+    s64 = x.double() @ y.double().T
+    c = y.shape[0]
+    local = t.long() - int(gid[0])
+    owned = (local >= 0) & (local < c)
+    t64 = torch.where(owned, s64.gather(1, local.clamp(0, c - 1)[:, None])[:, 0],
+                      0.0)
+    other = ok[None, :] & (gid[None, :] != t[:, None])
+    lo = ((s64 > t64[:, None] + tol) & other).sum(1)
+    hi = ((s64 >= t64[:, None] - tol) & other).sum(1)
+    return lo, hi, torch.where(ok[None, :], s64, NEG_INF)
+
+
+def eval_case(name, x, y, t, k, *, c_lo, c_hi, id_offset=0, cap=None,
+              with_lse=False, exact=False):
+    """``eval_fused`` (and the ``eval_tgt_gather`` it calls) against the
+    plain version on one input; returns the case's errors, raises on
+    disagreement."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    kw = dict(c_lo=c_lo, c_hi=c_hi, id_offset=id_offset, logit_softcap=cap,
+              with_lse=with_lse)
+    vals, ids, gt, eq, tgt, m, s = ops.eval_fused(x, y, t, k, **kw)
+    torch.cuda.synchronize()
+    want = ref.eval_fused_ref(x, y, t, k, **kw)
+    dev = x.device
+    gid = id_offset + torch.arange(y.shape[0], device=dev)
+    ok = (gid >= c_lo) & (gid < c_hi)
+    scale = (x.double() @ y.double().T)[:, ok].abs().max().item()
+    tol = 1e-5 * scale
+    lo, hi, s64 = rank_band(x, y, t, ok, gid, tol)
+    rank = gt + (eq - 1).clamp_min(0)
+    check(bool(((rank >= lo) & (rank <= hi)).all()),
+          f"{name}: a rank outside the f64 band")
+    err = (vals - want[0]).abs().max().item()
+    tgt_err = (tgt - want[4]).abs().max().item()
+    if exact:
+        for what, a, b in zip(("vals", "ids", "gt", "eq", "tgt"),
+                              (vals, ids, gt, eq, tgt), want[:5]):
+            check(torch.equal(a, b), f"{name}: {what} differ on exact inputs")
+    else:
+        check(err <= tol, f"{name}: values differ by {err} > {tol}")
+        check(tgt_err <= tol, f"{name}: tgt differs by {tgt_err} > {tol}")
+        # ids where consecutive dense scores are more than 1e-4·max apart
+        top = torch.topk(s64, min(k + 1, s64.shape[1]), dim=1).values
+        if top.shape[1] == k:
+            top = torch.cat([top, torch.full_like(top[:, :1], NEG_INF)], 1)
+        gap = 1e-4 * scale
+        prv = torch.cat([torch.full_like(top[:, :1], float("inf")),
+                         top[:, :k - 1]], 1)
+        isolated = ((prv - top[:, :k]) > gap) & ((top[:, :k] - top[:, 1:])
+                                                 > gap)
+        check(bool((ids == want[1])[isolated].all()),
+              f"{name}: isolated ids differ from the plain version")
+    lse_err = 0.0
+    if with_lse:
+        lse, want_lse = m + torch.log(s), want[5] + torch.log(want[6])
+        lse_err = ((lse - want_lse).abs()
+                   / want_lse.abs().clamp_min(1e-6)).max().item()
+        check(lse_err <= 1e-5, f"{name}: lse relative error {lse_err}")
+    hit = ids == t[:, None]
+    check(torch.equal(vals[hit], tgt[:, None].expand(-1, k)[hit]),
+          f"{name}: a target in the top-k does not carry tgt bit for bit")
+    lo_id, hi_id = max(c_lo, id_offset), min(c_hi, id_offset + y.shape[0])
+    valid_t = (t >= lo_id) & (t < hi_id)
+    check(bool((eq[valid_t] >= 1).all()), f"{name}: eq < 1 on a valid target")
+    print(f"  case {name}: B={x.shape[0]} C={y.shape[0]} d={x.shape[1]} k={k} "
+          f"window [{c_lo}, {c_hi}) id_offset={id_offset} lse={with_lse} "
+          f"cap={cap} max_abs_err vals {err:.3e} tgt {tgt_err:.3e} lse rel "
+          f"{lse_err:.3e} (tol {tol:.3e}) {'bitwise' if exact else 'banded'}"
+          f"; {int(hit.any(1).sum())} targets in the top-k carry tgt "
+          f"exactly; ranks in the f64 band ok")
+    return {"name": name, "B": x.shape[0], "C": y.shape[0], "d": x.shape[1],
+            "k": k, "with_lse": with_lse, "cap": cap, "exact": exact,
+            "max_abs_err": err, "tgt_err": tgt_err, "lse_rel_err": lse_err,
+            "tol": tol, "targets_in_topk": int(hit.any(1).sum())}
+
+
+def eval_bounds(b, c, d, k, n_rows):
+    """Least times on these inputs. eval_fused reads x, the catalog, the
+    targets and thresholds once, writes (B, k) values and ids and the two
+    counts, and does 2·B·C·d f32 FLOPs; eval_tgt_gather reads x, the
+    ``n_rows`` distinct target rows and the targets, writes (B,) scores,
+    and does 2·B·d."""
+    fused = roofline_ms(4 * (b * d + c * d + 2 * b) + 8 * b * k + 8 * b,
+                        2 * b * c * d)
+    gather = roofline_ms(4 * (b * d + n_rows * d + b) + 4 * b, 2 * b * d)
+    return fused, gather
+
+
+def eval_kernel_phase(dev):
+    import torch
+
+    from repro_torch.kernels import eval_fused as ek
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    def randint(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             device=dev).to(torch.float32)
+
+    def targets(n, lo, hi):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    # Full width: states like the final LayerNorm's, the catalog at its
+    # init scale; 8 rows get their target planted at the top of the row.
+    y = randn(C_SERVE, D, scale=0.02)
+    cases, inputs = [], {}
+    for b in EVAL_B:
+        x = randn(b, D)
+        t = targets(b, 1, N_ITEMS)
+        y[t[:8].long()] = 0.05 * x[:8]
+        inputs[b] = (x, t)
+    window = dict(c_lo=1, c_hi=N_ITEMS)
+    for b in EVAL_B:
+        x, t = inputs[b]
+        cases.append(eval_case(f"eval_b{b}", x, y, t, K, **window))
+    x, t = inputs[EVAL_B[0]]
+    cases.append(eval_case("eval_b128_lse", x, y, t, K, with_lse=True,
+                           **window))
+    cases.append(eval_case("eval_b128_lse_cap30", x, y, t, K, with_lse=True,
+                           cap=30.0, **window))
+    yi = randint(-2, 3, C_SERVE, D)
+    xi = randint(-2, 3, EVAL_B[0], D)
+    cases.append(eval_case("int_ties_b128_lse", xi, yi,
+                           targets(EVAL_B[0], 1, N_ITEMS), K, with_lse=True,
+                           exact=True, **window))
+    cases.append(eval_case("int_ragged_offset_d33", randint(-2, 3, 40, 33),
+                           randint(-2, 3, 1_037, 33),
+                           targets(40, 1_003, 1_900), 17, c_lo=1_003,
+                           c_hi=1_900, id_offset=1_000, cap=30.0,
+                           with_lse=True, exact=True))
+    cases.append(eval_case("int_k_gt_valid", randint(-2, 3, 9, D),
+                           randint(-2, 3, 500, D), targets(9, 3, 9), 12,
+                           c_lo=3, c_hi=9, with_lse=True, exact=True))
+    xo = randn(24, D)
+    to = targets(24, 5_000, 8_000)
+    cases.append(eval_case("float_offset", xo, randn(3_000, D), to, K,
+                           c_lo=5_001, c_hi=7_990, id_offset=5_000))
+
+    # Times at the evaluation's shapes, cold L2.
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    window_mask = (torch.arange(C_SERVE, device=dev) >= 1) & \
+        (torch.arange(C_SERVE, device=dev) < N_ITEMS)
+    timings = {}
+    for b in EVAL_B:
+        x, t = inputs[b]
+        tgt = ek.eval_tgt_gather(x, y, t)
+
+        def fused():
+            return ek.eval_fused(x, y, t, K, tgt_scores=tgt, **window)
+
+        def fused_plain():
+            return ref.eval_fused_ref(x, y, t, K, tgt_scores=tgt, **window)
+
+        def fused_library():
+            s_ = torch.where(window_mask[None, :], torch.matmul(x, y.T),
+                             NEG_INF)
+            return (torch.topk(s_, K), (s_ > tgt[:, None]).sum(1),
+                    (s_ == tgt[:, None]).sum(1))
+
+        def gather():
+            return ek.eval_tgt_gather(x, y, t)
+
+        def gather_plain():
+            return ref.eval_tgt_gather_ref(x, y, t)
+
+        def gather_library():
+            return (x * y[t.long()]).sum(-1)
+
+        bf, bg = eval_bounds(b, C_SERVE, D, K,
+                             int(torch.unique(t).numel()))
+        timings[b] = {
+            "eval_fused": {"ms": time_ms(fused, 50, flush),
+                           "plain_ms": time_ms(fused_plain, 3, flush),
+                           "library_ms": time_ms(fused_library, 50, flush),
+                           "bound_ms": bf[0], "bound_by": bf[1]},
+            "eval_tgt_gather": {"ms": time_ms(gather, 50, flush),
+                                "plain_ms": time_ms(gather_plain, 20, flush),
+                                "library_ms": time_ms(gather_library, 50,
+                                                      flush),
+                                "bound_ms": bg[0], "bound_by": bg[1]},
+        }
+        for name, tt in timings[b].items():
+            print(f"  time {name} B={b}: kernel {tt['ms']:.4f} ms, plain "
+                  f"{tt['plain_ms']:.3f} ms, library {tt['library_ms']:.4f} "
+                  f"ms, bound {tt['bound_ms']:.4f} ms ({tt['bound_by']})")
+    return cases, timings
+
+
+# ---------------------------------------------------------------------------
+# The evaluation at full width
+# ---------------------------------------------------------------------------
+N_EVAL_BATCHES = 8
+
+
+def eval_phase(dev):
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.sasrec_sce import make_config
+    from repro_torch.core import metrics
+    from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+    from repro_torch.eval import (
+        MetricAccumulator,
+        evaluate_streaming,
+        ranks_from_counts,
+        sasrec_score_fn,
+        streaming_eval_scores,
+    )
+    from repro_torch.eval.harness import _keep_and_targets
+    from repro_torch.kernels import eval_fused as ek
+    from repro_torch.kernels.mips_topk import plan
+    from repro_torch.models import sasrec
+
+    cfg = make_config()
+    b = EVAL_B[1]
+    params = sasrec.init_params(cfg, seed=0, device=dev)
+    data = SequenceDataset(SeqDataConfig(
+        n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=b,
+    ))
+    batches = [data.eval_batch(Cursor(seed=0, step=i))[0]
+               for i in range(N_EVAL_BATCHES)]
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters = (ek.eval_fused, ek.eval_tgt_gather)
+    for fn in counters:  # the main path starts here
+        fn.launches = 0
+    acc = MetricAccumulator(KS, cfg.n_items)
+    marks = StepMarks(EVAL_PHASES)
+    batch_ms = []
+    t0 = time.monotonic()
+    for batch in batches:
+        t1 = time.perf_counter()
+        evaluate_streaming(params, cfg, batch, ks=KS, accumulator=acc,
+                           mark=marks)
+        batch_ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}  # ... ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    streamed = acc.result()
+    for name, n in launches.items():
+        check(n == N_EVAL_BATCHES, f"{name} launched {n} times in "
+              f"{N_EVAL_BATCHES} evaluations")
+
+    # The dense on-card oracle, and both sets of ranks against the band.
+    dense_acc = MetricAccumulator(KS, cfg.n_items)
+    score_fn = sasrec_score_fn(cfg)
+    n_amb = n_users = n_same = 0
+    tols = []
+    for batch in batches:
+        scores, tg = metrics.dense_scores(params, cfg, batch)
+        dense_rank = metrics.rank_of_target(scores, tg)
+        top = torch.sort(scores, dim=1, descending=True,
+                         stable=True).indices[:, :max(KS)]
+        dense_acc.update(dense_rank, top)
+        tokens, targets = _keep_and_targets(batch["tokens"])
+        t = torch.from_numpy(targets.astype(np.int32)).to(dev)
+        with torch.no_grad():
+            x, catalog = score_fn(params, torch.from_numpy(tokens).to(dev))
+            _, _, gt, eq, _, _, _ = streaming_eval_scores(
+                x, catalog, t, max(KS), c_lo=1, c_hi=cfg.n_items)
+        gid = torch.arange(catalog.shape[0], device=dev)
+        ok = (gid >= 1) & (gid < cfg.n_items)
+        tol = 1e-5 * (x.double() @ catalog.double().T)[:, ok].abs().max()
+        lo, hi, _ = rank_band(x, catalog, t, ok, gid, tol.item())
+        streamed_rank = torch.from_numpy(ranks_from_counts(gt, eq)).to(dev)
+        for what, r in (("streamed", streamed_rank), ("dense", dense_rank)):
+            check(bool(((r >= lo) & (r <= hi)).all()),
+                  f"{what} rank outside the f64 band")
+        n_same += int((streamed_rank == dense_rank).sum())
+        n_amb += int((lo != hi).sum())
+        n_users += len(targets)
+        tols.append(tol.item())
+    dense = dense_acc.result()
+    breakdown = marks.breakdown()
+    print(f"  one evaluation of {b} users: {statistics.median(batch_ms[1:]):.3f}"
+          f" ms median host clock (batches 2–{N_EVAL_BATCHES}; first "
+          f"{batch_ms[0]:.3f}) = " + " + ".join(
+              f"{p} {breakdown[p + '_ms']:.3f}" for p in EVAL_PHASES)
+          + f" = {sum(breakdown.values()):.3f} ms (device events of "
+          f"evaluate_streaming's own phases, mean of batches "
+          f"2–{N_EVAL_BATCHES})")
+    for k in KS:
+        for m in ("hr", "ndcg"):
+            diff = abs(streamed[f"{m}@{k}"] - dense[f"{m}@{k}"])
+            check(diff <= n_amb / n_users + 1e-12,
+                  f"{m}@{k} streamed {streamed[f'{m}@{k}']} vs dense "
+                  f"{dense[f'{m}@{k}']} with {n_amb} ambiguous ranks")
+    dense_bytes = 4 * b * cfg.n_items
+    pl = plan(b, cfg.catalog_loss_size, cfg.d_model, max(KS),
+              torch.cuda.get_device_properties(dev).multi_processor_count)
+    scratch_bytes = b * pl.n_split * (8 * max(KS) + 8)
+    print(f"  evaluation: {N_EVAL_BATCHES} batches of {b} users × L "
+          f"{cfg.max_len}, C {cfg.catalog_loss_size}, in {wall_s:.3f} s "
+          f"({n_users} users, {n_users / wall_s:.0f} users/s, host clock); "
+          f"launches {launches}; {n_amb} ranks the f64 band leaves open "
+          f"(tol ≤ {max(tols):.3e}); {n_same} of {n_users} streamed ranks "
+          f"equal the dense oracle's")
+    print("  metric    streamed    dense")
+    for key in streamed:
+        print(f"  {key:8s} {streamed[key]:.6f}  {dense[key]:.6f}")
+    print(f"  peak device memory of the streaming evaluation: "
+          f"{(peak - live) / 2**20:.1f} MiB above the {live / 2**20:.1f} MiB "
+          f"live before it (torch.cuda.max_memory_allocated; the SASRec "
+          f"forward's activations included); eval_fused's split scratch "
+          f"B·S·(8k + 8) B = {scratch_bytes / 2**20:.2f} MiB (S = "
+          f"{pl.n_split}); dense scores B·C·4 B = {dense_bytes / 2**20:.1f} "
+          f"MiB per batch")
+    return {"batches": N_EVAL_BATCHES, "batch": b, "users": n_users,
+            "wall_s": wall_s, "launches": launches, "streamed": streamed,
+            "dense": dense, "ambiguous_ranks": n_amb,
+            "ranks_equal_to_dense": n_same, "scratch_bytes": scratch_bytes,
+            "peak_bytes_above_live": peak - live, "live_bytes": live,
+            "dense_score_bytes": dense_bytes, "batch_ms": batch_ms,
+            "breakdown": breakdown}
 
 
 def main() -> int:
@@ -798,27 +1184,31 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     card = smi()
-    print(f"[1/7] device: {card}; torch {torch.__version__}, CUDA "
+    print(f"[1/9] device: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     t0 = time.monotonic()
     libs = _build.build_all()
     build_s = time.monotonic() - t0
-    print(f"[2/7] build: {len(libs)} kernel libraries in {build_s:.2f} s")
+    print(f"[2/9] build: {len(libs)} kernel libraries in {build_s:.2f} s")
     for name in libs:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/7] serve kernel against its plain version:")
+    print("[3/9] serve kernel against its plain version:")
     cases, timings = kernel_phase(dev)
-    print("[4/7] server at full width:")
+    print("[4/9] server at full width:")
     server = server_phase(dev)
-    print("[5/7] train kernels against their plain versions:")
+    print("[5/9] train kernels against their plain versions:")
     tcases, gcases, ttimes = train_kernel_phase(dev)
-    print("[6/7] trainer at full width:")
+    print("[6/9] trainer at full width:")
     trainer = train_phase(dev)
+    print("[7/9] eval kernels against their plain versions:")
+    ecases, etimes = eval_kernel_phase(dev)
+    print("[8/9] evaluation at full width:")
+    evaluation = eval_phase(dev)
 
     t = timings[512]  # the serve_p99 bucket
     mips = {"route": "cuda",
@@ -870,15 +1260,37 @@ def main() -> int:
             "bound_by": tt["bound_by"],
             "library_ms": tt["library_ms"],
         })
+    for name, line in (("eval_fused", 104), ("eval_tgt_gather", 82)):
+        for b, launches in ((EVAL_B[1], evaluation["launches"][name]),
+                            (EVAL_B[0], trainer["launches"][name])):
+            tt = etimes[b][name]
+            err = max(c["max_abs_err" if name == "eval_fused" else "tgt_err"]
+                      for c in ecases)
+            kernels.append({
+                "name": name if b == EVAL_B[1] else f"{name}_b{b}",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/eval_fused.cu",
+                "replaces": f"src/repro/kernels/eval_fused.py:{line}",
+                "launches": launches,
+                "max_abs_err": err,
+                "ms": tt["ms"],
+                "plain_ms": tt["plain_ms"],
+                "bound_ms": tt["bound_ms"],
+                "bound_by": tt["bound_by"],
+                "library_ms": tt["library_ms"],
+            })
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
             "card": card, "build_s": build_s, "cases": cases,
             "timings": {str(b): v for b, v in timings.items()},
             "server": server, "train_cases": tcases, "gather_cases": gcases,
-            "train_timings": ttimes, "trainer": trainer, "kernels": kernels,
+            "train_timings": ttimes, "trainer": trainer,
+            "eval_cases": ecases,
+            "eval_timings": {str(b): v for b, v in etimes.items()},
+            "evaluation": evaluation, "kernels": kernels,
         }, indent=1))
-    print("[7/7] summary")
+    print("[9/9] summary")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

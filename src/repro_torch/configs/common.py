@@ -38,7 +38,7 @@ class ArchSpec:
     # dtype of the microbatch gradient accumulator
     accum_dtype: str = "float32"
     sce_bucket_size_y: int = 512
-    # in-loop evaluation protocol ("leave-one-out" for seqrec); not ported
+    # in-loop evaluation protocol ("leave-one-out" for seqrec)
     eval_protocol: Optional[str] = None
 
     def shape(self, name: str) -> ShapeSpec:

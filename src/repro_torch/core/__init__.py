@@ -1,1 +1,2 @@
-"""Losses of the port: the SCE loss (``sce.py``)."""
+"""Losses and metrics of the port: the SCE loss (``sce.py``) and the dense
+evaluation oracle (``metrics.py``)."""

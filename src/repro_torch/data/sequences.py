@@ -85,3 +85,11 @@ class SequenceDataset:
         valid &= targets != cfg.pad_id
         return {"tokens": tokens, "targets": targets, "valid": valid}, \
             cursor.advance()
+
+    def eval_batch(
+        self, cursor: Cursor
+    ) -> Tuple[Dict[str, np.ndarray], Cursor]:
+        """Held-out batch: the same generator on the disjoint ``"eval"``
+        split, so its users are unseen (the seqrec leave-one-out eval
+        stream). Returns the batch and the split cursor advanced."""
+        return self.next_batch(cursor.split("eval"))

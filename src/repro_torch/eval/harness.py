@@ -1,0 +1,138 @@
+"""Leave-one-out streaming evaluation (port of the single-device,
+SASRec part of ``repro/eval/harness.py``).
+
+The same protocol and metrics as the dense oracle
+``core/metrics.py::evaluate_seqrec``, scored through
+``eval/streaming.py`` so that no ``(B, C)`` score matrix exists.
+Models plug in through a ``score_fn``::
+
+    score_fn(params, tokens) -> (states, catalog)
+
+where ``tokens`` (a tensor on the params' device) are the kept
+right-aligned eval sequences with the held-out target still in the last
+column, ``states`` the ``(B, d)`` contiguous user states at the scoring
+position and ``catalog`` the shard-even ``(C_pad, d)`` item table
+(``loss_catalog``; the phantom rows are masked by id window).
+
+Left out, with their ROADMAP.md queue: the sharded path (``mesh=``,
+queue 14), BERT4Rec's cloze score function (queue 1 item 13) and the LM
+token-rank protocol (queue 1 item 12).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.eval.streaming import (
+    MetricAccumulator,
+    ranks_from_counts,
+    streaming_eval_scores,
+)
+
+ScoreFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+
+
+def sasrec_score_fn(cfg) -> ScoreFn:
+    """Causal leave-one-out: hide the last real item, re-right-align,
+    encode, take the last position's hidden state."""
+    from repro_torch.models import sasrec
+
+    def fn(params, tokens):
+        last = tokens.shape[1] - 1
+        prefix = tokens.clone()
+        prefix[:, last] = 0
+        prefix = torch.roll(prefix, 1, dims=1)  # keep right alignment
+        prefix[:, 0] = 0
+        hidden = sasrec.forward(params, cfg, prefix)
+        return hidden[:, -1].contiguous(), sasrec.loss_catalog(params, cfg)
+
+    return fn
+
+
+def default_score_fn(cfg) -> ScoreFn:
+    """SASRec for causal configs; BERT4Rec's cloze protocol is not
+    ported."""
+    if not cfg.causal:
+        raise NotImplementedError(
+            "bert4rec_score_fn (non-causal configs) is not ported: "
+            "ROADMAP.md queue 1 item 13"
+        )
+    return sasrec_score_fn(cfg)
+
+
+def _keep_and_targets(tokens: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Keep the sequences with ≥ 2 real items; the held-out target is the
+    last (right-aligned) position."""
+    lengths = (tokens != 0).sum(axis=1)
+    kept = tokens[lengths >= 2]
+    b, l = kept.shape
+    targets = kept[np.arange(b), l - 1].copy()
+    return kept, targets
+
+
+def evaluate_streaming(
+    params,
+    cfg,
+    eval_batch,
+    *,
+    ks: Sequence[int] = (1, 5, 10),
+    score_fn: Optional[ScoreFn] = None,
+    mesh=None,
+    block_c: int = 512,
+    accumulator: Optional[MetricAccumulator] = None,
+    mark=None,
+) -> Dict[str, float]:
+    """Leave-one-out evaluation without materializing ``(B, C)`` scores.
+
+    Parameters
+    ----------
+    params, cfg : model parameters (on the device the evaluation runs
+        on: the card's kernels for CUDA tensors, the plain versions on
+        the CPU) and its ``SeqRecConfig``.
+    eval_batch : dict with right-aligned ``"tokens"`` (B, L), as
+        ``SequenceDataset.eval_batch`` gives it.
+    ks : metric cutoffs.
+    score_fn : the model protocol (default: :func:`default_score_fn`).
+    mesh : not ported (raises).
+    block_c : the plain version's chunk.
+    accumulator : fold into an existing ``MetricAccumulator`` (several
+        batches); a fresh one otherwise.
+    mark : optional hook, called with ``"start"`` once the host batch is
+        ready, then as each phase ends: ``"h2d"``, ``"forward"``,
+        ``"sweep"`` (``eval_tgt_gather`` and ``eval_fused``), ``"fold"``
+        (ranks and ids to the host, into the accumulator) — a hook to
+        time each phase.
+
+    Returns
+    -------
+    dict with ``hr@k`` / ``ndcg@k`` / ``cov@k`` — on one batch the
+    values of the dense oracle ``core.metrics.topk_metrics`` wherever
+    the ranks are unambiguous.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "the sharded eval path is not ported: ROADMAP.md queue 14"
+        )
+    if score_fn is None:
+        score_fn = default_score_fn(cfg)
+    mark = mark or (lambda name: None)
+    tokens, targets = _keep_and_targets(np.asarray(eval_batch["tokens"]))
+    dev = params["item_emb"].device
+    mark("start")
+    with torch.no_grad():
+        tokens = torch.from_numpy(tokens).to(dev)
+        targets = torch.from_numpy(targets.astype(np.int32)).to(dev)
+        mark("h2d")
+        states, catalog = score_fn(params, tokens)
+        mark("forward")
+        vals, ids, gt, eq, _tgt, _m, _s = streaming_eval_scores(
+            states, catalog, targets, max(ks),
+            block_c=block_c, c_lo=1, c_hi=cfg.n_items,
+        )
+        mark("sweep")
+    acc = accumulator or MetricAccumulator(ks, cfg.n_items)
+    acc.update(ranks_from_counts(gt, eq), ids)
+    mark("fold")
+    return acc.result()

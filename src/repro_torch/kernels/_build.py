@@ -7,8 +7,9 @@ plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so csrc/<name>.cu
 
 into ``build/torch_kernels/`` at the repository root (listed in
-``.gitignore``). The file name carries a hash of the source and flags,
-so an edited source builds anew and an unchanged one is reused. The
+``.gitignore``). The file name carries a hash of the flags, the source
+and the shared headers ``csrc/*.cuh``, so an edited source or header
+builds anew and an unchanged one is reused. The
 build runs on first use, never at import: nothing here needs ``nvcc``
 until a CUDA tensor reaches a kernel. :func:`build_all` starts one
 ``nvcc`` per source, all at once, and waits for them together; the
@@ -60,9 +61,14 @@ def sources() -> Dict[str, Path]:
 
 
 def _library_path(src: Path) -> Path:
+    """``BUILD_DIR/<name>-<hash>.so``: the hash covers the flags, the
+    source and every header (``*.cuh``) beside it, so an edit to a
+    shared header builds every library anew."""
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    h.update(src.read_bytes())
+    for path in [src, *sorted(src.parent.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -1,0 +1,181 @@
+"""The leave-one-out evaluation sweep on the H100 — the wrapper of
+``csrc/eval_fused.cu`` (port of ``repro/kernels/eval_fused.py``).
+
+:func:`eval_fused` checks its inputs, plans the catalog split with the
+rule of ``mips_topk.plan``, allocates the outputs and the per-split
+scratch, and launches the kernel pair on PyTorch's current stream;
+:func:`eval_tgt_gather` launches the target-score kernel. Both take CUDA
+tensors only: the CPU path is ``kernels/ref.py`` (``eval_fused_ref``,
+``eval_tgt_gather_ref``), chosen by ``kernels/ops.py``.
+``eval_fused.launches`` and ``eval_tgt_gather.launches`` count the calls
+that launched each kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.mips_topk import MAX_D, MAX_K, plan
+
+INT32_MAX = 2**31 - 1
+
+
+def _check(x, y, targets, k=None, tgt_scores=None, id_offset=0):
+    name = "eval_tgt_gather" if k is None else "eval_fused"
+    tensors = [x, y, targets] + ([tgt_scores] if tgt_scores is not None
+                                 else [])
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(f"{name} kernel takes CUDA tensors only")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(
+            f"{name}: tensors on {[str(t.device) for t in tensors]}")
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise ValueError(f"{name} takes float32 x and y, got {x.dtype}, "
+                         f"{y.dtype}")
+    if targets.dtype != torch.int32:
+        raise ValueError(f"{name} takes int32 targets, got {targets.dtype}")
+    n = x.shape[0] if x.ndim == 2 else -1
+    if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1] \
+            or targets.shape != (n,):
+        raise ValueError(f"need x (n, d), y (C, d), targets (n,); got "
+                         f"{tuple(x.shape)}, {tuple(y.shape)}, "
+                         f"{tuple(targets.shape)}")
+    if tgt_scores is not None and (tgt_scores.shape != (n,)
+                                   or tgt_scores.dtype != torch.float32):
+        raise ValueError(f"tgt_scores must be ({n},) float32, got "
+                         f"{tuple(tgt_scores.shape)} {tgt_scores.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    d = x.shape[1]
+    if not 0 < d <= MAX_D:
+        raise ValueError(f"d={d} outside (0, {MAX_D}]")
+    if y.shape[0] == 0:
+        raise ValueError(f"{name} needs a catalog of at least one row")
+    if k is not None and not 0 < k <= MAX_K:
+        raise ValueError(f"k={k} outside (0, {MAX_K}]")
+    if not 0 <= id_offset <= INT32_MAX - (y.shape[0] + 64):
+        raise ValueError(f"id_offset={id_offset} overflows int32 ids")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The built library with its C signatures declared (pointers and the
+    stream as ``c_void_p``, ints as ``c_int``, the cap as ``c_float``)."""
+    lib = _build.load("eval_fused")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.eval_tgt_gather_launch.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.eval_tgt_gather_launch.restype = ctypes.c_int
+    lib.eval_fused_launch.argtypes = [p] * 14 + [i] * 10 + [f, i, p]
+    lib.eval_fused_launch.restype = ctypes.c_int
+    return lib
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def eval_tgt_gather(x, y, targets, *, id_offset: int = 0):
+    """Each row's target score ``x[r] · y[targets[r] − id_offset]`` on
+    the card, by the very f32 fold the :func:`eval_fused` sweep runs, so
+    it equals the swept target column bit for bit; 0 where the target is
+    outside ``[id_offset, id_offset + C)``.
+
+    x : (n, d) float32, y : (C, d) float32, targets : (n,) int32; all
+    contiguous CUDA tensors. → (n,) float32.
+    """
+    _check(x, y, targets, id_offset=id_offset)
+    n, d = x.shape
+    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.eval_tgt_gather_launch(
+            x.data_ptr(), y.data_ptr(), targets.data_ptr(), out.data_ptr(),
+            n, y.shape[0], d, id_offset, _stream(x.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"eval_tgt_gather launch failed: cudaError {err} "
+                           f"(n={n}, C={y.shape[0]}, d={d})")
+    eval_tgt_gather.launches += 1
+    return out
+
+
+def eval_fused(x, y, targets, k: int, *, tgt_scores=None, c_lo: int = 0,
+               c_hi=None, id_offset: int = 0, logit_softcap=None,
+               with_lse: bool = False):
+    """One catalog sweep on the card: per-row top-``k``, the target's
+    rank counts and, with ``with_lse``, the online LSE of the softcapped
+    logits, without the ``(n, C)`` score matrix.
+
+    Parameters
+    ----------
+    x : (n, d) float32 user states; y : (C, d) float32 catalog rows (or
+        a shard whose first row has global id ``id_offset``); targets :
+        (n,) int32 global target ids. All contiguous CUDA tensors.
+    k : list length, 1..512; may exceed the valid columns (the tail is
+        ``(NEG_INF, ID_PAD)``).
+    tgt_scores : optional (n,) float32 threshold; default
+        :func:`eval_tgt_gather` over this ``y``.
+    c_lo, c_hi : global-id window of the valid columns (default
+        ``[0, id_offset + C)``).
+    logit_softcap : cap of the LSE's logits (ranks keep raw scores).
+
+    Returns
+    -------
+    ``(vals, ids, gt, eq, tgt, m, s)`` as ``ref.eval_fused_ref``: vals
+    (n, k) f32 and ids (n, k) int32, gt and eq (n,) int32, tgt the (n,)
+    threshold compared against, m and s the (n,) f32 LSE pair
+    (``lse = m + log s``) or ``None`` without ``with_lse``.
+    """
+    _check(x, y, targets, k, tgt_scores, id_offset)
+    n, d = x.shape
+    c = y.shape[0]
+    if c_hi is None:
+        c_hi = id_offset + c
+    c_lo = max(min(c_lo, INT32_MAX), -INT32_MAX)
+    c_hi = max(min(c_hi, INT32_MAX), -INT32_MAX)
+    dev = x.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    vals, ids = empty(n, k), empty(n, k, dtype=torch.int32)
+    gt, eq = empty(n, dtype=torch.int32), empty(n, dtype=torch.int32)
+    m = empty(n) if with_lse else None
+    s = empty(n) if with_lse else None
+    if n == 0:
+        return vals, ids, gt, eq, empty(0), m, s
+    if tgt_scores is None:
+        tgt_scores = eval_tgt_gather(x, y, targets, id_offset=id_offset)
+    lib = _lib()
+    pl = plan(n, c, d, k, torch.cuda.get_device_properties(dev)
+              .multi_processor_count)
+    part_vals = empty(n, pl.n_split, k)
+    part_ids = empty(n, pl.n_split, k, dtype=torch.int32)
+    part_cnt = empty(n, pl.n_split, 2, dtype=torch.int32)
+    part_ms = empty(n, pl.n_split, 2) if with_lse else None
+    with torch.cuda.device(dev):
+        err = lib.eval_fused_launch(
+            *(t.data_ptr() if t is not None else None for t in (
+                x, y, tgt_scores, targets, part_vals, part_ids, part_cnt,
+                part_ms, vals, ids, gt, eq, m, s)),
+            n, c, d, k, pl.rows_per_thread, pl.n_split, pl.split_cols,
+            id_offset, c_lo, c_hi,
+            float(logit_softcap) if logit_softcap is not None else 0.0,
+            int(with_lse), _stream(dev),
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"eval_fused launch failed: cudaError {err} (n={n}, C={c}, d={d}, "
+            f"k={k}, plan={pl})"
+        )
+    eval_fused.launches += 1
+    return vals, ids, gt, eq, tgt_scores, m, s
+
+
+eval_fused.launches = 0
+eval_tgt_gather.launches = 0

@@ -1,5 +1,6 @@
-"""Device dispatch for the kernels (port of the ``mips_topk`` and
-``sce_gather_loss`` entries of ``repro/kernels/ops.py``).
+"""Device dispatch for the kernels (port of the ``mips_topk``,
+``sce_gather_loss``, ``eval_fused`` and ``eval_tgt_gather`` entries of
+``repro/kernels/ops.py``).
 
 A tensor on the CPU takes the kernel's plain version (``ref.py``); a
 CUDA tensor launches the hand-written kernel or raises. There is no
@@ -8,6 +9,7 @@ is an error, never a silent detour.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import eval_fused as _eval_fused
 from repro_torch.kernels import mips_topk as _mips_topk
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sce_prefetch as _sce_prefetch
@@ -45,3 +47,30 @@ def sce_gather_loss(x_b, y, idx_y, tgt_b, cand_ids, pos_logit, *,
     if _device_kind("sce_gather_loss", *args) == "cpu":
         return _ref.sce_gather_loss_ref(*args, logit_softcap)
     return _sce_prefetch.sce_gather_loss(*args, logit_softcap=logit_softcap)
+
+
+def eval_fused(x, y, targets, k: int, *, tgt_scores=None, block_c: int = 512,
+               c_lo: int = 0, c_hi=None, id_offset: int = 0,
+               logit_softcap=None, with_lse: bool = False):
+    """One catalog sweep: top-``k``, the target's rank counts and
+    (``with_lse``) the online LSE → ``(vals (B, k), ids (B, k), gt (B,),
+    eq (B,), tgt (B,), m, s)``, ``m``/``s`` ``None`` unless ``with_lse``.
+    ``block_c`` is the plain version's chunk; the kernel plans its own
+    split. See ``kernels/eval_fused.py``."""
+    kw = dict(tgt_scores=tgt_scores, c_lo=c_lo, c_hi=c_hi,
+              id_offset=id_offset, logit_softcap=logit_softcap,
+              with_lse=with_lse)
+    if _device_kind("eval_fused", x, y, targets) == "cpu":
+        return _ref.eval_fused_ref(x, y, targets, k, chunk=block_c, **kw)
+    return _eval_fused.eval_fused(x, y, targets, k, **kw)
+
+
+def eval_tgt_gather(x, y, targets, *, block_c: int = 512,
+                    id_offset: int = 0):
+    """Each row's target score, bit for bit the column :func:`eval_fused`
+    sweeps (0 where the target is outside ``y``'s id range) → (B,) f32.
+    ``block_c`` is the plain version's chunk, to match its sweep."""
+    if _device_kind("eval_tgt_gather", x, y, targets) == "cpu":
+        return _ref.eval_tgt_gather_ref(x, y, targets, chunk=block_c,
+                                        id_offset=id_offset)
+    return _eval_fused.eval_tgt_gather(x, y, targets, id_offset=id_offset)

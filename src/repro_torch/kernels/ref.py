@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the kernels (port of the slice of
-``repro/kernels/ref.py`` this package has kernels for: the MIPS top-k and
-the in-bucket SCE loss).
+``repro/kernels/ref.py`` this package has kernels for: the MIPS top-k,
+the in-bucket SCE loss and the fused evaluation sweep).
 
 They are the CPU path of ``kernels/ops.py`` and the yardstick the tests
 and ``chip_smoke.py`` hold each CUDA kernel against. No production path
@@ -84,3 +84,113 @@ def mips_topk_ref(q, y, k: int, *, valid=None, chunk: int = 512,
         ).expand(n_q, -1)
         vals, ids = merge_topk_tile(vals, ids, s, col, k)
     return vals, ids
+
+
+def eval_tgt_gather_ref(x, y, targets, *, chunk: int = 512,
+                        id_offset: int = 0):
+    """Each row's target score from chunk-shaped gather products — the
+    plain version of ``kernels/eval_fused.py::eval_tgt_gather``.
+
+    The rows' target embeddings are gathered into ``ceil(B/chunk)``
+    buffers of ``(chunk, d)`` (row ``r``'s target at slot ``r % chunk``)
+    and scored with the same ``(B, d) @ (d, chunk)`` product that
+    :func:`eval_fused_ref` runs on each catalog chunk, so the slot read
+    back is bit for bit the swept target column (a product of one shape
+    reduces each element in one order on PyTorch's CPU matmul; the tests
+    check it). Rows whose target lies outside ``[id_offset, id_offset +
+    C)`` get 0 (a zero row: ``x · 0`` is exactly 0). → (B,) f32.
+    """
+    b, d = x.shape
+    c = y.shape[0]
+    if b == 0:
+        return torch.zeros((0,), dtype=torch.float32, device=x.device)
+    chunk = max(1, min(chunk, c))
+    local = targets.long() - id_offset
+    owned = (local >= 0) & (local < c)
+    rows = y[local.clamp(0, c - 1)].to(torch.float32)
+    rows = torch.where(owned[:, None], rows, torch.zeros_like(rows))
+    n_g = -(-b // chunk)
+    rows_p = torch.zeros((n_g * chunk, d), dtype=torch.float32,
+                         device=x.device)
+    rows_p[:b] = rows
+    rows_p = rows_p.reshape(n_g, chunk, d)
+    x32 = x.to(torch.float32)
+    i = torch.arange(b, device=x.device)
+    out = torch.empty((b,), dtype=torch.float32, device=x.device)
+    for g in range(n_g):
+        s = x32 @ rows_p[g].T  # (B, chunk) — the sweep's shape
+        sel = i[g * chunk:(g + 1) * chunk]
+        out[sel] = s[sel, sel - g * chunk]
+    return out
+
+
+def eval_fused_ref(x, y, targets, k: int, *, tgt_scores=None,
+                   chunk: int = 512, c_lo: int = 0, c_hi=None,
+                   id_offset: int = 0, logit_softcap=None,
+                   with_lse: bool = False):
+    """One chunked sweep of the catalog carrying top-``k``, the target's
+    rank counts and (``with_lse``) an online LSE — the plain version of
+    ``kernels/eval_fused.py::eval_fused``.
+
+    Walks ``(chunk, d)`` catalog slices (zero-padded to whole chunks) in
+    f32. Column ``c`` with global id ``g = id_offset + c`` is valid when
+    ``c < C`` and ``c_lo <= g < c_hi`` (``c_hi`` defaults to
+    ``id_offset + C``); invalid columns score ``NEG_INF``. Against the
+    threshold ``tgt`` (default :func:`eval_tgt_gather_ref` at the same
+    ``chunk``): ``gt`` counts valid scores above it, ``eq`` scores equal
+    to it — the target's own column never counts into ``gt`` and always
+    into ``eq`` when valid. The top-``k`` merge is
+    :func:`merge_topk_tile` (value descending, lower id first; exhausted
+    slots ``(NEG_INF, ID_PAD)``); ``k`` may exceed the valid columns.
+    With ``with_lse`` the pair ``(m, s)`` runs over the softcapped valid
+    logits from ``(NEG_INF, 0)`` (``lse = m + log s``; the cap applies to
+    the LSE only, ranks keep raw scores).
+
+    Returns ``(vals (B, k) f32, ids (B, k) int32, gt (B,) int32, eq (B,)
+    int32, tgt (B,) f32, m, s)``, with ``m``/``s`` ``None`` unless
+    ``with_lse``.
+    """
+    b = x.shape[0]
+    c = y.shape[0]
+    dev = x.device
+    if c_hi is None:
+        c_hi = id_offset + c
+    chunk = max(1, min(chunk, c))
+    if tgt_scores is None:
+        tgt_scores = eval_tgt_gather_ref(x, y, targets, chunk=chunk,
+                                         id_offset=id_offset)
+    x32 = x.to(torch.float32)
+    tgt = tgt_scores.to(torch.float32)[:, None]
+    tid = targets.long()[:, None]
+    vals = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+    ids = torch.full((b, k), ID_PAD, dtype=torch.int32, device=dev)
+    gt = torch.zeros((b,), dtype=torch.int32, device=dev)
+    eq = torch.zeros((b,), dtype=torch.int32, device=dev)
+    m = torch.full((b,), NEG_INF, dtype=torch.float32, device=dev)
+    se = torch.zeros((b,), dtype=torch.float32, device=dev)
+    for lo in range(0, c, chunk):
+        rows = y[lo:lo + chunk].to(torch.float32)
+        if rows.shape[0] < chunk:
+            rows = torch.cat([rows, rows.new_zeros(chunk - rows.shape[0],
+                                                   rows.shape[1])])
+        logits = x32 @ rows.T  # (B, chunk) — the one product per chunk
+        idx = torch.arange(lo, lo + chunk, device=dev)
+        col = id_offset + idx
+        valid = ((idx < c) & (col >= c_lo) & (col < c_hi))[None, :]
+        s = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+        self_col = col[None, :] == tid
+        gt += ((s > tgt) & ~self_col).sum(-1, dtype=torch.int32)
+        eq += ((s == tgt) | (self_col & valid)).sum(-1, dtype=torch.int32)
+        col_ids = col.to(torch.int32).expand(b, -1)
+        vals, ids = merge_topk_tile(vals, ids, s, col_ids, k)
+        if with_lse:
+            cap = logit_softcap
+            lv = logits if cap is None else cap * torch.tanh(logits / cap)
+            lv = torch.where(valid, lv, torch.full_like(lv, NEG_INF))
+            m_new = torch.maximum(m, lv.amax(-1))
+            se = se * torch.exp(m - m_new) + torch.where(
+                valid, torch.exp(lv - m_new[:, None]), 0.0).sum(-1)
+            m = m_new
+    if with_lse:
+        return vals, ids, gt, eq, tgt_scores, m, se
+    return vals, ids, gt, eq, tgt_scores, None, None

@@ -9,16 +9,24 @@ configuration, as in the reference; pass ``cfg=make_config()`` for the
 paper's full width. It runs on ``cuda`` unless ``device="cpu"`` is
 given, and raises when no device is given and CUDA is missing.
 
+With ``eval_every=N`` it evaluates every N steps, as the reference
+does: the leave-one-out streaming evaluation
+(``eval/harness.py::evaluate_streaming``, the ``eval_fused`` kernels on
+the card) of ``eval_users`` held-out users drawn once from
+``SequenceDataset.eval_batch(Cursor(seed))``; each prints
+``[eval] step N: {...}``.
+
 Left out, with their ROADMAP.md queue: checkpoints, preemption and the
 divergence guard's rollback (queue 1 item 10), the kernel guard (item
-11), in-loop evaluation (slice 3), the mesh and host emulation (queue
-14). The step's own guard still holds: a step with a non-finite loss or
-gradient leaves the params and the optimizer state as they were.
+11), the LM's token-rank evaluation (item 12), the mesh and host
+emulation (queue 14). The step's own guard still holds: a step with a
+non-finite loss or gradient leaves the params and the optimizer state as
+they were.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec-sce \\
-        --steps 3 --device cpu
+        --steps 4 --eval-every 2 --device cpu
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ShapeSpec, get_arch
 from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+from repro_torch.eval import evaluate_streaming
 from repro_torch.launch.steps import make_seqrec_train_step
 from repro_torch.models import sasrec
 
@@ -43,7 +52,8 @@ def to_device(host_batch, device) -> Dict[str, torch.Tensor]:
 
 
 def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
-          seed: int = 0, log_every: int = 10, device=None,
+          seed: int = 0, log_every: int = 10, eval_every: int = 0,
+          eval_users: int = 128, device=None,
           mark=None) -> Dict[str, Any]:
     """Train ``arch_name`` for ``steps`` steps of ``batch`` sequences.
 
@@ -52,11 +62,16 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     the step's own phases (``make_seqrec_train_step``): a hook to time
     each phase of the trainer's steps.
 
+    ``eval_every > 0`` evaluates ``eval_users`` held-out users after
+    every ``eval_every``-th step (see the module docstring); a step's
+    time is taken before its evaluation.
+
     Returns ``first_loss``, ``final_loss``, ``steps``, ``mean_step_s``
     (host clock per step, each ending in a read of the loss, so the
     device work is inside), ``skipped_steps``, and per step ``losses``
     (the curve the reference writes to ``--metrics-file``) and
-    ``step_s``.
+    ``step_s``; with evaluation also ``eval``, the last evaluation's
+    metrics (``hr@k`` / ``ndcg@k`` / ``cov@k``).
     """
     device = resolve_device(device)
     arch = get_arch(arch_name)
@@ -72,6 +87,18 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     opt_state = opt_init(params)
     generator = torch.Generator(device=device).manual_seed(seed)
     cursor = Cursor(seed=seed)
+
+    do_eval = eval_every > 0 and arch.eval_protocol == "leave-one-out"
+    if eval_every > 0 and not do_eval:
+        print(f"[eval] WARNING: --eval-every {eval_every} requested, but "
+              f"arch {arch.name!r} has the eval protocol "
+              f"{arch.eval_protocol!r}, not 'leave-one-out' — in-loop "
+              f"evaluation is SKIPPED")
+    eval_metrics: Dict[str, float] = {}
+    if do_eval:
+        eval_batch, _ = SequenceDataset(SeqDataConfig(
+            n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=eval_users,
+        )).eval_batch(Cursor(seed=seed))
 
     losses, times = [], []
     skipped_steps = 0
@@ -97,7 +124,11 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
                   f"{float(metrics['grad_norm']):.4g} — update skipped")
         if log_every and step % log_every == 0:
             print(f"step {step:5d}  loss {loss:.4f}  {dt * 1e3:.0f} ms")
-    return {
+        if do_eval and (step + 1) % eval_every == 0:
+            eval_metrics = evaluate_streaming(params, cfg, eval_batch)
+            shown = {k: round(v, 4) for k, v in eval_metrics.items()}
+            print(f"[eval] step {step}: {shown}")
+    out = {
         "first_loss": losses[0] if losses else None,
         "final_loss": losses[-1] if losses else None,
         "steps": len(losses),
@@ -106,6 +137,9 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
         "losses": losses,
         "step_s": times,
     }
+    if eval_metrics:
+        out["eval"] = eval_metrics
+    return out
 
 
 def main() -> None:
@@ -116,11 +150,18 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10,
                     help="print a progress line every N steps")
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="run the streaming unsampled evaluation every N "
+                         "steps (0 = never)")
+    ap.add_argument("--eval-users", type=int, default=128,
+                    help="held-out sequences per evaluation")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args()
     out = train(args.arch, steps=args.steps, batch=args.batch,
-                seed=args.seed, log_every=args.log_every, device=args.device)
+                seed=args.seed, log_every=args.log_every,
+                eval_every=args.eval_every, eval_users=args.eval_users,
+                device=args.device)
     print(json.dumps(out))
 
 

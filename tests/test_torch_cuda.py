@@ -17,10 +17,20 @@ gradients within ``rtol 2e-4``, ``atol 1e-5·max|grad|`` of autograd
 through the plain version (f32 sums in another order; dY's atomics add in
 an order that changes from run to run), and rows of dY that no bucket
 selected exactly 0.
+
+``eval_fused`` / ``eval_tgt_gather``: on integer-valued inputs ids, vals,
+``gt``, ``eq`` and ``tgt`` equal the plain version's bit for bit and the
+LSE (``m + log s``) within ``1e-5`` relative (exp folds in another
+order); on floats values within ``1e-5·max|score|``, ids equal where
+neighbouring values are further apart, ranks inside the band a dense f64
+oracle allows and the LSE within ``1e-5`` relative. On every input a
+target in the top-k carries exactly ``tgt``, and ``eq >= 1`` on every row
+whose target is a valid column.
 """
 import pytest
 import torch
 
+from repro_torch.kernels import eval_fused as eval_kernel
 from repro_torch.kernels import mips_topk as kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sce_prefetch
@@ -243,3 +253,113 @@ def test_sce_gather_raises_on_what_it_does_not_take(dev):
         big = torch.zeros(2, 16, 300, device=dev)
         sce_prefetch.sce_gather_fwd(big, torch.zeros(100, 300, device=dev),
                                     idx, tgt, cand, pos)
+
+
+# ---------------------------------------------------------------------------
+# eval_fused, eval_tgt_gather
+# ---------------------------------------------------------------------------
+def _eval_problem(dev, seed, n, c, d, integer, id_offset, c_lo, c_hi):
+    g = _gen(dev, seed)
+    if integer:
+        x, y = _ints(g, dev, n, d), _ints(g, dev, c, d)
+    else:
+        x = torch.randn(n, d, generator=g, device=dev)
+        y = torch.randn(c, d, generator=g, device=dev)
+    lo = max(c_lo, id_offset)
+    t = torch.randint(lo, max(lo + 1, min(c_hi, id_offset + c)), (n,),
+                      generator=g, device=dev, dtype=torch.int32)
+    # plant three targets at the top of their rows, one outside y's range
+    t[:3] = lo + torch.arange(3, device=dev, dtype=torch.int32)
+    y[(t[:3] - id_offset).long()] = 2.0 * x[:3]
+    t[3] = id_offset + c + 4
+    return x, y, t
+
+
+@pytest.mark.parametrize("n,c,d,k,integer,with_lse,cap,c_lo,c_hi,id_offset", [
+    (128, 20_000, 64, 10, True, False, None, 1, 19_990, 0),
+    (128, 20_000, 64, 10, False, True, None, 1, 19_990, 0),
+    (256, 30_000, 64, 10, False, True, 30.0, 1, 29_990, 0),
+    (40, 1_037, 33, 17, True, True, 30.0, 1_003, 1_900, 1_000),  # ragged
+    (9, 500, 64, 12, True, True, None, 3, 9, 0),  # k > valid columns
+    (33, 3_000, 64, 300, False, False, None, 0, 3_000, 0),  # 16 slots
+])
+def test_eval_fused_kernel_matches_plain(dev, n, c, d, k, integer, with_lse,
+                                         cap, c_lo, c_hi, id_offset):
+    x, y, t = _eval_problem(dev, n + c, n, c, d, integer, id_offset, c_lo,
+                            c_hi)
+    kw = dict(c_lo=c_lo, c_hi=c_hi, id_offset=id_offset, logit_softcap=cap,
+              with_lse=with_lse)
+    before = (eval_kernel.eval_fused.launches,
+              eval_kernel.eval_tgt_gather.launches)
+    got = ops.eval_fused(x, y, t, k, **kw)
+    torch.cuda.synchronize()
+    assert (eval_kernel.eval_fused.launches,
+            eval_kernel.eval_tgt_gather.launches) == tuple(
+                b + 1 for b in before)
+    want = ref.eval_fused_ref(x, y, t, k, **kw)
+    vals, ids, gt, eq, tgt, m, s = got
+    scores = (x.double() @ y.double().T)
+    scale = scores.abs().max().item()
+    _assert_match((vals, ids), want[:2], scale, integer)
+    if integer:
+        for a, b in zip((gt, eq, tgt), want[2:5]):
+            assert torch.equal(a, b)
+    else:
+        assert (tgt - want[4]).abs().max().item() <= 1e-5 * scale
+        gid = id_offset + torch.arange(c, device=dev)
+        ok = (gid >= c_lo) & (gid < c_hi)
+        other = ok[None, :] & (gid[None, :] != t[:, None])
+        local = (t.long() - id_offset).clamp(0, c - 1)
+        owned = (t >= id_offset) & (t < id_offset + c)
+        t64 = torch.where(owned, scores.gather(1, local[:, None])[:, 0], 0.0)
+        tol = 1e-5 * scale
+        lo = ((scores > t64[:, None] + tol) & other).sum(1)
+        hi = ((scores >= t64[:, None] - tol) & other).sum(1)
+        rank = gt + (eq - 1).clamp_min(0)
+        assert ((rank >= lo) & (rank <= hi)).all()
+    if with_lse:
+        lse, want_lse = m + torch.log(s), want[5] + torch.log(want[6])
+        assert torch.allclose(lse, want_lse, rtol=1e-5, atol=0)
+    else:
+        assert m is None and s is None
+    # the threshold is bit for bit the swept target column
+    hit = ids == t[:, None]
+    assert hit[:3].any(1).all()
+    assert torch.equal(vals[hit], tgt[:, None].expand(-1, k)[hit])
+    gid_t = t.long()
+    valid_t = (gid_t >= max(c_lo, id_offset)) & (gid_t < min(c_hi,
+                                                             id_offset + c))
+    assert (eq[valid_t] >= 1).all()
+
+
+def test_eval_kernels_are_deterministic(dev):
+    x, y, t = _eval_problem(dev, 5, 64, 20_000, 64, False, 0, 1, 19_990)
+    a = ops.eval_fused(x, y, t, 10, c_lo=1, c_hi=19_990, with_lse=True)
+    b = ops.eval_fused(x, y, t, 10, c_lo=1, c_hi=19_990, with_lse=True)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_eval_kernels_raise_on_what_they_do_not_take(dev):
+    x = torch.zeros(4, 8, device=dev)
+    y = torch.zeros(700, 8, device=dev)
+    t = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        eval_kernel.eval_fused(x.cpu(), y.cpu(), t.cpu(), 3)
+    with pytest.raises(ValueError):
+        eval_kernel.eval_fused(x, y.cpu(), t, 3)
+    with pytest.raises(ValueError):
+        eval_kernel.eval_fused(x.double(), y.double(), t, 3)
+    with pytest.raises(ValueError):
+        eval_kernel.eval_fused(x, y, t.long(), 3)
+    with pytest.raises(ValueError):
+        eval_kernel.eval_fused(x, torch.zeros(8, 700, device=dev).T, t, 3)
+    with pytest.raises(ValueError):
+        eval_kernel.eval_fused(x, y, t, 600)  # k > 512
+    with pytest.raises(ValueError):
+        eval_kernel.eval_fused(torch.zeros(4, 300, device=dev),
+                               torch.zeros(20, 300, device=dev), t, 3)
+    with pytest.raises(ValueError):
+        eval_kernel.eval_tgt_gather(x, y.cpu(), t)
+    with pytest.raises(ValueError):
+        eval_kernel.eval_tgt_gather(x, y, t.long())
