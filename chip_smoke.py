@@ -73,13 +73,39 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    share of rows whose rank the band leaves open), the eval kernels'
    launch counts, and the streaming evaluation's peak device memory
    against the dense ``B·C·4 B``.
-9. Prints the kernels' JSON line, the card's name and power limit, and
+9. Full-CE kernels against their plain versions on the card: the six
+   launches of ``csrc/linear_ce.cu`` — ``linear_ce_fwd`` / ``_dx`` /
+   ``_dw`` (the positive plucked in the sweep, softcap in the tile) and
+   ``fused_lse_fwd`` / ``_dx`` / ``_dy`` (no pluck, no cap) — at the
+   trainer's shape (x 25,600 × 64, w 173,520 × 64, whose last tile is
+   ragged), with cap 30 past its knee, half the targets on one row and
+   every third cotangent 0, and on integer-valued inputs (d = 33; d = 200
+   with cap 30 and repeated targets). Values within ``1e-5·max|want|``,
+   gradients within ``1e-5·max|grad|`` plus ``2e-4·|grad|`` of the plain
+   versions (``linear_ce_loss_ref``, ``fused_lse_ref``,
+   ``linear_ce_dx_ref``, ``linear_ce_dw_ref``), dX exactly 0 on rows with
+   a zero cotangent. Times each kernel, its plain version and one PyTorch
+   call (``logsumexp(x @ wᵀ)``, ``softmax(x @ wᵀ) @ w``,
+   ``softmax(x @ wᵀ)ᵀ @ x``, all f32) with a cold L2 cache.
+10. The trainer with the competitor losses at full width:
+   ``make_seqrec_train_step`` with ``train_loss`` set by
+   ``dataclasses.replace`` — ``ce_fused_linear`` and ``ce_fused`` for 20
+   steps each (every loss finite, no step skipped, the mean of the last 5
+   losses below the first 5's, each of the family's three kernels
+   launched once per step), then every other registry name at its
+   ``make_loss`` defaults for 3 steps (``ce`` holds the dense
+   ``(N, C)`` logits and runs at batch 64: at 128 they and their
+   gradients do not fit an H100 80GB). Prints one table of each loss's
+   median step and peak device memory beside SCE's from phase 6 and
+   ``loss_peak_elements``.
+11. Prints the kernels' JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``. ``mips_topk`` has
    three entries: all its main-path launches timed at serving's largest
    bucket, and its training selections (k = 320 over the positions,
    k = 256 over the catalog), each with the trainer's launches at that k.
    ``eval_fused`` and ``eval_tgt_gather`` have two each: the evaluation
-   phase's B = 256 and the trainer's B = 128.
+   phase's B = 256 and the trainer's B = 128. The six full-CE kernels
+   carry phase 10's launches and phase 9's times at the trainer's shape.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. ``--json PATH`` also writes every case, time and count to PATH.
@@ -1167,6 +1193,326 @@ def eval_phase(dev):
             "breakdown": breakdown}
 
 
+# ---------------------------------------------------------------------------
+# Full-CE kernels against their plain versions
+# ---------------------------------------------------------------------------
+CE_KERNELS = (  # (wrapper, family, output, the TPU kernel it replaces)
+    ("linear_ce_fwd", "linear", "fwd", "src/repro/kernels/linear_sce.py:60"),
+    ("linear_ce_dx", "linear", "dx", "src/repro/kernels/linear_sce.py:121"),
+    ("linear_ce_dw", "linear", "dw", "src/repro/kernels/linear_sce.py:154"),
+    ("fused_lse_fwd", "fused", "fwd", "src/repro/kernels/fused_ce.py:34"),
+    ("fused_lse_dx", "fused", "dx", "src/repro/kernels/fused_ce.py:69"),
+    ("fused_lse_dy", "fused", "dw", "src/repro/kernels/fused_ce.py:102"),
+)
+
+
+def ce_calls(x, w, t, g, lse, cap):
+    """Per kernel of ``CE_KERNELS``: ``(kernel call, plain call)`` on these
+    inputs; the backward kernels and their plain versions take the same
+    ``lse``. ``linear_ce_fwd`` returns ``(loss, lse)``, its plain version
+    the loss."""
+    from repro_torch.kernels import fused_ce, linear_sce, ref
+
+    kw = dict(logit_softcap=cap)
+    bwd = (x, w, t, lse, g)
+    return {
+        "linear_ce_fwd": (lambda: linear_sce.linear_ce_fwd(x, w, t, **kw),
+                          lambda: ref.linear_ce_loss_ref(x, w, t, **kw)),
+        "linear_ce_dx": (lambda: linear_sce.linear_ce_dx(*bwd, **kw),
+                         lambda: ref.linear_ce_dx_ref(*bwd, **kw)),
+        "linear_ce_dw": (lambda: linear_sce.linear_ce_dw(*bwd, **kw),
+                         lambda: ref.linear_ce_dw_ref(*bwd, **kw)),
+        "fused_lse_fwd": (lambda: fused_ce.fused_lse_fwd(x, w),
+                          lambda: ref.fused_lse_ref(x, w)),
+        "fused_lse_dx": (lambda: fused_ce.fused_lse_dx(x, w, lse, g),
+                         lambda: ref.linear_ce_dx_ref(x, w, None, lse, g)),
+        "fused_lse_dy": (lambda: fused_ce.fused_lse_dy(x, w, lse, g),
+                         lambda: ref.linear_ce_dw_ref(x, w, None, lse, g)),
+    }
+
+
+def ce_case(name, x, w, t, g, *, cap=None):
+    """The six full-CE kernels against their plain versions on one input
+    (the fused family without the cap, which it does not take). Values
+    within ``1e-5·max|want|``, gradients within ``1e-5·max|grad|`` plus
+    ``2e-4·|grad|`` (f32 exp sums fold in another order); rows with a
+    zero cotangent get dX exactly 0. Returns the max errors."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    errs = {}
+    for family, c_ in (("linear", cap), ("fused", None)):
+        lse = ref.fused_lse_ref(x, w, logit_softcap=c_)
+        calls = ce_calls(x, w, t, g, lse, c_)
+        for kname, fam, what, _ in CE_KERNELS:
+            if fam != family:
+                continue
+            kern, plain = calls[kname]
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if kname == "linear_ce_fwd":
+                got_lse, got = got[1], got[0]
+                err = (got_lse - lse).abs().max().item()
+                check(err <= 1e-5 * lse.abs().max().item(),
+                      f"{name}: {kname} lse differs by {err:.3e}")
+            rtol = 0.0 if what == "fwd" else 2e-4
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  f"{name}: {kname} shape or finiteness")
+            err = (got - want).abs()
+            tol = 1e-5 * want.abs().max().item()
+            check(bool((err <= tol + rtol * want.abs()).all()),
+                  f"{name}: {kname} differs by {err.max().item():.3e} (tol "
+                  f"{tol:.3e} + {rtol}·|want|)")
+            if what == "dx":
+                check(bool((got[g == 0] == 0).all()),
+                      f"{name}: {kname} row with a zero cotangent is not 0")
+            errs[kname] = err.max().item()
+    n, d = x.shape
+    print(f"  case {name}: N={n} C={w.shape[0]} d={d} cap={cap} "
+          f"{int((g == 0).sum())} zero-cotangent rows, "
+          f"{n - int(torch.unique(t).numel())} repeated targets; max err "
+          + " ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " ok")
+    return {"name": name, "N": n, "C": w.shape[0], "d": d, "cap": cap,
+            "max_abs_err": errs}
+
+
+def ce_bounds(n, c, d):
+    """Least times of the six kernels at (N, C, d): each reads x and w once
+    (the linear family also the targets), the backward kernels the lse
+    and g; each writes its outputs once (loss and lse; lse; dX; dW). The
+    forward does 2·N·C·d f32 FLOPs; dX and dW recompute the logits and
+    take a product of the same size, 4·N·C·d."""
+    common = 4 * (n * d + c * d)
+    flops = 2 * n * c * d
+    out = {}
+    for kname, family, what, _ in CE_KERNELS:
+        tgt = 4 * n if family == "linear" else 0
+        if what == "fwd":
+            nbytes = common + tgt + (8 if family == "linear" else 4) * n
+            out[kname] = roofline_ms(nbytes, flops)
+        else:
+            written = 4 * (n if what == "dx" else c) * d
+            out[kname] = roofline_ms(common + tgt + 8 * n + written,
+                                     2 * flops)
+    return out
+
+
+def ce_kernel_phase(dev):
+    import torch
+
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def randint(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             device=dev).to(torch.float32)
+
+    def targets(n, c):
+        return torch.randint(0, c, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def cotangent(n):
+        return torch.rand(n, generator=gen, device=dev) + 0.5
+
+    # The trainer's shape: hidden states at unit scale, the catalog at a
+    # scale that puts the logits near unit variance.
+    x = randn(N_POS, D)
+    w = randn(C_SERVE, D, scale=0.125)
+    t = targets(N_POS, N_ITEMS)
+    g = cotangent(N_POS)
+    cases = [ce_case("train_shape", x, w, t, g)]
+    # cap 30 past its knee, half the targets on the last (ragged: C % 64
+    # = 16) catalog row, every third cotangent 0
+    t2 = t.clone()
+    t2[: N_POS // 2] = C_SERVE - 1
+    g2 = g.clone()
+    g2[::3] = 0.0
+    cases.append(ce_case("train_shape_cap30_dup_zero", 8.0 * x, w, t2, g2,
+                         cap=30.0))
+    cases.append(ce_case("int_ragged_d33", randint(-2, 3, 1_000, 33),
+                         randint(-2, 3, 5_003, 33), targets(1_000, 5_003),
+                         cotangent(1_000)))
+    ti = targets(300, 3_001)
+    ti[:100] = 7
+    cases.append(ce_case("int_cap30_d200_dup", randint(-2, 3, 300, 200),
+                         randint(-2, 3, 3_001, 200), ti, cotangent(300),
+                         cap=30.0))
+
+    # Times at the trainer's shape, cold L2; the library calls hold the
+    # (N, C) f32 logits (17.8 GB) and their softmax.
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    lse = ref.fused_lse_ref(x, w)
+    calls = ce_calls(x, w, t, g, lse, None)
+    library = {
+        "fwd": lambda: torch.logsumexp(x @ w.T, -1),
+        "dx": lambda: torch.softmax(x @ w.T, -1) @ w,
+        "dw": lambda: torch.softmax(x @ w.T, -1).T @ x,
+    }
+    bounds = ce_bounds(N_POS, C_SERVE, D)
+    timings = {}
+    with torch.no_grad():
+        for kname, _, what, _ in CE_KERNELS:
+            kern, plain = calls[kname]
+            timings[kname] = {
+                "ms": time_ms(kern, 5, flush),
+                "plain_ms": time_ms(plain, 2, flush),
+                "library_ms": time_ms(library[what], 3, flush),
+                "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
+            }
+            tt = timings[kname]
+            print(f"  time {kname}: kernel {tt['ms']:.4f} ms, plain "
+                  f"{tt['plain_ms']:.3f} ms, library {tt['library_ms']:.4f} "
+                  f"ms, bound {tt['bound_ms']:.4f} ms ({tt['bound_by']})")
+    del flush
+    torch.cuda.empty_cache()
+    return cases, timings
+
+
+# ---------------------------------------------------------------------------
+# The trainer with the competitor losses at full width
+# ---------------------------------------------------------------------------
+KERNEL_LOSS_STEPS = 20
+OTHER_LOSS_STEPS = 3
+LOSS_PHASES = ("h2d", "forward", "loss_forward", "backward", "optimizer")
+OTHER_LOSSES = ("ce", "ce_chunked", "bce", "bce_plus", "gbce", "ce_minus",
+                "ce_inbatch", "ce_pop", "rece")
+# The dense `ce` step holds the (N, C) f32 logits, their softmax gradient
+# and the gather's scatter: at batch 128 (17.8 GB of logits) it does not
+# fit on an H100 80GB (one more 16.55 GiB allocation with 66.8 GiB held),
+# so it runs at batch 64.
+DENSE_CE_BATCH = 64
+
+
+def loss_run(dev, cfg, name, steps, batch):
+    """``steps`` steps of ``make_seqrec_train_step`` with ``train_loss``
+    set to ``name`` (``dataclasses.replace`` of the arch, as a user would),
+    from random weights (seed 0) on ``Cursor(seed=0)``'s batches, with the
+    loss at its ``make_loss`` defaults as ``_vocab_loss`` calls it."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+    from repro_torch.launch.steps import make_seqrec_train_step
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import sasrec
+
+    arch = dataclasses.replace(get_arch("sasrec-sce"), train_loss=name)
+    step_fn, (opt_init, _), _ = make_seqrec_train_step(
+        arch, cfg, ShapeSpec("train_paper", "train", {"batch": batch}))
+    data = SequenceDataset(SeqDataConfig(
+        n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=batch))
+    params = sasrec.init_params(cfg, seed=0, device=dev)
+    opt_state = opt_init(params)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cursor = Cursor(seed=0)
+    marks = StepMarks(LOSS_PHASES)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s, skipped = [], [], 0
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        host, cursor = data.next_batch(cursor)
+        marks("start")
+        dev_batch = to_device(host, dev)
+        marks("h2d")
+        params, opt_state, m = step_fn(params, opt_state, dev_batch,
+                                       generator=gen, mark=marks)
+        losses.append(float(m["loss"]))
+        skipped += bool(m["skipped"])
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(v) for v in losses), f"{name}: a loss is not "
+          f"finite")
+    check(skipped == 0, f"{name}: {skipped} steps skipped")
+    return {"loss": name, "batch": batch, "steps": steps, "losses": losses,
+            "step_s": step_s,
+            "median_step_ms": statistics.median(step_s[1:]) * 1e3,
+            "peak_bytes": peak, "live_bytes_before": live,
+            "breakdown": marks.breakdown()}
+
+
+def loss_phase(dev, trainer):
+    import statistics
+
+    import torch
+
+    from repro_torch.configs.sasrec_sce import make_config
+    from repro_torch.core import sce
+    from repro_torch.core.losses import loss_peak_elements
+    from repro_torch.kernels import fused_ce, linear_sce
+
+    cfg = make_config()
+    batch = N_POS // cfg.max_len
+    counters = {k: getattr(linear_sce if k.startswith("linear") else fused_ce,
+                           k) for k, *_ in CE_KERNELS}
+    for fn in counters.values():  # the main path starts here
+        fn.launches = 0
+    runs, seen = [], dict.fromkeys(counters, 0)
+    for name in ("ce_fused_linear", "ce_fused"):
+        r = loss_run(dev, cfg, name, KERNEL_LOSS_STEPS, batch)
+        first = statistics.mean(r["losses"][:5])
+        last = statistics.mean(r["losses"][-5:])
+        check(last < first, f"{name}: mean loss of the last 5 steps "
+              f"{last:.5f} is not below the first 5's {first:.5f}")
+        moved = {k: fn.launches - seen[k] for k, fn in counters.items()}
+        family = "linear" if name == "ce_fused_linear" else "fused"
+        for kname, fam, *_ in CE_KERNELS:
+            want = KERNEL_LOSS_STEPS if fam == family else 0
+            check(moved[kname] == want, f"{name}: {kname} launched "
+                  f"{moved[kname]} times in {KERNEL_LOSS_STEPS} steps")
+        seen = {k: fn.launches for k, fn in counters.items()}
+        bd = r["breakdown"]
+        print(f"  {name}: {KERNEL_LOSS_STEPS} steps of batch {batch}, loss "
+              f"{r['losses'][0]:.4f} → {r['losses'][-1]:.4f} (mean of first "
+              f"5 {first:.4f}, last 5 {last:.4f}); step breakdown "
+              + " + ".join(f"{p} {bd[p + '_ms']:.3f}" for p in LOSS_PHASES)
+              + f" = {sum(bd.values()):.3f} ms (device events, mean of "
+              f"steps 2–{KERNEL_LOSS_STEPS}); launches {moved}")
+        runs.append(r)
+    for name in OTHER_LOSSES:
+        runs.append(loss_run(dev, cfg, name, OTHER_LOSS_STEPS,
+                             DENSE_CE_BATCH if name == "ce" else batch))
+    launches = {k: fn.launches for k, fn in counters.items()}  # ... ends here
+    check(launches == seen, f"a competitor loss launched a CE kernel: "
+          f"{launches} after {seen}")
+
+    n, c, d = N_POS, cfg.catalog_loss_size, cfg.d_model
+    sce_cfg = sce.SCEConfig.from_alpha_beta(n, cfg.n_items, use_kernel=True)
+    print(f"  loss             batch steps  median step ms  peak MiB "
+          f"(above live)  loss_peak_elements MiB (×4 B)")
+    rows = [{"loss": "sce (phase 6)", "batch": batch, "steps": TRAIN_STEPS,
+             "median_step_ms": trainer["median_step_ms"],
+             "peak_bytes": trainer["memory"]["peak_bytes"],
+             "live_bytes_before": trainer["memory"]["live_bytes_before"],
+             "model_elements": loss_peak_elements("sce", n, c, d,
+                                                  cfg=sce_cfg)}]
+    for r in runs:
+        rows.append(dict(r, model_elements=loss_peak_elements(
+            r["loss"], r["batch"] * cfg.max_len, c, d)))
+    for r in rows:
+        print(f"  {r['loss']:16s} {r['batch']:5d} {r['steps']:5d} "
+              f"{r['median_step_ms']:14.3f}  {r['peak_bytes'] / 2**20:9.1f} "
+              f"({(r['peak_bytes'] - r['live_bytes_before']) / 2**20:9.1f})"
+              f"  {4 * r['model_elements'] / 2**20:12.1f}")
+    print(f"  (median step: host clock, steps after the first; peak: "
+          f"torch.cuda.max_memory_allocated over the run, params, AdamW "
+          f"state and activations included; SCE's from phase 6, its "
+          f"evaluations included; ce at batch {DENSE_CE_BATCH}: at 128 its "
+          f"(N, C) logits and their gradients do not fit the card)")
+    return {"runs": runs, "table": rows, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=Path, default=None,
@@ -1184,31 +1530,35 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     card = smi()
-    print(f"[1/9] device: {card}; torch {torch.__version__}, CUDA "
+    print(f"[1/11] device: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     t0 = time.monotonic()
     libs = _build.build_all()
     build_s = time.monotonic() - t0
-    print(f"[2/9] build: {len(libs)} kernel libraries in {build_s:.2f} s")
+    print(f"[2/11] build: {len(libs)} kernel libraries in {build_s:.2f} s")
     for name in libs:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/9] serve kernel against its plain version:")
+    print("[3/11] serve kernel against its plain version:")
     cases, timings = kernel_phase(dev)
-    print("[4/9] server at full width:")
+    print("[4/11] server at full width:")
     server = server_phase(dev)
-    print("[5/9] train kernels against their plain versions:")
+    print("[5/11] train kernels against their plain versions:")
     tcases, gcases, ttimes = train_kernel_phase(dev)
-    print("[6/9] trainer at full width:")
+    print("[6/11] trainer at full width:")
     trainer = train_phase(dev)
-    print("[7/9] eval kernels against their plain versions:")
+    print("[7/11] eval kernels against their plain versions:")
     ecases, etimes = eval_kernel_phase(dev)
-    print("[8/9] evaluation at full width:")
+    print("[8/11] evaluation at full width:")
     evaluation = eval_phase(dev)
+    print("[9/11] full-CE kernels against their plain versions:")
+    ccases, ctimes = ce_kernel_phase(dev)
+    print("[10/11] trainer with the competitor losses at full width:")
+    competitors = loss_phase(dev, trainer)
 
     t = timings[512]  # the serve_p99 bucket
     mips = {"route": "cuda",
@@ -1279,6 +1629,21 @@ def main() -> int:
                 "bound_by": tt["bound_by"],
                 "library_ms": tt["library_ms"],
             })
+    for kname, _, _, replaces in CE_KERNELS:
+        tt = ctimes[kname]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/linear_ce.cu",
+            "replaces": replaces,
+            "launches": competitors["launches"][kname],
+            "max_abs_err": max(c["max_abs_err"][kname] for c in ccases),
+            "ms": tt["ms"],
+            "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"],
+            "bound_by": tt["bound_by"],
+            "library_ms": tt["library_ms"],
+        })
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
@@ -1288,9 +1653,11 @@ def main() -> int:
             "train_timings": ttimes, "trainer": trainer,
             "eval_cases": ecases,
             "eval_timings": {str(b): v for b, v in etimes.items()},
-            "evaluation": evaluation, "kernels": kernels,
+            "evaluation": evaluation, "ce_cases": ccases,
+            "ce_timings": ctimes, "competitor_losses": competitors,
+            "kernels": kernels,
         }, indent=1))
-    print("[9/9] summary")
+    print("[11/11] summary")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -42,9 +42,11 @@
 //     those rows of Y into shared memory (the pointer gather takes the
 //     place of scalar prefetch) and computes the 64 × 64 logit tile as a
 //     4 × 4 register tile per thread from float4 shared-memory reads, the
-//     loop structure of csrc/mips_topk.cu. The forward folds each tile into
-//     a per-row online logsumexp held in registers by the 16 threads that
-//     share a row (half-warp shuffles reduce the tile's max and sum),
+//     loop structure of csrc/mips_topk.cu (the tile code is in
+//     csrc/f32_tile.cuh, shared with csrc/linear_ce.cu). The forward folds
+//     each tile into a per-row online logsumexp held in registers by the
+//     16 threads that share a row (half-warp shuffles reduce the tile's
+//     max and sum),
 //     starting from (m, s) = (pos, 1) so the positive is counted once. dX
 //     recomputes the tile, turns it into gw, stores gwᵀ in shared memory
 //     and accumulates gw · Y_tile into registers.
@@ -71,121 +73,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "f32_tile.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
-constexpr int kRM = 4;              // rows of the tile per thread
-constexpr int kCols = 4;            // columns tx + 16*j of the tile
-constexpr int kTileX = 16 * kRM;    // 64 rows of x_b per tile
-constexpr int kTileY = 16 * kCols;  // 64 candidates per tile
-constexpr int kChunk = 64;          // d-columns per chunk of the products
-constexpr int kMaxD = 256;
-constexpr int kGwPitch = kTileY + 4;  // floats per row of the gw tile
-constexpr int kMaxSmem = 232448;      // 227 KB opt-in per block on sm_90
-constexpr unsigned kFull = 0xffffffffu;
+using namespace f32_tile;
 
-static_assert(kTileX == kTileY, "the gw tile is square");
-
-// Shared-memory pitch of a staged row, in floats: d rounded up to float4s,
-// an odd number of them, so the 8 lanes of a quarter-warp that read 8
-// different rows at the same depth hit 8 different bank groups.
-__host__ __device__ inline int row_pitch(int d) {
-  const int d4 = (d + 3) / 4;
-  return 4 * (d4 | 1);
-}
+constexpr int kTileX = kTile;  // 64 rows of x_b per tile
+constexpr int kTileY = kTile;  // 64 candidates per tile
 
 size_t smem_bytes(int d, bool with_gw) {
   return sizeof(float) * ((size_t)(kTileX + kTileY) * row_pitch(d) +
                           (with_gw ? (size_t)kTileX * kGwPitch : 0)) +
          sizeof(int) * 2 * kTileY;
-}
-
-__device__ __forceinline__ float capped(float v, float cap) {
-  return cap > 0.f ? cap * tanhf(v / cap) : v;
-}
-
-// d capped / d logit as a function of the capped value: 1 − (capped/cap)².
-__device__ __forceinline__ float cap_deriv(float c, float cap) {
-  if (cap <= 0.f) return 1.f;
-  const float t = c / cap;
-  return 1.f - t * t;
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// Stages `rows` rows into dst at pitch p: row r < n is read from
-// src + row_of(r)·d, rows [n, rows) and the depth padding [d, 4·d4) are
-// zero. float4 copies when `vec` (d % 4 == 0, src 16-byte aligned), else
-// 4-byte ones. Every thread calls.
-template <typename RowOf>
-__device__ __forceinline__ void stage(float* dst, const float* src, int n,
-                                      int rows, int d, int p, int vec,
-                                      RowOf row_of, int tid) {
-  const int d4 = (d + 3) / 4;
-  if (vec) {
-    for (int e = tid; e < rows * d4; e += kThreads) {
-      const int r = e / d4;
-      const int k4 = e - r * d4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < n)
-        v = *reinterpret_cast<const float4*>(src + (long)row_of(r) * d +
-                                             4 * k4);
-      *reinterpret_cast<float4*>(dst + r * p + 4 * k4) = v;
-    }
-  } else {
-    const int w = 4 * d4;
-    for (int e = tid; e < rows * w; e += kThreads) {
-      const int r = e / w;
-      const int kk = e - r * w;
-      dst[r * p + kk] =
-          r < n && kk < d ? src[(long)row_of(r) * d + kk] : 0.f;
-    }
-  }
-}
-
-// acc[i][j] = Σ_k as[ty·kRM + i][k] · bs[tx + 16·j][k] over the staged
-// depth (its padding is zero): f32 FMAs in a fixed order over d.
-__device__ __forceinline__ void tile_scores(const float* as, const float* bs,
-                                            int p, int d4, int ty, int tx,
-                                            float acc[kRM][kCols]) {
-  const int p4 = p / 4;
-#pragma unroll
-  for (int i = 0; i < kRM; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-  const float4* a4 = reinterpret_cast<const float4*>(as) + ty * kRM * p4;
-  const float4* b4 = reinterpret_cast<const float4*>(bs) + tx * p4;
-#pragma unroll 2
-  for (int k4 = 0; k4 < d4; ++k4) {
-    float4 a[kRM];
-    float4 b[kCols];
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) a[i] = a4[i * p4 + k4];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) b[j] = b4[16 * j * p4 + k4];
-#pragma unroll
-    for (int i = 0; i < kRM; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        float s = acc[i][j];
-        s = fmaf(a[i].x, b[j].x, s);
-        s = fmaf(a[i].y, b[j].y, s);
-        s = fmaf(a[i].z, b[j].z, s);
-        s = fmaf(a[i].w, b[j].w, s);
-        acc[i][j] = s;
-      }
-  }
 }
 
 // Loads the catalog row ids (clamped to [0, C)) and candidate ids of
@@ -210,34 +110,6 @@ __device__ __forceinline__ void load_candidates(const int* idx_y,
 __device__ __forceinline__ bool masked(int col, int ny, int cand_id,
                                        int tgt) {
   return col >= ny || cand_id < 0 || cand_id == tgt;
-}
-
-// Adds acc[i][c][·] += Σ_t u[t][4·ty .. 4·ty + 3] · v[t][64·c + 4·tx ..]
-// over t < n: the thread's 4 rows of uᵀ·v at its 4 columns of every
-// 64-column chunk of the depth. u has pitch kGwPitch, v pitch p.
-template <int NC>
-__device__ __forceinline__ void accumulate(const float* u, const float* v,
-                                           int n, int p, int d4, int ty,
-                                           int tx, float acc[kRM][NC][4]) {
-  for (int t = 0; t < n; ++t) {
-    const float4 g = *reinterpret_cast<const float4*>(u + t * kGwPitch +
-                                                      ty * kRM);
-    const float gs[kRM] = {g.x, g.y, g.z, g.w};
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = kChunk * c + 4 * tx;
-      if (col < 4 * d4) {
-        const float4 w = *reinterpret_cast<const float4*>(v + t * p + col);
-#pragma unroll
-        for (int i = 0; i < kRM; ++i) {
-          acc[i][c][0] = fmaf(gs[i], w.x, acc[i][c][0]);
-          acc[i][c][1] = fmaf(gs[i], w.y, acc[i][c][1]);
-          acc[i][c][2] = fmaf(gs[i], w.z, acc[i][c][2]);
-          acc[i][c][3] = fmaf(gs[i], w.w, acc[i][c][3]);
-        }
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -369,12 +241,7 @@ sce_gather_dx_kernel(const float* __restrict__ x_b,
     tg[i] = r < nx ? tgt_b[row0 + r] : -2;
   }
   float acc_dx[kRM][NC][4];
-#pragma unroll
-  for (int i = 0; i < kRM; ++i)
-#pragma unroll
-    for (int cc = 0; cc < NC; ++cc)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc_dx[i][cc][q] = 0.f;
+  zero<NC>(acc_dx);
 
   for (int j0 = 0; j0 < b_y; j0 += kTileY) {
     const int ny = min(kTileY, b_y - j0);
@@ -451,12 +318,7 @@ sce_gather_dy_kernel(const float* __restrict__ x_b,
   stage(ys, y, ny, kTileY, d, p, vec_y, [rows](int r) { return rows[r]; },
         tid);
   float acc_dy[kRM][NC][4];
-#pragma unroll
-  for (int i = 0; i < kRM; ++i)
-#pragma unroll
-    for (int cc = 0; cc < NC; ++cc)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc_dy[i][cc][q] = 0.f;
+  zero<NC>(acc_dy);
 
   for (int x0 = 0; x0 < b_x; x0 += kTileX) {
     const int nx = min(kTileX, b_x - x0);
@@ -502,8 +364,6 @@ sce_gather_dy_kernel(const float* __restrict__ x_b,
   }
 }
 
-constexpr int kMaxDevices = 64;
-
 // Opts `kernel` in to the full kMaxSmem of dynamic shared memory, once per
 // device (the attribute is per device context). `slot` names the kernel.
 template <typename K>
@@ -523,10 +383,6 @@ bool shapes_ok(int n_b, int b_x, int b_y, int c, int d) {
   return n_b > 0 && b_x > 0 && b_y > 0 && c > 0 && d > 0 && d <= kMaxD &&
          (b_x + kTileX - 1) / kTileX <= 65535 &&
          (b_y + kTileY - 1) / kTileY <= 65535;
-}
-
-int vec_flag(const float* a, int d) {
-  return d % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
 }
 
 // Launches the dX (kind 0) or dY (kind 1) kernel at NC = ceil(d / 64).

@@ -1,0 +1,82 @@
+"""Full-catalog logsumexp streamed over the catalog, on the H100 (port of
+``fused_lse`` / ``fused_ce_loss`` of ``repro/kernels/fused_ce.py``).
+
+The kernels are ``csrc/linear_ce.cu``'s, launched without the in-sweep
+positive, the one-hot and the softcap (``kernels/linear_sce.py``'s
+``_fwd``, ``_dx`` and ``_dw``). Three wrappers, each with its own launch
+counter:
+
+* :func:`fused_lse_fwd` — per-position lse (N,);
+* :func:`fused_lse_dx` — dX = ``(p·g) Y`` (N, d);
+* :func:`fused_lse_dy` — dY = ``(p·g)ᵀ X`` (C, d), every row written once.
+
+:class:`FusedLSE` ties them together for autograd (it saves ``x``, ``y``
+and the lse, and recomputes the tiles backward). :func:`fused_ce_loss` is
+``fused_lse − x·y[targets]``: the positive's gradient comes from autograd
+through the gather, as in the reference. CUDA tensors only; the CPU path
+is ``kernels/ref.py``, chosen by ``kernels/ops.py``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import linear_sce as _linear
+
+
+def fused_lse_fwd(x, y):
+    """Forward kernel: the (N,) f32 logsumexp of ``x @ yᵀ`` per row.
+    Matches ``ref.fused_lse_ref``."""
+    _, lse = _linear._fwd(x, y, None, None)
+    fused_lse_fwd.launches += 1
+    return lse
+
+
+def fused_lse_dx(x, y, lse, g):
+    """dX kernel: the (N, d) gradient of ``x`` for the cotangent ``g`` of
+    the lse."""
+    dx = _linear._dx(x, y, None, lse, g, None)
+    fused_lse_dx.launches += 1
+    return dx
+
+
+def fused_lse_dy(x, y, lse, g):
+    """dY kernel: the (C, d) gradient of ``y``, each row written once."""
+    dy = _linear._dw(x, y, None, lse, g, None)
+    fused_lse_dy.launches += 1
+    return dy
+
+
+fused_lse_fwd.launches = 0
+fused_lse_dx.launches = 0
+fused_lse_dy.launches = 0
+
+
+class FusedLSE(torch.autograd.Function):
+    """``lse (N,)`` of ``(x, y)``, differentiable in both."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        lse = fused_lse_fwd(x, y)
+        ctx.save_for_backward(x, y, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, lse = ctx.saved_tensors
+        g = g.contiguous()
+        need = ctx.needs_input_grad
+        dx = fused_lse_dx(x, y, lse, g) if need[0] else None
+        dy = fused_lse_dy(x, y, lse, g) if need[1] else None
+        return dx, dy
+
+
+def fused_lse(x, y):
+    """Per-position full-catalog logsumexp (N,) on the card; the ``(N, C)``
+    logits never exist, forward or backward."""
+    return FusedLSE.apply(x.contiguous(), y.contiguous())
+
+
+def fused_ce_loss(x, y, targets):
+    """Per-position full CE ``lse(x·yᵀ) − x·y[targets]`` (N,) on the card."""
+    pos = torch.einsum("nd,nd->n", x, y[targets.long()])
+    return fused_lse(x, y) - pos

@@ -1,5 +1,6 @@
 """Device dispatch for the kernels (port of the ``mips_topk``,
-``sce_gather_loss``, ``eval_fused`` and ``eval_tgt_gather`` entries of
+``sce_gather_loss``, ``eval_fused``, ``eval_tgt_gather``, ``fused_lse``,
+``fused_ce_loss`` and ``linear_ce_loss`` entries of
 ``repro/kernels/ops.py``).
 
 A tensor on the CPU takes the kernel's plain version (``ref.py``); a
@@ -10,6 +11,8 @@ is an error, never a silent detour.
 from __future__ import annotations
 
 from repro_torch.kernels import eval_fused as _eval_fused
+from repro_torch.kernels import fused_ce as _fused_ce
+from repro_torch.kernels import linear_sce as _linear_sce
 from repro_torch.kernels import mips_topk as _mips_topk
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sce_prefetch as _sce_prefetch
@@ -74,3 +77,35 @@ def eval_tgt_gather(x, y, targets, *, block_c: int = 512,
         return _ref.eval_tgt_gather_ref(x, y, targets, chunk=block_c,
                                         id_offset=id_offset)
     return _eval_fused.eval_tgt_gather(x, y, targets, id_offset=id_offset)
+
+
+def fused_lse(x, y, *, block_c: int = 512):
+    """Streamed full-catalog logsumexp (N,), differentiable in ``x`` and
+    ``y``. ``block_c`` is the plain version's catalog chunk; the kernel
+    plans its own tiles. See ``kernels/fused_ce.py``."""
+    if _device_kind("fused_lse", x, y) == "cpu":
+        return _ref.fused_lse_ref(x, y, chunk=block_c)
+    return _fused_ce.fused_lse(x, y)
+
+
+def fused_ce_loss(x, y, targets, *, block_c: int = 512):
+    """Streamed per-position full CE ``lse − x·y[targets]`` (N,), the
+    positive gathered outside the sweep."""
+    if _device_kind("fused_ce_loss", x, y, targets) == "cpu":
+        return _ref.fused_ce_loss_ref(x, y, targets, chunk=block_c)
+    return _fused_ce.fused_ce_loss(x, y, targets)
+
+
+def linear_ce_loss(x, w, targets, *, logit_softcap=None, block_c: int = 512):
+    """Fused linear CE: per-position full-catalog CE (N,) from ``(N, d)``
+    hidden states and the ``(C, d)`` table, the target's logit plucked
+    inside the sweep and ``logit_softcap`` applied in the tile; the
+    ``(N, C)`` logits never exist on the card, forward or backward.
+    ``block_c`` is the plain version's catalog chunk. See
+    ``kernels/linear_sce.py``."""
+    if _device_kind("linear_ce_loss", x, w, targets) == "cpu":
+        return _ref.linear_ce_loss_ref(x, w, targets,
+                                       logit_softcap=logit_softcap,
+                                       chunk=block_c)
+    return _linear_sce.linear_ce_loss(x, w, targets,
+                                      logit_softcap=logit_softcap)

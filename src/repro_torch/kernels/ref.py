@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the kernels (port of the slice of
 ``repro/kernels/ref.py`` this package has kernels for: the MIPS top-k,
-the in-bucket SCE loss and the fused evaluation sweep).
+the in-bucket SCE loss, the fused evaluation sweep and the streamed
+full-catalog CE).
 
 They are the CPU path of ``kernels/ops.py`` and the yardstick the tests
 and ``chip_smoke.py`` hold each CUDA kernel against. No production path
@@ -194,3 +195,115 @@ def eval_fused_ref(x, y, targets, k: int, *, tgt_scores=None,
     if with_lse:
         return vals, ids, gt, eq, tgt_scores, m, se
     return vals, ids, gt, eq, tgt_scores, None, None
+
+
+def _online_lse(x, w, chunk: int, logit_softcap=None, targets=None):
+    """One chunked sweep of ``(chunk, d)`` catalog slices (zero-padded to
+    whole chunks) carrying the online logsumexp ``(m, s)`` in f32 and, with
+    ``targets``, the target's (capped) logit plucked from the chunk it
+    streams by in → ``(lse (N,), pos (N,) or None)``. The cap applies to
+    every logit before the padded columns are masked to ``NEG_INF``."""
+    n = x.shape[0]
+    c = w.shape[0]
+    dev = x.device
+    chunk = max(1, min(chunk, c))
+    x32 = x.to(torch.float32)
+    cap = logit_softcap
+    m = torch.full((n,), NEG_INF, dtype=torch.float32, device=dev)
+    s = torch.zeros((n,), dtype=torch.float32, device=dev)
+    pos = None if targets is None else torch.zeros_like(s)
+    tid = None if targets is None else targets.long()[:, None]
+    for lo in range(0, c, chunk):
+        rows = w[lo:lo + chunk].to(torch.float32)
+        if rows.shape[0] < chunk:
+            rows = torch.cat([rows, rows.new_zeros(chunk - rows.shape[0],
+                                                   rows.shape[1])])
+        logits = x32 @ rows.T  # (N, chunk)
+        capped = logits if cap is None else cap * torch.tanh(logits / cap)
+        idx = torch.arange(lo, lo + chunk, device=dev)
+        lv = torch.where((idx < c)[None, :], capped, NEG_INF)
+        if tid is not None:
+            pos = pos + torch.where(idx[None, :] == tid, lv, 0.0).sum(-1)
+        m_new = torch.maximum(m, lv.amax(-1))
+        s = s * torch.exp(m - m_new) + torch.exp(lv - m_new[:, None]).sum(-1)
+        m = m_new
+    return m + torch.log(s), pos
+
+
+def linear_ce_loss_ref(x, w, targets, *, logit_softcap=None,
+                       chunk: int = 512):
+    """Chunked streaming linear CE — the plain version of
+    ``kernels/linear_sce.py::linear_ce_loss``: per-position
+    ``lse − pos`` over the whole catalog ``w`` (C, d), the target's
+    (capped) logit plucked inside the sweep, ``logit_softcap`` applied to
+    every logit. Differentiable by autograd (which keeps every chunk's
+    logits: the plain version's backward holds O(N·C)). → (N,) losses in
+    ``x.dtype``; a target outside ``[0, C)`` plucks 0."""
+    lse, pos = _online_lse(x, w, chunk, logit_softcap, targets)
+    return (lse - pos).to(x.dtype)
+
+
+def fused_lse_ref(x, y, *, logit_softcap=None, chunk: int = 512):
+    """Full-catalog logsumexp per position, chunked over the catalog — the
+    plain version of ``kernels/fused_ce.py::fused_lse`` (and, with
+    ``logit_softcap``, the lse ``linear_ce_loss_ref`` sweeps). → (N,)."""
+    return _online_lse(x, y, chunk, logit_softcap)[0].to(x.dtype)
+
+
+def fused_ce_loss_ref(x, y, targets, *, chunk: int = 512):
+    """Per-position full CE ``lse − x·y[targets]``, the positive gathered
+    outside the sweep. → (N,)."""
+    pos = torch.einsum("nd,nd->n", x.to(torch.float32),
+                       y[targets.long()].to(torch.float32))
+    return (fused_lse_ref(x, y, chunk=chunk).to(torch.float32)
+            - pos).to(x.dtype)
+
+
+def _ce_cotangent_chunks(x, w, targets, lse, g, logit_softcap, chunk):
+    """Per catalog chunk ``(lo, rows, gw)``: the chunk's rows of ``w`` in
+    f32 and ``gw = (exp(l − lse) − onehot(targets))·(1 − (l/cap)²)·g`` over
+    its capped logits ``l`` (no one-hot when ``targets`` is None, no cap
+    factor without a cap)."""
+    c = w.shape[0]
+    chunk = max(1, min(chunk, c))
+    x32 = x.to(torch.float32)
+    g32 = g.to(torch.float32)[:, None]
+    lse32 = lse.to(torch.float32)[:, None]
+    cap = logit_softcap
+    tid = None if targets is None else targets.long()[:, None]
+    for lo in range(0, c, chunk):
+        rows = w[lo:lo + chunk].to(torch.float32)
+        logits = x32 @ rows.T
+        capped = logits if cap is None else cap * torch.tanh(logits / cap)
+        p = torch.exp(capped - lse32)
+        if tid is not None:
+            idx = torch.arange(lo, lo + rows.shape[0], device=x.device)
+            p = p - (idx[None, :] == tid).to(torch.float32)
+        if cap is not None:
+            p = p * (1.0 - (capped / cap) ** 2)
+        yield lo, rows, p * g32
+
+
+def linear_ce_dx_ref(x, w, targets, lse, g, *, logit_softcap=None,
+                     chunk: int = 512):
+    """The plain version of the dX kernel, chunked over the catalog:
+    ``dx = Σ_chunks gw · w_chunk`` for the cotangent ``g`` (N,) of the
+    loss (with ``targets``) or of the lse (``targets=None``, the gradient
+    of :func:`fused_lse_ref`) → (N, d) f32."""
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for _, rows, gw in _ce_cotangent_chunks(x, w, targets, lse, g,
+                                            logit_softcap, chunk):
+        dx += gw @ rows
+    return dx
+
+
+def linear_ce_dw_ref(x, w, targets, lse, g, *, logit_softcap=None,
+                     chunk: int = 512):
+    """The plain version of the dW (dY) kernel: ``dw[chunk] = gwᵀ · x``
+    for each catalog chunk → (C, d) f32."""
+    x32 = x.to(torch.float32)
+    dw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    for lo, rows, gw in _ce_cotangent_chunks(x, w, targets, lse, g,
+                                             logit_softcap, chunk):
+        dw[lo:lo + rows.shape[0]] = gw.T @ x32
+    return dw

@@ -1,6 +1,6 @@
 """Step factories (port of the single-device seqrec steps of
-``repro/launch/steps.py``: the SCE training step and the MIPS serving
-step)."""
+``repro/launch/steps.py``: the training step with any registry loss and
+the MIPS serving step)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,6 +9,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.losses import ce_chunked, ce_fused_linear, make_loss
 from repro_torch.core.sce import SCEConfig, sce_loss
 from repro_torch.eval.streaming import streaming_topk
 from repro_torch.models import sasrec as sasrec_lib
@@ -86,6 +87,42 @@ def build_sce_config(
     )
 
 
+def _vocab_loss(x, y, targets, valid, generator, *, loss_name, sce_cfg,
+                logit_softcap: Optional[float] = None, omega=None,
+                mark=None):
+    """Dispatch the catalog loss by its registry name (the single-device
+    branch of the reference's ``_vocab_loss``).
+
+    ``logit_softcap`` reaches every CE variant that supports it: SCE
+    carries it in ``sce_cfg``, ``ce_chunked`` caps inside its sweep,
+    ``ce_fused_linear`` inside the kernel's tile. ``generator`` takes the
+    reference's ``k_loss``: SCE's bucket draw and the sampled losses'
+    negatives; ``omega`` injects SCE's Mix draw instead. ``mark`` sees
+    ``sce_loss``'s own ``"select"`` and ``"loss_forward"``, or one
+    ``"loss_forward"`` after any other loss. The reference also returns
+    the kernel guard's numerics sentinels; the guard is not ported yet
+    (ROADMAP queue 1 item 11), so this returns the loss alone.
+    """
+    if loss_name == "sce":
+        return sce_loss(x, y, targets, cfg=sce_cfg, valid_mask=valid,
+                        generator=generator, omega=omega, mark=mark)
+    if omega is not None:
+        raise ValueError(f"omega injects SCE's bucket draw; the train loss "
+                         f"is {loss_name!r}")
+    if loss_name == "ce_chunked":
+        loss, _ = ce_chunked(x, y, targets, valid_mask=valid,
+                             logit_softcap=logit_softcap)
+    elif loss_name == "ce_fused_linear":
+        loss, _ = ce_fused_linear(x, y, targets, valid_mask=valid,
+                                  logit_softcap=logit_softcap)
+    else:
+        loss, _ = make_loss(loss_name)(x, y, targets, valid_mask=valid,
+                                       generator=generator)
+    if mark:
+        mark("loss_forward")
+    return loss
+
+
 def _accumulate_microbatches(loss_and_grad_fn, params, batch, generator,
                              n_micro: int, accum_dtype=torch.float32, *,
                              omega=None):
@@ -125,11 +162,13 @@ def _unflatten(tree, leaves):
 # Sequential recommenders (SASRec, the paper's own domain)
 # ---------------------------------------------------------------------------
 def make_seqrec_train_step(arch, cfg, shape):
-    """The SCE training step of a causal seqrec model on one device:
-    SASRec forward → ``core.sce.sce_loss`` on the kernel path
-    (``build_sce_config`` defaults to ``use_kernel=True``) → autograd →
-    guarded AdamW at lr 1e-3. No dropout, as in the reference step, which
-    passes no dropout key to the forward.
+    """The training step of a causal seqrec model on one device: SASRec
+    forward → the loss ``arch.train_loss`` names (:func:`_vocab_loss`; SCE
+    runs ``core.sce.sce_loss`` on the kernel path, ``build_sce_config``
+    defaulting to ``use_kernel=True``) → autograd → guarded AdamW at lr
+    1e-3. No dropout, as in the reference step, which passes no dropout
+    key to the forward. Another registry loss is one
+    ``dataclasses.replace(arch, train_loss=name)`` away.
 
     Returns ``(train_step, (opt_init, opt_update), sce_cfg)`` with
     ``train_step(params, opt_state, batch, *, generator=None,
@@ -137,16 +176,14 @@ def make_seqrec_train_step(arch, cfg, shape):
     holds ``tokens``/``targets`` (B, L) int32 and ``valid`` (B, L) bool
     on the params' device, and optionally a ``loss_cap``; the bucket
     centres are drawn from ``generator`` unless ``omega`` injects the
-    draw. ``mark``, when given, is called with each phase's name where
-    the phase's launches end: ``"forward"``, then ``sce_loss``'s
-    ``"select"`` and ``"loss_forward"``, ``"backward"`` and
-    ``"optimizer"`` (``chip_smoke.py`` records a CUDA event at each).
+    draw (SCE only). ``mark``, when given, is called with each phase's
+    name where the phase's launches end: ``"forward"``, then
+    ``sce_loss``'s ``"select"`` and ``"loss_forward"`` (another loss: one
+    ``"loss_forward"``), ``"backward"`` and ``"optimizer"``
+    (``chip_smoke.py`` records a CUDA event at each).
     """
     if not cfg.causal:
         raise NotImplementedError("the BERT4Rec step is not ported")
-    if arch.train_loss != "sce":
-        raise NotImplementedError(f"train loss {arch.train_loss!r} is not "
-                                  f"ported")
     opt_init, opt_update = make_optimizer(arch.optimizer, 1e-3)
     gb = shape.dims["batch"]
     n_micro = max(1, min(arch.microbatches.get(shape.name, 1), gb))
@@ -165,9 +202,10 @@ def make_seqrec_train_step(arch, cfg, shape):
             y = sasrec_lib.loss_catalog(leaves, cfg)  # shard-even slice
             if mark:
                 mark("forward")
-            loss = sce_loss(
-                x, y, mb["targets"].reshape(-1), cfg=sce_cfg,
-                valid_mask=mb["valid"].reshape(-1), generator=generator,
+            loss = _vocab_loss(
+                x, y, mb["targets"].reshape(-1), mb["valid"].reshape(-1),
+                generator, loss_name=arch.train_loss, sce_cfg=sce_cfg,
+                logit_softcap=getattr(cfg, "final_softcap", None),
                 omega=omega, mark=mark,
             )
             flat = tree_leaves(leaves)

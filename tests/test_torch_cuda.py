@@ -26,11 +26,20 @@ neighbouring values are further apart, ranks inside the band a dense f64
 oracle allows and the LSE within ``1e-5`` relative. On every input a
 target in the top-k carries exactly ``tgt``, and ``eq >= 1`` on every row
 whose target is a valid column.
+
+``linear_ce`` (forward, dX, dW; ``linear_ce_loss`` with the positive
+plucked in the sweep, and ``fused_lse`` without it): losses and lse within
+``1e-5·max|value|``, gradients within ``1e-5·max|grad|`` plus
+``2e-4·|grad|`` of the plain versions (``linear_ce_loss_ref`` and the
+chunked backward ``linear_ce_dx_ref`` / ``linear_ce_dw_ref``; exp sums
+fold in another order). Every kernel repeats bit for bit, and ``ops``
+raises on a mix of CPU and CUDA tensors.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import eval_fused as eval_kernel
+from repro_torch.kernels import fused_ce, linear_sce
 from repro_torch.kernels import mips_topk as kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sce_prefetch
@@ -363,3 +372,109 @@ def test_eval_kernels_raise_on_what_they_do_not_take(dev):
         eval_kernel.eval_tgt_gather(x, y.cpu(), t)
     with pytest.raises(ValueError):
         eval_kernel.eval_tgt_gather(x, y, t.long())
+
+
+# ---------------------------------------------------------------------------
+# linear_ce: forward, dX, dW (linear_ce_loss) and dY (fused_lse)
+# ---------------------------------------------------------------------------
+def _ce_problem(dev, seed, n, c, d, *, integer=False, dup=False,
+                zero_rows=False):
+    """x, w, targets and a cotangent g on the card; ``dup`` sends half the
+    rows to the last (ragged) catalog row, ``zero_rows`` zeroes every
+    third cotangent."""
+    g = _gen(dev, seed)
+    if integer:
+        x, w = _ints(g, dev, n, d), _ints(g, dev, c, d)
+    else:
+        x = 3.0 * torch.randn(n, d, generator=g, device=dev)
+        w = torch.randn(c, d, generator=g, device=dev)
+    t = torch.randint(0, c, (n,), generator=g, device=dev, dtype=torch.int32)
+    if dup:
+        t[: n // 2] = c - 1
+    gr = torch.rand(n, generator=g, device=dev) + 0.5
+    if zero_rows:
+        gr[::3] = 0.0
+    return x, w, t, gr
+
+
+def _ce_launches():
+    return tuple(f.launches for f in (
+        linear_sce.linear_ce_fwd, linear_sce.linear_ce_dx,
+        linear_sce.linear_ce_dw, fused_ce.fused_lse_fwd,
+        fused_ce.fused_lse_dx, fused_ce.fused_lse_dy))
+
+
+@pytest.mark.parametrize("n,c,d,cap,integer,dup,zero_rows", [
+    (70, 1_037, 64, None, False, False, False),  # ragged N and C
+    (70, 1_037, 64, 30.0, False, True, True),
+    (130, 5_000, 33, None, True, False, False),  # d % 4 != 0, integers
+    (64, 3_000, 200, 30.0, False, False, True),  # four depth chunks
+    (300, 20_000, 64, None, False, True, True),  # catalog splits
+])
+@pytest.mark.parametrize("pluck", [True, False])
+def test_linear_ce_kernels_match_plain(dev, n, c, d, cap, integer, dup,
+                                       zero_rows, pluck):
+    """``pluck``: ``ops.linear_ce_loss`` (forward, dX, dW); else
+    ``ops.fused_lse`` (forward, dX, dY; the kernels have no cap there)."""
+    if not pluck:
+        cap = None
+    x, w, t, gr = _ce_problem(dev, n + c + d, n, c, d, integer=integer,
+                              dup=dup, zero_rows=zero_rows)
+    before = _ce_launches()
+    leaves = [a.clone().requires_grad_(True) for a in (x, w)]
+    out = (ops.linear_ce_loss(*leaves, t, logit_softcap=cap) if pluck
+           else ops.fused_lse(*leaves))
+    got = torch.autograd.grad((out * gr).sum(), leaves)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(_ce_launches(), before)]
+    assert moved == ([1, 1, 1, 0, 0, 0] if pluck else [0, 0, 0, 1, 1, 1])
+    lse = ref.fused_lse_ref(x, w, logit_softcap=cap)
+    want = (ref.linear_ce_loss_ref(x, w, t, logit_softcap=cap) if pluck
+            else lse)
+    _close(out.detach(), want)
+    args = (x, w, t if pluck else None, lse, gr)
+    want_dx = ref.linear_ce_dx_ref(*args, logit_softcap=cap)
+    want_dw = ref.linear_ce_dw_ref(*args, logit_softcap=cap)
+    _close(got[0], want_dx, rtol=2e-4)
+    _close(got[1], want_dw, rtol=2e-4)
+    if zero_rows:
+        assert (got[0][gr == 0] == 0).all()
+
+
+def test_linear_ce_kernels_are_deterministic(dev):
+    """The forward's and dX's split merges and dW's transposed grid have no
+    atomics: two launches agree bit for bit."""
+    x, w, t, gr = _ce_problem(dev, 6, 300, 20_000, 64, dup=True)
+    lse = ref.fused_lse_ref(x, w, logit_softcap=30.0)
+    for fn in (lambda: linear_sce.linear_ce_fwd(x, w, t, logit_softcap=30.0),
+               lambda: linear_sce.linear_ce_dx(x, w, t, lse, gr,
+                                               logit_softcap=30.0),
+               lambda: linear_sce.linear_ce_dw(x, w, t, lse, gr,
+                                               logit_softcap=30.0),
+               lambda: fused_ce.fused_lse_dy(x, w, lse, gr)):
+        a, b = fn(), fn()
+        for u, v in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(u, v)
+
+
+def test_linear_ce_raises_on_what_it_does_not_take(dev):
+    x, w, t, gr = _ce_problem(dev, 7, 16, 100, 8)
+    for fn in (lambda *a: ops.linear_ce_loss(*a),
+               lambda *a: ops.fused_ce_loss(*a),
+               lambda x_, w_, t_: ops.fused_lse(x_, w_)):
+        with pytest.raises(ValueError, match="CPU or a CUDA device"):
+            fn(x, w.cpu(), t)
+        with pytest.raises(ValueError, match="CPU or a CUDA device"):
+            fn(x.cpu(), w, t.cpu())
+    with pytest.raises(TypeError):
+        linear_sce.linear_ce_fwd(x, w, t.long())
+    with pytest.raises(TypeError):
+        linear_sce.linear_ce_fwd(x.double(), w.double(), t)
+    with pytest.raises(ValueError):
+        linear_sce.linear_ce_fwd(x, torch.zeros(8, 100, device=dev).T, t)
+    with pytest.raises(ValueError):
+        linear_sce.linear_ce_fwd(torch.zeros(16, 300, device=dev),
+                                 torch.zeros(100, 300, device=dev), t)
+    with pytest.raises(ValueError):
+        linear_sce.linear_ce_fwd(x, w, t, logit_softcap=-1.0)

@@ -1,4 +1,4 @@
-"""The port's SCE training step and trainer against the JAX package's.
+"""The port's training step and trainer against the JAX package's.
 
 ``make_seqrec_train_step`` of both packages (the reference single-device,
 ``mesh=None``, on its kernel path in Pallas interpret mode) takes three
@@ -11,12 +11,19 @@ The reference runs with its kernel guard off: the guard's conformance
 canaries only decide whether its kernel path runs at all (they pass on
 this path), and skipping them halves the reference's compile time.
 
+The step with another registry loss (``dataclasses.replace(arch,
+train_loss=name)`` for ``ce_fused_linear``, ``ce_fused``, ``ce_chunked``
+and ``ce``, none of which draws at random) takes three steps on both
+sides the same way; the JAX kernels run in interpret mode.
+
 Tolerances: loss and grad norm within ``1e-5`` relative per step;
 params within ``1e-5·max|p|`` per tensor. Adam turns f32 fold-order noise
 on a near-zero gradient into a full ±lr step, so elements whose reference
 gradient is below ``1e-5·max|g|`` are held only to that bound,
 ``2·lr`` per step taken.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -271,3 +278,67 @@ def test_trainer_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.train("sasrec-sce", steps=1)
+
+
+FULL_CE_LOSSES = ("ce_fused_linear", "ce_fused", "ce_chunked", "ce")
+
+
+@pytest.mark.parametrize("loss_name", FULL_CE_LOSSES)
+def test_step_with_full_ce_loss_matches_reference(loss_name):
+    """Three steps with ``train_loss`` set to a full-CE registry name:
+    loss and grad norm equal the reference step's within 1e-5 relative,
+    and the phase marks are the non-SCE ones."""
+    jarch = dataclasses.replace(jax_get_arch("sasrec-sce"),
+                                train_loss=loss_name)
+    arch = dataclasses.replace(get_arch("sasrec-sce"), train_loss=loss_name)
+    jcfg = jarch.make_smoke_config()
+    cfg = arch.make_smoke_config()
+    guard.set_policy("off")
+    try:
+        jstep, (jinit, _), _ = jax_steps.make_seqrec_train_step(
+            jarch, jcfg, None, JaxShapeSpec("train_smoke", "train",
+                                            {"batch": BATCH}))
+        jstep = jax.jit(jstep)
+        tstep, (tinit, _), _ = steps.make_seqrec_train_step(
+            arch, cfg, ShapeSpec("train_smoke", "train", {"batch": BATCH}))
+        jp = jax_sasrec.init_params(jax.random.PRNGKey(0), jcfg)
+        js = jinit(jp)
+        tp = sasrec_params_from_jax(_np_tree(jp), device="cpu")
+        ts = tinit(tp)
+        data = SequenceDataset(SeqDataConfig(
+            n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=BATCH))
+        cur = Cursor(seed=0)
+        for i in range(N_STEPS):
+            batch, cur = data.next_batch(cur)
+            jp, js, jm = jstep(jp, js, jax.tree.map(jnp.asarray, batch),
+                               jax.random.PRNGKey(100 + i))
+            marks = []
+            tp, ts, tm = tstep(tp, ts, train.to_device(batch, "cpu"),
+                               mark=marks.append)
+            assert marks == ["forward", "loss_forward", "backward",
+                             "optimizer"]
+            assert not bool(tm["skipped"]) and not bool(jm["skipped"])
+            assert float(tm["loss"]) == pytest.approx(float(jm["loss"]),
+                                                      rel=1e-5)
+            assert float(tm["grad_norm"]) == pytest.approx(
+                float(jm["grad_norm"]), rel=1e-5)
+    finally:
+        guard.set_policy(None)
+
+
+def test_step_rejects_an_unknown_loss_and_omega_off_sce():
+    arch = get_arch("sasrec-sce")
+    cfg = arch.make_smoke_config()
+    shape = ShapeSpec("train_smoke", "train", {"batch": BATCH})
+    params = sasrec.init_params(cfg, seed=0, device="cpu")
+    data = SequenceDataset(SeqDataConfig(
+        n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=BATCH))
+    batch = train.to_device(data.next_batch(Cursor(seed=0))[0], "cpu")
+    step, (opt_init, _), _ = steps.make_seqrec_train_step(
+        dataclasses.replace(arch, train_loss="no_such_loss"), cfg, shape)
+    with pytest.raises(KeyError, match="unknown loss"):
+        step(params, opt_init(params), batch)
+    step, (opt_init, _), _ = steps.make_seqrec_train_step(
+        dataclasses.replace(arch, train_loss="ce"), cfg, shape)
+    with pytest.raises(ValueError, match="omega"):
+        step(params, opt_init(params), batch, omega=torch.zeros(1))
