@@ -40,17 +40,36 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    dY no bucket selected exactly 0. Times each kernel, its plain version
    and ``torch.bmm`` on pre-gathered candidates (the nearest one-call
    yardstick; it computes the products alone) with a cold L2 cache.
-6. The trainer at full width: ``train("sasrec-sce", cfg=make_config(),
-   batch=128, steps=30, seed=0, eval_every=10, eval_users=128,
-   device="cuda")``. Every loss finite, no step skipped, the mean loss of
-   the last 5 steps below that of the first 5, ``mips_topk`` launched
-   exactly 2 (once at k = 320, once at k = 256) and each ``sce_gather``
-   kernel exactly once per step; three ``[eval]`` lines, each eval kernel
-   launched once per evaluation. Prints the median step (its evaluations
-   excluded: the trainer takes a step's time before its evaluation), the
-   step's breakdown from CUDA events that the trainer's own steps record
-   through its ``mark`` hook, and the run's peak device memory.
-7. Eval kernels against their plain versions on the card: ``eval_fused``
+   The three ``sce_gather_plse`` launches (the partial LSE of distributed
+   SCE: forward, dX, dY) the same way, on the same selection as the
+   trainer's (1, 1) mesh sees it (every candidate owned), on shard 0 of a
+   4-way catalog split of it (43,380 rows, ≈ 75 % of ``cand = −1``), with
+   buckets that own no candidate and collisions, with softcap 30, and
+   ragged; rows with no unmasked candidate must be exactly −1e30 with
+   exactly 0 in dX. Timed on the (1, 1) and the shard inputs against the
+   plain version and ``torch.baddbmm`` (the mask as its additive input) +
+   ``torch.logsumexp`` on pre-gathered rows.
+6. The trainer at full width, ``sce_mode="gspmd"`` (``core/sce.py``):
+   ``train("sasrec-sce", cfg=make_config(), batch=128, steps=30, seed=0,
+   sce_mode="gspmd", eval_every=10, eval_users=128, device="cuda")``.
+   Every loss finite, no step skipped, the mean loss of the last 5 steps
+   below that of the first 5, ``mips_topk`` launched exactly 2 (once at
+   k = 320, once at k = 256) and each ``sce_gather`` kernel exactly once
+   per step, ``sce_gather_plse`` never; three ``[eval]`` lines, each eval
+   kernel launched once per evaluation. Prints the median step (its
+   evaluations excluded: the trainer takes a step's time before its
+   evaluation), the step's breakdown from CUDA events that the trainer's
+   own steps record through its ``mark`` hook, and the run's peak device
+   memory.
+7. The same with the trainer's default ``sce_mode="exact"``: distributed
+   SCE (``core/distributed_sce.py``) on the (1, 1) host mesh, each
+   ``sce_gather_plse`` launch once per step and ``sce_gather`` never;
+   the same checks and prints.
+8. One full-width batch through the three SCE modes on one injected Ω:
+   ``exact`` and ``union`` (on one card both select what ``gspmd``
+   selects) against ``gspmd``, the loss within ``1e-5·|loss|``, the
+   gradients of x and y within ``1e-5·max|g|`` plus ``2e-4·|g|``.
+9. Eval kernels against their plain versions on the card: ``eval_fused``
    at B = 128 and 256 against the whole catalog (C = 173,520, k = 10,
    window [1, 173,511)), with the LSE on (cap none and 30), on
    integer-valued inputs, a ragged C with an ``id_offset``, and k above
@@ -64,7 +83,7 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    kernel's top-k carries exactly ``tgt``, and ``eq ≥ 1`` on every row
    whose target is valid. Times each kernel, its plain version and one
    PyTorch computation of the same function with a cold L2 cache.
-8. The evaluation at full width: ``evaluate_streaming`` over 8 held-out
+10. The evaluation at full width: ``evaluate_streaming`` over 8 held-out
    batches of 256 users (``eval_batch`` of ``Cursor(0, step)``, steps
    0–7) on random weights from seed 0, folded into one
    ``MetricAccumulator``; then the dense on-card oracle
@@ -73,7 +92,7 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    share of rows whose rank the band leaves open), the eval kernels'
    launch counts, and the streaming evaluation's peak device memory
    against the dense ``B·C·4 B``.
-9. Full-CE kernels against their plain versions on the card: the six
+11. Full-CE kernels against their plain versions on the card: the six
    launches of ``csrc/linear_ce.cu`` — ``linear_ce_fwd`` / ``_dx`` /
    ``_dw`` (the positive plucked in the sweep, softcap in the tile) and
    ``fused_lse_fwd`` / ``_dx`` / ``_dy`` (no pluck, no cap) — at the
@@ -87,7 +106,7 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    a zero cotangent. Times each kernel, its plain version and one PyTorch
    call (``logsumexp(x @ wᵀ)``, ``softmax(x @ wᵀ) @ w``,
    ``softmax(x @ wᵀ)ᵀ @ x``, all f32) with a cold L2 cache.
-10. The trainer with the competitor losses at full width:
+12. The trainer with the competitor losses at full width:
    ``make_seqrec_train_step`` with ``train_loss`` set by
    ``dataclasses.replace`` — ``ce_fused_linear`` and ``ce_fused`` for 20
    steps each (every loss finite, no step skipped, the mean of the last 5
@@ -96,16 +115,18 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    ``make_loss`` defaults for 3 steps (``ce`` holds the dense
    ``(N, C)`` logits and runs at batch 64: at 128 they and their
    gradients do not fit an H100 80GB). Prints one table of each loss's
-   median step and peak device memory beside SCE's from phase 6 and
+   median step and peak device memory beside SCE's from phases 6–7 and
    ``loss_peak_elements``.
-11. Prints the kernels' JSON line, the card's name and power limit, and
+13. Prints the kernels' JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``. ``mips_topk`` has
    three entries: all its main-path launches timed at serving's largest
    bucket, and its training selections (k = 320 over the positions,
-   k = 256 over the catalog), each with the trainer's launches at that k.
-   ``eval_fused`` and ``eval_tgt_gather`` have two each: the evaluation
-   phase's B = 256 and the trainer's B = 128. The six full-CE kernels
-   carry phase 10's launches and phase 9's times at the trainer's shape.
+   k = 256 over the catalog), each with both trainers' launches at that
+   k. ``eval_fused`` and ``eval_tgt_gather`` have two each: the
+   evaluation phase's B = 256 and the trainers' B = 128. The three
+   ``sce_gather_plse`` launches carry phase 7's launches and phase 5's
+   times on the (1, 1) input. The six full-CE kernels carry phase 12's
+   launches and phase 11's times at the trainer's shape.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. ``--json PATH`` also writes every case, time and count to PATH.
@@ -113,6 +134,7 @@ result. ``--json PATH`` also writes every case, time and count to PATH.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -587,6 +609,91 @@ def gather_bounds(x_b, y, idx):
     }
 
 
+SHARDS = 4  # the exact-mode shard of phase 5: shard 0 of a 4-way catalog
+
+
+def plse_case(name, x_b, y, idx, tgt, cand, cap=None):
+    """The three ``sce_gather_plse`` launches (forward, dX, dY) against
+    autograd through the plain version on one input, for a random
+    upstream cotangent. Rows whose candidates are all masked must come out
+    at exactly ``NEG_INF`` (finite) with exactly 0 in dX. Returns the
+    case's max errors; raises on disagreement."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    g = torch.rand(x_b.shape[:2], device=x_b.device,
+                   generator=torch.Generator(device=x_b.device).manual_seed(6))
+    got_l = [t.clone().requires_grad_(True) for t in (x_b, y)]
+    plse = ops.sce_gather_plse(got_l[0], got_l[1], idx, tgt, cand,
+                               logit_softcap=cap)
+    got = [plse.detach()] + list(torch.autograd.grad((plse * g).sum(), got_l))
+    want_l = [t.clone().requires_grad_(True) for t in (x_b, y)]
+    wplse = ref.sce_gather_plse_ref(want_l[0], want_l[1], idx, tgt, cand, cap)
+    want = [wplse.detach()] + list(torch.autograd.grad((wplse * g).sum(),
+                                                       want_l))
+    torch.cuda.synchronize()
+    dead = ((cand[:, None, :] < 0)
+            | (cand[:, None, :] == tgt[:, :, None])).all(dim=-1)
+    check(bool(torch.isfinite(got[0]).all()), f"{name}: a plse is not finite")
+    check(bool((got[0][dead] == NEG_INF).all()
+               and (want[0][dead] == NEG_INF).all()),
+          f"{name}: a row with no unmasked candidate is not NEG_INF")
+    check(bool((got[1][dead] == 0).all()),
+          f"{name}: dX of a row with no unmasked candidate is not 0")
+    errs = {}
+    for what, a, b, rtol, keep in (("plse", got[0], want[0], 0.0, ~dead),
+                                   ("dx", got[1], want[1], 2e-4, None),
+                                   ("dy", got[2], want[2], 2e-4, None)):
+        if keep is not None:
+            a, b = a[keep], b[keep]
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+              f"{name}: {what} shape or finiteness")
+        err = (a - b).abs()
+        tol = 1e-5 * b.abs().max().item()
+        check(bool((err <= tol + rtol * b.abs()).all()),
+              f"{name}: {what} differs by {err.max().item():.3e} "
+              f"(tol {tol:.3e} + {rtol}·|want|)")
+        errs[what] = err.max().item()
+    touched = torch.zeros(y.shape[0], dtype=torch.bool, device=y.device)
+    touched[idx.long()[cand >= 0]] = True
+    check(bool((got[2][~touched] == 0).all()),
+          f"{name}: a dY row no unmasked candidate gathers is not exactly 0")
+    n_b, b_x, d = x_b.shape
+    masked = float((cand < 0).float().mean())
+    print(f"  case {name}: n_b={n_b} b_x={b_x} b_y={idx.shape[1]} d={d} "
+          f"C={y.shape[0]} cap={cap} cand<0 {masked:.1%}, {int(dead.sum())} "
+          f"rows with no unmasked candidate (NEG_INF, dX 0); max err plse "
+          f"{errs['plse']:.3e} dX {errs['dx']:.3e} dY {errs['dy']:.3e} ok")
+    return {"name": name, "n_b": n_b, "b_x": b_x, "b_y": idx.shape[1],
+            "d": d, "C": y.shape[0], "cap": cap, "cand_masked": masked,
+            "dead_rows": int(dead.sum()), "max_abs_err": errs}
+
+
+def plse_bounds(x_b, y, idx, tgt, cand):
+    """Least times of the three partial-LSE launches on these inputs: each
+    reads x_b, the distinct catalog rows its unmasked candidates gather,
+    the ids and its per-row inputs once and writes its outputs once; the
+    forward does 2·d FLOPs per unmasked (row, candidate) pair, dX and dY
+    twice that."""
+    import torch
+
+    n_b, b_x, d = x_b.shape
+    b_y = idx.shape[1]
+    pairs = int(((cand[:, None, :] >= 0)
+                 & (cand[:, None, :] != tgt[:, :, None])).sum())
+    rows = int(torch.unique(idx[cand >= 0]).numel())
+    common = 4 * (n_b * b_x * d + rows * d + 2 * n_b * b_y + n_b * b_x)
+    flops = 2 * pairs * d
+    return {
+        "sce_gather_plse_fwd": roofline_ms(common + 4 * n_b * b_x, flops),
+        "sce_gather_plse_dx": roofline_ms(
+            common + 4 * 2 * n_b * b_x + 4 * n_b * b_x * d, 2 * flops),
+        "sce_gather_plse_dy": roofline_ms(
+            common + 4 * 2 * n_b * b_x + 4 * y.shape[0] * d, 2 * flops),
+    }
+
+
 def train_kernel_phase(dev):
     import torch
 
@@ -655,6 +762,37 @@ def train_kernel_phase(dev):
                             dtype=torch.int32), rows,
         30.0 * torch.tanh(randn(7, 23)), cap=30.0))
 
+    # The partial LSE of the distributed exact mode: on one card (the
+    # (1, 1) mesh the trainer runs) every candidate of the global top-256
+    # is owned; on shard 0 of a 4-way catalog those another shard owns
+    # arrive as cand = −1 (≈ 75 %), the rows clamped into the slice.
+    pcases = [plse_case("plse_train_shape", x_b, y, idx_y, tgt_b, idx_y)]
+    c_l = C_SERVE // SHARDS
+    own = idx_y < c_l
+    idx_l = idx_y.clamp(max=c_l - 1)
+    cand_l = torch.where(own, idx_y, -1)
+    y_l = y[:c_l]
+    pcases.append(plse_case(f"plse_shard0_of_{SHARDS}", x_b, y_l, idx_l,
+                            tgt_b, cand_l))
+    cand_nc = cand_l.clone()
+    cand_nc[:16] = -1  # buckets that own no candidate at all
+    tgt_nc = tgt_b.clone()
+    first = cand_l.gather(1, own.to(torch.int32).argmax(1, keepdim=True))
+    tgt_nc[16:48, :B_X // 2] = first[16:48]  # collide with an owned one
+    pcases.append(plse_case("plse_no_owned_collisions", x_b, y_l, idx_l,
+                            tgt_nc, cand_nc))
+    pcases.append(plse_case("plse_shard_cap30", x_b * 8.0, y_l, idx_l,
+                            tgt_b, cand_l, cap=30.0))
+    rows = torch.stack([torch.randperm(300, generator=g, device=dev)[:50]
+                        for _ in range(7)]).to(torch.int32)
+    cand_r = torch.where(torch.rand(7, 50, generator=g, device=dev) < 0.5,
+                         rows, -1)
+    cand_r[0] = -1
+    pcases.append(plse_case(
+        "plse_ragged_d33_cap30", randn(7, 23, 33, scale=8.0), randn(300, 33),
+        rows, torch.randint(0, 300, (7, 23), generator=g, device=dev,
+                            dtype=torch.int32), cand_r, cap=30.0))
+
     # Times at the training shape, cold L2.
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     timings = {}
@@ -702,6 +840,41 @@ def train_kernel_phase(dev):
             lambda: torch.bmm(probs.transpose(1, 2), x_b)),
     }
     bounds = gather_bounds(x_b, y, idx_y)
+    # The partial LSE on the main path's input (one card: every candidate
+    # owned) and on the shard of 4. Library: bmm + logsumexp on the
+    # pre-gathered rows, the mask folded in as baddbmm's additive input.
+    for sfx, (cat, ids, cand) in (("", (y, idx_y, idx_y)),
+                                  ("_shard4", (y_l, idx_l, cand_l))):
+        pargs = (x_b, cat, ids, tgt_b, cand)
+        plse = sce_prefetch.sce_gather_plse_fwd(*pargs)
+        pleaves = [t.clone().requires_grad_(True) for t in (x_b, cat)]
+        pout = (ref.sce_gather_plse_ref(pleaves[0], pleaves[1], *pargs[2:])
+                * g_up).sum()
+        cat_b = cat[ids.long()]
+        bias = torch.where((cand[:, None, :] < 0)
+                           | (cand[:, None, :] == tgt_b[:, :, None]),
+                           NEG_INF, 0.0)
+        pb = plse_bounds(*pargs)
+        runs.update({
+            f"sce_gather_plse_fwd{sfx}": (
+                lambda a=pargs: sce_prefetch.sce_gather_plse_fwd(*a),
+                lambda a=pargs: ref.sce_gather_plse_ref(*a),
+                lambda yb=cat_b, bi=bias: torch.logsumexp(
+                    torch.baddbmm(bi, x_b, yb.transpose(1, 2)), dim=-1)),
+            f"sce_gather_plse_dx{sfx}": (
+                lambda a=pargs, p=plse: sce_prefetch.sce_gather_plse_dx(
+                    *a, p, g_up),
+                lambda o=pout, lv=pleaves: torch.autograd.grad(
+                    o, lv[0], retain_graph=True),
+                lambda yb=cat_b: torch.bmm(probs, yb)),
+            f"sce_gather_plse_dy{sfx}": (
+                lambda a=pargs, p=plse: sce_prefetch.sce_gather_plse_dy(
+                    *a, p, g_up),
+                lambda o=pout, lv=pleaves: torch.autograd.grad(
+                    o, lv[1], retain_graph=True),
+                lambda: torch.bmm(probs.transpose(1, 2), x_b)),
+        })
+        bounds.update({k + sfx: v for k, v in pb.items()})
     with torch.no_grad():
         for name, (kern, plain, lib) in runs.items():
             timings[name] = {"ms": time_ms(kern, 20, flush),
@@ -713,7 +886,7 @@ def train_kernel_phase(dev):
         print(f"  time {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
-    return cases, gcases, timings
+    return cases, gcases, pcases, timings
 
 
 # ---------------------------------------------------------------------------
@@ -761,7 +934,16 @@ class StepMarks:
         return {f"{k}_ms": v / n for k, v in sums.items()}
 
 
-def train_phase(dev):
+GATHER = ("sce_gather_fwd", "sce_gather_dx", "sce_gather_dy")
+PLSE = ("sce_gather_plse_fwd", "sce_gather_plse_dx", "sce_gather_plse_dy")
+
+
+def train_phase(dev, sce_mode):
+    """The trainer at full width in ``sce_mode``: ``"gspmd"`` runs
+    ``core/sce.py``'s loss through the three ``sce_gather`` launches,
+    ``"exact"`` (the trainer's default) ``core/distributed_sce.py`` on the
+    (1, 1) mesh through the three ``sce_gather_plse`` launches; each
+    family is launched once a step and the other never."""
     import statistics
 
     import torch
@@ -773,10 +955,10 @@ def train_phase(dev):
     from repro_torch.launch.train import train
 
     cfg = make_config()
-    counters = (mips_topk, sce_prefetch.sce_gather_fwd,
-                sce_prefetch.sce_gather_dx, sce_prefetch.sce_gather_dy,
+    counters = (mips_topk, *(getattr(sce_prefetch, n) for n in GATHER + PLSE),
                 eval_fused.eval_fused, eval_fused.eval_tgt_gather)
     marks = StepMarks()
+    gc.collect()  # what earlier phases left in reference cycles
     torch.cuda.synchronize()
     live_bytes = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -785,7 +967,7 @@ def train_phase(dev):
     mips_topk.launches_by_k.clear()
     t0 = time.monotonic()
     out = train("sasrec-sce", cfg=cfg, batch=N_POS // cfg.max_len,
-                steps=TRAIN_STEPS, seed=0, log_every=10,
+                steps=TRAIN_STEPS, seed=0, sce_mode=sce_mode, log_every=10,
                 eval_every=EVAL_EVERY, eval_users=EVAL_B[0], device=dev,
                 mark=marks)
     wall_s = time.monotonic() - t0
@@ -804,10 +986,12 @@ def train_phase(dev):
           and by_k == {B_X: TRAIN_STEPS, B_Y: TRAIN_STEPS},
           f"mips_topk launched {launches['mips_topk']} times ({by_k} by k) "
           f"in {TRAIN_STEPS} steps")
-    for name in ("sce_gather_fwd", "sce_gather_dx", "sce_gather_dy"):
-        check(launches[name] == TRAIN_STEPS,
-              f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
-              f"steps")
+    on = PLSE if sce_mode == "exact" else GATHER
+    for name in GATHER + PLSE:
+        want = TRAIN_STEPS if name in on else 0
+        check(launches[name] == want,
+              f"{sce_mode}: {name} launched {launches[name]} times in "
+              f"{TRAIN_STEPS} steps, not {want}")
     n_evals = TRAIN_STEPS // EVAL_EVERY
     for name in ("eval_fused", "eval_tgt_gather"):
         check(launches[name] == n_evals,
@@ -818,7 +1002,8 @@ def train_phase(dev):
                                        for k in KS}, "no eval metrics")
     median_ms = statistics.median(out["step_s"][1:]) * 1e3
     eval_s = wall_s - sum(out["step_s"])
-    print(f"  trainer: {TRAIN_STEPS} steps of batch {N_POS // cfg.max_len} "
+    print(f"  trainer (sce_mode={sce_mode}): {TRAIN_STEPS} steps of batch "
+          f"{N_POS // cfg.max_len} "
           f"× L {cfg.max_len}, C {cfg.catalog_loss_size}, in {wall_s:.2f} s; "
           f"loss {losses[0]:.4f} → {losses[-1]:.4f} (mean of first 5 "
           f"{first:.4f}, last 5 {last:.4f}); median step {median_ms:.3f} ms "
@@ -849,10 +1034,78 @@ def train_phase(dev):
           f"{mem['sce_fused_peak_bytes'] / 2**20:.2f} MiB, plain path "
           f"{mem['sce_plain_peak_bytes'] / 2**20:.1f} MiB; full CE logits "
           f"N·C·4 B = {mem['full_ce_logit_bytes'] / 1e9:.2f} GB")
-    return {"losses": losses, "step_s": out["step_s"], "wall_s": wall_s,
-            "median_step_ms": median_ms, "launches": launches,
+    return {"sce_mode": sce_mode, "losses": losses, "step_s": out["step_s"],
+            "wall_s": wall_s, "median_step_ms": median_ms,
+            "launches": launches,
             "eval": out["eval"], "eval_and_setup_s": eval_s,
             "mips_topk_launches_by_k": by_k, "breakdown": bd, "memory": mem}
+
+
+def mode_agreement_phase(dev):
+    """One full-width batch through the three SCE modes on one injected
+    Ω: ``gspmd`` (``sce_loss``), and ``exact`` and ``union``
+    (``sce_loss_sharded`` on the (1, 1) mesh, where both select what
+    ``gspmd`` selects). Losses within ``1e-5·|loss|``, the gradients of x
+    and y within ``1e-5·max|g|`` plus ``2e-4·|g|`` of ``gspmd``'s."""
+    import torch
+
+    from repro_torch.configs.sasrec_sce import make_config
+    from repro_torch.core.distributed_sce import sce_loss_sharded
+    from repro_torch.core.sce import sce_loss
+    from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_sce_config
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import sasrec
+
+    cfg = make_config()
+    batch = N_POS // cfg.max_len
+    params = sasrec.init_params(cfg, seed=0, device=dev)
+    host, _ = SequenceDataset(SeqDataConfig(
+        n_items=cfg.n_items, seq_len=cfg.max_len,
+        batch_size=batch)).next_batch(Cursor(seed=0))
+    b = to_device(host, dev)
+    with torch.no_grad():
+        x = sasrec.forward(params, cfg, b["tokens"]).reshape(N_POS, -1)
+        y = sasrec.loss_catalog(params, cfg).clone()
+    t, valid = b["targets"].reshape(-1), b["valid"].reshape(-1)
+    sce_cfg = build_sce_config(N_POS, cfg.n_items,
+                               bucket_size_y=B_Y)
+    omega = torch.randn((sce_cfg.n_buckets, N_POS), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(7))
+    mesh = make_host_mesh(max_data=batch)
+    check(mesh.shape == {"data": 1, "model": 1}, f"mesh {mesh.shape}")
+    res = {}
+    for mode in ("gspmd", "exact", "union"):
+        xl, yl = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+        if mode == "gspmd":
+            loss = sce_loss(xl, yl, t, cfg=sce_cfg, valid_mask=valid,
+                            omega=omega)
+        else:
+            loss = sce_loss_sharded(xl, yl, t, cfg=sce_cfg, mesh=mesh,
+                                    valid_mask=valid, mode=mode, omega=omega)
+        res[mode] = (loss.item(), *torch.autograd.grad(loss, (xl, yl)))
+    torch.cuda.synchronize()
+    want = res["gspmd"]
+    errs = {}
+    for mode in ("exact", "union"):
+        got = res[mode]
+        lerr = abs(got[0] - want[0])
+        check(math.isfinite(got[0]) and lerr <= 1e-5 * abs(want[0]),
+              f"{mode}: loss {got[0]} vs gspmd {want[0]}")
+        errs[mode] = {"loss": lerr}
+        for what, a, w in (("dx", got[1], want[1]), ("dy", got[2], want[2])):
+            err = (a - w).abs()
+            tol = 1e-5 * w.abs().max().item()
+            check(bool(torch.isfinite(a).all()
+                       and (err <= tol + 2e-4 * w.abs()).all()),
+                  f"{mode}: {what} differs from gspmd by "
+                  f"{err.max().item():.3e} (tol {tol:.3e} + 2e-4·|g|)")
+            errs[mode][what] = err.max().item()
+        print(f"  {mode} vs gspmd: loss {got[0]:.6f} vs {want[0]:.6f} "
+              f"(|Δ| {lerr:.3e}), max |Δ| dX {errs[mode]['dx']:.3e}, dY "
+              f"{errs[mode]['dy']:.3e} ok")
+    return {"losses": {m: r[0] for m, r in res.items()}, "max_abs_err": errs}
 
 
 # ---------------------------------------------------------------------------
@@ -1442,7 +1695,7 @@ def loss_run(dev, cfg, name, steps, batch):
             "breakdown": marks.breakdown()}
 
 
-def loss_phase(dev, trainer):
+def loss_phase(dev, trainers):
     import statistics
 
     import torch
@@ -1491,12 +1744,14 @@ def loss_phase(dev, trainer):
     sce_cfg = sce.SCEConfig.from_alpha_beta(n, cfg.n_items, use_kernel=True)
     print(f"  loss             batch steps  median step ms  peak MiB "
           f"(above live)  loss_peak_elements MiB (×4 B)")
-    rows = [{"loss": "sce (phase 6)", "batch": batch, "steps": TRAIN_STEPS,
-             "median_step_ms": trainer["median_step_ms"],
-             "peak_bytes": trainer["memory"]["peak_bytes"],
-             "live_bytes_before": trainer["memory"]["live_bytes_before"],
+    rows = [{"loss": f"sce {t['sce_mode']} (ph. {ph})", "batch": batch,
+             "steps": TRAIN_STEPS,
+             "median_step_ms": t["median_step_ms"],
+             "peak_bytes": t["memory"]["peak_bytes"],
+             "live_bytes_before": t["memory"]["live_bytes_before"],
              "model_elements": loss_peak_elements("sce", n, c, d,
-                                                  cfg=sce_cfg)}]
+                                                  cfg=sce_cfg)}
+            for t, ph in zip(trainers, (6, 7))]
     for r in runs:
         rows.append(dict(r, model_elements=loss_peak_elements(
             r["loss"], r["batch"] * cfg.max_len, c, d)))
@@ -1507,7 +1762,7 @@ def loss_phase(dev, trainer):
               f"  {4 * r['model_elements'] / 2**20:12.1f}")
     print(f"  (median step: host clock, steps after the first; peak: "
           f"torch.cuda.max_memory_allocated over the run, params, AdamW "
-          f"state and activations included; SCE's from phase 6, its "
+          f"state and activations included; SCE's from phases 6–7, their "
           f"evaluations included; ce at batch {DENSE_CE_BATCH}: at 128 its "
           f"(N, C) logits and their gradients do not fit the card)")
     return {"runs": runs, "table": rows, "launches": launches}
@@ -1530,45 +1785,51 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     card = smi()
-    print(f"[1/11] device: {card}; torch {torch.__version__}, CUDA "
+    print(f"[1/13] device: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     t0 = time.monotonic()
     libs = _build.build_all()
     build_s = time.monotonic() - t0
-    print(f"[2/11] build: {len(libs)} kernel libraries in {build_s:.2f} s")
+    print(f"[2/13] build: {len(libs)} kernel libraries in {build_s:.2f} s")
     for name in libs:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/11] serve kernel against its plain version:")
+    print("[3/13] serve kernel against its plain version:")
     cases, timings = kernel_phase(dev)
-    print("[4/11] server at full width:")
+    print("[4/13] server at full width:")
     server = server_phase(dev)
-    print("[5/11] train kernels against their plain versions:")
-    tcases, gcases, ttimes = train_kernel_phase(dev)
-    print("[6/11] trainer at full width:")
-    trainer = train_phase(dev)
-    print("[7/11] eval kernels against their plain versions:")
+    print("[5/13] train kernels against their plain versions:")
+    tcases, gcases, pcases, ttimes = train_kernel_phase(dev)
+    print("[6/13] trainer at full width, sce_mode=gspmd:")
+    trainer = train_phase(dev, "gspmd")
+    print("[7/13] trainer at full width, its default sce_mode=exact:")
+    exact = train_phase(dev, "exact")
+    print("[8/13] one batch through the three SCE modes:")
+    agreement = mode_agreement_phase(dev)
+    print("[9/13] eval kernels against their plain versions:")
     ecases, etimes = eval_kernel_phase(dev)
-    print("[8/11] evaluation at full width:")
+    print("[10/13] evaluation at full width:")
     evaluation = eval_phase(dev)
-    print("[9/11] full-CE kernels against their plain versions:")
+    print("[11/13] full-CE kernels against their plain versions:")
     ccases, ctimes = ce_kernel_phase(dev)
-    print("[10/11] trainer with the competitor losses at full width:")
-    competitors = loss_phase(dev, trainer)
+    print("[12/13] trainer with the competitor losses at full width:")
+    competitors = loss_phase(dev, (trainer, exact))
 
     t = timings[512]  # the serve_p99 bucket
     mips = {"route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mips_topk.cu",
             "replaces": "src/repro/kernels/mips_topk.py:52"}
+    trainers = (trainer, exact)
     kernels = [{
         "name": "mips_topk",
         **mips,
-        # serving's launches and training's, each path counted from 0
-        "launches": server["launches"] + trainer["launches"]["mips_topk"],
+        # serving's launches and both trainers', each path counted from 0
+        "launches": server["launches"] + sum(
+            r["launches"]["mips_topk"] for r in trainers),
         "max_abs_err": max([timings[b]["max_abs_err"] for b in BUCKETS]
                            + [c["max_abs_err"] for c in tcases]),
         "ms": t["ms"],
@@ -1577,14 +1838,15 @@ def main() -> int:
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
     }]
-    # The same kernel at training's two selections, with the launches the
-    # trainer made at that k.
+    # The same kernel at training's two selections, with the launches both
+    # trainers made at that k.
     for name, k in (("positions_k320", B_X), ("catalog_k256", B_Y)):
         tt = ttimes[name]
         kernels.append({
             "name": f"mips_topk_train_{name}",
             **mips,
-            "launches": trainer["mips_topk_launches_by_k"][k],
+            "launches": sum(r["mips_topk_launches_by_k"][k]
+                            for r in trainers),
             "max_abs_err": next(c["max_abs_err"] for c in tcases
                                 if c["name"] == f"train_{name}"),
             "ms": tt["ms"],
@@ -1610,9 +1872,25 @@ def main() -> int:
             "bound_by": tt["bound_by"],
             "library_ms": tt["library_ms"],
         })
+    for name, what in zip(PLSE, ("plse", "dx", "dy")):
+        tt = ttimes[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sce_gather.cu",
+            "replaces": "src/repro/kernels/sce_prefetch.py:497",
+            "launches": exact["launches"][name],
+            "max_abs_err": max(c["max_abs_err"][what] for c in pcases),
+            "ms": tt["ms"],
+            "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"],
+            "bound_by": tt["bound_by"],
+            "library_ms": tt["library_ms"],
+        })
     for name, line in (("eval_fused", 104), ("eval_tgt_gather", 82)):
         for b, launches in ((EVAL_B[1], evaluation["launches"][name]),
-                            (EVAL_B[0], trainer["launches"][name])):
+                            (EVAL_B[0], sum(r["launches"][name]
+                                            for r in trainers))):
             tt = etimes[b][name]
             err = max(c["max_abs_err" if name == "eval_fused" else "tgt_err"]
                       for c in ecases)
@@ -1650,14 +1928,16 @@ def main() -> int:
             "card": card, "build_s": build_s, "cases": cases,
             "timings": {str(b): v for b, v in timings.items()},
             "server": server, "train_cases": tcases, "gather_cases": gcases,
-            "train_timings": ttimes, "trainer": trainer,
+            "plse_cases": pcases, "train_timings": ttimes,
+            "trainer": trainer, "trainer_exact": exact,
+            "mode_agreement": agreement,
             "eval_cases": ecases,
             "eval_timings": {str(b): v for b, v in etimes.items()},
             "evaluation": evaluation, "ce_cases": ccases,
             "ce_timings": ctimes, "competitor_losses": competitors,
             "kernels": kernels,
         }, indent=1))
-    print("[11/11] summary")
+    print("[13/13] summary")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

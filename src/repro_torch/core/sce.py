@@ -129,11 +129,11 @@ def _sanitize_placeholder_ids(idx, valid_mask):
 
 
 def _dense_topk_ids(scores, k: int):
-    """Ids of the top-``k`` columns per row, ties to the lower index (the
-    order of ``lax.top_k``): a stable descending sort over column order,
-    never ``torch.topk``, which promises no order among ties."""
+    """Ids of the top-``k`` entries along the last axis, ties to the lower
+    index (the order of ``lax.top_k``): a stable descending sort, never
+    ``torch.topk``, which promises no order among ties."""
     order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
-    return order[:, :k].to(torch.int32)
+    return order[..., :k].to(torch.int32)
 
 
 def select_buckets(b, x, y, cfg: SCEConfig, *, valid_mask=None):
@@ -182,12 +182,12 @@ def _in_bucket_losses(x_b, y_b, tgt_b, cand_ids, pos_logit, softcap=None):
     return torch.logsumexp(all_logits, dim=-1) - pos_logit
 
 
-def aggregate_bucket_losses(losses, idx_x, n_positions: int, *,
-                            valid_mask=None):
-    """Algorithm 1, lines 16–17: per position the largest loss over the
-    buckets that hold it, then the mean over covered positions →
-    ``(loss, covered (N,) bool)``. Ties between buckets split the
-    gradient evenly, as ``jax.ops.segment_max`` does."""
+def per_position_max(losses, idx_x, n_positions: int, *, valid_mask=None):
+    """Algorithm 1, line 16: per position the largest loss over the
+    buckets that hold it → ``(per_pos (N,), covered (N,) bool)``, with
+    ``per_pos`` 0 off the covered (selected and valid) positions. Ties
+    between buckets split the gradient evenly, as ``jax.ops.segment_max``
+    does."""
     flat_idx = idx_x.reshape(-1).long()
     flat_loss = losses.reshape(-1)
     per_pos = torch.zeros(n_positions, dtype=flat_loss.dtype,
@@ -199,7 +199,15 @@ def aggregate_bucket_losses(losses, idx_x, n_positions: int, *,
     covered[flat_idx] = True
     if valid_mask is not None:
         covered = covered & valid_mask
-    per_pos = torch.where(covered, per_pos, torch.zeros_like(per_pos))
+    return torch.where(covered, per_pos, torch.zeros_like(per_pos)), covered
+
+
+def aggregate_bucket_losses(losses, idx_x, n_positions: int, *,
+                            valid_mask=None):
+    """Algorithm 1, lines 16–17: :func:`per_position_max`, then the mean
+    over covered positions → ``(loss, covered (N,) bool)``."""
+    per_pos, covered = per_position_max(losses, idx_x, n_positions,
+                                        valid_mask=valid_mask)
     denom = torch.clamp(covered.to(per_pos.dtype).sum(), min=1.0)
     return per_pos.sum() / denom, covered
 

@@ -2,18 +2,25 @@
 // catalog inside the kernel, forward and backward, written by hand for
 // Hopper (sm_90a).
 //
-// Replaces the three Pallas TPU kernels behind `sce_gather_loss` of
-// src/repro/kernels/sce_prefetch.py: `_gfwd_kernel` (forward, with_pos),
-// `_gbwd_dx_kernel` (dX) and `_gbwd_dy_kernel` (dY). For bucket n, row x
-// of x_b (n_b, b_x, d) and candidate j < b_y with catalog row
-// r = clamp(idx_y[n, j], 0, C - 1):
+// Replaces the Pallas TPU kernels behind `sce_gather_loss` and
+// `sce_gather_plse` of src/repro/kernels/sce_prefetch.py: `_gfwd_kernel`
+// (forward, with_pos true for the loss, false for the partial LSE),
+// `_gbwd_dx_kernel` (dX) and `_gbwd_dy_kernel` (dY), the backward shared
+// by both as in the reference (`_plse_vjp_bwd` calls the loss's `_gbwd`).
+// For bucket n, row x of x_b (n_b, b_x, d) and candidate j < b_y with
+// catalog row r = clamp(idx_y[n, j], 0, C - 1):
 //
 //   l[x, j]  = cap·tanh(x_b[n, x]·Y[r] / cap)      (no cap: the plain dot)
 //   masked   where cand[n, j] == tgt[n, x] or cand[n, j] < 0
 //   lse[x]   = log(exp(pos[n, x]) + Σ_j exp(l[x, j]))  over unmasked j
 //   loss[x]  = lse[x] − pos[n, x]
+//   plse[x]  = m + log(max(s, 1e-30)), the online (m, s) over the masked
+//              logits from (NEG_INF, 0), no positive: a masked slot is a
+//              NEG_INF logit, so a row with every candidate masked comes
+//              out at NEG_INF + log(count) = −1e30 in f32, never −inf
 //   gw[x, j] = exp(l[x, j] − lse[x]) · (1 − (l[x, j]/cap)²) · g[n, x]
-//              (0 where masked; the cap factor is 1 without a cap)
+//              (0 where masked; the cap factor is 1 without a cap; the
+//              partial LSE's backward passes plse in place of lse)
 //   dX[n, x] = Σ_j gw[x, j] · Y[r_j]
 //   dY[r_j] += Σ_x gw[x, j] · x_b[n, x]     (summed over every bucket)
 //
@@ -47,7 +54,12 @@
 //     each tile into a per-row online logsumexp held in registers by the
 //     16 threads that share a row (half-warp shuffles reduce the tile's
 //     max and sum),
-//     starting from (m, s) = (pos, 1) so the positive is counted once. dX
+//     starting from (m, s) = (pos, 1) so the positive is counted once
+//     (the partial LSE, template flag WITH_POS false, from (NEG_INF, 0)
+//     and with no positive to read). The partial LSE's rows with no owned
+//     candidate are the common case in the distributed exact mode — every
+//     candidate another shard owns arrives as cand = −1 — and cost the
+//     same tile walk as any other row. dX
 //     recomputes the tile, turns it into gw, stores gwᵀ in shared memory
 //     and accumulates gw · Y_tile into registers.
 //   * dY: grid (n_b, ceil(b_y / 64)), the transposed walk. A block gathers
@@ -56,7 +68,11 @@
 //     registers; it then adds its 64 × d result into dY[r_j].
 //   * b_x = 320 and b_y = 256 need no padding copies: rows past b_x and
 //     candidates past b_y are staged as zeros and masked in the kernel.
-//   * dY's scatter is an f32 atomicAdd. Rows within one bucket are distinct
+//   * dY's scatter is an f32 atomicAdd, skipped for candidates with a
+//     negative id (their sum is exactly 0): in the distributed exact mode
+//     ≈ 75 % of a 4-way shard's candidates are another shard's and clamp
+//     to one row, whose atomics would otherwise serialise (4.7× the dY
+//     time on such a shard, PERF.md). Rows within one bucket are distinct
 //     (they come from a top-k), but a hot catalog row recurs across
 //     buckets, and blocks run in no order. A deterministic scheme would
 //     need a per-bucket (n_b, b_y, d) buffer — the tensor the gather kernel
@@ -113,8 +129,10 @@ __device__ __forceinline__ bool masked(int col, int ny, int cand_id,
 }
 
 // ---------------------------------------------------------------------------
-// Forward: loss and lse of 64 rows of one bucket.
+// Forward: loss and lse (WITH_POS), or the partial LSE, of 64 rows of one
+// bucket. Without the positive, `pos` and `loss` are not read or written.
 // ---------------------------------------------------------------------------
+template <bool WITH_POS>
 __global__ void __launch_bounds__(kThreads)
 sce_gather_fwd_kernel(const float* __restrict__ x_b,
                       const float* __restrict__ y,
@@ -148,10 +166,11 @@ sce_gather_fwd_kernel(const float* __restrict__ x_b,
 #pragma unroll
   for (int i = 0; i < kRM; ++i) {
     const int r = ty * kRM + i;
-    ps[i] = r < nx ? pos[row0 + r] : 0.f;
+    ps[i] = WITH_POS && r < nx ? pos[row0 + r] : 0.f;
     tg[i] = r < nx ? tgt_b[row0 + r] : -2;
-    m[i] = ps[i];  // the positive folded in: (m, s) = (pos, 1)
-    s[i] = 1.f;
+    // With the positive folded in (m, s) = (pos, 1); without, (NEG_INF, 0).
+    m[i] = WITH_POS ? ps[i] : kNegInf;
+    s[i] = WITH_POS ? 1.f : 0.f;
   }
 
   for (int j0 = 0; j0 < b_y; j0 += kTileY) {
@@ -189,10 +208,13 @@ sce_gather_fwd_kernel(const float* __restrict__ x_b,
 #pragma unroll
     for (int i = 0; i < kRM; ++i) {
       const int r = ty * kRM + i;
-      if (r < nx) {
+      if (r >= nx) continue;
+      if constexpr (WITH_POS) {
         const float l = m[i] + logf(s[i]);
         lse[row0 + r] = l;
         loss[row0 + r] = l - ps[i];
+      } else {
+        lse[row0 + r] = m[i] + logf(fmaxf(s[i], 1e-30f));
       }
     }
   }
@@ -352,7 +374,9 @@ sce_gather_dy_kernel(const float* __restrict__ x_b,
 #pragma unroll
   for (int i = 0; i < kRM; ++i) {
     const int j = ty * kRM + i;
-    if (j >= ny) continue;
+    // A candidate with a negative id is masked on every row: its sum is
+    // exactly 0 and its clamped row is not written.
+    if (j >= ny || cands[j] < 0) continue;
     float* out = dy + (long)rows[j] * d;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc)
@@ -368,7 +392,7 @@ sce_gather_dy_kernel(const float* __restrict__ x_b,
 // device (the attribute is per device context). `slot` names the kernel.
 template <typename K>
 cudaError_t allow_max_smem(K kernel, int slot) {
-  static bool done[9][kMaxDevices] = {};
+  static bool done[10][kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -383,6 +407,27 @@ bool shapes_ok(int n_b, int b_x, int b_y, int c, int d) {
   return n_b > 0 && b_x > 0 && b_y > 0 && c > 0 && d > 0 && d <= kMaxD &&
          (b_x + kTileX - 1) / kTileX <= 65535 &&
          (b_y + kTileY - 1) / kTileY <= 65535;
+}
+
+// Launches the forward with the positive (slot 0) or the partial LSE
+// (slot 9); `pos` and `loss` are null for the latter.
+template <bool WITH_POS>
+int launch_fwd(const float* x_b, const float* y, const int* idx_y,
+               const int* tgt_b, const int* cand, const float* pos,
+               float* loss, float* lse, int n_b, int b_x, int b_y, int c,
+               int d, float cap, void* stream) {
+  if (!shapes_ok(n_b, b_x, b_y, c, d)) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(d, false);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      allow_max_smem(sce_gather_fwd_kernel<WITH_POS>, WITH_POS ? 0 : 9);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n_b, (b_x + kTileX - 1) / kTileX);
+  sce_gather_fwd_kernel<WITH_POS><<<grid, kThreads, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      x_b, y, idx_y, tgt_b, cand, pos, loss, lse, b_x, b_y, c, d, cap,
+      vec_flag(x_b, d), vec_flag(y, d));
+  return (int)cudaGetLastError();
 }
 
 // Launches the dX (kind 0) or dY (kind 1) kernel at NC = ceil(d / 64).
@@ -445,24 +490,26 @@ int launch_bwd_any(int kind, const float* x_b, const float* y,
 // Each returns the cudaError_t of its launch (0 on success), and
 // cudaErrorInvalidValue for shapes it does not take. Nothing is
 // synchronised and nothing is allocated: dx (n_b, b_x, d) is written
-// whole; dy (C, d) must arrive zeroed and is added into.
+// whole; dy (C, d) must arrive zeroed and is added into. dX and dY serve
+// the partial LSE too, with the plse in place of the lse.
 extern "C" int sce_gather_fwd_launch(const float* x_b, const float* y,
                                      const int* idx_y, const int* tgt_b,
                                      const int* cand, const float* pos,
                                      float* loss, float* lse, int n_b,
                                      int b_x, int b_y, int c, int d,
                                      float cap, void* stream) {
-  if (!shapes_ok(n_b, b_x, b_y, c, d)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d, false);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_max_smem(sce_gather_fwd_kernel, 0);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_b, (b_x + kTileX - 1) / kTileX);
-  sce_gather_fwd_kernel<<<grid, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x_b, y, idx_y, tgt_b, cand, pos, loss, lse, b_x, b_y, c, d, cap,
-      vec_flag(x_b, d), vec_flag(y, d));
-  return (int)cudaGetLastError();
+  return launch_fwd<true>(x_b, y, idx_y, tgt_b, cand, pos, loss, lse, n_b,
+                          b_x, b_y, c, d, cap, stream);
+}
+
+extern "C" int sce_gather_plse_fwd_launch(const float* x_b, const float* y,
+                                          const int* idx_y,
+                                          const int* tgt_b, const int* cand,
+                                          float* plse, int n_b, int b_x,
+                                          int b_y, int c, int d, float cap,
+                                          void* stream) {
+  return launch_fwd<false>(x_b, y, idx_y, tgt_b, cand, nullptr, nullptr,
+                           plse, n_b, b_x, b_y, c, d, cap, stream);
 }
 
 extern "C" int sce_gather_dx_launch(const float* x_b, const float* y,

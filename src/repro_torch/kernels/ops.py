@@ -1,7 +1,7 @@
 """Device dispatch for the kernels (port of the ``mips_topk``,
-``sce_gather_loss``, ``eval_fused``, ``eval_tgt_gather``, ``fused_lse``,
-``fused_ce_loss`` and ``linear_ce_loss`` entries of
-``repro/kernels/ops.py``).
+``sce_gather_loss``, ``sce_gather_plse``, ``eval_fused``,
+``eval_tgt_gather``, ``fused_lse``, ``fused_ce_loss`` and
+``linear_ce_loss`` entries of ``repro/kernels/ops.py``).
 
 A tensor on the CPU takes the kernel's plain version (``ref.py``); a
 CUDA tensor launches the hand-written kernel or raises. There is no
@@ -50,6 +50,19 @@ def sce_gather_loss(x_b, y, idx_y, tgt_b, cand_ids, pos_logit, *,
     if _device_kind("sce_gather_loss", *args) == "cpu":
         return _ref.sce_gather_loss_ref(*args, logit_softcap)
     return _sce_prefetch.sce_gather_loss(*args, logit_softcap=logit_softcap)
+
+
+def sce_gather_plse(x_b, y, idx_y, tgt_b, cand_ids, *, logit_softcap=None):
+    """Partial in-bucket logsumexp (n_b, b_x) over the candidate rows
+    ``y[idx_y]`` gathered inside the kernel, with no positive term —
+    the distributed merge's building block. Candidates with a negative
+    ``cand_ids`` (padding, or rows another shard owns) are masked; a row
+    with none left is ``NEG_INF``. Differentiable in ``x_b`` and ``y``.
+    See ``kernels/sce_prefetch.py``."""
+    args = (x_b, y, idx_y, tgt_b, cand_ids)
+    if _device_kind("sce_gather_plse", *args) == "cpu":
+        return _ref.sce_gather_plse_ref(*args, logit_softcap)
+    return _sce_prefetch.sce_gather_plse(*args, logit_softcap=logit_softcap)
 
 
 def eval_fused(x, y, targets, k: int, *, tgt_scores=None, block_c: int = 512,

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the kernels (port of the slice of
 ``repro/kernels/ref.py`` this package has kernels for: the MIPS top-k,
-the in-bucket SCE loss, the fused evaluation sweep and the streamed
-full-catalog CE).
+the in-bucket SCE loss and partial LSE, the fused evaluation sweep and
+the streamed full-catalog CE).
 
 They are the CPU path of ``kernels/ops.py`` and the yardstick the tests
 and ``chip_smoke.py`` hold each CUDA kernel against. No production path
@@ -53,6 +53,25 @@ def sce_gather_loss_ref(x_b, y, idx_y, tgt_b, cand_ids, pos_logit,
     y_b = y[idx_y.long().clamp(0, y.shape[0] - 1)]
     return sce_bucket_loss_ref(x_b, y_b, tgt_b, cand_ids, pos_logit,
                                logit_softcap)
+
+
+def sce_bucket_plse_ref(x_b, y_b, tgt_b, cand_ids, logit_softcap=None):
+    """Partial logsumexp over the in-bucket negatives alone (no positive
+    term), masked as in :func:`_masked_neg_logits` → (n_b, b_x) f32: the
+    building block of the distributed merge. A row whose candidates are
+    all masked comes out at ``NEG_INF + log(b_y)``, which is ``NEG_INF``
+    in f32, never ``−inf``. Differentiable by autograd."""
+    neg = _masked_neg_logits(x_b, y_b, tgt_b, cand_ids, logit_softcap)
+    m = neg.amax(dim=-1)
+    s = torch.exp(neg - m[..., None]).sum(dim=-1)
+    return m + torch.log(torch.clamp(s, min=1e-30))
+
+
+def sce_gather_plse_ref(x_b, y, idx_y, tgt_b, cand_ids, logit_softcap=None):
+    """The plain version of ``kernels/sce_prefetch.py::sce_gather_plse``:
+    gather ``y[clamp(idx_y)]``, then :func:`sce_bucket_plse_ref`."""
+    y_b = y[idx_y.long().clamp(0, y.shape[0] - 1)]
+    return sce_bucket_plse_ref(x_b, y_b, tgt_b, cand_ids, logit_softcap)
 
 
 def mips_topk_ref(q, y, k: int, *, valid=None, chunk: int = 512,

@@ -1,8 +1,8 @@
 """In-bucket SCE with the candidates gathered from the catalog, on the
 H100 — the wrappers of ``csrc/sce_gather.cu`` (port of ``sce_gather_loss``
-of ``repro/kernels/sce_prefetch.py``).
+and ``sce_gather_plse`` of ``repro/kernels/sce_prefetch.py``).
 
-Three kernels, one wrapper each, each with its own launch counter:
+The loss, one wrapper per kernel, each with its own launch counter:
 
 * :func:`sce_gather_fwd` — per-(bucket, row) loss and logsumexp;
 * :func:`sce_gather_dx` — the gradient of ``x_b`` (n_b, b_x, d);
@@ -10,12 +10,22 @@ Three kernels, one wrapper each, each with its own launch counter:
   added into a zeroed buffer row by row (``atomicAdd``: not bitwise
   repeatable, rows no bucket selected stay exactly 0).
 
-:class:`SCEGatherLoss` ties them together for autograd: the forward saves
-``lse``, the backward launches dX and dY and computes the positive's
-cotangent ``d_pos = (exp(pos − lse) − 1)·g`` as a plain tensor
-expression, as the reference's ``_loss_vjp_bwd`` does. The wrappers take
-CUDA tensors only; the CPU path is ``kernels/ref.py::sce_gather_loss_ref``,
-chosen by ``kernels/ops.py``.
+The partial logsumexp of the distributed merge (no positive, from
+``(NEG_INF, 0)``), again with a counter per wrapper, apart from the
+loss's:
+
+* :func:`sce_gather_plse_fwd` — the forward kernel without the positive;
+* :func:`sce_gather_plse_dx` / :func:`sce_gather_plse_dy` — the loss's
+  dX and dY kernels with the plse in place of the lse (the reference's
+  ``_plse_vjp_bwd`` calls the loss's ``_gbwd`` too).
+
+:class:`SCEGatherLoss` and :class:`SCEGatherPLSE` tie them together for
+autograd: the forward saves ``lse`` (or ``plse``), the backward launches
+dX and dY; the loss's also computes the positive's cotangent
+``d_pos = (exp(pos − lse) − 1)·g`` as a plain tensor expression, as the
+reference's ``_loss_vjp_bwd`` does. The wrappers take CUDA tensors only;
+the CPU paths are ``kernels/ref.py::sce_gather_loss_ref`` and
+``sce_gather_plse_ref``, chosen by ``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -40,6 +50,8 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p] * 8 + [i] * 5 + [f, p]
         fn.restype = ctypes.c_int
+    lib.sce_gather_plse_fwd_launch.argtypes = [p] * 6 + [i] * 5 + [f, p]
+    lib.sce_gather_plse_fwd_launch.restype = ctypes.c_int
     return lib
 
 
@@ -114,15 +126,29 @@ def sce_gather_fwd(x_b, y, idx_y, tgt_b, cand_ids, pos_logit, *,
     return loss, lse
 
 
+def _dx(x_b, y, idx_y, tgt_b, cand_ids, lse, g, cap):
+    shape = _check(x_b, y, idx_y, tgt_b, cand_ids, lse, g)
+    dx = torch.empty_like(x_b)
+    _launch("sce_gather_dx_launch",
+            (x_b, y, idx_y, tgt_b, cand_ids, lse, g, dx, _cap(cap)), shape,
+            x_b.device)
+    return dx
+
+
+def _dy(x_b, y, idx_y, tgt_b, cand_ids, lse, g, cap):
+    shape = _check(x_b, y, idx_y, tgt_b, cand_ids, lse, g)
+    dy = torch.zeros_like(y)
+    _launch("sce_gather_dy_launch",
+            (x_b, y, idx_y, tgt_b, cand_ids, lse, g, dy, _cap(cap)), shape,
+            x_b.device)
+    return dy
+
+
 def sce_gather_dx(x_b, y, idx_y, tgt_b, cand_ids, lse, g, *,
                   logit_softcap=None):
     """dX kernel: the (n_b, b_x, d) gradient of ``x_b`` for the upstream
     cotangent ``g`` (n_b, b_x) of the loss."""
-    shape = _check(x_b, y, idx_y, tgt_b, cand_ids, lse, g)
-    dx = torch.empty_like(x_b)
-    _launch("sce_gather_dx_launch",
-            (x_b, y, idx_y, tgt_b, cand_ids, lse, g, dx,
-             _cap(logit_softcap)), shape, x_b.device)
+    dx = _dx(x_b, y, idx_y, tgt_b, cand_ids, lse, g, logit_softcap)
     sce_gather_dx.launches += 1
     return dx
 
@@ -132,18 +158,48 @@ def sce_gather_dy(x_b, y, idx_y, tgt_b, cand_ids, lse, g, *,
     """dY kernel: the (C, d) gradient of the catalog ``y``; each selected
     row ``idx_y[n, j]`` receives the sum over buckets, every other row is
     exactly 0. The sum order varies from run to run (atomics)."""
-    shape = _check(x_b, y, idx_y, tgt_b, cand_ids, lse, g)
-    dy = torch.zeros_like(y)
-    _launch("sce_gather_dy_launch",
-            (x_b, y, idx_y, tgt_b, cand_ids, lse, g, dy,
-             _cap(logit_softcap)), shape, x_b.device)
+    dy = _dy(x_b, y, idx_y, tgt_b, cand_ids, lse, g, logit_softcap)
     sce_gather_dy.launches += 1
     return dy
 
 
-sce_gather_fwd.launches = 0
-sce_gather_dx.launches = 0
-sce_gather_dy.launches = 0
+def sce_gather_plse_fwd(x_b, y, idx_y, tgt_b, cand_ids, *,
+                        logit_softcap=None):
+    """Partial-LSE forward kernel: (n_b, b_x) f32 logsumexp over the
+    unmasked candidates alone, from ``(NEG_INF, 0)``; a row with every
+    candidate masked is ``NEG_INF`` (−1e30), never ``−inf``. Matches
+    ``ref.sce_gather_plse_ref``."""
+    shape = _check(x_b, y, idx_y, tgt_b, cand_ids)
+    plse = torch.empty(x_b.shape[:2], dtype=torch.float32,
+                       device=x_b.device)
+    _launch("sce_gather_plse_fwd_launch",
+            (x_b, y, idx_y, tgt_b, cand_ids, plse, _cap(logit_softcap)),
+            shape, x_b.device)
+    sce_gather_plse_fwd.launches += 1
+    return plse
+
+
+def sce_gather_plse_dx(x_b, y, idx_y, tgt_b, cand_ids, plse, g, *,
+                       logit_softcap=None):
+    """The dX kernel for the partial LSE: ``gw = exp(l − plse)·g``, 0
+    where masked, so a row with no unmasked candidate gets exactly 0."""
+    dx = _dx(x_b, y, idx_y, tgt_b, cand_ids, plse, g, logit_softcap)
+    sce_gather_plse_dx.launches += 1
+    return dx
+
+
+def sce_gather_plse_dy(x_b, y, idx_y, tgt_b, cand_ids, plse, g, *,
+                       logit_softcap=None):
+    """The dY kernel for the partial LSE (atomics, as
+    :func:`sce_gather_dy`)."""
+    dy = _dy(x_b, y, idx_y, tgt_b, cand_ids, plse, g, logit_softcap)
+    sce_gather_plse_dy.launches += 1
+    return dy
+
+
+for _fn in (sce_gather_fwd, sce_gather_dx, sce_gather_dy,
+            sce_gather_plse_fwd, sce_gather_plse_dx, sce_gather_plse_dy):
+    _fn.launches = 0
 
 
 class SCEGatherLoss(torch.autograd.Function):
@@ -179,4 +235,34 @@ def sce_gather_loss(x_b, y, idx_y, tgt_b, cand_ids, pos_logit, *,
     ``x_b``, ``y`` and ``pos_logit``; the ``(n_b, b_y, d)`` candidate
     tensor never exists. See the module docstring."""
     return SCEGatherLoss.apply(x_b, y, idx_y, tgt_b, cand_ids, pos_logit,
+                               logit_softcap)
+
+
+class SCEGatherPLSE(torch.autograd.Function):
+    """``plse (n_b, b_x)`` of ``(x_b, y, idx_y, tgt_b, cand_ids,
+    logit_softcap)``; gradients for ``x_b`` and ``y``."""
+
+    @staticmethod
+    def forward(ctx, x_b, y, idx_y, tgt_b, cand_ids, logit_softcap):
+        plse = sce_gather_plse_fwd(x_b, y, idx_y, tgt_b, cand_ids,
+                                   logit_softcap=logit_softcap)
+        ctx.save_for_backward(x_b, y, idx_y, tgt_b, cand_ids, plse)
+        ctx.logit_softcap = logit_softcap
+        return plse
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors + (g.contiguous(),)
+        cap = ctx.logit_softcap
+        need = ctx.needs_input_grad
+        dx = sce_gather_plse_dx(*args, logit_softcap=cap) if need[0] else None
+        dy = sce_gather_plse_dy(*args, logit_softcap=cap) if need[1] else None
+        return dx, dy, None, None, None, None
+
+
+def sce_gather_plse(x_b, y, idx_y, tgt_b, cand_ids, *, logit_softcap=None):
+    """Partial in-bucket logsumexp (n_b, b_x) on the card, differentiable
+    in ``x_b`` and ``y``; candidates with a negative ``cand_ids`` (padding,
+    or rows another shard owns) are masked. See the module docstring."""
+    return SCEGatherPLSE.apply(x_b, y, idx_y, tgt_b, cand_ids,
                                logit_softcap)

@@ -1,6 +1,7 @@
-"""Step factories (port of the single-device seqrec steps of
-``repro/launch/steps.py``: the training step with any registry loss and
-the MIPS serving step)."""
+"""Step factories (port of the seqrec steps of ``repro/launch/steps.py``:
+the training step with any registry loss, on one device or on a
+``(data, model)`` mesh with distributed SCE, and the single-device MIPS
+serving step)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,10 +9,13 @@ import functools
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.distributed_sce import round_up, sce_loss_sharded
 from repro_torch.core.losses import ce_chunked, ce_fused_linear, make_loss
 from repro_torch.core.sce import SCEConfig, sce_loss
 from repro_torch.eval.streaming import streaming_topk
+from repro_torch.launch.mesh import dp_size
 from repro_torch.models import sasrec as sasrec_lib
 from repro_torch.optim.optimizers import (
     OptState,
@@ -59,10 +63,6 @@ def _apply_update_guarded(opt_update, loss, grads, params, opt_state,
     return keep(new_params, params), kept_opt, metrics
 
 
-def round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
 def build_sce_config(
     n_positions_local: int,
     catalog: int,
@@ -88,22 +88,32 @@ def build_sce_config(
 
 
 def _vocab_loss(x, y, targets, valid, generator, *, loss_name, sce_cfg,
-                logit_softcap: Optional[float] = None, omega=None,
-                mark=None):
-    """Dispatch the catalog loss by its registry name (the single-device
-    branch of the reference's ``_vocab_loss``).
+                sce_mode: str, mesh, logit_softcap: Optional[float] = None,
+                omega=None, mark=None):
+    """Dispatch the catalog loss by its registry name (the reference's
+    ``_vocab_loss``).
 
-    ``logit_softcap`` reaches every CE variant that supports it: SCE
-    carries it in ``sce_cfg``, ``ce_chunked`` caps inside its sweep,
-    ``ce_fused_linear`` inside the kernel's tile. ``generator`` takes the
-    reference's ``k_loss``: SCE's bucket draw and the sampled losses'
-    negatives; ``omega`` injects SCE's Mix draw instead. ``mark`` sees
-    ``sce_loss``'s own ``"select"`` and ``"loss_forward"``, or one
-    ``"loss_forward"`` after any other loss. The reference also returns
-    the kernel guard's numerics sentinels; the guard is not ported yet
-    (ROADMAP queue 1 item 11), so this returns the loss alone.
+    ``sce_mode``: ``"exact"`` | ``"union"`` run the distributed SCE of
+    ``core/distributed_sce.py`` over ``mesh`` (on one device a (1, 1)
+    mesh: the reference trainer's default path); ``"gspmd"``, or no
+    mesh, the global-bucket ``core.sce.sce_loss``. ``logit_softcap``
+    reaches every CE variant that supports it: SCE carries it in
+    ``sce_cfg``, ``ce_chunked`` caps inside its sweep, ``ce_fused_linear``
+    inside the kernel's tile. ``generator`` takes the reference's
+    ``k_loss``: SCE's bucket draw and the sampled losses' negatives;
+    ``omega`` injects SCE's Mix draw instead (on a mesh, this rank's data
+    shard's). ``mark`` sees the SCE losses' own ``"select"`` and
+    ``"loss_forward"``, or one ``"loss_forward"`` after any other loss.
+    The reference also returns the kernel guard's numerics sentinels; the
+    guard is not ported yet (ROADMAP queue 1 item 11), so this returns
+    the loss alone.
     """
     if loss_name == "sce":
+        if sce_mode in ("exact", "union") and mesh is not None:
+            return sce_loss_sharded(x, y, targets, cfg=sce_cfg, mesh=mesh,
+                                    valid_mask=valid, mode=sce_mode,
+                                    generator=generator, omega=omega,
+                                    mark=mark)
         return sce_loss(x, y, targets, cfg=sce_cfg, valid_mask=valid,
                         generator=generator, omega=omega, mark=mark)
     if omega is not None:
@@ -161,14 +171,24 @@ def _unflatten(tree, leaves):
 # ---------------------------------------------------------------------------
 # Sequential recommenders (SASRec, the paper's own domain)
 # ---------------------------------------------------------------------------
-def make_seqrec_train_step(arch, cfg, shape):
-    """The training step of a causal seqrec model on one device: SASRec
-    forward → the loss ``arch.train_loss`` names (:func:`_vocab_loss`; SCE
-    runs ``core.sce.sce_loss`` on the kernel path, ``build_sce_config``
-    defaulting to ``use_kernel=True``) → autograd → guarded AdamW at lr
+def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
+                           sce_mode: str = "exact"):
+    """The training step of a causal seqrec model: SASRec forward → the
+    loss ``arch.train_loss`` names (:func:`_vocab_loss`; ``build_sce_config``
+    defaults to ``use_kernel=True``) → autograd → guarded AdamW at lr
     1e-3. No dropout, as in the reference step, which passes no dropout
     key to the forward. Another registry loss is one
     ``dataclasses.replace(arch, train_loss=name)`` away.
+
+    With ``mesh`` (``launch/mesh.py``) and ``sce_mode`` ``"exact"`` or
+    ``"union"``, SCE is ``core.distributed_sce.sce_loss_sharded`` over the
+    mesh, as the reference trainer runs it; ``mesh=None`` or ``"gspmd"``
+    keeps ``core.sce.sce_loss``. On a mesh each rank passes its data
+    shard of the global batch (``dist.sharding.batch_slice``), the SCE
+    config follows the per-shard position count with ``n_b`` rounded to
+    the model axis, and with a data axis above 1 the step sums the
+    gradients over the data group before the guarded update (the
+    reference gets that sum from ``jit``).
 
     Returns ``(train_step, (opt_init, opt_update), sce_cfg)`` with
     ``train_step(params, opt_state, batch, *, generator=None,
@@ -177,22 +197,40 @@ def make_seqrec_train_step(arch, cfg, shape):
     on the params' device, and optionally a ``loss_cap``; the bucket
     centres are drawn from ``generator`` unless ``omega`` injects the
     draw (SCE only). ``mark``, when given, is called with each phase's
-    name where the phase's launches end: ``"forward"``, then
-    ``sce_loss``'s ``"select"`` and ``"loss_forward"`` (another loss: one
+    name where the phase's launches end: ``"forward"``, then the SCE
+    losses' ``"select"`` and ``"loss_forward"`` (another loss: one
     ``"loss_forward"``), ``"backward"`` and ``"optimizer"``
     (``chip_smoke.py`` records a CUDA event at each).
     """
     if not cfg.causal:
         raise NotImplementedError("the BERT4Rec step is not ported")
+    if sce_mode not in ("exact", "union", "gspmd"):
+        raise ValueError(f"sce_mode {sce_mode!r}")
+    if mesh is not None and not mesh.member:
+        raise ValueError(f"this rank is outside the {mesh.shape} mesh")
     opt_init, opt_update = make_optimizer(arch.optimizer, 1e-3)
     gb = shape.dims["batch"]
-    n_micro = max(1, min(arch.microbatches.get(shape.name, 1), gb))
-    n_pos = (gb // n_micro) * cfg.max_len
+    dp = dp_size(mesh) if mesh is not None else 1
+    tp = mesh.shape["model"] if mesh is not None else 1
+    n_micro = max(1, min(arch.microbatches.get(shape.name, 1), gb // dp))
+    if dp > 1 and not (arch.train_loss == "sce"
+                       and sce_mode in ("exact", "union")):
+        raise NotImplementedError(
+            "on a data axis > 1 only distributed SCE (sce_mode exact or "
+            "union) is ported: another loss would average each rank's "
+            "shard, not the global batch")
+    if n_micro > 1 and dp > 1:
+        raise NotImplementedError(
+            "microbatches on a data axis > 1 are not ported: the reference "
+            "shards each global microbatch, a rank here holds one block")
+    n_pos = (gb // n_micro // dp) * cfg.max_len
     if n_pos <= 0:
-        raise ValueError(f"batch {gb} / {n_micro} microbatches is empty")
+        raise ValueError(f"batch {gb} / {n_micro} microbatches / {dp} data "
+                         f"shards is empty")
     sce_cfg = build_sce_config(n_pos, cfg.n_items,
-                               bucket_size_y=arch.sce_bucket_size_y)
+                               bucket_size_y=arch.sce_bucket_size_y, tp=tp)
     accum_dtype = getattr(torch, arch.accum_dtype)
+    data_group = mesh.axis("data").group if mesh is not None else None
 
     def loss_and_grad(params, mb, generator, omega, mark=None):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -205,6 +243,7 @@ def make_seqrec_train_step(arch, cfg, shape):
             loss = _vocab_loss(
                 x, y, mb["targets"].reshape(-1), mb["valid"].reshape(-1),
                 generator, loss_name=arch.train_loss, sce_cfg=sce_cfg,
+                sce_mode=sce_mode, mesh=mesh,
                 logit_softcap=getattr(cfg, "final_softcap", None),
                 omega=omega, mark=mark,
             )
@@ -223,6 +262,11 @@ def make_seqrec_train_step(arch, cfg, shape):
             functools.partial(loss_and_grad, mark=mark), params, batch,
             generator, n_micro, accum_dtype, omega=omega,
         )
+        if data_group is not None:
+            # Each data shard's gradient is its share of the global
+            # loss's; the update needs their sum.
+            for g in tree_leaves(grads):
+                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=data_group)
         out = _apply_update_guarded(opt_update, loss, grads, params,
                                     opt_state, loss_cap)
         if mark:

@@ -18,6 +18,11 @@ through the plain version (f32 sums in another order; dY's atomics add in
 an order that changes from run to run), and rows of dY that no bucket
 selected exactly 0.
 
+``sce_gather_plse`` (the partial LSE and the same dX and dY launches,
+counted apart): the same tolerances, rows with no unmasked candidate
+exactly ``−1e30`` with exactly 0 in dX; forward and dX repeat bit for
+bit.
+
 ``eval_fused`` / ``eval_tgt_gather``: on integer-valued inputs ids, vals,
 ``gt``, ``eq`` and ``tgt`` equal the plain version's bit for bit and the
 LSE (``m + log s``) within ``1e-5`` relative (exp folds in another
@@ -262,6 +267,76 @@ def test_sce_gather_raises_on_what_it_does_not_take(dev):
         big = torch.zeros(2, 16, 300, device=dev)
         sce_prefetch.sce_gather_fwd(big, torch.zeros(100, 300, device=dev),
                                     idx, tgt, cand, pos)
+
+
+# ---------------------------------------------------------------------------
+# sce_gather_plse: the partial LSE, its dX and dY
+# ---------------------------------------------------------------------------
+def _plse_launches():
+    return (sce_prefetch.sce_gather_plse_fwd.launches,
+            sce_prefetch.sce_gather_plse_dx.launches,
+            sce_prefetch.sce_gather_plse_dy.launches)
+
+
+@pytest.mark.parametrize("shape,cap,owned", [
+    ((2, 16, 24, 8, 100), None, 1.0),
+    ((5, 23, 50, 33, 300), 30.0, 0.5),  # ragged, d % 4 != 0, softcap
+    ((3, 64, 48, 256, 500), None, 0.25),
+    ((320, 320, 256, 64, 43_380), None, 0.25),  # a shard of 4 at training
+])
+def test_sce_gather_plse_kernels_match_plain(dev, shape, cap, owned):
+    """Forward, dX and dY against autograd through the plain version, with
+    a share ``owned`` of the candidates kept (the rest ``cand = −1``, as
+    another shard's in the exact mode), bucket 0 owning none: its rows
+    are −1e30 (finite) with exactly 0 in dX."""
+    x_b, y, idx, tgt, cand, _ = _gather_problem(dev, sum(shape) + 1, *shape)
+    g = _gen(dev, 11)
+    keep = torch.rand(cand.shape, generator=g, device=dev) < owned
+    cand = torch.where(keep, cand, -1)
+    cand[0] = -1
+    if cap is not None:
+        x_b = x_b * 8.0
+    up = torch.rand(shape[:2], generator=g, device=dev)
+    before = _plse_launches()
+    gather_before = (sce_prefetch.sce_gather_fwd.launches,
+                     sce_prefetch.sce_gather_dx.launches,
+                     sce_prefetch.sce_gather_dy.launches)
+    leaves = [t.clone().requires_grad_(True) for t in (x_b, y)]
+    plse = ops.sce_gather_plse(leaves[0], leaves[1], idx, tgt, cand,
+                               logit_softcap=cap)
+    got = torch.autograd.grad((plse * up).sum(), leaves)
+    torch.cuda.synchronize()
+    assert _plse_launches() == tuple(n + 1 for n in before)
+    assert (sce_prefetch.sce_gather_fwd.launches,
+            sce_prefetch.sce_gather_dx.launches,
+            sce_prefetch.sce_gather_dy.launches) == gather_before
+    plain = [t.clone().requires_grad_(True) for t in (x_b, y)]
+    want_plse = ref.sce_gather_plse_ref(plain[0], plain[1], idx, tgt, cand,
+                                        cap)
+    want = torch.autograd.grad((want_plse * up).sum(), plain)
+    plse = plse.detach()
+    assert torch.isfinite(plse).all()
+    assert (plse[0] == -1e30).all() and (got[0][0] == 0).all()
+    live = want_plse.detach() > -1e29
+    assert torch.equal(plse[~live], want_plse.detach()[~live])
+    _close(plse[live], want_plse.detach()[live])
+    for a, b in zip(got, want):
+        _close(a, b, rtol=2e-4)
+    touched = torch.zeros(y.shape[0], dtype=torch.bool, device=dev)
+    touched[idx.long().reshape(-1)] = True
+    assert (got[1][~touched] == 0).all()
+
+
+def test_sce_gather_plse_forward_and_dx_are_deterministic(dev):
+    x_b, y, idx, tgt, cand, _ = _gather_problem(dev, 5, 8, 70, 90, 64, 1_000)
+    cand[:, ::3] = -1
+    a = sce_prefetch.sce_gather_plse_fwd(x_b, y, idx, tgt, cand)
+    b = sce_prefetch.sce_gather_plse_fwd(x_b, y, idx, tgt, cand)
+    assert torch.equal(a, b)
+    g = torch.rand(a.shape, generator=_gen(dev, 6), device=dev)
+    assert torch.equal(
+        sce_prefetch.sce_gather_plse_dx(x_b, y, idx, tgt, cand, a, g),
+        sce_prefetch.sce_gather_plse_dx(x_b, y, idx, tgt, cand, a, g))
 
 
 # ---------------------------------------------------------------------------

@@ -342,3 +342,137 @@ def test_step_rejects_an_unknown_loss_and_omega_off_sce():
         dataclasses.replace(arch, train_loss="ce"), cfg, shape)
     with pytest.raises(ValueError, match="omega"):
         step(params, opt_init(params), batch, omega=torch.zeros(1))
+
+
+def test_exact_step_on_one_by_one_mesh_matches_reference(monkeypatch):
+    """The reference trainer's default path on one device: three steps of
+    ``make_seqrec_train_step(..., mesh, sce_mode="exact")`` on a (1, 1)
+    mesh (``sce_loss_sharded``) on both sides. The reference runs its
+    plain selection (``build_sce_config`` patched to ``use_kernel=False``:
+    with the kernel flag its chunked ``mips_topk_ref`` fails inside
+    ``shard_map`` on jax 0.9, ROADMAP queue 3); the port its kernel path
+    (on the CPU the plain ``mips_topk`` and ``sce_gather_plse``
+    versions). Ω is the reference's own draw, ``fold_in(k_loss, 0)``."""
+    from repro.launch.mesh import make_host_mesh as jax_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    build = jax_steps.build_sce_config
+    monkeypatch.setattr(jax_steps, "build_sce_config",
+                        lambda *a, **kw: build(*a, **dict(kw,
+                                                          use_kernel=False)))
+    jarch = jax_get_arch("sasrec-sce")
+    jcfg = jarch.make_smoke_config()
+    arch = get_arch("sasrec-sce")
+    cfg = arch.make_smoke_config()
+    guard.set_policy("off")
+    try:
+        jmesh = jax_host_mesh(max_data=BATCH)
+        assert dict(jmesh.shape) == {"data": 1, "model": 1}
+        jstep, (jinit, _), jsce = jax_steps.make_seqrec_train_step(
+            jarch, jcfg, jmesh, JaxShapeSpec("train_smoke", "train",
+                                             {"batch": BATCH}),
+            sce_mode="exact")
+        jstep = jax.jit(jstep)
+        mesh = make_host_mesh(max_data=BATCH)
+        tstep, (tinit, _), tsce = steps.make_seqrec_train_step(
+            arch, cfg, ShapeSpec("train_smoke", "train", {"batch": BATCH}),
+            mesh=mesh, sce_mode="exact")
+        assert not jsce.use_kernel and tsce.use_kernel
+        assert (tsce.n_buckets, tsce.bucket_size_x, tsce.bucket_size_y) == \
+            (jsce.n_buckets, jsce.bucket_size_x, jsce.bucket_size_y)
+        jp = jax_sasrec.init_params(jax.random.PRNGKey(0), jcfg)
+        js = jinit(jp)
+        tp = sasrec_params_from_jax(_np_tree(jp), device="cpu")
+        ts = tinit(tp)
+        data = SequenceDataset(SeqDataConfig(
+            n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=BATCH))
+        cur = Cursor(seed=0)
+        n = BATCH * cfg.max_len
+        for i in range(N_STEPS):
+            batch, cur = data.next_batch(cur)
+            key = jax.random.PRNGKey(200 + i)
+            k_loss = jax.random.split(key, 3)[1]
+            omega = jax.random.normal(jax.random.fold_in(k_loss, 0),
+                                      (jsce.n_buckets, n), jnp.float32)
+            jp, js, jm = jstep(jp, js, jax.tree.map(jnp.asarray, batch), key)
+            marks = []
+            tp, ts, tm = tstep(tp, ts, train.to_device(batch, "cpu"),
+                               omega=torch.from_numpy(np.array(omega)),
+                               mark=marks.append)
+            assert marks == ["forward", "select", "loss_forward",
+                             "backward", "optimizer"]
+            assert not bool(tm["skipped"]) and not bool(jm["skipped"])
+            assert float(tm["loss"]) == pytest.approx(float(jm["loss"]),
+                                                      rel=1e-5)
+            assert float(tm["grad_norm"]) == pytest.approx(
+                float(jm["grad_norm"]), rel=1e-5)
+    finally:
+        guard.set_policy(None)
+
+
+@pytest.mark.parametrize("mode", ["exact", "union"])
+def test_trainer_default_mode_is_exact_and_agrees_with_gspmd(mode):
+    """``train()`` runs distributed SCE by default (exact, on the (1, 1)
+    host mesh); on one device both distributed modes select what the
+    global-bucket ``gspmd`` loss selects from the same generator draw, so
+    the three give the same losses within 1e-5."""
+    import inspect
+
+    assert inspect.signature(train.train).parameters["sce_mode"].default \
+        == "exact"
+    got = train.train("sasrec-sce", steps=2, device="cpu", log_every=0,
+                      sce_mode=mode)
+    want = train.train("sasrec-sce", steps=2, device="cpu", log_every=0,
+                       sce_mode="gspmd")
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+
+
+def test_step_path_follows_mesh_and_sce_mode(monkeypatch):
+    """``mesh=None`` and ``sce_mode="gspmd"`` keep ``core.sce.sce_loss``;
+    a mesh with ``exact``/``union`` runs ``sce_loss_sharded``; an unknown
+    mode raises, and a data axis > 1 takes distributed SCE only."""
+    from repro_torch.dist.sharding import Mesh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    arch = get_arch("sasrec-sce")
+    cfg = arch.make_smoke_config()
+    shape = ShapeSpec("train_smoke", "train", {"batch": BATCH})
+    params = sasrec.init_params(cfg, seed=0, device="cpu")
+    data = SequenceDataset(SeqDataConfig(
+        n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=BATCH))
+    batch = train.to_device(data.next_batch(Cursor(seed=0))[0], "cpu")
+    calls = []
+    for name in ("sce_loss", "sce_loss_sharded"):
+        real = getattr(steps, name)
+        monkeypatch.setattr(steps, name, lambda *a, _n=name, _f=real, **kw:
+                            calls.append(_n) or _f(*a, **kw))
+    mesh = make_host_mesh(max_data=BATCH)
+    for kw, want in ((dict(), "sce_loss"),
+                     (dict(mesh=mesh, sce_mode="gspmd"), "sce_loss"),
+                     (dict(mesh=mesh), "sce_loss_sharded"),
+                     (dict(mesh=mesh, sce_mode="union"), "sce_loss_sharded")):
+        step, (opt_init, _), _ = steps.make_seqrec_train_step(
+            arch, cfg, shape, **kw)
+        step(params, opt_init(params), batch,
+             generator=torch.Generator().manual_seed(0))
+        assert calls.pop() == want and not calls
+    with pytest.raises(ValueError, match="sce_mode"):
+        steps.make_seqrec_train_step(arch, cfg, shape, sce_mode="ring")
+    wide = Mesh({"data": 2, "model": 1}, {"data": 0, "model": 0},
+                {"data": None, "model": None})
+    with pytest.raises(NotImplementedError, match="only distributed SCE"):
+        steps.make_seqrec_train_step(arch, cfg, shape, mesh=wide,
+                                     sce_mode="gspmd")
+    outside = Mesh({"data": 1, "model": 1}, None,
+                   {"data": None, "model": None})
+    with pytest.raises(ValueError, match="outside"):
+        steps.make_seqrec_train_step(arch, cfg, shape, mesh=outside)
+
+
+def test_train_cli_takes_sce_mode(monkeypatch, capsys):
+    monkeypatch.setattr("sys.argv", [
+        "train", "--arch", "sasrec-sce", "--steps", "1", "--batch", "2",
+        "--device", "cpu", "--sce-mode", "union",
+    ])
+    train.main()
+    assert '"steps": 1' in capsys.readouterr().out.strip().splitlines()[-1]
