@@ -12,7 +12,15 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
 2. Build: compiles every kernel of ``src/repro_torch/kernels/csrc/``
    (one ``nvcc`` per source, in parallel) into ``build/torch_kernels/``
    and prints the build seconds and the compiler's resource report.
-3. Serve kernel against its plain version on the card: ``mips_topk`` at
+3. The kernel guard: ``run_conformance(refresh=True)`` on the card, the
+   11 canaries of the 7 kernel groups (each kernel against its plain
+   version, the two bitwise checks kernel against kernel), with the
+   verdict table and its wall time. Any failure fails the run. The
+   canaries are the one path that runs the ``sce_bucket`` and two-pass
+   eval kernels (PERF.md rows 6, 7, 10, 11): their launches are counted
+   from 0 around this phase. The verdicts stay memoized, so the later
+   phases' dispatches consult them without running canaries.
+4. Serve kernel against its plain version on the card: ``mips_topk`` at
    the serve shapes (n_q ∈ {8, 32, 512}, C = 173,520, d = 64, k = 10,
    window [1, 173,511)) and adversarial cases (integer ties, C tail,
    k > C, a starved ``valid``, an ``id_offset``, k = 256, d % 4 != 0, a
@@ -22,12 +30,12 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    apart than that, and bit for bit on integer-valued inputs, where every
    fold order is exact. Times the kernel, the plain version and
    ``torch.matmul`` + ``torch.topk`` with a cold L2 cache.
-4. The server at full width: ``RetrievalServer("sasrec-sce",
+5. The server at full width: ``RetrievalServer("sasrec-sce",
    cfg=make_config(), buckets=(8, 32, 512), top_k=10, device="cuda")``
    serves waves of async requests and one bulk ``score()`` of 512
    histories; the ids are held against a dense on-card oracle, the
    kernel's launch count must have moved, and ``cache_misses`` must be 0.
-5. Train kernels against their plain versions on the card: ``mips_topk``
+6. Train kernels against their plain versions on the card: ``mips_topk``
    at SCE training's two selections (320 bucket centres against 25,600
    positions at k = 320 under a mask with ≈ 25 % masked, and against the
    173,520 catalog rows at k = 256), a starved mask and k = 512; the
@@ -49,7 +57,7 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    exactly 0 in dX. Timed on the (1, 1) and the shard inputs against the
    plain version and ``torch.baddbmm`` (the mask as its additive input) +
    ``torch.logsumexp`` on pre-gathered rows.
-6. The trainer at full width, ``sce_mode="gspmd"`` (``core/sce.py``):
+7. The trainer at full width, ``sce_mode="gspmd"`` (``core/sce.py``):
    ``train("sasrec-sce", cfg=make_config(), batch=128, steps=30, seed=0,
    sce_mode="gspmd", eval_every=10, eval_users=128, device="cuda")``.
    Every loss finite, no step skipped, the mean loss of the last 5 steps
@@ -61,15 +69,22 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    evaluation), the step's breakdown from CUDA events that the trainer's
    own steps record through its ``mark`` hook, and the run's peak device
    memory.
-7. The same with the trainer's default ``sce_mode="exact"``: distributed
+8. The same with the trainer's default ``sce_mode="exact"``: distributed
    SCE (``core/distributed_sce.py``) on the (1, 1) host mesh, each
    ``sce_gather_plse`` launch once per step and ``sce_gather`` never;
-   the same checks and prints.
-8. One full-width batch through the three SCE modes on one injected Ω:
+   the same checks and prints. It runs with ``guard_policy="strict"``
+   after the ``mips_topk``, ``sce_gather`` and ``eval_fused`` verdicts
+   are dropped: their canaries run at the first dispatch inside the
+   trainer and must pass (their launches are taken out of the counts);
+   every step's sentinels are zero, the loss cap is ``inf`` for 8 steps
+   and finite from the 9th.
+9. The same trainer with the guard ``off`` (no verdicts, no sentinels):
+   the guard's cost per step, in the same call.
+10. One full-width batch through the three SCE modes on one injected Ω:
    ``exact`` and ``union`` (on one card both select what ``gspmd``
    selects) against ``gspmd``, the loss within ``1e-5·|loss|``, the
    gradients of x and y within ``1e-5·max|g|`` plus ``2e-4·|g|``.
-9. Eval kernels against their plain versions on the card: ``eval_fused``
+11. Eval kernels against their plain versions on the card: ``eval_fused``
    at B = 128 and 256 against the whole catalog (C = 173,520, k = 10,
    window [1, 173,511)), with the LSE on (cap none and 30), on
    integer-valued inputs, a ragged C with an ``id_offset``, and k above
@@ -83,7 +98,7 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    kernel's top-k carries exactly ``tgt``, and ``eq ≥ 1`` on every row
    whose target is valid. Times each kernel, its plain version and one
    PyTorch computation of the same function with a cold L2 cache.
-10. The evaluation at full width: ``evaluate_streaming`` over 8 held-out
+12. The evaluation at full width: ``evaluate_streaming`` over 8 held-out
    batches of 256 users (``eval_batch`` of ``Cursor(0, step)``, steps
    0–7) on random weights from seed 0, folded into one
    ``MetricAccumulator``; then the dense on-card oracle
@@ -92,7 +107,7 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    share of rows whose rank the band leaves open), the eval kernels'
    launch counts, and the streaming evaluation's peak device memory
    against the dense ``B·C·4 B``.
-11. Full-CE kernels against their plain versions on the card: the six
+13. Full-CE kernels against their plain versions on the card: the six
    launches of ``csrc/linear_ce.cu`` — ``linear_ce_fwd`` / ``_dx`` /
    ``_dw`` (the positive plucked in the sweep, softcap in the tile) and
    ``fused_lse_fwd`` / ``_dx`` / ``_dy`` (no pluck, no cap) — at the
@@ -106,7 +121,7 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    a zero cotangent. Times each kernel, its plain version and one PyTorch
    call (``logsumexp(x @ wᵀ)``, ``softmax(x @ wᵀ) @ w``,
    ``softmax(x @ wᵀ)ᵀ @ x``, all f32) with a cold L2 cache.
-12. The trainer with the competitor losses at full width:
+14. The trainer with the competitor losses at full width:
    ``make_seqrec_train_step`` with ``train_loss`` set by
    ``dataclasses.replace`` — ``ce_fused_linear`` and ``ce_fused`` for 20
    steps each (every loss finite, no step skipped, the mean of the last 5
@@ -115,18 +130,39 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    ``make_loss`` defaults for 3 steps (``ce`` holds the dense
    ``(N, C)`` logits and runs at batch 64: at 128 they and their
    gradients do not fit an H100 80GB). Prints one table of each loss's
-   median step and peak device memory beside SCE's from phases 6–7 and
+   median step and peak device memory beside SCE's from phases 7–8 and
    ``loss_peak_elements``.
-13. Prints the kernels' JSON line, the card's name and power limit, and
+15. The guard's kernels against their plain versions on the card:
+   ``sce_bucket`` forward, dX, dY and the partial LSE at n_b 320, b_x
+   320, b_y 256, d 64 with ``y_b`` gathered from the catalog (a collision
+   and a padding slot per bucket), without and with cap 30 — losses and
+   gradients within ``1e-5·max|want|`` plus ``2e-4·|want|``, masked dY
+   rows exactly 0, two dY launches equal bit for bit; ``eval_tgt_scores``
+   then ``eval_topk`` at B 256 and 128 against the whole catalog (k 10,
+   window [1, 173,511)) and on shard 1 of 4 with its ``id_offset`` —
+   values within ``1e-5·max|score|``, isolated ids equal, ``gt``/``eq``
+   inside a dense f64 band, ``eq ≥ 1`` on every valid target (the
+   threshold is bit for bit the swept column). Times each kernel, its
+   plain version and one PyTorch call with a cold L2.
+16. Drills: the trainer at full width with ``chaos_nan_at=5`` must raise
+   ``RuntimeError`` at step 7 after three ``[guard]`` strike lines naming
+   ``sce_bucket_nonfinite``; a monkeypatched broken ``mips_topk`` must
+   make its CUDA dispatch raise ``KernelConformanceError`` under ``warn``
+   and keep a fresh server not ready (then the real kernel is restored
+   and its verdict passes again).
+17. Prints the kernels' JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``. ``mips_topk`` has
    three entries: all its main-path launches timed at serving's largest
    bucket, and its training selections (k = 320 over the positions,
    k = 256 over the catalog), each with both trainers' launches at that
    k. ``eval_fused`` and ``eval_tgt_gather`` have two each: the
    evaluation phase's B = 256 and the trainers' B = 128. The three
-   ``sce_gather_plse`` launches carry phase 7's launches and phase 5's
-   times on the (1, 1) input. The six full-CE kernels carry phase 12's
-   launches and phase 11's times at the trainer's shape.
+   ``sce_gather_plse`` launches carry phase 8's launches and phase 6's
+   times on the (1, 1) input. The six full-CE kernels carry phase 14's
+   launches and phase 13's times at the trainer's shape. The four
+   ``sce_bucket`` launches and ``eval_topk`` / ``eval_tgt_scores`` carry
+   phase 3's launches (the canaries') and phase 15's times (the eval ones
+   at B = 256).
 
 Any failed check raises, so the script exits non-zero and prints no
 result. ``--json PATH`` also writes every case, time and count to PATH.
@@ -143,6 +179,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+N_PHASES = 17
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_S = 3.35e12
@@ -477,6 +514,10 @@ def server_phase(dev):
     check(launches > warm_launches,
           f"serving launched mips_topk {launches - warm_launches} times")
     check(health["cache_misses"] == 0, f"cache_misses {health['cache_misses']}")
+    gate = [v for v in health["conformance"] if v["kernel"] == "mips_topk"]
+    check(health["ready"] and health["readiness_error"] is None
+          and gate and gate[0]["passed"],
+          f"the server did not become ready through its gate: {health}")
     check(health["compile_count"] == len(BUCKETS), "bucket warm-up count")
     results = [r.result() for r in reqs]
     check(all(not r.degraded and r.k == K for r in results),
@@ -525,6 +566,8 @@ def server_phase(dev):
         "bulk_s": bulk_s, "bulk_req_s": 512 / bulk_s,
         "oracle_tol": tol, "oracle_max_abs_err": max(errs),
         "cache_misses": health["cache_misses"], "step_breakdown": breakdown,
+        "ready": health["ready"], "guard_policy": health["guard_policy"],
+        "conformance": health["conformance"],
     }
     print(f"  server: set-up {setup_s:.2f} s ({warm_launches} warm-up "
           f"launches); {n_async} async requests in waves {waves}: "
@@ -532,7 +575,9 @@ def server_phase(dev):
           f"{p99:.3f} ms (n={n_async}, p99 = max); bulk 512 in "
           f"{bulk_s * 1e3:.3f} ms ({out['bulk_req_s']:.1f} req/s); "
           f"mips_topk launches {launches}; cache_misses 0; oracle max err "
-          f"{max(errs):.3e} (tol {tol:.3e})")
+          f"{max(errs):.3e} (tol {tol:.3e}); ready through its gate "
+          f"(guard {health['guard_policy']}, {len(health['conformance'])} "
+          f"verdicts in health())")
     return out
 
 
@@ -609,7 +654,7 @@ def gather_bounds(x_b, y, idx):
     }
 
 
-SHARDS = 4  # the exact-mode shard of phase 5: shard 0 of a 4-way catalog
+SHARDS = 4  # the exact-mode shard of phase 6: shard 0 of a 4-way catalog
 
 
 def plse_case(name, x_b, y, idx, tgt, cand, cap=None):
@@ -938,19 +983,27 @@ GATHER = ("sce_gather_fwd", "sce_gather_dx", "sce_gather_dy")
 PLSE = ("sce_gather_plse_fwd", "sce_gather_plse_dx", "sce_gather_plse_dy")
 
 
-def train_phase(dev, sce_mode):
+def train_phase(dev, sce_mode, guard_policy=None, fresh=()):
     """The trainer at full width in ``sce_mode``: ``"gspmd"`` runs
     ``core/sce.py``'s loss through the three ``sce_gather`` launches,
     ``"exact"`` (the trainer's default) ``core/distributed_sce.py`` on the
     (1, 1) mesh through the three ``sce_gather_plse`` launches; each
-    family is launched once a step and the other never."""
+    family is launched once a step and the other never.
+
+    ``guard_policy`` is the kernel guard's policy for the run (``None``:
+    the default, ``warn``). The verdicts of the groups in ``fresh`` are
+    dropped first, so their canaries run at the first dispatch inside the
+    run and must pass; their own launches (each verdict's count) are
+    taken out before the main path's counts are checked. Under a policy
+    other than ``off`` every step's sentinels must be zero; the loss cap
+    is ``inf`` for the first 8 steps and finite from the 9th on."""
     import statistics
 
     import torch
 
     from repro_torch.configs.sasrec_sce import make_config
     from repro_torch.core import sce
-    from repro_torch.kernels import eval_fused, sce_prefetch
+    from repro_torch.kernels import eval_fused, guard, sce_prefetch
     from repro_torch.kernels.mips_topk import mips_topk
     from repro_torch.launch.train import train
 
@@ -962,6 +1015,8 @@ def train_phase(dev, sce_mode):
     torch.cuda.synchronize()
     live_bytes = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
+    for group in fresh:
+        guard.clear_verdicts(group)
     for fn in counters:  # the main path starts here
         fn.launches = 0
     mips_topk.launches_by_k.clear()
@@ -969,11 +1024,38 @@ def train_phase(dev, sce_mode):
     out = train("sasrec-sce", cfg=cfg, batch=N_POS // cfg.max_len,
                 steps=TRAIN_STEPS, seed=0, sce_mode=sce_mode, log_every=10,
                 eval_every=EVAL_EVERY, eval_users=EVAL_B[0], device=dev,
-                mark=marks)
+                guard_policy=guard_policy, mark=marks)
     wall_s = time.monotonic() - t0
     launches = {fn.__name__: fn.launches for fn in counters}  # ... ends here
     by_k = dict(mips_topk.launches_by_k)
     peak = torch.cuda.max_memory_allocated(dev)
+    policy = guard.policy()
+    guard.set_policy(None)
+    run_verdicts = {v["kernel"]: v for v in guard.verdict_table()
+                    if v["kernel"] in fresh}
+    check(set(run_verdicts) == set(fresh),
+          f"verdicts run in the trainer: {sorted(run_verdicts)}, not "
+          f"{sorted(fresh)}")
+    canary = {}
+    for v in run_verdicts.values():
+        check(v["passed"], f"{v['kernel']} failed its canaries in the "
+              f"trainer: {v['failures']}")
+        for name, n in v["launches"].items():
+            canary[name] = canary.get(name, 0) + n
+    launches = {k: n - canary.get(k, 0) for k, n in launches.items()}
+    check(sum(n for k, n in by_k.items() if k not in (B_X, B_Y))
+          == canary.get("mips_topk", 0), f"mips_topk by k {by_k}")
+    by_k = {k: n for k, n in by_k.items() if k in (B_X, B_Y)}
+    sentinels = out["sentinels"]
+    if policy == "off":
+        check(all(s_ == {} for s_ in sentinels), "sentinels under off")
+    else:
+        check(all(s_ == {"sce_bucket_nonfinite": 0} for s_ in sentinels),
+              f"a sentinel tripped: {sentinels}")
+    caps = out["loss_caps"]
+    check(all(c == math.inf for c in caps[:8])
+          and all(math.isfinite(c) for c in caps[8:]),
+          f"loss caps {caps}")
     losses = out["losses"]
     check(len(losses) == TRAIN_STEPS, f"{len(losses)} steps ran")
     check(all(math.isfinite(v) for v in losses), "a training loss is not "
@@ -1010,7 +1092,12 @@ def train_phase(dev, sce_mode):
           f"(host clock, steps 2–{TRAIN_STEPS}, evaluations excluded); "
           f"{n_evals} evaluations of {EVAL_B[0]} users and set-up "
           f"{eval_s:.2f} s (wall − Σ steps); launches {launches}, "
-          f"mips_topk by k {by_k}")
+          f"mips_topk by k {by_k}; guard {policy}: verdicts run in the "
+          f"trainer {sorted(run_verdicts)} (their canary launches {canary} "
+          f"not counted above), "
+          f"{'no sentinels' if policy == 'off' else 'sentinels zero'} every "
+          f"step, loss cap inf for steps 1–8 and finite from step 9 "
+          f"({caps[8]:.4g})")
     bd = marks.breakdown()
     print("  step breakdown: " + " + ".join(
         f"{p} {bd[p + '_ms']:.3f}" for p in PHASES)
@@ -1036,7 +1123,9 @@ def train_phase(dev, sce_mode):
           f"N·C·4 B = {mem['full_ce_logit_bytes'] / 1e9:.2f} GB")
     return {"sce_mode": sce_mode, "losses": losses, "step_s": out["step_s"],
             "wall_s": wall_s, "median_step_ms": median_ms,
-            "launches": launches,
+            "launches": launches, "guard_policy": policy,
+            "verdicts_in_run": sorted(run_verdicts),
+            "canary_launches": canary, "loss_caps": caps,
             "eval": out["eval"], "eval_and_setup_s": eval_s,
             "mips_topk_launches_by_k": by_k, "breakdown": bd, "memory": mem}
 
@@ -1751,7 +1840,7 @@ def loss_phase(dev, trainers):
              "live_bytes_before": t["memory"]["live_bytes_before"],
              "model_elements": loss_peak_elements("sce", n, c, d,
                                                   cfg=sce_cfg)}
-            for t, ph in zip(trainers, (6, 7))]
+            for t, ph in zip(trainers, (7, 8))]
     for r in runs:
         rows.append(dict(r, model_elements=loss_peak_elements(
             r["loss"], r["batch"] * cfg.max_len, c, d)))
@@ -1762,10 +1851,432 @@ def loss_phase(dev, trainers):
               f"  {4 * r['model_elements'] / 2**20:12.1f}")
     print(f"  (median step: host clock, steps after the first; peak: "
           f"torch.cuda.max_memory_allocated over the run, params, AdamW "
-          f"state and activations included; SCE's from phases 6–7, their "
+          f"state and activations included; SCE's from phases 7–8, their "
           f"evaluations included; ce at batch {DENSE_CE_BATCH}: at 128 its "
           f"(N, C) logits and their gradients do not fit the card)")
     return {"runs": runs, "table": rows, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# The kernel guard: conformance on the card
+# ---------------------------------------------------------------------------
+def conformance_phase(dev):
+    """``run_conformance(refresh=True)`` on the card: the 11 canaries of
+    the 7 kernel groups, each kernel against its plain version. The
+    canaries are the one path that runs rows 6, 7, 10 and 11 (the two
+    SCE-bucket and two two-pass eval kernels); their launches are read
+    from counts set to 0 just before. The verdicts stay memoized, so the
+    later phases' dispatches consult them without running canaries."""
+    import torch
+
+    from repro_torch.kernels import guard
+    from repro_torch.kernels.guard.conformance import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    guard.set_policy(None)
+    reset_launch_counts()  # the main path starts here
+    t0 = time.monotonic()
+    verdicts = guard.run_conformance(device=dev, refresh=True)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = launch_counts()  # ... and ends here
+    n_pass = 0
+    for name, v in sorted(verdicts.items()):
+        print(f"  verdict {name}: {'PASS' if v.passed else 'FAIL'} "
+              f"{v.n_pass}/{v.n_pass + v.n_fail} on {v.device}; launches "
+              f"{dict(v.launches)}")
+        check(v.passed, f"conformance of {name} failed on the card: "
+              f"{'; '.join(v.failures)}")
+        n_pass += v.n_pass
+    check(n_pass == 11 and len(verdicts) == 7,
+          f"{n_pass} canaries over {len(verdicts)} groups, not 11 over 7")
+    for name in GUARD_KERNELS:
+        check(launches[name] > 0, f"{name} not launched by the canaries")
+    print(f"  conformance: 11 canaries over 7 groups passed in "
+          f"{wall_s:.3f} s (wall, first launches of every kernel included)")
+    return {"wall_s": wall_s, "verdicts": guard.verdict_table(),
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+# The kernels only the guard's canaries run (PERF.md rows 6, 7, 10, 11):
+# name → (source, the TPU kernel it replaces).
+GUARD_KERNELS = {
+    "sce_bucket_fwd": ("sce_gather.cu", "sce_bucket.py:40"),
+    "sce_bucket_dx": ("sce_gather.cu", "sce_bucket.py:160"),
+    "sce_bucket_dy": ("sce_gather.cu", "sce_bucket.py:209"),
+    "sce_bucket_plse_fwd": ("sce_gather.cu", "sce_bucket.py:108"),
+    "eval_topk": ("eval_fused.cu", "eval_topk.py:57"),
+    "eval_tgt_scores": ("eval_fused.cu", "eval_topk.py:121"),
+}
+
+
+def bucket_case(name, x_b, y_b, tgt, cand, pos, cap=None):
+    """The sce_bucket kernels (forward, dX, dY, and the partial LSE with
+    the same dX and dY launches) against autograd through the plain
+    versions on one input; dY must repeat bit for bit. Returns the case's
+    max errors; raises on disagreement."""
+    import torch
+
+    from repro_torch.kernels import ref, sce_bucket
+
+    g = torch.rand(pos.shape, device=pos.device,
+                   generator=torch.Generator(device=pos.device).manual_seed(7))
+    errs = {}
+
+    def hold(what, a, b, rtol):
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+              f"{name}: {what} shape or finiteness")
+        err = (a - b).abs()
+        tol = 1e-5 * b.abs().max().item()
+        check(bool((err <= tol + rtol * b.abs()).all()),
+              f"{name}: {what} differs by {err.max().item():.3e} "
+              f"(tol {tol:.3e} + {rtol}·|want|)")
+        errs[what] = err.max().item()
+
+    got_l = [t.clone().requires_grad_(True) for t in (x_b, y_b, pos)]
+    loss = sce_bucket.sce_bucket_loss(got_l[0], got_l[1], tgt, cand,
+                                      got_l[2], logit_softcap=cap)
+    got = [loss.detach()] + list(torch.autograd.grad((loss * g).sum(), got_l))
+    want_l = [t.clone().requires_grad_(True) for t in (x_b, y_b, pos)]
+    wloss = ref.sce_bucket_loss_ref(want_l[0], want_l[1], tgt, cand,
+                                    want_l[2], cap)
+    want = [wloss.detach()] + list(torch.autograd.grad((wloss * g).sum(),
+                                                       want_l))
+    torch.cuda.synchronize()
+    for what, a, b, rtol in zip(("loss", "dx", "dy", "dpos"), got, want,
+                                (0.0, 2e-4, 2e-4, 2e-4)):
+        hold(what, a, b, rtol)
+    check(bool((got[2][cand < 0] == 0).all()),
+          f"{name}: a masked candidate's dY row is not exactly 0")
+    _, lse = sce_bucket.sce_bucket_fwd(x_b, y_b, tgt, cand, pos,
+                                       logit_softcap=cap)
+    d1 = sce_bucket.sce_bucket_dy(x_b, y_b, tgt, cand, lse, g,
+                                  logit_softcap=cap)
+    d2 = sce_bucket.sce_bucket_dy(x_b, y_b, tgt, cand, lse, g,
+                                  logit_softcap=cap)
+    check(torch.equal(d1, d2), f"{name}: two dY launches differ")
+    got_l = [t.clone().requires_grad_(True) for t in (x_b, y_b)]
+    plse = sce_bucket.sce_bucket_plse(got_l[0], got_l[1], tgt, cand,
+                                      logit_softcap=cap)
+    got = [plse.detach()] + list(torch.autograd.grad((plse * g).sum(), got_l))
+    want_l = [t.clone().requires_grad_(True) for t in (x_b, y_b)]
+    wplse = ref.sce_bucket_plse_ref(want_l[0], want_l[1], tgt, cand, cap)
+    want = [wplse.detach()] + list(torch.autograd.grad((wplse * g).sum(),
+                                                       want_l))
+    torch.cuda.synchronize()
+    for what, a, b, rtol in zip(("plse", "plse_dx", "plse_dy"), got, want,
+                                (0.0, 2e-4, 2e-4)):
+        hold(what, a, b, rtol)
+    n_b, b_x, d = x_b.shape
+    print(f"  case {name}: n_b={n_b} b_x={b_x} b_y={y_b.shape[1]} d={d} "
+          f"cap={cap} max err " + " ".join(f"{k} {v:.3e}"
+                                          for k, v in errs.items())
+          + "; dY bit-equal across two launches ok")
+    return {"name": name, "n_b": n_b, "b_x": b_x, "b_y": y_b.shape[1],
+            "d": d, "cap": cap, "max_abs_err": errs,
+            "dy_bitwise_repeat": True}
+
+
+def bucket_bounds(x_b, y_b):
+    """Least times on these inputs: each launch reads x_b, the
+    pre-gathered y_b, the ids and its per-row inputs once and writes its
+    outputs once; the forward does 2·n_b·b_x·b_y·d f32 FLOPs, dX and dY
+    twice that (the logits again, then a product of the same size)."""
+    n_b, b_x, d = x_b.shape
+    b_y = y_b.shape[1]
+    common = 4 * (n_b * b_x * d + n_b * b_y * d + n_b * b_y + n_b * b_x)
+    flops = 2 * n_b * b_x * b_y * d
+    return {
+        "sce_bucket_fwd": roofline_ms(common + 4 * 3 * n_b * b_x, flops),
+        "sce_bucket_plse_fwd": roofline_ms(common + 4 * n_b * b_x, flops),
+        "sce_bucket_dx": roofline_ms(
+            common + 4 * 2 * n_b * b_x + 4 * n_b * b_x * d, 2 * flops),
+        "sce_bucket_dy": roofline_ms(
+            common + 4 * 2 * n_b * b_x + 4 * n_b * b_y * d, 2 * flops),
+    }
+
+
+def topk_case(name, x, y, t, k, *, c_lo, c_hi, id_offset=0):
+    """``eval_tgt_scores`` then ``eval_topk`` against the plain versions
+    on one input; the threshold must be bit for bit the swept column
+    (``eq >= 1`` on every valid target). Raises on disagreement."""
+    import torch
+
+    from repro_torch.kernels import eval_topk as tk
+    from repro_torch.kernels import ref
+
+    ts = tk.eval_tgt_scores(x, y, t, id_offset=id_offset)
+    vals, ids, gt, eq = tk.eval_topk(x, y, ts, k, c_lo=c_lo, c_hi=c_hi,
+                                     id_offset=id_offset)
+    torch.cuda.synchronize()
+    ts_want = ref.eval_tgt_scores_ref(x, y, t, id_offset=id_offset)
+    want = ref.eval_topk_ref(x, y, ts_want, k, c_lo=c_lo, c_hi=c_hi,
+                             id_offset=id_offset)
+    gid = id_offset + torch.arange(y.shape[0], device=x.device)
+    ok = (gid >= c_lo) & (gid < c_hi)
+    s64 = x.double() @ y.double().T
+    scale = s64[:, ok].abs().max().item()
+    tol = 1e-5 * scale
+    ts_err = (ts - ts_want).abs().max().item()
+    err = (vals - want[0]).abs().max().item()
+    check(ts_err <= tol, f"{name}: tgt_scores differ by {ts_err} > {tol}")
+    check(err <= tol, f"{name}: values differ by {err} > {tol}")
+    t64 = ts.double()[:, None]
+    lo = ((s64 > t64 + tol) & ok[None, :]).sum(1)
+    hi = ((s64 >= t64 - tol) & ok[None, :]).sum(1)
+    check(bool(((gt >= lo) & (gt + eq <= hi)).all()),
+          f"{name}: gt/eq outside the f64 band")
+    top = torch.topk(torch.where(ok[None, :], s64, NEG_INF),
+                     min(k + 1, y.shape[0]), dim=1).values
+    if top.shape[1] == k:
+        top = torch.cat([top, torch.full_like(top[:, :1], NEG_INF)], 1)
+    gap = 1e-4 * scale
+    prv = torch.cat([torch.full_like(top[:, :1], float("inf")),
+                     top[:, :k - 1]], 1)
+    isolated = ((prv - top[:, :k]) > gap) & ((top[:, :k] - top[:, 1:]) > gap)
+    check(bool((ids == want[1])[isolated].all()),
+          f"{name}: isolated ids differ from the plain version")
+    valid_t = (t >= max(c_lo, id_offset)) & (t < min(c_hi, id_offset
+                                                     + y.shape[0]))
+    check(bool((eq[valid_t] >= 1).all()),
+          f"{name}: eval_tgt_scores is not bitwise eval_topk's column")
+    hit = ids == t[:, None]
+    check(torch.equal(vals[hit], ts[:, None].expand(-1, k)[hit]),
+          f"{name}: a target in the top-k does not carry its score exactly")
+    print(f"  case {name}: B={x.shape[0]} C={y.shape[0]} k={k} window "
+          f"[{c_lo}, {c_hi}) id_offset={id_offset} max_abs_err vals "
+          f"{err:.3e} tgt_scores {ts_err:.3e} (tol {tol:.3e}); eq >= 1 on "
+          f"{int(valid_t.sum())} valid targets (bitwise column) ok")
+    return {"name": name, "B": x.shape[0], "C": y.shape[0], "k": k,
+            "max_abs_err": err, "tgt_err": ts_err, "tol": tol,
+            "bitwise_column_rows": int(valid_t.sum())}
+
+
+def guard_kernel_phase(dev):
+    """Rows 6, 7, 10 and 11 against their plain versions at the
+    full-width shapes, then their times with a cold L2."""
+    import torch
+
+    from repro_torch.kernels import eval_topk as tk
+    from repro_torch.kernels import ref, sce_bucket
+
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    # The training shape with y_b gathered from the catalog: each bucket
+    # 256 distinct catalog rows, a collision in slot 0 and a padding slot.
+    x = randn(N_POS, D)
+    y = randn(C_SERVE, D, scale=0.125)
+    targets = torch.randint(1, N_ITEMS, (N_POS,), generator=g, device=dev,
+                            dtype=torch.int32)
+    idx_x = torch.stack([torch.randperm(N_POS, generator=g,
+                                        device=dev)[:B_X]
+                         for _ in range(N_B)])
+    idx_y = torch.stack([torch.randperm(C_SERVE, generator=g,
+                                        device=dev)[:B_Y]
+                         for _ in range(N_B)]).to(torch.int32)
+    x_b = x[idx_x].contiguous()
+    tgt_b = targets[idx_x].contiguous()
+    y_b = y[idx_y.long()].contiguous()
+    cand = idx_y.clone()
+    cand[:, 0] = tgt_b[:, 0]
+    cand[:, -1] = -1
+    pos = torch.einsum("nxd,nxd->nx", x_b, y[tgt_b.long()]).contiguous()
+    bcases = [bucket_case("bucket_train_shape", x_b, y_b, tgt_b, cand, pos)]
+    pos30 = (30.0 * torch.tanh(pos * 8.0 / 30.0)).contiguous()
+    bcases.append(bucket_case("bucket_train_shape_cap30", x_b * 8.0, y_b,
+                              tgt_b, cand, pos30, cap=30.0))
+
+    # The two-pass evaluation at the evaluation's shapes.
+    ye = randn(C_SERVE, D, scale=0.02)
+    window = dict(c_lo=1, c_hi=N_ITEMS)
+    inputs = {}
+    for b in EVAL_B:
+        xe = randn(b, D)
+        te = torch.randint(1, N_ITEMS, (b,), generator=g, device=dev,
+                           dtype=torch.int32)
+        ye[te[:8].long()] = 0.05 * xe[:8]
+        inputs[b] = (xe, te)
+    tcases = [topk_case(f"two_pass_b{b}", inputs[b][0], ye, inputs[b][1], K,
+                        **window) for b in EVAL_B]
+    c_l = C_SERVE // SHARDS
+    xo, to = randn(64, D), torch.randint(c_l - 500, 2 * c_l + 500, (64,),
+                                         generator=g, device=dev,
+                                         dtype=torch.int32)
+    tcases.append(topk_case("two_pass_shard1_offset", xo, ye[c_l:2 * c_l],
+                            to, K, c_lo=c_l, c_hi=2 * c_l, id_offset=c_l))
+
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    g_up = torch.rand(pos.shape, generator=g, device=dev)
+    _, lse = sce_bucket.sce_bucket_fwd(x_b, y_b, tgt_b, cand, pos)
+    probs = torch.rand(N_B, B_X, B_Y, generator=g, device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in (x_b, y_b)]
+    out = (ref.sce_bucket_loss_ref(leaves[0], leaves[1], tgt_b, cand, pos)
+           * g_up).sum()
+    pleaves = [t.clone().requires_grad_(True) for t in (x_b, y_b)]
+    args = (x_b, y_b, tgt_b, cand)
+    bias = torch.where((cand[:, None, :] < 0)
+                       | (cand[:, None, :] == tgt_b[:, :, None]),
+                       NEG_INF, 0.0)
+    runs = {
+        "sce_bucket_fwd": (
+            lambda: sce_bucket.sce_bucket_fwd(*args, pos),
+            lambda: ref.sce_bucket_loss_ref(*args, pos),
+            lambda: torch.bmm(x_b, y_b.transpose(1, 2))),
+        "sce_bucket_dx": (
+            lambda: sce_bucket.sce_bucket_dx(*args, lse, g_up),
+            lambda: torch.autograd.grad(out, leaves[0], retain_graph=True),
+            lambda: torch.bmm(probs, y_b)),
+        "sce_bucket_dy": (
+            lambda: sce_bucket.sce_bucket_dy(*args, lse, g_up),
+            lambda: torch.autograd.grad(out, leaves[1], retain_graph=True),
+            lambda: torch.bmm(probs.transpose(1, 2), x_b)),
+        "sce_bucket_plse_fwd": (
+            lambda: sce_bucket.sce_bucket_plse_fwd(*args),
+            lambda: ref.sce_bucket_plse_ref(pleaves[0], pleaves[1], tgt_b,
+                                            cand),
+            lambda: torch.logsumexp(torch.baddbmm(
+                bias, x_b, y_b.transpose(1, 2)), dim=-1)),
+    }
+    bounds = bucket_bounds(x_b, y_b)
+    window_mask = (torch.arange(C_SERVE, device=dev) >= 1) & \
+        (torch.arange(C_SERVE, device=dev) < N_ITEMS)
+    for b in EVAL_B:
+        xe, te = inputs[b]
+        ts = tk.eval_tgt_scores(xe, ye, te)
+        sfx = "" if b == EVAL_B[1] else f"_b{b}"
+
+        def library(xe=xe, ts=ts):
+            s_ = torch.where(window_mask[None, :], torch.matmul(xe, ye.T),
+                             NEG_INF)
+            return (torch.topk(s_, K), (s_ > ts[:, None]).sum(1),
+                    (s_ == ts[:, None]).sum(1))
+
+        runs[f"eval_topk{sfx}"] = (
+            lambda xe=xe, ts=ts: tk.eval_topk(xe, ye, ts, K, **window),
+            lambda xe=xe, ts=ts: ref.eval_topk_ref(xe, ye, ts, K, **window),
+            library)
+        runs[f"eval_tgt_scores{sfx}"] = (
+            lambda xe=xe, te=te: tk.eval_tgt_scores(xe, ye, te),
+            lambda xe=xe, te=te: ref.eval_tgt_scores_ref(xe, ye, te),
+            lambda xe=xe, te=te: (xe * ye[te.long()]).sum(-1))
+        fused, gather = eval_bounds(b, C_SERVE, D, K,
+                                    int(torch.unique(te).numel()))
+        bounds[f"eval_topk{sfx}"] = fused
+        bounds[f"eval_tgt_scores{sfx}"] = gather
+    timings = {}
+    with torch.no_grad():
+        for name, (kern, plain, lib) in runs.items():
+            heavy = name.startswith("eval_topk")
+            timings[name] = {"ms": time_ms(kern, 20, flush),
+                             "plain_ms": time_ms(plain, 2 if heavy else 5,
+                                                 flush),
+                             "library_ms": time_ms(lib, 20, flush),
+                             "bound_ms": bounds[name][0],
+                             "bound_by": bounds[name][1]}
+    for name, t in timings.items():
+        print(f"  time {name}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return bcases, tcases, timings
+
+
+# ---------------------------------------------------------------------------
+# Drills: the divergence guard and a broken kernel
+# ---------------------------------------------------------------------------
+CHAOS_AT = 5
+
+
+def drill_phase(dev):
+    """The divergence drill at full width (NaN params at step 5: strikes
+    at steps 5 and 6, the RuntimeError at step 7, each strike line naming
+    the sentinel) and the broken-kernel drill (a ``mips_topk`` that
+    raises: under ``warn`` its CUDA dispatch raises
+    ``KernelConformanceError``, and a fresh server stays not ready)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.sasrec_sce import make_config
+    from repro_torch.kernels import guard, ops
+    from repro_torch.kernels import mips_topk as mips_mod
+    from repro_torch.launch.serve import RetrievalServer, ServerNotReadyError
+    from repro_torch.launch.train import train
+
+    cfg = make_config()
+    buf = io.StringIO()
+    raised = None
+    with contextlib.redirect_stdout(buf):
+        try:
+            train("sasrec-sce", cfg=cfg, batch=N_POS // cfg.max_len,
+                  steps=CHAOS_AT + 6, seed=0, log_every=0, device=dev,
+                  chaos_nan_at=CHAOS_AT, guard_policy="strict")
+        except RuntimeError as e:  # the drill's expected outcome
+            raised = e
+    guard.set_policy(None)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"  | {line}")
+    check(raised is not None, "the divergence drill did not raise")
+    check(f"at step {CHAOS_AT + 2} and no --ckpt-dir" in str(raised),
+          f"the divergence drill raised {raised!r}")
+    strikes = [ln for ln in lines if ln.startswith("[guard] step")]
+    check(len(strikes) == 3 and all(
+        ln.startswith(f"[guard] step {CHAOS_AT + i}: loss nan")
+        and f"(strike {i + 1}/3)" in ln and "sce_bucket_nonfinite" in ln
+        for i, ln in enumerate(strikes)), f"strike lines {strikes}")
+    print(f"  divergence drill: RuntimeError({raised}) after 3 strike lines "
+          f"naming sce_bucket_nonfinite ok")
+
+    def broken(*a, **k):
+        raise RuntimeError("injected miscompile")
+
+    real = mips_mod.mips_topk
+    mips_mod.mips_topk = broken
+    guard.clear_verdicts("mips_topk")
+    guard.set_policy("warn")
+    try:
+        q = torch.randn(8, D, device=dev)
+        err = None
+        try:
+            ops.mips_topk(q, torch.randn(1_000, D, device=dev), K)
+        except guard.KernelConformanceError as e:  # the drill's outcome
+            err = e
+        check(err is not None and err.kernel == "mips_topk",
+              "a broken mips_topk did not raise under warn")
+        server = RetrievalServer("sasrec-sce", buckets=(8,), top_k=K,
+                                 device=dev)
+        try:
+            not_ready = None
+            try:
+                server.submit(np.ones(server.cfg.max_len, np.int32))
+            except ServerNotReadyError as e:  # the drill's outcome
+                not_ready = e
+            check(not server.ready and not_ready is not None
+                  and "mips_topk" in (server.readiness_error or ""),
+                  "a server on a broken mips_topk became ready")
+            health = server.health()
+        finally:
+            server.close()
+    finally:
+        mips_mod.mips_topk = real
+        guard.clear_verdicts("mips_topk")
+        guard.set_policy(None)
+    check(guard.verdict_for("mips_topk", device=dev).passed,
+          "mips_topk fails its canaries after the drill")
+    print(f"  broken-kernel drill: KernelConformanceError under warn "
+          f"({str(err)[:80]}...); fresh server not ready "
+          f"(ready={health['ready']}, readiness_error set) ok")
+    return {"divergence_error": str(raised), "strike_lines": strikes,
+            "broken_kernel_error": str(err),
+            "server_ready": health["ready"],
+            "readiness_error": health["readiness_error"]}
 
 
 def main() -> int:
@@ -1785,39 +2296,54 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     card = smi()
-    print(f"[1/13] device: {card}; torch {torch.__version__}, CUDA "
+    print(f"[1/{N_PHASES}] device: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     t0 = time.monotonic()
     libs = _build.build_all()
     build_s = time.monotonic() - t0
-    print(f"[2/13] build: {len(libs)} kernel libraries in {build_s:.2f} s")
+    print(f"[2/{N_PHASES}] build: {len(libs)} kernel libraries in "
+          f"{build_s:.2f} s")
     for name in libs:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("[3/13] serve kernel against its plain version:")
+    def phase(i, what):
+        print(f"[{i}/{N_PHASES}] {what}:")
+
+    phase(3, "kernel guard: every conformance canary on the card")
+    conformance = conformance_phase(dev)
+    phase(4, "serve kernel against its plain version")
     cases, timings = kernel_phase(dev)
-    print("[4/13] server at full width:")
+    phase(5, "server at full width")
     server = server_phase(dev)
-    print("[5/13] train kernels against their plain versions:")
+    phase(6, "train kernels against their plain versions")
     tcases, gcases, pcases, ttimes = train_kernel_phase(dev)
-    print("[6/13] trainer at full width, sce_mode=gspmd:")
+    phase(7, "trainer at full width, sce_mode=gspmd")
     trainer = train_phase(dev, "gspmd")
-    print("[7/13] trainer at full width, its default sce_mode=exact:")
-    exact = train_phase(dev, "exact")
-    print("[8/13] one batch through the three SCE modes:")
+    phase(8, "trainer at full width, its default sce_mode=exact, guard "
+             "strict, its verdicts run at first dispatch")
+    exact = train_phase(dev, "exact", guard_policy="strict",
+                        fresh=("mips_topk", "sce_gather", "eval_fused"))
+    phase(9, "the same trainer with the guard off")
+    exact_off = train_phase(dev, "exact", guard_policy="off")
+    phase(10, "one batch through the three SCE modes")
     agreement = mode_agreement_phase(dev)
-    print("[9/13] eval kernels against their plain versions:")
+    phase(11, "eval kernels against their plain versions")
     ecases, etimes = eval_kernel_phase(dev)
-    print("[10/13] evaluation at full width:")
+    phase(12, "evaluation at full width")
     evaluation = eval_phase(dev)
-    print("[11/13] full-CE kernels against their plain versions:")
+    phase(13, "full-CE kernels against their plain versions")
     ccases, ctimes = ce_kernel_phase(dev)
-    print("[12/13] trainer with the competitor losses at full width:")
+    phase(14, "trainer with the competitor losses at full width")
     competitors = loss_phase(dev, (trainer, exact))
+    phase(15, "guard kernels (sce_bucket, eval_topk) against their plain "
+              "versions")
+    bcases, tkcases, gtimes = guard_kernel_phase(dev)
+    phase(16, "drills: divergence, broken kernel")
+    drills = drill_phase(dev)
 
     t = timings[512]  # the serve_p99 bucket
     mips = {"route": "cuda",
@@ -1907,6 +2433,29 @@ def main() -> int:
                 "bound_by": tt["bound_by"],
                 "library_ms": tt["library_ms"],
             })
+    for name, (src, replaces) in GUARD_KERNELS.items():
+        bcase_err = {"sce_bucket_fwd": "loss", "sce_bucket_dx": "dx",
+                     "sce_bucket_dy": "dy", "sce_bucket_plse_fwd": "plse"}
+        if name in bcase_err:
+            err = max(c["max_abs_err"][bcase_err[name]] for c in bcases)
+        else:
+            err = max(c["max_abs_err" if name == "eval_topk" else "tgt_err"]
+                      for c in tkcases)
+        tt = gtimes[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            # the conformance phase is the path that runs these
+            "launches": conformance["launches"][name],
+            "max_abs_err": err,
+            "ms": tt["ms"],
+            "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"],
+            "bound_by": tt["bound_by"],
+            "library_ms": tt["library_ms"],
+        })
     for kname, _, _, replaces in CE_KERNELS:
         tt = ctimes[kname]
         kernels.append({
@@ -1935,9 +2484,12 @@ def main() -> int:
             "eval_timings": {str(b): v for b, v in etimes.items()},
             "evaluation": evaluation, "ce_cases": ccases,
             "ce_timings": ctimes, "competitor_losses": competitors,
+            "conformance": conformance, "trainer_exact_guard_off": exact_off,
+            "bucket_cases": bcases, "two_pass_cases": tkcases,
+            "guard_timings": gtimes, "drills": drills,
             "kernels": kernels,
         }, indent=1))
-    print("[13/13] summary")
+    print(f"[{N_PHASES}/{N_PHASES}] summary")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

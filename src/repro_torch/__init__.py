@@ -32,3 +32,20 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def take_rows(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``table[index]``: the rows of ``table`` at an integer ``index`` of
+    any shape → ``index.shape + table.shape[1:]``.
+
+    On the CPU it gathers with ``torch.index_select``, whose backward sums
+    the cotangents of duplicate rows with ``index_add_`` in a fixed
+    order. The backward of advanced indexing (``index_put_`` with
+    ``accumulate=True``) adds them with parallel atomics on the CPU once
+    the gradient has 32,768 elements or more, so two runs of one training
+    step could differ in their last bits under load. On a CUDA device it
+    is advanced indexing, as before (its backward sorts the indices)."""
+    if table.device.type != "cpu":
+        return table[index.long()]
+    flat = torch.index_select(table, 0, index.reshape(-1).long())
+    return flat.reshape(*index.shape, *table.shape[1:])

@@ -42,6 +42,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import take_rows
 from repro_torch.core.sce import (
     NEG_INF,
     SCEConfig,
@@ -80,7 +81,7 @@ def _positive_logits(x_l, y_l, t_l, tp, softcap):
     c_local = y_l.shape[0]
     local = t_l.long() - tp.index * c_local
     ok = (local >= 0) & (local < c_local)
-    rows = y_l[local.clamp(0, c_local - 1)]
+    rows = take_rows(y_l, local.clamp(0, c_local - 1))
     rows = torch.where(ok[:, None], rows, torch.zeros_like(rows))
     pos_emb = psum(rows, tp)  # (N_local, d)
     return apply_softcap(torch.einsum("nd,nd->n", x_l, pos_emb), softcap)
@@ -175,12 +176,12 @@ def _sce_inner(x_l, y_l, t_l, vm_l, omega, *, cfg: SCEConfig, mesh: Mesh,
         candidates. The kernel gathers the candidate rows itself and
         adds dY straight into the (C_local, d) gradient."""
         ix = idx_x_c.long()
-        x_b = x_parts[ix]  # (nb_c, b_x, d)
+        x_b = take_rows(x_parts, ix)  # (nb_c, b_x, d)
         tgt_b = t32[ix]
         if use_kernel:
             return _kops.sce_gather_plse(x_b.contiguous(), y_l, idx_y_c,
                                          tgt_b, gidx_c, logit_softcap=cap)
-        return _kref.sce_bucket_plse_ref(x_b, y_l[idx_y_c.long()], tgt_b,
+        return _kref.sce_bucket_plse_ref(x_b, take_rows(y_l, idx_y_c), tgt_b,
                                          gidx_c, cap)
 
     parts = []
@@ -199,7 +200,7 @@ def _sce_inner(x_l, y_l, t_l, vm_l, omega, *, cfg: SCEConfig, mesh: Mesh,
     # shift is gradient-neutral, so pmax runs on a detached copy.
     g_m = pmax(plse, tp)
     g_s = psum(torch.exp(plse - g_m), tp)
-    pos_logit = pos_logit_all[idx_x.long()].to(torch.float32)
+    pos_logit = take_rows(pos_logit_all, idx_x).to(torch.float32)
     lse = torch.logaddexp(g_m + torch.log(torch.clamp(g_s, min=1e-30)),
                           pos_logit)
     losses = lse - pos_logit  # (n_b, b_x)
@@ -300,11 +301,12 @@ def sce_loss_sharded_ref(x, y, targets, *, cfg: SCEConfig, dp_size: int,
                 _dense_topk_ids(b @ ys[j * c_l:(j + 1) * c_l].T, k_local)
                 + j * c_l for j in range(tp_size)], dim=-1)
         idx_y = idx_y.long()
-        x_b = x_i[idx_x]
-        y_b = y[idx_y]
+        x_b = take_rows(x_i, idx_x)
+        y_b = take_rows(y, idx_y)
         tgt_b = t_i[idx_x].long()
         pos_logit = apply_softcap(
-            torch.einsum("nxd,nxd->nx", x_b, y[tgt_b]), cfg.logit_softcap)
+            torch.einsum("nxd,nxd->nx", x_b, take_rows(y, tgt_b)),
+            cfg.logit_softcap)
         neg = apply_softcap(torch.einsum("nxd,nyd->nxy", x_b, y_b),
                             cfg.logit_softcap)
         collide = idx_y[:, None, :] == tgt_b[:, :, None]

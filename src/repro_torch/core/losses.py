@@ -30,8 +30,9 @@ reference's ``key``).
 Every random draw comes from ``generator`` through one private helper
 (:func:`_sample_negatives`, :func:`_popularity_uniforms`,
 :func:`_rece_planes`), so a test can hand the reference's draw to the
-same arithmetic. The kernel guard's numerics sentinels (the reference's
-``aux["sentinels"]``) are not ported yet (ROADMAP queue 1 item 11).
+same arithmetic. The kernel-backed losses (``ce_chunked``, ``ce_fused``,
+``ce_fused_linear``) attach the kernel guard's numerics sentinels as
+``aux["sentinels"]`` (:func:`_sentinel_aux`), as the reference does.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import take_rows
 from repro_torch.core.sce import (
     NEG_INF,
     SCEConfig,
@@ -59,6 +61,18 @@ def _mean_over_valid(per_pos, valid_mask):
         return per_pos.mean()
     w = valid_mask.to(per_pos.dtype)
     return (per_pos * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def _sentinel_aux(kernel: str, per_pos, lse=None) -> Aux:
+    """Per-position numerics sentinels for a kernel-backed loss
+    (``kernels/guard/sentinels.py``), as ``aux["sentinels"]``, so the
+    train step can report WHICH kernel went non-finite. Empty under guard
+    policy ``off``."""
+    from repro_torch.kernels import guard
+
+    if guard.policy() == "off":
+        return {}
+    return {"sentinels": guard.loss_sentinels(kernel, per_pos, lse)}
 
 
 def _need(generator, name):
@@ -100,15 +114,19 @@ def ce_chunked(x, y, targets, valid_mask=None, generator=None, *,
         m = m_new
     lse = m + torch.log(s)
     pos = apply_softcap(
-        torch.einsum("nd,nd->n", x32, y[targets.long()].to(f32)),
+        torch.einsum("nd,nd->n", x32, take_rows(y, targets).to(f32)),
         logit_softcap)
-    return _mean_over_valid(lse - pos, valid_mask), {"lse": lse.mean()}
+    per_pos = lse - pos
+    aux: Aux = {"lse": lse.mean()}
+    aux.update(_sentinel_aux("ce_chunked", per_pos, lse))
+    return _mean_over_valid(per_pos, valid_mask), aux
 
 
 def ce_fused(x, y, targets, valid_mask=None, generator=None):
     """CE through the streamed ``fused_lse`` kernels (``kernels/fused_ce``)."""
     per_pos = _kops.fused_ce_loss(x, y, targets)
-    return _mean_over_valid(per_pos, valid_mask), {}
+    return _mean_over_valid(per_pos, valid_mask), _sentinel_aux(
+        "fused_ce", per_pos)
 
 
 def ce_fused_linear(x, y, targets, valid_mask=None, generator=None, *,
@@ -123,7 +141,8 @@ def ce_fused_linear(x, y, targets, valid_mask=None, generator=None, *,
     del block_n
     per_pos = _kops.linear_ce_loss(x, y, targets, logit_softcap=logit_softcap,
                                    block_c=block_c)
-    return _mean_over_valid(per_pos, valid_mask), {}
+    return _mean_over_valid(per_pos, valid_mask), _sentinel_aux(
+        "linear_sce", per_pos)
 
 
 def _sample_negatives(generator, n, k, catalog, device):
@@ -134,14 +153,14 @@ def _sample_negatives(generator, n, k, catalog, device):
 
 def _neg_logits(x, y, neg_ids, targets):
     """Gathered negative logits with accidental-positive collisions masked."""
-    neg_emb = y[neg_ids.long()]  # (N, k, d) — the BCE+ memory term
+    neg_emb = take_rows(y, neg_ids)  # (N, k, d) — the BCE+ memory term
     logits = torch.einsum("nd,nkd->nk", x, neg_emb)
     collide = neg_ids == targets[:, None]
     return torch.where(collide, NEG_INF, logits)
 
 
 def _pos_logits(x, y, targets):
-    return torch.einsum("nd,nd->n", x, y[targets.long()])
+    return torch.einsum("nd,nd->n", x, take_rows(y, targets))
 
 
 def bce_plus(x, y, targets, valid_mask=None, generator=None, *,
@@ -200,7 +219,7 @@ def ce_inbatch(x, y, targets, valid_mask=None, generator=None):
     """In-batch negatives (paper §2.2): each position's negatives are the
     other positions' positives; a position sharing this one's target is
     masked, and padded positions give no negatives."""
-    logits = x @ y[targets.long()].T  # (N, N): x_i · y_{t_j}
+    logits = x @ take_rows(y, targets).T  # (N, N): x_i · y_{t_j}
     collide = targets[None, :] == targets[:, None]
     eye = torch.eye(logits.shape[0], dtype=torch.bool, device=x.device)
     neg = torch.where(collide & ~eye, NEG_INF, logits)
@@ -286,7 +305,7 @@ def rece(x, y, targets, valid_mask=None, generator=None, *,
     x_b = x[xi]  # (n_chunks, cx, d)
     y_b = y[yi]  # (n_chunks, cy, d)
     tgt_b = targets[xi]
-    pos = torch.einsum("nxd,nxd->nx", x_b, y[tgt_b.long()])
+    pos = torch.einsum("nxd,nxd->nx", x_b, take_rows(y, tgt_b))
     neg = torch.einsum("nxd,nyd->nxy", x_b, y_b)
     collide = yi[:, None, :] == tgt_b[:, :, None]
     neg = torch.where(collide, NEG_INF, neg)

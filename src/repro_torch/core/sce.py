@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import take_rows
 from repro_torch.kernels import ops as _kops
 from repro_torch.kernels.topk_merge import ID_PAD, NEG_INF, streaming_topk_elements
 
@@ -246,9 +247,9 @@ def sce_loss(x, y, targets, *, cfg: SCEConfig, valid_mask=None,
         mark("select")
 
     ix = idx_x.long()
-    x_b = x[ix]  # (n_b, b_x, d)
+    x_b = take_rows(x, ix)  # (n_b, b_x, d)
     tgt_b = targets[ix].to(torch.int32)  # (n_b, b_x)
-    pos_emb = y[tgt_b.long()]  # (n_b, b_x, d)
+    pos_emb = take_rows(y, tgt_b)  # (n_b, b_x, d)
     pos_logit = apply_softcap(torch.einsum("nxd,nxd->nx", x_b, pos_emb),
                               cfg.logit_softcap)
     if cfg.use_kernel:
@@ -260,7 +261,7 @@ def sce_loss(x, y, targets, *, cfg: SCEConfig, valid_mask=None,
             pos_logit.contiguous(), logit_softcap=cfg.logit_softcap,
         )
     else:
-        y_b = y[idx_y.long()]  # (n_b, b_y, d)
+        y_b = take_rows(y, idx_y)  # (n_b, b_y, d)
         losses = _in_bucket_losses(x_b, y_b, tgt_b, idx_y, pos_logit,
                                    softcap=cfg.logit_softcap)
 

@@ -9,7 +9,10 @@ catalog sweep (``kernels/ops.py::eval_fused``: the hand-written CUDA
 kernel on the card, its plain chunked version on the CPU) with no
 ``(B, C)`` score matrix, and :class:`MetricAccumulator` folds them into
 running sums. :func:`streaming_topk` is the serving slice of the same
-sweep.
+sweep. Both dispatch through the guarded ``ops`` entries: on the card
+the kernel guard's preflight and ``eval_fused`` / ``mips_topk`` verdicts
+run first, and a failed verdict raises — there is no degraded path to
+the plain version (the reference's ``warn`` policy has one).
 """
 from __future__ import annotations
 

@@ -4,10 +4,13 @@
 //
 // Replaces the Pallas TPU kernels `_fused_kernel` (public `eval_fused`)
 // and `_tgt_gather_kernel` (public `eval_tgt_gather`) of
-// src/repro/kernels/eval_fused.py. It computes what they compute, not
-// their block structure. For rows r with target id t_r and threshold
-// tgt_r, over the columns c < C of y whose global id g = id_offset + c
-// lies in [c_lo, c_hi) (the valid columns), with s = (x @ yᵀ)[r, c]:
+// src/repro/kernels/eval_fused.py, and — as eval_topk_launch and
+// eval_tgt_scores_launch at the end of this file — `_eval_kernel` and
+// `_tgt_kernel` of src/repro/kernels/eval_topk.py. It computes what they
+// compute, not their block structure. For rows r with target id t_r and
+// threshold tgt_r, over the columns c < C of y whose global id
+// g = id_offset + c lies in [c_lo, c_hi) (the valid columns), with
+// s = (x @ yᵀ)[r, c]:
 //
 //   vals, ids  top-k of s over the valid columns, keyed by (value
 //              descending, id ascending); (NEG_INF, ID_PAD) where fewer
@@ -92,7 +95,10 @@ __device__ __forceinline__ void lse_combine(float& m, float& s, float m2,
   m = mn;
 }
 
-template <int RM, int SLOTS, bool LSE>
+// SELF: eval_fused's self-column rule (the target's own column never in
+// gt, always in eq). Without it (eval_topk) the counts go by score alone
+// and `targets` is not read.
+template <int RM, int SLOTS, bool LSE, bool SELF>
 __global__ void __launch_bounds__(kThreads)
 eval_fused_partial_kernel(Sweep a, const float* __restrict__ tgt,
                           const int* __restrict__ targets,
@@ -110,7 +116,7 @@ eval_fused_partial_kernel(Sweep a, const float* __restrict__ tgt,
   for (int i = 0; i < RM; ++i) {
     const bool in = row0 + i < a.n_q;
     t_r[i] = in ? tgt[row0 + i] : 0.f;
-    id_r[i] = in ? targets[row0 + i] : -1;
+    id_r[i] = SELF && in ? targets[row0 + i] : -1;
     gt[i] = 0;
     eq[i] = 0;
     m[i] = kNegInf;
@@ -127,7 +133,8 @@ eval_fused_partial_kernel(Sweep a, const float* __restrict__ tgt,
       for (int j = 0; j < kColsPerThread; ++j) {
         const int cc = tx + 16 * j;
         const bool ok = flags[cc] != 0;
-        const bool self = a.id_offset + (int)(c0 + cc) == id_r[i];
+        const bool self =
+            SELF && a.id_offset + (int)(c0 + cc) == id_r[i];
         const float sv = ok ? acc[i][j] : kNegInf;
         gt[i] += sv > t_r[i] && !self;
         eq[i] += sv == t_r[i] || (self && ok);
@@ -226,17 +233,18 @@ struct EvalOut {
   float cap;
 };
 
-template <int RM, int SLOTS, bool LSE>
+template <int RM, int SLOTS, bool LSE, bool SELF>
 cudaError_t launch_pair(const Sweep& a, const EvalOut& o, int n_split,
                         cudaStream_t st) {
   static bool done[kMaxDevices] = {};
   const size_t smem = partial_smem_bytes<RM>(a.d, a.k);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err =
-      allow_max_smem(eval_fused_partial_kernel<RM, SLOTS, LSE>, done);
+      allow_max_smem(eval_fused_partial_kernel<RM, SLOTS, LSE, SELF>, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n_q + 16 * RM - 1) / (16 * RM), n_split);
-  eval_fused_partial_kernel<RM, SLOTS, LSE><<<grid, kThreads, smem, st>>>(
+  eval_fused_partial_kernel<RM, SLOTS, LSE, SELF>
+      <<<grid, kThreads, smem, st>>>(
       a, o.tgt, o.targets, o.part_cnt, o.part_ms, o.cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -294,7 +302,52 @@ extern "C" int eval_fused_launch(
   return (int)dispatch(rows_per_thread, k, [&](auto rm, auto slots) {
     constexpr int RM = decltype(rm)::value;
     constexpr int SLOTS = decltype(slots)::value;
-    return with_lse ? launch_pair<RM, SLOTS, true>(a, o, n_split, st)
-                    : launch_pair<RM, SLOTS, false>(a, o, n_split, st);
+    return with_lse ? launch_pair<RM, SLOTS, true, true>(a, o, n_split, st)
+                    : launch_pair<RM, SLOTS, false, true>(a, o, n_split, st);
   });
+}
+
+// eval_topk and eval_tgt_scores: the deprecated two-pass entries of
+// src/repro/kernels/eval_topk.py (`_eval_kernel`, `_tgt_kernel`), kept as
+// the oracle of eval_fused. eval_topk is the sweep above without the
+// self-column rule and without the LSE: gt and eq count by score alone
+// against the caller's tgt. Arguments as eval_fused_launch's, minus the
+// targets, the LSE pair and the cap. eval_tgt_scores is the target score
+// eval_topk compares against: x[r] · y[t_r − id_offset] by the sweep's
+// own fold (dot_fma), so it is bit for bit the swept column; 0 where t_r
+// is outside [id_offset, id_offset + C). The TPU kernel gets those bits
+// from a second full sweep; here one fold chain gives them from a gather
+// of B rows. Each returns the cudaError_t of its launches (0 on success).
+extern "C" int eval_topk_launch(
+    const float* x, const float* y, const float* tgt, float* part_vals,
+    int* part_ids, int* part_cnt, float* vals, int* ids, int* gt, int* eq,
+    int n, int c, int d, int k, int rows_per_thread, int n_split,
+    int split_cols, int id_offset, int c_lo, int c_hi, void* stream) {
+  if (n <= 0 || c <= 0 || d <= 0 || d > kMaxD || k <= 0 || k > kMaxK ||
+      n_split <= 0 || split_cols <= 0 || split_cols % kTileC != 0 ||
+      (long)n_split * split_cols < (long)c)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Sweep a{x, y, nullptr, part_vals, part_ids, n, c, d, k, split_cols,
+                id_offset, c_lo, c_hi,
+                d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0};
+  const EvalOut o{tgt, nullptr, part_cnt, nullptr, vals, ids, gt, eq,
+                  nullptr, nullptr, 0.f};
+  return (int)dispatch(rows_per_thread, k, [&](auto rm, auto slots) {
+    constexpr int RM = decltype(rm)::value;
+    constexpr int SLOTS = decltype(slots)::value;
+    return launch_pair<RM, SLOTS, false, false>(a, o, n_split, st);
+  });
+}
+
+extern "C" int eval_tgt_scores_launch(const float* x, const float* y,
+                                      const int* targets, float* out, int n,
+                                      int c, int d, int id_offset,
+                                      void* stream) {
+  if (n <= 0 || c <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  eval_tgt_gather_kernel<<<(n + kGatherThreads - 1) / kGatherThreads,
+                           kGatherThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      x, y, targets, out, n, c, d, id_offset);
+  return (int)cudaGetLastError();
 }

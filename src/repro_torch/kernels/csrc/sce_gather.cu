@@ -7,6 +7,14 @@
 // (forward, with_pos true for the loss, false for the partial LSE),
 // `_gbwd_dx_kernel` (dX) and `_gbwd_dy_kernel` (dY), the backward shared
 // by both as in the reference (`_plse_vjp_bwd` calls the loss's `_gbwd`).
+// With the template flag DIRECT the same kernels replace those behind
+// `sce_bucket_loss` and `sce_bucket_plse` of src/repro/kernels/
+// sce_bucket.py (`_fwd_kernel`, `_fwd_plse_kernel`, `_bwd_dx_kernel`,
+// `_bwd_dy_kernel`): the candidates arrive pre-gathered as y_b (n_b, b_y,
+// d), candidate j of bucket n is row n·b_y + j (no idx_y, no clamp), and
+// dY writes the bucket's own rows of dy_b instead of adding into catalog
+// rows — no atomics, so that dY repeats bit for bit (the entries at the
+// end of this file; wrapped by src/repro_torch/kernels/sce_bucket.py).
 // For bucket n, row x of x_b (n_b, b_x, d) and candidate j < b_y with
 // catalog row r = clamp(idx_y[n, j], 0, C - 1):
 //
@@ -104,8 +112,12 @@ size_t smem_bytes(int d, bool with_gw) {
          sizeof(int) * 2 * kTileY;
 }
 
-// Loads the catalog row ids (clamped to [0, C)) and candidate ids of
-// candidates [j0, j0 + ny) of bucket n; slots past ny get row 0 and id −1.
+// Loads the row ids and candidate ids of candidates [j0, j0 + ny) of
+// bucket n, base = n·b_y + j0: the catalog rows idx_y[base + j] clamped to
+// [0, C), or with DIRECT (sce_bucket: y is the pre-gathered y_b viewed as
+// (n_b·b_y, d)) the rows base + j themselves. Slots past ny get row 0 and
+// id −1.
+template <bool DIRECT>
 __device__ __forceinline__ void load_candidates(const int* idx_y,
                                                 const int* cand, int* rows,
                                                 int* cands, long base, int ny,
@@ -114,8 +126,12 @@ __device__ __forceinline__ void load_candidates(const int* idx_y,
     int r = 0;
     int id = -1;
     if (tid < ny) {
-      r = idx_y[base + tid];
-      r = r < 0 ? 0 : (r >= c ? c - 1 : r);
+      if constexpr (DIRECT) {
+        r = (int)(base + tid);
+      } else {
+        r = idx_y[base + tid];
+        r = r < 0 ? 0 : (r >= c ? c - 1 : r);
+      }
       id = cand[base + tid];
     }
     rows[tid] = r;
@@ -132,7 +148,7 @@ __device__ __forceinline__ bool masked(int col, int ny, int cand_id,
 // Forward: loss and lse (WITH_POS), or the partial LSE, of 64 rows of one
 // bucket. Without the positive, `pos` and `loss` are not read or written.
 // ---------------------------------------------------------------------------
-template <bool WITH_POS>
+template <bool WITH_POS, bool DIRECT>
 __global__ void __launch_bounds__(kThreads)
 sce_gather_fwd_kernel(const float* __restrict__ x_b,
                       const float* __restrict__ y,
@@ -176,8 +192,8 @@ sce_gather_fwd_kernel(const float* __restrict__ x_b,
   for (int j0 = 0; j0 < b_y; j0 += kTileY) {
     const int ny = min(kTileY, b_y - j0);
     __syncthreads();  // the previous tile is no longer read
-    load_candidates(idx_y, cand, rows, cands, (long)n * b_y + j0, ny, c,
-                    tid);
+    load_candidates<DIRECT>(idx_y, cand, rows, cands, (long)n * b_y + j0, ny,
+                            c, tid);
     __syncthreads();
     stage(ys, y, ny, kTileY, d, p, vec_y, [rows](int r) { return rows[r]; },
           tid);
@@ -223,7 +239,7 @@ sce_gather_fwd_kernel(const float* __restrict__ x_b,
 // ---------------------------------------------------------------------------
 // dX: 64 rows of one bucket, the same walk as the forward.
 // ---------------------------------------------------------------------------
-template <int NC>
+template <int NC, bool DIRECT>
 __global__ void __launch_bounds__(kThreads)
 sce_gather_dx_kernel(const float* __restrict__ x_b,
                      const float* __restrict__ y,
@@ -268,8 +284,8 @@ sce_gather_dx_kernel(const float* __restrict__ x_b,
   for (int j0 = 0; j0 < b_y; j0 += kTileY) {
     const int ny = min(kTileY, b_y - j0);
     __syncthreads();  // the previous tile and gwᵀ are no longer read
-    load_candidates(idx_y, cand, rows, cands, (long)n * b_y + j0, ny, c,
-                    tid);
+    load_candidates<DIRECT>(idx_y, cand, rows, cands, (long)n * b_y + j0, ny,
+                            c, tid);
     __syncthreads();
     stage(ys, y, ny, kTileY, d, p, vec_y, [rows](int r) { return rows[r]; },
           tid);
@@ -306,9 +322,11 @@ sce_gather_dx_kernel(const float* __restrict__ x_b,
 
 // ---------------------------------------------------------------------------
 // dY: 64 candidates of one bucket, the transposed walk over its b_x rows,
-// then an atomic add into their catalog rows.
+// then an atomic add into their catalog rows — or with DIRECT a plain
+// write of the bucket's own y_b rows (no other block touches them, so the
+// result repeats bit for bit).
 // ---------------------------------------------------------------------------
-template <int NC>
+template <int NC, bool DIRECT>
 __global__ void __launch_bounds__(kThreads)
 sce_gather_dy_kernel(const float* __restrict__ x_b,
                      const float* __restrict__ y,
@@ -335,7 +353,8 @@ sce_gather_dy_kernel(const float* __restrict__ x_b,
   const int j0 = blockIdx.y * kTileY;
   const int ny = min(kTileY, b_y - j0);
 
-  load_candidates(idx_y, cand, rows, cands, (long)n * b_y + j0, ny, c, tid);
+  load_candidates<DIRECT>(idx_y, cand, rows, cands, (long)n * b_y + j0, ny,
+                          c, tid);
   __syncthreads();
   stage(ys, y, ny, kTileY, d, p, vec_y, [rows](int r) { return rows[r]; },
         tid);
@@ -374,25 +393,33 @@ sce_gather_dy_kernel(const float* __restrict__ x_b,
 #pragma unroll
   for (int i = 0; i < kRM; ++i) {
     const int j = ty * kRM + i;
+    if (j >= ny) continue;
     // A candidate with a negative id is masked on every row: its sum is
-    // exactly 0 and its clamped row is not written.
-    if (j >= ny || cands[j] < 0) continue;
+    // exactly 0. Gathered, its clamped row is not written; direct, its
+    // own row gets an explicit 0.
+    const bool masked_all = cands[j] < 0;
+    if (!DIRECT && masked_all) continue;
     float* out = dy + (long)rows[j] * d;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int col = kChunk * cc + 4 * tx + q;
-        if (col < d) atomicAdd(out + col, acc_dy[i][cc][q]);
+        if (col >= d) continue;
+        if constexpr (DIRECT)
+          out[col] = masked_all ? 0.f : acc_dy[i][cc][q];
+        else
+          atomicAdd(out + col, acc_dy[i][cc][q]);
       }
   }
 }
 
 // Opts `kernel` in to the full kMaxSmem of dynamic shared memory, once per
-// device (the attribute is per device context). `slot` names the kernel.
+// device (the attribute is per device context). `slot` names the kernel:
+// 0–9 the gathered instantiations, 10–19 the direct ones.
 template <typename K>
 cudaError_t allow_max_smem(K kernel, int slot) {
-  static bool done[10][kMaxDevices] = {};
+  static bool done[20][kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -410,8 +437,9 @@ bool shapes_ok(int n_b, int b_x, int b_y, int c, int d) {
 }
 
 // Launches the forward with the positive (slot 0) or the partial LSE
-// (slot 9); `pos` and `loss` are null for the latter.
-template <bool WITH_POS>
+// (slot 9), gathered or DIRECT (slots + 10); `pos` and `loss` are null for
+// the partial LSE, `idx_y` for DIRECT.
+template <bool WITH_POS, bool DIRECT>
 int launch_fwd(const float* x_b, const float* y, const int* idx_y,
                const int* tgt_b, const int* cand, const float* pos,
                float* loss, float* lse, int n_b, int b_x, int b_y, int c,
@@ -419,19 +447,19 @@ int launch_fwd(const float* x_b, const float* y, const int* idx_y,
   if (!shapes_ok(n_b, b_x, b_y, c, d)) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(d, false);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      allow_max_smem(sce_gather_fwd_kernel<WITH_POS>, WITH_POS ? 0 : 9);
+  cudaError_t err = allow_max_smem(sce_gather_fwd_kernel<WITH_POS, DIRECT>,
+                                   (WITH_POS ? 0 : 9) + (DIRECT ? 10 : 0));
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_b, (b_x + kTileX - 1) / kTileX);
-  sce_gather_fwd_kernel<WITH_POS><<<grid, kThreads, smem,
-                                    static_cast<cudaStream_t>(stream)>>>(
+  sce_gather_fwd_kernel<WITH_POS, DIRECT>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x_b, y, idx_y, tgt_b, cand, pos, loss, lse, b_x, b_y, c, d, cap,
       vec_flag(x_b, d), vec_flag(y, d));
   return (int)cudaGetLastError();
 }
 
 // Launches the dX (kind 0) or dY (kind 1) kernel at NC = ceil(d / 64).
-template <int NC>
+template <int NC, bool DIRECT>
 cudaError_t launch_bwd(int kind, const float* x_b, const float* y,
                        const int* idx_y, const int* tgt_b, const int* cand,
                        const float* lse, const float* g, float* out, int n_b,
@@ -443,21 +471,24 @@ cudaError_t launch_bwd(int kind, const float* x_b, const float* y,
   const int vy = vec_flag(y, d);
   cudaError_t err;
   if (kind == 0) {
-    err = allow_max_smem(sce_gather_dx_kernel<NC>, NC);
+    err = allow_max_smem(sce_gather_dx_kernel<NC, DIRECT>,
+                         NC + (DIRECT ? 10 : 0));
     if (err != cudaSuccess) return err;
     const dim3 grid(n_b, (b_x + kTileX - 1) / kTileX);
-    sce_gather_dx_kernel<NC><<<grid, kThreads, smem, s>>>(
+    sce_gather_dx_kernel<NC, DIRECT><<<grid, kThreads, smem, s>>>(
         x_b, y, idx_y, tgt_b, cand, lse, g, out, b_x, b_y, c, d, cap, vx, vy);
   } else {
-    err = allow_max_smem(sce_gather_dy_kernel<NC>, 4 + NC);
+    err = allow_max_smem(sce_gather_dy_kernel<NC, DIRECT>,
+                         4 + NC + (DIRECT ? 10 : 0));
     if (err != cudaSuccess) return err;
     const dim3 grid(n_b, (b_y + kTileY - 1) / kTileY);
-    sce_gather_dy_kernel<NC><<<grid, kThreads, smem, s>>>(
+    sce_gather_dy_kernel<NC, DIRECT><<<grid, kThreads, smem, s>>>(
         x_b, y, idx_y, tgt_b, cand, lse, g, out, b_x, b_y, c, d, cap, vx, vy);
   }
   return cudaGetLastError();
 }
 
+template <bool DIRECT>
 int launch_bwd_any(int kind, const float* x_b, const float* y,
                    const int* idx_y, const int* tgt_b, const int* cand,
                    const float* lse, const float* g, float* out, int n_b,
@@ -466,17 +497,21 @@ int launch_bwd_any(int kind, const float* x_b, const float* y,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((d + kChunk - 1) / kChunk) {
     case 1:
-      return (int)launch_bwd<1>(kind, x_b, y, idx_y, tgt_b, cand, lse, g, out,
-                                n_b, b_x, b_y, c, d, cap, s);
+      return (int)launch_bwd<1, DIRECT>(kind, x_b, y, idx_y, tgt_b, cand,
+                                        lse, g, out, n_b, b_x, b_y, c, d,
+                                        cap, s);
     case 2:
-      return (int)launch_bwd<2>(kind, x_b, y, idx_y, tgt_b, cand, lse, g, out,
-                                n_b, b_x, b_y, c, d, cap, s);
+      return (int)launch_bwd<2, DIRECT>(kind, x_b, y, idx_y, tgt_b, cand,
+                                        lse, g, out, n_b, b_x, b_y, c, d,
+                                        cap, s);
     case 3:
-      return (int)launch_bwd<3>(kind, x_b, y, idx_y, tgt_b, cand, lse, g, out,
-                                n_b, b_x, b_y, c, d, cap, s);
+      return (int)launch_bwd<3, DIRECT>(kind, x_b, y, idx_y, tgt_b, cand,
+                                        lse, g, out, n_b, b_x, b_y, c, d,
+                                        cap, s);
     case 4:
-      return (int)launch_bwd<4>(kind, x_b, y, idx_y, tgt_b, cand, lse, g, out,
-                                n_b, b_x, b_y, c, d, cap, s);
+      return (int)launch_bwd<4, DIRECT>(kind, x_b, y, idx_y, tgt_b, cand,
+                                        lse, g, out, n_b, b_x, b_y, c, d,
+                                        cap, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -498,8 +533,8 @@ extern "C" int sce_gather_fwd_launch(const float* x_b, const float* y,
                                      float* loss, float* lse, int n_b,
                                      int b_x, int b_y, int c, int d,
                                      float cap, void* stream) {
-  return launch_fwd<true>(x_b, y, idx_y, tgt_b, cand, pos, loss, lse, n_b,
-                          b_x, b_y, c, d, cap, stream);
+  return launch_fwd<true, false>(x_b, y, idx_y, tgt_b, cand, pos, loss, lse,
+                                 n_b, b_x, b_y, c, d, cap, stream);
 }
 
 extern "C" int sce_gather_plse_fwd_launch(const float* x_b, const float* y,
@@ -508,8 +543,9 @@ extern "C" int sce_gather_plse_fwd_launch(const float* x_b, const float* y,
                                           float* plse, int n_b, int b_x,
                                           int b_y, int c, int d, float cap,
                                           void* stream) {
-  return launch_fwd<false>(x_b, y, idx_y, tgt_b, cand, nullptr, nullptr,
-                           plse, n_b, b_x, b_y, c, d, cap, stream);
+  return launch_fwd<false, false>(x_b, y, idx_y, tgt_b, cand, nullptr,
+                                  nullptr, plse, n_b, b_x, b_y, c, d, cap,
+                                  stream);
 }
 
 extern "C" int sce_gather_dx_launch(const float* x_b, const float* y,
@@ -518,8 +554,8 @@ extern "C" int sce_gather_dx_launch(const float* x_b, const float* y,
                                     const float* g, float* dx, int n_b,
                                     int b_x, int b_y, int c, int d,
                                     float cap, void* stream) {
-  return launch_bwd_any(0, x_b, y, idx_y, tgt_b, cand, lse, g, dx, n_b, b_x,
-                        b_y, c, d, cap, stream);
+  return launch_bwd_any<false>(0, x_b, y, idx_y, tgt_b, cand, lse, g, dx,
+                               n_b, b_x, b_y, c, d, cap, stream);
 }
 
 extern "C" int sce_gather_dy_launch(const float* x_b, const float* y,
@@ -528,6 +564,62 @@ extern "C" int sce_gather_dy_launch(const float* x_b, const float* y,
                                     const float* g, float* dy, int n_b,
                                     int b_x, int b_y, int c, int d,
                                     float cap, void* stream) {
-  return launch_bwd_any(1, x_b, y, idx_y, tgt_b, cand, lse, g, dy, n_b, b_x,
-                        b_y, c, d, cap, stream);
+  return launch_bwd_any<false>(1, x_b, y, idx_y, tgt_b, cand, lse, g, dy,
+                               n_b, b_x, b_y, c, d, cap, stream);
+}
+
+// sce_bucket: the same kernels with direct addressing, over candidates
+// pre-gathered per bucket. y_b (n_b, b_y, d) f32 takes the place of y and
+// idx_y: candidate j of bucket n is row n·b_y + j of y_b. Shapes otherwise
+// as above. dy_b (n_b, b_y, d) is written whole (no atomics, no zeroing
+// needed): a candidate with a negative id gets an exact 0 row. Replaces
+// `_fwd_kernel`, `_fwd_plse_kernel`, `_bwd_dx_kernel` and `_bwd_dy_kernel`
+// of src/repro/kernels/sce_bucket.py.
+namespace {
+
+int direct_rows(int n_b, int b_y) {
+  const long rows = (long)n_b * b_y;
+  return rows > 0 && rows <= 0x7fffffffL ? (int)rows : 0;
+}
+
+}  // namespace
+
+extern "C" int sce_bucket_fwd_launch(const float* x_b, const float* y_b,
+                                     const int* tgt_b, const int* cand,
+                                     const float* pos, float* loss,
+                                     float* lse, int n_b, int b_x, int b_y,
+                                     int d, float cap, void* stream) {
+  return launch_fwd<true, true>(x_b, y_b, nullptr, tgt_b, cand, pos, loss,
+                                lse, n_b, b_x, b_y, direct_rows(n_b, b_y), d,
+                                cap, stream);
+}
+
+extern "C" int sce_bucket_plse_fwd_launch(const float* x_b, const float* y_b,
+                                          const int* tgt_b, const int* cand,
+                                          float* plse, int n_b, int b_x,
+                                          int b_y, int d, float cap,
+                                          void* stream) {
+  return launch_fwd<false, true>(x_b, y_b, nullptr, tgt_b, cand, nullptr,
+                                 nullptr, plse, n_b, b_x, b_y,
+                                 direct_rows(n_b, b_y), d, cap, stream);
+}
+
+extern "C" int sce_bucket_dx_launch(const float* x_b, const float* y_b,
+                                    const int* tgt_b, const int* cand,
+                                    const float* lse, const float* g,
+                                    float* dx, int n_b, int b_x, int b_y,
+                                    int d, float cap, void* stream) {
+  return launch_bwd_any<true>(0, x_b, y_b, nullptr, tgt_b, cand, lse, g, dx,
+                              n_b, b_x, b_y, direct_rows(n_b, b_y), d, cap,
+                              stream);
+}
+
+extern "C" int sce_bucket_dy_launch(const float* x_b, const float* y_b,
+                                    const int* tgt_b, const int* cand,
+                                    const float* lse, const float* g,
+                                    float* dy_b, int n_b, int b_x, int b_y,
+                                    int d, float cap, void* stream) {
+  return launch_bwd_any<true>(1, x_b, y_b, nullptr, tgt_b, cand, lse, g,
+                              dy_b, n_b, b_x, b_y, direct_rows(n_b, b_y), d,
+                              cap, stream);
 }

@@ -28,6 +28,7 @@
 namespace topk_tile {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kPosInf = __builtin_huge_valf();  // a NaN score's rank
 constexpr int kIdPad = 0x7fffffff;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -42,7 +43,8 @@ constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
 // The merge key: a comes before b iff its value is larger, or equal with
-// the lower id.
+// the lower id. No NaN reaches it: the sweep's filter enters a NaN score
+// as +inf (see sweep_split).
 __device__ __forceinline__ bool precedes(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
@@ -414,7 +416,11 @@ __device__ __forceinline__ void sweep_split(const Sweep& a, float4* smem4,
     const int* flags = vs + b * kTileC;
     on_tile(acc, flags, c0);
 
-    // Keep the scores that beat their row's current k-th entry.
+    // Keep the scores that beat their row's current k-th entry. A NaN
+    // score (a diverged model) enters as +inf: it ranks above every
+    // number and NaNs among themselves by id, the order in which the plain
+    // version's stable sort (torch.sort) and the reference's lax.top_k
+    // rank NaN, so the same ids are selected; its value reads +inf.
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int r = ty * RM + i;
@@ -425,9 +431,10 @@ __device__ __forceinline__ void sweep_split(const Sweep& a, float4* smem4,
       for (int j = 0; j < kColsPerThread; ++j) {
         const int cc = tx + 16 * j;
         const int id = a.id_offset + (int)(c0 + cc);
-        if (flags[cc] && precedes(acc[i][j], id, tv, ti)) {
+        const float v = acc[i][j] != acc[i][j] ? kPosInf : acc[i][j];
+        if (flags[cc] && precedes(v, id, tv, ti)) {
           const int slot = atomicAdd(&cnt[r], 1);
-          cv[r * kTileC + slot] = acc[i][j];
+          cv[r * kTileC + slot] = v;
           ci[r * kTileC + slot] = id;
         }
       }

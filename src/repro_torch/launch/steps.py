@@ -15,6 +15,7 @@ from repro_torch.core.distributed_sce import round_up, sce_loss_sharded
 from repro_torch.core.losses import ce_chunked, ce_fused_linear, make_loss
 from repro_torch.core.sce import SCEConfig, sce_loss
 from repro_torch.eval.streaming import streaming_topk
+from repro_torch.kernels import guard
 from repro_torch.launch.mesh import dp_size
 from repro_torch.models import sasrec as sasrec_lib
 from repro_torch.optim.optimizers import (
@@ -38,7 +39,7 @@ def _pop_loss_cap(batch):
 
 
 def _apply_update_guarded(opt_update, loss, grads, params, opt_state,
-                          loss_cap=None):
+                          loss_cap=None, sentinels=None):
     """Optimizer update gated on the step's health.
 
     ``ok`` = loss finite AND global grad norm finite AND (with a cap)
@@ -46,7 +47,10 @@ def _apply_update_guarded(opt_update, loss, grads, params, opt_state,
     back bit for bit as they were, the step counter included: a skipped
     step never happened as far as schedules and moments are concerned.
     The decision stays on the device (``torch.where``), as in the
-    reference. → ``(params, opt_state, {"loss", "skipped", "grad_norm"})``.
+    reference. → ``(params, opt_state, {"loss", "skipped", "grad_norm"})``,
+    plus, when the loss carried them, the kernel guard's per-kernel
+    ``"sentinels"`` (0-d int32 counts on the device), so a strike can
+    name the kernel that went non-finite.
     """
     gnorm = global_norm(grads)
     ok = torch.isfinite(loss) & torch.isfinite(gnorm)
@@ -60,6 +64,8 @@ def _apply_update_guarded(opt_update, loss, grads, params, opt_state,
     kept_opt = OptState(step=torch.where(ok, new_opt.step, opt_state.step),
                         inner=keep(new_opt.inner, opt_state.inner))
     metrics = {"loss": loss, "skipped": ~ok, "grad_norm": gnorm}
+    if sentinels:
+        metrics["sentinels"] = dict(sentinels)
     return keep(new_params, params), kept_opt, metrics
 
 
@@ -87,6 +93,17 @@ def build_sce_config(
     )
 
 
+# Which kernel group a loss name's sentinel counters blame (the conformance
+# registry's key), as in the reference; "sce" keeps the reference's
+# "sce_bucket" although the port's SCE runs sce_gather, so the counter
+# names stay equal. Names outside the map use the loss name itself.
+_SENTINEL_KERNEL = {
+    "sce": "sce_bucket",
+    "ce_fused": "fused_ce",
+    "ce_fused_linear": "linear_sce",
+}
+
+
 def _vocab_loss(x, y, targets, valid, generator, *, loss_name, sce_cfg,
                 sce_mode: str, mesh, logit_softcap: Optional[float] = None,
                 omega=None, mark=None):
@@ -104,57 +121,83 @@ def _vocab_loss(x, y, targets, valid, generator, *, loss_name, sce_cfg,
     ``omega`` injects SCE's Mix draw instead (on a mesh, this rank's data
     shard's). ``mark`` sees the SCE losses' own ``"select"`` and
     ``"loss_forward"``, or one ``"loss_forward"`` after any other loss.
-    The reference also returns the kernel guard's numerics sentinels; the
-    guard is not ported yet (ROADMAP queue 1 item 11), so this returns
-    the loss alone.
+
+    Returns ``(loss, sentinels)``: the kernel guard's on-device numerics
+    counters (``kernels/guard/sentinels.py``) — the loss's own
+    ``aux["sentinels"]``, else the non-finite count of the loss under
+    :data:`_SENTINEL_KERNEL`'s name — empty under guard policy ``off``.
     """
+    aux = {}
     if loss_name == "sce":
         if sce_mode in ("exact", "union") and mesh is not None:
-            return sce_loss_sharded(x, y, targets, cfg=sce_cfg, mesh=mesh,
+            loss = sce_loss_sharded(x, y, targets, cfg=sce_cfg, mesh=mesh,
                                     valid_mask=valid, mode=sce_mode,
                                     generator=generator, omega=omega,
                                     mark=mark)
-        return sce_loss(x, y, targets, cfg=sce_cfg, valid_mask=valid,
-                        generator=generator, omega=omega, mark=mark)
-    if omega is not None:
-        raise ValueError(f"omega injects SCE's bucket draw; the train loss "
-                         f"is {loss_name!r}")
-    if loss_name == "ce_chunked":
-        loss, _ = ce_chunked(x, y, targets, valid_mask=valid,
-                             logit_softcap=logit_softcap)
-    elif loss_name == "ce_fused_linear":
-        loss, _ = ce_fused_linear(x, y, targets, valid_mask=valid,
-                                  logit_softcap=logit_softcap)
+        else:
+            loss = sce_loss(x, y, targets, cfg=sce_cfg, valid_mask=valid,
+                            generator=generator, omega=omega, mark=mark)
     else:
-        loss, _ = make_loss(loss_name)(x, y, targets, valid_mask=valid,
-                                       generator=generator)
-    if mark:
-        mark("loss_forward")
-    return loss
+        if omega is not None:
+            raise ValueError(f"omega injects SCE's bucket draw; the train "
+                             f"loss is {loss_name!r}")
+        if loss_name == "ce_chunked":
+            loss, aux = ce_chunked(x, y, targets, valid_mask=valid,
+                                   logit_softcap=logit_softcap)
+        elif loss_name == "ce_fused_linear":
+            loss, aux = ce_fused_linear(x, y, targets, valid_mask=valid,
+                                        logit_softcap=logit_softcap)
+        else:
+            loss, aux = make_loss(loss_name)(x, y, targets,
+                                             valid_mask=valid,
+                                             generator=generator)
+        if mark:
+            mark("loss_forward")
+    if guard.policy() == "off":
+        return loss, {}
+    sentinels = aux.get("sentinels")
+    if sentinels is None:
+        sentinels = guard.loss_sentinels(
+            _SENTINEL_KERNEL.get(loss_name, loss_name), loss)
+    return loss, sentinels
 
 
 def _accumulate_microbatches(loss_and_grad_fn, params, batch, generator,
                              n_micro: int, accum_dtype=torch.float32, *,
-                             omega=None):
+                             omega=None, with_aux: bool = False):
     """Mean loss and gradients over ``n_micro`` microbatches, a Python
     loop with the gradients summed in ``accum_dtype`` → ``(loss, grads)``.
-    ``omega`` (an injected bucket draw) serves one microbatch only."""
+    ``omega`` (an injected bucket draw) serves one microbatch only.
+
+    ``with_aux=True``: the fn returns ``(loss, aux, grads)``, ``aux`` a
+    dict of on-device counters (the guard's sentinels) summed over the
+    microbatches, and the result is ``(loss, aux, grads)``."""
+    def call(mb, omega):
+        out = loss_and_grad_fn(params, mb, generator, omega)
+        if with_aux:
+            return out
+        loss, grads = out
+        return loss, {}, grads
+
     if n_micro == 1:
-        return loss_and_grad_fn(params, batch, generator, omega)
+        loss, aux, grads = call(batch, omega)
+        return (loss, aux, grads) if with_aux else (loss, grads)
     if omega is not None:
         raise ValueError("an injected omega serves a single microbatch")
     parts = {k: v.chunk(n_micro, dim=0) for k, v in batch.items()}
-    acc_loss = None
+    acc_loss, acc_aux = None, {}
     acc = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
                                          device=p.device), params)
     for i in range(n_micro):
         mb = {k: v[i] for k, v in parts.items()}
-        loss, grads = loss_and_grad_fn(params, mb, generator, None)
+        loss, aux, grads = call(mb, None)
         acc = tree_map(lambda a, g: a + g.to(accum_dtype) / n_micro, acc,
                        grads)
         acc_loss = loss / n_micro if acc_loss is None else \
             acc_loss + loss / n_micro
-    return acc_loss, tree_map(lambda g, p: g.to(p.dtype), acc, params)
+        acc_aux = guard.merge_sentinels(acc_aux, aux)
+    grads = tree_map(lambda g, p: g.to(p.dtype), acc, params)
+    return (acc_loss, acc_aux, grads) if with_aux else (acc_loss, grads)
 
 
 def _unflatten(tree, leaves):
@@ -240,7 +283,7 @@ def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
             y = sasrec_lib.loss_catalog(leaves, cfg)  # shard-even slice
             if mark:
                 mark("forward")
-            loss = _vocab_loss(
+            loss, sentinels = _vocab_loss(
                 x, y, mb["targets"].reshape(-1), mb["valid"].reshape(-1),
                 generator, loss_name=arch.train_loss, sce_cfg=sce_cfg,
                 sce_mode=sce_mode, mesh=mesh,
@@ -253,14 +296,14 @@ def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
                  for p, g in zip(flat, grads)]
         if mark:
             mark("backward")
-        return loss.detach(), _unflatten(params, grads)
+        return loss.detach(), sentinels, _unflatten(params, grads)
 
     def train_step(params, opt_state, batch, *, generator=None, omega=None,
                    mark=None):
         batch, loss_cap = _pop_loss_cap(batch)
-        loss, grads = _accumulate_microbatches(
+        loss, sentinels, grads = _accumulate_microbatches(
             functools.partial(loss_and_grad, mark=mark), params, batch,
-            generator, n_micro, accum_dtype, omega=omega,
+            generator, n_micro, accum_dtype, omega=omega, with_aux=True,
         )
         if data_group is not None:
             # Each data shard's gradient is its share of the global
@@ -268,7 +311,7 @@ def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
             for g in tree_leaves(grads):
                 dist.all_reduce(g, op=dist.ReduceOp.SUM, group=data_group)
         out = _apply_update_guarded(opt_update, loss, grads, params,
-                                    opt_state, loss_cap)
+                                    opt_state, loss_cap, sentinels)
         if mark:
             mark("optimizer")
         return out

@@ -22,17 +22,31 @@ the card) of ``eval_users`` held-out users drawn once from
 ``SequenceDataset.eval_batch(Cursor(seed))``; each prints
 ``[eval] step N: {...}``.
 
+The divergence guard (``launch/elastic.py::DivergenceGuard``) runs as
+in the reference: every batch carries its ``loss_cap`` (``inf`` for the
+first 8 healthy steps, then ``guard_factor`` × the running median), a
+step with a non-finite loss or gradient or a loss above the cap leaves
+the params and the optimizer state as they were and prints a ``[guard]``
+strike line naming the kernel guard's tripped sentinels, and
+``max_strikes`` bad steps in a row raise ``RuntimeError`` (the
+reference's behaviour without ``--ckpt-dir``). ``guard_policy``
+(``--guard``) sets the kernel guard's policy (``kernels/guard``);
+``chaos_nan_at`` poisons the params with NaN once at that step (the
+divergence drill).
+
 Left out, with their ROADMAP.md queue: checkpoints, preemption and the
-divergence guard's rollback (queue 1 item 10), the kernel guard (item
-11), the LM's token-rank evaluation (item 12), the sharded evaluation,
-``--n-hosts`` emulation and gradient compression (item 14). The step's
-own guard still holds: a step with a non-finite loss or gradient leaves
-the params and the optimizer state as they were.
+divergence guard's checkpointed rollback (queue 1 item 10), the LM's
+token-rank evaluation (item 12), the sharded evaluation, ``--n-hosts``
+emulation and gradient compression (item 14).
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec-sce \\
         --steps 4 --eval-every 2 --device cpu [--sce-mode union]
+    # the divergence drill: NaN params at step 5, strikes at 5 and 6, the
+    # RuntimeError at step 7
+    PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec-sce \\
+        --steps 10 --device cpu --guard strict --chaos-nan-at 5
     # two processes on the CPU (a (2, 1) mesh on gloo)
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch sasrec-sce --steps 4 --device cpu
@@ -44,8 +58,9 @@ import json
 import os
 import statistics
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -54,9 +69,12 @@ from repro_torch.configs import ShapeSpec, get_arch
 from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
 from repro_torch.dist.sharding import batch_slice, world
 from repro_torch.eval import evaluate_streaming
+from repro_torch.kernels import guard as kguard
+from repro_torch.launch.elastic import DivergenceGuard
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_seqrec_train_step
 from repro_torch.models import sasrec
+from repro_torch.optim.optimizers import tree_map
 
 
 def to_device(host_batch, device) -> Dict[str, torch.Tensor]:
@@ -64,10 +82,26 @@ def to_device(host_batch, device) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v).to(device) for k, v in host_batch.items()}
 
 
+def _host_metrics(metrics):
+    """``(loss, skipped, grad_norm, sentinels)`` of one step on the host,
+    in ONE device→host transfer: the scalars and the sentinel counts are
+    stacked on the device first (f64 holds the int32 counts exactly)."""
+    names = sorted(metrics.get("sentinels", {}))
+    row = torch.stack(
+        [metrics[k].detach().to(torch.float64)
+         for k in ("loss", "skipped", "grad_norm")]
+        + [metrics["sentinels"][n].to(torch.float64) for n in names]
+    ).tolist()
+    return (row[0], bool(row[1]), row[2],
+            {n: int(v) for n, v in zip(names, row[3:])})
+
+
 def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
           seed: int = 0, sce_mode: str = "exact", log_every: int = 10,
           eval_every: int = 0, eval_users: int = 128, device=None,
-          mark=None) -> Dict[str, Any]:
+          max_strikes: int = 3, guard_factor: float = 100.0,
+          chaos_nan_at: Optional[int] = None,
+          guard_policy: Optional[str] = None, mark=None) -> Dict[str, Any]:
     """Train ``arch_name`` for ``steps`` steps of ``batch`` sequences (the
     global batch: each rank of the mesh steps its data shard of it).
 
@@ -80,13 +114,25 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     every ``eval_every``-th step (see the module docstring); a step's
     time is taken before its evaluation.
 
+    ``max_strikes`` / ``guard_factor`` configure the divergence guard;
+    ``chaos_nan_at`` is the fault-injection hook of the divergence drill:
+    at that step the params are multiplied by NaN *once*, which the guard
+    must catch (update skipped on the device, strikes) — with no
+    checkpoint to roll back to, the ``max_strikes``-th bad step in a row
+    raises ``RuntimeError``. ``guard_policy`` (``off`` / ``warn`` /
+    ``strict``) sets the process-wide kernel-guard policy.
+
     Returns ``first_loss``, ``final_loss``, ``steps``, ``mean_step_s``
-    (host clock per step, each ending in a read of the loss, so the
-    device work is inside), ``skipped_steps``, and per step ``losses``
-    (the curve the reference writes to ``--metrics-file``) and
-    ``step_s``; with evaluation also ``eval``, the last evaluation's
-    metrics (``hr@k`` / ``ndcg@k`` / ``cov@k``).
+    (host clock per step, each ending in one read of the step's metrics,
+    so the device work is inside), ``skipped_steps`` (steps the guard
+    did not count as ok), and per step ``losses`` (the curve the
+    reference writes to ``--metrics-file``), ``step_s``, ``loss_caps``
+    (the cap each batch carried) and ``sentinels`` (the kernel guard's
+    counts, empty under policy ``off``); with evaluation also ``eval``,
+    the last evaluation's metrics (``hr@k`` / ``ndcg@k`` / ``cov@k``).
     """
+    if guard_policy is not None:
+        kguard.set_policy(guard_policy)
     device = resolve_device(device)
     arch = get_arch(arch_name)
     if arch.family != "seqrec":
@@ -122,30 +168,50 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
             n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=eval_users,
         )).eval_batch(Cursor(seed=seed))
 
-    losses, times = [], []
+    guard = DivergenceGuard(max_strikes=max_strikes,
+                            cap_factor=guard_factor)
+    losses, times, caps, sentinel_log = [], [], [], []
     skipped_steps = 0
     for step in range(steps):
+        if step == chaos_nan_at:  # once: steps never repeat without rollback
+            if lead:
+                print(f"[chaos] step {step}: poisoning params with NaN")
+            params = tree_map(lambda p: p * float("nan")
+                              if p.is_floating_point() else p, params)
         t0 = time.perf_counter()
         host_batch, cursor = data.next_batch(cursor)
         if mark:
             mark("start")
         dev_batch = to_device({k: v[rows] for k, v in host_batch.items()},
                               device)
+        cap = guard.loss_cap()
+        dev_batch["loss_cap"] = torch.full((), cap, dtype=torch.float32,
+                                           device=device)
         if mark:
             mark("h2d")
         params, opt_state, metrics = step_fn(
             params, opt_state, dev_batch, generator=generator, mark=mark,
         )
-        loss = float(metrics["loss"])
-        skipped = bool(metrics["skipped"])
+        loss, skipped, grad_norm, counts = _host_metrics(metrics)
         dt = time.perf_counter() - t0
         losses.append(loss)
         times.append(dt)
-        if skipped:
+        caps.append(float(np.float32(cap)))  # as the batch carries it
+        sentinel_log.append(counts)
+        verdict = guard.observe(loss, skipped=skipped)
+        if verdict != "ok":
             skipped_steps += 1
+            blame = (f" (sentinels: {kguard.describe_sentinels(counts)})"
+                     if any(counts.values()) else "")
             if lead:
                 print(f"[guard] step {step}: loss {loss:.4g} grad_norm "
-                      f"{float(metrics['grad_norm']):.4g} — update skipped")
+                      f"{grad_norm:.4g} — update skipped (strike "
+                      f"{guard.strikes or guard.max_strikes}"
+                      f"/{guard.max_strikes}){blame}")
+        if verdict == "rollback":
+            raise RuntimeError(
+                f"diverged for {guard.max_strikes} consecutive steps at "
+                f"step {step} and no --ckpt-dir to roll back to")
         if lead and log_every and step % log_every == 0:
             print(f"step {step:5d}  loss {loss:.4f}  {dt * 1e3:.0f} ms")
         if do_eval and (step + 1) % eval_every == 0:
@@ -161,6 +227,8 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
         "skipped_steps": skipped_steps,
         "losses": losses,
         "step_s": times,
+        "loss_caps": caps,
+        "sentinels": sentinel_log,
     }
     if eval_metrics:
         out["eval"] = eval_metrics
@@ -184,6 +252,18 @@ def main() -> None:
                     help="held-out sequences per evaluation")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--max-strikes", type=int, default=3,
+                    help="consecutive bad steps before the divergence "
+                         "guard gives up (no checkpoint: RuntimeError)")
+    ap.add_argument("--guard-factor", type=float, default=100.0,
+                    help="divergence cap = factor x running median loss")
+    ap.add_argument("--chaos-nan-at", type=int,
+                    help="fault injection: poison params with NaN at this "
+                         "step once (divergence drill)")
+    ap.add_argument("--guard", choices=list(kguard.POLICIES),
+                    help="kernel-guard policy (default: REPRO_GUARD or "
+                         "'warn'): preflight, conformance canaries, "
+                         "numerics sentinels")
     args = ap.parse_args()
     # Under torchrun (WORLD_SIZE > 1) join its group: gloo on the CPU.
     launched = int(os.environ.get("WORLD_SIZE", "1")) > 1
@@ -196,7 +276,10 @@ def main() -> None:
         out = train(args.arch, steps=args.steps, batch=args.batch,
                     seed=args.seed, sce_mode=args.sce_mode,
                     log_every=args.log_every, eval_every=args.eval_every,
-                    eval_users=args.eval_users, device=args.device)
+                    eval_users=args.eval_users, device=args.device,
+                    max_strikes=args.max_strikes,
+                    guard_factor=args.guard_factor,
+                    chaos_nan_at=args.chaos_nan_at, guard_policy=args.guard)
         if world()[0] == 0:
             print(json.dumps(out))
     finally:

@@ -17,7 +17,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, take_rows
 from repro_torch.models.layers import (
     attention,
     dense_init,
@@ -119,7 +119,7 @@ def forward(params: Params, cfg: SeqRecConfig, tokens) -> torch.Tensor:
     if not cfg.causal:
         raise NotImplementedError("the bidirectional encoder is not ported")
     b, l = tokens.shape
-    x = params["item_emb"][tokens.long()]
+    x = take_rows(params["item_emb"], tokens)
     x = x * cfg.d_model**0.5
     x = x + params["pos_emb"][None, :l]
     lp_all = params["layers"]

@@ -39,15 +39,30 @@ plucked in the sweep, and ``fused_lse`` without it): losses and lse within
 chunked backward ``linear_ce_dx_ref`` / ``linear_ce_dw_ref``; exp sums
 fold in another order). Every kernel repeats bit for bit, and ``ops``
 raises on a mix of CPU and CUDA tensors.
+
+``sce_bucket`` (forward, dX, dY over pre-gathered candidates, and the
+partial LSE): the tolerances of ``sce_gather``; its forward and dX equal
+``sce_gather``'s bit for bit on ``y_b = y[idx]`` (the same tile walk),
+and its dY — written, not added — repeats bit for bit.
+
+``eval_topk`` / ``eval_tgt_scores``: as ``eval_fused``, without the
+self-column rule; ``eval_tgt_scores`` is bit for bit the column
+``eval_topk`` sweeps (``eq >= 1`` on every row whose target is valid).
+
+The kernel guard: every conformance canary passes on the card, and a
+broken kernel raises ``KernelConformanceError`` under ``warn``. The
+``dev`` fixture runs the canaries once before any test counts launches,
+so a test's launch counts hold its own launches only.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import eval_fused as eval_kernel
-from repro_torch.kernels import fused_ce, linear_sce
+from repro_torch.kernels import eval_topk as topk_kernel
+from repro_torch.kernels import fused_ce, guard, linear_sce
 from repro_torch.kernels import mips_topk as kernel
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels import sce_prefetch
+from repro_torch.kernels import sce_bucket, sce_prefetch
 from repro_torch.kernels.topk_merge import ID_PAD
 
 pytestmark = pytest.mark.cuda
@@ -59,7 +74,9 @@ def dev():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from repro_torch import resolve_device
 
-    return resolve_device("cuda")
+    dev = resolve_device("cuda")
+    guard.run_conformance(device=dev)  # memoized: canaries run once
+    return dev
 
 
 def _gen(dev, seed):
@@ -553,3 +570,232 @@ def test_linear_ce_raises_on_what_it_does_not_take(dev):
                                  torch.zeros(100, 300, device=dev), t)
     with pytest.raises(ValueError):
         linear_sce.linear_ce_fwd(x, w, t, logit_softcap=-1.0)
+
+
+# ---------------------------------------------------------------------------
+# The kernel guard on the card
+# ---------------------------------------------------------------------------
+def test_every_conformance_canary_passes_on_the_card(dev):
+    verdicts = guard.run_conformance(device=dev, refresh=True)
+    assert sorted(verdicts) == sorted(guard.KNOWN_KERNELS)
+    for v in verdicts.values():
+        assert v.passed, v.failures
+    assert sum(v.n_pass for v in verdicts.values()) == 11
+    bucket = dict(verdicts["sce_bucket"].launches)
+    assert bucket == {"sce_bucket_fwd": 3, "sce_bucket_dx": 1,
+                      "sce_bucket_dy": 1, "sce_bucket_plse_fwd": 1}
+    two_pass = dict(verdicts["eval_topk"].launches)
+    assert two_pass == {"eval_topk": 1, "eval_tgt_scores": 1}
+
+
+def test_broken_kernel_raises_under_warn(dev, monkeypatch):
+    def broken(*a, **k):
+        raise RuntimeError("injected miscompile")
+
+    monkeypatch.setattr(kernel, "mips_topk", broken)
+    guard.clear_verdicts("mips_topk")
+    guard.set_policy("warn")
+    try:
+        q = torch.randn(6, 8, device=dev)
+        y = torch.randn(10, 8, device=dev)
+        with pytest.raises(guard.KernelConformanceError) as ei:
+            ops.mips_topk(q, y, 4)
+        assert ei.value.kernel == "mips_topk"
+        assert any("injected miscompile" in f for f in ei.value.failures)
+    finally:
+        guard.set_policy(None)
+        monkeypatch.undo()
+        guard.clear_verdicts("mips_topk")
+
+
+def test_preflight_refuses_what_the_kernels_do_not_take(dev):
+    q = torch.zeros(4, 300, device=dev)
+    with pytest.raises(guard.KernelPreflightError) as ei:
+        ops.mips_topk(q, torch.zeros(20, 300, device=dev), 3)
+    assert ei.value.rule == "d_max"
+    with pytest.raises(guard.KernelPreflightError) as ei:
+        ops.eval_fused(torch.zeros(4, 8, device=dev),
+                       torch.zeros(700, 8, device=dev),
+                       torch.zeros(4, dtype=torch.int32, device=dev), 600)
+    assert ei.value.rule == "k_max"
+
+
+# ---------------------------------------------------------------------------
+# sce_bucket: forward, dX, dY over pre-gathered candidates
+# ---------------------------------------------------------------------------
+def _bucket_launches():
+    return tuple(f.launches for f in (
+        sce_bucket.sce_bucket_fwd, sce_bucket.sce_bucket_dx,
+        sce_bucket.sce_bucket_dy))
+
+
+@pytest.mark.parametrize("shape,cap", [
+    ((2, 16, 24, 8, 100), None),
+    ((3, 100, 50, 16, 257), None),  # ragged everything
+    ((5, 23, 50, 33, 300), 30.0),  # d % 4 != 0, softcap
+    ((3, 64, 48, 256, 500), 30.0),  # d at the kernel's cap
+    ((320, 320, 256, 64, 173_520), None),  # the training shape
+])
+def test_sce_bucket_kernels_match_plain(dev, shape, cap):
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, sum(shape) + 2,
+                                                  *shape)
+    y_b = y[idx.long()]
+    if cap is not None:
+        x_b = x_b * 8.0
+        pos = cap * torch.tanh(pos * 20.0 / cap)
+    g = torch.rand(pos.shape, generator=_gen(dev, 12), device=dev)
+    before = _bucket_launches()
+    leaves = [t.clone().requires_grad_(True) for t in (x_b, y_b, pos)]
+    loss = ops.sce_bucket_loss(leaves[0], leaves[1], tgt, cand, leaves[2],
+                               logit_softcap=cap)
+    got = torch.autograd.grad((loss * g).sum(), leaves)
+    torch.cuda.synchronize()
+    assert _bucket_launches() == tuple(n + 1 for n in before)
+    plain = [t.clone().requires_grad_(True) for t in (x_b, y_b, pos)]
+    want_loss = ref.sce_bucket_loss_ref(plain[0], plain[1], tgt, cand,
+                                        plain[2], cap)
+    want = torch.autograd.grad((want_loss * g).sum(), plain)
+    _close(loss.detach(), want_loss.detach())
+    for a, b in zip(got, want):
+        _close(a, b, rtol=2e-4)
+    assert (got[1][cand < 0] == 0).all()  # masked slots: exact 0 rows
+
+    # the partial LSE; its dX and dY are the loss's launches
+    plse_before = (sce_bucket.sce_bucket_plse_fwd.launches,
+                   sce_bucket.sce_bucket_dx.launches,
+                   sce_bucket.sce_bucket_dy.launches)
+    leaves = [t.clone().requires_grad_(True) for t in (x_b, y_b)]
+    plse = ops.sce_bucket_plse(leaves[0], leaves[1], tgt, cand,
+                               logit_softcap=cap)
+    got = torch.autograd.grad((plse * g).sum(), leaves)
+    plain = [t.clone().requires_grad_(True) for t in (x_b, y_b)]
+    want_plse = ref.sce_bucket_plse_ref(plain[0], plain[1], tgt, cand, cap)
+    want = torch.autograd.grad((want_plse * g).sum(), plain)
+    assert (sce_bucket.sce_bucket_plse_fwd.launches,
+            sce_bucket.sce_bucket_dx.launches,
+            sce_bucket.sce_bucket_dy.launches) == tuple(
+                n + 1 for n in plse_before)
+    _close(plse.detach(), want_plse.detach())
+    for a, b in zip(got, want):
+        _close(a, b, rtol=2e-4)
+
+
+def test_sce_bucket_equals_sce_gather_and_dy_repeats(dev):
+    """The direct walk is the gathered one on ``y_b = y[idx]``: forward
+    and dX equal bit for bit; dY, written rather than added, repeats bit
+    for bit."""
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, 21, 40, 70, 90, 64,
+                                                  5_000)
+    y_b = y[idx.long()]
+    a = sce_bucket.sce_bucket_fwd(x_b, y_b, tgt, cand, pos)
+    b = sce_prefetch.sce_gather_fwd(x_b, y, idx, tgt, cand, pos)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    g = torch.rand(pos.shape, generator=_gen(dev, 22), device=dev)
+    assert torch.equal(
+        sce_bucket.sce_bucket_dx(x_b, y_b, tgt, cand, a[1], g),
+        sce_prefetch.sce_gather_dx(x_b, y, idx, tgt, cand, a[1], g))
+    d1 = sce_bucket.sce_bucket_dy(x_b, y_b, tgt, cand, a[1], g)
+    d2 = sce_bucket.sce_bucket_dy(x_b, y_b, tgt, cand, a[1], g)
+    assert torch.equal(d1, d2)
+    assert (d1[cand < 0] == 0).all()
+
+
+def test_sce_bucket_raises_on_what_it_does_not_take(dev):
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, 4, 2, 16, 24, 8, 100)
+    y_b = y[idx.long()]
+    with pytest.raises(TypeError):
+        sce_bucket.sce_bucket_fwd(x_b, y_b, tgt.long(), cand, pos)
+    with pytest.raises(ValueError):
+        sce_bucket.sce_bucket_fwd(x_b, y_b[:1], tgt, cand, pos)
+    with pytest.raises(ValueError):
+        sce_bucket.sce_bucket_fwd(x_b, y_b.cpu(), tgt, cand, pos)
+    with pytest.raises(ValueError):
+        sce_bucket.sce_bucket_fwd(x_b, y_b.transpose(0, 1), tgt,
+                                  cand.T.contiguous(), pos)
+
+
+# ---------------------------------------------------------------------------
+# eval_topk, eval_tgt_scores
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n,c,d,k,integer,c_lo,c_hi,id_offset", [
+    (128, 20_000, 64, 10, True, 1, 19_990, 0),
+    (256, 30_000, 64, 10, False, 1, 29_990, 0),
+    (40, 1_037, 33, 17, True, 1_003, 1_900, 1_000),  # ragged, offset
+    (9, 500, 64, 12, True, 3, 9, 0),  # k > valid columns
+    (33, 3_000, 64, 300, False, 0, 3_000, 0),  # 16 slots
+])
+def test_eval_topk_kernels_match_plain(dev, n, c, d, k, integer, c_lo, c_hi,
+                                       id_offset):
+    x, y, t = _eval_problem(dev, n + c + 1, n, c, d, integer, id_offset,
+                            c_lo, c_hi)
+    before = (topk_kernel.eval_topk.launches,
+              topk_kernel.eval_tgt_scores.launches)
+    with pytest.warns(DeprecationWarning):
+        ts = ops.eval_tgt_scores(x, y, t, id_offset=id_offset)
+    with pytest.warns(DeprecationWarning):
+        vals, ids, gt, eq = ops.eval_topk(x, y, ts, k, c_lo=c_lo, c_hi=c_hi,
+                                          id_offset=id_offset)
+    torch.cuda.synchronize()
+    assert (topk_kernel.eval_topk.launches,
+            topk_kernel.eval_tgt_scores.launches) == tuple(
+                b + 1 for b in before)
+    ts_want = ref.eval_tgt_scores_ref(x, y, t, id_offset=id_offset)
+    want = ref.eval_topk_ref(x, y, ts_want, k, c_lo=c_lo, c_hi=c_hi,
+                             id_offset=id_offset)
+    scores = x.double() @ y.double().T
+    scale = scores.abs().max().item()
+    _assert_match((vals, ids), want[:2], scale, integer)
+    if integer:
+        assert torch.equal(ts, ts_want)
+        assert torch.equal(gt, want[2]) and torch.equal(eq, want[3])
+    else:
+        assert (ts - ts_want).abs().max().item() <= 1e-5 * scale
+        gid = id_offset + torch.arange(c, device=dev)
+        ok = (gid >= c_lo) & (gid < c_hi)
+        tol = 1e-5 * scale
+        s64 = ts.double()[:, None]
+        lo = ((scores > s64 + tol) & ok[None, :]).sum(1)
+        hi = ((scores >= s64 - tol) & ok[None, :]).sum(1)
+        assert ((gt >= lo) & (gt + eq <= hi)).all()
+    # eval_tgt_scores is bit for bit the column eval_topk sweeps
+    valid_t = (t >= max(c_lo, id_offset)) & (t < min(c_hi, id_offset + c))
+    assert (eq[valid_t] >= 1).all()
+    hit = ids == t[:, None]
+    assert torch.equal(vals[hit], ts[:, None].expand(-1, k)[hit])
+    assert (ts[(t < id_offset) | (t >= id_offset + c)] == 0).all()
+
+
+def test_eval_topk_kernels_are_deterministic(dev):
+    x, y, t = _eval_problem(dev, 6, 64, 20_000, 64, False, 0, 1, 19_990)
+    ts = topk_kernel.eval_tgt_scores(x, y, t)
+    assert torch.equal(ts, topk_kernel.eval_tgt_scores(x, y, t))
+    a = topk_kernel.eval_topk(x, y, ts, 10, c_lo=1, c_hi=19_990)
+    b = topk_kernel.eval_topk(x, y, ts, 10, c_lo=1, c_hi=19_990)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_topk_kernels_order_nan_scores_as_the_plain_version(dev):
+    """A NaN score (a diverged model) ranks above every number, NaNs among
+    themselves by id — the plain version's order (and ``lax.top_k``'s) —
+    in ``mips_topk``, ``eval_fused`` and ``eval_topk`` alike: the same ids,
+    the NaN values reading +inf in the kernels' lists."""
+    g = _gen(dev, 31)
+    q = _ints(g, dev, 6, 64)
+    y = _ints(g, dev, 900, 64)
+    q[1] = float("nan")  # a whole row of NaN scores
+    y[[5, 400, 777]] = float("nan")  # NaN columns for every row
+    got = kernel.mips_topk(q, y, 10)
+    want = ref.mips_topk_ref(q, y, 10)
+    assert torch.equal(got[1], want[1])
+    nan = want[0].isnan()
+    assert nan.any() and torch.equal(got[0] == float("inf"), nan)
+    assert torch.equal(got[0][~nan], want[0][~nan])
+    assert (got[1][1] == torch.arange(10, device=dev)).all()
+    t = torch.arange(6, dtype=torch.int32, device=dev)
+    fused = ops.eval_fused(q, y, t, 10)
+    plain = ref.eval_fused_ref(q, y, t, 10)
+    assert torch.equal(fused[1], plain[1])
+    ts = topk_kernel.eval_tgt_scores(q, y, t)
+    two = topk_kernel.eval_topk(q, y, ts, 10)
+    assert torch.equal(two[1], ref.eval_topk_ref(q, y, ts, 10)[1])

@@ -9,7 +9,9 @@ uniform negatives (``_sample_negatives``), the popularity uniforms
 (``jax.random.uniform`` up to the CDF's total), RECE's hyperplanes
 (``jax.random.normal``) and SCE's Mix Ω (``omega=``). ``ce_fused`` and
 ``ce_fused_linear`` reach the JAX kernels in Pallas interpret mode (the
-kernel guard off, as the reference's own tests run them on the CPU).
+kernel guard off, as the reference's own tests run them on the CPU; the
+port's guard is off too, so neither side attaches sentinels —
+``test_torch_guard.py`` holds those).
 
 Tolerances: f32 sums in another fold order, scaled to the tensor: the
 loss and aux within ``1e-5`` relative; gradients within
@@ -27,6 +29,7 @@ from repro.core import losses as jlosses
 from repro.core.sce import SCEConfig as JaxSCEConfig
 from repro.kernels import guard
 from repro_torch.core import losses
+from repro_torch.kernels import guard as torch_guard
 from repro_torch.core.sce import SCEConfig
 
 N, C, D = 48, 300, 12
@@ -56,8 +59,10 @@ CASES = [  # (registry name, make_loss kwargs)
 @pytest.fixture(autouse=True)
 def _guard_off():
     guard.set_policy("off")
+    torch_guard.set_policy("off")  # no sentinels on either side
     yield
     guard.set_policy(None)
+    torch_guard.set_policy(None)
 
 
 def _problem(seed):

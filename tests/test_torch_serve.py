@@ -185,7 +185,9 @@ def test_server_arbitrary_arrivals_zero_cache_misses(server):
                 assert res.ids.shape == (res.k,)
     assert server.cache_misses == 0
     assert server.compile_count == len(BUCKETS)
-    assert server.ready and server.health()["conformance"] == []
+    table = server.health()["conformance"]
+    assert server.ready and any(v["kernel"] == "mips_topk" and v["passed"]
+                                for v in table)
 
 
 def test_async_roundtrip_matches_bulk(server):
@@ -306,3 +308,77 @@ def test_cli_serves_on_cpu(monkeypatch, capsys):
     serve.main()
     out = capsys.readouterr().out
     assert "served 5 requests on cpu" in out and "cache_misses=0" in out
+
+
+# ---------------------------------------------------------------------------
+# The readiness gate (the kernel guard's mips_topk verdict)
+# ---------------------------------------------------------------------------
+def test_server_health_reports_guard_and_conformance(server):
+    h = server.health()
+    assert h["ready"] is True and h["readiness_error"] is None
+    assert h["guard_policy"] == "warn"
+    mine = [v for v in h["conformance"] if v["kernel"] == "mips_topk"]
+    assert mine and mine[0]["passed"] and mine[0]["device"] == "cpu"
+    assert mine[0]["n_pass"] == 2 and mine[0]["failures"] == []
+
+
+def test_server_readiness_drill(monkeypatch):
+    """A broken ``mips_topk`` on the CUDA route (``ops._device_kind``
+    patched so it runs here): the server stays not ready, cold, and
+    refuses async and bulk requests with ``ServerNotReadyError``; after the
+    fix, ``refresh_readiness`` re-admits traffic."""
+    from repro_torch.kernels import guard, ops
+    from repro_torch.kernels import mips_topk as mips_mod
+
+    def broken(*a, **k):
+        raise RuntimeError("injected miscompile")
+
+    guard.clear_verdicts("mips_topk")
+    with monkeypatch.context() as m:
+        m.setattr(ops, "_device_kind", lambda op, *t: "cuda")
+        m.setattr(mips_mod, "mips_topk", broken)
+        srv = _mk_server(queue_size=8)
+        assert srv.ready is False and srv.compile_count == 0
+        assert "mips_topk" in srv.readiness_error
+        assert "injected miscompile" in srv.readiness_error
+        hist = _hist(srv.cfg, 2)
+        with pytest.raises(serve.ServerNotReadyError) as ei:
+            srv.submit(hist[0])
+        assert not isinstance(ei.value, ServerOverloadedError)
+        with pytest.raises(serve.ServerNotReadyError):
+            srv.score(hist)
+        assert srv.rejected == 2
+        h = srv.health()
+        assert h["ready"] is False and h["readiness_error"]
+        assert any(not v["passed"] for v in h["conformance"])
+    guard.clear_verdicts("mips_topk")
+    try:
+        assert srv.refresh_readiness() is True
+        assert srv.compile_count == 2 and srv.readiness_error is None
+        vals, ids = srv.score(hist)
+        assert ids.shape == (2, 5)
+    finally:
+        srv.close()
+
+
+def test_server_deferred_readiness_and_policy_off(monkeypatch):
+    from repro_torch.kernels import guard
+
+    srv = _mk_server(defer_readiness=True)
+    try:
+        assert srv.ready is False and srv.compile_count == 0
+        with pytest.raises(serve.ServerNotReadyError,
+                           match="never run"):
+            srv.submit(_hist(srv.cfg, 1)[0])
+        assert srv.refresh_readiness() is True and srv.ready
+    finally:
+        srv.close()
+    guard.set_policy("off")
+    try:
+        guard.clear_verdicts()
+        srv = _mk_server()
+        assert srv.ready and srv.health()["guard_policy"] == "off"
+        assert srv.health()["conformance"] == []
+        srv.close()
+    finally:
+        guard.set_policy(None)

@@ -476,3 +476,102 @@ def test_train_cli_takes_sce_mode(monkeypatch, capsys):
     ])
     train.main()
     assert '"steps": 1' in capsys.readouterr().out.strip().splitlines()[-1]
+
+
+# ---------------------------------------------------------------------------
+# The divergence guard and the kernel guard's sentinels in the trainer
+# ---------------------------------------------------------------------------
+def _reference_raise_step(losses, chaos_at, max_strikes):
+    """The step at which the reference trainer (no ``--ckpt-dir``) raises:
+    its own ``DivergenceGuard`` fed the finite losses before the poisoned
+    params and NaN from ``chaos_at`` on (the update is skipped, so the
+    params stay NaN)."""
+    from repro.launch.elastic import DivergenceGuard as JaxGuard
+
+    g = JaxGuard(max_strikes=max_strikes)
+    for step in range(len(losses) + max_strikes + 1):
+        bad = step >= chaos_at
+        loss = float("nan") if bad else losses[step]
+        if g.observe(loss, skipped=bad) == "rollback":
+            return step
+    raise AssertionError("the reference guard never rolled back")
+
+
+@pytest.fixture
+def _port_guard_reset():
+    from repro_torch.kernels import guard as tguard
+
+    yield
+    tguard.set_policy(None)
+
+
+@pytest.mark.parametrize("chaos_at,max_strikes", [(2, 3), (3, 2)])
+def test_trainer_divergence_drill_raises_at_reference_step(
+        capsys, _port_guard_reset, chaos_at, max_strikes):
+    healthy = train.train("sasrec-sce", steps=chaos_at, batch=2,
+                          device="cpu", log_every=0)["losses"]
+    want = _reference_raise_step(healthy, chaos_at, max_strikes)
+    with pytest.raises(RuntimeError,
+                       match=f"diverged for {max_strikes} consecutive steps "
+                             f"at step {want} and no --ckpt-dir"):
+        train.train("sasrec-sce", steps=10, batch=2, device="cpu",
+                    log_every=0, chaos_nan_at=chaos_at,
+                    max_strikes=max_strikes, guard_policy="strict")
+    out = capsys.readouterr().out.splitlines()
+    assert f"[chaos] step {chaos_at}: poisoning params with NaN" in out
+    strikes = [line for line in out if line.startswith("[guard] step")]
+    assert len(strikes) == max_strikes
+    for i, line in enumerate(strikes):
+        assert line.startswith(f"[guard] step {chaos_at + i}: loss nan")
+        assert f"update skipped (strike {i + 1}/{max_strikes})" in line
+        assert "(sentinels: sce_bucket_nonfinite=1)" in line
+
+
+def test_every_batch_carries_the_loss_cap(monkeypatch):
+    """The cap rides in every batch as a 0-d f32 tensor: ``inf`` for the
+    first 8 healthy steps, then ``guard_factor`` × the running median of
+    the losses so far; sentinels are zero on healthy steps."""
+    seen = []
+    make = train.make_seqrec_train_step
+
+    def recording(*a, **kw):
+        step_fn, opt, sce_cfg = make(*a, **kw)
+
+        def step(params, opt_state, batch, **skw):
+            seen.append(batch["loss_cap"])
+            return step_fn(params, opt_state, batch, **skw)
+
+        return step, opt, sce_cfg
+
+    monkeypatch.setattr(train, "make_seqrec_train_step", recording)
+    out = train.train("sasrec-sce", steps=10, batch=2, device="cpu",
+                      log_every=0, guard_factor=50.0)
+    assert len(seen) == 10
+    assert all(c.shape == () and c.dtype == torch.float32 for c in seen)
+    caps = [float(c) for c in seen]
+    assert caps == out["loss_caps"]
+    assert caps[:8] == [float("inf")] * 8
+    for i in (8, 9):
+        want = 50.0 * float(np.median(out["losses"][:i]))
+        assert caps[i] == pytest.approx(want, rel=1e-6)
+    assert out["skipped_steps"] == 0
+    assert all(s == {"sce_bucket_nonfinite": 0} for s in out["sentinels"])
+
+
+def test_trainer_guard_off_has_no_sentinels(_port_guard_reset):
+    out = train.train("sasrec-sce", steps=2, batch=2, device="cpu",
+                      log_every=0, guard_policy="off")
+    assert out["sentinels"] == [{}, {}]
+
+
+def test_train_cli_takes_the_guard_flags(monkeypatch, capsys,
+                                         _port_guard_reset):
+    monkeypatch.setattr("sys.argv", [
+        "train", "--arch", "sasrec-sce", "--steps", "6", "--batch", "2",
+        "--device", "cpu", "--guard", "warn", "--max-strikes", "2",
+        "--guard-factor", "10", "--chaos-nan-at", "3", "--log-every", "0",
+    ])
+    with pytest.raises(RuntimeError, match="at step 4"):
+        train.main()
+    out = capsys.readouterr().out
+    assert "(strike 2/2)" in out
