@@ -13,7 +13,7 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    (one ``nvcc`` per source, in parallel) into ``build/torch_kernels/``
    and prints the build seconds and the compiler's resource report.
 3. The kernel guard: ``run_conformance(refresh=True)`` on the card, the
-   11 canaries of the 7 kernel groups (each kernel against its plain
+   12 canaries of the 7 kernel groups (each kernel against its plain
    version, the two bitwise checks kernel against kernel), with the
    verdict table and its wall time. Any failure fails the run. The
    canaries are the one path that runs the ``sce_bucket`` and two-pass
@@ -38,7 +38,14 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
 6. Train kernels against their plain versions on the card: ``mips_topk``
    at SCE training's two selections (320 bucket centres against 25,600
    positions at k = 320 under a mask with ≈ 25 % masked, and against the
-   173,520 catalog rows at k = 256), a starved mask and k = 512; the
+   173,520 catalog rows at k = 256), a starved mask and k = 512, and the
+   ``k > 32`` chain's adversarial inputs at those shapes (integer valued,
+   bit for bit): every row's best columns in one residue of the
+   threshold pass's tiles, all-equal scores, and a collect buffer of k
+   entries that sends every row to the split sweep — each with its
+   per-row collect counts. Times the chain's steps (threshold, τ,
+   collect, select, the finishing sweep) at both selections, each
+   kernel's device time from ``torch.profiler`` with a cold L2. The
    three ``sce_gather`` kernels (forward, dX, dY) at the training shape
    (n_b = b_x = 320, b_y = 256, d = 64) on a real selection, with every
    bucket on the same candidates, with collisions and ``cand < 0``, and
@@ -47,7 +54,10 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    ``atol 1e-5·max|grad|`` of autograd through the plain version, rows of
    dY no bucket selected exactly 0. Times each kernel, its plain version
    and ``torch.bmm`` on pre-gathered candidates (the nearest one-call
-   yardstick; it computes the products alone) with a cold L2 cache.
+   yardstick; it computes one product alone) with a cold L2 cache, and
+   dX and dY composed in PyTorch on pre-gathered candidates (the logits
+   ``bmm``, ``exp(l − lse)·g`` on the unmasked ones, the second ``bmm``;
+   dY then ``index_add_`` into ``(C, d)``).
    The three ``sce_gather_plse`` launches (the partial LSE of distributed
    SCE: forward, dX, dY) the same way, on the same selection as the
    trainer's (1, 1) mesh sees it (every candidate owned), on shard 0 of a
@@ -255,15 +265,26 @@ def compare(got, want, want_next, tol, *, exact: bool):
     return err
 
 
-def run_case(name, q, y, k, *, valid=None, id_offset=0, exact=False):
-    """Kernel vs plain version on one input; returns a result dict."""
+def run_case(name, q, y, k, *, valid=None, id_offset=0, exact=False,
+             kcap=None):
+    """Kernel vs plain version on one input; returns a result dict. Above
+    k = 32 it also reports the chain's per-row collect counts (rows above
+    ``kcap`` were finished by the split sweep); ``kcap`` replaces the
+    plan's."""
     import torch
 
-    from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.kernels.mips_topk import SMALL_K, mips_topk
     from repro_torch.kernels.ref import mips_topk_ref
 
-    got = mips_topk(q, y, k, valid=valid, id_offset=id_offset)
+    got = mips_topk(q, y, k, valid=valid, id_offset=id_offset, kcap=kcap)
     torch.cuda.synchronize()
+    collect = None
+    if min(k, y.shape[0]) > SMALL_K:
+        counts = mips_topk.last_counts.float()
+        collect = {"mean": counts.mean().item(),
+                   "max": int(counts.max().item()),
+                   "overflow_rows": int((counts > (
+                       kcap or _kcap(q, y, k))).sum().item())}
     c = y.shape[0]
     kk = min(k, c)
     want = mips_topk_ref(q, y, kk, valid=valid, id_offset=id_offset)
@@ -275,12 +296,26 @@ def run_case(name, q, y, k, *, valid=None, id_offset=0, exact=False):
     tol = 1e-5 * scale
     err = compare(got, want, want_next, tol, exact=exact)
     n_pad = int((got[1] == ID_PAD).sum())
+    more = "" if collect is None else (
+        f" collected mean {collect['mean']:.1f} max {collect['max']}, "
+        f"{collect['overflow_rows']} rows finished by the split sweep")
     print(f"  case {name}: n_q={q.shape[0]} C={c} d={q.shape[1]} k={kk} "
           f"id_offset={id_offset} max_abs_err={err:.3e} tol={tol:.3e} "
-          f"{'bitwise' if exact else 'gap-aware'} ID_PAD={n_pad} ok")
+          f"{'bitwise' if exact else 'gap-aware'} ID_PAD={n_pad}{more} ok")
     return {"name": name, "n_q": q.shape[0], "C": c, "d": q.shape[1],
             "k": kk, "max_abs_err": err, "tol": tol, "exact": exact,
-            "id_pad_slots": n_pad}
+            "id_pad_slots": n_pad, "collect": collect}
+
+
+def _kcap(q, y, k):
+    """The plan's collect buffer per row of a k > 32 call."""
+    import torch
+
+    from repro_torch.kernels.mips_topk import select_plan
+
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return select_plan(q.shape[0], y.shape[0], q.shape[1],
+                       min(k, y.shape[0]), n_sm).kcap
 
 
 def time_ms(fn, reps, flush):
@@ -739,15 +774,44 @@ def plse_bounds(x_b, y, idx, tgt, cand):
     }
 
 
+# The k > 32 chain's kernels, by a part of their names, and its steps.
+CHAIN_STEPS = (("pass_kernel<false>", "threshold"), ("tau_kernel", "tau"),
+               ("pass_kernel<true>", "collect"), ("select_kernel", "select"),
+               ("finish_", "finish"))
+
+
+def chain_steps(fn, flush, reps=10):
+    """Each step's device time per call of ``fn`` (a k > 32 ``mips_topk``),
+    from ``torch.profiler`` over ``reps`` calls, each after the L2 flush;
+    None for a step the profiler saw no device time of."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    steps = dict.fromkeys((s for _, s in CHAIN_STEPS), 0.0)
+    for ev in prof.key_averages():
+        for part, step in CHAIN_STEPS:
+            if "mips_topk" in ev.key and part in ev.key:
+                steps[step] += ev.device_time_total / reps / 1e3
+    return {s: t or None for s, t in steps.items()}
+
+
 def train_kernel_phase(dev):
     import torch
 
     from repro_torch.core import sce
     from repro_torch.kernels import ref, sce_prefetch
-    from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.kernels.mips_topk import TILE_C, mips_topk, select_plan
     from repro_torch.kernels.ref import mips_topk_ref
 
     g = torch.Generator(device=dev).manual_seed(1)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
@@ -778,6 +842,36 @@ def train_kernel_phase(dev):
                           exact=True))
     cases.append(run_case("k512_ties", randint(-2, 3, 64, D),
                           randint(-2, 3, 20_000, D), 512, exact=True))
+    # The chain's adversarial inputs at the training shapes, integer
+    # valued (exact): every row's best columns in one residue of the
+    # threshold pass's tiles — over the positions one split holds them
+    # all, over the catalog they lie in tiles its 1/R sample skips —;
+    # all-equal scores; and a collect buffer of k entries, which sends
+    # every row of the catalog selection to the split sweep.
+    sp_pos = select_plan(N_B, N_POS, D, B_X, n_sm)
+    sp_cat = select_plan(N_B, C_SERVE, D, B_Y, n_sm)
+
+    def clustered(c, period, residue):
+        hot = (torch.arange(c, device=dev) // TILE_C) % period == residue
+        cat = randint(-2, 3, c, D)
+        cat[hot] = randint(3, 6, int(hot.sum()), D)
+        return randint(1, 3, N_B, D), cat
+
+    cases.append(run_case("clustered_positions_k320",
+                          *clustered(N_POS, sp_pos.period, 1), B_X,
+                          valid=valid, exact=True))
+    cases.append(run_case("clustered_catalog_k256",
+                          *clustered(C_SERVE, sp_cat.period,
+                                     sp_cat.n_split + 1), B_Y, exact=True))
+    cases.append(run_case("all_equal_positions_k320",
+                          torch.ones(N_B, D, device=dev),
+                          torch.ones(N_POS, D, device=dev), B_X,
+                          valid=valid, exact=True))
+    cases.append(run_case("overflow_catalog_k256", randint(-2, 3, N_B, D),
+                          randint(-2, 3, C_SERVE, D), B_Y, exact=True,
+                          kcap=B_Y))
+    check(cases[-1]["collect"]["overflow_rows"] == N_B,
+          "the k-entry buffer left rows to the select")
 
     # The in-bucket loss on that real selection.
     idx_x, idx_y = sce.select_buckets(b, x, y, cfg, valid_mask=valid)
@@ -861,6 +955,10 @@ def train_kernel_phase(dev):
                          "plain_ms": time_ms(plain, 2, flush),
                          "library_ms": time_ms(library, 20, flush),
                          "bound_ms": bd, "bound_by": by}
+        timings[name]["steps_ms"] = chain_steps(kernel, flush)
+        print(f"  steps {name}: " + ", ".join(
+            f"{s} {'not measured' if t is None else f'{t:.4f}'}"
+            for s, t in timings[name]["steps_ms"].items()) + " ms")
 
     g_up = torch.rand(pos.shape, generator=g, device=dev)
     _, lse = sce_prefetch.sce_gather_fwd(x_b, y, idx_y, tgt_b, idx_y, pos)
@@ -920,6 +1018,29 @@ def train_kernel_phase(dev):
                 lambda: torch.bmm(probs.transpose(1, 2), x_b)),
         })
         bounds.update({k + sfx: v for k, v in pb.items()})
+    # The composed PyTorch computation of dX and dY on the pre-gathered
+    # candidates (the library call above is its second product alone):
+    # the logits bmm, exp(l − lse)·g on the unmasked candidates, the
+    # second bmm, and for dY index_add_ of the gathered rows into (C, d).
+    masked = (idx_y[:, None, :] < 0) | (idx_y[:, None, :] == tgt_b[:, :, None])
+
+    def composed(lse_, dy):
+        p = torch.where(masked, 0.0, torch.exp(
+            torch.bmm(x_b, y_b.transpose(1, 2)) - lse_[..., None])
+            * g_up[..., None])
+        if not dy:
+            return torch.bmm(p, y_b)
+        out = torch.zeros_like(y)
+        return out.index_add_(0, idx_y.reshape(-1).long(), torch.bmm(
+            p.transpose(1, 2), x_b).reshape(-1, D))
+
+    plse_main = sce_prefetch.sce_gather_plse_fwd(x_b, y, idx_y, tgt_b, idx_y)
+    composed_runs = {
+        "sce_gather_dx": lambda: composed(lse, False),
+        "sce_gather_dy": lambda: composed(lse, True),
+        "sce_gather_plse_dx": lambda: composed(plse_main, False),
+        "sce_gather_plse_dy": lambda: composed(plse_main, True),
+    }
     with torch.no_grad():
         for name, (kern, plain, lib) in runs.items():
             timings[name] = {"ms": time_ms(kern, 20, flush),
@@ -927,10 +1048,15 @@ def train_kernel_phase(dev):
                              "library_ms": time_ms(lib, 20, flush),
                              "bound_ms": bounds[name][0],
                              "bound_by": bounds[name][1]}
+            if name in composed_runs:
+                timings[name]["composed_ms"] = time_ms(composed_runs[name],
+                                                       20, flush)
     for name, t in timings.items():
+        more = (f", composed {t['composed_ms']:.4f} ms" if "composed_ms" in t
+                else "")
         print(f"  time {name}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+              f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms"
+              f"{more}, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     return cases, gcases, pcases, timings
 
 
@@ -1861,7 +1987,7 @@ def loss_phase(dev, trainers):
 # The kernel guard: conformance on the card
 # ---------------------------------------------------------------------------
 def conformance_phase(dev):
-    """``run_conformance(refresh=True)`` on the card: the 11 canaries of
+    """``run_conformance(refresh=True)`` on the card: the 12 canaries of
     the 7 kernel groups, each kernel against its plain version. The
     canaries are the one path that runs rows 6, 7, 10 and 11 (the two
     SCE-bucket and two two-pass eval kernels); their launches are read
@@ -1890,11 +2016,11 @@ def conformance_phase(dev):
         check(v.passed, f"conformance of {name} failed on the card: "
               f"{'; '.join(v.failures)}")
         n_pass += v.n_pass
-    check(n_pass == 11 and len(verdicts) == 7,
-          f"{n_pass} canaries over {len(verdicts)} groups, not 11 over 7")
+    check(n_pass == 12 and len(verdicts) == 7,
+          f"{n_pass} canaries over {len(verdicts)} groups, not 12 over 7")
     for name in GUARD_KERNELS:
         check(launches[name] > 0, f"{name} not launched by the canaries")
-    print(f"  conformance: 11 canaries over 7 groups passed in "
+    print(f"  conformance: 12 canaries over 7 groups passed in "
           f"{wall_s:.3f} s (wall, first launches of every kernel included)")
     return {"wall_s": wall_s, "verdicts": guard.verdict_table(),
             "launches": {k: v for k, v in launches.items() if v}}

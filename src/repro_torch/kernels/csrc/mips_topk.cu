@@ -16,13 +16,15 @@
 //     card's balance point, so the f32 (non-tensor-core) FMA rate bounds it;
 //   * bucket 8: the catalog read, 173,520·64·4 B ≈ 44.4 MB, bounds it —
 //     ≈ 178 MFLOP is nothing next to it.
+// SCE training's selections (320 bucket centres, k = 320 over 25,600
+// positions and k = 256 over the catalog) are FMA-bound as well.
 // The scores stay f32 FMAs in a fixed order over d (no TF32, no tensor
 // cores): the ids must equal the plain version's, and on integer-valued
 // inputs every fold order is exact, so ties resolve bit for bit.
 //
-// Design. The TPU grid walks the catalog axis sequentially with the merge
-// buffer in VMEM; ported as is, bucket 8 would run one block on one of
-// 132 SMs. Here the catalog is split instead:
+// Design for k ≤ 32 (serving). The TPU grid walks the catalog axis
+// sequentially with the merge buffer in VMEM; ported as is, bucket 8
+// would run one block on one of 132 SMs. Here the catalog is split:
 //   1. mips_topk_partial_kernel, grid (ceil(n_q / QB), S): S splits the
 //      catalog (the wrapper's plan, measured on the card). Each block
 //      stages its QB query rows in shared memory once and streams its
@@ -33,28 +35,52 @@
 //      FLOP side: bucket 512). It then compares its own scores with its
 //      rows' current k-th entries; only the few that beat them go to a
 //      per-row candidate buffer, and a warp merges those into the row's
-//      sorted top-k list by rank (each element's new position is the
-//      number of elements that precede it). The block writes its lists
-//      as (n_q, S, k) candidates.
+//      sorted top-k list by rank (merge path, topk_tile.cuh). The block
+//      writes its lists as (n_q, S, k) candidates.
 //   2. mips_topk_merge_kernel, one block per row: each of 8 warps merges a
 //      share of the row's S sorted lists the same way, then warp 0 merges
 //      the 8 warp lists and writes ID_PAD wherever the value is NEG_INF
 //      (the exhausted-row rule of topk_merge.py).
-// Candidate buffers fill in any order, but a rank under a strict total
-// order does not depend on it, and there are no global atomics: the result
-// is deterministic. k ≤ 512, d ≤ 256.
 //
-// The per-row lists live in shared memory; each lane of a merging warp
-// holds SLOTS of a list's entries in registers while it ranks them: 8 for
-// k ≤ 256 (serving's k = 10, SCE training's catalog selection b_y = 256),
-// 16 for k ≤ 512 (the position selection, b_x = 320 at the paper's
-// shape). The merge is by merge path: it first puts the ≤ 64 candidates
-// in key order, then places each element by a binary search of the other
-// side, O(log k + log n) per element, where ranking it by a scan of the
-// other side costs O(k + n): a 320-entry list once per candidate.
+// Design for k > 32 (training). A block of the pair above keeps a QB × k
+// list in shared memory, so at k = 320 it holds 16 rows — 5 float4 reads
+// per 16 FMAs, bound by shared-memory reads — and each of its S splits
+// fills its own k-list from NEG_INF: more than half of a row's valid
+// columns go through the merge. Instead, find a safe per-row threshold
+// cheaply, collect only what can pass it, and sort that:
+//   1. Threshold pass (mips_topk_pass_kernel<false>), 64 rows a block:
+//      split s visits catalog tiles s, s + P, s + 2P, … (P = S·R: a 1/R
+//      sample of the tiles, strided so that a catalog whose best columns
+//      sit in low ids does not put a row's best into one split). Each
+//      thread keeps, in a register, the best of the columns it scores
+//      for each of its rows: 16 column lanes × S splits entries per row,
+//      the union of the bests of disjoint column sets. (Keeping two
+//      per thread tightened τ but doubled the union's sort: slower.)
+//   2. mips_topk_tau_kernel, one block per row: sorts the union and takes
+//      its k-th entry τ. Any k real columns make the k-th of them a safe
+//      threshold: at least k columns precede or equal it, so no column
+//      after it is in the top k. A union with fewer than k real entries
+//      yields a pad, (NEG_INF, ID_PAD): every valid column passes.
+//   3. Collect pass (mips_topk_pass_kernel<true>): the same score loop in
+//      the same fma4 fold (so a column's score equals its threshold-pass
+//      score bit for bit), no lists; every valid column whose key
+//      precedes or equals its row's τ is appended to the row's buffer of
+//      kcap entries through a global atomicAdd on the row's count.
+//   4. mips_topk_select_kernel, one block per row: a bitonic sort of the
+//      row's collected entries under the key, the first k written with
+//      ID_PAD wherever the value is NEG_INF. The sort makes the result
+//      independent of the append order.
+//   5. A row that collected more than kcap entries (adversarial input: the
+//      whole top of a row in unsampled tiles) is finished exactly by the
+//      pair above at 16 rows a block, launched unconditionally: its
+//      blocks and merge rows whose rows all fit return at once, so there
+//      is no host synchronisation inside a call.
+// No step truncates. Append order varies between runs, a rank under the
+// strict total key does not: every output is deterministic. k ≤ 512,
+// d ≤ 256.
 //
-// The loader, the score loop, the filter, both merges and the split
-// sweep are the tile code of topk_tile.cuh, which eval_fused.cu shares.
+// The loader, the pair's score loop, filter, merges and split sweep are
+// the tile code of topk_tile.cuh, which eval_fused.cu shares.
 //
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -104,6 +130,517 @@ cudaError_t launch_pair(const Sweep& a, float* vals, int* ids, int n_split,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// k > 32: threshold, collect, select
+// ---------------------------------------------------------------------------
+constexpr int kPassRM = 4;               // rows per thread of a pass block
+constexpr int kPassQB = 16 * kPassRM;    // 64 query rows per pass block
+constexpr int kUnionPerSplit = 16;      // union entries per row and split
+constexpr int kMaxSort = 8192;           // entries a row sort may hold
+
+// The smallest power of two ≥ n (n ≥ 1).
+__host__ __device__ inline int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// Shared memory of one pass block: staged queries, two catalog tiles and
+// their valid flags.
+inline size_t pass_smem_bytes(int d) {
+  const size_t p = row_pitch(d);
+  return sizeof(float) * (kPassQB + 2 * kTileC) * p +
+         sizeof(int) * 2 * kTileC;
+}
+
+// One pass over the catalog for 64 query rows (block x) and one split
+// (block y), which visits tiles y, y + period, y + 2·period, ….
+struct Pass {
+  const float* q;               // (n_q, d)
+  const float* y;               // (c, d)
+  const unsigned char* valid;   // (c,) or null
+  int n_q, c, d, id_offset, period, vec;
+  float* uv;                    // threshold pass: (n_q, S, 16) union
+  int* ui;
+  const float* tau_v;           // collect pass: (n_q,) thresholds
+  const int* tau_i;
+  int* count;                   // (n_q,) entries collected
+  float* bv;                    // (n_q, kcap) collected entries
+  int* bi;
+  int kcap;
+};
+
+// The threshold pass (COLLECT false) and the collect pass (COLLECT true):
+// sweep_split's loader and score loop (the same fma4 fold, the same
+// NaN → +inf rule) at 64 rows a block, with register state in place of
+// the lists: the threshold pass keeps each thread's best per row, the
+// collect pass appends every column that precedes or equals τ.
+template <bool COLLECT>
+__global__ void __launch_bounds__(kThreads, 2) mips_topk_pass_kernel(Pass a) {
+  constexpr int RM = kPassRM;
+  constexpr int QB = kPassQB;
+  extern __shared__ float4 smem4[];
+  const int d = a.d;
+  const int p = row_pitch(d);
+  const int p4 = p / 4;
+  const int d4 = (d + 3) / 4;
+  float* qs = reinterpret_cast<float*>(smem4);            // (QB, p)
+  float* ys = qs + QB * p;                                // 2 × (kTileC, p)
+  int* vs = reinterpret_cast<int*>(ys + 2 * kTileC * p);  // 2 × (kTileC,)
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;  // rows ty*RM .. ty*RM + RM-1 of the block
+  const int tx = tid & 15;  // columns tx + 16*j of the tile
+  const int row0 = blockIdx.x * QB;
+  const int split = blockIdx.y;
+  const int tiles = (a.c + kTileC - 1) / kTileC;
+  const int n_tiles =
+      split < tiles ? (tiles - 1 - split) / a.period + 1 : 0;
+
+  for (int e = tid; e < QB * 4 * d4; e += kThreads) {
+    const int r = e / (4 * d4);
+    const int kk = e - r * 4 * d4;
+    qs[r * p + kk] =
+        row0 + r < a.n_q && kk < d ? a.q[(long)(row0 + r) * d + kk] : 0.f;
+  }
+  const int dpad = 4 * d4 - d;
+  for (int e = tid; e < 2 * kTileC * dpad; e += kThreads) {
+    const int r = e / dpad;
+    ys[r * p + d + (e - r * dpad)] = 0.f;
+  }
+
+  // Threshold pass: this thread's best column, per row. Collect pass:
+  // the rows' thresholds.
+  float kv[RM];
+  int ki[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = row0 + ty * RM + i;
+    kv[i] = kNegInf;
+    ki[i] = kIdPad;
+    if (COLLECT && row < a.n_q) {
+      kv[i] = a.tau_v[row];
+      ki[i] = a.tau_i[row];
+    }
+  }
+
+  auto tile_c0 = [&](int t) {
+    return (long)(split + (long)t * a.period) * kTileC;
+  };
+  auto tile_nc = [&](long c0) {
+    return a.c - c0 < kTileC ? (int)(a.c - c0) : kTileC;
+  };
+  auto flag = [&](long c0, int nc) {
+    return (int)(tid < nc && (a.valid == nullptr || a.valid[c0 + tid] != 0));
+  };
+  if (n_tiles > 0) {
+    const long c0 = tile_c0(0);
+    copy_tile_async(ys, a.y, c0, tile_nc(c0), d, d4, p, a.vec, tid);
+    if (tid < kTileC) vs[tid] = flag(c0, tile_nc(c0));
+  }
+  cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int b = t & 1;
+    int v_next = 0;
+    if (t + 1 < n_tiles) {
+      const long c1 = tile_c0(t + 1);
+      copy_tile_async(ys + (b ^ 1) * kTileC * p, a.y, c1, tile_nc(c1), d, d4,
+                      p, a.vec, tid);
+      if (tid < kTileC) v_next = flag(c1, tile_nc(c1));
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t is visible to all
+
+    float acc[RM][kColsPerThread];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = 0.f;
+    const float4* qa = reinterpret_cast<const float4*>(qs) + ty * RM * p4;
+    const float4* yb =
+        reinterpret_cast<const float4*>(ys + b * kTileC * p) + tx * p4;
+#pragma unroll 2
+    for (int k4 = 0; k4 < d4; ++k4) {
+      float4 q4[RM];
+      float4 w[kColsPerThread];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) q4[i] = qa[i * p4 + k4];
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) w[j] = yb[16 * j * p4 + k4];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < kColsPerThread; ++j)
+          acc[i][j] = fma4(q4[i], w[j], acc[i][j]);
+    }
+
+    const long c0 = tile_c0(t);
+    int f[kColsPerThread];
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) f[j] = vs[b * kTileC + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int row = row0 + ty * RM + i;
+      if (row >= a.n_q) continue;
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) {
+        if (!f[j]) continue;
+        const int id = a.id_offset + (int)(c0 + tx + 16 * j);
+        const float v = acc[i][j] != acc[i][j] ? kPosInf : acc[i][j];
+        if (COLLECT) {
+          if (!precedes(kv[i], ki[i], v, id)) {  // (v, id) ⪯ τ
+            const int slot = atomicAdd(a.count + row, 1);
+            if (slot < a.kcap) {
+              a.bv[(long)row * a.kcap + slot] = v;
+              a.bi[(long)row * a.kcap + slot] = id;
+            }
+          }
+        } else if (precedes(v, id, kv[i], ki[i])) {
+          kv[i] = v;
+          ki[i] = id;
+        }
+      }
+    }
+    __syncthreads();  // tile b and its flags are no longer read
+    if (t + 1 < n_tiles && tid < kTileC) vs[(b ^ 1) * kTileC + tid] = v_next;
+  }
+
+  if (!COLLECT) {
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int row = row0 + ty * RM + i;
+      if (row >= a.n_q) continue;
+      const long o = ((long)row * gridDim.y + split) * kUnionPerSplit + tx;
+      a.uv[o] = kv[i];
+      a.ui[o] = ki[i];
+    }
+  }
+}
+
+// A row's sort holds sort_size(n) ≥ n entries: a power of two, at least
+// one per thread. Entry e lives at sort_pos(e) = e + e/32 in shared
+// memory, so the 32 lanes that read entry lane·E + r at once hit 32
+// banks.
+__host__ __device__ inline int sort_size(int n) {
+  const int p = pow2_at_least(n);
+  return p > kThreads ? p : kThreads;
+}
+__host__ __device__ inline int sort_pos(int e) { return e + (e >> 5); }
+__host__ __device__ inline size_t sort_smem_bytes(int n) {
+  return (sizeof(float) + sizeof(int)) * (size_t)sort_pos(sort_size(n));
+}
+
+// Sorts the N = kThreads·E entries of (sv, si) into key order (value
+// descending, id ascending); every thread calls. A bitonic network with
+// each thread's E consecutive entries in registers: the strides below E
+// run in registers, those below 32·E by warp shuffles, and only the
+// strides that cross warps go through shared memory. Equal keys are only
+// pads, which may swap freely.
+template <int E>
+__device__ void block_sort(float* sv, int* si) {
+  constexpr int N = kThreads * E;
+  const int base = threadIdx.x * E;
+  float v[E];
+  int id[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    v[r] = sv[sort_pos(base + r)];
+    id[r] = si[sort_pos(base + r)];
+  }
+  for (int size = 2; size <= N; size <<= 1) {
+    int stride = size >> 1;
+    if (stride >= 32 * E) {
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        sv[sort_pos(base + r)] = v[r];
+        si[sort_pos(base + r)] = id[r];
+      }
+      __syncthreads();
+      for (; stride >= 32 * E; stride >>= 1) {
+        for (int e = threadIdx.x; e < N / 2; e += kThreads) {
+          const int l = 2 * e - (e & (stride - 1));  // pair (l, l + stride)
+          const int lo = sort_pos(l);
+          const int hi = sort_pos(l + stride);
+          const bool up = (l & size) == 0;
+          const float va = sv[lo], vb = sv[hi];
+          const int ia = si[lo], ib = si[hi];
+          if (precedes(vb, ib, va, ia) == up) {  // up: lo must precede hi
+            sv[lo] = vb;
+            sv[hi] = va;
+            si[lo] = ib;
+            si[hi] = ia;
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        v[r] = sv[sort_pos(base + r)];
+        id[r] = si[sort_pos(base + r)];
+      }
+    }
+    for (; stride >= E; stride >>= 1) {
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        const float b = __shfl_xor_sync(kFull, v[r], stride / E);
+        const int bi = __shfl_xor_sync(kFull, id[r], stride / E);
+        const bool up = ((base + r) & size) == 0;
+        const bool lo = ((base + r) & stride) == 0;
+        // The lower entry of a pair takes the first of the two when up.
+        if (precedes(b, bi, v[r], id[r]) == (lo == up)) {
+          v[r] = b;
+          id[r] = bi;
+        }
+      }
+    }
+#pragma unroll
+    for (int st = E / 2; st > 0; st >>= 1) {
+      if (2 * st > size) continue;
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        if (r & st) continue;
+        const bool up = ((base + r) & size) == 0;
+        if (precedes(v[r | st], id[r | st], v[r], id[r]) == up) {
+          const float tv = v[r];
+          const int ti = id[r];
+          v[r] = v[r | st];
+          id[r] = id[r | st];
+          v[r | st] = tv;
+          id[r | st] = ti;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    sv[sort_pos(base + r)] = v[r];
+    si[sort_pos(base + r)] = id[r];
+  }
+  __syncthreads();
+}
+
+// Sorts the first n_sort entries (a power of two, kThreads ≤ n_sort ≤
+// kThreads·EMAX) with block_sort at E = n_sort / kThreads.
+template <int EMAX>
+__device__ void sort_entries(float* sv, int* si, int n_sort) {
+  if constexpr (EMAX > 1) {
+    if (n_sort <= kThreads * (EMAX / 2)) {
+      sort_entries<EMAX / 2>(sv, si, n_sort);
+      return;
+    }
+  }
+  block_sort<EMAX>(sv, si);
+}
+
+// Loads a row's n entries into a sort of sort_size(max(n, k)) ≤
+// kThreads·EMAX entries, pads past n, and sorts them (every thread calls;
+// the block's dynamic shared memory holds sort_smem_bytes(kThreads·EMAX)).
+template <int EMAX>
+__device__ void load_and_sort(const float* __restrict__ src_v,
+                              const int* __restrict__ src_i, int n, int k,
+                              float* sv, int* si) {
+  const int n_sort = sort_size(n > k ? n : k);
+  for (int e = threadIdx.x; e < n_sort; e += kThreads) {
+    sv[sort_pos(e)] = e < n ? src_v[e] : kNegInf;
+    si[sort_pos(e)] = e < n ? src_i[e] : kIdPad;
+  }
+  __syncthreads();
+  sort_entries<EMAX>(sv, si, n_sort);
+}
+
+// The row kernels (τ, select) are compiled for the widest sort they may
+// run (EMAX entries a thread); up to 16 a thread they hold 64 registers,
+// so that 4 blocks share an SM and 320 rows run in one wave.
+template <int EMAX>
+constexpr int row_blocks_per_sm() {
+  return EMAX <= 16 ? 4 : 2;
+}
+
+// τ of row blockIdx.x: the k-th of its n_union union entries under the
+// key (a pad when fewer than k are real); zeroes the row's count.
+template <int EMAX>
+__global__ void __launch_bounds__(kThreads, row_blocks_per_sm<EMAX>())
+mips_topk_tau_kernel(const float* __restrict__ uv, const int* __restrict__ ui,
+                     int n_union, int k, float* __restrict__ tau_v,
+                     int* __restrict__ tau_i, int* __restrict__ count) {
+  extern __shared__ float4 smem4[];
+  float* sv = reinterpret_cast<float*>(smem4);
+  int* si = reinterpret_cast<int*>(sv + sort_pos(kThreads * EMAX));
+  const long row = blockIdx.x;
+  load_and_sort<EMAX>(uv + row * n_union, ui + row * n_union, n_union, k, sv,
+                      si);
+  if (threadIdx.x == 0) {
+    tau_v[row] = sv[sort_pos(k - 1)];
+    tau_i[row] = si[sort_pos(k - 1)];
+    count[row] = 0;
+  }
+}
+
+// The first k of row blockIdx.x's collected entries in key order, ID_PAD
+// where the value is NEG_INF; a row that collected more than kcap is left
+// to the split sweep.
+template <int EMAX>
+__global__ void __launch_bounds__(kThreads, row_blocks_per_sm<EMAX>())
+mips_topk_select_kernel(const int* __restrict__ count,
+                        const float* __restrict__ bv,
+                        const int* __restrict__ bi, int kcap, int k,
+                        float* __restrict__ vals, int* __restrict__ ids) {
+  extern __shared__ float4 smem4[];
+  const long row = blockIdx.x;
+  const int n = count[row];
+  if (n > kcap) return;
+  float* sv = reinterpret_cast<float*>(smem4);
+  int* si = reinterpret_cast<int*>(sv + sort_pos(kThreads * EMAX));
+  load_and_sort<EMAX>(bv + row * kcap, bi + row * kcap, n, k, sv, si);
+  for (int j = threadIdx.x; j < k; j += kThreads) {
+    const float v = sv[sort_pos(j)];
+    vals[row * k + j] = v;
+    ids[row * k + j] = v == kNegInf ? kIdPad : si[sort_pos(j)];
+  }
+}
+
+// Launches a row kernel compiled for sorts of up to sort_size(n) entries:
+// f(std::integral_constant<int, EMAX>) with EMAX = sort_size(n) / kThreads.
+template <class F>
+cudaError_t by_sort_width(int n, F&& f) {
+  switch (sort_size(n) / kThreads) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});  // kMaxSort
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The split sweep's partial pass for the blocks of 16 rows that hold a
+// row whose collect overflowed; the others return at once.
+template <int SLOTS>
+__global__ void __launch_bounds__(kThreads)
+mips_topk_finish_partial_kernel(Sweep a, const int* __restrict__ count,
+                                int kcap) {
+  extern __shared__ float4 smem4[];
+  const int row = blockIdx.x * 16 + threadIdx.x;
+  if (!__syncthreads_or(threadIdx.x < 16 && row < a.n_q && count[row] > kcap))
+    return;
+  sweep_split<1, SLOTS>(a, smem4, [](const float (&)[1][kColsPerThread],
+                                     const int*, long) {});
+}
+
+// The split sweep's merge for the rows whose collect overflowed.
+template <int SLOTS>
+__global__ void __launch_bounds__(kThreads)
+mips_topk_finish_merge_kernel(const float* __restrict__ part_vals,
+                              const int* __restrict__ part_ids,
+                              const int* __restrict__ count, int kcap,
+                              float* __restrict__ vals, int* __restrict__ ids,
+                              int n_split, int k) {
+  extern __shared__ float4 smem4[];
+  if (count[blockIdx.x] <= kcap) return;
+  merge_split_lists<SLOTS>(part_vals, part_ids, vals, ids, n_split, k,
+                           smem4);
+}
+
+// Shared memory of the largest launch of select_chain (the wrapper's
+// select_smem computes the same).
+inline size_t select_smem_bytes(int d, int k, int n_split, int kcap) {
+  const int n_union = kUnionPerSplit * n_split;
+  size_t m = pass_smem_bytes(d);
+  const size_t each[] = {sort_smem_bytes(n_union > k ? n_union : k),
+                         sort_smem_bytes(kcap), partial_smem_bytes<1>(d, k),
+                         merge_smem_bytes(k)};
+  for (size_t b : each) m = b > m ? b : m;
+  return m;
+}
+
+struct SelectScratch {
+  float* uv;       // (n_q, n_split·kUnionPerSplit) union
+  int* ui;
+  float* tau_v;    // (n_q,)
+  int* tau_i;
+  int* count;      // (n_q,)
+  float* bv;       // (n_q, kcap) collected
+  int* bi;
+  float* part_vals;  // (n_q, fin_split, k) the finishing sweep's lists
+  int* part_ids;
+};
+
+// Launches the chain: threshold, τ, collect, select and the finishing
+// sweep, the last at list width SLOTS.
+template <int SLOTS>
+cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
+                         int n_split, int period, int collect_split,
+                         int fin_split, int fin_split_cols, float* vals,
+                         int* ids, cudaStream_t s) {
+  static bool done_thr[kMaxDevices] = {}, done_col[kMaxDevices] = {},
+              done_fin[kMaxDevices] = {};
+  const int n_q = base.n_q;
+  const int n_union = kUnionPerSplit * n_split;
+  const dim3 rows((n_q + kPassQB - 1) / kPassQB);
+  const size_t pass_smem = pass_smem_bytes(base.d);
+  cudaError_t err;
+#define TRY(x)                           \
+  if ((err = (x)) != cudaSuccess) return err
+  TRY(allow_max_smem(mips_topk_pass_kernel<false>, done_thr));
+  TRY(allow_max_smem(mips_topk_pass_kernel<true>, done_col));
+  TRY(allow_max_smem(mips_topk_finish_partial_kernel<SLOTS>, done_fin));
+
+  Pass thr = base;
+  thr.period = period;
+  thr.uv = w.uv;
+  thr.ui = w.ui;
+  mips_topk_pass_kernel<false>
+      <<<dim3(rows.x, n_split), kThreads, pass_smem, s>>>(thr);
+  TRY(cudaGetLastError());
+  TRY(by_sort_width(n_union > k ? n_union : k, [&](auto emax) {
+    constexpr int E = decltype(emax)::value;
+    static bool done[kMaxDevices] = {};
+    cudaError_t e = allow_max_smem(mips_topk_tau_kernel<E>, done);
+    if (e != cudaSuccess) return e;
+    mips_topk_tau_kernel<E>
+        <<<n_q, kThreads, sort_smem_bytes(kThreads * E), s>>>(
+            w.uv, w.ui, n_union, k, w.tau_v, w.tau_i, w.count);
+    return cudaGetLastError();
+  }));
+  Pass col = base;
+  col.period = collect_split;
+  col.tau_v = w.tau_v;
+  col.tau_i = w.tau_i;
+  col.count = w.count;
+  col.bv = w.bv;
+  col.bi = w.bi;
+  mips_topk_pass_kernel<true>
+      <<<dim3(rows.x, collect_split), kThreads, pass_smem, s>>>(col);
+  TRY(cudaGetLastError());
+  TRY(by_sort_width(base.kcap, [&](auto emax) {
+    constexpr int E = decltype(emax)::value;
+    static bool done[kMaxDevices] = {};
+    cudaError_t e = allow_max_smem(mips_topk_select_kernel<E>, done);
+    if (e != cudaSuccess) return e;
+    mips_topk_select_kernel<E>
+        <<<n_q, kThreads, sort_smem_bytes(kThreads * E), s>>>(
+            w.count, w.bv, w.bi, base.kcap, k, vals, ids);
+    return cudaGetLastError();
+  }));
+  const Sweep fin{base.q, base.y, base.valid, w.part_vals, w.part_ids,
+                  n_q, base.c, base.d, k, fin_split_cols, base.id_offset,
+                  base.id_offset, base.id_offset + base.c, base.vec};
+  mips_topk_finish_partial_kernel<SLOTS>
+      <<<dim3((n_q + 15) / 16, fin_split), kThreads,
+         partial_smem_bytes<1>(base.d, k), s>>>(fin, w.count, base.kcap);
+  TRY(cudaGetLastError());
+  mips_topk_finish_merge_kernel<SLOTS>
+      <<<n_q, kThreads, merge_smem_bytes(k), s>>>(
+          w.part_vals, w.part_ids, w.count, base.kcap, vals, ids, fin_split,
+          k);
+  return cudaGetLastError();
+#undef TRY
+}
+
 }  // namespace
 
 // Launches the partial pass then the merge on `stream`. part_vals /
@@ -132,4 +669,50 @@ extern "C" int mips_topk_launch(const float* q, const float* y,
     return launch_pair<decltype(rm)::value, decltype(slots)::value>(
         a, vals, ids, n_split, s);
   });
+}
+
+// The k > 32 chain on `stream`: threshold pass over n_split strided
+// splits of period `period` tiles, τ, collect pass over collect_split
+// splits into kcap entries a row, select, and the split sweep (fin_split
+// splits of fin_split_cols) for rows that overflowed. Scratch (all
+// device memory, any contents): uv / ui (n_q, 16·n_split), tau_v / tau_i
+// / count (n_q,), bv / bi (n_q, kcap), part_vals / part_ids (n_q,
+// fin_split, k). Returns the cudaError_t of the launches,
+// cudaErrorInvalidValue for a plan it does not take. Nothing is
+// synchronised and nothing is allocated.
+extern "C" int mips_topk_select_launch(
+    const float* q, const float* y, const unsigned char* valid, float* uv,
+    int* ui, float* tau_v, int* tau_i, int* count, float* bv, int* bi,
+    float* part_vals, int* part_ids, float* vals, int* ids, int n_q, int c,
+    int d, int k, int id_offset, int n_split, int period, int collect_split,
+    int kcap, int fin_split, int fin_split_cols, void* stream) {
+  if (n_q <= 0 || c <= 0 || d <= 0 || d > kMaxD || k <= 0 || k > kMaxK ||
+      k > c || n_split <= 0 || period < n_split || collect_split <= 0 ||
+      kcap < k || kcap > kMaxSort ||
+      (long)kUnionPerSplit * n_split > kMaxSort || fin_split <= 0 ||
+      fin_split_cols <= 0 || fin_split_cols % kTileC != 0 ||
+      (long)fin_split * fin_split_cols < (long)c ||
+      select_smem_bytes(d, k, n_split, kcap) > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Pass base{};
+  base.q = q;
+  base.y = y;
+  base.valid = valid;
+  base.n_q = n_q;
+  base.c = c;
+  base.d = d;
+  base.id_offset = id_offset;
+  base.vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  base.kcap = kcap;
+  const SelectScratch w{uv, ui, tau_v, tau_i, count, bv, bi, part_vals,
+                        part_ids};
+  auto run = [&](auto slots) {
+    return select_chain<decltype(slots)::value>(
+        base, w, k, n_split, period, collect_split, fin_split,
+        fin_split_cols, vals, ids, s);
+  };
+  return (int)(k <= 32 * kSlotsSmall
+                   ? run(std::integral_constant<int, kSlotsSmall>{})
+                   : run(std::integral_constant<int, kSlotsLarge>{}));
 }

@@ -15,6 +15,11 @@ salt``) and the same tolerances:
     into one catalog row),
   * softcap-active logit scales (the in-tile ``cap·tanh`` path).
 
+``mips_topk`` carries one canary of the port's own beside them,
+``large_k_select_overflow``: the reference's two stop at k = 8, below
+the ``k > 32`` chain (threshold, collect, select) that SCE training's
+selections run.
+
 Each canary resolves the kernel entry at CALL time (``_kernel``), so a
 monkeypatched, broken kernel is what runs — the fault drills rely on it.
 For a CUDA device that entry is the wrapper of the hand-written kernel
@@ -444,6 +449,45 @@ def _mips_starved_canary(dev):
     want_v, want_i = ref.mips_topk_ref(q, y, 8, valid=valid, id_offset=7)
     _assert_ids("starved_ids", got_i, want_i)
     _assert_close("starved_vals", got_v, want_v)
+
+
+def _large_k_inputs(dev):
+    """The large-k canary's integer inputs: q (8, 8) whose row 3 is zero
+    (all its scores tie at 0), a ragged catalog y (300, 8), a mask with
+    ≈ 80 % valid and one with 30 valid columns (fewer than k)."""
+    r = _rng(12)
+    q = r.integers(-2, 3, size=(8, 8)).astype(np.float32)
+    q[3] = 0.0
+    y = r.integers(-2, 3, size=(300, 8)).astype(np.float32)
+    valid = r.random(300) > 0.2
+    starved = np.zeros(300, bool)
+    starved[r.choice(300, size=30, replace=False)] = True
+    return _t(q, dev), _t(y, dev), _t(valid, dev), _t(starved, dev)
+
+
+LARGE_K, LARGE_K_CAP = 40, 60  # the canary's k and collect buffer
+
+
+@_canary("mips_topk", "large_k_select_overflow")
+def _mips_large_k_canary(dev):
+    """The port's own canary (the reference has none at k > 32): the
+    threshold, collect and select chain on integer ties with a mask and
+    an ``id_offset``, where row 3 (all ties) collects more than the
+    60-entry buffer and the split sweep finishes it while the other rows
+    take the select; then a mask with fewer valid columns than k (the
+    ``ID_PAD`` tail). Integer inputs fold exactly: ids and values equal
+    the plain version's."""
+    ref = _ref()
+    q, y, valid, starved = _large_k_inputs(dev)
+    topk = _kernel("mips_topk", "mips_topk", q, y)
+    for what, vm, kcap in (("ties", valid, LARGE_K_CAP),
+                           ("starved", starved, None)):
+        got_v, got_i = topk(q, y, LARGE_K, valid=vm, id_offset=11,
+                            kcap=kcap)
+        want_v, want_i = ref.mips_topk_ref(q, y, LARGE_K, valid=vm,
+                                           id_offset=11)
+        _assert_ids(f"large_k_{what}_ids", got_i, want_i)
+        _assert_close(f"large_k_{what}_vals", got_v, want_v, atol=0, rtol=0)
 
 
 # -- fused_ce ----------------------------------------------------------------

@@ -1,12 +1,18 @@
 """Per-row MIPS top-k on the H100 — the wrapper of
 ``csrc/mips_topk.cu`` (port of ``repro/kernels/mips_topk.py``).
 
-It checks its inputs, plans the catalog split, allocates the outputs
-and the ``(n_q, S, k)`` candidate scratch, and launches the kernel pair
-on PyTorch's current stream. It takes CUDA tensors only: the CPU path is
-``kernels/ref.py::mips_topk_ref``, chosen by ``kernels/ops.py``.
-``mips_topk.launches`` counts the calls that launched the kernel, and
-``mips_topk.launches_by_k`` counts them by ``k``.
+It checks its inputs, plans the work, allocates the outputs and the
+scratch, and launches on PyTorch's current stream: for ``k ≤ SMALL_K``
+(serving) the split sweep and its merge (:func:`plan`, ``(n_q, S, k)``
+candidate lists); above it (SCE training's selections) the threshold,
+collect and select chain (:func:`select_plan`), whose rows that collect
+more than ``kcap`` entries the split sweep finishes. It takes CUDA
+tensors only: the CPU path is ``kernels/ref.py::mips_topk_ref``, chosen
+by ``kernels/ops.py``. ``mips_topk.launches`` counts the calls that
+launched the kernel, and ``mips_topk.launches_by_k`` counts them by
+``k``; ``mips_topk.last_counts`` holds the last ``k > SMALL_K`` call's
+per-row collect counts (a device tensor: a count above its ``kcap`` is
+a row the split sweep finished).
 """
 from __future__ import annotations
 
@@ -24,6 +30,11 @@ MAX_K = 512  # kMaxK in the source (lists of ≤ 256 and ≤ 512 entries)
 MAX_D = 256
 MAX_SMEM = 232448  # bytes of shared memory one block may opt in to on sm_90
 SMALL_K = 32  # k up to this may take blocks of 32 or 64 query rows
+PASS_ROWS = 64  # query rows of a threshold / collect block (kPassQB)
+UNION_PER_SPLIT = 16  # union entries per row and split (a thread's best)
+MAX_SORT = 8192  # kMaxSort: entries one row's sort may hold
+MAX_SAMPLE = 4  # the threshold pass reads at least 1/MAX_SAMPLE of the tiles
+MAX_UNION_SPLIT = 128  # threshold splits at most (a 2,048-entry union)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,14 +67,56 @@ def merge_smem_bytes(k: int) -> int:
     return 8 * 8 * (k + 32)
 
 
-def planned_smem(n_q: int, c: int, d: int, k: int, n_sm: int) -> int:
-    """Dynamic shared memory per block of the larger of the two launches
-    of one call (the partial pass at :func:`plan`'s block height, the
-    merge), which ``eval_fused``'s and ``eval_topk``'s sweeps share. The
-    kernel guard checks it against the 227 KB a block may use."""
+def sweep_smem(n_q: int, c: int, d: int, k: int, n_sm: int) -> int:
+    """Dynamic shared memory per block of the larger of the split
+    sweep's two launches (the partial pass at :func:`plan`'s block
+    height, the merge), which ``eval_fused``'s and ``eval_topk``'s
+    sweeps share."""
     p = plan(n_q, c, d, k, n_sm)
     return max(partial_smem_bytes(p.rows_per_thread, d, k),
                merge_smem_bytes(k))
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def sort_smem_bytes(n: int) -> int:
+    """Shared memory of one row's sort of ``n`` entries, as
+    ``sort_smem_bytes`` in the source: a power of two ≥ 256 entries of
+    (value, id), one padding slot per 32."""
+    size = max(256, _pow2_at_least(n))
+    return 8 * (size + size // 32)
+
+
+def pass_smem_bytes(d: int) -> int:
+    """Shared memory of one threshold or collect block, as
+    ``pass_smem_bytes`` in the source: 64 staged query rows, two catalog
+    tiles and their valid flags."""
+    pitch = 4 * ((-(-d // 4)) | 1)
+    return 4 * (PASS_ROWS + 2 * TILE_C) * pitch + 4 * 2 * TILE_C
+
+
+def select_smem(n_q: int, c: int, d: int, k: int, n_sm: int) -> int:
+    """Dynamic shared memory per block of the largest launch of the
+    ``k > SMALL_K`` chain, as ``select_smem_bytes`` in the source: the
+    passes, the τ and select sorts, and the finishing split sweep at 16
+    rows a block."""
+    sp = select_plan(n_q, c, d, k, n_sm)
+    return max(pass_smem_bytes(d),
+               sort_smem_bytes(max(UNION_PER_SPLIT * sp.n_split, k)),
+               sort_smem_bytes(sp.kcap), partial_smem_bytes(1, d, k),
+               merge_smem_bytes(k))
+
+
+def planned_smem(n_q: int, c: int, d: int, k: int, n_sm: int) -> int:
+    """Dynamic shared memory per block of the largest launch of one
+    ``mips_topk`` call: the split sweep for ``k ≤ SMALL_K``, the select
+    chain above. The kernel guard checks it against the 227 KB a block
+    may use."""
+    if k > SMALL_K:
+        return select_smem(n_q, c, d, k, n_sm)
+    return sweep_smem(n_q, c, d, k, n_sm)
 
 
 @functools.lru_cache(maxsize=256)
@@ -72,16 +125,18 @@ def plan(n_q: int, c: int, d: int, k: int, n_sm: int) -> Plan:
 
     Block height: for ``k ≤ SMALL_K`` (serving) the smallest block that
     holds the bucket's rows (16, 32 or 64), shrunk while its shared
-    memory would not fit; above it (SCE training's selections) 16 rows,
-    the fastest height at every split count there.
+    memory would not fit; above it (``eval_fused`` and ``eval_topk`` at
+    large k, and ``mips_topk``'s finishing sweep of the rows that
+    overflow their collect buffer) 16 rows, the fastest height at every
+    split count there.
     Splits: as many as keep all blocks in one wave of ``2·n_sm``, at
     least one. At k 256 and 320 two 16-row blocks fit an SM (shared
     memory and registers); shorter splits then run faster until the
     blocks spill a mostly empty second wave, which costs a whole block's
-    time. ``probes/mips_topk_times.py sweep`` on the H100 read 13 splits
-    (260 blocks) fastest and 14 (280) slowest of the counts it tried at
-    both training selections (PERF.md §6). At serving's buckets
-    ``2·n_sm`` divides exactly."""
+    time. ``probes/mips_topk_times.py`` on the H100 read 13 splits (260
+    blocks) fastest and 14 (280) slowest of the counts it tried at both
+    training selections, when this sweep still ran them (PERF.md §6). At
+    serving's buckets ``2·n_sm`` divides exactly."""
     tiles = -(-c // TILE_C)
     rm = 1 if n_q <= 16 or k > SMALL_K else 2 if n_q <= 32 else 4
     while rm > 1 and partial_smem_bytes(rm, d, k) > MAX_SMEM:
@@ -92,7 +147,50 @@ def plan(n_q: int, c: int, d: int, k: int, n_sm: int) -> Plan:
     return Plan(rm, -(-c // split_cols), split_cols)
 
 
-def _check(q, y, valid, k, id_offset):
+@dataclasses.dataclass(frozen=True)
+class SelectPlan:
+    """How a ``k > SMALL_K`` call cuts its work, at 64 query rows a block:
+    the threshold pass's ``n_split`` splits, split ``s`` visiting the
+    tiles ``s, s + period, …`` (``period = n_split·R``: a 1/R sample of
+    the tiles); the collect pass's ``collect_split`` splits, strided the
+    same way over every tile; ``kcap`` collect entries per row."""
+
+    n_split: int
+    period: int
+    collect_split: int
+    kcap: int
+
+
+@functools.lru_cache(maxsize=256)
+def select_plan(n_q: int, c: int, d: int, k: int, n_sm: int) -> SelectPlan:
+    """Plan the threshold, collect and select chain of one ``k > SMALL_K``
+    call.
+
+    Splits: as many as keep the 64-row blocks in one wave of ``2·n_sm``,
+    and at least ``k / 16``, so the union (16 entries per row and split)
+    can hold k real entries; at most one per tile and
+    ``MAX_UNION_SPLIT``, which bounds the union's sort. A union with fewer
+    than ``k`` real entries yields no threshold (every valid column is
+    collected), which is exact, only slower.
+    Sample: the threshold pass reads one tile in R (R ≤ ``MAX_SAMPLE``, a
+    power of two) while the sample keeps at least 128·k columns; its τ
+    then lies near the R·k-th score. ``kcap = 4·R·k`` (a power of two, at
+    most ``MAX_SORT``) leaves room for four times that — all-equal scores
+    collect ≈ 4·R·k, as each thread keeps the first of its 4 columns a
+    tile —, and costs only memory: the select sorts what a row holds."""
+    tiles = -(-c // TILE_C)
+    wave = max(1, 2 * n_sm // -(-n_q // PASS_ROWS))
+    n_split = min(tiles, MAX_UNION_SPLIT,
+                  max(wave, -(-k // UNION_PER_SPLIT)))
+    sample = 1
+    while (2 * sample <= MAX_SAMPLE and c // (2 * sample) >= 128 * k
+           and 2 * sample * n_split <= tiles):
+        sample *= 2
+    kcap = min(MAX_SORT, _pow2_at_least(4 * sample * k))
+    return SelectPlan(n_split, sample * n_split, min(tiles, wave), kcap)
+
+
+def _check(q, y, valid, k, id_offset, kcap=None):
     if not (q.is_cuda and y.is_cuda):
         raise ValueError("mips_topk kernel takes CUDA tensors only")
     if q.device != y.device:
@@ -108,6 +206,8 @@ def _check(q, y, valid, k, id_offset):
         raise ValueError(f"d={d} outside (0, {MAX_D}]")
     if not 0 < k <= MAX_K:
         raise ValueError(f"k={k} outside (0, {MAX_K}]")
+    if kcap is not None and k > SMALL_K and not k <= kcap <= MAX_SORT:
+        raise ValueError(f"kcap={kcap} outside [k={k}, {MAX_SORT}]")
     if not 0 <= id_offset <= 2**31 - 1 - (y.shape[0] + TILE_C):
         raise ValueError(f"id_offset={id_offset} overflows int32 ids")
     if valid is not None:
@@ -130,10 +230,55 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mips_topk_launch.argtypes = [p, p, p, p, p, p, p] + [i] * 8 + [p]
     lib.mips_topk_launch.restype = ctypes.c_int
+    lib.mips_topk_select_launch.argtypes = [p] * 14 + [i] * 11 + [p]
+    lib.mips_topk_select_launch.restype = ctypes.c_int
     return lib
 
 
-def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0):
+def _select_launch(q, y, k: int, vals, ids, *, valid, id_offset: int,
+                   kcap):
+    """Launch the ``k > SMALL_K`` chain into ``vals`` / ``ids`` (checked
+    inputs, ``k ≤ C``) and return the per-row collect counts. ``kcap``
+    replaces the plan's (``k ≤ kcap ≤ MAX_SORT``): a small one makes rows
+    overflow into the finishing sweep."""
+    n_q, d = q.shape
+    c = y.shape[0]
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    sp = select_plan(n_q, c, d, k, n_sm)
+    if kcap is not None:
+        sp = dataclasses.replace(sp, kcap=kcap)
+    fin = plan(n_q, c, d, k, n_sm)
+    dev = q.device
+
+    def scratch(*shape):
+        return (torch.empty(shape, dtype=torch.float32, device=dev),
+                torch.empty(shape, dtype=torch.int32, device=dev))
+
+    uv, ui = scratch(n_q, UNION_PER_SPLIT * sp.n_split)
+    tau_v, tau_i = scratch(n_q)
+    count = torch.empty(n_q, dtype=torch.int32, device=dev)
+    bv, bi = scratch(n_q, sp.kcap)
+    part_v, part_i = scratch(n_q, fin.n_split, k)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().mips_topk_select_launch(
+            q.data_ptr(), y.data_ptr(),
+            valid.data_ptr() if valid is not None else None,
+            uv.data_ptr(), ui.data_ptr(), tau_v.data_ptr(), tau_i.data_ptr(),
+            count.data_ptr(), bv.data_ptr(), bi.data_ptr(),
+            part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), n_q, c, d, k, id_offset, sp.n_split, sp.period,
+            sp.collect_split, sp.kcap, fin.n_split, fin.split_cols, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"mips_topk launch failed: cudaError {err} "
+            f"(n_q={n_q}, C={c}, d={d}, k={k}, plan={sp}, finish={fin})"
+        )
+    return count
+
+
+def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0, kcap=None):
     """Per-row top-``k`` of ``q @ yᵀ`` on the card, without the
     ``(n_q, C)`` score matrix.
 
@@ -145,6 +290,10 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0):
     valid : optional (C,) contiguous bool — rows with False are never
         selected.
     id_offset : global id of ``y``'s first row.
+    kcap : for ``k > SMALL_K``, the collect entries per row in place of
+        the plan's (``k ≤ kcap ≤ MAX_SORT``): rows that collect more are
+        finished by the split sweep, so a small one drives that path (the
+        guard's canary). Ignored for ``k ≤ SMALL_K``.
 
     Returns
     -------
@@ -154,11 +303,17 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0):
     """
     c = y.shape[0]
     k = min(k, c)
-    _check(q, y, valid, k, id_offset)
+    _check(q, y, valid, k, id_offset, kcap)
     n_q, d = q.shape
     vals = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
     ids = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
     if n_q == 0:
+        return vals, ids
+    if k > SMALL_K:
+        mips_topk.last_counts = _select_launch(
+            q, y, k, vals, ids, valid=valid, id_offset=id_offset, kcap=kcap)
+        mips_topk.launches += 1
+        mips_topk.launches_by_k[k] += 1
         return vals, ids
     lib = _lib()
     props = torch.cuda.get_device_properties(q.device)
@@ -190,3 +345,4 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0):
 
 mips_topk.launches = 0
 mips_topk.launches_by_k = collections.Counter()
+mips_topk.last_counts = None

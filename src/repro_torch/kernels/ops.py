@@ -76,14 +76,15 @@ def _gate(group: str, x, *, rows: int, cols: int, d: int, k=None,
     _guard.kernel_enabled(group, device=x.device)
 
 
-def _sweep_smem(x, y, k):
-    """The shared memory of the catalog sweep's plan (``mips_topk``,
-    ``eval_fused``, ``eval_topk``), for a plan the wrapper can make."""
+def _sweep_smem(x, y, k, planned=_mips_topk.sweep_smem):
+    """The shared memory of the catalog sweep's plan (``eval_fused``,
+    ``eval_topk``; ``mips_topk`` passes its ``planned_smem``, which also
+    covers its ``k > 32`` chain), for a plan the wrapper can make."""
     n, d = x.shape
     c = y.shape[0]
     if not (0 < d <= _mips_topk.MAX_D and 0 < k <= _mips_topk.MAX_K):
         return lambda: 0  # preflight refuses d or k first
-    return lambda: _mips_topk.planned_smem(n, c, d, k, _n_sm(x.device))
+    return lambda: planned(n, c, d, k, _n_sm(x.device))
 
 
 def sce_bucket_loss(x_b, y_b, tgt_b, cand_ids, pos_logit, *,
@@ -116,16 +117,19 @@ def sce_bucket_plse(x_b, y_b, tgt_b, cand_ids, *, logit_softcap=None):
     return _sce_bucket.sce_bucket_plse(*args, logit_softcap=logit_softcap)
 
 
-def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0):
+def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0, kcap=None):
     """Per-row top-``k`` of ``q @ yᵀ`` → ``(vals (n_q, k) f32, ids
     (n_q, k) int32)``; ``k`` clamped to ``C``, ties to the lower id,
-    ``ID_PAD`` on starved slots. See ``kernels/mips_topk.py``."""
+    ``ID_PAD`` on starved slots. ``kcap`` sizes the card's ``k > 32``
+    collect buffer (no effect on the result, nor on the CPU). See
+    ``kernels/mips_topk.py``."""
     if _device_kind("mips_topk", q, y) == "cpu":
         return _ref.mips_topk_ref(q, y, k, valid=valid, id_offset=id_offset)
     kk = min(k, y.shape[0])
     _gate("mips_topk", q, rows=q.shape[0], cols=y.shape[0], d=q.shape[-1],
-          k=kk, smem=_sweep_smem(q, y, kk))
-    return _mips_topk.mips_topk(q, y, k, valid=valid, id_offset=id_offset)
+          k=kk, smem=_sweep_smem(q, y, kk, _mips_topk.planned_smem))
+    return _mips_topk.mips_topk(q, y, k, valid=valid, id_offset=id_offset,
+                                kcap=kcap)
 
 
 def _sce_gather_gate(x_b, idx_y):

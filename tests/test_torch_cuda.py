@@ -11,6 +11,11 @@ without the repository's JAX-importing ``conftest.py``::
 the kernel and the plain version must agree bit for bit (values, ids, tie
 order, ``ID_PAD`` tails); generic floats agree within ``1e-5·max|score|``
 with ids equal wherever neighbouring scores are further apart than that.
+Above k = 32 (the threshold, collect and select chain) the same on its
+adversarial inputs — the best columns in one residue of the threshold
+pass's tiles, all-equal scores, fewer valid columns than k, k = C,
+k = 512 — and with a collect buffer small enough that a row overflows
+into the split sweep; two launches repeat bit for bit.
 
 ``sce_gather`` (forward, dX, dY): losses within ``1e-5·max|loss|``,
 gradients within ``rtol 2e-4``, ``atol 1e-5·max|grad|`` of autograd
@@ -168,6 +173,82 @@ def test_mips_topk_kernel_is_deterministic(dev):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+def _select_problem(dev, name, n_q, c, d, k):
+    """Integer inputs of one adversarial case of the k > 32 chain."""
+    g = _gen(dev, n_q * 11 + c + k)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    sp = kernel.select_plan(n_q, c, d, k, n_sm)
+    q, y = _ints(g, dev, n_q, d), _ints(g, dev, c, d)
+    valid = None
+    if name.startswith("clustered"):
+        # positive queries, boosted catalog rows in the tiles t with
+        # t % period == residue: one split holds every row's best
+        residue = 1 if name == "clustered_sampled" else sp.n_split + 1
+        q = q.abs() + 1
+        hot = (torch.arange(c, device=dev) // kernel.TILE_C) % sp.period \
+            == residue
+        y[hot] = torch.randint(3, 6, (int(hot.sum()), d), generator=g,
+                               device=dev).float()
+    elif name == "all_equal":
+        q, y = torch.ones_like(q), torch.ones_like(y)
+    elif name == "fewer_valid_than_k":
+        valid = torch.zeros(c, dtype=torch.bool, device=dev)
+        valid[torch.randperm(c, generator=g, device=dev)[:k // 3]] = True
+    elif name in ("k_equals_c", "k512"):
+        valid = torch.rand(c, generator=g, device=dev) > 0.3
+    return q, y, valid, sp
+
+
+@pytest.mark.parametrize("name,n_q,c,d,k", [
+    ("clustered_sampled", 100, 140_000, 64, 256),
+    ("clustered_skipped", 100, 140_000, 64, 256),
+    ("all_equal", 70, 8_000, 64, 320),
+    ("fewer_valid_than_k", 65, 25_600, 64, 320),
+    ("k_equals_c", 33, 400, 48, 400),
+    ("k512", 130, 20_000, 64, 512),
+])
+def test_mips_topk_select_chain_matches_plain(dev, name, n_q, c, d, k):
+    q, y, valid, sp = _select_problem(dev, name, n_q, c, d, k)
+    if name == "clustered_skipped":
+        assert sp.period > sp.n_split  # the threshold pass samples
+    got = ops.mips_topk(q, y, k, valid=valid, id_offset=3)
+    torch.cuda.synchronize()
+    want = ref.mips_topk_ref(q, y, k, valid=valid, id_offset=3)
+    _assert_match(got, want, 0.0, True)
+    counts = kernel.mips_topk.last_counts
+    assert counts.shape == (n_q,) and bool((counts >= min(k, c)).all()) \
+        == (valid is None or int(valid.sum()) >= k)
+    if name == "fewer_valid_than_k":
+        assert (got[1][:, k // 3:] == ID_PAD).all()
+
+
+def test_mips_topk_select_overflow_row_takes_the_split_sweep(dev):
+    """A row of all-equal scores collects ≈ 1.6k entries; with kcap 48
+    it overflows and the split sweep finishes it, while the other rows
+    take the select; both agree with the plain version bit for bit."""
+    g = _gen(dev, 21)
+    q, y = _ints(g, dev, 40, 64), _ints(g, dev, 5_000, 64)
+    q[3] = 0.0
+    valid = torch.rand(5_000, generator=g, device=dev) > 0.1
+    got = kernel.mips_topk(q, y, 40, valid=valid, id_offset=100, kcap=48)
+    counts = kernel.mips_topk.last_counts.cpu()
+    want = ref.mips_topk_ref(q, y, 40, valid=valid, id_offset=100)
+    _assert_match(got, want, 0.0, True)
+    assert counts[3] > 48 and int((counts <= 48).sum()) >= 20
+
+
+def test_mips_topk_select_chain_is_deterministic(dev):
+    g = _gen(dev, 22)
+    q = torch.randn(200, 64, generator=g, device=dev)
+    y = torch.randn(60_000, 64, generator=g, device=dev)
+    for k in (256, 320):
+        a = kernel.mips_topk(q, y, k)
+        b = kernel.mips_topk(q, y, k)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        want = ref.mips_topk_ref(q, y, k)
+        _assert_match(a, want, (q @ y.T).abs().max().item(), False)
+
+
 def test_mips_topk_kernel_raises_on_what_it_does_not_take(dev):
     q = torch.zeros(4, 8, device=dev)
     y = torch.zeros(20, 8, device=dev)
@@ -177,6 +258,8 @@ def test_mips_topk_kernel_raises_on_what_it_does_not_take(dev):
         kernel.mips_topk(q, torch.zeros(8, 20, device=dev).T, 3)
     with pytest.raises(ValueError):
         kernel.mips_topk(q, torch.zeros(700, 8, device=dev), 600)  # k > 512
+    with pytest.raises(ValueError):  # a collect buffer below k
+        kernel.mips_topk(q, torch.zeros(700, 8, device=dev), 40, kcap=39)
     with pytest.raises(ValueError):
         kernel.mips_topk(torch.zeros(4, 300, device=dev),
                          torch.zeros(20, 300, device=dev), 3)
@@ -580,7 +663,7 @@ def test_every_conformance_canary_passes_on_the_card(dev):
     assert sorted(verdicts) == sorted(guard.KNOWN_KERNELS)
     for v in verdicts.values():
         assert v.passed, v.failures
-    assert sum(v.n_pass for v in verdicts.values()) == 11
+    assert sum(v.n_pass for v in verdicts.values()) == 12
     bucket = dict(verdicts["sce_bucket"].launches)
     assert bucket == {"sce_bucket_fwd": 3, "sce_bucket_dx": 1,
                       "sce_bucket_dy": 1, "sce_bucket_plse_fwd": 1}
@@ -785,13 +868,14 @@ def test_topk_kernels_order_nan_scores_as_the_plain_version(dev):
     y = _ints(g, dev, 900, 64)
     q[1] = float("nan")  # a whole row of NaN scores
     y[[5, 400, 777]] = float("nan")  # NaN columns for every row
-    got = kernel.mips_topk(q, y, 10)
-    want = ref.mips_topk_ref(q, y, 10)
-    assert torch.equal(got[1], want[1])
-    nan = want[0].isnan()
-    assert nan.any() and torch.equal(got[0] == float("inf"), nan)
-    assert torch.equal(got[0][~nan], want[0][~nan])
-    assert (got[1][1] == torch.arange(10, device=dev)).all()
+    for k in (10, 64):  # the split sweep, the select chain
+        got = kernel.mips_topk(q, y, k)
+        want = ref.mips_topk_ref(q, y, k)
+        assert torch.equal(got[1], want[1])
+        nan = want[0].isnan()
+        assert nan.any() and torch.equal(got[0] == float("inf"), nan)
+        assert torch.equal(got[0][~nan], want[0][~nan])
+        assert (got[1][1] == torch.arange(k, device=dev)).all()
     t = torch.arange(6, dtype=torch.int32, device=dev)
     fused = ops.eval_fused(q, y, t, 10)
     plain = ref.eval_fused_ref(q, y, t, 10)

@@ -2,8 +2,8 @@
 guard (``repro_torch.launch.elastic``) against the JAX package's, on the
 CPU.
 
-* The 11 canaries: each one's kernel-entry calls are recorded on both
-  sides (the reference's ``_mod`` and the port's ``_kernel`` patched to
+* The reference's 11 canaries: each one's kernel-entry calls are recorded
+  on both sides (the reference's ``_mod`` and the port's ``_kernel`` patched to
   recorders around the plain versions; JAX's grad tracers unwrapped to
   their primal values): the inputs are equal array for array (the
   positive logits, an ``einsum`` in each framework, within ``1e-6``
@@ -157,12 +157,16 @@ CANARIES = [(g, n) for g in sorted(jconf._CANARIES)
             for n, _ in jconf._CANARIES[g]]
 
 
+# The port's own canaries, after the reference's in their group.
+PORT_ONLY = {"mips_topk": ["large_k_select_overflow"]}
+
+
 def test_the_port_has_the_reference_canaries():
     assert len(CANARIES) == 11
     assert tconf.kernels() == jconf.kernels()
     for g in tconf.kernels():
         assert [n for n, _ in tconf._CANARIES[g]] == \
-            [n for n, _ in jconf._CANARIES[g]]
+            [n for n, _ in jconf._CANARIES[g]] + PORT_ONLY.get(g, [])
     assert (tconf._ATOL, tconf._RTOL, tconf._SEED) == \
         (jconf._ATOL, jconf._RTOL, jconf._SEED)
 
@@ -215,7 +219,7 @@ def test_all_canaries_pass_on_the_cpu():
     verdicts = guard.run_conformance(device="cpu")
     assert sorted(verdicts) == sorted(guard.KNOWN_KERNELS)
     assert all(v.passed for v in verdicts.values())
-    assert sum(v.n_pass for v in verdicts.values()) == 11
+    assert sum(v.n_pass for v in verdicts.values()) == 12
     table = guard.verdict_table()
     assert len(table) == 7 and all(r["device"] == "cpu" for r in table)
     # memoized: the same object until cleared
@@ -393,6 +397,29 @@ def test_planned_shared_memory_fits_at_the_kernels_limits():
     for k in (10, 256, 320, 512):
         assert mips_mod.planned_smem(320, 173_520, 256, k, 132) <= \
             MAX_SMEM
+    # mips_topk above k = 32: every launch of the threshold, collect and
+    # select chain and of its finishing sweep, at the widest d and k and
+    # at one row and many (the τ sort's union is largest at few rows)
+    for n_q in (1, 320, 8_192):
+        for k in (33, 256, 320, 512):
+            sweep = mips_mod.sweep_smem(n_q, 173_520, 256, k, 132)
+            chain = mips_mod.select_smem(n_q, 173_520, 256, k, 132)
+            sp = mips_mod.select_plan(n_q, 173_520, 256, k, 132)
+            assert chain == mips_mod.planned_smem(n_q, 173_520, 256, k, 132)
+            assert max(sweep, mips_mod.pass_smem_bytes(256),
+                       mips_mod.sort_smem_bytes(sp.kcap),
+                       mips_mod.sort_smem_bytes(mips_mod.UNION_PER_SPLIT
+                                                * sp.n_split)) <= chain
+            assert chain <= MAX_SMEM
+    # the dispatch checks mips_topk's own plan, the eval sweeps theirs
+    q, y = torch.zeros(320, 256), torch.zeros(173_520, 256)
+    for k in (10, 320):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ops, "_n_sm", lambda device: 132)
+            assert ops._sweep_smem(q, y, k)() == \
+                mips_mod.sweep_smem(320, 173_520, 256, k, 132)
+            assert ops._sweep_smem(q, y, k, mips_mod.planned_smem)() == \
+                mips_mod.planned_smem(320, 173_520, 256, k, 132)
 
 
 # ---------------------------------------------------------------------------
@@ -440,7 +467,7 @@ def test_broken_kernel_raises_under_warn_and_strict(cuda_route, pol):
     assert ei.value.kernel == "mips_topk"
     assert any("injected miscompile" in f for f in ei.value.failures)
     v = guard.verdict_for("mips_topk", device="cpu")
-    assert not v.passed and v.n_fail == 2
+    assert not v.passed and v.n_fail == 3
     assert any(not r["passed"] for r in guard.verdict_table())
 
 
@@ -469,7 +496,7 @@ def test_fixed_kernel_passes_after_clear(cuda_route, monkeypatch):
         ops.mips_topk(q, y, 4)
     # a "fixed" kernel: the plain version in the wrapper's place
     monkeypatch.setattr(mips_mod, "mips_topk",
-                        lambda q, y, k, valid=None, id_offset=0:
+                        lambda q, y, k, valid=None, id_offset=0, kcap=None:
                         ref.mips_topk_ref(q, y, k, valid=valid,
                                           id_offset=id_offset))
     assert not guard.verdict_for("mips_topk", device="cpu").passed

@@ -319,7 +319,7 @@ def test_server_health_reports_guard_and_conformance(server):
     assert h["guard_policy"] == "warn"
     mine = [v for v in h["conformance"] if v["kernel"] == "mips_topk"]
     assert mine and mine[0]["passed"] and mine[0]["device"] == "cpu"
-    assert mine[0]["n_pass"] == 2 and mine[0]["failures"] == []
+    assert mine[0]["n_pass"] == 3 and mine[0]["failures"] == []
 
 
 def test_server_readiness_drill(monkeypatch):

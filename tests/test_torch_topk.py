@@ -199,6 +199,208 @@ def test_split_lists_merge_to_the_single_pass():
 
 
 # ---------------------------------------------------------------------------
+# The k > 32 chain, on the CPU: threshold, collect, select (or the split
+# sweep for a row that overflows)
+# ---------------------------------------------------------------------------
+KEEP = kernel.UNION_PER_SPLIT // 16  # kKeep: entries a thread keeps per row
+
+
+def _key_order(v, i):
+    """``(v, i)`` rows sorted by the key (value desc, id asc), pads kept."""
+    by_id = torch.sort(i, dim=-1, stable=True).indices
+    v, i = torch.gather(v, -1, by_id), torch.gather(i, -1, by_id)
+    order = torch.sort(v, dim=-1, descending=True, stable=True).indices
+    return torch.gather(v, -1, order), torch.gather(i, -1, order)
+
+
+def _chain_model(q, y, k, valid, id_offset, sp, fin):
+    """What the kernel chain computes, from ``ref.mips_topk_ref`` on the
+    column sets the kernels see: each (split, lane)'s best ``KEEP`` over
+    tiles ``s, s + period, …`` and columns ``lane + 16·j``; τ = the k-th
+    of their union; every valid column whose key precedes or equals τ;
+    the first k of those by the key — or, for a row that collected more
+    than ``kcap``, the merged lists of the split sweep. Returns (vals,
+    ids, counts)."""
+    n_q, c = q.shape[0], y.shape[0]
+    tiles = -(-c // kernel.TILE_C)
+    ok = torch.ones(c, dtype=torch.bool) if valid is None else valid
+    uv, ui = [], []
+    for s in range(sp.n_split):
+        for lane in range(16):
+            cols = torch.tensor([t * 64 + lane + 16 * j
+                                 for t in range(s, tiles, sp.period)
+                                 for j in range(4)
+                                 if t * 64 + lane + 16 * j < c], dtype=torch.long)
+            v = torch.full((n_q, KEEP), topk_merge.NEG_INF)
+            i = torch.full((n_q, KEEP), topk_merge.ID_PAD, dtype=torch.int32)
+            if len(cols):
+                bv, bi = ref.mips_topk_ref(q, y[cols], KEEP, valid=ok[cols])
+                real = bi != topk_merge.ID_PAD
+                glob = (id_offset + cols[bi.clamp(max=len(cols) - 1).long()])
+                v[:, :bv.shape[1]] = bv
+                i[:, :bi.shape[1]] = torch.where(real, glob.to(torch.int32),
+                                                 bi)
+            uv.append(v)
+            ui.append(i)
+    uv, ui = _key_order(torch.cat(uv, 1), torch.cat(ui, 1))
+    if uv.shape[1] < k:  # fewer than k entries: τ is a pad
+        uv = torch.cat([uv, torch.full((n_q, k), topk_merge.NEG_INF)], 1)
+        ui = torch.cat([ui, torch.full((n_q, k), topk_merge.ID_PAD,
+                                       dtype=torch.int32)], 1)
+    tv, ti = uv[:, k - 1:k], ui[:, k - 1:k]
+    s = q @ y.T
+    col = torch.arange(id_offset, id_offset + c, dtype=torch.int32)[None]
+    take = ok[None] & ((s > tv) | ((s == tv) & (col <= ti)))  # ⪯ τ
+    counts = take.sum(1)
+    vals = torch.empty(n_q, k)
+    ids = torch.empty(n_q, k, dtype=torch.int32)
+    for r in range(n_q):
+        if counts[r] > sp.kcap:  # the split sweep finishes the row
+            v = torch.full((1, k), topk_merge.NEG_INF)
+            i = torch.full((1, k), topk_merge.ID_PAD, dtype=torch.int32)
+            for lo in range(0, c, fin.split_cols):
+                hi = min(c, lo + fin.split_cols)
+                lv, li = ref.mips_topk_ref(q[r:r + 1], y[lo:hi], k,
+                                           valid=ok[lo:hi],
+                                           id_offset=id_offset + lo)
+                v, i = topk_merge.merge_topk_tile(v, i, lv, li, k)
+        else:
+            pad = max(0, k - int(counts[r]))
+            v, i = _key_order(
+                torch.cat([s[r][take[r]],
+                           torch.full((pad,), topk_merge.NEG_INF)])[None],
+                torch.cat([col[0][take[r]],
+                           torch.full((pad,), topk_merge.ID_PAD,
+                                      dtype=torch.int32)])[None])
+            v, i = v[:, :k], i[:, :k]
+            i = torch.where(v == topk_merge.NEG_INF,
+                            torch.full_like(i, topk_merge.ID_PAD), i)
+        vals[r], ids[r] = v[0], i[0]
+    return vals, ids, counts
+
+
+def _clustered(rng, n_q, c, d, period, residue):
+    """Integer inputs whose best columns all lie in the tiles ``t`` with
+    ``t % period == residue``: positive queries, boosted rows there."""
+    q = rng.integers(1, 3, size=(n_q, d)).astype(np.float32)
+    y = rng.integers(-2, 3, size=(c, d)).astype(np.float32)
+    tile = np.arange(c) // kernel.TILE_C
+    hot = tile % period == residue
+    y[hot] = rng.integers(3, 6, size=(int(hot.sum()), d))
+    return q, y
+
+
+# (name, n_q, C, d, k, n_sm, inputs, valid, id_offset, kcap, overflow)
+CHAIN_CASES = [
+    # the best columns in one residue of the tiles: one the threshold pass
+    # samples (one split holds them, the union 32 of them: τ falls below
+    # the cluster), one it skips; both collect the whole cluster and
+    # overflow into the split sweep
+    ("clustered_sampled_residue", 6, 12_800, 8, 40, 4, "hot_in", None, 0,
+     None, True),
+    ("clustered_skipped_residue", 6, 12_800, 8, 40, 4, "hot_out", None, 0,
+     None, True),
+    ("all_equal", 5, 2_000, 8, 100, 4, "ones", None, 9, None, False),
+    ("fewer_valid_than_k", 7, 3_000, 8, 320, 4, "ints", "starved", 3, None,
+     False),
+    ("k_equals_c", 4, 300, 8, 300, 132, "ints", "random", 0, None, False),
+    ("k512", 3, 20_000, 8, 512, 32, "ints", "random", 0, None, False),
+    # an all-equal row collects ≈ 4k > kcap; the other rows fit
+    ("overflow_row", 8, 5_000, 8, 40, 132, "zero_row", None, 100, 64, True),
+]
+
+
+@pytest.mark.parametrize(
+    "name,n_q,c,d,k,n_sm,inputs,valid,id_offset,kcap,overflow", CHAIN_CASES,
+    ids=[c[0] for c in CHAIN_CASES],
+)
+def test_select_chain_equals_the_single_pass(name, n_q, c, d, k, n_sm,
+                                             inputs, valid, id_offset, kcap,
+                                             overflow):
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    sp = kernel.select_plan(n_q, c, d, k, n_sm)
+    if kcap is not None:
+        sp = kernel.SelectPlan(sp.n_split, sp.period, sp.collect_split, kcap)
+    if inputs.startswith("hot"):
+        assert sp.period > sp.n_split  # a sampled threshold pass
+        residue = 1 if inputs == "hot_in" else sp.n_split + 1
+        q, y = _clustered(rng, n_q, c, d, sp.period, residue)
+    elif inputs == "ones":
+        q, y = np.ones((n_q, d), np.float32), np.ones((c, d), np.float32)
+    else:
+        q, y = _inputs(rng, n_q, c, d, True)
+        if inputs == "zero_row":
+            q[3] = 0.0
+    vm = None
+    if valid == "starved":
+        vm = np.zeros(c, bool)
+        vm[rng.choice(c, size=50, replace=False)] = True
+    elif valid == "random":
+        vm = rng.random(c) > 0.3
+    q, y = torch.from_numpy(q), torch.from_numpy(y)
+    vm = None if vm is None else torch.from_numpy(vm)
+    vals, ids, counts = _chain_model(q, y, min(k, c), vm, id_offset, sp,
+                                     kernel.plan(n_q, c, d, k, n_sm))
+    want = ref.mips_topk_ref(q, y, k, valid=vm, id_offset=id_offset)
+    assert torch.equal(vals, want[0]) and torch.equal(ids, want[1])
+    assert bool((counts > sp.kcap).any()) == overflow
+    if name == "overflow_row":
+        assert counts[3] > sp.kcap and (counts <= sp.kcap).sum() >= 1
+    if valid == "starved":
+        assert (ids[:, 50:] == topk_merge.ID_PAD).all()
+
+
+def test_guard_large_k_canary_drives_both_paths():
+    """The kernel guard's ``large_k_select_overflow`` canary, modelled at
+    an H100's plan (132 SMs): its all-ties row 3 overflows the 60-entry
+    collect buffer into the split sweep while the others take the
+    select, and its starved mask leaves every row below k."""
+    from repro_torch.kernels.guard import conformance as conf
+
+    q, y, valid, starved = conf._large_k_inputs(torch.device("cpu"))
+    n_q, c, d, k = q.shape[0], y.shape[0], q.shape[1], conf.LARGE_K
+    fin = kernel.plan(n_q, c, d, k, 132)
+    sp = kernel.select_plan(n_q, c, d, k, 132)
+    vals, ids, counts = _chain_model(
+        q, y, k, valid, 11,
+        kernel.SelectPlan(sp.n_split, sp.period, sp.collect_split,
+                          conf.LARGE_K_CAP), fin)
+    want = ref.mips_topk_ref(q, y, k, valid=valid, id_offset=11)
+    assert torch.equal(vals, want[0]) and torch.equal(ids, want[1])
+    over = counts > conf.LARGE_K_CAP
+    assert over.tolist() == [r == 3 for r in range(n_q)]
+    vals, ids, counts = _chain_model(q, y, k, starved, 11, sp, fin)
+    assert (counts == 30).all() and (ids[:, 30:] == topk_merge.ID_PAD).all()
+
+
+@pytest.mark.parametrize("d", [1, 8, 33, 64, 128, 255, 256])
+def test_select_plan_fits_shared_memory_and_covers_k(d):
+    """For every k in (32, 512]: each launch of the chain fits 227 KB,
+    the union can hold k entries (16 per split) unless the catalog has
+    fewer tiles than that needs, and kcap ≥ k is a power of two that the
+    sorts take."""
+    for n_q in (1, 64, 320, 4_096):
+        for c in (600, 25_600, 173_520):
+            tiles = -(-c // kernel.TILE_C)
+            for k in range(kernel.SMALL_K + 1, kernel.MAX_K + 1):
+                if k > c:
+                    continue
+                sp = kernel.select_plan(n_q, c, d, k, 132)
+                assert kernel.select_smem(n_q, c, d, k, 132) <= \
+                    kernel.MAX_SMEM
+                assert kernel.planned_smem(n_q, c, d, k, 132) == \
+                    kernel.select_smem(n_q, c, d, k, 132)
+                assert kernel.UNION_PER_SPLIT * sp.n_split >= k or \
+                    sp.n_split == tiles
+                assert kernel.UNION_PER_SPLIT * sp.n_split <= \
+                    kernel.MAX_SORT
+                assert sp.n_split <= sp.period <= tiles
+                assert k <= sp.kcap <= kernel.MAX_SORT
+                assert sp.kcap & (sp.kcap - 1) == 0
+                assert 1 <= sp.collect_split <= tiles
+
+
+# ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
 def test_ops_cpu_takes_plain_version_and_leaves_counter():
