@@ -128,15 +128,22 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    gradients within ``1e-5·max|grad|`` plus ``2e-4·|grad|`` of the plain
    versions (``linear_ce_loss_ref``, ``fused_lse_ref``,
    ``linear_ce_dx_ref``, ``linear_ce_dw_ref``), dX exactly 0 on rows with
-   a zero cotangent. Times each kernel, its plain version and one PyTorch
-   call (``logsumexp(x @ wᵀ)``, ``softmax(x @ wᵀ) @ w``,
-   ``softmax(x @ wᵀ)ᵀ @ x``, all f32) with a cold L2 cache.
+   a zero cotangent. The backward kernels (3xTF32 on the tensor cores)
+   take the planes of ``linear_ce_split``, which must equal the plain
+   split (``ref.tf32x3_planes_ref``) bit for bit on every input. Times
+   each kernel, the split, their plain versions and one PyTorch call
+   (``logsumexp(x @ wᵀ)``, ``softmax(x @ wᵀ) @ w``,
+   ``softmax(x @ wᵀ)ᵀ @ x``, all f32; none for the split) with a cold L2
+   cache. The backward kernels' bound is the largest of three TF32 passes
+   at 495 TFLOP/s, the N·C exps at the SFUs' rate (16 a clock per SM at
+   ``nvidia-smi``'s top SM clock) and the bytes, its basis named and the
+   f32 FMA bound printed beside it; the forward's stays the f32 FMA bound.
 14. The trainer with the competitor losses at full width:
    ``make_seqrec_train_step`` with ``train_loss`` set by
    ``dataclasses.replace`` — ``ce_fused_linear`` and ``ce_fused`` for 20
    steps each (every loss finite, no step skipped, the mean of the last 5
-   losses below the first 5's, each of the family's three kernels
-   launched once per step), then every other registry name at its
+   losses below the first 5's, each of the family's three kernels and the
+   split launched once per step), then every other registry name at its
    ``make_loss`` defaults for 3 steps (``ce`` holds the dense
    ``(N, C)`` logits and runs at batch 64: at 128 they and their
    gradients do not fit an H100 80GB). Prints one table of each loss's
@@ -168,8 +175,8 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    k. ``eval_fused`` and ``eval_tgt_gather`` have two each: the
    evaluation phase's B = 256 and the trainers' B = 128. The three
    ``sce_gather_plse`` launches carry phase 8's launches and phase 6's
-   times on the (1, 1) input. The six full-CE kernels carry phase 14's
-   launches and phase 13's times at the trainer's shape. The four
+   times on the (1, 1) input. The six full-CE kernels and the split carry
+   phase 14's launches and phase 13's times at the trainer's shape. The four
    ``sce_bucket`` launches and ``eval_topk`` / ``eval_tgt_scores`` carry
    phase 3's launches (the canaries') and phase 15's times (the eval ones
    at B = 256).
@@ -194,6 +201,8 @@ N_PHASES = 17
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12  # f32 outside the tensor cores
+PEAK_TF32_FLOP_S = 495e12  # dense TF32 on the tensor cores
+SFU_PER_SM_CLOCK = 16  # exp2 / tanh results an SM's SFUs give a clock
 
 C_SERVE = 173_520  # sasrec-sce's shard-even catalog slice
 N_ITEMS = 173_511
@@ -211,10 +220,9 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def smi() -> str:
+def smi(query="name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
@@ -1674,11 +1682,12 @@ CE_KERNELS = (  # (wrapper, family, output, the TPU kernel it replaces)
 )
 
 
-def ce_calls(x, w, t, g, lse, cap):
+def ce_calls(x, w, t, g, lse, cap, planes):
     """Per kernel of ``CE_KERNELS``: ``(kernel call, plain call)`` on these
     inputs; the backward kernels and their plain versions take the same
-    ``lse``. ``linear_ce_fwd`` returns ``(loss, lse)``, its plain version
-    the loss."""
+    ``lse``, the kernels the split ``planes`` of ``x`` and ``w`` (as the
+    autograd backward hands them over). ``linear_ce_fwd`` returns
+    ``(loss, lse)``, its plain version the loss."""
     from repro_torch.kernels import fused_ce, linear_sce, ref
 
     kw = dict(logit_softcap=cap)
@@ -1686,33 +1695,54 @@ def ce_calls(x, w, t, g, lse, cap):
     return {
         "linear_ce_fwd": (lambda: linear_sce.linear_ce_fwd(x, w, t, **kw),
                           lambda: ref.linear_ce_loss_ref(x, w, t, **kw)),
-        "linear_ce_dx": (lambda: linear_sce.linear_ce_dx(*bwd, **kw),
+        "linear_ce_dx": (lambda: linear_sce.linear_ce_dx(*bwd, **kw,
+                                                         planes=planes),
                          lambda: ref.linear_ce_dx_ref(*bwd, **kw)),
-        "linear_ce_dw": (lambda: linear_sce.linear_ce_dw(*bwd, **kw),
+        "linear_ce_dw": (lambda: linear_sce.linear_ce_dw(*bwd, **kw,
+                                                         planes=planes),
                          lambda: ref.linear_ce_dw_ref(*bwd, **kw)),
         "fused_lse_fwd": (lambda: fused_ce.fused_lse_fwd(x, w),
                           lambda: ref.fused_lse_ref(x, w)),
-        "fused_lse_dx": (lambda: fused_ce.fused_lse_dx(x, w, lse, g),
+        "fused_lse_dx": (lambda: fused_ce.fused_lse_dx(x, w, lse, g,
+                                                       planes=planes),
                          lambda: ref.linear_ce_dx_ref(x, w, None, lse, g)),
-        "fused_lse_dy": (lambda: fused_ce.fused_lse_dy(x, w, lse, g),
+        "fused_lse_dy": (lambda: fused_ce.fused_lse_dy(x, w, lse, g,
+                                                       planes=planes),
                          lambda: ref.linear_ce_dw_ref(x, w, None, lse, g)),
     }
 
 
+def split_calls(x, w):
+    """``linear_ce_split`` and its plain version on ``x`` and ``w``."""
+    from repro_torch.kernels import linear_sce, ref
+
+    return (lambda: linear_sce.linear_ce_split(x, w),
+            lambda: (ref.tf32x3_planes_ref(x), ref.tf32x3_planes_ref(w)))
+
+
 def ce_case(name, x, w, t, g, *, cap=None):
     """The six full-CE kernels against their plain versions on one input
-    (the fused family without the cap, which it does not take). Values
-    within ``1e-5·max|want|``, gradients within ``1e-5·max|grad|`` plus
-    ``2e-4·|grad|`` (f32 exp sums fold in another order); rows with a
-    zero cotangent get dX exactly 0. Returns the max errors."""
+    (the fused family without the cap, which it does not take), the
+    backward ones on the split kernel's planes, which must equal the plain
+    split bit for bit. Values within ``1e-5·max|want|``, gradients within
+    ``1e-5·max|grad|`` plus ``2e-4·|grad|`` (f32 exp sums fold in another
+    order; dX and dW/dY in 3xTF32); rows with a zero cotangent get dX
+    exactly 0. Returns the max errors."""
     import torch
 
     from repro_torch.kernels import ref
 
     errs = {}
+    split, split_plain = split_calls(x, w)
+    planes = split()
+    for got, want in zip(planes, split_plain()):
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"{name}: linear_ce_split's planes differ from the plain "
+              f"version's bits")
+    errs["linear_ce_split"] = 0.0
     for family, c_ in (("linear", cap), ("fused", None)):
         lse = ref.fused_lse_ref(x, w, logit_softcap=c_)
-        calls = ce_calls(x, w, t, g, lse, c_)
+        calls = ce_calls(x, w, t, g, lse, c_, planes)
         for kname, fam, what, _ in CE_KERNELS:
             if fam != family:
                 continue
@@ -1745,31 +1775,70 @@ def ce_case(name, x, w, t, g, *, cap=None):
             "max_abs_err": errs}
 
 
+def sm_clock_hz():
+    """The card's top SM clock (``nvidia-smi clocks.max.sm``)."""
+    return float(smi("clocks.max.sm").split()[0]) * 1e6
+
+
 def ce_bounds(n, c, d):
-    """Least times of the six kernels at (N, C, d): each reads x and w once
-    (the linear family also the targets), the backward kernels the lse
-    and g; each writes its outputs once (loss and lse; lse; dX; dW). The
-    forward does 2·N·C·d f32 FLOPs; dX and dW recompute the logits and
-    take a product of the same size, 4·N·C·d."""
+    """Least times of the full-CE kernels at (N, C, d): each reads x and w
+    once (the linear family also the targets), the backward kernels the
+    lse and g; each writes its outputs once (loss and lse; lse; dX; dW).
+    The forward does 2·N·C·d f32 FLOPs, as f32 FMAs. dX and dW/dY
+    recompute the logits and take a product of the same size, 4·N·C·d
+    FLOPs, in 3xTF32 on the tensor cores: their bound is the largest of
+    three TF32 passes at the dense TF32 rate, the N·C exps (no cap) at
+    the SFU rate of the card's SMs at its top clock, and the bytes; the
+    f32 FMA bound of the same FLOPs stands beside it (``f32_ms``). The
+    split kernel reads x and w and writes their planes (two floats per
+    depth, d rounded up to 16): bytes. Returns name →
+    ``(ms, "bytes" | "operations", basis, f32_ms)``."""
+    import torch
+
     common = 4 * (n * d + c * d)
     flops = 2 * n * c * d
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_ms = n * c / (SFU_PER_SM_CLOCK * n_sm * sm_clock_hz()) * 1e3
     out = {}
     for kname, family, what, _ in CE_KERNELS:
         tgt = 4 * n if family == "linear" else 0
         if what == "fwd":
             nbytes = common + tgt + (8 if family == "linear" else 4) * n
-            out[kname] = roofline_ms(nbytes, flops)
-        else:
-            written = 4 * (n if what == "dx" else c) * d
-            out[kname] = roofline_ms(common + tgt + 8 * n + written,
-                                     2 * flops)
+            ms, by = roofline_ms(nbytes, flops)
+            out[kname] = (ms, by, "f32 FMAs" if by == "operations"
+                          else "bytes", ms)
+            continue
+        written = 4 * (n if what == "dx" else c) * d
+        nbytes = common + tgt + 8 * n + written
+        f32_ms = roofline_ms(nbytes, 2 * flops)[0]
+        cands = {"3xTF32 tensor cores": 3 * 2 * flops / PEAK_TF32_FLOP_S
+                 * 1e3, "SFU exps": sfu_ms,
+                 "bytes": nbytes / PEAK_BYTES_S * 1e3}
+        basis = max(cands, key=cands.get)
+        out[kname] = (cands[basis],
+                      "bytes" if basis == "bytes" else "operations", basis,
+                      f32_ms)
+    dp = -(-d // 16) * 16
+    ms = (common + 8 * (n + c) * dp) / PEAK_BYTES_S * 1e3
+    out["linear_ce_split"] = (ms, "bytes", "bytes", ms)
     return out
 
 
 def ce_kernel_phase(dev):
     import torch
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import linear_sce, ref
+
+    # The guard's preflight plans the backward's shared memory with
+    # linear_sce.bwd_plan, a copy of the library's plan: hold them equal.
+    for d in range(1, linear_sce.MAX_D + 1):
+        for dw in (False, True):
+            mine = linear_sce.bwd_plan(d, dw)
+            lib = linear_sce.library_bwd_plan(d, dw)
+            check(mine == lib, f"linear_ce backward plan at d={d} dw={dw}: "
+                  f"wrapper {mine}, library {lib}")
+    print("  linear_ce backward plan: the wrapper's copy equals the "
+          "library's at every d <= 256")
 
     gen = torch.Generator(device=dev).manual_seed(3)
 
@@ -1812,10 +1881,13 @@ def ce_kernel_phase(dev):
                          cap=30.0))
 
     # Times at the trainer's shape, cold L2; the library calls hold the
-    # (N, C) f32 logits (17.8 GB) and their softmax.
+    # (N, C) f32 logits (17.8 GB) and their softmax. The backward kernels
+    # take the planes of one split, timed on its own.
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     lse = ref.fused_lse_ref(x, w)
-    calls = ce_calls(x, w, t, g, lse, None)
+    split, split_plain = split_calls(x, w)
+    calls = ce_calls(x, w, t, g, lse, None, split())
+    calls["linear_ce_split"] = (split, split_plain)
     library = {
         "fwd": lambda: torch.logsumexp(x @ w.T, -1),
         "dx": lambda: torch.softmax(x @ w.T, -1) @ w,
@@ -1824,18 +1896,27 @@ def ce_kernel_phase(dev):
     bounds = ce_bounds(N_POS, C_SERVE, D)
     timings = {}
     with torch.no_grad():
-        for kname, _, what, _ in CE_KERNELS:
+        for kname, what in [(k, w_) for k, _, w_, _ in CE_KERNELS] + [
+                ("linear_ce_split", None)]:
             kern, plain = calls[kname]
+            ms, by, basis, f32_ms = bounds[kname]
             timings[kname] = {
                 "ms": time_ms(kern, 5, flush),
                 "plain_ms": time_ms(plain, 2, flush),
-                "library_ms": time_ms(library[what], 3, flush),
-                "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
+                "library_ms": (None if what is None
+                               else time_ms(library[what], 3, flush)),
+                "bound_ms": ms, "bound_by": by, "bound_basis": basis,
+                "bound_f32_ms": f32_ms,
             }
             tt = timings[kname]
+            lib_ms = ("none" if tt["library_ms"] is None
+                      else f"{tt['library_ms']:.4f} ms")
+            f32 = ("" if what is None or what == "fwd"
+                   else f"; as f32 FMAs {f32_ms:.4f} ms")
             print(f"  time {kname}: kernel {tt['ms']:.4f} ms, plain "
-                  f"{tt['plain_ms']:.3f} ms, library {tt['library_ms']:.4f} "
-                  f"ms, bound {tt['bound_ms']:.4f} ms ({tt['bound_by']})")
+                  f"{tt['plain_ms']:.3f} ms, library {lib_ms}, bound "
+                  f"{tt['bound_ms']:.4f} ms ({tt['bound_by']}: {basis}"
+                  f"{f32})")
     del flush
     torch.cuda.empty_cache()
     return cases, timings
@@ -1924,6 +2005,7 @@ def loss_phase(dev, trainers):
     batch = N_POS // cfg.max_len
     counters = {k: getattr(linear_sce if k.startswith("linear") else fused_ce,
                            k) for k, *_ in CE_KERNELS}
+    counters["linear_ce_split"] = linear_sce.linear_ce_split
     for fn in counters.values():  # the main path starts here
         fn.launches = 0
     runs, seen = [], dict.fromkeys(counters, 0)
@@ -1935,7 +2017,7 @@ def loss_phase(dev, trainers):
               f"{last:.5f} is not below the first 5's {first:.5f}")
         moved = {k: fn.launches - seen[k] for k, fn in counters.items()}
         family = "linear" if name == "ce_fused_linear" else "fused"
-        for kname, fam, *_ in CE_KERNELS:
+        for kname, fam, *_ in CE_KERNELS + (("linear_ce_split", family),):
             want = KERNEL_LOSS_STEPS if fam == family else 0
             check(moved[kname] == want, f"{name}: {kname} launched "
                   f"{moved[kname]} times in {KERNEL_LOSS_STEPS} steps")
@@ -2582,7 +2664,9 @@ def main() -> int:
             "bound_by": tt["bound_by"],
             "library_ms": tt["library_ms"],
         })
-    for kname, _, _, replaces in CE_KERNELS:
+    # the split is a prologue of the port's own backward: no TPU kernel
+    for kname, _, _, replaces in CE_KERNELS + (
+            ("linear_ce_split", "linear", "split", None),):
         tt = ctimes[kname]
         kernels.append({
             "name": kname,

@@ -21,43 +21,87 @@
 //   dX[r]    = Σ_j gw[r, j] · w[j]
 //   dW[j]    = Σ_r gw[r, j] · x[r]
 //
+// One deviation from the plain version (kernels/ref.py), in dX and dW
+// only: their exp takes min(l − lse, 44). With the lse of the same
+// logits, l − lse ≤ 0 and the min never acts. Given an lse more than 44
+// below a logit, the plain version's entry grows on towards inf, while
+// the kernels' stays at e^44 · g, so that their tensor-core sums stay
+// finite (tests/test_torch_cuda.py holds this regime against the capped
+// formula).
+//
 // The softcap applies before the mask of the ragged last tile, as on the
 // TPU (linear_sce.py:84-87): a padded column stays at NEG_INF, never −cap.
 //
 // What bounds it on an H100. At the paper's training shape (N = 25,600
 // positions, C = 173,520 catalog rows, d = 64) the forward is
 // 2·N·C·d = 5.69e11 f32 FLOPs against 51 MB that must move: 8.49 ms at
-// 67 TFLOP/s against 0.015 ms at 3.35 TB/s. dX and dW each recompute the
-// logits and take a product of the same size, 1.14e12 FLOPs, 16.97 ms. So
-// the f32 FMA rate bounds all three. The products stay f32 FMAs in a fixed
-// order over d (f32_tile.cuh; no TF32, no tensor cores), so the losses and
-// gradients keep f32 precision next to the plain version.
+// 67 TFLOP/s against 0.015 ms at 3.35 TB/s, so the f32 FMA rate bounds
+// it. Its products stay f32 FMAs in a fixed order over d (f32_tile.cuh).
+// dX and dW each recompute the logits and take a product of the same
+// size, 1.14e12 FLOPs: 16.97 ms as f32 FMAs. They run on the tensor cores
+// instead, in 3xTF32 (tf32x3_tile.cuh): three TF32 passes of 1.14e12 at
+// the dense 495 TFLOP/s are 6.9 ms, against N·C = 4.44e9 exps, about
+// 1 ms on the SFUs (16 a clock per SM, 132 SMs, 1.98 GHz). So the tensor
+// cores bound them; `mma.sync` (not `wgmma`) reaches about 310 TFLOP/s
+// of TF32 with eight warps an SM on an H100 SXM (probes/tf32_mma_rate.py),
+// 11 ms here. Shared memory comes next: a warp-tile of 384 `mma` reads
+// 48 KB of fragments, about two thirds of what the SM's 128 bytes a clock
+// give at that rate. The rest — the cotangent's exps, the splits of G,
+// the FADDs of the k16 steps — is about 1,700 instructions a warp-tile
+// beside its 384 `mma`.
+//
+// Why 3xTF32 keeps the f32 tolerance. A product a·b becomes
+// a_lo·b_hi + a_hi·b_lo + a_hi·b_hi with each half rounded to nearest:
+// about 2⁻²¹ relative error per product against f32's 2⁻²⁴, and no sum
+// runs long inside the tensor cores (each k16 step starts from zero and
+// is added in f32; see tf32x3_tile.cuh). A logit of |l| ≈ 100 then moves
+// by a few units in f32's last place, less than cuBLAS's f32 product of
+// the plain version does, well inside the gradients'
+// 1e-5·max|grad| + 2e-4·|grad|. Inputs are split once per backward by
+// split_kernel into (hi, lo) planes, (N + C)·dp·8 bytes (102 MB at the
+// paper's shape), which dX and dW share.
 //
 // Design. The TPU grid carries (m, s, pos) along a sequential catalog axis;
 // on Hopper a block owns a tile and loops itself.
-//   * forward and dX: a block owns 64 positions, stages their rows of x in
+//   * forward: a block owns 64 positions, stages their rows of x in
 //     shared memory once and streams its share of the catalog through
 //     shared memory 64 rows at a time, computing each 64 × 64 logit tile
-//     as a 4 × 4 register tile per thread. The forward keeps per thread and
-//     row an online (m, s) over the thread's columns (and the plucked
-//     positive), merged over the row's 16 threads by half-warp shuffles in
-//     a fixed tree at the end. dX turns each tile into gw, stores gwᵀ in
-//     shared memory and accumulates gw · w_tile into a (64, d) register
-//     accumulator.
-//   * 400 position tiles at N = 25,600 fill the 132 SMs in about 1.5
-//     waves, so the catalog is cut into S contiguous splits (grid
-//     (N / 64, S)), S the least number whose blocks fill their last wave to
-//     90 % (the occupancy calculator gives the blocks per SM). Each split
-//     writes its partial (m, s, pos) per row, or its partial dX, and a
-//     second kernel merges them per row in split order. No atomics: every
-//     result repeats bit for bit.
-//   * dW (dY for fused_ce): the transposed grid, as on the TPU. A block
-//     owns 64 catalog rows, stages them once, streams all N positions 64 at
-//     a time (recomputing the capped tile from the saved lse) and writes
-//     each output row once: deterministic. The one-hot term hits a target's
-//     column once per position, so a target shared by many positions is
-//     summed over them inside the block's loop. At C = 173,520 that is
-//     2,712 blocks, enough waves that no split is needed.
+//     as a 4 × 4 register tile per thread, with per thread and row an
+//     online (m, s) over the thread's columns (and the plucked positive),
+//     merged over the row's 16 threads by half-warp shuffles in a fixed
+//     tree at the end.
+//   * dX and dW are one kernel, ce_bwd_kernel, on two grids. A block of
+//     four warps owns 128 rows (32 a warp, two m16 tiles) of one matrix —
+//     positions of x for dX, catalog rows of w for dW (the transposed grid,
+//     as on the TPU) — staged once into shared memory as ready A
+//     fragments, and streams the other matrix's planes 32 rows a tile
+//     through a ring of cp.async stages (three; two for dW at d ≤ 64,
+//     where its tiles also carry lse, g and the targets of their 32
+//     positions and three would not let two blocks share an SM), so tile
+//     i + 2 loads while tile i computes. Per tile a warp computes its
+//     32 × 32 logit tile S with 192 `mma` (k16 steps over the depth),
+//     turns it into the cotangent in the accumulator registers (the
+//     softcap before the ragged-tile mask, as on the TPU; rows with g = 0
+//     give exactly 0), splits it into hi and lo there, and multiplies it
+//     by the streamed tile into its (32, 64) output accumulator with
+//     another 192 `mma` — G never goes through shared memory. Every
+//     fragment load lands in the registers the `mma` reads (the layouts
+//     of tf32x3_tile.cuh); a (hi, lo) pair per depth would need four
+//     register moves per `mma`. For d > 64 the
+//     grid's third axis takes the output 64 depth columns at a time, each
+//     block recomputing S.
+//   * 200 position blocks at N = 25,600 fill the SMs' 264 slots (two
+//     blocks an SM) in under a wave, so dX cuts the catalog into S
+//     contiguous splits (grid (N / 128, S)), S the least number whose
+//     blocks fill their last wave to 90 % (the occupancy calculator gives
+//     the blocks per SM). Each split writes its partial per row, and a
+//     second kernel merges them per row in split order; the forward does
+//     the same with its (m, s, pos). No atomics: every result repeats bit
+//     for bit. dW writes each row once; a target shared by many positions
+//     is summed inside the block's loop.
+//   * At d = 64 (ptxas, sm_90a): 253–255 registers a thread and no
+//     spills; 114,688 bytes of shared memory for dX and 99,072 for dW:
+//     two blocks, eight warps, per SM.
 //
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -69,31 +113,30 @@
 #include <type_traits>
 
 #include "f32_tile.cuh"
+#include "tf32x3_tile.cuh"
 
 namespace {
 
 using namespace f32_tile;
+using namespace tf32x3;
 
 constexpr int kMaxSplits = 64;
 constexpr int kMergeThreads = 256;
 
-// One call's inputs. `tgt` is null without PLUCK; `lse` and `g` are null
-// in the forward.
+// The forward's inputs. `tgt` is null without PLUCK.
 struct Problem {
-  const float* x;    // (n, d)
-  const float* w;    // (c, d)
-  const int* tgt;    // (n,)
-  const float* lse;  // (n,)
-  const float* g;    // (n,)
+  const float* x;  // (n, d)
+  const float* w;  // (c, d)
+  const int* tgt;  // (n,)
   int n, c, d;
   float cap;
   int vec_x, vec_w;
-  int tiles_per_split;  // catalog tiles of one split (forward, dX)
+  int tiles_per_split;  // catalog tiles of one split
 };
 
-size_t smem_bytes(int d, bool with_gw) {
-  return sizeof(float) * ((size_t)2 * kTile * row_pitch(d) +
-                          (with_gw ? (size_t)kTile * kGwPitch : 0));
+// The forward's shared memory: two 64-row f32 tiles.
+size_t smem_bytes(int d) {
+  return sizeof(float) * (size_t)2 * kTile * row_pitch(d);
 }
 
 template <bool CAP>
@@ -102,14 +145,20 @@ __device__ __forceinline__ float logit(float v, float cap) {
 }
 
 // The backward tile's entry: (p − onehot) · cap′ · g, 0 on padded columns.
+// With the lse of the logits, l − lse ≤ 0; an lse far below them would
+// overflow exp, and capping its argument at kMaxExp keeps such a
+// cotangent (and its tensor-core products and sums) finite — the
+// deviation from the plain version named at the top.
+constexpr float kMaxExp = 44.f;  // e^44 < 2^64
 template <bool PLUCK, bool CAP>
 __device__ __forceinline__ float cotangent(float l, float lse, float g,
                                            bool live, bool hit, float cap) {
-  if (!live) return 0.f;
-  float p = expf(l - lse);
-  if (PLUCK && hit) p -= 1.f;
+  float z = l - lse;
+  z = z > kMaxExp ? kMaxExp : z;  // a NaN stays NaN
+  float p = expf(z);
+  if (PLUCK) p -= hit ? 1.f : 0.f;
   if (CAP) p *= cap_deriv(l, cap);
-  return p * g;
+  return live ? p * g : 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -219,74 +268,328 @@ ce_fwd_merge_kernel(const float* __restrict__ part, float* __restrict__ loss,
 }
 
 // ---------------------------------------------------------------------------
-// dX: 64 positions against one split of the catalog.
+// Backward: the (hi, lo) planes, then dX and dW on the tensor cores.
 // ---------------------------------------------------------------------------
-template <int NC, bool PLUCK, bool CAP>
-__global__ void __launch_bounds__(kThreads)
-ce_dx_kernel(Problem a, float* __restrict__ out) {
+constexpr int kSplitThreads = 256;
+
+// xp and wp: the rows of x (n, d) and w (c, d) as blocks of 8 depths,
+// (hi[8], lo[8]), zeros past d (tf32x3_tile.cuh). One thread a group of
+// four depths: one 16-byte chunk of hi and one of lo.
+__global__ void __launch_bounds__(kSplitThreads)
+split_kernel(const float* __restrict__ x, const float* __restrict__ w,
+             float4* __restrict__ xp, float4* __restrict__ wp, int n, int c,
+             int d, int cpr) {
+  const int quads = cpr / 2;  // groups of four depths a row
+  long e = (long)blockIdx.x * kSplitThreads + threadIdx.x;
+  const float* src = x;
+  float4* dst = xp;
+  if (e >= (long)n * quads) {
+    e -= (long)n * quads;
+    src = w;
+    dst = wp;
+    if (e >= (long)c * quads) return;
+  }
+  const long r = e / quads;
+  const int k = 4 * (int)(e - r * quads);  // first depth of the group
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split(k + i < d ? src[r * d + k + i] : 0.f, h[i], l[i]);
+  // block k / 8: chunks (hi 0..3, hi 4..7, lo 0..3, lo 4..7)
+  float4* out = dst + r * cpr + (k / 8) * 4 + (k % 8) / 4;
+  out[0] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                       __uint_as_float(h[2]), __uint_as_float(h[3]));
+  out[2] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                       __uint_as_float(l[2]), __uint_as_float(l[3]));
+}
+
+constexpr int kBwdMaxWarps = 4;
+
+// One backward call. The block owns rows of `own` and streams `str`:
+// dX owns positions (x) and streams the catalog (w); dW the reverse.
+struct BwdProblem {
+  const float4* own;  // (n_own, dp) planes
+  const float4* str;  // (n_str, dp) planes
+  const int* tgt;     // (n,) or null without PLUCK
+  const float* lse;   // (n,)
+  const float* g;     // (n,)
+  int n, c, d, cpr;   // cpr = dp / 2 chunks a row
+  int n_own, n_str;
+  float cap;
+  int tiles_per_split;  // streamed tiles of one split (all of them for dW)
+  int stages;           // cp.async ring depth: 2 or 3
+};
+
+// Rows of the owned block: kWarpRows a warp.
+// dX: out (splits, n, d), this split's partial; dW: out (c, d).
+template <bool DW, bool PLUCK, bool CAP>
+__global__ void __launch_bounds__(32 * kBwdMaxWarps, 2)
+ce_bwd_kernel(BwdProblem a, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
-  const int p = row_pitch(a.d);
-  const int d4 = (a.d + 3) / 4;
-  float* xs = reinterpret_cast<float*>(smem4);  // (kTile, p)
-  float* ws = xs + kTile * p;                   // (kTile, p)
-  float* gwt = ws + kTile * p;                  // (kTile, kGwPitch): gwᵀ
+  const int cpr = a.cpr;
+  const int s8 = cpr / 4;  // k8 steps over the depth
+  const int warps = blockDim.x >> 5;
+  const int bm = kWarpRows * warps;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  float4* own = smem4;            // A fragments: (bm / 16, s8, 32, hi|lo)
+  float4* ring = own + bm * cpr;  // stages × (kStreamRows, cpr), swizzled
+  float* stats = reinterpret_cast<float*>(ring + a.stages * kStreamRows *
+                                          cpr);  // DW: stages × 3 × 32
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const int r0 = blockIdx.x * kTile;
-  const int nr = min(kTile, a.n - r0);
-  const long c_lo = (long)blockIdx.y * a.tiles_per_split * kTile;
-  const long c_hi = min((long)a.c, c_lo + (long)a.tiles_per_split * kTile);
+  const int r0 = blockIdx.x * bm;
+  const int n_tiles = (a.n_str + kStreamRows - 1) / kStreamRows;
+  const int t_lo = blockIdx.y * a.tiles_per_split;
+  const int t_hi = min(n_tiles, t_lo + a.tiles_per_split);
+  const int oc0 = blockIdx.z * kOutCols;
+  const int n_out8 = min(kOutCols, 2 * cpr - oc0) / 8;
 
-  stage(xs, a.x + (long)r0 * a.d, nr, kTile, a.d, p, a.vec_x,
-        [](int r) { return r; }, tid);
-  float ls[kRM], gs[kRM];
-  int tg[kRM];
-#pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    const int r = ty * kRM + i;
-    ls[i] = r < nr ? a.lse[r0 + r] : 0.f;
-    gs[i] = r < nr ? a.g[r0 + r] : 0.f;
-    tg[i] = PLUCK && r < nr ? a.tgt[r0 + r] : -1;
-  }
-  float acc_dx[kRM][NC][4];
-  zero<NC>(acc_dx);
-
-  for (long c0 = c_lo; c0 < c_hi; c0 += kTile) {
-    const int nc = (int)min((long)kTile, c_hi - c0);
-    __syncthreads();  // the previous tile and gwᵀ are no longer read
-    stage(ws, a.w + c0 * a.d, nc, kTile, a.d, p, a.vec_w,
-          [](int r) { return r; }, tid);
-    __syncthreads();
-    float acc[kRM][kCols];
-    tile_scores(xs, ws, p, d4, ty, tx, acc);
-#pragma unroll
-    for (int i = 0; i < kRM; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = tx + 16 * j;
-        gwt[col * kGwPitch + ty * kRM + i] = cotangent<PLUCK, CAP>(
-            logit<CAP>(acc[i][j], a.cap), ls[i], gs[i], col < nc,
-            c0 + col == tg[i], a.cap);
+  // The streamed tiles: thread i copies chunks i, i + blockDim.x, ... in
+  // row order; rows past the matrix are zeros.
+  const int r_first = threadIdx.x / cpr, c_first = threadIdx.x % cpr;
+  const int r_step = blockDim.x / cpr, c_step = blockDim.x % cpr;
+  auto stage = [&](int tile, int sl) {
+    float4* t = ring + sl * kStreamRows * cpr;
+    const long base = (long)tile * kStreamRows;
+    for (int r = r_first, ch = c_first; r < kStreamRows;) {
+      const bool ok = base + r < a.n_str;
+      cp_async16(t + r * cpr + (ch ^ swizzle(r)),
+                 a.str + (ok ? (base + r) * cpr + ch : 0), ok);
+      r += r_step;
+      ch += c_step;
+      if (ch >= cpr) {
+        ch -= cpr;
+        ++r;
       }
-    __syncthreads();
-    accumulate<NC>(gwt, ws, nc, p, d4, ty, tx, acc_dx);
+    }
+    if (DW) {  // the tile's positions' lse, g and targets
+      float* st = stats + sl * 3 * kStreamRows;
+      for (int e = threadIdx.x; e < 3 * kStreamRows; e += blockDim.x) {
+        const int which = e / kStreamRows;
+        const long p = base + (e - which * kStreamRows);
+        const bool ok = p < a.n && (which < 2 || PLUCK);
+        const void* src = which == 0   ? (const void*)(a.lse + p)
+                          : which == 1 ? (const void*)(a.g + p)
+                                       : (const void*)(a.tgt + p);
+        cp_async4(st + e, ok ? src : (const void*)a.lse, ok);
+      }
+    }
+  };
+  for (int sl = 0; sl < a.stages - 1; ++sl) {
+    if (t_lo + sl < t_hi) stage(t_lo + sl, sl);
+    cp_async_commit();
   }
 
-  float* dst = out + (long)blockIdx.y * a.n * a.d;
-#pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    const int r = ty * kRM + i;
-    if (r >= nr) continue;
-#pragma unroll
-    for (int cc = 0; cc < NC; ++cc)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int col = kChunk * cc + 4 * tx + q;
-        if (col < a.d) dst[(long)(r0 + r) * a.d + col] = acc_dx[i][cc][q];
+  // The owned rows as A fragments, once: for m16 tile mt and k8 step s,
+  // lane (gq, q) holds rows gq, gq + 8 at depths 8s + 2q, 8s + 2q + 1.
+  {
+    const float2* src = reinterpret_cast<const float2*>(a.own);
+    for (int u = warp; u < (bm / 16) * s8; u += warps) {
+      const int mt = u / s8, s = u - mt * s8;
+      const long r = r0 + 16 * mt + gq;
+      const int hi = 2 * (4 * s + (q >> 1)) + (q & 1);  // float2 in row
+      float2 h0{0.f, 0.f}, h1{0.f, 0.f}, l0{0.f, 0.f}, l1{0.f, 0.f};
+      if (r < a.n_own) {
+        h0 = src[r * 2 * cpr + hi];
+        l0 = src[r * 2 * cpr + hi + 4];
       }
+      if (r + 8 < a.n_own) {
+        h1 = src[(r + 8) * 2 * cpr + hi];
+        l1 = src[(r + 8) * 2 * cpr + hi + 4];
+      }
+      own[2 * (32 * u + lane)] = make_float4(h0.x, h1.x, h0.y, h1.y);
+      own[2 * (32 * u + lane) + 1] = make_float4(l0.x, l1.x, l0.y, l1.y);
+    }
   }
+  const float* afrag =
+      reinterpret_cast<const float*>(own) + 8 * (32 * (warp * kMT * s8) + lane);
+
+  // Per-thread float offsets in a streamed tile. S's B fragment (row
+  // 8n + gq, depths 8s + 2q, + 1): sb[s & 1] + 32·cpr·n + 32·(s >> 1).
+  // The product's (rows 8j + 2q + rp, depth oc0 + 8n + gq):
+  // pb[rp][n & 1] + 32·cpr·j + 32·(n >> 1). Lo is two chunks after hi.
+  int sb_hi[2], sb_lo[2], pb_hi[2][2], pb_lo[2][2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int f = swizzle(gq);
+    sb_hi[p] = 4 * (gq * cpr + ((4 * p + (q >> 1)) ^ f)) + 2 * (q & 1);
+    sb_lo[p] = 4 * (gq * cpr + ((4 * p + 2 + (q >> 1)) ^ f)) + 2 * (q & 1);
+#pragma unroll
+    for (int rp = 0; rp < 2; ++rp) {
+      const int r = 2 * q + rp, fr = swizzle(r);
+      const int base = 4 * r * cpr + 2 * oc0 + (gq & 3);
+      pb_hi[rp][p] = base + 4 * ((4 * p + (gq >> 2)) ^ fr);
+      pb_lo[rp][p] = base + 4 * ((4 * p + 2 + (gq >> 2)) ^ fr);
+    }
+  }
+
+  // Per owned row of the thread (m16 tile m, half h): dX's lse, g and
+  // target; dW's catalog row.
+  float ls[kMT][2], gs[kMT][2];
+  int tg[kMT][2];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + warp * kWarpRows + 16 * m + 8 * h + gq;
+      const bool live = !DW && r < a.n;
+      ls[m][h] = live ? a.lse[r] : 0.f;
+      gs[m][h] = live ? a.g[r] : 0.f;
+      tg[m][h] = DW ? r : (PLUCK && live ? a.tgt[r] : -1);
+    }
+
+  float acc[kMT][8][4];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+
+  for (int it = 0; t_lo + it < t_hi; ++it) {
+    if (a.stages == 3)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // tile it has landed; the slot of it − 1 is free
+    const int ahead = it + a.stages - 1;
+    if (t_lo + ahead < t_hi) stage(t_lo + ahead, ahead % a.stages);
+    cp_async_commit();
+
+    const int sl = it % a.stages;
+    const float* t = reinterpret_cast<const float*>(ring + sl * kStreamRows *
+                                                    cpr);
+    const int col0 = (t_lo + it) * kStreamRows;
+
+    // S = own_rows · tᵀ, 32 × 32 a warp, k16 steps over the depth.
+    float sc[kMT][4][4];
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[m][n][i] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < s8 / 2; ++kk) {
+      uint32_t ah[kMT][2][4], al[kMT][2][4];  // [m][k8]
+#pragma unroll
+      for (int m = 0; m < kMT; ++m)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float* f = afrag + 256 * (m * s8 + 2 * kk + k);
+          lds128(ah[m][k], f);
+          lds128(al[m][k], f + 4);
+        }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float* f = t + 32 * (cpr * n + kk);
+          lds64(bh[k], f + sb_hi[k]);
+          lds64(bl[k], f + sb_lo[k]);
+        }
+#pragma unroll
+        for (int m = 0; m < kMT; ++m) {
+          float part[4];
+          mma3x2(part, ah[m], al[m], bh, bl);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sc[m][n][i] += part[i];
+        }
+      }
+    }
+
+    // The cotangent, in place: (p − onehot)·cap′·g, 0 on padded columns.
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 8 * n + 2 * q + j;
+        const int p = col0 + col;
+        float cl = 0.f, cg = 0.f;
+        int ct = -1;
+        if (DW) {
+          const float* st = stats + sl * 3 * kStreamRows;
+          cl = st[col];
+          cg = st[kStreamRows + col];
+          ct = PLUCK ? reinterpret_cast<const int*>(st)[2 * kStreamRows + col]
+                     : -1;
+        }
+#pragma unroll
+        for (int m = 0; m < kMT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float& v = sc[m][n][2 * h + j];
+            const float l = logit<CAP>(v, a.cap);
+            v = DW ? cotangent<PLUCK, CAP>(l, cl, cg, p < a.n,
+                                           tg[m][h] == ct, a.cap)
+                   : cotangent<PLUCK, CAP>(l, ls[m][h], gs[m][h], p < a.c,
+                                           p == tg[m][h], a.cap);
+          }
+      }
+
+    // acc += G · t over the tile's 32 rows, k16 steps of the streamed rows;
+    // G's C fragment of n8 tile j is the A fragment of k8 step j. All eight
+    // output n8 tiles unless the block's depth chunk is short (d % 64).
+    auto product = [&](auto full) {
+      constexpr bool FULL = decltype(full)::value;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t gh[kMT][2][4], gl[kMT][2][4];  // [m][k8]
+#pragma unroll
+        for (int m = 0; m < kMT; ++m)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int j = 2 * kk + k;
+            split(sc[m][j][0], gh[m][k][0], gl[m][k][0]);
+            split(sc[m][j][2], gh[m][k][1], gl[m][k][1]);
+            split(sc[m][j][1], gh[m][k][2], gl[m][k][2]);
+            split(sc[m][j][3], gh[m][k][3], gl[m][k][3]);
+          }
+        const float* tj[2] = {t + 32 * cpr * (2 * kk), t + 32 * cpr * (2 * kk + 1)};
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          if (FULL || n < n_out8) {
+            uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+            for (int k = 0; k < 2; ++k)
+#pragma unroll
+              for (int rp = 0; rp < 2; ++rp) {
+                const float* f = tj[k] + 32 * (n >> 1);
+                bh[k][rp] = __float_as_uint(f[pb_hi[rp][n & 1]]);
+                bl[k][rp] = __float_as_uint(f[pb_lo[rp][n & 1]]);
+              }
+#pragma unroll
+            for (int m = 0; m < kMT; ++m) {
+              float part[4];
+              mma3x2(part, gh[m], gl[m], bh, bl);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[m][n][i] += part[i];
+            }
+          }
+        }
+      }
+    };
+    if (n_out8 == 8)
+      product(std::true_type{});
+    else
+      product(std::false_type{});
+  }
+  cp_async_wait<0>();
+
+  float* dst = DW ? out : out + (long)blockIdx.y * a.n * a.d;
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (n >= n_out8) break;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long r = r0 + warp * kWarpRows + 16 * m + 8 * (i >> 1) + gq;
+        const int col = oc0 + 8 * n + 2 * q + (i & 1);
+        if (r < a.n_own && col < a.d) dst[r * a.d + col] = acc[m][n][i];
+      }
+    }
 }
 
 // dX = Σ over the splits of their partial dX, in split order.
@@ -301,71 +604,6 @@ sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// dW: 64 catalog rows against all N positions (the transposed grid).
-// ---------------------------------------------------------------------------
-template <int NC, bool PLUCK, bool CAP>
-__global__ void __launch_bounds__(kThreads)
-ce_dw_kernel(Problem a, float* __restrict__ dw) {
-  extern __shared__ float4 smem4[];
-  const int p = row_pitch(a.d);
-  const int d4 = (a.d + 3) / 4;
-  float* xs = reinterpret_cast<float*>(smem4);  // (kTile, p)
-  float* ws = xs + kTile * p;                   // (kTile, p)
-  float* gw = ws + kTile * p;                   // (kTile, kGwPitch)
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const long c0 = (long)blockIdx.x * kTile;
-  const int nc = (int)min((long)kTile, a.c - c0);
-
-  stage(ws, a.w + c0 * a.d, nc, kTile, a.d, p, a.vec_w,
-        [](int r) { return r; }, tid);
-  float acc_dw[kRM][NC][4];
-  zero<NC>(acc_dw);
-
-  for (int r0 = 0; r0 < a.n; r0 += kTile) {
-    const int nr = min(kTile, a.n - r0);
-    __syncthreads();  // the previous rows and gw are no longer read
-    stage(xs, a.x + (long)r0 * a.d, nr, kTile, a.d, p, a.vec_x,
-          [](int r) { return r; }, tid);
-    __syncthreads();
-    float acc[kRM][kCols];
-    tile_scores(xs, ws, p, d4, ty, tx, acc);
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      const int r = ty * kRM + i;
-      const bool live = r < nr;
-      const float ls = live ? a.lse[r0 + r] : 0.f;
-      const float g = live ? a.g[r0 + r] : 0.f;
-      const int tg = PLUCK && live ? a.tgt[r0 + r] : -1;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = tx + 16 * j;
-        gw[r * kGwPitch + col] = cotangent<PLUCK, CAP>(
-            logit<CAP>(acc[i][j], a.cap), ls, g, live && col < nc,
-            c0 + col == tg, a.cap);
-      }
-    }
-    __syncthreads();
-    accumulate<NC>(gw, xs, nr, p, d4, ty, tx, acc_dw);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    const int j = ty * kRM + i;
-    if (j >= nc) continue;
-#pragma unroll
-    for (int cc = 0; cc < NC; ++cc)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int col = kChunk * cc + 4 * tx + q;
-        if (col < a.d) dw[(c0 + j) * a.d + col] = acc_dw[i][cc][q];
-      }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Host side: dispatch, shared memory, the split plan.
 // ---------------------------------------------------------------------------
 using True = std::true_type;
@@ -376,18 +614,6 @@ template <class F>
 cudaError_t with_flags(bool pluck, bool cap, F&& f) {
   if (pluck) return cap ? f(True{}, True{}) : f(True{}, False{});
   return cap ? f(False{}, True{}) : f(False{}, False{});
-}
-
-// Calls f(NC) with NC = ceil(d / 64) ∈ {1, .., 4} as an integral_constant.
-template <class F>
-cudaError_t with_chunks(int d, F&& f) {
-  switch ((d + kChunk - 1) / kChunk) {
-    case 1: return f(std::integral_constant<int, 1>{});
-    case 2: return f(std::integral_constant<int, 2>{});
-    case 3: return f(std::integral_constant<int, 3>{});
-    case 4: return f(std::integral_constant<int, 4>{});
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // Opts `kernel` in to kMaxSmem of dynamic shared memory, once per device;
@@ -408,15 +634,15 @@ cudaError_t allow_max_smem(K kernel, bool (&done)[kMaxDevices]) {
 // The least S ≤ min(kMaxSplits, catalog tiles) whose row_tiles·S blocks
 // fill their last wave to 90 %, else the S that fills it best.
 template <class K>
-cudaError_t plan_splits(K kernel, size_t smem, int row_tiles, int c_tiles,
-                        int* splits) {
+cudaError_t plan_splits(K kernel, int threads, size_t smem, int row_tiles,
+                        int c_tiles, int* splits) {
   int dev = 0, n_sm = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
+                                                        threads, smem);
   if (err != cudaSuccess) return err;
   const long slots = (long)n_sm * (per_sm > 0 ? per_sm : 1);
   const int most = c_tiles < kMaxSplits ? c_tiles : kMaxSplits;
@@ -443,19 +669,17 @@ bool shapes_ok(int n, int c, int d) {
   return n > 0 && c > 0 && d > 0 && d <= kMaxD && c <= (1 << 30);
 }
 
-Problem problem(const float* x, const float* w, const int* tgt,
-                const float* lse, const float* g, int n, int c, int d,
-                float cap) {
-  Problem a{x, w, tgt, lse, g, n, c, d, cap, vec_flag(x, d), vec_flag(w, d),
-            0};
+Problem problem(const float* x, const float* w, const int* tgt, int n, int c,
+                int d, float cap) {
+  Problem a{x, w, tgt, n, c, d, cap, vec_flag(x, d), vec_flag(w, d), 0};
   return a;
 }
 
 int c_tiles(int c) { return (c + kTile - 1) / kTile; }
 
-// Splits of `c_tiles` catalog tiles into `splits` contiguous ranges.
-int tiles_per_split(int c, int splits) {
-  return (c_tiles(c) + splits - 1) / splits;
+// Splits of `tiles` tiles into `splits` contiguous ranges.
+int tiles_per_split(int tiles, int splits) {
+  return (tiles + splits - 1) / splits;
 }
 
 template <bool PLUCK, bool CAP>
@@ -464,26 +688,66 @@ cudaError_t fwd_kernel_ready() {
   return allow_max_smem(ce_fwd_kernel<PLUCK, CAP>, done);
 }
 
-template <int NC, bool PLUCK, bool CAP>
-cudaError_t dx_kernel_ready() {
-  static bool done[kMaxDevices] = {};
-  return allow_max_smem(ce_dx_kernel<NC, PLUCK, CAP>, done);
+// The backward's launch shape at depth d: warps a block (128 owned rows
+// while the owned planes and a ring fit, fewer for d > 128), ring stages
+// and shared memory. Three stages where two blocks still share an SM
+// (2 · (smem + the 1 KB the SM reserves a block) ≤ its 228 KB), else two
+// where that lets them, else the most that fit one block. Mirrored by
+// kernels/linear_sce.py::bwd_plan for the guard's preflight, and exported
+// as linear_ce_bwd_plan so that the card checks the two agree.
+struct BwdPlan {
+  int warps, stages;
+  size_t smem;
+};
+
+constexpr size_t kPairSmem = 233472 / 2 - 1024;
+
+BwdPlan bwd_plan(int d, bool dw) {
+  const int dp = padded_depth(d);
+  BwdPlan p{dp <= 128 ? 4 : (dp <= 192 ? 2 : 1), 3, 0};
+  auto bytes = [&](int stages) {
+    return (size_t)16 * (dp / 2) * (kWarpRows * p.warps +
+                                    stages * kStreamRows) +
+           (dw ? (size_t)12 * stages * kStreamRows : 0);
+  };
+  if (bytes(3) > kPairSmem && (bytes(2) <= kPairSmem ||
+                               bytes(3) > (size_t)kMaxSmem))
+    p.stages = 2;
+  p.smem = bytes(p.stages);
+  return p;
 }
 
-template <int NC, bool PLUCK, bool CAP>
-cudaError_t dw_kernel_ready() {
+template <bool DW, bool PLUCK, bool CAP>
+cudaError_t bwd_kernel_ready() {
   static bool done[kMaxDevices] = {};
-  return allow_max_smem(ce_dw_kernel<NC, PLUCK, CAP>, done);
+  return allow_max_smem(ce_bwd_kernel<DW, PLUCK, CAP>, done);
 }
+
+// The backward's problem on the planes; tiles_per_split is set by the
+// caller.
+BwdProblem bwd_problem(bool dw, const float* xp, const float* wp,
+                       const int* tgt, const float* lse, const float* g,
+                       int n, int c, int d, float cap, int stages) {
+  const float4* x4 = reinterpret_cast<const float4*>(xp);
+  const float4* w4 = reinterpret_cast<const float4*>(wp);
+  BwdProblem a{dw ? w4 : x4, dw ? x4 : w4, tgt, lse, g, n, c, d,
+               padded_depth(d) / 2, dw ? c : n, dw ? n : c, cap, 0, stages};
+  return a;
+}
+
+int out_chunks(int d) { return (padded_depth(d) + kOutCols - 1) / kOutCols; }
+
+int s_tiles(int rows) { return (rows + kStreamRows - 1) / kStreamRows; }
 
 }  // namespace
 
 // The C interface, bound with ctypes. Shapes: x (n, d) f32, w (c, d) f32,
-// tgt (n,) i32 (null unless pluck), lse, g, loss (n,) f32; all contiguous,
-// d ≤ 256. `cap` > 0 is the logit softcap, 0 none. Each launcher returns
-// the cudaError_t of its launches (0 on success), and cudaErrorInvalidValue
-// for shapes it does not take. Nothing is synchronised and nothing is
-// allocated.
+// tgt (n,) i32 (null unless pluck), lse, g, loss (n,) f32; xp
+// (n, dp / 8, 2, 8) and wp (c, dp / 8, 2, 8) f32, the (hi, lo) planes of
+// x and w (dp = d rounded up to 16); all contiguous, d ≤ 256. `cap` > 0 is the logit softcap, 0 none.
+// Each launcher returns the cudaError_t of its launches (0 on success),
+// and cudaErrorInvalidValue for shapes it does not take. Nothing is
+// synchronised and nothing is allocated.
 
 // The number of catalog splits S the forward (kind 0) or dX (kind 1) runs
 // at for these shapes and flags on the current device (≥ 1), or −err. The
@@ -494,25 +758,37 @@ extern "C" int linear_ce_splits(int kind, int n, int c, int d, int pluck,
   if (!shapes_ok(n, c, d) || kind < 0 || kind > 1)
     return -(int)cudaErrorInvalidValue;
   int splits = 1;
-  const int row_tiles = (n + kTile - 1) / kTile;
   cudaError_t err = with_flags(pluck != 0, cap > 0.f, [&](auto pl, auto cp) {
     constexpr bool PL = decltype(pl)::value;
     constexpr bool CP = decltype(cp)::value;
     if (kind == 0) {
       cudaError_t e = fwd_kernel_ready<PL, CP>();
       if (e != cudaSuccess) return e;
-      return plan_splits(ce_fwd_kernel<PL, CP>, smem_bytes(d, false),
-                         row_tiles, c_tiles(c), &splits);
+      return plan_splits(ce_fwd_kernel<PL, CP>, kThreads, smem_bytes(d),
+                         (n + kTile - 1) / kTile, c_tiles(c), &splits);
     }
-    return with_chunks(d, [&](auto nc) {
-      constexpr int NC = decltype(nc)::value;
-      cudaError_t e = dx_kernel_ready<NC, PL, CP>();
-      if (e != cudaSuccess) return e;
-      return plan_splits(ce_dx_kernel<NC, PL, CP>, smem_bytes(d, true),
-                         row_tiles, c_tiles(c), &splits);
-    });
+    cudaError_t e = bwd_kernel_ready<false, PL, CP>();
+    if (e != cudaSuccess) return e;
+    const BwdPlan p = bwd_plan(d, false);
+    const int bm = kWarpRows * p.warps;
+    return plan_splits(ce_bwd_kernel<false, PL, CP>, 32 * p.warps, p.smem,
+                       (n + bm - 1) / bm * out_chunks(d), s_tiles(c),
+                       &splits);
   });
   return err == cudaSuccess ? splits : -(int)err;
+}
+
+// The backward's launch plan at depth d for dX (dw 0) or dW (dw 1): its
+// dynamic shared memory in bytes, with the warps a block and the ring's
+// stages written to *warps and *stages; −cudaErrorInvalidValue for d
+// outside (0, kMaxD]. Touches no device.
+extern "C" int linear_ce_bwd_plan(int d, int dw, int* warps, int* stages) {
+  if (!shapes_ok(1, 1, d) || warps == nullptr || stages == nullptr)
+    return -(int)cudaErrorInvalidValue;
+  const BwdPlan p = bwd_plan(d, dw != 0);
+  *warps = p.warps;
+  *stages = p.stages;
+  return (int)p.smem;
 }
 
 // Forward: lse (n,), and with pluck loss (n,) = lse − the target's logit.
@@ -525,11 +801,11 @@ extern "C" int linear_ce_fwd_launch(const float* x, const float* w,
   if (!shapes_ok(n, c, d) || splits < 1 || splits > kMaxSplits ||
       (pluck && (tgt == nullptr || loss == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d, false);
+  const size_t smem = smem_bytes(d);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Problem a = problem(x, w, tgt, nullptr, nullptr, n, c, d, cap);
-  a.tiles_per_split = tiles_per_split(c, splits);
+  Problem a = problem(x, w, tgt, n, c, d, cap);
+  a.tiles_per_split = tiles_per_split(c_tiles(c), splits);
   return (int)with_flags(pluck != 0, cap > 0.f, [&](auto pl, auto cp) {
     constexpr bool PL = decltype(pl)::value;
     constexpr bool CP = decltype(cp)::value;
@@ -546,10 +822,24 @@ extern "C" int linear_ce_fwd_launch(const float* x, const float* w,
   });
 }
 
+// The backward's (hi, lo) planes of x and w, one launch for both.
+extern "C" int linear_ce_split_launch(const float* x, const float* w,
+                                      float* xp, float* wp, int n, int c,
+                                      int d, void* stream) {
+  if (!shapes_ok(n, c, d)) return (int)cudaErrorInvalidValue;
+  const int cpr = padded_depth(d) / 2;
+  const long quads = ((long)n + c) * (cpr / 2);
+  split_kernel<<<(unsigned)((quads + kSplitThreads - 1) / kSplitThreads),
+                 kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, w, reinterpret_cast<float4*>(xp), reinterpret_cast<float4*>(wp), n,
+      c, d, cpr);
+  return (int)cudaGetLastError();
+}
+
 // dX (n, d) for the upstream cotangent g (n,) of the loss (pluck) or of
 // the lse. part: (splits, n, d) f32 scratch, unused (may be null) when
 // splits == 1.
-extern "C" int linear_ce_dx_launch(const float* x, const float* w,
+extern "C" int linear_ce_dx_launch(const float* xp, const float* wp,
                                    const int* tgt, const float* lse,
                                    const float* g, float* part, float* dx,
                                    int n, int c, int d, int splits, int pluck,
@@ -557,54 +847,52 @@ extern "C" int linear_ce_dx_launch(const float* x, const float* w,
   if (!shapes_ok(n, c, d) || splits < 1 || splits > kMaxSplits ||
       (splits > 1 && part == nullptr) || (pluck && tgt == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d, true);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const BwdPlan p = bwd_plan(d, false);
+  if (p.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Problem a = problem(x, w, tgt, lse, g, n, c, d, cap);
-  a.tiles_per_split = tiles_per_split(c, splits);
+  BwdProblem a = bwd_problem(false, xp, wp, tgt, lse, g, n, c, d, cap,
+                             p.stages);
+  a.tiles_per_split = tiles_per_split(s_tiles(c), splits);
   return (int)with_flags(pluck != 0, cap > 0.f, [&](auto pl, auto cp) {
     constexpr bool PL = decltype(pl)::value;
     constexpr bool CP = decltype(cp)::value;
-    return with_chunks(d, [&](auto nc) {
-      constexpr int NC = decltype(nc)::value;
-      cudaError_t err = dx_kernel_ready<NC, PL, CP>();
-      if (err != cudaSuccess) return err;
-      const dim3 grid((n + kTile - 1) / kTile, splits);
-      ce_dx_kernel<NC, PL, CP>
-          <<<grid, kThreads, smem, st>>>(a, splits > 1 ? part : dx);
-      err = cudaGetLastError();
-      if (err != cudaSuccess || splits == 1) return err;
-      const long nd = (long)n * d;
-      sum_splits_kernel<<<(unsigned)((nd + kMergeThreads - 1) /
-                                     kMergeThreads),
-                          kMergeThreads, 0, st>>>(part, dx, nd, splits);
-      return cudaGetLastError();
-    });
+    cudaError_t err = bwd_kernel_ready<false, PL, CP>();
+    if (err != cudaSuccess) return err;
+    const int bm = kWarpRows * p.warps;
+    const dim3 grid((n + bm - 1) / bm, splits, out_chunks(d));
+    ce_bwd_kernel<false, PL, CP><<<grid, 32 * p.warps, p.smem, st>>>(
+        a, splits > 1 ? part : dx);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return err;
+    const long nd = (long)n * d;
+    sum_splits_kernel<<<(unsigned)((nd + kMergeThreads - 1) / kMergeThreads),
+                        kMergeThreads, 0, st>>>(part, dx, nd, splits);
+    return cudaGetLastError();
   });
 }
 
 // dW (c, d) for the upstream cotangent g (n,), every row written once.
-extern "C" int linear_ce_dw_launch(const float* x, const float* w,
+extern "C" int linear_ce_dw_launch(const float* xp, const float* wp,
                                    const int* tgt, const float* lse,
                                    const float* g, float* dw, int n, int c,
                                    int d, int pluck, float cap,
                                    void* stream) {
   if (!shapes_ok(n, c, d) || (pluck && tgt == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d, true);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const BwdPlan p = bwd_plan(d, true);
+  if (p.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Problem a = problem(x, w, tgt, lse, g, n, c, d, cap);
+  BwdProblem a = bwd_problem(true, xp, wp, tgt, lse, g, n, c, d, cap,
+                             p.stages);
+  a.tiles_per_split = s_tiles(n);
   return (int)with_flags(pluck != 0, cap > 0.f, [&](auto pl, auto cp) {
     constexpr bool PL = decltype(pl)::value;
     constexpr bool CP = decltype(cp)::value;
-    return with_chunks(d, [&](auto nc) {
-      constexpr int NC = decltype(nc)::value;
-      cudaError_t err = dw_kernel_ready<NC, PL, CP>();
-      if (err != cudaSuccess) return err;
-      ce_dw_kernel<NC, PL, CP>
-          <<<c_tiles(c), kThreads, smem, st>>>(a, dw);
-      return cudaGetLastError();
-    });
+    cudaError_t err = bwd_kernel_ready<true, PL, CP>();
+    if (err != cudaSuccess) return err;
+    const int bm = kWarpRows * p.warps;
+    const dim3 grid((c + bm - 1) / bm, 1, out_chunks(d));
+    ce_bwd_kernel<true, PL, CP><<<grid, 32 * p.warps, p.smem, st>>>(a, dw);
+    return cudaGetLastError();
   });
 }

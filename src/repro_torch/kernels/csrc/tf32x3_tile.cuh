@@ -1,0 +1,159 @@
+// tf32x3_tile — f32-accurate products on Hopper's tensor cores ("3xTF32"),
+// for kernels that recompute a logit tile S = A·Bᵀ and multiply its
+// cotangent G back into a (rows, d) gradient. linear_ce.cu's backward
+// kernels use it; sce_gather.cu's dX/dY have the same shape of products.
+//
+// The arithmetic. An f32 value a is split into a_hi = tf32(a) and
+// a_lo = tf32(a − a_hi), each rounded to nearest with ties away from zero
+// (cvt.rna.tf32.f32: 10 explicit mantissa bits). a − a_hi is exact in
+// f32, so a_hi + a_lo carries 22 bits of a's 24. A product is
+//   a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi
+// (the small terms first), each an m16n8k8 tf32 `mma.sync` with f32
+// accumulation; the dropped a_lo·b_lo and the two splits' rounding leave
+// about 2⁻²¹ relative per product, against 2⁻²⁴ for an f32 FMA.
+// The tensor cores add inside an `mma` without round-to-nearest (the
+// addends are aligned to the largest and cut), so no sum runs long inside
+// them: each k16 step (two k8 steps, six `mma`) starts from zero and is
+// added to an f32 register accumulator with an ordinary FADD. The cut
+// then costs a few units in the last place of a 16-term partial, not of
+// the whole sum, and a sum over a catalog of 10⁵ columns rounds like an
+// f32 FMA loop. kernels/ref.py::tf32_round is the plain version of the
+// rounding.
+//
+// The layouts. A matrix of rows × d is split once, by split_kernel in
+// linear_ce.cu, into rows × dp / 8 blocks of (hi[8], lo[8]), dp = d
+// rounded up to 16 with zeros past d: a row is dp / 2 chunks of 16 bytes
+// (hi of depths 8b .. 8b + 3, hi of 8b + 4 .. 8b + 7, then the two lo
+// chunks), whole 128-byte lines. A streamed tile keeps that layout in
+// shared memory, chunk c of row r at chunk c ^ f(r) of its line,
+// f(r) = 2·((r₁ << 1) | (r₀ ^ r₂)) on the bits of r, which makes both of
+// its fragment reads below free of bank conflicts. A block's owned rows
+// are staged once into the A fragments themselves: per m16 tile, k8 step
+// and lane, a float4 of hi and one of lo, read with one LDS.128 each
+// (lanes 32 bytes apart: two-way bank conflicts, which a lane-contiguous
+// order removes but at 255 registers made the plucked dX kernel spill).
+//
+// The fragments (m16n8k8, lane = 4·gq + q): A holds (row gq, k q),
+// (gq + 8, q), (gq, q + 4), (gq + 8, q + 4); B (k q, n gq), (q + 4, gq);
+// C (gq, 2q), (gq, 2q + 1), (gq + 8, 2q), (gq + 8, 2q + 1). The k order
+// inside a k8 step is free as long as A and B agree, and every product
+// here uses logical k q ↔ physical 2q and q + 4 ↔ 2q + 1:
+//   * logit tile, k = depth: a thread's B values at depths 8s + 2q and
+//     8s + 2q + 1 of one streamed row are adjacent, one LDS.64 for hi and
+//     one for lo, straight into the fragment registers;
+//   * second product, k = the streamed tile's rows: the cotangent G is in
+//     the C layout, whose columns 2q, 2q + 1 are exactly logical k q and
+//     q + 4, so G's accumulator registers are the A fragment
+//     (c0, c2, c1, c3) without a shuffle, and B is four LDS.32 from
+//     streamed rows 2q and 2q + 1 at depth gq (hi and lo).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tf32x3 {
+
+constexpr int kWarpRows = 32;    // owned rows per warp ...
+constexpr int kMT = kWarpRows / 16;  // ... as m16 tiles
+constexpr int kStreamRows = 32;  // rows of a streamed tile: four n8 tiles
+constexpr int kOutCols = 64;     // output depth columns per block: 8 n8
+constexpr int kDepthAlign = 16;  // dp: whole 128-byte lines of pairs
+
+__host__ __device__ inline int padded_depth(int d) {
+  return (d + kDepthAlign - 1) / kDepthAlign * kDepthAlign;
+}
+
+// ---------------------------------------------------------------------------
+// PTX: the rounding, the product, asynchronous copies.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t to_tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
+}
+
+__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(a);
+  lo = to_tf32(a - __uint_as_float(hi));
+}
+
+// d += a·b on one m16n8k8 tile, tf32 operands, f32 accumulator.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes global → shared, zeros when !valid (nothing is read then).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global → shared, zero when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Shared-memory tiles of (hi, lo) pairs and their fragments.
+// ---------------------------------------------------------------------------
+
+// The swizzle of a streamed row: f(r) ∈ {0, 2, 4, 6}, a bijection on the
+// rows {0..3}, {4..7}, {0, 2, 4, 6} and {1, 3, 5, 7} of each 8 rows.
+__device__ __forceinline__ int swizzle(int r) {
+  return 2 * ((((r >> 1) & 1) << 1) | ((r ^ (r >> 2)) & 1));
+}
+
+// Three-pass product of one k16 step on an m16n8 tile, from zero: the
+// small terms of both k8 steps first, then the large ones.
+__device__ __forceinline__ void mma3x2(float (&t)[4],
+                                       const uint32_t (&ah)[2][4],
+                                       const uint32_t (&al)[2][4],
+                                       const uint32_t (&bh)[2][2],
+                                       const uint32_t (&bl)[2][2]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) t[i] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    mma(t, al[k], bh[k]);
+    mma(t, ah[k], bl[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) mma(t, ah[k], bh[k]);
+}
+
+// Loads 4 or 2 tf32 registers from shared memory in one instruction.
+__device__ __forceinline__ void lds128(uint32_t (&r)[4], const float* p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  r[0] = v.x;
+  r[1] = v.y;
+  r[2] = v.z;
+  r[3] = v.w;
+}
+
+__device__ __forceinline__ void lds64(uint32_t (&r)[2], const float* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  r[0] = v.x;
+  r[1] = v.y;
+}
+
+}  // namespace tf32x3

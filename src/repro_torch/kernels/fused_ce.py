@@ -3,15 +3,16 @@
 
 The kernels are ``csrc/linear_ce.cu``'s, launched without the in-sweep
 positive, the one-hot and the softcap (``kernels/linear_sce.py``'s
-``_fwd``, ``_dx`` and ``_dw``). Three wrappers, each with its own launch
-counter:
+``_fwd``, ``_dx`` and ``_dw``; the backward's planes from its
+``linear_ce_split``). Three wrappers, each with its own launch counter:
 
 * :func:`fused_lse_fwd` — per-position lse (N,);
 * :func:`fused_lse_dx` — dX = ``(p·g) Y`` (N, d);
 * :func:`fused_lse_dy` — dY = ``(p·g)ᵀ X`` (C, d), every row written once.
 
 :class:`FusedLSE` ties them together for autograd (it saves ``x``, ``y``
-and the lse, and recomputes the tiles backward). :func:`fused_ce_loss` is
+and the lse; backward it splits them once into the planes both
+gradients read and recomputes the tiles). :func:`fused_ce_loss` is
 ``fused_lse − x·y[targets]``: the positive's gradient comes from autograd
 through the gather, as in the reference. CUDA tensors only; the CPU path
 is ``kernels/ref.py``, chosen by ``kernels/ops.py``.
@@ -31,17 +32,18 @@ def fused_lse_fwd(x, y):
     return lse
 
 
-def fused_lse_dx(x, y, lse, g):
+def fused_lse_dx(x, y, lse, g, *, planes=None):
     """dX kernel: the (N, d) gradient of ``x`` for the cotangent ``g`` of
-    the lse."""
-    dx = _linear._dx(x, y, None, lse, g, None)
+    the lse. ``planes``: ``linear_ce_split(x, y)`` (split here when
+    None)."""
+    dx = _linear._dx(x, y, None, lse, g, None, planes)
     fused_lse_dx.launches += 1
     return dx
 
 
-def fused_lse_dy(x, y, lse, g):
+def fused_lse_dy(x, y, lse, g, *, planes=None):
     """dY kernel: the (C, d) gradient of ``y``, each row written once."""
-    dy = _linear._dw(x, y, None, lse, g, None)
+    dy = _linear._dw(x, y, None, lse, g, None, planes)
     fused_lse_dy.launches += 1
     return dy
 
@@ -65,8 +67,9 @@ class FusedLSE(torch.autograd.Function):
         x, y, lse = ctx.saved_tensors
         g = g.contiguous()
         need = ctx.needs_input_grad
-        dx = fused_lse_dx(x, y, lse, g) if need[0] else None
-        dy = fused_lse_dy(x, y, lse, g) if need[1] else None
+        planes = _linear.linear_ce_split(x, y)  # autograd calls with a need
+        dx = fused_lse_dx(x, y, lse, g, planes=planes) if need[0] else None
+        dy = fused_lse_dy(x, y, lse, g, planes=planes) if need[1] else None
         return dx, dy
 
 

@@ -150,7 +150,8 @@ _WRAPPERS = {
                    "sce_bucket_plse_fwd"),
     "eval_fused": ("eval_fused", "eval_tgt_gather"),
     "eval_topk": ("eval_topk", "eval_tgt_scores"),
-    "linear_sce": ("linear_ce_fwd", "linear_ce_dx", "linear_ce_dw"),
+    "linear_sce": ("linear_ce_fwd", "linear_ce_split", "linear_ce_dx",
+                   "linear_ce_dw"),
     "fused_ce": ("fused_lse_fwd", "fused_lse_dx", "fused_lse_dy"),
 }
 

@@ -2,20 +2,26 @@
 wrappers of ``csrc/linear_ce.cu`` (port of ``linear_ce_loss`` of
 ``repro/kernels/linear_sce.py``).
 
-Three kernels, one wrapper each, each with its own launch counter:
+Four kernels, one wrapper each, each with its own launch counter:
 
 * :func:`linear_ce_fwd` — per-position ``(loss, lse)``, the target's
-  (capped) logit plucked inside the sweep;
+  (capped) logit plucked inside the sweep (f32 FMAs);
+* :func:`linear_ce_split` — the backward's ``(hi, lo)`` TF32 planes of
+  ``x`` and ``w``, ``(rows, dp / 8, 2, 8)`` with ``dp`` = d rounded up to
+  16;
 * :func:`linear_ce_dx` — the gradient of ``x`` (N, d);
 * :func:`linear_ce_dw` — the gradient of the head/catalog ``w`` (C, d),
   every row written once (no atomics: bitwise repeatable).
 
-:class:`LinearCELoss` ties them together for autograd: the forward saves
-``x``, ``w``, ``targets`` and ``lse``; the backward recomputes the capped
-logit tiles, so the ``(N, C)`` logits never exist. ``kernels/fused_ce.py``
-runs the same kernels without the pluck and the one-hot (``_fwd``,
-``_dx``, ``_dw`` below). The wrappers take CUDA tensors only; the CPU
-path is ``kernels/ref.py``, chosen by ``kernels/ops.py``.
+dX and dW run their two products on the tensor cores in 3xTF32 from the
+planes (``csrc/tf32x3_tile.cuh``). :class:`LinearCELoss` ties them
+together for autograd: the forward saves ``x``, ``w``, ``targets`` and
+``lse``; the backward splits ``x`` and ``w`` once, passes the planes to
+both gradients and recomputes the capped logit tiles, so the ``(N, C)``
+logits never exist. ``kernels/fused_ce.py`` runs the same kernels without
+the pluck and the one-hot (``_fwd``, ``_dx``, ``_dw`` below). The
+wrappers take CUDA tensors only; the CPU path is ``kernels/ref.py``,
+chosen by ``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -27,16 +33,59 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_D = 256  # kMaxD in csrc/f32_tile.cuh
+DEPTH_ALIGN = 16  # kDepthAlign in csrc/tf32x3_tile.cuh
+MAX_SMEM = 232_448  # a block's opt-in shared memory on sm_90
+PAIR_SMEM = 233_472 // 2 - 1024  # two blocks an SM, 1 KB reserved each
+
+
+def padded_depth(d: int) -> int:
+    """The planes' depth: d rounded up to 16 (whole 128-byte lines)."""
+    return -(-d // DEPTH_ALIGN) * DEPTH_ALIGN
+
+
+def bwd_plan(d: int, dw: bool):
+    """``(warps, stages, smem bytes)`` of the dX (``dw`` False) or dW
+    launch at depth d, a copy of ``bwd_plan`` in ``csrc/linear_ce.cu``
+    that needs no card (:func:`library_bwd_plan` reads the kernel's own;
+    the CUDA tests and ``chip_smoke.py`` hold the two equal): 32 owned
+    rows of (hi, lo) pairs a warp (four warps up to dp 128, two to 192,
+    else one), a ring of 32-row streamed tiles (three stages where two
+    blocks still share an SM, else two where that lets them, else three
+    if they fit), dW's tiles with their positions' lse, g and targets."""
+    dp = padded_depth(d)
+    warps = 4 if dp <= 128 else (2 if dp <= 192 else 1)
+
+    def nbytes(stages):
+        return 8 * dp * (32 * warps + 32 * stages) + (
+            12 * 32 * stages if dw else 0)
+
+    stages = 3
+    if nbytes(3) > PAIR_SMEM and (nbytes(2) <= PAIR_SMEM
+                                  or nbytes(3) > MAX_SMEM):
+        stages = 2
+    return warps, stages, nbytes(stages)
+
+
+def library_bwd_plan(d: int, dw: bool):
+    """``(warps, stages, smem bytes)`` as the built library plans them
+    (``linear_ce_bwd_plan``)."""
+    warps, stages = ctypes.c_int(), ctypes.c_int()
+    smem = _lib().linear_ce_bwd_plan(d, int(dw), ctypes.byref(warps),
+                                     ctypes.byref(stages))
+    if smem < 0:
+        raise ValueError(f"linear_ce_bwd_plan: d={d} outside (0, {MAX_D}]")
+    return warps.value, stages.value, smem
 
 
 def planned_smem(d: int) -> int:
-    """Dynamic shared memory per block of the largest launch (dX / dW),
-    as ``smem_bytes(d, true)`` in the source lays it out: two 64-row
-    tiles at a pitch of an odd number of float4s and the (64, 68) gw
-    tile. The kernel guard checks it against the 227 KB a block may
-    use."""
+    """Dynamic shared memory per block of the largest of the launches at
+    depth d: the forward's two 64-row f32 tiles (at a pitch of an odd
+    number of float4s) or the backward's owned planes and ring
+    (:func:`bwd_plan`). The kernel guard checks it against the 227 KB a
+    block may use."""
     pitch = 4 * ((-(-d // 4)) | 1)
-    return 4 * (2 * 64 * pitch + 64 * 68)
+    return max(4 * 2 * 64 * pitch, bwd_plan(d, False)[2],
+               bwd_plan(d, True)[2])
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,8 +98,12 @@ def _lib() -> ctypes.CDLL:
     lib.linear_ce_fwd_launch.argtypes = [p] * 6 + [i] * 5 + [f, p]
     lib.linear_ce_dx_launch.argtypes = [p] * 7 + [i] * 5 + [f, p]
     lib.linear_ce_dw_launch.argtypes = [p] * 6 + [i] * 4 + [f, p]
-    for fn in (lib.linear_ce_splits, lib.linear_ce_fwd_launch,
-               lib.linear_ce_dx_launch, lib.linear_ce_dw_launch):
+    lib.linear_ce_split_launch.argtypes = [p] * 4 + [i] * 3 + [p]
+    lib.linear_ce_bwd_plan.argtypes = [i, i] + [ctypes.POINTER(i)] * 2
+    for fn in (lib.linear_ce_splits, lib.linear_ce_bwd_plan,
+               lib.linear_ce_fwd_launch,
+               lib.linear_ce_dx_launch, lib.linear_ce_dw_launch,
+               lib.linear_ce_split_launch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -139,29 +192,61 @@ def _fwd(x, w, targets, logit_softcap):
     return loss, lse
 
 
-def _dx(x, w, targets, lse, g, logit_softcap):
+def _split(x, w):
+    """The (hi, lo) planes of ``x`` and ``w``: ``(N, dp / 8, 2, 8)``,
+    ``(C, dp / 8, 2, 8)`` f32, one launch."""
+    shape = _check(x, w, None)
+    n, c, d = shape
+    blocks = padded_depth(d) // 8
+    xp = torch.empty((n, blocks, 2, 8), dtype=torch.float32, device=x.device)
+    wp = torch.empty((c, blocks, 2, 8), dtype=torch.float32, device=x.device)
+    _call("linear_ce_split_launch",
+          (x.data_ptr(), w.data_ptr(), xp.data_ptr(), wp.data_ptr(), *shape),
+          shape, x.device)
+    return xp, wp
+
+
+def _planes(x, w, planes):
+    """``planes`` checked against ``x`` and ``w``, or split now."""
+    if planes is None:
+        return linear_ce_split(x, w)
+    xp, wp = planes
+    blocks = padded_depth(x.shape[1]) // 8
+    for name, p, rows in (("x", xp, x.shape[0]), ("w", wp, w.shape[0])):
+        if (p.shape != (rows, blocks, 2, 8) or p.dtype != torch.float32
+                or p.device != x.device or not p.is_contiguous()):
+            raise ValueError(f"planes of {name} must be contiguous f32 "
+                             f"({rows}, {blocks}, 2, 8) on {x.device}; got "
+                             f"{tuple(p.shape)} {p.dtype} on {p.device}")
+    return xp, wp
+
+
+def _dx(x, w, targets, lse, g, logit_softcap, planes=None):
     shape = _check(x, w, targets, lse, g)
     n, _, d = shape
     cap = _cap(logit_softcap)
     pluck = targets is not None
+    xp, wp = _planes(x, w, planes)
     s = _splits(1, *shape, pluck, cap, x.device)
     part = (torch.empty((s, n, d), dtype=torch.float32, device=x.device)
             if s > 1 else None)
     dx = torch.empty_like(x)
     _call("linear_ce_dx_launch",
-          (x.data_ptr(), w.data_ptr(), _ptr(targets), lse.data_ptr(),
+          (xp.data_ptr(), wp.data_ptr(), _ptr(targets), lse.data_ptr(),
            g.data_ptr(), _ptr(part), dx.data_ptr(), *shape, s, int(pluck),
            cap), shape, x.device)
     return dx
 
 
-def _dw(x, w, targets, lse, g, logit_softcap):
+def _dw(x, w, targets, lse, g, logit_softcap, planes=None):
     shape = _check(x, w, targets, lse, g)
+    cap = _cap(logit_softcap)
+    xp, wp = _planes(x, w, planes)
     dw = torch.empty_like(w)
     _call("linear_ce_dw_launch",
-          (x.data_ptr(), w.data_ptr(), _ptr(targets), lse.data_ptr(),
+          (xp.data_ptr(), wp.data_ptr(), _ptr(targets), lse.data_ptr(),
            g.data_ptr(), dw.data_ptr(), *shape, int(targets is not None),
-           _cap(logit_softcap)), shape, x.device)
+           cap), shape, x.device)
     return dw
 
 
@@ -174,22 +259,33 @@ def linear_ce_fwd(x, w, targets, *, logit_softcap=None):
     return loss, lse
 
 
-def linear_ce_dx(x, w, targets, lse, g, *, logit_softcap=None):
+def linear_ce_split(x, w):
+    """Split kernel: ``(xp, wp)``, the (hi, lo) TF32 planes of ``x`` and
+    ``w`` that dX and dW read. Matches ``ref.tf32x3_planes_ref`` bit for
+    bit."""
+    planes = _split(x, w)
+    linear_ce_split.launches += 1
+    return planes
+
+
+def linear_ce_dx(x, w, targets, lse, g, *, logit_softcap=None, planes=None):
     """dX kernel: the (N, d) gradient of ``x`` for the upstream cotangent
-    ``g`` (N,) of the loss."""
-    dx = _dx(x, w, targets, lse, g, logit_softcap)
+    ``g`` (N,) of the loss. ``planes``: :func:`linear_ce_split`'s output
+    for these ``x`` and ``w`` (split here when None)."""
+    dx = _dx(x, w, targets, lse, g, logit_softcap, planes)
     linear_ce_dx.launches += 1
     return dx
 
 
-def linear_ce_dw(x, w, targets, lse, g, *, logit_softcap=None):
+def linear_ce_dw(x, w, targets, lse, g, *, logit_softcap=None, planes=None):
     """dW kernel: the (C, d) gradient of ``w``, each row written once."""
-    dw = _dw(x, w, targets, lse, g, logit_softcap)
+    dw = _dw(x, w, targets, lse, g, logit_softcap, planes)
     linear_ce_dw.launches += 1
     return dw
 
 
 linear_ce_fwd.launches = 0
+linear_ce_split.launches = 0
 linear_ce_dx.launches = 0
 linear_ce_dw.launches = 0
 
@@ -211,10 +307,11 @@ class LinearCELoss(torch.autograd.Function):
         g = g.contiguous()
         cap = ctx.logit_softcap
         need = ctx.needs_input_grad
-        dx = (linear_ce_dx(x, w, targets, lse, g, logit_softcap=cap)
-              if need[0] else None)
-        dw = (linear_ce_dw(x, w, targets, lse, g, logit_softcap=cap)
-              if need[1] else None)
+        planes = linear_ce_split(x, w)  # autograd calls with a need
+        dx = (linear_ce_dx(x, w, targets, lse, g, logit_softcap=cap,
+                           planes=planes) if need[0] else None)
+        dw = (linear_ce_dw(x, w, targets, lse, g, logit_softcap=cap,
+                           planes=planes) if need[1] else None)
         return dx, dw, None, None
 
 

@@ -2,7 +2,7 @@
 ``repro/kernels/ref.py``: the MIPS top-k, the in-bucket SCE loss and
 partial LSE over gathered or pre-gathered candidates, the fused
 evaluation sweep and the deprecated two-pass one, and the streamed
-full-catalog CE).
+full-catalog CE with the TF32 split of its backward's inputs).
 
 They are the CPU path of ``kernels/ops.py`` and the yardstick the tests
 and ``chip_smoke.py`` hold each CUDA kernel against. No production path
@@ -360,26 +360,34 @@ def fused_ce_loss_ref(x, y, targets, *, chunk: int = 512):
             - pos).to(x.dtype)
 
 
+def _ce_dtype(x):
+    """The backward plain versions' working type: f32, or f64 for f64
+    ``x`` (the exact yardstick the CPU tests hold the 3xTF32 arithmetic
+    to)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _ce_cotangent_chunks(x, w, targets, lse, g, logit_softcap, chunk):
     """Per catalog chunk ``(lo, rows, gw)``: the chunk's rows of ``w`` in
-    f32 and ``gw = (exp(l − lse) − onehot(targets))·(1 − (l/cap)²)·g`` over
-    its capped logits ``l`` (no one-hot when ``targets`` is None, no cap
-    factor without a cap)."""
+    the working type and ``gw = (exp(l − lse) − onehot(targets))·
+    (1 − (l/cap)²)·g`` over its capped logits ``l`` (no one-hot when
+    ``targets`` is None, no cap factor without a cap)."""
     c = w.shape[0]
     chunk = max(1, min(chunk, c))
-    x32 = x.to(torch.float32)
-    g32 = g.to(torch.float32)[:, None]
-    lse32 = lse.to(torch.float32)[:, None]
+    dt = _ce_dtype(x)
+    x32 = x.to(dt)
+    g32 = g.to(dt)[:, None]
+    lse32 = lse.to(dt)[:, None]
     cap = logit_softcap
     tid = None if targets is None else targets.long()[:, None]
     for lo in range(0, c, chunk):
-        rows = w[lo:lo + chunk].to(torch.float32)
+        rows = w[lo:lo + chunk].to(dt)
         logits = x32 @ rows.T
         capped = logits if cap is None else cap * torch.tanh(logits / cap)
         p = torch.exp(capped - lse32)
         if tid is not None:
             idx = torch.arange(lo, lo + rows.shape[0], device=x.device)
-            p = p - (idx[None, :] == tid).to(torch.float32)
+            p = p - (idx[None, :] == tid).to(dt)
         if cap is not None:
             p = p * (1.0 - (capped / cap) ** 2)
         yield lo, rows, p * g32
@@ -390,8 +398,9 @@ def linear_ce_dx_ref(x, w, targets, lse, g, *, logit_softcap=None,
     """The plain version of the dX kernel, chunked over the catalog:
     ``dx = Σ_chunks gw · w_chunk`` for the cotangent ``g`` (N,) of the
     loss (with ``targets``) or of the lse (``targets=None``, the gradient
-    of :func:`fused_lse_ref`) → (N, d) f32."""
-    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    of :func:`fused_lse_ref`) → (N, d) f32 (f64 for f64 ``x`` and
+    ``w``)."""
+    dx = torch.zeros(x.shape, dtype=_ce_dtype(x), device=x.device)
     for _, rows, gw in _ce_cotangent_chunks(x, w, targets, lse, g,
                                             logit_softcap, chunk):
         dx += gw @ rows
@@ -401,10 +410,36 @@ def linear_ce_dx_ref(x, w, targets, lse, g, *, logit_softcap=None,
 def linear_ce_dw_ref(x, w, targets, lse, g, *, logit_softcap=None,
                      chunk: int = 512):
     """The plain version of the dW (dY) kernel: ``dw[chunk] = gwᵀ · x``
-    for each catalog chunk → (C, d) f32."""
-    x32 = x.to(torch.float32)
-    dw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    for each catalog chunk → (C, d) f32 (f64 for f64 ``x`` and ``w``)."""
+    x32 = x.to(_ce_dtype(x))
+    dw = torch.empty(w.shape, dtype=x32.dtype, device=w.device)
     for lo, rows, gw in _ce_cotangent_chunks(x, w, targets, lse, g,
                                              logit_softcap, chunk):
         dw[lo:lo + rows.shape[0]] = gw.T @ x32
     return dw
+
+
+def tf32_round(a):
+    """f32 → TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest with ties
+    away from zero, keeping 10 explicit mantissa bits (the low 13 bits
+    zero), subnormals included; a carry moves into the exponent (the
+    largest finite values round to inf); inf and NaN pass through.
+    → f32 tensor of the same shape."""
+    u = a.to(torch.float32).contiguous().view(torch.int32)
+    special = (u & 0x7F800000) == 0x7F800000
+    rounded = (u + 0x1000) & ~0x1FFF
+    return torch.where(special, u, rounded).view(torch.float32)
+
+
+def tf32x3_planes_ref(a):
+    """The plain version of ``linear_ce_split`` for one matrix: ``a``
+    (rows, d) → (rows, dp / 8, 2, 8) f32, ``dp`` = d rounded up to 16:
+    per block of 8 depths ``[..., 0, :] = hi = tf32(a)`` and
+    ``[..., 1, :] = lo = tf32(a − hi)``, zeros past d."""
+    rows, d = a.shape
+    dp = -(-d // 16) * 16
+    a = torch.nn.functional.pad(a.to(torch.float32), (0, dp - d))
+    hi = tf32_round(a)
+    lo = tf32_round(a - hi)
+    return torch.stack([hi.view(rows, dp // 8, 8),
+                        lo.view(rows, dp // 8, 8)], dim=2)

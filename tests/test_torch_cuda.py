@@ -43,7 +43,19 @@ plucked in the sweep, and ``fused_lse`` without it): losses and lse within
 ``2e-4·|grad|`` of the plain versions (``linear_ce_loss_ref`` and the
 chunked backward ``linear_ce_dx_ref`` / ``linear_ce_dw_ref``; exp sums
 fold in another order). Every kernel repeats bit for bit, and ``ops``
-raises on a mix of CPU and CUDA tensors.
+raises on a mix of CPU and CUDA tensors. dX and dW/dY run in 3xTF32 on
+the tensor cores: the same tolerances at the trainer's logit scale
+(x 3·randn, d 64, many catalog splits); a cotangent that is only the
+one-hot (fused: the target's logit far above the rest, g = 1; linear: an
+lse far above every logit, so p = 0) gives dX = ±w[target] and dW/dY the
+sums of x over each target's positions exactly, as the plain version —
+the case that a wrong fragment order cannot pass; the split kernel's
+(hi, lo) planes equal ``ref.tf32x3_planes_ref`` bit for bit (values
+built bit by bit included); the backward splits once for both
+gradients; the wrapper's copy of the backward's launch plan equals the
+library's at every depth; and an lse more than 44 below a logit, where
+the kernels cap exp's argument (their one deviation from the plain
+version), holds the capped formula.
 
 ``sce_bucket`` (forward, dX, dY over pre-gathered candidates, and the
 partial LSE): the tolerances of ``sce_gather``; its forward and dX equal
@@ -631,6 +643,150 @@ def test_linear_ce_kernels_are_deterministic(dev):
         for u, v in zip(a if isinstance(a, tuple) else (a,),
                         b if isinstance(b, tuple) else (b,)):
             assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("pluck", [True, False])
+def test_linear_ce_kernels_match_plain_at_the_trainer_scale(dev, pluck):
+    """d = 64, x at 3·randn (logits up to ≈ 110), no cap, a catalog long
+    enough for many splits of dX and positions for many dW tiles. At this
+    scale the f32 plain version itself is off the exact gradient by up to
+    0.98 of the tolerance (cuBLAS's f32 logits), so the yardstick is the
+    plain version evaluated in f64: the kernel holds it at the usual
+    tolerance."""
+    x, w, t, gr = _ce_problem(dev, 64, 4_096, 60_000, 64)
+    tt = t if pluck else None
+    lse = ref.fused_lse_ref(x, w)
+    planes = linear_sce.linear_ce_split(x, w)
+    if pluck:
+        dx = linear_sce.linear_ce_dx(x, w, t, lse, gr, planes=planes)
+        dw = linear_sce.linear_ce_dw(x, w, t, lse, gr, planes=planes)
+    else:
+        dx = fused_ce.fused_lse_dx(x, w, lse, gr, planes=planes)
+        dw = fused_ce.fused_lse_dy(x, w, lse, gr, planes=planes)
+    torch.cuda.synchronize()
+    exact = (x.double(), w.double(), tt, lse.double(), gr.double())
+    _close(dx, ref.linear_ce_dx_ref(*exact).float(), rtol=2e-4)
+    _close(dw, ref.linear_ce_dw_ref(*exact).float(), rtol=2e-4)
+
+
+@pytest.mark.parametrize("pluck", [True, False])
+def test_linear_ce_one_hot_cotangent_is_exact(dev, pluck):
+    """Integer inputs and g = 1. fused (no pluck): x = 8·w[target], whose
+    logit is more than 110 above every other (f32's exp is 0 below
+    −104), so p is exactly the one-hot and dX = w[target]; linear (pluck): an lse of 1e4 makes every p 0, so
+    the cotangent is −onehot and dX = −w[target]. dW/dY[j] is ± the sum of
+    x over the positions whose target is j. Every sum is of small
+    integers, so the kernel, the plain version and the closed form agree
+    bit for bit; a wrong k order in the fragments moves whole rows."""
+    n, c, d = 1_000, 5_003, 64
+    g = _gen(dev, 81)
+    w = _ints(g, dev, c, d)
+    t = torch.randint(0, c, (n,), generator=g, device=dev, dtype=torch.int32)
+    t[::7] = c - 1  # the ragged tile's last row, many times
+    x = 8.0 * w[t.long()]
+    logits = x @ w.T
+    top2 = logits.topk(2, dim=1).values
+    assert (logits.gather(1, t.long()[:, None])[:, 0] == top2[:, 0]).all()
+    assert ((top2[:, 0] - top2[:, 1]) > 110).all()
+    gr = torch.ones(n, device=dev)
+    sign = -1.0 if pluck else 1.0
+    lse = (torch.full((n,), 1e4, device=dev) if pluck
+           else ref.fused_lse_ref(x, w))
+    tt = t if pluck else None
+    dx = linear_sce.linear_ce_dx(x, w, tt, lse, gr)
+    dw = linear_sce.linear_ce_dw(x, w, tt, lse, gr)
+    torch.cuda.synchronize()
+    want_dx = sign * w[t.long()]
+    want_dw = torch.zeros_like(w).index_add_(0, t.long(), sign * x)
+    assert torch.equal(dx, want_dx)
+    assert torch.equal(dw, want_dw)
+    assert torch.equal(dx, ref.linear_ce_dx_ref(x, w, tt, lse, gr))
+    assert torch.equal(dw, ref.linear_ce_dw_ref(x, w, tt, lse, gr))
+
+
+def test_linear_ce_split_matches_plain_bit_for_bit(dev):
+    """The split kernel's planes against ``ref.tf32x3_planes_ref``: random
+    values over many binades, d % 16 != 0, and values built bit by bit
+    (ties, carries into the exponent, the largest finite, subnormals,
+    inf); NaN stays NaN."""
+    import numpy as np
+
+    words = np.array([0x3F800FFF, 0x3F801000, 0xBF801000, 0x3F801001,
+                      0x3FFFF000, 0x7F7FFFFF, 0xFF7FFFFF, 0x00001000,
+                      0x80000FFF, 0x007FF000, 0x7F800000, 0xFF800000,
+                      0x00000000, 0x80000000], dtype=np.uint32)
+    edge = torch.from_numpy(words.view(np.float32)).to(dev)
+    g = _gen(dev, 82)
+    x = torch.randn(37, 33, generator=g, device=dev) * torch.exp2(
+        torch.randint(-40, 40, (37, 33), generator=g, device=dev).float())
+    x[0, :edge.numel()] = edge
+    x[1, 0] = float("nan")
+    w = torch.randn(50, 33, generator=g, device=dev)
+    before = linear_sce.linear_ce_split.launches
+    xp, wp = linear_sce.linear_ce_split(x, w)
+    torch.cuda.synchronize()
+    assert linear_sce.linear_ce_split.launches - before == 1
+    for got, a in ((xp, x), (wp, w)):
+        want = ref.tf32x3_planes_ref(a)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int32),
+                           want[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("pluck", [True, False])
+def test_linear_ce_backward_splits_once_for_both_gradients(dev, pluck):
+    x, w, t, gr = _ce_problem(dev, 83, 300, 20_000, 64)
+    leaves = [a.clone().requires_grad_(True) for a in (x, w)]
+    out = (ops.linear_ce_loss(*leaves, t) if pluck
+           else ops.fused_lse(*leaves))
+    before = linear_sce.linear_ce_split.launches, _ce_launches()
+    torch.autograd.grad((out * gr).sum(), leaves)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(_ce_launches(), before[1])]
+    assert linear_sce.linear_ce_split.launches - before[0] == 1
+    assert moved == ([0, 1, 1, 0, 0, 0] if pluck else [0, 0, 0, 0, 1, 1])
+
+
+def test_linear_ce_backward_plan_equals_the_library(dev):
+    """The guard's preflight trusts ``linear_sce.bwd_plan``, the wrapper's
+    copy of the kernel's launch plan: it equals the library's at every
+    depth, and fits a block's shared memory."""
+    for d in range(1, linear_sce.MAX_D + 1):
+        for dw in (False, True):
+            plan = linear_sce.library_bwd_plan(d, dw)
+            assert linear_sce.bwd_plan(d, dw) == plan, (d, dw)
+            assert plan[2] <= linear_sce.MAX_SMEM
+    with pytest.raises(ValueError):
+        linear_sce.library_bwd_plan(linear_sce.MAX_D + 1, False)
+
+
+@pytest.mark.parametrize("pluck", [True, False])
+def test_linear_ce_caps_the_exp_of_an_lse_far_below_the_logits(dev, pluck):
+    """The kernels' one deviation from the plain version: the cotangent's
+    exp takes ``min(l - lse, 44)``. With the lse of the same logits
+    ``l - lse <= 0`` and the cap never acts; here the lse lies 60 below
+    it, so the plain version's gradient is orders of magnitude larger than
+    the kernels' (and would reach inf further down), while the kernels hold
+    the plain formula with the capped exponent, evaluated in f64, at the
+    usual tolerance."""
+    x, w, t, gr = _ce_problem(dev, 84, 70, 1_037, 64)
+    tt = t if pluck else None
+    lse = ref.fused_lse_ref(x, w) - 60.0
+    dx = linear_sce.linear_ce_dx(x, w, tt, lse, gr)
+    dw = linear_sce.linear_ce_dw(x, w, tt, lse, gr)
+    torch.cuda.synchronize()
+    xd, wd = x.double(), w.double()
+    z = xd @ wd.T - lse.double()[:, None]
+    assert (z > 50.0).any()
+    p = torch.exp(z.clamp(max=44.0))
+    if pluck:
+        p[torch.arange(len(t), device=dev), t.long()] -= 1.0
+    gw = p * gr.double()[:, None]
+    _close(dx, (gw @ wd).float(), rtol=2e-4)
+    _close(dw, (gw.T @ xd).float(), rtol=2e-4)
+    plain = ref.linear_ce_dx_ref(x, w, tt, lse, gr)
+    assert plain.abs().max() > 1e4 * dx.abs().max()
 
 
 def test_linear_ce_raises_on_what_it_does_not_take(dev):
