@@ -128,16 +128,18 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    gradients within ``1e-5·max|grad|`` plus ``2e-4·|grad|`` of the plain
    versions (``linear_ce_loss_ref``, ``fused_lse_ref``,
    ``linear_ce_dx_ref``, ``linear_ce_dw_ref``), dX exactly 0 on rows with
-   a zero cotangent. The backward kernels (3xTF32 on the tensor cores)
-   take the planes of ``linear_ce_split``, which must equal the plain
-   split (``ref.tf32x3_planes_ref``) bit for bit on every input. Times
-   each kernel, the split, their plain versions and one PyTorch call
+   a zero cotangent. All six kernels (3xTF32 on the tensor cores) take
+   the planes of ``linear_ce_split``, which must equal the plain split
+   (``ref.tf32x3_planes_ref``) bit for bit on every input. Times each
+   kernel, the split, their plain versions and one PyTorch call
    (``logsumexp(x @ wᵀ)``, ``softmax(x @ wᵀ) @ w``,
    ``softmax(x @ wᵀ)ᵀ @ x``, all f32; none for the split) with a cold L2
-   cache. The backward kernels' bound is the largest of three TF32 passes
-   at 495 TFLOP/s, the N·C exps at the SFUs' rate (16 a clock per SM at
+   cache. A kernel's bound is the largest of three TF32 passes at 495
+   TFLOP/s, the N·C exps at the SFUs' rate (16 a clock per SM at
    ``nvidia-smi``'s top SM clock) and the bytes, its basis named and the
-   f32 FMA bound printed beside it; the forward's stays the f32 FMA bound.
+   f32 FMA bound printed beside it. The wrapper's copies of the forward's
+   and the backward's launch plans (the guard's ``smem_budget``) must
+   equal the library's at every d ≤ 256.
 14. The trainer with the competitor losses at full width:
    ``make_seqrec_train_step`` with ``train_loss`` set by
    ``dataclasses.replace`` — ``ce_fused_linear`` and ``ce_fused`` for 20
@@ -1686,14 +1688,15 @@ def ce_calls(x, w, t, g, lse, cap, planes):
     """Per kernel of ``CE_KERNELS``: ``(kernel call, plain call)`` on these
     inputs; the backward kernels and their plain versions take the same
     ``lse``, the kernels the split ``planes`` of ``x`` and ``w`` (as the
-    autograd backward hands them over). ``linear_ce_fwd`` returns
+    autograd forward hands them over). ``linear_ce_fwd`` returns
     ``(loss, lse)``, its plain version the loss."""
     from repro_torch.kernels import fused_ce, linear_sce, ref
 
     kw = dict(logit_softcap=cap)
     bwd = (x, w, t, lse, g)
     return {
-        "linear_ce_fwd": (lambda: linear_sce.linear_ce_fwd(x, w, t, **kw),
+        "linear_ce_fwd": (lambda: linear_sce.linear_ce_fwd(x, w, t, **kw,
+                                                           planes=planes),
                           lambda: ref.linear_ce_loss_ref(x, w, t, **kw)),
         "linear_ce_dx": (lambda: linear_sce.linear_ce_dx(*bwd, **kw,
                                                          planes=planes),
@@ -1701,7 +1704,8 @@ def ce_calls(x, w, t, g, lse, cap, planes):
         "linear_ce_dw": (lambda: linear_sce.linear_ce_dw(*bwd, **kw,
                                                          planes=planes),
                          lambda: ref.linear_ce_dw_ref(*bwd, **kw)),
-        "fused_lse_fwd": (lambda: fused_ce.fused_lse_fwd(x, w),
+        "fused_lse_fwd": (lambda: fused_ce.fused_lse_fwd(x, w,
+                                                         planes=planes),
                           lambda: ref.fused_lse_ref(x, w)),
         "fused_lse_dx": (lambda: fused_ce.fused_lse_dx(x, w, lse, g,
                                                        planes=planes),
@@ -1722,12 +1726,12 @@ def split_calls(x, w):
 
 def ce_case(name, x, w, t, g, *, cap=None):
     """The six full-CE kernels against their plain versions on one input
-    (the fused family without the cap, which it does not take), the
-    backward ones on the split kernel's planes, which must equal the plain
-    split bit for bit. Values within ``1e-5·max|want|``, gradients within
-    ``1e-5·max|grad|`` plus ``2e-4·|grad|`` (f32 exp sums fold in another
-    order; dX and dW/dY in 3xTF32); rows with a zero cotangent get dX
-    exactly 0. Returns the max errors."""
+    (the fused family without the cap, which it does not take), on the
+    split kernel's planes, which must equal the plain split bit for bit.
+    Values within ``1e-5·max|want|``, gradients within ``1e-5·max|grad|``
+    plus ``2e-4·|grad|`` (f32 exp sums fold in another order; the products
+    in 3xTF32); rows with a zero cotangent get dX exactly 0. Returns the
+    max errors."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1784,15 +1788,15 @@ def ce_bounds(n, c, d):
     """Least times of the full-CE kernels at (N, C, d): each reads x and w
     once (the linear family also the targets), the backward kernels the
     lse and g; each writes its outputs once (loss and lse; lse; dX; dW).
-    The forward does 2·N·C·d f32 FLOPs, as f32 FMAs. dX and dW/dY
-    recompute the logits and take a product of the same size, 4·N·C·d
-    FLOPs, in 3xTF32 on the tensor cores: their bound is the largest of
-    three TF32 passes at the dense TF32 rate, the N·C exps (no cap) at
-    the SFU rate of the card's SMs at its top clock, and the bytes; the
-    f32 FMA bound of the same FLOPs stands beside it (``f32_ms``). The
-    split kernel reads x and w and writes their planes (two floats per
-    depth, d rounded up to 16): bytes. Returns name →
-    ``(ms, "bytes" | "operations", basis, f32_ms)``."""
+    The forward does 2·N·C·d FLOPs of logits; dX and dW/dY recompute them
+    and take a product of the same size, 4·N·C·d FLOPs. All run in 3xTF32
+    on the tensor cores: a bound is the largest of three TF32 passes at
+    the dense TF32 rate, the N·C exps (no cap) at the SFU rate of the
+    card's SMs at its top clock, and the bytes; the f32 FMA bound of the
+    same FLOPs stands beside it (``f32_ms``). The split kernel reads x and
+    w and writes their planes (two floats per depth, d rounded up to 16):
+    bytes. Returns name → ``(ms, "bytes" | "operations", basis,
+    f32_ms)``."""
     import torch
 
     common = 4 * (n * d + c * d)
@@ -1803,17 +1807,15 @@ def ce_bounds(n, c, d):
     for kname, family, what, _ in CE_KERNELS:
         tgt = 4 * n if family == "linear" else 0
         if what == "fwd":
+            work = flops
             nbytes = common + tgt + (8 if family == "linear" else 4) * n
-            ms, by = roofline_ms(nbytes, flops)
-            out[kname] = (ms, by, "f32 FMAs" if by == "operations"
-                          else "bytes", ms)
-            continue
-        written = 4 * (n if what == "dx" else c) * d
-        nbytes = common + tgt + 8 * n + written
-        f32_ms = roofline_ms(nbytes, 2 * flops)[0]
-        cands = {"3xTF32 tensor cores": 3 * 2 * flops / PEAK_TF32_FLOP_S
-                 * 1e3, "SFU exps": sfu_ms,
-                 "bytes": nbytes / PEAK_BYTES_S * 1e3}
+        else:
+            work = 2 * flops
+            written = 4 * (n if what == "dx" else c) * d
+            nbytes = common + tgt + 8 * n + written
+        f32_ms = roofline_ms(nbytes, work)[0]
+        cands = {"3xTF32 tensor cores": 3 * work / PEAK_TF32_FLOP_S * 1e3,
+                 "SFU exps": sfu_ms, "bytes": nbytes / PEAK_BYTES_S * 1e3}
         basis = max(cands, key=cands.get)
         out[kname] = (cands[basis],
                       "bytes" if basis == "bytes" else "operations", basis,
@@ -1829,16 +1831,20 @@ def ce_kernel_phase(dev):
 
     from repro_torch.kernels import linear_sce, ref
 
-    # The guard's preflight plans the backward's shared memory with
-    # linear_sce.bwd_plan, a copy of the library's plan: hold them equal.
+    # The guard's preflight plans the kernels' shared memory with
+    # linear_sce.fwd_plan and bwd_plan, copies of the library's plans:
+    # hold them equal.
     for d in range(1, linear_sce.MAX_D + 1):
+        mine, lib = linear_sce.fwd_plan(d), linear_sce.library_fwd_plan(d)
+        check(mine == lib, f"linear_ce forward plan at d={d}: wrapper "
+              f"{mine}, library {lib}")
         for dw in (False, True):
             mine = linear_sce.bwd_plan(d, dw)
             lib = linear_sce.library_bwd_plan(d, dw)
             check(mine == lib, f"linear_ce backward plan at d={d} dw={dw}: "
                   f"wrapper {mine}, library {lib}")
-    print("  linear_ce backward plan: the wrapper's copy equals the "
-          "library's at every d <= 256")
+    print("  linear_ce forward and backward plans: the wrapper's copies "
+          "equal the library's at every d <= 256")
 
     gen = torch.Generator(device=dev).manual_seed(3)
 
@@ -1881,8 +1887,8 @@ def ce_kernel_phase(dev):
                          cap=30.0))
 
     # Times at the trainer's shape, cold L2; the library calls hold the
-    # (N, C) f32 logits (17.8 GB) and their softmax. The backward kernels
-    # take the planes of one split, timed on its own.
+    # (N, C) f32 logits (17.8 GB) and their softmax. The kernels take the
+    # planes of one split, timed on its own.
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     lse = ref.fused_lse_ref(x, w)
     split, split_plain = split_calls(x, w)
@@ -1911,8 +1917,7 @@ def ce_kernel_phase(dev):
             tt = timings[kname]
             lib_ms = ("none" if tt["library_ms"] is None
                       else f"{tt['library_ms']:.4f} ms")
-            f32 = ("" if what is None or what == "fwd"
-                   else f"; as f32 FMAs {f32_ms:.4f} ms")
+            f32 = "" if what is None else f"; as f32 FMAs {f32_ms:.4f} ms"
             print(f"  time {kname}: kernel {tt['ms']:.4f} ms, plain "
                   f"{tt['plain_ms']:.3f} ms, library {lib_ms}, bound "
                   f"{tt['bound_ms']:.4f} ms ({tt['bound_by']}: {basis}"

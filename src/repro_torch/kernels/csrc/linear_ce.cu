@@ -33,22 +33,27 @@
 // TPU (linear_sce.py:84-87): a padded column stays at NEG_INF, never −cap.
 //
 // What bounds it on an H100. At the paper's training shape (N = 25,600
-// positions, C = 173,520 catalog rows, d = 64) the forward is
-// 2·N·C·d = 5.69e11 f32 FLOPs against 51 MB that must move: 8.49 ms at
-// 67 TFLOP/s against 0.015 ms at 3.35 TB/s, so the f32 FMA rate bounds
-// it. Its products stay f32 FMAs in a fixed order over d (f32_tile.cuh).
-// dX and dW each recompute the logits and take a product of the same
-// size, 1.14e12 FLOPs: 16.97 ms as f32 FMAs. They run on the tensor cores
-// instead, in 3xTF32 (tf32x3_tile.cuh): three TF32 passes of 1.14e12 at
-// the dense 495 TFLOP/s are 6.9 ms, against N·C = 4.44e9 exps, about
-// 1 ms on the SFUs (16 a clock per SM, 132 SMs, 1.98 GHz). So the tensor
-// cores bound them; `mma.sync` (not `wgmma`) reaches about 310 TFLOP/s
-// of TF32 with eight warps an SM on an H100 SXM (probes/tf32_mma_rate.py),
-// 11 ms here. Shared memory comes next: a warp-tile of 384 `mma` reads
-// 48 KB of fragments, about two thirds of what the SM's 128 bytes a clock
-// give at that rate. The rest — the cotangent's exps, the splits of G,
-// the FADDs of the k16 steps — is about 1,700 instructions a warp-tile
-// beside its 384 `mma`.
+// positions, C = 173,520 catalog rows, d = 64) the forward computes
+// 2·N·C·d = 5.69e11 FLOPs of logits and N·C = 4.44e9 exps against 51 MB
+// that must move (0.015 ms at 3.35 TB/s); dX and dW each recompute the
+// logits and take a product of the same size, 1.14e12 FLOPs. As f32 FMAs
+// at 67 TFLOP/s that is 8.49 ms for the forward and 16.97 ms for dX or
+// dW. All three run their products on the tensor cores in 3xTF32
+// (tf32x3_tile.cuh) instead: three TF32 passes at the dense 495 TFLOP/s
+// are 3.45 ms for the forward and 6.9 ms for dX or dW, against about 1 ms
+// of exps on the SFUs (16 a clock per SM, 132 SMs, 1.98 GHz). So the
+// tensor cores bound them; `mma.sync` (not `wgmma`) reaches about 310
+// TFLOP/s of TF32 with eight warps an SM on an H100 SXM
+// (probes/tf32_mma_rate.py), 5.5 and 11 ms here. Shared memory comes
+// next: a warp-tile of 384 `mma`, forward or backward, reads 48 KB of
+// fragments, about two thirds of what the SM's 128 bytes a clock give at
+// that rate. The rest — the cotangent's exps, the splits of G, the FADDs
+// of the k16 steps — is about 1,700 instructions a backward warp-tile
+// beside its 384 `mma`; the forward's online softmax is four a logit
+// (max, FFMA, exp2, add) over a thread's 64 logits a tile. On an H100 at
+// the paper's shape the forward takes 10.8 ms, 158 TFLOP/s of TF32;
+// probes/linear_ce_fwd_parts.py times it with the softmax replaced by a
+// plain sum and without staging any later tile.
 //
 // Why 3xTF32 keeps the f32 tolerance. A product a·b becomes
 // a_lo·b_hi + a_hi·b_lo + a_hi·b_hi with each half rounded to nearest:
@@ -56,52 +61,65 @@
 // runs long inside the tensor cores (each k16 step starts from zero and
 // is added in f32; see tf32x3_tile.cuh). A logit of |l| ≈ 100 then moves
 // by a few units in f32's last place, less than cuBLAS's f32 product of
-// the plain version does, well inside the gradients'
-// 1e-5·max|grad| + 2e-4·|grad|. Inputs are split once per backward by
-// split_kernel into (hi, lo) planes, (N + C)·dp·8 bytes (102 MB at the
-// paper's shape), which dX and dW share.
+// the plain version does, well inside the lse's 1e-5·max|lse| and the
+// gradients' 1e-5·max|grad| + 2e-4·|grad|. The forward's lse and the
+// backward's recomputed logits come from the same arithmetic. Inputs are
+// split once per step by split_kernel into (hi, lo) planes,
+// (N + C)·dp·8 bytes (102 MB at the paper's shape), which the forward,
+// dX and dW share: the autograd forward splits and keeps the planes for
+// the backward (kernels/linear_sce.py). A step splits once instead of
+// twice, and holding the planes from the loss's forward to its backward
+// raised the full-CE steps' peak memory by at most 43 MiB over splitting
+// again in the backward, less than one split's 97 MiB of planes (H100,
+// the paper's shape; probes/linear_ce_times.py peak).
 //
 // Design. The TPU grid carries (m, s, pos) along a sequential catalog axis;
-// on Hopper a block owns a tile and loops itself.
-//   * forward: a block owns 64 positions, stages their rows of x in
-//     shared memory once and streams its share of the catalog through
-//     shared memory 64 rows at a time, computing each 64 × 64 logit tile
-//     as a 4 × 4 register tile per thread, with per thread and row an
-//     online (m, s) over the thread's columns (and the plucked positive),
-//     merged over the row's 16 threads by half-warp shuffles in a fixed
-//     tree at the end.
+// on Hopper a block owns a tile and loops itself. Every kernel below stages
+// its owned rows once into shared memory as ready A fragments and streams
+// the other matrix's planes through a ring of cp.async stages, so tile
+// i + 2 loads while tile i computes, each fragment load landing in the
+// registers the `mma` reads (the layouts of tf32x3_tile.cuh; a (hi, lo)
+// pair per depth would need four register moves per `mma`).
+//   * forward: a block of up to eight warps owns 32 positions a warp (256
+//     at d ≤ 64) and streams its split of the catalog 64 rows a tile (32
+//     above dp 64, where a 64-row stage would crowd out the warps). Per
+//     tile a warp computes its 32 × 64 logit tile with 384 `mma` (k16 steps
+//     over the depth) and folds it, in the accumulator registers, into an
+//     online (m, s) per thread and row: the softcap before the ragged-tile
+//     mask (as on the TPU), the tile's max first, then one exp per logit;
+//     the target's logit is plucked from the same register that enters the
+//     sum, so loss = lse − pos comes from one rounding. At the end the four
+//     lanes of a row merge their (m, s, pos) in a fixed tree. fwd_plan
+//     picks the warps and ring stages that fit a block's shared memory.
 //   * dX and dW are one kernel, ce_bwd_kernel, on two grids. A block of
 //     four warps owns 128 rows (32 a warp, two m16 tiles) of one matrix —
 //     positions of x for dX, catalog rows of w for dW (the transposed grid,
-//     as on the TPU) — staged once into shared memory as ready A
-//     fragments, and streams the other matrix's planes 32 rows a tile
-//     through a ring of cp.async stages (three; two for dW at d ≤ 64,
-//     where its tiles also carry lse, g and the targets of their 32
-//     positions and three would not let two blocks share an SM), so tile
-//     i + 2 loads while tile i computes. Per tile a warp computes its
-//     32 × 32 logit tile S with 192 `mma` (k16 steps over the depth),
-//     turns it into the cotangent in the accumulator registers (the
-//     softcap before the ragged-tile mask, as on the TPU; rows with g = 0
-//     give exactly 0), splits it into hi and lo there, and multiplies it
-//     by the streamed tile into its (32, 64) output accumulator with
-//     another 192 `mma` — G never goes through shared memory. Every
-//     fragment load lands in the registers the `mma` reads (the layouts
-//     of tf32x3_tile.cuh); a (hi, lo) pair per depth would need four
-//     register moves per `mma`. For d > 64 the
-//     grid's third axis takes the output 64 depth columns at a time, each
-//     block recomputing S.
-//   * 200 position blocks at N = 25,600 fill the SMs' 264 slots (two
-//     blocks an SM) in under a wave, so dX cuts the catalog into S
-//     contiguous splits (grid (N / 128, S)), S the least number whose
-//     blocks fill their last wave to 90 % (the occupancy calculator gives
-//     the blocks per SM). Each split writes its partial per row, and a
-//     second kernel merges them per row in split order; the forward does
-//     the same with its (m, s, pos). No atomics: every result repeats bit
-//     for bit. dW writes each row once; a target shared by many positions
-//     is summed inside the block's loop.
-//   * At d = 64 (ptxas, sm_90a): 253–255 registers a thread and no
-//     spills; 114,688 bytes of shared memory for dX and 99,072 for dW:
-//     two blocks, eight warps, per SM.
+//     as on the TPU) — and streams the other matrix's planes 32 rows a tile
+//     through three stages (two for dW at d ≤ 64, where its tiles also
+//     carry lse, g and the targets of their 32 positions and three would
+//     not let two blocks share an SM). Per tile a warp computes its
+//     32 × 32 logit tile S with 192 `mma`, turns it into the cotangent in
+//     the accumulator registers (the softcap before the ragged-tile mask;
+//     rows with g = 0 give exactly 0), splits it into hi and lo there, and
+//     multiplies it by the streamed tile into its (32, 64) output
+//     accumulator with another 192 `mma` — G never goes through shared
+//     memory. For d > 64 the grid's third axis takes the output 64 depth
+//     columns at a time, each block recomputing S.
+//   * 100 forward blocks (one an SM) and 200 dX blocks (two an SM) at
+//     N = 25,600 fill the 132 SMs in under a wave, so both cut the catalog
+//     into S contiguous splits (grid (N / rows, S)), S the least number
+//     whose blocks fill their last wave to 90 % (the occupancy calculator
+//     gives the blocks per SM). Each split writes its partial per row —
+//     the forward its (m, s, pos), dX its rows — and a second kernel
+//     merges them per row in split order. No atomics: every result repeats
+//     bit for bit. dW writes each row once; a target shared by many
+//     positions is summed inside the block's loop.
+//   * At d = 64 (ptxas, sm_90a): the forward 209–231 registers a thread
+//     and no spills, its eight warps sharing 229,376 bytes of shared
+//     memory (256 positions' planes and three 64-row stages): one block,
+//     eight warps, per SM. dX and dW 253–255 registers and no spills,
+//     114,688 bytes for dX and 99,072 for dW: two blocks, eight warps,
+//     per SM.
 //
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -112,31 +130,30 @@
 
 #include <type_traits>
 
-#include "f32_tile.cuh"
 #include "tf32x3_tile.cuh"
 
 namespace {
 
-using namespace f32_tile;
 using namespace tf32x3;
 
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxD = 256;
+constexpr int kMaxSmem = 232448;  // 227 KB opt-in per block on sm_90
+constexpr int kMaxDevices = 64;
 constexpr int kMaxSplits = 64;
 constexpr int kMergeThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-// The forward's inputs. `tgt` is null without PLUCK.
-struct Problem {
-  const float* x;  // (n, d)
-  const float* w;  // (c, d)
-  const int* tgt;  // (n,)
-  int n, c, d;
-  float cap;
-  int vec_x, vec_w;
-  int tiles_per_split;  // catalog tiles of one split
-};
+__device__ __forceinline__ float capped(float v, float cap) {
+  return cap > 0.f ? cap * tanhf(v / cap) : v;
+}
 
-// The forward's shared memory: two 64-row f32 tiles.
-size_t smem_bytes(int d) {
-  return sizeof(float) * (size_t)2 * kTile * row_pitch(d);
+// d capped / d logit as a function of the capped value: 1 − (capped/cap)².
+__device__ __forceinline__ float cap_deriv(float c, float cap) {
+  if (cap <= 0.f) return 1.f;
+  const float t = c / cap;
+  return 1.f - t * t;
 }
 
 template <bool CAP>
@@ -164,87 +181,319 @@ __device__ __forceinline__ float cotangent(float l, float lse, float g,
 // ---------------------------------------------------------------------------
 // Forward: per row and split, the partial (m, s, pos) over the split.
 // ---------------------------------------------------------------------------
-template <bool PLUCK, bool CAP>
-__global__ void __launch_bounds__(kThreads)
-ce_fwd_kernel(Problem a, float* __restrict__ part) {
-  extern __shared__ float4 smem4[];
-  const int p = row_pitch(a.d);
-  const int d4 = (a.d + 3) / 4;
-  float* xs = reinterpret_cast<float*>(smem4);  // (kTile, p)
-  float* ws = xs + kTile * p;                   // (kTile, p)
+constexpr int kFwdMaxWarps = 8;
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const int r0 = blockIdx.x * kTile;
-  const int nr = min(kTile, a.n - r0);
-  const long c_lo = (long)blockIdx.y * a.tiles_per_split * kTile;
-  const long c_hi = min((long)a.c, c_lo + (long)a.tiles_per_split * kTile);
+// The forward's helpers. ce_bwd_kernel does the same staging and logit
+// tile inline, with hi and lo of an A fragment side by side and its depth
+// loop unrolled by 2: sharing these helpers left its registers and spills
+// as they were but made it up to 9 % slower on an H100.
 
-  stage(xs, a.x + (long)r0 * a.d, nr, kTile, a.d, p, a.vec_x,
-        [](int r) { return r; }, tid);
-  float m[kRM], s[kRM], ps[kRM];
-  int tg[kRM];
-#pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    const int r = ty * kRM + i;
-    m[i] = kNegInf;
-    s[i] = 0.f;
-    ps[i] = 0.f;
-    tg[i] = PLUCK && r < nr ? a.tgt[r0 + r] : -1;
+// The streamed tile's rows go to ring slot `t` in the planes' layout under
+// the swizzle of tf32x3_tile.cuh: thread i copies chunks i, i + threads,
+// ... in row order; rows past `rows_total` are zeros.
+__device__ __forceinline__ void stage_rows(float4* t, const float4* src,
+                                           long base, int rows,
+                                           long rows_total, int cpr) {
+  const int r_first = threadIdx.x / cpr, c_first = threadIdx.x % cpr;
+  const int r_step = blockDim.x / cpr, c_step = blockDim.x % cpr;
+  for (int r = r_first, ch = c_first; r < rows;) {
+    const bool ok = base + r < rows_total;
+    cp_async16(t + r * cpr + (ch ^ swizzle(r)),
+               src + (ok ? (base + r) * cpr + ch : 0), ok);
+    r += r_step;
+    ch += c_step;
+    if (ch >= cpr) {
+      ch -= cpr;
+      ++r;
+    }
   }
+}
 
-  for (long c0 = c_lo; c0 < c_hi; c0 += kTile) {
-    const int nc = (int)min((long)kTile, c_hi - c0);
-    __syncthreads();  // the previous tile is no longer read
-    stage(ws, a.w + c0 * a.d, nc, kTile, a.d, p, a.vec_w,
-          [](int r) { return r; }, tid);
-    __syncthreads();
-    float acc[kRM][kCols];
-    tile_scores(xs, ws, p, d4, ty, tx, acc);
+// The block's owned rows r0 .. r0 + bm − 1 of `src` (rows past `n_rows`
+// zero) as A fragments, once: for m16 tile mt and k8 step s, lane (gq, q)
+// holds rows gq, gq + 8 at depths 8s + 2q, 8s + 2q + 1 — a float4 of hi,
+// and 32 float4s (one a lane) later one of lo, so that a warp's LDS.128
+// of either has no bank conflicts (9 % faster at the paper's shape than
+// hi and lo side by side). Returns the warp's first fragment for its lane.
+__device__ __forceinline__ const float* stage_fragments(float4* own,
+                                                        const float4* src4,
+                                                        long r0, int bm,
+                                                        long n_rows,
+                                                        int cpr) {
+  const int s8 = cpr / 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const float2* src = reinterpret_cast<const float2*>(src4);
+  for (int u = warp; u < (bm / 16) * s8; u += warps) {
+    const int mt = u / s8, s = u - mt * s8;
+    const long r = r0 + 16 * mt + gq;
+    const int hi = 2 * (4 * s + (q >> 1)) + (q & 1);  // float2 in row
+    float2 h0{0.f, 0.f}, h1{0.f, 0.f}, l0{0.f, 0.f}, l1{0.f, 0.f};
+    if (r < n_rows) {
+      h0 = src[r * 2 * cpr + hi];
+      l0 = src[r * 2 * cpr + hi + 4];
+    }
+    if (r + 8 < n_rows) {
+      h1 = src[(r + 8) * 2 * cpr + hi];
+      l1 = src[(r + 8) * 2 * cpr + hi + 4];
+    }
+    own[64 * u + lane] = make_float4(h0.x, h1.x, h0.y, h1.y);
+    own[64 * u + 32 + lane] = make_float4(l0.x, l1.x, l0.y, l1.y);
+  }
+  return reinterpret_cast<const float*>(own) + 256 * (warp * kMT * s8) +
+         4 * lane;
+}
+
+// Per-thread float offsets of the logit tile's B fragment in a streamed
+// tile (row 8n + gq, depths 8s + 2q, + 1, at 32·cpr·n + 32·(s >> 1) +
+// sb[s & 1]); lo is two chunks after hi.
+__device__ __forceinline__ void logit_offsets(int cpr, int (&sb_hi)[2],
+                                              int (&sb_lo)[2]) {
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, q = lane & 3;
+  const int f = swizzle(gq);
 #pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      float l[kCols];
-      float tmax = kNegInf;
+  for (int p = 0; p < 2; ++p) {
+    sb_hi[p] = 4 * (gq * cpr + ((4 * p + (q >> 1)) ^ f)) + 2 * (q & 1);
+    sb_lo[p] = 4 * (gq * cpr + ((4 * p + 2 + (q >> 1)) ^ f)) + 2 * (q & 1);
+  }
+}
+
+// sc[m][n] = the warp's owned rows · the streamed tile's rows 8n .. 8n + 7,
+// 32 × 8·NT, in k16 steps over the depth, each from zero and added in f32.
+// The depth loop is not unrolled: unrolled by 2, the 32 × 64 tile took 255
+// registers and spilled.
+template <int NT>
+__device__ __forceinline__ void logit_tile(const float* afrag,
+                                           const float* t, int cpr,
+                                           const int (&sb_hi)[2],
+                                           const int (&sb_lo)[2],
+                                           float (&sc)[kMT][NT][4]) {
+  const int s8 = cpr / 4;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = tx + 16 * j;
-        const float v = logit<CAP>(acc[i][j], a.cap);
-        if (PLUCK && col < nc && c0 + col == tg[i]) ps[i] += v;
-        l[j] = col < nc ? v : kNegInf;
-        tmax = fmaxf(tmax, l[j]);
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[m][n][i] = 0.f;
+#pragma unroll 1
+  for (int kk = 0; kk < s8 / 2; ++kk) {
+    uint32_t ah[kMT][2][4], al[kMT][2][4];  // [m][k8]
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float* f = afrag + 256 * (m * s8 + 2 * kk + k);
+        lds128(ah[m][k], f);
+        lds128(al[m][k], f + 128);
       }
-      const float mn = fmaxf(m[i], tmax);
-      float se = 0.f;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        se += tx + 16 * j < nc ? expf(l[j] - mn) : 0.f;
-      s[i] = s[i] * expf(m[i] - mn) + se;
-      m[i] = mn;
+    for (int n = 0; n < NT; ++n) {
+      uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float* f = t + 32 * (cpr * n + kk);
+        lds64(bh[k], f + sb_hi[k]);
+        lds64(bl[k], f + sb_lo[k]);
+      }
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+        float part[4];
+        mma3x2(part, ah[m], al[m], bh, bl);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[m][n][i] += part[i];
+      }
     }
   }
+}
 
-  // Merge the 16 threads of each row, a fixed tree over the half-warp.
+// The forward's inputs: the planes of x (owned) and w (streamed). `tgt` is
+// null without PLUCK.
+struct FwdProblem {
+  const float4* xp;  // (n, dp) planes
+  const float4* wp;  // (c, dp) planes
+  const int* tgt;    // (n,)
+  int n, c, cpr;     // cpr = dp / 2 chunks a row
+  float cap;
+  int tiles_per_split;  // streamed tiles of one split
+  int stages;           // cp.async ring depth: 2 or 3
+};
+
+// exp(v − mx) as one FFMA and the SFU's exp2, given mb = mx·log2(e) of a
+// logit mx ≥ v. Not for mx = kNegInf: the FFMA then leaves the rounding
+// error of a product near 1e30, which exp2 takes to inf.
+__device__ __forceinline__ float exp_from(float v, float mb) {
+  return exp2_approx(fmaf(v, kLog2e, -mb));
+}
+
+// exp(v − mx) for mx ≥ v, kNegInf included: exactly 1 when v == mx.
+__device__ __forceinline__ float exp_diff(float v, float mx) {
+  return exp2_approx((v - mx) * kLog2e);
+}
+
+// (m, s) ← the online merge of (m, s) and (mo, so).
+__device__ __forceinline__ void merge_ms(float& m, float& s, float mo,
+                                         float so) {
+  const float mn = fmaxf(m, mo);
+  s = s * exp_diff(m, mn) + so * exp_diff(mo, mn);
+  m = mn;
+}
+
+// NT n8 tiles a streamed tile: 8·NT catalog rows.
+template <bool PLUCK, bool CAP, int NT>
+__global__ void __launch_bounds__(32 * kFwdMaxWarps, 1)
+ce_fwd_kernel(FwdProblem a, float* __restrict__ part) {
+  extern __shared__ float4 smem4[];
+  constexpr int kRows = 8 * NT;
+  const int cpr = a.cpr;
+  const int bm = kWarpRows * (blockDim.x >> 5);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  float4* own = smem4;            // A fragments: (bm / 16, s8, 32, hi|lo)
+  float4* ring = own + bm * cpr;  // stages × (kRows, cpr), swizzled
+
+  const int r0 = blockIdx.x * bm;
+  const int n_tiles = (a.c + kRows - 1) / kRows;
+  const int t_lo = blockIdx.y * a.tiles_per_split;
+  const int t_hi = min(n_tiles, t_lo + a.tiles_per_split);
+  auto stage = [&](int tile, int sl) {
+    stage_rows(ring + sl * kRows * cpr, a.wp, (long)tile * kRows, kRows,
+               a.c, cpr);
+  };
+  for (int sl = 0; sl < a.stages - 1; ++sl) {
+    if (t_lo + sl < t_hi) stage(t_lo + sl, sl);
+    cp_async_commit();
+  }
+  const float* afrag = stage_fragments(own, a.xp, r0, bm, a.n, cpr);
+  int sb_hi[2], sb_lo[2];
+  logit_offsets(cpr, sb_hi, sb_lo);
+
+  // Per owned row of the thread (m16 tile m, half h): the online (m, s)
+  // over the thread's columns, the plucked positive and the target.
+  float mx[kMT][2], sx[kMT][2], ps[kMT][2];
+  int tg[kMT][2];
 #pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    float mi = m[i], si = s[i];
+  for (int m = 0; m < kMT; ++m)
 #pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {
-      const float mo = __shfl_xor_sync(kFull, mi, o);
-      const float so = __shfl_xor_sync(kFull, si, o);
-      const float mn = fmaxf(mi, mo);
-      si = si * expf(mi - mn) + so * expf(mo - mn);
-      mi = mn;
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + warp * kWarpRows + 16 * m + 8 * h + gq;
+      mx[m][h] = kNegInf;
+      sx[m][h] = 0.f;
+      ps[m][h] = 0.f;
+      tg[m][h] = PLUCK && r < a.n ? a.tgt[r] : -1;
     }
-    const float pi = PLUCK ? half_warp_sum(ps[i]) : 0.f;
-    const int r = ty * kRM + i;
-    if (tx == 0 && r < nr) {
-      float* q = part + ((long)blockIdx.y * a.n + r0 + r) * 3;
-      q[0] = mi;
-      q[1] = si;
-      q[2] = pi;
+
+  for (int it = 0; t_lo + it < t_hi; ++it) {
+    if (a.stages == 3)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // tile it has landed; the slot of it − 1 is free
+
+    const float* t = reinterpret_cast<const float*>(
+        ring + (it % a.stages) * kRows * cpr);
+    const int col0 = (t_lo + it) * kRows;
+    float sc[kMT][NT][4];
+    logit_tile<NT>(afrag, t, cpr, sb_hi, sb_lo, sc);
+    // The next stage's copies go out after the products (on an H100 at the
+    // paper's shape 2 % faster than before them).
+    const int ahead = it + a.stages - 1;
+    if (t_lo + ahead < t_hi) stage(t_lo + ahead, ahead % a.stages);
+    cp_async_commit();
+
+    // The online softmax in the C layout: the thread's columns of row
+    // (m, h) are 8n + 2q + j, in sc[m][n][2h + j]. A full tile needs no
+    // mask; the catalog's last tile masks the columns past it, whose exps
+    // it leaves out (all of a thread's columns may be masked there, and
+    // then its max is kNegInf).
+    const int valid = a.c - col0;  // columns of the tile inside the catalog
+    auto softmax = [&](auto full) {
+      constexpr bool FULL = decltype(full)::value;
+#pragma unroll
+      for (int m = 0; m < kMT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float tmax = kNegInf;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              float& v = sc[m][n][2 * h + j];
+              v = logit<CAP>(v, a.cap);
+              if (!FULL && 8 * n + 2 * q + j >= valid) v = kNegInf;
+              tmax = fmaxf(tmax, v);
+            }
+          const float mn = fmaxf(mx[m][h], tmax);
+          const float mb = mn * kLog2e;
+          float se = 0.f;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              if (FULL || 8 * n + 2 * q + j < valid)
+                se += exp_from(sc[m][n][2 * h + j], mb);
+          sx[m][h] = sx[m][h] * exp_diff(mx[m][h], mn) + se;
+          mx[m][h] = mn;
+        }
+    };
+    if (valid >= kRows)
+      softmax(std::true_type{});
+    else
+      softmax(std::false_type{});
+
+    // The target's logit, from the register that entered the sum: a row's
+    // target lies in this tile in about one tile of C / 64, so one branch
+    // after the softmax keeps the sum's code free of it.
+    if (PLUCK) {
+      int rel[kMT][2];  // the target's column in the tile, else −1
+      bool hit = false;
+#pragma unroll
+      for (int m = 0; m < kMT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = tg[m][h] - col0;
+          rel[m][h] = r >= 0 && r < kRows && r < valid ? r : -1;
+          hit |= rel[m][h] >= 0 && ((r >> 1) & 3) == q;
+        }
+      if (hit) {
+#pragma unroll
+        for (int m = 0; m < kMT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+                if (8 * n + 2 * q + j == rel[m][h])
+                  ps[m][h] += sc[m][n][2 * h + j];
+      }
     }
   }
+  cp_async_wait<0>();
+
+  // Merge the four lanes of each row in a fixed tree (xor 1, then 2); lane
+  // q = 0 writes the row's partial.
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mi = mx[m][h], si = sx[m][h], pi = ps[m][h];
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float mo = __shfl_xor_sync(kFull, mi, o);
+        const float so = __shfl_xor_sync(kFull, si, o);
+        merge_ms(mi, si, mo, so);
+        if (PLUCK) pi += __shfl_xor_sync(kFull, pi, o);
+      }
+      const int r = r0 + warp * kWarpRows + 16 * m + 8 * h + gq;
+      if (q == 0 && r < a.n) {
+        float* out = part + ((long)blockIdx.y * a.n + r) * 3;
+        out[0] = mi;
+        out[1] = si;
+        out[2] = pi;
+      }
+    }
 }
 
 // One thread per row: the splits' (m, s, pos) in split order → lse, loss.
@@ -257,9 +506,7 @@ ce_fwd_merge_kernel(const float* __restrict__ part, float* __restrict__ loss,
   float m = kNegInf, s = 0.f, pos = 0.f;
   for (int k = 0; k < splits; ++k) {
     const float* q = part + ((long)k * n + r) * 3;
-    const float mn = fmaxf(m, q[0]);
-    s = s * expf(m - mn) + q[1] * expf(q[0] - mn);
-    m = mn;
+    merge_ms(m, s, q[0], q[1]);
     pos += q[2];
   }
   const float l = m + logf(s);
@@ -268,7 +515,8 @@ ce_fwd_merge_kernel(const float* __restrict__ part, float* __restrict__ loss,
 }
 
 // ---------------------------------------------------------------------------
-// Backward: the (hi, lo) planes, then dX and dW on the tensor cores.
+// The (hi, lo) planes of x and w, which the forward, dX and dW share; then
+// dX and dW on the tensor cores.
 // ---------------------------------------------------------------------------
 constexpr int kSplitThreads = 256;
 
@@ -669,23 +917,53 @@ bool shapes_ok(int n, int c, int d) {
   return n > 0 && c > 0 && d > 0 && d <= kMaxD && c <= (1 << 30);
 }
 
-Problem problem(const float* x, const float* w, const int* tgt, int n, int c,
-                int d, float cap) {
-  Problem a{x, w, tgt, n, c, d, cap, vec_flag(x, d), vec_flag(w, d), 0};
-  return a;
-}
-
-int c_tiles(int c) { return (c + kTile - 1) / kTile; }
-
 // Splits of `tiles` tiles into `splits` contiguous ranges.
 int tiles_per_split(int tiles, int splits) {
   return (tiles + splits - 1) / splits;
 }
 
-template <bool PLUCK, bool CAP>
+// The forward's launch shape at depth d: streamed rows a tile (64 up to
+// dp 64, else 32), warps a block and ring stages — the most warps (at most
+// eight, 32 owned positions each) whose owned planes fit one block's
+// shared memory beside a ring of three stages, or of two where that fits
+// more — and the shared memory. Mirrored by
+// kernels/linear_sce.py::fwd_plan for the guard's preflight, and exported
+// as linear_ce_fwd_plan so that the card checks the two agree.
+struct FwdPlan {
+  int rows, warps, stages;
+  size_t smem;
+};
+
+FwdPlan fwd_plan(int d) {
+  const int dp = padded_depth(d);
+  FwdPlan p{dp <= 64 ? 64 : 32, 0, 3, 0};
+  const size_t own = (size_t)8 * dp * kWarpRows;  // bytes a warp
+  const size_t stage = (size_t)8 * dp * p.rows;
+  for (int stages = 3; stages >= 2; --stages) {
+    const size_t ring = stages * stage;
+    const size_t fit = ring < (size_t)kMaxSmem ? (kMaxSmem - ring) / own : 0;
+    const int warps = fit < (size_t)kFwdMaxWarps ? (int)fit : kFwdMaxWarps;
+    if (warps > p.warps) {
+      p.warps = warps;
+      p.stages = stages;
+    }
+  }
+  p.smem = own * p.warps + stage * p.stages;
+  return p;
+}
+
+// Calls f with the forward's n8 tiles a streamed tile at depth d as a
+// std::integral_constant<int>.
+template <class F>
+cudaError_t with_rows(int d, F&& f) {
+  if (fwd_plan(d).rows == 64) return f(std::integral_constant<int, 8>{});
+  return f(std::integral_constant<int, 4>{});
+}
+
+template <bool PLUCK, bool CAP, int NT>
 cudaError_t fwd_kernel_ready() {
   static bool done[kMaxDevices] = {};
-  return allow_max_smem(ce_fwd_kernel<PLUCK, CAP>, done);
+  return allow_max_smem(ce_fwd_kernel<PLUCK, CAP, NT>, done);
 }
 
 // The backward's launch shape at depth d: warps a block (128 owned rows
@@ -744,7 +1022,8 @@ int s_tiles(int rows) { return (rows + kStreamRows - 1) / kStreamRows; }
 // The C interface, bound with ctypes. Shapes: x (n, d) f32, w (c, d) f32,
 // tgt (n,) i32 (null unless pluck), lse, g, loss (n,) f32; xp
 // (n, dp / 8, 2, 8) and wp (c, dp / 8, 2, 8) f32, the (hi, lo) planes of
-// x and w (dp = d rounded up to 16); all contiguous, d ≤ 256. `cap` > 0 is the logit softcap, 0 none.
+// x and w (dp = d rounded up to 16), 16-byte aligned; all contiguous,
+// d ≤ 256. `cap` > 0 is the logit softcap, 0 none.
 // Each launcher returns the cudaError_t of its launches (0 on success),
 // and cudaErrorInvalidValue for shapes it does not take. Nothing is
 // synchronised and nothing is allocated.
@@ -762,10 +1041,16 @@ extern "C" int linear_ce_splits(int kind, int n, int c, int d, int pluck,
     constexpr bool PL = decltype(pl)::value;
     constexpr bool CP = decltype(cp)::value;
     if (kind == 0) {
-      cudaError_t e = fwd_kernel_ready<PL, CP>();
-      if (e != cudaSuccess) return e;
-      return plan_splits(ce_fwd_kernel<PL, CP>, kThreads, smem_bytes(d),
-                         (n + kTile - 1) / kTile, c_tiles(c), &splits);
+      const FwdPlan p = fwd_plan(d);
+      const int bm = kWarpRows * p.warps;
+      return with_rows(d, [&](auto nt) {
+        constexpr int NT = decltype(nt)::value;
+        cudaError_t e = fwd_kernel_ready<PL, CP, NT>();
+        if (e != cudaSuccess) return e;
+        return plan_splits(ce_fwd_kernel<PL, CP, NT>, 32 * p.warps, p.smem,
+                           (n + bm - 1) / bm, (c + p.rows - 1) / p.rows,
+                           &splits);
+      });
     }
     cudaError_t e = bwd_kernel_ready<false, PL, CP>();
     if (e != cudaSuccess) return e;
@@ -776,6 +1061,19 @@ extern "C" int linear_ce_splits(int kind, int n, int c, int d, int pluck,
                        &splits);
   });
   return err == cudaSuccess ? splits : -(int)err;
+}
+
+// The forward's launch plan at depth d: its dynamic shared memory in
+// bytes, with the warps a block and the ring's stages written to *warps
+// and *stages; −cudaErrorInvalidValue for d outside (0, kMaxD]. Touches
+// no device.
+extern "C" int linear_ce_fwd_plan(int d, int* warps, int* stages) {
+  if (!shapes_ok(1, 1, d) || warps == nullptr || stages == nullptr)
+    return -(int)cudaErrorInvalidValue;
+  const FwdPlan p = fwd_plan(d);
+  *warps = p.warps;
+  *stages = p.stages;
+  return (int)p.smem;
 }
 
 // The backward's launch plan at depth d for dX (dw 0) or dW (dw 1): its
@@ -791,9 +1089,9 @@ extern "C" int linear_ce_bwd_plan(int d, int dw, int* warps, int* stages) {
   return (int)p.smem;
 }
 
-// Forward: lse (n,), and with pluck loss (n,) = lse − the target's logit.
-// part: (splits, n, 3) f32 scratch.
-extern "C" int linear_ce_fwd_launch(const float* x, const float* w,
+// Forward: lse (n,), and with pluck loss (n,) = lse − the target's logit,
+// from the planes xp and wp. part: (splits, n, 3) f32 scratch.
+extern "C" int linear_ce_fwd_launch(const float* xp, const float* wp,
                                     const int* tgt, float* part, float* loss,
                                     float* lse, int n, int c, int d,
                                     int splits, int pluck, float cap,
@@ -801,19 +1099,26 @@ extern "C" int linear_ce_fwd_launch(const float* x, const float* w,
   if (!shapes_ok(n, c, d) || splits < 1 || splits > kMaxSplits ||
       (pluck && (tgt == nullptr || loss == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const FwdPlan p = fwd_plan(d);
+  if (p.warps < 1 || p.smem > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Problem a = problem(x, w, tgt, n, c, d, cap);
-  a.tiles_per_split = tiles_per_split(c_tiles(c), splits);
+  FwdProblem a{reinterpret_cast<const float4*>(xp),
+               reinterpret_cast<const float4*>(wp), tgt, n, c,
+               padded_depth(d) / 2, cap,
+               tiles_per_split((c + p.rows - 1) / p.rows, splits), p.stages};
   return (int)with_flags(pluck != 0, cap > 0.f, [&](auto pl, auto cp) {
     constexpr bool PL = decltype(pl)::value;
     constexpr bool CP = decltype(cp)::value;
-    cudaError_t err = fwd_kernel_ready<PL, CP>();
-    if (err != cudaSuccess) return err;
-    const dim3 grid((n + kTile - 1) / kTile, splits);
-    ce_fwd_kernel<PL, CP><<<grid, kThreads, smem, st>>>(a, part);
-    err = cudaGetLastError();
+    const int bm = kWarpRows * p.warps;
+    cudaError_t err = with_rows(d, [&](auto nt) {
+      constexpr int NT = decltype(nt)::value;
+      cudaError_t e = fwd_kernel_ready<PL, CP, NT>();
+      if (e != cudaSuccess) return e;
+      const dim3 grid((n + bm - 1) / bm, splits);
+      ce_fwd_kernel<PL, CP, NT><<<grid, 32 * p.warps, p.smem, st>>>(a, part);
+      return cudaGetLastError();
+    });
     if (err != cudaSuccess) return err;
     ce_fwd_merge_kernel<PL>
         <<<(n + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0, st>>>(
@@ -822,7 +1127,7 @@ extern "C" int linear_ce_fwd_launch(const float* x, const float* w,
   });
 }
 
-// The backward's (hi, lo) planes of x and w, one launch for both.
+// The (hi, lo) planes of x and w, one launch for both.
 extern "C" int linear_ce_split_launch(const float* x, const float* w,
                                       float* xp, float* wp, int n, int c,
                                       int d, void* stream) {

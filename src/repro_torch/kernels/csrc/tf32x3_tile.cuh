@@ -1,7 +1,8 @@
 // tf32x3_tile — f32-accurate products on Hopper's tensor cores ("3xTF32"),
-// for kernels that recompute a logit tile S = A·Bᵀ and multiply its
-// cotangent G back into a (rows, d) gradient. linear_ce.cu's backward
-// kernels use it; sce_gather.cu's dX/dY have the same shape of products.
+// for kernels that compute a logit tile S = A·Bᵀ, fold it into an online
+// logsumexp or multiply its cotangent G back into a (rows, d) gradient.
+// linear_ce.cu's forward and backward kernels use it; sce_gather.cu's
+// dX/dY have the same shape of products.
 //
 // The arithmetic. An f32 value a is split into a_hi = tf32(a) and
 // a_lo = tf32(a − a_hi), each rounded to nearest with ties away from zero
@@ -64,7 +65,7 @@ __host__ __device__ inline int padded_depth(int d) {
 }
 
 // ---------------------------------------------------------------------------
-// PTX: the rounding, the product, asynchronous copies.
+// PTX: the rounding, the product, exp2, asynchronous copies.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t to_tf32(float a) {
   uint32_t r;
@@ -84,6 +85,14 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 2^a on the SFU (ex2.approx.ftz: about 2 ulp, subnormal results flushed
+// to 0) — one MUFU.EX2, where exp2f adds a subnormal fix-up around it.
+__device__ __forceinline__ float exp2_approx(float a) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(a));
+  return r;
 }
 
 // 16 bytes global → shared, zeros when !valid (nothing is read then).

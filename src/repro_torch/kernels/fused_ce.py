@@ -3,19 +3,20 @@
 
 The kernels are ``csrc/linear_ce.cu``'s, launched without the in-sweep
 positive, the one-hot and the softcap (``kernels/linear_sce.py``'s
-``_fwd``, ``_dx`` and ``_dw``; the backward's planes from its
+``_fwd``, ``_dx`` and ``_dw``, on the planes of its
 ``linear_ce_split``). Three wrappers, each with its own launch counter:
 
 * :func:`fused_lse_fwd` — per-position lse (N,);
 * :func:`fused_lse_dx` — dX = ``(p·g) Y`` (N, d);
 * :func:`fused_lse_dy` — dY = ``(p·g)ᵀ X`` (C, d), every row written once.
 
-:class:`FusedLSE` ties them together for autograd (it saves ``x``, ``y``
-and the lse; backward it splits them once into the planes both
-gradients read and recomputes the tiles). :func:`fused_ce_loss` is
-``fused_lse − x·y[targets]``: the positive's gradient comes from autograd
-through the gather, as in the reference. CUDA tensors only; the CPU path
-is ``kernels/ref.py``, chosen by ``kernels/ops.py``.
+:class:`FusedLSE` ties them together for autograd (forward it splits
+``x`` and ``y`` once into the planes all three kernels read and saves
+them with the lse; backward the gradients recompute the tiles).
+:func:`fused_ce_loss` is ``fused_lse − x·y[targets]``: the positive's
+gradient comes from autograd through the gather, as in the reference.
+CUDA tensors only; the CPU path is ``kernels/ref.py``, chosen by
+``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -24,10 +25,11 @@ import torch
 from repro_torch.kernels import linear_sce as _linear
 
 
-def fused_lse_fwd(x, y):
+def fused_lse_fwd(x, y, *, planes=None):
     """Forward kernel: the (N,) f32 logsumexp of ``x @ yᵀ`` per row.
-    Matches ``ref.fused_lse_ref``."""
-    _, lse = _linear._fwd(x, y, None, None)
+    Matches ``ref.fused_lse_ref``. ``planes``: ``linear_ce_split(x, y)``
+    (split here when None)."""
+    _, lse = _linear._fwd(x, y, None, None, planes)
     fused_lse_fwd.launches += 1
     return lse
 
@@ -58,16 +60,16 @@ class FusedLSE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, y):
-        lse = fused_lse_fwd(x, y)
-        ctx.save_for_backward(x, y, lse)
+        planes = _linear.linear_ce_split(x, y)
+        lse = fused_lse_fwd(x, y, planes=planes)
+        ctx.save_for_backward(x, y, lse, *planes)
         return lse
 
     @staticmethod
     def backward(ctx, g):
-        x, y, lse = ctx.saved_tensors
+        x, y, lse, *planes = ctx.saved_tensors
         g = g.contiguous()
         need = ctx.needs_input_grad
-        planes = _linear.linear_ce_split(x, y)  # autograd calls with a need
         dx = fused_lse_dx(x, y, lse, g, planes=planes) if need[0] else None
         dy = fused_lse_dy(x, y, lse, g, planes=planes) if need[1] else None
         return dx, dy

@@ -4,24 +4,25 @@ wrappers of ``csrc/linear_ce.cu`` (port of ``linear_ce_loss`` of
 
 Four kernels, one wrapper each, each with its own launch counter:
 
+* :func:`linear_ce_split` — the ``(hi, lo)`` TF32 planes of ``x`` and
+  ``w``, ``(rows, dp / 8, 2, 8)`` with ``dp`` = d rounded up to 16, which
+  the three others read;
 * :func:`linear_ce_fwd` — per-position ``(loss, lse)``, the target's
-  (capped) logit plucked inside the sweep (f32 FMAs);
-* :func:`linear_ce_split` — the backward's ``(hi, lo)`` TF32 planes of
-  ``x`` and ``w``, ``(rows, dp / 8, 2, 8)`` with ``dp`` = d rounded up to
-  16;
+  (capped) logit plucked inside the sweep;
 * :func:`linear_ce_dx` — the gradient of ``x`` (N, d);
 * :func:`linear_ce_dw` — the gradient of the head/catalog ``w`` (C, d),
   every row written once (no atomics: bitwise repeatable).
 
-dX and dW run their two products on the tensor cores in 3xTF32 from the
-planes (``csrc/tf32x3_tile.cuh``). :class:`LinearCELoss` ties them
-together for autograd: the forward saves ``x``, ``w``, ``targets`` and
-``lse``; the backward splits ``x`` and ``w`` once, passes the planes to
-both gradients and recomputes the capped logit tiles, so the ``(N, C)``
-logits never exist. ``kernels/fused_ce.py`` runs the same kernels without
-the pluck and the one-hot (``_fwd``, ``_dx``, ``_dw`` below). The
-wrappers take CUDA tensors only; the CPU path is ``kernels/ref.py``,
-chosen by ``kernels/ops.py``.
+The forward, dX and dW run their products on the tensor cores in 3xTF32
+from the planes (``csrc/tf32x3_tile.cuh``). :class:`LinearCELoss` ties
+them together for autograd: the forward splits ``x`` and ``w`` once,
+sweeps the catalog and saves ``x``, ``w``, ``targets``, ``lse`` and the
+planes; the backward passes the same planes to both gradients, which
+recompute the capped logit tiles, so the ``(N, C)`` logits never exist.
+``kernels/fused_ce.py`` runs the same kernels without the pluck and the
+one-hot (``_fwd``, ``_dx``, ``_dw`` below). The wrappers take CUDA
+tensors only; the CPU path is ``kernels/ref.py``, chosen by
+``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -32,15 +33,51 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_D = 256  # kMaxD in csrc/f32_tile.cuh
+MAX_D = 256  # kMaxD in csrc/linear_ce.cu
 DEPTH_ALIGN = 16  # kDepthAlign in csrc/tf32x3_tile.cuh
 MAX_SMEM = 232_448  # a block's opt-in shared memory on sm_90
 PAIR_SMEM = 233_472 // 2 - 1024  # two blocks an SM, 1 KB reserved each
+FWD_MAX_WARPS = 8  # kFwdMaxWarps in csrc/linear_ce.cu
 
 
 def padded_depth(d: int) -> int:
     """The planes' depth: d rounded up to 16 (whole 128-byte lines)."""
     return -(-d // DEPTH_ALIGN) * DEPTH_ALIGN
+
+
+def fwd_rows(d: int) -> int:
+    """Catalog rows of the forward's streamed tile at depth d: 64 up to
+    ``dp`` 64, else 32."""
+    return 64 if padded_depth(d) <= 64 else 32
+
+
+def fwd_plan(d: int):
+    """``(warps, stages, smem bytes)`` of the forward's launch at depth d,
+    a copy of ``fwd_plan`` in ``csrc/linear_ce.cu`` that needs no card
+    (:func:`library_fwd_plan` reads the kernel's own; the CUDA tests and
+    ``chip_smoke.py`` hold the two equal): the most warps (at most eight,
+    32 owned positions of (hi, lo) pairs each) that fit one block's shared
+    memory beside a ring of :func:`fwd_rows`-row streamed tiles, three
+    stages unless two fit more warps."""
+    dp = padded_depth(d)
+    own, stage = 8 * dp * 32, 8 * dp * fwd_rows(d)
+    warps, stages = 0, 3
+    for st in (3, 2):
+        fit = min(FWD_MAX_WARPS, max(0, (MAX_SMEM - st * stage) // own))
+        if fit > warps:
+            warps, stages = fit, st
+    return warps, stages, own * warps + stage * stages
+
+
+def library_fwd_plan(d: int):
+    """``(warps, stages, smem bytes)`` as the built library plans the
+    forward (``linear_ce_fwd_plan``)."""
+    warps, stages = ctypes.c_int(), ctypes.c_int()
+    smem = _lib().linear_ce_fwd_plan(d, ctypes.byref(warps),
+                                     ctypes.byref(stages))
+    if smem < 0:
+        raise ValueError(f"linear_ce_fwd_plan: d={d} outside (0, {MAX_D}]")
+    return warps.value, stages.value, smem
 
 
 def bwd_plan(d: int, dw: bool):
@@ -79,13 +116,10 @@ def library_bwd_plan(d: int, dw: bool):
 
 def planned_smem(d: int) -> int:
     """Dynamic shared memory per block of the largest of the launches at
-    depth d: the forward's two 64-row f32 tiles (at a pitch of an odd
-    number of float4s) or the backward's owned planes and ring
-    (:func:`bwd_plan`). The kernel guard checks it against the 227 KB a
-    block may use."""
-    pitch = 4 * ((-(-d // 4)) | 1)
-    return max(4 * 2 * 64 * pitch, bwd_plan(d, False)[2],
-               bwd_plan(d, True)[2])
+    depth d: the forward's or the backward's owned planes and ring
+    (:func:`fwd_plan`, :func:`bwd_plan`). The kernel guard checks it
+    against the 227 KB a block may use."""
+    return max(fwd_plan(d)[2], bwd_plan(d, False)[2], bwd_plan(d, True)[2])
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,8 +133,10 @@ def _lib() -> ctypes.CDLL:
     lib.linear_ce_dx_launch.argtypes = [p] * 7 + [i] * 5 + [f, p]
     lib.linear_ce_dw_launch.argtypes = [p] * 6 + [i] * 4 + [f, p]
     lib.linear_ce_split_launch.argtypes = [p] * 4 + [i] * 3 + [p]
+    lib.linear_ce_fwd_plan.argtypes = [i] + [ctypes.POINTER(i)] * 2
     lib.linear_ce_bwd_plan.argtypes = [i, i] + [ctypes.POINTER(i)] * 2
-    for fn in (lib.linear_ce_splits, lib.linear_ce_bwd_plan,
+    for fn in (lib.linear_ce_splits, lib.linear_ce_fwd_plan,
+               lib.linear_ce_bwd_plan,
                lib.linear_ce_fwd_launch,
                lib.linear_ce_dx_launch, lib.linear_ce_dw_launch,
                lib.linear_ce_split_launch):
@@ -175,18 +211,20 @@ def _splits(kind: int, n: int, c: int, d: int, pluck: bool, cap: float,
     return s
 
 
-def _fwd(x, w, targets, logit_softcap):
-    """``(loss or None, lse)``: with ``targets`` the plucked loss too."""
+def _fwd(x, w, targets, logit_softcap, planes=None):
+    """``(loss or None, lse)`` from the planes of ``x`` and ``w`` (split
+    here when None): with ``targets`` the plucked loss too."""
     shape = _check(x, w, targets)
     n = shape[0]
     cap = _cap(logit_softcap)
     pluck = targets is not None
+    xp, wp = _planes(x, w, planes)
     s = _splits(0, *shape, pluck, cap, x.device)
     part = torch.empty((s, n, 3), dtype=torch.float32, device=x.device)
     lse = torch.empty((n,), dtype=torch.float32, device=x.device)
     loss = torch.empty_like(lse) if pluck else None
     _call("linear_ce_fwd_launch",
-          (x.data_ptr(), w.data_ptr(), _ptr(targets), part.data_ptr(),
+          (xp.data_ptr(), wp.data_ptr(), _ptr(targets), part.data_ptr(),
            _ptr(loss), lse.data_ptr(), *shape, s, int(pluck), cap),
           shape, x.device)
     return loss, lse
@@ -214,9 +252,11 @@ def _planes(x, w, planes):
     blocks = padded_depth(x.shape[1]) // 8
     for name, p, rows in (("x", xp, x.shape[0]), ("w", wp, w.shape[0])):
         if (p.shape != (rows, blocks, 2, 8) or p.dtype != torch.float32
-                or p.device != x.device or not p.is_contiguous()):
-            raise ValueError(f"planes of {name} must be contiguous f32 "
-                             f"({rows}, {blocks}, 2, 8) on {x.device}; got "
+                or p.device != x.device or not p.is_contiguous()
+                or p.data_ptr() % 16):
+            raise ValueError(f"planes of {name} must be contiguous, "
+                             f"16-byte aligned f32 ({rows}, {blocks}, 2, 8) "
+                             f"on {x.device}; got "
                              f"{tuple(p.shape)} {p.dtype} on {p.device}")
     return xp, wp
 
@@ -250,19 +290,20 @@ def _dw(x, w, targets, lse, g, logit_softcap, planes=None):
     return dw
 
 
-def linear_ce_fwd(x, w, targets, *, logit_softcap=None):
+def linear_ce_fwd(x, w, targets, *, logit_softcap=None, planes=None):
     """Forward kernel: ``(loss, lse)``, each (N,) f32; ``loss = lse −`` the
     target's capped logit (a target outside ``[0, C)`` plucks 0). Matches
-    ``ref.linear_ce_loss_ref``."""
-    loss, lse = _fwd(x, w, targets, logit_softcap)
+    ``ref.linear_ce_loss_ref``. ``planes``: :func:`linear_ce_split`'s
+    output for these ``x`` and ``w`` (split here when None)."""
+    loss, lse = _fwd(x, w, targets, logit_softcap, planes)
     linear_ce_fwd.launches += 1
     return loss, lse
 
 
 def linear_ce_split(x, w):
     """Split kernel: ``(xp, wp)``, the (hi, lo) TF32 planes of ``x`` and
-    ``w`` that dX and dW read. Matches ``ref.tf32x3_planes_ref`` bit for
-    bit."""
+    ``w`` that the forward, dX and dW read. Matches
+    ``ref.tf32x3_planes_ref`` bit for bit."""
     planes = _split(x, w)
     linear_ce_split.launches += 1
     return planes
@@ -296,18 +337,19 @@ class LinearCELoss(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, targets, logit_softcap):
-        loss, lse = linear_ce_fwd(x, w, targets, logit_softcap=logit_softcap)
-        ctx.save_for_backward(x, w, targets, lse)
+        planes = linear_ce_split(x, w)
+        loss, lse = linear_ce_fwd(x, w, targets, logit_softcap=logit_softcap,
+                                  planes=planes)
+        ctx.save_for_backward(x, w, targets, lse, *planes)
         ctx.logit_softcap = logit_softcap
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        x, w, targets, lse = ctx.saved_tensors
+        x, w, targets, lse, *planes = ctx.saved_tensors
         g = g.contiguous()
         cap = ctx.logit_softcap
         need = ctx.needs_input_grad
-        planes = linear_ce_split(x, w)  # autograd calls with a need
         dx = (linear_ce_dx(x, w, targets, lse, g, logit_softcap=cap,
                            planes=planes) if need[0] else None)
         dw = (linear_ce_dw(x, w, targets, lse, g, logit_softcap=cap,

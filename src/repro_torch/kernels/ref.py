@@ -300,22 +300,24 @@ def eval_fused_ref(x, y, targets, k: int, *, tgt_scores=None,
 
 def _online_lse(x, w, chunk: int, logit_softcap=None, targets=None):
     """One chunked sweep of ``(chunk, d)`` catalog slices (zero-padded to
-    whole chunks) carrying the online logsumexp ``(m, s)`` in f32 and, with
-    ``targets``, the target's (capped) logit plucked from the chunk it
-    streams by in → ``(lse (N,), pos (N,) or None)``. The cap applies to
-    every logit before the padded columns are masked to ``NEG_INF``."""
+    whole chunks) carrying the online logsumexp ``(m, s)`` in f32 (f64 for
+    f64 ``x``) and, with ``targets``, the target's (capped) logit plucked
+    from the chunk it streams by in → ``(lse (N,), pos (N,) or None)``.
+    The cap applies to every logit before the padded columns are masked
+    to ``NEG_INF``."""
     n = x.shape[0]
     c = w.shape[0]
     dev = x.device
     chunk = max(1, min(chunk, c))
-    x32 = x.to(torch.float32)
+    dt = _ce_dtype(x)
+    x32 = x.to(dt)
     cap = logit_softcap
-    m = torch.full((n,), NEG_INF, dtype=torch.float32, device=dev)
-    s = torch.zeros((n,), dtype=torch.float32, device=dev)
+    m = torch.full((n,), NEG_INF, dtype=dt, device=dev)
+    s = torch.zeros((n,), dtype=dt, device=dev)
     pos = None if targets is None else torch.zeros_like(s)
     tid = None if targets is None else targets.long()[:, None]
     for lo in range(0, c, chunk):
-        rows = w[lo:lo + chunk].to(torch.float32)
+        rows = w[lo:lo + chunk].to(dt)
         if rows.shape[0] < chunk:
             rows = torch.cat([rows, rows.new_zeros(chunk - rows.shape[0],
                                                    rows.shape[1])])
@@ -361,8 +363,8 @@ def fused_ce_loss_ref(x, y, targets, *, chunk: int = 512):
 
 
 def _ce_dtype(x):
-    """The backward plain versions' working type: f32, or f64 for f64
-    ``x`` (the exact yardstick the CPU tests hold the 3xTF32 arithmetic
+    """The full-CE plain versions' working type: f32, or f64 for f64
+    ``x`` (the exact yardstick the tests hold the 3xTF32 arithmetic
     to)."""
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 

@@ -43,16 +43,20 @@ plucked in the sweep, and ``fused_lse`` without it): losses and lse within
 ``2e-4·|grad|`` of the plain versions (``linear_ce_loss_ref`` and the
 chunked backward ``linear_ce_dx_ref`` / ``linear_ce_dw_ref``; exp sums
 fold in another order). Every kernel repeats bit for bit, and ``ops``
-raises on a mix of CPU and CUDA tensors. dX and dW/dY run in 3xTF32 on
-the tensor cores: the same tolerances at the trainer's logit scale
-(x 3·randn, d 64, many catalog splits); a cotangent that is only the
+raises on a mix of CPU and CUDA tensors. The forward, dX and dW/dY run in
+3xTF32 on the tensor cores: the same tolerances at the trainer's logit
+scale (x 3·randn, d 64, many catalog splits) against the plain version
+evaluated in f64; the forward at every shape of its launch plan (d 1 to
+256, a last split that holds only a 5-column tile); a cotangent that is
+only the
 one-hot (fused: the target's logit far above the rest, g = 1; linear: an
 lse far above every logit, so p = 0) gives dX = ±w[target] and dW/dY the
 sums of x over each target's positions exactly, as the plain version —
 the case that a wrong fragment order cannot pass; the split kernel's
 (hi, lo) planes equal ``ref.tf32x3_planes_ref`` bit for bit (values
-built bit by bit included); the backward splits once for both
-gradients; the wrapper's copy of the backward's launch plan equals the
+built bit by bit included); a step splits once, in the forward, and
+the backward hands the same planes to both gradients; the wrapper's
+copies of the forward's and the backward's launch plans equal the
 library's at every depth; and an lse more than 44 below a logit, where
 the kernels cap exp's argument (their one deviation from the plain
 version), holds the capped formula.
@@ -736,16 +740,86 @@ def test_linear_ce_split_matches_plain_bit_for_bit(dev):
 
 @pytest.mark.parametrize("pluck", [True, False])
 def test_linear_ce_backward_splits_once_for_both_gradients(dev, pluck):
+    """One split per step: the forward splits x and w, and the backward
+    hands the same planes to both gradients without splitting again."""
     x, w, t, gr = _ce_problem(dev, 83, 300, 20_000, 64)
     leaves = [a.clone().requires_grad_(True) for a in (x, w)]
+    before = linear_sce.linear_ce_split.launches, _ce_launches()
     out = (ops.linear_ce_loss(*leaves, t) if pluck
            else ops.fused_lse(*leaves))
-    before = linear_sce.linear_ce_split.launches, _ce_launches()
+    split_fwd = linear_sce.linear_ce_split.launches - before[0]
     torch.autograd.grad((out * gr).sum(), leaves)
     torch.cuda.synchronize()
     moved = [a - b for a, b in zip(_ce_launches(), before[1])]
+    assert split_fwd == 1
     assert linear_sce.linear_ce_split.launches - before[0] == 1
-    assert moved == ([0, 1, 1, 0, 0, 0] if pluck else [0, 0, 0, 0, 1, 1])
+    assert moved == ([1, 1, 1, 0, 0, 0] if pluck else [0, 0, 0, 1, 1, 1])
+
+
+@pytest.mark.parametrize("pluck", [True, False])
+def test_linear_ce_forward_matches_plain_at_the_trainer_scale(dev, pluck):
+    """The forward (3xTF32 on the tensor cores) at d = 64, x at 3·randn
+    (logits up to ≈ 110), no cap, a catalog long enough for many splits:
+    the loss and lse within ``1e-5·max|want|`` of the plain version
+    evaluated in f64. Rows whose target lies outside ``[0, C)`` (−1, and
+    C + 3, inside the plain version's last chunk, where it plucks the
+    masked −1e30 as the JAX kernel does) pluck 0, as the kernels promise:
+    their loss is exactly the lse."""
+    n, c = 4_096, 60_000
+    x, w, t, _ = _ce_problem(dev, 85, n, c, 64)
+    out = torch.zeros(n, dtype=torch.bool, device=dev)
+    out[::97] = out[1::97] = True
+    t[::97] = -1
+    t[1::97] = c + 3
+    want_lse = ref.fused_lse_ref(x.double(), w.double())
+    assert want_lse.dtype == torch.float64
+    planes = linear_sce.linear_ce_split(x, w)
+    if pluck:
+        loss, lse = linear_sce.linear_ce_fwd(x, w, t, planes=planes)
+        want = ref.linear_ce_loss_ref(x.double(), w.double(), t)
+        _close(loss[~out], want[~out].float())
+        assert torch.equal(loss[out], lse[out])
+    else:
+        lse = fused_ce.fused_lse_fwd(x, w, planes=planes)
+    torch.cuda.synchronize()
+    _close(lse, want_lse.float())
+
+
+@pytest.mark.parametrize("d", [1, 16, 33, 64, 65, 100, 128, 129, 200, 256])
+def test_linear_ce_forward_covers_every_launch_plan(dev, d):
+    """Depths whose forward plans differ (64- or 32-row streamed tiles, one
+    to eight warps, two or three ring stages), with cap 30 and without,
+    positions that leave the last row block short, and a catalog whose last
+    tile has 5 columns: with 300 positions its split holds that tile alone,
+    so lanes whose columns are all masked start there from nothing. Loss
+    and lse within ``1e-5·max|want|`` of the f64 plain version."""
+    n, c = 300, 64 * 60 + 5
+    x, w, t, _ = _ce_problem(dev, 86 + d, n, c, d)
+    x = x / 3.0
+    t[: n // 2] = c - 1
+    for cap in (None, 30.0):
+        loss, lse = linear_sce.linear_ce_fwd(x, w, t, logit_softcap=cap)
+        plain_lse = fused_ce.fused_lse_fwd(x, w) if cap is None else None
+        torch.cuda.synchronize()
+        xd, wd = x.double(), w.double()
+        want_lse = ref.fused_lse_ref(xd, wd, logit_softcap=cap).float()
+        _close(lse, want_lse)
+        _close(loss, ref.linear_ce_loss_ref(xd, wd, t,
+                                            logit_softcap=cap).float())
+        if plain_lse is not None:
+            _close(plain_lse, want_lse)
+
+
+def test_linear_ce_forward_plan_equals_the_library(dev):
+    """The guard's preflight trusts ``linear_sce.fwd_plan``, the wrapper's
+    copy of the forward's launch plan: it equals the library's at every
+    depth, and fits a block's shared memory."""
+    for d in range(1, linear_sce.MAX_D + 1):
+        plan = linear_sce.library_fwd_plan(d)
+        assert linear_sce.fwd_plan(d) == plan, d
+        assert plan[0] >= 1 and plan[2] <= linear_sce.MAX_SMEM
+    with pytest.raises(ValueError):
+        linear_sce.library_fwd_plan(linear_sce.MAX_D + 1)
 
 
 def test_linear_ce_backward_plan_equals_the_library(dev):

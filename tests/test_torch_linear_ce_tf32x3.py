@@ -1,20 +1,29 @@
-"""The arithmetic of the 3xTF32 backward kernels, on the CPU.
+"""The arithmetic of the 3xTF32 full-CE kernels, on the CPU.
 
-``csrc/linear_ce.cu``'s dX and dW/dY kernels take both of their products
+``csrc/linear_ce.cu``'s forward, dX and dW/dY kernels take their products
 on the tensor cores in 3xTF32 (``csrc/tf32x3_tile.cuh``): each f32 input
 is split into ``hi = tf32(a)`` and ``lo = tf32(a − hi)``
 (``cvt.rna.tf32.f32``), each product is ``lo·hi + hi·lo + hi·hi``, and
 each k16 step of a sum starts from zero and is added to an f32 total. A
-CUDA kernel has no CPU mode, so this file holds a plain model of that
-arithmetic (``_tf32x3_backward``, test-only) against the plain f32
-versions, as evidence before the card that the chip tolerance holds:
+CUDA kernel has no CPU mode, so this file holds plain models of that
+arithmetic (``_tf32x3_forward`` and ``_tf32x3_backward``, test-only)
+against the plain versions, as evidence before the card that the chip
+tolerance holds:
 
 - ``ref.tf32_round`` (the plain ``cvt.rna.tf32.f32``) on values built bit
   by bit: ties away from zero, carries into the exponent, subnormals,
   inf and NaN; integers below 2¹¹ split exactly (``lo = 0``);
 - ``ref.tf32x3_planes_ref`` (the plain split kernel): the (hi, lo) layout,
   zeros past d, 22 bits of every value;
-- the model's dX and dW on small versions of the five cases of
+- the forward model's loss (the target's logit plucked from the logits
+  that enter the sum) and lse on small versions of the five cases of
+  ``test_torch_cuda.py::test_linear_ce_kernels_match_plain`` (cap 30 and
+  none, ragged C, d 33, 64 and 200, pluck on and off) within
+  ``1e-5·max|want|`` of ``linear_ce_loss_ref`` / ``fused_lse_ref``
+  evaluated in f64; and against the JAX kernels ``linear_ce_loss`` and
+  ``fused_lse`` (interpret mode) on two of ``test_torch_linear_ce.py``'s
+  cases;
+- the backward model's dX and dW on small versions of the five cases of
   ``test_torch_cuda.py::test_linear_ce_kernels_match_plain`` (pluck on and
   off) within ``1e-5·max|grad| + 2e-4·|grad|`` of ``linear_ce_dx_ref`` /
   ``linear_ce_dw_ref`` evaluated in f64 — at these logit scales (|l| up to
@@ -23,11 +32,12 @@ versions, as evidence before the card that the chip tolerance holds:
   to f64 than its — and dX exactly 0 on rows with a zero cotangent; and
   against the JAX kernel's VJP (interpret mode) on two of
   ``test_torch_linear_ce.py``'s cases;
-- the autograd backward splits ``x`` and ``w`` once and hands the same
-  planes to both gradient kernels (the wrappers' internals patched to
-  plain recorders);
-- the launch plan (``linear_sce.bwd_plan``) fits a block's shared memory
-  for every d ≤ 256, and two blocks share an SM at d = 64.
+- a step splits ``x`` and ``w`` once, in the autograd forward, which
+  hands the planes to the forward kernel and keeps them for both gradient
+  kernels (the wrappers' internals patched to plain recorders);
+- the launch plans (``linear_sce.fwd_plan``, ``linear_sce.bwd_plan``) fit
+  a block's shared memory for every d ≤ 256; at d = 64 the forward's eight
+  warps share one SM and two backward blocks share one.
 """
 import jax
 import jax.numpy as jnp
@@ -35,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import fused_ce as jfused
 from repro.kernels import linear_sce as jlinear
 from repro_torch.kernels import fused_ce, linear_sce, ref
 
@@ -128,6 +139,24 @@ def _mm3(ah, al, bh, bl):
     return out
 
 
+def _tf32x3_forward(x, w, targets, cap):
+    """``(loss or None, lse)`` in the forward kernel's arithmetic: the
+    logits from the planes, capped, an f32 logsumexp per row, and the
+    target's logit plucked from the same capped logits (0 for a target
+    outside ``[0, C)``)."""
+    xh, xl = _hi_lo(ref.tf32x3_planes_ref(x))
+    wh, wl = _hi_lo(ref.tf32x3_planes_ref(w))
+    s = _mm3(xh, xl, wh.T, wl.T)
+    lg = s if cap is None else cap * torch.tanh(s / cap)
+    lse = torch.logsumexp(lg, dim=1)
+    if targets is None:
+        return None, lse
+    t = targets.long()
+    valid = (t >= 0) & (t < w.shape[0])
+    pos = lg.gather(1, t.clamp(0, w.shape[0] - 1)[:, None])[:, 0]
+    return lse - torch.where(valid, pos, 0.0), lse
+
+
 def _tf32x3_backward(x, w, targets, lse, g, cap):
     """``(dX, dW)`` in the kernels' arithmetic: the logits from the
     planes, the cotangent ``(p − onehot)·cap′·g`` in f32, split again, and
@@ -187,6 +216,24 @@ def _cuda_problem(name):
 
 @pytest.mark.parametrize("pluck", [True, False])
 @pytest.mark.parametrize("name", sorted(CUDA_CASES))
+def test_tf32x3_forward_holds_the_chip_tolerance(name, pluck):
+    """Without pluck the fused family: no cap (it takes none), the lse
+    alone."""
+    x, w, t, _, cap = _cuda_problem(name)
+    if not pluck:
+        t, cap = None, None
+    loss, lse = _tf32x3_forward(x, w, t, cap)
+    xd, wd = x.double(), w.double()
+    want_lse = ref.fused_lse_ref(xd, wd, logit_softcap=cap)
+    assert want_lse.dtype == torch.float64
+    _close(lse, want_lse.float(), rtol=0.0)
+    if pluck:
+        want = ref.linear_ce_loss_ref(xd, wd, t, logit_softcap=cap)
+        _close(loss, want.float(), rtol=0.0)
+
+
+@pytest.mark.parametrize("pluck", [True, False])
+@pytest.mark.parametrize("name", sorted(CUDA_CASES))
 def test_tf32x3_backward_holds_the_chip_tolerance(name, pluck):
     x, w, t, g, cap = _cuda_problem(name)
     if not pluck:
@@ -206,6 +253,27 @@ JAX_CASES = {  # test_torch_linear_ce.py's cases: (N, C, d, cap, x scale)
     "ragged_c": (40, 300, 16, None, 1.0),
     "cap30": (40, 300, 16, 30.0, 4.0),
 }
+
+
+@pytest.mark.parametrize("family", ["linear", "fused"])
+@pytest.mark.parametrize("name", sorted(JAX_CASES))
+def test_tf32x3_forward_matches_the_jax_kernel(name, family):
+    """``linear``: the loss against ``linear_ce_loss``; ``fused``: the lse
+    against ``fused_lse`` (no cap: it takes none)."""
+    n, c, d, cap, scale = JAX_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    x = (scale * rng.standard_normal((n, d))).astype(np.float32)
+    w = rng.standard_normal((c, d)).astype(np.float32)
+    t = rng.integers(0, c, n).astype(np.int32)
+    xt, wt, tt = map(torch.from_numpy, (x, w, t))
+    if family == "linear":
+        want = jlinear.linear_ce_loss(jnp.asarray(x), jnp.asarray(w),
+                                      jnp.asarray(t), cap, 16, 64, True)
+        got = _tf32x3_forward(xt, wt, tt, cap)[0]
+    else:
+        want = jfused.fused_lse(jnp.asarray(x), jnp.asarray(w), 16, 64, True)
+        got = _tf32x3_forward(xt, wt, None, None)[1]
+    _close(got, torch.from_numpy(np.array(want)), rtol=0.0)
 
 
 @pytest.mark.parametrize("name", sorted(JAX_CASES))
@@ -229,13 +297,14 @@ def test_tf32x3_backward_matches_the_jax_kernel(name):
     _close(dw, want_dw)
 
 
-# -- the autograd backward shares one split --------------------------------
+# -- a step shares one split -------------------------------------------------
 def _recorders(monkeypatch):
-    """Patch the wrappers' launches to the plain versions and record what
-    the backward hands them."""
-    seen = {"split": [], "dx": [], "dw": []}
+    """Patch the wrappers' launches to the plain versions and record the
+    planes that forward and backward hand them."""
+    seen = {"split": [], "fwd": [], "dx": [], "dw": []}
 
-    def fwd(x, w, targets, cap):
+    def fwd(x, w, targets, cap, planes=None):
+        seen["fwd"].append(planes)
         lse = ref.fused_lse_ref(x, w, logit_softcap=cap)
         loss = (None if targets is None else
                 ref.linear_ce_loss_ref(x, w, targets, logit_softcap=cap))
@@ -261,6 +330,8 @@ def _recorders(monkeypatch):
 
 @pytest.mark.parametrize("family", ["linear", "fused"])
 def test_backward_splits_once_and_shares_the_planes(family, monkeypatch):
+    """One split per step, in the forward: the forward kernel, dX and dW
+    all take its planes."""
     seen = _recorders(monkeypatch)
     x, w, t, g, _ = _cuda_problem("ragged")
     xx, ww = (a.clone().requires_grad_(True) for a in (x, w))
@@ -271,11 +342,14 @@ def test_backward_splits_once_and_shares_the_planes(family, monkeypatch):
     else:
         out = fused_ce.fused_lse(xx, ww)
         targets = None
+    assert linear_sce.linear_ce_split.launches - before == 1
     got = torch.autograd.grad((out * g).sum(), (xx, ww))
     assert linear_sce.linear_ce_split.launches - before == 1
-    assert len(seen["split"]) == 1
-    assert seen["dx"] == seen["dw"] == seen["split"]
-    assert seen["dx"][0] is seen["split"][0]
+    assert len(seen["split"]) == len(seen["fwd"]) == 1
+    for kernel in ("fwd", "dx", "dw"):
+        planes = seen[kernel][0]
+        assert len(seen[kernel]) == 1 and len(planes) == 2
+        assert all(p is q for p, q in zip(planes, seen["split"][0]))
     lse = ref.fused_lse_ref(x, w)
     want = (ref.linear_ce_dx_ref(x, w, targets, lse, g),
             ref.linear_ce_dw_ref(x, w, targets, lse, g))
@@ -291,7 +365,17 @@ def test_launch_plan_fits_the_card():
             warps, stages, smem = linear_sce.bwd_plan(d, dw)
             assert warps in (1, 2, 4) and stages in (2, 3)
             assert smem <= linear_sce.MAX_SMEM
+        warps, stages, smem = linear_sce.fwd_plan(d)
+        assert 1 <= warps <= 8 and stages in (2, 3)
+        assert smem <= linear_sce.MAX_SMEM
+        assert linear_sce.planned_smem(d) >= smem
+        dp, rows = linear_sce.padded_depth(d), linear_sce.fwd_rows(d)
+        assert smem == 8 * dp * (32 * warps + rows * stages)
     # d = 64: two blocks of four warps share an SM (228 KB, 1 KB a block)
     assert linear_sce.bwd_plan(64, False) == (4, 3, 114_688)
     assert linear_sce.bwd_plan(64, True) == (4, 2, 99_072)
     assert 2 * (114_688 + 1024) <= 233_472
+    # the forward: eight warps own 256 positions beside three 64-row stages
+    assert linear_sce.fwd_plan(64) == (8, 3, 229_376)
+    assert linear_sce.fwd_rows(64) == 64 and linear_sce.fwd_rows(65) == 32
+    assert linear_sce.fwd_plan(256) == (1, 2, 196_608)
