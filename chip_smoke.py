@@ -57,7 +57,12 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    yardstick; it computes one product alone) with a cold L2 cache, and
    dX and dY composed in PyTorch on pre-gathered candidates (the logits
    ``bmm``, ``exp(l − lse)·g`` on the unmasked ones, the second ``bmm``;
-   dY then ``index_add_`` into ``(C, d)``).
+   dY then ``index_add_`` into ``(C, d)``). The forward's bound is its
+   f32 FMAs and bytes; dX and dY (3xTF32 on the tensor cores) are bound
+   as ``linear_ce``'s kernels (phase 13): three TF32 passes, an exp per
+   unmasked pair at the SFUs' rate, and the bytes, with the f32 FMA
+   bound beside it. The wrapper's copy of dX / dY's launch plan must
+   equal the library's at every d ≤ 256.
    The three ``sce_gather_plse`` launches (the partial LSE of distributed
    SCE: forward, dX, dY) the same way, on the same selection as the
    trainer's (1, 1) mesh sees it (every candidate owned), on shard 0 of a
@@ -162,7 +167,8 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    values within ``1e-5·max|score|``, isolated ids equal, ``gt``/``eq``
    inside a dense f64 band, ``eq ≥ 1`` on every valid target (the
    threshold is bit for bit the swept column). Times each kernel, its
-   plain version and one PyTorch call with a cold L2.
+   plain version and one PyTorch call with a cold L2 (``sce_bucket``'s dX
+   and dY bound in 3xTF32 as in phase 6).
 16. Drills: the trainer at full width with ``chaos_nan_at=5`` must raise
    ``RuntimeError`` at step 7 after three ``[guard]`` strike lines naming
    ``sce_bucket_nonfinite``; a monkeypatched broken ``mips_topk`` must
@@ -357,6 +363,58 @@ def roofline_ms(nbytes, flops):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tf32x3_bound(nbytes, flops, exps):
+    """The least time of a kernel that runs its ``flops`` in 3xTF32 on the
+    tensor cores: the largest of three TF32 passes at the dense TF32 rate,
+    its ``exps`` at the SFUs' rate (16 a clock per SM at the card's top SM
+    clock) and its bytes. Returns ``(ms, "bytes" | "operations", basis,
+    f32_ms)``, the same FLOPs' f32 FMA bound (:func:`roofline_ms`) last."""
+    import torch
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cands = {"3xTF32 tensor cores": 3 * flops / PEAK_TF32_FLOP_S * 1e3,
+             "SFU exps": exps / (SFU_PER_SM_CLOCK * n_sm * sm_clock_hz())
+             * 1e3,
+             "bytes": nbytes / PEAK_BYTES_S * 1e3}
+    basis = max(cands, key=cands.get)
+    return (cands[basis], "bytes" if basis == "bytes" else "operations",
+            basis, roofline_ms(nbytes, flops)[0])
+
+
+def f32_bound(nbytes, flops):
+    """:func:`roofline_ms` in :func:`tf32x3_bound`'s form, for a kernel of
+    f32 FMAs."""
+    ms, by = roofline_ms(nbytes, flops)
+    return ms, by, "bytes" if by == "bytes" else "f32 FMAs", ms
+
+
+def bound_keys(bound):
+    """A timing's bound keys from a :func:`roofline_ms` pair or a
+    :func:`tf32x3_bound` / :func:`f32_bound` quadruple (with its basis and
+    the f32 FMA bound)."""
+    keys = {"bound_ms": bound[0], "bound_by": bound[1]}
+    if len(bound) == 4:
+        keys.update(bound_basis=bound[2], bound_f32_ms=bound[3])
+    return keys
+
+
+def bound_text(t):
+    """A timing's bound as printed: ms, what bounds it and, for a 3xTF32
+    kernel, its f32 FMA bound."""
+    if t.get("bound_basis") in (None, "bytes", "f32 FMAs"):
+        return f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
+    return (f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bound_basis']}; "
+            f"as f32 FMAs {t['bound_f32_ms']:.4f} ms)")
+
+
+def unmasked_pairs(tgt, cand):
+    """The (position, candidate) pairs of the buckets that are not masked
+    (a candidate with a negative id or equal to the position's target):
+    the exps the backward's data needs."""
+    return int(((cand[:, None, :] >= 0)
+                & (cand[:, None, :] != tgt[:, :, None])).sum())
 
 
 def bound_ms(n_q, c, d, k, *, valid=True):
@@ -677,12 +735,14 @@ def gather_case(name, x_b, y, idx, tgt, cand, pos, cap=None):
             "d": d, "C": y.shape[0], "cap": cap, "max_abs_err": errs}
 
 
-def gather_bounds(x_b, y, idx):
-    """Least times of the three kernels on these inputs: each reads x_b,
-    the distinct catalog rows it gathers, the ids and its per-row inputs
-    once and writes its outputs once; the forward does 2·n_b·b_x·b_y·d
-    f32 FLOPs, dX and dY twice that (the logits again, then a product of
-    the same size)."""
+def gather_bounds(x_b, y, idx, tgt, cand):
+    """Least times of the three kernels on these inputs, as
+    ``(ms, by, basis, f32_ms)``: each reads x_b, the distinct catalog rows
+    it gathers, the ids and its per-row inputs once and writes its outputs
+    once; the forward does 2·n_b·b_x·b_y·d f32 FLOPs (f32 FMAs), dX and dY
+    twice that (the logits again, then a product of the same size) in
+    3xTF32 on the tensor cores, with an exp per unmasked pair
+    (:func:`tf32x3_bound`; the f32 FMA bound beside it)."""
     import torch
 
     n_b, b_x, d = x_b.shape
@@ -690,12 +750,14 @@ def gather_bounds(x_b, y, idx):
     rows = int(torch.unique(idx).numel())
     common = 4 * (n_b * b_x * d + rows * d + 2 * n_b * b_y)
     flops = 2 * n_b * b_x * b_y * d
+    exps = unmasked_pairs(tgt, cand)
     return {
-        "sce_gather_fwd": roofline_ms(common + 4 * 4 * n_b * b_x, flops),
-        "sce_gather_dx": roofline_ms(
-            common + 4 * 3 * n_b * b_x + 4 * n_b * b_x * d, 2 * flops),
-        "sce_gather_dy": roofline_ms(
-            common + 4 * 3 * n_b * b_x + 4 * y.shape[0] * d, 2 * flops),
+        "sce_gather_fwd": f32_bound(common + 4 * 4 * n_b * b_x, flops),
+        "sce_gather_dx": tf32x3_bound(
+            common + 4 * 3 * n_b * b_x + 4 * n_b * b_x * d, 2 * flops, exps),
+        "sce_gather_dy": tf32x3_bound(
+            common + 4 * 3 * n_b * b_x + 4 * y.shape[0] * d, 2 * flops,
+            exps),
     }
 
 
@@ -761,26 +823,28 @@ def plse_case(name, x_b, y, idx, tgt, cand, cap=None):
 
 
 def plse_bounds(x_b, y, idx, tgt, cand):
-    """Least times of the three partial-LSE launches on these inputs: each
-    reads x_b, the distinct catalog rows its unmasked candidates gather,
-    the ids and its per-row inputs once and writes its outputs once; the
-    forward does 2·d FLOPs per unmasked (row, candidate) pair, dX and dY
-    twice that."""
+    """Least times of the three partial-LSE launches on these inputs, as
+    :func:`gather_bounds`: each reads x_b, the distinct catalog rows its
+    unmasked candidates gather, the ids and its per-row inputs once and
+    writes its outputs once; the forward does 2·d f32 FLOPs per unmasked
+    (row, candidate) pair, dX and dY twice that in 3xTF32 with an exp per
+    pair."""
     import torch
 
     n_b, b_x, d = x_b.shape
     b_y = idx.shape[1]
-    pairs = int(((cand[:, None, :] >= 0)
-                 & (cand[:, None, :] != tgt[:, :, None])).sum())
+    pairs = unmasked_pairs(tgt, cand)
     rows = int(torch.unique(idx[cand >= 0]).numel())
     common = 4 * (n_b * b_x * d + rows * d + 2 * n_b * b_y + n_b * b_x)
     flops = 2 * pairs * d
     return {
-        "sce_gather_plse_fwd": roofline_ms(common + 4 * n_b * b_x, flops),
-        "sce_gather_plse_dx": roofline_ms(
-            common + 4 * 2 * n_b * b_x + 4 * n_b * b_x * d, 2 * flops),
-        "sce_gather_plse_dy": roofline_ms(
-            common + 4 * 2 * n_b * b_x + 4 * y.shape[0] * d, 2 * flops),
+        "sce_gather_plse_fwd": f32_bound(common + 4 * n_b * b_x, flops),
+        "sce_gather_plse_dx": tf32x3_bound(
+            common + 4 * 2 * n_b * b_x + 4 * n_b * b_x * d, 2 * flops,
+            pairs),
+        "sce_gather_plse_dy": tf32x3_bound(
+            common + 4 * 2 * n_b * b_x + 4 * y.shape[0] * d, 2 * flops,
+            pairs),
     }
 
 
@@ -942,6 +1006,15 @@ def train_kernel_phase(dev):
         rows, torch.randint(0, 300, (7, 23), generator=g, device=dev,
                             dtype=torch.int32), cand_r, cap=30.0))
 
+    # The guard's preflight trusts the wrapper's copy of dX / dY's launch
+    # plan (sce_prefetch.planned_smem): hold it equal to the library's.
+    for d in range(1, sce_prefetch.MAX_D + 1):
+        mine, lib = sce_prefetch.bwd_plan(d), sce_prefetch.library_bwd_plan(d)
+        check(mine == lib, f"sce_gather backward plan at d={d}: wrapper "
+              f"{mine}, library {lib}")
+    print("  sce_gather backward plan: the wrapper's copy equals the "
+          "library's at every d <= 256")
+
     # Times at the training shape, cold L2.
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     timings = {}
@@ -992,7 +1065,7 @@ def train_kernel_phase(dev):
             lambda: torch.autograd.grad(out, leaves[1], retain_graph=True),
             lambda: torch.bmm(probs.transpose(1, 2), x_b)),
     }
-    bounds = gather_bounds(x_b, y, idx_y)
+    bounds = gather_bounds(x_b, y, idx_y, tgt_b, idx_y)
     # The partial LSE on the main path's input (one card: every candidate
     # owned) and on the shard of 4. Library: bmm + logsumexp on the
     # pre-gathered rows, the mask folded in as baddbmm's additive input.
@@ -1056,8 +1129,7 @@ def train_kernel_phase(dev):
             timings[name] = {"ms": time_ms(kern, 20, flush),
                              "plain_ms": time_ms(plain, 5, flush),
                              "library_ms": time_ms(lib, 20, flush),
-                             "bound_ms": bounds[name][0],
-                             "bound_by": bounds[name][1]}
+                             **bound_keys(bounds[name])}
             if name in composed_runs:
                 timings[name]["composed_ms"] = time_ms(composed_runs[name],
                                                        20, flush)
@@ -1066,7 +1138,7 @@ def train_kernel_phase(dev):
                 else "")
         print(f"  time {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms"
-              f"{more}, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+              f"{more}, bound {bound_text(t)}")
     return cases, gcases, pcases, timings
 
 
@@ -1797,12 +1869,8 @@ def ce_bounds(n, c, d):
     w and writes their planes (two floats per depth, d rounded up to 16):
     bytes. Returns name → ``(ms, "bytes" | "operations", basis,
     f32_ms)``."""
-    import torch
-
     common = 4 * (n * d + c * d)
     flops = 2 * n * c * d
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    sfu_ms = n * c / (SFU_PER_SM_CLOCK * n_sm * sm_clock_hz()) * 1e3
     out = {}
     for kname, family, what, _ in CE_KERNELS:
         tgt = 4 * n if family == "linear" else 0
@@ -1813,13 +1881,7 @@ def ce_bounds(n, c, d):
             work = 2 * flops
             written = 4 * (n if what == "dx" else c) * d
             nbytes = common + tgt + 8 * n + written
-        f32_ms = roofline_ms(nbytes, work)[0]
-        cands = {"3xTF32 tensor cores": 3 * work / PEAK_TF32_FLOP_S * 1e3,
-                 "SFU exps": sfu_ms, "bytes": nbytes / PEAK_BYTES_S * 1e3}
-        basis = max(cands, key=cands.get)
-        out[kname] = (cands[basis],
-                      "bytes" if basis == "bytes" else "operations", basis,
-                      f32_ms)
+        out[kname] = tf32x3_bound(nbytes, work, n * c)
     dp = -(-d // 16) * 16
     ms = (common + 8 * (n + c) * dp) / PEAK_BYTES_S * 1e3
     out["linear_ce_split"] = (ms, "bytes", "bytes", ms)
@@ -2192,22 +2254,24 @@ def bucket_case(name, x_b, y_b, tgt, cand, pos, cap=None):
             "dy_bitwise_repeat": True}
 
 
-def bucket_bounds(x_b, y_b):
-    """Least times on these inputs: each launch reads x_b, the
-    pre-gathered y_b, the ids and its per-row inputs once and writes its
-    outputs once; the forward does 2·n_b·b_x·b_y·d f32 FLOPs, dX and dY
-    twice that (the logits again, then a product of the same size)."""
+def bucket_bounds(x_b, y_b, tgt, cand):
+    """Least times on these inputs, as :func:`gather_bounds`: each launch
+    reads x_b, the pre-gathered y_b, the ids and its per-row inputs once
+    and writes its outputs once; the forward does 2·n_b·b_x·b_y·d f32
+    FLOPs, dX and dY twice that in 3xTF32 with an exp per unmasked
+    pair."""
     n_b, b_x, d = x_b.shape
     b_y = y_b.shape[1]
     common = 4 * (n_b * b_x * d + n_b * b_y * d + n_b * b_y + n_b * b_x)
     flops = 2 * n_b * b_x * b_y * d
+    exps = unmasked_pairs(tgt, cand)
     return {
-        "sce_bucket_fwd": roofline_ms(common + 4 * 3 * n_b * b_x, flops),
-        "sce_bucket_plse_fwd": roofline_ms(common + 4 * n_b * b_x, flops),
-        "sce_bucket_dx": roofline_ms(
-            common + 4 * 2 * n_b * b_x + 4 * n_b * b_x * d, 2 * flops),
-        "sce_bucket_dy": roofline_ms(
-            common + 4 * 2 * n_b * b_x + 4 * n_b * b_y * d, 2 * flops),
+        "sce_bucket_fwd": f32_bound(common + 4 * 3 * n_b * b_x, flops),
+        "sce_bucket_plse_fwd": f32_bound(common + 4 * n_b * b_x, flops),
+        "sce_bucket_dx": tf32x3_bound(
+            common + 4 * 2 * n_b * b_x + 4 * n_b * b_x * d, 2 * flops, exps),
+        "sce_bucket_dy": tf32x3_bound(
+            common + 4 * 2 * n_b * b_x + 4 * n_b * b_y * d, 2 * flops, exps),
     }
 
 
@@ -2355,7 +2419,7 @@ def guard_kernel_phase(dev):
             lambda: torch.logsumexp(torch.baddbmm(
                 bias, x_b, y_b.transpose(1, 2)), dim=-1)),
     }
-    bounds = bucket_bounds(x_b, y_b)
+    bounds = bucket_bounds(x_b, y_b, tgt_b, cand)
     window_mask = (torch.arange(C_SERVE, device=dev) >= 1) & \
         (torch.arange(C_SERVE, device=dev) < N_ITEMS)
     for b in EVAL_B:
@@ -2389,12 +2453,11 @@ def guard_kernel_phase(dev):
                              "plain_ms": time_ms(plain, 2 if heavy else 5,
                                                  flush),
                              "library_ms": time_ms(lib, 20, flush),
-                             "bound_ms": bounds[name][0],
-                             "bound_by": bounds[name][1]}
+                             **bound_keys(bounds[name])}
     for name, t in timings.items():
         print(f"  time {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+              f"bound {bound_text(t)}")
     return bcases, tcases, timings
 
 

@@ -1,7 +1,7 @@
-// f32_tile — the 64 × 64 f32 FMA tile code shared by sce_gather.cu and
-// linear_ce.cu: staging rows into shared memory, the register-tiled logit
-// tile, the softcap and its derivative, half-warp reductions and the
-// (64, d) product accumulator of the backward kernels.
+// f32_tile — the 64 × 64 f32 FMA tile code of sce_gather.cu's forward:
+// staging rows into shared memory, the register-tiled logit tile, the
+// softcap and its derivative (which the 3xTF32 backward shares) and
+// half-warp reductions.
 //
 // A block is 256 threads; thread (ty, tx) = (tid / 16, tid % 16) owns rows
 // ty·4 .. ty·4 + 3 of a 64-row tile and columns tx + 16·j (j < 4) of a
@@ -20,14 +20,12 @@ constexpr int kThreads = 256;
 constexpr int kRM = 4;             // rows of the tile per thread
 constexpr int kCols = 4;           // columns tx + 16*j of the tile
 constexpr int kTile = 16 * kRM;    // 64 rows (and 64 columns) per tile
-constexpr int kChunk = 64;         // d-columns per chunk of the products
 constexpr int kMaxD = 256;
-constexpr int kGwPitch = kTile + 4;  // floats per row of the gw tile
 constexpr int kMaxSmem = 232448;     // 227 KB opt-in per block on sm_90
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
-static_assert(16 * kCols == kTile, "the gw tile is square");
+static_assert(16 * kCols == kTile, "the logit tile is square");
 
 // Shared-memory pitch of a staged row, in floats: d rounded up to float4s,
 // an odd number of them, so the 8 lanes of a quarter-warp that read 8
@@ -122,44 +120,6 @@ __device__ __forceinline__ void tile_scores(const float* as, const float* bs,
         acc[i][j] = s;
       }
   }
-}
-
-// Adds acc[i][c][·] += Σ_t u[t][4·ty .. 4·ty + 3] · v[t][64·c + 4·tx ..]
-// over t < n: the thread's 4 rows of uᵀ·v at its 4 columns of every
-// 64-column chunk of the depth. u has pitch kGwPitch, v pitch p.
-template <int NC>
-__device__ __forceinline__ void accumulate(const float* u, const float* v,
-                                           int n, int p, int d4, int ty,
-                                           int tx, float acc[kRM][NC][4]) {
-  for (int t = 0; t < n; ++t) {
-    const float4 g = *reinterpret_cast<const float4*>(u + t * kGwPitch +
-                                                      ty * kRM);
-    const float gs[kRM] = {g.x, g.y, g.z, g.w};
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = kChunk * c + 4 * tx;
-      if (col < 4 * d4) {
-        const float4 w = *reinterpret_cast<const float4*>(v + t * p + col);
-#pragma unroll
-        for (int i = 0; i < kRM; ++i) {
-          acc[i][c][0] = fmaf(gs[i], w.x, acc[i][c][0]);
-          acc[i][c][1] = fmaf(gs[i], w.y, acc[i][c][1]);
-          acc[i][c][2] = fmaf(gs[i], w.z, acc[i][c][2]);
-          acc[i][c][3] = fmaf(gs[i], w.w, acc[i][c][3]);
-        }
-      }
-    }
-  }
-}
-
-template <int NC>
-__device__ __forceinline__ void zero(float acc[kRM][NC][4]) {
-#pragma unroll
-  for (int i = 0; i < kRM; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][c][q] = 0.f;
 }
 
 // 1 when rows of `a` can be read as float4s: d % 4 == 0 and 16-byte aligned.

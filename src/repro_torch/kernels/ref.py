@@ -21,9 +21,10 @@ def _masked_neg_logits(x_b, y_b, tgt_b, cand_ids, logit_softcap=None):
     ``(n_b, b_x, b_y)``. A candidate equal to the position's target is
     not a negative; a candidate with a negative id is an invalid slot
     for every position. The softcap applies before the mask, so masked
-    slots stay at ``NEG_INF``, never ``−cap``."""
-    neg = torch.einsum("nxd,nyd->nxy", x_b.to(torch.float32),
-                       y_b.to(torch.float32))
+    slots stay at ``NEG_INF``, never ``−cap``. In f64 for f64 ``x_b``
+    (the exact yardstick of the 3xTF32 backward), else f32."""
+    dt = _ce_dtype(x_b)
+    neg = torch.einsum("nxd,nyd->nxy", x_b.to(dt), y_b.to(dt))
     if logit_softcap is not None:
         neg = logit_softcap * torch.tanh(neg / logit_softcap)
     collide = cand_ids[:, None, :] == tgt_b[:, :, None]
@@ -39,7 +40,7 @@ def sce_bucket_loss_ref(x_b, y_b, tgt_b, cand_ids, pos_logit,
     :func:`_masked_neg_logits` left out. ``pos_logit`` arrives already
     capped. Differentiable by autograd."""
     neg = _masked_neg_logits(x_b, y_b, tgt_b, cand_ids, logit_softcap)
-    pos = pos_logit.to(torch.float32)
+    pos = pos_logit.to(neg.dtype)
     m = torch.maximum(neg.amax(dim=-1), pos)
     s = torch.exp(neg - m[..., None]).sum(dim=-1) + torch.exp(pos - m)
     return (m + torch.log(s) - pos).to(pos_logit.dtype)
@@ -363,9 +364,9 @@ def fused_ce_loss_ref(x, y, targets, *, chunk: int = 512):
 
 
 def _ce_dtype(x):
-    """The full-CE plain versions' working type: f32, or f64 for f64
-    ``x`` (the exact yardstick the tests hold the 3xTF32 arithmetic
-    to)."""
+    """The working type of the plain versions of the 3xTF32 kernels
+    (full CE, in-bucket SCE): f32, or f64 for f64 ``x`` (the exact
+    yardstick the tests hold the 3xTF32 arithmetic to)."""
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 

@@ -4,11 +4,18 @@ and ``sce_gather_plse`` of ``repro/kernels/sce_prefetch.py``).
 
 The loss, one wrapper per kernel, each with its own launch counter:
 
-* :func:`sce_gather_fwd` — per-(bucket, row) loss and logsumexp;
+* :func:`sce_gather_fwd` — per-(bucket, row) loss and logsumexp (f32
+  FMAs);
 * :func:`sce_gather_dx` — the gradient of ``x_b`` (n_b, b_x, d);
 * :func:`sce_gather_dy` — the gradient of the whole catalog ``y`` (C, d),
   added into a zeroed buffer row by row (``atomicAdd``: not bitwise
   repeatable, rows no bucket selected stay exactly 0).
+
+dX and dY recompute the logits and take both products on the tensor
+cores in 3xTF32 (``csrc/tf32x3_tile.cuh``), which holds the f32
+tolerance; their exp takes ``min(l − lse, 44)``, the one deviation from
+the plain version (see the source). :func:`bwd_plan` is their launch plan
+without a card, :func:`planned_smem` the guard's budget.
 
 The partial logsumexp of the distributed merge (no positive, from
 ``(NEG_INF, 0)``), again with a counter per wrapper, apart from the
@@ -35,18 +42,51 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.linear_sce import MAX_SMEM, padded_depth
 
 MAX_D = 256  # kMaxD in the source
+STREAM_ROWS = 32  # kStreamRows: rows of a streamed backward tile
+STAGES = 3  # kStages: the backward's raw ring
+
+
+def fwd_smem(d: int) -> int:
+    """The forward's dynamic shared memory (``fwd_smem`` in the source):
+    64 rows of x_b and 64 candidate rows at a pitch of an odd number of
+    float4s, and 2 × 64 row and candidate ids."""
+    pitch = 4 * ((-(-d // 4)) | 1)
+    return 4 * (64 + 64) * pitch + 4 * 2 * 64
+
+
+def bwd_plan(d: int):
+    """``(warps, smem bytes)`` of the dX and dY launches at depth d, a copy
+    of ``bwd_plan`` in ``csrc/sce_gather.cu`` that needs no card
+    (:func:`library_bwd_plan` reads the kernel's own; the CUDA tests and
+    ``chip_smoke.py`` hold the two equal): 32 owned rows a warp, split into
+    A fragments (four warps up to ``dp`` 128, two to 192, else one); the
+    split 32-row streamed tile; three raw 32-row stages with their per-row
+    inputs (lse, g and targets, or candidate ids); the two-slot ids
+    ring."""
+    dp = padded_depth(d)
+    warps = 4 if dp <= 128 else (2 if dp <= 192 else 1)
+    return warps, (8 * dp * (32 * warps + STREAM_ROWS)
+                   + 4 * (dp + 3) * STREAM_ROWS * STAGES + 8 * STREAM_ROWS)
+
+
+def library_bwd_plan(d: int):
+    """``(warps, smem bytes)`` as the built library plans dX and dY
+    (``sce_gather_bwd_plan``)."""
+    warps = ctypes.c_int()
+    smem = _lib().sce_gather_bwd_plan(d, ctypes.byref(warps))
+    if smem < 0:
+        raise ValueError(f"sce_gather_bwd_plan: d={d} outside (0, {MAX_D}]")
+    return warps.value, smem
 
 
 def planned_smem(d: int) -> int:
-    """Dynamic shared memory per block of the largest launch (dX / dY),
-    as ``smem_bytes(d, true)`` in the source lays it out: 64 rows of x_b
-    and 64 candidate rows at a pitch of an odd number of float4s, the
-    (64, 68) gw tile, and 2 × 64 row and candidate ids. The kernel guard
-    checks it against the 227 KB a block may use."""
-    pitch = 4 * ((-(-d // 4)) | 1)
-    return 4 * ((64 + 64) * pitch + 64 * 68) + 4 * 2 * 64
+    """Dynamic shared memory per block of the largest launch at depth d:
+    the forward's (:func:`fwd_smem`) or dX / dY's (:func:`bwd_plan`). The
+    kernel guard checks it against the 227 KB a block may use."""
+    return max(fwd_smem(d), bwd_plan(d)[1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,6 +102,8 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.sce_gather_plse_fwd_launch.argtypes = [p] * 6 + [i] * 5 + [f, p]
     lib.sce_gather_plse_fwd_launch.restype = ctypes.c_int
+    lib.sce_gather_bwd_plan.argtypes = [i, p]
+    lib.sce_gather_bwd_plan.restype = ctypes.c_int
     return lib
 
 

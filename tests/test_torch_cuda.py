@@ -21,7 +21,13 @@ into the split sweep; two launches repeat bit for bit.
 gradients within ``rtol 2e-4``, ``atol 1e-5·max|grad|`` of autograd
 through the plain version (f32 sums in another order; dY's atomics add in
 an order that changes from run to run), and rows of dY that no bucket
-selected exactly 0.
+selected exactly 0. dX and dY run in 3xTF32 on the tensor cores: at the
+trainer's logit scale (x_b 3·randn) they hold the plain version evaluated
+in f64 at the same tolerances, and given their forward's lse they are no
+farther from their formula in f64 than the f32 plain formula is; a
+loss bucket whose candidates are all masked has loss and dX exactly 0 and
+adds nothing to dY; the wrapper's copy of their launch plan equals the
+library's.
 
 ``sce_gather_plse`` (the partial LSE and the same dX and dY launches,
 counted apart): the same tolerances, rows with no unmasked candidate
@@ -383,6 +389,110 @@ def test_sce_gather_raises_on_what_it_does_not_take(dev):
         big = torch.zeros(2, 16, 300, device=dev)
         sce_prefetch.sce_gather_fwd(big, torch.zeros(100, 300, device=dev),
                                     idx, tgt, cand, pos)
+
+
+def _max_err(got, want):
+    return (got.double() - want).abs().max().item()
+
+
+def _gather_grads_given_lse(x_b, y, idx, tgt, cand, lse, g):
+    """The plain formula of the dX and dY kernels for a given lse, in the
+    inputs' type: ``gw = exp(l − lse)·g``, 0 where masked (a select),
+    ``dX = gw·y_b`` and ``dY`` the scatter-add of ``gwᵀ·x_b`` into the
+    candidates' catalog rows."""
+    rows = idx.long().clamp(0, y.shape[0] - 1)
+    y_b = y[rows]
+    logits = torch.einsum("nxd,nyd->nxy", x_b, y_b)
+    masked = (cand[:, None, :] < 0) | (cand[:, None, :] == tgt[:, :, None])
+    gw = torch.where(masked, 0.0,
+                     torch.exp(logits - lse[..., None]) * g[..., None])
+    dy = torch.zeros_like(y).index_add_(
+        0, rows.reshape(-1),
+        torch.bmm(gw.transpose(1, 2), x_b).reshape(-1, y.shape[1]))
+    return torch.bmm(gw, y_b), dy
+
+
+@pytest.mark.parametrize("plse", [False, True])
+def test_sce_gather_backward_at_the_trainer_logit_scale(dev, plse):
+    """x_b at 3·randn (the trainer's logit scale), the loss or the partial
+    LSE (half the candidates masked). End to end, dX and dY hold autograd
+    through the plain version evaluated in f64 at the f32 tolerance. And
+    the dX and dY kernels, given their forward's lse, are no farther from
+    their formula evaluated in f64 than the f32 plain formula is: the
+    3xTF32 products, each k16 step from zero, round like f32 FMAs."""
+    shape = (16, 320, 256, 64, 20_000)
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, 31, *shape)
+    x_b = 3.0 * x_b
+    pos = (x_b * y[tgt.long()]).sum(-1)
+    if plse:
+        cand = torch.where(torch.rand(cand.shape, generator=_gen(dev, 32),
+                                      device=dev) < 0.5, cand, -1)
+    up = torch.rand(shape[:2], generator=_gen(dev, 33), device=dev)
+
+    def grads(fn, dtype):
+        leaves = [t.to(dtype).requires_grad_(True) for t in (x_b, y)]
+        rest = () if plse else (pos.to(dtype),)
+        out = fn(leaves[0], leaves[1], idx, tgt, cand, *rest)
+        return torch.autograd.grad((out * up.to(dtype)).sum(), leaves)
+
+    kernel = ops.sce_gather_plse if plse else ops.sce_gather_loss
+    plain = ref.sce_gather_plse_ref if plse else ref.sce_gather_loss_ref
+    got = grads(kernel, torch.float32)
+    exact = grads(plain, torch.float64)
+    for a, b in zip(got, exact):
+        _close(a, b.float(), rtol=2e-4)
+
+    args = (x_b, y, idx, tgt, cand)
+    if plse:
+        lse = sce_prefetch.sce_gather_plse_fwd(*args)
+        got = (sce_prefetch.sce_gather_plse_dx(*args, lse, up),
+               sce_prefetch.sce_gather_plse_dy(*args, lse, up))
+    else:
+        lse = sce_prefetch.sce_gather_fwd(*args, pos)[1]
+        got = (sce_prefetch.sce_gather_dx(*args, lse, up),
+               sce_prefetch.sce_gather_dy(*args, lse, up))
+    exact = _gather_grads_given_lse(x_b.double(), y.double(), idx, tgt, cand,
+                                    lse.double(), up.double())
+    f32 = _gather_grads_given_lse(x_b, y, idx, tgt, cand, lse, up)
+    for a, b, c in zip(got, exact, f32):
+        _close(a, b.float(), rtol=2e-4)
+        assert _max_err(a, b) <= _max_err(c, b), (_max_err(a, b),
+                                                 _max_err(c, b))
+
+
+def test_sce_gather_loss_bucket_with_every_candidate_masked(dev):
+    """A bucket of the loss whose candidates are all masked: its lse is
+    the positive alone, its dX rows exactly 0 and its candidates add
+    nothing to dY."""
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, 34, 3, 70, 90, 33,
+                                                  400)
+    cand[1] = -1
+    g = torch.rand(pos.shape, generator=_gen(dev, 35), device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in (x_b, y, pos)]
+    loss = ops.sce_gather_loss(leaves[0], leaves[1], idx, tgt, cand,
+                               leaves[2])
+    got = torch.autograd.grad((loss * g).sum(), leaves)
+    plain = [t.clone().requires_grad_(True) for t in (x_b, y, pos)]
+    want_loss = ref.sce_gather_loss_ref(plain[0], plain[1], idx, tgt, cand,
+                                        plain[2])
+    want = torch.autograd.grad((want_loss * g).sum(), plain)
+    _close(loss.detach(), want_loss.detach())
+    for a, b in zip(got, want):
+        _close(a, b, rtol=2e-4)
+    assert (loss.detach()[1] == 0).all() and (got[0][1] == 0).all()
+    only = torch.ones(y.shape[0], dtype=torch.bool, device=dev)
+    only[idx[[0, 2]].long().reshape(-1)] = False
+    assert (got[1][only] == 0).all()
+
+
+def test_sce_gather_backward_plan_equals_the_library(dev):
+    """The guard's preflight trusts ``sce_prefetch.bwd_plan``, the
+    wrapper's copy of the source's dX / dY launch plan: it must equal the
+    built library's at every depth the kernels take."""
+    for d in (4, 33, 64, 256):
+        assert sce_prefetch.bwd_plan(d) == sce_prefetch.library_bwd_plan(d)
+    with pytest.raises(ValueError):
+        sce_prefetch.library_bwd_plan(sce_prefetch.MAX_D + 1)
 
 
 # ---------------------------------------------------------------------------
