@@ -53,16 +53,27 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    ``1e-5·max|loss|``, gradients within ``rtol 2e-4``,
    ``atol 1e-5·max|grad|`` of autograd through the plain version, rows of
    dY no bucket selected exactly 0. Times each kernel, its plain version
-   and ``torch.bmm`` on pre-gathered candidates (the nearest one-call
-   yardstick; it computes one product alone) with a cold L2 cache, and
-   dX and dY composed in PyTorch on pre-gathered candidates (the logits
+   and one PyTorch call with a cold L2 cache: for the forward the whole
+   function (the gather ``y[idx]``, ``baddbmm`` with the mask as its
+   additive input, the positive, ``logsumexp``), for dX and dY
+   ``torch.bmm`` on pre-gathered candidates (one product alone), and dX
+   and dY composed in PyTorch on pre-gathered candidates (the logits
    ``bmm``, ``exp(l − lse)·g`` on the unmasked ones, the second ``bmm``;
-   dY then ``index_add_`` into ``(C, d)``). The forward's bound is its
-   f32 FMAs and bytes; dX and dY (3xTF32 on the tensor cores) are bound
-   as ``linear_ce``'s kernels (phase 13): three TF32 passes, an exp per
-   unmasked pair at the SFUs' rate, and the bytes, with the f32 FMA
-   bound beside it. The wrapper's copy of dX / dY's launch plan must
-   equal the library's at every d ≤ 256.
+   dY then ``index_add_`` into ``(C, d)``). dY's time is its kernel
+   alone, into the ``(n_b·b_y, d)`` workspace, against the same rows in
+   plain PyTorch; the wrapper (the kernel, the sort, the zeroing and the
+   sum), which the composed dY matches, is timed apart and is not in the
+   kernels line. All three take their logits
+   in 3xTF32 on the tensor cores and are bound as ``linear_ce``'s kernels
+   (phase 13): three TF32 passes, an exp per unmasked pair at the SFUs'
+   rate, and the bytes, with the f32 FMA bound beside it. The wrapper's
+   copies of the forward's and dX / dY's launch plans must equal the
+   library's at every d ≤ 256. The gathered dY (each slot's row into a
+   workspace, then ``sce_gather_dy_sum`` adds them per catalog row in
+   slot order) must repeat bit for bit, on the trainer's selection and on
+   candidates every bucket shares; its sum kernel is held to
+   ``index_add_`` on the same workspace and timed beside an in-place
+   ``index_add_`` (and the stable sort, PyTorch glue, timed apart).
    The three ``sce_gather_plse`` launches (the partial LSE of distributed
    SCE: forward, dX, dY) the same way, on the same selection as the
    trainer's (1, 1) mesh sees it (every candidate owned), on shard 0 of a
@@ -83,7 +94,8 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    evaluations excluded: the trainer takes a step's time before its
    evaluation), the step's breakdown from CUDA events that the trainer's
    own steps record through its ``mark`` hook, and the run's peak device
-   memory.
+   memory. The same run once more: prints whether the two end on the
+   same losses (measured, not required).
 8. The same with the trainer's default ``sce_mode="exact"``: distributed
    SCE (``core/distributed_sce.py``) on the (1, 1) host mesh, each
    ``sce_gather_plse`` launch once per step and ``sce_gather`` never;
@@ -183,7 +195,9 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    k. ``eval_fused`` and ``eval_tgt_gather`` have two each: the
    evaluation phase's B = 256 and the trainers' B = 128. The three
    ``sce_gather_plse`` launches carry phase 8's launches and phase 6's
-   times on the (1, 1) input. The six full-CE kernels and the split carry
+   times on the (1, 1) input. ``sce_gather_dy_sum`` carries both
+   trainers' launches and phase 6's time. The six full-CE kernels and the
+   split carry
    phase 14's launches and phase 13's times at the trainer's shape. The four
    ``sce_bucket`` launches and ``eval_topk`` / ``eval_tgt_scores`` carry
    phase 3's launches (the canaries') and phase 15's times (the eval ones
@@ -739,10 +753,12 @@ def gather_bounds(x_b, y, idx, tgt, cand):
     """Least times of the three kernels on these inputs, as
     ``(ms, by, basis, f32_ms)``: each reads x_b, the distinct catalog rows
     it gathers, the ids and its per-row inputs once and writes its outputs
-    once; the forward does 2·n_b·b_x·b_y·d f32 FLOPs (f32 FMAs), dX and dY
-    twice that (the logits again, then a product of the same size) in
-    3xTF32 on the tensor cores, with an exp per unmasked pair
-    (:func:`tf32x3_bound`; the f32 FMA bound beside it)."""
+    once; the forward does 2·n_b·b_x·b_y·d FLOPs, dX and dY twice that
+    (the logits again, then a product of the same size), all in 3xTF32 on
+    the tensor cores, with an exp per unmasked pair
+    (:func:`tf32x3_bound`; the f32 FMA bound beside it). dY is its kernel
+    alone, which writes the ``(n_b·b_y, d)`` workspace (the sum into the
+    catalog is :func:`dy_sum_bound`)."""
     import torch
 
     n_b, b_x, d = x_b.shape
@@ -752,13 +768,41 @@ def gather_bounds(x_b, y, idx, tgt, cand):
     flops = 2 * n_b * b_x * b_y * d
     exps = unmasked_pairs(tgt, cand)
     return {
-        "sce_gather_fwd": f32_bound(common + 4 * 4 * n_b * b_x, flops),
+        "sce_gather_fwd": tf32x3_bound(common + 4 * 4 * n_b * b_x, flops,
+                                       exps),
         "sce_gather_dx": tf32x3_bound(
             common + 4 * 3 * n_b * b_x + 4 * n_b * b_x * d, 2 * flops, exps),
         "sce_gather_dy": tf32x3_bound(
-            common + 4 * 3 * n_b * b_x + 4 * y.shape[0] * d, 2 * flops,
+            common + 4 * 3 * n_b * b_x + 4 * n_b * b_y * d, 2 * flops,
             exps),
     }
+
+
+def whole_forward(x_b, y_b, bias, pos):
+    """One PyTorch computation of the forward's whole function on the
+    candidate rows ``y_b``: the logits with the mask as ``baddbmm``'s
+    additive input, the positive beside them, ``logsumexp`` → ``(loss,
+    lse)``: the library yardstick of rows 4 and 6."""
+    import torch
+
+    lse = torch.logsumexp(torch.cat(
+        [pos[..., None], torch.baddbmm(bias, x_b, y_b.transpose(1, 2))],
+        -1), -1)
+    return lse - pos, lse
+
+
+def dy_sum_bound(idx, cand, d):
+    """Least time of the gathered dY's in-order sum: it reads every
+    slot's sorted key (i32) and, for the slots with a non-negative id,
+    the slot (i64) and its workspace row once, and writes each selected
+    catalog row once."""
+    import torch
+
+    n_slots = idx.numel()
+    kept = int((cand >= 0).sum())
+    rows = int(torch.unique(idx[cand >= 0]).numel())
+    return roofline_ms(4 * n_slots + 8 * kept + 4 * kept * d + 4 * rows * d,
+                       0)
 
 
 SHARDS = 4  # the exact-mode shard of phase 6: shard 0 of a 4-way catalog
@@ -826,9 +870,9 @@ def plse_bounds(x_b, y, idx, tgt, cand):
     """Least times of the three partial-LSE launches on these inputs, as
     :func:`gather_bounds`: each reads x_b, the distinct catalog rows its
     unmasked candidates gather, the ids and its per-row inputs once and
-    writes its outputs once; the forward does 2·d f32 FLOPs per unmasked
-    (row, candidate) pair, dX and dY twice that in 3xTF32 with an exp per
-    pair."""
+    writes its outputs once; the forward does 2·d FLOPs per unmasked
+    (row, candidate) pair, dX and dY twice that, all in 3xTF32 with an exp
+    per pair; dY writes its workspace, as in :func:`gather_bounds`."""
     import torch
 
     n_b, b_x, d = x_b.shape
@@ -838,12 +882,13 @@ def plse_bounds(x_b, y, idx, tgt, cand):
     common = 4 * (n_b * b_x * d + rows * d + 2 * n_b * b_y + n_b * b_x)
     flops = 2 * pairs * d
     return {
-        "sce_gather_plse_fwd": f32_bound(common + 4 * n_b * b_x, flops),
+        "sce_gather_plse_fwd": tf32x3_bound(common + 4 * n_b * b_x, flops,
+                                            pairs),
         "sce_gather_plse_dx": tf32x3_bound(
             common + 4 * 2 * n_b * b_x + 4 * n_b * b_x * d, 2 * flops,
             pairs),
         "sce_gather_plse_dy": tf32x3_bound(
-            common + 4 * 2 * n_b * b_x + 4 * y.shape[0] * d, 2 * flops,
+            common + 4 * 2 * n_b * b_x + 4 * n_b * b_y * d, 2 * flops,
             pairs),
     }
 
@@ -1006,14 +1051,48 @@ def train_kernel_phase(dev):
         rows, torch.randint(0, 300, (7, 23), generator=g, device=dev,
                             dtype=torch.int32), cand_r, cap=30.0))
 
-    # The guard's preflight trusts the wrapper's copy of dX / dY's launch
-    # plan (sce_prefetch.planned_smem): hold it equal to the library's.
+    # The guard's preflight trusts the wrapper's copies of the forward's
+    # and dX / dY's launch plans (sce_prefetch.planned_smem): hold them
+    # equal to the library's.
     for d in range(1, sce_prefetch.MAX_D + 1):
-        mine, lib = sce_prefetch.bwd_plan(d), sce_prefetch.library_bwd_plan(d)
-        check(mine == lib, f"sce_gather backward plan at d={d}: wrapper "
-              f"{mine}, library {lib}")
-    print("  sce_gather backward plan: the wrapper's copy equals the "
-          "library's at every d <= 256")
+        for what, mine, lib in (
+                ("forward", sce_prefetch.fwd_plan(d),
+                 sce_prefetch.library_fwd_plan(d)),
+                ("backward", sce_prefetch.bwd_plan(d),
+                 sce_prefetch.library_bwd_plan(d))):
+            check(mine == lib, f"sce_gather {what} plan at d={d}: wrapper "
+                  f"{mine}, library {lib}")
+    print("  sce_gather forward and backward plans: the wrapper's copies "
+          "equal the library's at every d <= 256")
+
+    # The gathered dY repeats bit for bit (a workspace row per slot, summed
+    # in slot order: no atomics), on the trainer's selection and on
+    # candidates that every bucket shares; its sum kernel against the
+    # plain index_add_ on the same workspace.
+    g_rep = torch.rand(pos.shape, generator=g, device=dev)
+    for what, ids in (("same_candidates", same), ("train_shape", idx_y)):
+        _, lse_r = sce_prefetch.sce_gather_fwd(x_b, y, ids, tgt_b, ids, pos)
+        d1, d2 = (sce_prefetch.sce_gather_dy(x_b, y, ids, tgt_b, ids, lse_r,
+                                             g_rep) for _ in range(2))
+        check(torch.equal(d1, d2), f"{what}: two gathered dY calls differ")
+        print(f"  gathered dY ({what}): two calls equal bit for bit ok")
+    ws = torch.empty(N_B * B_Y, D, device=dev)  # the train shape's rows
+    sce_prefetch._launch("sce_gather_dy_launch",
+                         (x_b, y, idx_y, tgt_b, idx_y, lse_r, g_rep, ws, 0.0),
+                         (N_B, B_X, B_Y, C_SERVE, D), dev)
+    keys, order = sce_prefetch.dy_sum_keys(idx_y, idx_y, C_SERVE)
+    dyz = torch.zeros_like(y)
+    got = sce_prefetch.sce_gather_dy_sum(ws, keys, order, dyz)
+    want = sce_prefetch.dy_sum_plain(ws, idx_y, idx_y, C_SERVE)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    tol = 1e-5 * want.abs().max().item()
+    check(bool((err <= tol + 2e-4 * want.abs()).all()),
+          f"sce_gather_dy_sum differs by {err.max().item():.3e}")
+    sum_err = err.max().item()
+    print(f"  case dy_sum_train_shape: {N_B * B_Y} slots into "
+          f"{int(torch.unique(idx_y).numel())} catalog rows, max err "
+          f"{sum_err:.3e} against index_add_ ok")
 
     # Times at the training shape, cold L2.
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
@@ -1051,21 +1130,58 @@ def train_kernel_phase(dev):
     out = (ref.sce_gather_loss_ref(leaves[0], leaves[1], idx_y, tgt_b, idx_y,
                                    pos) * g_up).sum()
     args = (x_b, y, idx_y, tgt_b, idx_y)
+    bias_main = torch.where((idx_y[:, None, :] < 0)
+                            | (idx_y[:, None, :] == tgt_b[:, :, None]),
+                            NEG_INF, 0.0)
+    # A dY entry times its kernel alone, into the (n_b·b_y, d) workspace;
+    # the wrapper (the kernel, the keys and sort, the zeroing and the sum)
+    # is timed apart as wrapper_ms, and the sum has its own entry.
+    ws_t = torch.empty(N_B * B_Y, D, device=dev)
+
+    def dy_kernel(cat, ids, cand, lse_):
+        sce_prefetch._launch(
+            "sce_gather_dy_launch",
+            (x_b, cat, ids, tgt_b, cand, lse_, g_up, ws_t, 0.0),
+            (N_B, B_X, B_Y, cat.shape[0], D), dev)
+        return ws_t
+
+    def dy_rows_plain(cat, ids, cand, lse_):
+        """The dY kernel's function in plain PyTorch: each slot's row,
+        0 where masked."""
+        cat_b = cat[ids.long().clamp(0, cat.shape[0] - 1)]
+        hide = (cand[:, None, :] < 0) | (cand[:, None, :] == tgt_b[:, :, None])
+        p = torch.where(hide, 0.0, torch.exp(
+            torch.bmm(x_b, cat_b.transpose(1, 2)) - lse_[..., None])
+            * g_up[..., None])
+        return torch.bmm(p.transpose(1, 2), x_b).reshape(-1, D)
+
     runs = {
-        "sce_gather_fwd": (
+        "sce_gather_fwd": (  # library: the gather, then the whole function
             lambda: sce_prefetch.sce_gather_fwd(*args, pos),
             lambda: ref.sce_gather_loss_ref(*args, pos),
-            lambda: torch.bmm(x_b, y_b.transpose(1, 2))),
+            lambda: whole_forward(x_b, y[idx_y.long()], bias_main, pos)),
         "sce_gather_dx": (
             lambda: sce_prefetch.sce_gather_dx(*args, lse, g_up),
             lambda: torch.autograd.grad(out, leaves[0], retain_graph=True),
             lambda: torch.bmm(probs, y_b)),
         "sce_gather_dy": (
-            lambda: sce_prefetch.sce_gather_dy(*args, lse, g_up),
-            lambda: torch.autograd.grad(out, leaves[1], retain_graph=True),
+            lambda: dy_kernel(y, idx_y, idx_y, lse),
+            lambda: dy_rows_plain(y, idx_y, idx_y, lse),
             lambda: torch.bmm(probs.transpose(1, 2), x_b)),
     }
+    wrappers = {"sce_gather_dy":
+                lambda: sce_prefetch.sce_gather_dy(*args, lse, g_up)}
     bounds = gather_bounds(x_b, y, idx_y, tgt_b, idx_y)
+    # The gathered dY's sum on the train shape's workspace; library: one
+    # in-place index_add_ into a (C, d) buffer (its values do not matter
+    # to the time; the kernel's caller zeroes dy apart, as here).
+    lib_c = torch.zeros_like(y)
+    sum_rows = idx_y.reshape(-1).long()
+    runs["sce_gather_dy_sum"] = (
+        lambda: sce_prefetch.sce_gather_dy_sum(ws, keys, order, dyz),
+        lambda: sce_prefetch.dy_sum_plain(ws, idx_y, idx_y, C_SERVE),
+        lambda: lib_c.index_add_(0, sum_rows, ws))
+    bounds["sce_gather_dy_sum"] = dy_sum_bound(idx_y, idx_y, D)
     # The partial LSE on the main path's input (one card: every candidate
     # owned) and on the shard of 4. Library: bmm + logsumexp on the
     # pre-gathered rows, the mask folded in as baddbmm's additive input.
@@ -1094,17 +1210,19 @@ def train_kernel_phase(dev):
                     o, lv[0], retain_graph=True),
                 lambda yb=cat_b: torch.bmm(probs, yb)),
             f"sce_gather_plse_dy{sfx}": (
-                lambda a=pargs, p=plse: sce_prefetch.sce_gather_plse_dy(
-                    *a, p, g_up),
-                lambda o=pout, lv=pleaves: torch.autograd.grad(
-                    o, lv[1], retain_graph=True),
+                lambda a=pargs, p=plse: dy_kernel(a[1], a[2], a[4], p),
+                lambda a=pargs, p=plse: dy_rows_plain(a[1], a[2], a[4], p),
                 lambda: torch.bmm(probs.transpose(1, 2), x_b)),
         })
+        wrappers[f"sce_gather_plse_dy{sfx}"] = (
+            lambda a=pargs, p=plse: sce_prefetch.sce_gather_plse_dy(
+                *a, p, g_up))
         bounds.update({k + sfx: v for k, v in pb.items()})
     # The composed PyTorch computation of dX and dY on the pre-gathered
     # candidates (the library call above is its second product alone):
     # the logits bmm, exp(l − lse)·g on the unmasked candidates, the
-    # second bmm, and for dY index_add_ of the gathered rows into (C, d).
+    # second bmm, and for dY index_add_ of the gathered rows into (C, d)
+    # (the whole dY: compare it with wrapper_ms).
     masked = (idx_y[:, None, :] < 0) | (idx_y[:, None, :] == tgt_b[:, :, None])
 
     def composed(lse_, dy):
@@ -1133,9 +1251,21 @@ def train_kernel_phase(dev):
             if name in composed_runs:
                 timings[name]["composed_ms"] = time_ms(composed_runs[name],
                                                        20, flush)
+            if name in wrappers:
+                timings[name]["wrapper_ms"] = time_ms(wrappers[name], 20,
+                                                      flush)
+    timings["sce_gather_dy_sum"]["max_abs_err"] = sum_err
+    sort_ms = time_ms(lambda: sce_prefetch.dy_sum_keys(idx_y, idx_y, C_SERVE),
+                      20, flush)
+    timings["sce_gather_dy_sum"]["sort_ms"] = sort_ms
+    print(f"  time of the gathered dY's keys and stable sort (PyTorch glue, "
+          f"{N_B * B_Y} slots): {sort_ms:.4f} ms")
     for name, t in timings.items():
         more = (f", composed {t['composed_ms']:.4f} ms" if "composed_ms" in t
                 else "")
+        if "wrapper_ms" in t:
+            more += (f"; the wrapper (the kernel, keys and sort, zeroing, "
+                     f"sum) {t['wrapper_ms']:.4f} ms")
         print(f"  time {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms"
               f"{more}, bound {bound_text(t)}")
@@ -1217,7 +1347,8 @@ def train_phase(dev, sce_mode, guard_policy=None, fresh=()):
 
     cfg = make_config()
     counters = (mips_topk, *(getattr(sce_prefetch, n) for n in GATHER + PLSE),
-                eval_fused.eval_fused, eval_fused.eval_tgt_gather)
+                sce_prefetch.sce_gather_dy_sum, eval_fused.eval_fused,
+                eval_fused.eval_tgt_gather)
     marks = StepMarks()
     gc.collect()  # what earlier phases left in reference cycles
     torch.cuda.synchronize()
@@ -1276,8 +1407,8 @@ def train_phase(dev, sce_mode, guard_policy=None, fresh=()):
           and by_k == {B_X: TRAIN_STEPS, B_Y: TRAIN_STEPS},
           f"mips_topk launched {launches['mips_topk']} times ({by_k} by k) "
           f"in {TRAIN_STEPS} steps")
-    on = PLSE if sce_mode == "exact" else GATHER
-    for name in GATHER + PLSE:
+    on = (PLSE if sce_mode == "exact" else GATHER) + ("sce_gather_dy_sum",)
+    for name in GATHER + PLSE + ("sce_gather_dy_sum",):
         want = TRAIN_STEPS if name in on else 0
         check(launches[name] == want,
               f"{sce_mode}: {name} launched {launches[name]} times in "
@@ -2257,17 +2388,18 @@ def bucket_case(name, x_b, y_b, tgt, cand, pos, cap=None):
 def bucket_bounds(x_b, y_b, tgt, cand):
     """Least times on these inputs, as :func:`gather_bounds`: each launch
     reads x_b, the pre-gathered y_b, the ids and its per-row inputs once
-    and writes its outputs once; the forward does 2·n_b·b_x·b_y·d f32
-    FLOPs, dX and dY twice that in 3xTF32 with an exp per unmasked
-    pair."""
+    and writes its outputs once; the forward does 2·n_b·b_x·b_y·d FLOPs,
+    dX and dY twice that, all in 3xTF32 with an exp per unmasked pair."""
     n_b, b_x, d = x_b.shape
     b_y = y_b.shape[1]
     common = 4 * (n_b * b_x * d + n_b * b_y * d + n_b * b_y + n_b * b_x)
     flops = 2 * n_b * b_x * b_y * d
     exps = unmasked_pairs(tgt, cand)
     return {
-        "sce_bucket_fwd": f32_bound(common + 4 * 3 * n_b * b_x, flops),
-        "sce_bucket_plse_fwd": f32_bound(common + 4 * n_b * b_x, flops),
+        "sce_bucket_fwd": tf32x3_bound(common + 4 * 3 * n_b * b_x, flops,
+                                       exps),
+        "sce_bucket_plse_fwd": tf32x3_bound(common + 4 * n_b * b_x, flops,
+                                            exps),
         "sce_bucket_dx": tf32x3_bound(
             common + 4 * 2 * n_b * b_x + 4 * n_b * b_x * d, 2 * flops, exps),
         "sce_bucket_dy": tf32x3_bound(
@@ -2403,7 +2535,7 @@ def guard_kernel_phase(dev):
         "sce_bucket_fwd": (
             lambda: sce_bucket.sce_bucket_fwd(*args, pos),
             lambda: ref.sce_bucket_loss_ref(*args, pos),
-            lambda: torch.bmm(x_b, y_b.transpose(1, 2))),
+            lambda: whole_forward(x_b, y_b, bias, pos)),
         "sce_bucket_dx": (
             lambda: sce_bucket.sce_bucket_dx(*args, lse, g_up),
             lambda: torch.autograd.grad(out, leaves[0], retain_graph=True),
@@ -2599,6 +2731,13 @@ def main() -> int:
     tcases, gcases, pcases, ttimes = train_kernel_phase(dev)
     phase(7, "trainer at full width, sce_mode=gspmd")
     trainer = train_phase(dev, "gspmd")
+    again = train_phase(dev, "gspmd")  # the same tree and seed once more
+    same_run = again["losses"] == trainer["losses"]
+    print(f"  two gspmd runs of this tree end on the same loss: {same_run} "
+          f"({trainer['losses'][-1]!r} and {again['losses'][-1]!r}; every "
+          f"step's loss equal: {same_run}) — measured, not required")
+    trainer["repeat_losses_equal"] = same_run
+    del again
     phase(8, "trainer at full width, its default sce_mode=exact, guard "
              "strict, its verdicts run at first dispatch")
     exact = train_phase(dev, "exact", guard_policy="strict",
@@ -2674,6 +2813,21 @@ def main() -> int:
             "bound_by": tt["bound_by"],
             "library_ms": tt["library_ms"],
         })
+    tt = ttimes["sce_gather_dy_sum"]
+    kernels.append({  # the gathered dY's second kernel, in both trainers
+        "name": "sce_gather_dy_sum",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sce_gather.cu",
+        "replaces": "src/repro/kernels/sce_prefetch.py:250",
+        "launches": sum(r["launches"]["sce_gather_dy_sum"]
+                        for r in trainers),
+        "max_abs_err": tt["max_abs_err"],
+        "ms": tt["ms"],
+        "plain_ms": tt["plain_ms"],
+        "bound_ms": tt["bound_ms"],
+        "bound_by": tt["bound_by"],
+        "library_ms": tt["library_ms"],
+    })
     for name, what in zip(PLSE, ("plse", "dx", "dy")):
         tt = ttimes[name]
         kernels.append({

@@ -11,18 +11,29 @@ training shape (n_b = b_x = 320, b_y = 256, d = 64, C = 173,520; x_b at
 unit scale, the catalog at 0.125, no cap; distinct candidates per bucket,
 slot 0 colliding with the target of position 0, the last slot invalid):
 
-- ``ms``: the mean of 20 calls of each of the nine kernels —
+- ``ms``: the mean of 20 calls of each of the ten kernels —
   ``sce_gather_fwd`` / ``_dx`` / ``_dy`` (the loss), ``sce_gather_plse_fwd``
   / ``_dx`` / ``_dy`` (the partial LSE, every candidate owned, as on the
-  trainer's (1, 1) mesh) and ``sce_bucket_fwd`` / ``_dx`` / ``_dy`` on the
-  pre-gathered ``y_b = y[idx]``; dX and dY take the lse (plse) of their
-  tree's forward kernel;
+  trainer's (1, 1) mesh) and ``sce_bucket_fwd`` / ``_dx`` / ``_dy`` /
+  ``_plse_fwd`` on the pre-gathered ``y_b = y[idx]``; dX and dY take the
+  lse (plse) of their tree's forward kernel. ``sce_gather_dy`` is the
+  whole wrapper; in a tree whose gathered dY writes a workspace and sums
+  it in slot order (``sce_prefetch.sce_gather_dy_sum``), also its parts:
+  ``sce_gather_dy_kernel`` (the rows into the workspace),
+  ``sce_gather_dy_sort`` (the slots' keys and their stable sort,
+  PyTorch),
+  ``sce_gather_dy_zero`` (zeroing the (C, d) gradient) and
+  ``sce_gather_dy_sum`` (the in-order sum);
 - ``max_abs_err``: each kernel's largest difference from autograd through
   its plain f32 version (``ref.sce_gather_loss_ref``,
   ``sce_gather_plse_ref``, ``sce_bucket_loss_ref``; the forwards' loss or
   plse), the tolerance ``1e-5·max|want|`` beside it and ``share``, the
   largest ``|got − want| / (1e-5·max|want| + rtol·|want|)`` with the
   tests' rtol (0 for a forward, 2e-4 for a gradient): at most 1 passes;
+- ``e2e_dx_err``: at the trainer's logit scale (x_b 3·randn, 16 buckets
+  of the training shape over 20,000 catalog rows), the largest
+  difference of dX through ``ops.sce_gather_loss`` from autograd through
+  the plain version in f64, beside the f32 plain version's;
 - ``steps``: ``chip_smoke.train_phase`` — the trainer at full width in
   ``gspmd`` (``sce_gather``) and ``exact`` (``sce_gather_plse``), 30 steps
   each: median step (host clock), the mean phase breakdown from the
@@ -93,7 +104,23 @@ def times(tree, label):
         "sce_bucket_fwd": lambda: sce_bucket.sce_bucket_fwd(*bucket, pos),
         "sce_bucket_dx": lambda: sce_bucket.sce_bucket_dx(*bucket, blse, up),
         "sce_bucket_dy": lambda: sce_bucket.sce_bucket_dy(*bucket, blse, up),
+        "sce_bucket_plse_fwd": lambda: sce_bucket.sce_bucket_plse_fwd(
+            *bucket),
     }
+    if hasattr(sce_prefetch, "sce_gather_dy_sum"):
+        ws = torch.empty(N_B * B_Y, D, device=dev)
+        dyz = torch.zeros_like(y)
+        keys, order = sce_prefetch.dy_sum_keys(idx, cand, C)
+        calls.update({
+            "sce_gather_dy_kernel": lambda: sce_prefetch._launch(
+                "sce_gather_dy_launch", (*gather, lse, up, ws, 0.0),
+                (N_B, B_X, B_Y, C, D), dev),
+            "sce_gather_dy_sort": lambda: sce_prefetch.dy_sum_keys(idx, cand,
+                                                                   C),
+            "sce_gather_dy_zero": dyz.zero_,
+            "sce_gather_dy_sum": lambda: sce_prefetch.sce_gather_dy_sum(
+                ws, keys, order, dyz),
+        })
     out = {"card": card, "ms": {}, "max_abs_err": {}, "steps": {}}
     with torch.no_grad():
         for name, fn in calls.items():
@@ -123,6 +150,40 @@ def times(tree, label):
     torch.cuda.empty_cache()
     print(label, card, json.dumps({"ms": out["ms"],
                                    "max_abs_err": out["max_abs_err"]}),
+          flush=True)
+
+    # End to end at the trainer's logit scale (x_b 3·randn, 16 buckets of
+    # the training shape over 20,000 rows): dX of the loss through ops
+    # against autograd through the plain version in f64, beside the f32
+    # plain version's error on the same inputs.
+    from repro_torch.kernels import ops
+    ge = torch.Generator(device=dev).manual_seed(41)
+    n_e, c_e = 16, 20_000
+    xe = 3.0 * torch.randn(n_e, B_X, D, generator=ge, device=dev)
+    ye = torch.randn(c_e, D, generator=ge, device=dev)
+    ie = torch.stack([torch.randperm(c_e, generator=ge, device=dev)[:B_Y]
+                      for _ in range(n_e)]).to(torch.int32)
+    te = torch.randint(0, c_e, (n_e, B_X), generator=ge, device=dev,
+                       dtype=torch.int32)
+    ce = ie.clone()
+    ce[:, 0] = te[:, 0]
+    ce[:, -1] = -1
+    pe = (xe * ye[te.long()]).sum(-1)
+    ue = torch.rand(n_e, B_X, generator=ge, device=dev)
+
+    def dx_of(fn, dtype):
+        xl = xe.to(dtype).requires_grad_(True)
+        out_ = fn(xl, ye.to(dtype), ie, te, ce, pe.to(dtype))
+        return torch.autograd.grad((out_ * ue.to(dtype)).sum(), xl)[0]
+
+    exact = dx_of(ref.sce_gather_loss_ref, torch.float64)
+    out["e2e_dx_err"] = {
+        what: (dx_of(fn, torch.float32).double() - exact).abs().max().item()
+        for what, fn in (("kernel", ops.sce_gather_loss),
+                         ("f32_plain", ref.sce_gather_loss_ref))}
+    del xe, ye, exact
+    torch.cuda.empty_cache()
+    print(label, card, json.dumps({"e2e_dx_err": out["e2e_dx_err"]}),
           flush=True)
 
     guard.run_conformance(device=dev)  # as chip_smoke's phase 3, first

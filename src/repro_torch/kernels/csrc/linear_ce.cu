@@ -136,25 +136,8 @@ namespace {
 
 using namespace tf32x3;
 
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxD = 256;
-constexpr int kMaxSmem = 232448;  // 227 KB opt-in per block on sm_90
-constexpr int kMaxDevices = 64;
 constexpr int kMaxSplits = 64;
 constexpr int kMergeThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float capped(float v, float cap) {
-  return cap > 0.f ? cap * tanhf(v / cap) : v;
-}
-
-// d capped / d logit as a function of the capped value: 1 − (capped/cap)².
-__device__ __forceinline__ float cap_deriv(float c, float cap) {
-  if (cap <= 0.f) return 1.f;
-  const float t = c / cap;
-  return 1.f - t * t;
-}
 
 template <bool CAP>
 __device__ __forceinline__ float logit(float v, float cap) {
@@ -319,26 +302,6 @@ struct FwdProblem {
   int tiles_per_split;  // streamed tiles of one split
   int stages;           // cp.async ring depth: 2 or 3
 };
-
-// exp(v − mx) as one FFMA and the SFU's exp2, given mb = mx·log2(e) of a
-// logit mx ≥ v. Not for mx = kNegInf: the FFMA then leaves the rounding
-// error of a product near 1e30, which exp2 takes to inf.
-__device__ __forceinline__ float exp_from(float v, float mb) {
-  return exp2_approx(fmaf(v, kLog2e, -mb));
-}
-
-// exp(v − mx) for mx ≥ v, kNegInf included: exactly 1 when v == mx.
-__device__ __forceinline__ float exp_diff(float v, float mx) {
-  return exp2_approx((v - mx) * kLog2e);
-}
-
-// (m, s) ← the online merge of (m, s) and (mo, so).
-__device__ __forceinline__ void merge_ms(float& m, float& s, float mo,
-                                         float so) {
-  const float mn = fmaxf(m, mo);
-  s = s * exp_diff(m, mn) + so * exp_diff(mo, mn);
-  m = mn;
-}
 
 // NT n8 tiles a streamed tile: 8·NT catalog rows.
 template <bool PLUCK, bool CAP, int NT>
@@ -864,20 +827,6 @@ cudaError_t with_flags(bool pluck, bool cap, F&& f) {
   return cap ? f(False{}, True{}) : f(False{}, False{});
 }
 
-// Opts `kernel` in to kMaxSmem of dynamic shared memory, once per device;
-// `done` is the caller's per-kernel table.
-template <class K>
-cudaError_t allow_max_smem(K kernel, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMaxSmem);
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
-  return err;
-}
 
 // The least S ≤ min(kMaxSplits, catalog tiles) whose row_tiles·S blocks
 // fill their last wave to 90 %, else the S that fills it best.

@@ -12,9 +12,9 @@
 // sce_bucket.py (`_fwd_kernel`, `_fwd_plse_kernel`, `_bwd_dx_kernel`,
 // `_bwd_dy_kernel`): the candidates arrive pre-gathered as y_b (n_b, b_y,
 // d), candidate j of bucket n is row n·b_y + j (no idx_y, no clamp), and
-// dY writes the bucket's own rows of dy_b instead of adding into catalog
-// rows — no atomics, so that dY repeats bit for bit (the entries at the
-// end of this file; wrapped by src/repro_torch/kernels/sce_bucket.py).
+// dY's rows are dy_b itself instead of a workspace summed into catalog
+// rows (the entries at the end of this file; wrapped by
+// src/repro_torch/kernels/sce_bucket.py).
 // For bucket n, row x of x_b (n_b, b_x, d) and candidate j < b_y with
 // catalog row r = clamp(idx_y[n, j], 0, C - 1):
 //
@@ -38,50 +38,91 @@
 // in the wrapper, as in the reference's `_loss_vjp_bwd`.
 //
 // One deviation from the plain version, in dX and dY only: their exp
-// takes min(l − lse, 44), as linear_ce.cu's backward does. The forward's
-// lse comes from f32 FMA logits and the backward recomputes them in
-// 3xTF32 (below), so l − lse may exceed 0 by a few units in the last
-// place; the min acts only for an lse more than 44 below a logit, where
-// the plain version's entry grows on towards inf while the kernels' stays
-// at e^44 · g, so that their tensor-core sums stay finite. A masked slot
-// is 0 by a select, never by a product: a partial-LSE row with no unmasked
-// candidate has plse = −1e30, and its exp would be inf before the min.
+// takes min(l − lse, 44), as linear_ce.cu's backward does. The forward
+// computes every logit it folds with the arithmetic dX uses (below), so
+// with the forward's lse l − lse ≤ 0 up to the rounding of the fold and
+// the min never acts; it acts only for an lse supplied from outside that
+// lies more than 44 below a logit, where the plain version's entry grows
+// on towards inf while the kernels' stays at e^44 · g, so that their
+// tensor-core sums stay finite (tests/test_torch_cuda.py holds every SCE
+// family to the capped formula there). A masked slot is 0 by a select,
+// never by a product: a partial-LSE row with no unmasked candidate has
+// plse = −1e30, and its exp would be inf before the min.
 //
 // What bounds it on an H100. At the paper's training shape (n_b = 320
 // buckets, b_x = 320 positions, b_y = 256 candidates, d = 64, C = 173,520)
-// the forward is 2·320·320·256·64 ≈ 3.36 GFLOP of f32 FMAs against
-// ≈ 47 MB that must move (x_b, the gathered rows, the outputs): 0.050 ms
-// at 67 TFLOP/s against 0.014 ms at 3.35 TB/s, so the f32 FMA rate bounds
-// it. dX and dY each recompute the logits and run a second product of the
-// same size, 6.7 GFLOP: 0.100 ms each as f32 FMAs. Both run their products
-// on the tensor cores in 3xTF32 (tf32x3_tile.cuh) instead: three TF32
-// passes of 6.7 GFLOP at the dense 495 TFLOP/s are 0.041 ms, against
-// 0.006 ms for the 26.2 M exps on the SFUs and 0.022 / 0.027 ms of bytes,
-// so the tensor cores bound them. The forward keeps f32 FMAs in a fixed
-// order over d (no TF32), so the losses keep f32 precision next to the
-// plain version; the backward's 3xTF32 keeps the gradients' f32 tolerance
-// (about 2⁻²¹ relative per product, each k16 step summed from zero; see
-// linear_ce.cu).
+// the forward's logits are 2·320·320·256·64 ≈ 3.36 GFLOP against ≈ 47 MB
+// that must move (x_b, the gathered rows, the outputs; 0.014 ms at
+// 3.35 TB/s) and 26.2 M exps (0.006 ms on the SFUs); dX and dY each
+// recompute the logits and run a second product of the same size,
+// 6.7 GFLOP. All three take their products on the tensor cores in 3xTF32
+// (tf32x3_tile.cuh): three TF32 passes at the dense 495 TFLOP/s are
+// 0.020 ms for the forward and 0.041 ms for dX or dY (as f32 FMAs at
+// 67 TFLOP/s 0.050 and 0.100 ms), so the tensor cores bound them. 3xTF32
+// keeps the f32 tolerance (about 2⁻²¹ relative per product, each k16
+// step summed from zero; see linear_ce.cu).
 //
-// Design of the forward. The TPU grid walks the candidates one row at a
-// time on a sequential axis, gathering each row by scalar prefetch into a
-// VMEM tile; on Hopper that axis would be one block. Here each block owns
-// 64 rows of x_b of one bucket, grid (n_b, ceil(b_x / 64)): it stages
-// them in shared memory once, then walks the bucket's candidates 64 at a
-// time: it reads the 64 catalog row ids, gathers those rows of Y into
-// shared memory (the pointer gather takes the place of scalar prefetch)
-// and computes the 64 × 64 logit tile as a 4 × 4 register tile per thread
-// from float4 shared-memory reads, the loop structure of csrc/mips_topk.cu
-// (the tile code is in csrc/f32_tile.cuh). It folds each tile into a
-// per-row online logsumexp held in registers by the 16 threads that share
-// a row (half-warp shuffles reduce the tile's max and sum), starting from
-// (m, s) = (pos, 1) so the positive is counted once (the partial LSE,
-// template flag WITH_POS false, from (NEG_INF, 0) and with no positive to
-// read). The partial LSE's rows with no owned candidate are the common
-// case in the distributed exact mode — every candidate another shard owns
-// arrives as cand = −1 — and cost the same tile walk as any other row.
-// b_x = 320 and b_y = 256 need no padding copies: rows past b_x and
-// candidates past b_y are staged as zeros and masked in the kernel.
+// The same logits in the forward and dX. The forward takes positions as
+// the A operand and candidates as B, with the (hi, lo) split, fragment
+// layout, k order and k16 steps of sce_bwd_kernel's dX grid (mma3x2 of
+// tf32x3_tile.cuh, each k16 step from zero and added in f32, then the
+// softcap), so every logit it folds is the f32 number that dX's
+// cotangent reads: the lse and the backward's exp(l − lse) come from one
+// rounding: at x_b 3·randn the end-to-end dX is 0.95× the f32 plain
+// version's error from f64, where an lse of f32 FMA logits gave 5× (on
+// an H100, probes/sce_gather_times.py). dY's grid takes the same
+// products with A and B swapped, which adds the two small terms of each
+// k8 step in the other order (cand_lo·pos_hi, then cand_hi·pos_lo), so
+// its logits are not always the same bits: on an H100, 0.032 % of
+// 16.8 M logits at x_b 3·randn differ, by at most 7.6e-6
+// (probes/sce_logits_order.py).
+//
+// Design of the forward: one kernel, sce_fwd_kernel, for the loss and the
+// partial LSE (WITH_POS), gathered or DIRECT, with or without the cap.
+// The TPU grid walks the candidates one row at a time on a sequential
+// axis, gathering each row by scalar prefetch into a VMEM tile. Here a
+// block of five warps owns 32 positions a warp of one bucket — half of
+// the training shape's 320, grid 2·n_b = 640 blocks — and gathers the
+// bucket's candidates once:
+//   * the prologue loads the candidates' ids and source rows (cand_row:
+//     clamp_row of idx_y, or n·b_y + j with DIRECT), then issues one batch
+//     of cp.async (16-byte chunks, or 4-byte ones when d % 4 ≠ 0 or a row
+//     is not 16-byte aligned) for the block's 160 positions and up to 256
+//     candidate rows, which stay raw and resident, chunk c of row r at
+//     chunk c ^ 2(r mod 4) so that a fragment's two depths are one
+//     conflict-free LDS.64. One barrier, and the warps sweep every
+//     resident candidate with no barrier inside the sweep.
+//   * a warp computes a 32 × 64 logit tile at a time (384 `mma` at
+//     d = 64), splitting each value into (hi, lo) as it loads a fragment
+//     (two cvt.rna and an FADD; 16 positions' values a k16 step for 96
+//     `mma`, 4 candidates' values for 12). Holding them split would double
+//     the shared memory: with raw rows a block takes 108,544 bytes at
+//     d = 64, so two blocks (ten warps) share an SM, and one block's
+//     gather runs beside the other's sweep. Splitting nothing (wrong
+//     results) left the time as it was; ten warps a bucket in one block of
+//     231 KB were 10 % slower (PERF.md).
+//   * it folds the tile in the accumulator registers, as linear_ce.cu's
+//     forward does: the softcap, the mask by select (cand < 0, cand ==
+//     target, past b_y), the tile's max first, then one exp2 of one FFMA
+//     per logit. Lane q = 0 of a row starts from the positive, (pos, 1);
+//     the others from (NEG_INF, 0). At the end the four lanes of a row
+//     merge (m, s) in a fixed tree: no atomics, the forward repeats bit
+//     for bit. loss = m + log s − pos; plse = m + log(max(s, 1e-30)), so
+//     a row with every candidate masked is −1e30, never −inf.
+//   * where b_y·d does not fit (d > 64 at b_y 256, or b_y > 256), the
+//     candidates come in resident chunks (fwd_plan: up to ten warps, one
+//     block an SM, 64 to 256 candidates a chunk above dp 64), each gathered
+//     and synchronised the same way, its copies not overlapped with the
+//     previous chunk's sweep. Every d ≤ 256 and any b_x, b_y launch. Rows
+//     past b_x are not written.
+//   * On an H100 at the training shape (ptxas, sm_90a: 168 registers, the
+//     most that ten warps an SM allow, at most 12 bytes of spills; 640
+//     blocks, two an SM, 2.42 waves of 264 block slots) the forward takes
+//     ≈ 0.125 ms: a clock profile gives a block's warps ≈ 69k cycles, of
+//     which the prologue's copies ≈ 13k and their wait ≈ 4k, the products
+//     ≈ 44k (≈ 0.3 `mma` a cycle an SM, half of what `mma.sync` gives) and
+//     the fold ≈ 8k; the last of three waves holds 112 blocks
+//     (probes/sce_gather_times.py; PERF.md).
 //
 // Design of the backward: one kernel, sce_bwd_kernel, on two grids, after
 // linear_ce.cu's ce_bwd_kernel. A block of four warps owns 128 rows (32 a
@@ -119,23 +160,21 @@
 //   * the owned rows (gathered by id for dY) arrive once per block in one
 //     batch of cp.async into the space of the split tile and the ring,
 //     and are split from there into the A fragments of their warp.
-//   * dY's scatter is an atomic add of four f32 (lanes q and q ^ 1 trade
-//     halves so that each holds four columns of one row) per (candidate,
-//     four depths) after the walk, skipped for candidates with a negative
-//     id (their sum is exactly 0): in the distributed exact mode ≈ 75 % of
-//     a 4-way shard's candidates are another shard's and clamp to one row,
-//     whose atomics would otherwise serialise (4.7× the dY time on such a
-//     shard, PERF.md). Rows within one bucket are distinct (they come from
-//     a top-k), but a hot catalog row recurs across buckets, and blocks
-//     run in no order. A deterministic scheme would need a per-bucket
-//     (n_b, b_y, d) buffer — the tensor the gather kernel exists to avoid
-//     — plus a sort by row and a segmented sum. With atomics the order of
-//     the additions changes from run to run, so dY is not bitwise
-//     repeatable: tests compare it within a tolerance, never bit for bit.
-//     The wrapper zeroes dY first, so rows no bucket selected come out
-//     exactly 0. DIRECT writes each of the bucket's rows once. dX uses no
-//     atomics and repeats bit for bit; DIRECT's dX equals the gathered
-//     one's on y_b = y[idx] (the same rows through the same arithmetic).
+//   * dY writes, for each slot (bucket n, candidate j), the row n·b_y + j
+//     of its output: for sce_bucket that is dy_b itself; for the gathered
+//     kernels a (n_b·b_y, d) workspace (21 MB at the training shape),
+//     which dy_sum_kernel then adds into the catalog's (C, d) per catalog
+//     row in ascending (bucket, slot) order — the order of the reference's
+//     sequential read-modify-write into its aliased output
+//     (src/repro/kernels/sce_prefetch.py:245-250). The wrapper sorts the
+//     slots' clamped rows stably (PyTorch glue) and zeroes the (C, d), so
+//     rows no bucket selected come out exactly 0; a slot with a negative
+//     id writes a 0 row and is keyed past the catalog, so the sum never
+//     walks it (on a shard of the exact mode most slots are such). No
+//     atomics anywhere: dX and both dYs repeat bit for bit, DIRECT's dX
+//     equals the gathered one's on y_b = y[idx] (the same rows through the
+//     same arithmetic), and the gathered dY is the in-order sum of
+//     DIRECT's rows.
 //   * At d = 64 a block takes 107,904 bytes of shared memory (owned
 //     fragments 64 KB, the split tile 16 KB, three raw stages 24 KB), so
 //     two blocks, eight warps, share an SM; at 255 registers a thread
@@ -157,152 +196,300 @@
 
 #include <type_traits>
 
-#include "f32_tile.cuh"
 #include "tf32x3_tile.cuh"
 
 namespace {
 
-using namespace f32_tile;
 using namespace tf32x3;
 
-constexpr int kTileX = kTile;  // 64 rows of x_b per forward tile
-constexpr int kTileY = kTile;  // 64 candidates per forward tile
-
-// The forward's shared memory: the x_b and candidate tiles, and the
-// candidates' row and candidate ids.
-size_t fwd_smem(int d) {
-  return sizeof(float) * (size_t)(kTileX + kTileY) * row_pitch(d) +
-         sizeof(int) * 2 * kTileY;
+// 1 when rows of `a` can be copied in 16-byte chunks: d % 4 == 0 and
+// 16-byte aligned.
+inline int vec_flag(const float* a, int d) {
+  return d % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
 }
 
-// Loads the row ids and candidate ids of candidates [j0, j0 + ny) of
-// bucket n, base = n·b_y + j0: the catalog rows idx_y[base + j] clamped to
-// [0, C), or with DIRECT (sce_bucket: y is the pre-gathered y_b viewed as
-// (n_b·b_y, d)) the rows base + j themselves. Slots past ny get row 0 and
-// id −1.
-template <bool DIRECT>
-__device__ __forceinline__ void load_candidates(const int* idx_y,
-                                                const int* cand, int* rows,
-                                                int* cands, long base, int ny,
-                                                int c, int tid) {
-  if (tid < kTileY) {
-    int r = 0;
-    int id = -1;
-    if (tid < ny) {
-      if constexpr (DIRECT) {
-        r = (int)(base + tid);
-      } else {
-        r = idx_y[base + tid];
-        r = r < 0 ? 0 : (r >= c ? c - 1 : r);
-      }
-      id = cand[base + tid];
-    }
-    rows[tid] = r;
-    cands[tid] = id;
-  }
-}
-
-__device__ __forceinline__ bool masked(int col, int ny, int cand_id,
-                                       int tgt) {
-  return col >= ny || cand_id < 0 || cand_id == tgt;
+// A candidate id clamped to the catalog's rows [0, C).
+__device__ __forceinline__ int clamp_row(int r, int c) {
+  return r < 0 ? 0 : (r >= c ? c - 1 : r);
 }
 
 // ---------------------------------------------------------------------------
-// Forward: loss and lse (WITH_POS), or the partial LSE, of 64 rows of one
-// bucket. Without the positive, `pos` and `loss` are not read or written.
+// Forward on the tensor cores (3xTF32): loss and lse (WITH_POS), or the
+// partial LSE, of up to 32 · warps positions of one bucket.
 // ---------------------------------------------------------------------------
-template <bool WITH_POS, bool DIRECT>
-__global__ void __launch_bounds__(kThreads)
-sce_gather_fwd_kernel(const float* __restrict__ x_b,
-                      const float* __restrict__ y,
-                      const int* __restrict__ idx_y,
-                      const int* __restrict__ tgt_b,
-                      const int* __restrict__ cand,
-                      const float* __restrict__ pos,
-                      float* __restrict__ loss, float* __restrict__ lse,
-                      int b_x, int b_y, int c, int d, float cap, int vec_x,
-                      int vec_y) {
+constexpr int kFwdMaxWarps = 10;  // 320 positions: a bucket at b_x = 320
+constexpr int kFwdTile = 64;      // candidates a warp folds at a time ...
+constexpr int kFwdNT = kFwdTile / 8;  // ... as n8 tiles
+constexpr int kFwdMaxRows = 256;  // resident candidates: a bucket at b_y 256
+
+// One forward call. Without the positive, `pos` and `loss` are null.
+struct FwdArgs {
+  const float* x_b;   // (n_b, b_x, d)
+  const float* y;     // (C, d); DIRECT: y_b as (n_b·b_y, d)
+  const int* idx_y;   // (n_b, b_y); null with DIRECT
+  const int* tgt;     // (n_b, b_x)
+  const int* cand;    // (n_b, b_y)
+  const float* pos;   // (n_b, b_x)
+  float* loss;        // (n_b, b_x)
+  float* lse;         // (n_b, b_x)
+  int b_x, b_y, c, d, dp;  // dp = d rounded up to 16
+  float cap;
+  int rows;   // resident candidates of a chunk, a multiple of kFwdTile
+  int pitch;  // floats a resident candidate row: dp rounded up to 32
+  int vec;    // the candidate rows can be copied in 16-byte chunks
+  int vec_x;  // the position rows can be copied in 16-byte chunks
+};
+
+// Floats a resident candidate row takes: whole 128-byte lines, so that
+// the swizzle below stays inside the row.
+__host__ __device__ inline int fwd_pitch(int dp) {
+  return (dp + 31) / 32 * 32;
+}
+
+// Where the 16-byte chunk ch (depths 4ch .. 4ch + 3) of resident candidate
+// row r lies in the row: ch ^ 2·(r mod 4). A B fragment's two depths
+// 8s + 2q, 8s + 2q + 1 are one LDS.64, and the 16 lanes of a half-warp
+// (rows gq = 0..3, q = 0..3) then read the four 32-byte quarters of a
+// 128-byte line: no bank conflicts.
+__device__ __forceinline__ int fwd_chunk(int r, int ch) {
+  return ch ^ (2 * (r & 3));
+}
+
+template <bool WITH_POS, bool DIRECT, bool CAP>
+__global__ void __launch_bounds__(32 * kFwdMaxWarps, 1)
+sce_fwd_kernel(FwdArgs a) {
   extern __shared__ float4 smem4[];
-  const int p = row_pitch(d);
-  const int d4 = (d + 3) / 4;
-  float* xs = reinterpret_cast<float*>(smem4);        // (kTileX, p)
-  float* ys = xs + kTileX * p;                        // (kTileY, p)
-  int* rows = reinterpret_cast<int*>(ys + kTileY * p);  // (kTileY,)
-  int* cands = rows + kTileY;                           // (kTileY,)
+  const int dp = a.dp, s8 = dp / 8;
+  const int warps = blockDim.x >> 5;
+  const int bm = kWarpRows * warps;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  float* xr = reinterpret_cast<float*>(smem4);  // positions: bm × pitch
+  float* cr = xr + bm * a.pitch;                 // candidates: rows × pitch
+  int* cid = reinterpret_cast<int*>(cr + a.rows * a.pitch);  // rows
+  int* crow = cid + a.rows;  // rows: the chunk's source rows
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const int n = blockIdx.x;
-  const int x0 = blockIdx.y * kTileX;
-  const int nx = min(kTileX, b_x - x0);
-  const long row0 = (long)n * b_x + x0;
+  // blockIdx.x = n · row_tiles + row tile: a bucket's blocks are
+  // neighbours in the grid.
+  const int row_tiles = (a.b_x + bm - 1) / bm;
+  const int n = blockIdx.x / row_tiles;
+  const int x0 = (blockIdx.x - n * row_tiles) * bm;  // first owned position
+  const long xrow0 = (long)n * a.b_x;  // flat row of position 0
+  const long crow0 = (long)n * a.b_y;  // flat index of candidate 0
+  const int rq = dp / 4;  // 16-byte chunks of a candidate row
 
-  stage(xs, x_b + row0 * d, nx, kTileX, d, p, vec_x, [](int r) { return r; },
-        tid);
-  float m[kRM], s[kRM], ps[kRM];
-  int tg[kRM];
-#pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    const int r = ty * kRM + i;
-    ps[i] = WITH_POS && r < nx ? pos[row0 + r] : 0.f;
-    tg[i] = r < nx ? tgt_b[row0 + r] : -2;
-    // With the positive folded in (m, s) = (pos, 1); without, (NEG_INF, 0).
-    m[i] = WITH_POS ? ps[i] : kNegInf;
-    s[i] = WITH_POS ? 1.f : 0.f;
-  }
-
-  for (int j0 = 0; j0 < b_y; j0 += kTileY) {
-    const int ny = min(kTileY, b_y - j0);
-    __syncthreads();  // the previous tile is no longer read
-    load_candidates<DIRECT>(idx_y, cand, rows, cands, (long)n * b_y + j0, ny,
-                            c, tid);
-    __syncthreads();
-    stage(ys, y, ny, kTileY, d, p, vec_y, [rows](int r) { return rows[r]; },
-          tid);
-    __syncthreads();
-    float acc[kRM][kCols];
-    tile_scores(xs, ys, p, d4, ty, tx, acc);
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      float l[kCols];
-      float tmax = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = tx + 16 * j;
-        l[j] = masked(col, ny, cands[col], tg[i]) ? kNegInf
-                                                  : capped(acc[i][j], cap);
-        tmax = fmaxf(tmax, l[j]);
-      }
-      const float mn = fmaxf(m[i], half_warp_max(tmax));
-      float se = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) se += expf(l[j] - mn);
-      s[i] = s[i] * expf(m[i] - mn) + half_warp_sum(se);
-      m[i] = mn;
-    }
-  }
-
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      const int r = ty * kRM + i;
-      if (r >= nx) continue;
-      if constexpr (WITH_POS) {
-        const float l = m[i] + logf(s[i]);
-        lse[row0 + r] = l;
-        loss[row0 + r] = l - ps[i];
+  // Resident rows [r_lo, r_hi) of dst from global memory by cp.async:
+  // src(r) is row r's source, null for a zero row; zeros past d. Thread i
+  // copies chunks i, i + blockDim.x, ... in row order (16-byte chunks with
+  // vec, else 4-byte elements), stepping without a division per copy.
+  auto copy = [&](float* dst, int r_lo, int r_hi, int vec, auto src) {
+    const int per = vec ? rq : dp;
+    const int r_step = blockDim.x / per, c_step = blockDim.x % per;
+    for (int r = r_lo + threadIdx.x / per, c = threadIdx.x % per;
+         r < r_hi;) {
+      const float* row = src(r);
+      if (vec) {
+        const bool ok = row != nullptr && 4 * c < a.d;
+        cp_async16(dst + r * a.pitch + 4 * fwd_chunk(r, c),
+                   ok ? row + 4 * c : a.y, ok);
       } else {
-        lse[row0 + r] = m[i] + logf(fmaxf(s[i], 1e-30f));
+        const bool ok = row != nullptr && c < a.d;
+        cp_async4(dst + r * a.pitch + 4 * fwd_chunk(r, c >> 2) + (c & 3),
+                  ok ? row + c : a.y, ok);
+      }
+      r += r_step;
+      c += c_step;
+      if (c >= per) {
+        c -= per;
+        ++r;
       }
     }
+  };
+  // Candidates [j0, j0 + rows) of the bucket into shared memory: their
+  // ids and source rows first (−1 past b_y), then the raw rows, zeros
+  // past the bucket's end; with the first chunk, the block's positions
+  // (zeros past b_x). One batch of copies; every thread calls, the caller
+  // waits and synchronises.
+  const int nx = min(bm, a.b_x - x0);
+  auto stage = [&](int j0) {
+    const int nr = min(a.rows, a.b_y - j0);
+    const int nr_pad = (nr + kFwdTile - 1) / kFwdTile * kFwdTile;
+    for (int r = threadIdx.x; r < nr_pad; r += blockDim.x) {
+      const long j = crow0 + j0 + r;
+      const bool ok = r < nr;
+      cid[r] = ok ? a.cand[j] : -1;
+      crow[r] = !ok ? -1 : (DIRECT ? (int)j : clamp_row(a.idx_y[j], a.c));
+    }
+    __syncthreads();
+    if (j0 == 0)
+      copy(xr, 0, bm, a.vec_x, [&](int r) -> const float* {
+        return r < nx ? a.x_b + (xrow0 + x0 + r) * a.d : nullptr;
+      });
+    copy(cr, 0, nr_pad, a.vec, [&](int r) -> const float* {
+      return crow[r] < 0 ? nullptr : a.y + (long)crow[r] * a.d;
+    });
+    cp_async_commit();
+  };
+  stage(0);
+
+  // The warp's A fragments are split from its raw rows at each k16 step:
+  // for m16 tile m and k8 step s, lane (gq, q) takes rows gq, gq + 8 at
+  // depths 8s + 2q, 8s + 2q + 1 (one LDS.64 each), the values and order
+  // of sce_bwd_kernel's dX fragments.
+  const float* arow = xr + (warp * kWarpRows + gq) * a.pitch;
+  const int sw = 2 * (gq & 3);  // fwd_chunk of every row a lane reads
+  const bool warp_live = x0 + warp * kWarpRows < a.b_x;
+
+  // Per owned row of the thread (m16 tile m, half h): the online (m, s)
+  // over the thread's columns and the target; lane q = 0 of a row starts
+  // from the positive, (pos, 1), the others from (NEG_INF, 0).
+  float mx[kMT][2], sx[kMT][2], ps[kMT][2];
+  int tg[kMT][2];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = x0 + warp * kWarpRows + 16 * m + 8 * h + gq;
+      const bool live = r < a.b_x;
+      tg[m][h] = live ? a.tgt[xrow0 + r] : -1;
+      ps[m][h] = WITH_POS && live ? a.pos[xrow0 + r] : 0.f;
+      mx[m][h] = WITH_POS && q == 0 ? ps[m][h] : kNegInf;
+      sx[m][h] = WITH_POS && q == 0 ? 1.f : 0.f;
+    }
+
+  for (int j0 = 0; j0 < a.b_y; j0 += a.rows) {
+    if (j0 > 0) {
+      __syncthreads();  // every warp is done with the previous chunk
+      stage(j0);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the chunk (and, first, the positions) is in
+    if (!warp_live) continue;
+    const int tiles = (min(a.rows, a.b_y - j0) + kFwdTile - 1) / kFwdTile;
+    for (int t = 0; t < tiles; ++t) {
+      // S = own rows · the tile's 64 candidates, k16 steps over the depth,
+      // each from zero and added in f32 (sce_bwd_kernel's dX arithmetic).
+      float sc[kMT][kFwdNT][4];
+#pragma unroll
+      for (int m = 0; m < kMT; ++m)
+#pragma unroll
+        for (int n8 = 0; n8 < kFwdNT; ++n8)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sc[m][n8][i] = 0.f;
+      const float* trow = cr + (kFwdTile * t + gq) * a.pitch;
+#pragma unroll 1
+      for (int kk = 0; kk < s8 / 2; ++kk) {
+        uint32_t ah[kMT][2][4], al[kMT][2][4];  // [m][k8]
+#pragma unroll
+        for (int m = 0; m < kMT; ++m)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int ch = 4 * kk + 2 * k + (q >> 1);
+            const float* f = arow + 16 * m * a.pitch + 4 * (ch ^ sw) +
+                             2 * (q & 1);
+            const float2 v0 = *reinterpret_cast<const float2*>(f);
+            const float2 v1 =
+                *reinterpret_cast<const float2*>(f + 8 * a.pitch);
+            split(v0.x, ah[m][k][0], al[m][k][0]);
+            split(v1.x, ah[m][k][1], al[m][k][1]);
+            split(v0.y, ah[m][k][2], al[m][k][2]);
+            split(v1.y, ah[m][k][3], al[m][k][3]);
+          }
+#pragma unroll
+        for (int n8 = 0; n8 < kFwdNT; ++n8) {
+          // B: candidate row 8·n8 + gq of the tile, depths 8s + 2q and
+          // 8s + 2q + 1 of k8 step s = 2kk + k, split here.
+          uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int ch = 4 * kk + 2 * k + (q >> 1);
+            const float2 v = *reinterpret_cast<const float2*>(
+                trow + 8 * n8 * a.pitch + 4 * (ch ^ sw) + 2 * (q & 1));
+            split(v.x, bh[k][0], bl[k][0]);
+            split(v.y, bh[k][1], bl[k][1]);
+          }
+#pragma unroll
+          for (int m = 0; m < kMT; ++m) {
+            float part[4];
+            mma3x2(part, ah[m], al[m], bh, bl);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sc[m][n8][i] += part[i];
+          }
+        }
+      }
+
+      // The online softmax in the C layout: the thread's columns of row
+      // (m, h) are 8·n8 + 2q + j, in sc[m][n8][2h + j]. The softcap comes
+      // before the mask; a masked slot is NEG_INF by a select, and its
+      // exp2 is 0 against any finite max. A row whose columns here are
+      // all masked (and had no finite max before) adds nothing.
+      int ci[kFwdNT][2];
+#pragma unroll
+      for (int n8 = 0; n8 < kFwdNT; ++n8) {
+        const int2 v = *reinterpret_cast<const int2*>(
+            cid + kFwdTile * t + 8 * n8 + 2 * q);
+        ci[n8][0] = v.x;
+        ci[n8][1] = v.y;
+      }
+#pragma unroll
+      for (int m = 0; m < kMT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float tmax = kNegInf;
+#pragma unroll
+          for (int n8 = 0; n8 < kFwdNT; ++n8)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              float& v = sc[m][n8][2 * h + j];
+              const int id = ci[n8][j];
+              const float l = CAP ? capped(v, a.cap) : v;
+              v = id < 0 || id == tg[m][h] ? kNegInf : l;
+              tmax = fmaxf(tmax, v);
+            }
+          const float mn = fmaxf(mx[m][h], tmax);
+          if (mn != kNegInf) {
+            const float mb = mn * kLog2e;
+            float se = 0.f;
+#pragma unroll
+            for (int n8 = 0; n8 < kFwdNT; ++n8)
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+                se += exp_from(sc[m][n8][2 * h + j], mb);
+            sx[m][h] = sx[m][h] * exp_diff(mx[m][h], mn) + se;
+            mx[m][h] = mn;
+          }
+        }
+    }
   }
+
+  // Merge the four lanes of each row in a fixed tree (xor 1, then 2): the
+  // result repeats bit for bit. Lane q = 0 writes the row.
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mi = mx[m][h], si = sx[m][h];
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float mo = __shfl_xor_sync(kFull, mi, o);
+        const float so = __shfl_xor_sync(kFull, si, o);
+        merge_ms(mi, si, mo, so);
+      }
+      const int r = x0 + warp * kWarpRows + 16 * m + 8 * h + gq;
+      if (q != 0 || r >= a.b_x) continue;
+      if constexpr (WITH_POS) {
+        const float l = mi + logf(si);
+        a.lse[xrow0 + r] = l;
+        a.loss[xrow0 + r] = l - ps[m][h];
+      } else {
+        a.lse[xrow0 + r] = mi + logf(fmaxf(si, 1e-30f));
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
 // dX and dY on the tensor cores (3xTF32).
 // ---------------------------------------------------------------------------
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaxExp2 = 44.f * kLog2e;  // exp's argument capped at 44
 constexpr int kBwdMaxWarps = 4;
 constexpr int kStatRows = 3 * kStreamRows;  // a stage's per-row inputs
@@ -318,18 +505,13 @@ struct BwdArgs {
   const int* cand;    // (n_b, b_y)
   const float* lse;   // (n_b, b_x)
   const float* g;     // (n_b, b_x)
-  float* out;         // dX (n_b, b_x, d); dY (C, d) or dy_b (n_b·b_y, d)
+  float* out;         // dX (n_b, b_x, d); dY a row per slot (n_b·b_y, d)
   int b_x, b_y, c, d, dp;  // dp = d rounded up to 16
   float cap;
   int vec;      // the streamed rows can be copied in 16-byte chunks
   int vec_own;  // the owned rows can be copied in 16-byte chunks
   int vec_out;  // the output rows take 16-byte stores
 };
-
-// A candidate id clamped to the catalog's rows [0, C).
-__device__ __forceinline__ int clamp_row(int r, int c) {
-  return r < 0 ? 0 : (r >= c ? c - 1 : r);
-}
 
 // Catalog row of candidate j of bucket n (the flat index n·b_y + j).
 template <bool DIRECT>
@@ -440,7 +622,8 @@ sce_bwd_kernel(BwdArgs a) {
 
   // The thread's owned rows (m16 tile m, half h) and what the cotangent
   // needs of them: dX a position's lse·log2e, g and target; dY a
-  // candidate's id (−1 past b_y) and catalog row.
+  // candidate's id (−1 past b_y). orow is the row of the output: the
+  // position's, or the slot's n·b_y + j.
   float ls2[kMT][2], gs[kMT][2];
   int tg[kMT][2], orow[kMT][2];
 #pragma unroll
@@ -451,7 +634,7 @@ sce_bwd_kernel(BwdArgs a) {
       const bool live = r < n_own;
       if (DY) {
         tg[m][h] = live ? a.cand[crow0 + r] : -1;
-        orow[m][h] = live ? cand_row<DIRECT>(a, crow0 + r) : 0;
+        orow[m][h] = live ? (int)(crow0 + r) : 0;
         ls2[m][h] = gs[m][h] = 0.f;
       } else {
         tg[m][h] = live ? a.tgt[xrow0 + r] : -1;
@@ -733,20 +916,12 @@ sce_bwd_kernel(BwdArgs a) {
   }
   cp_async_wait<0>();
 
-  // dX: the rows, written whole. dY: gathered, an atomic add into each
-  // candidate's catalog row, skipped for a negative id (its sum is exactly
-  // 0); DIRECT, a plain write of the bucket's own row (an explicit 0 for a
-  // negative id), so that it repeats bit for bit. With 16-byte rows the
-  // lanes q and q ^ 1 trade halves so that each writes four columns of
-  // one row: the even lane row gq, the odd one gq + 8.
-  auto put = [&](float* dst, int col, float v, bool zero) {
-    if (!DY)
-      dst[col] = v;
-    else if (DIRECT)
-      dst[col] = zero ? 0.f : v;
-    else
-      atomicAdd(dst + col, v);
-  };
+  // dX: the rows, written whole. dY: each slot's row n·b_y + j written
+  // whole, an explicit 0 for a negative id (DIRECT: dy_b itself; gathered:
+  // the workspace that dy_sum_kernel adds into the catalog). No atomics:
+  // both repeat bit for bit. With 16-byte rows the lanes q and q ^ 1 trade
+  // halves so that each writes four columns of one row: the even lane row
+  // gq, the odd one gq + 8.
 #pragma unroll
   for (int m = 0; m < kMT; ++m) {
     const int rm = r0 + warp * kWarpRows + 16 * m + gq;
@@ -762,50 +937,115 @@ sce_bwd_kernel(BwdArgs a) {
                            : make_float4(c[0], c[1], s0, s1);
         const int id = h ? tg[m][1] : tg[m][0];
         const int col = oc0 + 8 * n8 + 4 * (q >> 1);
-        if (rm + 8 * h >= n_own || col >= a.d || (DY && !DIRECT && id < 0))
-          continue;
+        if (rm + 8 * h >= n_own || col >= a.d) continue;
         float4* dst = reinterpret_cast<float4*>(
             a.out + (long)(h ? orow[m][1] : orow[m][0]) * a.d + col);
-        if (!DY)
-          *dst = v;
-        else if (DIRECT)
-          *dst = id < 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : v;
-        else
-          atomicAdd(dst, v);
+        *dst = DY && id < 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : v;
       } else {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int h = i >> 1;
           const int col = oc0 + 8 * n8 + 2 * q + (i & 1);
-          if (rm + 8 * h >= n_own || col >= a.d ||
-              (DY && !DIRECT && tg[m][h] < 0))
-            continue;
-          put(a.out + (long)orow[m][h] * a.d, col, c[i], tg[m][h] < 0);
+          if (rm + 8 * h >= n_own || col >= a.d) continue;
+          a.out[(long)orow[m][h] * a.d + col] =
+              DY && tg[m][h] < 0 ? 0.f : c[i];
         }
       }
     }
   }
 }
 
-// Opts `kernel` in to the full kMaxSmem of dynamic shared memory, once per
-// device (the attribute is per device context); `done` is the caller's
-// per-kernel table.
-template <typename K>
-cudaError_t allow_max_smem(K kernel, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
-  return err;
+// ---------------------------------------------------------------------------
+// dY of the gathered kernels: the workspace's slot rows summed into the
+// catalog in the reference's order.
+// ---------------------------------------------------------------------------
+constexpr int kSumThreads = 256;
+
+// keys: the n_slots catalog rows of the flat slots n·b_y + j (clamped to
+// [0, C)), sorted, a slot that adds nothing (a negative id) keyed C so
+// that it sorts last; order: the slot of each, ascending within a key (a
+// stable sort). One thread per (sorted slot, four depths) that starts a
+// run of equal keys below C adds the run's workspace rows from 0 in
+// ascending (bucket, slot) order — the order of the reference's
+// read-modify-write into the aliased dY — and writes the catalog row
+// once. Rows no bucket selected keep the zeros the wrapper put there. On
+// a shard of the distributed exact mode most slots are another shard's:
+// keyed C, they cost no walk.
+__global__ void __launch_bounds__(kSumThreads)
+dy_sum_kernel(const float* __restrict__ ws, const int* __restrict__ keys,
+              const long long* __restrict__ order, float* __restrict__ dy,
+              int n_slots, int d, int c, int vec) {
+  const int dq = (d + 3) / 4;
+  const long e = (long)blockIdx.x * kSumThreads + threadIdx.x;
+  if (e >= (long)n_slots * dq) return;
+  const int p = (int)(e / dq), k = 4 * (int)(e - (long)p * dq);
+  const int key = keys[p];
+  if (key < 0 || key >= c || (p > 0 && keys[p - 1] == key)) return;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int i = p; i < n_slots && keys[i] == key; ++i) {
+    const float* src = ws + order[i] * d + k;
+    if (vec) {
+      const float4 v = *reinterpret_cast<const float4*>(src);
+      acc[0] += v.x;
+      acc[1] += v.y;
+      acc[2] += v.z;
+      acc[3] += v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (k + j < d) acc[j] += src[j];
+    }
+  }
+  float* dst = dy + (long)key * d + k;
+  if (vec) {
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (k + j < d) dst[j] = acc[j];
+  }
 }
 
+// Flat rows n_b·b_x and slots n_b·b_y index with int.
 bool shapes_ok(int n_b, int b_x, int b_y, int c, int d) {
   return n_b > 0 && b_x > 0 && b_y > 0 && c > 0 && d > 0 && d <= kMaxD &&
-         (b_x + kTileX - 1) / kTileX <= 65535 &&
-         (b_y + kTileY - 1) / kTileY <= 65535;
+         (long)n_b * b_x <= 0x7fffffffL && (long)n_b * b_y <= 0x7fffffffL;
+}
+
+// The forward's launch shape at depth d: warps a block (32 positions
+// each) and the candidates resident at a time, with its shared memory —
+// the positions' and candidates' raw rows (4 bytes a depth at the pitch
+// of fwd_pitch) and the candidates' ids and source rows. Up to dp 64 five
+// warps and 256 candidates (a whole bucket at b_y 256), 108,544 bytes at
+// d = 64, so that two blocks share an SM (each block's gather then runs
+// beside the other's sweep; half of a bucket's 320 positions a block).
+// Above, one block an SM: the most warps (up to ten) that leave room for
+// a 64-candidate chunk. Mirrored by kernels/sce_prefetch.py::fwd_plan for
+// the guard's preflight, and exported as sce_gather_fwd_plan.
+constexpr int kSmSmem = 233472;  // an SM's shared memory (228 KB), ...
+constexpr int kBlockSmem = 1024;  // ... of which each block reserves 1 KB
+
+struct FwdPlan {
+  int warps;
+  int rows;
+  size_t smem;
+};
+
+FwdPlan fwd_plan(int d) {
+  const int dp = padded_depth(d);
+  const size_t row = (size_t)4 * fwd_pitch(dp) + 8;  // a candidate's bytes
+  const size_t pos = (size_t)4 * fwd_pitch(dp) * kWarpRows;  // a warp's
+  const size_t two = 5 * pos + row * kFwdMaxRows;
+  if (2 * (two + kBlockSmem) <= (size_t)kSmSmem) return {5, kFwdMaxRows, two};
+  for (int w = kFwdMaxWarps; w > 1; --w) {
+    const size_t own = pos * w;
+    if (own + row * kFwdTile > (size_t)kMaxSmem) continue;
+    int rows = (int)(((size_t)kMaxSmem - own) / row) / kFwdTile * kFwdTile;
+    rows = rows < kFwdMaxRows ? rows : kFwdMaxRows;
+    return {w, rows, own + row * rows};
+  }
+  return {1, kFwdTile, pos + row * kFwdTile};
 }
 
 // Launches the forward with the positive or the partial LSE, gathered or
@@ -817,18 +1057,26 @@ int launch_fwd(const float* x_b, const float* y, const int* idx_y,
                float* loss, float* lse, int n_b, int b_x, int b_y, int c,
                int d, float cap, void* stream) {
   if (!shapes_ok(n_b, b_x, b_y, c, d)) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem(d);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  static bool done[kMaxDevices] = {};
-  cudaError_t err =
-      allow_max_smem(sce_gather_fwd_kernel<WITH_POS, DIRECT>, done);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_b, (b_x + kTileX - 1) / kTileX);
-  sce_gather_fwd_kernel<WITH_POS, DIRECT>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x_b, y, idx_y, tgt_b, cand, pos, loss, lse, b_x, b_y, c, d, cap,
-      vec_flag(x_b, d), vec_flag(y, d));
-  return (int)cudaGetLastError();
+  const FwdPlan p = fwd_plan(d);
+  if (p.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int bm = kWarpRows * p.warps;
+  const long blocks = (long)n_b * ((b_x + bm - 1) / bm);
+  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  const int dp = padded_depth(d);
+  FwdArgs a{x_b, y, idx_y, tgt_b, cand, pos, loss, lse, b_x, b_y, c, d, dp,
+            cap, p.rows, fwd_pitch(dp), vec_flag(y, d), vec_flag(x_b, d)};
+  auto go = [&](auto cp) {
+    constexpr bool CP = decltype(cp)::value;
+    static bool done[kMaxDevices] = {};
+    cudaError_t err =
+        allow_max_smem(sce_fwd_kernel<WITH_POS, DIRECT, CP>, done);
+    if (err != cudaSuccess) return err;
+    sce_fwd_kernel<WITH_POS, DIRECT, CP>
+        <<<(unsigned)blocks, 32 * p.warps, p.smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
+    return cudaGetLastError();
+  };
+  return (int)(cap > 0.f ? go(std::true_type{}) : go(std::false_type{}));
 }
 
 // The backward's launch shape at depth d: warps a block (128 owned rows up
@@ -892,8 +1140,10 @@ int launch_bwd(const float* x_b, const float* y, const int* idx_y,
 // Each returns the cudaError_t of its launch (0 on success), and
 // cudaErrorInvalidValue for shapes it does not take. Nothing is
 // synchronised and nothing is allocated: dx (n_b, b_x, d) is written
-// whole; dy (C, d) must arrive zeroed and is added into. dX and dY serve
-// the partial LSE too, with the plse in place of the lse.
+// whole; sce_gather_dy_launch writes its `dy` as a workspace of one row
+// per slot, (n_b·b_y, d) (0 for a negative id), which
+// sce_gather_dy_sum_launch then adds into the catalog's (C, d). dX and dY
+// serve the partial LSE too, with the plse in place of the lse.
 extern "C" int sce_gather_fwd_launch(const float* x_b, const float* y,
                                      const int* idx_y, const int* tgt_b,
                                      const int* cand, const float* pos,
@@ -933,6 +1183,39 @@ extern "C" int sce_gather_dy_launch(const float* x_b, const float* y,
                                     float cap, void* stream) {
   return launch_bwd<true, false>(x_b, y, idx_y, tgt_b, cand, lse, g, dy,
                                  n_b, b_x, b_y, c, d, cap, stream);
+}
+
+// The forward's plan at depth d: writes the warps a block and the
+// candidates resident at a time, returns the dynamic shared memory of a
+// block, or −cudaErrorInvalidValue for a d outside (0, 256].
+extern "C" int sce_gather_fwd_plan(int d, int* warps, int* rows) {
+  if (d <= 0 || d > kMaxD) return -(int)cudaErrorInvalidValue;
+  const FwdPlan p = fwd_plan(d);
+  *warps = p.warps;
+  *rows = p.rows;
+  return (int)p.smem;
+}
+
+// The gathered dY's second step: dy (C, d), zeroed, receives the sum of
+// the workspace ws (n_slots, d) — the slots' rows that sce_gather_dy_launch
+// wrote — per catalog row, in ascending slot order. keys (n_slots,) i32
+// are the slots' clamped catalog rows, C for a slot that adds nothing,
+// sorted; order (n_slots,) i64 the slot of each from a stable sort.
+extern "C" int sce_gather_dy_sum_launch(const float* ws, const int* keys,
+                                        const long long* order, float* dy,
+                                        int n_slots, int d, int c,
+                                        void* stream) {
+  if (n_slots <= 0 || d <= 0 || d > kMaxD || c <= 0)
+    return (int)cudaErrorInvalidValue;
+  const long threads = (long)n_slots * ((d + 3) / 4);
+  const long blocks = (threads + kSumThreads - 1) / kSumThreads;
+  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(ws) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+  dy_sum_kernel<<<(unsigned)blocks, kSumThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(ws, keys, order, dy,
+                                                       n_slots, d, c, vec);
+  return (int)cudaGetLastError();
 }
 
 // The backward's plan at depth d: writes the warps a block, returns the

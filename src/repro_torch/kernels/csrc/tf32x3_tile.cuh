@@ -1,8 +1,8 @@
 // tf32x3_tile — f32-accurate products on Hopper's tensor cores ("3xTF32"),
 // for kernels that compute a logit tile S = A·Bᵀ, fold it into an online
 // logsumexp or multiply its cotangent G back into a (rows, d) gradient.
-// linear_ce.cu's forward and backward kernels use it; sce_gather.cu's
-// dX/dY have the same shape of products.
+// linear_ce.cu's and sce_gather.cu's kernels use it, with the softcap,
+// the online-logsumexp helpers and the constants both files share.
 //
 // The arithmetic. An f32 value a is split into a_hi = tf32(a) and
 // a_lo = tf32(a − a_hi), each rounded to nearest with ties away from zero
@@ -59,6 +59,14 @@ constexpr int kMT = kWarpRows / 16;  // ... as m16 tiles
 constexpr int kStreamRows = 32;  // rows of a streamed tile: four n8 tiles
 constexpr int kOutCols = 64;     // output depth columns per block: 8 n8
 constexpr int kDepthAlign = 16;  // dp: whole 128-byte lines of pairs
+
+// Shared by linear_ce.cu and sce_gather.cu.
+constexpr float kNegInf = -1e30f;  // a masked logit: finite, never -inf
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxD = 256;
+constexpr int kMaxSmem = 232448;  // 227 KB opt-in per block on sm_90
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline int padded_depth(int d) {
   return (d + kDepthAlign - 1) / kDepthAlign * kDepthAlign;
@@ -163,6 +171,56 @@ __device__ __forceinline__ void lds64(uint32_t (&r)[2], const float* p) {
   const uint2 v = *reinterpret_cast<const uint2*>(p);
   r[0] = v.x;
   r[1] = v.y;
+}
+
+// ---------------------------------------------------------------------------
+// The softcap and the online logsumexp of both files' folds.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float capped(float v, float cap) {
+  return cap > 0.f ? cap * tanhf(v / cap) : v;
+}
+
+// d capped / d logit as a function of the capped value: 1 − (capped/cap)².
+__device__ __forceinline__ float cap_deriv(float c, float cap) {
+  if (cap <= 0.f) return 1.f;
+  const float t = c / cap;
+  return 1.f - t * t;
+}
+
+// exp(v − mx) as one FFMA and the SFU's exp2, given mb = mx·log2(e) of a
+// finite logit mx ≥ v; 0 for v = kNegInf. Not for mx = kNegInf: the FFMA
+// then leaves the rounding error of a product near 1e30, which exp2 takes
+// to inf.
+__device__ __forceinline__ float exp_from(float v, float mb) {
+  return exp2_approx(fmaf(v, kLog2e, -mb));
+}
+
+// exp(v − mx) for mx ≥ v, kNegInf included: exactly 1 when v == mx.
+__device__ __forceinline__ float exp_diff(float v, float mx) {
+  return exp2_approx((v - mx) * kLog2e);
+}
+
+// (m, s) ← the online merge of (m, s) and (mo, so).
+__device__ __forceinline__ void merge_ms(float& m, float& s, float mo,
+                                         float so) {
+  const float mn = fmaxf(m, mo);
+  s = s * exp_diff(m, mn) + so * exp_diff(mo, mn);
+  m = mn;
+}
+
+// Opts `kernel` in to the full kMaxSmem of dynamic shared memory, once per
+// device (the attribute is per device context); `done` is the caller's
+// per-kernel table.
+template <typename K>
+cudaError_t allow_max_smem(K kernel, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
 }
 
 }  // namespace tf32x3

@@ -145,7 +145,7 @@ _WRAPPERS = {
     "mips_topk": ("mips_topk",),
     "sce_prefetch": ("sce_gather_fwd", "sce_gather_dx", "sce_gather_dy",
                      "sce_gather_plse_fwd", "sce_gather_plse_dx",
-                     "sce_gather_plse_dy"),
+                     "sce_gather_plse_dy", "sce_gather_dy_sum"),
     "sce_bucket": ("sce_bucket_fwd", "sce_bucket_dx", "sce_bucket_dy",
                    "sce_bucket_plse_fwd"),
     "eval_fused": ("eval_fused", "eval_tgt_gather"),

@@ -26,7 +26,7 @@ from typing import Dict, List, Optional, Tuple
 
 # Shared memory one block may opt in to on sm_90 (227 KB).
 MAX_SMEM = 232_448
-MAX_D = 256  # kMaxD of csrc/f32_tile.cuh and csrc/topk_tile.cuh
+MAX_D = 256  # kMaxD of csrc/tf32x3_tile.cuh and topk_tile.cuh
 MAX_K = 512  # kMaxK of csrc/topk_tile.cuh (the top-k list length)
 
 # The kernels take float32 data (int32 ids); bf16 is not ported.

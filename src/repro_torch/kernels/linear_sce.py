@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_D = 256  # kMaxD in csrc/linear_ce.cu
+MAX_D = 256  # kMaxD in csrc/tf32x3_tile.cuh
 DEPTH_ALIGN = 16  # kDepthAlign in csrc/tf32x3_tile.cuh
 MAX_SMEM = 232_448  # a block's opt-in shared memory on sm_90
 PAIR_SMEM = 233_472 // 2 - 1024  # two blocks an SM, 1 KB reserved each
@@ -292,7 +292,9 @@ def _dw(x, w, targets, lse, g, logit_softcap, planes=None):
 
 def linear_ce_fwd(x, w, targets, *, logit_softcap=None, planes=None):
     """Forward kernel: ``(loss, lse)``, each (N,) f32; ``loss = lse −`` the
-    target's capped logit (a target outside ``[0, C)`` plucks 0). Matches
+    target's capped logit (a target outside ``[0, C)`` plucks 0, so its
+    loss is exactly its lse — the contract of ``ops.linear_ce_loss``, which
+    the plain version keeps too). Matches
     ``ref.linear_ce_loss_ref``. ``planes``: :func:`linear_ce_split`'s
     output for these ``x`` and ``w`` (split here when None)."""
     loss, lse = _fwd(x, w, targets, logit_softcap, planes)

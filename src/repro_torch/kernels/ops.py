@@ -273,7 +273,14 @@ def linear_ce_loss(x, w, targets, *, logit_softcap=None, block_c: int = 512):
     inside the sweep and ``logit_softcap`` applied in the tile; the
     ``(N, C)`` logits never exist on the card, forward or backward.
     ``block_c`` is the plain version's catalog chunk. See
-    ``kernels/linear_sce.py``."""
+    ``kernels/linear_sce.py``.
+
+    Out-of-range targets: a target outside ``[0, C)`` (a padding id such
+    as ``−1``, or an id at or past ``C``) plucks 0, so its row's loss is
+    exactly its logsumexp and its gradient that of the logsumexp alone.
+    The CPU and CUDA paths keep this contract alike, whatever catalog
+    padding ``block_c`` gives the plain version. (The JAX kernel plucks
+    ``−1e30`` for a target inside its last chunk's padding.)"""
     if _device_kind("linear_ce_loss", x, w, targets) == "cpu":
         return _ref.linear_ce_loss_ref(x, w, targets,
                                        logit_softcap=logit_softcap,

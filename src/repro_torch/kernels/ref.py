@@ -305,7 +305,10 @@ def _online_lse(x, w, chunk: int, logit_softcap=None, targets=None):
     f64 ``x``) and, with ``targets``, the target's (capped) logit plucked
     from the chunk it streams by in → ``(lse (N,), pos (N,) or None)``.
     The cap applies to every logit before the padded columns are masked
-    to ``NEG_INF``."""
+    to ``NEG_INF``. The pluck reads the capped logit of a real column only:
+    a target outside ``[0, C)`` — ``C + 3`` in the last chunk's padding as
+    well as ``−1`` — plucks 0, as the CUDA forward does, so that
+    ``loss == lse`` on such a row whatever the chunk."""
     n = x.shape[0]
     c = w.shape[0]
     dev = x.device
@@ -325,9 +328,11 @@ def _online_lse(x, w, chunk: int, logit_softcap=None, targets=None):
         logits = x32 @ rows.T  # (N, chunk)
         capped = logits if cap is None else cap * torch.tanh(logits / cap)
         idx = torch.arange(lo, lo + chunk, device=dev)
-        lv = torch.where((idx < c)[None, :], capped, NEG_INF)
+        real = (idx < c)[None, :]
+        lv = torch.where(real, capped, NEG_INF)
         if tid is not None:
-            pos = pos + torch.where(idx[None, :] == tid, lv, 0.0).sum(-1)
+            pos = pos + torch.where((idx[None, :] == tid) & real, capped,
+                                    0.0).sum(-1)
         m_new = torch.maximum(m, lv.amax(-1))
         s = s * torch.exp(m - m_new) + torch.exp(lv - m_new[:, None]).sum(-1)
         m = m_new
@@ -342,7 +347,8 @@ def linear_ce_loss_ref(x, w, targets, *, logit_softcap=None,
     (capped) logit plucked inside the sweep, ``logit_softcap`` applied to
     every logit. Differentiable by autograd (which keeps every chunk's
     logits: the plain version's backward holds O(N·C)). → (N,) losses in
-    ``x.dtype``; a target outside ``[0, C)`` plucks 0."""
+    ``x.dtype``; a target outside ``[0, C)`` plucks 0 (loss == lse), in
+    every chunk's padding too."""
     lse, pos = _online_lse(x, w, chunk, logit_softcap, targets)
     return (lse - pos).to(x.dtype)
 

@@ -11,9 +11,10 @@ kernels are ``kernels/sce_prefetch.py``'s (the same template with
 * :func:`sce_bucket_fwd` — per-(bucket, row) loss and logsumexp;
 * :func:`sce_bucket_dx` — the gradient of ``x_b`` (n_b, b_x, d);
 * :func:`sce_bucket_dy` — the gradient of ``y_b`` (n_b, b_y, d). Each
-  bucket owns its ``y_b`` rows, so the kernel WRITES them (no
-  ``atomicAdd``, unlike ``sce_gather_dy``): dY repeats bit for bit, and a
-  candidate with a negative id gets an exact 0 row;
+  bucket owns its ``y_b`` rows, so the kernel WRITES them — the rows that
+  ``sce_gather_dy`` writes into its workspace before summing them into
+  the catalog: dY repeats bit for bit, and a candidate with a negative
+  id gets an exact 0 row;
 * :func:`sce_bucket_plse_fwd` — the partial logsumexp without the
   positive, from ``(NEG_INF, 0)``. Its backward is the loss's dX and dY
   launches with the plse in place of the lse, counted with the loss's

@@ -4,18 +4,23 @@ and ``sce_gather_plse`` of ``repro/kernels/sce_prefetch.py``).
 
 The loss, one wrapper per kernel, each with its own launch counter:
 
-* :func:`sce_gather_fwd` — per-(bucket, row) loss and logsumexp (f32
-  FMAs);
+* :func:`sce_gather_fwd` — per-(bucket, row) loss and logsumexp;
 * :func:`sce_gather_dx` — the gradient of ``x_b`` (n_b, b_x, d);
-* :func:`sce_gather_dy` — the gradient of the whole catalog ``y`` (C, d),
-  added into a zeroed buffer row by row (``atomicAdd``: not bitwise
-  repeatable, rows no bucket selected stay exactly 0).
+* :func:`sce_gather_dy` — the gradient of the whole catalog ``y`` (C, d):
+  the dY kernel writes each (bucket, slot)'s row into an
+  ``(n_b·b_y, d)`` workspace, and :func:`sce_gather_dy_sum` (a kernel
+  with its own counter) adds the rows that share a catalog row in
+  ascending (bucket, slot) order, the reference's order, after a stable
+  sort of the slots' rows (:func:`dy_sum_keys`, PyTorch glue) — bitwise
+  repeatable, rows no bucket selected exactly 0.
 
-dX and dY recompute the logits and take both products on the tensor
-cores in 3xTF32 (``csrc/tf32x3_tile.cuh``), which holds the f32
-tolerance; their exp takes ``min(l − lse, 44)``, the one deviation from
-the plain version (see the source). :func:`bwd_plan` is their launch plan
-without a card, :func:`planned_smem` the guard's budget.
+The forward, dX and dY take their logits on the tensor cores in 3xTF32
+(``csrc/tf32x3_tile.cuh``) with the same arithmetic, so the forward's
+lse comes from the logits the backward recomputes; the 3xTF32 products
+hold the f32 tolerance. The backward's exp takes ``min(l − lse, 44)``,
+the one deviation from the plain version (see the source).
+:func:`fwd_plan` and :func:`bwd_plan` are the launch plans without a
+card, :func:`planned_smem` the guard's budget.
 
 The partial logsumexp of the distributed merge (no positive, from
 ``(NEG_INF, 0)``), again with a counter per wrapper, apart from the
@@ -44,17 +49,53 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.linear_sce import MAX_SMEM, padded_depth
 
-MAX_D = 256  # kMaxD in the source
+MAX_D = 256  # kMaxD in csrc/tf32x3_tile.cuh
 STREAM_ROWS = 32  # kStreamRows: rows of a streamed backward tile
 STAGES = 3  # kStages: the backward's raw ring
 
 
-def fwd_smem(d: int) -> int:
-    """The forward's dynamic shared memory (``fwd_smem`` in the source):
-    64 rows of x_b and 64 candidate rows at a pitch of an odd number of
-    float4s, and 2 × 64 row and candidate ids."""
-    pitch = 4 * ((-(-d // 4)) | 1)
-    return 4 * (64 + 64) * pitch + 4 * 2 * 64
+FWD_MAX_WARPS = 10  # kFwdMaxWarps: 32 positions a warp
+FWD_TILE = 64  # kFwdTile: candidates a warp folds at a time
+FWD_MAX_ROWS = 256  # kFwdMaxRows: resident candidates at most
+SM_SMEM = 233_472  # kSmSmem: an SM's shared memory, of which ...
+BLOCK_SMEM = 1_024  # kBlockSmem: ... each block reserves this much
+
+
+def fwd_plan(d: int):
+    """``(warps, smem bytes, chunk rows)`` of the forward launch at depth
+    d, a copy of ``fwd_plan`` in ``csrc/sce_gather.cu`` that needs no card
+    (:func:`library_fwd_plan` reads the kernel's own; the CUDA tests and
+    ``chip_smoke.py`` hold the two equal): 32 positions a warp and a chunk
+    of candidates, both resident as raw rows (4 bytes a depth at a pitch
+    of ``dp`` rounded up to 32), with the candidates' ids and source rows.
+    Five warps and 256 candidates where two such blocks share an SM (up to
+    ``dp`` 64); else the most warps (up to ten) that leave room for 64
+    candidates, one block an SM."""
+    dp = padded_depth(d)
+    pitch = -(-dp // 32) * 32
+    row, pos = 4 * pitch + 8, 4 * pitch * 32
+    two = 5 * pos + row * FWD_MAX_ROWS
+    if 2 * (two + BLOCK_SMEM) <= SM_SMEM:
+        return 5, two, FWD_MAX_ROWS
+    for warps in range(FWD_MAX_WARPS, 1, -1):
+        own = pos * warps
+        if own + row * FWD_TILE > MAX_SMEM:
+            continue
+        rows = min((MAX_SMEM - own) // row // FWD_TILE * FWD_TILE,
+                   FWD_MAX_ROWS)
+        return warps, own + row * rows, rows
+    return 1, pos + row * FWD_TILE, FWD_TILE
+
+
+def library_fwd_plan(d: int):
+    """``(warps, smem bytes, chunk rows)`` as the built library plans the
+    forward (``sce_gather_fwd_plan``)."""
+    warps, rows = ctypes.c_int(), ctypes.c_int()
+    smem = _lib().sce_gather_fwd_plan(d, ctypes.byref(warps),
+                                      ctypes.byref(rows))
+    if smem < 0:
+        raise ValueError(f"sce_gather_fwd_plan: d={d} outside (0, {MAX_D}]")
+    return warps.value, smem, rows.value
 
 
 def bwd_plan(d: int):
@@ -84,9 +125,9 @@ def library_bwd_plan(d: int):
 
 def planned_smem(d: int) -> int:
     """Dynamic shared memory per block of the largest launch at depth d:
-    the forward's (:func:`fwd_smem`) or dX / dY's (:func:`bwd_plan`). The
+    the forward's (:func:`fwd_plan`) or dX / dY's (:func:`bwd_plan`). The
     kernel guard checks it against the 227 KB a block may use."""
-    return max(fwd_smem(d), bwd_plan(d)[1])
+    return max(fwd_plan(d)[1], bwd_plan(d)[1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,6 +145,10 @@ def _lib() -> ctypes.CDLL:
     lib.sce_gather_plse_fwd_launch.restype = ctypes.c_int
     lib.sce_gather_bwd_plan.argtypes = [i, p]
     lib.sce_gather_bwd_plan.restype = ctypes.c_int
+    lib.sce_gather_fwd_plan.argtypes = [i, p, p]
+    lib.sce_gather_fwd_plan.restype = ctypes.c_int
+    lib.sce_gather_dy_sum_launch.argtypes = [p] * 4 + [i] * 3 + [p]
+    lib.sce_gather_dy_sum_launch.restype = ctypes.c_int
     return lib
 
 
@@ -188,12 +233,69 @@ def _dx(x_b, y, idx_y, tgt_b, cand_ids, lse, g, cap):
 
 
 def _dy(x_b, y, idx_y, tgt_b, cand_ids, lse, g, cap):
+    """dY in two kernels: each slot's row into the ``(n_b·b_y, d)``
+    workspace (an exact 0 row for a negative id), then
+    :func:`sce_gather_dy_sum` into the zeroed ``(C, d)``."""
     shape = _check(x_b, y, idx_y, tgt_b, cand_ids, lse, g)
-    dy = torch.zeros_like(y)
+    n_b, _, b_y, c, d = shape
+    ws = torch.empty(n_b * b_y, d, dtype=torch.float32, device=x_b.device)
     _launch("sce_gather_dy_launch",
-            (x_b, y, idx_y, tgt_b, cand_ids, lse, g, dy, _cap(cap)), shape,
+            (x_b, y, idx_y, tgt_b, cand_ids, lse, g, ws, _cap(cap)), shape,
             x_b.device)
+    return sce_gather_dy_sum(ws, *dy_sum_keys(idx_y, cand_ids, c),
+                             torch.zeros_like(y))
+
+
+def dy_sum_keys(idx_y, cand_ids, c):
+    """``(keys, order)`` of :func:`sce_gather_dy_sum`, PyTorch glue: the
+    flat slots' catalog rows clamped to ``[0, C)``, ``C`` for a slot with
+    a negative id (it adds nothing and sorts last), sorted stably, and the
+    slot of each (ascending within a row)."""
+    rows = torch.where(cand_ids.reshape(-1) < 0, c,
+                       idx_y.reshape(-1).clamp(0, c - 1))
+    return torch.sort(rows, stable=True)
+
+
+def sce_gather_dy_sum(ws, keys, order, dy):
+    """The gathered dY's sum kernel: adds the workspace rows ``ws
+    (n_slots, d)`` into ``dy (C, d)`` (zeroed by the caller) per catalog
+    row, from 0 in ascending slot order; ``(keys, order)`` from
+    :func:`dy_sum_keys` (keys ``C`` add nothing). Writes ``dy`` in place
+    and returns it; :func:`dy_sum_plain` is its plain version."""
+    n_slots, d = ws.shape
+    tensors = (ws, keys, order, dy)
+    if not all(t.is_cuda and t.device == ws.device for t in tensors):
+        raise ValueError("sce_gather_dy_sum takes CUDA tensors on one device")
+    if (ws.dtype, dy.dtype, keys.dtype, order.dtype) != (
+            torch.float32, torch.float32, torch.int32, torch.int64):
+        raise TypeError("sce_gather_dy_sum takes f32 ws and dy, i32 keys, "
+                        "i64 order")
+    if (keys.numel(), order.numel()) != (n_slots,) * 2 or dy.ndim != 2 \
+            or dy.shape[1] != d:
+        raise ValueError("sce_gather_dy_sum: ws (n_slots, d), keys and "
+                         "order (n_slots,), dy (C, d)")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("sce_gather_dy_sum takes contiguous tensors")
+    with torch.cuda.device(ws.device):
+        stream = torch.cuda.current_stream(ws.device).cuda_stream
+        err = _lib().sce_gather_dy_sum_launch(
+            *(t.data_ptr() for t in tensors), n_slots, d, dy.shape[0],
+            stream)
+    if err != 0:
+        raise RuntimeError(f"sce_gather_dy_sum_launch failed: cudaError "
+                           f"{err} (n_slots={n_slots}, d={d})")
+    sce_gather_dy_sum.launches += 1
     return dy
+
+
+def dy_sum_plain(ws, idx_y, cand_ids, c):
+    """The plain version of :func:`sce_gather_dy_sum`: the workspace rows
+    of the slots with a non-negative id added into a ``(C, d)`` zero
+    tensor at their clamped catalog rows (``index_add_``; on the card its
+    order of addition is not fixed)."""
+    keep = cand_ids.reshape(-1) >= 0
+    rows = idx_y.reshape(-1).long().clamp(0, c - 1)[keep]
+    return ws.new_zeros(c, ws.shape[1]).index_add_(0, rows, ws[keep])
 
 
 def sce_gather_dx(x_b, y, idx_y, tgt_b, cand_ids, lse, g, *,
@@ -208,8 +310,10 @@ def sce_gather_dx(x_b, y, idx_y, tgt_b, cand_ids, lse, g, *,
 def sce_gather_dy(x_b, y, idx_y, tgt_b, cand_ids, lse, g, *,
                   logit_softcap=None):
     """dY kernel: the (C, d) gradient of the catalog ``y``; each selected
-    row ``idx_y[n, j]`` receives the sum over buckets, every other row is
-    exactly 0. The sum order varies from run to run (atomics)."""
+    row ``idx_y[n, j]`` receives the sum over buckets in ascending
+    (bucket, slot) order, every other row is exactly 0 (bitwise
+    repeatable). Counts this launch; the sum's launch is counted by
+    :func:`sce_gather_dy_sum`."""
     dy = _dy(x_b, y, idx_y, tgt_b, cand_ids, lse, g, logit_softcap)
     sce_gather_dy.launches += 1
     return dy
@@ -242,15 +346,16 @@ def sce_gather_plse_dx(x_b, y, idx_y, tgt_b, cand_ids, plse, g, *,
 
 def sce_gather_plse_dy(x_b, y, idx_y, tgt_b, cand_ids, plse, g, *,
                        logit_softcap=None):
-    """The dY kernel for the partial LSE (atomics, as
-    :func:`sce_gather_dy`)."""
+    """The dY kernel for the partial LSE (a workspace and its in-order
+    sum, as :func:`sce_gather_dy`)."""
     dy = _dy(x_b, y, idx_y, tgt_b, cand_ids, plse, g, logit_softcap)
     sce_gather_plse_dy.launches += 1
     return dy
 
 
 for _fn in (sce_gather_fwd, sce_gather_dx, sce_gather_dy,
-            sce_gather_plse_fwd, sce_gather_plse_dx, sce_gather_plse_dy):
+            sce_gather_plse_fwd, sce_gather_plse_dx, sce_gather_plse_dy,
+            sce_gather_dy_sum):
     _fn.launches = 0
 
 

@@ -19,15 +19,22 @@ into the split sweep; two launches repeat bit for bit.
 
 ``sce_gather`` (forward, dX, dY): losses within ``1e-5·max|loss|``,
 gradients within ``rtol 2e-4``, ``atol 1e-5·max|grad|`` of autograd
-through the plain version (f32 sums in another order; dY's atomics add in
-an order that changes from run to run), and rows of dY that no bucket
-selected exactly 0. dX and dY run in 3xTF32 on the tensor cores: at the
-trainer's logit scale (x_b 3·randn) they hold the plain version evaluated
-in f64 at the same tolerances, and given their forward's lse they are no
-farther from their formula in f64 than the f32 plain formula is; a
-loss bucket whose candidates are all masked has loss and dX exactly 0 and
-adds nothing to dY; the wrapper's copy of their launch plan equals the
-library's.
+through the plain version (f32 sums in another order), and rows of dY
+that no bucket selected exactly 0. All three take their logits in 3xTF32
+on the tensor cores with one arithmetic: at the trainer's logit scale
+(x_b 3·randn) they hold the plain version evaluated in f64 at the same
+tolerances; given their forward's lse dX and dY are no farther from
+their formula in f64 than the f32 plain formula is; end to end, dX is no
+farther from f64 than twice the f32 plain version's error. A loss bucket
+whose candidates are all masked has loss and dX exactly 0 and adds
+nothing to dY; the wrappers' copies of the launch plans equal the
+library's, and the forward launches at every depth of its plan (one
+chunk of resident candidates or several, one row tile or two). The
+gathered dY (a workspace row per slot, summed in slot order) and the
+forwards repeat bit for bit, and the gathered dY is the in-order sum of
+``sce_bucket``'s per-slot rows. Given an lse 60 below the logits, where
+dX and dY cap exp's argument at 44, every SCE family holds the capped
+formula.
 
 ``sce_gather_plse`` (the partial LSE and the same dX and dY launches,
 counted apart): the same tolerances, rows with no unmasked candidate
@@ -495,6 +502,173 @@ def test_sce_gather_backward_plan_equals_the_library(dev):
         sce_prefetch.library_bwd_plan(sce_prefetch.MAX_D + 1)
 
 
+@pytest.mark.parametrize("plse", [False, True])
+def test_sce_gather_end_to_end_at_the_trainer_logit_scale(dev, plse):
+    """x_b at 3·randn, through ``ops``: the forward's lse comes from the
+    logits the backward recomputes, so end to end the loss (plse), dX and
+    dY hold autograd through the plain version in f64 at the chip
+    tolerance, and dX is no farther from it than twice the f32 plain
+    version's error on the same inputs."""
+    shape = (16, 320, 256, 64, 20_000)
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, 41, *shape)
+    x_b = 3.0 * x_b
+    pos = (x_b * y[tgt.long()]).sum(-1)
+    if plse:
+        cand = torch.where(torch.rand(cand.shape, generator=_gen(dev, 42),
+                                      device=dev) < 0.5, cand, -1)
+    up = torch.rand(shape[:2], generator=_gen(dev, 43), device=dev)
+
+    def run(fn, dtype):
+        leaves = [t.to(dtype).requires_grad_(True) for t in (x_b, y)]
+        rest = () if plse else (pos.to(dtype),)
+        out = fn(leaves[0], leaves[1], idx, tgt, cand, *rest)
+        return [out.detach()] + list(
+            torch.autograd.grad((out * up.to(dtype)).sum(), leaves))
+
+    kernel = ops.sce_gather_plse if plse else ops.sce_gather_loss
+    plain = ref.sce_gather_plse_ref if plse else ref.sce_gather_loss_ref
+    got = run(kernel, torch.float32)
+    f32 = run(plain, torch.float32)
+    exact = run(plain, torch.float64)
+    live = exact[0] > -1e29
+    _close(got[0][live], exact[0][live].float())
+    for a, b in zip(got[1:], exact[1:]):
+        _close(a, b.float(), rtol=2e-4)
+    assert _max_err(got[1], exact[1]) <= 2 * _max_err(f32[1], exact[1]), (
+        _max_err(got[1], exact[1]), _max_err(f32[1], exact[1]))
+
+
+def _cap_problem(dev, family):
+    """Inputs of one SCE family for the exp-cap test: the loss's or the
+    partial LSE's (a third of the candidates masked), gathered or over
+    pre-gathered rows."""
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, 44, 6, 70, 90, 64,
+                                                  1_000)
+    if family.endswith("plse"):
+        cand[:, 1::3] = -1
+    return x_b, y, idx, tgt, cand, pos
+
+
+@pytest.mark.parametrize("family", ["gather", "gather_plse", "bucket",
+                                    "bucket_plse"])
+def test_sce_backward_caps_the_exp_of_an_lse_far_below_the_logits(dev,
+                                                                  family):
+    """The SCE backward's one deviation from the plain version: dX and dY
+    take ``exp(min(l − lse, 44))``. Given an lse 60 below the forward's,
+    the plain formula's entries grow orders of magnitude past the
+    kernels', while every family's dX and dY (the loss's and the partial
+    LSE's, gathered and direct) hold the formula with the capped exponent
+    evaluated in f64, at the usual tolerance."""
+    x_b, y, idx, tgt, cand, pos = _cap_problem(dev, family)
+    y_b = y[idx.long()].contiguous()
+    gr = torch.rand(pos.shape, generator=_gen(dev, 45), device=dev)
+    plse = family.endswith("plse")
+    base = (ref.sce_gather_plse_ref(x_b, y, idx, tgt, cand) if plse
+            else ref.sce_gather_loss_ref(x_b, y, idx, tgt, cand, pos) + pos)
+    lse = base - 60.0
+    if family == "gather":
+        args = (x_b, y, idx, tgt, cand, lse, gr)
+        dx, dy = sce_prefetch.sce_gather_dx(*args), \
+            sce_prefetch.sce_gather_dy(*args)
+    elif family == "gather_plse":
+        args = (x_b, y, idx, tgt, cand, lse, gr)
+        dx, dy = sce_prefetch.sce_gather_plse_dx(*args), \
+            sce_prefetch.sce_gather_plse_dy(*args)
+    else:
+        args = (x_b, y_b, tgt, cand, lse, gr)
+        dx, dy = sce_bucket.sce_bucket_dx(*args), \
+            sce_bucket.sce_bucket_dy(*args)
+    torch.cuda.synchronize()
+    xd, ybd = x_b.double(), y_b.double()
+    z = torch.einsum("nxd,nyd->nxy", xd, ybd) - lse.double()[..., None]
+    masked = (cand[:, None, :] < 0) | (cand[:, None, :] == tgt[:, :, None])
+    assert (z[~masked] > 50.0).any()
+    gw = torch.where(masked, 0.0, torch.exp(z.clamp(max=44.0))
+                     * gr.double()[..., None])
+    want_dy_b = torch.bmm(gw.transpose(1, 2), xd)
+    _close(dx, torch.bmm(gw, ybd).float(), rtol=2e-4)
+    if family.startswith("bucket"):
+        _close(dy, want_dy_b.float(), rtol=2e-4)
+    else:
+        want_dy = torch.zeros(y.shape, dtype=torch.float64, device=dev)
+        want_dy.index_add_(0, idx.long().reshape(-1),
+                           want_dy_b.reshape(-1, y.shape[1]))
+        _close(dy, want_dy.float(), rtol=2e-4)
+    plain_dx, _ = _gather_grads_given_lse(x_b, y, idx, tgt, cand, lse, gr)
+    assert plain_dx.abs().max() > 100 * dx.abs().max()
+
+
+@pytest.mark.parametrize("d", [1, 16, 33, 64, 65, 100, 128, 129, 200, 256])
+def test_sce_gather_forward_covers_every_launch_plan(dev, d):
+    """Depths whose forward plans differ (ten warps down to two, 256 or 64
+    resident candidates), with b_x = 330 (a second row tile) and b_y = 300
+    (two chunks or more), cap 30 and none: the plan equals the library's,
+    and the loss, lse and plse (gathered and direct) hold the f64 plain
+    version within ``1e-5·max|want|``."""
+    plan = sce_prefetch.library_fwd_plan(d)
+    assert sce_prefetch.fwd_plan(d) == plan
+    warps, smem, rows = plan
+    assert smem <= sce_prefetch.MAX_SMEM and rows < 300  # two chunks or more
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, 46 + d, 3, 330, 300,
+                                                  d, 2_000)
+    x_b = x_b / max(1.0, d ** 0.5 / 4)
+    y_b = y[idx.long()].contiguous()
+    for cap in (None, 30.0):
+        loss, lse = sce_prefetch.sce_gather_fwd(x_b, y, idx, tgt, cand, pos,
+                                                logit_softcap=cap)
+        plse = sce_prefetch.sce_gather_plse_fwd(x_b, y, idx, tgt, cand,
+                                                logit_softcap=cap)
+        b_loss, b_lse = sce_bucket.sce_bucket_fwd(x_b, y_b, tgt, cand, pos,
+                                                  logit_softcap=cap)
+        b_plse = sce_bucket.sce_bucket_plse_fwd(x_b, y_b, tgt, cand,
+                                                logit_softcap=cap)
+        torch.cuda.synchronize()
+        xd, yd, pd = x_b.double(), y.double(), pos.double()
+        want = ref.sce_gather_loss_ref(xd, yd, idx, tgt, cand, pd, cap)
+        want_p = ref.sce_gather_plse_ref(xd, yd, idx, tgt, cand, cap)
+        for a, b in ((loss, want), (lse, want + pd), (plse, want_p)):
+            _close(a, b.float())
+        assert torch.equal(b_loss, loss) and torch.equal(b_lse, lse)
+        assert torch.equal(b_plse, plse)
+
+
+def test_sce_gather_dy_and_forwards_repeat_bit_for_bit(dev):
+    """No atomics: two calls of the gathered dY (loss and partial LSE) are
+    equal bit for bit, with rows no bucket selected exactly 0, on
+    candidates that every bucket shares (each catalog row summed over 40
+    buckets); so are two calls of each forward. The gathered dY is the
+    in-order sum of ``sce_bucket``'s per-slot rows on ``y_b = y[idx]``."""
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, 47, 40, 70, 90, 64,
+                                                  5_000, same=True)
+    cand[:, ::7] = -1
+    g = torch.rand(pos.shape, generator=_gen(dev, 48), device=dev)
+    args = (x_b, y, idx, tgt, cand)
+    f1 = sce_prefetch.sce_gather_fwd(*args, pos)
+    f2 = sce_prefetch.sce_gather_fwd(*args, pos)
+    assert torch.equal(f1[0], f2[0]) and torch.equal(f1[1], f2[1])
+    p1 = sce_prefetch.sce_gather_plse_fwd(*args)
+    assert torch.equal(p1, sce_prefetch.sce_gather_plse_fwd(*args))
+    before = sce_prefetch.sce_gather_dy_sum.launches
+    d1 = sce_prefetch.sce_gather_dy(*args, f1[1], g)
+    d2 = sce_prefetch.sce_gather_dy(*args, f1[1], g)
+    assert sce_prefetch.sce_gather_dy_sum.launches == before + 2
+    assert torch.equal(d1, d2)
+    touched = torch.zeros(y.shape[0], dtype=torch.bool, device=dev)
+    touched[idx.long().reshape(-1)] = True
+    assert (d1[~touched] == 0).all() and (d1[touched] != 0).any()
+    assert torch.equal(sce_prefetch.sce_gather_plse_dy(*args, p1, g),
+                       sce_prefetch.sce_gather_plse_dy(*args, p1, g))
+    y_b = y[idx.long()].contiguous()
+    dy_b = sce_bucket.sce_bucket_dy(x_b, y_b, tgt, cand, f1[1], g)
+    keys, order = sce_prefetch.dy_sum_keys(idx, cand, y.shape[0])
+    summed = sce_prefetch.sce_gather_dy_sum(dy_b.reshape(-1, y.shape[1]),
+                                            keys, order, torch.zeros_like(y))
+    assert torch.equal(summed, d1)
+    _close(summed, sce_prefetch.dy_sum_plain(dy_b.reshape(-1, y.shape[1]),
+                                             idx, cand, y.shape[0]),
+           rtol=2e-4)
+
+
 # ---------------------------------------------------------------------------
 # sce_gather_plse: the partial LSE, its dX and dY
 # ---------------------------------------------------------------------------
@@ -872,9 +1046,10 @@ def test_linear_ce_forward_matches_plain_at_the_trainer_scale(dev, pluck):
     (logits up to ≈ 110), no cap, a catalog long enough for many splits:
     the loss and lse within ``1e-5·max|want|`` of the plain version
     evaluated in f64. Rows whose target lies outside ``[0, C)`` (−1, and
-    C + 3, inside the plain version's last chunk, where it plucks the
-    masked −1e30 as the JAX kernel does) pluck 0, as the kernels promise:
-    their loss is exactly the lse."""
+    C + 3, inside the plain version's last chunk's padding) pluck 0 on
+    both, the contract of ``ops.linear_ce_loss``: the kernel's loss is
+    exactly its lse there, and within the tolerance of the plain
+    version's on every row."""
     n, c = 4_096, 60_000
     x, w, t, _ = _ce_problem(dev, 85, n, c, 64)
     out = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -887,7 +1062,7 @@ def test_linear_ce_forward_matches_plain_at_the_trainer_scale(dev, pluck):
     if pluck:
         loss, lse = linear_sce.linear_ce_fwd(x, w, t, planes=planes)
         want = ref.linear_ce_loss_ref(x.double(), w.double(), t)
-        _close(loss[~out], want[~out].float())
+        _close(loss, want.float())
         assert torch.equal(loss[out], lse[out])
     else:
         lse = fused_ce.fused_lse_fwd(x, w, planes=planes)

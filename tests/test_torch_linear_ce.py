@@ -142,6 +142,33 @@ def test_fused_lse_and_its_plain_backward_match_kernel(name):
     _close(dw.numpy(), kernel[2], rtol=2e-4)
 
 
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_linear_ce_loss_out_of_range_targets_pluck_zero(cap):
+    """The contract of ``ops.linear_ce_loss`` on the CPU, as on the card: a
+    target outside ``[0, C)`` — −1, C, and C + 3, which lies inside the
+    plain version's last chunk's padding (C = 300 in chunks of 64) — plucks
+    0, so its loss is exactly the row's lse, and the gradients are finite
+    and those of the lse alone on such rows."""
+    x, w, t, g, _ = _problem("ragged_c")
+    c = w.shape[0]
+    assert c % CHUNK and c + 3 < -(-c // CHUNK) * CHUNK
+    out = np.zeros(len(t), dtype=bool)
+    for i, bad in enumerate((-1, c, c + 3)):
+        t[i::5] = bad
+        out[i::5] = True
+    xt, wt, tt, gt = map(torch.from_numpy, (x, w, t, g))
+    leaves = [a.clone().requires_grad_(True) for a in (xt, wt)]
+    loss = ops.linear_ce_loss(*leaves, tt, logit_softcap=cap, block_c=CHUNK)
+    grads = torch.autograd.grad((loss * gt).sum(), leaves)
+    lse = ref.fused_lse_ref(xt, wt, logit_softcap=cap, chunk=CHUNK)
+    assert torch.equal(loss.detach()[out], lse[out])
+    assert all(torch.isfinite(a).all() for a in grads)
+    lse_leaves = [a.clone().requires_grad_(True) for a in (xt, wt)]
+    lse_rows = ref.fused_lse_ref(*lse_leaves, logit_softcap=cap, chunk=CHUNK)
+    want_dx = torch.autograd.grad((lse_rows * gt).sum(), lse_leaves)[0]
+    _close(grads[0][out].numpy(), want_dx[out].numpy(), rtol=2e-4)
+
+
 def test_plain_versions_chunk_invariant():
     """The chunk changes the fold order only: every chunk, one whole-catalog
     chunk included, gives the same loss within f32 noise."""

@@ -1,4 +1,5 @@
-"""The arithmetic of the 3xTF32 in-bucket SCE backward, on the CPU.
+"""The arithmetic of the 3xTF32 in-bucket SCE forward and backward, on
+the CPU.
 
 ``csrc/sce_gather.cu``'s dX and dY kernels (behind ``sce_gather_loss``,
 ``sce_gather_plse`` and their ``sce_bucket`` twins) take both products on
@@ -29,6 +30,21 @@ card that the chip tolerance holds:
 - the card-free copy of the backward's launch plan
   (``sce_prefetch.bwd_plan``) fits a block's 232,448 bytes of shared
   memory for every d ≤ 256, and two blocks share an SM at d = 64.
+
+The forward kernel takes its logits with the same arithmetic (positions
+as the A operand, candidates as B, the same split and k16 steps), then
+the softcap, the mask by select (``NEG_INF``) and an online logsumexp
+over 64-candidate tiles from ``(pos, 1)`` (the loss) or ``(NEG_INF, 0)``
+(the partial LSE). ``_tf32x3_forward`` models it:
+
+- held to the f64 plain versions (loss and lse, or plse, within
+  ``1e-5·max|want|``; rows with no unmasked candidate exactly ``−1e30``)
+  on the cases above, and to the JAX kernels' forward (interpret mode);
+- the model's lse with the model's dX lands nearer the f64 gradient than
+  the f32 plain lse with it: the lse and the backward's ``exp(l − lse)``
+  now come from the same logits (at the trainer's logit scale);
+- the card-free copy of the forward's launch plan
+  (``sce_prefetch.fwd_plan``) fits 232,448 bytes for every d ≤ 256.
 """
 import jax
 import jax.numpy as jnp
@@ -82,6 +98,47 @@ def _tf32x3_backward(x_b, y, idx, tgt, cand, lse, g, cap):
     dy = torch.zeros_like(y).index_add_(0, rows.reshape(-1),
                                         dy_b.reshape(-1, y.shape[1]))
     return dx, dy
+
+
+NEG_INF = -1e30
+FWD_TILE = 64  # candidates the forward folds at a time
+
+
+def _tf32x3_logits(x_b, y_b, cap):
+    """The capped logits both kernels take: split rows, k16 steps."""
+    xh, xl = _split(x_b)
+    yh, yl = _split(y_b)
+    s = _mm3(xh, xl, yh.transpose(1, 2), yl.transpose(1, 2))
+    return s if cap is None else cap * torch.tanh(s / cap)
+
+
+def _tf32x3_forward(x_b, y, idx, tgt, cand, pos, cap):
+    """The forward kernel's arithmetic: ``(loss, lse)`` with ``pos``, the
+    plse without. The logits of ``_tf32x3_backward``, the mask by select,
+    then the online ``(m, s)`` over 64-candidate tiles; a tile whose
+    columns are all masked adds nothing to a row with no finite max yet.
+    """
+    rows = idx.long().clamp(0, y.shape[0] - 1)
+    lg = _tf32x3_logits(x_b, y[rows], cap)
+    masked = (cand[:, None, :] < 0) | (cand[:, None, :] == tgt[:, :, None])
+    lv = torch.where(masked, NEG_INF, lg)
+    if pos is None:
+        m = torch.full(x_b.shape[:2], NEG_INF)
+        s = torch.zeros(x_b.shape[:2])
+    else:
+        m, s = pos.clone(), torch.ones(x_b.shape[:2])
+    for t0 in range(0, lv.shape[-1], FWD_TILE):
+        blk = lv[..., t0:t0 + FWD_TILE]
+        mn = torch.maximum(m, blk.amax(-1))
+        live = mn > NEG_INF
+        se = torch.where(blk > NEG_INF, torch.exp(blk - mn[..., None]),
+                         0.0).sum(-1)
+        s = torch.where(live, s * torch.exp(m - mn) + se, s)
+        m = torch.where(live, mn, m)
+    if pos is None:
+        return m + torch.log(torch.clamp(s, min=1e-30))
+    lse = m + torch.log(s)
+    return lse - pos, lse
 
 
 def _close(got, want, rtol=2e-4):
@@ -218,9 +275,95 @@ def test_backward_launch_plan_fits_the_card():
         warps, smem = sce_prefetch.bwd_plan(d)
         assert warps in (1, 2, 4)
         assert smem <= sce_prefetch.MAX_SMEM
-        assert sce_prefetch.planned_smem(d) == max(smem,
-                                                   sce_prefetch.fwd_smem(d))
+        assert sce_prefetch.planned_smem(d) == max(
+            smem, sce_prefetch.fwd_plan(d)[1])
         assert sce_prefetch.planned_smem(d) <= sce_prefetch.MAX_SMEM
     # d = 64: two blocks of four warps share an SM (228 KB, 1 KB a block)
     assert sce_prefetch.bwd_plan(64) == (4, 107_904)
     assert 2 * (107_904 + 1024) <= 233_472
+
+
+@pytest.mark.parametrize("plse", [False, True])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_tf32x3_forward_holds_the_chip_tolerance(name, plse):
+    x_b, y, idx, tgt, cand, pos, g, cap = _problem(name, plse)
+    args = (idx, tgt, cand)
+    got = _tf32x3_forward(x_b, y, *args, None if plse else pos, cap)
+    want, _ = _autograd(plse, x_b.double(), y.double(), *args, pos.double(),
+                        g.double(), cap)
+    assert want.dtype == torch.float64
+    if plse:
+        dead = want <= -1e29
+        assert dead.any() and (got[dead] == NEG_INF).all()
+        if not dead.all():  # "d4" has one bucket, and it owns nothing
+            _close(got[~dead], want[~dead].float(), rtol=0.0)
+    else:
+        _close(got[0], want.float(), rtol=0.0)
+        _close(got[1], (want + pos.double()).float(), rtol=0.0)
+
+
+@pytest.mark.parametrize("plse", [False, True])
+@pytest.mark.parametrize("name", sorted(JAX_CASES))
+def test_tf32x3_forward_matches_the_jax_kernel(name, plse):
+    n_b, b_x, b_y, d, c, cap = JAX_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)) + 7)
+    x_b = (4.0 * rng.standard_normal((n_b, b_x, d))).astype(np.float32)
+    y = rng.standard_normal((c, d)).astype(np.float32)
+    idx = rng.integers(0, c, (n_b, b_y)).astype(np.int32)
+    tgt = rng.integers(0, c, (n_b, b_x)).astype(np.int32)
+    cand = idx.copy()
+    cand[:, 0] = tgt[:, 0]
+    cand[:, -1] = -1
+    if plse:
+        cand[:, 1::3] = -1
+    pos = rng.standard_normal((n_b, b_x)).astype(np.float32)
+    kw = dict(block_bx=16, block_by=16, interpret=True, logit_softcap=cap)
+    if plse:
+        want = jops.sce_gather_plse(x_b, y, idx, tgt, cand, **kw)
+    else:
+        want = jops.sce_gather_loss(x_b, y, idx, tgt, cand, pos, **kw)
+    want = torch.from_numpy(np.array(want))
+    got = _tf32x3_forward(*map(torch.from_numpy, (x_b, y, idx, tgt, cand)),
+                          None if plse else torch.from_numpy(pos), cap)
+    _close(got if plse else got[0], want, rtol=0.0)
+
+
+@pytest.mark.parametrize("plse", [False, True])
+def test_tf32x3_forward_lse_brings_dx_nearer_f64(plse):
+    """At the trainer's logit scale (x_b 3·randn), the backward's
+    ``exp(l − lse)`` given the lse of the same 3xTF32 logits lands nearer
+    the f64 gradient than given the f32 plain lse, whose logits round
+    otherwise: the fault of two sets of logits, closed by the forward."""
+    x_b, y, idx, tgt, cand, pos, g, cap = _problem("trainer_scale", plse)
+    args = (idx, tgt, cand)
+    rows = idx.long().clamp(0, y.shape[0] - 1)
+    pos = (x_b * y[tgt.long()]).sum(-1)
+    same = _tf32x3_forward(x_b, y, *args, None if plse else pos, cap)
+    same = same if plse else same[1]
+    f32 = _forward_lse(plse, x_b, y, *args, pos, g, cap)
+    _, want = _autograd(plse, x_b.double(), y.double(), *args, pos.double(),
+                        g.double(), cap)
+    errs = []
+    for lse in (same, f32):
+        dx, _ = _tf32x3_backward(x_b, y, *args, lse, g, cap)
+        _close(dx, want[0].float())
+        errs.append((dx.double() - want[0]).abs().max().item())
+    assert errs[0] < errs[1], errs
+    # every unmasked logit lies at or below the lse of its row
+    lg = _tf32x3_logits(x_b, y[rows], cap)
+    live = (cand[:, None, :] >= 0) & (cand[:, None, :] != tgt[:, :, None])
+    assert (lg - same[..., None])[live].max() <= 1e-5
+
+
+def test_forward_launch_plan_fits_the_card():
+    for d in range(1, sce_prefetch.MAX_D + 1):
+        warps, smem, rows = sce_prefetch.fwd_plan(d)
+        assert 1 <= warps <= sce_prefetch.FWD_MAX_WARPS
+        assert rows % sce_prefetch.FWD_TILE == 0
+        assert sce_prefetch.FWD_TILE <= rows <= sce_prefetch.FWD_MAX_ROWS
+        assert smem <= sce_prefetch.MAX_SMEM
+        assert sce_prefetch.planned_smem(d) >= smem
+    # d = 64: half a bucket of the training shape (160 positions) and its
+    # 256 candidates a block, two blocks an SM (228 KB, 1 KB a block)
+    assert sce_prefetch.fwd_plan(64) == (5, 108_544, 256)
+    assert 2 * (108_544 + 1_024) <= 233_472
