@@ -433,8 +433,12 @@ def unmasked_pairs(tgt, cand):
 
 def bound_ms(n_q, c, d, k, *, valid=True):
     """Least time for the work: inputs read once (q, y, the bool valid
-    mask when there is one), outputs written once, 2·n_q·C·d f32 FLOPs."""
+    mask when there is one), outputs written once, 2·n_q·C·d FLOPs — in
+    3xTF32 on the tensor cores for k ≤ 32 (the tensor-core sweep), as f32
+    FMAs above (the k > 32 chain)."""
     nbytes = 4 * (n_q * d + c * d) + (c if valid else 0) + 8 * n_q * k
+    if k <= 32:
+        return tf32x3_bound(nbytes, 2 * n_q * c * d, 0)[:2]
     return roofline_ms(nbytes, 2 * n_q * c * d)
 
 
@@ -1626,14 +1630,14 @@ def eval_case(name, x, y, t, k, *, c_lo, c_hi, id_offset=0, cap=None,
 
 
 def eval_bounds(b, c, d, k, n_rows):
-    """Least times on these inputs. eval_fused reads x, the catalog, the
-    targets and thresholds once, writes (B, k) values and ids and the two
-    counts, and does 2·B·C·d f32 FLOPs; eval_tgt_gather reads x, the
-    ``n_rows`` distinct target rows and the targets, writes (B,) scores,
-    and does 2·B·d."""
-    fused = roofline_ms(4 * (b * d + c * d + 2 * b) + 8 * b * k + 8 * b,
-                        2 * b * c * d)
-    gather = roofline_ms(4 * (b * d + n_rows * d + b) + 4 * b, 2 * b * d)
+    """Least times on these inputs, both in 3xTF32 on the tensor cores (no
+    LSE: no exps). eval_fused reads x, the catalog, the targets and
+    thresholds once, writes (B, k) values and ids and the two counts, and
+    does 2·B·C·d FLOPs; eval_tgt_gather reads x, the ``n_rows`` distinct
+    target rows and the targets, writes (B,) scores, and does 2·B·d."""
+    fused = tf32x3_bound(4 * (b * d + c * d + 2 * b) + 8 * b * k + 8 * b,
+                         2 * b * c * d, 0)
+    gather = tf32x3_bound(4 * (b * d + n_rows * d + b) + 4 * b, 2 * b * d, 0)
     return fused, gather
 
 
@@ -1766,7 +1770,7 @@ def eval_phase(dev):
     )
     from repro_torch.eval.harness import _keep_and_targets
     from repro_torch.kernels import eval_fused as ek
-    from repro_torch.kernels.mips_topk import plan
+    from repro_torch.kernels.mips_topk import sweep_plan
     from repro_torch.models import sasrec
 
     cfg = make_config()
@@ -1846,9 +1850,10 @@ def eval_phase(dev):
                   f"{m}@{k} streamed {streamed[f'{m}@{k}']} vs dense "
                   f"{dense[f'{m}@{k}']} with {n_amb} ambiguous ranks")
     dense_bytes = 4 * b * cfg.n_items
-    pl = plan(b, cfg.catalog_loss_size, cfg.d_model, max(KS),
-              torch.cuda.get_device_properties(dev).multi_processor_count)
-    scratch_bytes = b * pl.n_split * (8 * max(KS) + 8)
+    pl = sweep_plan(b, cfg.catalog_loss_size, cfg.d_model, max(KS),
+                    torch.cuda.get_device_properties(dev)
+                    .multi_processor_count)
+    scratch_bytes = b * pl.n_split * (8 * max(KS) + 8) + 4 * b
     print(f"  evaluation: {N_EVAL_BATCHES} batches of {b} users × L "
           f"{cfg.max_len}, C {cfg.catalog_loss_size}, in {wall_s:.3f} s "
           f"({n_users} users, {n_users / wall_s:.0f} users/s, host clock); "
@@ -1862,7 +1867,7 @@ def eval_phase(dev):
           f"{(peak - live) / 2**20:.1f} MiB above the {live / 2**20:.1f} MiB "
           f"live before it (torch.cuda.max_memory_allocated; the SASRec "
           f"forward's activations included); eval_fused's split scratch "
-          f"B·S·(8k + 8) B = {scratch_bytes / 2**20:.2f} MiB (S = "
+          f"B·S·(8k + 8) + 4·B B = {scratch_bytes / 2**20:.2f} MiB (S = "
           f"{pl.n_split}); dense scores B·C·4 B = {dense_bytes / 2**20:.1f} "
           f"MiB per batch")
     return {"batches": N_EVAL_BATCHES, "batch": b, "users": n_users,

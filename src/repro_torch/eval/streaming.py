@@ -16,6 +16,7 @@ the plain version (the reference's ``warn`` policy has one).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -113,10 +114,18 @@ def streaming_topk(
     matrix exists. Returned ids are global (``id_offset`` included).
     """
     c = y.shape[0]
-    gids = id_offset + torch.arange(c, device=y.device)
     hi = (id_offset + c) if c_hi is None else c_hi
-    valid = (gids >= c_lo) & (gids < hi)
+    valid = _window(c, c_lo, hi, id_offset, y.device)
     return ops.mips_topk(x, y, min(k, c), valid=valid, id_offset=id_offset)
+
+
+@functools.lru_cache(maxsize=16)
+def _window(c: int, c_lo: int, c_hi: int, id_offset: int, device):
+    """The (C,) bool mask of the rows whose global id ``id_offset + row``
+    lies in ``[c_lo, c_hi)``, made once per window and device (a serving
+    step asks for the same one every request; callers only read it)."""
+    gids = id_offset + torch.arange(c, device=device)
+    return (gids >= c_lo) & (gids < c_hi)
 
 
 def ranks_from_counts(gt, eq) -> np.ndarray:

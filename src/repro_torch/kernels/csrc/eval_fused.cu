@@ -26,38 +26,43 @@
 // The threshold must be the very value the sweep computes for the target
 // column, or eq misses it and every rank is off. The TPU kernel gets it
 // from a gather product of the sweep's own tile shape (a same-shape gemm
-// reduces in the same order). Here both kernels run one fold, fma4 of
-// topk_tile.cuh from 0 over the depths in order: the sweep in its
-// register tiles, eval_tgt_gather in dot_fma. So tgt is bit for bit the
-// swept score of the target column, and eq ≥ 1 on every row whose target
-// is valid.
+// reduces in the same order). Here every score, swept or gathered, is
+// topk_tile.cuh's score_step — 3xTF32 `mma.sync` with the catalog row as
+// A and the query row as B, the same split and k order, k16 steps from
+// zero added in f32 — the sweep in its tiles, eval_tgt_gather in
+// target_scores. So tgt is bit for bit the swept score of the target
+// column, and eq ≥ 1 on every row whose target is valid.
 //
-// What bounds it on an H100. At B = 128 evaluated users, C = 173,520
-// catalog rows, d = 64: 2·128·173,520·64 ≈ 2.84 GFLOP of f32 FMAs, at
-// 67 TFLOP/s 0.042 ms; the catalog read, 44.4 MB at 3.35 TB/s, is
-// 0.013 ms. So the FMA rate bounds it, and at B = 256 more so (0.085 ms).
-// The scores stay f32 FMAs in a fixed order over d (no TF32, no tensor
-// cores): ids, counts and the threshold must equal the plain version's,
-// exactly on integer-valued inputs, where every fold order is exact.
+// What bounds it on an H100. At B = 256 evaluated users, C = 173,520
+// catalog rows, d = 64: 2·256·173,520·64 ≈ 5.7 GFLOP; in 3xTF32 three
+// TF32 passes at 495 TFLOP/s take 0.035 ms (as f32 FMAs 0.085 ms), the
+// LSE's exps 0.011 ms at the SFUs' rate and the catalog read, 44.4 MB at
+// 3.35 TB/s, 0.013 ms: the tensor cores bound it (B = 128: 0.017 ms).
+// Integer-valued inputs below 2¹¹ are their own TF32 `hi` (lo = 0), so
+// ids, counts and the threshold equal the plain version's exactly there.
 // eval_tgt_gather reads B·(2d + 1) floats: a few KB, launch-bound.
 //
 // Design. The TPU kernel carries its merge buffer, its counts and (m, s)
 // in VMEM along a sequential catalog axis; ported so, B = 128 would run
-// one block on one of 132 SMs. It is built as mips_topk is instead:
-//   1. eval_fused_partial_kernel, grid (ceil(B / QB), S): the sweep of
-//      topk_tile.cuh over S catalog splits. On every tile's scores each
-//      thread adds, for its RM rows and 4 columns, the gt/eq comparisons
-//      to per-row register counts and (with_lse) folds softcap(s) of the
-//      valid columns into a per-row (m, s) pair; the scores then feed the
-//      threshold filter and the list merge as in mips_topk. After the
-//      split the 16 threads of a row combine their counts and pairs with
-//      half-warp shuffles in a fixed tree, and the block writes its
-//      (B, S, k) lists, (B, S) counts and (B, S) pairs.
+// one block on one of 132 SMs. It runs mips_topk's k ≤ 32 sweep instead,
+// at every k:
+//   1. τ seeded as for mips_topk (the pre-pass for k ≤ 32 on a catalog of
+//      128 tiles or more, else "no threshold"); eval_sweep_kernel, grid
+//      (ceil(B / QB), S): the tensor-core sweep of topk_tile.cuh over S
+//      catalog splits with the shared threshold. On every tile's scores each thread adds, for
+//      its queries and catalog rows, the gt/eq comparisons to per-query
+//      register counts and (with_lse) folds softcap(s) of the valid
+//      columns into a per-query (m, s) pair, before the filter. After the
+//      split the 8 lanes of a query combine their counts and pairs with
+//      shuffles in a fixed tree, the warps of the block in warp order, and
+//      the block writes its (B, S, k) lists, (B, S) counts and pairs.
 //   2. eval_fused_merge_kernel, one block per row: the merge of the S
-//      lists of mips_topk, ID_PAD where the value is NEG_INF; one thread
-//      sums the counts and folds the pairs in split order.
-// No atomics touch global memory: the result is deterministic. k ≤ 512,
-// d ≤ 256; k may exceed the valid columns.
+//      lists of mips_topk (from the entries at or above the final τ),
+//      ID_PAD where the value is NEG_INF; one thread sums the counts and
+//      folds the pairs in split order.
+// The lists depend on when each block reads τ, the result does not; the
+// counts and pairs are folded in a fixed order: every output is
+// deterministic. k ≤ 512, d ≤ 256; k may exceed the valid columns.
 //
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -71,20 +76,23 @@ namespace {
 
 using namespace topk_tile;
 
-constexpr int kGatherThreads = 128;
-
-__global__ void __launch_bounds__(kGatherThreads)
+__global__ void __launch_bounds__(32 * kTargetWarps)
 eval_tgt_gather_kernel(const float* __restrict__ x,
                        const float* __restrict__ y,
                        const int* __restrict__ targets,
                        float* __restrict__ out, int n, int c, int d,
                        int id_offset) {
-  const int r = blockIdx.x * kGatherThreads + threadIdx.x;
-  if (r >= n) return;
-  const long local = (long)targets[r] - id_offset;
-  out[r] = local >= 0 && local < c
-               ? dot_fma(x + (long)r * d, y + local * d, d)
-               : 0.f;
+  target_scores(x, y, targets, out, n, c, d, id_offset);
+}
+
+cudaError_t launch_target_scores(const float* x, const float* y,
+                                 const int* targets, float* out, int n, int c,
+                                 int d, int id_offset, cudaStream_t s) {
+  if (n <= 0 || c <= 0 || d <= 0 || d > kMaxD) return cudaErrorInvalidValue;
+  const int rows = 8 * kTargetWarps;
+  eval_tgt_gather_kernel<<<(n + rows - 1) / rows, 32 * kTargetWarps, 0, s>>>(
+      x, y, targets, out, n, c, d, id_offset);
+  return cudaGetLastError();
 }
 
 // (m, s) of two disjoint column sets → (m, s) of their union.
@@ -98,90 +106,128 @@ __device__ __forceinline__ void lse_combine(float& m, float& s, float m2,
 // SELF: eval_fused's self-column rule (the target's own column never in
 // gt, always in eq). Without it (eval_topk) the counts go by score alone
 // and `targets` is not read.
-template <int RM, int SLOTS, bool LSE, bool SELF>
-__global__ void __launch_bounds__(kThreads)
-eval_fused_partial_kernel(Sweep a, const float* __restrict__ tgt,
-                          const int* __restrict__ targets,
-                          int* __restrict__ part_cnt,
-                          float* __restrict__ part_ms, float cap) {
+template <int NQT, int SLOTS, bool LSE, bool SELF>
+__global__ void __launch_bounds__(Cfg<NQT>::kThreads, Cfg<NQT>::kMinBlocks)
+eval_sweep_kernel(Sweep a, const float* __restrict__ tgt,
+                  const int* __restrict__ targets, int* __restrict__ part_cnt,
+                  float* __restrict__ part_ms, float cap) {
+  using C = Cfg<NQT>;
+  constexpr int QB = C::kQB, NT = C::kNT, MT = C::kMT, WM = C::kWM;
   extern __shared__ float4 smem4[];
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-  const int row0 = blockIdx.x * 16 * RM + ty * RM;
-  float t_r[RM];
-  int id_r[RM];
-  int gt[RM], eq[RM];
-  float m[RM], s[RM];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2;
+  const int qd = lane & 3;
+  const int wm = warp % WM;
+  const int wn = warp / WM;
+  const int row0 = blockIdx.x * QB;
+  // Query 8·(wn·NT + nt) + 2q + u of the block, for this thread.
+  auto query = [&](int nt, int u) { return 8 * (wn * NT + nt) + 2 * qd + u; };
+  float t_r[NT][2];
+  int id_r[NT][2];
+  int gt[NT][2], eq[NT][2];
+  float m[NT][2], s[NT][2];
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const bool in = row0 + i < a.n_q;
-    t_r[i] = in ? tgt[row0 + i] : 0.f;
-    id_r[i] = SELF && in ? targets[row0 + i] : -1;
-    gt[i] = 0;
-    eq[i] = 0;
-    m[i] = kNegInf;
-    s[i] = 0.f;
-  }
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = row0 + query(nt, u);
+      const bool in = r < a.n_q;
+      t_r[nt][u] = in ? tgt[r] : 0.f;
+      id_r[nt][u] = SELF && in ? targets[r] : -1;
+      gt[nt][u] = 0;
+      eq[nt][u] = 0;
+      m[nt][u] = kNegInf;
+      s[nt][u] = 0.f;
+    }
 
-  sweep_split<RM, SLOTS>(a, smem4, [&](const float (&acc)[RM][kColsPerThread],
-                                       const int* flags, long c0) {
+  float* red = sweep<NQT, SLOTS>(
+      a, smem4,
+      [&](const float (&acc)[MT][NT][4], const int* flags, long c0) {
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float lv[kColsPerThread];
-      float tile_max = kNegInf;
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        const int cc = tx + 16 * j;
-        const bool ok = flags[cc] != 0;
-        const bool self =
-            SELF && a.id_offset + (int)(c0 + cc) == id_r[i];
-        const float sv = ok ? acc[i][j] : kNegInf;
-        gt[i] += sv > t_r[i] && !self;
-        eq[i] += sv == t_r[i] || (self && ok);
+          for (int u = 0; u < 2; ++u) {
+            float lv[MT][2];
+            float tile_max = kNegInf;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int cc = 16 * (wm * MT + mt) + gq + 8 * h;
+                const float x = acc[mt][nt][2 * h + u];
+                const bool ok = flags[cc] != 0;
+                const bool self =
+                    SELF && a.id_offset + (int)(c0 + cc) == id_r[nt][u];
+                const float sv = ok ? x : kNegInf;
+                gt[nt][u] += sv > t_r[nt][u] && !self;
+                eq[nt][u] += sv == t_r[nt][u] || (self && ok);
+                if (LSE) {
+                  const float v = cap > 0.f ? cap * tanhf(x / cap) : x;
+                  lv[mt][h] = ok ? v : kNegInf;
+                  tile_max = fmaxf(tile_max, lv[mt][h]);
+                }
+              }
+            if (LSE) {
+              const float mn = fmaxf(m[nt][u], tile_max);
+              float add = 0.f;
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  if (flags[16 * (wm * MT + mt) + gq + 8 * h])
+                    add += expf(lv[mt][h] - mn);
+              s[nt][u] = s[nt][u] * expf(m[nt][u] - mn) + add;
+              m[nt][u] = mn;
+            }
+          }
+      });
+
+  // The 8 lanes of a query (gq = 0..7) in a fixed shuffle tree, then the
+  // WM warps of its column in warp order through the free tile ring.
+  int* r_gt = reinterpret_cast<int*>(red);  // (WM, QB) each
+  int* r_eq = r_gt + WM * QB;
+  float* r_m = reinterpret_cast<float*>(r_eq + WM * QB);
+  float* r_s = r_m + WM * QB;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        gt[nt][u] += __shfl_xor_sync(kFull, gt[nt][u], off);
+        eq[nt][u] += __shfl_xor_sync(kFull, eq[nt][u], off);
         if (LSE) {
-          const float v = cap > 0.f ? cap * tanhf(acc[i][j] / cap) : acc[i][j];
-          lv[j] = ok ? v : kNegInf;
-          tile_max = fmaxf(tile_max, lv[j]);
+          const float m2 = __shfl_xor_sync(kFull, m[nt][u], off);
+          const float s2 = __shfl_xor_sync(kFull, s[nt][u], off);
+          lse_combine(m[nt][u], s[nt][u], m2, s2);
         }
       }
-      if (LSE) {
-        const float mn = fmaxf(m[i], tile_max);
-        float add = 0.f;
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j)
-          if (flags[tx + 16 * j]) add += expf(lv[j] - mn);
-        s[i] = s[i] * expf(m[i] - mn) + add;
-        m[i] = mn;
+      if (gq == 0) {
+        const int o = wm * QB + query(nt, u);
+        r_gt[o] = gt[nt][u];
+        r_eq[o] = eq[nt][u];
+        r_m[o] = m[nt][u];
+        r_s[o] = s[nt][u];
       }
     }
-  });
-
-  // The 16 threads of a row group are the lanes of one half-warp.
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      gt[i] += __shfl_xor_sync(kFull, gt[i], off);
-      eq[i] += __shfl_xor_sync(kFull, eq[i], off);
-      if (LSE) {
-        const float m2 = __shfl_xor_sync(kFull, m[i], off);
-        const float s2 = __shfl_xor_sync(kFull, s[i], off);
-        lse_combine(m[i], s[i], m2, s2);
-      }
+  __syncthreads();
+  const int n_split = gridDim.y;
+  for (int r = threadIdx.x; r < QB; r += C::kThreads) {
+    if (row0 + r >= a.n_q) continue;
+    int g = 0, e = 0;
+    float mm = kNegInf, ss = 0.f;
+    for (int w = 0; w < WM; ++w) {
+      g += r_gt[w * QB + r];
+      e += r_eq[w * QB + r];
+      if (LSE) lse_combine(mm, ss, r_m[w * QB + r], r_s[w * QB + r]);
     }
-  }
-  if (tx == 0) {
-    const int n_split = gridDim.y;
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      if (row0 + i >= a.n_q) continue;
-      const long o = (long)(row0 + i) * n_split + blockIdx.y;
-      part_cnt[2 * o] = gt[i];
-      part_cnt[2 * o + 1] = eq[i];
-      if (LSE) {
-        part_ms[2 * o] = m[i];
-        part_ms[2 * o + 1] = s[i];
-      }
+    const long o = (long)(row0 + r) * n_split + blockIdx.y;
+    part_cnt[2 * o] = g;
+    part_cnt[2 * o + 1] = e;
+    if (LSE) {
+      part_ms[2 * o] = mm;
+      part_ms[2 * o + 1] = ss;
     }
   }
 }
@@ -192,6 +238,7 @@ eval_fused_merge_kernel(const float* __restrict__ part_vals,
                         const int* __restrict__ part_ids,
                         const int* __restrict__ part_cnt,
                         const float* __restrict__ part_ms,
+                        const int* __restrict__ tau,
                         float* __restrict__ vals, int* __restrict__ ids,
                         int* __restrict__ gt, int* __restrict__ eq,
                         float* __restrict__ m_out, float* __restrict__ s_out,
@@ -200,7 +247,8 @@ eval_fused_merge_kernel(const float* __restrict__ part_vals,
   const int row = blockIdx.x;
   // The last thread folds the counts and pairs while warp 0 ends the
   // list merge.
-  merge_split_lists<SLOTS>(part_vals, part_ids, vals, ids, n_split, k, smem4);
+  merge_row_lists<SLOTS>(part_vals, part_ids, vals, ids, n_split, k, tau,
+                         smem4);
   if (threadIdx.x == kThreads - 1) {
     int g = 0, e = 0;
     float m = kNegInf, s = 0.f;
@@ -233,26 +281,41 @@ struct EvalOut {
   float cap;
 };
 
-template <int RM, int SLOTS, bool LSE, bool SELF>
-cudaError_t launch_pair(const Sweep& a, const EvalOut& o, int n_split,
-                        cudaStream_t st) {
-  static bool done[kMaxDevices] = {};
-  const size_t smem = partial_smem_bytes<RM>(a.d, a.k);
+struct Seed {
+  float* uv;  // the pre-pass's union, or null
+  int pre_split, pre_period;
+};
+
+template <int NQT, int SLOTS, bool LSE, bool SELF>
+cudaError_t launch_sweep(const Sweep& a, const EvalOut& o, int n_split,
+                         const Seed& pre, cudaStream_t st) {
+  using C = Cfg<NQT>;
+  static bool done[kMaxDevices] = {}, done_pre[kMaxDevices] = {};
+  const size_t smem = sweep_smem_bytes<NQT>(a.d, a.k);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err =
-      allow_max_smem(eval_fused_partial_kernel<RM, SLOTS, LSE, SELF>, done);
+      allow_max_smem(eval_sweep_kernel<NQT, SLOTS, LSE, SELF>, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n_q + 16 * RM - 1) / (16 * RM), n_split);
-  eval_fused_partial_kernel<RM, SLOTS, LSE, SELF>
-      <<<grid, kThreads, smem, st>>>(
+  err = seed_tau<NQT>(a, pre.uv, pre.pre_split, pre.pre_period, done_pre,
+                      st);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n_q + C::kQB - 1) / C::kQB, n_split);
+  eval_sweep_kernel<NQT, SLOTS, LSE, SELF><<<grid, C::kThreads, smem, st>>>(
       a, o.tgt, o.targets, o.part_cnt, o.part_ms, o.cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   eval_fused_merge_kernel<SLOTS, LSE>
-      <<<a.n_q, kThreads, merge_smem_bytes(a.k), st>>>(
-          a.part_vals, a.part_ids, o.part_cnt, o.part_ms, o.vals, o.ids,
-          o.gt, o.eq, o.m, o.s, n_split, a.k);
+      <<<a.n_q, kThreads, sweep_merge_smem_bytes(a.k), st>>>(
+          a.part_vals, a.part_ids, o.part_cnt, o.part_ms, a.tau, o.vals,
+          o.ids, o.gt, o.eq, o.m, o.s, n_split, a.k);
   return cudaGetLastError();
+}
+
+bool bad_plan(int n, int c, int d, int k, int n_split, int pre_split,
+              int pre_period) {
+  return n <= 0 || c <= 0 || d <= 0 || d > kMaxD || k <= 0 || k > kMaxK ||
+         n_split <= 0 || n_split > 65535 || pre_split < 0 ||
+         pre_split > 65535 || (pre_split > 0 && pre_period < pre_split);
 }
 
 }  // namespace
@@ -264,46 +327,46 @@ extern "C" int eval_tgt_gather_launch(const float* x, const float* y,
                                       const int* targets, float* out, int n,
                                       int c, int d, int id_offset,
                                       void* stream) {
-  if (n <= 0 || c <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  eval_tgt_gather_kernel<<<(n + kGatherThreads - 1) / kGatherThreads,
-                           kGatherThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      x, y, targets, out, n, c, d, id_offset);
-  return (int)cudaGetLastError();
+  return (int)launch_target_scores(x, y, targets, out, n, c, d, id_offset,
+                                   static_cast<cudaStream_t>(stream));
 }
 
-// Launches the partial pass then the merge of eval_fused on `stream`.
+// Launches τ's seeding, the sweep and the merge of eval_fused on `stream`.
 // tgt (n,) f32 thresholds and targets (n,) int32 global ids are inputs;
-// part_vals / part_ids (n, n_split, k), part_cnt (n, n_split, 2) int32
-// and part_ms (n, n_split, 2) f32 are scratch; vals / ids (n, k), gt / eq
-// (n,) int32 and, when with_lse, m / s (n,) f32 the outputs (m, s and
-// part_ms may be null without it). cap ≤ 0 means no softcap. Returns the
-// cudaError_t of the launches (0 on success), and cudaErrorInvalidValue
-// when a partial block would need more than kMaxSmem. Nothing is
-// synchronised and nothing is allocated.
+// part_vals / part_ids (n, n_split, k), part_cnt (n, n_split, 2) int32,
+// part_ms (n, n_split, 2) f32, tau (n,) int32 and uv (n, pre_split, 8·WM)
+// f32 (the pre-pass's union, as mips_topk_launch's) are scratch; vals / ids
+// (n, k), gt / eq (n,) int32 and, when with_lse, m / s (n,) f32 the
+// outputs (m, s and part_ms may be null without it). 8·query_tiles query
+// rows a block; cap ≤ 0 means no softcap. Returns the cudaError_t of the
+// launches (0 on success), and cudaErrorInvalidValue for a plan it does
+// not take (a block above kMaxSmem included). The catalog's tiles go to
+// n_split balanced splits; τ is seeded as in mips_topk_launch (a pre-pass
+// only for k ≤ 32). Nothing is synchronised and nothing is allocated.
 extern "C" int eval_fused_launch(
     const float* x, const float* y, const float* tgt, const int* targets,
-    float* part_vals, int* part_ids, int* part_cnt, float* part_ms,
-    float* vals, int* ids, int* gt, int* eq, float* m, float* s, int n,
-    int c, int d, int k, int rows_per_thread, int n_split, int split_cols,
-    int id_offset, int c_lo, int c_hi, float cap, int with_lse,
-    void* stream) {
-  if (n <= 0 || c <= 0 || d <= 0 || d > kMaxD || k <= 0 || k > kMaxK ||
-      n_split <= 0 || split_cols <= 0 || split_cols % kTileC != 0 ||
-      (long)n_split * split_cols < (long)c ||
+    float* part_vals, int* part_ids, int* part_cnt, float* part_ms, int* tau,
+    float* uv, float* vals, int* ids, int* gt, int* eq, float* m, float* s,
+    int n, int c, int d, int k, int query_tiles, int n_split, int pre_split,
+    int pre_period, int id_offset, int c_lo, int c_hi, float cap,
+    int with_lse, void* stream) {
+  if (bad_plan(n, c, d, k, n_split, pre_split, pre_period) ||
       (with_lse && (m == nullptr || s == nullptr || part_ms == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Sweep a{x, y, nullptr, part_vals, part_ids, n, c, d, k, split_cols,
+  const Sweep a{x, y, nullptr, part_vals, part_ids, tau, n, c, d, k, 0,
                 id_offset, c_lo, c_hi,
-                d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0};
+                d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0,
+                pre_split > 0};
   const EvalOut o{tgt, targets, part_cnt, part_ms, vals, ids, gt, eq, m, s,
                   cap};
-  return (int)dispatch(rows_per_thread, k, [&](auto rm, auto slots) {
-    constexpr int RM = decltype(rm)::value;
+  return (int)dispatch<kSlotsLarge>(query_tiles, k, [&](auto nqt, auto slots) {
+    constexpr int NQT = decltype(nqt)::value;
     constexpr int SLOTS = decltype(slots)::value;
-    return with_lse ? launch_pair<RM, SLOTS, true, true>(a, o, n_split, st)
-                    : launch_pair<RM, SLOTS, false, true>(a, o, n_split, st);
+    const Seed pre{uv, pre_split, pre_period};
+    return with_lse
+               ? launch_sweep<NQT, SLOTS, true, true>(a, o, n_split, pre, st)
+               : launch_sweep<NQT, SLOTS, false, true>(a, o, n_split, pre, st);
   });
 }
 
@@ -312,31 +375,32 @@ extern "C" int eval_fused_launch(
 // the oracle of eval_fused. eval_topk is the sweep above without the
 // self-column rule and without the LSE: gt and eq count by score alone
 // against the caller's tgt. Arguments as eval_fused_launch's, minus the
-// targets, the LSE pair and the cap. eval_tgt_scores is the target score
-// eval_topk compares against: x[r] · y[t_r − id_offset] by the sweep's
-// own fold (dot_fma), so it is bit for bit the swept column; 0 where t_r
-// is outside [id_offset, id_offset + C). The TPU kernel gets those bits
-// from a second full sweep; here one fold chain gives them from a gather
-// of B rows. Each returns the cudaError_t of its launches (0 on success).
+// targets, the LSE pair, part_ms and the cap. eval_tgt_scores is the
+// target score eval_topk compares against: x[r] · y[t_r − id_offset] by
+// the sweep's own score_step (target_scores), so it is bit for bit the
+// swept column; 0 where t_r is outside [id_offset, id_offset + C). The
+// TPU kernel gets those bits from a second full sweep; here one
+// arithmetic gives them from a gather of B rows. Each returns the
+// cudaError_t of its launches (0 on success).
 extern "C" int eval_topk_launch(
     const float* x, const float* y, const float* tgt, float* part_vals,
-    int* part_ids, int* part_cnt, float* vals, int* ids, int* gt, int* eq,
-    int n, int c, int d, int k, int rows_per_thread, int n_split,
-    int split_cols, int id_offset, int c_lo, int c_hi, void* stream) {
-  if (n <= 0 || c <= 0 || d <= 0 || d > kMaxD || k <= 0 || k > kMaxK ||
-      n_split <= 0 || split_cols <= 0 || split_cols % kTileC != 0 ||
-      (long)n_split * split_cols < (long)c)
+    int* part_ids, int* part_cnt, int* tau, float* uv, float* vals, int* ids,
+    int* gt, int* eq, int n, int c, int d, int k, int query_tiles,
+    int n_split, int pre_split, int pre_period, int id_offset, int c_lo,
+    int c_hi, void* stream) {
+  if (bad_plan(n, c, d, k, n_split, pre_split, pre_period))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Sweep a{x, y, nullptr, part_vals, part_ids, n, c, d, k, split_cols,
+  const Sweep a{x, y, nullptr, part_vals, part_ids, tau, n, c, d, k, 0,
                 id_offset, c_lo, c_hi,
-                d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0};
+                d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0,
+                pre_split > 0};
   const EvalOut o{tgt, nullptr, part_cnt, nullptr, vals, ids, gt, eq,
                   nullptr, nullptr, 0.f};
-  return (int)dispatch(rows_per_thread, k, [&](auto rm, auto slots) {
-    constexpr int RM = decltype(rm)::value;
-    constexpr int SLOTS = decltype(slots)::value;
-    return launch_pair<RM, SLOTS, false, false>(a, o, n_split, st);
+  return (int)dispatch<kSlotsLarge>(query_tiles, k, [&](auto nqt, auto slots) {
+    return launch_sweep<decltype(nqt)::value, decltype(slots)::value, false,
+                        false>(a, o, n_split, Seed{uv, pre_split, pre_period},
+                               st);
   });
 }
 
@@ -344,10 +408,6 @@ extern "C" int eval_tgt_scores_launch(const float* x, const float* y,
                                       const int* targets, float* out, int n,
                                       int c, int d, int id_offset,
                                       void* stream) {
-  if (n <= 0 || c <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  eval_tgt_gather_kernel<<<(n + kGatherThreads - 1) / kGatherThreads,
-                           kGatherThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      x, y, targets, out, n, c, d, id_offset);
-  return (int)cudaGetLastError();
+  return (int)launch_target_scores(x, y, targets, out, n, c, d, id_offset,
+                                   static_cast<cudaStream_t>(stream));
 }

@@ -12,35 +12,36 @@
 //
 // What bounds it on an H100. At the serve shapes (C = 173,520 catalog
 // rows, d = 64, k = 10):
-//   * bucket 512: 2·512·173,520·64 ≈ 11.4 GFLOP of f32 FMAs — above the
-//     card's balance point, so the f32 (non-tensor-core) FMA rate bounds it;
-//   * bucket 8: the catalog read, 173,520·64·4 B ≈ 44.4 MB, bounds it —
-//     ≈ 178 MFLOP is nothing next to it.
+//   * bucket 512: 2·512·173,520·64 ≈ 11.4 GFLOP; in 3xTF32 three TF32
+//     passes at 495 TFLOP/s, 0.069 ms (as f32 FMAs at 67 TFLOP/s 0.170);
+//   * bucket 8: the catalog read, 173,520·64·4 B ≈ 44.4 MB at 3.35 TB/s,
+//     0.013 ms — ≈ 178 MFLOP is nothing next to it.
 // SCE training's selections (320 bucket centres, k = 320 over 25,600
 // positions and k = 256 over the catalog) are FMA-bound as well.
-// The scores stay f32 FMAs in a fixed order over d (no TF32, no tensor
-// cores): the ids must equal the plain version's, and on integer-valued
-// inputs every fold order is exact, so ties resolve bit for bit.
 //
-// Design for k ≤ 32 (serving). The TPU grid walks the catalog axis
-// sequentially with the merge buffer in VMEM; ported as is, bucket 8
-// would run one block on one of 132 SMs. Here the catalog is split:
-//   1. mips_topk_partial_kernel, grid (ceil(n_q / QB), S): S splits the
-//      catalog (the wrapper's plan, measured on the card). Each block
-//      stages its QB query rows in shared memory once and streams its
-//      split in (64, d) catalog tiles with cp.async into a double buffer,
-//      so the next tile's read overlaps this tile's arithmetic (the bytes
-//      side: bucket 8). Every thread computes an RM×4 register tile of scores
-//      from float4 shared-memory reads — 16·RM FMAs per 4+RM loads (the
-//      FLOP side: bucket 512). It then compares its own scores with its
-//      rows' current k-th entries; only the few that beat them go to a
-//      per-row candidate buffer, and a warp merges those into the row's
-//      sorted top-k list by rank (merge path, topk_tile.cuh). The block
-//      writes its lists as (n_q, S, k) candidates.
-//   2. mips_topk_merge_kernel, one block per row: each of 8 warps merges a
-//      share of the row's S sorted lists the same way, then warp 0 merges
-//      the 8 warp lists and writes ID_PAD wherever the value is NEG_INF
-//      (the exhausted-row rule of topk_merge.py).
+// Design for k ≤ 32 (serving): the tensor-core sweep of topk_tile.cuh.
+//   1. τ, one int per row: sample_kernel over one tile in 8 of the
+//      catalog (strided) keeps each lane's best column, tau_select_kernel
+//      takes the k-th of that union per row (the plan's pre-pass; on a
+//      catalog under 128 tiles, a memset to "no threshold" instead).
+//   2. mips_sweep_kernel, grid (ceil(n_q / QB), S): QB = 8, 32 or 128
+//      query rows a block (the wrapper's plan), S balanced catalog splits.
+//      Scores in 3xTF32 on `mma.sync` (catalog rows as A, queries as B,
+//      so bucket 8 multiplies no zero rows); every valid score at or
+//      above its row's threshold — τ, or the block's own list's k-th
+//      value if higher — goes to a per-row buffer, merged into the row's
+//      sorted list by a warp only when the next tile could overflow it or
+//      at the end; each merge raises τ to the list's k-th value
+//      (atomicMax). A block writes its lists as (n_q, S, k).
+//   3. mips_topk_merge_kernel, one block per row: the threads gather the
+//      row's list entries at or above its final τ, warp 0 rank-merges
+//      them and writes ID_PAD wherever the value is NEG_INF (the
+//      exhausted-row rule of topk_merge.py).
+// The partial lists depend on when each block reads τ; the result does
+// not: a column below τ has k real columns ahead of it, one at τ is kept,
+// and the merges rank by the strict key. Integer-valued inputs below
+// 2¹¹ are their own TF32 `hi` (lo = 0) and sum exactly, so ties resolve
+// bit for bit there.
 //
 // Design for k > 32 (training). A block of the pair above keeps a QB × k
 // list in shared memory, so at k = 320 it holds 16 rows — 5 float4 reads
@@ -72,15 +73,14 @@
 //      independent of the append order.
 //   5. A row that collected more than kcap entries (adversarial input: the
 //      whole top of a row in unsampled tiles) is finished exactly by the
-//      pair above at 16 rows a block, launched unconditionally: its
-//      blocks and merge rows whose rows all fit return at once, so there
-//      is no host synchronisation inside a call.
+//      f32 FMA split sweep below (sweep_split) and its merge at 16 rows a
+//      block, launched unconditionally: its blocks and merge rows whose
+//      rows all fit return at once, so there is no host synchronisation
+//      inside a call.
 // No step truncates. Append order varies between runs, a rank under the
 // strict total key does not: every output is deterministic. k ≤ 512,
-// d ≤ 256.
-//
-// The loader, the pair's score loop, filter, merges and split sweep are
-// the tile code of topk_tile.cuh, which eval_fused.cu shares.
+// d ≤ 256. The chain scores in f32 FMAs, fma4 below, in a fixed order
+// over d.
 //
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -92,12 +92,14 @@ namespace {
 
 using namespace topk_tile;
 
-template <int RM, int SLOTS>
-__global__ void __launch_bounds__(kThreads)
-mips_topk_partial_kernel(Sweep a) {
+// ---------------------------------------------------------------------------
+// k ≤ 32: the tensor-core sweep and its merge
+// ---------------------------------------------------------------------------
+template <int NQT, int SLOTS>
+__global__ void __launch_bounds__(Cfg<NQT>::kThreads, Cfg<NQT>::kMinBlocks)
+mips_sweep_kernel(Sweep a) {
   extern __shared__ float4 smem4[];
-  sweep_split<RM, SLOTS>(a, smem4, [](const float (&)[RM][kColsPerThread],
-                                      const int*, long) {});
+  sweep<NQT, SLOTS>(a, smem4, [](const auto&, const int*, long) {});
 }
 
 template <int SLOTS>
@@ -105,29 +107,286 @@ __global__ void __launch_bounds__(kThreads)
 mips_topk_merge_kernel(const float* __restrict__ part_vals,
                        const int* __restrict__ part_ids,
                        float* __restrict__ vals, int* __restrict__ ids,
-                       int n_split, int k) {
+                       int n_split, int k, const int* __restrict__ tau) {
   extern __shared__ float4 smem4[];
-  merge_split_lists<SLOTS>(part_vals, part_ids, vals, ids, n_split, k,
-                           smem4);
+  merge_row_lists<SLOTS>(part_vals, part_ids, vals, ids, n_split, k, tau,
+                         smem4);
 }
 
-// The partial pass at block height RM, then the merge, both at list
-// width SLOTS.
-template <int RM, int SLOTS>
-cudaError_t launch_pair(const Sweep& a, float* vals, int* ids, int n_split,
-                        cudaStream_t s) {
-  static bool done[kMaxDevices] = {};
-  const size_t smem = partial_smem_bytes<RM>(a.d, a.k);
+// τ seeded (the pre-pass when pre_split > 0), the sweep, the merge.
+template <int NQT, int SLOTS>
+cudaError_t launch_sweep(const Sweep& a, float* uv, float* vals, int* ids,
+                         int n_split, int pre_split, int pre_period,
+                         cudaStream_t s) {
+  using C = Cfg<NQT>;
+  static bool done[kMaxDevices] = {}, done_pre[kMaxDevices] = {};
+  const size_t smem = sweep_smem_bytes<NQT>(a.d, a.k);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = allow_max_smem(mips_topk_partial_kernel<RM, SLOTS>, done);
+  cudaError_t err = allow_max_smem(mips_sweep_kernel<NQT, SLOTS>, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n_q + 16 * RM - 1) / (16 * RM), n_split);
-  mips_topk_partial_kernel<RM, SLOTS><<<grid, kThreads, smem, s>>>(a);
+  err = seed_tau<NQT>(a, uv, pre_split, pre_period, done_pre, s);
+  if (err != cudaSuccess) return err;
+  mips_sweep_kernel<NQT, SLOTS>
+      <<<dim3((a.n_q + C::kQB - 1) / C::kQB, n_split), C::kThreads, smem,
+         s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mips_topk_merge_kernel<SLOTS><<<a.n_q, kThreads, merge_smem_bytes(a.k), s>>>(
-      a.part_vals, a.part_ids, vals, ids, n_split, a.k);
+  mips_topk_merge_kernel<SLOTS>
+      <<<a.n_q, kThreads, sweep_merge_smem_bytes(a.k), s>>>(
+          a.part_vals, a.part_ids, vals, ids, n_split, a.k, a.tau);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The f32 FMA tile code of the k > 32 chain: the fold of its passes and
+// the split sweep that finishes a row whose collect overflowed.
+// ---------------------------------------------------------------------------
+constexpr int kTileC = 64;         // catalog rows per tile
+constexpr int kColsPerThread = 4;  // columns tx + 16*j of the tile
+
+// One step of a score's fold: four depths, four fmaf, in this order.
+// Every score is this step applied from 0 over the depths 0 .. 4·d4 − 1,
+// with zeros past d.
+__device__ __forceinline__ float fma4(float4 a, float4 w, float s) {
+  s = fmaf(a.x, w.x, s);
+  s = fmaf(a.y, w.y, s);
+  s = fmaf(a.z, w.z, s);
+  s = fmaf(a.w, w.w, s);
+  return s;
+}
+
+// Shared-memory pitch of a staged row, in floats: d rounded up to float4s,
+// an odd number of them, so the 8 lanes of a quarter-warp that read 8
+// different rows at the same depth with one 16-byte load each hit 8
+// different bank groups.
+__host__ __device__ inline int row_pitch(int d) {
+  const int d4 = (d + 3) / 4;
+  return 4 * (d4 | 1);
+}
+
+// Shared memory of one partial block of 16·RM query rows: staged queries
+// and two catalog tiles, the tiles' valid flags, per-row candidate
+// counts, per-row candidate buffers and the per-row (value, id) lists.
+template <int RM>
+size_t partial_smem_bytes(int d, int k) {
+  constexpr int QB = 16 * RM;
+  const size_t p = row_pitch(d);
+  return sizeof(float) * (QB * p + 2 * kTileC * p) +  // queries, 2 tiles
+         sizeof(int) * (2 * kTileC + QB) +             // valid flags, counts
+         (sizeof(float) + sizeof(int)) * QB * (kTileC + (size_t)k);
+}
+
+// Starts the cp.async copy of catalog rows [c0, c0 + nc) into a staged
+// tile at pitch p: 16-byte copies when `vec` (d % 4 == 0, y aligned),
+// else 4-byte ones. The depth padding [d, 4·d4) is never written.
+__device__ __forceinline__ void copy_tile_async(float* dst, const float* y,
+                                                long c0, int nc, int d,
+                                                int d4, int p, int vec,
+                                                int tid) {
+  const float* src = y + c0 * d;
+  if (vec) {
+    for (int e = tid; e < nc * d4; e += kThreads) {
+      const int r = e / d4;
+      const int k4 = e - r * d4;
+      cp_async16(dst + r * p + 4 * k4, src + (long)r * d + 4 * k4);
+    }
+  } else {
+    for (int e = tid; e < nc * d; e += kThreads) {
+      const int r = e / d;
+      cp_async4(dst + r * p + (e - r * d), src + e);
+    }
+  }
+}
+
+// One block's share of a partial pass: the catalog rows of split
+// blockIdx.y against the query rows of row block blockIdx.x.
+struct FmaSweep {
+  const float* q;               // (n_q, d) query rows
+  const float* y;               // (c, d) catalog rows
+  const unsigned char* valid;   // (c,) bool mask, or null
+  float* part_vals;             // (n_q, S, k) split lists
+  int* part_ids;
+  int n_q, c, d, k, split_cols;
+  int id_offset;                // global id of y's first row
+  int c_lo, c_hi;               // global-id window [c_lo, c_hi)
+  int vec;                      // 16-byte tile copies (d % 4 == 0, aligned)
+};
+
+// Column c0 + tid of a tile of nc columns: 1 if it is in the tile, its
+// mask byte (if any) is set and its global id is in the window.
+__device__ __forceinline__ int valid_flag(const FmaSweep& a, long c0, int nc,
+                                          int tid) {
+  if (tid >= nc) return 0;
+  const long gid = (long)a.id_offset + c0 + tid;
+  return (a.valid == nullptr || a.valid[c0 + tid] != 0) && gid >= a.c_lo &&
+         gid < a.c_hi;
+}
+
+// The partial pass of one block (every thread calls). Stages its
+// QB = 16·RM query rows once, streams its split in (64, d) tiles with
+// cp.async into a double buffer, so the next tile's read overlaps this
+// tile's arithmetic, and scores each tile in RM×4 register tiles from
+// float4 shared-memory reads (thread (ty, tx) holds rows ty·RM + i and
+// columns tx + 16·j). `on_tile(acc, flags, c0)` then sees the tile's
+// scores, its 64 valid flags and its first column; its scores that beat
+// their row's current k-th entry go to the row's candidate buffer, and
+// one warp per row merges them into the row's sorted list. The block
+// writes its lists as (n_q, S, k).
+template <int RM, int SLOTS, class OnTile>
+__device__ __forceinline__ void sweep_split(const FmaSweep& a, float4* smem4,
+                                            OnTile&& on_tile) {
+  constexpr int QB = 16 * RM;  // query rows per block
+  constexpr int kRowsPerWarp = QB / kWarps;
+  const int d = a.d;
+  const int k = a.k;
+  const int p = row_pitch(d);
+  const int p4 = p / 4;
+  const int d4 = (d + 3) / 4;
+  float* qs = reinterpret_cast<float*>(smem4);            // (QB, p)
+  float* ys = qs + QB * p;                                // 2 × (kTileC, p)
+  int* vs = reinterpret_cast<int*>(ys + 2 * kTileC * p);  // 2 × (kTileC,)
+  int* cnt = vs + 2 * kTileC;                             // (QB,)
+  float* cv = reinterpret_cast<float*>(cnt + QB);         // (QB, kTileC)
+  int* ci = reinterpret_cast<int*>(cv + QB * kTileC);     // (QB, kTileC)
+  float* lv = reinterpret_cast<float*>(ci + QB * kTileC);  // (QB, k)
+  int* li = reinterpret_cast<int*>(lv + QB * k);           // (QB, k)
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ty = tid >> 4;  // rows ty*RM .. ty*RM + RM-1 of the block
+  const int tx = tid & 15;  // columns tx + 16*j of the tile
+  const int row0 = blockIdx.x * QB;
+  const int split = blockIdx.y;
+  const long col_begin = (long)split * a.split_cols;
+  const long col_end = col_begin + a.split_cols < (long)a.c
+                           ? col_begin + a.split_cols
+                           : (long)a.c;
+  const int n_tiles =
+      col_end > col_begin ? (int)((col_end - col_begin + kTileC - 1) / kTileC)
+                          : 0;
+
+  // Queries, zero-padded to 4·d4 (rows past n_q are all zero), the tiles'
+  // depth padding (never written by cp.async), the lists and the counts.
+  for (int e = tid; e < QB * 4 * d4; e += kThreads) {
+    const int r = e / (4 * d4);
+    const int kk = e - r * 4 * d4;
+    qs[r * p + kk] =
+        row0 + r < a.n_q && kk < d ? a.q[(long)(row0 + r) * d + kk] : 0.f;
+  }
+  const int dpad = 4 * d4 - d;
+  for (int e = tid; e < 2 * kTileC * dpad; e += kThreads) {
+    const int r = e / dpad;
+    ys[r * p + d + (e - r * dpad)] = 0.f;
+  }
+  for (int e = tid; e < QB * k; e += kThreads) {
+    lv[e] = kNegInf;
+    li[e] = kIdPad;
+  }
+  for (int e = tid; e < QB; e += kThreads) cnt[e] = 0;
+
+  // Tile t covers columns [c0, c0 + nc) with c0 = col_begin + 64·t. Its
+  // rows arrive by cp.async one tile ahead; its valid flags are computed
+  // into a register one tile ahead and stored while the previous tile
+  // merges, so neither read stalls the tile before it.
+  auto tile_nc = [col_begin, col_end](int t) {
+    const long c0 = col_begin + (long)t * kTileC;
+    return col_end - c0 < kTileC ? (int)(col_end - c0) : kTileC;
+  };
+  if (n_tiles > 0) {
+    copy_tile_async(ys, a.y, col_begin, tile_nc(0), d, d4, p, a.vec, tid);
+    if (tid < kTileC) vs[tid] = valid_flag(a, col_begin, tile_nc(0), tid);
+  }
+  cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int b = t & 1;
+    int v_next = 0;
+    if (t + 1 < n_tiles) {
+      const long c1 = col_begin + (long)(t + 1) * kTileC;
+      copy_tile_async(ys + (b ^ 1) * kTileC * p, a.y, c1, tile_nc(t + 1), d,
+                      d4, p, a.vec, tid);
+      if (tid < kTileC) v_next = valid_flag(a, c1, tile_nc(t + 1), tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t and the last merge are visible to all
+
+    float acc[RM][kColsPerThread];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = 0.f;
+    const float4* qa = reinterpret_cast<const float4*>(qs) + ty * RM * p4;
+    const float4* yb =
+        reinterpret_cast<const float4*>(ys + b * kTileC * p) + tx * p4;
+#pragma unroll 2
+    for (int k4 = 0; k4 < d4; ++k4) {
+      float4 q4[RM];
+      float4 w[kColsPerThread];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) q4[i] = qa[i * p4 + k4];
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) w[j] = yb[16 * j * p4 + k4];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < kColsPerThread; ++j)
+          acc[i][j] = fma4(q4[i], w[j], acc[i][j]);
+    }
+
+    const long c0 = col_begin + (long)t * kTileC;
+    const int* flags = vs + b * kTileC;
+    on_tile(acc, flags, c0);
+
+    // Keep the scores that beat their row's current k-th entry. A NaN
+    // score (a diverged model) enters as +inf: it ranks above every
+    // number and NaNs among themselves by id, the order in which the plain
+    // version's stable sort (torch.sort) and the reference's lax.top_k
+    // rank NaN, so the same ids are selected; its value reads +inf.
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int r = ty * RM + i;
+      if (row0 + r >= a.n_q) continue;
+      const float tv = lv[r * k + k - 1];
+      const int ti = li[r * k + k - 1];
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) {
+        const int cc = tx + 16 * j;
+        const int id = a.id_offset + (int)(c0 + cc);
+        const float v = acc[i][j] != acc[i][j] ? kPosInf : acc[i][j];
+        if (flags[cc] && precedes(v, id, tv, ti)) {
+          const int slot = atomicAdd(&cnt[r], 1);
+          cv[r * kTileC + slot] = v;
+          ci[r * kTileC + slot] = id;
+        }
+      }
+    }
+    __syncthreads();  // candidates complete; tile b is no longer read
+
+    if (t + 1 < n_tiles && tid < kTileC) vs[(b ^ 1) * kTileC + tid] = v_next;
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int r = warp * kRowsPerWarp + rr;
+      const int n = cnt[r];
+      if (n == 0) continue;  // warp-uniform
+      rank_merge<SLOTS>(lv + r * k, li + r * k, k, cv + r * kTileC,
+                        ci + r * kTileC, n, lane);
+      if (lane == 0) cnt[r] = 0;
+    }
+  }
+  __syncthreads();
+
+  const int n_split = gridDim.y;
+  for (int e = tid; e < QB * k; e += kThreads) {
+    const int r = e / k;
+    const int j = e - r * k;
+    if (row0 + r < a.n_q) {
+      const long o = ((long)(row0 + r) * n_split + split) * k + j;
+      a.part_vals[o] = lv[e];
+      a.part_ids[o] = li[e];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -521,7 +780,7 @@ cudaError_t by_sort_width(int n, F&& f) {
 // row whose collect overflowed; the others return at once.
 template <int SLOTS>
 __global__ void __launch_bounds__(kThreads)
-mips_topk_finish_partial_kernel(Sweep a, const int* __restrict__ count,
+mips_topk_finish_partial_kernel(FmaSweep a, const int* __restrict__ count,
                                 int kcap) {
   extern __shared__ float4 smem4[];
   const int row = blockIdx.x * 16 + threadIdx.x;
@@ -542,7 +801,7 @@ mips_topk_finish_merge_kernel(const float* __restrict__ part_vals,
   extern __shared__ float4 smem4[];
   if (count[blockIdx.x] <= kcap) return;
   merge_split_lists<SLOTS>(part_vals, part_ids, vals, ids, n_split, k,
-                           smem4);
+                           nullptr, smem4);
 }
 
 // Shared memory of the largest launch of select_chain (the wrapper's
@@ -626,7 +885,7 @@ cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
             w.count, w.bv, w.bi, base.kcap, k, vals, ids);
     return cudaGetLastError();
   }));
-  const Sweep fin{base.q, base.y, base.valid, w.part_vals, w.part_ids,
+  const FmaSweep fin{base.q, base.y, base.valid, w.part_vals, w.part_ids,
                   n_q, base.c, base.d, k, fin_split_cols, base.id_offset,
                   base.id_offset, base.id_offset + base.c, base.vec};
   mips_topk_finish_partial_kernel<SLOTS>
@@ -643,31 +902,37 @@ cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
 
 }  // namespace
 
-// Launches the partial pass then the merge on `stream`. part_vals /
-// part_ids are (n_q, n_split, k) scratch, vals / ids the (n_q, k)
-// outputs; valid is a (C,) bool mask (one byte per row) or null.
-// Returns the cudaError_t of the launches (0 on success), and
-// cudaErrorInvalidValue when a partial block would need more than
-// kMaxSmem (the wrapper's plan keeps it under). Nothing is synchronised
-// and nothing is allocated.
+// The k ≤ 32 sweep on `stream`: τ seeded — by the pre-pass over tiles s,
+// s + pre_period, … of pre_split splits and its selection, or, when
+// pre_split is 0, as "no threshold" — the sweep over n_split balanced
+// splits of the catalog's tiles at 8·query_tiles query rows a block, and
+// the merge. part_vals / part_ids are (n_q, n_split, k), tau (n_q,) int32
+// and uv (n_q, pre_split, 8·WM) f32 (WM: 4 for 1 or 4 query tiles, 2 for
+// 16) scratch, vals / ids the (n_q, k) outputs; valid is a
+// (C,) bool mask (one byte per row) or null. Returns the cudaError_t of
+// the launches (0 on success), and cudaErrorInvalidValue for a plan it
+// does not take (a block above kMaxSmem included). Nothing is
+// synchronised and nothing is allocated.
 extern "C" int mips_topk_launch(const float* q, const float* y,
                                 const unsigned char* valid, float* part_vals,
-                                int* part_ids, float* vals, int* ids, int n_q,
-                                int c, int d, int k, int rows_per_thread,
-                                int n_split, int split_cols, int id_offset,
-                                void* stream) {
-  if (n_q <= 0 || c <= 0 || d <= 0 || d > kMaxD || k <= 0 || k > kMaxK ||
-      k > c || n_split <= 0 || split_cols <= 0 || split_cols % kTileC != 0 ||
-      (long)n_split * split_cols < (long)c)
+                                int* part_ids, int* tau, float* uv,
+                                float* vals, int* ids,
+                                int n_q, int c, int d, int k, int query_tiles,
+                                int n_split, int pre_split, int pre_period,
+                                int id_offset, void* stream) {
+  if (n_q <= 0 || c <= 0 || d <= 0 || d > kMaxD || k <= 0 || k > 32 ||
+      k > c || n_split <= 0 || n_split > 65535 || pre_split < 0 ||
+      pre_split > 65535 || (pre_split > 0 && pre_period < pre_split))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // No window: [id_offset, id_offset + c) holds every row.
-  const Sweep a{q, y, valid, part_vals, part_ids, n_q, c, d, k, split_cols,
+  const Sweep a{q, y, valid, part_vals, part_ids, tau, n_q, c, d, k, 0,
                 id_offset, id_offset, id_offset + c,
-                d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0};
-  return (int)dispatch(rows_per_thread, k, [&](auto rm, auto slots) {
-    return launch_pair<decltype(rm)::value, decltype(slots)::value>(
-        a, vals, ids, n_split, s);
+                d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0,
+                pre_split > 0};
+  return (int)dispatch<1>(query_tiles, k, [&](auto nqt, auto slots) {
+    return launch_sweep<decltype(nqt)::value, decltype(slots)::value>(
+        a, uv, vals, ids, n_split, pre_split, pre_period, s);
   });
 }
 

@@ -1,22 +1,36 @@
-// topk_tile.cuh — the catalog-sweep tile code that mips_topk.cu and
-// eval_fused.cu share (Hopper, sm_90a).
+// topk_tile.cuh — the catalog sweep that mips_topk.cu (k ≤ 32) and
+// eval_fused.cu (every k) share, on Hopper's tensor cores (sm_90a), with
+// the list merges of every top-k kernel in both files.
 //
-// Both kernels stream a split of the catalog through shared memory, score
-// it against a block of query rows in f32 register tiles, and keep each
-// row's top-k under the key (value descending, id ascending). What they
-// share lives here:
-//   * the cp.async double-buffered loader of (64, d) catalog tiles;
-//   * the RM×4 register-tile score loop: every score is one chain of
-//     explicit fmaf over the depths in a fixed order (fma4), and
-//     dot_fma runs the very same chain for one (row, column) pair, so a
-//     target score computed alone equals, bit for bit, the score the
-//     sweep computes for that column;
-//   * the threshold filter into a per-row candidate buffer and the
-//     merge-path merge of the candidates into the row's sorted list;
-//   * the merge of a row's S split lists into its final top-k.
-// sweep_split runs one block's share of a partial pass and calls a hook
-// on every tile's scores before the filter: mips_topk passes none,
-// eval_fused counts ranks and folds an online LSE there.
+// The sweep scores a block of query rows against a split of the catalog
+// and keeps each row's top-k under the key (value descending, id
+// ascending):
+//   * the scores are 3xTF32 products on the tensor cores (`mma.sync`
+//     m16n8k8, the split, fragment layouts and k16 steps of
+//     tf32x3_tile.cuh), catalog rows as mma's A (m16) and query rows as
+//     B (n8), so a bucket of 8 queries multiplies no zero rows; the
+//     queries are split once into B fragments in shared memory, the
+//     catalog streams raw through a cp.async double buffer of 64-row
+//     tiles and is split as each A fragment is loaded;
+//   * target_scores runs the very same `score_step` for one (query,
+//     catalog row) pair in the same orientation, split and k order, so a
+//     target score computed alone equals the swept column bit for bit;
+//   * a threshold the splits share, one int per row whose order is the
+//     order of its value. Any k real columns make their k-th a safe bound:
+//     a column scoring below it has k columns ahead of it; columns with
+//     s ≥ τ are kept, so ties still resolve by id. A pre-pass (the same
+//     sweep over a strided sample of the tiles) keeps each lane's best
+//     column, and tau_select_kernel takes the k-th of that union as the
+//     rows' first τ; every block then raises it with atomicMax to its
+//     lists' k-th value (never a pad) and reads it before its filters;
+//   * the filter appends to per-row candidate buffers in shared memory;
+//     a warp merges a row's buffer into the row's sorted list only when
+//     the next tile could overflow it, or at the end of the split, so no
+//     barrier per tile waits on merges;
+//   * a merge kernel reduces a row's S split lists to its top-k from the
+//     entries at or above the final τ.
+// A hook sees every tile's scores before the filter: mips_topk passes
+// none, eval_fused counts ranks and folds an online LSE there.
 
 #pragma once
 
@@ -25,15 +39,15 @@
 
 #include <type_traits>
 
+#include "tf32x3_tile.cuh"
+
 namespace topk_tile {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kPosInf = __builtin_huge_valf();  // a NaN score's rank
 constexpr int kIdPad = 0x7fffffff;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // merge and select blocks
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileC = 64;         // catalog rows per tile
-constexpr int kColsPerThread = 4;  // columns tx + 16*j of the tile
 constexpr int kMaxK = 512;
 constexpr int kMaxD = 256;
 constexpr int kSlotsSmall = 8;  // list entries a lane holds for k ≤ 256
@@ -43,8 +57,8 @@ constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
 // The merge key: a comes before b iff its value is larger, or equal with
-// the lower id. No NaN reaches it: the sweep's filter enters a NaN score
-// as +inf (see sweep_split).
+// the lower id. No NaN reaches it: the sweeps' filters enter a NaN score
+// as +inf.
 __device__ __forceinline__ bool precedes(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
@@ -70,34 +84,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// One step of a score's fold: four depths, four fmaf, in this order.
-// Every score is this step applied from 0 over the depths 0 .. 4·d4 − 1,
-// with zeros past d.
-__device__ __forceinline__ float fma4(float4 a, float4 w, float s) {
-  s = fmaf(a.x, w.x, s);
-  s = fmaf(a.y, w.y, s);
-  s = fmaf(a.z, w.z, s);
-  s = fmaf(a.w, w.w, s);
-  return s;
+// The shared threshold τ of a row as an int whose signed order is the
+// float order of its value (NaN never enters). Memset to 0x80 bytes it
+// reads −3.39e38, below every list value: no threshold yet.
+__device__ __forceinline__ int tau_key(float v) {
+  const int b = __float_as_int(v);
+  return b >= 0 ? b : b ^ 0x7fffffff;
 }
 
-// a · b over d floats by the sweep's own fold (fma4 over zero-padded
-// float4s, in order): bit for bit the score sweep_split computes for the
-// same query row and catalog row.
-__device__ __forceinline__ float dot_fma(const float* a, const float* b,
-                                         int d) {
-  float s = 0.f;
-  for (int k = 0; k < d; k += 4) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      av[u] = k + u < d ? a[k + u] : 0.f;
-      bv[u] = k + u < d ? b[k + u] : 0.f;
-    }
-    s = fma4(make_float4(av[0], av[1], av[2], av[3]),
-             make_float4(bv[0], bv[1], bv[2], bv[3]), s);
-  }
-  return s;
+__device__ __forceinline__ float tau_value(int key) {
+  return __int_as_float(key >= 0 ? key : key ^ 0x7fffffff);
+}
+
+// τ as the other blocks' atomics left it (not a stale cached copy).
+__device__ __forceinline__ int load_tau(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
 }
 
 // Merges n ≤ 64 candidates (cv, ci) into the sorted list (lv, li) of
@@ -192,14 +195,14 @@ __device__ void rank_merge(float* lv, int* li, int k, float* cv, int* ci,
 }
 
 // Streams the `count` pairs (pv[e], pi[e]), 32 per step, through a
-// warp-owned list: the pairs that beat the list's k-th entry are compacted
-// into the warp's 32-slot buffer (bv, bi) and rank-merged. The next 32
-// pairs are read before the current ones are merged, to hide their
-// latency. Every lane calls.
+// warp-owned list: the pairs that beat the list's k-th entry and score
+// at least `floor` are compacted into the warp's 32-slot buffer (bv, bi)
+// and rank-merged. The next 32 pairs are read before the current ones
+// are merged, to hide their latency. Every lane calls.
 template <int SLOTS>
 __device__ void stream_merge(float* lv, int* li, int k, float* bv, int* bi,
                              const float* pv, const int* pi, long count,
-                             int lane) {
+                             float floor, int lane) {
   float tv = lv[k - 1];
   int ti = li[k - 1];
   float s = lane < count ? pv[lane] : kNegInf;
@@ -208,7 +211,7 @@ __device__ void stream_merge(float* lv, int* li, int k, float* bv, int* bi,
     const long e = base + 32 + lane;
     const float s_next = e < count ? pv[e] : kNegInf;
     const int id_next = e < count ? pi[e] : kIdPad;
-    const bool cand = precedes(s, id, tv, ti);
+    const bool cand = s >= floor && precedes(s, id, tv, ti);
     const unsigned mask = __ballot_sync(kFull, cand);
     if (mask) {
       if (cand) {
@@ -226,255 +229,23 @@ __device__ void stream_merge(float* lv, int* li, int k, float* bv, int* bi,
   }
 }
 
-// Shared-memory pitch of a staged row, in floats: d rounded up to float4s,
-// an odd number of them, so the 8 lanes of a quarter-warp that read 8
-// different rows at the same depth with one 16-byte load each hit 8
-// different bank groups.
-__host__ __device__ inline int row_pitch(int d) {
-  const int d4 = (d + 3) / 4;
-  return 4 * (d4 | 1);
-}
-
-// Shared memory of one partial block of 16·RM query rows: staged queries
-// and two catalog tiles, the tiles' valid flags, per-row candidate
-// counts, per-row candidate buffers and the per-row (value, id) lists.
-template <int RM>
-size_t partial_smem_bytes(int d, int k) {
-  constexpr int QB = 16 * RM;
-  const size_t p = row_pitch(d);
-  return sizeof(float) * (QB * p + 2 * kTileC * p) +  // queries, 2 tiles
-         sizeof(int) * (2 * kTileC + QB) +             // valid flags, counts
-         (sizeof(float) + sizeof(int)) * QB * (kTileC + (size_t)k);
-}
-
 // Shared memory of one merge block: a list and a 32-slot buffer per warp.
-inline size_t merge_smem_bytes(int k) {
+__host__ __device__ inline size_t merge_smem_bytes(int k) {
   return (sizeof(float) + sizeof(int)) * kWarps * ((size_t)k + 32);
-}
-
-// Starts the cp.async copy of catalog rows [c0, c0 + nc) into a staged
-// tile at pitch p: 16-byte copies when `vec` (d % 4 == 0, y aligned),
-// else 4-byte ones. The depth padding [d, 4·d4) is never written.
-__device__ __forceinline__ void copy_tile_async(float* dst, const float* y,
-                                                long c0, int nc, int d,
-                                                int d4, int p, int vec,
-                                                int tid) {
-  const float* src = y + c0 * d;
-  if (vec) {
-    for (int e = tid; e < nc * d4; e += kThreads) {
-      const int r = e / d4;
-      const int k4 = e - r * d4;
-      cp_async16(dst + r * p + 4 * k4, src + (long)r * d + 4 * k4);
-    }
-  } else {
-    for (int e = tid; e < nc * d; e += kThreads) {
-      const int r = e / d;
-      cp_async4(dst + r * p + (e - r * d), src + e);
-    }
-  }
-}
-
-// One block's share of a partial pass: the catalog rows of split
-// blockIdx.y against the query rows of row block blockIdx.x.
-struct Sweep {
-  const float* q;               // (n_q, d) query rows
-  const float* y;               // (c, d) catalog rows
-  const unsigned char* valid;   // (c,) bool mask, or null
-  float* part_vals;             // (n_q, S, k) split lists
-  int* part_ids;
-  int n_q, c, d, k, split_cols;
-  int id_offset;                // global id of y's first row
-  int c_lo, c_hi;               // global-id window [c_lo, c_hi)
-  int vec;                      // 16-byte tile copies (d % 4 == 0, aligned)
-};
-
-// Column c0 + tid of a tile of nc columns: 1 if it is in the tile, its
-// mask byte (if any) is set and its global id is in the window.
-__device__ __forceinline__ int valid_flag(const Sweep& a, long c0, int nc,
-                                          int tid) {
-  if (tid >= nc) return 0;
-  const long gid = (long)a.id_offset + c0 + tid;
-  return (a.valid == nullptr || a.valid[c0 + tid] != 0) && gid >= a.c_lo &&
-         gid < a.c_hi;
-}
-
-// The partial pass of one block (every thread calls). Stages its
-// QB = 16·RM query rows once, streams its split in (64, d) tiles with
-// cp.async into a double buffer, so the next tile's read overlaps this
-// tile's arithmetic, and scores each tile in RM×4 register tiles from
-// float4 shared-memory reads (thread (ty, tx) holds rows ty·RM + i and
-// columns tx + 16·j). `on_tile(acc, flags, c0)` then sees the tile's
-// scores, its 64 valid flags and its first column; its scores that beat
-// their row's current k-th entry go to the row's candidate buffer, and
-// one warp per row merges them into the row's sorted list. The block
-// writes its lists as (n_q, S, k).
-template <int RM, int SLOTS, class OnTile>
-__device__ __forceinline__ void sweep_split(const Sweep& a, float4* smem4,
-                                            OnTile&& on_tile) {
-  constexpr int QB = 16 * RM;  // query rows per block
-  constexpr int kRowsPerWarp = QB / kWarps;
-  const int d = a.d;
-  const int k = a.k;
-  const int p = row_pitch(d);
-  const int p4 = p / 4;
-  const int d4 = (d + 3) / 4;
-  float* qs = reinterpret_cast<float*>(smem4);            // (QB, p)
-  float* ys = qs + QB * p;                                // 2 × (kTileC, p)
-  int* vs = reinterpret_cast<int*>(ys + 2 * kTileC * p);  // 2 × (kTileC,)
-  int* cnt = vs + 2 * kTileC;                             // (QB,)
-  float* cv = reinterpret_cast<float*>(cnt + QB);         // (QB, kTileC)
-  int* ci = reinterpret_cast<int*>(cv + QB * kTileC);     // (QB, kTileC)
-  float* lv = reinterpret_cast<float*>(ci + QB * kTileC);  // (QB, k)
-  int* li = reinterpret_cast<int*>(lv + QB * k);           // (QB, k)
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int ty = tid >> 4;  // rows ty*RM .. ty*RM + RM-1 of the block
-  const int tx = tid & 15;  // columns tx + 16*j of the tile
-  const int row0 = blockIdx.x * QB;
-  const int split = blockIdx.y;
-  const long col_begin = (long)split * a.split_cols;
-  const long col_end = col_begin + a.split_cols < (long)a.c
-                           ? col_begin + a.split_cols
-                           : (long)a.c;
-  const int n_tiles =
-      col_end > col_begin ? (int)((col_end - col_begin + kTileC - 1) / kTileC)
-                          : 0;
-
-  // Queries, zero-padded to 4·d4 (rows past n_q are all zero), the tiles'
-  // depth padding (never written by cp.async), the lists and the counts.
-  for (int e = tid; e < QB * 4 * d4; e += kThreads) {
-    const int r = e / (4 * d4);
-    const int kk = e - r * 4 * d4;
-    qs[r * p + kk] =
-        row0 + r < a.n_q && kk < d ? a.q[(long)(row0 + r) * d + kk] : 0.f;
-  }
-  const int dpad = 4 * d4 - d;
-  for (int e = tid; e < 2 * kTileC * dpad; e += kThreads) {
-    const int r = e / dpad;
-    ys[r * p + d + (e - r * dpad)] = 0.f;
-  }
-  for (int e = tid; e < QB * k; e += kThreads) {
-    lv[e] = kNegInf;
-    li[e] = kIdPad;
-  }
-  for (int e = tid; e < QB; e += kThreads) cnt[e] = 0;
-
-  // Tile t covers columns [c0, c0 + nc) with c0 = col_begin + 64·t. Its
-  // rows arrive by cp.async one tile ahead; its valid flags are computed
-  // into a register one tile ahead and stored while the previous tile
-  // merges, so neither read stalls the tile before it.
-  auto tile_nc = [col_begin, col_end](int t) {
-    const long c0 = col_begin + (long)t * kTileC;
-    return col_end - c0 < kTileC ? (int)(col_end - c0) : kTileC;
-  };
-  if (n_tiles > 0) {
-    copy_tile_async(ys, a.y, col_begin, tile_nc(0), d, d4, p, a.vec, tid);
-    if (tid < kTileC) vs[tid] = valid_flag(a, col_begin, tile_nc(0), tid);
-  }
-  cp_async_commit();
-  for (int t = 0; t < n_tiles; ++t) {
-    const int b = t & 1;
-    int v_next = 0;
-    if (t + 1 < n_tiles) {
-      const long c1 = col_begin + (long)(t + 1) * kTileC;
-      copy_tile_async(ys + (b ^ 1) * kTileC * p, a.y, c1, tile_nc(t + 1), d,
-                      d4, p, a.vec, tid);
-      if (tid < kTileC) v_next = valid_flag(a, c1, tile_nc(t + 1), tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile t and the last merge are visible to all
-
-    float acc[RM][kColsPerThread];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = 0.f;
-    const float4* qa = reinterpret_cast<const float4*>(qs) + ty * RM * p4;
-    const float4* yb =
-        reinterpret_cast<const float4*>(ys + b * kTileC * p) + tx * p4;
-#pragma unroll 2
-    for (int k4 = 0; k4 < d4; ++k4) {
-      float4 q4[RM];
-      float4 w[kColsPerThread];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) q4[i] = qa[i * p4 + k4];
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) w[j] = yb[16 * j * p4 + k4];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j)
-          acc[i][j] = fma4(q4[i], w[j], acc[i][j]);
-    }
-
-    const long c0 = col_begin + (long)t * kTileC;
-    const int* flags = vs + b * kTileC;
-    on_tile(acc, flags, c0);
-
-    // Keep the scores that beat their row's current k-th entry. A NaN
-    // score (a diverged model) enters as +inf: it ranks above every
-    // number and NaNs among themselves by id, the order in which the plain
-    // version's stable sort (torch.sort) and the reference's lax.top_k
-    // rank NaN, so the same ids are selected; its value reads +inf.
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = ty * RM + i;
-      if (row0 + r >= a.n_q) continue;
-      const float tv = lv[r * k + k - 1];
-      const int ti = li[r * k + k - 1];
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        const int cc = tx + 16 * j;
-        const int id = a.id_offset + (int)(c0 + cc);
-        const float v = acc[i][j] != acc[i][j] ? kPosInf : acc[i][j];
-        if (flags[cc] && precedes(v, id, tv, ti)) {
-          const int slot = atomicAdd(&cnt[r], 1);
-          cv[r * kTileC + slot] = v;
-          ci[r * kTileC + slot] = id;
-        }
-      }
-    }
-    __syncthreads();  // candidates complete; tile b is no longer read
-
-    if (t + 1 < n_tiles && tid < kTileC) vs[(b ^ 1) * kTileC + tid] = v_next;
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      const int n = cnt[r];
-      if (n == 0) continue;  // warp-uniform
-      rank_merge<SLOTS>(lv + r * k, li + r * k, k, cv + r * kTileC,
-                        ci + r * kTileC, n, lane);
-      if (lane == 0) cnt[r] = 0;
-    }
-  }
-  __syncthreads();
-
-  const int n_split = gridDim.y;
-  for (int e = tid; e < QB * k; e += kThreads) {
-    const int r = e / k;
-    const int j = e - r * k;
-    if (row0 + r < a.n_q) {
-      const long o = ((long)(row0 + r) * n_split + split) * k + j;
-      a.part_vals[o] = lv[e];
-      a.part_ids[o] = li[e];
-    }
-  }
 }
 
 // Merges the n_split sorted lists of row blockIdx.x (every thread
 // calls): each of 8 warps merges a contiguous share of the row's
 // n_split·k entries, then warp 0 merges the 8 warp lists and writes the
 // row's top-k, with ID_PAD wherever the value is NEG_INF (an exhausted
-// row's slots).
+// row's slots). With `tau` (the sweeps' shared thresholds, as keys) an
+// entry below its row's final τ is skipped unread by the merges: it has
+// k columns ahead of it.
 template <int SLOTS>
 __device__ __forceinline__ void merge_split_lists(
     const float* __restrict__ part_vals, const int* __restrict__ part_ids,
     float* __restrict__ vals, int* __restrict__ ids, int n_split, int k,
-    float4* smem4) {
+    const int* __restrict__ tau, float4* smem4) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int row = blockIdx.x;
@@ -490,22 +261,88 @@ __device__ __forceinline__ void merge_split_lists(
   }
   __syncwarp();
 
+  const float floor =
+      tau != nullptr ? tau_value(tau[row]) : -__builtin_huge_valf();
   const long n = (long)n_split * k;
   const long lo = n * warp / kWarps;
   const long hi = n * (warp + 1) / kWarps;
   const float* pv = part_vals + (long)row * n + lo;
   const int* pi = part_ids + (long)row * n + lo;
   stream_merge<SLOTS>(lv, li, k, buf_v + warp * 32, buf_i + warp * 32, pv,
-                      pi, hi - lo, lane);
+                      pi, hi - lo, floor, lane);
   __syncthreads();
 
   if (warp == 0) {
     stream_merge<SLOTS>(lv, li, k, buf_v, buf_i, wl_v + k, wl_i + k,
-                        (long)(kWarps - 1) * k, lane);
+                        (long)(kWarps - 1) * k, floor, lane);
     for (int j = lane; j < k; j += 32) {
       vals[(long)row * k + j] = lv[j];
       ids[(long)row * k + j] = lv[j] == kNegInf ? kIdPad : li[j];
     }
+  }
+}
+
+// The tensor-core sweep's merge of row blockIdx.x's n_split lists (every
+// thread calls): all threads first gather the entries at or above the
+// row's final τ (`tau`, as keys) — every column of the top k is among
+// them, and few others are — into shared memory, then warp 0 rank-merges
+// them 64 at a time and writes the row's top-k, ID_PAD wherever the value
+// is NEG_INF. A row with more than kMergeCap such entries (ties at τ over
+// many splits) takes merge_split_lists. Shared memory:
+// sweep_merge_smem_bytes(k).
+constexpr int kMergeCap = 1024;
+
+inline size_t sweep_merge_smem_bytes(int k) {
+  return merge_smem_bytes(k) + 8 * (size_t)kMergeCap + 16;
+}
+
+template <int SLOTS>
+__device__ __forceinline__ void merge_row_lists(
+    const float* __restrict__ part_vals, const int* __restrict__ part_ids,
+    float* __restrict__ vals, int* __restrict__ ids, int n_split, int k,
+    const int* __restrict__ tau, float4* smem4) {
+  float* sv = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem4) + merge_smem_bytes(k));
+  int* si = reinterpret_cast<int*>(sv + kMergeCap);
+  int* n_keep = si + kMergeCap;
+  const int lane = threadIdx.x & 31;
+  const long row = blockIdx.x;
+  const float floor = tau_value(tau[row]);
+  if (threadIdx.x == 0) *n_keep = 0;
+  __syncthreads();
+  const long n = (long)n_split * k;
+  for (long e = threadIdx.x; e < n; e += kThreads) {
+    const float v = part_vals[row * n + e];
+    const int id = part_ids[row * n + e];
+    if (id != kIdPad && v >= floor) {
+      const int at = atomicAdd(n_keep, 1);
+      if (at < kMergeCap) {
+        sv[at] = v;
+        si[at] = id;
+      }
+    }
+  }
+  __syncthreads();
+  const int m = *n_keep;
+  if (m > kMergeCap) {  // block-uniform
+    merge_split_lists<SLOTS>(part_vals, part_ids, vals, ids, n_split, k, tau,
+                             smem4);
+    return;
+  }
+  if (threadIdx.x >= 32) return;
+  float* lv = reinterpret_cast<float*>(smem4);  // warp 0's list
+  int* li = reinterpret_cast<int*>(lv + kWarps * k);
+  for (int j = lane; j < k; j += 32) {
+    lv[j] = kNegInf;
+    li[j] = kIdPad;
+  }
+  __syncwarp();
+  for (int off = 0; off < m; off += 64)
+    rank_merge<SLOTS>(lv, li, k, sv + off, si + off,
+                      m - off < 64 ? m - off : 64, lane);
+  for (int j = lane; j < k; j += 32) {
+    vals[row * k + j] = lv[j];
+    ids[row * k + j] = lv[j] == kNegInf ? kIdPad : li[j];
   }
 }
 
@@ -525,22 +362,656 @@ cudaError_t allow_max_smem(Kernel kernel, bool (&done)[kMaxDevices]) {
   return err;
 }
 
-// Calls f(RM, SLOTS) with both as std::integral_constant: the block height
-// rows_per_thread ∈ {1, 2, 4} and the list width (8 slots a lane for
-// k ≤ 256, 16 above).
-template <class F>
-cudaError_t dispatch(int rows_per_thread, int k, F&& f) {
-  using S8 = std::integral_constant<int, kSlotsSmall>;
-  using S16 = std::integral_constant<int, kSlotsLarge>;
-  auto by_rm = [&](auto slots) -> cudaError_t {
-    switch (rows_per_thread) {
+// ---------------------------------------------------------------------------
+// The tensor-core sweep
+// ---------------------------------------------------------------------------
+constexpr int kTile = 64;               // catalog rows a streamed tile
+constexpr int kCap = kTile + 32;        // candidate slots a row
+constexpr int kMergeAt = kCap - kTile;  // a row past this merges first
+constexpr int kMergeEager = 8;  // ... and with it every row past this
+
+// dp: the depth rounded up to whole k16 steps (zeros past d).
+__host__ __device__ inline int depth16(int d) { return (d + 15) / 16 * 16; }
+
+// The pitch of a staged catalog row in floats, ≡ 8 mod 32: the 16 lanes
+// of a half-warp that read rows gq = 0..3 and depths 2q, 2q + 1 with one
+// LDS.64 each hit 16 different pairs of banks.
+__host__ __device__ inline int tile_pitch(int d) {
+  return (depth16(d) + 31) / 32 * 32 + 8;
+}
+
+// One block of the sweep: 8·NQT query rows (NQT n8 tiles) against 64-row
+// catalog tiles, split over WM × WN warps; each warp computes MT m16
+// tiles of catalog rows by NT n8 tiles of queries. MIN_BLOCKS blocks
+// share an SM (registers ≤ 65536 / (THREADS·MIN_BLOCKS) a thread).
+template <int NQT>
+struct Cfg {
+  static constexpr int kQB = 8 * NQT;
+  static constexpr int kNT = NQT < 4 ? NQT : 4;
+  static constexpr int kWN = NQT / kNT;
+  static constexpr int kMT = kWN == 4 ? 2 : 1;
+  static constexpr int kWM = kTile / (16 * kMT);
+  static constexpr int kWarps = kWM * kWN;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kMinBlocks = NQT == 1 ? 4 : NQT == 4 ? 2 : 1;
+  static_assert(kWM * kMT * 16 == kTile && kWN * kNT == NQT, "NQT");
+};
+
+// Shared memory of one sweep block: the queries' B fragments (hi, lo),
+// two catalog tiles and their valid flags, the merge requests, and per
+// row a candidate count, a (value, id) list of k and a buffer of kCap.
+template <int NQT>
+inline size_t sweep_smem_bytes(int d, int k) {
+  constexpr size_t QB = Cfg<NQT>::kQB;
+  const size_t dp = depth16(d);
+  return 4 * (2 * QB * dp + 2 * kTile * (size_t)tile_pitch(d) + 2 * kTile +
+              4 + QB + 2 * QB * ((size_t)k + kCap));
+}
+
+// One call of the sweep: grid (ceil(n_q / QB), S); block (x, s) takes
+// the query rows [QB·x, QB·x + QB) and split s: the tiles
+// [⌊s·T / S⌋, ⌊(s + 1)·T / S⌋) of the catalog's T tiles, or, with
+// period > 0, the tiles s, s + period, s + 2·period, … (a pre-pass over a
+// sample: no lists written, only τ published).
+struct Sweep {
+  const float* q;               // (n_q, d) query rows
+  const float* y;               // (c, d) catalog rows
+  const unsigned char* valid;   // (c,) bool mask, or null
+  float* part_vals;             // (n_q, S, k) split lists, or null
+  int* part_ids;
+  int* tau;                     // (n_q,) the shared thresholds, as keys
+  int n_q, c, d, k, period;
+  int id_offset;                // global id of y's first row
+  int c_lo, c_hi;               // global-id window [c_lo, c_hi)
+  int vec;                      // 16-byte tile copies (d % 4 == 0, aligned)
+  int seeded;                   // τ comes from a pre-pass
+};
+
+// Column c0 + tid of a tile of nc columns: 1 if it is in the tile, its
+// mask byte (if any) is set and its global id is in the window.
+__device__ __forceinline__ int valid_flag(const Sweep& a, long c0, int nc,
+                                          int tid) {
+  if (tid >= nc) return 0;
+  const long gid = (long)a.id_offset + c0 + tid;
+  return (a.valid == nullptr || a.valid[c0 + tid] != 0) && gid >= a.c_lo &&
+         gid < a.c_hi;
+}
+
+// Starts the cp.async copy of catalog rows [c0, c0 + nc) into a staged
+// tile at pitch p: 16-byte copies when `vec`, else 4-byte ones; thread
+// tid takes the units tid, tid + n_threads, … of the rows in order, its
+// (row, unit) stepped without a division a unit. The depth padding
+// [d, dp) is never written.
+__device__ __forceinline__ void copy_tile(float* dst, const float* y, long c0,
+                                          int nc, int d, int p, int vec,
+                                          int tid, int n_threads) {
+  const float* src = y + c0 * d;
+  const int w = vec ? 4 : 1;  // floats a copy
+  const int units = d / w;    // copies a row
+  const int dr = n_threads / units;
+  const int du = n_threads - dr * units;
+  int r = tid / units;
+  int u = tid - r * units;
+  while (r < nc) {
+    if (vec) cp_async16(dst + r * p + 4 * u, src + (long)r * d + 4 * u);
+    else cp_async4(dst + r * p + u, src + (long)r * d + u);
+    r += dr;
+    u += du;
+    if (u >= units) {
+      u -= units;
+      ++r;
+    }
+  }
+}
+
+// One k16 step of a score tile: the three TF32 passes of both k8 steps
+// from zero (tf32x3::mma3x2), then acc += them in f32. Every score of the
+// sweep and of target_scores is this step applied from acc = 0 over the
+// depths in order, with zeros past d.
+__device__ __forceinline__ void score_step(float (&acc)[4],
+                                           const uint32_t (&ah)[2][4],
+                                           const uint32_t (&al)[2][4],
+                                           const uint32_t (&bh)[2][2],
+                                           const uint32_t (&bl)[2][2]) {
+  float t[4];
+  tf32x3::mma3x2(t, ah, al, bh, bl);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += t[i];
+}
+
+// The A fragment of one k8 step from the staged rows gq (r0) and gq + 8
+// (r8) at depth 8s + 2q: (A[gq][q], A[gq+8][q], A[gq][q+4], A[gq+8][q+4])
+// with logical k q at physical depth 2q and q + 4 at 2q + 1 (the
+// convention of tf32x3_tile.cuh), split into (hi, lo).
+__device__ __forceinline__ void load_a(uint32_t (&ah)[4], uint32_t (&al)[4],
+                                       const float* r0, const float* r8) {
+  const float2 u = *reinterpret_cast<const float2*>(r0);
+  const float2 v = *reinterpret_cast<const float2*>(r8);
+  tf32x3::split(u.x, ah[0], al[0]);
+  tf32x3::split(v.x, ah[1], al[1]);
+  tf32x3::split(u.y, ah[2], al[2]);
+  tf32x3::split(v.y, ah[3], al[3]);
+}
+
+// The merges of one block: each warp takes rows warp, warp + WARPS, …
+// whose buffer holds more than kMergeEager candidates (all: any) — a
+// merge is asked for by a row past kMergeAt, and then every row that
+// has gathered a few merges too, so that fewer barriers wait on merges. The
+// buffer is first compacted to what can still enter — s ≥ the row's τ
+// and ahead of its list's k-th entry — then rank-merged 64 at a time;
+// a list whose k-th entry is real publishes its value as τ.
+template <int SLOTS, int QB, int WARPS>
+__device__ void merge_rows(float* lv, int* li, float* cv, int* ci, int* cnt,
+                           int k, int* tau, int row0, bool all) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < QB; r += WARPS) {
+    const int n = cnt[r];
+    if (n == 0 || (!all && n <= kMergeEager)) continue;  // warp-uniform
+    float* rv = lv + r * k;
+    int* ri = li + r * k;
+    float* bv = cv + r * kCap;
+    int* bi = ci + r * kCap;
+    const float tv = tau_value(load_tau(tau + row0 + r));
+    const float kv = rv[k - 1];
+    const int ki = ri[k - 1];
+    int m = 0;
+    for (int base = 0; base < n; base += 32) {
+      const int e = base + lane;
+      const float v = e < n ? bv[e] : kNegInf;
+      const int id = e < n ? bi[e] : kIdPad;
+      const bool keep = e < n && v >= tv && precedes(v, id, kv, ki);
+      const unsigned mask = __ballot_sync(kFull, keep);
+      __syncwarp();  // every lane has read its entry before any is moved
+      if (keep) {
+        const int pos = m + __popc(mask & ((1u << lane) - 1u));
+        bv[pos] = v;
+        bi[pos] = id;
+      }
+      m += __popc(mask);
+      __syncwarp();
+    }
+    for (int off = 0; off < m; off += 64)
+      rank_merge<SLOTS>(rv, ri, k, bv + off, bi + off,
+                        m - off < 64 ? m - off : 64, lane);
+    if (lane == 0) {
+      cnt[r] = 0;
+      if (ri[k - 1] != kIdPad) atomicMax(tau + row0 + r, tau_key(rv[k - 1]));
+    }
+    __syncwarp();
+  }
+}
+
+// The sweep of one block (every thread calls). Stages its QB query rows
+// once as split B fragments, streams its tiles by cp.async into a double
+// buffer (the next tile's copy overlaps this tile's products), and scores
+// each tile with score_step. The warp (wm, wn) = (warp % WM, warp / WM)
+// holds, for m16 tile mt, n8 tile nt and accumulator e, the score of
+// catalog row 16·(wm·MT + mt) + gq + 8·(e >> 1) of the tile against query
+// row 8·(wn·NT + nt) + 2q + (e & 1) of the block (lane = 4·gq + q).
+// `on_tile(acc, flags, c0)` then sees the tile's scores, its 64 valid
+// flags and its first column; the filter appends every valid score ≥ its
+// row's threshold — the larger of τ and the list's k-th value — to the
+// row's buffer. One barrier a tile (the copies'); a second only after a
+// tile whose filter left a buffer past kMergeAt, around its merges.
+// Returns the ring of tiles, which the caller may reuse once it returns.
+template <int NQT, int SLOTS, bool SAMPLE = false, class OnTile>
+__device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
+                                        OnTile&& on_tile) {
+  using C = Cfg<NQT>;
+  constexpr int QB = C::kQB, NT = C::kNT, MT = C::kMT, WM = C::kWM;
+  constexpr int THREADS = C::kThreads;
+  const int d = a.d;
+  const int k = a.k;
+  const int dp = depth16(d);
+  const int p = tile_pitch(d);
+  const int k8s = dp / 8;
+  uint4* qf = reinterpret_cast<uint4*>(smem4);  // (NQT, dp / 8, 32)
+  float* ring = reinterpret_cast<float*>(qf + NQT * k8s * 32);  // 2×(64, p)
+  int* flags = reinterpret_cast<int*>(ring + 2 * kTile * p);    // 2 × 64
+  int* mreq = flags + 2 * kTile;  // merge requests by tile mod 3
+  int* cnt = mreq + 4;                                    // (QB,)
+  float* lv = reinterpret_cast<float*>(cnt + QB);         // (QB, k)
+  int* li = reinterpret_cast<int*>(lv + QB * k);          // (QB, k)
+  float* cv = reinterpret_cast<float*>(li + QB * k);      // (QB, kCap)
+  int* ci = reinterpret_cast<int*>(cv + QB * kCap);       // (QB, kCap)
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gq = lane >> 2;
+  const int qd = lane & 3;
+  const int wm = warp % WM;
+  const int wn = warp / WM;
+  const int row0 = blockIdx.x * QB;
+  const int split = blockIdx.y;
+
+  // The queries as B fragments: entry (j, s, lane) holds query row
+  // 8j + gq at depths 8s + 2q, 8s + 2q + 1 as (hi, hi, lo, lo); zeros
+  // past d and past n_q. The tiles' depth padding, the lists, the counts.
+  for (int e = tid; e < NQT * k8s * 64; e += THREADS) {
+    const int u = e & 1;
+    const int l = (e >> 1) & 31;
+    const int js = e >> 6;
+    const int r = row0 + 8 * (js / k8s) + (l >> 2);
+    const int kk = 8 * (js % k8s) + 2 * (l & 3) + u;
+    const float v = r < a.n_q && kk < d ? a.q[(long)r * d + kk] : 0.f;
+    uint32_t* f = reinterpret_cast<uint32_t*>(qf + js * 32 + l);
+    tf32x3::split(v, f[u], f[2 + u]);
+  }
+  for (int e = tid; e < 2 * kTile * (dp - d); e += THREADS) {
+    const int r = e / (dp - d);
+    ring[r * p + d + (e - r * (dp - d))] = 0.f;
+  }
+  for (int e = tid; e < QB * k; e += THREADS) {
+    lv[e] = kNegInf;
+    li[e] = kIdPad;
+  }
+  for (int e = tid; e < QB; e += THREADS) cnt[e] = 0;
+  if (tid < 4) mreq[tid] = 0;
+
+  const long tiles = ((long)a.c + kTile - 1) / kTile;
+  long first, step;
+  int n_tiles;
+  if (a.period == 0) {
+    first = split * tiles / gridDim.y;
+    step = 1;
+    n_tiles = (int)((split + 1) * tiles / gridDim.y - first);
+  } else {
+    first = split;
+    step = a.period;
+    n_tiles = split < tiles ? (int)((tiles - 1 - split) / a.period + 1) : 0;
+  }
+  auto tile_c0 = [first, step](int i) { return (first + i * step) * kTile; };
+  // Starts tile i's copy and returns its valid flag for thread tid < 64,
+  // which the caller stores once the load has landed.
+  auto issue = [&](int i) {
+    const long c0 = tile_c0(i);
+    const int nc = a.c - c0 < kTile ? (int)(a.c - c0) : kTile;
+    copy_tile(ring + (i & 1) * kTile * p, a.y, c0, nc, d, p, a.vec, tid,
+              THREADS);
+    return tid < kTile ? valid_flag(a, c0, nc, tid) : 0;
+  };
+
+  if (n_tiles > 0) {
+    const int f = issue(0);
+    if (tid < kTile) flags[tid] = f;
+  }
+  cp_async_commit();
+  float best[NT][2];  // a pre-pass's: the best of the lane's columns
+  int tk[NT][2];      // the rows' τ as last read
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      best[nt][u] = -kPosInf;
+      tk[nt][u] = (int)0x80808080;
+    }
+  int f_mine = n_tiles > 0 && tid < kTile ? flags[tid] : 1;  // tile i's
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();
+    // Tile i has landed for every thread; tile i − 1 is no longer read and
+    // its candidates are complete. Are all of tile i's columns valid?
+    const int all_valid = __syncthreads_and(tid >= kTile || f_mine);
+    // The next tile's valid flags are read into a register here and stored
+    // after this tile's filter, so their load does not stall the copy.
+    const int f_next = i + 1 < n_tiles ? issue(i + 1) : 0;
+    cp_async_commit();
+    // The rows' τ, read now, used after the products: every tile, or,
+    // when a pre-pass seeded it, every 8th (the blocks' merges raise it
+    // little then).
+    if (!SAMPLE && (!a.seeded || (i & 7) == 0)) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int r = row0 + 8 * (wn * NT + nt) + 2 * qd + u;
+          tk[nt][u] = r < a.n_q ? load_tau(a.tau + r) : (int)0x80808080;
+        }
+    }
+    if (!SAMPLE && mreq[(i + 2) % 3]) {  // tile i − 1 filled a buffer
+      merge_rows<SLOTS, QB, C::kWarps>(lv, li, cv, ci, cnt, k, a.tau, row0,
+                                       false);
+      __syncthreads();
+    }
+    if (tid == 0) mreq[(i + 1) % 3] = 0;  // tile i − 2's, read at i − 1
+
+    const float* tb = ring + (i & 1) * kTile * p;
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll 2
+    for (int s16 = 0; s16 < dp / 16; ++s16) {
+      uint32_t ah[MT][2][4], al[MT][2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const float* r0 = tb + (16 * (wm * MT + mt) + gq) * p + 16 * s16 +
+                            8 * kk + 2 * qd;
+          load_a(ah[mt][kk], al[mt][kk], r0, r0 + 8 * p);
+        }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const uint4 f = qf[((wn * NT + nt) * k8s + 2 * s16 + kk) * 32 + lane];
+          bh[kk][0] = f.x;
+          bh[kk][1] = f.y;
+          bl[kk][0] = f.z;
+          bl[kk][1] = f.w;
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          score_step(acc[mt][nt], ah[mt], al[mt], bh, bl);
+      }
+    }
+
+    const long c0 = tile_c0(i);
+    const int* fl = flags + (i & 1) * kTile;
+    on_tile(acc, fl, c0);
+
+    if constexpr (SAMPLE) {  // a pre-pass keeps each lane's best column
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float x = acc[mt][nt][2 * h + u];
+              if (fl[16 * (wm * MT + mt) + gq + 8 * h])
+                best[nt][u] = fmaxf(best[nt][u], x != x ? kPosInf : x);
+            }
+    } else {
+      // The filter: every valid score at or above its row's threshold — the
+      // larger of τ and the list's k-th value — goes to the row's buffer. A
+      // thread first marks its scores that are not below it and reserves
+      // their slots with one atomicAdd a row, the rows' atomics in flight
+      // together. A NaN score (a diverged model) is not below it and enters
+      // as +inf: it ranks above every number and NaNs among themselves by
+      // id, the order in which the plain version's stable sort (torch.sort)
+      // and the reference's lax.top_k rank NaN; its value reads +inf.
+      int fv[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          fv[mt][h] = fl[16 * (wm * MT + mt) + gq + 8 * h];
+      float thr[NT][2];
+      bool any = false;  // one compare a score when none passes, as most
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int qr = 8 * (wn * NT + nt) + 2 * qd + u;
+          thr[nt][u] = row0 + qr < a.n_q
+                           ? fmaxf(tau_value(tk[nt][u]), lv[qr * k + k - 1])
+                           : kPosInf;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              any |= !(acc[mt][nt][2 * h + u] < thr[nt][u]);
+        }
+      unsigned pass = 0;  // bit ((nt·2 + u)·MT + mt)·2 + h
+      int at[NT][2] = {};
+      if (any) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int qr = 8 * (wn * NT + nt) + 2 * qd + u;
+            int n = 0;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const bool in = row0 + qr < a.n_q &&
+                                (all_valid || fv[mt][h]) &&
+                                !(acc[mt][nt][2 * h + u] < thr[nt][u]);
+                pass |= (unsigned)in << (((nt * 2 + u) * MT + mt) * 2 + h);
+                n += in;
+              }
+            at[nt][u] = n ? atomicAdd(&cnt[qr], n) : 0;
+          }
+      }
+      if (pass) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int qr = 8 * (wn * NT + nt) + 2 * qd + u;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int bit = ((nt * 2 + u) * MT + mt) * 2 + h;
+                if (!(pass >> bit & 1u)) continue;
+                const float x = acc[mt][nt][2 * h + u];
+                const int slot = at[nt][u]++;
+                cv[qr * kCap + slot] = x != x ? kPosInf : x;
+                ci[qr * kCap + slot] =
+                    a.id_offset + (int)(c0 + 16 * (wm * MT + mt) + gq + 8 * h);
+                if (slot == kMergeAt) mreq[i % 3] = 1;
+              }
+          }
+      }
+    }  // SAMPLE
+    if (tid < kTile && i + 1 < n_tiles)
+      flags[((i + 1) & 1) * kTile + tid] = f_next;
+    f_mine = f_next;
+  }
+  if constexpr (SAMPLE) {
+    // The pre-pass's union: per row and block, its 8·WM lanes' bests.
+    const int n_split = gridDim.y;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = row0 + 8 * (wn * NT + nt) + 2 * qd + u;
+        if (r < a.n_q)
+          a.part_vals[((long)r * n_split + split) * (8 * WM) + 8 * wm + gq] =
+              best[nt][u];
+      }
+    return ring;
+  }
+  __syncthreads();  // the last tile's candidates are complete
+  merge_rows<SLOTS, QB, C::kWarps>(lv, li, cv, ci, cnt, k, a.tau, row0, true);
+  __syncthreads();
+
+  if (a.part_vals != nullptr) {
+    const int n_split = gridDim.y;
+    for (int e = tid; e < QB * k; e += THREADS) {
+      const int r = e / k;
+      const int j = e - r * k;
+      if (row0 + r < a.n_q) {
+        const long o = ((long)(row0 + r) * n_split + split) * k + j;
+        a.part_vals[o] = lv[e];
+        a.part_ids[o] = li[e];
+      }
+    }
+  }
+  return ring;
+}
+
+// Each row's target score: x[r] · y[t_r − id_offset] by score_step with
+// the query row as B column gq and the target row as A row gq of an
+// m16n8 tile (rows gq + 8 zero) — the sweep's orientation, split and k
+// order — so it is bit for bit the score the sweep computes for that
+// (query, catalog row) pair; 0 where t_r is outside [id_offset,
+// id_offset + c). One warp a run of 8 rows, kTargetWarps warps a block.
+constexpr int kTargetWarps = 4;
+
+__device__ __forceinline__ void target_scores(const float* x, const float* y,
+                                              const int* targets, float* out,
+                                              int n, int c, int d,
+                                              int id_offset) {
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int qd = lane & 3;
+  const int r0 = (blockIdx.x * kTargetWarps + (threadIdx.x >> 5)) * 8;
+  if (r0 >= n) return;  // warp-uniform
+  const int r = r0 + gq;
+  const long local = r < n ? (long)targets[r] - id_offset : -1;
+  const bool owned = local >= 0 && local < c;
+  const float* xr = x + (long)(r < n ? r : 0) * d;
+  const float* yr = y + (owned ? local : 0) * d;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int s16 = 0; s16 < depth16(d) / 16; ++s16) {
+    uint32_t ah[2][4], al[2][4], bh[2][2], bl[2][2];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int kd = 16 * s16 + 8 * kk + 2 * qd + u;
+        tf32x3::split(r < n && kd < d ? xr[kd] : 0.f, bh[kk][u], bl[kk][u]);
+        tf32x3::split(owned && kd < d ? yr[kd] : 0.f, ah[kk][2 * u],
+                      al[kk][2 * u]);
+        ah[kk][2 * u + 1] = 0u;
+        al[kk][2 * u + 1] = 0u;
+      }
+    score_step(acc, ah, al, bh, bl);
+  }
+  // (row gq, column gq) of the tile: the C register c0 of lane 4·gq + q
+  // for column 2q, c1 for 2q + 1.
+  if (r < n && qd == gq >> 1) out[r] = owned ? acc[gq & 1] : 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// The pre-pass's threshold
+// ---------------------------------------------------------------------------
+// A pre-pass block: the sweep in SAMPLE mode over the tiles s,
+// s + period, … of a strided sample, writing per row the best column of
+// each of its 8·WM lanes (a.part_vals: (n_q, S, 8·WM)). Every entry is a
+// distinct real column or −inf, so the k-th of a row's union, taken by
+// tau_select_kernel, is a safe τ for the sweep: the k-th of ≈ a sample's
+// top, where the blocks' own lists start from nothing.
+template <int NQT>
+__global__ void __launch_bounds__(Cfg<NQT>::kThreads, Cfg<NQT>::kMinBlocks)
+sample_kernel(Sweep a) {
+  extern __shared__ float4 smem4[];
+  sweep<NQT, 1, true>(a, smem4, [](const auto&, const int*, long) {});
+}
+
+// The k-th largest of v[0, n) (k ≤ 32): k times the largest left, one copy
+// removed each time (the lowest lane's); −inf when fewer than k values are
+// above −inf. With `out`, the k values in order. One warp; every lane
+// calls; v is modified.
+__device__ inline float warp_kth(float* v, int n, int k, float* out,
+                                 int lane) {
+  float g = -kPosInf;
+  for (int j = 0; j < k; ++j) {
+    float lm = -kPosInf;
+    int at = -1;
+    for (int e = lane; e < n; e += 32) {
+      if (v[e] > lm) {
+        lm = v[e];
+        at = e;
+      }
+    }
+    g = lm;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      g = fmaxf(g, __shfl_xor_sync(kFull, g, off));
+    const unsigned m = __ballot_sync(kFull, at >= 0 && lm == g);
+    if (m != 0u && lane == __ffs(m) - 1) v[at] = -kPosInf;
+    if (out != nullptr && lane == 0) out[j] = g;
+    __syncwarp();
+  }
+  return g;
+}
+
+inline size_t tau_select_smem_bytes(int n) {
+  return 4 * ((size_t)n + 32 * kWarps);
+}
+
+// τ of row blockIdx.x (every thread calls): the k-th largest (k ≤ 32) of
+// its n pre-pass entries as a key, or "no threshold" when fewer than k are
+// real. Each warp takes the k largest of its share, warp 0 the k-th of
+// theirs. Shared memory: tau_select_smem_bytes(n).
+__global__ void __launch_bounds__(kThreads)
+tau_select_kernel(const float* __restrict__ uv, int n, int k,
+                  int* __restrict__ tau) {
+  extern __shared__ float4 smem4[];
+  float* v = reinterpret_cast<float*>(smem4);
+  float* tops = v + n;  // (kWarps, 32)
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long row = blockIdx.x;
+  for (int e = threadIdx.x; e < n; e += kThreads) v[e] = uv[row * n + e];
+  for (int e = threadIdx.x; e < 32 * kWarps; e += kThreads) tops[e] = -kPosInf;
+  __syncthreads();
+  const int lo = (int)((long)n * warp / kWarps);
+  const int hi = (int)((long)n * (warp + 1) / kWarps);
+  warp_kth(v + lo, hi - lo, k, tops + 32 * warp, lane);
+  __syncthreads();
+  if (warp == 0) {
+    const float g = warp_kth(tops, 32 * kWarps, k, nullptr, lane);
+    if (lane == 0) tau[row] = g > -kPosInf ? tau_key(g) : (int)0x80808080;
+  }
+}
+
+// τ before a sweep: the pre-pass and its selection when pre_split > 0
+// (k ≤ 32; uv: (n_q, pre_split, 8·WM) scratch), else "no threshold" for
+// every row. `done` is the caller's opt-in table for the pre-pass kernel:
+// a static here would be one object in every library a process loads (a
+// template's static local is a unique global symbol), so one library's
+// opt-in would stand for the other's kernel.
+template <int NQT>
+cudaError_t seed_tau(const Sweep& a, float* uv, int pre_split,
+                     int pre_period, bool (&done)[kMaxDevices],
+                     cudaStream_t s) {
+  using C = Cfg<NQT>;
+  if (pre_split == 0)
+    return cudaMemsetAsync(a.tau, 0x80, sizeof(int) * (size_t)a.n_q, s);
+  const int n_union = pre_split * 8 * C::kWM;
+  if (a.k > 32 || uv == nullptr ||
+      tau_select_smem_bytes(n_union) > 48 * 1024)
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_max_smem(sample_kernel<NQT>, done);
+  if (err != cudaSuccess) return err;
+  Sweep pre = a;
+  pre.part_vals = uv;
+  pre.part_ids = nullptr;
+  pre.period = pre_period;
+  sample_kernel<NQT><<<dim3((a.n_q + C::kQB - 1) / C::kQB, pre_split),
+                       C::kThreads, sweep_smem_bytes<NQT>(a.d, a.k), s>>>(
+      pre);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  tau_select_kernel<<<a.n_q, kThreads, tau_select_smem_bytes(n_union), s>>>(
+      uv, n_union, a.k, a.tau);
+  return cudaGetLastError();
+}
+
+// Calls f(NQT, SLOTS) with both as std::integral_constant: the block's
+// n8 query tiles (1, 4 or 16) and the list width (a lane holds 1 entry
+// for k ≤ 32, 8 for k ≤ 256, 16 above; at most MAX_SLOTS).
+template <int MAX_SLOTS, class F>
+cudaError_t dispatch(int query_tiles, int k, F&& f) {
+  auto by_nqt = [&](auto slots) -> cudaError_t {
+    switch (query_tiles) {
       case 1: return f(std::integral_constant<int, 1>{}, slots);
-      case 2: return f(std::integral_constant<int, 2>{}, slots);
       case 4: return f(std::integral_constant<int, 4>{}, slots);
+      case 16: return f(std::integral_constant<int, 16>{}, slots);
       default: return cudaErrorInvalidValue;
     }
   };
-  return k <= 32 * kSlotsSmall ? by_rm(S8{}) : by_rm(S16{});
+  if (k <= 32) return by_nqt(std::integral_constant<int, 1>{});
+  if constexpr (MAX_SLOTS >= kSlotsSmall) {
+    if (k <= 32 * kSlotsSmall)
+      return by_nqt(std::integral_constant<int, kSlotsSmall>{});
+  }
+  if constexpr (MAX_SLOTS >= kSlotsLarge) {
+    if (k <= kMaxK) return by_nqt(std::integral_constant<int, kSlotsLarge>{});
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace topk_tile

@@ -1,10 +1,12 @@
 """The leave-one-out evaluation sweep on the H100 — the wrapper of
 ``csrc/eval_fused.cu`` (port of ``repro/kernels/eval_fused.py``).
 
-:func:`eval_fused` checks its inputs, plans the catalog split with the
-rule of ``mips_topk.plan``, allocates the outputs and the per-split
-scratch, and launches the kernel pair on PyTorch's current stream;
-:func:`eval_tgt_gather` launches the target-score kernel. Both take CUDA
+:func:`eval_fused` checks its inputs, plans the catalog split with
+``mips_topk.sweep_plan`` (the tensor-core sweep it shares with
+``mips_topk``), allocates the outputs, the per-split scratch and the
+rows' shared threshold, and launches the sweep and its merge on
+PyTorch's current stream; :func:`eval_tgt_gather` launches the
+target-score kernel, whose arithmetic is the sweep's. Both take CUDA
 tensors only: the CPU path is ``kernels/ref.py`` (``eval_fused_ref``,
 ``eval_tgt_gather_ref``), chosen by ``kernels/ops.py``.
 ``eval_fused.launches`` and ``eval_tgt_gather.launches`` count the calls
@@ -18,7 +20,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.mips_topk import MAX_D, MAX_K, plan
+from repro_torch.kernels.mips_topk import (MAX_D, MAX_K, SWEEP_WM, n_sm,
+                                          on_device, sweep_plan)
 
 INT32_MAX = 2**31 - 1
 
@@ -68,7 +71,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.eval_tgt_gather_launch.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.eval_tgt_gather_launch.restype = ctypes.c_int
-    lib.eval_fused_launch.argtypes = [p] * 14 + [i] * 10 + [f, i, p]
+    lib.eval_fused_launch.argtypes = [p] * 16 + [i] * 11 + [f, i, p]
     lib.eval_fused_launch.restype = ctypes.c_int
     return lib
 
@@ -79,9 +82,10 @@ def _stream(device) -> int:
 
 def eval_tgt_gather(x, y, targets, *, id_offset: int = 0):
     """Each row's target score ``x[r] · y[targets[r] − id_offset]`` on
-    the card, by the very f32 fold the :func:`eval_fused` sweep runs, so
-    it equals the swept target column bit for bit; 0 where the target is
-    outside ``[id_offset, id_offset + C)``.
+    the card, by the very 3xTF32 ``mma`` sequence (orientation, split, k
+    order) the :func:`eval_fused` sweep runs, so it equals the swept
+    target column bit for bit; 0 where the target is outside
+    ``[id_offset, id_offset + C)``.
 
     x : (n, d) float32, y : (C, d) float32, targets : (n,) int32; all
     contiguous CUDA tensors. → (n,) float32.
@@ -92,7 +96,7 @@ def eval_tgt_gather(x, y, targets, *, id_offset: int = 0):
     if n == 0:
         return out
     lib = _lib()
-    with torch.cuda.device(x.device):
+    with on_device(x.device):
         err = lib.eval_tgt_gather_launch(
             x.data_ptr(), y.data_ptr(), targets.data_ptr(), out.data_ptr(),
             n, y.shape[0], d, id_offset, _stream(x.device),
@@ -151,20 +155,21 @@ def eval_fused(x, y, targets, k: int, *, tgt_scores=None, c_lo: int = 0,
         return vals, ids, gt, eq, empty(0), m, s
     if tgt_scores is None:
         tgt_scores = eval_tgt_gather(x, y, targets, id_offset=id_offset)
-    lib = _lib()
-    pl = plan(n, c, d, k, torch.cuda.get_device_properties(dev)
-              .multi_processor_count)
+    pl = sweep_plan(n, c, d, k, n_sm(dev))
     part_vals = empty(n, pl.n_split, k)
     part_ids = empty(n, pl.n_split, k, dtype=torch.int32)
     part_cnt = empty(n, pl.n_split, 2, dtype=torch.int32)
     part_ms = empty(n, pl.n_split, 2) if with_lse else None
-    with torch.cuda.device(dev):
-        err = lib.eval_fused_launch(
+    tau = empty(n, dtype=torch.int32)
+    uv = empty(n, pl.pre_split * 8 * SWEEP_WM[pl.query_tiles]) \
+        if pl.pre_split else None
+    with on_device(dev):
+        err = _lib().eval_fused_launch(
             *(t.data_ptr() if t is not None else None for t in (
                 x, y, tgt_scores, targets, part_vals, part_ids, part_cnt,
-                part_ms, vals, ids, gt, eq, m, s)),
-            n, c, d, k, pl.rows_per_thread, pl.n_split, pl.split_cols,
-            id_offset, c_lo, c_hi,
+                part_ms, tau, uv, vals, ids, gt, eq, m, s)),
+            n, c, d, k, pl.query_tiles, pl.n_split, pl.pre_split,
+            pl.pre_period, id_offset, c_lo, c_hi,
             float(logit_softcap) if logit_softcap is not None else 0.0,
             int(with_lse), _stream(dev),
         )

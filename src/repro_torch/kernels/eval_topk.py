@@ -12,9 +12,10 @@ The reference keeps these two entries as the oracle of the fused sweep
   over the window ``[c_lo, c_hi)`` with ``id_offset``;
 * :func:`eval_tgt_scores` — each row's target column score, 0 outside
   ``y``'s ids. The TPU kernel sweeps the whole catalog again to get the
-  column's bits; here the shared ``fmaf`` chain of ``topk_tile.cuh``
-  gives the same bits from a gather of one row per user, so the value is
-  bit for bit the column :func:`eval_topk` sweeps.
+  column's bits; here ``topk_tile.cuh``'s ``score_step`` (3xTF32
+  ``mma.sync``, the sweep's orientation, split and k order) gives the
+  same bits from a gather of one row per user, so the value is bit for
+  bit the column :func:`eval_topk` sweeps.
 
 Both take CUDA tensors only: the CPU path is ``kernels/ref.py``
 (``eval_topk_ref``, ``eval_tgt_scores_ref``), chosen by
@@ -30,7 +31,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.eval_fused import INT32_MAX
-from repro_torch.kernels.mips_topk import MAX_D, MAX_K, plan
+from repro_torch.kernels.mips_topk import (MAX_D, MAX_K, SWEEP_WM, n_sm,
+                                          on_device, sweep_plan)
 
 
 def _check(name, x, y, vec, vec_dtype, k=None, id_offset=0):
@@ -72,7 +74,7 @@ def _lib() -> ctypes.CDLL:
     """The built library with the two entries' C signatures declared."""
     lib = _build.load("eval_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.eval_topk_launch.argtypes = [p] * 10 + [i] * 10 + [p]
+    lib.eval_topk_launch.argtypes = [p] * 12 + [i] * 11 + [p]
     lib.eval_topk_launch.restype = ctypes.c_int
     lib.eval_tgt_scores_launch.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.eval_tgt_scores_launch.restype = ctypes.c_int
@@ -97,7 +99,7 @@ def _two_pass_tgt_scores(x, y, targets, *, id_offset: int = 0):
     out = torch.empty((n,), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    with torch.cuda.device(x.device):
+    with on_device(x.device):
         err = _lib().eval_tgt_scores_launch(
             x.data_ptr(), y.data_ptr(), targets.data_ptr(), out.data_ptr(),
             n, y.shape[0], d, id_offset, _stream(x.device))
@@ -147,17 +149,20 @@ def _two_pass_topk(x, y, tgt_scores, k: int, *, c_lo: int = 0, c_hi=None,
     gt, eq = empty(n, dtype=torch.int32), empty(n, dtype=torch.int32)
     if n == 0:
         return vals, ids, gt, eq
-    pl = plan(n, c, d, k, torch.cuda.get_device_properties(dev)
-              .multi_processor_count)
+    pl = sweep_plan(n, c, d, k, n_sm(dev))
     part_vals = empty(n, pl.n_split, k)
     part_ids = empty(n, pl.n_split, k, dtype=torch.int32)
     part_cnt = empty(n, pl.n_split, 2, dtype=torch.int32)
-    with torch.cuda.device(dev):
+    tau = empty(n, dtype=torch.int32)
+    uv = empty(n, pl.pre_split * 8 * SWEEP_WM[pl.query_tiles]) \
+        if pl.pre_split else None
+    with on_device(dev):
         err = _lib().eval_topk_launch(
-            *(t.data_ptr() for t in (x, y, tgt_scores, part_vals, part_ids,
-                                     part_cnt, vals, ids, gt, eq)),
-            n, c, d, k, pl.rows_per_thread, pl.n_split, pl.split_cols,
-            id_offset, c_lo, c_hi, _stream(dev))
+            *(t.data_ptr() if t is not None else None for t in (
+                x, y, tgt_scores, part_vals, part_ids, part_cnt, tau, uv,
+                vals, ids, gt, eq)),
+            n, c, d, k, pl.query_tiles, pl.n_split, pl.pre_split,
+            pl.pre_period, id_offset, c_lo, c_hi, _stream(dev))
     if err != 0:
         raise RuntimeError(f"eval_topk launch failed: cudaError {err} "
                            f"(n={n}, C={c}, d={d}, k={k}, plan={pl})")

@@ -37,6 +37,7 @@ there is no kernel to vet.
 """
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 from typing import Optional, Tuple
@@ -107,9 +108,8 @@ def checked_blocks(kernel: str, *, rows: int, cols: int, d: int,
     pol = policy()
     if pol == "off" or rows == 0:
         return block_rows, block_cols
-    pf = preflight(kernel, rows=rows, cols=cols, d=d, k=k, dtype=dtype,
-                   block_rows=block_rows, block_cols=block_cols,
-                   smem_bytes=smem_bytes)
+    pf = _preflight(kernel, rows, cols, d, k, str(dtype), block_rows,
+                    block_cols, smem_bytes)
     loud = pf.loud_repairs
     if loud:
         fixes = ", ".join(f"{r.field} {r.old}->{r.new} ({r.rule})"
@@ -121,6 +121,16 @@ def checked_blocks(kernel: str, *, rows: int, cols: int, d: int,
         warnings.warn(f"[guard.preflight] {kernel}: repaired the request: "
                       f"{fixes}", RuntimeWarning, stacklevel=3)
     return pf.blocks
+
+
+@functools.lru_cache(maxsize=256)
+def _preflight(kernel, rows, cols, d, k, dtype, block_rows, block_cols,
+               smem_bytes):
+    """:func:`preflight` of one request, read once: it is a function of
+    the request alone (a refusal raises each time, uncached)."""
+    return preflight(kernel, rows=rows, cols=cols, d=d, k=k, dtype=dtype,
+                     block_rows=block_rows, block_cols=block_cols,
+                     smem_bytes=smem_bytes)
 
 
 def kernel_enabled(kernel: str, *, device=None) -> bool:

@@ -3,10 +3,12 @@
 
 It checks its inputs, plans the work, allocates the outputs and the
 scratch, and launches on PyTorch's current stream: for ``k ≤ SMALL_K``
-(serving) the split sweep and its merge (:func:`plan`, ``(n_q, S, k)``
-candidate lists); above it (SCE training's selections) the threshold,
-collect and select chain (:func:`select_plan`), whose rows that collect
-more than ``kcap`` entries the split sweep finishes. It takes CUDA
+(serving) the tensor-core sweep with its shared threshold and the merge
+(:func:`sweep_plan`, ``(n_q, S, k)`` candidate lists; ``eval_fused`` and
+``eval_topk`` run the same sweep at every k); above it (SCE training's
+selections) the threshold, collect and select chain
+(:func:`select_plan`), whose rows that collect more than ``kcap``
+entries the f32 FMA split sweep finishes (:func:`plan`). It takes CUDA
 tensors only: the CPU path is ``kernels/ref.py::mips_topk_ref``, chosen
 by ``kernels/ops.py``. ``mips_topk.launches`` counts the calls that
 launched the kernel, and ``mips_topk.launches_by_k`` counts them by
@@ -17,6 +19,7 @@ a row the split sweep finished).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -25,11 +28,18 @@ import torch
 
 from repro_torch.kernels import _build
 
-TILE_C = 64  # catalog rows per tile (kTileC in the source)
+TILE_C = 64  # catalog rows per tile (kTileC, kTile in the sources)
 MAX_K = 512  # kMaxK in the source (lists of ≤ 256 and ≤ 512 entries)
 MAX_D = 256
 MAX_SMEM = 232448  # bytes of shared memory one block may opt in to on sm_90
-SMALL_K = 32  # k up to this may take blocks of 32 or 64 query rows
+SM_SMEM = 233472  # bytes of shared memory of one SM (1 KB of it per block)
+SMALL_K = 32  # k up to this takes the tensor-core sweep
+QUERY_TILES = (1, 4, 16)  # n8 query tiles a sweep block may hold (Cfg)
+SWEEP_WM = {1: 4, 4: 4, 16: 2}  # Cfg::kWM: warps across a tile's rows
+SWEEP_CAP = TILE_C + 32  # kCap: candidate slots a row of a sweep block
+MERGE_CAP = 1024  # kMergeCap: entries a sweep's merge block gathers
+PRE_SAMPLE = 8  # the pre-pass reads one tile in PRE_SAMPLE
+PRE_UNION = 8192  # most pre-pass entries a row's τ selection holds
 PASS_ROWS = 64  # query rows of a threshold / collect block (kPassQB)
 UNION_PER_SPLIT = 16  # union entries per row and split (a thread's best)
 MAX_SORT = 8192  # kMaxSort: entries one row's sort may hold
@@ -39,13 +49,35 @@ MAX_UNION_SPLIT = 128  # threshold splits at most (a 2,048-entry union)
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one call cuts its work: ``rows_per_thread`` (RM) sets the
-    block's ``16·RM`` query rows; the catalog goes in ``n_split``
+    """How the f32 FMA split sweep that finishes a ``k > SMALL_K`` row
+    cuts its work: blocks of 16 query rows; the catalog in ``n_split``
     contiguous splits of ``split_cols`` rows (a whole number of tiles)."""
 
-    rows_per_thread: int
     n_split: int
     split_cols: int
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """How a tensor-core sweep cuts its work: ``8·query_tiles`` query rows
+    a block; the catalog's tiles in ``n_split`` balanced contiguous
+    splits (:func:`split_bounds`); with ``pre_split > 0`` a pre-pass
+    first, its split ``s`` visiting the tiles ``s, s + pre_period, …`` and
+    publishing the shared threshold only."""
+
+    query_tiles: int
+    n_split: int
+    pre_split: int = 0
+    pre_period: int = 0
+
+
+def split_bounds(c: int, n_split: int, s: int):
+    """The catalog rows ``[lo, hi)`` of split ``s`` of a tensor-core sweep,
+    as the kernel cuts them: the tiles ``[⌊s·T / S⌋, ⌊(s + 1)·T / S⌋)``
+    of the catalog's ``T`` tiles."""
+    tiles = -(-c // TILE_C)
+    lo = s * tiles // n_split * TILE_C
+    return min(lo, c), min((s + 1) * tiles // n_split * TILE_C, c)
 
 
 def partial_smem_bytes(rows_per_thread: int, d: int, k: int) -> int:
@@ -67,14 +99,43 @@ def merge_smem_bytes(k: int) -> int:
     return 8 * 8 * (k + 32)
 
 
+def sweep_smem_bytes(query_tiles: int, d: int, k: int) -> int:
+    """Shared memory of one tensor-core sweep block, as
+    ``sweep_smem_bytes`` in ``topk_tile.cuh`` lays it out (the source
+    refuses a launch above ``MAX_SMEM``, so a plan that disagreed would
+    raise): the queries' B fragments (hi, lo) at the depth rounded up to
+    16, two catalog tiles at a pitch ≡ 8 mod 32 floats, their valid
+    flags, four merge-request words, per-row counts, and per row a
+    (value, id) list of ``k`` and a candidate buffer of ``SWEEP_CAP``."""
+    qb = 8 * query_tiles
+    dp = -(-d // 16) * 16
+    pitch = -(-dp // 32) * 32 + 8
+    return 4 * (2 * qb * dp + 2 * TILE_C * pitch + 2 * TILE_C + 4 + qb
+                + 2 * qb * (k + SWEEP_CAP))
+
+
+def sweep_merge_smem_bytes(k: int) -> int:
+    """Shared memory of one merge block of the tensor-core sweep, as
+    ``sweep_merge_smem_bytes`` in the source: the merge's lists and
+    buffers and ``MERGE_CAP`` gathered (value, id) entries."""
+    return merge_smem_bytes(k) + 8 * MERGE_CAP + 16
+
+
+def tau_select_smem_bytes(n: int) -> int:
+    """Shared memory of one τ selection block, as in the source: the row's
+    ``n`` pre-pass entries and 32 a warp."""
+    return 4 * (n + 32 * 8)
+
+
 def sweep_smem(n_q: int, c: int, d: int, k: int, n_sm: int) -> int:
-    """Dynamic shared memory per block of the larger of the split
-    sweep's two launches (the partial pass at :func:`plan`'s block
-    height, the merge), which ``eval_fused``'s and ``eval_topk``'s
-    sweeps share."""
-    p = plan(n_q, c, d, k, n_sm)
-    return max(partial_smem_bytes(p.rows_per_thread, d, k),
-               merge_smem_bytes(k))
+    """Dynamic shared memory per block of the largest of the tensor-core
+    sweep's launches (the pre-pass and the sweep at :func:`sweep_plan`'s
+    block height, the τ selection, the merge), which ``mips_topk`` at
+    ``k ≤ SMALL_K``, ``eval_fused`` and ``eval_topk`` share."""
+    p = sweep_plan(n_q, c, d, k, n_sm)
+    n_union = p.pre_split * 8 * SWEEP_WM[p.query_tiles]
+    return max(sweep_smem_bytes(p.query_tiles, d, k),
+               sweep_merge_smem_bytes(k), tau_select_smem_bytes(n_union))
 
 
 def _pow2_at_least(n: int) -> int:
@@ -121,30 +182,53 @@ def planned_smem(n_q: int, c: int, d: int, k: int, n_sm: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def plan(n_q: int, c: int, d: int, k: int, n_sm: int) -> Plan:
-    """Pick the block height and the catalog split for one call.
-
-    Block height: for ``k ≤ SMALL_K`` (serving) the smallest block that
-    holds the bucket's rows (16, 32 or 64), shrunk while its shared
-    memory would not fit; above it (``eval_fused`` and ``eval_topk`` at
-    large k, and ``mips_topk``'s finishing sweep of the rows that
-    overflow their collect buffer) 16 rows, the fastest height at every
-    split count there.
-    Splits: as many as keep all blocks in one wave of ``2·n_sm``, at
-    least one. At k 256 and 320 two 16-row blocks fit an SM (shared
-    memory and registers); shorter splits then run faster until the
-    blocks spill a mostly empty second wave, which costs a whole block's
-    time. ``probes/mips_topk_times.py`` on the H100 read 13 splits (260
-    blocks) fastest and 14 (280) slowest of the counts it tried at both
-    training selections, when this sweep still ran them (PERF.md §6). At
-    serving's buckets ``2·n_sm`` divides exactly."""
+    """Split the catalog for the f32 FMA sweep that finishes the rows of a
+    ``k > SMALL_K`` call whose collect buffer overflowed: blocks of 16
+    rows, and as many splits as keep all blocks in one wave of
+    ``2·n_sm``, at least one. At k 256 and 320 two 16-row blocks fit an
+    SM (shared memory and registers); shorter splits then run faster
+    until the blocks spill a mostly empty second wave, which costs a
+    whole block's time. ``probes/mips_topk_times.py`` on the H100 read 13
+    splits (260 blocks) fastest and 14 (280) slowest of the counts it
+    tried at both training selections, when this sweep still ran them
+    (PERF.md §6)."""
     tiles = -(-c // TILE_C)
-    rm = 1 if n_q <= 16 or k > SMALL_K else 2 if n_q <= 32 else 4
-    while rm > 1 and partial_smem_bytes(rm, d, k) > MAX_SMEM:
-        rm //= 2
-    n_qb = -(-n_q // (16 * rm))
-    n_split = min(tiles, max(1, 2 * n_sm // n_qb))
+    n_split = min(tiles, max(1, 2 * n_sm // -(-n_q // 16)))
     split_cols = -(-tiles // n_split) * TILE_C
-    return Plan(rm, -(-c // split_cols), split_cols)
+    return Plan(-(-c // split_cols), split_cols)
+
+
+@functools.lru_cache(maxsize=256)
+def sweep_plan(n_q: int, c: int, d: int, k: int, n_sm: int) -> SweepPlan:
+    """Pick the block height and the catalog split of one tensor-core
+    sweep (``mips_topk`` at ``k ≤ SMALL_K``, ``eval_fused``,
+    ``eval_topk``).
+
+    Block height: the fewest query tiles (1, 4 or 16: 8, 32 or 128 rows)
+    that hold the call's rows, else the most, among those whose block
+    fits ``MAX_SMEM`` (8 rows always do, to k 512 at d 256).
+    Splits: as many as give one block to each place an SM has for one —
+    as many blocks as shared memory allows, at most 4, 2 and 1 for 1, 4
+    and 16 query tiles (the kernels' ``__launch_bounds__``) — rounded up
+    over the row blocks (one wave when their count divides it, as at
+    every serving and evaluation shape), at most one per tile.
+    Pre-pass (k ≤ 32, a catalog of ``16·PRE_SAMPLE`` tiles or more): one
+    tile in ``PRE_SAMPLE``, strided over up to ``n_split`` blocks of about
+    four tiles each, its union within ``PRE_UNION`` entries a row. On the
+    H100 it beat τ by ``atomicMax`` alone, and one tile in 8 beat one in
+    4 (``probes/topk_variants.py``, PERF.md §6)."""
+    fits = [t for t in QUERY_TILES if sweep_smem_bytes(t, d, k) <= MAX_SMEM]
+    nqt = next((t for t in fits if 8 * t >= n_q), fits[-1])
+    per_sm = min({1: 4, 4: 2, 16: 1}[nqt],
+                 SM_SMEM // (sweep_smem_bytes(nqt, d, k) + 1024))
+    n_qb = -(-n_q // (8 * nqt))
+    tiles = -(-c // TILE_C)
+    n_split = min(tiles, -(-per_sm * n_sm // n_qb))
+    pre = 0
+    if k <= SMALL_K and tiles >= 16 * PRE_SAMPLE:
+        pre = min(n_split, tiles // (4 * PRE_SAMPLE),
+                  PRE_UNION // (8 * SWEEP_WM[nqt]))
+    return SweepPlan(nqt, n_split, pre, pre * PRE_SAMPLE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,11 +312,30 @@ def _lib() -> ctypes.CDLL:
     stream as ``c_void_p``, ints as ``c_int``)."""
     lib = _build.load("mips_topk")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mips_topk_launch.argtypes = [p, p, p, p, p, p, p] + [i] * 8 + [p]
+    lib.mips_topk_launch.argtypes = [p] * 9 + [i] * 9 + [p]
     lib.mips_topk_launch.restype = ctypes.c_int
     lib.mips_topk_select_launch.argtypes = [p] * 14 + [i] * 11 + [p]
     lib.mips_topk_select_launch.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def n_sm(device) -> int:
+    """The SMs of CUDA ``device`` (read once per device)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+def on_device(device):
+    """A context that makes ``device`` current for a launch, or nothing
+    when it already is (a launch goes to the current device)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _select_launch(q, y, k: int, vals, ids, *, valid, id_offset: int,
@@ -243,11 +346,11 @@ def _select_launch(q, y, k: int, vals, ids, *, valid, id_offset: int,
     overflow into the finishing sweep."""
     n_q, d = q.shape
     c = y.shape[0]
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    sp = select_plan(n_q, c, d, k, n_sm)
+    sms = n_sm(q.device)
+    sp = select_plan(n_q, c, d, k, sms)
     if kcap is not None:
         sp = dataclasses.replace(sp, kcap=kcap)
-    fin = plan(n_q, c, d, k, n_sm)
+    fin = plan(n_q, c, d, k, sms)
     dev = q.device
 
     def scratch(*shape):
@@ -259,7 +362,7 @@ def _select_launch(q, y, k: int, vals, ids, *, valid, id_offset: int,
     count = torch.empty(n_q, dtype=torch.int32, device=dev)
     bv, bi = scratch(n_q, sp.kcap)
     part_v, part_i = scratch(n_q, fin.n_split, k)
-    with torch.cuda.device(dev):
+    with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().mips_topk_select_launch(
             q.data_ptr(), y.data_ptr(),
@@ -305,33 +408,39 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0, kcap=None):
     k = min(k, c)
     _check(q, y, valid, k, id_offset, kcap)
     n_q, d = q.shape
-    vals = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
-    ids = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
-    if n_q == 0:
-        return vals, ids
-    if k > SMALL_K:
+    dev = q.device
+    if n_q == 0 or k > SMALL_K:
+        vals = torch.empty((n_q, k), dtype=torch.float32, device=dev)
+        ids = torch.empty((n_q, k), dtype=torch.int32, device=dev)
+        if n_q == 0:
+            return vals, ids
         mips_topk.last_counts = _select_launch(
             q, y, k, vals, ids, valid=valid, id_offset=id_offset, kcap=kcap)
         mips_topk.launches += 1
         mips_topk.launches_by_k[k] += 1
         return vals, ids
-    lib = _lib()
-    props = torch.cuda.get_device_properties(q.device)
-    p = plan(n_q, c, d, k, props.multi_processor_count)
-    part_vals = torch.empty(
-        (n_q, p.n_split, k), dtype=torch.float32, device=q.device
-    )
-    part_ids = torch.empty((n_q, p.n_split, k), dtype=torch.int32,
-                           device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.mips_topk_launch(
+    p = sweep_plan(n_q, c, d, k, n_sm(dev))
+    # One allocation for the outputs and the scratch, in 4-byte words:
+    # vals and ids (n_q, k), the split lists (n_q, S, k), τ (n_q,) and the
+    # pre-pass's union (n_q, pre_split, 8·WM).
+    nk = n_q * k
+    ns = nk * p.n_split
+    nu = n_q * p.pre_split * 8 * SWEEP_WM[p.query_tiles]
+    buf = torch.empty(2 * nk + 2 * ns + n_q + nu, dtype=torch.int32,
+                      device=dev)
+    vals = buf[:nk].view(torch.float32).view(n_q, k)
+    ids = buf[nk:2 * nk].view(n_q, k)
+    at = buf.data_ptr()
+    tau = at + 8 * (nk + ns)
+    with on_device(dev):
+        err = _lib().mips_topk_launch(
             q.data_ptr(), y.data_ptr(),
             valid.data_ptr() if valid is not None else None,
-            part_vals.data_ptr(), part_ids.data_ptr(),
-            vals.data_ptr(), ids.data_ptr(),
-            n_q, c, d, k, p.rows_per_thread, p.n_split, p.split_cols,
-            id_offset, stream,
+            at + 8 * nk, at + 8 * nk + 4 * ns, tau,
+            tau + 4 * n_q if nu else None, at, at + 4 * nk, n_q, c, d, k,
+            p.query_tiles, p.n_split,
+            p.pre_split, p.pre_period, id_offset,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(

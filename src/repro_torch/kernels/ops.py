@@ -59,7 +59,7 @@ def _device_kind(op: str, *tensors) -> str:
 
 
 def _n_sm(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return _mips_topk.n_sm(device)
 
 
 def _gate(group: str, x, *, rows: int, cols: int, d: int, k=None,
@@ -77,9 +77,10 @@ def _gate(group: str, x, *, rows: int, cols: int, d: int, k=None,
 
 
 def _sweep_smem(x, y, k, planned=_mips_topk.sweep_smem):
-    """The shared memory of the catalog sweep's plan (``eval_fused``,
-    ``eval_topk``; ``mips_topk`` passes its ``planned_smem``, which also
-    covers its ``k > 32`` chain), for a plan the wrapper can make."""
+    """The shared memory of the tensor-core sweep's plan (``eval_fused``,
+    ``eval_topk``; ``mips_topk`` passes its ``planned_smem``, which is
+    its ``k > 32`` chain's above k = 32), for a plan the wrapper can
+    make."""
     n, d = x.shape
     c = y.shape[0]
     if not (0 < d <= _mips_topk.MAX_D and 0 < k <= _mips_topk.MAX_K):

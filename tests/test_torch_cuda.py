@@ -7,10 +7,16 @@ without the repository's JAX-importing ``conftest.py``::
 
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-``mips_topk``: integer-valued inputs make every f32 fold order exact, so
-the kernel and the plain version must agree bit for bit (values, ids, tie
-order, ``ID_PAD`` tails); generic floats agree within ``1e-5·max|score|``
-with ids equal wherever neighbouring scores are further apart than that.
+``mips_topk``: integer-valued inputs make every f32 fold order exact (and
+are their own TF32 ``hi`` in the k ≤ 32 sweep's 3xTF32), so the kernel
+and the plain version must agree bit for bit (values, ids, tie order,
+``ID_PAD`` tails); generic floats agree within ``1e-5·max|score|`` with
+ids equal wherever neighbouring scores are further apart than that. The
+tensor-core sweep (k ≤ 32; ``eval_fused`` / ``eval_topk`` at every k)
+also at full width (C = 173,520, d = 64: n_q 8 / 32 / 512, B 128 / 256),
+repeating bit for bit although its split lists depend on when each block
+reads the shared threshold, with d % 8 ≠ 0 with and without a pre-pass,
+and with the target's score bit for bit the swept column at B 256.
 Above k = 32 (the threshold, collect and select chain) the same on its
 adversarial inputs — the best columns in one residue of the threshold
 pass's tiles, all-equal scores, fewer valid columns than k, k = C,
@@ -1398,3 +1404,130 @@ def test_topk_kernels_order_nan_scores_as_the_plain_version(dev):
     ts = topk_kernel.eval_tgt_scores(q, y, t)
     two = topk_kernel.eval_topk(q, y, ts, 10)
     assert torch.equal(two[1], ref.eval_topk_ref(q, y, ts, 10)[1])
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core sweep (mips_topk at k ≤ 32, eval_fused, eval_topk) at
+# full width: C = 173,520 catalog rows, d = 64, k = 10
+# ---------------------------------------------------------------------------
+C_FULL = 173_520
+N_ITEMS = 173_511
+
+
+def _full_catalog(dev, seed):
+    g = _gen(dev, seed)
+    y = torch.randn(C_FULL, 64, generator=g, device=dev) * 0.02
+    gid = torch.arange(C_FULL, device=dev)
+    return g, y, (gid >= 1) & (gid < N_ITEMS)
+
+
+@pytest.mark.parametrize("n_q", [8, 32, 512])
+def test_sweep_at_full_width_matches_plain_mips_topk(dev, n_q):
+    g, y, window = _full_catalog(dev, n_q)
+    q = torch.randn(n_q, 64, generator=g, device=dev)
+    before = kernel.mips_topk.launches_by_k[10]
+    got = ops.mips_topk(q, y, 10, valid=window)
+    torch.cuda.synchronize()
+    assert kernel.mips_topk.launches_by_k[10] == before + 1
+    want = ref.mips_topk_ref(q, y, 10, valid=window)
+    _assert_match(got, want, (q @ y.T).abs().max().item(), False)
+    assert ((got[1] >= 1) & (got[1] < N_ITEMS)).all()
+
+
+@pytest.mark.parametrize("b", [128, 256])
+def test_sweep_at_full_width_matches_plain_eval(dev, b):
+    g, y, _ = _full_catalog(dev, b + 1)
+    x = torch.randn(b, 64, generator=g, device=dev) * 3.0
+    t = torch.randint(1, N_ITEMS, (b,), generator=g, device=dev,
+                      dtype=torch.int32)
+    kw = dict(c_lo=1, c_hi=N_ITEMS, with_lse=True)
+    vals, ids, gt, eq, tgt, m, s = ops.eval_fused(x, y, t, 10, **kw)
+    want = ref.eval_fused_ref(x, y, t, 10, **kw)
+    scores = x.double() @ y.double().T
+    scale = scores.abs().max().item()
+    _assert_match((vals, ids), want[:2], scale, False)
+    assert (tgt - want[4]).abs().max().item() <= 1e-5 * scale
+    gid = torch.arange(C_FULL, device=dev)
+    ok = (gid >= 1) & (gid < N_ITEMS)
+    other = ok[None, :] & (gid[None, :] != t[:, None])
+    t64 = scores.gather(1, t.long()[:, None])[:, 0]
+    tol = 1e-5 * scale
+    lo = ((scores > t64[:, None] + tol) & other).sum(1)
+    hi = ((scores >= t64[:, None] - tol) & other).sum(1)
+    rank = gt + (eq - 1).clamp_min(0)
+    assert ((rank >= lo) & (rank <= hi)).all() and (eq >= 1).all()
+    lse, want_lse = m + torch.log(s), want[5] + torch.log(want[6])
+    assert torch.allclose(lse, want_lse, rtol=1e-5, atol=0)
+    with pytest.warns(DeprecationWarning):
+        two = ops.eval_topk(x, y, tgt, 10, c_lo=1, c_hi=N_ITEMS)
+    assert torch.equal(two[0], vals) and torch.equal(two[1], ids)
+
+
+def test_target_score_is_the_swept_column_bit_for_bit(dev):
+    """On random floats at B 256: ``eval_tgt_scores`` against the full
+    catalog gives ``eq >= 1`` in ``eval_topk`` (which has no self-column
+    rule: only an equal swept score counts) on every row; and over a
+    catalog of the 256 targets alone, swept at k 256, every row's own
+    target column reads exactly its ``eval_tgt_gather`` score."""
+    g, y, _ = _full_catalog(dev, 9)
+    x = torch.randn(256, 64, generator=g, device=dev) * 3.0
+    t = torch.randperm(N_ITEMS - 1, generator=g, device=dev)[:256] + 1
+    t = t.to(torch.int32)
+    ts = topk_kernel.eval_tgt_scores(x, y, t)
+    _, _, gt, eq = topk_kernel.eval_topk(x, y, ts, 10, c_lo=1, c_hi=N_ITEMS)
+    assert (eq >= 1).all()
+    assert torch.equal(ts, eval_kernel.eval_tgt_gather(x, y, t))
+    y_t = y[t.long()].contiguous()
+    own = torch.arange(256, dtype=torch.int32, device=dev)
+    tg = eval_kernel.eval_tgt_gather(x, y_t, own)
+    vals, ids, _, eq_t, _, _, _ = eval_kernel.eval_fused(x, y_t, own, 256,
+                                                         tgt_scores=tg)
+    hit = ids == own[:, None]
+    assert (hit.sum(1) == 1).all()
+    assert torch.equal(vals[hit], tg)
+    assert torch.equal(tg, ts)  # the same pair at another place in a tile
+
+
+def test_sweep_repeats_bit_for_bit(dev):
+    """The shared threshold makes the split lists depend on when each block
+    reads τ; the outputs do not."""
+    g, y, window = _full_catalog(dev, 12)
+    for n_q in (8, 32, 512):
+        q = torch.randn(n_q, 64, generator=g, device=dev)
+        a = kernel.mips_topk(q, y, 10, valid=window)
+        for _ in range(2):
+            b = kernel.mips_topk(q, y, 10, valid=window)
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    x = torch.randn(256, 64, generator=g, device=dev)
+    t = torch.randint(1, N_ITEMS, (256,), generator=g, device=dev,
+                      dtype=torch.int32)
+    a = ops.eval_fused(x, y, t, 10, c_lo=1, c_hi=N_ITEMS, with_lse=True)
+    b = ops.eval_fused(x, y, t, 10, c_lo=1, c_hi=N_ITEMS, with_lse=True)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("n_q,c,d", [(8, 3_000, 36), (33, 2_000, 20),
+                                     (130, 1_500, 12), (9, 1_000, 8)])
+def test_sweep_depth_padding_matches_plain(dev, n_q, c, d):
+    """d % 8 ≠ 0 (and d = 8): the k16 steps' zero padding past d, integer
+    inputs bit for bit, with the plan's τ seeding (a pre-pass over a
+    sampled quarter of the tiles where the catalog is large enough) and
+    with a pre-pass forced onto a small catalog."""
+    import dataclasses
+
+    g = _gen(dev, n_q + c + d)
+    q, y = _ints(g, dev, n_q, d), _ints(g, dev, c, d)
+    valid = torch.rand(c, generator=g, device=dev) > 0.2
+    want = ref.mips_topk_ref(q, y, 10, valid=valid, id_offset=4)
+    got = kernel.mips_topk(q, y, 10, valid=valid, id_offset=4)
+    _assert_match(got, want, 0.0, True)
+    own_plan = kernel.sweep_plan
+    try:
+        kernel.sweep_plan = lambda *a: dataclasses.replace(
+            own_plan(*a), pre_split=own_plan(*a).n_split,
+            pre_period=4 * own_plan(*a).n_split)
+        got = kernel.mips_topk(q, y, 10, valid=valid, id_offset=4)
+    finally:
+        kernel.sweep_plan = own_plan
+    _assert_match(got, want, 0.0, True)

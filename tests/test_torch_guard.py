@@ -402,7 +402,11 @@ def test_planned_shared_memory_fits_at_the_kernels_limits():
     # at one row and many (the τ sort's union is largest at few rows)
     for n_q in (1, 320, 8_192):
         for k in (33, 256, 320, 512):
-            sweep = mips_mod.sweep_smem(n_q, 173_520, 256, k, 132)
+            # the tensor-core sweep of eval_fused / eval_topk at this k
+            assert mips_mod.sweep_smem(n_q, 173_520, 256, k, 132) <= MAX_SMEM
+            # the chain's finishing sweep, f32 FMAs at 16 rows a block
+            sweep = max(mips_mod.partial_smem_bytes(1, 256, k),
+                        mips_mod.merge_smem_bytes(k))
             chain = mips_mod.select_smem(n_q, 173_520, 256, k, 132)
             sp = mips_mod.select_plan(n_q, 173_520, 256, k, 132)
             assert chain == mips_mod.planned_smem(n_q, 173_520, 256, k, 132)

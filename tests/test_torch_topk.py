@@ -169,13 +169,27 @@ def test_mips_topk_ref_chunk_invariant():
     (320, 25_600, 64, 320), (320, 173_520, 64, 256), (64, 20_000, 256, 512),
 ])
 def test_plan_covers_catalog_within_shared_memory(n_q, c, d, k):
-    p = kernel.plan(n_q, c, d, k, n_sm=132)
-    assert p.rows_per_thread in (1, 2, 4)
-    assert p.split_cols % kernel.TILE_C == 0
-    assert (p.n_split - 1) * p.split_cols < c <= p.n_split * p.split_cols
-    assert kernel.partial_smem_bytes(p.rows_per_thread, d, k) <= kernel.MAX_SMEM
-    blocks = -(-n_q // (16 * p.rows_per_thread)) * p.n_split
+    """The tensor-core sweep's plan (``mips_topk`` at k ≤ 32,
+    ``eval_fused`` and ``eval_topk`` at every k) and, above k = 32, the
+    plan of the f32 FMA sweep that finishes ``mips_topk``'s overflowing
+    rows: whole tiles covering the catalog, a block within 227 KB, and
+    at least one block per SM where the catalog has that many tiles."""
+    p = kernel.sweep_plan(n_q, c, d, k, n_sm=132)
+    assert p.query_tiles in kernel.QUERY_TILES
+    bounds = [kernel.split_bounds(c, p.n_split, s) for s in range(p.n_split)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == c
+    assert all(lo % kernel.TILE_C == 0 and lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert kernel.sweep_smem_bytes(p.query_tiles, d, k) <= kernel.MAX_SMEM
+    blocks = -(-n_q // (8 * p.query_tiles)) * p.n_split
     assert blocks >= min(132, -(-c // kernel.TILE_C))
+    if k > kernel.SMALL_K:
+        f = kernel.plan(n_q, c, d, k, n_sm=132)
+        assert f.split_cols % kernel.TILE_C == 0
+        assert (f.n_split - 1) * f.split_cols < c <= f.n_split * f.split_cols
+        assert kernel.partial_smem_bytes(1, d, k) <= kernel.MAX_SMEM
+        blocks = -(-n_q // 16) * f.n_split
+        assert blocks >= min(132, -(-c // kernel.TILE_C))
 
 
 def test_split_lists_merge_to_the_single_pass():
@@ -185,12 +199,12 @@ def test_split_lists_merge_to_the_single_pass():
     n_q, c, d, k = 6, 1_000, 8, 9
     q, y = (torch.from_numpy(a) for a in _inputs(rng, n_q, c, d, True))
     valid = torch.from_numpy(rng.random(c) > 0.2)
-    p = kernel.plan(n_q, c, d, k, n_sm=4)
+    p = kernel.sweep_plan(n_q, c, d, k, n_sm=4)
     assert p.n_split > 1
     vals = torch.full((n_q, k), topk_merge.NEG_INF)
     ids = torch.full((n_q, k), topk_merge.ID_PAD, dtype=torch.int32)
     for s in range(p.n_split):
-        lo, hi = s * p.split_cols, min(c, (s + 1) * p.split_cols)
+        lo, hi = kernel.split_bounds(c, p.n_split, s)
         sv, si = ref.mips_topk_ref(q, y[lo:hi], k, valid=valid[lo:hi],
                                    id_offset=100 + lo)
         vals, ids = topk_merge.merge_topk_tile(vals, ids, sv, si, k)
