@@ -183,16 +183,50 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    and dY bound in 3xTF32 as in phase 6).
 16. Drills: the trainer at full width with ``chaos_nan_at=5`` must raise
    ``RuntimeError`` at step 7 after three ``[guard]`` strike lines naming
-   ``sce_bucket_nonfinite``; a monkeypatched broken ``mips_topk`` must
-   make its CUDA dispatch raise ``KernelConformanceError`` under ``warn``
-   and keep a fresh server not ready (then the real kernel is restored
-   and its verdict passes again).
-17. Prints the kernels' JSON line, the card's name and power limit, and
+   ``sce_bucket_nonfinite``; the same with checkpoints (``gspmd``,
+   ``ckpt_every=4``, ``max_strikes=3``, 12 steps) must strike at steps
+   5 and 6 and at step 7 roll back to the verified step 3, with one
+   rollback, 16 steps run, a finite final loss and no NaN in any saved
+   checkpoint; a monkeypatched broken ``mips_topk`` must make its CUDA
+   dispatch raise ``KernelConformanceError`` under ``warn`` and keep a
+   fresh server not ready (then the real kernel is restored and its
+   verdict passes again).
+17. Checkpoints at full width (``ckpt_phase``; ``sce_mode="gspmd"``,
+   batch 128, seed 0, a temporary directory). The main path, its counts
+   from 0: a straight run of 12 steps with ``ckpt_every=4`` and
+   ``keep_n=0`` (saves at steps 3, 7, 11; ``mips_topk`` at k 320 and
+   256, the three ``sce_gather`` launches and the dY sum once a step,
+   ``sce_gather_plse`` never), then ``RetrievalServer("sasrec-sce",
+   cfg=make_config(), ckpt_dir=…, buckets=(8, 32))`` answering 40
+   histories (``mips_topk`` at k 10). ``restored_step`` must be 11 and
+   the answers equal bit for bit those of a server given the same
+   restored params through ``params=``, and differ from a random
+   server's. Drills, each held to the straight run's losses bit for bit:
+   6 steps and a relaunch to 12 in the same directory (``resumed from
+   step 3``, steps 4–11); ``step_11/leaves.npz`` truncated and a byte of
+   ``step_7/manifest.json`` flipped, then a relaunch (two ``falling
+   back`` warnings, resumed from step 3); a ``mark`` hook sending SIGTERM
+   at step 5's ``"start"`` (step 5 completes, ``preempted`` with
+   ``preempt_step`` 5 after a final blocking save) and its relaunch
+   (resumed from step 5). The same resume with ``sce_mode="exact"``
+   under ``strict`` is printed (equal bit for bit, or the largest gap),
+   not required. Prints, each beside the card's name and power limit, the
+   checkpoint's bytes on disk, a non-blocking save's host snapshot (what
+   the caller waits for) and its writer thread's seconds, a restore's
+   seconds onto the card (three each), and the straight run's median step
+   with and without ``ckpt_dir`` (the trainer's ``step_s``, and the loop
+   iteration from one step's start to the next, saves included); the run
+   without ``ckpt_dir`` must end on the same losses. A third run of 60
+   steps at the CLI's ``ckpt_every=20`` (its first 12 losses the
+   straight run's) prints its loop iterations (median, mean, the two
+   saving ones) and the median step 1–4 and 15–19 steps after a save.
+18. Prints the kernels' JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``. ``mips_topk`` has
    three entries: all its main-path launches timed at serving's largest
    bucket, and its training selections (k = 320 over the positions,
-   k = 256 over the catalog), each with both trainers' launches at that
-   k. ``eval_fused`` and ``eval_tgt_gather`` have two each: the
+   k = 256 over the catalog), each with both trainers' and the
+   checkpoint path's launches at that k. The ``sce_gather`` and dY-sum
+   entries add the checkpoint path's launches too. ``eval_fused`` and ``eval_tgt_gather`` have two each: the
    evaluation phase's B = 256 and the trainers' B = 128. The three
    ``sce_gather_plse`` launches carry phase 8's launches and phase 6's
    times on the (1, 1) input. ``sce_gather_dy_sum`` carries both
@@ -218,7 +252,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-N_PHASES = 17
+N_PHASES = 18
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_S = 3.35e12
@@ -2602,12 +2636,74 @@ def guard_kernel_phase(dev):
 # Drills: the divergence guard and a broken kernel
 # ---------------------------------------------------------------------------
 CHAOS_AT = 5
+# The checkpointed runs of phases 16–17: 12 steps, saves at steps 3, 7, 11.
+CKPT_STEPS = 12
+CKPT_EVERY = 4
+
+
+def rollback_drill(dev, cfg):
+    """The divergence drill with checkpoints: NaN params at step 5,
+    strikes at steps 5 and 6, and at step 7 the rollback to the verified
+    step 3 (saves every 4 steps), then steps 4–11 again on the reseeded
+    stream: one rollback, a finite final loss, no NaN in any checkpoint."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import guard
+    from repro_torch.launch.train import train
+    from repro_torch.optim.optimizers import tree_leaves
+
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(buf):
+            out = train("sasrec-sce", cfg=cfg, batch=N_POS // cfg.max_len,
+                        steps=CKPT_STEPS, seed=0, log_every=0, device=dev,
+                        sce_mode="gspmd", ckpt_dir=tmp,
+                        ckpt_every=CKPT_EVERY, keep_n=0, max_strikes=3,
+                        chaos_nan_at=CHAOS_AT, guard_policy="strict")
+        guard.set_policy(None)
+        mgr = CheckpointManager(tmp)
+        saved = mgr.all_steps()
+        finite = all(bool(np.isfinite(a).all()) for s_ in saved
+                     for a in tree_leaves(mgr.restore_params(s_)))
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"  | {line}")
+    strikes = [ln for ln in lines if ln.startswith("[guard] step")]
+    check(len(strikes) == 3 and all(
+        ln.startswith(f"[guard] step {CHAOS_AT + i}: loss nan")
+        and f"(strike {i + 1}/3)" in ln and "sce_bucket_nonfinite" in ln
+        for i, ln in enumerate(strikes)), f"strike lines {strikes}")
+    back = f"[guard] rolled back to verified step {CKPT_EVERY - 1} "
+    check(sum(ln.startswith(back) for ln in lines) == 1,
+          "no rollback line to the verified step")
+    check(out["rollbacks"] == 1 and out["skipped_steps"] == 3,
+          f"rollbacks {out['rollbacks']}, skipped {out['skipped_steps']}")
+    check(out["steps"] == (CHAOS_AT + 3) + (CKPT_STEPS - CKPT_EVERY),
+          f"{out['steps']} steps run")
+    check(math.isfinite(out["final_loss"]), "the final loss is not finite")
+    check(finite and saved == [3, 7, 11], f"checkpoints {saved} (finite: "
+          f"{finite})")
+    print(f"  rollback drill: strikes at steps {CHAOS_AT}–{CHAOS_AT + 1}, "
+          f"rollback at step {CHAOS_AT + 2} to the verified step "
+          f"{CKPT_EVERY - 1}, {out['steps']} steps run, rollbacks "
+          f"{out['rollbacks']}, final loss {out['final_loss']:.4f}, "
+          f"checkpoints {saved} all finite ok")
+    return {"rollbacks": out["rollbacks"], "steps": out["steps"],
+            "skipped_steps": out["skipped_steps"],
+            "final_loss": out["final_loss"], "strike_lines": strikes,
+            "checkpoints": saved}
 
 
 def drill_phase(dev):
     """The divergence drill at full width (NaN params at step 5: strikes
     at steps 5 and 6, the RuntimeError at step 7, each strike line naming
-    the sentinel) and the broken-kernel drill (a ``mips_topk`` that
+    the sentinel), the same with checkpoints (``rollback_drill``: the
+    rollback to step 3) and the broken-kernel drill (a ``mips_topk`` that
     raises: under ``warn`` its CUDA dispatch raises
     ``KernelConformanceError``, and a fresh server stays not ready)."""
     import contextlib
@@ -2646,6 +2742,7 @@ def drill_phase(dev):
         for i, ln in enumerate(strikes)), f"strike lines {strikes}")
     print(f"  divergence drill: RuntimeError({raised}) after 3 strike lines "
           f"naming sce_bucket_nonfinite ok")
+    rollback = rollback_drill(dev, cfg)
 
     def broken(*a, **k):
         raise RuntimeError("injected miscompile")
@@ -2687,9 +2784,348 @@ def drill_phase(dev):
           f"({str(err)[:80]}...); fresh server not ready "
           f"(ready={health['ready']}, readiness_error set) ok")
     return {"divergence_error": str(raised), "strike_lines": strikes,
-            "broken_kernel_error": str(err),
+            "rollback": rollback, "broken_kernel_error": str(err),
             "server_ready": health["ready"],
             "readiness_error": health["readiness_error"]}
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints at full width
+# ---------------------------------------------------------------------------
+PREEMPT_AT = 5
+SERVE_HISTORIES = 40
+CKPT_BUCKETS = (8, 32)
+# The CLI's save interval, over three saves (steps 19, 39, 59).
+SPARSE_EVERY = 20
+SPARSE_STEPS = 60
+
+
+class StartClock:
+    """A ``mark`` hook that takes the host clock at each step's
+    ``"start"``: the gaps are whole loop iterations, a save's host
+    snapshot and any wait for the previous writer included (the trainer's
+    own ``step_s`` ends before its save)."""
+
+    def __init__(self):
+        self.t = []
+
+    def __call__(self, name):
+        if name == "start":
+            self.t.append(time.perf_counter())
+
+    def gaps_ms(self):
+        return [(b - a) * 1e3 for a, b in zip(self.t, self.t[1:])]
+
+
+def ckpt_phase(dev):
+    """The trainer that checkpoints, and the server on its checkpoint, at
+    full width (``sce_mode="gspmd"``, batch 128, seed 0, saves every 4
+    steps into a temporary directory).
+
+    The main path, counted from 0: a straight run of 12 steps (saves at
+    steps 3, 7, 11), then ``RetrievalServer(ckpt_dir=)`` on it answering
+    40 histories. Then the drills, each held to the straight run's losses
+    bit for bit: 6 steps and a relaunch to 12 (resumed from step 3);
+    ``step_11/leaves.npz`` truncated and a byte of ``step_7``'s manifest
+    flipped, and a relaunch (two ``falling back`` warnings, resumed from
+    step 3); SIGTERM at step 5's ``"start"`` mark (step 5 completes, a
+    final blocking save, ``preempt_step`` 5) and a relaunch (resumed from
+    step 5). The server's answers equal a ``params=`` server's on the same
+    restored params bit for bit and differ from a random server's. The
+    same resume once in ``sce_mode="exact"`` under ``strict``, printed,
+    not required. Prints the checkpoint's bytes, a non-blocking save's
+    host snapshot and writer seconds, a restore's seconds, and the median
+    step with and without ``ckpt_dir``, and a run of 60 steps at the
+    CLI's ``ckpt_every=20`` (its loop iterations, the saving ones, and
+    the steps its writer overlaps against those it does not), each beside
+    the card."""
+    import contextlib
+    import io
+    import os
+    import signal
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.sasrec_sce import make_config
+    from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+    from repro_torch.kernels import guard, sce_prefetch
+    from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.launch.serve import RetrievalServer
+    from repro_torch.launch.train import train
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = make_config()
+    card = smi()
+    kw = dict(cfg=cfg, batch=N_POS // cfg.max_len, seed=0, log_every=0,
+              device=dev, ckpt_every=CKPT_EVERY, keep_n=0)
+
+    def run(steps, ckpt_dir, sce_mode="gspmd", **extra):
+        """``train`` with its output captured and echoed → (result,
+        stdout, stderr)."""
+        out_buf, err_buf = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out_buf), \
+                contextlib.redirect_stderr(err_buf):
+            out = train("sasrec-sce", steps=steps, ckpt_dir=ckpt_dir,
+                        sce_mode=sce_mode, **{**kw, **extra})
+        for line in (out_buf.getvalue() + err_buf.getvalue()).splitlines():
+            print(f"  | {line}")
+        return out, out_buf.getvalue(), err_buf.getvalue()
+
+    hist = SequenceDataset(SeqDataConfig(
+        n_items=cfg.n_items, seq_len=cfg.max_len,
+        batch_size=SERVE_HISTORIES)).next_batch(Cursor(seed=1))[0]["tokens"]
+    counters = (mips_topk, *(getattr(sce_prefetch, n) for n in GATHER + PLSE),
+                sce_prefetch.sce_gather_dy_sum)
+    serve_kw = dict(cfg=cfg, buckets=CKPT_BUCKETS, top_k=K, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        straight_dir = os.path.join(tmp, "straight")
+        clock = StartClock()
+        for fn in counters:  # the main path starts here
+            fn.launches = 0
+        mips_topk.launches_by_k.clear()
+        straight, _, _ = run(CKPT_STEPS, straight_dir, mark=clock)
+        server = RetrievalServer("sasrec-sce", ckpt_dir=straight_dir,
+                                 **serve_kw)
+        try:
+            vals, ids = server.score(hist)
+        finally:
+            server.close()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        by_k = dict(mips_topk.launches_by_k)  # ... ends here
+        losses = straight["losses"]
+        check(len(losses) == CKPT_STEPS and straight["skipped_steps"] == 0
+              and all(math.isfinite(v) for v in losses),
+              f"the straight run: {straight['steps']} steps, "
+              f"{straight['skipped_steps']} skipped")
+        check(CheckpointManager(straight_dir).all_steps() == [3, 7, 11],
+              "the straight run's checkpoints")
+        check(by_k.get(B_X) == CKPT_STEPS and by_k.get(B_Y) == CKPT_STEPS
+              and by_k.get(K, 0) >= 1 and sum(by_k.values())
+              == launches["mips_topk"], f"mips_topk launches by k {by_k}")
+        for name in GATHER + PLSE + ("sce_gather_dy_sum",):
+            want = 0 if name in PLSE else CKPT_STEPS
+            check(launches[name] == want, f"{name} launched "
+                  f"{launches[name]} times on the checkpoint path, not "
+                  f"{want}")
+
+        # The server on the checkpoint against one on the same params.
+        check(server.restored_step == CKPT_STEPS - 1,
+              f"the server restored step {server.restored_step}")
+        step, params = CheckpointManager(
+            straight_dir).restore_params_latest(device=dev)
+        same = RetrievalServer("sasrec-sce", params=params, **serve_kw)
+        rand = RetrievalServer("sasrec-sce", seed=0, **serve_kw)
+        try:
+            same_vals, same_ids = same.score(hist)
+            rand_ids = rand.score(hist)[1]
+        finally:
+            same.close()
+            rand.close()
+        check(step == CKPT_STEPS - 1 and np.array_equal(vals, same_vals)
+              and np.array_equal(ids, same_ids),
+              "the checkpoint server's answers differ from the params= "
+              "server's")
+        check(not np.array_equal(ids, rand_ids),
+              "the checkpoint server answers as a random one")
+        check(bool(((ids >= 1) & (ids < cfg.n_items)).all()),
+              "an id outside [1, n_items) was served")
+        print(f"  server on the checkpoint: restored_step "
+              f"{server.restored_step}; {SERVE_HISTORIES} histories' top-"
+              f"{K} equal to the params= server's bit for bit, not the "
+              f"random server's ok; main path launches {launches}, "
+              f"mips_topk by k {by_k}")
+
+        # Resume: 6 steps, then a relaunch to 12 in the same directory.
+        resume_dir = os.path.join(tmp, "resume")
+        first, _, _ = run(6, resume_dir)
+        resumed, text, _ = run(CKPT_STEPS, resume_dir)
+        check(first["losses"] == losses[:6],
+              "6 steps from scratch left the straight curve")
+        check(f"[restore] resumed from step {CKPT_EVERY - 1}" in text,
+              "the relaunch did not resume from step 3")
+        check(resumed["losses"] == losses[CKPT_EVERY:],
+              f"the resumed losses {resumed['losses']} are not the "
+              f"straight run's {losses[CKPT_EVERY:]} bit for bit")
+        print(f"  resume: 6 steps, relaunch to {CKPT_STEPS} resumed from "
+              f"step {CKPT_EVERY - 1}; losses of steps {CKPT_EVERY}–"
+              f"{CKPT_STEPS - 1} equal the straight run's bit for bit ok")
+
+        # Corruption: the two newest checkpoints, two ways.
+        p = os.path.join(resume_dir, "step_11", "leaves.npz")
+        with open(p, "r+b") as f:
+            f.truncate(os.path.getsize(p) // 2)
+        p = os.path.join(resume_dir, "step_7", "manifest.json")
+        with open(p, "rb") as f:
+            raw = bytearray(f.read())
+        raw[len(raw) // 2] ^= 0xFF
+        with open(p, "wb") as f:
+            f.write(bytes(raw))
+        again, text, err = run(CKPT_STEPS, resume_dir)
+        check(err.count("falling back") == 2,
+              f"{err.count('falling back')} fall-back warnings, not 2")
+        check(f"[restore] resumed from step {CKPT_EVERY - 1}" in text,
+              "the relaunch past two corrupt steps did not resume from 3")
+        check(again["losses"] == losses[CKPT_EVERY:],
+              "the relaunch past the corrupt steps left the straight curve")
+        print("  corruption: step_11's payload truncated, step_7's "
+              "manifest flipped; two fall-back warnings, resumed from step "
+              "3, losses equal the straight run's bit for bit ok")
+
+        # Preemption: SIGTERM while step 5 is in flight.
+        pre_dir = os.path.join(tmp, "preempt")
+        starts = []
+
+        def sigterm_at(name):
+            if name == "start":
+                starts.append(name)
+                if len(starts) == PREEMPT_AT + 1:
+                    os.kill(os.getpid(), signal.SIGTERM)
+
+        before = signal.getsignal(signal.SIGTERM)
+        pre, text, _ = run(CKPT_STEPS, pre_dir, mark=sigterm_at)
+        check(signal.getsignal(signal.SIGTERM) == before,
+              "the SIGTERM handler was not restored")
+        check(pre.get("preempted") and pre["preempt_step"] == PREEMPT_AT
+              and pre["steps"] == PREEMPT_AT + 1,
+              f"preempted {pre.get('preempted')} at step "
+              f"{pre.get('preempt_step')} after {pre['steps']} steps")
+        check(CheckpointManager(pre_dir).all_steps() == [3, PREEMPT_AT],
+              "the drain's blocking save is missing")
+        check(pre["losses"] == losses[:PREEMPT_AT + 1],
+              "the preempted run left the straight curve")
+        relaunch, text, _ = run(CKPT_STEPS, pre_dir)
+        check(f"[restore] resumed from step {PREEMPT_AT}" in text,
+              "the relaunch after SIGTERM did not resume from step 5")
+        check(relaunch["losses"] == losses[PREEMPT_AT + 1:],
+              "the relaunch after SIGTERM left the straight curve")
+        print(f"  preemption: SIGTERM at step {PREEMPT_AT}'s start, step "
+              f"{PREEMPT_AT} completed, the drain saved step {PREEMPT_AT}; "
+              f"the relaunch resumed from it and ends on the straight "
+              f"curve bit for bit ok")
+
+        # The same resume in sce_mode="exact" under strict: printed.
+        ex_dir, ex_dir2 = (os.path.join(tmp, n) for n in ("ex1", "ex2"))
+        try:
+            ex, _, _ = run(CKPT_STEPS, ex_dir, "exact",
+                           guard_policy="strict")
+            run(6, ex_dir2, "exact", guard_policy="strict")
+            ex_res, _, _ = run(CKPT_STEPS, ex_dir2, "exact",
+                               guard_policy="strict")
+        finally:
+            guard.set_policy(None)
+        ex_want = ex["losses"][CKPT_EVERY:]
+        exact_equal = ex_res["losses"] == ex_want
+        exact_gap = max(abs(a - b) for a, b in zip(ex_res["losses"],
+                                                   ex_want))
+        print(f"  exact under strict: the resumed losses equal the straight "
+              f"run's bit for bit: {exact_equal} (largest gap "
+              f"{exact_gap!r}) — measured, not required")
+
+        # The numbers: bytes, snapshot, writer, restore, steps.
+        step_dir = os.path.join(straight_dir, "step_11")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+        n_params = sum(p_.numel() for p_ in tree_leaves(params))
+        mgr = CheckpointManager(straight_dir)
+        restore_s, snapshot_s, write_s = [], [], []
+        timing = CheckpointManager(os.path.join(tmp, "timing"), keep_n=1)
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree = mgr.restore(CKPT_STEPS - 1, device=dev)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t0)
+            timing.save(i, tree, blocking=False)
+            snapshot_s.append(timing.last_snapshot_s)
+            timing.wait()
+            write_s.append(timing.last_write_s)
+            del tree
+        check(mgr.unverified_loads == 0 and timing.unverified_loads == 0,
+              "an unverified load")
+        plain_clock = StartClock()
+        plain, _, _ = run(CKPT_STEPS, None, mark=plain_clock)
+        check(plain["losses"] == losses, "the run without ckpt_dir left the "
+              "straight curve")
+        # The CLI's save interval: does each write end before the next
+        # save, and which steps does the writer slow?
+        sparse_clock = StartClock()
+        sparse, _, _ = run(SPARSE_STEPS, os.path.join(tmp, "sparse"),
+                           mark=sparse_clock, ckpt_every=SPARSE_EVERY)
+        check(sparse["steps"] == SPARSE_STEPS
+              and sparse["skipped_steps"] == 0
+              and sparse["losses"][:CKPT_STEPS] == losses
+              and all(math.isfinite(v) for v in sparse["losses"]),
+              f"the run saving every {SPARSE_EVERY} steps left the straight "
+              f"curve or skipped steps")
+
+    def med(xs):
+        return statistics.median(xs)
+
+    steps_ms = {
+        "with_ckpt_step_ms": med(straight["step_s"][1:]) * 1e3,
+        "without_ckpt_step_ms": med(plain["step_s"][1:]) * 1e3,
+        "with_ckpt_iteration_ms": med(clock.gaps_ms()[1:]),
+        "without_ckpt_iteration_ms": med(plain_clock.gaps_ms()[1:]),
+        "with_ckpt_iteration_mean_ms": statistics.mean(clock.gaps_ms()[1:]),
+        "without_ckpt_iteration_mean_ms": statistics.mean(
+            plain_clock.gaps_ms()[1:]),
+        "with_ckpt_save_iterations_ms": [clock.gaps_ms()[s_] for s_ in
+                                         (CKPT_EVERY - 1,
+                                          2 * CKPT_EVERY - 1)],
+    }
+    # Saves at SPARSE_EVERY - 1, 2 · SPARSE_EVERY - 1, ...; a gap i is step
+    # i's iteration, its save included. The steps 1–4 after a save overlap
+    # its writer (≈ 0.3 s); the steps 15–19 after it come once it is done.
+    saves = range(SPARSE_EVERY - 1, SPARSE_STEPS - 1, SPARSE_EVERY)
+    gaps = sparse_clock.gaps_ms()
+    sparse_s = sparse["step_s"]
+    sparse_ms = {
+        "every": SPARSE_EVERY, "steps": SPARSE_STEPS,
+        "iteration_ms": med(gaps[1:]),
+        "iteration_mean_ms": statistics.mean(gaps[1:]),
+        "save_iterations_ms": [gaps[s_] for s_ in saves],
+        "steps_1_4_after_save_ms": med(
+            [sparse_s[s_ + j] for s_ in saves for j in range(1, 5)]) * 1e3,
+        "steps_15_19_after_save_ms": med(
+            [sparse_s[s_ + j] for s_ in saves for j in range(15, 20)]) * 1e3,
+    }
+    print(f"  checkpoint at full width: {nbytes} bytes on disk "
+          f"({nbytes / 1e6:.1f} MB; {n_params} f32 parameters with AdamW's "
+          f"m and v) [{card}]")
+    print(f"  non-blocking save: host snapshot (blocking) "
+          f"{[round(x * 1e3, 3) for x in snapshot_s]} ms, writer thread "
+          f"{[round(x, 4) for x in write_s]} s; restore onto the card "
+          f"(verify, decode, copy) {[round(x, 4) for x in restore_s]} s "
+          f"[{card}]")
+    print(f"  straight run of {CKPT_STEPS} steps: median step (the trainer's "
+          f"step_s, steps 2–{CKPT_STEPS}) {steps_ms['with_ckpt_step_ms']:.3f} "
+          f"ms with ckpt_dir, {steps_ms['without_ckpt_step_ms']:.3f} ms "
+          f"without; median loop iteration (start to start, saves "
+          f"included) {steps_ms['with_ckpt_iteration_ms']:.3f} / "
+          f"{steps_ms['without_ckpt_iteration_ms']:.3f} ms, mean "
+          f"{steps_ms['with_ckpt_iteration_mean_ms']:.3f} / "
+          f"{steps_ms['without_ckpt_iteration_mean_ms']:.3f} ms; the "
+          f"iterations that saved (steps 3, 7) "
+          f"{[round(x, 3) for x in steps_ms['with_ckpt_save_iterations_ms']]}"
+          f" ms [{card}]")
+    print(f"  {SPARSE_STEPS} steps saving every {SPARSE_EVERY}: loop "
+          f"iteration median {sparse_ms['iteration_ms']:.3f} ms, mean "
+          f"{sparse_ms['iteration_mean_ms']:.3f} ms; the iterations that "
+          f"saved (steps {', '.join(str(s_) for s_ in saves)}) "
+          f"{[round(x, 3) for x in sparse_ms['save_iterations_ms']]} ms; "
+          f"median step 1–4 steps after a save (its writer running) "
+          f"{sparse_ms['steps_1_4_after_save_ms']:.3f} ms, 15–19 after "
+          f"{sparse_ms['steps_15_19_after_save_ms']:.3f} ms [{card}]")
+    return {"card": card, "launches": launches, "mips_topk_by_k": by_k,
+            "losses": losses, "restored_step": CKPT_STEPS - 1,
+            "exact_resume_equal": exact_equal, "exact_resume_gap": exact_gap,
+            "bytes": nbytes, "n_params": n_params,
+            "snapshot_s": snapshot_s, "write_s": write_s,
+            "restore_s": restore_s, **steps_ms, "sparse_saves": sparse_ms}
 
 
 def main() -> int:
@@ -2762,8 +3198,12 @@ def main() -> int:
     phase(15, "guard kernels (sce_bucket, eval_topk) against their plain "
               "versions")
     bcases, tkcases, gtimes = guard_kernel_phase(dev)
-    phase(16, "drills: divergence, broken kernel")
+    phase(16, "drills: divergence without and with checkpoints, broken "
+              "kernel")
     drills = drill_phase(dev)
+    phase(17, "checkpoints at full width: the trainer saves, resumes, "
+              "drains on SIGTERM; the server serves the checkpoint")
+    ckpt = ckpt_phase(dev)
 
     t = timings[512]  # the serve_p99 bucket
     mips = {"route": "cuda",
@@ -2773,9 +3213,11 @@ def main() -> int:
     kernels = [{
         "name": "mips_topk",
         **mips,
-        # serving's launches and both trainers', each path counted from 0
+        # serving's launches, both trainers' and the checkpoint path's
+        # (phase 17), each path counted from 0
         "launches": server["launches"] + sum(
-            r["launches"]["mips_topk"] for r in trainers),
+            r["launches"]["mips_topk"] for r in trainers)
+        + ckpt["launches"]["mips_topk"],
         "max_abs_err": max([timings[b]["max_abs_err"] for b in BUCKETS]
                            + [c["max_abs_err"] for c in tcases]),
         "ms": t["ms"],
@@ -2792,7 +3234,7 @@ def main() -> int:
             "name": f"mips_topk_train_{name}",
             **mips,
             "launches": sum(r["mips_topk_launches_by_k"][k]
-                            for r in trainers),
+                            for r in trainers) + ckpt["mips_topk_by_k"][k],
             "max_abs_err": next(c["max_abs_err"] for c in tcases
                                 if c["name"] == f"train_{name}"),
             "ms": tt["ms"],
@@ -2810,7 +3252,7 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sce_gather.cu",
             "replaces": f"src/repro/kernels/sce_prefetch.py:{line}",
-            "launches": trainer["launches"][name],
+            "launches": trainer["launches"][name] + ckpt["launches"][name],
             "max_abs_err": max(c["max_abs_err"][what] for c in gcases),
             "ms": tt["ms"],
             "plain_ms": tt["plain_ms"],
@@ -2825,7 +3267,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/sce_gather.cu",
         "replaces": "src/repro/kernels/sce_prefetch.py:250",
         "launches": sum(r["launches"]["sce_gather_dy_sum"]
-                        for r in trainers),
+                        for r in trainers)
+        + ckpt["launches"]["sce_gather_dy_sum"],
         "max_abs_err": tt["max_abs_err"],
         "ms": tt["ms"],
         "plain_ms": tt["plain_ms"],
@@ -2923,7 +3366,7 @@ def main() -> int:
             "ce_timings": ctimes, "competitor_losses": competitors,
             "conformance": conformance, "trainer_exact_guard_off": exact_off,
             "bucket_cases": bcases, "two_pass_cases": tkcases,
-            "guard_timings": gtimes, "drills": drills,
+            "guard_timings": gtimes, "drills": drills, "checkpoints": ckpt,
             "kernels": kernels,
         }, indent=1))
     print(f"[{N_PHASES}/{N_PHASES}] summary")

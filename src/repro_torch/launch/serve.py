@@ -32,9 +32,15 @@ Differences from the JAX server:
   also builds the CUDA kernel on first use); ``compile_count`` counts
   warmed buckets and ``cache_misses`` counts shapes outside the bucket
   set, which the router never emits.
-* Parameters come from ``params=`` (the port's ``init_params`` or
-  ``models.convert.sasrec_params_from_jax``), or random init from
-  ``seed``. Checkpoint loading and the mesh path are not ported.
+* Parameters come from ``ckpt_dir=`` (the newest verified checkpoint of
+  the port's trainer, through ``CheckpointManager.restore_params_latest``;
+  ``restored_step`` names it), from ``params=`` (the port's
+  ``init_params`` or ``models.convert.sasrec_params_from_jax``), or from
+  random init with ``seed``. A checkpoint the JAX package wrote is not
+  the port's (its structure is a pickle only JAX reads): restore it with
+  ``repro``'s manager and carry it across with
+  ``models/convert.py::sasrec_params_from_jax``. The mesh path is not
+  ported.
 * The readiness gate (``kernels/guard``) runs the ``mips_topk``
   conformance verdict on the server's device at construction, before
   the buckets are warmed (warming runs the kernel). A failed verdict
@@ -64,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
 from repro_torch.kernels import guard
@@ -230,8 +237,12 @@ class RetrievalServer:
         responses to degraded-k.
     deadline_s : default per-request deadline (relative seconds);
         requests past it at serve time get the degraded-k response.
+    ckpt_dir : load the params of the newest verified checkpoint there
+        (``CheckpointManager.restore_params_latest``) and set
+        ``restored_step``; raises ``FileNotFoundError`` when it holds no
+        intact port checkpoint. Not together with ``params``.
     params : model parameters (``models.sasrec.init_params`` layout);
-        ``None`` = random init from ``seed``.
+        ``None`` (and no ``ckpt_dir``) = random init from ``seed``.
     device : ``None`` = ``cuda`` (raises without one); ``"cpu"`` runs the
         plain kernel versions on the CPU.
     defer_readiness : skip the constructor's readiness gate; the server
@@ -241,8 +252,11 @@ class RetrievalServer:
     def __init__(self, arch_name: str = "sasrec-sce", *, cfg=None,
                  buckets: Sequence[int] = (8, 32), top_k: int = 10,
                  degraded_top_k: Optional[int] = None, queue_size: int = 64,
-                 deadline_s: Optional[float] = None, params=None,
+                 deadline_s: Optional[float] = None,
+                 ckpt_dir: Optional[str] = None, params=None,
                  seed: int = 0, device=None, defer_readiness: bool = False):
+        if ckpt_dir is not None and params is not None:
+            raise ValueError("pass ckpt_dir or params, not both")
         self.device = resolve_device(device)
         self.arch = get_arch(arch_name)
         if self.arch.family != "seqrec":
@@ -260,7 +274,10 @@ class RetrievalServer:
         self.default_deadline_s = deadline_s
         self.degrade_depth = max(1, self.queue_size // 2)
 
-        if params is None:
+        self.restored_step: Optional[int] = None
+        if ckpt_dir is not None:
+            params = self._load_params(ckpt_dir)
+        elif params is None:
             params = sasrec_lib.init_params(
                 self.cfg, seed=seed, device=self.device
             )
@@ -291,6 +308,25 @@ class RetrievalServer:
         self.readiness_error: Optional[str] = None
         if not defer_readiness:
             self.refresh_readiness()
+
+    def _load_params(self, ckpt_dir: str):
+        """The params of the newest verified checkpoint under
+        ``ckpt_dir``, on the server's device; sets ``restored_step``."""
+        mgr = CheckpointManager(ckpt_dir)
+        step, params = mgr.restore_params_latest(device=self.device)
+        if params is None:
+            foreign = mgr.foreign_steps()
+            if foreign:
+                raise FileNotFoundError(
+                    f"no port checkpoint to serve under {ckpt_dir!r}: steps "
+                    f"{foreign} hold treedef.pkl, a checkpoint of the JAX "
+                    f"package — restore it with repro's CheckpointManager "
+                    f"and carry its params across with "
+                    f"models/convert.py::sasrec_params_from_jax")
+            raise FileNotFoundError(
+                f"no checkpoint to serve under {ckpt_dir!r}")
+        self.restored_step = step
+        return params
 
     # -- buckets -----------------------------------------------------------
     def _warm_bucket(self, bucket: int) -> None:
@@ -527,6 +563,9 @@ def main() -> None:
     ap.add_argument("--deadline-ms", type=float, default=None)
     ap.add_argument("--device", default=None,
                     help="default cuda; 'cpu' runs the plain kernel versions")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the trainer's newest verified "
+                         "checkpoint there; omit for random-init smoke params")
     args = ap.parse_args()
 
     buckets = tuple(int(b) for b in args.buckets.split(","))
@@ -535,7 +574,7 @@ def main() -> None:
         queue_size=args.queue_size,
         deadline_s=(args.deadline_ms / 1e3
                     if args.deadline_ms is not None else None),
-        device=args.device,
+        ckpt_dir=args.ckpt_dir, device=args.device,
     )
     data = SequenceDataset(SeqDataConfig(
         n_items=server.cfg.n_items,
@@ -551,10 +590,12 @@ def main() -> None:
     lats = sorted(r.latency_ms for r in reqs)
     p50 = lats[len(lats) // 2]
     p99 = lats[min(len(lats) - 1, int(len(lats) * 0.99))]
+    src = (f"checkpoint step {server.restored_step}"
+           if server.restored_step is not None else "random init (smoke)")
     print(f"served {args.requests} requests on {server.device} in "
           f"{dt*1e3:.1f} ms ({args.requests/dt:.0f} req/s; p50 {p50:.1f} ms, "
           f"p99 {p99:.1f} ms; buckets={server.router.buckets}, "
-          f"cache_misses={server.cache_misses}; params: random init (smoke))")
+          f"cache_misses={server.cache_misses}; params: {src})")
     print(f"degraded: {server.degraded_served}, "
           f"rejected: {server.rejected}")
     print("first request top items:", results[0].ids[:5],

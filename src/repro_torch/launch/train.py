@@ -22,29 +22,59 @@ the card) of ``eval_users`` held-out users drawn once from
 ``SequenceDataset.eval_batch(Cursor(seed))``; each prints
 ``[eval] step N: {...}``.
 
-The divergence guard (``launch/elastic.py::DivergenceGuard``) runs as
-in the reference: every batch carries its ``loss_cap`` (``inf`` for the
-first 8 healthy steps, then ``guard_factor`` × the running median), a
-step with a non-finite loss or gradient or a loss above the cap leaves
-the params and the optimizer state as they were and prints a ``[guard]``
-strike line naming the kernel guard's tripped sentinels, and
-``max_strikes`` bad steps in a row raise ``RuntimeError`` (the
-reference's behaviour without ``--ckpt-dir``). ``guard_policy``
-(``--guard``) sets the kernel guard's policy (``kernels/guard``);
-``chaos_nan_at`` poisons the params with NaN once at that step (the
-divergence drill).
+Fault tolerance, as in the reference (``checkpoint/manager.py``,
+``launch/elastic.py``):
 
-Left out, with their ROADMAP.md queue: checkpoints, preemption and the
-divergence guard's checkpointed rollback (queue 1 item 10), the LM's
-token-rank evaluation (item 12), the sharded evaluation, ``--n-hosts``
-emulation and gradient compression (item 14).
+  * **auto-restore**: with ``ckpt_dir`` the newest checkpoint that passes
+    verification (params, AdamW state, the step generator's state, the
+    data cursor) is restored at start, printing ``[restore] resumed from
+    step N``; a corrupt or torn newer step is skipped with a warning.
+  * **async checkpoints** under the combined step (``ckpt_every``) and
+    wall-clock (``ckpt_interval_s``) policy: a host snapshot, then a
+    background write; ``keep_n`` checkpoints are kept.
+  * **preemption**: SIGTERM / SIGINT finish the in-flight step, take a
+    final blocking save and return ``preempted``; the CLI exits with 42
+    (``elastic.EXIT_PREEMPTED``). ``kill -9`` needs no cooperation: the
+    rename commit means the relaunch resumes from the last complete write.
+  * **divergence guard** (``DivergenceGuard``): every batch carries its
+    ``loss_cap`` (``inf`` for the first 8 healthy steps, then
+    ``guard_factor`` × the running median); a step with a non-finite
+    loss or gradient or a loss above the cap leaves the params and the
+    optimizer state as they were and prints a ``[guard]`` strike line
+    naming the kernel guard's tripped sentinels; ``max_strikes`` bad
+    steps in a row restore the newest verified checkpoint with a
+    reseeded data offset (``[guard] rolled back to verified step N``),
+    or raise ``RuntimeError`` without ``ckpt_dir`` (the reference's
+    behaviour) or an intact checkpoint. ``chaos_nan_at`` poisons the
+    params with NaN the first time the loop reaches that step (the
+    divergence drill); ``guard_policy`` (``--guard``) sets the kernel
+    guard's policy (``kernels/guard``).
+  * **straggler watchdog**: steps slower than ``watchdog`` × the median
+    of the last ``WATCHDOG_WINDOW`` steps are logged; with
+    ``skip_stragglers`` a data load that slow reuses the previous host
+    batch.
+  * ``metrics_file`` appends one JSON row per completed step (``step``,
+    ``loss``, ``skipped``, ``grad_norm``, tripped ``sentinels``): the
+    curve the kill drills compare step for step.
+
+Checkpoints are written under a single process only: ``ckpt_dir`` under
+a ``torch.distributed`` world of more than one process raises.
+
+Left out, with their ROADMAP.md queue: the LM's token-rank evaluation
+(queue 1 item 12), the sharded evaluation, checkpoints over several
+processes, ``--n-hosts`` emulation and gradient compression (item 14).
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec-sce \\
         --steps 4 --eval-every 2 --device cpu [--sce-mode union]
-    # the divergence drill: NaN params at step 5, strikes at 5 and 6, the
-    # RuntimeError at step 7
+    # checkpoints: 4 steps save step 3; the same command with --steps 8
+    # prints "[restore] resumed from step 3" and runs steps 4-7; a
+    # SIGTERM drains (finishes the step, saves) and exits 42
+    PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec-sce \\
+        --steps 4 --device cpu --ckpt-dir /tmp/ck --ckpt-every 4
+    # the divergence drill: NaN params at step 5, strikes at 5 and 6; at
+    # step 7 the RuntimeError, or with --ckpt-dir the rollback
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec-sce \\
         --steps 10 --device cpu --guard strict --chaos-nan-at 5
     # two processes on the CPU (a (2, 1) mesh on gloo)
@@ -57,7 +87,9 @@ import argparse
 import json
 import os
 import statistics
+import sys
 import time
+from collections import deque
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -65,16 +97,26 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ShapeSpec, get_arch
 from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
 from repro_torch.dist.sharding import batch_slice, world
 from repro_torch.eval import evaluate_streaming
 from repro_torch.kernels import guard as kguard
-from repro_torch.launch.elastic import DivergenceGuard
+from repro_torch.launch.elastic import (
+    EXIT_PREEMPTED,
+    DivergenceGuard,
+    PreemptionHandler,
+    TrainState,
+)
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_seqrec_train_step
 from repro_torch.models import sasrec
 from repro_torch.optim.optimizers import tree_map
+
+# Step times the straggler watchdog's median reads: the most recent ones,
+# so its cost a step stays flat however long the run.
+WATCHDOG_WINDOW = 32
 
 
 def to_device(host_batch, device) -> Dict[str, torch.Tensor]:
@@ -96,11 +138,19 @@ def _host_metrics(metrics):
             {n: int(v) for n, v in zip(names, row[3:])})
 
 
+def _host_batch(data, cursor):
+    """The next global host batch at ``cursor`` → ``(batch, cursor)``."""
+    return data.next_batch(cursor)
+
+
 def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
           seed: int = 0, sce_mode: str = "exact", log_every: int = 10,
           eval_every: int = 0, eval_users: int = 128, device=None,
-          max_strikes: int = 3, guard_factor: float = 100.0,
-          chaos_nan_at: Optional[int] = None,
+          ckpt_dir: Optional[str] = None, ckpt_every: int = 20,
+          ckpt_interval_s: Optional[float] = None, keep_n: int = 3,
+          watchdog: float = 5.0, skip_stragglers: bool = False,
+          metrics_file: Optional[str] = None, max_strikes: int = 3,
+          guard_factor: float = 100.0, chaos_nan_at: Optional[int] = None,
           guard_policy: Optional[str] = None, mark=None) -> Dict[str, Any]:
     """Train ``arch_name`` for ``steps`` steps of ``batch`` sequences (the
     global batch: each rank of the mesh steps its data shard of it).
@@ -114,22 +164,35 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     every ``eval_every``-th step (see the module docstring); a step's
     time is taken before its evaluation.
 
+    ``ckpt_dir`` turns on checkpoints (see the module docstring):
+    ``ckpt_every`` / ``ckpt_interval_s`` are the save policy,
+    ``keep_n`` the checkpoints kept (0 = all). ``watchdog`` logs steps
+    slower than that multiple of the median of the last
+    ``WATCHDOG_WINDOW`` steps; with
+    ``skip_stragglers`` a data load slower than that reuses the previous
+    host batch. ``metrics_file`` appends one JSON row per completed step
+    (``step``, ``loss``, ``skipped``, ``grad_norm``, and the tripped
+    ``sentinels`` when any).
+
     ``max_strikes`` / ``guard_factor`` configure the divergence guard;
     ``chaos_nan_at`` is the fault-injection hook of the divergence drill:
-    at that step the params are multiplied by NaN *once*, which the guard
-    must catch (update skipped on the device, strikes) — with no
-    checkpoint to roll back to, the ``max_strikes``-th bad step in a row
-    raises ``RuntimeError``. ``guard_policy`` (``off`` / ``warn`` /
-    ``strict``) sets the process-wide kernel-guard policy.
+    the first time the loop reaches that step, the params are multiplied
+    by NaN, which the guard must catch (update skipped on the device,
+    strikes). The ``max_strikes``-th bad step in a row rolls back to the
+    newest verified checkpoint, or raises ``RuntimeError`` without
+    ``ckpt_dir`` or an intact checkpoint. ``guard_policy`` (``off`` /
+    ``warn`` / ``strict``) sets the process-wide kernel-guard policy.
 
-    Returns ``first_loss``, ``final_loss``, ``steps``, ``mean_step_s``
-    (host clock per step, each ending in one read of the step's metrics,
-    so the device work is inside), ``skipped_steps`` (steps the guard
-    did not count as ok), and per step ``losses`` (the curve the
-    reference writes to ``--metrics-file``), ``step_s``, ``loss_caps``
-    (the cap each batch carried) and ``sentinels`` (the kernel guard's
-    counts, empty under policy ``off``); with evaluation also ``eval``,
-    the last evaluation's metrics (``hr@k`` / ``ndcg@k`` / ``cov@k``).
+    Returns ``first_loss``, ``final_loss``, ``steps`` (steps run in this
+    call, a rolled-back stretch counted again), ``mean_step_s`` (host
+    clock per step, each ending in one read of the step's metrics, so
+    the device work is inside), ``skipped_steps`` (steps the guard did
+    not count as ok), ``rollbacks``, and per step run ``losses``,
+    ``step_s``, ``loss_caps`` (the cap each batch carried) and
+    ``sentinels`` (the kernel guard's counts, empty under policy
+    ``off``); after SIGTERM / SIGINT also ``preempted`` and
+    ``preempt_step``; with evaluation ``eval``, the last evaluation's
+    metrics (``hr@k`` / ``ndcg@k`` / ``cov@k``).
     """
     if guard_policy is not None:
         kguard.set_policy(guard_policy)
@@ -137,6 +200,10 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     arch = get_arch(arch_name)
     if arch.family != "seqrec":
         raise NotImplementedError(f"{arch.family} training is not ported")
+    if ckpt_dir and world()[1] > 1:
+        raise NotImplementedError(
+            f"checkpoints under a torch.distributed world of {world()[1]} "
+            f"processes are not ported (ROADMAP.md queue 1 item 14)")
     cfg = cfg if cfg is not None else arch.make_smoke_config()
     shape = ShapeSpec("train_smoke", "train", {"batch": batch})
     data = SequenceDataset(SeqDataConfig(
@@ -152,9 +219,28 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     step_fn, (opt_init, _), _ = make_seqrec_train_step(
         arch, cfg, shape, mesh=mesh, sce_mode=sce_mode)
     params = sasrec.init_params(cfg, seed=seed, device=device)
-    opt_state = opt_init(params)
-    generator = torch.Generator(device=device).manual_seed(seed)
-    cursor = Cursor(seed=seed)
+    state = TrainState(
+        params=params, opt_state=opt_init(params),
+        generator=torch.Generator(device=device).manual_seed(seed),
+        cursor=Cursor(seed=seed), step=-1,
+    )
+    mgr = (CheckpointManager(ckpt_dir, keep_n=keep_n,
+                             save_every_steps=ckpt_every,
+                             save_interval_seconds=ckpt_interval_s)
+           if ckpt_dir else None)
+
+    def restore_or(state):
+        """The newest verified checkpoint, or ``state`` unchanged."""
+        last, tree = mgr.restore_latest(device=device)
+        if last is None:
+            return state, None
+        restored = TrainState.from_ckpt(
+            tree, opt_template=state.opt_state, device=device)
+        print(f"[restore] resumed from step {last}")
+        return restored, last
+
+    if mgr is not None:
+        state, _ = restore_or(state)
 
     do_eval = eval_every > 0 and arch.eval_protocol == "leave-one-out"
     if eval_every > 0 and not do_eval:
@@ -170,66 +256,157 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
 
     guard = DivergenceGuard(max_strikes=max_strikes,
                             cap_factor=guard_factor)
+    metrics_fh = open(metrics_file, "a") if metrics_file else None
+    chaos_fired = False
+
+    def record(step, loss, skipped, grad_norm, sentinels):
+        if metrics_fh is None:
+            return
+        row = {"step": step, "loss": loss, "skipped": skipped,
+               "grad_norm": grad_norm}
+        if sentinels:
+            row["sentinels"] = sentinels
+        metrics_fh.write(json.dumps(row) + "\n")
+        metrics_fh.flush()
+
+    def save_state(blocking: bool):
+        mgr.save(state.step, state.to_ckpt(), blocking=blocking)
+
     losses, times, caps, sentinel_log = [], [], [], []
+    recent = deque(maxlen=WATCHDOG_WINDOW)
+    median_s = None  # the watchdog's median, taken once a step
     skipped_steps = 0
-    for step in range(steps):
-        if step == chaos_nan_at:  # once: steps never repeat without rollback
-            if lead:
-                print(f"[chaos] step {step}: poisoning params with NaN")
-            params = tree_map(lambda p: p * float("nan")
-                              if p.is_floating_point() else p, params)
-        t0 = time.perf_counter()
-        host_batch, cursor = data.next_batch(cursor)
-        if mark:
-            mark("start")
-        dev_batch = to_device({k: v[rows] for k, v in host_batch.items()},
-                              device)
-        cap = guard.loss_cap()
-        dev_batch["loss_cap"] = torch.full((), cap, dtype=torch.float32,
-                                           device=device)
-        if mark:
-            mark("h2d")
-        params, opt_state, metrics = step_fn(
-            params, opt_state, dev_batch, generator=generator, mark=mark,
-        )
-        loss, skipped, grad_norm, counts = _host_metrics(metrics)
-        dt = time.perf_counter() - t0
-        losses.append(loss)
-        times.append(dt)
-        caps.append(float(np.float32(cap)))  # as the batch carries it
-        sentinel_log.append(counts)
-        verdict = guard.observe(loss, skipped=skipped)
-        if verdict != "ok":
-            skipped_steps += 1
-            blame = (f" (sentinels: {kguard.describe_sentinels(counts)})"
-                     if any(counts.values()) else "")
-            if lead:
-                print(f"[guard] step {step}: loss {loss:.4g} grad_norm "
-                      f"{grad_norm:.4g} — update skipped (strike "
-                      f"{guard.strikes or guard.max_strikes}"
-                      f"/{guard.max_strikes}){blame}")
-        if verdict == "rollback":
-            raise RuntimeError(
-                f"diverged for {guard.max_strikes} consecutive steps at "
-                f"step {step} and no --ckpt-dir to roll back to")
-        if lead and log_every and step % log_every == 0:
-            print(f"step {step:5d}  loss {loss:.4f}  {dt * 1e3:.0f} ms")
-        if do_eval and (step + 1) % eval_every == 0:
-            eval_metrics = evaluate_streaming(params, cfg, eval_batch)
-            shown = {k: round(v, 4) for k, v in eval_metrics.items()}
-            if lead:
-                print(f"[eval] step {step}: {shown}")
+    preempted = False
+    prev_batch = None
+    try:
+        with PreemptionHandler() as preemption:
+            step = state.step + 1
+            while step < steps:
+                if preemption.preempted:
+                    preempted = True
+                    break
+                if step == chaos_nan_at and not chaos_fired:
+                    chaos_fired = True  # once: a rollback repeats steps
+                    if lead:
+                        print(f"[chaos] step {step}: poisoning params "
+                              f"with NaN")
+                    state.params = tree_map(
+                        lambda p: p * float("nan")
+                        if p.is_floating_point() else p, state.params)
+                t0 = time.perf_counter()
+                host_batch, new_cursor = _host_batch(data, state.cursor)
+                t_data = time.perf_counter() - t0
+                # Straggler mitigation: a stalled data load reuses the
+                # previous batch (bounded staleness) instead of blocking.
+                if (skip_stragglers and prev_batch is not None
+                        and median_s is not None
+                        and t_data > watchdog * median_s):
+                    host_batch = prev_batch
+                    print(f"[watchdog] step {step}: slow input shard "
+                          f"({t_data:.2f}s) — reusing previous batch")
+                    new_cursor = state.cursor
+                else:
+                    prev_batch = host_batch
+                if mark:
+                    mark("start")
+                dev_batch = to_device(
+                    {k: v[rows] for k, v in host_batch.items()}, device)
+                cap = guard.loss_cap()
+                dev_batch["loss_cap"] = torch.full(
+                    (), cap, dtype=torch.float32, device=device)
+                if mark:
+                    mark("h2d")
+                state.params, state.opt_state, metrics = step_fn(
+                    state.params, state.opt_state, dev_batch,
+                    generator=state.generator, mark=mark,
+                )
+                loss, skipped, grad_norm, counts = _host_metrics(metrics)
+                state.cursor = new_cursor
+                state.step = step
+                dt = time.perf_counter() - t0
+                losses.append(loss)
+                times.append(dt)
+                recent.append(dt)
+                median_s = statistics.median(recent)
+                caps.append(float(np.float32(cap)))  # as the batch carries
+                sentinel_log.append(counts)
+                tripped = {k: v for k, v in counts.items() if v}
+                record(step, loss, skipped, grad_norm, tripped)
+
+                verdict = guard.observe(loss, skipped=skipped)
+                if verdict != "ok":
+                    skipped_steps += 1
+                    blame = (f" (sentinels: "
+                             f"{kguard.describe_sentinels(counts)})"
+                             if tripped else "")
+                    if lead:
+                        print(f"[guard] step {step}: loss {loss:.4g} "
+                              f"grad_norm {grad_norm:.4g} — update skipped "
+                              f"(strike {guard.strikes or guard.max_strikes}"
+                              f"/{guard.max_strikes}){blame}")
+                if verdict == "rollback":
+                    if mgr is None:
+                        raise RuntimeError(
+                            f"diverged for {guard.max_strikes} consecutive "
+                            f"steps at step {step} and no --ckpt-dir to "
+                            f"roll back to")
+                    mgr.wait()  # an in-flight async save must land first
+                    rolled, last = restore_or(state)
+                    if last is None:
+                        raise RuntimeError("diverged and no intact "
+                                           "checkpoint to roll back to")
+                    state = rolled
+                    state.cursor = guard.reseed(state.cursor)
+                    print(f"[guard] rolled back to verified step {last} "
+                          f"(rollback #{guard.rollbacks}, data offset "
+                          f"+{guard.reseed_stride * guard.rollbacks})")
+                    step = state.step + 1
+                    continue
+
+                if dt > watchdog * median_s:
+                    print(f"[watchdog] step {step} took {dt:.2f}s (median "
+                          f"{median_s:.2f}s)")
+                if lead and log_every and step % log_every == 0:
+                    print(f"step {step:5d}  loss {loss:.4f}  "
+                          f"{dt * 1e3:.0f} ms")
+                if do_eval and (step + 1) % eval_every == 0:
+                    eval_metrics = evaluate_streaming(state.params, cfg,
+                                                      eval_batch)
+                    shown = {k: round(v, 4) for k, v in eval_metrics.items()}
+                    if lead:
+                        print(f"[eval] step {step}: {shown}")
+                if mgr is not None and mgr.should_save(step):
+                    save_state(blocking=False)
+                step += 1
+            if preemption.preempted and not preempted:
+                preempted = True  # the signal came during the last step
+
+        if mgr is not None:
+            mgr.wait()
+            if preempted:
+                # A final blocking save of the exact current state, so
+                # the relaunch loses no completed step.
+                save_state(blocking=True)
+                print(f"[preempt] state saved at step {state.step}; exit "
+                      f"{EXIT_PREEMPTED} to request relaunch")
+    finally:
+        if metrics_fh is not None:
+            metrics_fh.close()
     out = {
         "first_loss": losses[0] if losses else None,
         "final_loss": losses[-1] if losses else None,
         "steps": len(losses),
         "mean_step_s": statistics.mean(times) if times else None,
         "skipped_steps": skipped_steps,
+        "rollbacks": guard.rollbacks,
         "losses": losses,
         "step_s": times,
         "loss_caps": caps,
         "sentinels": sentinel_log,
     }
+    if preempted:
+        out["preempted"] = True
+        out["preempt_step"] = state.step
     if eval_metrics:
         out["eval"] = eval_metrics
     return out
@@ -252,9 +429,26 @@ def main() -> None:
                     help="held-out sequences per evaluation")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--ckpt-dir",
+                    help="checkpoint directory: resume from its newest "
+                         "verified step, save into it")
+    ap.add_argument("--ckpt-every", type=int, default=20,
+                    help="step-based save interval")
+    ap.add_argument("--ckpt-interval-s", type=float,
+                    help="wall-clock save interval in seconds (with "
+                         "--ckpt-every: whichever fires first)")
+    ap.add_argument("--keep-n", type=int, default=3,
+                    help="checkpoints kept (0 = all)")
+    ap.add_argument("--skip-stragglers", action="store_true",
+                    help="reuse the previous batch when a data load is "
+                         "slower than 5x the median step")
+    ap.add_argument("--metrics-file",
+                    help="append one JSON line per completed step (the "
+                         "drills' loss curve)")
     ap.add_argument("--max-strikes", type=int, default=3,
-                    help="consecutive bad steps before the divergence "
-                         "guard gives up (no checkpoint: RuntimeError)")
+                    help="consecutive bad steps before rolling back to "
+                         "the last verified checkpoint (without one: "
+                         "RuntimeError)")
     ap.add_argument("--guard-factor", type=float, default=100.0,
                     help="divergence cap = factor x running median loss")
     ap.add_argument("--chaos-nan-at", type=int,
@@ -277,6 +471,10 @@ def main() -> None:
                     seed=args.seed, sce_mode=args.sce_mode,
                     log_every=args.log_every, eval_every=args.eval_every,
                     eval_users=args.eval_users, device=args.device,
+                    ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                    ckpt_interval_s=args.ckpt_interval_s,
+                    keep_n=args.keep_n, skip_stragglers=args.skip_stragglers,
+                    metrics_file=args.metrics_file,
                     max_strikes=args.max_strikes,
                     guard_factor=args.guard_factor,
                     chaos_nan_at=args.chaos_nan_at, guard_policy=args.guard)
@@ -285,6 +483,8 @@ def main() -> None:
     finally:
         if launched:
             dist.destroy_process_group()
+    if out.get("preempted"):
+        sys.exit(EXIT_PREEMPTED)
 
 
 if __name__ == "__main__":

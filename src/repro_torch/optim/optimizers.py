@@ -28,10 +28,15 @@ def tree_map(fn, tree, *rest):
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of nested dicts, keys in sorted order (the order of
-    ``jax.tree.leaves``)."""
+    """The leaves of nested dicts, tuples (NamedTuples among them) and
+    lists: dict keys in sorted order, sequence items in order, ``None``
+    holding no leaf — the order of ``jax.tree.leaves``."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    if tree is None:
+        return []
     return [tree]
 
 

@@ -90,7 +90,12 @@ self-column rule; ``eval_tgt_scores`` is bit for bit the column
 ``eval_topk`` sweeps (``eq >= 1`` on every row whose target is valid).
 
 The kernel guard: every conformance canary passes on the card, and a
-broken kernel raises ``KernelConformanceError`` under ``warn``. The
+broken kernel raises ``KernelConformanceError`` under ``warn``.
+
+Checkpoints: a train state restored onto ``cuda`` keeps the CUDA
+generator's state, so the next Mix Ω draw (``make_bucket_centers``)
+equals the uninterrupted generator's bit for bit, and its params and
+AdamW state come back on the card bit for bit. The
 ``dev`` fixture runs the canaries once before any test counts launches,
 so a test's launch counts hold its own launches only.
 """
@@ -1531,3 +1536,37 @@ def test_sweep_depth_padding_matches_plain(dev, n_q, c, d):
     finally:
         kernel.sweep_plan = own_plan
     _assert_match(got, want, 0.0, True)
+
+
+def test_train_state_restores_onto_cuda_with_the_generator(dev, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.sce import make_bucket_centers
+    from repro_torch.data import Cursor
+    from repro_torch.launch.elastic import TrainState
+    from repro_torch.optim.optimizers import adamw, tree_leaves
+
+    opt_init, opt_update = adamw(1e-3)
+    g = _gen(dev, 4)
+    params = {"w": torch.randn(64, 8, generator=g, device=dev)}
+    params, opt_state = opt_update({"w": torch.ones(64, 8, device=dev)},
+                                   opt_init(params), params)
+    torch.randn(1000, generator=g, device=dev)  # mid-stream
+    state = TrainState(params=params, opt_state=opt_state, generator=g,
+                       cursor=Cursor(seed=0, step=3), step=3)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, state.to_ckpt(), blocking=False)
+    mgr.wait()
+    step, tree = mgr.restore_latest(device=dev)
+    assert step == 3 and mgr.unverified_loads == 0
+    back = TrainState.from_ckpt(tree, opt_template=opt_init(params))
+    assert back.generator.device.type == "cuda"
+    assert torch.equal(back.generator.get_state(), g.get_state())
+    x = torch.randn(256, 8, generator=_gen(dev, 5), device=dev)
+    want = make_bucket_centers(x, 16, use_mix=True, generator=g)
+    got = make_bucket_centers(x, 16, use_mix=True, generator=back.generator)
+    assert torch.equal(got, want)
+    assert back.params["w"].is_cuda
+    assert torch.equal(back.params["w"], params["w"])
+    for a, b in zip(tree_leaves(back.opt_state), tree_leaves(opt_state)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b)
