@@ -220,7 +220,36 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    steps at the CLI's ``ckpt_every=20`` (its first 12 losses the
    straight run's) prints its loop iterations (median, mean, the two
    saving ones) and the median step 1–4 and 15–19 steps after a save.
-18. Prints the kernels' JSON line, the card's name and power limit, and
+18. The LM path at full width (``lm_phase``): gemma-2-2b at its published
+   widths in float32 with remat (26 layers, d 2304, vocabulary 256,000),
+   random weights from a seed. First its kernels at its shapes against
+   their plain versions: ``mips_topk`` (the deep chain) for 128 bucket
+   centres against 4,096 positions at k 128 and against the 256,000
+   vocabulary rows at k 1024 (gap-aware); the three ``sce_gather_plse``
+   and the three ``sce_gather_loss`` launches at (n_b 128, b_x 128,
+   b_y 1024, d 2304, cap 30) on that selection (phase 6's tolerances),
+   and the deep backward as autograd runs it (one launch: the cotangent
+   written once, dX and dY's slot rows from it), bit for bit dX and dY
+   alone;
+   ``eval_fused`` / ``eval_tgt_gather`` at 8,192 × 256,000, k 1, the LSE
+   with cap 30 (integers bit for bit; floats within ``1e-5`` of scale,
+   the LSE within 1e-5 relative); one microbatch's SCE loss and its dX
+   and dY through ``sce_loss_sharded`` (exact, the (1, 1) mesh) on the
+   kernel path against the plain path (integer-valued x, y / 256 and a
+   sparse Ω, so both select the same candidates); each timed with a cold
+   L2 beside its plain version, a PyTorch computation of its function
+   and its 3xTF32 bound. Then the main path, its counts from 0:
+   ``train("gemma2-2b", cfg=…, batch=2, seq_len=4096, steps=4,
+   sce_mode="exact")`` under ``warn`` — train_4k's 2 microbatches of one
+   sequence, ``mips_topk`` at k 128 and 1024 and the three
+   ``sce_gather_plse`` launches and the dY sum once a microbatch, the
+   token-rank evaluation of 2 held-out sequences after step 4 (one
+   ``eval_fused`` and one ``eval_tgt_gather``); finite losses, the last
+   below the first. Prints the median step, its phases (``mark``), the
+   peak memory; on fresh weights the evaluation's rows/s and phases, and
+   a 512-token prefill and 8 decode steps whose last logits must equal a
+   forward over the 520 tokens within ``1e-3`` of their scale.
+19. Prints the kernels' JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``. ``mips_topk`` has
    three entries: all its main-path launches timed at serving's largest
    bucket, and its training selections (k = 320 over the positions,
@@ -235,7 +264,9 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    phase 14's launches and phase 13's times at the trainer's shape. The four
    ``sce_bucket`` launches and ``eval_topk`` / ``eval_tgt_scores`` carry
    phase 3's launches (the canaries') and phase 15's times (the eval ones
-   at B = 256).
+   at B = 256). The LM path's entries (``*_lm``) carry phase 18's
+   launches and times at gemma-2's shapes (``mips_topk`` one per
+   selection).
 
 Any failed check raises, so the script exits non-zero and prints no
 result. ``--json PATH`` also writes every case, time and count to PATH.
@@ -252,7 +283,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-N_PHASES = 18
+N_PHASES = 19
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_S = 3.35e12
@@ -3128,6 +3159,530 @@ def ckpt_phase(dev):
             "restore_s": restore_s, **steps_ms, "sparse_saves": sparse_ms}
 
 
+# ---------------------------------------------------------------------------
+# The LM path at full width: gemma-2-2b
+# ---------------------------------------------------------------------------
+LM_SEQ = 4096  # train_4k's sequence length
+LM_BATCH = 2  # train_4k's 256 sequences cut to one card: its 2 microbatches
+LM_STEPS = 4
+LM_EVAL_SEQS = 2  # held-out sequences: 8,192 token-rank rows
+LM_PROMPT = 512
+LM_DECODE = 8
+LM_CAP = 30.0  # gemma-2's final softcap
+LM_PHASES = ("h2d",) + ("forward", "select", "loss_forward",
+                        "backward") * 2 + ("optimizer",)
+
+
+def lm_config():
+    """gemma-2-2b's published widths in float32 (the kernels' type), remat
+    on: 26 layers, d 2304, 8 heads over 4 KV heads of 256, vocabulary
+    256,000."""
+    import dataclasses
+
+    from repro_torch.configs.gemma2_2b import make_config
+
+    return dataclasses.replace(make_config(), dtype="float32", remat=True)
+
+
+def lm_sce_config(cfg):
+    from repro_torch.launch.steps import build_sce_config
+
+    return build_sce_config(LM_SEQ, cfg.vocab, bucket_size_y=1024,
+                            logit_softcap=LM_CAP)
+
+
+def lm_eval_check(name, x, y, t, *, exact):
+    """``eval_fused`` (k 1, the LSE, cap 30, window [1, V)) and the
+    ``eval_tgt_gather`` it calls against the plain version: on integers
+    every output bit for bit; on floats values and the threshold within
+    ``1e-5`` of their scale, the LSE within 1e-5 relative; on both a
+    target in the top-1 carries the threshold bit for bit and ``eq ≥ 1``
+    on every valid target."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    vocab = y.shape[0]
+    kw = dict(c_lo=1, c_hi=vocab, logit_softcap=LM_CAP, with_lse=True)
+    got = ops.eval_fused(x, y, t, 1, **kw)
+    torch.cuda.synchronize()
+    want = ref.eval_fused_ref(x, y, t, 1, **kw)
+    vals, ids, gt, eq, tgt, m, s = got
+    scale = want[0].abs().max().item()
+    err = (vals - want[0]).abs().max().item()
+    tgt_err = (tgt - want[4]).abs().max().item()
+    if exact:
+        for what, a, b in zip(("vals", "ids", "gt", "eq", "tgt"), got[:5],
+                              want[:5]):
+            check(torch.equal(a, b), f"{name}: {what} differ on integers")
+    else:
+        check(err <= 1e-5 * scale and tgt_err <= 1e-5 * scale,
+              f"{name}: vals / tgt differ by {err:.3e} / {tgt_err:.3e}")
+    lse, want_lse = m + torch.log(s), want[5] + torch.log(want[6])
+    lse_err = ((lse - want_lse).abs()
+               / want_lse.abs().clamp_min(1e-6)).max().item()
+    check(lse_err <= 1e-5, f"{name}: lse relative error {lse_err}")
+    hit = ids == t[:, None]
+    check(torch.equal(vals[hit], tgt[:, None][hit]),
+          f"{name}: a target in the top-1 does not carry tgt bit for bit")
+    check(bool((eq >= 1).all()), f"{name}: eq < 1 on a valid target")
+    rank_agree = float(((gt + (eq - 1).clamp_min(0))
+                        == (want[2] + (want[3] - 1).clamp_min(0)))
+                       .float().mean())
+    print(f"  case {name}: B={x.shape[0]} V={vocab} d={x.shape[1]} k=1 "
+          f"lse cap {LM_CAP} max_abs_err vals {err:.3e} tgt {tgt_err:.3e} "
+          f"lse rel {lse_err:.3e} {'bitwise' if exact else 'scaled'}; "
+          f"ranks equal to the plain version's on {rank_agree:.2%} of rows; "
+          f"{int(hit.any(1).sum())} targets at the top carry tgt exactly ok")
+    return {"name": name, "B": x.shape[0], "C": vocab, "d": x.shape[1],
+            "exact": exact, "max_abs_err": err, "tgt_err": tgt_err,
+            "lse_rel_err": lse_err, "rank_agreement": rank_agree}
+
+
+def lm_kernel_phase(dev, cfg):
+    """The kernels of the LM path at its shapes against their plain
+    versions, then timed with a cold L2: ``mips_topk`` (the deep chain:
+    128 centres against 4,096 positions at k 128 and against the 256,000
+    vocabulary rows at k 1024), the three ``sce_gather_plse`` launches and
+    the three ``sce_gather_loss`` ones at (n_b 128, b_x 128, b_y 1024,
+    d 2304, cap 30) on that selection, ``eval_fused`` / ``eval_tgt_gather``
+    at 8,192 × 256,000 at k 1 with the LSE, and one microbatch's SCE loss
+    and gradients through ``sce_loss_sharded`` (exact, the (1, 1) mesh) on
+    the kernel path against the plain path."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.distributed_sce import sce_loss_sharded
+    from repro_torch.kernels import eval_fused as ek
+    from repro_torch.kernels import ref, sce_prefetch
+    from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.launch.mesh import make_host_mesh
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    vocab, d = cfg.vocab_padded, cfg.d_model
+    sce_cfg = lm_sce_config(cfg)
+    n_b, b_x, b_y = (sce_cfg.n_buckets, sce_cfg.bucket_size_x,
+                     sce_cfg.bucket_size_y)
+    check((n_b, b_x, b_y) == (128, 128, 1024),
+          f"SCE shape {(n_b, b_x, b_y)}, not (128, 128, 1024)")
+    y = torch.randn(vocab, d, generator=g, device=dev) * 0.02
+    x = torch.randn(LM_SEQ, d, generator=g, device=dev)
+    q = torch.randn(n_b, d, generator=g, device=dev)
+    cases = [run_case("lm_positions_k128", q, x, b_x),
+             run_case("lm_vocab_k1024", q, y, b_y)]
+    _, ix = mips_topk(q, x, b_x)
+    _, iy = mips_topk(q, y, b_y)
+    targets = torch.randint(1, cfg.vocab, (LM_SEQ,), generator=g, device=dev,
+                            dtype=torch.int32)
+    x_b = x[ix.long()]
+    tgt_b = targets[ix.long()]
+    pos = LM_CAP * torch.tanh((x_b * y[tgt_b.long()]).sum(-1) / LM_CAP)
+    gcase = gather_case("lm_gather", x_b, y, iy, tgt_b, iy, pos, cap=LM_CAP)
+    pcase = plse_case("lm_plse", x_b, y, iy, tgt_b, iy, cap=LM_CAP)
+
+    # one microbatch's SCE on the kernel path against the plain path;
+    # integer-valued x, y / 256 and a sparse ±1 Ω make every selection
+    # score exact on both paths, so both select the same candidates
+    xi = torch.randint(-2, 3, (LM_SEQ, d), generator=g, device=dev).float()
+    yi = torch.randint(-2, 3, (vocab, d), generator=g, device=dev).float()
+    yi = yi / 256
+    omega = torch.zeros(n_b, LM_SEQ, device=dev)
+    cols = torch.randint(0, LM_SEQ, (n_b, 4), generator=g, device=dev)
+    signs = torch.randint(0, 2, (n_b, 4), generator=g, device=dev) * 2 - 1
+    omega.scatter_(1, cols, signs.float())
+    mesh = make_host_mesh(max_data=1)
+    res = {}
+    for path, use_kernel in (("kernel", True), ("plain", False)):
+        xl, yl = xi.clone().requires_grad_(True), yi.clone().requires_grad_(True)
+        loss = sce_loss_sharded(
+            xl, yl, targets, cfg=dataclasses.replace(sce_cfg,
+                                                     use_kernel=use_kernel),
+            mesh=mesh, valid_mask=torch.ones(LM_SEQ, dtype=torch.bool,
+                                             device=dev),
+            mode="exact", omega=omega)
+        res[path] = (loss.item(), *torch.autograd.grad(loss, (xl, yl)))
+    torch.cuda.synchronize()
+    got, want = res["kernel"], res["plain"]
+    lerr = abs(got[0] - want[0])
+    check(math.isfinite(got[0]) and lerr <= 1e-5 * abs(want[0]),
+          f"lm microbatch SCE: loss {got[0]} vs plain {want[0]}")
+    sce_err = {"loss": lerr}
+    for what, a, w in (("dx", got[1], want[1]), ("dy", got[2], want[2])):
+        err = (a - w).abs()
+        tol = 1e-5 * w.abs().max().item()
+        check(bool(torch.isfinite(a).all()
+                   and (err <= tol + 2e-4 * w.abs()).all()),
+              f"lm microbatch SCE: {what} differs by {err.max().item():.3e}")
+        sce_err[what] = err.max().item()
+    print(f"  lm microbatch SCE (exact, (1, 1) mesh, {LM_SEQ} positions, "
+          f"cap {LM_CAP}): kernel path loss {got[0]:.6f} vs plain "
+          f"{want[0]:.6f} (|Δ| {lerr:.3e}), max |Δ| dX {sce_err['dx']:.3e}, "
+          f"dY {sce_err['dy']:.3e} ok")
+    del xi, yi, res, got, want
+
+    # token rank: 8,192 rows against the vocabulary, k 1, LSE, cap 30
+    n_e = LM_EVAL_SEQS * LM_SEQ
+    te = torch.randint(1, cfg.vocab, (n_e,), generator=g, device=dev,
+                       dtype=torch.int32)
+    xe_i = torch.randint(-2, 3, (n_e, d), generator=g, device=dev).float()
+    ye_i = torch.randint(-2, 3, (vocab, d), generator=g, device=dev).float()
+    ecases = [lm_eval_check("lm_token_rank_integers", xe_i, ye_i, te,
+                            exact=True)]
+    del xe_i, ye_i
+    xe = torch.randn(n_e, d, generator=g, device=dev)
+    ecases.append(lm_eval_check("lm_token_rank", xe, y, te, exact=False))
+
+    # times, cold L2
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    timings = {}
+    for name, cat, k in (("mips_topk_lm_positions_k128", x, b_x),
+                         ("mips_topk_lm_vocab_k1024", y, b_y)):
+        c = cat.shape[0]
+        timings[name] = {
+            "ms": time_ms(lambda: mips_topk(q, cat, k), 5, flush),
+            "plain_ms": time_ms(lambda: ref.mips_topk_ref(q, cat, k), 2,
+                                flush),
+            "library_ms": time_ms(lambda: torch.topk(q @ cat.T, k), 5, flush),
+            **bound_keys(tf32x3_bound(4 * (n_b * d + c * d) + 8 * n_b * k,
+                                      2 * n_b * c * d, 0))}
+    g_up = torch.rand(n_b, b_x, generator=g, device=dev)
+    args = (x_b, y, iy, tgt_b, iy)
+    plse = sce_prefetch.sce_gather_plse_fwd(*args, logit_softcap=LM_CAP)
+    _, lse = sce_prefetch.sce_gather_fwd(*args, pos, logit_softcap=LM_CAP)
+    y_b = y[iy.long()]
+    hide = (iy[:, None, :] < 0) | (iy[:, None, :] == tgt_b[:, :, None])
+
+    def capped_logits():
+        l_ = torch.bmm(x_b, y_b.transpose(1, 2))
+        return LM_CAP * torch.tanh(l_ / LM_CAP)
+
+    def lib_fwd(with_pos):
+        l_ = torch.where(hide, NEG_INF, capped_logits())
+        if with_pos:
+            l_ = torch.cat([pos[..., None], l_], -1)
+        return torch.logsumexp(l_, -1)
+
+    def lib_cot(lse_):
+        c_ = capped_logits()
+        return torch.where(hide, 0.0, torch.exp(c_ - lse_[..., None])
+                           * (1 - (c_ / LM_CAP) ** 2) * g_up[..., None])
+
+    def lib_bwd(lse_, dy):
+        p = lib_cot(lse_)
+        if not dy:
+            return torch.bmm(p, y_b)
+        return torch.bmm(p.transpose(1, 2), x_b)
+
+    def lib_pair(lse_):
+        p = lib_cot(lse_)
+        return torch.bmm(p, y_b), torch.bmm(p.transpose(1, 2), x_b)
+
+    def plain_grad(fn):
+        """``i`` → the gradient of leaf i (x_b 0, y 1); None → both."""
+        leaves = [t.clone().requires_grad_(True) for t in (x_b, y)]
+        out = (fn(*leaves) * g_up).sum()
+        return lambda i: torch.autograd.grad(
+            out, leaves if i is None else leaves[i], retain_graph=True)
+
+    p_plse = plain_grad(lambda a, b: ref.sce_gather_plse_ref(
+        a, b, iy, tgt_b, iy, LM_CAP))
+    p_loss = plain_grad(lambda a, b: ref.sce_gather_loss_ref(
+        a, b, iy, tgt_b, iy, pos, LM_CAP))
+    kw = dict(logit_softcap=LM_CAP)
+    runs = {
+        "sce_gather_plse_fwd_lm": (
+            lambda: sce_prefetch.sce_gather_plse_fwd(*args, **kw),
+            lambda: ref.sce_gather_plse_ref(*args, LM_CAP),
+            lambda: lib_fwd(False)),
+        "sce_gather_plse_dx_lm": (
+            lambda: sce_prefetch.sce_gather_plse_dx(*args, plse, g_up, **kw),
+            lambda: p_plse(0), lambda: lib_bwd(plse, False)),
+        "sce_gather_plse_dy_lm": (
+            lambda: sce_prefetch.sce_gather_plse_dy(*args, plse, g_up, **kw),
+            lambda: p_plse(1), lambda: lib_bwd(plse, True)),
+        # the backward as autograd runs it: one deep launch, the cotangent
+        # written once, dX and dY's slot rows from it, then the dY sum
+        "sce_gather_plse_bwd_lm": (
+            lambda: sce_prefetch._grads(
+                sce_prefetch.sce_gather_plse_dx,
+                sce_prefetch.sce_gather_plse_dy, args + (plse, g_up), LM_CAP,
+                True, True),
+            lambda: p_plse(None), lambda: lib_pair(plse)),
+        "sce_gather_fwd_lm": (
+            lambda: sce_prefetch.sce_gather_fwd(*args, pos, **kw),
+            lambda: ref.sce_gather_loss_ref(*args, pos, LM_CAP),
+            lambda: lib_fwd(True)),
+        "sce_gather_dx_lm": (
+            lambda: sce_prefetch.sce_gather_dx(*args, lse, g_up, **kw),
+            lambda: p_loss(0), lambda: lib_bwd(lse, False)),
+        "sce_gather_dy_lm": (
+            lambda: sce_prefetch.sce_gather_dy(*args, lse, g_up, **kw),
+            lambda: p_loss(1), lambda: lib_bwd(lse, True)),
+    }
+    bounds = {k + "_lm": v for k, v in {
+        **plse_bounds(*args), **gather_bounds(*args)}.items()}
+    # the pair reads the plse's inputs once and writes dX and the whole
+    # (C, d) dY; three products (the logits, dX, dY) of 2·d FLOPs a pair
+    pairs = unmasked_pairs(tgt_b, iy)
+    rows = int(torch.unique(iy[iy >= 0]).numel())
+    bounds["sce_gather_plse_bwd_lm"] = tf32x3_bound(
+        4 * (n_b * b_x * d + rows * d + 2 * n_b * b_y + 3 * n_b * b_x
+             + n_b * b_x * d + vocab * d), 3 * 2 * pairs * d, pairs)
+    pair = sce_prefetch._grads(
+        sce_prefetch.sce_gather_plse_dx, sce_prefetch.sce_gather_plse_dy,
+        args + (plse, g_up), LM_CAP, True, True)
+    alone = (sce_prefetch.sce_gather_plse_dx(*args, plse, g_up, **kw),
+             sce_prefetch.sce_gather_plse_dy(*args, plse, g_up, **kw))
+    check(all(torch.equal(a, b) for a, b in zip(pair, alone)),
+          "lm: the one-cotangent backward differs from dX and dY alone")
+    print("  lm deep backward: dX and dY from one cotangent equal dX and "
+          "dY alone bit for bit ok")
+    del pair, alone
+    # dY's entries time the whole wrapper here (the deep kernel writes its
+    # slot rows, then the in-order sum into (C, d)); the sum's own entry:
+    ws = torch.randn(n_b * b_y, d, generator=g, device=dev)
+    keys, order = sce_prefetch.dy_sum_keys(iy, iy, vocab)
+    dyz = torch.zeros_like(y)
+    lib_c = torch.zeros_like(y)
+    runs["sce_gather_dy_sum_lm"] = (
+        lambda: sce_prefetch.sce_gather_dy_sum(ws, keys, order, dyz),
+        lambda: sce_prefetch.dy_sum_plain(ws, iy, iy, vocab),
+        lambda: lib_c.index_add_(0, iy.reshape(-1).long(), ws))
+    bounds["sce_gather_dy_sum_lm"] = dy_sum_bound(iy, iy, d)
+    with torch.no_grad():
+        for name, (kern, plain, lib) in runs.items():
+            timings[name] = {"ms": time_ms(kern, 5, flush),
+                             "plain_ms": time_ms(plain, 2, flush),
+                             "library_ms": time_ms(lib, 5, flush),
+                             **bound_keys(bounds[name])}
+    del p_plse, p_loss
+    tgt_e = ek.eval_tgt_gather(xe, y, te)
+    window = torch.arange(vocab, device=dev)
+    window = (window >= 1) & (window < cfg.vocab)
+
+    def eval_library():
+        s_ = torch.where(window[None, :], xe @ y.T, NEG_INF)
+        return (torch.topk(s_, 1), (s_ > tgt_e[:, None]).sum(1),
+                (s_ == tgt_e[:, None]).sum(1),
+                torch.logsumexp(LM_CAP * torch.tanh(s_ / LM_CAP), -1))
+
+    ekw = dict(c_lo=1, c_hi=cfg.vocab, logit_softcap=LM_CAP, with_lse=True)
+    timings["eval_fused_lm"] = {
+        "ms": time_ms(lambda: ek.eval_fused(xe, y, te, 1, tgt_scores=tgt_e,
+                                            **ekw), 3, flush),
+        "plain_ms": time_ms(lambda: ref.eval_fused_ref(
+            xe, y, te, 1, tgt_scores=tgt_e, **ekw), 1, flush),
+        "library_ms": time_ms(eval_library, 2, flush),
+        **bound_keys(tf32x3_bound(4 * (n_e * d + vocab * d + 2 * n_e)
+                                  + 8 * n_e + 16 * n_e,
+                                  2 * n_e * vocab * d, n_e * vocab))}
+    n_rows = int(torch.unique(te).numel())
+    timings["eval_tgt_gather_lm"] = {
+        "ms": time_ms(lambda: ek.eval_tgt_gather(xe, y, te), 20, flush),
+        "plain_ms": time_ms(lambda: ref.eval_tgt_gather_ref(xe, y, te), 3,
+                            flush),
+        "library_ms": time_ms(lambda: (xe * y[te.long()]).sum(-1), 20,
+                              flush),
+        **bound_keys(tf32x3_bound(4 * (n_e * d + n_rows * d + n_e) + 4 * n_e,
+                                  2 * n_e * d, 0))}
+    for name, t in timings.items():
+        print(f"  time {name}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms, "
+              f"bound {bound_text(t)}")
+    errs = {
+        "mips_topk_lm_positions_k128": cases[0]["max_abs_err"],
+        "mips_topk_lm_vocab_k1024": cases[1]["max_abs_err"],
+        "sce_gather_plse_fwd_lm": pcase["max_abs_err"]["plse"],
+        "sce_gather_plse_dx_lm": pcase["max_abs_err"]["dx"],
+        "sce_gather_plse_dy_lm": pcase["max_abs_err"]["dy"],
+        # bit for bit the two alone (checked above), so their errors
+        "sce_gather_plse_bwd_lm": max(pcase["max_abs_err"]["dx"],
+                                      pcase["max_abs_err"]["dy"]),
+        "sce_gather_fwd_lm": gcase["max_abs_err"]["loss"],
+        "sce_gather_dx_lm": gcase["max_abs_err"]["dx"],
+        "sce_gather_dy_lm": gcase["max_abs_err"]["dy"],
+        "eval_fused_lm": max(c["max_abs_err"] for c in ecases),
+        "eval_tgt_gather_lm": max(c["tgt_err"] for c in ecases),
+    }
+    # the sum kernel on its own input against index_add_
+    got = sce_prefetch.sce_gather_dy_sum(ws, keys, order, torch.zeros_like(y))
+    want = sce_prefetch.dy_sum_plain(ws, iy, iy, vocab)
+    errs["sce_gather_dy_sum_lm"] = (got - want).abs().max().item()
+    check(errs["sce_gather_dy_sum_lm"]
+          <= 1e-5 * want.abs().max().item() + 1e-6,
+          "lm dy_sum differs from index_add_")
+    for name in timings:
+        timings[name]["max_abs_err"] = errs[name]
+    return {"cases": cases, "gather_case": gcase, "plse_case": pcase,
+            "eval_cases": ecases, "microbatch_sce_err": sce_err,
+            "timings": timings}
+
+
+def lm_train_phase(dev, cfg):
+    """``train("gemma2-2b", cfg=…, batch=2, seq_len=4096, steps=4,
+    sce_mode="exact")`` at full width under the guard's ``warn``: 2
+    microbatches of one sequence (4,096 positions) a step, SCE (n_b 128,
+    b_x 128, b_y 1024, cap 30) through the deep ``mips_topk`` chain and
+    ``sce_gather_plse``, guarded AdamW written in place, and after the
+    last step the token-rank evaluation of 2 held-out sequences (8,192
+    rows: ``eval_fused`` at k 1 with the LSE). The launch counts from 0
+    around the run, its median step and phases (``mark``), and the peak
+    memory."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import eval_fused, sce_prefetch
+    from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.launch.train import train
+
+    counters = (mips_topk, *(getattr(sce_prefetch, n) for n in GATHER + PLSE),
+                sce_prefetch.sce_gather_dy_sum, eval_fused.eval_fused,
+                eval_fused.eval_tgt_gather)
+    marks = StepMarks(LM_PHASES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters:  # the LM main path starts here
+        fn.launches = 0
+    mips_topk.launches_by_k.clear()
+    t0 = time.monotonic()
+    out = train("gemma2-2b", cfg=cfg, batch=LM_BATCH, seq_len=LM_SEQ,
+                steps=LM_STEPS, seed=0, sce_mode="exact", log_every=1,
+                eval_every=LM_STEPS, eval_users=LM_EVAL_SEQS, device=dev,
+                guard_policy="warn", mark=marks)
+    wall_s = time.monotonic() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}  # ... ends here
+    by_k = dict(mips_topk.launches_by_k)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = out["losses"]
+    n_mb = LM_STEPS * 2  # two microbatches a step
+    check(len(losses) == LM_STEPS and all(math.isfinite(v) for v in losses),
+          f"LM losses {losses}")
+    check(losses[-1] < losses[0], f"LM loss {losses[-1]} is not below the "
+          f"first step's {losses[0]}")
+    check(out["skipped_steps"] == 0, f"{out['skipped_steps']} steps skipped")
+    check(by_k == {128: n_mb, 1024: n_mb},
+          f"mips_topk by k {by_k}, not 128 and 1024 {n_mb} times each")
+    for name in PLSE + ("sce_gather_dy_sum",):
+        check(launches[name] == n_mb,
+              f"{name} launched {launches[name]} times, not {n_mb}")
+    for name in GATHER:
+        check(launches[name] == 0, f"{name} launched on the exact path")
+    for name in ("eval_fused", "eval_tgt_gather"):
+        check(launches[name] == 1, f"{name} launched {launches[name]} times "
+              f"in one evaluation")
+    ev = out["eval"]
+    check(ev["n_tokens"] == LM_EVAL_SEQS * (LM_SEQ - 1)
+          and math.isfinite(ev["loss"]), f"token-rank eval {ev}")
+    median_ms = statistics.median(out["step_s"][1:]) * 1e3
+    bd = marks.breakdown()
+    print(f"  gemma-2-2b f32 ({cfg.param_count():,} parameters): "
+          f"{LM_STEPS} steps of {LM_BATCH} × {LM_SEQ} tokens in "
+          f"{wall_s:.2f} s (evaluation and set-up included); loss "
+          f"{' → '.join(f'{v:.4f}' for v in losses)}; median step "
+          f"{median_ms:.1f} ms (host clock, steps 2–{LM_STEPS}); launches "
+          f"{launches}, mips_topk by k {by_k}; [eval] {ev}")
+    print("  step breakdown: " + " + ".join(
+        f"{p} {bd[p + '_ms']:.1f}" for p in dict.fromkeys(LM_PHASES))
+        + f" = {sum(bd.values()):.1f} ms (device events, both microbatches,"
+        f" mean of steps 2–{LM_STEPS})")
+    print(f"  peak device memory of the run: {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated; {live / 2**30:.2f} GiB live before)")
+    return {"losses": losses, "step_s": out["step_s"], "wall_s": wall_s,
+            "median_step_ms": median_ms, "breakdown": bd,
+            "launches": launches, "mips_topk_launches_by_k": by_k,
+            "eval": ev, "peak_bytes": peak, "live_bytes_before": live}
+
+
+def lm_serve_phase(dev, cfg):
+    """On random weights (seed 1): the token-rank evaluation of 2
+    held-out sequences timed by its phases (rows/s), then a 512-token
+    prompt prefilled and 8 tokens decoded, the last decode's logits held
+    to a forward over all 520 tokens (teacher forcing: the decoded tokens
+    are the sequence's own)."""
+    import torch
+
+    from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+    from repro_torch.eval import evaluate_streaming_lm
+    from repro_torch.launch.steps import (make_lm_decode_step,
+                                          make_lm_prefill_step)
+    from repro_torch.models import transformer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = transformer.init_params(cfg, seed=1, device=dev)
+    held, _ = SequenceDataset(SeqDataConfig(
+        n_items=cfg.vocab, seq_len=LM_SEQ, batch_size=LM_EVAL_SEQS,
+        min_len_frac=1.0)).heldout_batch(Cursor(seed=0))
+    evaluate_streaming_lm(params, cfg, held)  # warm
+    marks = StepMarks(EVAL_PHASES)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ev = evaluate_streaming_lm(params, cfg, held, mark=marks)
+    torch.cuda.synchronize()
+    eval_s = time.monotonic() - t0
+    rows = LM_EVAL_SEQS * LM_SEQ
+    bd = marks.breakdown(skip=0)
+    print(f"  token-rank evaluation: {rows} rows ({int(ev['n_tokens'])} "
+          f"valid) against {cfg.vocab_padded} vocabulary rows in "
+          f"{eval_s * 1e3:.1f} ms = {rows / eval_s:,.0f} rows/s; phases "
+          + ", ".join(f"{p} {bd[p + '_ms']:.1f}" for p in EVAL_PHASES)
+          + f" ms; {ev}")
+    tok = torch.from_numpy(held["tokens"][:1, :LM_PROMPT + LM_DECODE]).to(dev)
+    prefill = make_lm_prefill_step(cfg, cache_len=LM_PROMPT + LM_DECODE)
+    decode = make_lm_decode_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, cache = prefill(params, tok[:, :LM_PROMPT])
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    step_ms = []
+    for j in range(LM_DECODE):
+        t0 = time.monotonic()
+        logits, cache = decode(params, cache, tok[:, LM_PROMPT + j:
+                                                  LM_PROMPT + j + 1],
+                               LM_PROMPT + j)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+    with torch.no_grad():
+        hidden, _ = transformer.forward(params, cfg, tok)
+        want = transformer.logits_from_hidden(params, cfg, hidden[:, -1:])
+    err = (logits - want).abs().max().item()
+    scale = want[..., :cfg.vocab].abs().max().item()
+    check(bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+          and logits.shape == (1, 1, cfg.vocab_padded),
+          f"decode logits {tuple(logits.shape)}")
+    check(err <= 1e-3 * scale, f"the last decode's logits differ from the "
+          f"forward's by {err:.3e} (scale {scale:.3e})")
+    top_equal = bool(logits.argmax(-1).eq(want.argmax(-1)).all())
+    print(f"  prefill {LM_PROMPT} tokens {prefill_ms:.1f} ms, {LM_DECODE} "
+          f"decode steps {', '.join(f'{t:.1f}' for t in step_ms)} ms (host "
+          f"clock); the last decode's logits against a forward over "
+          f"{LM_PROMPT + LM_DECODE} tokens: max |Δ| {err:.3e} (scale "
+          f"{scale:.3f}), the same argmax: {top_equal} ok")
+    return {"eval": ev, "eval_s": eval_s, "eval_rows_per_s": rows / eval_s,
+            "eval_breakdown": bd, "prefill_ms": prefill_ms,
+            "decode_ms": step_ms, "decode_max_abs_err": err,
+            "decode_scale": scale, "decode_argmax_equal": top_equal}
+
+
+def lm_phase(dev):
+    import torch
+
+    cfg = lm_config()
+    kern = lm_kernel_phase(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = lm_train_phase(dev, cfg)
+    served = lm_serve_phase(dev, cfg)
+    print(f"  card: {smi()}")
+    return {"kernels": kern, "train": trained, "serve": served}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=Path, default=None,
@@ -3204,6 +3759,9 @@ def main() -> int:
     phase(17, "checkpoints at full width: the trainer saves, resumes, "
               "drains on SIGTERM; the server serves the checkpoint")
     ckpt = ckpt_phase(dev)
+    phase(18, "the LM path at full width: gemma-2-2b trains with SCE, is "
+              "evaluated by token rank and decodes")
+    lm = lm_phase(dev)
 
     t = timings[512]  # the serve_p99 bucket
     mips = {"route": "cuda",
@@ -3351,6 +3909,45 @@ def main() -> int:
             "bound_by": tt["bound_by"],
             "library_ms": tt["library_ms"],
         })
+    # The LM path (phase 18): its kernels at gemma-2's shapes, with the
+    # launches of the LM trainer's run (counted from 0 around it).
+    lm_launch = lm["train"]["launches"]
+    lm_by_k = lm["train"]["mips_topk_launches_by_k"]
+    for name, src, replaces, launches in (
+            ("mips_topk_lm_positions_k128", "mips_topk.cu",
+             "mips_topk.py:52", lm_by_k.get(128, 0)),
+            ("mips_topk_lm_vocab_k1024", "mips_topk.cu", "mips_topk.py:52",
+             lm_by_k.get(1024, 0)),
+            ("sce_gather_plse_fwd_lm", "sce_gather.cu",
+             "sce_prefetch.py:497", lm_launch["sce_gather_plse_fwd"]),
+            ("sce_gather_plse_dx_lm", "sce_gather.cu",
+             "sce_prefetch.py:497", lm_launch["sce_gather_plse_dx"]),
+            ("sce_gather_plse_dy_lm", "sce_gather.cu",
+             "sce_prefetch.py:497", lm_launch["sce_gather_plse_dy"]),
+            # each of the LM path's backwards is one such launch, counted
+            # on dX's and dY's wrappers
+            ("sce_gather_plse_bwd_lm", "sce_gather.cu",
+             "sce_prefetch.py:497", lm_launch["sce_gather_plse_dx"]),
+            ("sce_gather_dy_sum_lm", "sce_gather.cu", "sce_prefetch.py:250",
+             lm_launch["sce_gather_dy_sum"]),
+            ("eval_fused_lm", "eval_fused.cu", "eval_fused.py:104",
+             lm_launch["eval_fused"]),
+            ("eval_tgt_gather_lm", "eval_fused.cu", "eval_fused.py:82",
+             lm_launch["eval_tgt_gather"])):
+        tt = lm["kernels"]["timings"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": launches,
+            "max_abs_err": tt["max_abs_err"],
+            "ms": tt["ms"],
+            "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"],
+            "bound_by": tt["bound_by"],
+            "library_ms": tt["library_ms"],
+        })
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
@@ -3367,7 +3964,7 @@ def main() -> int:
             "conformance": conformance, "trainer_exact_guard_off": exact_off,
             "bucket_cases": bcases, "two_pass_cases": tkcases,
             "guard_timings": gtimes, "drills": drills, "checkpoints": ckpt,
-            "kernels": kernels,
+            "lm": lm, "kernels": kernels,
         }, indent=1))
     print(f"[{N_PHASES}/{N_PHASES}] summary")
     print(json.dumps({"kernels": kernels}))

@@ -18,8 +18,9 @@ _REGISTRY: Dict[str, "ArchSpec"] = {}
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str  # train | serve | retrieval
+    kind: str  # train | prefill | decode | serve | retrieval
     dims: Mapping[str, int]
+    skip: Optional[str] = None  # reason string for documented skips
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,13 +34,16 @@ class ArchSpec:
     optimizer: str = "adamw"
     train_loss: str = "sce"
     dtype: str = "float32"
+    fsdp: bool = False
     # gradient-accumulation factor per shape name (1 = none)
     microbatches: Mapping[str, int] = dataclasses.field(default_factory=dict)
     # dtype of the microbatch gradient accumulator
     accum_dtype: str = "float32"
     sce_bucket_size_y: int = 512
-    # in-loop evaluation protocol ("leave-one-out" for seqrec)
+    # in-loop evaluation protocol ("leave-one-out" for seqrec,
+    # "token-rank" for lm)
     eval_protocol: Optional[str] = None
+    notes: str = ""
 
     def shape(self, name: str) -> ShapeSpec:
         for s in self.shapes:
@@ -53,7 +57,8 @@ def register(spec: ArchSpec) -> ArchSpec:
     return spec
 
 
-_ARCH_MODULES = ["sasrec_sce"]
+# The MoE archs (kimi_k2, granite_moe) wait for models/moe.py.
+_ARCH_MODULES = ["deepseek_coder_33b", "yi_6b", "gemma2_2b", "sasrec_sce"]
 
 
 def _load_all() -> None:
@@ -67,3 +72,30 @@ def get_arch(name: str) -> ArchSpec:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_archs() -> Tuple[str, ...]:
+    if not _REGISTRY:
+        _load_all()
+    return tuple(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# The four LM shapes (shared by the LM archs)
+# ---------------------------------------------------------------------------
+def lm_shapes(*, long_ctx_skip: Optional[str]) -> Tuple[ShapeSpec, ...]:
+    return (
+        ShapeSpec("train_4k", "train", {"seq_len": 4096, "global_batch": 256}),
+        ShapeSpec(
+            "prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}
+        ),
+        ShapeSpec(
+            "decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}
+        ),
+        ShapeSpec(
+            "long_500k",
+            "decode",
+            {"seq_len": 524288, "global_batch": 1},
+            skip=long_ctx_skip,
+        ),
+    )

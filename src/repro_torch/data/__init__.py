@@ -6,7 +6,7 @@ from repro_torch.data.pipeline import (
     ShardedCursor,
     shard_batch,
 )
-from repro_torch.data.sequences import SeqDataConfig, SequenceDataset
+from repro_torch.data.sequences import SeqDataConfig, SequenceDataset, lm_batch
 
 __all__ = ["SPLIT_SALTS", "Cursor", "SeqDataConfig", "SequenceDataset",
-           "ShardedCursor", "shard_batch"]
+           "ShardedCursor", "lm_batch", "shard_batch"]

@@ -93,3 +93,20 @@ class SequenceDataset:
         split, so its users are unseen (the seqrec leave-one-out eval
         stream). Returns the batch and the split cursor advanced."""
         return self.next_batch(cursor.split("eval"))
+
+    def heldout_batch(
+        self, cursor: Cursor
+    ) -> Tuple[Dict[str, np.ndarray], Cursor]:
+        """Held-out token stream for the LM token-rank protocol: the same
+        generator on the disjoint ``"heldout"`` split, every next-token
+        position of its sequences an eval row
+        (``eval/harness.py::evaluate_streaming_lm``)."""
+        return self.next_batch(cursor.split("heldout"))
+
+
+def lm_batch(cursor: Cursor, vocab: int, batch: int, seq_len: int):
+    """A plain LM token batch: the same cluster-Markov generator as a
+    pseudo-language, every sequence full length → ``(batch, cursor')``."""
+    cfg = SeqDataConfig(n_items=vocab, seq_len=seq_len, batch_size=batch,
+                        min_len_frac=1.0)
+    return SequenceDataset(cfg).next_batch(cursor)

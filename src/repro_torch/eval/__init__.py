@@ -1,11 +1,13 @@
-"""Streaming full-catalog evaluation of the port (the leave-one-out slice
-of ``repro.eval``): unsampled HR@K / NDCG@K / COV@K and target ranks
-without the ``(B, C)`` score matrix.
+"""Streaming full-catalog evaluation of the port (the single-device
+slice of ``repro.eval``): unsampled HR@K / NDCG@K / COV@K and target
+ranks without the ``(B, C)`` score matrix, and the LM's token-rank
+protocol.
 
   ``streaming`` — the scorer front end (one ``eval_fused`` sweep), the
       serving top-k, the metric accumulator and the memory models.
   ``harness``   — the leave-one-out entry point ``evaluate_streaming`` over a
-      ``score_fn`` (SASRec), single-device.
+      ``score_fn`` (SASRec), and ``evaluate_streaming_lm`` (every
+      next-token position of a transformer LM), single-device.
 
 ``core.metrics`` (dense ``(B, C)`` scores) is the oracle the tests and
 ``chip_smoke.py`` hold this package against.
@@ -13,10 +15,14 @@ without the ``(B, C)`` score matrix.
 from repro_torch.eval.harness import (
     default_score_fn,
     evaluate_streaming,
+    evaluate_streaming_lm,
+    lm_score_fn,
+    lm_targets_and_valid,
     sasrec_score_fn,
 )
 from repro_torch.eval.streaming import (
     MetricAccumulator,
+    TokenRankAccumulator,
     dense_eval_elements,
     eval_peak_elements,
     ranks_from_counts,
@@ -27,10 +33,14 @@ from repro_torch.eval.streaming import (
 
 __all__ = [
     "MetricAccumulator",
+    "TokenRankAccumulator",
     "default_score_fn",
     "dense_eval_elements",
     "eval_peak_elements",
     "evaluate_streaming",
+    "evaluate_streaming_lm",
+    "lm_score_fn",
+    "lm_targets_and_valid",
     "ranks_from_counts",
     "sasrec_score_fn",
     "streaming_eval_scores",

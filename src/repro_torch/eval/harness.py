@@ -14,9 +14,13 @@ column, ``states`` the ``(B, d)`` contiguous user states at the scoring
 position and ``catalog`` the shard-even ``(C_pad, d)`` item table
 (``loss_catalog``; the phantom rows are masked by id window).
 
+The LM's held-out token-rank protocol (:func:`evaluate_streaming_lm`)
+scores every next-token position against the vocabulary through the
+same sweep (``lm_score_fn``), with the online LSE for the next-token
+loss.
+
 Left out, with their ROADMAP.md queue: the sharded path (``mesh=``,
-queue 14), BERT4Rec's cloze score function (queue 1 item 13) and the LM
-token-rank protocol (queue 1 item 12).
+queue 14) and BERT4Rec's cloze score function (queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 
 from repro_torch.eval.streaming import (
     MetricAccumulator,
+    TokenRankAccumulator,
     ranks_from_counts,
     streaming_eval_scores,
 )
@@ -134,5 +139,118 @@ def evaluate_streaming(
         mark("sweep")
     acc = accumulator or MetricAccumulator(ks, cfg.n_items)
     acc.update(ranks_from_counts(gt, eq), ids)
+    mark("fold")
+    return acc.result()
+
+
+# ---------------------------------------------------------------------------
+# Held-out token-rank protocol (LM family)
+# ---------------------------------------------------------------------------
+def lm_score_fn(cfg) -> ScoreFn:
+    """Next-token protocol of the transformer LM: one forward over the
+    ``(B, T)`` tokens, every position an eval row — ``(B·T, d)`` states
+    against the full padded output table ``(V_pad, d)``. Which rows count
+    is the validity mask's business, after the sweep. The final-logit
+    softcap is monotone, so ranks use the raw scores; the loss applies
+    it (:func:`evaluate_streaming_lm`)."""
+    from repro_torch.models import transformer as tf_lib
+
+    def fn(params, tokens):
+        hidden, _ = tf_lib.forward(params, cfg, tokens)
+        states = hidden.reshape(-1, hidden.shape[-1]).contiguous()
+        return states, tf_lib.output_embedding(params, cfg)
+
+    return fn
+
+
+def lm_targets_and_valid(tokens: np.ndarray,
+                         pad_id: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Next-token targets and validity of a ``(B, T)`` token batch:
+    ``targets[i, t] = tokens[i, t + 1]``; a position counts iff it is a
+    real token and so is the next — the final column and padding never
+    (``SequenceDataset.next_batch``'s convention)."""
+    tokens = np.asarray(tokens)
+    targets = np.zeros_like(tokens)
+    targets[:, :-1] = tokens[:, 1:]
+    valid = tokens != pad_id
+    valid[:, -1] = False
+    valid &= targets != pad_id
+    return targets, valid
+
+
+def evaluate_streaming_lm(
+    params,
+    cfg,
+    eval_batch,
+    *,
+    ks: Sequence[int] = (1, 5, 10),
+    mesh=None,
+    block_c: int = 512,
+    accumulator: Optional[TokenRankAccumulator] = None,
+    mark=None,
+) -> Dict[str, float]:
+    """Held-out token-rank evaluation of a transformer LM: every
+    next-token position scored against the vocabulary, without the
+    ``(B·T, V)`` logits.
+
+    One ``transformer.forward`` gives ``(B·T, d)`` eval rows
+    (:func:`lm_score_fn`); ONE ``eval_fused`` sweep at k = 1 over the
+    global ids ``[1, V)`` (no pad id, no phantom rows) gives each row's
+    target rank (pessimistic ties) and, with the online LSE of the
+    softcapped logits, its next-token NLL ``lse − softcap(tgt)``.
+    Padding and final positions are dropped by the validity mask before
+    the fold into the :class:`TokenRankAccumulator`.
+
+    Parameters
+    ----------
+    params, cfg : transformer parameters (their device runs the eval: the
+        card's kernels for CUDA tensors) and ``TransformerConfig``.
+    eval_batch : dict with ``"tokens"`` (B, T); its ``"targets"`` /
+        ``"valid"`` are used when present, else
+        :func:`lm_targets_and_valid`.
+    ks : metric cutoffs. mesh : not ported (raises). block_c : the plain
+        version's chunk. accumulator : fold into an existing one.
+    mark : optional hook, called with ``"start"``, ``"h2d"``,
+        ``"forward"``, ``"sweep"`` and ``"fold"`` as each phase ends.
+
+    Returns
+    -------
+    dict — ``hr@k`` / ``ndcg@k`` / ``mean_rank`` / ``loss`` /
+    ``n_tokens`` (``TokenRankAccumulator.result``).
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "the sharded eval path is not ported: ROADMAP.md queue 14"
+        )
+    from repro_torch.core.sce import apply_softcap
+
+    mark = mark or (lambda name: None)
+    tokens = np.asarray(eval_batch["tokens"])
+    if "targets" in eval_batch and "valid" in eval_batch:
+        targets = np.asarray(eval_batch["targets"])
+        valid = np.asarray(eval_batch["valid"])
+    else:
+        targets, valid = lm_targets_and_valid(tokens)
+    v_flat = valid.reshape(-1)
+    dev = params["embed"].device
+    cap = getattr(cfg, "final_softcap", None)
+    mark("start")
+    with torch.no_grad():
+        tok = torch.from_numpy(tokens).to(dev)
+        t_flat = torch.from_numpy(
+            targets.reshape(-1).astype(np.int32)).to(dev)
+        mark("h2d")
+        states, catalog = lm_score_fn(cfg)(params, tok)
+        mark("forward")
+        _, _, gt, eq, tgt, m, s = streaming_eval_scores(
+            states, catalog, t_flat, 1, block_c=block_c, c_lo=1,
+            c_hi=cfg.vocab, with_lse=True, logit_softcap=cap,
+        )
+        lse = m + torch.log(s)
+        nll = (lse - apply_softcap(tgt, cap)).cpu().numpy()
+        mark("sweep")
+    ranks = ranks_from_counts(gt, eq)[v_flat]
+    acc = accumulator or TokenRankAccumulator(ks, cfg.vocab)
+    acc.update(ranks, nll_sum=float(nll[v_flat].sum()))
     mark("fold")
     return acc.result()

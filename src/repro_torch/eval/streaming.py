@@ -1,5 +1,5 @@
 """Streaming catalog scoring and incremental metric accumulators (port
-of ``repro/eval/streaming.py``, without the LM's token-rank accumulator).
+of ``repro/eval/streaming.py``).
 
 The unsampled metrics the paper reports (HR@K, NDCG@K, COV@K, §4.1.2)
 are functions of two small per-user quantities — the target's rank among
@@ -216,3 +216,55 @@ def dense_eval_elements(batch: int, catalog: int) -> int:
     """Score-side elements of the materializing path: the full
     ``(B, C)`` matrix."""
     return batch * catalog
+
+
+class TokenRankAccumulator:
+    """Fold per-position token ranks into running LM eval metrics: the
+    token-rank protocol scores every next-token position (``B·T`` eval
+    rows), folding the target token's full-vocabulary rank and the
+    streamed next-token NLL. Metrics as the reference (Xu et al.,
+    2402.06216): HR@K / NDCG@K over the vocabulary, mean rank, loss.
+
+    Parameters
+    ----------
+    ks : cutoffs, e.g. ``(1, 5, 10)``.
+    vocab : the real vocabulary size ``V`` (``cfg.vocab``), recorded for
+        reporting; ranks are already global.
+    """
+
+    def __init__(self, ks: Sequence[int], vocab: int):
+        self.ks = tuple(ks)
+        self.vocab = int(vocab)
+        self.n_tokens = 0
+        self._hit = {k: 0.0 for k in self.ks}
+        self._ndcg = {k: 0.0 for k in self.ks}
+        self._rank_sum = 0.0
+        self._nll_sum = 0.0
+        self._has_nll = False
+
+    def update(self, ranks, *, nll_sum: Optional[float] = None) -> None:
+        """Fold one batch of valid positions: ``ranks`` (n_valid,) 0-based
+        target-token ranks (padding and final positions dropped before),
+        ``nll_sum`` their summed next-token NLL."""
+        ranks = _host(ranks)
+        self.n_tokens += len(ranks)
+        _fold_hit_ndcg(ranks, self.ks, self._hit, self._ndcg)
+        self._rank_sum += float(ranks.sum())
+        if nll_sum is not None:
+            self._nll_sum += float(nll_sum)
+            self._has_nll = True
+
+    def result(self) -> Dict[str, float]:
+        """``hr@k`` / ``ndcg@k`` / ``mean_rank`` (1-based: 1.0 means every
+        target ranked first) / ``loss`` (mean next-token NLL, when folded)
+        / ``n_tokens``."""
+        n = max(self.n_tokens, 1)
+        out: Dict[str, float] = {}
+        for k in self.ks:
+            out[f"hr@{k}"] = self._hit[k] / n
+            out[f"ndcg@{k}"] = self._ndcg[k] / n
+        out["mean_rank"] = self._rank_sum / n + 1.0
+        if self._has_nll:
+            out["loss"] = self._nll_sum / n
+        out["n_tokens"] = float(self.n_tokens)
+        return out

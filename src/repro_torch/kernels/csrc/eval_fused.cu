@@ -64,12 +64,24 @@
 // counts and pairs are folded in a fixed order: every output is
 // deterministic. k ≤ 512, d ≤ 256; k may exceed the valid columns.
 //
+// Deep variants (eval_fused_deep_launch, eval_topk_deep_launch) for
+// d > 256: deep_gemm.cuh first writes the score slab S = Y · Xᵀ (c, n),
+// catalog rows as A and queries as B with score_step's arithmetic over
+// depth chunks of 32, and the same sweep reads its tiles' scores from S
+// (topk_tile.cuh's FROM_S): the counts, the LSE fold, the lists and the
+// merge are this file's code. eval_tgt_gather takes any depth, and a slab
+// score equals its target score bit for bit (the same mma3x2 k16 steps
+// from zero, added in ascending depth order, in the same orientation),
+// so eq still counts the target's own column. The wrapper cuts the rows
+// into slabs that keep S within a fixed budget.
+//
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes in src/repro_torch/kernels/eval_fused.py.
 
 #include <math.h>
 
+#include "deep_gemm.cuh"
 #include "topk_tile.cuh"
 
 namespace {
@@ -88,7 +100,7 @@ eval_tgt_gather_kernel(const float* __restrict__ x,
 cudaError_t launch_target_scores(const float* x, const float* y,
                                  const int* targets, float* out, int n, int c,
                                  int d, int id_offset, cudaStream_t s) {
-  if (n <= 0 || c <= 0 || d <= 0 || d > kMaxD) return cudaErrorInvalidValue;
+  if (n <= 0 || c <= 0 || d <= 0) return cudaErrorInvalidValue;
   const int rows = 8 * kTargetWarps;
   eval_tgt_gather_kernel<<<(n + rows - 1) / rows, 32 * kTargetWarps, 0, s>>>(
       x, y, targets, out, n, c, d, id_offset);
@@ -106,7 +118,7 @@ __device__ __forceinline__ void lse_combine(float& m, float& s, float m2,
 // SELF: eval_fused's self-column rule (the target's own column never in
 // gt, always in eq). Without it (eval_topk) the counts go by score alone
 // and `targets` is not read.
-template <int NQT, int SLOTS, bool LSE, bool SELF>
+template <int NQT, int SLOTS, bool LSE, bool SELF, bool FROM_S>
 __global__ void __launch_bounds__(Cfg<NQT>::kThreads, Cfg<NQT>::kMinBlocks)
 eval_sweep_kernel(Sweep a, const float* __restrict__ tgt,
                   const int* __restrict__ targets, int* __restrict__ part_cnt,
@@ -141,7 +153,7 @@ eval_sweep_kernel(Sweep a, const float* __restrict__ tgt,
       s[nt][u] = 0.f;
     }
 
-  float* red = sweep<NQT, SLOTS>(
+  float* red = sweep<NQT, SLOTS, false, FROM_S>(
       a, smem4,
       [&](const float (&acc)[MT][NT][4], const int* flags, long c0) {
 #pragma unroll
@@ -286,22 +298,23 @@ struct Seed {
   int pre_split, pre_period;
 };
 
-template <int NQT, int SLOTS, bool LSE, bool SELF>
+template <int NQT, int SLOTS, bool LSE, bool SELF, bool FROM_S>
 cudaError_t launch_sweep(const Sweep& a, const EvalOut& o, int n_split,
                          const Seed& pre, cudaStream_t st) {
   using C = Cfg<NQT>;
   static bool done[kMaxDevices] = {}, done_pre[kMaxDevices] = {};
-  const size_t smem = sweep_smem_bytes<NQT>(a.d, a.k);
+  const size_t smem = sweep_smem_bytes<NQT, FROM_S>(a.d, a.k);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err =
-      allow_max_smem(eval_sweep_kernel<NQT, SLOTS, LSE, SELF>, done);
+      allow_max_smem(eval_sweep_kernel<NQT, SLOTS, LSE, SELF, FROM_S>, done);
   if (err != cudaSuccess) return err;
-  err = seed_tau<NQT>(a, pre.uv, pre.pre_split, pre.pre_period, done_pre,
-                      st);
+  err = seed_tau<NQT, FROM_S>(a, pre.uv, pre.pre_split, pre.pre_period,
+                              done_pre, st);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n_q + C::kQB - 1) / C::kQB, n_split);
-  eval_sweep_kernel<NQT, SLOTS, LSE, SELF><<<grid, C::kThreads, smem, st>>>(
-      a, o.tgt, o.targets, o.part_cnt, o.part_ms, o.cap);
+  eval_sweep_kernel<NQT, SLOTS, LSE, SELF, FROM_S>
+      <<<grid, C::kThreads, smem, st>>>(a, o.tgt, o.targets, o.part_cnt,
+                                        o.part_ms, o.cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   eval_fused_merge_kernel<SLOTS, LSE>
@@ -312,10 +325,48 @@ cudaError_t launch_sweep(const Sweep& a, const EvalOut& o, int n_split,
 }
 
 bool bad_plan(int n, int c, int d, int k, int n_split, int pre_split,
-              int pre_period) {
-  return n <= 0 || c <= 0 || d <= 0 || d > kMaxD || k <= 0 || k > kMaxK ||
+              int pre_period, bool deep = false) {
+  return n <= 0 || c <= 0 || d <= 0 || (!deep && d > kMaxD) || k <= 0 ||
+         k > kMaxSweepK ||
          n_split <= 0 || n_split > 65535 || pre_split < 0 ||
          pre_split > 65535 || (pre_split > 0 && pre_period < pre_split);
+}
+
+// eval_fused (SELF) or eval_topk, resident (FROM_S false) or on the score
+// slab `scores` that this first fills (FROM_S).
+template <bool SELF, bool FROM_S>
+int launch_eval(const float* x, const float* y, float* scores,
+                const EvalOut& o, float* part_vals, int* part_ids, int* tau,
+                float* uv, int n, int c, int d, int k, int query_tiles,
+                int n_split, int pre_split, int pre_period, int id_offset,
+                int c_lo, int c_hi, bool with_lse, cudaStream_t st) {
+  if (bad_plan(n, c, d, k, n_split, pre_split, pre_period, FROM_S) ||
+      (FROM_S && scores == nullptr) ||
+      (with_lse && (o.m == nullptr || o.s == nullptr ||
+                    o.part_ms == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Sweep a{x, y, nullptr, part_vals, part_ids, tau, n, c, d, k, 0,
+          id_offset, c_lo, c_hi,
+          d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0,
+          pre_split > 0};
+  if (FROM_S) {
+    cudaError_t err = deep_gemm::score_slab(x, y, scores, n, c, d, st);
+    if (err != cudaSuccess) return (int)err;
+    a.s = scores;
+    a.vec = 0;
+  }
+  return (int)dispatch<kSlotsLarge>(query_tiles, k, [&](auto nqt, auto slots) {
+    constexpr int NQT = decltype(nqt)::value;
+    constexpr int SLOTS = decltype(slots)::value;
+    const Seed pre{uv, pre_split, pre_period};
+    if constexpr (SELF) {  // the LSE is eval_fused's only
+      if (with_lse)
+        return launch_sweep<NQT, SLOTS, true, true, FROM_S>(a, o, n_split,
+                                                            pre, st);
+    }
+    return launch_sweep<NQT, SLOTS, false, SELF, FROM_S>(a, o, n_split, pre,
+                                                         st);
+  });
 }
 
 }  // namespace
@@ -350,24 +401,28 @@ extern "C" int eval_fused_launch(
     int n, int c, int d, int k, int query_tiles, int n_split, int pre_split,
     int pre_period, int id_offset, int c_lo, int c_hi, float cap,
     int with_lse, void* stream) {
-  if (bad_plan(n, c, d, k, n_split, pre_split, pre_period) ||
-      (with_lse && (m == nullptr || s == nullptr || part_ms == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Sweep a{x, y, nullptr, part_vals, part_ids, tau, n, c, d, k, 0,
-                id_offset, c_lo, c_hi,
-                d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0,
-                pre_split > 0};
   const EvalOut o{tgt, targets, part_cnt, part_ms, vals, ids, gt, eq, m, s,
                   cap};
-  return (int)dispatch<kSlotsLarge>(query_tiles, k, [&](auto nqt, auto slots) {
-    constexpr int NQT = decltype(nqt)::value;
-    constexpr int SLOTS = decltype(slots)::value;
-    const Seed pre{uv, pre_split, pre_period};
-    return with_lse
-               ? launch_sweep<NQT, SLOTS, true, true>(a, o, n_split, pre, st)
-               : launch_sweep<NQT, SLOTS, false, true>(a, o, n_split, pre, st);
-  });
+  return launch_eval<true, false>(
+      x, y, nullptr, o, part_vals, part_ids, tau, uv, n, c, d, k,
+      query_tiles, n_split, pre_split, pre_period, id_offset, c_lo, c_hi,
+      with_lse != 0, static_cast<cudaStream_t>(stream));
+}
+
+// eval_fused_launch for any d > 0, on the (c, n) f32 workspace `scores`.
+extern "C" int eval_fused_deep_launch(
+    const float* x, const float* y, const float* tgt, const int* targets,
+    float* part_vals, int* part_ids, int* part_cnt, float* part_ms, int* tau,
+    float* uv, float* vals, int* ids, int* gt, int* eq, float* m, float* s,
+    float* scores, int n, int c, int d, int k, int query_tiles, int n_split,
+    int pre_split, int pre_period, int id_offset, int c_lo, int c_hi,
+    float cap, int with_lse, void* stream) {
+  const EvalOut o{tgt, targets, part_cnt, part_ms, vals, ids, gt, eq, m, s,
+                  cap};
+  return launch_eval<true, true>(
+      x, y, scores, o, part_vals, part_ids, tau, uv, n, c, d, k,
+      query_tiles, n_split, pre_split, pre_period, id_offset, c_lo, c_hi,
+      with_lse != 0, static_cast<cudaStream_t>(stream));
 }
 
 // eval_topk and eval_tgt_scores: the deprecated two-pass entries of
@@ -388,20 +443,27 @@ extern "C" int eval_topk_launch(
     int* gt, int* eq, int n, int c, int d, int k, int query_tiles,
     int n_split, int pre_split, int pre_period, int id_offset, int c_lo,
     int c_hi, void* stream) {
-  if (bad_plan(n, c, d, k, n_split, pre_split, pre_period))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Sweep a{x, y, nullptr, part_vals, part_ids, tau, n, c, d, k, 0,
-                id_offset, c_lo, c_hi,
-                d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0,
-                pre_split > 0};
   const EvalOut o{tgt, nullptr, part_cnt, nullptr, vals, ids, gt, eq,
                   nullptr, nullptr, 0.f};
-  return (int)dispatch<kSlotsLarge>(query_tiles, k, [&](auto nqt, auto slots) {
-    return launch_sweep<decltype(nqt)::value, decltype(slots)::value, false,
-                        false>(a, o, n_split, Seed{uv, pre_split, pre_period},
-                               st);
-  });
+  return launch_eval<false, false>(
+      x, y, nullptr, o, part_vals, part_ids, tau, uv, n, c, d, k,
+      query_tiles, n_split, pre_split, pre_period, id_offset, c_lo, c_hi,
+      false, static_cast<cudaStream_t>(stream));
+}
+
+// eval_topk_launch for any d > 0, on the (c, n) f32 workspace `scores`.
+extern "C" int eval_topk_deep_launch(
+    const float* x, const float* y, const float* tgt, float* part_vals,
+    int* part_ids, int* part_cnt, int* tau, float* uv, float* vals, int* ids,
+    int* gt, int* eq, float* scores, int n, int c, int d, int k,
+    int query_tiles, int n_split, int pre_split, int pre_period,
+    int id_offset, int c_lo, int c_hi, void* stream) {
+  const EvalOut o{tgt, nullptr, part_cnt, nullptr, vals, ids, gt, eq,
+                  nullptr, nullptr, 0.f};
+  return launch_eval<false, true>(
+      x, y, scores, o, part_vals, part_ids, tau, uv, n, c, d, k,
+      query_tiles, n_split, pre_split, pre_period, id_offset, c_lo, c_hi,
+      false, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int eval_tgt_scores_launch(const float* x, const float* y,

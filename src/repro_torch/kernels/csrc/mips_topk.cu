@@ -82,10 +82,23 @@
 // d ≤ 256. The chain scores in f32 FMAs, fma4 below, in a fixed order
 // over d.
 //
+// Deep variants (mips_topk_deep_launch, mips_topk_select_deep_launch),
+// for d > 256 and, in the chain, 512 < k ≤ 1024, where the kernels above
+// cannot stage their queries and tiles (d) or their 16-row lists (k):
+// deep_gemm.cuh first writes the score slab S = Y · Qᵀ (c, n_q) in
+// 3xTF32, walking the depth in chunks of 32, and the same sweep, passes
+// and finishing sweep then read each tile's scores from S (FROM_S) in
+// place of their products: the thresholds, filters, sorts and merges are
+// unchanged. The wrapper cuts the queries into slabs that keep S within
+// a fixed budget. At gemma-2's selection (128 bucket centres against a
+// 256,000-row vocabulary, d 2304, k 1024) S is 131 MB, 0.08 ms of
+// traffic against 151 GFLOP of products.
+//
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes in src/repro_torch/kernels/mips_topk.py.
 
+#include "deep_gemm.cuh"
 #include "topk_tile.cuh"
 
 namespace {
@@ -95,11 +108,12 @@ using namespace topk_tile;
 // ---------------------------------------------------------------------------
 // k ≤ 32: the tensor-core sweep and its merge
 // ---------------------------------------------------------------------------
-template <int NQT, int SLOTS>
+template <int NQT, int SLOTS, bool FROM_S>
 __global__ void __launch_bounds__(Cfg<NQT>::kThreads, Cfg<NQT>::kMinBlocks)
 mips_sweep_kernel(Sweep a) {
   extern __shared__ float4 smem4[];
-  sweep<NQT, SLOTS>(a, smem4, [](const auto&, const int*, long) {});
+  sweep<NQT, SLOTS, false, FROM_S>(a, smem4,
+                                   [](const auto&, const int*, long) {});
 }
 
 template <int SLOTS>
@@ -114,19 +128,20 @@ mips_topk_merge_kernel(const float* __restrict__ part_vals,
 }
 
 // τ seeded (the pre-pass when pre_split > 0), the sweep, the merge.
-template <int NQT, int SLOTS>
+template <int NQT, int SLOTS, bool FROM_S>
 cudaError_t launch_sweep(const Sweep& a, float* uv, float* vals, int* ids,
                          int n_split, int pre_split, int pre_period,
                          cudaStream_t s) {
   using C = Cfg<NQT>;
   static bool done[kMaxDevices] = {}, done_pre[kMaxDevices] = {};
-  const size_t smem = sweep_smem_bytes<NQT>(a.d, a.k);
+  const size_t smem = sweep_smem_bytes<NQT, FROM_S>(a.d, a.k);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = allow_max_smem(mips_sweep_kernel<NQT, SLOTS>, done);
+  cudaError_t err =
+      allow_max_smem(mips_sweep_kernel<NQT, SLOTS, FROM_S>, done);
   if (err != cudaSuccess) return err;
-  err = seed_tau<NQT>(a, uv, pre_split, pre_period, done_pre, s);
+  err = seed_tau<NQT, FROM_S>(a, uv, pre_split, pre_period, done_pre, s);
   if (err != cudaSuccess) return err;
-  mips_sweep_kernel<NQT, SLOTS>
+  mips_sweep_kernel<NQT, SLOTS, FROM_S>
       <<<dim3((a.n_q + C::kQB - 1) / C::kQB, n_split), C::kThreads, smem,
          s>>>(a);
   err = cudaGetLastError();
@@ -165,12 +180,13 @@ __host__ __device__ inline int row_pitch(int d) {
 }
 
 // Shared memory of one partial block of 16·RM query rows: staged queries
-// and two catalog tiles, the tiles' valid flags, per-row candidate
-// counts, per-row candidate buffers and the per-row (value, id) lists.
+// and two catalog tiles (not FROM_S), the tiles' valid flags, per-row
+// candidate counts, per-row candidate buffers and the per-row (value, id)
+// lists.
 template <int RM>
-size_t partial_smem_bytes(int d, int k) {
+size_t partial_smem_bytes(int d, int k, bool from_s = false) {
   constexpr int QB = 16 * RM;
-  const size_t p = row_pitch(d);
+  const size_t p = from_s ? 0 : row_pitch(d);
   return sizeof(float) * (QB * p + 2 * kTileC * p) +  // queries, 2 tiles
          sizeof(int) * (2 * kTileC + QB) +             // valid flags, counts
          (sizeof(float) + sizeof(int)) * QB * (kTileC + (size_t)k);
@@ -210,6 +226,7 @@ struct FmaSweep {
   int id_offset;                // global id of y's first row
   int c_lo, c_hi;               // global-id window [c_lo, c_hi)
   int vec;                      // 16-byte tile copies (d % 4 == 0, aligned)
+  const float* s;               // FROM_S: the scores (c, n_q), row-major
 };
 
 // Column c0 + tid of a tile of nc columns: 1 if it is in the tile, its
@@ -222,6 +239,22 @@ __device__ __forceinline__ int valid_flag(const FmaSweep& a, long c0, int nc,
          gid < a.c_hi;
 }
 
+// FROM_S: the RM × 4 scores of rows r0 .. r0 + RM − 1 and columns
+// c0, c0 + 16, … from the slab S (c, n_q), 0 outside it (the callers'
+// flags and row checks mask those).
+template <int RM>
+__device__ __forceinline__ void from_slab(float (&acc)[RM][kColsPerThread],
+                                          const float* s, int n_q, int c,
+                                          int r0, long c0) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) {
+      const long col = c0 + 16 * j;
+      acc[i][j] = r0 + i < n_q && col < c ? s[col * n_q + r0 + i] : 0.f;
+    }
+}
+
 // The partial pass of one block (every thread calls). Stages its
 // QB = 16·RM query rows once, streams its split in (64, d) tiles with
 // cp.async into a double buffer, so the next tile's read overlaps this
@@ -232,14 +265,14 @@ __device__ __forceinline__ int valid_flag(const FmaSweep& a, long c0, int nc,
 // their row's current k-th entry go to the row's candidate buffer, and
 // one warp per row merges them into the row's sorted list. The block
 // writes its lists as (n_q, S, k).
-template <int RM, int SLOTS, class OnTile>
+template <int RM, int SLOTS, bool FROM_S = false, class OnTile>
 __device__ __forceinline__ void sweep_split(const FmaSweep& a, float4* smem4,
                                             OnTile&& on_tile) {
   constexpr int QB = 16 * RM;  // query rows per block
   constexpr int kRowsPerWarp = QB / kWarps;
   const int d = a.d;
   const int k = a.k;
-  const int p = row_pitch(d);
+  const int p = FROM_S ? 0 : row_pitch(d);
   const int p4 = p / 4;
   const int d4 = (d + 3) / 4;
   float* qs = reinterpret_cast<float*>(smem4);            // (QB, p)
@@ -268,14 +301,14 @@ __device__ __forceinline__ void sweep_split(const FmaSweep& a, float4* smem4,
 
   // Queries, zero-padded to 4·d4 (rows past n_q are all zero), the tiles'
   // depth padding (never written by cp.async), the lists and the counts.
-  for (int e = tid; e < QB * 4 * d4; e += kThreads) {
+  for (int e = tid; e < (FROM_S ? 0 : QB * 4 * d4); e += kThreads) {
     const int r = e / (4 * d4);
     const int kk = e - r * 4 * d4;
     qs[r * p + kk] =
         row0 + r < a.n_q && kk < d ? a.q[(long)(row0 + r) * d + kk] : 0.f;
   }
   const int dpad = 4 * d4 - d;
-  for (int e = tid; e < 2 * kTileC * dpad; e += kThreads) {
+  for (int e = tid; e < (FROM_S ? 0 : 2 * kTileC * dpad); e += kThreads) {
     const int r = e / dpad;
     ys[r * p + d + (e - r * dpad)] = 0.f;
   }
@@ -294,7 +327,8 @@ __device__ __forceinline__ void sweep_split(const FmaSweep& a, float4* smem4,
     return col_end - c0 < kTileC ? (int)(col_end - c0) : kTileC;
   };
   if (n_tiles > 0) {
-    copy_tile_async(ys, a.y, col_begin, tile_nc(0), d, d4, p, a.vec, tid);
+    if (!FROM_S)
+      copy_tile_async(ys, a.y, col_begin, tile_nc(0), d, d4, p, a.vec, tid);
     if (tid < kTileC) vs[tid] = valid_flag(a, col_begin, tile_nc(0), tid);
   }
   cp_async_commit();
@@ -303,8 +337,9 @@ __device__ __forceinline__ void sweep_split(const FmaSweep& a, float4* smem4,
     int v_next = 0;
     if (t + 1 < n_tiles) {
       const long c1 = col_begin + (long)(t + 1) * kTileC;
-      copy_tile_async(ys + (b ^ 1) * kTileC * p, a.y, c1, tile_nc(t + 1), d,
-                      d4, p, a.vec, tid);
+      if (!FROM_S)
+        copy_tile_async(ys + (b ^ 1) * kTileC * p, a.y, c1, tile_nc(t + 1),
+                        d, d4, p, a.vec, tid);
       if (tid < kTileC) v_next = valid_flag(a, c1, tile_nc(t + 1), tid);
       cp_async_commit();
       cp_async_wait<1>();
@@ -318,25 +353,29 @@ __device__ __forceinline__ void sweep_split(const FmaSweep& a, float4* smem4,
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = 0.f;
-    const float4* qa = reinterpret_cast<const float4*>(qs) + ty * RM * p4;
-    const float4* yb =
-        reinterpret_cast<const float4*>(ys + b * kTileC * p) + tx * p4;
+    const long c0 = col_begin + (long)t * kTileC;
+    if constexpr (FROM_S) {
+      from_slab<RM>(acc, a.s, a.n_q, a.c, row0 + ty * RM, c0 + tx);
+    } else {
+      const float4* qa = reinterpret_cast<const float4*>(qs) + ty * RM * p4;
+      const float4* yb =
+          reinterpret_cast<const float4*>(ys + b * kTileC * p) + tx * p4;
 #pragma unroll 2
-    for (int k4 = 0; k4 < d4; ++k4) {
-      float4 q4[RM];
-      float4 w[kColsPerThread];
+      for (int k4 = 0; k4 < d4; ++k4) {
+        float4 q4[RM];
+        float4 w[kColsPerThread];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) q4[i] = qa[i * p4 + k4];
+        for (int i = 0; i < RM; ++i) q4[i] = qa[i * p4 + k4];
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) w[j] = yb[16 * j * p4 + k4];
+        for (int j = 0; j < kColsPerThread; ++j) w[j] = yb[16 * j * p4 + k4];
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
+        for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j)
-          acc[i][j] = fma4(q4[i], w[j], acc[i][j]);
+          for (int j = 0; j < kColsPerThread; ++j)
+            acc[i][j] = fma4(q4[i], w[j], acc[i][j]);
+      }
     }
 
-    const long c0 = col_begin + (long)t * kTileC;
     const int* flags = vs + b * kTileC;
     on_tile(acc, flags, c0);
 
@@ -404,10 +443,10 @@ __host__ __device__ inline int pow2_at_least(int n) {
   return p;
 }
 
-// Shared memory of one pass block: staged queries, two catalog tiles and
-// their valid flags.
-inline size_t pass_smem_bytes(int d) {
-  const size_t p = row_pitch(d);
+// Shared memory of one pass block: staged queries, two catalog tiles (not
+// FROM_S) and their valid flags.
+inline size_t pass_smem_bytes(int d, bool from_s = false) {
+  const size_t p = from_s ? 0 : row_pitch(d);
   return sizeof(float) * (kPassQB + 2 * kTileC) * p +
          sizeof(int) * 2 * kTileC;
 }
@@ -427,6 +466,7 @@ struct Pass {
   float* bv;                    // (n_q, kcap) collected entries
   int* bi;
   int kcap;
+  const float* s;               // FROM_S: the scores (c, n_q), row-major
 };
 
 // The threshold pass (COLLECT false) and the collect pass (COLLECT true):
@@ -434,13 +474,13 @@ struct Pass {
 // NaN → +inf rule) at 64 rows a block, with register state in place of
 // the lists: the threshold pass keeps each thread's best per row, the
 // collect pass appends every column that precedes or equals τ.
-template <bool COLLECT>
+template <bool COLLECT, bool FROM_S>
 __global__ void __launch_bounds__(kThreads, 2) mips_topk_pass_kernel(Pass a) {
   constexpr int RM = kPassRM;
   constexpr int QB = kPassQB;
   extern __shared__ float4 smem4[];
   const int d = a.d;
-  const int p = row_pitch(d);
+  const int p = FROM_S ? 0 : row_pitch(d);
   const int p4 = p / 4;
   const int d4 = (d + 3) / 4;
   float* qs = reinterpret_cast<float*>(smem4);            // (QB, p)
@@ -456,14 +496,14 @@ __global__ void __launch_bounds__(kThreads, 2) mips_topk_pass_kernel(Pass a) {
   const int n_tiles =
       split < tiles ? (tiles - 1 - split) / a.period + 1 : 0;
 
-  for (int e = tid; e < QB * 4 * d4; e += kThreads) {
+  for (int e = tid; e < (FROM_S ? 0 : QB * 4 * d4); e += kThreads) {
     const int r = e / (4 * d4);
     const int kk = e - r * 4 * d4;
     qs[r * p + kk] =
         row0 + r < a.n_q && kk < d ? a.q[(long)(row0 + r) * d + kk] : 0.f;
   }
   const int dpad = 4 * d4 - d;
-  for (int e = tid; e < 2 * kTileC * dpad; e += kThreads) {
+  for (int e = tid; e < (FROM_S ? 0 : 2 * kTileC * dpad); e += kThreads) {
     const int r = e / dpad;
     ys[r * p + d + (e - r * dpad)] = 0.f;
   }
@@ -494,7 +534,8 @@ __global__ void __launch_bounds__(kThreads, 2) mips_topk_pass_kernel(Pass a) {
   };
   if (n_tiles > 0) {
     const long c0 = tile_c0(0);
-    copy_tile_async(ys, a.y, c0, tile_nc(c0), d, d4, p, a.vec, tid);
+    if (!FROM_S)
+      copy_tile_async(ys, a.y, c0, tile_nc(c0), d, d4, p, a.vec, tid);
     if (tid < kTileC) vs[tid] = flag(c0, tile_nc(c0));
   }
   cp_async_commit();
@@ -503,8 +544,9 @@ __global__ void __launch_bounds__(kThreads, 2) mips_topk_pass_kernel(Pass a) {
     int v_next = 0;
     if (t + 1 < n_tiles) {
       const long c1 = tile_c0(t + 1);
-      copy_tile_async(ys + (b ^ 1) * kTileC * p, a.y, c1, tile_nc(c1), d, d4,
-                      p, a.vec, tid);
+      if (!FROM_S)
+        copy_tile_async(ys + (b ^ 1) * kTileC * p, a.y, c1, tile_nc(c1), d,
+                        d4, p, a.vec, tid);
       if (tid < kTileC) v_next = flag(c1, tile_nc(c1));
       cp_async_commit();
       cp_async_wait<1>();
@@ -518,25 +560,29 @@ __global__ void __launch_bounds__(kThreads, 2) mips_topk_pass_kernel(Pass a) {
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = 0.f;
-    const float4* qa = reinterpret_cast<const float4*>(qs) + ty * RM * p4;
-    const float4* yb =
-        reinterpret_cast<const float4*>(ys + b * kTileC * p) + tx * p4;
+    const long c0 = tile_c0(t);
+    if constexpr (FROM_S) {
+      from_slab<RM>(acc, a.s, a.n_q, a.c, row0 + ty * RM, c0 + tx);
+    } else {
+      const float4* qa = reinterpret_cast<const float4*>(qs) + ty * RM * p4;
+      const float4* yb =
+          reinterpret_cast<const float4*>(ys + b * kTileC * p) + tx * p4;
 #pragma unroll 2
-    for (int k4 = 0; k4 < d4; ++k4) {
-      float4 q4[RM];
-      float4 w[kColsPerThread];
+      for (int k4 = 0; k4 < d4; ++k4) {
+        float4 q4[RM];
+        float4 w[kColsPerThread];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) q4[i] = qa[i * p4 + k4];
+        for (int i = 0; i < RM; ++i) q4[i] = qa[i * p4 + k4];
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) w[j] = yb[16 * j * p4 + k4];
+        for (int j = 0; j < kColsPerThread; ++j) w[j] = yb[16 * j * p4 + k4];
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
+        for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j)
-          acc[i][j] = fma4(q4[i], w[j], acc[i][j]);
+          for (int j = 0; j < kColsPerThread; ++j)
+            acc[i][j] = fma4(q4[i], w[j], acc[i][j]);
+      }
     }
 
-    const long c0 = tile_c0(t);
     int f[kColsPerThread];
 #pragma unroll
     for (int j = 0; j < kColsPerThread; ++j) f[j] = vs[b * kTileC + tx + 16 * j];
@@ -778,7 +824,7 @@ cudaError_t by_sort_width(int n, F&& f) {
 
 // The split sweep's partial pass for the blocks of 16 rows that hold a
 // row whose collect overflowed; the others return at once.
-template <int SLOTS>
+template <int SLOTS, bool FROM_S>
 __global__ void __launch_bounds__(kThreads)
 mips_topk_finish_partial_kernel(FmaSweep a, const int* __restrict__ count,
                                 int kcap) {
@@ -786,8 +832,8 @@ mips_topk_finish_partial_kernel(FmaSweep a, const int* __restrict__ count,
   const int row = blockIdx.x * 16 + threadIdx.x;
   if (!__syncthreads_or(threadIdx.x < 16 && row < a.n_q && count[row] > kcap))
     return;
-  sweep_split<1, SLOTS>(a, smem4, [](const float (&)[1][kColsPerThread],
-                                     const int*, long) {});
+  sweep_split<1, SLOTS, FROM_S>(
+      a, smem4, [](const float (&)[1][kColsPerThread], const int*, long) {});
 }
 
 // The split sweep's merge for the rows whose collect overflowed.
@@ -806,11 +852,13 @@ mips_topk_finish_merge_kernel(const float* __restrict__ part_vals,
 
 // Shared memory of the largest launch of select_chain (the wrapper's
 // select_smem computes the same).
-inline size_t select_smem_bytes(int d, int k, int n_split, int kcap) {
+inline size_t select_smem_bytes(int d, int k, int n_split, int kcap,
+                                bool from_s = false) {
   const int n_union = kUnionPerSplit * n_split;
-  size_t m = pass_smem_bytes(d);
+  size_t m = pass_smem_bytes(d, from_s);
   const size_t each[] = {sort_smem_bytes(n_union > k ? n_union : k),
-                         sort_smem_bytes(kcap), partial_smem_bytes<1>(d, k),
+                         sort_smem_bytes(kcap),
+                         partial_smem_bytes<1>(d, k, from_s),
                          merge_smem_bytes(k)};
   for (size_t b : each) m = b > m ? b : m;
   return m;
@@ -830,29 +878,32 @@ struct SelectScratch {
 
 // Launches the chain: threshold, τ, collect, select and the finishing
 // sweep, the last at list width SLOTS.
-template <int SLOTS>
+template <int SLOTS, bool FROM_S>
 cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
                          int n_split, int period, int collect_split,
                          int fin_split, int fin_split_cols, float* vals,
                          int* ids, cudaStream_t s) {
   static bool done_thr[kMaxDevices] = {}, done_col[kMaxDevices] = {},
-              done_fin[kMaxDevices] = {};
+              done_fin[kMaxDevices] = {}, done_merge[kMaxDevices] = {};
   const int n_q = base.n_q;
   const int n_union = kUnionPerSplit * n_split;
   const dim3 rows((n_q + kPassQB - 1) / kPassQB);
-  const size_t pass_smem = pass_smem_bytes(base.d);
+  const size_t pass_smem = pass_smem_bytes(base.d, FROM_S);
   cudaError_t err;
 #define TRY(x)                           \
   if ((err = (x)) != cudaSuccess) return err
-  TRY(allow_max_smem(mips_topk_pass_kernel<false>, done_thr));
-  TRY(allow_max_smem(mips_topk_pass_kernel<true>, done_col));
-  TRY(allow_max_smem(mips_topk_finish_partial_kernel<SLOTS>, done_fin));
+  TRY(allow_max_smem(mips_topk_pass_kernel<false, FROM_S>, done_thr));
+  TRY(allow_max_smem(mips_topk_pass_kernel<true, FROM_S>, done_col));
+  TRY(allow_max_smem(mips_topk_finish_partial_kernel<SLOTS, FROM_S>,
+                     done_fin));
+  if (merge_smem_bytes(k) > 48 * 1024)  // k > 736: the deep chain's lists
+    TRY(allow_max_smem(mips_topk_finish_merge_kernel<SLOTS>, done_merge));
 
   Pass thr = base;
   thr.period = period;
   thr.uv = w.uv;
   thr.ui = w.ui;
-  mips_topk_pass_kernel<false>
+  mips_topk_pass_kernel<false, FROM_S>
       <<<dim3(rows.x, n_split), kThreads, pass_smem, s>>>(thr);
   TRY(cudaGetLastError());
   TRY(by_sort_width(n_union > k ? n_union : k, [&](auto emax) {
@@ -872,7 +923,7 @@ cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
   col.count = w.count;
   col.bv = w.bv;
   col.bi = w.bi;
-  mips_topk_pass_kernel<true>
+  mips_topk_pass_kernel<true, FROM_S>
       <<<dim3(rows.x, collect_split), kThreads, pass_smem, s>>>(col);
   TRY(cudaGetLastError());
   TRY(by_sort_width(base.kcap, [&](auto emax) {
@@ -887,10 +938,11 @@ cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
   }));
   const FmaSweep fin{base.q, base.y, base.valid, w.part_vals, w.part_ids,
                   n_q, base.c, base.d, k, fin_split_cols, base.id_offset,
-                  base.id_offset, base.id_offset + base.c, base.vec};
-  mips_topk_finish_partial_kernel<SLOTS>
+                  base.id_offset, base.id_offset + base.c, base.vec, base.s};
+  mips_topk_finish_partial_kernel<SLOTS, FROM_S>
       <<<dim3((n_q + 15) / 16, fin_split), kThreads,
-         partial_smem_bytes<1>(base.d, k), s>>>(fin, w.count, base.kcap);
+         partial_smem_bytes<1>(base.d, k, FROM_S), s>>>(fin, w.count,
+                                                        base.kcap);
   TRY(cudaGetLastError());
   mips_topk_finish_merge_kernel<SLOTS>
       <<<n_q, kThreads, merge_smem_bytes(k), s>>>(
@@ -931,8 +983,9 @@ extern "C" int mips_topk_launch(const float* q, const float* y,
                 d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0,
                 pre_split > 0};
   return (int)dispatch<1>(query_tiles, k, [&](auto nqt, auto slots) {
-    return launch_sweep<decltype(nqt)::value, decltype(slots)::value>(
-        a, uv, vals, ids, n_split, pre_split, pre_period, s);
+    return launch_sweep<decltype(nqt)::value, decltype(slots)::value,
+                        false>(a, uv, vals, ids, n_split, pre_split,
+                               pre_period, s);
   });
 }
 
@@ -951,8 +1004,9 @@ extern "C" int mips_topk_select_launch(
     float* part_vals, int* part_ids, float* vals, int* ids, int n_q, int c,
     int d, int k, int id_offset, int n_split, int period, int collect_split,
     int kcap, int fin_split, int fin_split_cols, void* stream) {
-  if (n_q <= 0 || c <= 0 || d <= 0 || d > kMaxD || k <= 0 || k > kMaxK ||
-      k > c || n_split <= 0 || period < n_split || collect_split <= 0 ||
+  if (n_q <= 0 || c <= 0 || d <= 0 || d > kMaxD || k <= 0 ||
+      k > kMaxSweepK || k > c || n_split <= 0 || period < n_split ||
+      collect_split <= 0 ||
       kcap < k || kcap > kMaxSort ||
       (long)kUnionPerSplit * n_split > kMaxSort || fin_split <= 0 ||
       fin_split_cols <= 0 || fin_split_cols % kTileC != 0 ||
@@ -973,11 +1027,83 @@ extern "C" int mips_topk_select_launch(
   const SelectScratch w{uv, ui, tau_v, tau_i, count, bv, bi, part_vals,
                         part_ids};
   auto run = [&](auto slots) {
-    return select_chain<decltype(slots)::value>(
+    return select_chain<decltype(slots)::value, false>(
         base, w, k, n_split, period, collect_split, fin_split,
         fin_split_cols, vals, ids, s);
   };
   return (int)(k <= 32 * kSlotsSmall
                    ? run(std::integral_constant<int, kSlotsSmall>{})
                    : run(std::integral_constant<int, kSlotsLarge>{}));
+}
+
+// The deep variants: as mips_topk_launch and mips_topk_select_launch, for
+// any d > 0 (and, in the chain, k ≤ kMaxK), with `scores` a (c, n_q) f32
+// workspace that deep_gemm::score_slab fills first; the sweeps and passes
+// then read it (FROM_S).
+extern "C" int mips_topk_deep_launch(const float* q, const float* y,
+                                     const unsigned char* valid,
+                                     float* scores, float* part_vals,
+                                     int* part_ids, int* tau, float* uv,
+                                     float* vals, int* ids, int n_q, int c,
+                                     int d, int k, int query_tiles,
+                                     int n_split, int pre_split,
+                                     int pre_period, int id_offset,
+                                     void* stream) {
+  if (n_q <= 0 || c <= 0 || d <= 0 || k <= 0 || k > 32 || k > c ||
+      scores == nullptr || n_split <= 0 || n_split > 65535 ||
+      pre_split < 0 || pre_split > 65535 ||
+      (pre_split > 0 && pre_period < pre_split))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = deep_gemm::score_slab(q, y, scores, n_q, c, d, s);
+  if (err != cudaSuccess) return (int)err;
+  Sweep a{q, y, valid, part_vals, part_ids, tau, n_q, c, d, k, 0,
+          id_offset, id_offset, id_offset + c, 0, pre_split > 0};
+  a.s = scores;
+  return (int)dispatch<1>(query_tiles, k, [&](auto nqt, auto slots) {
+    return launch_sweep<decltype(nqt)::value, decltype(slots)::value, true>(
+        a, uv, vals, ids, n_split, pre_split, pre_period, s);
+  });
+}
+
+extern "C" int mips_topk_select_deep_launch(
+    const float* q, const float* y, const unsigned char* valid,
+    float* scores, float* uv, int* ui, float* tau_v, int* tau_i, int* count,
+    float* bv, int* bi, float* part_vals, int* part_ids, float* vals,
+    int* ids, int n_q, int c, int d, int k, int id_offset, int n_split,
+    int period, int collect_split, int kcap, int fin_split,
+    int fin_split_cols, void* stream) {
+  if (n_q <= 0 || c <= 0 || d <= 0 || k <= 0 || k > kMaxK || k > c ||
+      scores == nullptr || n_split <= 0 || period < n_split ||
+      collect_split <= 0 || kcap < k || kcap > kMaxSort ||
+      (long)kUnionPerSplit * n_split > kMaxSort || fin_split <= 0 ||
+      fin_split_cols <= 0 || fin_split_cols % kTileC != 0 ||
+      (long)fin_split * fin_split_cols < (long)c ||
+      select_smem_bytes(d, k, n_split, kcap, true) > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = deep_gemm::score_slab(q, y, scores, n_q, c, d, s);
+  if (err != cudaSuccess) return (int)err;
+  Pass base{};
+  base.q = q;
+  base.y = y;
+  base.valid = valid;
+  base.n_q = n_q;
+  base.c = c;
+  base.d = d;
+  base.id_offset = id_offset;
+  base.kcap = kcap;
+  base.s = scores;
+  const SelectScratch w{uv, ui, tau_v, tau_i, count, bv, bi, part_vals,
+                        part_ids};
+  auto run = [&](auto slots) {
+    return select_chain<decltype(slots)::value, true>(
+        base, w, k, n_split, period, collect_split, fin_split,
+        fin_split_cols, vals, ids, s);
+  };
+  return (int)(k <= 32 * kSlotsSmall
+                   ? run(std::integral_constant<int, kSlotsSmall>{})
+               : k <= kMaxSweepK
+                   ? run(std::integral_constant<int, kSlotsLarge>{})
+                   : run(std::integral_constant<int, kSlotsHuge>{}));
 }

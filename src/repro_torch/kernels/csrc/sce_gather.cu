@@ -187,6 +187,33 @@
 //     (8 and 10 tiles a block), which two warps a scheduler do not hide
 //     (probes/sce_gather_times.py; PERF.md).
 //
+// Deep variants (the *_deep_launch entries), for d > 256, where the
+// kernels above cannot keep their owned rows' fragments and a streamed
+// tile over the whole depth in shared memory. They write the logits once:
+//   * the logits L[n] = x_b[n] · Y[idx[n]]ᵀ (n_b, b_x, b_y) f32 into a
+//     workspace, by deep_gemm.cuh's product (positions as A, candidates
+//     gathered by id as B, 3xTF32 k16 steps over depth chunks of 32);
+//   * the forward: fold_kernel, a warp per (bucket, position) row, folds
+//     the row's softcapped, masked logits into the online (m, s) and
+//     writes loss and lse (or the plse) as above;
+//   * the backward (one entry for dX and dY, *_bwd_deep_launch)
+//     recomputes L with the same product (the same bits, so the
+//     forward's lse and the backward's exp(l − lse) come from one
+//     rounding) and turns it in place into the cotangent G once
+//     (cotangent_kernel: the softcap, the mask, the capped exp, g); then
+//     dX = G · Y[idx] and the slot rows Gᵀ · x_b, both read that one G,
+//     by the same product, each a d-wide output tiled 64 columns a
+//     block, no atomics: dX repeats bit for bit and the gathered dY's
+//     workspace goes through dy_sum_kernel as above. A caller that wants
+//     one of the two passes null for the other.
+// The workspace is the SCE memory model's own n_b·b_x·b_y f32
+// (SCEConfig.logit_tensor_elements): 67 MB at gemma-2's shape (n_b 128,
+// b_x 128, b_y 1024). The forward writes and reads it once; the backward
+// writes L, rewrites it as G and reads G twice, against three products
+// of 2·n_b·b_x·b_y·d ≈ 77 GFLOP each at d 2304 — a byte of workspace
+// traffic per ≈ 690 FLOP, so the products bound it, as they bound the
+// resident kernels.
+//
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes in src/repro_torch/kernels/sce_prefetch.py.
@@ -196,6 +223,7 @@
 
 #include <type_traits>
 
+#include "deep_gemm.cuh"
 #include "tf32x3_tile.cuh"
 
 namespace {
@@ -1008,9 +1036,10 @@ dy_sum_kernel(const float* __restrict__ ws, const int* __restrict__ keys,
 }
 
 // Flat rows n_b·b_x and slots n_b·b_y index with int.
-bool shapes_ok(int n_b, int b_x, int b_y, int c, int d) {
-  return n_b > 0 && b_x > 0 && b_y > 0 && c > 0 && d > 0 && d <= kMaxD &&
-         (long)n_b * b_x <= 0x7fffffffL && (long)n_b * b_y <= 0x7fffffffL;
+bool shapes_ok(int n_b, int b_x, int b_y, int c, int d, bool deep = false) {
+  return n_b > 0 && b_x > 0 && b_y > 0 && c > 0 && d > 0 &&
+         (deep || d <= kMaxD) && (long)n_b * b_x <= 0x7fffffffL &&
+         (long)n_b * b_y <= 0x7fffffffL;
 }
 
 // The forward's launch shape at depth d: warps a block (32 positions
@@ -1132,7 +1161,224 @@ int launch_bwd(const float* x_b, const float* y, const int* idx_y,
   return (int)(cap > 0.f ? go(std::true_type{}) : go(std::false_type{}));
 }
 
+// ---------------------------------------------------------------------------
+// Deep variants: the logits written once into a workspace.
+// ---------------------------------------------------------------------------
+constexpr int kFoldWarps = 8;
+
+// The logits L (n_b, b_x, b_y) of every bucket into ws: candidates
+// gathered by clamped id (or row n·b_y + j with DIRECT).
+template <bool DIRECT>
+cudaError_t deep_logits(const float* x_b, const float* y, const int* idx_y,
+                        float* ws, int n_b, int b_x, int b_y, int c, int d,
+                        cudaStream_t s) {
+  deep_gemm::Gemm g{};
+  g.a = x_b;
+  g.a_batch = (long)b_x * d;
+  g.lda = d;
+  g.b = y;
+  g.ldb = d;
+  if (DIRECT) {
+    g.b_batch = (long)b_y * d;
+  } else {
+    g.b_idx = idx_y;
+    g.idx_batch = b_y;
+    g.b_rows = c;
+  }
+  g.out = ws;
+  g.out_batch = (long)b_x * b_y;
+  g.ldo = b_y;
+  g.m = b_x;
+  g.n = b_y;
+  g.k = d;
+  return deep_gemm::gemm<false, false, !DIRECT>(g, n_b, s);
+}
+
+// The forward's fold of row blockIdx.x · kFoldWarps + warp: the online
+// (m, s) of its unmasked, softcapped logits (lanes stride the row, then a
+// fixed shuffle tree); with the positive, (pos, 1) merged last, loss =
+// lse − pos; without, plse = m + log(max(s, 1e-30)).
+template <bool WITH_POS, bool CAP>
+__global__ void __launch_bounds__(32 * kFoldWarps)
+fold_kernel(const float* __restrict__ ws, const int* __restrict__ tgt,
+            const int* __restrict__ cand, const float* __restrict__ pos,
+            float* __restrict__ loss, float* __restrict__ lse, long rows,
+            int b_x, int b_y, float cap) {
+  const long row = (long)blockIdx.x * kFoldWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int t = tgt[row];
+  const float* l = ws + row * b_y;
+  const int* cd = cand + (row / b_x) * b_y;
+  float m = kNegInf, s = 0.f;
+  for (int j = lane; j < b_y; j += 32) {
+    const int id = cd[j];
+    if (id < 0 || id == t) continue;
+    const float v = CAP ? capped(l[j], cap) : l[j];
+    if (v > m) {
+      s = s * exp_diff(m, v) + 1.f;
+      m = v;
+    } else {
+      s += exp_diff(v, m);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float mo = __shfl_xor_sync(kFull, m, o);
+    const float so = __shfl_xor_sync(kFull, s, o);
+    merge_ms(m, s, mo, so);
+  }
+  if (lane != 0) return;
+  if constexpr (WITH_POS) {
+    const float p = pos[row];
+    merge_ms(m, s, p, 1.f);
+    const float l2 = m + logf(s);
+    lse[row] = l2;
+    loss[row] = l2 - p;
+  } else {
+    lse[row] = m + logf(fmaxf(s, 1e-30f));
+  }
+}
+
+// ws (n_b, b_x, b_y) logits → the cotangent gw in place (cotangent<CAP>:
+// 0 where masked, else exp(min(l − lse, 44))·cap′·g).
+template <bool CAP>
+__global__ void __launch_bounds__(256)
+cotangent_kernel(float* __restrict__ ws, const int* __restrict__ tgt,
+                 const int* __restrict__ cand, const float* __restrict__ lse,
+                 const float* __restrict__ g, long rows, int b_x, int b_y,
+                 float cap) {
+  const long total = rows * b_y;
+  for (long e = (long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (long)gridDim.x * blockDim.x) {
+    const long row = e / b_y;
+    const int j = (int)(e - row * b_y);
+    const int id = cand[(row / b_x) * b_y + j];
+    const bool masked = id < 0 || id == tgt[row];
+    ws[e] = cotangent<CAP>(ws[e], lse[row] * kLog2e, g[row], masked, cap);
+  }
+}
+
+template <bool WITH_POS, bool DIRECT>
+int launch_fwd_deep(const float* x_b, const float* y, const int* idx_y,
+                    const int* tgt_b, const int* cand, const float* pos,
+                    float* loss, float* lse, float* ws, int n_b, int b_x,
+                    int b_y, int c, int d, float cap, void* stream) {
+  if (!shapes_ok(n_b, b_x, b_y, c, d, true) || ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      deep_logits<DIRECT>(x_b, y, idx_y, ws, n_b, b_x, b_y, c, d, s);
+  if (err != cudaSuccess) return (int)err;
+  const long rows = (long)n_b * b_x;
+  const unsigned blocks = (unsigned)((rows + kFoldWarps - 1) / kFoldWarps);
+  if (cap > 0.f)
+    fold_kernel<WITH_POS, true><<<blocks, 32 * kFoldWarps, 0, s>>>(
+        ws, tgt_b, cand, pos, loss, lse, rows, b_x, b_y, cap);
+  else
+    fold_kernel<WITH_POS, false><<<blocks, 32 * kFoldWarps, 0, s>>>(
+        ws, tgt_b, cand, pos, loss, lse, rows, b_x, b_y, cap);
+  return (int)cudaGetLastError();
+}
+
+// dX into dx and dY's slot rows into dy (either may be null, not both)
+// from one cotangent: the logits recomputed into ws and turned into the
+// cotangent there once, then each product reads it.
+template <bool DIRECT>
+int launch_bwd_deep(const float* x_b, const float* y, const int* idx_y,
+                    const int* tgt_b, const int* cand, const float* lse,
+                    const float* g, float* dx, float* dy, float* ws, int n_b,
+                    int b_x, int b_y, int c, int d, float cap, void* stream) {
+  if (!shapes_ok(n_b, b_x, b_y, c, d, true) || ws == nullptr ||
+      (dx == nullptr && dy == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      deep_logits<DIRECT>(x_b, y, idx_y, ws, n_b, b_x, b_y, c, d, s);
+  if (err != cudaSuccess) return (int)err;
+  const long rows = (long)n_b * b_x;
+  const long total = rows * b_y;
+  const unsigned blocks =
+      (unsigned)(total / 256 + 1 < 65536 ? total / 256 + 1 : 65536);
+  if (cap > 0.f)
+    cotangent_kernel<true><<<blocks, 256, 0, s>>>(ws, tgt_b, cand, lse, g,
+                                                  rows, b_x, b_y, cap);
+  else
+    cotangent_kernel<false><<<blocks, 256, 0, s>>>(ws, tgt_b, cand, lse, g,
+                                                   rows, b_x, b_y, cap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  deep_gemm::Gemm p{};
+  p.a = ws;
+  p.a_batch = (long)b_x * b_y;
+  p.lda = b_y;
+  p.ldb = d;
+  p.ldo = d;
+  p.n = d;
+  if (dx != nullptr) {  // dX[n, x] = Σ_j G[x][j]·Y[idx[n, j]]
+    deep_gemm::Gemm q = p;
+    q.out = dx;
+    q.b = y;
+    if (DIRECT) {
+      q.b_batch = (long)b_y * d;
+    } else {
+      q.b_idx = idx_y;
+      q.idx_batch = b_y;
+      q.b_rows = c;
+    }
+    q.out_batch = (long)b_x * d;
+    q.m = b_x;
+    q.k = b_y;
+    err = DIRECT ? deep_gemm::gemm<false, true, false>(q, n_b, s)
+                 : deep_gemm::gemm<false, true, true>(q, n_b, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (dy != nullptr) {  // slot rows n·b_y + j: Σ_x G[x][j]·x_b[n, x]
+    p.out = dy;
+    p.b = x_b;
+    p.b_batch = (long)b_x * d;
+    p.out_batch = (long)b_y * d;
+    p.m_zero = cand;  // a negative id's row is an exact 0
+    p.mz_batch = b_y;
+    p.m = b_y;
+    p.k = b_x;
+    err = deep_gemm::gemm<true, true, false>(p, n_b, s);
+  }
+  return (int)err;
+}
+
 }  // namespace
+
+// The deep entries: as their resident namesakes below, for any d > 0, with
+// `ws` an (n_b, b_x, b_y) f32 workspace for the logits.
+extern "C" int sce_gather_fwd_deep_launch(
+    const float* x_b, const float* y, const int* idx_y, const int* tgt_b,
+    const int* cand, const float* pos, float* loss, float* lse, float* ws,
+    int n_b, int b_x, int b_y, int c, int d, float cap, void* stream) {
+  return launch_fwd_deep<true, false>(x_b, y, idx_y, tgt_b, cand, pos, loss,
+                                      lse, ws, n_b, b_x, b_y, c, d, cap,
+                                      stream);
+}
+
+extern "C" int sce_gather_plse_fwd_deep_launch(
+    const float* x_b, const float* y, const int* idx_y, const int* tgt_b,
+    const int* cand, float* plse, float* ws, int n_b, int b_x, int b_y,
+    int c, int d, float cap, void* stream) {
+  return launch_fwd_deep<false, false>(x_b, y, idx_y, tgt_b, cand, nullptr,
+                                       nullptr, plse, ws, n_b, b_x, b_y, c,
+                                       d, cap, stream);
+}
+
+// dX into dx and dY's slot rows into dy (n_b·b_y, d), either null when
+// not wanted: the logits and their cotangent written into ws once.
+extern "C" int sce_gather_bwd_deep_launch(
+    const float* x_b, const float* y, const int* idx_y, const int* tgt_b,
+    const int* cand, const float* lse, const float* g, float* dx, float* dy,
+    float* ws, int n_b, int b_x, int b_y, int c, int d, float cap,
+    void* stream) {
+  return launch_bwd_deep<false>(x_b, y, idx_y, tgt_b, cand, lse, g, dx, dy,
+                                ws, n_b, b_x, b_y, c, d, cap, stream);
+}
 
 // The C interface, bound with ctypes. Shapes: x_b (n_b, b_x, d) f32,
 // y (C, d) f32, idx_y and cand (n_b, b_y) i32, tgt_b, pos, lse, g, loss
@@ -1205,8 +1451,7 @@ extern "C" int sce_gather_dy_sum_launch(const float* ws, const int* keys,
                                         const long long* order, float* dy,
                                         int n_slots, int d, int c,
                                         void* stream) {
-  if (n_slots <= 0 || d <= 0 || d > kMaxD || c <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (n_slots <= 0 || d <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
   const long threads = (long)n_slots * ((d + 3) / 4);
   const long blocks = (threads + kSumThreads - 1) / kSumThreads;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
@@ -1282,4 +1527,32 @@ extern "C" int sce_bucket_dy_launch(const float* x_b, const float* y_b,
   return launch_bwd<true, true>(x_b, y_b, nullptr, tgt_b, cand, lse, g,
                                 dy_b, n_b, b_x, b_y, direct_rows(n_b, b_y),
                                 d, cap, stream);
+}
+
+extern "C" int sce_bucket_fwd_deep_launch(
+    const float* x_b, const float* y_b, const int* tgt_b, const int* cand,
+    const float* pos, float* loss, float* lse, float* ws, int n_b, int b_x,
+    int b_y, int d, float cap, void* stream) {
+  return launch_fwd_deep<true, true>(x_b, y_b, nullptr, tgt_b, cand, pos,
+                                     loss, lse, ws, n_b, b_x, b_y,
+                                     direct_rows(n_b, b_y), d, cap, stream);
+}
+
+extern "C" int sce_bucket_plse_fwd_deep_launch(
+    const float* x_b, const float* y_b, const int* tgt_b, const int* cand,
+    float* plse, float* ws, int n_b, int b_x, int b_y, int d, float cap,
+    void* stream) {
+  return launch_fwd_deep<false, true>(x_b, y_b, nullptr, tgt_b, cand,
+                                      nullptr, nullptr, plse, ws, n_b, b_x,
+                                      b_y, direct_rows(n_b, b_y), d, cap,
+                                      stream);
+}
+
+extern "C" int sce_bucket_bwd_deep_launch(
+    const float* x_b, const float* y_b, const int* tgt_b, const int* cand,
+    const float* lse, const float* g, float* dx, float* dy_b, float* ws,
+    int n_b, int b_x, int b_y, int d, float cap, void* stream) {
+  return launch_bwd_deep<true>(x_b, y_b, nullptr, tgt_b, cand, lse, g, dx,
+                               dy_b, ws, n_b, b_x, b_y,
+                               direct_rows(n_b, b_y), d, cap, stream);
 }

@@ -31,6 +31,19 @@
 //     entries at or above the final τ.
 // A hook sees every tile's scores before the filter: mips_topk passes
 // none, eval_fused counts ranks and folds an online LSE there.
+//
+// The deep variant (FROM_S). The sweep holds its queries' fragments and
+// two catalog tiles over the whole depth, which caps d at kMaxD = 256.
+// Above it (and for the k > kMaxSweepK lists of mips_topk's chain) the
+// caller first computes the score slab S = Y · Qᵀ with deep_gemm.cuh,
+// whose product walks the depth in chunks of 32 with the very score_step
+// arithmetic of this sweep (catalog rows as A, the same split and k16
+// order), and the sweep reads each tile's scores from S instead of
+// computing them: the filter, the shared threshold, the merges and the
+// hook are the same code. target_scores takes any depth, so the target's
+// score is still the swept column bit for bit. The slab costs
+// 2·c·n_q·4 bytes of traffic against 2·c·n_q·d FLOP of products: at
+// d 2304 a byte a 576 FLOP, far above the card's ridge.
 
 #pragma once
 
@@ -48,10 +61,12 @@ constexpr float kPosInf = __builtin_huge_valf();  // a NaN score's rank
 constexpr int kIdPad = 0x7fffffff;
 constexpr int kThreads = 256;      // merge and select blocks
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxK = 512;
-constexpr int kMaxD = 256;
+constexpr int kMaxSweepK = 512;  // the sweeps' lists (and today's chain)
+constexpr int kMaxK = 1024;      // mips_topk's deep k > 32 chain
+constexpr int kMaxD = 256;  // the resident-tile kernels; above: FROM_S
 constexpr int kSlotsSmall = 8;  // list entries a lane holds for k ≤ 256
-constexpr int kSlotsLarge = kMaxK / 32;  // ... and for k ≤ 512
+constexpr int kSlotsLarge = kMaxSweepK / 32;  // ... for k ≤ 512
+constexpr int kSlotsHuge = kMaxK / 32;  // ... for k ≤ 1024 (deep chain)
 constexpr int kMaxSmem = 232448;   // 227 KB opt-in per block on sm_90
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
@@ -400,12 +415,15 @@ struct Cfg {
 // Shared memory of one sweep block: the queries' B fragments (hi, lo),
 // two catalog tiles and their valid flags, the merge requests, and per
 // row a candidate count, a (value, id) list of k and a buffer of kCap.
-template <int NQT>
+// FROM_S holds no fragments and no tiles, only the 4·WM·QB words that
+// eval_fused's reduction takes in their place.
+template <int NQT, bool FROM_S = false>
 inline size_t sweep_smem_bytes(int d, int k) {
   constexpr size_t QB = Cfg<NQT>::kQB;
   const size_t dp = depth16(d);
-  return 4 * (2 * QB * dp + 2 * kTile * (size_t)tile_pitch(d) + 2 * kTile +
-              4 + QB + 2 * QB * ((size_t)k + kCap));
+  const size_t stage = FROM_S ? 4 * Cfg<NQT>::kWM * QB
+                              : 2 * QB * dp + 2 * kTile * (size_t)tile_pitch(d);
+  return 4 * (stage + 2 * kTile + 4 + QB + 2 * QB * ((size_t)k + kCap));
 }
 
 // One call of the sweep: grid (ceil(n_q / QB), S); block (x, s) takes
@@ -425,6 +443,7 @@ struct Sweep {
   int c_lo, c_hi;               // global-id window [c_lo, c_hi)
   int vec;                      // 16-byte tile copies (d % 4 == 0, aligned)
   int seeded;                   // τ comes from a pre-pass
+  const float* s;               // FROM_S: the scores (c, n_q), row-major
 };
 
 // Column c0 + tid of a tile of nc columns: 1 if it is in the tile, its
@@ -554,7 +573,8 @@ __device__ void merge_rows(float* lv, int* li, float* cv, int* ci, int* cnt,
 // row's buffer. One barrier a tile (the copies'); a second only after a
 // tile whose filter left a buffer past kMergeAt, around its merges.
 // Returns the ring of tiles, which the caller may reuse once it returns.
-template <int NQT, int SLOTS, bool SAMPLE = false, class OnTile>
+template <int NQT, int SLOTS, bool SAMPLE = false, bool FROM_S = false,
+          class OnTile>
 __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
                                         OnTile&& on_tile) {
   using C = Cfg<NQT>;
@@ -566,8 +586,11 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
   const int p = tile_pitch(d);
   const int k8s = dp / 8;
   uint4* qf = reinterpret_cast<uint4*>(smem4);  // (NQT, dp / 8, 32)
-  float* ring = reinterpret_cast<float*>(qf + NQT * k8s * 32);  // 2×(64, p)
-  int* flags = reinterpret_cast<int*>(ring + 2 * kTile * p);    // 2 × 64
+  // 2×(64, p); FROM_S: 4·WM·QB words for the caller's reduction only
+  float* ring = FROM_S ? reinterpret_cast<float*>(smem4)
+                       : reinterpret_cast<float*>(qf + NQT * k8s * 32);
+  int* flags = reinterpret_cast<int*>(
+      ring + (FROM_S ? 4 * WM * QB : 2 * kTile * p));  // 2 × 64
   int* mreq = flags + 2 * kTile;  // merge requests by tile mod 3
   int* cnt = mreq + 4;                                    // (QB,)
   float* lv = reinterpret_cast<float*>(cnt + QB);         // (QB, k)
@@ -588,7 +611,7 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
   // The queries as B fragments: entry (j, s, lane) holds query row
   // 8j + gq at depths 8s + 2q, 8s + 2q + 1 as (hi, hi, lo, lo); zeros
   // past d and past n_q. The tiles' depth padding, the lists, the counts.
-  for (int e = tid; e < NQT * k8s * 64; e += THREADS) {
+  for (int e = tid; e < (FROM_S ? 0 : NQT * k8s * 64); e += THREADS) {
     const int u = e & 1;
     const int l = (e >> 1) & 31;
     const int js = e >> 6;
@@ -598,7 +621,7 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
     uint32_t* f = reinterpret_cast<uint32_t*>(qf + js * 32 + l);
     tf32x3::split(v, f[u], f[2 + u]);
   }
-  for (int e = tid; e < 2 * kTile * (dp - d); e += THREADS) {
+  for (int e = tid; e < (FROM_S ? 0 : 2 * kTile * (dp - d)); e += THREADS) {
     const int r = e / (dp - d);
     ring[r * p + d + (e - r * (dp - d))] = 0.f;
   }
@@ -627,8 +650,9 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
   auto issue = [&](int i) {
     const long c0 = tile_c0(i);
     const int nc = a.c - c0 < kTile ? (int)(a.c - c0) : kTile;
-    copy_tile(ring + (i & 1) * kTile * p, a.y, c0, nc, d, p, a.vec, tid,
-              THREADS);
+    if (!FROM_S)
+      copy_tile(ring + (i & 1) * kTile * p, a.y, c0, nc, d, p, a.vec, tid,
+                THREADS);
     return tid < kTile ? valid_flag(a, c0, nc, tid) : 0;
   };
 
@@ -683,8 +707,24 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    if constexpr (FROM_S) {
+      // The tile's scores from the slab (0 past the catalog and n_q: the
+      // filter and the hook mask those by their flags and rows).
+      const long c0s = tile_c0(i);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const long cr = c0s + 16 * (wm * MT + mt) + gq + 8 * (e >> 1);
+            const int qr = row0 + 8 * (wn * NT + nt) + 2 * qd + (e & 1);
+            acc[mt][nt][e] =
+                cr < a.c && qr < a.n_q ? a.s[cr * a.n_q + qr] : 0.f;
+          }
+    }
 #pragma unroll 2
-    for (int s16 = 0; s16 < dp / 16; ++s16) {
+    for (int s16 = 0; s16 < (FROM_S ? 0 : dp / 16); ++s16) {
       uint32_t ah[MT][2][4], al[MT][2][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -892,11 +932,12 @@ __device__ __forceinline__ void target_scores(const float* x, const float* y,
 // distinct real column or −inf, so the k-th of a row's union, taken by
 // tau_select_kernel, is a safe τ for the sweep: the k-th of ≈ a sample's
 // top, where the blocks' own lists start from nothing.
-template <int NQT>
+template <int NQT, bool FROM_S>
 __global__ void __launch_bounds__(Cfg<NQT>::kThreads, Cfg<NQT>::kMinBlocks)
 sample_kernel(Sweep a) {
   extern __shared__ float4 smem4[];
-  sweep<NQT, 1, true>(a, smem4, [](const auto&, const int*, long) {});
+  sweep<NQT, 1, true, FROM_S>(a, smem4,
+                              [](const auto&, const int*, long) {});
 }
 
 // The k-th largest of v[0, n) (k ≤ 32): k times the largest left, one copy
@@ -963,7 +1004,7 @@ tau_select_kernel(const float* __restrict__ uv, int n, int k,
 // a static here would be one object in every library a process loads (a
 // template's static local is a unique global symbol), so one library's
 // opt-in would stand for the other's kernel.
-template <int NQT>
+template <int NQT, bool FROM_S = false>
 cudaError_t seed_tau(const Sweep& a, float* uv, int pre_split,
                      int pre_period, bool (&done)[kMaxDevices],
                      cudaStream_t s) {
@@ -974,15 +1015,15 @@ cudaError_t seed_tau(const Sweep& a, float* uv, int pre_split,
   if (a.k > 32 || uv == nullptr ||
       tau_select_smem_bytes(n_union) > 48 * 1024)
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_max_smem(sample_kernel<NQT>, done);
+  cudaError_t err = allow_max_smem(sample_kernel<NQT, FROM_S>, done);
   if (err != cudaSuccess) return err;
   Sweep pre = a;
   pre.part_vals = uv;
   pre.part_ids = nullptr;
   pre.period = pre_period;
-  sample_kernel<NQT><<<dim3((a.n_q + C::kQB - 1) / C::kQB, pre_split),
-                       C::kThreads, sweep_smem_bytes<NQT>(a.d, a.k), s>>>(
-      pre);
+  sample_kernel<NQT, FROM_S>
+      <<<dim3((a.n_q + C::kQB - 1) / C::kQB, pre_split), C::kThreads,
+         sweep_smem_bytes<NQT, FROM_S>(a.d, a.k), s>>>(pre);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   tau_select_kernel<<<a.n_q, kThreads, tau_select_smem_bytes(n_union), s>>>(
@@ -1009,7 +1050,8 @@ cudaError_t dispatch(int query_tiles, int k, F&& f) {
       return by_nqt(std::integral_constant<int, kSlotsSmall>{});
   }
   if constexpr (MAX_SLOTS >= kSlotsLarge) {
-    if (k <= kMaxK) return by_nqt(std::integral_constant<int, kSlotsLarge>{});
+    if (k <= kMaxSweepK)
+      return by_nqt(std::integral_constant<int, kSlotsLarge>{});
   }
   return cudaErrorInvalidValue;
 }

@@ -11,6 +11,11 @@ tensors only: the CPU path is ``kernels/ref.py`` (``eval_fused_ref``,
 ``eval_tgt_gather_ref``), chosen by ``kernels/ops.py``.
 ``eval_fused.launches`` and ``eval_tgt_gather.launches`` count the calls
 that launched each kernel.
+
+Above ``MAX_D`` (``mips_topk.is_deep``) the rows go in slabs
+(``mips_topk.slab_rows``) through ``eval_fused_deep_launch``, which first
+writes the slab's scores (``csrc/deep_gemm.cuh``) and then sweeps them;
+:func:`eval_tgt_gather` takes any depth, by the same arithmetic.
 """
 from __future__ import annotations
 
@@ -20,8 +25,9 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.mips_topk import (MAX_D, MAX_K, SWEEP_WM, n_sm,
-                                          on_device, sweep_plan)
+from repro_torch.kernels.mips_topk import (MAX_D, SHALLOW_MAX_K, SWEEP_WM,
+                                          n_sm, on_device, slab_rows,
+                                          sweep_plan)
 
 INT32_MAX = 2**31 - 1
 
@@ -52,13 +58,12 @@ def _check(x, y, targets, k=None, tgt_scores=None, id_offset=0):
                          f"{tuple(tgt_scores.shape)} {tgt_scores.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} takes contiguous tensors")
-    d = x.shape[1]
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"d={d} outside (0, {MAX_D}]")
+    if not x.shape[1] > 0:
+        raise ValueError(f"{name} needs d > 0")
     if y.shape[0] == 0:
         raise ValueError(f"{name} needs a catalog of at least one row")
-    if k is not None and not 0 < k <= MAX_K:
-        raise ValueError(f"k={k} outside (0, {MAX_K}]")
+    if k is not None and not 0 < k <= SHALLOW_MAX_K:
+        raise ValueError(f"k={k} outside (0, {SHALLOW_MAX_K}]")
     if not 0 <= id_offset <= INT32_MAX - (y.shape[0] + 64):
         raise ValueError(f"id_offset={id_offset} overflows int32 ids")
 
@@ -73,6 +78,8 @@ def _lib() -> ctypes.CDLL:
     lib.eval_tgt_gather_launch.restype = ctypes.c_int
     lib.eval_fused_launch.argtypes = [p] * 16 + [i] * 11 + [f, i, p]
     lib.eval_fused_launch.restype = ctypes.c_int
+    lib.eval_fused_deep_launch.argtypes = [p] * 17 + [i] * 11 + [f, i, p]
+    lib.eval_fused_deep_launch.restype = ctypes.c_int
     return lib
 
 
@@ -117,7 +124,8 @@ def eval_fused(x, y, targets, k: int, *, tgt_scores=None, c_lo: int = 0,
 
     Parameters
     ----------
-    x : (n, d) float32 user states; y : (C, d) float32 catalog rows (or
+    x : (n, d) float32 user states, any d > 0 (above ``MAX_D`` the deep
+        variant); y : (C, d) float32 catalog rows (or
         a shard whose first row has global id ``id_offset``); targets :
         (n,) int32 global target ids. All contiguous CUDA tensors.
     k : list length, 1..512; may exceed the valid columns (the tail is
@@ -155,6 +163,33 @@ def eval_fused(x, y, targets, k: int, *, tgt_scores=None, c_lo: int = 0,
         return vals, ids, gt, eq, empty(0), m, s
     if tgt_scores is None:
         tgt_scores = eval_tgt_gather(x, y, targets, id_offset=id_offset)
+    cap = float(logit_softcap) if logit_softcap is not None else 0.0
+    outs = (tgt_scores, targets, vals, ids, gt, eq, m, s)
+    if d <= MAX_D:
+        _launch(x, y, outs, k, id_offset, c_lo, c_hi, cap, with_lse)
+    else:
+        rows = slab_rows(n, c)
+        scores = empty(c * rows)
+        for r in range(0, n, rows):
+            _launch(x[r:r + rows], y,
+                    tuple(t if t is None else t[r:r + rows] for t in outs),
+                    k, id_offset, c_lo, c_hi, cap, with_lse, scores)
+    eval_fused.launches += 1
+    return vals, ids, gt, eq, tgt_scores, m, s
+
+
+def _launch(x, y, outs, k, id_offset, c_lo, c_hi, cap, with_lse,
+            scores=None):
+    """One launch of the sweep and its merge for the rows of ``x``:
+    ``outs`` = (tgt_scores, targets, vals, ids, gt, eq, m, s) of those rows;
+    with ``scores`` (``C·n`` f32) the deep variant on that workspace."""
+    n, d = x.shape
+    c = y.shape[0]
+    dev = x.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
     pl = sweep_plan(n, c, d, k, n_sm(dev))
     part_vals = empty(n, pl.n_split, k)
     part_ids = empty(n, pl.n_split, k, dtype=torch.int32)
@@ -163,23 +198,25 @@ def eval_fused(x, y, targets, k: int, *, tgt_scores=None, c_lo: int = 0,
     tau = empty(n, dtype=torch.int32)
     uv = empty(n, pl.pre_split * 8 * SWEEP_WM[pl.query_tiles]) \
         if pl.pre_split else None
+    tgt_scores, targets, vals, ids, gt, eq, m, s = outs
+    lib = _lib()
+    entry, tail = lib.eval_fused_launch, ()
+    if scores is not None:
+        entry, tail = lib.eval_fused_deep_launch, (scores,)
     with on_device(dev):
-        err = _lib().eval_fused_launch(
+        err = entry(
             *(t.data_ptr() if t is not None else None for t in (
                 x, y, tgt_scores, targets, part_vals, part_ids, part_cnt,
-                part_ms, tau, uv, vals, ids, gt, eq, m, s)),
+                part_ms, tau, uv, vals, ids, gt, eq, m, s) + tail),
             n, c, d, k, pl.query_tiles, pl.n_split, pl.pre_split,
-            pl.pre_period, id_offset, c_lo, c_hi,
-            float(logit_softcap) if logit_softcap is not None else 0.0,
-            int(with_lse), _stream(dev),
+            pl.pre_period, id_offset, c_lo, c_hi, cap, int(with_lse),
+            _stream(dev),
         )
     if err != 0:
         raise RuntimeError(
             f"eval_fused launch failed: cudaError {err} (n={n}, C={c}, d={d}, "
             f"k={k}, plan={pl})"
         )
-    eval_fused.launches += 1
-    return vals, ids, gt, eq, tgt_scores, m, s
 
 
 eval_fused.launches = 0

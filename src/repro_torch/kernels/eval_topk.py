@@ -31,8 +31,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.eval_fused import INT32_MAX
-from repro_torch.kernels.mips_topk import (MAX_D, MAX_K, SWEEP_WM, n_sm,
-                                          on_device, sweep_plan)
+from repro_torch.kernels.mips_topk import (MAX_D, SHALLOW_MAX_K, SWEEP_WM,
+                                          n_sm, on_device, slab_rows,
+                                          sweep_plan)
 
 
 def _check(name, x, y, vec, vec_dtype, k=None, id_offset=0):
@@ -58,13 +59,12 @@ def _check(name, x, y, vec, vec_dtype, k=None, id_offset=0):
                          f"{tuple(vec.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} takes contiguous tensors")
-    d = x.shape[1]
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"d={d} outside (0, {MAX_D}]")
+    if not x.shape[1] > 0:
+        raise ValueError(f"{name} needs d > 0")
     if y.shape[0] == 0:
         raise ValueError(f"{name} needs a catalog of at least one row")
-    if k is not None and not 0 < k <= MAX_K:
-        raise ValueError(f"k={k} outside (0, {MAX_K}]")
+    if k is not None and not 0 < k <= SHALLOW_MAX_K:
+        raise ValueError(f"k={k} outside (0, {SHALLOW_MAX_K}]")
     if not 0 <= id_offset <= INT32_MAX - (y.shape[0] + 64):
         raise ValueError(f"id_offset={id_offset} overflows int32 ids")
 
@@ -76,6 +76,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.eval_topk_launch.argtypes = [p] * 12 + [i] * 11 + [p]
     lib.eval_topk_launch.restype = ctypes.c_int
+    lib.eval_topk_deep_launch.argtypes = [p] * 13 + [i] * 11 + [p]
+    lib.eval_topk_deep_launch.restype = ctypes.c_int
     lib.eval_tgt_scores_launch.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.eval_tgt_scores_launch.restype = ctypes.c_int
     return lib
@@ -149,6 +151,31 @@ def _two_pass_topk(x, y, tgt_scores, k: int, *, c_lo: int = 0, c_hi=None,
     gt, eq = empty(n, dtype=torch.int32), empty(n, dtype=torch.int32)
     if n == 0:
         return vals, ids, gt, eq
+    outs = (tgt_scores, vals, ids, gt, eq)
+    if d <= MAX_D:
+        _launch(x, y, outs, k, id_offset, c_lo, c_hi)
+    else:  # the deep variant, a slab of rows at a time
+        rows = slab_rows(n, c)
+        scores = empty(c * rows)
+        for r in range(0, n, rows):
+            _launch(x[r:r + rows], y, tuple(t[r:r + rows] for t in outs), k,
+                    id_offset, c_lo, c_hi, scores)
+    _two_pass_topk.launches += 1
+    return vals, ids, gt, eq
+
+
+def _launch(x, y, outs, k, id_offset, c_lo, c_hi, scores=None):
+    """One launch of the sweep and its merge for the rows of ``x``
+    (``outs`` = their tgt_scores, vals, ids, gt, eq); with ``scores``
+    (``C·n`` f32) the deep variant on that workspace."""
+    n, d = x.shape
+    c = y.shape[0]
+    dev = x.device
+    tgt_scores, vals, ids, gt, eq = outs
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
     pl = sweep_plan(n, c, d, k, n_sm(dev))
     part_vals = empty(n, pl.n_split, k)
     part_ids = empty(n, pl.n_split, k, dtype=torch.int32)
@@ -156,18 +183,19 @@ def _two_pass_topk(x, y, tgt_scores, k: int, *, c_lo: int = 0, c_hi=None,
     tau = empty(n, dtype=torch.int32)
     uv = empty(n, pl.pre_split * 8 * SWEEP_WM[pl.query_tiles]) \
         if pl.pre_split else None
+    entry, tail = _lib().eval_topk_launch, ()
+    if scores is not None:
+        entry, tail = _lib().eval_topk_deep_launch, (scores,)
     with on_device(dev):
-        err = _lib().eval_topk_launch(
+        err = entry(
             *(t.data_ptr() if t is not None else None for t in (
                 x, y, tgt_scores, part_vals, part_ids, part_cnt, tau, uv,
-                vals, ids, gt, eq)),
+                vals, ids, gt, eq) + tail),
             n, c, d, k, pl.query_tiles, pl.n_split, pl.pre_split,
             pl.pre_period, id_offset, c_lo, c_hi, _stream(dev))
     if err != 0:
         raise RuntimeError(f"eval_topk launch failed: cudaError {err} "
                            f"(n={n}, C={c}, d={d}, k={k}, plan={pl})")
-    _two_pass_topk.launches += 1
-    return vals, ids, gt, eq
 
 
 # The two deprecated entries are defined under private names and bound to

@@ -168,7 +168,8 @@ def _check(x, w, targets, *rows):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("linear_ce takes contiguous tensors")
     if not 0 < d <= MAX_D:
-        raise ValueError(f"d={d} outside (0, {MAX_D}]")
+        raise ValueError(f"d={d} outside (0, {MAX_D}]: linear_ce has no "
+                         f"deep variant yet (ROADMAP.md queue 3)")
     if n == 0 or c == 0:
         raise ValueError("linear_ce needs positions and a catalog")
     return n, c, d

@@ -15,6 +15,14 @@ launched the kernel, and ``mips_topk.launches_by_k`` counts them by
 ``k``; ``mips_topk.last_counts`` holds the last ``k > SMALL_K`` call's
 per-row collect counts (a device tensor: a count above its ``kcap`` is
 a row the split sweep finished).
+
+Deep variants (:func:`is_deep`): where the resident kernels cannot take
+the shape — ``d > MAX_D``, or in the chain ``k > SHALLOW_MAX_K`` — the
+wrapper cuts the queries into slabs (:func:`slab_rows`) and, per slab,
+the source's ``*_deep_launch`` entries first write the score slab
+``S = Y · Qᵀ`` (``csrc/deep_gemm.cuh``: 3xTF32 over depth chunks of 32)
+into a workspace, then run the same sweep or chain on it. Below those
+limits the resident kernels run as before.
 """
 from __future__ import annotations
 
@@ -29,8 +37,10 @@ import torch
 from repro_torch.kernels import _build
 
 TILE_C = 64  # catalog rows per tile (kTileC, kTile in the sources)
-MAX_K = 512  # kMaxK in the source (lists of ≤ 256 and ≤ 512 entries)
-MAX_D = 256
+MAX_K = 1024  # kMaxK: the deep k > 32 chain's lists
+SHALLOW_MAX_K = 512  # kMaxSweepK: the sweeps' and the resident chain's
+MAX_D = 256  # kMaxD: the depth the resident kernels stage whole
+SCORE_BYTES = 1 << 30  # a deep call's score slab at most (one row if more)
 MAX_SMEM = 232448  # bytes of shared memory one block may opt in to on sm_90
 SM_SMEM = 233472  # bytes of shared memory of one SM (1 KB of it per block)
 SMALL_K = 32  # k up to this takes the tensor-core sweep
@@ -80,15 +90,34 @@ def split_bounds(c: int, n_split: int, s: int):
     return min(lo, c), min((s + 1) * tiles // n_split * TILE_C, c)
 
 
-def partial_smem_bytes(rows_per_thread: int, d: int, k: int) -> int:
+def is_deep(d: int, k: int) -> bool:
+    """Whether a call at depth ``d`` and list length ``k`` takes the deep
+    variant: exactly where the resident kernels cannot, ``d > MAX_D`` or
+    ``k > SHALLOW_MAX_K``."""
+    return d > MAX_D or k > SHALLOW_MAX_K
+
+
+def slab_rows(n_q: int, c: int) -> int:
+    """Query rows a deep call scores at a time: as many as keep its
+    ``(C, rows)`` f32 score slab within ``SCORE_BYTES`` (a multiple of 128
+    above 128 rows, at least one row), at most ``n_q``."""
+    rows = max(1, SCORE_BYTES // (4 * max(c, 1)))
+    if rows >= 128:
+        rows -= rows % 128
+    return min(n_q, rows)
+
+
+def partial_smem_bytes(rows_per_thread: int, d: int, k: int,
+                       from_s: bool = False) -> int:
     """Shared memory of one partial block, as ``partial_smem_bytes`` in
     the source lays it out (the source refuses a launch above
     ``MAX_SMEM``, so a plan that disagreed would raise): staged queries
-    and two catalog tiles at a row pitch of an odd number of float4s,
-    the tiles' valid flags, per-row candidate counts, per-row candidate
-    buffers and the per-row (value, id) lists."""
+    and two catalog tiles at a row pitch of an odd number of float4s
+    (none ``from_s``: the deep variant reads the score slab), the tiles'
+    valid flags, per-row candidate counts, per-row candidate buffers and
+    the per-row (value, id) lists."""
     qb = 16 * rows_per_thread
-    pitch = 4 * ((-(-d // 4)) | 1)
+    pitch = 0 if from_s else 4 * ((-(-d // 4)) | 1)
     return 4 * (qb * pitch + 2 * TILE_C * pitch) + 4 * (2 * TILE_C + qb) \
         + 8 * qb * (TILE_C + k)
 
@@ -104,14 +133,17 @@ def sweep_smem_bytes(query_tiles: int, d: int, k: int) -> int:
     ``sweep_smem_bytes`` in ``topk_tile.cuh`` lays it out (the source
     refuses a launch above ``MAX_SMEM``, so a plan that disagreed would
     raise): the queries' B fragments (hi, lo) at the depth rounded up to
-    16, two catalog tiles at a pitch ≡ 8 mod 32 floats, their valid
+    16, two catalog tiles at a pitch ≡ 8 mod 32 floats — above ``MAX_D``
+    (the deep variant, which reads the score slab) in their place only
+    the ``4·WM·QB`` words of ``eval_fused``'s reduction —, their valid
     flags, four merge-request words, per-row counts, and per row a
     (value, id) list of ``k`` and a candidate buffer of ``SWEEP_CAP``."""
     qb = 8 * query_tiles
     dp = -(-d // 16) * 16
     pitch = -(-dp // 32) * 32 + 8
-    return 4 * (2 * qb * dp + 2 * TILE_C * pitch + 2 * TILE_C + 4 + qb
-                + 2 * qb * (k + SWEEP_CAP))
+    stage = (4 * SWEEP_WM[query_tiles] * qb if d > MAX_D
+             else 2 * qb * dp + 2 * TILE_C * pitch)
+    return 4 * (stage + 2 * TILE_C + 4 + qb + 2 * qb * (k + SWEEP_CAP))
 
 
 def sweep_merge_smem_bytes(k: int) -> int:
@@ -131,7 +163,10 @@ def sweep_smem(n_q: int, c: int, d: int, k: int, n_sm: int) -> int:
     """Dynamic shared memory per block of the largest of the tensor-core
     sweep's launches (the pre-pass and the sweep at :func:`sweep_plan`'s
     block height, the τ selection, the merge), which ``mips_topk`` at
-    ``k ≤ SMALL_K``, ``eval_fused`` and ``eval_topk`` share."""
+    ``k ≤ SMALL_K``, ``eval_fused`` and ``eval_topk`` share (a deep call:
+    at its slab's rows)."""
+    if d > MAX_D:
+        n_q = slab_rows(n_q, c)
     p = sweep_plan(n_q, c, d, k, n_sm)
     n_union = p.pre_split * 8 * SWEEP_WM[p.query_tiles]
     return max(sweep_smem_bytes(p.query_tiles, d, k),
@@ -150,11 +185,11 @@ def sort_smem_bytes(n: int) -> int:
     return 8 * (size + size // 32)
 
 
-def pass_smem_bytes(d: int) -> int:
+def pass_smem_bytes(d: int, from_s: bool = False) -> int:
     """Shared memory of one threshold or collect block, as
-    ``pass_smem_bytes`` in the source: 64 staged query rows, two catalog
-    tiles and their valid flags."""
-    pitch = 4 * ((-(-d // 4)) | 1)
+    ``pass_smem_bytes`` in the source: 64 staged query rows and two
+    catalog tiles (none ``from_s``), and the tiles' valid flags."""
+    pitch = 0 if from_s else 4 * ((-(-d // 4)) | 1)
     return 4 * (PASS_ROWS + 2 * TILE_C) * pitch + 4 * 2 * TILE_C
 
 
@@ -162,11 +197,14 @@ def select_smem(n_q: int, c: int, d: int, k: int, n_sm: int) -> int:
     """Dynamic shared memory per block of the largest launch of the
     ``k > SMALL_K`` chain, as ``select_smem_bytes`` in the source: the
     passes, the τ and select sorts, and the finishing split sweep at 16
-    rows a block."""
+    rows a block (a deep call: at its slab's rows, reading the slab)."""
+    deep = is_deep(d, k)
+    if deep:
+        n_q = slab_rows(n_q, c)
     sp = select_plan(n_q, c, d, k, n_sm)
-    return max(pass_smem_bytes(d),
+    return max(pass_smem_bytes(d, deep),
                sort_smem_bytes(max(UNION_PER_SPLIT * sp.n_split, k)),
-               sort_smem_bytes(sp.kcap), partial_smem_bytes(1, d, k),
+               sort_smem_bytes(sp.kcap), partial_smem_bytes(1, d, k, deep),
                merge_smem_bytes(k))
 
 
@@ -285,9 +323,8 @@ def _check(q, y, valid, k, id_offset, kcap=None):
         raise ValueError(f"need q (n_q, d), y (C, d); got {q.shape}, {y.shape}")
     if not (q.is_contiguous() and y.is_contiguous()):
         raise ValueError("mips_topk takes contiguous q and y")
-    d = q.shape[1]
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"d={d} outside (0, {MAX_D}]")
+    if not q.shape[1] > 0:
+        raise ValueError("mips_topk needs d > 0")
     if not 0 < k <= MAX_K:
         raise ValueError(f"k={k} outside (0, {MAX_K}]")
     if kcap is not None and k > SMALL_K and not k <= kcap <= MAX_SORT:
@@ -316,6 +353,10 @@ def _lib() -> ctypes.CDLL:
     lib.mips_topk_launch.restype = ctypes.c_int
     lib.mips_topk_select_launch.argtypes = [p] * 14 + [i] * 11 + [p]
     lib.mips_topk_select_launch.restype = ctypes.c_int
+    lib.mips_topk_deep_launch.argtypes = [p] * 10 + [i] * 9 + [p]
+    lib.mips_topk_deep_launch.restype = ctypes.c_int
+    lib.mips_topk_select_deep_launch.argtypes = [p] * 15 + [i] * 11 + [p]
+    lib.mips_topk_select_deep_launch.restype = ctypes.c_int
     return lib
 
 
@@ -339,11 +380,12 @@ def on_device(device):
 
 
 def _select_launch(q, y, k: int, vals, ids, *, valid, id_offset: int,
-                   kcap):
+                   kcap, scores=None):
     """Launch the ``k > SMALL_K`` chain into ``vals`` / ``ids`` (checked
     inputs, ``k ≤ C``) and return the per-row collect counts. ``kcap``
     replaces the plan's (``k ≤ kcap ≤ MAX_SORT``): a small one makes rows
-    overflow into the finishing sweep."""
+    overflow into the finishing sweep. With ``scores`` (a workspace of at
+    least ``C·n_q`` f32) the deep variant runs on it."""
     n_q, d = q.shape
     c = y.shape[0]
     sms = n_sm(q.device)
@@ -362,11 +404,15 @@ def _select_launch(q, y, k: int, vals, ids, *, valid, id_offset: int,
     count = torch.empty(n_q, dtype=torch.int32, device=dev)
     bv, bi = scratch(n_q, sp.kcap)
     part_v, part_i = scratch(n_q, fin.n_split, k)
+    lib = _lib()
+    entry, head = lib.mips_topk_select_launch, ()
+    if scores is not None:
+        entry, head = lib.mips_topk_select_deep_launch, (scores.data_ptr(),)
     with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().mips_topk_select_launch(
+        err = entry(
             q.data_ptr(), y.data_ptr(),
-            valid.data_ptr() if valid is not None else None,
+            valid.data_ptr() if valid is not None else None, *head,
             uv.data_ptr(), ui.data_ptr(), tau_v.data_ptr(), tau_i.data_ptr(),
             count.data_ptr(), bv.data_ptr(), bi.data_ptr(),
             part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
@@ -387,9 +433,11 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0, kcap=None):
 
     Parameters
     ----------
-    q : (n_q, d) float32 CUDA tensor, contiguous.
+    q : (n_q, d) float32 CUDA tensor, contiguous; any d > 0 (above
+        ``MAX_D`` the deep variant, :func:`is_deep`).
     y : (C, d) float32 CUDA tensor, contiguous (catalog, or a shard).
-    k : top-k size, clamped to ``C``; at most 512 after the clamp.
+    k : top-k size, clamped to ``C``; at most ``MAX_K`` (1024) after the
+        clamp (above ``SHALLOW_MAX_K`` the deep variant).
     valid : optional (C,) contiguous bool — rows with False are never
         selected.
     id_offset : global id of ``y``'s first row.
@@ -409,6 +457,12 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0, kcap=None):
     _check(q, y, valid, k, id_offset, kcap)
     n_q, d = q.shape
     dev = q.device
+    if n_q > 0 and is_deep(d, k):
+        vals, ids = _deep(q, y, k, valid=valid, id_offset=id_offset,
+                          kcap=kcap)
+        mips_topk.launches += 1
+        mips_topk.launches_by_k[k] += 1
+        return vals, ids
     if n_q == 0 or k > SMALL_K:
         vals = torch.empty((n_q, k), dtype=torch.float32, device=dev)
         ids = torch.empty((n_q, k), dtype=torch.int32, device=dev)
@@ -419,6 +473,18 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0, kcap=None):
         mips_topk.launches += 1
         mips_topk.launches_by_k[k] += 1
         return vals, ids
+    vals, ids = _sweep_launch(q, y, k, valid=valid, id_offset=id_offset)
+    mips_topk.launches += 1
+    mips_topk.launches_by_k[k] += 1
+    return vals, ids
+
+
+def _sweep_launch(q, y, k: int, *, valid, id_offset: int, scores=None):
+    """The ``k ≤ SMALL_K`` sweep of checked inputs → ``(vals, ids)``;
+    with ``scores`` (at least ``C·n_q`` f32) the deep variant on it."""
+    n_q, d = q.shape
+    c = y.shape[0]
+    dev = q.device
     p = sweep_plan(n_q, c, d, k, n_sm(dev))
     # One allocation for the outputs and the scratch, in 4-byte words:
     # vals and ids (n_q, k), the split lists (n_q, S, k), τ (n_q,) and the
@@ -432,10 +498,14 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0, kcap=None):
     ids = buf[nk:2 * nk].view(n_q, k)
     at = buf.data_ptr()
     tau = at + 8 * (nk + ns)
+    lib = _lib()
+    entry, head = lib.mips_topk_launch, ()
+    if scores is not None:
+        entry, head = lib.mips_topk_deep_launch, (scores.data_ptr(),)
     with on_device(dev):
-        err = _lib().mips_topk_launch(
+        err = entry(
             q.data_ptr(), y.data_ptr(),
-            valid.data_ptr() if valid is not None else None,
+            valid.data_ptr() if valid is not None else None, *head,
             at + 8 * nk, at + 8 * nk + 4 * ns, tau,
             tau + 4 * n_q if nu else None, at, at + 4 * nk, n_q, c, d, k,
             p.query_tiles, p.n_split,
@@ -447,8 +517,30 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0, kcap=None):
             f"mips_topk launch failed: cudaError {err} "
             f"(n_q={n_q}, C={c}, d={d}, k={k}, plan={p})"
         )
-    mips_topk.launches += 1
-    mips_topk.launches_by_k[k] += 1
+    return vals, ids
+
+
+def _deep(q, y, k: int, *, valid, id_offset: int, kcap):
+    """The deep variant of checked inputs: the queries in slabs of
+    :func:`slab_rows`, each scored into one ``(C, rows)`` workspace and
+    selected from it by the sweep (``k ≤ SMALL_K``) or the chain."""
+    n_q = q.shape[0]
+    c = y.shape[0]
+    rows = slab_rows(n_q, c)
+    scores = torch.empty(c * rows, dtype=torch.float32, device=q.device)
+    if k <= SMALL_K:
+        parts = [_sweep_launch(q[r:r + rows], y, k, valid=valid,
+                               id_offset=id_offset, scores=scores)
+                 for r in range(0, n_q, rows)]
+        return (torch.cat([v for v, _ in parts]),
+                torch.cat([i for _, i in parts]))
+    vals = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
+    ids = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
+    counts = [_select_launch(q[r:r + rows], y, k, vals[r:r + rows],
+                             ids[r:r + rows], valid=valid,
+                             id_offset=id_offset, kcap=kcap, scores=scores)
+              for r in range(0, n_q, rows)]
+    mips_topk.last_counts = torch.cat(counts)
     return vals, ids
 
 

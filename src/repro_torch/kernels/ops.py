@@ -10,8 +10,9 @@ the kernel guard (``kernels/guard``, policy ``REPRO_GUARD`` ∈ {off,
 warn, strict}) and then launches the hand-written kernel:
 
   * ``guard.checked_blocks`` preflights the wrapper's launch plan
-    (float32, ``d <= 256``, ``k <= 512``, its shared memory per block
-    within 227 KB) and raises a structured ``KernelPreflightError``
+    (float32; ``d <= 256`` for the full-CE kernels, any d for the
+    others, whose deep variants take d > 256; ``k <= 512``, 1024 for
+    ``mips_topk``; its shared memory per block within 227 KB) and raises a structured ``KernelPreflightError``
     instead of a refused launch;
   * ``guard.kernel_enabled`` consults the memoized conformance verdict
     of the kernel's group on that device (running its canaries on first
@@ -83,7 +84,9 @@ def _sweep_smem(x, y, k, planned=_mips_topk.sweep_smem):
     make."""
     n, d = x.shape
     c = y.shape[0]
-    if not (0 < d <= _mips_topk.MAX_D and 0 < k <= _mips_topk.MAX_K):
+    k_max = (_mips_topk.MAX_K if planned is _mips_topk.planned_smem
+             else _mips_topk.SHALLOW_MAX_K)
+    if not (0 < d and 0 < k <= k_max):
         return lambda: 0  # preflight refuses d or k first
     return lambda: planned(n, c, d, k, _n_sm(x.device))
 

@@ -34,7 +34,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.sce_prefetch import MAX_D, _cap
+from repro_torch.kernels.sce_prefetch import _cap, _logits_ws, is_deep
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,6 +51,12 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.sce_bucket_plse_fwd_launch.argtypes = [p] * 5 + [i] * 4 + [f, p]
     lib.sce_bucket_plse_fwd_launch.restype = ctypes.c_int
+    lib.sce_bucket_fwd_deep_launch.argtypes = [p] * 8 + [i] * 4 + [f, p]
+    lib.sce_bucket_fwd_deep_launch.restype = ctypes.c_int
+    lib.sce_bucket_bwd_deep_launch.argtypes = [p] * 9 + [i] * 4 + [f, p]
+    lib.sce_bucket_bwd_deep_launch.restype = ctypes.c_int
+    lib.sce_bucket_plse_fwd_deep_launch.argtypes = [p] * 6 + [i] * 4 + [f, p]
+    lib.sce_bucket_plse_fwd_deep_launch.restype = ctypes.c_int
     return lib
 
 
@@ -80,13 +86,22 @@ def _check(x_b, y_b, tgt_b, cand_ids, *rows):
         raise ValueError(f"tgt_b, pos/lse and g must be ({n_b}, {b_x})")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sce_bucket takes contiguous tensors")
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"d={d} outside (0, {MAX_D}]")
+    if not d > 0:
+        raise ValueError("sce_bucket needs d > 0")
     if min(n_b, b_x, b_y) == 0:
         raise ValueError("sce_bucket needs non-empty buckets")
     if n_b * b_y > 2**31 - 1:
         raise ValueError(f"n_b·b_y = {n_b * b_y} overflows int32 rows")
     return n_b, b_x, b_y, d
+
+
+def _launch_fwd(name, args, shape, device):
+    """A forward launch; above ``MAX_D`` the deep entry with its logits
+    workspace."""
+    if is_deep(shape[-1]):
+        name = name.replace("_launch", "_deep_launch")
+        args = args[:-1] + (_logits_ws(shape, device), args[-1])
+    _launch(name, args, shape, device)
 
 
 def _launch(name, args, shape, device):
@@ -111,36 +126,51 @@ def sce_bucket_fwd(x_b, y_b, tgt_b, cand_ids, pos_logit, *,
     shape = _check(x_b, y_b, tgt_b, cand_ids, pos_logit)
     loss = torch.empty_like(pos_logit)
     lse = torch.empty_like(pos_logit)
-    _launch("sce_bucket_fwd_launch",
-            (x_b, y_b, tgt_b, cand_ids, pos_logit, loss, lse,
-             _cap(logit_softcap)), shape, x_b.device)
+    _launch_fwd("sce_bucket_fwd_launch",
+                (x_b, y_b, tgt_b, cand_ids, pos_logit, loss, lse,
+                 _cap(logit_softcap)), shape, x_b.device)
     sce_bucket_fwd.launches += 1
     return loss, lse
 
 
-def _bwd(kind, x_b, y_b, tgt_b, cand_ids, lse, g, cap):
+def _bwd(x_b, y_b, tgt_b, cand_ids, lse, g, cap, want_dx, want_dy):
+    """``(dx, dy)``, each None unless wanted; counted on
+    :func:`sce_bucket_dx` / :func:`sce_bucket_dy`. At ``d ≤ MAX_D`` the
+    resident dX and dY kernels, a launch each; above, one deep launch
+    that writes the logits' cotangent once and runs both products from
+    it."""
     shape = _check(x_b, y_b, tgt_b, cand_ids, lse, g)
-    out = torch.empty_like(x_b if kind == "dx" else y_b)
-    _launch(f"sce_bucket_{kind}_launch",
-            (x_b, y_b, tgt_b, cand_ids, lse, g, out, _cap(cap)), shape,
-            x_b.device)
-    return out
+    dx = torch.empty_like(x_b) if want_dx else None
+    dy = torch.empty_like(y_b) if want_dy else None
+    head, cap = (x_b, y_b, tgt_b, cand_ids, lse, g), _cap(cap)
+    if is_deep(shape[-1]):
+        _launch("sce_bucket_bwd_deep_launch",
+                head + (dx, dy, _logits_ws(shape, x_b.device), cap), shape,
+                x_b.device)
+    else:
+        if want_dx:
+            _launch("sce_bucket_dx_launch", head + (dx, cap), shape,
+                    x_b.device)
+        if want_dy:
+            _launch("sce_bucket_dy_launch", head + (dy, cap), shape,
+                    x_b.device)
+    sce_bucket_dx.launches += want_dx
+    sce_bucket_dy.launches += want_dy
+    return dx, dy
 
 
 def sce_bucket_dx(x_b, y_b, tgt_b, cand_ids, lse, g, *, logit_softcap=None):
     """dX kernel: the (n_b, b_x, d) gradient of ``x_b`` for the upstream
     cotangent ``g`` (n_b, b_x) of the loss."""
-    dx = _bwd("dx", x_b, y_b, tgt_b, cand_ids, lse, g, logit_softcap)
-    sce_bucket_dx.launches += 1
-    return dx
+    return _bwd(x_b, y_b, tgt_b, cand_ids, lse, g, logit_softcap, True,
+                False)[0]
 
 
 def sce_bucket_dy(x_b, y_b, tgt_b, cand_ids, lse, g, *, logit_softcap=None):
     """dY kernel: the (n_b, b_y, d) gradient of ``y_b``, every row written
     once by the block that owns it — bitwise repeatable."""
-    dy = _bwd("dy", x_b, y_b, tgt_b, cand_ids, lse, g, logit_softcap)
-    sce_bucket_dy.launches += 1
-    return dy
+    return _bwd(x_b, y_b, tgt_b, cand_ids, lse, g, logit_softcap, False,
+                True)[1]
 
 
 def sce_bucket_plse_fwd(x_b, y_b, tgt_b, cand_ids, *, logit_softcap=None):
@@ -151,9 +181,9 @@ def sce_bucket_plse_fwd(x_b, y_b, tgt_b, cand_ids, *, logit_softcap=None):
     shape = _check(x_b, y_b, tgt_b, cand_ids)
     plse = torch.empty(x_b.shape[:2], dtype=torch.float32,
                        device=x_b.device)
-    _launch("sce_bucket_plse_fwd_launch",
-            (x_b, y_b, tgt_b, cand_ids, plse, _cap(logit_softcap)), shape,
-            x_b.device)
+    _launch_fwd("sce_bucket_plse_fwd_launch",
+                (x_b, y_b, tgt_b, cand_ids, plse, _cap(logit_softcap)),
+                shape, x_b.device)
     sce_bucket_plse_fwd.launches += 1
     return plse
 
@@ -182,8 +212,7 @@ class SCEBucketLoss(torch.autograd.Function):
         args = (x_b, y_b, tgt_b, cand_ids, lse, g)
         cap = ctx.logit_softcap
         need = ctx.needs_input_grad
-        dx = sce_bucket_dx(*args, logit_softcap=cap) if need[0] else None
-        dy = sce_bucket_dy(*args, logit_softcap=cap) if need[1] else None
+        dx, dy = _bwd(*args, cap, need[0], need[1])
         d_pos = (torch.exp(pos_logit - lse) - 1.0) * g if need[4] else None
         return dx, dy, None, None, d_pos, None
 
@@ -215,8 +244,7 @@ class SCEBucketPLSE(torch.autograd.Function):
         args = ctx.saved_tensors + (g.contiguous(),)
         cap = ctx.logit_softcap
         need = ctx.needs_input_grad
-        dx = sce_bucket_dx(*args, logit_softcap=cap) if need[0] else None
-        dy = sce_bucket_dy(*args, logit_softcap=cap) if need[1] else None
+        dx, dy = _bwd(*args, cap, need[0], need[1])
         return dx, dy, None, None, None
 
 

@@ -38,6 +38,14 @@ dX and dY; the loss's also computes the positive's cotangent
 reference's ``_loss_vjp_bwd`` does. The wrappers take CUDA tensors only;
 the CPU paths are ``kernels/ref.py::sce_gather_loss_ref`` and
 ``sce_gather_plse_ref``, chosen by ``kernels/ops.py``.
+
+Above ``MAX_D`` (:func:`is_deep`) every wrapper launches the source's
+deep variant (``*_deep_launch``): the logits are written once into an
+``(n_b, b_x, b_y)`` f32 workspace by ``csrc/deep_gemm.cuh``'s 3xTF32
+product over depth chunks of 32, then folded (the forward), or, in one
+backward launch, recomputed with the same product, turned into the
+cotangent once and multiplied back into dX and dY's slot rows — both
+from that one cotangent when autograd needs both.
 """
 from __future__ import annotations
 
@@ -49,7 +57,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.linear_sce import MAX_SMEM, padded_depth
 
-MAX_D = 256  # kMaxD in csrc/tf32x3_tile.cuh
+MAX_D = 256  # kMaxD in csrc/tf32x3_tile.cuh: above it, the deep variant
+DEEP_SMEM = 40_960  # deep_gemm.cuh's static shared memory a block
 STREAM_ROWS = 32  # kStreamRows: rows of a streamed backward tile
 STAGES = 3  # kStages: the backward's raw ring
 
@@ -123,10 +132,19 @@ def library_bwd_plan(d: int):
     return warps.value, smem
 
 
+def is_deep(d: int) -> bool:
+    """Whether depth ``d`` takes the deep variant: exactly where the
+    resident kernels cannot, ``d > MAX_D``."""
+    return d > MAX_D
+
+
 def planned_smem(d: int) -> int:
-    """Dynamic shared memory per block of the largest launch at depth d:
-    the forward's (:func:`fwd_plan`) or dX / dY's (:func:`bwd_plan`). The
-    kernel guard checks it against the 227 KB a block may use."""
+    """Shared memory per block of the largest launch at depth d: the
+    forward's (:func:`fwd_plan`) or dX / dY's (:func:`bwd_plan`), or the
+    deep variant's product (``DEEP_SMEM`` at every d). The kernel guard
+    checks it against the 227 KB a block may use."""
+    if is_deep(d):
+        return DEEP_SMEM
     return max(fwd_plan(d)[1], bwd_plan(d)[1])
 
 
@@ -149,6 +167,12 @@ def _lib() -> ctypes.CDLL:
     lib.sce_gather_fwd_plan.restype = ctypes.c_int
     lib.sce_gather_dy_sum_launch.argtypes = [p] * 4 + [i] * 3 + [p]
     lib.sce_gather_dy_sum_launch.restype = ctypes.c_int
+    lib.sce_gather_fwd_deep_launch.argtypes = [p] * 9 + [i] * 5 + [f, p]
+    lib.sce_gather_fwd_deep_launch.restype = ctypes.c_int
+    lib.sce_gather_bwd_deep_launch.argtypes = [p] * 10 + [i] * 5 + [f, p]
+    lib.sce_gather_bwd_deep_launch.restype = ctypes.c_int
+    lib.sce_gather_plse_fwd_deep_launch.argtypes = [p] * 7 + [i] * 5 + [f, p]
+    lib.sce_gather_plse_fwd_deep_launch.restype = ctypes.c_int
     return lib
 
 
@@ -176,8 +200,8 @@ def _check(x_b, y, idx_y, tgt_b, cand_ids, *rows):
         raise ValueError(f"tgt_b, pos/lse and g must be ({n_b}, {b_x})")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sce_gather takes contiguous tensors")
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"d={d} outside (0, {MAX_D}]")
+    if not d > 0:
+        raise ValueError("sce_gather needs d > 0")
     b_y, c = idx_y.shape[1], y.shape[0]
     if min(n_b, b_x, b_y, c) == 0:
         raise ValueError("sce_gather needs non-empty buckets and catalog")
@@ -190,6 +214,21 @@ def _cap(logit_softcap) -> float:
     if not logit_softcap > 0:
         raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
     return float(logit_softcap)
+
+
+def _logits_ws(shape, device):
+    """The deep entries' ``(n_b, b_x, b_y)`` f32 workspace, flat."""
+    n_b, b_x, b_y = shape[:3]
+    return torch.empty(n_b * b_x * b_y, dtype=torch.float32, device=device)
+
+
+def _launch_fwd(name, args, shape, device):
+    """A forward launch; above ``MAX_D`` the deep entry with its logits
+    workspace."""
+    if is_deep(shape[-1]):
+        name = name.replace("_launch", "_deep_launch")
+        args = args[:-1] + (_logits_ws(shape, device), args[-1])
+    _launch(name, args, shape, device)
 
 
 def _launch(name, args, shape, device):
@@ -216,34 +255,50 @@ def sce_gather_fwd(x_b, y, idx_y, tgt_b, cand_ids, pos_logit, *,
     shape = _check(x_b, y, idx_y, tgt_b, cand_ids, pos_logit)
     loss = torch.empty_like(pos_logit)
     lse = torch.empty_like(pos_logit)
-    _launch("sce_gather_fwd_launch",
-            (x_b, y, idx_y, tgt_b, cand_ids, pos_logit, loss, lse,
-             _cap(logit_softcap)), shape, x_b.device)
+    _launch_fwd("sce_gather_fwd_launch",
+                (x_b, y, idx_y, tgt_b, cand_ids, pos_logit, loss, lse,
+                 _cap(logit_softcap)), shape, x_b.device)
     sce_gather_fwd.launches += 1
     return loss, lse
 
 
-def _dx(x_b, y, idx_y, tgt_b, cand_ids, lse, g, cap):
-    shape = _check(x_b, y, idx_y, tgt_b, cand_ids, lse, g)
-    dx = torch.empty_like(x_b)
-    _launch("sce_gather_dx_launch",
-            (x_b, y, idx_y, tgt_b, cand_ids, lse, g, dx, _cap(cap)), shape,
-            x_b.device)
-    return dx
-
-
-def _dy(x_b, y, idx_y, tgt_b, cand_ids, lse, g, cap):
-    """dY in two kernels: each slot's row into the ``(n_b·b_y, d)``
-    workspace (an exact 0 row for a negative id), then
-    :func:`sce_gather_dy_sum` into the zeroed ``(C, d)``."""
+def _bwd(x_b, y, idx_y, tgt_b, cand_ids, lse, g, cap, want_dx, want_dy):
+    """``(dx, dy)``, each None unless wanted: dX (n_b, b_x, d), and dY in
+    two kernels — each slot's row into the ``(n_b·b_y, d)`` workspace (an
+    exact 0 row for a negative id), then :func:`sce_gather_dy_sum` into
+    the zeroed ``(C, d)``. At ``d ≤ MAX_D`` the resident dX and dY
+    kernels, a launch each; above, one deep launch that writes the
+    logits' cotangent once and runs both products from it."""
     shape = _check(x_b, y, idx_y, tgt_b, cand_ids, lse, g)
     n_b, _, b_y, c, d = shape
-    ws = torch.empty(n_b * b_y, d, dtype=torch.float32, device=x_b.device)
-    _launch("sce_gather_dy_launch",
-            (x_b, y, idx_y, tgt_b, cand_ids, lse, g, ws, _cap(cap)), shape,
-            x_b.device)
-    return sce_gather_dy_sum(ws, *dy_sum_keys(idx_y, cand_ids, c),
-                             torch.zeros_like(y))
+    dx = torch.empty_like(x_b) if want_dx else None
+    ws = (torch.empty(n_b * b_y, d, dtype=torch.float32, device=x_b.device)
+          if want_dy else None)
+    head, cap = (x_b, y, idx_y, tgt_b, cand_ids, lse, g), _cap(cap)
+    if is_deep(d):
+        _launch("sce_gather_bwd_deep_launch",
+                head + (dx, ws, _logits_ws(shape, x_b.device), cap), shape,
+                x_b.device)
+    else:
+        if want_dx:
+            _launch("sce_gather_dx_launch", head + (dx, cap), shape,
+                    x_b.device)
+        if want_dy:
+            _launch("sce_gather_dy_launch", head + (ws, cap), shape,
+                    x_b.device)
+    dy = (sce_gather_dy_sum(ws, *dy_sum_keys(idx_y, cand_ids, c),
+                            torch.zeros_like(y)) if want_dy else None)
+    return dx, dy
+
+
+def _grads(dx_fn, dy_fn, args, cap, want_dx, want_dy):
+    """:func:`_bwd` counted on the wrappers ``dx_fn`` / ``dy_fn`` (one
+    each for the kernel it launched): what autograd's backward runs, so
+    above ``MAX_D`` a step that needs both writes the cotangent once."""
+    dx, dy = _bwd(*args, cap, want_dx, want_dy)
+    dx_fn.launches += want_dx
+    dy_fn.launches += want_dy
+    return dx, dy
 
 
 def dy_sum_keys(idx_y, cand_ids, c):
@@ -302,9 +357,9 @@ def sce_gather_dx(x_b, y, idx_y, tgt_b, cand_ids, lse, g, *,
                   logit_softcap=None):
     """dX kernel: the (n_b, b_x, d) gradient of ``x_b`` for the upstream
     cotangent ``g`` (n_b, b_x) of the loss."""
-    dx = _dx(x_b, y, idx_y, tgt_b, cand_ids, lse, g, logit_softcap)
-    sce_gather_dx.launches += 1
-    return dx
+    return _grads(sce_gather_dx, sce_gather_dy,
+                  (x_b, y, idx_y, tgt_b, cand_ids, lse, g), logit_softcap,
+                  True, False)[0]
 
 
 def sce_gather_dy(x_b, y, idx_y, tgt_b, cand_ids, lse, g, *,
@@ -314,9 +369,9 @@ def sce_gather_dy(x_b, y, idx_y, tgt_b, cand_ids, lse, g, *,
     (bucket, slot) order, every other row is exactly 0 (bitwise
     repeatable). Counts this launch; the sum's launch is counted by
     :func:`sce_gather_dy_sum`."""
-    dy = _dy(x_b, y, idx_y, tgt_b, cand_ids, lse, g, logit_softcap)
-    sce_gather_dy.launches += 1
-    return dy
+    return _grads(sce_gather_dx, sce_gather_dy,
+                  (x_b, y, idx_y, tgt_b, cand_ids, lse, g), logit_softcap,
+                  False, True)[1]
 
 
 def sce_gather_plse_fwd(x_b, y, idx_y, tgt_b, cand_ids, *,
@@ -328,9 +383,9 @@ def sce_gather_plse_fwd(x_b, y, idx_y, tgt_b, cand_ids, *,
     shape = _check(x_b, y, idx_y, tgt_b, cand_ids)
     plse = torch.empty(x_b.shape[:2], dtype=torch.float32,
                        device=x_b.device)
-    _launch("sce_gather_plse_fwd_launch",
-            (x_b, y, idx_y, tgt_b, cand_ids, plse, _cap(logit_softcap)),
-            shape, x_b.device)
+    _launch_fwd("sce_gather_plse_fwd_launch",
+                (x_b, y, idx_y, tgt_b, cand_ids, plse, _cap(logit_softcap)),
+                shape, x_b.device)
     sce_gather_plse_fwd.launches += 1
     return plse
 
@@ -339,18 +394,18 @@ def sce_gather_plse_dx(x_b, y, idx_y, tgt_b, cand_ids, plse, g, *,
                        logit_softcap=None):
     """The dX kernel for the partial LSE: ``gw = exp(l − plse)·g``, 0
     where masked, so a row with no unmasked candidate gets exactly 0."""
-    dx = _dx(x_b, y, idx_y, tgt_b, cand_ids, plse, g, logit_softcap)
-    sce_gather_plse_dx.launches += 1
-    return dx
+    return _grads(sce_gather_plse_dx, sce_gather_plse_dy,
+                  (x_b, y, idx_y, tgt_b, cand_ids, plse, g), logit_softcap,
+                  True, False)[0]
 
 
 def sce_gather_plse_dy(x_b, y, idx_y, tgt_b, cand_ids, plse, g, *,
                        logit_softcap=None):
     """The dY kernel for the partial LSE (a workspace and its in-order
     sum, as :func:`sce_gather_dy`)."""
-    dy = _dy(x_b, y, idx_y, tgt_b, cand_ids, plse, g, logit_softcap)
-    sce_gather_plse_dy.launches += 1
-    return dy
+    return _grads(sce_gather_plse_dx, sce_gather_plse_dy,
+                  (x_b, y, idx_y, tgt_b, cand_ids, plse, g), logit_softcap,
+                  False, True)[1]
 
 
 for _fn in (sce_gather_fwd, sce_gather_dx, sce_gather_dy,
@@ -380,8 +435,8 @@ class SCEGatherLoss(torch.autograd.Function):
         args = (x_b, y, idx_y, tgt_b, cand_ids, lse, g)
         cap = ctx.logit_softcap
         need = ctx.needs_input_grad
-        dx = sce_gather_dx(*args, logit_softcap=cap) if need[0] else None
-        dy = sce_gather_dy(*args, logit_softcap=cap) if need[1] else None
+        dx, dy = _grads(sce_gather_dx, sce_gather_dy, args, cap, need[0],
+                        need[1])
         d_pos = (torch.exp(pos_logit - lse) - 1.0) * g if need[5] else None
         return dx, dy, None, None, None, d_pos, None
 
@@ -412,8 +467,8 @@ class SCEGatherPLSE(torch.autograd.Function):
         args = ctx.saved_tensors + (g.contiguous(),)
         cap = ctx.logit_softcap
         need = ctx.needs_input_grad
-        dx = sce_gather_plse_dx(*args, logit_softcap=cap) if need[0] else None
-        dy = sce_gather_plse_dy(*args, logit_softcap=cap) if need[1] else None
+        dx, dy = _grads(sce_gather_plse_dx, sce_gather_plse_dy, args, cap,
+                        need[0], need[1])
         return dx, dy, None, None, None, None
 
 

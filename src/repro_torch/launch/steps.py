@@ -1,7 +1,8 @@
-"""Step factories (port of the seqrec steps of ``repro/launch/steps.py``:
-the training step with any registry loss, on one device or on a
-``(data, model)`` mesh with distributed SCE, and the single-device MIPS
-serving step)."""
+"""Step factories (port of the seqrec and LM steps of
+``repro/launch/steps.py``: the training steps with any registry loss, on
+one device or on a ``(data, model)`` mesh with distributed SCE, the
+single-device MIPS serving step, and the LM's prefill and decode
+steps)."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,8 +19,8 @@ from repro_torch.eval.streaming import streaming_topk
 from repro_torch.kernels import guard
 from repro_torch.launch.mesh import dp_size
 from repro_torch.models import sasrec as sasrec_lib
+from repro_torch.models import transformer as tf_lib
 from repro_torch.optim.optimizers import (
-    OptState,
     global_norm,
     make_optimizer,
     tree_leaves,
@@ -51,22 +52,23 @@ def _apply_update_guarded(opt_update, loss, grads, params, opt_state,
     plus, when the loss carried them, the kernel guard's per-kernel
     ``"sentinels"`` (0-d int32 counts on the device), so a strike can
     name the kernel that went non-finite.
+
+    The optimizer's ``guarded_in_place`` writes the update into
+    ``params`` and the moments a leaf at a time: the functional update's
+    values, kept or skipped per ``ok``, without a second copy of the
+    state (gemma-2 at full width needs that on one card). The params and
+    optimizer state passed in are the ones returned.
     """
     gnorm = global_norm(grads)
     ok = torch.isfinite(loss) & torch.isfinite(gnorm)
     if loss_cap is not None:
         ok = ok & (loss <= loss_cap)
-    new_params, new_opt = opt_update(grads, opt_state, params)
-
-    def keep(new, old):
-        return tree_map(lambda n, o: torch.where(ok, n, o), new, old)
-
-    kept_opt = OptState(step=torch.where(ok, new_opt.step, opt_state.step),
-                        inner=keep(new_opt.inner, opt_state.inner))
     metrics = {"loss": loss, "skipped": ~ok, "grad_norm": gnorm}
     if sentinels:
         metrics["sentinels"] = dict(sentinels)
-    return keep(new_params, params), kept_opt, metrics
+    params, opt_state = opt_update.guarded_in_place(grads, opt_state,
+                                                    params, ok)
+    return params, opt_state, metrics
 
 
 def build_sce_config(
@@ -191,8 +193,10 @@ def _accumulate_microbatches(loss_and_grad_fn, params, batch, generator,
     for i in range(n_micro):
         mb = {k: v[i] for k, v in parts.items()}
         loss, aux, grads = call(mb, None)
-        acc = tree_map(lambda a, g: a + g.to(accum_dtype) / n_micro, acc,
-                       grads)
+        # in place: acc + g / n, without a second accumulator
+        tree_map(lambda a, g: a.add_(g.to(accum_dtype) / n_micro), acc,
+                 grads)
+        del grads
         acc_loss = loss / n_micro if acc_loss is None else \
             acc_loss + loss / n_micro
         acc_aux = guard.merge_sentinels(acc_aux, aux)
@@ -317,6 +321,135 @@ def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
         return out
 
     return train_step, (opt_init, opt_update), sce_cfg
+
+
+# ---------------------------------------------------------------------------
+# LM transformers
+# ---------------------------------------------------------------------------
+def make_lm_train_step(arch, cfg, shape, *, mesh=None,
+                       sce_mode: str = "union"):
+    """The training step of a transformer LM (the reference's
+    ``make_lm_train_step``): ``transformer.forward`` over each
+    microbatch's tokens → the loss ``arch.train_loss`` names on the
+    ``(B·T, d)`` hidden states against the full padded output table
+    (:func:`_vocab_loss`; SCE with ``logit_softcap=cfg.final_softcap``,
+    ``exact`` / ``union`` on ``mesh``, ``gspmd`` or no mesh the
+    global-bucket loss; the other losses with the cap where they take
+    it) plus the MoE aux loss (0 for the dense archs) → autograd → the
+    gradients averaged over ``arch.microbatches[shape.name]``
+    microbatches (capped so each spans the data axis) → guarded AdamW at
+    lr 3e-4, written in place (:func:`_apply_update_guarded`).
+
+    SCE's parametrisation (``build_sce_config``) follows the positions a
+    microbatch holds on a shard — all of them with ``gspmd`` — with the
+    arch's ``sce_bucket_size_y``, over the real vocabulary ``cfg.vocab``
+    (the padded rows are phantom negatives).
+
+    Returns ``(train_step, (opt_init, opt_update), sce_cfg)`` with
+    ``train_step(params, opt_state, batch, *, generator=None,
+    omega=None, mark=None) -> (params, opt_state, metrics)``; ``batch``
+    holds ``tokens`` / ``targets`` (B, T) int32 and ``valid`` (B, T)
+    bool on the params' device and optionally a ``loss_cap``. ``mark``
+    sees ``"forward"``, the loss's phases, ``"backward"`` (each
+    microbatch) and ``"optimizer"``, as in :func:`make_seqrec_train_step`.
+    """
+    if sce_mode not in ("exact", "union", "gspmd"):
+        raise ValueError(f"sce_mode {sce_mode!r}")
+    if mesh is not None and not mesh.member:
+        raise ValueError(f"this rank is outside the {mesh.shape} mesh")
+    opt_init, opt_update = make_optimizer(arch.optimizer, 3e-4)
+    gb = shape.dims["global_batch"]
+    seq = shape.dims["seq_len"]
+    dp = dp_size(mesh) if mesh is not None else 1
+    tp = mesh.shape["model"] if mesh is not None else 1
+    n_micro = max(1, min(arch.microbatches.get(shape.name, 1), gb // dp))
+    if dp > 1 and not (arch.train_loss == "sce"
+                       and sce_mode in ("exact", "union")):
+        raise NotImplementedError(
+            "on a data axis > 1 only distributed SCE (sce_mode exact or "
+            "union) is ported: another loss would average each rank's "
+            "shard, not the global batch")
+    if n_micro > 1 and dp > 1:
+        raise NotImplementedError(
+            "microbatches on a data axis > 1 are not ported: the reference "
+            "shards each global microbatch, a rank here holds one block")
+    n_pos = ((gb // n_micro) * seq if sce_mode == "gspmd"
+             else (gb // n_micro // dp) * seq)
+    if n_pos <= 0:
+        raise ValueError(f"batch {gb} / {n_micro} microbatches / {dp} data "
+                         f"shards is empty")
+    sce_cfg = build_sce_config(
+        n_pos, cfg.vocab,
+        bucket_size_y=arch.sce_bucket_size_y, tp=tp,
+        logit_softcap=cfg.final_softcap)
+    accum_dtype = getattr(torch, arch.accum_dtype)
+    data_group = mesh.axis("data").group if mesh is not None else None
+
+    def loss_and_grad(params, mb, generator, omega, mark=None):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            hidden, aux = tf_lib.forward(leaves, cfg, mb["tokens"])
+            x = hidden.reshape(-1, hidden.shape[-1])
+            y = tf_lib.output_embedding(leaves, cfg)  # padded: phantom negs
+            if mark:
+                mark("forward")
+            loss, sentinels = _vocab_loss(
+                x, y, mb["targets"].reshape(-1), mb["valid"].reshape(-1),
+                generator, loss_name=arch.train_loss, sce_cfg=sce_cfg,
+                sce_mode=sce_mode, mesh=mesh,
+                logit_softcap=cfg.final_softcap, omega=omega, mark=mark,
+            )
+            loss = loss + aux
+            flat = tree_leaves(leaves)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(flat, grads)]
+        if mark:
+            mark("backward")
+        return loss.detach(), sentinels, _unflatten(params, grads)
+
+    def train_step(params, opt_state, batch, *, generator=None, omega=None,
+                   mark=None):
+        batch, loss_cap = _pop_loss_cap(batch)
+        loss, sentinels, grads = _accumulate_microbatches(
+            functools.partial(loss_and_grad, mark=mark), params, batch,
+            generator, n_micro, accum_dtype, omega=omega, with_aux=True,
+        )
+        if data_group is not None:
+            for g in tree_leaves(grads):
+                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=data_group)
+        out = _apply_update_guarded(opt_update, loss, grads, params,
+                                    opt_state, loss_cap, sentinels)
+        if mark:
+            mark("optimizer")
+        return out
+
+    return train_step, (opt_init, opt_update), sce_cfg
+
+
+def make_lm_prefill_step(cfg, *, cache_len=None):
+    """``prefill_step(params, tokens) -> (logits (B, 1, V_pad), cache)``:
+    the prompt through ``transformer.prefill``, the last position's
+    logits (softcapped, phantom rows at −1e30); the global layers' cache
+    holds ``cache_len`` positions (default: the prompt's, as in the
+    reference), room for ``cache_len − S`` decode steps."""
+
+    def prefill_step(params, tokens):
+        hidden, cache = tf_lib.prefill(params, cfg, tokens,
+                                       cache_len=cache_len)
+        return tf_lib.logits_from_hidden(params, cfg, hidden[:, -1:]), cache
+
+    return prefill_step
+
+
+def make_lm_decode_step(cfg):
+    """``decode_step(params, cache, tokens, pos) -> (logits, new_cache)``:
+    one token a sequence through ``transformer.decode_step``."""
+
+    def decode_step(params, cache, tokens, pos):
+        return tf_lib.decode_step(params, cfg, cache, tokens, pos)
+
+    return decode_step
 
 
 def make_seqrec_mips_serve_step(cfg, *, top_k: int = 10):

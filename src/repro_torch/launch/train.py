@@ -1,9 +1,17 @@
-"""Trainer (port of the seqrec subset of ``repro/launch/train.py``).
+"""Trainer (port of the seqrec and LM families of
+``repro/launch/train.py``).
 
 ``train("sasrec-sce", steps=N)`` draws random SASRec weights from
 ``seed``, streams ``SequenceDataset`` batches from ``Cursor(seed)`` and
 steps ``launch/steps.py::make_seqrec_train_step`` (SCE on the kernel
-path, guarded AdamW). As in the reference, the mesh is always
+path, guarded AdamW). ``train("gemma2-2b", seq_len=T)`` (and the other
+registered LMs) does the same for a transformer LM: random weights
+(``models/transformer.py``), ``batch`` full-length pseudo-language
+sequences of ``T`` tokens a step, ``make_lm_train_step`` (the arch's
+loss — SCE with the final softcap —, guarded AdamW written in place).
+At the length of one of the arch's train shapes (4096: ``train_4k``) the
+step splits the batch into that shape's microbatches (gemma-2: 2); the
+reference's trainer runs every length as one microbatch. As in the reference, the mesh is always
 ``make_host_mesh(max_data=batch)`` over the ranks of the
 ``torch.distributed`` world (no process group, or one card: a (1, 1)
 mesh), and ``sce_mode`` defaults to ``"exact"``: SCE runs as
@@ -16,11 +24,14 @@ the paper's full width. It runs on ``cuda`` unless ``device="cpu"`` is
 given, and raises when no device is given and CUDA is missing.
 
 With ``eval_every=N`` it evaluates every N steps, as the reference
-does: the leave-one-out streaming evaluation
+does, by the arch's protocol: the leave-one-out streaming evaluation
 (``eval/harness.py::evaluate_streaming``, the ``eval_fused`` kernels on
 the card) of ``eval_users`` held-out users drawn once from
-``SequenceDataset.eval_batch(Cursor(seed))``; each prints
-``[eval] step N: {...}``.
+``SequenceDataset.eval_batch(Cursor(seed))``, or for an LM the
+token-rank evaluation (``evaluate_streaming_lm``) of every next-token
+position of ``eval_users`` held-out sequences
+(``SequenceDataset.heldout_batch``); each prints ``[eval] step N:
+{...}``.
 
 Fault tolerance, as in the reference (``checkpoint/manager.py``,
 ``launch/elastic.py``):
@@ -60,9 +71,9 @@ Fault tolerance, as in the reference (``checkpoint/manager.py``,
 Checkpoints are written under a single process only: ``ckpt_dir`` under
 a ``torch.distributed`` world of more than one process raises.
 
-Left out, with their ROADMAP.md queue: the LM's token-rank evaluation
-(queue 1 item 12), the sharded evaluation, checkpoints over several
-processes, ``--n-hosts`` emulation and gradient compression (item 14).
+Left out, with their ROADMAP.md queue: the sharded evaluation,
+checkpoints over several processes, ``--n-hosts`` emulation and
+gradient compression (item 14); the MoE LMs (item 16).
 
 Usage::
 
@@ -80,6 +91,9 @@ Usage::
     # two processes on the CPU (a (2, 1) mesh on gloo)
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch sasrec-sce --steps 4 --device cpu
+    # the LM family: gemma-2's smoke config, 2 sequences of 32 tokens
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
+        --steps 4 --batch 2 --seq-len 32 --eval-every 2 --device cpu
 """
 from __future__ import annotations
 
@@ -101,7 +115,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ShapeSpec, get_arch
 from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
 from repro_torch.dist.sharding import batch_slice, world
-from repro_torch.eval import evaluate_streaming
+from repro_torch.eval import evaluate_streaming, evaluate_streaming_lm
 from repro_torch.kernels import guard as kguard
 from repro_torch.launch.elastic import (
     EXIT_PREEMPTED,
@@ -110,8 +124,8 @@ from repro_torch.launch.elastic import (
     TrainState,
 )
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.steps import make_seqrec_train_step
-from repro_torch.models import sasrec
+from repro_torch.launch.steps import make_lm_train_step, make_seqrec_train_step
+from repro_torch.models import sasrec, transformer
 from repro_torch.optim.optimizers import tree_map
 
 # Step times the straggler watchdog's median reads: the most recent ones,
@@ -144,7 +158,8 @@ def _host_batch(data, cursor):
 
 
 def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
-          seed: int = 0, sce_mode: str = "exact", log_every: int = 10,
+          seq_len: int = 32, seed: int = 0, sce_mode: str = "exact",
+          log_every: int = 10,
           eval_every: int = 0, eval_users: int = 128, device=None,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 20,
           ckpt_interval_s: Optional[float] = None, keep_n: int = 3,
@@ -153,16 +168,18 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
           guard_factor: float = 100.0, chaos_nan_at: Optional[int] = None,
           guard_policy: Optional[str] = None, mark=None) -> Dict[str, Any]:
     """Train ``arch_name`` for ``steps`` steps of ``batch`` sequences (the
-    global batch: each rank of the mesh steps its data shard of it).
+    global batch: each rank of the mesh steps its data shard of it) —
+    SASRec's of ``cfg.max_len`` items, an LM's of ``seq_len`` tokens.
 
     ``mark``, when given, is called with ``"start"`` once a step's host
     batch is ready, with ``"h2d"`` once it is on the device, then with
-    the step's own phases (``make_seqrec_train_step``): a hook to time
-    each phase of the trainer's steps.
+    the step's own phases (``make_seqrec_train_step``,
+    ``make_lm_train_step``): a hook to time each phase of the trainer's
+    steps.
 
-    ``eval_every > 0`` evaluates ``eval_users`` held-out users after
-    every ``eval_every``-th step (see the module docstring); a step's
-    time is taken before its evaluation.
+    ``eval_every > 0`` evaluates ``eval_users`` held-out users (an LM:
+    sequences) after every ``eval_every``-th step (see the module
+    docstring); a step's time is taken before its evaluation.
 
     ``ckpt_dir`` turns on checkpoints (see the module docstring):
     ``ckpt_every`` / ``ckpt_interval_s`` are the save policy,
@@ -192,23 +209,38 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     ``sentinels`` (the kernel guard's counts, empty under policy
     ``off``); after SIGTERM / SIGINT also ``preempted`` and
     ``preempt_step``; with evaluation ``eval``, the last evaluation's
-    metrics (``hr@k`` / ``ndcg@k`` / ``cov@k``).
+    metrics (``hr@k`` / ``ndcg@k`` / ``cov@k``; an LM's ``hr@k`` /
+    ``ndcg@k`` / ``mean_rank`` / ``loss`` / ``n_tokens``).
     """
     if guard_policy is not None:
         kguard.set_policy(guard_policy)
     device = resolve_device(device)
     arch = get_arch(arch_name)
-    if arch.family != "seqrec":
+    if arch.family not in ("seqrec", "lm"):
         raise NotImplementedError(f"{arch.family} training is not ported")
+    lm = arch.family == "lm"
     if ckpt_dir and world()[1] > 1:
         raise NotImplementedError(
             f"checkpoints under a torch.distributed world of {world()[1]} "
             f"processes are not ported (ROADMAP.md queue 1 item 14)")
     cfg = cfg if cfg is not None else arch.make_smoke_config()
-    shape = ShapeSpec("train_smoke", "train", {"batch": batch})
-    data = SequenceDataset(SeqDataConfig(
-        n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=batch,
-    ))
+    if lm:
+        # A run at the length of one of the arch's train shapes takes its
+        # name, and with it the arch's microbatches for it (gemma-2's
+        # train_4k: 2); any other length is a smoke run of one.
+        name = next((s.name for s in arch.shapes if s.kind == "train"
+                     and s.dims.get("seq_len") == seq_len), "train_smoke")
+        shape = ShapeSpec(name, "train",
+                          {"global_batch": batch, "seq_len": seq_len})
+        data = SequenceDataset(SeqDataConfig(
+            n_items=cfg.vocab, seq_len=seq_len, batch_size=batch,
+            min_len_frac=1.0,
+        ))
+    else:
+        shape = ShapeSpec("train_smoke", "train", {"batch": batch})
+        data = SequenceDataset(SeqDataConfig(
+            n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=batch,
+        ))
     mesh = make_host_mesh(max_data=batch)
     if not mesh.member:
         raise ValueError(f"rank {world()[0]} is outside the {mesh.shape} "
@@ -216,9 +248,14 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
                          f"batch {batch}")
     rows = batch_slice(mesh, batch)
     lead = world()[0] == 0
-    step_fn, (opt_init, _), _ = make_seqrec_train_step(
-        arch, cfg, shape, mesh=mesh, sce_mode=sce_mode)
-    params = sasrec.init_params(cfg, seed=seed, device=device)
+    if lm:
+        step_fn, (opt_init, _), _ = make_lm_train_step(
+            arch, cfg, shape, mesh=mesh, sce_mode=sce_mode)
+        params = transformer.init_params(cfg, seed=seed, device=device)
+    else:
+        step_fn, (opt_init, _), _ = make_seqrec_train_step(
+            arch, cfg, shape, mesh=mesh, sce_mode=sce_mode)
+        params = sasrec.init_params(cfg, seed=seed, device=device)
     state = TrainState(
         params=params, opt_state=opt_init(params),
         generator=torch.Generator(device=device).manual_seed(seed),
@@ -242,17 +279,24 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     if mgr is not None:
         state, _ = restore_or(state)
 
-    do_eval = eval_every > 0 and arch.eval_protocol == "leave-one-out"
+    protocol = "token-rank" if lm else "leave-one-out"
+    do_eval = eval_every > 0 and arch.eval_protocol == protocol
     if eval_every > 0 and not do_eval:
         print(f"[eval] WARNING: --eval-every {eval_every} requested, but "
               f"arch {arch.name!r} has the eval protocol "
-              f"{arch.eval_protocol!r}, not 'leave-one-out' — in-loop "
+              f"{arch.eval_protocol!r}, not {protocol!r} — in-loop "
               f"evaluation is SKIPPED")
     eval_metrics: Dict[str, float] = {}
-    if do_eval:
+    if do_eval and lm:
+        eval_batch, _ = SequenceDataset(SeqDataConfig(
+            n_items=cfg.vocab, seq_len=seq_len, batch_size=eval_users,
+            min_len_frac=1.0,
+        )).heldout_batch(Cursor(seed=seed))
+    elif do_eval:
         eval_batch, _ = SequenceDataset(SeqDataConfig(
             n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=eval_users,
         )).eval_batch(Cursor(seed=seed))
+    evaluate = evaluate_streaming_lm if lm else evaluate_streaming
 
     guard = DivergenceGuard(max_strikes=max_strikes,
                             cap_factor=guard_factor)
@@ -370,8 +414,7 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
                     print(f"step {step:5d}  loss {loss:.4f}  "
                           f"{dt * 1e3:.0f} ms")
                 if do_eval and (step + 1) % eval_every == 0:
-                    eval_metrics = evaluate_streaming(state.params, cfg,
-                                                      eval_batch)
+                    eval_metrics = evaluate(state.params, cfg, eval_batch)
                     shown = {k: round(v, 4) for k, v in eval_metrics.items()}
                     if lead:
                         print(f"[eval] step {step}: {shown}")
@@ -417,6 +460,8 @@ def main() -> None:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=32,
+                    help="tokens a sequence (the LM archs)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sce-mode", default="exact",
                     choices=["exact", "union", "gspmd"])
@@ -426,7 +471,8 @@ def main() -> None:
                     help="run the streaming unsampled evaluation every N "
                          "steps (0 = never)")
     ap.add_argument("--eval-users", type=int, default=128,
-                    help="held-out sequences per evaluation")
+                    help="held-out sequences per evaluation (an LM: every "
+                         "next-token position of each is an eval row)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--ckpt-dir",
@@ -468,7 +514,8 @@ def main() -> None:
         dist.init_process_group("gloo", init_method="env://")
     try:
         out = train(args.arch, steps=args.steps, batch=args.batch,
-                    seed=args.seed, sce_mode=args.sce_mode,
+                    seq_len=args.seq_len, seed=args.seed,
+                    sce_mode=args.sce_mode,
                     log_every=args.log_every, eval_every=args.eval_every,
                     eval_users=args.eval_users, device=args.device,
                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,

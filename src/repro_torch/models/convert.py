@@ -1,5 +1,5 @@
-"""Carry SASRec weights and their AdamW state across from the JAX
-package.
+"""Carry SASRec and transformer-LM weights and their AdamW state across
+from the JAX package.
 
 The port keeps the reference's parameter layout, so conversion is a
 copy: each numpy leaf of the JAX pytree becomes a tensor of the same
@@ -47,13 +47,53 @@ def sasrec_params_from_jax(tree: Mapping, *, device=None):
     return out
 
 
+TRANSFORMER_LAYER_KEYS = ("wq", "wk", "wv", "wo", "norm_attn", "norm_mlp",
+                          "mlp")
+TRANSFORMER_POST_NORMS = ("norm_attn_post", "norm_mlp_post")
+MLP_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def _tree(tree, device):
+    """Nested dicts of numpy leaves → the same dicts of tensors."""
+    if isinstance(tree, Mapping):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def transformer_params_from_jax(tree: Mapping, *, device=None):
+    """The port's transformer-LM parameters from a JAX pytree of
+    ``repro.models.transformer.init_params``' layout, its leaves numpy
+    arrays: ``embed`` (V_pad, d), ``norm_final`` (d,), ``unembed`` when
+    the embeddings are untied, and ``layers`` stacked ``(n_layers, …)``:
+    ``wq``, ``wk``, ``wv``, ``wo``, ``norm_attn``, ``norm_mlp``, the
+    post-block norms when present, and ``mlp`` with ``w_gate``, ``w_up``
+    and ``w_down``. Raises ``KeyError`` on a missing or unexpected key
+    (the MoE layout included). The tensors land on ``device``: ``cuda``
+    unless given (raises without CUDA)."""
+    device = resolve_device(device)
+    top = set(tree) - {"unembed"}
+    if top != {"embed", "norm_final", "layers"}:
+        raise KeyError(f"expected keys embed, norm_final, layers "
+                       f"[, unembed], got {sorted(tree)}")
+    layers = tree["layers"]
+    extra = set(layers) - set(TRANSFORMER_LAYER_KEYS)
+    if not set(TRANSFORMER_LAYER_KEYS) <= set(layers) or \
+            extra not in (set(), set(TRANSFORMER_POST_NORMS)):
+        raise KeyError(f"expected layer keys {TRANSFORMER_LAYER_KEYS} "
+                       f"[+ {TRANSFORMER_POST_NORMS}], got {sorted(layers)}")
+    if set(layers["mlp"]) != set(MLP_KEYS):
+        raise KeyError(f"expected mlp keys {MLP_KEYS}, got "
+                       f"{sorted(layers['mlp'])}")
+    return _tree(tree, device)
+
+
 def adamw_state_from_jax(opt_state, *, device=None) -> OptState:
     """The port's AdamW state from the reference's ``OptState(step,
-    inner={"m": tree, "v": tree})`` of a SASRec model, its leaves numpy
-    arrays (``jax.tree.map(np.asarray, opt_state)``): the step becomes a
-    0-d int32 tensor, ``m`` and ``v`` f32 trees in the parameters'
-    layout, on ``device`` (``cuda`` unless given; raises without CUDA).
-    """
+    inner={"m": tree, "v": tree})``, its leaves numpy arrays
+    (``jax.tree.map(np.asarray, opt_state)``), for any parameter layout
+    (SASRec's, the transformer's): the step becomes a 0-d int32 tensor,
+    ``m`` and ``v`` f32 trees of the parameters' nested dicts, on
+    ``device`` (``cuda`` unless given; raises without CUDA)."""
     device = resolve_device(device)
     step, inner = opt_state
     if set(inner) != {"m", "v"}:
@@ -61,6 +101,5 @@ def adamw_state_from_jax(opt_state, *, device=None) -> OptState:
     return OptState(
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                           device=device),
-        inner={k: sasrec_params_from_jax(inner[k], device=device)
-               for k in ("m", "v")},
+        inner={k: _tree(inner[k], device) for k in ("m", "v")},
     )

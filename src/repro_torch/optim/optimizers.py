@@ -4,8 +4,16 @@ nested dict of tensors (port of ``repro/optim/optimizers.py``).
 ``update(grads, state, params) -> (new_params, new_state)``; the step
 counter lives in the state. AdamW keeps f32 moments whatever the
 parameters' dtype. The functions return new tensors and leave their
-inputs as they were, as the reference's pure functions do, so a guarded
-step can keep the old state bit for bit.
+inputs as they were, as the reference's pure functions do.
+
+``adamw``'s update also carries ``update.guarded_in_place(grads, state,
+params, ok)``, which the trainers' guarded step
+(``launch/steps.py::_apply_update_guarded``) runs: the same arithmetic a
+leaf at a time, each leaf's new value written over the old where the 0-d
+bool ``ok`` holds (the old kept bit for bit where it does not). It needs
+no second copy of the parameters and moments — what lets gemma-2's
+2.6 B f32 parameters and their moments train on one card, where the
+functional update would hold two of each at once.
 """
 from __future__ import annotations
 
@@ -117,7 +125,16 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         if clip_norm is not None:
             grads, _ = clip_by_global_norm(grads, clip_norm)
         step = state.step + 1
-        lr_t = sched(step)
+        upd = _leaf_update(step, sched(step))
+        # (p, m, v) tuples are leaves to tree_map, which recurses into
+        # dicts only.
+        flat = tree_map(upd, params, grads, state.inner["m"],
+                        state.inner["v"])
+        new_p, new_m, new_v = (tree_map(lambda t, i=i: t[i], flat)
+                               for i in range(3))
+        return new_p, OptState(step=step, inner={"m": new_m, "v": new_v})
+
+    def _leaf_update(step, lr_t):
         sf = step.to(torch.float32)
         bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
                                          device=sf.device), sf)
@@ -134,14 +151,27 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p32
             return (p32 - lr_t * delta).to(p.dtype), m, v
 
-        # (p, m, v) tuples are leaves to tree_map, which recurses into
-        # dicts only.
-        flat = tree_map(upd, params, grads, state.inner["m"],
-                        state.inner["v"])
-        new_p, new_m, new_v = (tree_map(lambda t, i=i: t[i], flat)
-                               for i in range(3))
-        return new_p, OptState(step=step, inner={"m": new_m, "v": new_v})
+        return upd
 
+    @torch.no_grad()
+    def guarded_in_place(grads, state: OptState, params, ok):
+        """``update`` where ``ok`` holds, else nothing, written into
+        ``params`` and ``state``'s moments a leaf at a time → ``(params,
+        state)`` with the step counter advanced only where ``ok``."""
+        if clip_norm is not None:
+            grads, _ = clip_by_global_norm(grads, clip_norm)
+        step = state.step + 1
+        upd = _leaf_update(step, sched(step))
+        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                              tree_leaves(state.inner["m"]),
+                              tree_leaves(state.inner["v"])):
+            new = upd(p, g, m, v)
+            for old, n in zip((p, m, v), new):
+                torch.where(ok, n, old, out=old)
+        return params, OptState(step=torch.where(ok, step, state.step),
+                                inner=state.inner)
+
+    update.guarded_in_place = guarded_in_place
     return init, update
 
 

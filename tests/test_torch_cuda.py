@@ -164,6 +164,15 @@ def _assert_match(got, want, scale, exact):
     (40, 5_000, 64, 320, False, "random", 0),
     (20, 2_000, 64, 512, True, "window", 0),
     (9, 500, 64, 320, True, "starved", 0),
+    # The deep variants: d > 256 (the score slab, then the same sweep or
+    # chain) and 512 < k ≤ 1024 at any d; gemma-2's d 2304.
+    (8, 5_000, 300, 10, True, "window", 0),
+    (33, 3_000, 2_304, 10, False, None, 0),
+    (40, 3_000, 300, 320, True, "random", 0),
+    (20, 4_000, 2_304, 128, False, "random", 3),
+    (16, 3_000, 64, 1_024, True, "window", 0),
+    (12, 5_000, 2_304, 1_024, False, "random", 0),
+    (9, 500, 300, 320, True, "starved", 1_000),
 ])
 def test_mips_topk_kernel_matches_plain(dev, n_q, c, d, k, integer, valid,
                                         id_offset):
@@ -296,13 +305,13 @@ def test_mips_topk_kernel_raises_on_what_it_does_not_take(dev):
         kernel.mips_topk(q.double(), y.double(), 3)
     with pytest.raises(ValueError):
         kernel.mips_topk(q, torch.zeros(8, 20, device=dev).T, 3)
-    with pytest.raises(ValueError):
-        kernel.mips_topk(q, torch.zeros(700, 8, device=dev), 600)  # k > 512
+    with pytest.raises(ValueError):  # k > 1024
+        kernel.mips_topk(q, torch.zeros(1_100, 8, device=dev), 1_025)
     with pytest.raises(ValueError):  # a collect buffer below k
         kernel.mips_topk(q, torch.zeros(700, 8, device=dev), 40, kcap=39)
-    with pytest.raises(ValueError):
-        kernel.mips_topk(torch.zeros(4, 300, device=dev),
-                         torch.zeros(20, 300, device=dev), 3)
+    with pytest.raises(ValueError):  # d = 0
+        kernel.mips_topk(torch.zeros(4, 0, device=dev),
+                         torch.zeros(20, 0, device=dev), 3)
     with pytest.raises(ValueError):
         kernel.mips_topk(q, y.cpu(), 3)
     with pytest.raises(TypeError):  # bool masks only
@@ -351,6 +360,10 @@ def _close(got, want, rtol=0.0):
     ((4, 70, 64, 64, 200), None, True),  # every bucket the same rows
     ((3, 64, 48, 256, 500), 30.0, False),  # d at the kernel's cap
     ((320, 320, 256, 64, 173_520), None, False),  # the training shape
+    # the deep variant: the logits written once, then folded / multiplied
+    ((3, 40, 70, 300, 500), None, False),
+    ((2, 33, 100, 2_304, 400), 30.0, False),  # gemma-2's d and final cap
+    ((2, 16, 24, 2_304, 50), None, True),
 ])
 def test_sce_gather_kernels_match_plain(dev, shape, cap, same):
     x_b, y, idx, tgt, cand, pos = _gather_problem(dev, sum(shape), *shape,
@@ -371,10 +384,14 @@ def test_sce_gather_kernels_match_plain(dev, shape, cap, same):
             sce_prefetch.sce_gather_dx.launches,
             sce_prefetch.sce_gather_dy.launches) == tuple(
                 n + 1 for n in before)
-    plain = [t.clone().requires_grad_(True) for t in (x_b, y, pos)]
+    # Above d 256 logits of |x_b·y| ~ 3·sqrt(d) make the f32 plain
+    # version's own rounding the larger error: hold the deep variant to
+    # the plain version in f64.
+    dt = torch.float64 if shape[3] > 256 else torch.float32
+    plain = [t.to(dt).clone().requires_grad_(True) for t in (x_b, y, pos)]
     want_loss = ref.sce_gather_loss_ref(plain[0], plain[1], idx, tgt, cand,
                                         plain[2], cap)
-    want = torch.autograd.grad((want_loss * g).sum(), plain)
+    want = torch.autograd.grad((want_loss * g.to(dt)).sum(), plain)
     _close(loss.detach(), want_loss.detach())
     for a, b in zip(got, want):
         _close(a, b, rtol=2e-4)
@@ -403,9 +420,9 @@ def test_sce_gather_raises_on_what_it_does_not_take(dev):
                                     pos)
     with pytest.raises(ValueError):
         sce_prefetch.sce_gather_fwd(x_b, y.cpu(), idx, tgt, cand, pos)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # x_b and y of different depths
         big = torch.zeros(2, 16, 300, device=dev)
-        sce_prefetch.sce_gather_fwd(big, torch.zeros(100, 300, device=dev),
+        sce_prefetch.sce_gather_fwd(big, torch.zeros(100, 8, device=dev),
                                     idx, tgt, cand, pos)
 
 
@@ -694,6 +711,8 @@ def _plse_launches():
     ((5, 23, 50, 33, 300), 30.0, 0.5),  # ragged, d % 4 != 0, softcap
     ((3, 64, 48, 256, 500), None, 0.25),
     ((320, 320, 256, 64, 43_380), None, 0.25),  # a shard of 4 at training
+    ((3, 40, 70, 300, 500), 30.0, 0.5),  # the deep variant
+    ((2, 33, 100, 2_304, 400), None, 0.25),
 ])
 def test_sce_gather_plse_kernels_match_plain(dev, shape, cap, owned):
     """Forward, dX and dY against autograd through the plain version, with
@@ -721,15 +740,16 @@ def test_sce_gather_plse_kernels_match_plain(dev, shape, cap, owned):
     assert (sce_prefetch.sce_gather_fwd.launches,
             sce_prefetch.sce_gather_dx.launches,
             sce_prefetch.sce_gather_dy.launches) == gather_before
-    plain = [t.clone().requires_grad_(True) for t in (x_b, y)]
+    dt = torch.float64 if shape[3] > 256 else torch.float32  # as above
+    plain = [t.to(dt).clone().requires_grad_(True) for t in (x_b, y)]
     want_plse = ref.sce_gather_plse_ref(plain[0], plain[1], idx, tgt, cand,
                                         cap)
-    want = torch.autograd.grad((want_plse * up).sum(), plain)
+    want = torch.autograd.grad((want_plse * up.to(dt)).sum(), plain)
     plse = plse.detach()
     assert torch.isfinite(plse).all()
     assert (plse[0] == -1e30).all() and (got[0][0] == 0).all()
     live = want_plse.detach() > -1e29
-    assert torch.equal(plse[~live], want_plse.detach()[~live])
+    assert torch.equal(plse[~live], want_plse.detach()[~live].float())
     _close(plse[live], want_plse.detach()[live])
     for a, b in zip(got, want):
         _close(a, b, rtol=2e-4)
@@ -777,6 +797,10 @@ def _eval_problem(dev, seed, n, c, d, integer, id_offset, c_lo, c_hi):
     (40, 1_037, 33, 17, True, True, 30.0, 1_003, 1_900, 1_000),  # ragged
     (9, 500, 64, 12, True, True, None, 3, 9, 0),  # k > valid columns
     (33, 3_000, 64, 300, False, False, None, 0, 3_000, 0),  # 16 slots
+    # the deep variant (the score slab, then the same sweep)
+    (40, 3_000, 300, 10, True, True, 30.0, 1, 2_990, 0),
+    (64, 5_000, 2_304, 1, False, True, 30.0, 1, 4_990, 0),  # token rank
+    (33, 2_000, 2_304, 40, True, False, None, 3, 1_900, 0),
 ])
 def test_eval_fused_kernel_matches_plain(dev, n, c, d, k, integer, with_lse,
                                          cap, c_lo, c_hi, id_offset):
@@ -851,9 +875,9 @@ def test_eval_kernels_raise_on_what_they_do_not_take(dev):
         eval_kernel.eval_fused(x, torch.zeros(8, 700, device=dev).T, t, 3)
     with pytest.raises(ValueError):
         eval_kernel.eval_fused(x, y, t, 600)  # k > 512
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # x and y of different depths
         eval_kernel.eval_fused(torch.zeros(4, 300, device=dev),
-                               torch.zeros(20, 300, device=dev), t, 3)
+                               torch.zeros(20, 8, device=dev), t, 3)
     with pytest.raises(ValueError):
         eval_kernel.eval_tgt_gather(x, y.cpu(), t)
     with pytest.raises(ValueError):
@@ -1219,8 +1243,9 @@ def test_broken_kernel_raises_under_warn(dev, monkeypatch):
 
 def test_preflight_refuses_what_the_kernels_do_not_take(dev):
     q = torch.zeros(4, 300, device=dev)
-    with pytest.raises(guard.KernelPreflightError) as ei:
-        ops.mips_topk(q, torch.zeros(20, 300, device=dev), 3)
+    with pytest.raises(guard.KernelPreflightError) as ei:  # no deep variant
+        ops.linear_ce_loss(q, torch.zeros(20, 300, device=dev),
+                           torch.zeros(4, dtype=torch.int32, device=dev))
     assert ei.value.rule == "d_max"
     with pytest.raises(guard.KernelPreflightError) as ei:
         ops.eval_fused(torch.zeros(4, 8, device=dev),
@@ -1244,6 +1269,8 @@ def _bucket_launches():
     ((5, 23, 50, 33, 300), 30.0),  # d % 4 != 0, softcap
     ((3, 64, 48, 256, 500), 30.0),  # d at the kernel's cap
     ((320, 320, 256, 64, 173_520), None),  # the training shape
+    ((3, 40, 70, 300, 500), 30.0),  # the deep variant
+    ((2, 33, 100, 2_304, 400), None),
 ])
 def test_sce_bucket_kernels_match_plain(dev, shape, cap):
     x_b, y, idx, tgt, cand, pos = _gather_problem(dev, sum(shape) + 2,
@@ -1260,10 +1287,11 @@ def test_sce_bucket_kernels_match_plain(dev, shape, cap):
     got = torch.autograd.grad((loss * g).sum(), leaves)
     torch.cuda.synchronize()
     assert _bucket_launches() == tuple(n + 1 for n in before)
-    plain = [t.clone().requires_grad_(True) for t in (x_b, y_b, pos)]
+    dt = torch.float64 if shape[3] > 256 else torch.float32  # as above
+    plain = [t.to(dt).clone().requires_grad_(True) for t in (x_b, y_b, pos)]
     want_loss = ref.sce_bucket_loss_ref(plain[0], plain[1], tgt, cand,
                                         plain[2], cap)
-    want = torch.autograd.grad((want_loss * g).sum(), plain)
+    want = torch.autograd.grad((want_loss * g.to(dt)).sum(), plain)
     _close(loss.detach(), want_loss.detach())
     for a, b in zip(got, want):
         _close(a, b, rtol=2e-4)
@@ -1277,9 +1305,9 @@ def test_sce_bucket_kernels_match_plain(dev, shape, cap):
     plse = ops.sce_bucket_plse(leaves[0], leaves[1], tgt, cand,
                                logit_softcap=cap)
     got = torch.autograd.grad((plse * g).sum(), leaves)
-    plain = [t.clone().requires_grad_(True) for t in (x_b, y_b)]
+    plain = [t.to(dt).clone().requires_grad_(True) for t in (x_b, y_b)]
     want_plse = ref.sce_bucket_plse_ref(plain[0], plain[1], tgt, cand, cap)
-    want = torch.autograd.grad((want_plse * g).sum(), plain)
+    want = torch.autograd.grad((want_plse * g.to(dt)).sum(), plain)
     assert (sce_bucket.sce_bucket_plse_fwd.launches,
             sce_bucket.sce_bucket_dx.launches,
             sce_bucket.sce_bucket_dy.launches) == tuple(
@@ -1332,6 +1360,7 @@ def test_sce_bucket_raises_on_what_it_does_not_take(dev):
     (40, 1_037, 33, 17, True, 1_003, 1_900, 1_000),  # ragged, offset
     (9, 500, 64, 12, True, 3, 9, 0),  # k > valid columns
     (33, 3_000, 64, 300, False, 0, 3_000, 0),  # 16 slots
+    (40, 3_000, 2_304, 10, True, 1, 2_990, 0),  # the deep variant
 ])
 def test_eval_topk_kernels_match_plain(dev, n, c, d, k, integer, c_lo, c_hi,
                                        id_offset):
@@ -1570,3 +1599,89 @@ def test_train_state_restores_onto_cuda_with_the_generator(dev, tmp_path):
     for a, b in zip(tree_leaves(back.opt_state), tree_leaves(opt_state)):
         assert a.device == b.device and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The deep variants' slabs: a score budget small enough for several slabs
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("k", [10, 320, 1_024])
+def test_deep_mips_topk_in_several_slabs_matches_plain(dev, monkeypatch, k):
+    """The queries in slabs of 16 rows (``SCORE_BYTES`` patched down): the
+    ids and values equal the plain version's bit for bit on integers, and
+    each slab's collect counts land in ``last_counts``."""
+    g = _gen(dev, k)
+    q, y = _ints(g, dev, 70, 300), _ints(g, dev, 3_000, 300)
+    monkeypatch.setattr(kernel, "SCORE_BYTES", 4 * 3_000 * 16)
+    assert kernel.slab_rows(70, 3_000) == 16
+    got = ops.mips_topk(q, y, k)
+    torch.cuda.synchronize()
+    _assert_match(got, ref.mips_topk_ref(q, y, k), 1.0, True)
+    if k > kernel.SMALL_K:
+        assert kernel.mips_topk.last_counts.shape == (70,)
+
+
+def test_deep_eval_fused_in_several_slabs_matches_plain(dev, monkeypatch):
+    """eval_fused at d 2304 in slabs of 16 rows, k 1 with the LSE and cap
+    30 (the token-rank protocol): ids, counts and the threshold equal the
+    plain version's bit for bit on integers, the LSE within 1e-5."""
+    x, y, t = _eval_problem(dev, 5, 50, 2_000, 2_304, True, 0, 1, 1_990)
+    monkeypatch.setattr(kernel, "SCORE_BYTES", 4 * 2_000 * 16)
+    kw = dict(c_lo=1, c_hi=1_990, logit_softcap=30.0, with_lse=True)
+    got = ops.eval_fused(x, y, t, 1, **kw)
+    want = ref.eval_fused_ref(x, y, t, 1, **kw)
+    for a, b in zip(got[:5], want[:5]):
+        assert torch.equal(a, b)
+    assert torch.allclose(got[5] + torch.log(got[6]),
+                          want[5] + torch.log(want[6]), rtol=1e-5, atol=0)
+
+
+def test_deep_kernels_repeat_bit_for_bit(dev):
+    """At d 2304 two launches of mips_topk (k 1024), eval_fused and the SCE
+    forward, dX and dY give the same bits."""
+    g = _gen(dev, 11)
+    q = torch.randn(20, 2_304, generator=g, device=dev)
+    y = torch.randn(3_000, 2_304, generator=g, device=dev)
+    a, b = ops.mips_topk(q, y, 1_024), ops.mips_topk(q, y, 1_024)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    t = torch.randint(1, 3_000, (20,), generator=g, device=dev,
+                      dtype=torch.int32)
+    e1 = ops.eval_fused(q, y, t, 1, with_lse=True, logit_softcap=30.0)
+    e2 = ops.eval_fused(q, y, t, 1, with_lse=True, logit_softcap=30.0)
+    assert all(torch.equal(u, v) for u, v in zip(e1, e2))
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, 12, 2, 33, 100,
+                                                  2_304, 400)
+    lse = sce_prefetch.sce_gather_fwd(x_b, y, idx, tgt, cand, pos,
+                                      logit_softcap=30.0)[1]
+    gg = torch.rand(pos.shape, generator=g, device=dev)
+    args = (x_b, y, idx, tgt, cand, lse, gg)
+    for fn in (sce_prefetch.sce_gather_dx, sce_prefetch.sce_gather_dy):
+        assert torch.equal(fn(*args, logit_softcap=30.0),
+                           fn(*args, logit_softcap=30.0))
+
+
+@pytest.mark.parametrize("d", [300, 2_304])
+def test_deep_sce_backward_from_one_cotangent_equals_each_alone(dev, d):
+    """The deep backward autograd runs (one launch: the logits and their
+    cotangent written once, then dX and dY's slot rows from it) gives the
+    bits dX and dY give each alone, for the gathered kernels and the
+    bucket twins; each wrapper's counter moves by one."""
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, 13 + d, 2, 33, 100,
+                                                  d, 400)
+    lse = sce_prefetch.sce_gather_fwd(x_b, y, idx, tgt, cand, pos,
+                                      logit_softcap=30.0)[1]
+    gg = torch.rand(pos.shape, generator=_gen(dev, 14), device=dev)
+    args = (x_b, y, idx, tgt, cand, lse, gg)
+    fns = (sce_prefetch.sce_gather_dx, sce_prefetch.sce_gather_dy)
+    before = [f.launches for f in fns]
+    both = sce_prefetch._grads(*fns, args, 30.0, True, True)
+    assert [f.launches for f in fns] == [n + 1 for n in before]
+    alone = [f(*args, logit_softcap=30.0) for f in fns]
+    assert all(torch.equal(a, b) for a, b in zip(both, alone))
+    y_b = y[idx.long()]
+    bargs = (x_b, y_b, tgt, cand, lse, gg)
+    fns = (sce_bucket.sce_bucket_dx, sce_bucket.sce_bucket_dy)
+    before = [f.launches for f in fns]
+    both = sce_bucket._bwd(*bargs, 30.0, True, True)
+    assert [f.launches for f in fns] == [n + 1 for n in before]
+    alone = [f(*bargs, logit_softcap=30.0) for f in fns]
+    assert all(torch.equal(a, b) for a, b in zip(both, alone))

@@ -348,8 +348,11 @@ def test_preflight_rules_and_error_type():
         (dict(k=0), "positive_dims"),
         (dict(dtype=torch.bfloat16), "dtype_supported"),
         (dict(dtype="float64"), "dtype_supported"),
-        (dict(d=257), "d_max"),
-        (dict(k=513), "k_max"),
+        # only the full-CE kernels keep the flat depth cap; mips_topk's
+        # deep chain takes k to 1024, the sweeps' lists to 512
+        (dict(kernel="linear_sce", d=257, k=None), "d_max"),
+        (dict(k=1025), "k_max"),
+        (dict(kernel="eval_fused", k=513), "k_max"),
         (dict(smem_bytes=232_449), "smem_budget"),
     ]
     base = dict(kernel="mips_topk", rows=8, cols=100, d=64, k=10,
