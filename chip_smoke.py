@@ -3171,6 +3171,9 @@ LM_DECODE = 8
 LM_CAP = 30.0  # gemma-2's final softcap
 LM_PHASES = ("h2d",) + ("forward", "select", "loss_forward",
                         "backward") * 2 + ("optimizer",)
+LM_CE_STEPS = 2  # the full-CE baseline's steps
+LM_CE_PHASES = ("h2d",) + ("forward", "loss_forward",
+                           "backward") * 2 + ("optimizer",)
 
 
 def lm_config():
@@ -3486,11 +3489,14 @@ def lm_kernel_phase(dev, cfg):
                               flush),
         **bound_keys(tf32x3_bound(4 * (n_e * d + n_rows * d + n_e) + 4 * n_e,
                                   2 * n_e * d, 0))}
+    ce_timings, ce_errs = lm_full_ce_kernels(dev, x, y, targets, g, flush)
+    timings.update(ce_timings)
     for name, t in timings.items():
         print(f"  time {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms, "
               f"bound {bound_text(t)}")
     errs = {
+        **ce_errs,
         "mips_topk_lm_positions_k128": cases[0]["max_abs_err"],
         "mips_topk_lm_vocab_k1024": cases[1]["max_abs_err"],
         "sce_gather_plse_fwd_lm": pcase["max_abs_err"]["plse"],
@@ -3517,6 +3523,197 @@ def lm_kernel_phase(dev, cfg):
     return {"cases": cases, "gather_case": gcase, "plse_case": pcase,
             "eval_cases": ecases, "microbatch_sce_err": sce_err,
             "timings": timings}
+
+
+def full_ce_runs(fam, x, y, tt, cap, lse, gr, pos):
+    """name → (kernel, plain, library) callables of one full-CE family's
+    forward and one-launch backward at these inputs (``tt`` None: the
+    fused family)."""
+    import torch
+
+    from repro_torch.kernels import linear_sce, ref
+
+    n = x.shape[0]
+    args = (x, y, tt, lse, gr)
+
+    def lib_logits():
+        l_ = x @ y.T
+        return l_ if cap is None else cap * torch.tanh(l_ / cap)
+
+    def lib_fwd():
+        lse_ = torch.logsumexp(lib_logits(), -1)
+        return lse_ if tt is None else lse_ - pos
+
+    def lib_bwd():
+        c_ = lib_logits()
+        p = torch.exp(c_ - lse[:, None])
+        if tt is not None:
+            p[torch.arange(n, device=x.device), tt.long()] -= 1.0
+        if cap is not None:
+            p = p * (1 - (c_ / cap) ** 2)
+        p = p * gr[:, None]
+        return p @ y, p.T @ x
+
+    if tt is None:
+        from repro_torch.kernels import fused_ce
+
+        kern_fwd = lambda: fused_ce.fused_lse_fwd(x, y)  # noqa: E731
+        plain_fwd = lambda: ref.fused_lse_ref(x, y)  # noqa: E731
+    else:
+        kern_fwd = lambda: linear_sce.linear_ce_fwd(  # noqa: E731
+            x, y, tt, logit_softcap=cap)
+        plain_fwd = lambda: ref.linear_ce_loss_ref(  # noqa: E731
+            x, y, tt, logit_softcap=cap)
+    return {
+        f"{fam}_fwd_lm": (kern_fwd, plain_fwd, lib_fwd),
+        f"{fam}_bwd_lm": (
+            lambda: linear_sce._bwd_deep(x, y, tt, lse, gr, cap, True, True),
+            lambda: (ref.linear_ce_dx_ref(*args, logit_softcap=cap),
+                     ref.linear_ce_dw_ref(*args, logit_softcap=cap)),
+            lib_bwd),
+    }
+
+
+def lm_full_ce_kernels(dev, x, y, t, g, flush):
+    """The full-CE baseline's kernels at one LM microbatch's shape (4,096
+    positions, the 256,000-row padded vocabulary, d 2304: the deep
+    variant, the catalog in slabs): ``linear_ce_loss``'s forward (cap 30,
+    the target plucked) and its one-launch backward (dX and dW from each
+    chunk's cotangent, as autograd runs it), and ``fused_lse``'s (no cap,
+    no pluck), against their plain versions (f32; logits ≈ 1 here) —
+    values within ``1e-5·max|want|``, gradients within ``1e-5·max|grad| +
+    2e-4·|grad|``, the one launch equal to dX and dW alone bit for bit —
+    then timed with a cold L2 beside the plain versions and one PyTorch
+    composition (``matmul`` + ``logsumexp``; the composed backward)."""
+    import torch
+
+    from repro_torch.kernels import linear_sce, ref
+
+    n, d = x.shape
+    c = y.shape[0]
+    gr = torch.rand(n, generator=g, device=dev) + 0.5
+
+    def close(what, got, want, rtol):
+        err = (got - want).abs()
+        tol = 1e-5 * want.abs().max().item()
+        check(bool(torch.isfinite(got).all()
+                   and (err <= tol + rtol * want.abs()).all()),
+              f"lm {what} differs from its plain version by "
+              f"{err.max().item():.3e}")
+        return err.max().item()
+
+    errs, runs = {}, {}
+    pos = None
+    for fam, tt, cap in (("linear_ce", t, LM_CAP), ("fused_lse", None,
+                                                    None)):
+        loss, lse = linear_sce._fwd(x, y, tt, cap)
+        want_lse = ref.fused_lse_ref(x, y, logit_softcap=cap)
+        err = close(f"{fam} lse", lse, want_lse, 0.0)
+        if tt is not None:
+            want = ref.linear_ce_loss_ref(x, y, tt, logit_softcap=cap)
+            err = max(err, close(f"{fam} loss", loss, want, 0.0))
+            pos = (lse - loss).detach()
+        pair = linear_sce._bwd_deep(x, y, tt, lse, gr, cap, True, True)
+        alone = (linear_sce._dx(x, y, tt, lse, gr, cap),
+                 linear_sce._dw(x, y, tt, lse, gr, cap))
+        check(all(torch.equal(a, b) for a, b in zip(pair, alone)),
+              f"lm {fam}: the one-launch backward differs from dX and dW "
+              f"alone")
+        args = (x, y, tt, lse, gr)
+        gerr = max(close(f"{fam} dX", pair[0], ref.linear_ce_dx_ref(
+                       *args, logit_softcap=cap), 2e-4),
+                   close(f"{fam} dW", pair[1], ref.linear_ce_dw_ref(
+                       *args, logit_softcap=cap), 2e-4))
+        del pair, alone
+        errs[f"{fam}_fwd_lm"], errs[f"{fam}_bwd_lm"] = err, gerr
+        print(f"  lm {fam} (deep, N {n}, C {c}, d {d}, cap {cap}, slabs of "
+              f"{linear_sce.deep_chunk(n, c)} rows): max |Δ| forward "
+              f"{err:.3e}, dX / dW {gerr:.3e}; the one-launch backward "
+              f"equals dX and dW alone bit for bit ok")
+
+        runs.update(full_ce_runs(fam, x, y, tt, cap, lse, gr, pos))
+    io = 4 * (n * d + c * d)
+    bounds = {"fwd": tf32x3_bound(io + 4 * 4 * n, 2 * n * c * d, n * c),
+              "bwd": tf32x3_bound(2 * io + 4 * 4 * n, 3 * 2 * n * c * d,
+                                  n * c)}
+    timings = {}
+    with torch.no_grad():
+        for name, (kern, plain, lib) in runs.items():
+            timings[name] = {"ms": time_ms(kern, 3, flush),
+                             "plain_ms": time_ms(plain, 1, flush),
+                             "library_ms": time_ms(lib, 2, flush),
+                             **bound_keys(bounds[name[-6:-3]])}
+    return timings, errs
+
+
+def lm_full_ce_phase(dev, cfg, sce):
+    """gemma-2-2b's full-CE baseline, the paper's comparison at LM scale:
+    ``train("gemma2-2b", …, steps=2, train_loss="ce_fused_linear")`` from
+    the SCE run's seed (the same initial parameters and batches), the
+    softcap 30 inside the deep ``linear_ce`` (no SCE selection, no
+    evaluation): its launch counts from 0 around the run, finite and
+    falling loss, its median step, phases and peak memory printed beside
+    SCE's (``sce``: :func:`lm_train_phase`'s result)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import guard, linear_sce
+    from repro_torch.launch.train import train
+
+    counters = (linear_sce.linear_ce_fwd, linear_sce.linear_ce_dx,
+                linear_sce.linear_ce_dw, linear_sce.linear_ce_split)
+    marks = StepMarks(LM_CE_PHASES)
+    guard.run_conformance(device=dev)  # the canaries' launches come first
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters:  # the full-CE LM path starts here
+        fn.launches = 0
+    t0 = time.monotonic()
+    out = train("gemma2-2b", cfg=cfg, batch=LM_BATCH, seq_len=LM_SEQ,
+                steps=LM_CE_STEPS, seed=0, log_every=1, device=dev,
+                guard_policy="warn", mark=marks,
+                train_loss="ce_fused_linear")
+    wall_s = time.monotonic() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}  # ... ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = out["losses"]
+    n_mb = LM_CE_STEPS * 2
+    check(len(losses) == LM_CE_STEPS
+          and all(math.isfinite(v) for v in losses),
+          f"full-CE LM losses {losses}")
+    check(losses[-1] < losses[0], f"full-CE LM loss {losses[-1]} is not "
+          f"below the first step's {losses[0]}")
+    check(out["skipped_steps"] == 0, f"{out['skipped_steps']} steps skipped")
+    for name in ("linear_ce_fwd", "linear_ce_dx", "linear_ce_dw"):
+        check(launches[name] == n_mb,
+              f"{name} launched {launches[name]} times, not {n_mb}")
+    check(launches["linear_ce_split"] == 0,
+          "the deep full CE split its inputs into planes")
+    median_ms = statistics.median(out["step_s"][1:]) * 1e3
+    bd = marks.breakdown()
+    sce_bd = sce["breakdown"]
+    print(f"  gemma-2-2b f32, train_loss=ce_fused_linear: {LM_CE_STEPS} "
+          f"steps of {LM_BATCH} × {LM_SEQ} tokens in {wall_s:.2f} s; loss "
+          f"{' → '.join(f'{v:.4f}' for v in losses)}; median step "
+          f"{median_ms:.1f} ms against SCE's {sce['median_step_ms']:.1f} ms "
+          f"(host clock, steps 2–); launches {launches}")
+    print("  full-CE step breakdown: " + " + ".join(
+        f"{p} {bd[p + '_ms']:.1f}" for p in dict.fromkeys(LM_CE_PHASES))
+        + f" = {sum(bd.values()):.1f} ms; SCE's: " + " + ".join(
+            f"{p} {sce_bd[p + '_ms']:.1f}" for p in dict.fromkeys(LM_PHASES))
+        + f" = {sum(sce_bd.values()):.1f} ms (device events, both "
+          f"microbatches, steps 2–)")
+    print(f"  peak device memory: full CE {peak / 2**30:.2f} GiB against "
+          f"SCE's {sce['peak_bytes'] / 2**30:.2f} GiB (max_memory_allocated;"
+          f" {live / 2**30:.2f} GiB live before)")
+    return {"losses": losses, "step_s": out["step_s"], "wall_s": wall_s,
+            "median_step_ms": median_ms, "breakdown": bd,
+            "launches": launches, "peak_bytes": peak,
+            "live_bytes_before": live}
 
 
 def lm_train_phase(dev, cfg):
@@ -3678,9 +3875,11 @@ def lm_phase(dev):
     gc.collect()
     torch.cuda.empty_cache()
     trained = lm_train_phase(dev, cfg)
+    full_ce = lm_full_ce_phase(dev, cfg, trained)
     served = lm_serve_phase(dev, cfg)
     print(f"  card: {smi()}")
-    return {"kernels": kern, "train": trained, "serve": served}
+    return {"kernels": kern, "train": trained, "full_ce": full_ce,
+            "serve": served}
 
 
 def main() -> int:
@@ -3912,6 +4111,7 @@ def main() -> int:
     # The LM path (phase 18): its kernels at gemma-2's shapes, with the
     # launches of the LM trainer's run (counted from 0 around it).
     lm_launch = lm["train"]["launches"]
+    ce_launch = lm["full_ce"]["launches"]
     lm_by_k = lm["train"]["mips_topk_launches_by_k"]
     for name, src, replaces, launches in (
             ("mips_topk_lm_positions_k128", "mips_topk.cu",
@@ -3933,7 +4133,15 @@ def main() -> int:
             ("eval_fused_lm", "eval_fused.cu", "eval_fused.py:104",
              lm_launch["eval_fused"]),
             ("eval_tgt_gather_lm", "eval_fused.cu", "eval_fused.py:82",
-             lm_launch["eval_tgt_gather"])):
+             lm_launch["eval_tgt_gather"]),
+            # the full-CE baseline's run: its forwards, and its backwards,
+            # each one launch counted on dX's and dW's wrappers (fused_lse's
+            # deep times, the same entries without pluck and cap, are in
+            # --json: no LM path runs them)
+            ("linear_ce_fwd_lm", "linear_ce.cu", "linear_sce.py:60",
+             ce_launch["linear_ce_fwd"]),
+            ("linear_ce_bwd_lm", "linear_ce.cu", "linear_sce.py:121",
+             ce_launch["linear_ce_dx"])):
         tt = lm["kernels"]["timings"][name]
         kernels.append({
             "name": name,

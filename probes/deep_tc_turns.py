@@ -1,0 +1,345 @@
+#!/usr/bin/env python3
+"""The deep SCE variants (d > 256) of two trees on the card: their outputs
+bit for bit, their times in turns, and a clock profile of their product
+by phase. Needs an NVIDIA GPU.
+
+    python3 probes/deep_tc_turns.py digests TREE LABEL
+    python3 probes/deep_tc_turns.py times TREE LABEL
+    python3 probes/deep_tc_turns.py profile TREE LABEL
+
+imports ``repro_torch`` (and ``chip_smoke.py``) from ``TREE`` — a checkout
+of any commit, for example the parent unpacked with ``git archive`` into
+``.benchrun/`` — builds its kernels and prints ``LABEL {...}``, at
+gemma-2-2b's LM shapes (d 2304, vocabulary 256,000; SCE n_b 128,
+b_x 128, b_y 1024, cap 30; inputs from fixed seeds on the card: x and the
+centres at unit scale, the table at 0.02):
+
+* ``digests``: a SHA-256 (16 hex digits) of every deep output — the SCE
+  loss's forward, dX and dY, the partial LSE's forward and its one-launch
+  backward (dX and dY from one cotangent), the bucket twins' forward, dX
+  and dY; ``mips_topk`` over 4,096 positions at k 128 and over the
+  vocabulary at k 1024; ``eval_fused`` at 8,192 × 256,000, k 1 with the
+  LSE and cap 30, with ``eval_tgt_gather``. Equal digests in two trees are
+  equal bits.
+* ``times``: device ms (CUDA events, the mean of 5 calls, each after a
+  1 GiB L2 flush) of ``sce_gather_plse_fwd``, the partial LSE's backward
+  as autograd runs it (``sce_prefetch._grads``: logits, cotangent, dX,
+  dY's slot rows, the in-order dY sum) and ``sce_gather_fwd``; and that
+  backward split by kernel in launch order (``torch.profiler``, one warm
+  call).
+* ``profile``: the tree's depth-chunked product (``csrc/deep_tc.cuh``
+  where ``sce_gather.cu`` includes it, else ``csrc/deep_gemm.cuh``) built
+  from a copy with ``clock64()`` read around each phase of its depth loop
+  (summed per warp, read back through an added ``extern "C"`` getter),
+  for each of the deep backward's three products (the logits alone from
+  the forward; dX and dY alone, less the logits): each phase's share of
+  the warps' cycles and the cycles a warp spends per 32-deep chunk.
+  ``deep_gemm``: prologue, ``fetch`` (issuing the next chunk's scalar
+  loads), ``compute`` (fragment reads, splits and ``mma``), ``store``
+  (waiting for the loads, storing, the barrier), epilogue. ``deep_tc``:
+  prologue, ``wait`` (``cp.async`` wait and the barrier), ``issue`` (each
+  k16 step's six ``wgmma``, then half of chunk t + 1's split while the
+  tensor cores run), ``copies`` (chunk t + 3's), ``drain`` (waiting for
+  the ``wgmma``), ``add`` (the k16 products into the accumulator),
+  epilogue.
+  ``cycles_per_warp_chunk`` counts the loop's phases only; at the dense
+  495 TFLOP/s of TF32 a chunk's three passes of a 128 × 128 × 32 tile
+  take ≈ 1,660 cycles of an SM.
+
+Every line carries ``nvidia-smi``'s card name and power limit. Run two
+trees in turns (parent, change, change, parent) in one call to compare
+times.
+"""
+import hashlib
+import json
+import os
+import re
+import shutil
+import sys
+import tempfile
+from pathlib import Path
+
+N_B, B_X, B_Y, C, D, N_POS, N_EVAL = 128, 128, 1024, 256_000, 2304, 4096, 8192
+CAP = 30.0
+
+
+def _digest(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _setup(tree):
+    sys.path.insert(0, str(Path(tree) / "src"))
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import chip_smoke
+    from repro_torch import resolve_device
+    from repro_torch.kernels import _build
+
+    dev = resolve_device("cuda")
+    _build.build_all()
+    g = torch.Generator(device=dev).manual_seed(25)
+    y = torch.randn(C, D, generator=g, device=dev) * 0.02
+    x_b = torch.randn(N_B, B_X, D, generator=g, device=dev)
+    idx = torch.randint(0, C, (N_B, B_Y), generator=g, device=dev,
+                        dtype=torch.int32)
+    tgt = torch.randint(0, C, (N_B, B_X), generator=g, device=dev,
+                        dtype=torch.int32)
+    cand = idx.clone()
+    cand[:, 0] = tgt[:, 0]
+    cand[:, -1] = -1
+    pos = CAP * torch.tanh(torch.randn(N_B, B_X, generator=g, device=dev))
+    gg = torch.rand(N_B, B_X, generator=g, device=dev)
+    return torch, chip_smoke, dev, g, (x_b, y, idx, tgt, cand), pos, gg
+
+
+def digests(tree, label):
+    torch, cs, dev, g, args, pos, gg = _setup(tree)
+    from repro_torch.kernels import eval_fused, sce_bucket, sce_prefetch
+    from repro_torch.kernels.mips_topk import mips_topk
+
+    kw = dict(logit_softcap=CAP)
+    out = {}
+    loss, lse = sce_prefetch.sce_gather_fwd(*args, pos, **kw)
+    out["sce_gather"] = _digest(
+        loss, lse, sce_prefetch.sce_gather_dx(*args, lse, gg, **kw),
+        sce_prefetch.sce_gather_dy(*args, lse, gg, **kw))
+    plse = sce_prefetch.sce_gather_plse_fwd(*args, **kw)
+    out["sce_gather_plse"] = _digest(plse, *sce_prefetch._grads(
+        sce_prefetch.sce_gather_plse_dx, sce_prefetch.sce_gather_plse_dy,
+        args + (plse, gg), CAP, True, True))
+    x_b, y, idx, tgt, cand = args
+    y_b = y[idx.long()]
+    bl, blse = sce_bucket.sce_bucket_fwd(x_b, y_b, tgt, cand, pos, **kw)
+    bargs = (x_b, y_b, tgt, cand, blse, gg)
+    out["sce_bucket"] = _digest(bl, blse,
+                                sce_bucket.sce_bucket_dx(*bargs, **kw),
+                                sce_bucket.sce_bucket_dy(*bargs, **kw))
+    del y_b, bargs
+    q = torch.randn(N_B, D, generator=g, device=dev)
+    xs = torch.randn(N_POS, D, generator=g, device=dev)
+    out["mips_topk_k128"] = _digest(*mips_topk(q, xs, 128))
+    out["mips_topk_k1024"] = _digest(*mips_topk(q, y, 1024))
+    xe = torch.randn(N_EVAL, D, generator=g, device=dev)
+    te = torch.randint(1, C, (N_EVAL,), generator=g, device=dev,
+                       dtype=torch.int32)
+    out["eval_fused"] = _digest(*eval_fused.eval_fused(
+        xe, y, te, 1, c_lo=1, c_hi=C, logit_softcap=CAP, with_lse=True))
+    out["eval_tgt_gather"] = _digest(eval_fused.eval_tgt_gather(xe, y, te))
+    torch.cuda.synchronize()
+    print(label, json.dumps({"digests": out, "card": cs.smi()}), flush=True)
+
+
+def _kernel_split(torch, fn):
+    """Device ms of each kernel ``fn`` launches, in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if getattr(e, "device_type", None) is not None
+           and "CUDA" in str(e.device_type)]
+    evs.sort(key=lambda e: e.time_range.start)
+    return [(re.sub(r"\(.*", "", e.name)[:60],
+             round(getattr(e, "device_time", 0.0) / 1e3, 4)) for e in evs]
+
+
+def times(tree, label):
+    torch, cs, dev, g, args, pos, gg = _setup(tree)
+    from repro_torch.kernels import sce_prefetch
+
+    kw = dict(logit_softcap=CAP)
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    plse = sce_prefetch.sce_gather_plse_fwd(*args, **kw)
+
+    def pair():
+        return sce_prefetch._grads(
+            sce_prefetch.sce_gather_plse_dx, sce_prefetch.sce_gather_plse_dy,
+            args + (plse, gg), CAP, True, True)
+
+    runs = {
+        "sce_gather_plse_fwd": lambda: sce_prefetch.sce_gather_plse_fwd(
+            *args, **kw),
+        "sce_gather_plse_bwd": pair,
+        "sce_gather_fwd": lambda: sce_prefetch.sce_gather_fwd(*args, pos,
+                                                              **kw),
+    }
+    with torch.no_grad():
+        ms = {k: cs.time_ms(f, 5, flush) for k, f in runs.items()}
+        split = _kernel_split(torch, pair)
+    print(label, json.dumps({"ms": ms, "bwd_kernels": split,
+                             "card": cs.smi()}), flush=True)
+
+
+_GEMM_PATCH = [  # deep_gemm.cuh: prologue, fetch, compute, store, epilogue
+    ("template <bool A_KM, bool B_KN, bool GATHER>\n__global__",
+     "__device__ unsigned long long kProf[8];\n"
+     "template <bool A_KM, bool B_KN, bool GATHER>\n__global__"),
+    ("  __shared__ __align__(16) float as[2][kBM * kPitch];",
+     "  const long long P0 = clock64();\n"
+     "  __shared__ __align__(16) float as[2][kBM * kPitch];"),
+    ("  store(0);\n  __syncthreads();\n  for (int t = 0; t < chunks; ++t) {\n"
+     "    const int buf = t & 1;\n"
+     "    if (t + 1 < chunks) fetch((t + 1) * kBK);\n",
+     "  store(0);\n  __syncthreads();\n"
+     "  long long P1 = clock64(), PA = 0, PB = 0, PC = 0;\n"
+     "  for (int t = 0; t < chunks; ++t) {\n    const int buf = t & 1;\n"
+     "    asm volatile(\"\" ::: \"memory\");\n"
+     "    const long long Pa = clock64();\n"
+     "    if (t + 1 < chunks) fetch((t + 1) * kBK);\n"
+     "    asm volatile(\"\" ::: \"memory\");\n"
+     "    const long long Pb = clock64();\n"),
+    ("    if (t + 1 < chunks) store(buf ^ 1);\n    __syncthreads();\n  }\n",
+     "    asm volatile(\"\" ::: \"memory\");\n"
+     "    const long long Pc = clock64();\n"
+     "    if (t + 1 < chunks) store(buf ^ 1);\n    __syncthreads();\n"
+     "    const long long Pd = clock64();\n"
+     "    PA += Pb - Pa; PB += Pc - Pb; PC += Pd - Pc;\n  }\n"
+     "  const long long P2 = clock64();\n"),
+    ("          if (n < g.n) out[m * g.ldo + n] = zero ? 0.f : "
+     "acc[mt][nt][2 * h + u];\n        }\n    }\n}\n",
+     "          if (n < g.n) out[m * g.ldo + n] = zero ? 0.f : "
+     "acc[mt][nt][2 * h + u];\n        }\n    }\n"
+     "  const long long P3 = clock64();\n"
+     "  if ((threadIdx.x & 31) == 0) {\n"
+     "    atomicAdd(&kProf[0], (unsigned long long)(P1 - P0));\n"
+     "    atomicAdd(&kProf[1], (unsigned long long)PA);\n"
+     "    atomicAdd(&kProf[2], (unsigned long long)PB);\n"
+     "    atomicAdd(&kProf[3], (unsigned long long)PC);\n"
+     "    atomicAdd(&kProf[4], (unsigned long long)(P3 - P2));\n"
+     "    atomicAdd(&kProf[6], (unsigned long long)chunks);\n"
+     "    atomicAdd(&kProf[7], 1ull);\n  }\n}\n"),
+]
+_GEMM_PHASES = ("prologue", "fetch", "compute", "store", "epilogue")
+
+_TC_PATCH = [  # deep_tc.cuh: prologue, wait, issue, copies, drain, add, epilogue
+    ("template <bool A_KM, bool B_KN, bool GATHER, bool ACC>\n__global__",
+     "__device__ unsigned long long kProf[8];\n"
+     "template <bool A_KM, bool B_KN, bool GATHER, bool ACC>\n__global__"),
+    ("  extern __shared__ __align__(128) float smem[];",
+     "  const long long P0 = clock64();\n"
+     "  extern __shared__ __align__(128) float smem[];"),
+    ("  for (int t = 0; t < chunks; ++t) {\n"
+     "    tf32x3::cp_async_wait<kStages - 2>();  // chunk t + 1 has landed\n"
+     "    __syncthreads();\n",
+     "  long long P1 = clock64(), PA = 0, PB = 0, PC = 0, PD = 0, PE = 0;\n"
+     "  for (int t = 0; t < chunks; ++t) {\n"
+     "    asm volatile(\"\" ::: \"memory\");\n"
+     "    const long long Pa = clock64();\n"
+     "    tf32x3::cp_async_wait<kStages - 2>();  // chunk t + 1 has landed\n"
+     "    __syncthreads();\n"
+     "    const long long Pb = clock64();\n"),
+    ("    if (more) publish();\n",
+     "    if (more) publish();\n"
+     "    asm volatile(\"\" ::: \"memory\");\n"
+     "    const long long Pc = clock64();\n"),
+    ("    wgmma_wait<0>();\n    fence_regs(p0);\n    fence_regs(p1);\n",
+     "    asm volatile(\"\" ::: \"memory\");\n"
+     "    const long long Pd = clock64();\n"
+     "    wgmma_wait<0>();\n    fence_regs(p0);\n    fence_regs(p1);\n"
+     "    const long long Pe = clock64();\n"),
+    ("      for (int i = 0; i < 64; ++i) acc[i] += p1[i];\n    }\n  }\n",
+     "      for (int i = 0; i < 64; ++i) acc[i] += p1[i];\n    }\n"
+     "    fence_regs(acc);\n"
+     "    const long long Pf = clock64();\n"
+     "    PA += Pb - Pa; PB += Pc - Pb; PC += Pd - Pc; PD += Pe - Pd;\n"
+     "    PE += Pf - Pe;\n  }\n"
+     "  const long long P2 = clock64();\n"),
+    ("        if (n + 1 < g.n) o[1] = ACC ? o[1] + v1 : v1;\n      }\n"
+     "    }\n  }\n}\n",
+     "        if (n + 1 < g.n) o[1] = ACC ? o[1] + v1 : v1;\n      }\n"
+     "    }\n  }\n"
+     "  const long long P3 = clock64();\n"
+     "  if ((threadIdx.x & 31) == 0) {\n"
+     "    atomicAdd(&kProf[0], (unsigned long long)(P1 - P0));\n"
+     "    atomicAdd(&kProf[1], (unsigned long long)PA);\n"
+     "    atomicAdd(&kProf[2], (unsigned long long)PB);\n"
+     "    atomicAdd(&kProf[3], (unsigned long long)PC);\n"
+     "    atomicAdd(&kProf[4], (unsigned long long)PD);\n"
+     "    atomicAdd(&kProf[5], (unsigned long long)PE);\n"
+     "    atomicAdd(&kProf[6], (unsigned long long)(P3 - P2));\n"
+     "    atomicAdd(&kProf[7], (unsigned long long)chunks);\n  }\n}\n"),
+]
+_TC_PHASES = ("prologue", "wait", "issue", "copies", "drain", "add",
+              "epilogue")
+
+_GETTER = """
+extern "C" int deep_prof_read(unsigned long long* out) {
+  static const unsigned long long zero[8] = {};
+  cudaError_t e = cudaMemcpyFromSymbol(out, %s::kProf, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(%s::kProf, zero, sizeof(zero));
+  return (int)e;
+}
+"""
+
+
+def profile(tree, label):
+    """The clock profile (see the module docstring) of TREE's product."""
+    import ctypes
+
+    work = Path(tempfile.mkdtemp(prefix="deep_prof_"))
+    shutil.copytree(Path(tree) / "src", work / "src")
+    shutil.copy(Path(tree) / "chip_smoke.py", work / "chip_smoke.py")
+    csrc = work / "src" / "repro_torch" / "kernels" / "csrc"
+    sce = (csrc / "sce_gather.cu").read_text()
+    tc = '#include "deep_tc.cuh"' in sce
+    header, patch, ns, phases = (
+        ("deep_tc.cuh", _TC_PATCH, "deep_tc", _TC_PHASES) if tc else
+        ("deep_gemm.cuh", _GEMM_PATCH, "deep_gemm", _GEMM_PHASES))
+    text = (csrc / header).read_text()
+    for old, new in patch:
+        if text.count(old) != 1:
+            raise SystemExit(f"profile: anchor not found once in {header}: "
+                             f"{old[:60]!r}")
+        text = text.replace(old, new)
+    (csrc / header).write_text(text)
+    (csrc / "sce_gather.cu").write_text(sce + _GETTER % (ns, ns))
+    os.chdir(work)
+    torch, cs, dev, g, args, pos, gg = _setup(str(work))
+    from repro_torch.kernels import _build, sce_prefetch
+
+    lib = _build.load("sce_gather")
+    lib.deep_prof_read.argtypes = [ctypes.c_void_p]
+    buf = (ctypes.c_ulonglong * 8)()
+    kw = dict(logit_softcap=CAP)
+    plse = sce_prefetch.sce_gather_plse_fwd(*args, **kw)
+    bargs = args + (plse, gg)
+
+    def read(fn):
+        fn()
+        torch.cuda.synchronize()
+        lib.deep_prof_read(buf)  # reset after the warm call
+        fn()
+        torch.cuda.synchronize()
+        if lib.deep_prof_read(buf) != 0:
+            raise SystemExit("profile: deep_prof_read failed")
+        return [int(v) for v in buf]
+
+    logits = read(lambda: sce_prefetch.sce_gather_plse_fwd(*args, **kw))
+    dx = read(lambda: sce_prefetch.sce_gather_plse_dx(*bargs, **kw))
+    dy = read(lambda: sce_prefetch.sce_gather_plse_dy(*bargs, **kw))
+    out = {}
+    for name, v in (("logits", logits),
+                    ("dx", [a - b for a, b in zip(dx, logits)]),
+                    ("dy", [a - b for a, b in zip(dy, logits)])):
+        cyc = v[:len(phases)]
+        total = sum(cyc)
+        chunks = v[7] if tc else v[6]
+        out[name] = {
+            "share": {p: round(c / total, 4) for p, c in zip(phases, cyc)},
+            "cycles_per_warp_chunk": round(
+                sum(cyc[1:-1]) / max(chunks, 1), 1)}
+    print(label, json.dumps({"product": ns, "profile": out,
+                             "card": cs.smi()}), flush=True)
+
+
+if __name__ == "__main__":
+    mode, tree, label = sys.argv[1:4]
+    {"digests": digests, "times": times, "profile": profile}[mode](
+        tree, label)

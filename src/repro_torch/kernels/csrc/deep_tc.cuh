@@ -1,0 +1,459 @@
+// deep_tc — the depth-chunked product of the deep SCE and full-CE variants
+// (d > 256), designed for Hopper's tensor cores. A batched
+// C[b] = A[b] · B[b]ᵀ in 3xTF32 for any depth K, in a fixed 224 KB of
+// shared memory.
+//
+// Which TPU kernels it serves: at d > 256 it takes every product of
+//   * sce_gather.cu's deep entries — the in-bucket logits, dX = G · Y[idx]
+//     and dY's slot rows Gᵀ · x_b — behind `sce_gather_loss` /
+//     `sce_gather_plse` (src/repro/kernels/sce_prefetch.py: `_gfwd_kernel`,
+//     `_gbwd_dx_kernel`, `_gbwd_dy_kernel`) and `sce_bucket_loss` /
+//     `sce_bucket_plse` (src/repro/kernels/sce_bucket.py);
+//   * linear_ce.cu's deep entries — a catalog chunk's logits slab,
+//     dX += G · W_chunk and dW_chunk = Gᵀ · X — behind `linear_ce_loss`
+//     (src/repro/kernels/linear_sce.py `_fwd`, `_bwd`) and `fused_lse` /
+//     `fused_ce_loss` (src/repro/kernels/fused_ce.py).
+// deep_gemm.cuh keeps the deep mips_topk and eval_fused score slabs, whose
+// products must stay target_scores' bit for bit.
+//
+// The arithmetic is deep_gemm.cuh's: every value split into TF32
+// (hi, lo) (tf32x3::split), each k16 step's three passes (lo·hi, hi·lo of
+// both k8 steps, then hi·hi) summed from zero on the tensor cores and
+// added to the f32 accumulator in ascending depth, k16 steps past K
+// skipped, values out of range 0. On an H100 the outputs equal
+// deep_gemm's (its mma.sync m16n8k8) bit for bit: SHA-256 of every deep
+// SCE output at gemma-2's shapes (probes/deep_tc_turns.py digests; PERF.md
+// PR 25). So SCE's forward, dX and dY still read logits of one
+// arithmetic, the parent's.
+//
+// Options (template flags): A_KM — A stored (K, M), M contiguous;
+// B_KN — B stored (K, N); GATHER — B's rows (n, or k with B_KN) taken
+// from b at clamp(idx[r], 0, b_rows − 1); ACC — out += C instead of
+// out = C (linear_ce's dX across catalog chunks, one launch a chunk in
+// stream order: a fixed order, no atomics). m_zero: a row m whose
+// m_zero[b·mz_batch + m] < 0 is a zero row of C. Shapes as
+// deep_gemm.cuh's.
+//
+// What bounds it on an H100: three TF32 passes at the dense 495 TFLOP/s
+// (6·M·N·K FLOP of TF32 per product); the bytes (each operand once, the
+// output once) are a small share at the deep shapes (d 2304).
+//
+// Design, against deep_gemm.cuh's three weaknesses (its clock profile:
+// the scalar loads' issue 50–63 % of the logits' and dX's cycles, the
+// fragment splits and `mma` 27–41 %; PERF.md PR 25):
+//   * loads: 16-byte cp.async per row chunk (4-byte where a leading
+//     dimension or base is not 16-byte aligned), for dense and gathered
+//     operands alike, into a ring of kStages raw stages, two 32-deep
+//     chunks ahead of the products; a gathered row's id is read once a
+//     block (K-major) or an iteration before its copies (B_KN). (The TMA
+//     cannot gather, and every value passes through a thread for its
+//     split anyway: one code path.)
+//   * the split: each landed chunk is split once, by the whole block, into
+//     (hi, lo) planes laid out as wgmma's K-major core matrices (8 rows ×
+//     16 bytes; M- or N-major operands, A_KM and B_KN, transposed on the
+//     way), so the tensor cores read ready TF32 words from shared memory
+//     and no warp splits or loads a fragment.
+//   * tiles and the instruction: 128 × 128 outputs a block, two
+//     warpgroups of 64 rows, each k8 step three `wgmma` m64n128k8 (tf32,
+//     both operands K-major from shared memory, no swizzle), asynchronous:
+//     the block splits chunk t + 1 and issues chunk t + 3's copies while
+//     the tensor cores take chunk t, then adds each k16 step's product to
+//     its accumulator. One barrier per 32-deep chunk (two plane buffers,
+//     three raw stages).
+// A plane: per operand and per (hi, lo), depth group c (4 depths) of row
+// r at core(c, r) — row groups of 8 side by side (128 bytes apart), depth
+// groups 2 KB apart; the raw K-major chunk's XOR keeps the split's reads
+// and the copies' writes free of bank conflicts.
+// Shared memory: kStages · 2 · 16 KB raw + 2 · 64 KB planes = 224 KB, one
+// block (two warpgroups) an SM; three 64-float accumulators a thread
+// (the running sum and both k16 steps' products).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32x3_tile.cuh"
+
+namespace deep_tc {
+
+constexpr int kBM = 128;   // output rows (M) a block: two warpgroups of 64
+constexpr int kBN = 128;   // output columns (N) a block
+constexpr int kBK = 32;    // depth (K) a chunk: two k16 steps
+constexpr int kThreads = 256;
+constexpr int kStages = 3;  // raw ring
+constexpr int kRaw = kBM * kBK;  // floats of one operand's raw chunk
+constexpr int kPlane = kBM * kBK;  // floats of one operand's hi (or lo)
+constexpr int kPlanes = 2 * kPlane;  // an operand's chunk: hi, then lo
+constexpr size_t kSmem =
+    sizeof(float) * ((size_t)kStages * 2 * kRaw + 2 * 2 * kPlanes);
+
+struct Gemm {
+  const float* a;
+  long a_batch;
+  int lda;
+  const float* b;
+  long b_batch;
+  int ldb;
+  const int* b_idx;  // GATHER: the source row of each B row
+  long idx_batch;
+  int b_rows;        // GATHER: rows of b (ids are clamped to them)
+  float* out;
+  long out_batch;
+  int ldo;
+  const int* m_zero;  // or null
+  long mz_batch;
+  int m, n, k;
+  int vec_a, vec_b;  // set by gemm(): 16-byte copies allowed
+  int vec_o;         // set by gemm(): 8-byte output pairs allowed
+};
+
+// 4 consecutive floats global → shared, `n` of them valid (zeros after):
+// one 16-byte cp.async (src-size 4n) or four 4-byte ones.
+__device__ __forceinline__ void copy4(float* dst, const float* src, int n,
+                                      bool vec, const float* safe) {
+  n = n < 0 ? 0 : (n > 4 ? 4 : n);
+  if (vec) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(n > 0 ? src : safe), "r"(4 * n)
+                 : "memory");
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      tf32x3::cp_async4(dst + j, j < n ? src + j : safe, j < n);
+  }
+}
+
+// The float offset of depths 4c .. 4c + 3 of row r in a plane: wgmma's
+// K-major core matrices (8 rows × 16 bytes, 128 bytes each), the 16 of a
+// depth group c side by side (rows 8g .. 8g + 7 at 128·g bytes), the
+// eight depth groups 2 KB apart.
+__device__ __forceinline__ int core(int c, int r) {
+  return (c * (kBM / 8) + (r >> 3)) * 32 + (r & 7) * 4;
+}
+
+// Unit i (0..3) of this thread's share of one operand's split: row
+// tid & 127, depths 4c .. 4c + 3 with c = (tid >> 7) + 2i, from the landed
+// raw chunk into the (hi, lo) planes. K-major raw (KM false): [128 rows]
+// [32], 16-byte chunk c of row r at c ^ (r & 7); M- or N-major (KM
+// true): [32][128].
+template <bool KM>
+__device__ __forceinline__ void split_unit(const float* raw, float* pl,
+                                           int i) {
+  const int r = threadIdx.x & (kBM - 1), c = (threadIdx.x >> 7) + 2 * i;
+  float4 v;
+  if (!KM) {
+    v = *reinterpret_cast<const float4*>(raw + r * kBK + 4 * (c ^ (r & 7)));
+  } else {
+    const float* col = raw + 4 * c * kBM + r;
+    v = make_float4(col[0], col[kBM], col[2 * kBM], col[3 * kBM]);
+  }
+  uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
+  tf32x3::split(v.x, h0, l0);
+  tf32x3::split(v.y, h1, l1);
+  tf32x3::split(v.z, h2, l2);
+  tf32x3::split(v.w, h3, l3);
+  const int off = core(c, r);
+  *reinterpret_cast<uint4*>(pl + off) = make_uint4(h0, h1, h2, h3);
+  *reinterpret_cast<uint4*>(pl + kPlane + off) = make_uint4(l0, l1, l2, l3);
+}
+
+// A wgmma matrix descriptor of K-major core matrices without swizzle at
+// p: the leading byte offset (the next 4 depths) 2 KB, the stride byte
+// offset (the next 8 rows) 128 bytes.
+__device__ __forceinline__ uint64_t desc(const float* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(2048 >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// d (+)= A·Bᵀ on a 64 × 128 × 8 tile: A the warpgroup's 64 rows, B the
+// block's 128, TF32 from shared memory; d = A·Bᵀ when scale_d is 0.
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
+                                      uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Orders the compiler's accesses to d after the wait (and before issue).
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    asm volatile("" : "+f"(d[i])::"memory");
+  }
+}
+
+template <bool A_KM, bool B_KN, bool GATHER, bool ACC>
+__global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Gemm g) {
+  extern __shared__ __align__(128) float smem[];
+  float* const raw = smem;                           // [stage][A, B][kRaw]
+  float* const planes = smem + kStages * 2 * kRaw;  // [buf][A, B][kPlanes]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int wg = warp >> 2;  // this warpgroup's 64 rows: 64·wg ..
+  const long m0 = (long)blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const long bt = blockIdx.z;
+  const float* const A = g.a + bt * g.a_batch;
+  const float* const B = g.b + (GATHER ? 0 : bt * g.b_batch);
+  const int* const idx = GATHER ? g.b_idx + bt * g.idx_batch : nullptr;
+  const bool vec_a = g.vec_a, vec_b = g.vec_b;
+
+  // K-major operands: this thread copies 16-byte chunk (tid & 7) of rows
+  // (tid >> 3) + 32i, whose sources are fixed for the block.
+  const int kc = tid & 7;
+  const float* a_row[4];
+  const float* b_row[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = (tid >> 3) + 32 * i;
+    a_row[i] = nullptr;
+    b_row[i] = nullptr;
+    if (!A_KM && m0 + r < g.m) a_row[i] = A + (m0 + r) * g.lda;
+    if (!B_KN && n0 + r < g.n) {
+      long src = n0 + r;
+      if (GATHER) {
+        const int id = idx[n0 + r];
+        src = id < 0 ? 0 : (id >= g.b_rows ? g.b_rows - 1 : id);
+      }
+      b_row[i] = B + src * g.ldb;
+    }
+  }
+  // B_KN: the source rows of chunk t's depth rows (tid >> 5) + 8i, read
+  // an iteration before their copies are issued (the ids unclamped, so
+  // that nothing waits for the loads until the copies need them).
+  auto rows_of = [&](int t, int (&src)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = t * kBK + (tid >> 5) + 8 * i;
+      src[i] = GATHER && k < g.k ? idx[k] : k;
+    }
+  };
+  // The copies of chunk t into raw stage st.
+  auto load = [&](int t, int st, const int (&b_src)[4]) {
+    float* ra = raw + st * 2 * kRaw;
+    float* rb = ra + kRaw;
+    const int k0 = t * kBK;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (tid >> 3) + 32 * i;
+      const int kr = (tid >> 5) + 8 * i, c = 4 * (tid & 31);
+      if (!A_KM) {
+        copy4(ra + r * kBK + 4 * (kc ^ (r & 7)),
+              a_row[i] ? a_row[i] + k0 + 4 * kc : g.a,
+              a_row[i] ? g.k - k0 - 4 * kc : 0, vec_a, g.a);
+      } else {
+        const int k = k0 + kr;
+        const long m = m0 + c;
+        copy4(ra + kr * kBM + c, k < g.k ? A + (long)k * g.lda + m : g.a,
+              k < g.k ? (int)(g.m - m < 4 ? g.m - m : 4) : 0, vec_a, g.a);
+      }
+      if (!B_KN) {
+        copy4(rb + r * kBK + 4 * (kc ^ (r & 7)),
+              b_row[i] ? b_row[i] + k0 + 4 * kc : g.b,
+              b_row[i] ? g.k - k0 - 4 * kc : 0, vec_b, g.b);
+      } else {
+        const bool ok = k0 + kr < g.k;
+        const int id = b_src[i];
+        const long src =
+            GATHER ? (id < 0 ? 0 : (id >= g.b_rows ? g.b_rows - 1 : id)) : id;
+        copy4(rb + kr * kBN + c, ok ? B + src * g.ldb + n0 + c : g.b,
+              ok ? g.n - n0 - c : 0, vec_b, g.b);
+      }
+    }
+  };
+  // The landed chunk in raw stage st → plane buffer pb, then its writes
+  // made visible to the tensor cores' reads (the async proxy).
+  // Half h (units 2h, 2h + 1) of the split of the landed chunk in raw
+  // stage st into plane buffer pb.
+  auto split = [&](int st, int pb, int h) {
+    const float* rs = raw + st * 2 * kRaw;
+    float* pn = planes + pb * 2 * kPlanes;
+#pragma unroll
+    for (int i = 2 * h; i < 2 * h + 2; ++i) {
+      split_unit<A_KM>(rs, pn, i);
+      split_unit<B_KN>(rs + kRaw, pn + kPlanes, i);
+    }
+  };
+  // The split's writes made visible to the tensor cores' reads (the
+  // async proxy), before the barrier that hands the planes over.
+  auto publish = [] {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+
+  float acc[64], p0[64], p1[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  const int k16 = (g.k + 15) / 16;  // k16 steps over the depth
+  const int chunks = (g.k + kBK - 1) / kBK;
+
+  int b_src[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int t = 0; t < kStages; ++t) {
+    if (t < chunks) {
+      if (B_KN) rows_of(t, b_src);
+      load(t, t, b_src);
+    }
+    tf32x3::cp_async_commit();
+  }
+  if (B_KN) rows_of(kStages, b_src);
+  tf32x3::cp_async_wait<kStages - 1>();
+  __syncthreads();
+  split(0, 0, 0);
+  split(0, 0, 1);
+  publish();
+
+  // Iteration t: each k16 step of chunk t goes to the tensor cores
+  // (asynchronous) and half of chunk t + 1 is split while it runs, then
+  // chunk t + 3's copies are issued, then each step's product (from zero,
+  // mma3x2's pass order) is added to the f32 accumulator in depth order.
+  for (int t = 0; t < chunks; ++t) {
+    tf32x3::cp_async_wait<kStages - 2>();  // chunk t + 1 has landed
+    __syncthreads();
+    const float* pa = planes + (t & 1) * 2 * kPlanes;
+    const float* pb = pa + kPlanes;
+    const bool second = 2 * t + 1 < k16;  // the chunk's second k16 step
+    const bool more = t + 1 < chunks;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      float (&p)[64] = s == 0 ? p0 : p1;
+      // k8 step kk of step s: depth groups 4s + 2kk, 4s + 2kk + 1
+      const uint64_t a_hi[2] = {desc(pa + core(4 * s, 64 * wg)),
+                                desc(pa + core(4 * s + 2, 64 * wg))};
+      const uint64_t b_hi[2] = {desc(pb + core(4 * s, 0)),
+                                desc(pb + core(4 * s + 2, 0))};
+      const uint64_t lo = (uint64_t)(kPlane * 4) >> 4;  // hi → lo
+      if (s == 0 || second) {
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          wgmma(p, a_hi[kk] + lo, b_hi[kk], kk);  // lo·hi, from zero first
+          wgmma(p, a_hi[kk], b_hi[kk] + lo, 1);   // hi·lo
+        }
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) wgmma(p, a_hi[kk], b_hi[kk], 1);
+        wgmma_commit();
+      }
+      // half of chunk t + 1's split while the tensor cores take step s
+      if (more) split((t + 1) % kStages, (t + 1) & 1, s);
+    }
+    if (more) publish();
+    int next_src[4] = {0, 0, 0, 0};
+    if (t + kStages < chunks) {
+      if (B_KN) rows_of(t + kStages + 1, next_src);
+      load(t + kStages, t % kStages, b_src);
+    }
+    tf32x3::cp_async_commit();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) b_src[i] = next_src[i];
+    // Both steps' products read only after the whole group has landed:
+    // an accumulator read while another wgmma is in flight serializes
+    // every wgmma of the kernel (ptxas C7514).
+    wgmma_wait<0>();
+    fence_regs(p0);
+    fence_regs(p1);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += p0[i];
+    if (second) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += p1[i];
+    }
+  }
+
+  // acc[4j + 2h + u]: row 16·(warp & 3) + gq + 8h of the warpgroup's 64,
+  // column 8j + 2q + u (wgmma's accumulator layout).
+  float* out = g.out + bt * g.out_batch;
+  const bool vec_o = g.vec_o;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long m = m0 + 64 * wg + 16 * (warp & 3) + gq + 8 * h;
+    if (m >= g.m) continue;
+    const bool zero =
+        g.m_zero != nullptr && g.m_zero[bt * g.mz_batch + m] < 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = n0 + 8 * j + 2 * q;
+      if (n >= g.n) continue;
+      float* o = out + m * g.ldo + n;
+      float v0 = zero ? 0.f : acc[4 * j + 2 * h];
+      float v1 = zero ? 0.f : acc[4 * j + 2 * h + 1];
+      if (vec_o && n + 1 < g.n) {
+        if (ACC) {
+          const float2 w = *reinterpret_cast<const float2*>(o);
+          v0 = w.x + v0;
+          v1 = w.y + v1;
+        }
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        o[0] = ACC ? o[0] + v0 : v0;
+        if (n + 1 < g.n) o[1] = ACC ? o[1] + v1 : v1;
+      }
+    }
+  }
+}
+
+// 1 when a's rows (and batches) start 16-byte aligned at leading
+// dimension ld.
+inline int vec_ok(const float* a, long batch, int ld) {
+  return ld % 4 == 0 && batch % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(a) % 16 == 0;
+}
+
+// Launches `batch` products on stream s; `done` is the caller's per-device
+// table of the kernel's shared-memory opt-in (kept in the caller's .cu:
+// see tf32x3::allow_max_smem). cudaErrorInvalidValue for an empty shape
+// or a grid the card does not take.
+template <bool A_KM, bool B_KN, bool GATHER, bool ACC>
+cudaError_t gemm(Gemm g, long batch, cudaStream_t s,
+                 bool (&done)[tf32x3::kMaxDevices]) {
+  if (g.m <= 0 || g.n <= 0 || g.k <= 0 || batch <= 0 || batch > 65535)
+    return cudaErrorInvalidValue;
+  const long gx = (g.m + kBM - 1) / kBM, gy = (g.n + kBN - 1) / kBN;
+  if (gx > 0x7fffffffL || gy > 65535) return cudaErrorInvalidValue;
+  g.vec_a = vec_ok(g.a, g.a_batch, g.lda);
+  g.vec_b = vec_ok(g.b, GATHER ? 0 : g.b_batch, g.ldb);
+  g.vec_o = g.ldo % 2 == 0 && g.out_batch % 2 == 0 &&
+            reinterpret_cast<uintptr_t>(g.out) % 8 == 0;
+  cudaError_t err =
+      tf32x3::allow_max_smem(gemm_kernel<A_KM, B_KN, GATHER, ACC>, done);
+  if (err != cudaSuccess) return err;
+  gemm_kernel<A_KM, B_KN, GATHER, ACC>
+      <<<dim3((unsigned)gx, (unsigned)gy, (unsigned)batch), kThreads, kSmem,
+         s>>>(g);
+  return cudaGetLastError();
+}
+
+}  // namespace deep_tc

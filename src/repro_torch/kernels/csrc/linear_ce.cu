@@ -121,6 +121,31 @@
 //     114,688 bytes for dX and 99,072 for dW: two blocks, eight warps,
 //     per SM.
 //
+// Deep variants (the *_deep_launch entries), for d > 256, where no tile
+// above holds its owned planes and a streamed tile over the whole depth
+// in 227 KB. They read x and w as they are (no planes: at gemma-2's tied
+// 256,000 × 2304 table those would cost 4.7 GB) and walk the catalog in
+// chunks of `chunk` rows that a slab budget fixes (kernels/linear_sce.py
+// deep_chunk), as the deep eval_fused walks its score slabs:
+//   * forward: per chunk, the (N, chunk) logits slab by deep_tc.cuh's
+//     3xTF32 product (positions as A, catalog rows as B), then
+//     deep_fold_kernel, a warp per row: the softcap, the online (m, s)
+//     merged after the chunks before it, the target's logit plucked from
+//     the same slab value in its chunk; deep_finish_kernel writes lse and
+//     loss. The chunks go in ascending order, so the result repeats bit
+//     for bit.
+//   * backward (one entry for dX and dW/dY): per chunk the logits again
+//     (the same product, so the same bits as the forward's), turned in
+//     place into the cotangent (p − onehot)·cap′·g once, then
+//     dX += G · w_chunk (the first chunk writes; the product's
+//     accumulate epilogue, in chunk order, no atomics) and
+//     dW_chunk = Gᵀ · x (every row written once), both reading that G.
+// At N 4,096, C 256,000, d 2304 the forward's product is 4.8 TFLOP (29 ms
+// at three TF32 passes at 495 TFLOP/s), each backward product as much;
+// the slab's traffic (written and folded; written, rewritten, read
+// twice) is a byte per ≈ 575 FLOP forward and ≈ 860 backward, so the
+// products bound them.
+//
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes in src/repro_torch/kernels/linear_sce.py.
@@ -130,6 +155,7 @@
 
 #include <type_traits>
 
+#include "deep_tc.cuh"
 #include "tf32x3_tile.cuh"
 
 namespace {
@@ -862,8 +888,9 @@ cudaError_t plan_splits(K kernel, int threads, size_t smem, int row_tiles,
   return cudaSuccess;
 }
 
-bool shapes_ok(int n, int c, int d) {
-  return n > 0 && c > 0 && d > 0 && d <= kMaxD && c <= (1 << 30);
+// The resident kernels take d ≤ kMaxD; the deep entries (deep) any d.
+bool shapes_ok(int n, int c, int d, bool deep = false) {
+  return n > 0 && c > 0 && d > 0 && (deep || d <= kMaxD) && c <= (1 << 30);
 }
 
 // Splits of `tiles` tiles into `splits` contiguous ranges.
@@ -966,13 +993,138 @@ int out_chunks(int d) { return (padded_depth(d) + kOutCols - 1) / kOutCols; }
 
 int s_tiles(int rows) { return (rows + kStreamRows - 1) / kStreamRows; }
 
+// ---------------------------------------------------------------------------
+// Deep variants (d > kMaxD): the catalog in chunks of `chunk` rows, each
+// chunk's logits written once into an (n, chunk) slab by deep_tc.cuh's
+// product, then folded (forward) or turned into the cotangent in place
+// and multiplied back (backward), chunk after chunk in stream order.
+// ---------------------------------------------------------------------------
+constexpr int kFoldWarps = 8;
+
+// deep_tc's product, with this library's table of its shared-memory
+// opt-in for each instantiation.
+template <bool A_KM, bool B_KN, bool ACC, bool GATHER = false>
+cudaError_t tc_gemm(const deep_tc::Gemm& g, cudaStream_t s, long batch = 1) {
+  static bool done[kMaxDevices] = {};
+  return deep_tc::gemm<A_KM, B_KN, GATHER, ACC>(g, batch, s, done);
+}
+
+// Calls f(std::integral_constant<bool, v>).
+template <class F>
+cudaError_t with_bool(bool v, F&& f) {
+  return v ? f(True{}) : f(False{});
+}
+
+// slab[r][j] = x[r] · w[c0 + j] for j < cc, at pitch ld.
+cudaError_t chunk_logits(const float* x, const float* w, float* slab, int ld,
+                         int n, int c0, int cc, int d, cudaStream_t s) {
+  deep_tc::Gemm g{};
+  g.a = x;
+  g.lda = d;
+  g.b = w + (long)c0 * d;
+  g.ldb = d;
+  g.out = slab;
+  g.ldo = ld;
+  g.m = n;
+  g.n = cc;
+  g.k = d;
+  return tc_gemm<false, false, false>(g, s);
+}
+
+// One chunk of the forward, a warp per row: the online (m, s) of the
+// row's capped logits (lanes stride the chunk, then a fixed shuffle
+// tree), merged after the (m, s) of the chunks before it in state
+// (n, 3) = (m, s, pos); the target's capped logit plucked when it lies
+// in this chunk (a target outside [0, C) keeps pos 0).
+template <bool PLUCK, bool CAP>
+__global__ void __launch_bounds__(32 * kFoldWarps)
+deep_fold_kernel(const float* __restrict__ slab, int ld,
+                 const int* __restrict__ tgt, float* __restrict__ state,
+                 int n, int c0, int cc, int first, float cap) {
+  const int row = blockIdx.x * kFoldWarps + (threadIdx.x >> 5);
+  if (row >= n) return;  // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const float* l = slab + (long)row * ld;
+  float m = kNegInf, s = 0.f;
+  for (int j = lane; j < cc; j += 32) {
+    const float v = logit<CAP>(l[j], cap);
+    if (v > m) {
+      s = s * exp_diff(m, v) + 1.f;
+      m = v;
+    } else {
+      s += exp_diff(v, m);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float mo = __shfl_xor_sync(kFull, m, o);
+    const float so = __shfl_xor_sync(kFull, s, o);
+    merge_ms(m, s, mo, so);
+  }
+  if (lane != 0) return;
+  float* st = state + 3L * row;
+  float pos = 0.f;
+  if (!first) {
+    float mp = st[0], sp = st[1];
+    merge_ms(mp, sp, m, s);
+    m = mp;
+    s = sp;
+    pos = st[2];
+  }
+  if (PLUCK) {
+    const int t = tgt[row];
+    if (t >= c0 && t - c0 < cc) pos = logit<CAP>(l[t - c0], cap);
+  }
+  st[0] = m;
+  st[1] = s;
+  st[2] = pos;
+}
+
+// lse = m + log(s) of each row's state; with PLUCK loss = lse − pos.
+template <bool PLUCK>
+__global__ void __launch_bounds__(kMergeThreads)
+deep_finish_kernel(const float* __restrict__ state, float* __restrict__ loss,
+                   float* __restrict__ lse, int n) {
+  const int r = blockIdx.x * kMergeThreads + threadIdx.x;
+  if (r >= n) return;
+  const float l2 = state[3L * r] + logf(state[3L * r + 1]);
+  lse[r] = l2;
+  if (PLUCK) loss[r] = l2 - state[3L * r + 2];
+}
+
+// The chunk's logits in the slab → the cotangent in place:
+// (p − onehot)·cap′·g, the resident backward's entry (cotangent above).
+template <bool PLUCK, bool CAP>
+__global__ void __launch_bounds__(256)
+deep_cotangent_kernel(float* __restrict__ slab, int ld,
+                      const int* __restrict__ tgt,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ g, int n, int c0, int cc,
+                      float cap) {
+  const long total = (long)n * cc;
+  for (long e = (long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (long)gridDim.x * blockDim.x) {
+    const long row = e / cc;
+    const int j = (int)(e - row * cc);
+    float* p = slab + row * ld + j;
+    const float l = logit<CAP>(*p, cap);
+    *p = cotangent<PLUCK, CAP>(l, lse[row], g[row], true,
+                               PLUCK && tgt[row] == c0 + j, cap);
+  }
+}
+
+unsigned grid_of(long total) {
+  return (unsigned)(total / 256 + 1 < 65536 ? total / 256 + 1 : 65536);
+}
+
 }  // namespace
 
 // The C interface, bound with ctypes. Shapes: x (n, d) f32, w (c, d) f32,
 // tgt (n,) i32 (null unless pluck), lse, g, loss (n,) f32; xp
 // (n, dp / 8, 2, 8) and wp (c, dp / 8, 2, 8) f32, the (hi, lo) planes of
 // x and w (dp = d rounded up to 16), 16-byte aligned; all contiguous,
-// d ≤ 256. `cap` > 0 is the logit softcap, 0 none.
+// d ≤ 256 (above, the deep entries at the end). `cap` > 0 is the logit
+// softcap, 0 none.
 // Each launcher returns the cudaError_t of its launches (0 on success),
 // and cudaErrorInvalidValue for shapes it does not take. Nothing is
 // synchronised and nothing is allocated.
@@ -1148,5 +1300,125 @@ extern "C" int linear_ce_dw_launch(const float* xp, const float* wp,
     const dim3 grid((c + bm - 1) / bm, 1, out_chunks(d));
     ce_bwd_kernel<true, PL, CP><<<grid, 32 * p.warps, p.smem, st>>>(a, dw);
     return cudaGetLastError();
+  });
+}
+
+// The deep entries, for any d > 0 (the resident ones above take
+// d ≤ 256): x (n, d), w (c, d) f32 read as they are (no planes); slab an
+// (n, chunk) f32 workspace, chunk a multiple of 4 (the wrapper takes
+// 128 · ⌊budget / 128⌋ catalog rows).
+
+// Forward: lse (n,), and with pluck loss (n,); state (n, 3) f32 scratch.
+extern "C" int linear_ce_fwd_deep_launch(const float* x, const float* w,
+                                         const int* tgt, float* slab,
+                                         float* state, float* loss,
+                                         float* lse, int n, int c, int d,
+                                         int chunk, int pluck, float cap,
+                                         void* stream) {
+  if (!shapes_ok(n, c, d, true) || chunk < 1 || chunk % 4 != 0 ||
+      (pluck && (tgt == nullptr || loss == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)with_flags(pluck != 0, cap > 0.f, [&](auto pl, auto cp) {
+    constexpr bool PL = decltype(pl)::value;
+    constexpr bool CP = decltype(cp)::value;
+    for (long c0 = 0; c0 < c; c0 += chunk) {
+      const int cc = (int)(c - c0 < chunk ? c - c0 : chunk);
+      cudaError_t err = chunk_logits(x, w, slab, chunk, n, (int)c0, cc, d, st);
+      if (err != cudaSuccess) return err;
+      deep_fold_kernel<PL, CP>
+          <<<(n + kFoldWarps - 1) / kFoldWarps, 32 * kFoldWarps, 0, st>>>(
+              slab, chunk, tgt, state, n, (int)c0, cc, c0 == 0, cap);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    deep_finish_kernel<PL>
+        <<<(n + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0, st>>>(
+            state, loss, lse, n);
+    return cudaGetLastError();
+  });
+}
+
+// dX (n, d) and dW (c, d) — either may be null, not both — for the
+// upstream cotangent g (n,), each chunk's cotangent written once and read
+// by both products: dX += G · w_chunk over the chunks in order (the first
+// writes), dW's chunk rows = Gᵀ · x, each written once.
+extern "C" int linear_ce_bwd_deep_launch(const float* x, const float* w,
+                                         const int* tgt, const float* lse,
+                                         const float* g, float* dx, float* dw,
+                                         float* slab, int n, int c, int d,
+                                         int chunk, int pluck, float cap,
+                                         void* stream) {
+  if (!shapes_ok(n, c, d, true) || chunk < 1 || chunk % 4 != 0 ||
+      (pluck && tgt == nullptr) || (dx == nullptr && dw == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)with_flags(pluck != 0, cap > 0.f, [&](auto pl, auto cp) {
+    constexpr bool PL = decltype(pl)::value;
+    constexpr bool CP = decltype(cp)::value;
+    for (long c0 = 0; c0 < c; c0 += chunk) {
+      const int cc = (int)(c - c0 < chunk ? c - c0 : chunk);
+      cudaError_t err = chunk_logits(x, w, slab, chunk, n, (int)c0, cc, d, st);
+      if (err != cudaSuccess) return err;
+      deep_cotangent_kernel<PL, CP><<<grid_of((long)n * cc), 256, 0, st>>>(
+          slab, chunk, tgt, lse, g, n, (int)c0, cc, cap);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      deep_tc::Gemm p{};
+      p.a = slab;
+      p.lda = chunk;
+      p.ldo = d;
+      p.n = d;
+      p.ldb = d;
+      if (dx != nullptr) {  // dX[r] += Σ_j G[r][j]·w[c0 + j]
+        deep_tc::Gemm q = p;
+        q.b = w + c0 * d;
+        q.out = dx;
+        q.m = n;
+        q.k = cc;
+        err = c0 == 0 ? tc_gemm<false, true, false>(q, st)
+                      : tc_gemm<false, true, true>(q, st);
+        if (err != cudaSuccess) return err;
+      }
+      if (dw != nullptr) {  // dW[c0 + j] = Σ_r G[r][j]·x[r]
+        p.b = x;
+        p.out = dw + c0 * d;
+        p.m = cc;
+        p.k = n;
+        err = tc_gemm<true, true, false>(p, st);
+        if (err != cudaSuccess) return err;
+      }
+    }
+    return cudaSuccess;
+  });
+}
+
+// deep_tc.cuh's product on its own, in every operand option (the entry
+// of tests and probes; the deep variants above call it inline): `batch`
+// products C[t] = A[t] · B[t]ᵀ of deep_tc::Gemm's shapes, out = C or,
+// with acc, out += C.
+extern "C" int deep_tc_launch(const float* a, const float* b,
+                              const int* idx, const int* m_zero, float* out,
+                              int m, int n, int k, int lda, int ldb, int ldo,
+                              long a_batch, long b_batch, long idx_batch,
+                              long out_batch, long mz_batch, int b_rows,
+                              int batch, int a_km, int b_kn, int gather,
+                              int acc, void* stream) {
+  if (gather && (idx == nullptr || b_rows < 1))
+    return (int)cudaErrorInvalidValue;
+  deep_tc::Gemm g{a,   a_batch,   lda, b,      b_batch,  ldb,
+                  idx, idx_batch, b_rows, out, out_batch, ldo,
+                  m_zero, mz_batch, m, n, k, 0, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)with_bool(a_km != 0, [&](auto akm) {
+    return with_bool(b_kn != 0, [&](auto bkn) {
+      return with_bool(gather != 0, [&](auto gat) {
+        return with_bool(acc != 0, [&](auto ac) {
+          return tc_gemm<decltype(akm)::value, decltype(bkn)::value,
+                         decltype(ac)::value, decltype(gat)::value>(g, st,
+                                                                   batch);
+        });
+      });
+    });
   });
 }

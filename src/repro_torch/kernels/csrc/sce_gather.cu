@@ -191,8 +191,10 @@
 // kernels above cannot keep their owned rows' fragments and a streamed
 // tile over the whole depth in shared memory. They write the logits once:
 //   * the logits L[n] = x_b[n] · Y[idx[n]]ᵀ (n_b, b_x, b_y) f32 into a
-//     workspace, by deep_gemm.cuh's product (positions as A, candidates
-//     gathered by id as B, 3xTF32 k16 steps over depth chunks of 32);
+//     workspace, by deep_tc.cuh's product (positions as A, candidates
+//     gathered by id as B, 3xTF32 k16 steps over depth chunks of 32; the
+//     arithmetic of deep_gemm.cuh, which these entries ran before, so
+//     their outputs are the same bits);
 //   * the forward: fold_kernel, a warp per (bucket, position) row, folds
 //     the row's softcapped, masked logits into the online (m, s) and
 //     writes loss and lse (or the plse) as above;
@@ -202,7 +204,7 @@
 //     rounding) and turns it in place into the cotangent G once
 //     (cotangent_kernel: the softcap, the mask, the capped exp, g); then
 //     dX = G · Y[idx] and the slot rows Gᵀ · x_b, both read that one G,
-//     by the same product, each a d-wide output tiled 64 columns a
+//     by the same product, each a d-wide output tiled 128 columns a
 //     block, no atomics: dX repeats bit for bit and the gathered dY's
 //     workspace goes through dy_sum_kernel as above. A caller that wants
 //     one of the two passes null for the other.
@@ -223,7 +225,7 @@
 
 #include <type_traits>
 
-#include "deep_gemm.cuh"
+#include "deep_tc.cuh"
 #include "tf32x3_tile.cuh"
 
 namespace {
@@ -1166,13 +1168,21 @@ int launch_bwd(const float* x_b, const float* y, const int* idx_y,
 // ---------------------------------------------------------------------------
 constexpr int kFoldWarps = 8;
 
+// deep_tc's product, with this library's table of its shared-memory
+// opt-in for each instantiation.
+template <bool A_KM, bool B_KN, bool GATHER>
+cudaError_t tc_gemm(const deep_tc::Gemm& g, long batch, cudaStream_t s) {
+  static bool done[kMaxDevices] = {};
+  return deep_tc::gemm<A_KM, B_KN, GATHER, false>(g, batch, s, done);
+}
+
 // The logits L (n_b, b_x, b_y) of every bucket into ws: candidates
 // gathered by clamped id (or row n·b_y + j with DIRECT).
 template <bool DIRECT>
 cudaError_t deep_logits(const float* x_b, const float* y, const int* idx_y,
                         float* ws, int n_b, int b_x, int b_y, int c, int d,
                         cudaStream_t s) {
-  deep_gemm::Gemm g{};
+  deep_tc::Gemm g{};
   g.a = x_b;
   g.a_batch = (long)b_x * d;
   g.lda = d;
@@ -1191,7 +1201,7 @@ cudaError_t deep_logits(const float* x_b, const float* y, const int* idx_y,
   g.m = b_x;
   g.n = b_y;
   g.k = d;
-  return deep_gemm::gemm<false, false, !DIRECT>(g, n_b, s);
+  return tc_gemm<false, false, !DIRECT>(g, n_b, s);
 }
 
 // The forward's fold of row blockIdx.x · kFoldWarps + warp: the online
@@ -1308,7 +1318,7 @@ int launch_bwd_deep(const float* x_b, const float* y, const int* idx_y,
                                                    rows, b_x, b_y, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  deep_gemm::Gemm p{};
+  deep_tc::Gemm p{};
   p.a = ws;
   p.a_batch = (long)b_x * b_y;
   p.lda = b_y;
@@ -1316,7 +1326,7 @@ int launch_bwd_deep(const float* x_b, const float* y, const int* idx_y,
   p.ldo = d;
   p.n = d;
   if (dx != nullptr) {  // dX[n, x] = Σ_j G[x][j]·Y[idx[n, j]]
-    deep_gemm::Gemm q = p;
+    deep_tc::Gemm q = p;
     q.out = dx;
     q.b = y;
     if (DIRECT) {
@@ -1329,8 +1339,7 @@ int launch_bwd_deep(const float* x_b, const float* y, const int* idx_y,
     q.out_batch = (long)b_x * d;
     q.m = b_x;
     q.k = b_y;
-    err = DIRECT ? deep_gemm::gemm<false, true, false>(q, n_b, s)
-                 : deep_gemm::gemm<false, true, true>(q, n_b, s);
+    err = tc_gemm<false, true, !DIRECT>(q, n_b, s);
     if (err != cudaSuccess) return (int)err;
   }
   if (dy != nullptr) {  // slot rows n·b_y + j: Σ_x G[x][j]·x_b[n, x]
@@ -1342,7 +1351,7 @@ int launch_bwd_deep(const float* x_b, const float* y, const int* idx_y,
     p.mz_batch = b_y;
     p.m = b_y;
     p.k = b_x;
-    err = deep_gemm::gemm<true, true, false>(p, n_b, s);
+    err = tc_gemm<true, true, false>(p, n_b, s);
   }
   return (int)err;
 }

@@ -4,7 +4,8 @@
 The kernels are ``csrc/linear_ce.cu``'s, launched without the in-sweep
 positive, the one-hot and the softcap (``kernels/linear_sce.py``'s
 ``_fwd``, ``_dx`` and ``_dw``, on the planes of its
-``linear_ce_split``). Three wrappers, each with its own launch counter:
+``linear_ce_split``; above d 256 its deep entries, on no planes).
+Three wrappers, each with its own launch counter:
 
 * :func:`fused_lse_fwd` — per-position lse (N,);
 * :func:`fused_lse_dx` — dX = ``(p·g) Y`` (N, d);
@@ -60,8 +61,9 @@ class FusedLSE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, y):
-        planes = _linear.linear_ce_split(x, y)
-        lse = fused_lse_fwd(x, y, planes=planes)
+        planes = (() if _linear.is_deep(x.shape[-1])
+                  else _linear.linear_ce_split(x, y))
+        lse = fused_lse_fwd(x, y, planes=planes or None)
         ctx.save_for_backward(x, y, lse, *planes)
         return lse
 
@@ -70,6 +72,12 @@ class FusedLSE(torch.autograd.Function):
         x, y, lse, *planes = ctx.saved_tensors
         g = g.contiguous()
         need = ctx.needs_input_grad
+        if _linear.is_deep(x.shape[-1]):  # one launch, G written once
+            dx, dy = _linear._bwd_deep(x, y, None, lse, g, None, need[0],
+                                       need[1])
+            fused_lse_dx.launches += need[0]
+            fused_lse_dy.launches += need[1]
+            return dx, dy
         dx = fused_lse_dx(x, y, lse, g, planes=planes) if need[0] else None
         dy = fused_lse_dy(x, y, lse, g, planes=planes) if need[1] else None
         return dx, dy

@@ -26,12 +26,10 @@ from typing import Dict, List, Optional, Tuple
 
 # Shared memory one block may opt in to on sm_90 (227 KB).
 MAX_SMEM = 232_448
-MAX_D = 256  # kMaxD of csrc/tf32x3_tile.cuh and topk_tile.cuh
 MAX_K = 512  # kMaxSweepK of csrc/topk_tile.cuh (the top-k list length)
-# The groups whose kernels have no deep variant keep the flat depth cap;
-# the others take any d, their plans' shared memory (smem_budget) being
-# the limit. mips_topk's deep chain takes lists to kMaxK = 1024.
-D_MAX = {"linear_sce": MAX_D, "fused_ce": MAX_D}
+# Every group takes any d (above 256 its deep variant), its plans' shared
+# memory (smem_budget) being the limit. mips_topk's deep chain takes
+# lists to kMaxK = 1024.
 K_MAX = {"mips_topk": 1024}
 
 # The kernels take float32 data (int32 ids); bf16 is not ported.
@@ -51,8 +49,8 @@ KNOWN_KERNELS = (
 )
 
 PREFLIGHT_RULES = (
-    "unknown_kernel", "positive_dims", "dtype_supported", "d_max",
-    "k_max", "positive_block", "block_le_dim", "smem_budget",
+    "unknown_kernel", "positive_dims", "dtype_supported", "k_max",
+    "positive_block", "block_le_dim", "smem_budget",
 )
 """The rules, in the order they are checked (an attribute docstring):
 
@@ -62,8 +60,6 @@ PREFLIGHT_RULES = (
   unknown_kernel   the group is one of KNOWN_KERNELS             raise
   positive_dims    rows / cols / d / k are >= 1                  raise
   dtype_supported  the data is float32 (the .cu files take f32)  raise
-  d_max            d <= 256 for linear_sce and fused_ce (kMaxD:  raise
-                   staging; no deep variant); any d elsewhere
   k_max            k <= 512 (kMaxSweepK: the top-k list slots);  raise
                    mips_topk k <= 1024 (its deep chain)
   positive_block   the plain version's chunk is >= 1             repair
@@ -174,10 +170,6 @@ def preflight(kernel: str, *, rows: int, cols: int, d: int,
     if k is not None and k < 1:
         raise KernelPreflightError(kernel, "positive_dims",
                                    f"k={k} must be >= 1")
-    d_max = D_MAX.get(kernel)
-    if d_max is not None and d > d_max:
-        raise KernelPreflightError(kernel, "d_max",
-                                   f"d={d} exceeds the kernels' {d_max}")
     k_max = K_MAX.get(kernel, MAX_K)
     if k is not None and k > k_max:
         raise KernelPreflightError(kernel, "k_max",

@@ -23,6 +23,14 @@ recompute the capped logit tiles, so the ``(N, C)`` logits never exist.
 one-hot (``_fwd``, ``_dx``, ``_dw`` below). The wrappers take CUDA
 tensors only; the CPU path is ``kernels/ref.py``, chosen by
 ``kernels/ops.py``.
+
+Above ``MAX_D`` (:func:`is_deep`) the same wrappers launch the deep
+entries of ``csrc/linear_ce.cu``: no planes; the catalog in chunks of
+:func:`deep_chunk` rows, each chunk's ``(N, chunk)`` logits written into
+a slab by ``csrc/deep_tc.cuh``'s 3xTF32 product and folded (the
+forward), or recomputed, turned into the cotangent once and multiplied
+back into dX (accumulated over the chunks in order) and dW's chunk rows
+— both from one launch when autograd needs both.
 """
 from __future__ import annotations
 
@@ -38,6 +46,24 @@ DEPTH_ALIGN = 16  # kDepthAlign in csrc/tf32x3_tile.cuh
 MAX_SMEM = 232_448  # a block's opt-in shared memory on sm_90
 PAIR_SMEM = 233_472 // 2 - 1024  # two blocks an SM, 1 KB reserved each
 FWD_MAX_WARPS = 8  # kFwdMaxWarps in csrc/linear_ce.cu
+DEEP_SMEM = 229_376  # deep_tc::kSmem: the deep product's shared memory
+SLAB_BYTES = 1 << 28  # a deep call's logits slab at most
+CHUNK_ALIGN = 128  # deep_tc::kBN: a chunk is whole output tiles wide
+
+
+def is_deep(d: int) -> bool:
+    """Whether depth ``d`` takes the deep variant: exactly where the
+    resident kernels cannot, ``d > MAX_D``."""
+    return d > MAX_D
+
+
+def deep_chunk(n: int, c: int) -> int:
+    """Catalog rows a deep call's slab holds: the most multiple of
+    ``CHUNK_ALIGN`` whose ``(n, chunk)`` f32 slab fits ``SLAB_BYTES`` (at
+    least ``CHUNK_ALIGN``), no more than the catalog needs."""
+    chunk = max(CHUNK_ALIGN,
+                SLAB_BYTES // (4 * n) // CHUNK_ALIGN * CHUNK_ALIGN)
+    return min(chunk, -(-c // CHUNK_ALIGN) * CHUNK_ALIGN)
 
 
 def padded_depth(d: int) -> int:
@@ -117,8 +143,11 @@ def library_bwd_plan(d: int, dw: bool):
 def planned_smem(d: int) -> int:
     """Dynamic shared memory per block of the largest of the launches at
     depth d: the forward's or the backward's owned planes and ring
-    (:func:`fwd_plan`, :func:`bwd_plan`). The kernel guard checks it
-    against the 227 KB a block may use."""
+    (:func:`fwd_plan`, :func:`bwd_plan`), or the deep variant's product
+    (``DEEP_SMEM`` at every d). The kernel guard checks it against the
+    227 KB a block may use."""
+    if is_deep(d):
+        return DEEP_SMEM
     return max(fwd_plan(d)[2], bwd_plan(d, False)[2], bwd_plan(d, True)[2])
 
 
@@ -135,11 +164,16 @@ def _lib() -> ctypes.CDLL:
     lib.linear_ce_split_launch.argtypes = [p] * 4 + [i] * 3 + [p]
     lib.linear_ce_fwd_plan.argtypes = [i] + [ctypes.POINTER(i)] * 2
     lib.linear_ce_bwd_plan.argtypes = [i, i] + [ctypes.POINTER(i)] * 2
+    lib.linear_ce_fwd_deep_launch.argtypes = [p] * 7 + [i] * 5 + [f, p]
+    lib.linear_ce_bwd_deep_launch.argtypes = [p] * 8 + [i] * 5 + [f, p]
+    L = ctypes.c_long
+    lib.deep_tc_launch.argtypes = [p] * 5 + [i] * 6 + [L] * 5 + [i] * 6 + [p]
     for fn in (lib.linear_ce_splits, lib.linear_ce_fwd_plan,
                lib.linear_ce_bwd_plan,
                lib.linear_ce_fwd_launch,
                lib.linear_ce_dx_launch, lib.linear_ce_dw_launch,
-               lib.linear_ce_split_launch):
+               lib.linear_ce_split_launch, lib.linear_ce_fwd_deep_launch,
+               lib.linear_ce_bwd_deep_launch, lib.deep_tc_launch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -167,9 +201,8 @@ def _check(x, w, targets, *rows):
         raise ValueError(f"targets, lse and g must be ({n},)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("linear_ce takes contiguous tensors")
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"d={d} outside (0, {MAX_D}]: linear_ce has no "
-                         f"deep variant yet (ROADMAP.md queue 3)")
+    if d == 0:
+        raise ValueError("linear_ce needs d > 0")
     if n == 0 or c == 0:
         raise ValueError("linear_ce needs positions and a catalog")
     return n, c, d
@@ -219,6 +252,8 @@ def _fwd(x, w, targets, logit_softcap, planes=None):
     n = shape[0]
     cap = _cap(logit_softcap)
     pluck = targets is not None
+    if is_deep(shape[2]):
+        return _fwd_deep(x, w, targets, cap, shape)
     xp, wp = _planes(x, w, planes)
     s = _splits(0, *shape, pluck, cap, x.device)
     part = torch.empty((s, n, 3), dtype=torch.float32, device=x.device)
@@ -231,11 +266,49 @@ def _fwd(x, w, targets, logit_softcap, planes=None):
     return loss, lse
 
 
+def _slab(shape, device):
+    """A deep call's ``(N, chunk)`` f32 logits slab and its chunk."""
+    n, c, _ = shape
+    chunk = deep_chunk(n, c)
+    return torch.empty((n, chunk), dtype=torch.float32, device=device), chunk
+
+
+def _fwd_deep(x, w, targets, cap, shape):
+    """The deep forward: ``(loss or None, lse)``, one launch."""
+    n = shape[0]
+    slab, chunk = _slab(shape, x.device)
+    state = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+    lse = torch.empty((n,), dtype=torch.float32, device=x.device)
+    loss = torch.empty_like(lse) if targets is not None else None
+    _call("linear_ce_fwd_deep_launch",
+          (x.data_ptr(), w.data_ptr(), _ptr(targets), slab.data_ptr(),
+           state.data_ptr(), _ptr(loss), lse.data_ptr(), *shape, chunk,
+           int(targets is not None), cap), shape, x.device)
+    return loss, lse
+
+
+def _bwd_deep(x, w, targets, lse, g, logit_softcap, want_dx, want_dw):
+    """The deep backward: ``(dx, dw)``, each None unless wanted, one
+    launch that writes each chunk's cotangent once for both."""
+    shape = _check(x, w, targets, lse, g)
+    slab, chunk = _slab(shape, x.device)
+    dx = torch.empty_like(x) if want_dx else None
+    dw = torch.empty_like(w) if want_dw else None
+    _call("linear_ce_bwd_deep_launch",
+          (x.data_ptr(), w.data_ptr(), _ptr(targets), lse.data_ptr(),
+           g.data_ptr(), _ptr(dx), _ptr(dw), slab.data_ptr(), *shape, chunk,
+           int(targets is not None), _cap(logit_softcap)), shape, x.device)
+    return dx, dw
+
+
 def _split(x, w):
     """The (hi, lo) planes of ``x`` and ``w``: ``(N, dp / 8, 2, 8)``,
     ``(C, dp / 8, 2, 8)`` f32, one launch."""
     shape = _check(x, w, None)
     n, c, d = shape
+    if is_deep(d):
+        raise ValueError(f"d={d} > {MAX_D}: the deep variant reads x and w "
+                         f"unsplit")
     blocks = padded_depth(d) // 8
     xp = torch.empty((n, blocks, 2, 8), dtype=torch.float32, device=x.device)
     wp = torch.empty((c, blocks, 2, 8), dtype=torch.float32, device=x.device)
@@ -263,6 +336,8 @@ def _planes(x, w, planes):
 
 
 def _dx(x, w, targets, lse, g, logit_softcap, planes=None):
+    if is_deep(x.shape[-1]):
+        return _bwd_deep(x, w, targets, lse, g, logit_softcap, True, False)[0]
     shape = _check(x, w, targets, lse, g)
     n, _, d = shape
     cap = _cap(logit_softcap)
@@ -280,6 +355,8 @@ def _dx(x, w, targets, lse, g, logit_softcap, planes=None):
 
 
 def _dw(x, w, targets, lse, g, logit_softcap, planes=None):
+    if is_deep(x.shape[-1]):
+        return _bwd_deep(x, w, targets, lse, g, logit_softcap, False, True)[1]
     shape = _check(x, w, targets, lse, g)
     cap = _cap(logit_softcap)
     xp, wp = _planes(x, w, planes)
@@ -328,6 +405,47 @@ def linear_ce_dw(x, w, targets, lse, g, *, logit_softcap=None, planes=None):
     return dw
 
 
+def deep_tc_product(a, b, *, a_km=False, b_kn=False, idx=None, out=None,
+                    m_zero=None):
+    """The deep variants' product (``csrc/deep_tc.cuh``) on its own, for
+    tests and probes: ``C[t] = A[t] · B[t]ᵀ`` in 3xTF32 over a batch.
+    ``a`` (T, M, K), or (T, K, M) with ``a_km``; ``b`` (T, N, K), or
+    (T, K, N) with ``b_kn`` — or, with ``idx`` (T, N) (with ``b_kn``
+    (T, K)) int32, a table (R, K) (``b_kn``: (R, N)) whose rows
+    ``clamp(idx, 0, R − 1)`` are B's rows. ``m_zero`` (T, M) int32: rows
+    with a negative entry come out 0. ``out`` (T, M, N) given: the
+    accumulate epilogue, ``out += C`` in place. Returns the (T, M, N)
+    output. Matches ``ref.deep_tc_ref``."""
+    t = a.shape[0]
+    m, k = (a.shape[2], a.shape[1]) if a_km else (a.shape[1], a.shape[2])
+    if idx is None:
+        n = b.shape[1] if not b_kn else b.shape[2]
+    else:
+        n = idx.shape[1] if not b_kn else b.shape[1]
+    tensors = [x for x in (a, b, idx, out, m_zero) if x is not None]
+    if not all(x.is_cuda and x.is_contiguous() for x in tensors):
+        raise ValueError("deep_tc_product takes contiguous CUDA tensors")
+    acc = out is not None
+    if out is None:
+        out = torch.empty((t, m, n), dtype=torch.float32, device=a.device)
+    if out.shape != (t, m, n):
+        raise ValueError(f"out must be {(t, m, n)}")
+    with torch.cuda.device(a.device):
+        err = _lib().deep_tc_launch(
+            a.data_ptr(), b.data_ptr(), _ptr(idx), _ptr(m_zero),
+            out.data_ptr(), m, n, k, a.shape[-1], b.shape[-1], n,
+            a[0].numel(), 0 if idx is not None else b[0].numel(),
+            0 if idx is None else idx.shape[1], m * n, m, b.shape[0], t,
+            int(a_km), int(b_kn), int(idx is not None), int(acc),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"deep_tc_launch failed: cudaError {err} "
+                           f"(M={m}, N={n}, K={k}, batch {t})")
+    deep_tc_product.launches += 1
+    return out
+
+
+deep_tc_product.launches = 0
 linear_ce_fwd.launches = 0
 linear_ce_split.launches = 0
 linear_ce_dx.launches = 0
@@ -340,9 +458,9 @@ class LinearCELoss(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, targets, logit_softcap):
-        planes = linear_ce_split(x, w)
+        planes = () if is_deep(x.shape[-1]) else linear_ce_split(x, w)
         loss, lse = linear_ce_fwd(x, w, targets, logit_softcap=logit_softcap,
-                                  planes=planes)
+                                  planes=planes or None)
         ctx.save_for_backward(x, w, targets, lse, *planes)
         ctx.logit_softcap = logit_softcap
         return loss
@@ -353,6 +471,11 @@ class LinearCELoss(torch.autograd.Function):
         g = g.contiguous()
         cap = ctx.logit_softcap
         need = ctx.needs_input_grad
+        if is_deep(x.shape[-1]):  # one launch, each chunk's G written once
+            dx, dw = _bwd_deep(x, w, targets, lse, g, cap, need[0], need[1])
+            linear_ce_dx.launches += need[0]
+            linear_ce_dw.launches += need[1]
+            return dx, dw, None, None
         dx = (linear_ce_dx(x, w, targets, lse, g, logit_softcap=cap,
                            planes=planes) if need[0] else None)
         dw = (linear_ce_dw(x, w, targets, lse, g, logit_softcap=cap,

@@ -452,3 +452,21 @@ def tf32x3_planes_ref(a):
     lo = tf32_round(a - hi)
     return torch.stack([hi.view(rows, dp // 8, 8),
                         lo.view(rows, dp // 8, 8)], dim=2)
+
+
+def deep_tc_ref(a, b, *, a_km=False, b_kn=False, idx=None, out=None,
+                m_zero=None):
+    """The plain version of ``linear_sce.deep_tc_product`` (the arguments
+    as there): the same batched product ``A · Bᵀ`` in the working type of
+    ``a`` (f32; f64 for f64 inputs), B's rows gathered by clamped id,
+    zeroed rows, ``out + C`` when ``out`` is given (a new tensor)."""
+    a_ = a.transpose(1, 2) if a_km else a
+    if idx is not None:
+        rows = b[idx.long().clamp(0, b.shape[0] - 1)]  # (T, N|K, K|N)
+        b_ = rows.transpose(1, 2) if b_kn else rows
+    else:
+        b_ = b.transpose(1, 2) if b_kn else b
+    c = torch.bmm(a_, b_.transpose(1, 2).to(a_.dtype))
+    if m_zero is not None:
+        c = torch.where((m_zero < 0)[..., None], 0.0, c)
+    return c if out is None else out + c

@@ -41,7 +41,7 @@ the CPU paths are ``kernels/ref.py::sce_gather_loss_ref`` and
 
 Above ``MAX_D`` (:func:`is_deep`) every wrapper launches the source's
 deep variant (``*_deep_launch``): the logits are written once into an
-``(n_b, b_x, b_y)`` f32 workspace by ``csrc/deep_gemm.cuh``'s 3xTF32
+``(n_b, b_x, b_y)`` f32 workspace by ``csrc/deep_tc.cuh``'s 3xTF32
 product over depth chunks of 32, then folded (the forward), or, in one
 backward launch, recomputed with the same product, turned into the
 cotangent once and multiplied back into dX and dY's slot rows — both
@@ -55,10 +55,9 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.linear_sce import MAX_SMEM, padded_depth
+from repro_torch.kernels.linear_sce import DEEP_SMEM, MAX_SMEM, padded_depth
 
 MAX_D = 256  # kMaxD in csrc/tf32x3_tile.cuh: above it, the deep variant
-DEEP_SMEM = 40_960  # deep_gemm.cuh's static shared memory a block
 STREAM_ROWS = 32  # kStreamRows: rows of a streamed backward tile
 STAGES = 3  # kStages: the backward's raw ring
 

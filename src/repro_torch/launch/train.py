@@ -98,6 +98,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -166,7 +167,8 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
           watchdog: float = 5.0, skip_stragglers: bool = False,
           metrics_file: Optional[str] = None, max_strikes: int = 3,
           guard_factor: float = 100.0, chaos_nan_at: Optional[int] = None,
-          guard_policy: Optional[str] = None, mark=None) -> Dict[str, Any]:
+          guard_policy: Optional[str] = None, mark=None,
+          train_loss: Optional[str] = None) -> Dict[str, Any]:
     """Train ``arch_name`` for ``steps`` steps of ``batch`` sequences (the
     global batch: each rank of the mesh steps its data shard of it) —
     SASRec's of ``cfg.max_len`` items, an LM's of ``seq_len`` tokens.
@@ -199,6 +201,8 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     newest verified checkpoint, or raises ``RuntimeError`` without
     ``ckpt_dir`` or an intact checkpoint. ``guard_policy`` (``off`` /
     ``warn`` / ``strict``) sets the process-wide kernel-guard policy.
+    ``train_loss`` replaces the arch's own loss (a registry name, e.g.
+    ``"ce_fused_linear"``: the full-CE baseline of an SCE arch).
 
     Returns ``first_loss``, ``final_loss``, ``steps`` (steps run in this
     call, a rolled-back stretch counted again), ``mean_step_s`` (host
@@ -216,6 +220,8 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
         kguard.set_policy(guard_policy)
     device = resolve_device(device)
     arch = get_arch(arch_name)
+    if train_loss is not None:
+        arch = dataclasses.replace(arch, train_loss=train_loss)
     if arch.family not in ("seqrec", "lm"):
         raise NotImplementedError(f"{arch.family} training is not ported")
     lm = arch.family == "lm"

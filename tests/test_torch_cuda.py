@@ -80,6 +80,18 @@ library's at every depth; and an lse more than 44 below a logit, where
 the kernels cap exp's argument (their one deviation from the plain
 version), holds the capped formula.
 
+The deep variants' product (``csrc/deep_tc.cuh``, behind every deep SCE
+and full-CE entry): in each of its 16 operand options (A M-major, B
+N-major, B gathered by a clamped id, the accumulate epilogue; zeroed rows
+with A M-major) at ragged shapes, K = 37 among them, within
+``1e-5·max|C| + 2e-4·|C|`` of the plain version in f64, and a second
+launch bit for bit the first. The deep full CE (``linear_ce_loss`` with
+and without cap 30, ``fused_lse``, ``fused_ce_loss``) at d 288 and 2304 in
+several catalog chunks, a target in the last and targets outside
+``[0, C)``: forward, dX and dW/dY against the plain versions in f64 at
+the d ≤ 256 tolerances, one launch of each counter; its entries repeat
+bit for bit and the one-launch backward equals dX and dW alone.
+
 ``sce_bucket`` (forward, dX, dY over pre-gathered candidates, and the
 partial LSE): the tolerances of ``sce_gather``; its forward and dX equal
 ``sce_gather``'s bit for bit on ``y_b = y[idx]`` (the same tile walk),
@@ -99,6 +111,9 @@ AdamW state come back on the card bit for bit. The
 ``dev`` fixture runs the canaries once before any test counts launches,
 so a test's launch counts hold its own launches only.
 """
+import itertools
+import math
+
 import pytest
 import torch
 
@@ -1198,9 +1213,9 @@ def test_linear_ce_raises_on_what_it_does_not_take(dev):
         linear_sce.linear_ce_fwd(x.double(), w.double(), t)
     with pytest.raises(ValueError):
         linear_sce.linear_ce_fwd(x, torch.zeros(8, 100, device=dev).T, t)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # targets of another length, deep
         linear_sce.linear_ce_fwd(torch.zeros(16, 300, device=dev),
-                                 torch.zeros(100, 300, device=dev), t)
+                                 torch.zeros(100, 300, device=dev), t[:-1])
     with pytest.raises(ValueError):
         linear_sce.linear_ce_fwd(x, w, t, logit_softcap=-1.0)
 
@@ -1243,10 +1258,12 @@ def test_broken_kernel_raises_under_warn(dev, monkeypatch):
 
 def test_preflight_refuses_what_the_kernels_do_not_take(dev):
     q = torch.zeros(4, 300, device=dev)
-    with pytest.raises(guard.KernelPreflightError) as ei:  # no deep variant
-        ops.linear_ce_loss(q, torch.zeros(20, 300, device=dev),
-                           torch.zeros(4, dtype=torch.int32, device=dev))
-    assert ei.value.rule == "d_max"
+    # d 300 is planned (the deep variant's product), not refused
+    loss = ops.linear_ce_loss(q, torch.zeros(20, 300, device=dev),
+                              torch.zeros(4, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert torch.allclose(loss, torch.full((4,), math.log(20.0),
+                                           device=dev))
     with pytest.raises(guard.KernelPreflightError) as ei:
         ops.eval_fused(torch.zeros(4, 8, device=dev),
                        torch.zeros(700, 8, device=dev),
@@ -1685,3 +1702,126 @@ def test_deep_sce_backward_from_one_cotangent_equals_each_alone(dev, d):
     assert [f.launches for f in fns] == [n + 1 for n in before]
     alone = [f(*bargs, logit_softcap=30.0) for f in fns]
     assert all(torch.equal(a, b) for a, b in zip(both, alone))
+
+
+# ---------------------------------------------------------------------------
+# The deep product (csrc/deep_tc.cuh) and the full-CE deep variants
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,n,k", [(130, 70, 300), (33, 260, 2_304),
+                                   (5, 7, 37)])
+@pytest.mark.parametrize("a_km,b_kn,gather,acc",
+                         list(itertools.product((False, True), repeat=4)))
+def test_deep_tc_product_matches_plain(dev, m, n, k, a_km, b_kn, gather,
+                                       acc):
+    """Every operand option of the deep product — A M-major, B N-major, B
+    gathered by id (clamped: ids −1 and past the table), the accumulate
+    epilogue, zeroed rows (with A M-major, as dY's slots) — at ragged
+    shapes (a row and a column tile past 128; K = 37, where no row is 16
+    bytes: the 4-byte copies) against the plain version in f64, within
+    ``1e-5·max|C|`` plus ``2e-4·|C|``; a second launch gives the same
+    bits."""
+    g = _gen(dev, m + n + k + 16 * a_km + 8 * b_kn + 4 * gather + 2 * acc)
+    t = 2
+    a = torch.randn((t, k, m) if a_km else (t, m, k), generator=g,
+                    device=dev)
+    rows = 50
+    idx = None
+    if gather:
+        b = torch.randn((rows, n) if b_kn else (rows, k), generator=g,
+                        device=dev)
+        idx = torch.randint(-2, rows + 2, (t, k if b_kn else n),
+                            generator=g, device=dev, dtype=torch.int32)
+    else:
+        b = torch.randn((t, k, n) if b_kn else (t, n, k), generator=g,
+                        device=dev)
+    m_zero = None
+    if a_km:
+        m_zero = torch.randint(-1, 3, (t, m), generator=g, device=dev,
+                               dtype=torch.int32)
+    out0 = torch.randn(t, m, n, generator=g, device=dev) if acc else None
+    kw = dict(a_km=a_km, b_kn=b_kn, idx=idx, m_zero=m_zero)
+    before = linear_sce.deep_tc_product.launches
+    got = linear_sce.deep_tc_product(
+        a, b, out=None if out0 is None else out0.clone(), **kw)
+    again = linear_sce.deep_tc_product(
+        a, b, out=None if out0 is None else out0.clone(), **kw)
+    torch.cuda.synchronize()
+    assert linear_sce.deep_tc_product.launches == before + 2
+    want = ref.deep_tc_ref(a.double(), b.double(),
+                           out=None if out0 is None else out0.double(), **kw)
+    _close(got, want.float(), rtol=2e-4)
+    assert torch.equal(got, again)
+    if m_zero is not None:
+        assert (got[m_zero < 0] == (out0[m_zero < 0] if acc else 0)).all()
+
+
+def _deep_ce(dev, monkeypatch, n, c, d, chunk):
+    """A deep full-CE problem in several catalog chunks (``SLAB_BYTES``
+    patched down to ``chunk`` rows, the last ragged) with a target in the
+    last chunk and, at rows 1 and 2, targets outside ``[0, C)``."""
+    monkeypatch.setattr(linear_sce, "SLAB_BYTES", 4 * n * chunk)
+    assert linear_sce.deep_chunk(n, c) == chunk and c % chunk
+    x, w, t, gr = _ce_problem(dev, n + c + d, n, c, d, zero_rows=True)
+    t[0] = c - 1
+    t[1], t[2] = -1, c + 3
+    return x, w, t, gr
+
+
+@pytest.mark.parametrize("n,c,d,chunk", [(70, 1_037, 288, 256),
+                                         (33, 700, 2_304, 128)])
+@pytest.mark.parametrize("family,cap", [("linear", None), ("linear", 30.0),
+                                        ("fused_lse", None),
+                                        ("fused_ce", None)])
+def test_deep_full_ce_matches_plain(dev, monkeypatch, n, c, d, chunk, family,
+                                    cap):
+    """Above d 256 ``ops.linear_ce_loss`` (with and without cap 30),
+    ``ops.fused_lse`` and ``ops.fused_ce_loss`` run the deep entries:
+    forward, dX and dW/dY against autograd through the plain versions in
+    f64 (logits of 3·sqrt(d) make the f32 plain version's own rounding
+    the larger error, as for the deep SCE), at the d ≤ 256 tolerances;
+    one launch each of the forward, dX and dW/dY counters; rows with
+    g = 0 exactly 0 in dX."""
+    x, w, t, gr = _deep_ce(dev, monkeypatch, n, c, d, chunk)
+    before = _ce_launches()
+    leaves = [a.clone().requires_grad_(True) for a in (x, w)]
+    fns = {"linear": lambda a, b: ops.linear_ce_loss(a, b, t,
+                                                     logit_softcap=cap),
+           "fused_lse": lambda a, b: ops.fused_lse(a, b),
+           "fused_ce": lambda a, b: ops.fused_ce_loss(
+               a, b, t.clamp(0, c - 1))}
+    plain = {"linear": lambda a, b: ref.linear_ce_loss_ref(
+                 a, b, t, logit_softcap=cap),
+             "fused_lse": lambda a, b: ref.fused_lse_ref(a, b),
+             "fused_ce": lambda a, b: ref.fused_ce_loss_ref(
+                 a, b, t.clamp(0, c - 1))}
+    out = fns[family](*leaves)
+    got = torch.autograd.grad((out * gr).sum(), leaves)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(_ce_launches(), before)]
+    assert moved == ([1, 1, 1, 0, 0, 0] if family == "linear"
+                     else [0, 0, 0, 1, 1, 1])
+    exact = [a.double().requires_grad_(True) for a in (x, w)]
+    want_out = plain[family](*exact)
+    want = torch.autograd.grad((want_out * gr.double()).sum(), exact)
+    _close(out.detach(), want_out.detach().float())
+    for a, b in zip(got, want):
+        _close(a, b.float(), rtol=2e-4)
+    assert (got[0][gr == 0] == 0).all()
+
+
+def test_deep_full_ce_repeats_bit_for_bit(dev, monkeypatch):
+    """Two calls of each deep entry (the forward with and without the
+    pluck, the backward for dX, dW and both) give the same bits, and the
+    backward's dX and dW from one launch equal each alone."""
+    x, w, t, gr = _deep_ce(dev, monkeypatch, 70, 1_037, 300, 256)
+    for pl in (t, None):
+        a, b = (linear_sce._fwd(x, w, pl, 30.0 if pl is not None else None)
+                for _ in range(2))
+        assert all(u is None and v is None or torch.equal(u, v)
+                   for u, v in zip(a, b))
+        lse = a[1]
+        pair = linear_sce._bwd_deep(x, w, pl, lse, gr, None, True, True)
+        assert all(torch.equal(u, v) for u, v in zip(
+            pair, linear_sce._bwd_deep(x, w, pl, lse, gr, None, True, True)))
+        assert torch.equal(pair[0], linear_sce._dx(x, w, pl, lse, gr, None))
+        assert torch.equal(pair[1], linear_sce._dw(x, w, pl, lse, gr, None))

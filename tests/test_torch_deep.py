@@ -237,17 +237,20 @@ def test_the_sce_resident_plans_take_every_depth_to_256():
 
 
 def test_preflight_d_max_follows_the_plans():
-    """Only the full-CE kernels keep the flat depth cap; the others take
-    any d, their plans' shared memory the limit; mips_topk takes k to
-    1024, the sweeps to 512."""
+    """No group keeps a flat depth cap: every one, the full-CE kernels
+    too, takes any d, its plans' shared memory the limit (the deep
+    product's at d 2304, within the 227 KB); mips_topk takes k to 1024,
+    the sweeps to 512."""
     base = dict(rows=8, cols=1000, d=2304, k=10)
     for group in ("mips_topk", "eval_fused", "eval_topk", "sce_gather",
                   "sce_bucket"):
         assert guard.preflight(group, **base).params["d"] == 2304
     for group in ("linear_sce", "fused_ce"):
-        with pytest.raises(guard.KernelPreflightError) as ei:
-            guard.preflight(group, **dict(base, k=None))
-        assert ei.value.rule == "d_max"
+        smem = linear_sce.planned_smem(2304)
+        pf = guard.preflight(group, **dict(base, k=None), smem_bytes=smem)
+        assert pf.params["d"] == 2304 and pf.smem_bytes == smem
+        assert smem == linear_sce.DEEP_SMEM <= guard.MAX_SMEM
+    assert "d_max" not in guard.PREFLIGHT_RULES
     guard.preflight("mips_topk", **dict(base, k=1024))
     for group, k in (("mips_topk", 1025), ("eval_fused", 513)):
         with pytest.raises(guard.KernelPreflightError) as ei:

@@ -348,9 +348,9 @@ def test_preflight_rules_and_error_type():
         (dict(k=0), "positive_dims"),
         (dict(dtype=torch.bfloat16), "dtype_supported"),
         (dict(dtype="float64"), "dtype_supported"),
-        # only the full-CE kernels keep the flat depth cap; mips_topk's
-        # deep chain takes k to 1024, the sweeps' lists to 512
-        (dict(kernel="linear_sce", d=257, k=None), "d_max"),
+        # no group keeps a flat depth cap (linear_sce at d 257 is planned
+        # below); mips_topk's deep chain takes k to 1024, the sweeps'
+        # lists to 512
         (dict(k=1025), "k_max"),
         (dict(kernel="eval_fused", k=513), "k_max"),
         (dict(smem_bytes=232_449), "smem_budget"),
@@ -363,6 +363,9 @@ def test_preflight_rules_and_error_type():
         assert ei.value.rule == rule
     ok = guard.preflight(**base, smem_bytes=232_448)
     assert ok.repairs == [] and ok.smem_bytes == 232_448
+    deep = guard.preflight(**{**base, "kernel": "linear_sce", "d": 257,
+                              "k": None}, smem_bytes=229_376)
+    assert deep.params["d"] == 257 and deep.repairs == []
 
 
 def test_preflight_repairs_and_policies():
