@@ -220,9 +220,9 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    steps at the CLI's ``ckpt_every=20`` (its first 12 losses the
    straight run's) prints its loop iterations (median, mean, the two
    saving ones) and the median step 1–4 and 15–19 steps after a save.
-18. The LM path at full width (``lm_phase``): gemma-2-2b at its published
-   widths in float32 with remat (26 layers, d 2304, vocabulary 256,000),
-   random weights from a seed. First its kernels at its shapes against
+18. The LM path at full width (``lm_phase``): gemma-2-2b as published —
+   bfloat16 with remat, 26 layers, d 2304, vocabulary 256,000 — random
+   weights from a seed. First its kernels at its shapes in f32 against
    their plain versions: ``mips_topk`` (the deep chain) for 128 bucket
    centres against 4,096 positions at k 128 and against the 256,000
    vocabulary rows at k 1024 (gap-aware); the three ``sce_gather_plse``
@@ -238,17 +238,31 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    kernel path against the plain path (integer-valued x, y / 256 and a
    sparse Ω, so both select the same candidates); each timed with a cold
    L2 beside its plain version, a PyTorch computation of its function
-   and its 3xTF32 bound. Then the main path, its counts from 0:
+   and its 3xTF32 bound. Then the same kernels on bf16 operands
+   (``lm_bf16_kernel_phase``): both selections, the three
+   ``sce_gather_plse`` launches and the deep backward, ``eval_fused`` /
+   ``eval_tgt_gather`` and the deep ``linear_ce`` forward and backward;
+   every forward, selection and eval output equal to the f32 kernel on
+   the widened inputs bit for bit, the backwards within ``3e-2`` of their
+   scale of the plain versions (the cotangent rounded to bf16 on both
+   sides) and repeating; each timed beside its plain version, a PyTorch
+   call in bf16 and its bound at bf16's rates (3.35 TB/s at 2 B a value,
+   989 TFLOP/s) with the one-TF32-pass time beside it. Then the main
+   path in bf16, its counts from 0:
    ``train("gemma2-2b", cfg=…, batch=2, seq_len=4096, steps=4,
    sce_mode="exact")`` under ``warn`` — train_4k's 2 microbatches of one
    sequence, ``mips_topk`` at k 128 and 1024 and the three
    ``sce_gather_plse`` launches and the dY sum once a microbatch, the
    token-rank evaluation of 2 held-out sequences after step 4 (one
    ``eval_fused`` and one ``eval_tgt_gather``); finite losses, the last
-   below the first. Prints the median step, its phases (``mark``), the
-   peak memory; on fresh weights the evaluation's rows/s and phases, and
-   a 512-token prefill and 8 decode steps whose last logits must equal a
-   forward over the 520 tokens within ``1e-3`` of their scale.
+   below the first; AdamW moments and the microbatch accumulator f32.
+   Prints the median step, its phases (``mark``), SCE's share, the peak
+   memory; then 2 steps of the full-CE baseline (``ce_fused_linear``);
+   on fresh weights the evaluation's rows/s and phases, and a 512-token
+   prefill and 8 decode steps whose last logits must equal a forward over
+   the 520 tokens within ``3e-2`` of their scale (bf16; ``1e-3`` in
+   f32). Last, the f32 step still driven at reduced depth (2 layers of
+   26, the published widths): 2 SCE steps and 2 full-CE steps.
 19. Prints the kernels' JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``. ``mips_topk`` has
    three entries: all its main-path launches timed at serving's largest
@@ -264,9 +278,11 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    phase 14's launches and phase 13's times at the trainer's shape. The four
    ``sce_bucket`` launches and ``eval_topk`` / ``eval_tgt_scores`` carry
    phase 3's launches (the canaries') and phase 15's times (the eval ones
-   at B = 256). The LM path's entries (``*_lm``) carry phase 18's
-   launches and times at gemma-2's shapes (``mips_topk`` one per
-   selection).
+   at B = 256). The LM path's entries (``*_lm``) carry phase 18's f32
+   runs' launches (reduced depth) and its f32 times at gemma-2's shapes
+   (``mips_topk`` one per selection); the ``*_lm_bf16`` entries the
+   published bf16 runs' launches and the bf16 times. Every entry must
+   have launched at least once on its main path.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. ``--json PATH`` also writes every case, time and count to PATH.
@@ -289,6 +305,7 @@ N_PHASES = 19
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12  # f32 outside the tensor cores
 PEAK_TF32_FLOP_S = 495e12  # dense TF32 on the tensor cores
+PEAK_BF16_FLOP_S = 989e12  # dense bf16 on the tensor cores
 SFU_PER_SM_CLOCK = 16  # exp2 / tanh results an SM's SFUs give a clock
 
 C_SERVE = 173_520  # sasrec-sce's shard-even catalog slice
@@ -462,6 +479,32 @@ def tf32x3_bound(nbytes, flops, exps):
             basis, roofline_ms(nbytes, flops)[0])
 
 
+def bf16_bound(nbytes, flops, exps):
+    """The least time of a kernel on bf16 operands: the largest of its
+    FLOPs at the card's dense bf16 rate (the least any bf16 product
+    takes), its ``exps`` at the SFUs' rate and its bytes (operands at 2 B
+    a value). Returns ``(ms, "bytes" | "operations", basis,
+    tf32_one_pass_ms)``: beside it the time of the one TF32 pass at the
+    dense TF32 rate that the kernels' instruction (bf16 values widened to
+    TF32) allows."""
+    import torch
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cands = {"bf16 tensor cores": flops / PEAK_BF16_FLOP_S * 1e3,
+             "SFU exps": exps / (SFU_PER_SM_CLOCK * n_sm * sm_clock_hz())
+             * 1e3,
+             "bytes": nbytes / PEAK_BYTES_S * 1e3}
+    basis = max(cands, key=cands.get)
+    return (cands[basis], "bytes" if basis == "bytes" else "operations",
+            basis, flops / PEAK_TF32_FLOP_S * 1e3)
+
+
+def bf16_bound_keys(bound):
+    """A timing's bound keys from :func:`bf16_bound`."""
+    return {"bound_ms": bound[0], "bound_by": bound[1],
+            "bound_basis": bound[2], "tf32_one_pass_ms": bound[3]}
+
+
 def f32_bound(nbytes, flops):
     """:func:`roofline_ms` in :func:`tf32x3_bound`'s form, for a kernel of
     f32 FMAs."""
@@ -481,7 +524,11 @@ def bound_keys(bound):
 
 def bound_text(t):
     """A timing's bound as printed: ms, what bounds it and, for a 3xTF32
-    kernel, its f32 FMA bound."""
+    kernel, its f32 FMA bound (a bf16 kernel: its one TF32 pass)."""
+    if "tf32_one_pass_ms" in t:
+        return (f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                f"{t['bound_basis']}; one TF32 pass "
+                f"{t['tf32_one_pass_ms']:.4f} ms)")
     if t.get("bound_basis") in (None, "bytes", "f32 FMAs"):
         return f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
     return (f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bound_basis']}; "
@@ -3172,19 +3219,32 @@ LM_CAP = 30.0  # gemma-2's final softcap
 LM_PHASES = ("h2d",) + ("forward", "select", "loss_forward",
                         "backward") * 2 + ("optimizer",)
 LM_CE_STEPS = 2  # the full-CE baseline's steps
+LM_F32_STEPS = 2  # the f32 step at reduced depth
 LM_CE_PHASES = ("h2d",) + ("forward", "loss_forward",
                            "backward") * 2 + ("optimizer",)
 
 
 def lm_config():
-    """gemma-2-2b's published widths in float32 (the kernels' type), remat
-    on: 26 layers, d 2304, 8 heads over 4 KV heads of 256, vocabulary
-    256,000."""
+    """gemma-2-2b as published: bfloat16, remat on, 26 layers, d 2304, 8
+    heads over 4 KV heads of 256, vocabulary 256,000."""
+    from repro_torch.configs.gemma2_2b import make_config
+
+    return make_config()
+
+
+LM_F32_LAYERS = 2
+
+
+def lm_config_f32():
+    """The published widths in float32 with depth cut to
+    ``LM_F32_LAYERS`` (reduced): the f32 LM step still driven beside the
+    bf16 main path."""
     import dataclasses
 
     from repro_torch.configs.gemma2_2b import make_config
 
-    return dataclasses.replace(make_config(), dtype="float32", remat=True)
+    return dataclasses.replace(make_config(), dtype="float32",
+                               n_layers=LM_F32_LAYERS)
 
 
 def lm_sce_config(cfg):
@@ -3525,6 +3585,242 @@ def lm_kernel_phase(dev, cfg):
             "timings": timings}
 
 
+def lm_bf16_kernel_phase(dev, cfg):
+    """The LM path's kernels on bf16 operands at gemma-2's shapes (the
+    published type, which the main path runs): ``mips_topk`` at both
+    selections, the three ``sce_gather_plse`` launches and the deep
+    backward as autograd runs it (n_b 128, b_x 128, b_y 1024, d 2304,
+    cap 30), ``eval_fused`` / ``eval_tgt_gather`` at 8,192 × 256,000 (k 1,
+    the LSE), and the deep ``linear_ce`` forward and one-launch backward
+    at N 4,096 (cap 30, the target plucked). Every forward, selection and
+    eval output equals the f32 kernel's on the widened inputs bit for bit
+    (a bf16 value is exact in f32 and TF32, a product of two exact in
+    f32); each also against its plain version on the bf16 inputs: values
+    within ``1e-5`` of their scale (selections, the lse) or the bf16
+    tolerance ``3e-2`` of their scale (bf16 outputs: losses, gradients,
+    whose cotangent is rounded to bf16 on both sides). Then each timed
+    with a cold L2 beside its plain version, a PyTorch call of the same
+    function in bf16 and its bound at bf16's rates (:func:`bf16_bound`,
+    the one-TF32-pass time beside it)."""
+    import torch
+
+    from repro_torch.kernels import eval_fused as ek
+    from repro_torch.kernels import linear_sce, ref, sce_prefetch
+    from repro_torch.kernels.mips_topk import mips_topk
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(12)
+    vocab, d = cfg.vocab_padded, cfg.d_model
+    sce_cfg = lm_sce_config(cfg)
+    n_b, b_x, b_y = (sce_cfg.n_buckets, sce_cfg.bucket_size_x,
+                     sce_cfg.bucket_size_y)
+    y = (torch.randn(vocab, d, generator=g, device=dev) * 0.02).to(bf)
+    x = torch.randn(LM_SEQ, d, generator=g, device=dev).to(bf)
+    q = torch.randn(n_b, d, generator=g, device=dev).to(bf)
+    targets = torch.randint(1, cfg.vocab, (LM_SEQ,), generator=g,
+                            device=dev, dtype=torch.int32)
+    errs, runs, bounds = {}, {}, {}
+
+    def same(what, got, want):
+        check(len(got) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(got, want)),
+            f"lm bf16 {what}: differs from the f32 kernel on the widened "
+            f"inputs")
+
+    def within(what, got, want, tol):
+        err = (got.double() - want.double()).abs().max().item()
+        scale = want.double().abs().max().item()
+        check(bool(torch.isfinite(got).all()) and err <= tol * scale,
+              f"lm bf16 {what}: |Δ| {err:.3e} above {tol}·{scale:.3e}")
+        return err
+
+    # the selections
+    sel = {}
+    for name, cat, k in (("mips_topk_positions_k128_lm_bf16", x, b_x),
+                         ("mips_topk_vocab_k1024_lm_bf16", y, b_y)):
+        got = mips_topk(q, cat, k)
+        same(name, got, mips_topk(q.float(), cat.float(), k))
+        want = ref.mips_topk_ref(q, cat, k)
+        errs[name] = within(name, got[0], want[0], 1e-5)
+        sel[k] = got[1]
+        c = cat.shape[0]
+        runs[name] = (lambda cat=cat, k=k: mips_topk(q, cat, k),
+                      lambda cat=cat, k=k: ref.mips_topk_ref(q, cat, k),
+                      lambda cat=cat, k=k: torch.topk(q @ cat.T, k))
+        bounds[name] = bf16_bound(2 * (n_b * d + c * d) + 8 * n_b * k,
+                                  2 * n_b * c * d, 0)
+    ix, iy = sel[b_x], sel[b_y]
+    x_b = x[ix.long()].contiguous()
+    tgt_b = targets[ix.long()]
+    args = (x_b, y, iy, tgt_b, iy)
+    plse = sce_prefetch.sce_gather_plse_fwd(*args, logit_softcap=LM_CAP)
+    same("sce_gather_plse_fwd", (plse,), (sce_prefetch.sce_gather_plse_fwd(
+        x_b.float(), y.float(), iy, tgt_b, iy, logit_softcap=LM_CAP),))
+    errs["sce_gather_plse_fwd_lm_bf16"] = within(
+        "plse", plse, ref.sce_gather_plse_ref(*args, LM_CAP), 1e-5)
+    g_up = torch.rand(n_b, b_x, generator=g, device=dev)
+
+    def plain_grads(i):
+        with torch.enable_grad():  # also inside the timing's no_grad
+            leaves = [t.clone().requires_grad_(True) for t in (x_b, y)]
+            out = ref.sce_gather_plse_ref(leaves[0], leaves[1], iy, tgt_b,
+                                          iy, LM_CAP)
+            return torch.autograd.grad((out * g_up).sum(),
+                                       leaves if i is None else leaves[i])
+
+    pair = sce_prefetch._grads(
+        sce_prefetch.sce_gather_plse_dx, sce_prefetch.sce_gather_plse_dy,
+        args + (plse, g_up), LM_CAP, True, True)
+    want = plain_grads(None)
+    check(pair[0].dtype == pair[1].dtype == bf,
+          "lm bf16: the SCE gradients are not bf16")
+    errs["sce_gather_plse_dx_lm_bf16"] = within("dX", pair[0], want[0], 3e-2)
+    errs["sce_gather_plse_dy_lm_bf16"] = within("dY", pair[1], want[1], 3e-2)
+    errs["sce_gather_plse_bwd_lm_bf16"] = max(
+        errs["sce_gather_plse_dx_lm_bf16"], errs["sce_gather_plse_dy_lm_bf16"])
+    again = sce_prefetch._grads(
+        sce_prefetch.sce_gather_plse_dx, sce_prefetch.sce_gather_plse_dy,
+        args + (plse, g_up), LM_CAP, True, True)
+    same("the deep SCE backward, twice", pair, again)
+    del pair, want, again
+    y_b = y[iy.long()]
+    hide = (iy[:, None, :] < 0) | (iy[:, None, :] == tgt_b[:, :, None])
+
+    def lib_logits():
+        l_ = torch.bmm(x_b, y_b.transpose(1, 2))
+        return LM_CAP * torch.tanh(l_ / LM_CAP)
+
+    def lib_cot():
+        c_ = lib_logits()
+        return torch.where(hide, 0.0, torch.exp(c_ - plse[..., None])
+                           * (1 - (c_ / LM_CAP) ** 2)
+                           * g_up[..., None]).to(bf)
+
+    kw = dict(logit_softcap=LM_CAP)
+    runs["sce_gather_plse_fwd_lm_bf16"] = (
+        lambda: sce_prefetch.sce_gather_plse_fwd(*args, **kw),
+        lambda: ref.sce_gather_plse_ref(*args, LM_CAP),
+        lambda: torch.logsumexp(torch.where(hide, NEG_INF, lib_logits()),
+                                -1))
+    runs["sce_gather_plse_dx_lm_bf16"] = (
+        lambda: sce_prefetch.sce_gather_plse_dx(*args, plse, g_up, **kw),
+        lambda: plain_grads(0), lambda: torch.bmm(lib_cot(), y_b))
+    runs["sce_gather_plse_dy_lm_bf16"] = (
+        lambda: sce_prefetch.sce_gather_plse_dy(*args, plse, g_up, **kw),
+        lambda: plain_grads(1),
+        lambda: torch.bmm(lib_cot().transpose(1, 2), x_b))
+    runs["sce_gather_plse_bwd_lm_bf16"] = (
+        lambda: sce_prefetch._grads(
+            sce_prefetch.sce_gather_plse_dx, sce_prefetch.sce_gather_plse_dy,
+            args + (plse, g_up), LM_CAP, True, True),
+        lambda: plain_grads(None),
+        lambda: (lambda p: (torch.bmm(p, y_b),
+                            torch.bmm(p.transpose(1, 2), x_b)))(lib_cot()))
+    pairs = unmasked_pairs(tgt_b, iy)
+    rows = int(torch.unique(iy[iy >= 0]).numel())
+    common = 2 * (n_b * b_x * d + rows * d) + 4 * (2 * n_b * b_y + n_b * b_x)
+    bounds["sce_gather_plse_fwd_lm_bf16"] = bf16_bound(
+        common + 4 * n_b * b_x, 2 * pairs * d, pairs)
+    bounds["sce_gather_plse_dx_lm_bf16"] = bf16_bound(
+        common + 8 * n_b * b_x + 2 * n_b * b_x * d, 4 * pairs * d, pairs)
+    bounds["sce_gather_plse_dy_lm_bf16"] = bf16_bound(
+        common + 8 * n_b * b_x + 2 * vocab * d, 4 * pairs * d, pairs)
+    bounds["sce_gather_plse_bwd_lm_bf16"] = bf16_bound(
+        common + 8 * n_b * b_x + 2 * n_b * b_x * d + 2 * vocab * d,
+        6 * pairs * d, pairs)
+
+    # token rank: 8,192 rows against the vocabulary, k 1, LSE, cap 30
+    n_e = LM_EVAL_SEQS * LM_SEQ
+    te = torch.randint(1, cfg.vocab, (n_e,), generator=g, device=dev,
+                       dtype=torch.int32)
+    xe = torch.randn(n_e, d, generator=g, device=dev).to(bf)
+    ekw = dict(c_lo=1, c_hi=cfg.vocab, logit_softcap=LM_CAP, with_lse=True)
+    got = ek.eval_fused(xe, y, te, 1, **ekw)
+    same("eval_fused", got, ek.eval_fused(xe.float(), y.float(), te, 1,
+                                          **ekw))
+    tgt_e = ek.eval_tgt_gather(xe, y, te)
+    same("eval_tgt_gather", (tgt_e,), (got[4],))
+    want = ref.eval_fused_ref(xe, y, te, 1, **ekw)
+    errs["eval_fused_lm_bf16"] = within("eval vals", got[0], want[0], 1e-5)
+    errs["eval_tgt_gather_lm_bf16"] = within("eval tgt", got[4], want[4],
+                                             1e-5)
+    del got, want
+    window = torch.arange(vocab, device=dev)
+    window = (window >= 1) & (window < cfg.vocab)
+
+    def eval_library():
+        s_ = torch.where(window[None, :], (xe @ y.T).float(), NEG_INF)
+        return (torch.topk(s_, 1), (s_ > tgt_e[:, None]).sum(1),
+                (s_ == tgt_e[:, None]).sum(1),
+                torch.logsumexp(LM_CAP * torch.tanh(s_ / LM_CAP), -1))
+
+    runs["eval_fused_lm_bf16"] = (
+        lambda: ek.eval_fused(xe, y, te, 1, tgt_scores=tgt_e, **ekw),
+        lambda: ref.eval_fused_ref(xe, y, te, 1, tgt_scores=tgt_e, **ekw),
+        eval_library)
+    bounds["eval_fused_lm_bf16"] = bf16_bound(
+        2 * (n_e * d + vocab * d) + 4 * 2 * n_e + 8 * n_e + 16 * n_e,
+        2 * n_e * vocab * d, n_e * vocab)
+    n_rows = int(torch.unique(te).numel())
+    runs["eval_tgt_gather_lm_bf16"] = (
+        lambda: ek.eval_tgt_gather(xe, y, te),
+        lambda: ref.eval_tgt_gather_ref(xe, y, te),
+        lambda: (xe * y[te.long()]).float().sum(-1))
+    bounds["eval_tgt_gather_lm_bf16"] = bf16_bound(
+        2 * (n_e * d + n_rows * d) + 4 * n_e + 4 * n_e, 2 * n_e * d, 0)
+
+    # the full-CE baseline's deep linear_ce: one microbatch
+    gr = torch.rand(LM_SEQ, generator=g, device=dev) + 0.5
+    loss, lse = linear_sce._fwd(x, y, targets, LM_CAP)
+    same("linear_ce forward", (loss, lse), linear_sce._fwd(
+        x.float(), y.float(), targets, LM_CAP))
+    errs["linear_ce_fwd_lm_bf16"] = within(
+        "linear_ce lse", lse, ref.fused_lse_ref(x, y, logit_softcap=LM_CAP),
+        1e-5)
+    pair = linear_sce._bwd_deep(x, y, targets, lse, gr, LM_CAP, True, True)
+    check(pair[0].dtype == pair[1].dtype == bf,
+          "lm bf16: the full-CE gradients are not bf16")
+    cargs = (x, y, targets, lse, gr)
+    errs["linear_ce_bwd_lm_bf16"] = max(
+        within("linear_ce dX", pair[0], ref.linear_ce_dx_ref(
+            *cargs, logit_softcap=LM_CAP), 3e-2),
+        within("linear_ce dW", pair[1], ref.linear_ce_dw_ref(
+            *cargs, logit_softcap=LM_CAP), 3e-2))
+    del pair
+    ce = full_ce_runs("linear_ce", x, y, targets, LM_CAP, lse, gr,
+                      (lse - loss).detach())
+    runs["linear_ce_fwd_lm_bf16"] = ce["linear_ce_fwd_lm"]
+    runs["linear_ce_bwd_lm_bf16"] = ce["linear_ce_bwd_lm"]
+    n = LM_SEQ
+    io = 2 * (n * d + vocab * d)
+    bounds["linear_ce_fwd_lm_bf16"] = bf16_bound(io + 4 * 4 * n,
+                                                 2 * n * vocab * d, n * vocab)
+    bounds["linear_ce_bwd_lm_bf16"] = bf16_bound(2 * io + 4 * 4 * n,
+                                                 3 * 2 * n * vocab * d,
+                                                 n * vocab)
+
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    timings = {}
+    with torch.no_grad():
+        for name, (kern, plain, lib) in runs.items():
+            reps = 2 if "linear_ce" in name or "eval_fused" in name else 5
+            timings[name] = {"ms": time_ms(kern, reps, flush),
+                             "plain_ms": time_ms(plain, 1, flush),
+                             "library_ms": time_ms(lib, 2, flush),
+                             **bf16_bound_keys(bounds[name]),
+                             "max_abs_err": errs[name]}
+    for name, t in timings.items():
+        print(f"  time {name}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, library (bf16) "
+              f"{t['library_ms']:.4f} ms, bound {bound_text(t)}; max |Δ| "
+              f"from the plain version {t['max_abs_err']:.3e}")
+    print("  lm bf16: every forward, selection and eval output equals the "
+          "f32 kernel's on the widened inputs bit for bit; the backwards "
+          "within 3e-2 of their scale of the plain versions and repeat bit "
+          "for bit ok")
+    return {"timings": timings}
+
+
 def full_ce_runs(fam, x, y, tt, cap, lse, gr, pos):
     """name → (kernel, plain, library) callables of one full-CE family's
     forward and one-launch backward at these inputs (``tt`` None: the
@@ -3551,7 +3847,7 @@ def full_ce_runs(fam, x, y, tt, cap, lse, gr, pos):
             p[torch.arange(n, device=x.device), tt.long()] -= 1.0
         if cap is not None:
             p = p * (1 - (c_ / cap) ** 2)
-        p = p * gr[:, None]
+        p = (p * gr[:, None]).to(x.dtype)  # bf16 operands: G rounded
         return p @ y, p.T @ x
 
     if tt is None:
@@ -3696,7 +3992,8 @@ def lm_full_ce_phase(dev, cfg, sce):
     median_ms = statistics.median(out["step_s"][1:]) * 1e3
     bd = marks.breakdown()
     sce_bd = sce["breakdown"]
-    print(f"  gemma-2-2b f32, train_loss=ce_fused_linear: {LM_CE_STEPS} "
+    print(f"  gemma-2-2b {cfg.dtype} ({lm_depth(cfg)}), "
+          f"train_loss=ce_fused_linear: {LM_CE_STEPS} "
           f"steps of {LM_BATCH} × {LM_SEQ} tokens in {wall_s:.2f} s; loss "
           f"{' → '.join(f'{v:.4f}' for v in losses)}; median step "
           f"{median_ms:.1f} ms against SCE's {sce['median_step_ms']:.1f} ms "
@@ -3716,7 +4013,16 @@ def lm_full_ce_phase(dev, cfg, sce):
             "live_bytes_before": live}
 
 
-def lm_train_phase(dev, cfg):
+def lm_depth(cfg):
+    """The layers, and ``reduced`` where depth was cut."""
+    from repro_torch.configs.gemma2_2b import make_config
+
+    full = make_config().n_layers
+    return (f"{cfg.n_layers} layers" if cfg.n_layers == full else
+            f"{cfg.n_layers} layers, reduced from {full}")
+
+
+def lm_train_phase(dev, cfg, steps=LM_STEPS):
     """``train("gemma2-2b", cfg=…, batch=2, seq_len=4096, steps=4,
     sce_mode="exact")`` at full width under the guard's ``warn``: 2
     microbatches of one sequence (4,096 positions) a step, SCE (n_b 128,
@@ -3748,16 +4054,16 @@ def lm_train_phase(dev, cfg):
     mips_topk.launches_by_k.clear()
     t0 = time.monotonic()
     out = train("gemma2-2b", cfg=cfg, batch=LM_BATCH, seq_len=LM_SEQ,
-                steps=LM_STEPS, seed=0, sce_mode="exact", log_every=1,
-                eval_every=LM_STEPS, eval_users=LM_EVAL_SEQS, device=dev,
+                steps=steps, seed=0, sce_mode="exact", log_every=1,
+                eval_every=steps, eval_users=LM_EVAL_SEQS, device=dev,
                 guard_policy="warn", mark=marks)
     wall_s = time.monotonic() - t0
     launches = {fn.__name__: fn.launches for fn in counters}  # ... ends here
     by_k = dict(mips_topk.launches_by_k)
     peak = torch.cuda.max_memory_allocated(dev)
     losses = out["losses"]
-    n_mb = LM_STEPS * 2  # two microbatches a step
-    check(len(losses) == LM_STEPS and all(math.isfinite(v) for v in losses),
+    n_mb = steps * 2  # two microbatches a step
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
           f"LM losses {losses}")
     check(losses[-1] < losses[0], f"LM loss {losses[-1]} is not below the "
           f"first step's {losses[0]}")
@@ -3777,22 +4083,28 @@ def lm_train_phase(dev, cfg):
           and math.isfinite(ev["loss"]), f"token-rank eval {ev}")
     median_ms = statistics.median(out["step_s"][1:]) * 1e3
     bd = marks.breakdown()
-    print(f"  gemma-2-2b f32 ({cfg.param_count():,} parameters): "
-          f"{LM_STEPS} steps of {LM_BATCH} × {LM_SEQ} tokens in "
+    print(f"  gemma-2-2b {cfg.dtype} ({lm_depth(cfg)}; "
+          f"{cfg.param_count():,} parameters): "
+          f"{steps} steps of {LM_BATCH} × {LM_SEQ} tokens in "
           f"{wall_s:.2f} s (evaluation and set-up included); loss "
           f"{' → '.join(f'{v:.4f}' for v in losses)}; median step "
-          f"{median_ms:.1f} ms (host clock, steps 2–{LM_STEPS}); launches "
+          f"{median_ms:.1f} ms (host clock, steps 2–{steps}); launches "
           f"{launches}, mips_topk by k {by_k}; [eval] {ev}")
+    total = sum(bd.values())
+    sce_ms = bd["select_ms"] + bd["loss_forward_ms"]
     print("  step breakdown: " + " + ".join(
         f"{p} {bd[p + '_ms']:.1f}" for p in dict.fromkeys(LM_PHASES))
-        + f" = {sum(bd.values()):.1f} ms (device events, both microbatches,"
-        f" mean of steps 2–{LM_STEPS})")
+        + f" = {total:.1f} ms (device events, both microbatches,"
+        f" mean of steps 2–{steps}); SCE's selection and loss forward "
+        f"{sce_ms:.1f} ms = {sce_ms / total:.1%} of it (its backward "
+        f"kernels run inside the backward phase)")
     print(f"  peak device memory of the run: {peak / 2**30:.2f} GiB "
           f"(max_memory_allocated; {live / 2**30:.2f} GiB live before)")
     return {"losses": losses, "step_s": out["step_s"], "wall_s": wall_s,
             "median_step_ms": median_ms, "breakdown": bd,
             "launches": launches, "mips_topk_launches_by_k": by_k,
-            "eval": ev, "peak_bytes": peak, "live_bytes_before": live}
+            "eval": ev, "peak_bytes": peak, "live_bytes_before": live,
+            "dtype": cfg.dtype, "n_layers": cfg.n_layers}
 
 
 def lm_serve_phase(dev, cfg):
@@ -3853,14 +4165,18 @@ def lm_serve_phase(dev, cfg):
     check(bool(torch.isfinite(logits[..., :cfg.vocab]).all())
           and logits.shape == (1, 1, cfg.vocab_padded),
           f"decode logits {tuple(logits.shape)}")
-    check(err <= 1e-3 * scale, f"the last decode's logits differ from the "
-          f"forward's by {err:.3e} (scale {scale:.3e})")
+    # f32: 1e-3 of the scale; bf16 (8 bits of mantissa, the KV cache and
+    # the attention in another order): the reference's bf16 tolerance
+    tol = 1e-3 if cfg.dtype == "float32" else 3e-2
+    check(err <= tol * scale, f"the last decode's logits differ from the "
+          f"forward's by {err:.3e} (scale {scale:.3e}, tolerance {tol})")
     top_equal = bool(logits.argmax(-1).eq(want.argmax(-1)).all())
     print(f"  prefill {LM_PROMPT} tokens {prefill_ms:.1f} ms, {LM_DECODE} "
           f"decode steps {', '.join(f'{t:.1f}' for t in step_ms)} ms (host "
           f"clock); the last decode's logits against a forward over "
           f"{LM_PROMPT + LM_DECODE} tokens: max |Δ| {err:.3e} (scale "
-          f"{scale:.3f}), the same argmax: {top_equal} ok")
+          f"{scale:.3f}, tolerance {tol} of it, {cfg.dtype}), the same "
+          f"argmax: {top_equal} ok")
     return {"eval": ev, "eval_s": eval_s, "eval_rows_per_s": rows / eval_s,
             "eval_breakdown": bd, "prefill_ms": prefill_ms,
             "decode_ms": step_ms, "decode_max_abs_err": err,
@@ -3868,18 +4184,30 @@ def lm_serve_phase(dev, cfg):
 
 
 def lm_phase(dev):
+    """Phase 18: the kernels at gemma-2's shapes in f32 and in bf16, the
+    main path as published (bf16: SCE training, the full-CE baseline,
+    token rank, prefill and decode), then the same SCE and full-CE steps
+    in f32 at reduced depth."""
     import torch
 
-    cfg = lm_config()
+    cfg, cfg32 = lm_config(), lm_config_f32()
     kern = lm_kernel_phase(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kern_bf16 = lm_bf16_kernel_phase(dev, cfg)
     gc.collect()
     torch.cuda.empty_cache()
     trained = lm_train_phase(dev, cfg)
     full_ce = lm_full_ce_phase(dev, cfg, trained)
     served = lm_serve_phase(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained32 = lm_train_phase(dev, cfg32, steps=LM_F32_STEPS)
+    full_ce32 = lm_full_ce_phase(dev, cfg32, trained32)
     print(f"  card: {smi()}")
-    return {"kernels": kern, "train": trained, "full_ce": full_ce,
-            "serve": served}
+    return {"kernels": kern, "kernels_bf16": kern_bf16, "train": trained,
+            "full_ce": full_ce, "serve": served, "train_f32": trained32,
+            "full_ce_f32": full_ce32}
 
 
 def main() -> int:
@@ -4109,10 +4437,15 @@ def main() -> int:
             "library_ms": tt["library_ms"],
         })
     # The LM path (phase 18): its kernels at gemma-2's shapes, with the
-    # launches of the LM trainer's run (counted from 0 around it).
-    lm_launch = lm["train"]["launches"]
-    ce_launch = lm["full_ce"]["launches"]
-    lm_by_k = lm["train"]["mips_topk_launches_by_k"]
+    # launches of the LM trainers' runs (counted from 0 around each): the
+    # f32 entries the f32 runs' (reduced depth), the bf16 entries
+    # (``*_lm_bf16``) the published bf16 runs'.
+    lm_launch = lm["train_f32"]["launches"]
+    ce_launch = lm["full_ce_f32"]["launches"]
+    lm_by_k = lm["train_f32"]["mips_topk_launches_by_k"]
+    bf_launch = lm["train"]["launches"]
+    bf_ce = lm["full_ce"]["launches"]
+    bf_by_k = lm["train"]["mips_topk_launches_by_k"]
     for name, src, replaces, launches in (
             ("mips_topk_lm_positions_k128", "mips_topk.cu",
              "mips_topk.py:52", lm_by_k.get(128, 0)),
@@ -4141,8 +4474,29 @@ def main() -> int:
             ("linear_ce_fwd_lm", "linear_ce.cu", "linear_sce.py:60",
              ce_launch["linear_ce_fwd"]),
             ("linear_ce_bwd_lm", "linear_ce.cu", "linear_sce.py:121",
-             ce_launch["linear_ce_dx"])):
-        tt = lm["kernels"]["timings"][name]
+             ce_launch["linear_ce_dx"]),
+            ("mips_topk_positions_k128_lm_bf16", "mips_topk.cu",
+             "mips_topk.py:52", bf_by_k.get(128, 0)),
+            ("mips_topk_vocab_k1024_lm_bf16", "mips_topk.cu",
+             "mips_topk.py:52", bf_by_k.get(1024, 0)),
+            ("sce_gather_plse_fwd_lm_bf16", "sce_gather.cu",
+             "sce_prefetch.py:497", bf_launch["sce_gather_plse_fwd"]),
+            ("sce_gather_plse_dx_lm_bf16", "sce_gather.cu",
+             "sce_prefetch.py:497", bf_launch["sce_gather_plse_dx"]),
+            ("sce_gather_plse_dy_lm_bf16", "sce_gather.cu",
+             "sce_prefetch.py:497", bf_launch["sce_gather_plse_dy"]),
+            ("sce_gather_plse_bwd_lm_bf16", "sce_gather.cu",
+             "sce_prefetch.py:497", bf_launch["sce_gather_plse_dx"]),
+            ("eval_fused_lm_bf16", "eval_fused.cu", "eval_fused.py:104",
+             bf_launch["eval_fused"]),
+            ("eval_tgt_gather_lm_bf16", "eval_fused.cu", "eval_fused.py:82",
+             bf_launch["eval_tgt_gather"]),
+            ("linear_ce_fwd_lm_bf16", "linear_ce.cu", "linear_sce.py:60",
+             bf_ce["linear_ce_fwd"]),
+            ("linear_ce_bwd_lm_bf16", "linear_ce.cu", "linear_sce.py:121",
+             bf_ce["linear_ce_dx"])):
+        tt = (lm["kernels_bf16"] if name.endswith("_bf16")
+              else lm["kernels"])["timings"][name]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -4156,6 +4510,18 @@ def main() -> int:
             "bound_by": tt["bound_by"],
             "library_ms": tt["library_ms"],
         })
+    # the in-order dY sum runs on the bf16 path too (its workspace is f32:
+    # the same kernel, timed in the f32 entry)
+    tt = lm["kernels"]["timings"]["sce_gather_dy_sum_lm"]
+    kernels.append({
+        "name": "sce_gather_dy_sum_lm_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sce_gather.cu",
+        "replaces": "src/repro/kernels/sce_prefetch.py:250",
+        "launches": bf_launch["sce_gather_dy_sum"],
+        **{k: tt[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}})
+    missing = [k["name"] for k in kernels if k["launches"] < 1]
+    check(not missing, f"kernels of a main path launched no time: {missing}")
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({

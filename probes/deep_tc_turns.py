@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The deep SCE variants (d > 256) of two trees on the card: their outputs
-bit for bit, their times in turns, and a clock profile of their product
-by phase. Needs an NVIDIA GPU.
+"""The deep variants (d > 256) of two trees on the card: their outputs bit
+for bit, their times in turns, and a clock profile of their product by
+phase. Needs an NVIDIA GPU.
 
     python3 probes/deep_tc_turns.py digests TREE LABEL
     python3 probes/deep_tc_turns.py times TREE LABEL
@@ -19,28 +19,35 @@ centres at unit scale, the table at 0.02):
   backward (dX and dY from one cotangent), the bucket twins' forward, dX
   and dY; ``mips_topk`` over 4,096 positions at k 128 and over the
   vocabulary at k 1024; ``eval_fused`` at 8,192 × 256,000, k 1 with the
-  LSE and cap 30, with ``eval_tgt_gather``. Equal digests in two trees are
-  equal bits.
+  LSE and cap 30, with ``eval_tgt_gather``; ``eval_topk`` (the two-pass
+  sweep) at 512 × 256,000, k 10; the deep ``linear_ce`` forward (cap 30,
+  the target plucked) and its one-launch backward at 4,096 × 256,000.
+  Equal digests in two trees are equal bits. Where the tree takes
+  bfloat16 operands, ``bf16`` holds, for the same inputs rounded to bf16,
+  whether each deep output (both selections, ``eval_fused`` and
+  ``eval_tgt_gather``, the partial LSE's forward, the ``linear_ce``
+  forward) equals the f32 launch on the widened inputs bit for bit, and
+  the bf16 outputs' own digests; a tree that refuses bf16 prints
+  ``"refused"``.
 * ``times``: device ms (CUDA events, the mean of 5 calls, each after a
   1 GiB L2 flush) of ``sce_gather_plse_fwd``, the partial LSE's backward
   as autograd runs it (``sce_prefetch._grads``: logits, cotangent, dX,
-  dY's slot rows, the in-order dY sum) and ``sce_gather_fwd``; and that
-  backward split by kernel in launch order (``torch.profiler``, one warm
-  call).
-* ``profile``: the tree's depth-chunked product (``csrc/deep_tc.cuh``
-  where ``sce_gather.cu`` includes it, else ``csrc/deep_gemm.cuh``) built
-  from a copy with ``clock64()`` read around each phase of its depth loop
-  (summed per warp, read back through an added ``extern "C"`` getter),
-  for each of the deep backward's three products (the logits alone from
-  the forward; dX and dY alone, less the logits): each phase's share of
-  the warps' cycles and the cycles a warp spends per 32-deep chunk.
-  ``deep_gemm``: prologue, ``fetch`` (issuing the next chunk's scalar
-  loads), ``compute`` (fragment reads, splits and ``mma``), ``store``
-  (waiting for the loads, storing, the barrier), epilogue. ``deep_tc``:
-  prologue, ``wait`` (``cp.async`` wait and the barrier), ``issue`` (each
-  k16 step's six ``wgmma``, then half of chunk t + 1's split while the
-  tensor cores run), ``copies`` (chunk t + 3's), ``drain`` (waiting for
-  the ``wgmma``), ``add`` (the k16 products into the accumulator),
+  dY's slot rows, the in-order dY sum), ``sce_gather_fwd``, the deep
+  ``mips_topk`` at k 128 over the 4,096 positions and at k 1024 over the
+  vocabulary, and ``eval_fused`` at 8,192 × 256,000 (k 1, the LSE, cap
+  30; 3 calls); that backward and both ``mips_topk`` calls split by
+  kernel in launch order (``torch.profiler``, one warm call).
+* ``profile``: the tree's depth-chunked product (``csrc/deep_tc.cuh``,
+  its element-typed kernel) built from a copy with ``clock64()`` read
+  around each phase of its depth loop (summed per warp, read back
+  through an added ``extern "C"`` getter), for each of the deep
+  backward's three products (the logits alone from the forward; dX and
+  dY alone, less the logits): each phase's share of the warps' cycles
+  and the cycles a warp spends per 32-deep chunk: prologue, ``wait``
+  (``cp.async`` wait and the barrier), ``issue`` (each k16 step's six
+  ``wgmma``, then half of chunk t + 1's split while the tensor cores
+  run), ``copies`` (chunk t + 3's), ``drain`` (waiting for the
+  ``wgmma``), ``add`` (the k16 products into the accumulator),
   epilogue.
   ``cycles_per_warp_chunk`` counts the loop's phases only; at the dense
   495 TFLOP/s of TF32 a chunk's three passes of a 128 × 128 × 32 tile
@@ -129,8 +136,64 @@ def digests(tree, label):
     out["eval_fused"] = _digest(*eval_fused.eval_fused(
         xe, y, te, 1, c_lo=1, c_hi=C, logit_softcap=CAP, with_lse=True))
     out["eval_tgt_gather"] = _digest(eval_fused.eval_tgt_gather(xe, y, te))
+    from repro_torch.kernels import eval_topk, linear_sce
+
+    tgt_s = eval_topk.eval_tgt_scores(xe[:512], y, te[:512])
+    out["eval_topk"] = _digest(tgt_s, *eval_topk.eval_topk(
+        xe[:512], y, tgt_s, 10, c_lo=1, c_hi=C))
+    tl = te[:N_POS].contiguous()
+    loss, lse = linear_sce._fwd(xs, y, tl, CAP)
+    out["linear_ce"] = _digest(loss, lse, *linear_sce._bwd_deep(
+        xs, y, tl, lse, torch.rand(N_POS, generator=g, device=dev) + 0.5,
+        CAP, True, True))
     torch.cuda.synchronize()
+    out["bf16"] = _bf16_digests(torch, args, q, xs, xe, te, tl)
     print(label, json.dumps({"digests": out, "card": cs.smi()}), flush=True)
+
+
+def _bf16_digests(torch, args, q, xs, xe, te, tl):
+    """For each deep output on bf16 operands: equal to the f32 launch on
+    the widened inputs (bool), and its digest; "refused" where the tree
+    takes f32 only."""
+    from repro_torch.kernels import eval_fused, linear_sce, sce_prefetch
+    from repro_torch.kernels.mips_topk import mips_topk
+
+    bf = torch.bfloat16
+    x_b, y, idx, tgt, cand = args
+    xb, yb, qb, xsb, xeb = (t.to(bf) for t in (x_b, y, q, xs, xe))
+    w = lambda t: t.float()  # noqa: E731 — the widened copy
+    runs = {
+        "mips_topk_k128": (lambda: mips_topk(qb, xsb, 128),
+                           lambda: mips_topk(w(qb), w(xsb), 128)),
+        "mips_topk_k1024": (lambda: mips_topk(qb, yb, 1024),
+                            lambda: mips_topk(w(qb), w(yb), 1024)),
+        "eval_fused": tuple(
+            (lambda a=a, b=b: eval_fused.eval_fused(
+                a, b, te, 1, c_lo=1, c_hi=C, logit_softcap=CAP,
+                with_lse=True)) for a, b in ((xeb, yb), (w(xeb), w(yb)))),
+        "eval_tgt_gather": tuple(
+            (lambda a=a, b=b: (eval_fused.eval_tgt_gather(a, b, te),))
+            for a, b in ((xeb, yb), (w(xeb), w(yb)))),
+        "sce_gather_plse_fwd": tuple(
+            (lambda a=a, b=b: (sce_prefetch.sce_gather_plse_fwd(
+                a, b, idx, tgt, cand, logit_softcap=CAP),))
+            for a, b in ((xb, yb), (w(xb), w(yb)))),
+        "linear_ce_fwd": tuple(
+            (lambda a=a, b=b: linear_sce._fwd(a, b, tl, CAP))
+            for a, b in ((xsb, yb), (w(xsb), w(yb)))),
+    }
+    out = {}
+    for name, (got_fn, want_fn) in runs.items():
+        try:
+            got = got_fn()
+        except TypeError:
+            return "refused"
+        want = want_fn()
+        torch.cuda.synchronize()
+        out[name] = {"equal_f32_widened": all(
+            torch.equal(a, b) for a, b in zip(got, want)),
+            "digest": _digest(*got)}
+    return out
 
 
 def _kernel_split(torch, fn):
@@ -163,65 +226,41 @@ def times(tree, label):
             sce_prefetch.sce_gather_plse_dx, sce_prefetch.sce_gather_plse_dy,
             args + (plse, gg), CAP, True, True)
 
+    from repro_torch.kernels import eval_fused
+    from repro_torch.kernels.mips_topk import mips_topk
+
+    y = args[1]
+    q = torch.randn(N_B, D, generator=g, device=dev)
+    xs = torch.randn(N_POS, D, generator=g, device=dev)
+    xe = torch.randn(N_EVAL, D, generator=g, device=dev)
+    te = torch.randint(1, C, (N_EVAL,), generator=g, device=dev,
+                       dtype=torch.int32)
     runs = {
         "sce_gather_plse_fwd": lambda: sce_prefetch.sce_gather_plse_fwd(
             *args, **kw),
         "sce_gather_plse_bwd": pair,
         "sce_gather_fwd": lambda: sce_prefetch.sce_gather_fwd(*args, pos,
                                                               **kw),
+        "mips_topk_k128": lambda: mips_topk(q, xs, 128),
+        "mips_topk_k1024": lambda: mips_topk(q, y, 1024),
+        "eval_fused": lambda: eval_fused.eval_fused(
+            xe, y, te, 1, c_lo=1, c_hi=C, logit_softcap=CAP, with_lse=True),
     }
     with torch.no_grad():
-        ms = {k: cs.time_ms(f, 5, flush) for k, f in runs.items()}
+        ms = {k: cs.time_ms(f, 3 if k == "eval_fused" else 5, flush)
+              for k, f in runs.items()}
         split = _kernel_split(torch, pair)
+        mips_split = {k: _kernel_split(torch, runs[k])
+                      for k in ("mips_topk_k128", "mips_topk_k1024")}
     print(label, json.dumps({"ms": ms, "bwd_kernels": split,
+                             "mips_kernels": mips_split,
                              "card": cs.smi()}), flush=True)
 
 
-_GEMM_PATCH = [  # deep_gemm.cuh: prologue, fetch, compute, store, epilogue
-    ("template <bool A_KM, bool B_KN, bool GATHER>\n__global__",
-     "__device__ unsigned long long kProf[8];\n"
-     "template <bool A_KM, bool B_KN, bool GATHER>\n__global__"),
-    ("  __shared__ __align__(16) float as[2][kBM * kPitch];",
-     "  const long long P0 = clock64();\n"
-     "  __shared__ __align__(16) float as[2][kBM * kPitch];"),
-    ("  store(0);\n  __syncthreads();\n  for (int t = 0; t < chunks; ++t) {\n"
-     "    const int buf = t & 1;\n"
-     "    if (t + 1 < chunks) fetch((t + 1) * kBK);\n",
-     "  store(0);\n  __syncthreads();\n"
-     "  long long P1 = clock64(), PA = 0, PB = 0, PC = 0;\n"
-     "  for (int t = 0; t < chunks; ++t) {\n    const int buf = t & 1;\n"
-     "    asm volatile(\"\" ::: \"memory\");\n"
-     "    const long long Pa = clock64();\n"
-     "    if (t + 1 < chunks) fetch((t + 1) * kBK);\n"
-     "    asm volatile(\"\" ::: \"memory\");\n"
-     "    const long long Pb = clock64();\n"),
-    ("    if (t + 1 < chunks) store(buf ^ 1);\n    __syncthreads();\n  }\n",
-     "    asm volatile(\"\" ::: \"memory\");\n"
-     "    const long long Pc = clock64();\n"
-     "    if (t + 1 < chunks) store(buf ^ 1);\n    __syncthreads();\n"
-     "    const long long Pd = clock64();\n"
-     "    PA += Pb - Pa; PB += Pc - Pb; PC += Pd - Pc;\n  }\n"
-     "  const long long P2 = clock64();\n"),
-    ("          if (n < g.n) out[m * g.ldo + n] = zero ? 0.f : "
-     "acc[mt][nt][2 * h + u];\n        }\n    }\n}\n",
-     "          if (n < g.n) out[m * g.ldo + n] = zero ? 0.f : "
-     "acc[mt][nt][2 * h + u];\n        }\n    }\n"
-     "  const long long P3 = clock64();\n"
-     "  if ((threadIdx.x & 31) == 0) {\n"
-     "    atomicAdd(&kProf[0], (unsigned long long)(P1 - P0));\n"
-     "    atomicAdd(&kProf[1], (unsigned long long)PA);\n"
-     "    atomicAdd(&kProf[2], (unsigned long long)PB);\n"
-     "    atomicAdd(&kProf[3], (unsigned long long)PC);\n"
-     "    atomicAdd(&kProf[4], (unsigned long long)(P3 - P2));\n"
-     "    atomicAdd(&kProf[6], (unsigned long long)chunks);\n"
-     "    atomicAdd(&kProf[7], 1ull);\n  }\n}\n"),
-]
-_GEMM_PHASES = ("prologue", "fetch", "compute", "store", "epilogue")
-
+_TC_HEAD = ("template <bool A_KM, bool B_KN, bool GATHER, bool ACC, "
+            "typename TA,\n          typename TB>\n__global__")
 _TC_PATCH = [  # deep_tc.cuh: prologue, wait, issue, copies, drain, add, epilogue
-    ("template <bool A_KM, bool B_KN, bool GATHER, bool ACC>\n__global__",
-     "__device__ unsigned long long kProf[8];\n"
-     "template <bool A_KM, bool B_KN, bool GATHER, bool ACC>\n__global__"),
+    (_TC_HEAD, "__device__ unsigned long long kProf[8];\n" + _TC_HEAD),
     ("  extern __shared__ __align__(128) float smem[];",
      "  const long long P0 = clock64();\n"
      "  extern __shared__ __align__(128) float smem[];"),
@@ -288,10 +327,8 @@ def profile(tree, label):
     shutil.copy(Path(tree) / "chip_smoke.py", work / "chip_smoke.py")
     csrc = work / "src" / "repro_torch" / "kernels" / "csrc"
     sce = (csrc / "sce_gather.cu").read_text()
-    tc = '#include "deep_tc.cuh"' in sce
-    header, patch, ns, phases = (
-        ("deep_tc.cuh", _TC_PATCH, "deep_tc", _TC_PHASES) if tc else
-        ("deep_gemm.cuh", _GEMM_PATCH, "deep_gemm", _GEMM_PHASES))
+    header, patch, ns, phases = ("deep_tc.cuh", _TC_PATCH, "deep_tc",
+                                 _TC_PHASES)
     text = (csrc / header).read_text()
     for old, new in patch:
         if text.count(old) != 1:
@@ -330,7 +367,7 @@ def profile(tree, label):
                     ("dy", [a - b for a, b in zip(dy, logits)])):
         cyc = v[:len(phases)]
         total = sum(cyc)
-        chunks = v[7] if tc else v[6]
+        chunks = v[7]
         out[name] = {
             "share": {p: round(c / total, 4) for p, c in zip(phases, cyc)},
             "cycles_per_warp_chunk": round(

@@ -1,7 +1,7 @@
-// deep_tc — the depth-chunked product of the deep SCE and full-CE variants
-// (d > 256), designed for Hopper's tensor cores. A batched
-// C[b] = A[b] · B[b]ᵀ in 3xTF32 for any depth K, in a fixed 224 KB of
-// shared memory.
+// deep_tc — the depth-chunked product of every deep variant (d > 256),
+// designed for Hopper's tensor cores. A batched C[b] = A[b] · B[b]ᵀ in
+// 3xTF32 for any depth K, in a fixed 224 KB of shared memory, on f32 or
+// bfloat16 operands.
 //
 // Which TPU kernels it serves: at d > 256 it takes every product of
 //   * sce_gather.cu's deep entries — the in-bucket logits, dX = G · Y[idx]
@@ -12,42 +12,62 @@
 //   * linear_ce.cu's deep entries — a catalog chunk's logits slab,
 //     dX += G · W_chunk and dW_chunk = Gᵀ · X — behind `linear_ce_loss`
 //     (src/repro/kernels/linear_sce.py `_fwd`, `_bwd`) and `fused_lse` /
-//     `fused_ce_loss` (src/repro/kernels/fused_ce.py).
-// deep_gemm.cuh keeps the deep mips_topk and eval_fused score slabs, whose
-// products must stay target_scores' bit for bit.
+//     `fused_ce_loss` (src/repro/kernels/fused_ce.py);
+//   * the score slabs S = Y · Qᵀ of mips_topk.cu's and eval_fused.cu's
+//     deep entries (score_slab below: catalog rows as A, queries as B, the
+//     orientation of topk_tile.cuh's score_step), behind `mips_topk`
+//     (src/repro/kernels/mips_topk.py `_mips_kernel`), `eval_fused` and
+//     `eval_topk` (src/repro/kernels/eval_fused.py, eval_topk.py).
 //
-// The arithmetic is deep_gemm.cuh's: every value split into TF32
-// (hi, lo) (tf32x3::split), each k16 step's three passes (lo·hi, hi·lo of
-// both k8 steps, then hi·hi) summed from zero on the tensor cores and
-// added to the f32 accumulator in ascending depth, k16 steps past K
-// skipped, values out of range 0. On an H100 the outputs equal
-// deep_gemm's (its mma.sync m16n8k8) bit for bit: SHA-256 of every deep
-// SCE output at gemma-2's shapes (probes/deep_tc_turns.py digests; PERF.md
-// PR 25). So SCE's forward, dX and dY still read logits of one
-// arithmetic, the parent's.
+// The arithmetic is topk_tile.cuh's score_step and tf32x3_tile.cuh's:
+// every value split into TF32 (hi, lo) (tf32x3::split), each k16 step's
+// three passes (lo·hi, hi·lo of both k8 steps, then hi·hi) summed from
+// zero on the tensor cores and added to the f32 accumulator in ascending
+// depth, k16 steps past K skipped, values out of range 0. On an H100
+// `wgmma` gives the bits of `mma.sync` m16n8k8 for the same passes
+// (SHA-256 of every deep output at gemma-2's shapes,
+// probes/deep_tc_turns.py digests; PERF.md), so a slab score equals
+// target_scores' for the same pair bit for bit, and SCE's forward, dX and
+// dY read logits of one arithmetic.
+//
+// bfloat16 (TA or TB = bf16): the operand is staged as stored, 8 values a
+// 16-byte copy, and widened to f32 where the split reads it. A bf16 value
+// is its own TF32 hi (lo = 0), and the product of two is exact in f32, so
+// with ONE (set whenever an operand is bf16; an f32 operand beside it
+// must hold bf16 values, as the rounded cotangent G does) each k8 step
+// issues the hi·hi `wgmma` only and the lo planes are never written: the
+// lo·hi and hi·lo passes it drops are exact zeros, and the result is the
+// three-pass result on the widened operands bit for bit (up to the sign
+// of a zero sum).
 //
 // Options (template flags): A_KM — A stored (K, M), M contiguous;
 // B_KN — B stored (K, N); GATHER — B's rows (n, or k with B_KN) taken
 // from b at clamp(idx[r], 0, b_rows − 1); ACC — out += C instead of
 // out = C (linear_ce's dX across catalog chunks, one launch a chunk in
 // stream order: a fixed order, no atomics). m_zero: a row m whose
-// m_zero[b·mz_batch + m] < 0 is a zero row of C. Shapes as
-// deep_gemm.cuh's.
+// m_zero[b·mz_batch + m] < 0 is a zero row of C.
+// Shapes: A(m, k) is a[b·a_batch + m·lda + k], or with A_KM
+// a[b·a_batch + k·lda + m]; B(n, k) is row(n)[k], or with B_KN row(k)[n],
+// where row(r) = b + b·b_batch + r·ldb, or with GATHER
+// b + clamp(idx[b·idx_batch + r], 0, b_rows − 1)·ldb. Out of range values
+// read 0. out[b·out_batch + m·ldo + n] (f32) for m < M, n < N.
 //
 // What bounds it on an H100: three TF32 passes at the dense 495 TFLOP/s
-// (6·M·N·K FLOP of TF32 per product); the bytes (each operand once, the
-// output once) are a small share at the deep shapes (d 2304).
+// (6·M·N·K FLOP of TF32 per product; with bf16 one pass, 2·M·N·K); the
+// bytes (each operand once, the output once) are a small share at the
+// deep shapes (d 2304).
 //
-// Design, against deep_gemm.cuh's three weaknesses (its clock profile:
-// the scalar loads' issue 50–63 % of the logits' and dX's cycles, the
-// fragment splits and `mma` 27–41 %; PERF.md PR 25):
+// Design, against the register-staged mma.sync product it replaced (its
+// clock profile: scalar loads' issue 50–63 % of the cycles, the fragment
+// splits and `mma` 27–41 %; PERF.md):
 //   * loads: 16-byte cp.async per row chunk (4-byte where a leading
-//     dimension or base is not 16-byte aligned), for dense and gathered
-//     operands alike, into a ring of kStages raw stages, two 32-deep
-//     chunks ahead of the products; a gathered row's id is read once a
-//     block (K-major) or an iteration before its copies (B_KN). (The TMA
-//     cannot gather, and every value passes through a thread for its
-//     split anyway: one code path.)
+//     dimension or base is not 16-byte aligned; a bf16 operand then copies
+//     through registers), for dense and gathered operands alike, into a
+//     ring of kStages raw stages, two 32-deep chunks ahead of the
+//     products; a gathered row's id is read once a block (K-major) or an
+//     iteration before its copies (B_KN). (The TMA cannot gather, and
+//     every value passes through a thread for its split anyway: one code
+//     path.)
 //   * the split: each landed chunk is split once, by the whole block, into
 //     (hi, lo) planes laid out as wgmma's K-major core matrices (8 rows ×
 //     16 bytes; M- or N-major operands, A_KM and B_KN, transposed on the
@@ -55,18 +75,20 @@
 //     and no warp splits or loads a fragment.
 //   * tiles and the instruction: 128 × 128 outputs a block, two
 //     warpgroups of 64 rows, each k8 step three `wgmma` m64n128k8 (tf32,
-//     both operands K-major from shared memory, no swizzle), asynchronous:
-//     the block splits chunk t + 1 and issues chunk t + 3's copies while
-//     the tensor cores take chunk t, then adds each k16 step's product to
-//     its accumulator. One barrier per 32-deep chunk (two plane buffers,
-//     three raw stages).
+//     both operands K-major from shared memory, no swizzle; one with ONE),
+//     asynchronous: the block splits chunk t + 1 and issues chunk t + 3's
+//     copies while the tensor cores take chunk t, then adds each k16
+//     step's product to its accumulator. One barrier per 32-deep chunk
+//     (two plane buffers, three raw stages).
 // A plane: per operand and per (hi, lo), depth group c (4 depths) of row
 // r at core(c, r) — row groups of 8 side by side (128 bytes apart), depth
 // groups 2 KB apart; the raw K-major chunk's XOR keeps the split's reads
-// and the copies' writes free of bank conflicts.
-// Shared memory: kStages · 2 · 16 KB raw + 2 · 64 KB planes = 224 KB, one
-// block (two warpgroups) an SM; three 64-float accumulators a thread
-// (the running sum and both k16 steps' products).
+// and the copies' writes free of bank conflicts (f32; a bf16 chunk's
+// 8-byte reads take two wavefronts).
+// Shared memory: kStages · 2 · 16 KB raw (a bf16 operand uses half of
+// its share) + 2 · 64 KB planes = 224 KB, one block (two warpgroups) an
+// SM; three 64-float accumulators a thread (the running sum and both k16
+// steps' products).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -88,10 +110,10 @@ constexpr size_t kSmem =
     sizeof(float) * ((size_t)kStages * 2 * kRaw + 2 * 2 * kPlanes);
 
 struct Gemm {
-  const float* a;
+  const void* a;     // f32 or bf16, as the launch's TA
   long a_batch;
   int lda;
-  const float* b;
+  const void* b;     // f32 or bf16, as the launch's TB
   long b_batch;
   int ldb;
   const int* b_idx;  // GATHER: the source row of each B row
@@ -107,20 +129,50 @@ struct Gemm {
   int vec_o;         // set by gemm(): 8-byte output pairs allowed
 };
 
-// 4 consecutive floats global → shared, `n` of them valid (zeros after):
-// one 16-byte cp.async (src-size 4n) or four 4-byte ones.
-__device__ __forceinline__ void copy4(float* dst, const float* src, int n,
-                                      bool vec, const float* safe) {
-  n = n < 0 ? 0 : (n > 4 ? 4 : n);
+using tf32x3::bf16;
+
+// How an operand of element type T is copied: V values a 16-byte copy;
+// K-major, CPR copies a 32-deep row and KROWS rows a pass of the block's
+// threads; M- or N-major, CPD copies a 128-wide depth row and DROWS depth
+// rows a pass; IT passes either way (4 for f32, 2 for bf16).
+template <typename T>
+struct Stage {
+  static constexpr int V = 16 / (int)sizeof(T);
+  static constexpr int CPR = kBK / V;
+  static constexpr int KROWS = kThreads / CPR;
+  static constexpr int CPD = kBM / V;
+  static constexpr int DROWS = kThreads / CPD;
+  static constexpr int IT = kBM / KROWS;
+  static_assert(IT == kBK / DROWS, "passes");
+};
+
+// The 16-byte chunk of a K-major raw row r where its chunk kc lies: f32
+// rows are 8 chunks (kc ^ r mod 8), bf16 rows 4 (kc ^ ⌊r / 2⌋ mod 4).
+template <typename T>
+__device__ __forceinline__ int raw_chunk(int kc, int r) {
+  return sizeof(T) == 4 ? kc ^ (r & 7) : kc ^ ((r >> 1) & 3);
+}
+
+// V consecutive values global → shared, `n` of them valid (zeros after):
+// one 16-byte cp.async (src-size n values); with !vec four 4-byte copies
+// (f32) or V loads through registers (bf16: no 2-byte cp.async).
+template <typename T>
+__device__ __forceinline__ void copy_vec(T* dst, const T* src, int n,
+                                         bool vec, const T* safe) {
+  constexpr int V = Stage<T>::V;
+  n = n < 0 ? 0 : (n > V ? V : n);
   if (vec) {
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(n > 0 ? src : safe), "r"(4 * n)
+                 "l"(n > 0 ? src : safe), "r"((int)sizeof(T) * n)
                  : "memory");
+  } else if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      tf32x3::cp_async4(dst + j, j < n ? src + j : safe, j < n);
   } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      tf32x3::cp_async4(dst + j, j < n ? src + j : safe, j < n);
+    for (int j = 0; j < V; ++j) dst[j].bits = j < n ? src[j].bits : 0;
   }
 }
 
@@ -134,26 +186,34 @@ __device__ __forceinline__ int core(int c, int r) {
 
 // Unit i (0..3) of this thread's share of one operand's split: row
 // tid & 127, depths 4c .. 4c + 3 with c = (tid >> 7) + 2i, from the landed
-// raw chunk into the (hi, lo) planes. K-major raw (KM false): [128 rows]
-// [32], 16-byte chunk c of row r at c ^ (r & 7); M- or N-major (KM
-// true): [32][128].
-template <bool KM>
-__device__ __forceinline__ void split_unit(const float* raw, float* pl,
-                                           int i) {
+// raw chunk into the (hi, lo) planes (hi only with ONE). K-major raw (KM
+// false): [128 rows][32], 16-byte chunk kc of row r at raw_chunk(kc, r);
+// M- or N-major (KM true): [32][128].
+template <bool KM, bool ONE, typename T>
+__device__ __forceinline__ void split_unit(const T* raw, float* pl, int i) {
   const int r = threadIdx.x & (kBM - 1), c = (threadIdx.x >> 7) + 2 * i;
   float4 v;
   if (!KM) {
-    v = *reinterpret_cast<const float4*>(raw + r * kBK + 4 * (c ^ (r & 7)));
+    constexpr int G = Stage<T>::V / 4;  // depth groups a 16-byte chunk
+    v = tf32x3::load4(raw + r * kBK + Stage<T>::V * raw_chunk<T>(c / G, r) +
+                      4 * (c % G));
   } else {
-    const float* col = raw + 4 * c * kBM + r;
-    v = make_float4(col[0], col[kBM], col[2 * kBM], col[3 * kBM]);
+    const T* col = raw + 4 * c * kBM + r;
+    v = make_float4(tf32x3::widen(col[0]), tf32x3::widen(col[kBM]),
+                    tf32x3::widen(col[2 * kBM]), tf32x3::widen(col[3 * kBM]));
+  }
+  const int off = core(c, r);
+  if (ONE) {  // bf16 values: each its own hi, lo 0
+    *reinterpret_cast<uint4*>(pl + off) =
+        make_uint4(tf32x3::to_tf32(v.x), tf32x3::to_tf32(v.y),
+                   tf32x3::to_tf32(v.z), tf32x3::to_tf32(v.w));
+    return;
   }
   uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
   tf32x3::split(v.x, h0, l0);
   tf32x3::split(v.y, h1, l1);
   tf32x3::split(v.z, h2, l2);
   tf32x3::split(v.w, h3, l3);
-  const int off = core(c, r);
   *reinterpret_cast<uint4*>(pl + off) = make_uint4(h0, h1, h2, h3);
   *reinterpret_cast<uint4*>(pl + kPlane + off) = make_uint4(l0, l1, l2, l3);
 }
@@ -214,8 +274,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[64]) {
   }
 }
 
-template <bool A_KM, bool B_KN, bool GATHER, bool ACC>
+template <bool A_KM, bool B_KN, bool GATHER, bool ACC, typename TA,
+          typename TB>
 __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Gemm g) {
+  // One pass (hi·hi) when an operand is bf16 (see the note at the top).
+  constexpr bool ONE = sizeof(TA) == 2 || sizeof(TB) == 2;
+  using SA = Stage<TA>;
+  using SB = Stage<TB>;
   extern __shared__ __align__(128) float smem[];
   float* const raw = smem;                           // [stage][A, B][kRaw]
   float* const planes = smem + kStages * 2 * kRaw;  // [buf][A, B][kPlanes]
@@ -226,22 +291,27 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Gemm g) {
   const long m0 = (long)blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
   const long bt = blockIdx.z;
-  const float* const A = g.a + bt * g.a_batch;
-  const float* const B = g.b + (GATHER ? 0 : bt * g.b_batch);
+  const TA* const A = static_cast<const TA*>(g.a) + bt * g.a_batch;
+  const TB* const B = static_cast<const TB*>(g.b) + (GATHER ? 0 : bt * g.b_batch);
+  const TA* const a_safe = static_cast<const TA*>(g.a);
+  const TB* const b_safe = static_cast<const TB*>(g.b);
   const int* const idx = GATHER ? g.b_idx + bt * g.idx_batch : nullptr;
   const bool vec_a = g.vec_a, vec_b = g.vec_b;
 
-  // K-major operands: this thread copies 16-byte chunk (tid & 7) of rows
-  // (tid >> 3) + 32i, whose sources are fixed for the block.
-  const int kc = tid & 7;
-  const float* a_row[4];
-  const float* b_row[4];
+  // K-major operands: this thread copies 16-byte chunk tid % CPR of rows
+  // tid / CPR + KROWS·i, whose sources are fixed for the block.
+  const TA* a_row[SA::IT];
+  const TB* b_row[SB::IT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = (tid >> 3) + 32 * i;
+  for (int i = 0; i < SA::IT; ++i) {
+    const int r = tid / SA::CPR + SA::KROWS * i;
     a_row[i] = nullptr;
-    b_row[i] = nullptr;
     if (!A_KM && m0 + r < g.m) a_row[i] = A + (m0 + r) * g.lda;
+  }
+#pragma unroll
+  for (int i = 0; i < SB::IT; ++i) {
+    const int r = tid / SB::CPR + SB::KROWS * i;
+    b_row[i] = nullptr;
     if (!B_KN && n0 + r < g.n) {
       long src = n0 + r;
       if (GATHER) {
@@ -251,60 +321,67 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Gemm g) {
       b_row[i] = B + src * g.ldb;
     }
   }
-  // B_KN: the source rows of chunk t's depth rows (tid >> 5) + 8i, read
-  // an iteration before their copies are issued (the ids unclamped, so
-  // that nothing waits for the loads until the copies need them).
-  auto rows_of = [&](int t, int (&src)[4]) {
+  // B_KN: the source rows of chunk t's depth rows tid / CPD + DROWS·i,
+  // read an iteration before their copies are issued (the ids unclamped,
+  // so that nothing waits for the loads until the copies need them).
+  auto rows_of = [&](int t, int (&src)[SB::IT]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = t * kBK + (tid >> 5) + 8 * i;
+    for (int i = 0; i < SB::IT; ++i) {
+      const int k = t * kBK + tid / SB::CPD + SB::DROWS * i;
       src[i] = GATHER && k < g.k ? idx[k] : k;
     }
   };
   // The copies of chunk t into raw stage st.
-  auto load = [&](int t, int st, const int (&b_src)[4]) {
-    float* ra = raw + st * 2 * kRaw;
-    float* rb = ra + kRaw;
+  auto load = [&](int t, int st, const int (&b_src)[SB::IT]) {
+    TA* ra = reinterpret_cast<TA*>(raw + st * 2 * kRaw);
+    TB* rb = reinterpret_cast<TB*>(raw + st * 2 * kRaw + kRaw);
     const int k0 = t * kBK;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = (tid >> 3) + 32 * i;
-      const int kr = (tid >> 5) + 8 * i, c = 4 * (tid & 31);
+    for (int i = 0; i < SA::IT; ++i) {
       if (!A_KM) {
-        copy4(ra + r * kBK + 4 * (kc ^ (r & 7)),
-              a_row[i] ? a_row[i] + k0 + 4 * kc : g.a,
-              a_row[i] ? g.k - k0 - 4 * kc : 0, vec_a, g.a);
+        const int r = tid / SA::CPR + SA::KROWS * i, kc = tid % SA::CPR;
+        copy_vec(ra + r * kBK + SA::V * raw_chunk<TA>(kc, r),
+                 a_row[i] ? a_row[i] + k0 + SA::V * kc : a_safe,
+                 a_row[i] ? g.k - k0 - SA::V * kc : 0, vec_a, a_safe);
       } else {
+        const int kr = tid / SA::CPD + SA::DROWS * i;
+        const int c = SA::V * (tid % SA::CPD);
         const int k = k0 + kr;
         const long m = m0 + c;
-        copy4(ra + kr * kBM + c, k < g.k ? A + (long)k * g.lda + m : g.a,
-              k < g.k ? (int)(g.m - m < 4 ? g.m - m : 4) : 0, vec_a, g.a);
+        copy_vec(ra + kr * kBM + c, k < g.k ? A + (long)k * g.lda + m : a_safe,
+                 k < g.k ? (int)(g.m - m < SA::V ? g.m - m : SA::V) : 0,
+                 vec_a, a_safe);
       }
+    }
+#pragma unroll
+    for (int i = 0; i < SB::IT; ++i) {
       if (!B_KN) {
-        copy4(rb + r * kBK + 4 * (kc ^ (r & 7)),
-              b_row[i] ? b_row[i] + k0 + 4 * kc : g.b,
-              b_row[i] ? g.k - k0 - 4 * kc : 0, vec_b, g.b);
+        const int r = tid / SB::CPR + SB::KROWS * i, kc = tid % SB::CPR;
+        copy_vec(rb + r * kBK + SB::V * raw_chunk<TB>(kc, r),
+                 b_row[i] ? b_row[i] + k0 + SB::V * kc : b_safe,
+                 b_row[i] ? g.k - k0 - SB::V * kc : 0, vec_b, b_safe);
       } else {
+        const int kr = tid / SB::CPD + SB::DROWS * i;
+        const int c = SB::V * (tid % SB::CPD);
         const bool ok = k0 + kr < g.k;
         const int id = b_src[i];
         const long src =
             GATHER ? (id < 0 ? 0 : (id >= g.b_rows ? g.b_rows - 1 : id)) : id;
-        copy4(rb + kr * kBN + c, ok ? B + src * g.ldb + n0 + c : g.b,
-              ok ? g.n - n0 - c : 0, vec_b, g.b);
+        copy_vec(rb + kr * kBN + c, ok ? B + src * g.ldb + n0 + c : b_safe,
+                 ok ? g.n - n0 - c : 0, vec_b, b_safe);
       }
     }
   };
-  // The landed chunk in raw stage st → plane buffer pb, then its writes
-  // made visible to the tensor cores' reads (the async proxy).
   // Half h (units 2h, 2h + 1) of the split of the landed chunk in raw
   // stage st into plane buffer pb.
   auto split = [&](int st, int pb, int h) {
-    const float* rs = raw + st * 2 * kRaw;
+    const TA* ra = reinterpret_cast<const TA*>(raw + st * 2 * kRaw);
+    const TB* rb = reinterpret_cast<const TB*>(raw + st * 2 * kRaw + kRaw);
     float* pn = planes + pb * 2 * kPlanes;
 #pragma unroll
     for (int i = 2 * h; i < 2 * h + 2; ++i) {
-      split_unit<A_KM>(rs, pn, i);
-      split_unit<B_KN>(rs + kRaw, pn + kPlanes, i);
+      split_unit<A_KM, ONE>(ra, pn, i);
+      split_unit<B_KN, ONE>(rb, pn + kPlanes, i);
     }
   };
   // The split's writes made visible to the tensor cores' reads (the
@@ -320,7 +397,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Gemm g) {
   const int k16 = (g.k + 15) / 16;  // k16 steps over the depth
   const int chunks = (g.k + kBK - 1) / kBK;
 
-  int b_src[4] = {0, 0, 0, 0};
+  int b_src[SB::IT] = {};
 #pragma unroll
   for (int t = 0; t < kStages; ++t) {
     if (t < chunks) {
@@ -358,27 +435,30 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Gemm g) {
                                 desc(pb + core(4 * s + 2, 0))};
       const uint64_t lo = (uint64_t)(kPlane * 4) >> 4;  // hi → lo
       if (s == 0 || second) {
+        if (!ONE) {
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          wgmma(p, a_hi[kk] + lo, b_hi[kk], kk);  // lo·hi, from zero first
-          wgmma(p, a_hi[kk], b_hi[kk] + lo, 1);   // hi·lo
+          for (int kk = 0; kk < 2; ++kk) {
+            wgmma(p, a_hi[kk] + lo, b_hi[kk], kk);  // lo·hi, from zero first
+            wgmma(p, a_hi[kk], b_hi[kk] + lo, 1);   // hi·lo
+          }
         }
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) wgmma(p, a_hi[kk], b_hi[kk], 1);
+        for (int kk = 0; kk < 2; ++kk)
+          wgmma(p, a_hi[kk], b_hi[kk], ONE ? kk : 1);
         wgmma_commit();
       }
       // half of chunk t + 1's split while the tensor cores take step s
       if (more) split((t + 1) % kStages, (t + 1) & 1, s);
     }
     if (more) publish();
-    int next_src[4] = {0, 0, 0, 0};
+    int next_src[SB::IT] = {};
     if (t + kStages < chunks) {
       if (B_KN) rows_of(t + kStages + 1, next_src);
       load(t + kStages, t % kStages, b_src);
     }
     tf32x3::cp_async_commit();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) b_src[i] = next_src[i];
+    for (int i = 0; i < SB::IT; ++i) b_src[i] = next_src[i];
     // Both steps' products read only after the whole group has landed:
     // an accumulator read while another wgmma is in flight serializes
     // every wgmma of the kernel (ptxas C7514).
@@ -425,10 +505,11 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Gemm g) {
   }
 }
 
-// 1 when a's rows (and batches) start 16-byte aligned at leading
-// dimension ld.
-inline int vec_ok(const float* a, long batch, int ld) {
-  return ld % 4 == 0 && batch % 4 == 0 &&
+// 1 when an operand of element size `elem` at a has rows (and batches)
+// that start 16-byte aligned at leading dimension ld.
+inline int vec_ok(const void* a, long batch, int ld, int elem) {
+  const int v = 16 / elem;
+  return ld % v == 0 && batch % v == 0 &&
          reinterpret_cast<uintptr_t>(a) % 16 == 0;
 }
 
@@ -436,24 +517,45 @@ inline int vec_ok(const float* a, long batch, int ld) {
 // table of the kernel's shared-memory opt-in (kept in the caller's .cu:
 // see tf32x3::allow_max_smem). cudaErrorInvalidValue for an empty shape
 // or a grid the card does not take.
-template <bool A_KM, bool B_KN, bool GATHER, bool ACC>
+template <bool A_KM, bool B_KN, bool GATHER, bool ACC, typename TA = float,
+          typename TB = TA>
 cudaError_t gemm(Gemm g, long batch, cudaStream_t s,
                  bool (&done)[tf32x3::kMaxDevices]) {
   if (g.m <= 0 || g.n <= 0 || g.k <= 0 || batch <= 0 || batch > 65535)
     return cudaErrorInvalidValue;
   const long gx = (g.m + kBM - 1) / kBM, gy = (g.n + kBN - 1) / kBN;
   if (gx > 0x7fffffffL || gy > 65535) return cudaErrorInvalidValue;
-  g.vec_a = vec_ok(g.a, g.a_batch, g.lda);
-  g.vec_b = vec_ok(g.b, GATHER ? 0 : g.b_batch, g.ldb);
+  g.vec_a = vec_ok(g.a, g.a_batch, g.lda, sizeof(TA));
+  g.vec_b = vec_ok(g.b, GATHER ? 0 : g.b_batch, g.ldb, sizeof(TB));
   g.vec_o = g.ldo % 2 == 0 && g.out_batch % 2 == 0 &&
             reinterpret_cast<uintptr_t>(g.out) % 8 == 0;
-  cudaError_t err =
-      tf32x3::allow_max_smem(gemm_kernel<A_KM, B_KN, GATHER, ACC>, done);
+  auto kernel = gemm_kernel<A_KM, B_KN, GATHER, ACC, TA, TB>;
+  cudaError_t err = tf32x3::allow_max_smem(kernel, done);
   if (err != cudaSuccess) return err;
-  gemm_kernel<A_KM, B_KN, GATHER, ACC>
-      <<<dim3((unsigned)gx, (unsigned)gy, (unsigned)batch), kThreads, kSmem,
-         s>>>(g);
+  kernel<<<dim3((unsigned)gx, (unsigned)gy, (unsigned)batch), kThreads, kSmem,
+            s>>>(g);
   return cudaGetLastError();
+}
+
+// The score slab S (c, n_q), row-major: S[r][j] = y[r] · q[j], catalog
+// rows as A and queries as B — topk_tile.cuh's score_step orientation, so
+// that a slab score equals target_scores' for the pair bit for bit. The
+// deep mips_topk and eval_fused sweeps then read S.
+template <typename T>
+cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
+                       int d, cudaStream_t st,
+                       bool (&done)[tf32x3::kMaxDevices]) {
+  Gemm g{};
+  g.a = y;
+  g.lda = d;
+  g.b = q;
+  g.ldb = d;
+  g.out = s;
+  g.ldo = n_q;
+  g.m = c;
+  g.n = n_q;
+  g.k = d;
+  return gemm<false, false, false, false, T, T>(g, 1, st, done);
 }
 
 }  // namespace deep_tc

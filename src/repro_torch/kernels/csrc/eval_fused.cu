@@ -65,9 +65,9 @@
 // deterministic. k ≤ 512, d ≤ 256; k may exceed the valid columns.
 //
 // Deep variants (eval_fused_deep_launch, eval_topk_deep_launch) for
-// d > 256: deep_gemm.cuh first writes the score slab S = Y · Xᵀ (c, n),
-// catalog rows as A and queries as B with score_step's arithmetic over
-// depth chunks of 32, and the same sweep reads its tiles' scores from S
+// d > 256: deep_tc.cuh's product first writes the score slab S = Y · Xᵀ
+// (c, n), catalog rows as A and queries as B with score_step's arithmetic
+// over depth chunks of 32 (`wgmma`, bf16 operands in one TF32 pass), and the same sweep reads its tiles' scores from S
 // (topk_tile.cuh's FROM_S): the counts, the LSE fold, the lists and the
 // merge are this file's code. eval_tgt_gather takes any depth, and a slab
 // score equals its target score bit for bit (the same mma3x2 k16 steps
@@ -75,36 +75,60 @@
 // so eq still counts the target's own column. The wrapper cuts the rows
 // into slabs that keep S within a fixed budget.
 //
+// bfloat16 operands (the entries' bf16_in): x and y are widened to f32 as
+// they are staged (topk_tile.cuh) or split (deep_tc.cuh, one TF32 pass),
+// so every output equals the f32 launch's on the widened inputs bit for
+// bit, and the target score stays the swept column.
+//
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes in src/repro_torch/kernels/eval_fused.py.
 
 #include <math.h>
 
-#include "deep_gemm.cuh"
+#include "deep_tc.cuh"
 #include "topk_tile.cuh"
 
 namespace {
 
 using namespace topk_tile;
+using tf32x3::bf16;
+using tf32x3::by_dtype;
 
+template <typename T>
 __global__ void __launch_bounds__(32 * kTargetWarps)
-eval_tgt_gather_kernel(const float* __restrict__ x,
-                       const float* __restrict__ y,
+eval_tgt_gather_kernel(const T* __restrict__ x, const T* __restrict__ y,
                        const int* __restrict__ targets,
                        float* __restrict__ out, int n, int c, int d,
                        int id_offset) {
   target_scores(x, y, targets, out, n, c, d, id_offset);
 }
 
-cudaError_t launch_target_scores(const float* x, const float* y,
+cudaError_t launch_target_scores(const void* x, const void* y,
                                  const int* targets, float* out, int n, int c,
-                                 int d, int id_offset, cudaStream_t s) {
+                                 int d, int id_offset, int bf16_in,
+                                 cudaStream_t s) {
   if (n <= 0 || c <= 0 || d <= 0) return cudaErrorInvalidValue;
   const int rows = 8 * kTargetWarps;
-  eval_tgt_gather_kernel<<<(n + rows - 1) / rows, 32 * kTargetWarps, 0, s>>>(
-      x, y, targets, out, n, c, d, id_offset);
-  return cudaGetLastError();
+  return by_dtype(bf16_in, [&](auto t) {
+    using T = decltype(t);
+    eval_tgt_gather_kernel<T>
+        <<<(n + rows - 1) / rows, 32 * kTargetWarps, 0, s>>>(
+            static_cast<const T*>(x), static_cast<const T*>(y), targets, out,
+            n, c, d, id_offset);
+    return cudaGetLastError();
+  });
+}
+
+// deep_tc's score slab, with this library's table of its shared-memory
+// opt-in for each element type.
+template <typename T>
+cudaError_t score_slab(const void* q, const void* y, float* s, int n_q, int c,
+                       int d, cudaStream_t st) {
+  static bool done[kMaxDevices] = {};
+  return deep_tc::score_slab<T>(static_cast<const T*>(q),
+                                static_cast<const T*>(y), s, n_q, c, d, st,
+                                done);
 }
 
 // (m, s) of two disjoint column sets → (m, s) of their union.
@@ -118,7 +142,7 @@ __device__ __forceinline__ void lse_combine(float& m, float& s, float m2,
 // SELF: eval_fused's self-column rule (the target's own column never in
 // gt, always in eq). Without it (eval_topk) the counts go by score alone
 // and `targets` is not read.
-template <int NQT, int SLOTS, bool LSE, bool SELF, bool FROM_S>
+template <int NQT, int SLOTS, bool LSE, bool SELF, bool FROM_S, typename T>
 __global__ void __launch_bounds__(Cfg<NQT>::kThreads, Cfg<NQT>::kMinBlocks)
 eval_sweep_kernel(Sweep a, const float* __restrict__ tgt,
                   const int* __restrict__ targets, int* __restrict__ part_cnt,
@@ -153,7 +177,7 @@ eval_sweep_kernel(Sweep a, const float* __restrict__ tgt,
       s[nt][u] = 0.f;
     }
 
-  float* red = sweep<NQT, SLOTS, false, FROM_S>(
+  float* red = sweep<NQT, SLOTS, false, FROM_S, T>(
       a, smem4,
       [&](const float (&acc)[MT][NT][4], const int* flags, long c0) {
 #pragma unroll
@@ -298,7 +322,7 @@ struct Seed {
   int pre_split, pre_period;
 };
 
-template <int NQT, int SLOTS, bool LSE, bool SELF, bool FROM_S>
+template <int NQT, int SLOTS, bool LSE, bool SELF, bool FROM_S, typename T>
 cudaError_t launch_sweep(const Sweep& a, const EvalOut& o, int n_split,
                          const Seed& pre, cudaStream_t st) {
   using C = Cfg<NQT>;
@@ -306,13 +330,13 @@ cudaError_t launch_sweep(const Sweep& a, const EvalOut& o, int n_split,
   const size_t smem = sweep_smem_bytes<NQT, FROM_S>(a.d, a.k);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err =
-      allow_max_smem(eval_sweep_kernel<NQT, SLOTS, LSE, SELF, FROM_S>, done);
+      allow_max_smem(eval_sweep_kernel<NQT, SLOTS, LSE, SELF, FROM_S, T>, done);
   if (err != cudaSuccess) return err;
-  err = seed_tau<NQT, FROM_S>(a, pre.uv, pre.pre_split, pre.pre_period,
+  err = seed_tau<NQT, FROM_S, T>(a, pre.uv, pre.pre_split, pre.pre_period,
                               done_pre, st);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n_q + C::kQB - 1) / C::kQB, n_split);
-  eval_sweep_kernel<NQT, SLOTS, LSE, SELF, FROM_S>
+  eval_sweep_kernel<NQT, SLOTS, LSE, SELF, FROM_S, T>
       <<<grid, C::kThreads, smem, st>>>(a, o.tgt, o.targets, o.part_cnt,
                                         o.part_ms, o.cap);
   err = cudaGetLastError();
@@ -335,38 +359,47 @@ bool bad_plan(int n, int c, int d, int k, int n_split, int pre_split,
 // eval_fused (SELF) or eval_topk, resident (FROM_S false) or on the score
 // slab `scores` that this first fills (FROM_S).
 template <bool SELF, bool FROM_S>
-int launch_eval(const float* x, const float* y, float* scores,
+int launch_eval(const void* x, const void* y, float* scores,
                 const EvalOut& o, float* part_vals, int* part_ids, int* tau,
                 float* uv, int n, int c, int d, int k, int query_tiles,
                 int n_split, int pre_split, int pre_period, int id_offset,
-                int c_lo, int c_hi, bool with_lse, cudaStream_t st) {
+                int c_lo, int c_hi, bool with_lse, int bf16_in,
+                cudaStream_t st) {
   if (bad_plan(n, c, d, k, n_split, pre_split, pre_period, FROM_S) ||
       (FROM_S && scores == nullptr) ||
       (with_lse && (o.m == nullptr || o.s == nullptr ||
                     o.part_ms == nullptr)))
     return (int)cudaErrorInvalidValue;
+  const int elem = bf16_in ? 2 : 4;
   Sweep a{x, y, nullptr, part_vals, part_ids, tau, n, c, d, k, 0,
           id_offset, c_lo, c_hi,
-          d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0,
+          d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % (4 * elem) == 0,
           pre_split > 0};
   if (FROM_S) {
-    cudaError_t err = deep_gemm::score_slab(x, y, scores, n, c, d, st);
+    cudaError_t err = bf16_in ? score_slab<bf16>(x, y, scores, n, c, d, st)
+                              : score_slab<float>(x, y, scores, n, c, d, st);
     if (err != cudaSuccess) return (int)err;
     a.s = scores;
     a.vec = 0;
   }
-  return (int)dispatch<kSlotsLarge>(query_tiles, k, [&](auto nqt, auto slots) {
-    constexpr int NQT = decltype(nqt)::value;
-    constexpr int SLOTS = decltype(slots)::value;
-    const Seed pre{uv, pre_split, pre_period};
-    if constexpr (SELF) {  // the LSE is eval_fused's only
-      if (with_lse)
-        return launch_sweep<NQT, SLOTS, true, true, FROM_S>(a, o, n_split,
-                                                            pre, st);
-    }
-    return launch_sweep<NQT, SLOTS, false, SELF, FROM_S>(a, o, n_split, pre,
-                                                         st);
-  });
+  auto go = [&](auto t) {
+    using T = decltype(t);
+    return dispatch<kSlotsLarge>(query_tiles, k, [&](auto nqt, auto slots) {
+      constexpr int NQT = decltype(nqt)::value;
+      constexpr int SLOTS = decltype(slots)::value;
+      const Seed pre{uv, pre_split, pre_period};
+      if constexpr (SELF) {  // the LSE is eval_fused's only
+        if (with_lse)
+          return launch_sweep<NQT, SLOTS, true, true, FROM_S, T>(
+              a, o, n_split, pre, st);
+      }
+      return launch_sweep<NQT, SLOTS, false, SELF, FROM_S, T>(a, o, n_split,
+                                                              pre, st);
+    });
+  };
+  // The slab's sweep reads no operand: one (f32) instantiation.
+  if constexpr (FROM_S) return (int)go(float{});
+  else return (int)by_dtype(bf16_in, go);
 }
 
 }  // namespace
@@ -374,11 +407,12 @@ int launch_eval(const float* x, const float* y, float* scores,
 // Launches eval_tgt_gather on `stream`: out (n,) f32 from x (n, d), y
 // (c, d) and targets (n,) int32. Returns the cudaError_t of the launch
 // (0 on success). Nothing is synchronised and nothing is allocated.
-extern "C" int eval_tgt_gather_launch(const float* x, const float* y,
+extern "C" int eval_tgt_gather_launch(const void* x, const void* y,
                                       const int* targets, float* out, int n,
                                       int c, int d, int id_offset,
-                                      void* stream) {
+                                      int bf16_in, void* stream) {
   return (int)launch_target_scores(x, y, targets, out, n, c, d, id_offset,
+                                   bf16_in,
                                    static_cast<cudaStream_t>(stream));
 }
 
@@ -395,34 +429,34 @@ extern "C" int eval_tgt_gather_launch(const float* x, const float* y,
 // n_split balanced splits; τ is seeded as in mips_topk_launch (a pre-pass
 // only for k ≤ 32). Nothing is synchronised and nothing is allocated.
 extern "C" int eval_fused_launch(
-    const float* x, const float* y, const float* tgt, const int* targets,
+    const void* x, const void* y, const float* tgt, const int* targets,
     float* part_vals, int* part_ids, int* part_cnt, float* part_ms, int* tau,
     float* uv, float* vals, int* ids, int* gt, int* eq, float* m, float* s,
     int n, int c, int d, int k, int query_tiles, int n_split, int pre_split,
     int pre_period, int id_offset, int c_lo, int c_hi, float cap,
-    int with_lse, void* stream) {
+    int with_lse, int bf16_in, void* stream) {
   const EvalOut o{tgt, targets, part_cnt, part_ms, vals, ids, gt, eq, m, s,
                   cap};
   return launch_eval<true, false>(
       x, y, nullptr, o, part_vals, part_ids, tau, uv, n, c, d, k,
       query_tiles, n_split, pre_split, pre_period, id_offset, c_lo, c_hi,
-      with_lse != 0, static_cast<cudaStream_t>(stream));
+      with_lse != 0, bf16_in, static_cast<cudaStream_t>(stream));
 }
 
 // eval_fused_launch for any d > 0, on the (c, n) f32 workspace `scores`.
 extern "C" int eval_fused_deep_launch(
-    const float* x, const float* y, const float* tgt, const int* targets,
+    const void* x, const void* y, const float* tgt, const int* targets,
     float* part_vals, int* part_ids, int* part_cnt, float* part_ms, int* tau,
     float* uv, float* vals, int* ids, int* gt, int* eq, float* m, float* s,
     float* scores, int n, int c, int d, int k, int query_tiles, int n_split,
     int pre_split, int pre_period, int id_offset, int c_lo, int c_hi,
-    float cap, int with_lse, void* stream) {
+    float cap, int with_lse, int bf16_in, void* stream) {
   const EvalOut o{tgt, targets, part_cnt, part_ms, vals, ids, gt, eq, m, s,
                   cap};
   return launch_eval<true, true>(
       x, y, scores, o, part_vals, part_ids, tau, uv, n, c, d, k,
       query_tiles, n_split, pre_split, pre_period, id_offset, c_lo, c_hi,
-      with_lse != 0, static_cast<cudaStream_t>(stream));
+      with_lse != 0, bf16_in, static_cast<cudaStream_t>(stream));
 }
 
 // eval_topk and eval_tgt_scores: the deprecated two-pass entries of
@@ -438,38 +472,39 @@ extern "C" int eval_fused_deep_launch(
 // arithmetic gives them from a gather of B rows. Each returns the
 // cudaError_t of its launches (0 on success).
 extern "C" int eval_topk_launch(
-    const float* x, const float* y, const float* tgt, float* part_vals,
+    const void* x, const void* y, const float* tgt, float* part_vals,
     int* part_ids, int* part_cnt, int* tau, float* uv, float* vals, int* ids,
     int* gt, int* eq, int n, int c, int d, int k, int query_tiles,
     int n_split, int pre_split, int pre_period, int id_offset, int c_lo,
-    int c_hi, void* stream) {
+    int c_hi, int bf16_in, void* stream) {
   const EvalOut o{tgt, nullptr, part_cnt, nullptr, vals, ids, gt, eq,
                   nullptr, nullptr, 0.f};
   return launch_eval<false, false>(
       x, y, nullptr, o, part_vals, part_ids, tau, uv, n, c, d, k,
       query_tiles, n_split, pre_split, pre_period, id_offset, c_lo, c_hi,
-      false, static_cast<cudaStream_t>(stream));
+      false, bf16_in, static_cast<cudaStream_t>(stream));
 }
 
 // eval_topk_launch for any d > 0, on the (c, n) f32 workspace `scores`.
 extern "C" int eval_topk_deep_launch(
-    const float* x, const float* y, const float* tgt, float* part_vals,
+    const void* x, const void* y, const float* tgt, float* part_vals,
     int* part_ids, int* part_cnt, int* tau, float* uv, float* vals, int* ids,
     int* gt, int* eq, float* scores, int n, int c, int d, int k,
     int query_tiles, int n_split, int pre_split, int pre_period,
-    int id_offset, int c_lo, int c_hi, void* stream) {
+    int id_offset, int c_lo, int c_hi, int bf16_in, void* stream) {
   const EvalOut o{tgt, nullptr, part_cnt, nullptr, vals, ids, gt, eq,
                   nullptr, nullptr, 0.f};
   return launch_eval<false, true>(
       x, y, scores, o, part_vals, part_ids, tau, uv, n, c, d, k,
       query_tiles, n_split, pre_split, pre_period, id_offset, c_lo, c_hi,
-      false, static_cast<cudaStream_t>(stream));
+      false, bf16_in, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int eval_tgt_scores_launch(const float* x, const float* y,
+extern "C" int eval_tgt_scores_launch(const void* x, const void* y,
                                       const int* targets, float* out, int n,
                                       int c, int d, int id_offset,
-                                      void* stream) {
+                                      int bf16_in, void* stream) {
   return (int)launch_target_scores(x, y, targets, out, n, c, d, id_offset,
+                                   bf16_in,
                                    static_cast<cudaStream_t>(stream));
 }

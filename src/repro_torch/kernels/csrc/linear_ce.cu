@@ -146,6 +146,14 @@
 // twice) is a byte per ≈ 575 FLOP forward and ≈ 860 backward, so the
 // products bound them.
 //
+// bfloat16 operands (the entries' bf16_in): split_kernel widens bf16 rows
+// into planes whose lo is 0, so the forward, dX and dW (ONE) take one
+// TF32 pass a product — the lo passes would add exact zeros — and dX and
+// dW round the cotangent to bf16 before its product, as the reference's
+// gw.astype(w.dtype); the deep entries read bf16 x and w as stored
+// (deep_tc.cuh, one pass) and round the slab's cotangent the same way.
+// Every output is f32; the wrapper rounds dX and dW once.
+//
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes in src/repro_torch/kernels/linear_sce.py.
@@ -270,10 +278,11 @@ __device__ __forceinline__ void logit_offsets(int cpr, int (&sb_hi)[2],
 }
 
 // sc[m][n] = the warp's owned rows · the streamed tile's rows 8n .. 8n + 7,
-// 32 × 8·NT, in k16 steps over the depth, each from zero and added in f32.
-// The depth loop is not unrolled: unrolled by 2, the 32 × 64 tile took 255
-// registers and spilled.
-template <int NT>
+// 32 × 8·NT, in k16 steps over the depth, each from zero and added in f32
+// (ONE: planes of bf16 values, lo 0, one pass). The depth loop is not
+// unrolled: unrolled by 2, the 32 × 64 tile took 255 registers and
+// spilled.
+template <int NT, bool ONE>
 __device__ __forceinline__ void logit_tile(const float* afrag,
                                            const float* t, int cpr,
                                            const int (&sb_hi)[2],
@@ -295,7 +304,7 @@ __device__ __forceinline__ void logit_tile(const float* afrag,
       for (int k = 0; k < 2; ++k) {
         const float* f = afrag + 256 * (m * s8 + 2 * kk + k);
         lds128(ah[m][k], f);
-        lds128(al[m][k], f + 128);
+        if (!ONE) lds128(al[m][k], f + 128);
       }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -304,12 +313,12 @@ __device__ __forceinline__ void logit_tile(const float* afrag,
       for (int k = 0; k < 2; ++k) {
         const float* f = t + 32 * (cpr * n + kk);
         lds64(bh[k], f + sb_hi[k]);
-        lds64(bl[k], f + sb_lo[k]);
+        if (!ONE) lds64(bl[k], f + sb_lo[k]);
       }
 #pragma unroll
       for (int m = 0; m < kMT; ++m) {
         float part[4];
-        mma3x2(part, ah[m], al[m], bh, bl);
+        mma_k16<ONE>(part, ah[m], al[m], bh, bl);
 #pragma unroll
         for (int i = 0; i < 4; ++i) sc[m][n][i] += part[i];
       }
@@ -329,8 +338,9 @@ struct FwdProblem {
   int stages;           // cp.async ring depth: 2 or 3
 };
 
-// NT n8 tiles a streamed tile: 8·NT catalog rows.
-template <bool PLUCK, bool CAP, int NT>
+// NT n8 tiles a streamed tile: 8·NT catalog rows. ONE: the planes hold
+// bf16 values (lo 0), one TF32 pass a product.
+template <bool PLUCK, bool CAP, int NT, bool ONE>
 __global__ void __launch_bounds__(32 * kFwdMaxWarps, 1)
 ce_fwd_kernel(FwdProblem a, float* __restrict__ part) {
   extern __shared__ float4 smem4[];
@@ -384,7 +394,7 @@ ce_fwd_kernel(FwdProblem a, float* __restrict__ part) {
         ring + (it % a.stages) * kRows * cpr);
     const int col0 = (t_lo + it) * kRows;
     float sc[kMT][NT][4];
-    logit_tile<NT>(afrag, t, cpr, sb_hi, sb_lo, sc);
+    logit_tile<NT, ONE>(afrag, t, cpr, sb_hi, sb_lo, sc);
     // The next stage's copies go out after the products (on an H100 at the
     // paper's shape 2 % faster than before them).
     const int ahead = it + a.stages - 1;
@@ -511,14 +521,17 @@ constexpr int kSplitThreads = 256;
 
 // xp and wp: the rows of x (n, d) and w (c, d) as blocks of 8 depths,
 // (hi[8], lo[8]), zeros past d (tf32x3_tile.cuh). One thread a group of
-// four depths: one 16-byte chunk of hi and one of lo.
+// four depths: one 16-byte chunk of hi and one of lo. bf16 rows (T) are
+// widened as read: each value is its own hi and its lo plane is 0, so the
+// kernels that read the planes compute on the bf16 values exactly.
+template <typename T>
 __global__ void __launch_bounds__(kSplitThreads)
-split_kernel(const float* __restrict__ x, const float* __restrict__ w,
+split_kernel(const T* __restrict__ x, const T* __restrict__ w,
              float4* __restrict__ xp, float4* __restrict__ wp, int n, int c,
              int d, int cpr) {
   const int quads = cpr / 2;  // groups of four depths a row
   long e = (long)blockIdx.x * kSplitThreads + threadIdx.x;
-  const float* src = x;
+  const T* src = x;
   float4* dst = xp;
   if (e >= (long)n * quads) {
     e -= (long)n * quads;
@@ -531,7 +544,7 @@ split_kernel(const float* __restrict__ x, const float* __restrict__ w,
   uint32_t h[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    split(k + i < d ? src[r * d + k + i] : 0.f, h[i], l[i]);
+    split(k + i < d ? widen(src[r * d + k + i]) : 0.f, h[i], l[i]);
   // block k / 8: chunks (hi 0..3, hi 4..7, lo 0..3, lo 4..7)
   float4* out = dst + r * cpr + (k / 8) * 4 + (k % 8) / 4;
   out[0] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
@@ -559,7 +572,10 @@ struct BwdProblem {
 
 // Rows of the owned block: kWarpRows a warp.
 // dX: out (splits, n, d), this split's partial; dW: out (c, d).
-template <bool DW, bool PLUCK, bool CAP>
+// ONE: the planes hold bf16 values (lo 0); the cotangent is rounded to
+// bf16 before its product (the reference's gw.astype(w.dtype)), and each
+// product takes one TF32 pass.
+template <bool DW, bool PLUCK, bool CAP, bool ONE>
 __global__ void __launch_bounds__(32 * kBwdMaxWarps, 2)
 ce_bwd_kernel(BwdProblem a, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
@@ -715,7 +731,7 @@ ce_bwd_kernel(BwdProblem a, float* __restrict__ out) {
         for (int k = 0; k < 2; ++k) {
           const float* f = afrag + 256 * (m * s8 + 2 * kk + k);
           lds128(ah[m][k], f);
-          lds128(al[m][k], f + 4);
+          if (!ONE) lds128(al[m][k], f + 4);
         }
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
@@ -724,12 +740,12 @@ ce_bwd_kernel(BwdProblem a, float* __restrict__ out) {
         for (int k = 0; k < 2; ++k) {
           const float* f = t + 32 * (cpr * n + kk);
           lds64(bh[k], f + sb_hi[k]);
-          lds64(bl[k], f + sb_lo[k]);
+          if (!ONE) lds64(bl[k], f + sb_lo[k]);
         }
 #pragma unroll
         for (int m = 0; m < kMT; ++m) {
           float part[4];
-          mma3x2(part, ah[m], al[m], bh, bl);
+          mma_k16<ONE>(part, ah[m], al[m], bh, bl);
 #pragma unroll
           for (int i = 0; i < 4; ++i) sc[m][n][i] += part[i];
         }
@@ -762,6 +778,7 @@ ce_bwd_kernel(BwdProblem a, float* __restrict__ out) {
                                            tg[m][h] == ct, a.cap)
                    : cotangent<PLUCK, CAP>(l, ls[m][h], gs[m][h], p < a.c,
                                            p == tg[m][h], a.cap);
+            if (ONE) v = round_bf16(v);
           }
       }
 
@@ -794,12 +811,12 @@ ce_bwd_kernel(BwdProblem a, float* __restrict__ out) {
               for (int rp = 0; rp < 2; ++rp) {
                 const float* f = tj[k] + 32 * (n >> 1);
                 bh[k][rp] = __float_as_uint(f[pb_hi[rp][n & 1]]);
-                bl[k][rp] = __float_as_uint(f[pb_lo[rp][n & 1]]);
+                bl[k][rp] = ONE ? 0u : __float_as_uint(f[pb_lo[rp][n & 1]]);
               }
 #pragma unroll
             for (int m = 0; m < kMT; ++m) {
               float part[4];
-              mma3x2(part, gh[m], gl[m], bh, bl);
+              mma_k16<ONE>(part, gh[m], gl[m], bh, bl);
 #pragma unroll
               for (int i = 0; i < 4; ++i) acc[m][n][i] += part[i];
             }
@@ -936,10 +953,10 @@ cudaError_t with_rows(int d, F&& f) {
   return f(std::integral_constant<int, 4>{});
 }
 
-template <bool PLUCK, bool CAP, int NT>
+template <bool PLUCK, bool CAP, int NT, bool ONE = false>
 cudaError_t fwd_kernel_ready() {
   static bool done[kMaxDevices] = {};
-  return allow_max_smem(ce_fwd_kernel<PLUCK, CAP, NT>, done);
+  return allow_max_smem(ce_fwd_kernel<PLUCK, CAP, NT, ONE>, done);
 }
 
 // The backward's launch shape at depth d: warps a block (128 owned rows
@@ -971,10 +988,10 @@ BwdPlan bwd_plan(int d, bool dw) {
   return p;
 }
 
-template <bool DW, bool PLUCK, bool CAP>
+template <bool DW, bool PLUCK, bool CAP, bool ONE = false>
 cudaError_t bwd_kernel_ready() {
   static bool done[kMaxDevices] = {};
-  return allow_max_smem(ce_bwd_kernel<DW, PLUCK, CAP>, done);
+  return allow_max_smem(ce_bwd_kernel<DW, PLUCK, CAP, ONE>, done);
 }
 
 // The backward's problem on the planes; tiles_per_split is set by the
@@ -1003,11 +1020,13 @@ constexpr int kFoldWarps = 8;
 
 // deep_tc's product, with this library's table of its shared-memory
 // opt-in for each instantiation.
-template <bool A_KM, bool B_KN, bool ACC, bool GATHER = false>
+template <bool A_KM, bool B_KN, bool ACC, bool GATHER = false,
+          typename TA = float, typename TB = TA>
 cudaError_t tc_gemm(const deep_tc::Gemm& g, cudaStream_t s, long batch = 1) {
   static bool done[kMaxDevices] = {};
-  return deep_tc::gemm<A_KM, B_KN, GATHER, ACC>(g, batch, s, done);
+  return deep_tc::gemm<A_KM, B_KN, GATHER, ACC, TA, TB>(g, batch, s, done);
 }
+
 
 // Calls f(std::integral_constant<bool, v>).
 template <class F>
@@ -1015,20 +1034,21 @@ cudaError_t with_bool(bool v, F&& f) {
   return v ? f(True{}) : f(False{});
 }
 
-// slab[r][j] = x[r] · w[c0 + j] for j < cc, at pitch ld.
-cudaError_t chunk_logits(const float* x, const float* w, float* slab, int ld,
+// slab[r][j] = x[r] · w[c0 + j] for j < cc, at pitch ld; x, w of type T.
+template <typename T>
+cudaError_t chunk_logits(const void* x, const void* w, float* slab, int ld,
                          int n, int c0, int cc, int d, cudaStream_t s) {
   deep_tc::Gemm g{};
   g.a = x;
   g.lda = d;
-  g.b = w + (long)c0 * d;
+  g.b = static_cast<const T*>(w) + (long)c0 * d;
   g.ldb = d;
   g.out = slab;
   g.ldo = ld;
   g.m = n;
   g.n = cc;
   g.k = d;
-  return tc_gemm<false, false, false>(g, s);
+  return tc_gemm<false, false, false, false, T>(g, s);
 }
 
 // One chunk of the forward, a warp per row: the online (m, s) of the
@@ -1093,8 +1113,9 @@ deep_finish_kernel(const float* __restrict__ state, float* __restrict__ loss,
 }
 
 // The chunk's logits in the slab → the cotangent in place:
-// (p − onehot)·cap′·g, the resident backward's entry (cotangent above).
-template <bool PLUCK, bool CAP>
+// (p − onehot)·cap′·g, the resident backward's entry (cotangent above),
+// rounded to bf16 (ROUND_G) before bf16 operands' products.
+template <bool PLUCK, bool CAP, bool ROUND_G>
 __global__ void __launch_bounds__(256)
 deep_cotangent_kernel(float* __restrict__ slab, int ld,
                       const int* __restrict__ tgt,
@@ -1108,8 +1129,9 @@ deep_cotangent_kernel(float* __restrict__ slab, int ld,
     const int j = (int)(e - row * cc);
     float* p = slab + row * ld + j;
     const float l = logit<CAP>(*p, cap);
-    *p = cotangent<PLUCK, CAP>(l, lse[row], g[row], true,
-                               PLUCK && tgt[row] == c0 + j, cap);
+    const float v = cotangent<PLUCK, CAP>(l, lse[row], g[row], true,
+                                          PLUCK && tgt[row] == c0 + j, cap);
+    *p = ROUND_G ? round_bf16(v) : v;
   }
 }
 
@@ -1148,7 +1170,8 @@ extern "C" int linear_ce_splits(int kind, int n, int c, int d, int pluck,
         constexpr int NT = decltype(nt)::value;
         cudaError_t e = fwd_kernel_ready<PL, CP, NT>();
         if (e != cudaSuccess) return e;
-        return plan_splits(ce_fwd_kernel<PL, CP, NT>, 32 * p.warps, p.smem,
+        return plan_splits(ce_fwd_kernel<PL, CP, NT, false>, 32 * p.warps,
+                           p.smem,
                            (n + bm - 1) / bm, (c + p.rows - 1) / p.rows,
                            &splits);
       });
@@ -1157,7 +1180,8 @@ extern "C" int linear_ce_splits(int kind, int n, int c, int d, int pluck,
     if (e != cudaSuccess) return e;
     const BwdPlan p = bwd_plan(d, false);
     const int bm = kWarpRows * p.warps;
-    return plan_splits(ce_bwd_kernel<false, PL, CP>, 32 * p.warps, p.smem,
+    return plan_splits(ce_bwd_kernel<false, PL, CP, false>, 32 * p.warps,
+                       p.smem,
                        (n + bm - 1) / bm * out_chunks(d), s_tiles(c),
                        &splits);
   });
@@ -1191,12 +1215,13 @@ extern "C" int linear_ce_bwd_plan(int d, int dw, int* warps, int* stages) {
 }
 
 // Forward: lse (n,), and with pluck loss (n,) = lse − the target's logit,
-// from the planes xp and wp. part: (splits, n, 3) f32 scratch.
+// from the planes xp and wp. part: (splits, n, 3) f32 scratch. bf16_in:
+// the planes were split from bfloat16 operands (lo 0): one TF32 pass.
 extern "C" int linear_ce_fwd_launch(const float* xp, const float* wp,
                                     const int* tgt, float* part, float* loss,
                                     float* lse, int n, int c, int d,
                                     int splits, int pluck, float cap,
-                                    void* stream) {
+                                    int bf16_in, void* stream) {
   if (!shapes_ok(n, c, d) || splits < 1 || splits > kMaxSplits ||
       (pluck && (tgt == nullptr || loss == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -1214,11 +1239,15 @@ extern "C" int linear_ce_fwd_launch(const float* xp, const float* wp,
     const int bm = kWarpRows * p.warps;
     cudaError_t err = with_rows(d, [&](auto nt) {
       constexpr int NT = decltype(nt)::value;
-      cudaError_t e = fwd_kernel_ready<PL, CP, NT>();
-      if (e != cudaSuccess) return e;
-      const dim3 grid((n + bm - 1) / bm, splits);
-      ce_fwd_kernel<PL, CP, NT><<<grid, 32 * p.warps, p.smem, st>>>(a, part);
-      return cudaGetLastError();
+      return with_bool(bf16_in != 0, [&](auto one) {
+        constexpr bool ONE = decltype(one)::value;
+        cudaError_t e = fwd_kernel_ready<PL, CP, NT, ONE>();
+        if (e != cudaSuccess) return e;
+        const dim3 grid((n + bm - 1) / bm, splits);
+        ce_fwd_kernel<PL, CP, NT, ONE>
+            <<<grid, 32 * p.warps, p.smem, st>>>(a, part);
+        return cudaGetLastError();
+      });
     });
     if (err != cudaSuccess) return err;
     ce_fwd_merge_kernel<PL>
@@ -1228,28 +1257,36 @@ extern "C" int linear_ce_fwd_launch(const float* xp, const float* wp,
   });
 }
 
-// The (hi, lo) planes of x and w, one launch for both.
-extern "C" int linear_ce_split_launch(const float* x, const float* w,
+// The (hi, lo) planes of x and w, one launch for both; x and w f32, or
+// both bfloat16 when bf16_in is nonzero (then every lo is 0).
+extern "C" int linear_ce_split_launch(const void* x, const void* w,
                                       float* xp, float* wp, int n, int c,
-                                      int d, void* stream) {
+                                      int d, int bf16_in, void* stream) {
   if (!shapes_ok(n, c, d)) return (int)cudaErrorInvalidValue;
   const int cpr = padded_depth(d) / 2;
   const long quads = ((long)n + c) * (cpr / 2);
-  split_kernel<<<(unsigned)((quads + kSplitThreads - 1) / kSplitThreads),
-                 kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, reinterpret_cast<float4*>(xp), reinterpret_cast<float4*>(wp), n,
-      c, d, cpr);
-  return (int)cudaGetLastError();
+  return (int)by_dtype(bf16_in, [&](auto t) {
+    using T = decltype(t);
+    split_kernel<T>
+        <<<(unsigned)((quads + kSplitThreads - 1) / kSplitThreads),
+           kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(x), static_cast<const T*>(w),
+            reinterpret_cast<float4*>(xp), reinterpret_cast<float4*>(wp), n,
+            c, d, cpr);
+    return cudaGetLastError();
+  });
 }
 
 // dX (n, d) for the upstream cotangent g (n,) of the loss (pluck) or of
 // the lse. part: (splits, n, d) f32 scratch, unused (may be null) when
-// splits == 1.
+// splits == 1. bf16_in: the planes hold bfloat16 operands, and the
+// cotangent is rounded to bf16 before its product (the reference's
+// gw.astype(w.dtype)); dx is f32 either way.
 extern "C" int linear_ce_dx_launch(const float* xp, const float* wp,
                                    const int* tgt, const float* lse,
                                    const float* g, float* part, float* dx,
                                    int n, int c, int d, int splits, int pluck,
-                                   float cap, void* stream) {
+                                   float cap, int bf16_in, void* stream) {
   if (!shapes_ok(n, c, d) || splits < 1 || splits > kMaxSplits ||
       (splits > 1 && part == nullptr) || (pluck && tgt == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1262,13 +1299,16 @@ extern "C" int linear_ce_dx_launch(const float* xp, const float* wp,
   return (int)with_flags(pluck != 0, cap > 0.f, [&](auto pl, auto cp) {
     constexpr bool PL = decltype(pl)::value;
     constexpr bool CP = decltype(cp)::value;
-    cudaError_t err = bwd_kernel_ready<false, PL, CP>();
-    if (err != cudaSuccess) return err;
     const int bm = kWarpRows * p.warps;
     const dim3 grid((n + bm - 1) / bm, splits, out_chunks(d));
-    ce_bwd_kernel<false, PL, CP><<<grid, 32 * p.warps, p.smem, st>>>(
-        a, splits > 1 ? part : dx);
-    err = cudaGetLastError();
+    cudaError_t err = with_bool(bf16_in != 0, [&](auto one) {
+      constexpr bool ONE = decltype(one)::value;
+      cudaError_t e = bwd_kernel_ready<false, PL, CP, ONE>();
+      if (e != cudaSuccess) return e;
+      ce_bwd_kernel<false, PL, CP, ONE><<<grid, 32 * p.warps, p.smem, st>>>(
+          a, splits > 1 ? part : dx);
+      return cudaGetLastError();
+    });
     if (err != cudaSuccess || splits == 1) return err;
     const long nd = (long)n * d;
     sum_splits_kernel<<<(unsigned)((nd + kMergeThreads - 1) / kMergeThreads),
@@ -1277,11 +1317,12 @@ extern "C" int linear_ce_dx_launch(const float* xp, const float* wp,
   });
 }
 
-// dW (c, d) for the upstream cotangent g (n,), every row written once.
+// dW (c, d) for the upstream cotangent g (n,), every row written once;
+// bf16_in as linear_ce_dx_launch's.
 extern "C" int linear_ce_dw_launch(const float* xp, const float* wp,
                                    const int* tgt, const float* lse,
                                    const float* g, float* dw, int n, int c,
-                                   int d, int pluck, float cap,
+                                   int d, int pluck, float cap, int bf16_in,
                                    void* stream) {
   if (!shapes_ok(n, c, d) || (pluck && tgt == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1294,27 +1335,31 @@ extern "C" int linear_ce_dw_launch(const float* xp, const float* wp,
   return (int)with_flags(pluck != 0, cap > 0.f, [&](auto pl, auto cp) {
     constexpr bool PL = decltype(pl)::value;
     constexpr bool CP = decltype(cp)::value;
-    cudaError_t err = bwd_kernel_ready<true, PL, CP>();
-    if (err != cudaSuccess) return err;
     const int bm = kWarpRows * p.warps;
     const dim3 grid((c + bm - 1) / bm, 1, out_chunks(d));
-    ce_bwd_kernel<true, PL, CP><<<grid, 32 * p.warps, p.smem, st>>>(a, dw);
-    return cudaGetLastError();
+    return with_bool(bf16_in != 0, [&](auto one) {
+      constexpr bool ONE = decltype(one)::value;
+      cudaError_t err = bwd_kernel_ready<true, PL, CP, ONE>();
+      if (err != cudaSuccess) return err;
+      ce_bwd_kernel<true, PL, CP, ONE><<<grid, 32 * p.warps, p.smem, st>>>(
+          a, dw);
+      return cudaGetLastError();
+    });
   });
 }
 
 // The deep entries, for any d > 0 (the resident ones above take
-// d ≤ 256): x (n, d), w (c, d) f32 read as they are (no planes); slab an
-// (n, chunk) f32 workspace, chunk a multiple of 4 (the wrapper takes
-// 128 · ⌊budget / 128⌋ catalog rows).
+// d ≤ 256): x (n, d), w (c, d) f32, or both bfloat16 with bf16_in, read as
+// they are (no planes); slab an (n, chunk) f32 workspace, chunk a
+// multiple of 4 (the wrapper takes 128 · ⌊budget / 128⌋ catalog rows).
 
 // Forward: lse (n,), and with pluck loss (n,); state (n, 3) f32 scratch.
-extern "C" int linear_ce_fwd_deep_launch(const float* x, const float* w,
+extern "C" int linear_ce_fwd_deep_launch(const void* x, const void* w,
                                          const int* tgt, float* slab,
                                          float* state, float* loss,
                                          float* lse, int n, int c, int d,
                                          int chunk, int pluck, float cap,
-                                         void* stream) {
+                                         int bf16_in, void* stream) {
   if (!shapes_ok(n, c, d, true) || chunk < 1 || chunk % 4 != 0 ||
       (pluck && (tgt == nullptr || loss == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -1324,7 +1369,10 @@ extern "C" int linear_ce_fwd_deep_launch(const float* x, const float* w,
     constexpr bool CP = decltype(cp)::value;
     for (long c0 = 0; c0 < c; c0 += chunk) {
       const int cc = (int)(c - c0 < chunk ? c - c0 : chunk);
-      cudaError_t err = chunk_logits(x, w, slab, chunk, n, (int)c0, cc, d, st);
+      cudaError_t err =
+          bf16_in ? chunk_logits<bf16>(x, w, slab, chunk, n, (int)c0, cc, d, st)
+                  : chunk_logits<float>(x, w, slab, chunk, n, (int)c0, cc, d,
+                                        st);
       if (err != cudaSuccess) return err;
       deep_fold_kernel<PL, CP>
           <<<(n + kFoldWarps - 1) / kFoldWarps, 32 * kFoldWarps, 0, st>>>(
@@ -1340,28 +1388,34 @@ extern "C" int linear_ce_fwd_deep_launch(const float* x, const float* w,
 }
 
 // dX (n, d) and dW (c, d) — either may be null, not both — for the
-// upstream cotangent g (n,), each chunk's cotangent written once and read
-// by both products: dX += G · w_chunk over the chunks in order (the first
-// writes), dW's chunk rows = Gᵀ · x, each written once.
-extern "C" int linear_ce_bwd_deep_launch(const float* x, const float* w,
+// upstream cotangent g (n,), each chunk's cotangent written once (rounded
+// to bf16 with bf16_in) and read by both products: dX += G · w_chunk over
+// the chunks in order (the first writes), dW's chunk rows = Gᵀ · x, each
+// written once; both f32.
+extern "C" int linear_ce_bwd_deep_launch(const void* x, const void* w,
                                          const int* tgt, const float* lse,
                                          const float* g, float* dx, float* dw,
                                          float* slab, int n, int c, int d,
                                          int chunk, int pluck, float cap,
-                                         void* stream) {
+                                         int bf16_in, void* stream) {
   if (!shapes_ok(n, c, d, true) || chunk < 1 || chunk % 4 != 0 ||
       (pluck && tgt == nullptr) || (dx == nullptr && dw == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)with_flags(pluck != 0, cap > 0.f, [&](auto pl, auto cp) {
+  return (int)by_dtype(bf16_in, [&](auto t) {
+  using T = decltype(t);
+  constexpr bool RG = sizeof(T) == 2;
+  return with_flags(pluck != 0, cap > 0.f, [&](auto pl, auto cp) {
     constexpr bool PL = decltype(pl)::value;
     constexpr bool CP = decltype(cp)::value;
     for (long c0 = 0; c0 < c; c0 += chunk) {
       const int cc = (int)(c - c0 < chunk ? c - c0 : chunk);
-      cudaError_t err = chunk_logits(x, w, slab, chunk, n, (int)c0, cc, d, st);
+      cudaError_t err =
+          chunk_logits<T>(x, w, slab, chunk, n, (int)c0, cc, d, st);
       if (err != cudaSuccess) return err;
-      deep_cotangent_kernel<PL, CP><<<grid_of((long)n * cc), 256, 0, st>>>(
-          slab, chunk, tgt, lse, g, n, (int)c0, cc, cap);
+      deep_cotangent_kernel<PL, CP, RG>
+          <<<grid_of((long)n * cc), 256, 0, st>>>(slab, chunk, tgt, lse, g, n,
+                                                  (int)c0, cc, cap);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
       deep_tc::Gemm p{};
@@ -1372,12 +1426,12 @@ extern "C" int linear_ce_bwd_deep_launch(const float* x, const float* w,
       p.ldb = d;
       if (dx != nullptr) {  // dX[r] += Σ_j G[r][j]·w[c0 + j]
         deep_tc::Gemm q = p;
-        q.b = w + c0 * d;
+        q.b = static_cast<const T*>(w) + c0 * d;
         q.out = dx;
         q.m = n;
         q.k = cc;
-        err = c0 == 0 ? tc_gemm<false, true, false>(q, st)
-                      : tc_gemm<false, true, true>(q, st);
+        err = c0 == 0 ? tc_gemm<false, true, false, false, float, T>(q, st)
+                      : tc_gemm<false, true, true, false, float, T>(q, st);
         if (err != cudaSuccess) return err;
       }
       if (dw != nullptr) {  // dW[c0 + j] = Σ_r G[r][j]·x[r]
@@ -1385,31 +1439,41 @@ extern "C" int linear_ce_bwd_deep_launch(const float* x, const float* w,
         p.out = dw + c0 * d;
         p.m = cc;
         p.k = n;
-        err = tc_gemm<true, true, false>(p, st);
+        err = tc_gemm<true, true, false, false, float, T>(p, st);
         if (err != cudaSuccess) return err;
       }
     }
     return cudaSuccess;
+  });
   });
 }
 
 // deep_tc.cuh's product on its own, in every operand option (the entry
 // of tests and probes; the deep variants above call it inline): `batch`
 // products C[t] = A[t] · B[t]ᵀ of deep_tc::Gemm's shapes, out = C or,
-// with acc, out += C.
-extern "C" int deep_tc_launch(const float* a, const float* b,
+// with acc, out += C. With bf16_in both operands are bfloat16 (one TF32
+// pass; without gather or acc, the options no bf16 caller needs).
+extern "C" int deep_tc_launch(const void* a, const void* b,
                               const int* idx, const int* m_zero, float* out,
                               int m, int n, int k, int lda, int ldb, int ldo,
                               long a_batch, long b_batch, long idx_batch,
                               long out_batch, long mz_batch, int b_rows,
                               int batch, int a_km, int b_kn, int gather,
-                              int acc, void* stream) {
-  if (gather && (idx == nullptr || b_rows < 1))
+                              int acc, int bf16_in, void* stream) {
+  if ((gather && (idx == nullptr || b_rows < 1)) ||
+      (bf16_in && (gather || acc)))
     return (int)cudaErrorInvalidValue;
   deep_tc::Gemm g{a,   a_batch,   lda, b,      b_batch,  ldb,
                   idx, idx_batch, b_rows, out, out_batch, ldo,
                   m_zero, mz_batch, m, n, k, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16_in)
+    return (int)with_bool(a_km != 0, [&](auto akm) {
+      return with_bool(b_kn != 0, [&](auto bkn) {
+        return tc_gemm<decltype(akm)::value, decltype(bkn)::value, false,
+                       false, bf16>(g, st, batch);
+      });
+    });
   return (int)with_bool(a_km != 0, [&](auto akm) {
     return with_bool(b_kn != 0, [&](auto bkn) {
       return with_bool(gather != 0, [&](auto gat) {

@@ -85,8 +85,9 @@
 // Deep variants (mips_topk_deep_launch, mips_topk_select_deep_launch),
 // for d > 256 and, in the chain, 512 < k ≤ 1024, where the kernels above
 // cannot stage their queries and tiles (d) or their 16-row lists (k):
-// deep_gemm.cuh first writes the score slab S = Y · Qᵀ (c, n_q) in
-// 3xTF32, walking the depth in chunks of 32, and the same sweep, passes
+// deep_tc.cuh's product first writes the score slab S = Y · Qᵀ (c, n_q)
+// in 3xTF32 on `wgmma` (bf16 operands in one TF32 pass), walking the depth
+// in chunks of 32, and the same sweep, passes
 // and finishing sweep then read each tile's scores from S (FROM_S) in
 // place of their products: the thresholds, filters, sorts and merges are
 // unchanged. The wrapper cuts the queries into slabs that keep S within
@@ -94,26 +95,35 @@
 // 256,000-row vocabulary, d 2304, k 1024) S is 131 MB, 0.08 ms of
 // traffic against 151 GFLOP of products.
 //
+// bfloat16 operands (the entries' `bf16_in`): q and y are read as stored
+// and widened to f32 as they are staged (the sweep's tiles and the
+// queries' split, the chain's tiles and queries, the deep slab's split).
+// A bf16 value is exact in f32 and in TF32 and the product of two is
+// exact in f32, so the FMA fold and the 3xTF32 steps give the f32 launch's
+// outputs on the widened inputs bit for bit.
+//
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes in src/repro_torch/kernels/mips_topk.py.
 
-#include "deep_gemm.cuh"
+#include "deep_tc.cuh"
 #include "topk_tile.cuh"
 
 namespace {
 
 using namespace topk_tile;
+using tf32x3::bf16;
+using tf32x3::by_dtype;
 
 // ---------------------------------------------------------------------------
 // k ≤ 32: the tensor-core sweep and its merge
 // ---------------------------------------------------------------------------
-template <int NQT, int SLOTS, bool FROM_S>
+template <int NQT, int SLOTS, bool FROM_S, typename T>
 __global__ void __launch_bounds__(Cfg<NQT>::kThreads, Cfg<NQT>::kMinBlocks)
 mips_sweep_kernel(Sweep a) {
   extern __shared__ float4 smem4[];
-  sweep<NQT, SLOTS, false, FROM_S>(a, smem4,
-                                   [](const auto&, const int*, long) {});
+  sweep<NQT, SLOTS, false, FROM_S, T>(a, smem4,
+                                      [](const auto&, const int*, long) {});
 }
 
 template <int SLOTS>
@@ -128,7 +138,7 @@ mips_topk_merge_kernel(const float* __restrict__ part_vals,
 }
 
 // τ seeded (the pre-pass when pre_split > 0), the sweep, the merge.
-template <int NQT, int SLOTS, bool FROM_S>
+template <int NQT, int SLOTS, bool FROM_S, typename T>
 cudaError_t launch_sweep(const Sweep& a, float* uv, float* vals, int* ids,
                          int n_split, int pre_split, int pre_period,
                          cudaStream_t s) {
@@ -137,11 +147,11 @@ cudaError_t launch_sweep(const Sweep& a, float* uv, float* vals, int* ids,
   const size_t smem = sweep_smem_bytes<NQT, FROM_S>(a.d, a.k);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err =
-      allow_max_smem(mips_sweep_kernel<NQT, SLOTS, FROM_S>, done);
+      allow_max_smem(mips_sweep_kernel<NQT, SLOTS, FROM_S, T>, done);
   if (err != cudaSuccess) return err;
-  err = seed_tau<NQT, FROM_S>(a, uv, pre_split, pre_period, done_pre, s);
+  err = seed_tau<NQT, FROM_S, T>(a, uv, pre_split, pre_period, done_pre, s);
   if (err != cudaSuccess) return err;
-  mips_sweep_kernel<NQT, SLOTS, FROM_S>
+  mips_sweep_kernel<NQT, SLOTS, FROM_S, T>
       <<<dim3((a.n_q + C::kQB - 1) / C::kQB, n_split), C::kThreads, smem,
          s>>>(a);
   err = cudaGetLastError();
@@ -192,24 +202,34 @@ size_t partial_smem_bytes(int d, int k, bool from_s = false) {
          (sizeof(float) + sizeof(int)) * QB * (kTileC + (size_t)k);
 }
 
-// Starts the cp.async copy of catalog rows [c0, c0 + nc) into a staged
-// tile at pitch p: 16-byte copies when `vec` (d % 4 == 0, y aligned),
-// else 4-byte ones. The depth padding [d, 4·d4) is never written.
-__device__ __forceinline__ void copy_tile_async(float* dst, const float* y,
+// Starts the copy of catalog rows [c0, c0 + nc) into a staged f32 tile at
+// pitch p: f32 by cp.async, 16-byte copies when `vec` (d % 4 == 0, y
+// aligned), else 4-byte ones; bf16 through registers, widened as stored
+// (8-byte loads when `vec`), visible after the same barrier. The depth
+// padding [d, 4·d4) is never written.
+template <typename T>
+__device__ __forceinline__ void copy_tile_async(float* dst, const T* y,
                                                 long c0, int nc, int d,
                                                 int d4, int p, int vec,
                                                 int tid) {
-  const float* src = y + c0 * d;
+  const T* src = y + c0 * d;
   if (vec) {
     for (int e = tid; e < nc * d4; e += kThreads) {
       const int r = e / d4;
       const int k4 = e - r * d4;
-      cp_async16(dst + r * p + 4 * k4, src + (long)r * d + 4 * k4);
+      if constexpr (sizeof(T) == 2)
+        *reinterpret_cast<float4*>(dst + r * p + 4 * k4) =
+            tf32x3::load4(src + (long)r * d + 4 * k4);
+      else
+        cp_async16(dst + r * p + 4 * k4, src + (long)r * d + 4 * k4);
     }
   } else {
     for (int e = tid; e < nc * d; e += kThreads) {
       const int r = e / d;
-      cp_async4(dst + r * p + (e - r * d), src + e);
+      if constexpr (sizeof(T) == 2)
+        dst[r * p + (e - r * d)] = tf32x3::widen(src[e]);
+      else
+        cp_async4(dst + r * p + (e - r * d), src + e);
     }
   }
 }
@@ -217,8 +237,8 @@ __device__ __forceinline__ void copy_tile_async(float* dst, const float* y,
 // One block's share of a partial pass: the catalog rows of split
 // blockIdx.y against the query rows of row block blockIdx.x.
 struct FmaSweep {
-  const float* q;               // (n_q, d) query rows
-  const float* y;               // (c, d) catalog rows
+  const void* q;                // (n_q, d) query rows, f32 or bf16 (T)
+  const void* y;                // (c, d) catalog rows, as q
   const unsigned char* valid;   // (c,) bool mask, or null
   float* part_vals;             // (n_q, S, k) split lists
   int* part_ids;
@@ -265,7 +285,8 @@ __device__ __forceinline__ void from_slab(float (&acc)[RM][kColsPerThread],
 // their row's current k-th entry go to the row's candidate buffer, and
 // one warp per row merges them into the row's sorted list. The block
 // writes its lists as (n_q, S, k).
-template <int RM, int SLOTS, bool FROM_S = false, class OnTile>
+template <int RM, int SLOTS, bool FROM_S = false, typename T = float,
+          class OnTile>
 __device__ __forceinline__ void sweep_split(const FmaSweep& a, float4* smem4,
                                             OnTile&& on_tile) {
   constexpr int QB = 16 * RM;  // query rows per block
@@ -305,7 +326,9 @@ __device__ __forceinline__ void sweep_split(const FmaSweep& a, float4* smem4,
     const int r = e / (4 * d4);
     const int kk = e - r * 4 * d4;
     qs[r * p + kk] =
-        row0 + r < a.n_q && kk < d ? a.q[(long)(row0 + r) * d + kk] : 0.f;
+        row0 + r < a.n_q && kk < d
+            ? tf32x3::widen(static_cast<const T*>(a.q)[(long)(row0 + r) * d + kk])
+            : 0.f;
   }
   const int dpad = 4 * d4 - d;
   for (int e = tid; e < (FROM_S ? 0 : 2 * kTileC * dpad); e += kThreads) {
@@ -328,7 +351,8 @@ __device__ __forceinline__ void sweep_split(const FmaSweep& a, float4* smem4,
   };
   if (n_tiles > 0) {
     if (!FROM_S)
-      copy_tile_async(ys, a.y, col_begin, tile_nc(0), d, d4, p, a.vec, tid);
+      copy_tile_async(ys, static_cast<const T*>(a.y), col_begin, tile_nc(0),
+                      d, d4, p, a.vec, tid);
     if (tid < kTileC) vs[tid] = valid_flag(a, col_begin, tile_nc(0), tid);
   }
   cp_async_commit();
@@ -338,8 +362,8 @@ __device__ __forceinline__ void sweep_split(const FmaSweep& a, float4* smem4,
     if (t + 1 < n_tiles) {
       const long c1 = col_begin + (long)(t + 1) * kTileC;
       if (!FROM_S)
-        copy_tile_async(ys + (b ^ 1) * kTileC * p, a.y, c1, tile_nc(t + 1),
-                        d, d4, p, a.vec, tid);
+        copy_tile_async(ys + (b ^ 1) * kTileC * p, static_cast<const T*>(a.y),
+                        c1, tile_nc(t + 1), d, d4, p, a.vec, tid);
       if (tid < kTileC) v_next = valid_flag(a, c1, tile_nc(t + 1), tid);
       cp_async_commit();
       cp_async_wait<1>();
@@ -454,8 +478,8 @@ inline size_t pass_smem_bytes(int d, bool from_s = false) {
 // One pass over the catalog for 64 query rows (block x) and one split
 // (block y), which visits tiles y, y + period, y + 2·period, ….
 struct Pass {
-  const float* q;               // (n_q, d)
-  const float* y;               // (c, d)
+  const void* q;                // (n_q, d), f32 or bf16 (T)
+  const void* y;                // (c, d), as q
   const unsigned char* valid;   // (c,) or null
   int n_q, c, d, id_offset, period, vec;
   float* uv;                    // threshold pass: (n_q, S, 16) union
@@ -474,7 +498,7 @@ struct Pass {
 // NaN → +inf rule) at 64 rows a block, with register state in place of
 // the lists: the threshold pass keeps each thread's best per row, the
 // collect pass appends every column that precedes or equals τ.
-template <bool COLLECT, bool FROM_S>
+template <bool COLLECT, bool FROM_S, typename T>
 __global__ void __launch_bounds__(kThreads, 2) mips_topk_pass_kernel(Pass a) {
   constexpr int RM = kPassRM;
   constexpr int QB = kPassQB;
@@ -500,7 +524,9 @@ __global__ void __launch_bounds__(kThreads, 2) mips_topk_pass_kernel(Pass a) {
     const int r = e / (4 * d4);
     const int kk = e - r * 4 * d4;
     qs[r * p + kk] =
-        row0 + r < a.n_q && kk < d ? a.q[(long)(row0 + r) * d + kk] : 0.f;
+        row0 + r < a.n_q && kk < d
+            ? tf32x3::widen(static_cast<const T*>(a.q)[(long)(row0 + r) * d + kk])
+            : 0.f;
   }
   const int dpad = 4 * d4 - d;
   for (int e = tid; e < (FROM_S ? 0 : 2 * kTileC * dpad); e += kThreads) {
@@ -535,7 +561,8 @@ __global__ void __launch_bounds__(kThreads, 2) mips_topk_pass_kernel(Pass a) {
   if (n_tiles > 0) {
     const long c0 = tile_c0(0);
     if (!FROM_S)
-      copy_tile_async(ys, a.y, c0, tile_nc(c0), d, d4, p, a.vec, tid);
+      copy_tile_async(ys, static_cast<const T*>(a.y), c0, tile_nc(c0), d, d4,
+                      p, a.vec, tid);
     if (tid < kTileC) vs[tid] = flag(c0, tile_nc(c0));
   }
   cp_async_commit();
@@ -545,8 +572,8 @@ __global__ void __launch_bounds__(kThreads, 2) mips_topk_pass_kernel(Pass a) {
     if (t + 1 < n_tiles) {
       const long c1 = tile_c0(t + 1);
       if (!FROM_S)
-        copy_tile_async(ys + (b ^ 1) * kTileC * p, a.y, c1, tile_nc(c1), d,
-                        d4, p, a.vec, tid);
+        copy_tile_async(ys + (b ^ 1) * kTileC * p, static_cast<const T*>(a.y),
+                        c1, tile_nc(c1), d, d4, p, a.vec, tid);
       if (tid < kTileC) v_next = flag(c1, tile_nc(c1));
       cp_async_commit();
       cp_async_wait<1>();
@@ -824,7 +851,7 @@ cudaError_t by_sort_width(int n, F&& f) {
 
 // The split sweep's partial pass for the blocks of 16 rows that hold a
 // row whose collect overflowed; the others return at once.
-template <int SLOTS, bool FROM_S>
+template <int SLOTS, bool FROM_S, typename T>
 __global__ void __launch_bounds__(kThreads)
 mips_topk_finish_partial_kernel(FmaSweep a, const int* __restrict__ count,
                                 int kcap) {
@@ -832,7 +859,7 @@ mips_topk_finish_partial_kernel(FmaSweep a, const int* __restrict__ count,
   const int row = blockIdx.x * 16 + threadIdx.x;
   if (!__syncthreads_or(threadIdx.x < 16 && row < a.n_q && count[row] > kcap))
     return;
-  sweep_split<1, SLOTS, FROM_S>(
+  sweep_split<1, SLOTS, FROM_S, T>(
       a, smem4, [](const float (&)[1][kColsPerThread], const int*, long) {});
 }
 
@@ -878,7 +905,7 @@ struct SelectScratch {
 
 // Launches the chain: threshold, τ, collect, select and the finishing
 // sweep, the last at list width SLOTS.
-template <int SLOTS, bool FROM_S>
+template <int SLOTS, bool FROM_S, typename T>
 cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
                          int n_split, int period, int collect_split,
                          int fin_split, int fin_split_cols, float* vals,
@@ -892,9 +919,9 @@ cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
   cudaError_t err;
 #define TRY(x)                           \
   if ((err = (x)) != cudaSuccess) return err
-  TRY(allow_max_smem(mips_topk_pass_kernel<false, FROM_S>, done_thr));
-  TRY(allow_max_smem(mips_topk_pass_kernel<true, FROM_S>, done_col));
-  TRY(allow_max_smem(mips_topk_finish_partial_kernel<SLOTS, FROM_S>,
+  TRY(allow_max_smem(mips_topk_pass_kernel<false, FROM_S, T>, done_thr));
+  TRY(allow_max_smem(mips_topk_pass_kernel<true, FROM_S, T>, done_col));
+  TRY(allow_max_smem(mips_topk_finish_partial_kernel<SLOTS, FROM_S, T>,
                      done_fin));
   if (merge_smem_bytes(k) > 48 * 1024)  // k > 736: the deep chain's lists
     TRY(allow_max_smem(mips_topk_finish_merge_kernel<SLOTS>, done_merge));
@@ -903,7 +930,7 @@ cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
   thr.period = period;
   thr.uv = w.uv;
   thr.ui = w.ui;
-  mips_topk_pass_kernel<false, FROM_S>
+  mips_topk_pass_kernel<false, FROM_S, T>
       <<<dim3(rows.x, n_split), kThreads, pass_smem, s>>>(thr);
   TRY(cudaGetLastError());
   TRY(by_sort_width(n_union > k ? n_union : k, [&](auto emax) {
@@ -923,7 +950,7 @@ cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
   col.count = w.count;
   col.bv = w.bv;
   col.bi = w.bi;
-  mips_topk_pass_kernel<true, FROM_S>
+  mips_topk_pass_kernel<true, FROM_S, T>
       <<<dim3(rows.x, collect_split), kThreads, pass_smem, s>>>(col);
   TRY(cudaGetLastError());
   TRY(by_sort_width(base.kcap, [&](auto emax) {
@@ -939,7 +966,7 @@ cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
   const FmaSweep fin{base.q, base.y, base.valid, w.part_vals, w.part_ids,
                   n_q, base.c, base.d, k, fin_split_cols, base.id_offset,
                   base.id_offset, base.id_offset + base.c, base.vec, base.s};
-  mips_topk_finish_partial_kernel<SLOTS, FROM_S>
+  mips_topk_finish_partial_kernel<SLOTS, FROM_S, T>
       <<<dim3((n_q + 15) / 16, fin_split), kThreads,
          partial_smem_bytes<1>(base.d, k, FROM_S), s>>>(fin, w.count,
                                                         base.kcap);
@@ -952,7 +979,27 @@ cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
 #undef TRY
 }
 
+// deep_tc's score slab, with this library's table of its shared-memory
+// opt-in for each element type.
+template <typename T>
+cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
+                       int d, cudaStream_t st) {
+  static bool done[kMaxDevices] = {};
+  return deep_tc::score_slab<T>(q, y, s, n_q, c, d, st, done);
+}
+
+// 1 when rows of y (element size `elem`) can be read 4 values at a time.
+inline int vec4(const void* y, int d, int elem) {
+  return d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % (4 * elem) == 0;
+}
+
 }  // namespace
+
+// Every entry takes q and y in one element type: f32, or bfloat16 when
+// `bf16_in` is nonzero (widened to f32 as they are staged; the chain's FMA
+// fold and the sweep's 3xTF32 products then run on exact f32 copies of
+// the values, so the outputs equal the f32 launch on the widened inputs
+// bit for bit). Scores, values and scratch are f32 either way.
 
 // The k ≤ 32 sweep on `stream`: τ seeded — by the pre-pass over tiles s,
 // s + pre_period, … of pre_split splits and its selection, or, when
@@ -965,13 +1012,13 @@ cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
 // the launches (0 on success), and cudaErrorInvalidValue for a plan it
 // does not take (a block above kMaxSmem included). Nothing is
 // synchronised and nothing is allocated.
-extern "C" int mips_topk_launch(const float* q, const float* y,
+extern "C" int mips_topk_launch(const void* q, const void* y,
                                 const unsigned char* valid, float* part_vals,
                                 int* part_ids, int* tau, float* uv,
                                 float* vals, int* ids,
                                 int n_q, int c, int d, int k, int query_tiles,
                                 int n_split, int pre_split, int pre_period,
-                                int id_offset, void* stream) {
+                                int id_offset, int bf16_in, void* stream) {
   if (n_q <= 0 || c <= 0 || d <= 0 || d > kMaxD || k <= 0 || k > 32 ||
       k > c || n_split <= 0 || n_split > 65535 || pre_split < 0 ||
       pre_split > 65535 || (pre_split > 0 && pre_period < pre_split))
@@ -980,12 +1027,14 @@ extern "C" int mips_topk_launch(const float* q, const float* y,
   // No window: [id_offset, id_offset + c) holds every row.
   const Sweep a{q, y, valid, part_vals, part_ids, tau, n_q, c, d, k, 0,
                 id_offset, id_offset, id_offset + c,
-                d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0,
-                pre_split > 0};
-  return (int)dispatch<1>(query_tiles, k, [&](auto nqt, auto slots) {
-    return launch_sweep<decltype(nqt)::value, decltype(slots)::value,
-                        false>(a, uv, vals, ids, n_split, pre_split,
-                               pre_period, s);
+                vec4(y, d, bf16_in ? 2 : 4), pre_split > 0};
+  return (int)by_dtype(bf16_in, [&](auto t) {
+    using T = decltype(t);
+    return dispatch<1>(query_tiles, k, [&](auto nqt, auto slots) {
+      return launch_sweep<decltype(nqt)::value, decltype(slots)::value,
+                          false, T>(a, uv, vals, ids, n_split, pre_split,
+                                    pre_period, s);
+    });
   });
 }
 
@@ -999,11 +1048,11 @@ extern "C" int mips_topk_launch(const float* q, const float* y,
 // cudaErrorInvalidValue for a plan it does not take. Nothing is
 // synchronised and nothing is allocated.
 extern "C" int mips_topk_select_launch(
-    const float* q, const float* y, const unsigned char* valid, float* uv,
+    const void* q, const void* y, const unsigned char* valid, float* uv,
     int* ui, float* tau_v, int* tau_i, int* count, float* bv, int* bi,
     float* part_vals, int* part_ids, float* vals, int* ids, int n_q, int c,
     int d, int k, int id_offset, int n_split, int period, int collect_split,
-    int kcap, int fin_split, int fin_split_cols, void* stream) {
+    int kcap, int fin_split, int fin_split_cols, int bf16_in, void* stream) {
   if (n_q <= 0 || c <= 0 || d <= 0 || d > kMaxD || k <= 0 ||
       k > kMaxSweepK || k > c || n_split <= 0 || period < n_split ||
       collect_split <= 0 ||
@@ -1022,32 +1071,35 @@ extern "C" int mips_topk_select_launch(
   base.c = c;
   base.d = d;
   base.id_offset = id_offset;
-  base.vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  base.vec = vec4(y, d, bf16_in ? 2 : 4);
   base.kcap = kcap;
   const SelectScratch w{uv, ui, tau_v, tau_i, count, bv, bi, part_vals,
                         part_ids};
-  auto run = [&](auto slots) {
-    return select_chain<decltype(slots)::value, false>(
-        base, w, k, n_split, period, collect_split, fin_split,
-        fin_split_cols, vals, ids, s);
-  };
-  return (int)(k <= 32 * kSlotsSmall
-                   ? run(std::integral_constant<int, kSlotsSmall>{})
-                   : run(std::integral_constant<int, kSlotsLarge>{}));
+  return (int)by_dtype(bf16_in, [&](auto t) {
+    using T = decltype(t);
+    auto run = [&](auto slots) {
+      return select_chain<decltype(slots)::value, false, T>(
+          base, w, k, n_split, period, collect_split, fin_split,
+          fin_split_cols, vals, ids, s);
+    };
+    return k <= 32 * kSlotsSmall
+               ? run(std::integral_constant<int, kSlotsSmall>{})
+               : run(std::integral_constant<int, kSlotsLarge>{});
+  });
 }
 
 // The deep variants: as mips_topk_launch and mips_topk_select_launch, for
 // any d > 0 (and, in the chain, k ≤ kMaxK), with `scores` a (c, n_q) f32
-// workspace that deep_gemm::score_slab fills first; the sweeps and passes
+// workspace that deep_tc::score_slab fills first; the sweeps and passes
 // then read it (FROM_S).
-extern "C" int mips_topk_deep_launch(const float* q, const float* y,
+extern "C" int mips_topk_deep_launch(const void* q, const void* y,
                                      const unsigned char* valid,
                                      float* scores, float* part_vals,
                                      int* part_ids, int* tau, float* uv,
                                      float* vals, int* ids, int n_q, int c,
                                      int d, int k, int query_tiles,
                                      int n_split, int pre_split,
-                                     int pre_period, int id_offset,
+                                     int pre_period, int id_offset, int bf16_in,
                                      void* stream) {
   if (n_q <= 0 || c <= 0 || d <= 0 || k <= 0 || k > 32 || k > c ||
       scores == nullptr || n_split <= 0 || n_split > 65535 ||
@@ -1055,24 +1107,29 @@ extern "C" int mips_topk_deep_launch(const float* q, const float* y,
       (pre_split > 0 && pre_period < pre_split))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = deep_gemm::score_slab(q, y, scores, n_q, c, d, s);
+  cudaError_t err = by_dtype(bf16_in, [&](auto t) {
+    using T = decltype(t);
+    return score_slab(static_cast<const T*>(q), static_cast<const T*>(y),
+                      scores, n_q, c, d, s);
+  });
   if (err != cudaSuccess) return (int)err;
   Sweep a{q, y, valid, part_vals, part_ids, tau, n_q, c, d, k, 0,
           id_offset, id_offset, id_offset + c, 0, pre_split > 0};
   a.s = scores;
   return (int)dispatch<1>(query_tiles, k, [&](auto nqt, auto slots) {
-    return launch_sweep<decltype(nqt)::value, decltype(slots)::value, true>(
-        a, uv, vals, ids, n_split, pre_split, pre_period, s);
+    return launch_sweep<decltype(nqt)::value, decltype(slots)::value, true,
+                        float>(a, uv, vals, ids, n_split, pre_split,
+                               pre_period, s);
   });
 }
 
 extern "C" int mips_topk_select_deep_launch(
-    const float* q, const float* y, const unsigned char* valid,
+    const void* q, const void* y, const unsigned char* valid,
     float* scores, float* uv, int* ui, float* tau_v, int* tau_i, int* count,
     float* bv, int* bi, float* part_vals, int* part_ids, float* vals,
     int* ids, int n_q, int c, int d, int k, int id_offset, int n_split,
     int period, int collect_split, int kcap, int fin_split,
-    int fin_split_cols, void* stream) {
+    int fin_split_cols, int bf16_in, void* stream) {
   if (n_q <= 0 || c <= 0 || d <= 0 || k <= 0 || k > kMaxK || k > c ||
       scores == nullptr || n_split <= 0 || period < n_split ||
       collect_split <= 0 || kcap < k || kcap > kMaxSort ||
@@ -1082,7 +1139,11 @@ extern "C" int mips_topk_select_deep_launch(
       select_smem_bytes(d, k, n_split, kcap, true) > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = deep_gemm::score_slab(q, y, scores, n_q, c, d, s);
+  cudaError_t err = by_dtype(bf16_in, [&](auto t) {
+    using T = decltype(t);
+    return score_slab(static_cast<const T*>(q), static_cast<const T*>(y),
+                      scores, n_q, c, d, s);
+  });
   if (err != cudaSuccess) return (int)err;
   Pass base{};
   base.q = q;
@@ -1097,7 +1158,7 @@ extern "C" int mips_topk_select_deep_launch(
   const SelectScratch w{uv, ui, tau_v, tau_i, count, bv, bi, part_vals,
                         part_ids};
   auto run = [&](auto slots) {
-    return select_chain<decltype(slots)::value, true>(
+    return select_chain<decltype(slots)::value, true, float>(
         base, w, k, n_split, period, collect_split, fin_split,
         fin_split_cols, vals, ids, s);
   };

@@ -192,9 +192,9 @@
 // tile over the whole depth in shared memory. They write the logits once:
 //   * the logits L[n] = x_b[n] · Y[idx[n]]ᵀ (n_b, b_x, b_y) f32 into a
 //     workspace, by deep_tc.cuh's product (positions as A, candidates
-//     gathered by id as B, 3xTF32 k16 steps over depth chunks of 32; the
-//     arithmetic of deep_gemm.cuh, which these entries ran before, so
-//     their outputs are the same bits);
+//     gathered by id as B, 3xTF32 k16 steps over depth chunks of 32, the
+//     resident kernels' arithmetic; bf16 operands in one TF32 pass, and
+//     the cotangent rounded to bf16 before dX's and dY's products);
 //   * the forward: fold_kernel, a warp per (bucket, position) row, folds
 //     the row's softcapped, masked logits into the online (m, s) and
 //     writes loss and lse (or the plse) as above;
@@ -216,6 +216,13 @@
 // traffic per ≈ 690 FLOP, so the products bound it, as they bound the
 // resident kernels.
 //
+// bfloat16 operands (the entries' bf16_in): x_b and y are read as stored
+// and widened to f32 where they land (the resident kernels' staging,
+// deep_tc.cuh's split), and dX and dY round the cotangent to bf16 before
+// their products, as the reference's gw.astype(tile.dtype). Every output
+// is f32: dX, and dY's workspace and in-order sum, are rounded to bf16
+// once by the wrapper (the reference adds bf16 partials into dY).
+//
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes in src/repro_torch/kernels/sce_prefetch.py.
@@ -232,11 +239,12 @@ namespace {
 
 using namespace tf32x3;
 
-// 1 when rows of `a` can be copied in 16-byte chunks: d % 4 == 0 and
-// 16-byte aligned.
-inline int vec_flag(const float* a, int d) {
-  return d % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+// 1 when rows of `a` (element size `elem`) can be copied four values at a
+// time: d % 4 == 0 and 4·elem-byte aligned.
+inline int vec_flag(const void* a, int d, int elem = 4) {
+  return d % 4 == 0 && reinterpret_cast<uintptr_t>(a) % (4 * elem) == 0;
 }
+
 
 // A candidate id clamped to the catalog's rows [0, C).
 __device__ __forceinline__ int clamp_row(int r, int c) {
@@ -254,8 +262,8 @@ constexpr int kFwdMaxRows = 256;  // resident candidates: a bucket at b_y 256
 
 // One forward call. Without the positive, `pos` and `loss` are null.
 struct FwdArgs {
-  const float* x_b;   // (n_b, b_x, d)
-  const float* y;     // (C, d); DIRECT: y_b as (n_b·b_y, d)
+  const void* x_b;    // (n_b, b_x, d), f32 or bf16 (T)
+  const void* y;      // (C, d); DIRECT: y_b as (n_b·b_y, d); as x_b
   const int* idx_y;   // (n_b, b_y); null with DIRECT
   const int* tgt;     // (n_b, b_x)
   const int* cand;    // (n_b, b_y)
@@ -285,9 +293,11 @@ __device__ __forceinline__ int fwd_chunk(int r, int ch) {
   return ch ^ (2 * (r & 3));
 }
 
-template <bool WITH_POS, bool DIRECT, bool CAP>
+template <bool WITH_POS, bool DIRECT, bool CAP, typename T>
 __global__ void __launch_bounds__(32 * kFwdMaxWarps, 1)
 sce_fwd_kernel(FwdArgs a) {
+  const T* const xb = static_cast<const T*>(a.x_b);
+  const T* const yy = static_cast<const T*>(a.y);
   extern __shared__ float4 smem4[];
   const int dp = a.dp, s8 = dp / 8;
   const int warps = blockDim.x >> 5;
@@ -308,24 +318,25 @@ sce_fwd_kernel(FwdArgs a) {
   const long crow0 = (long)n * a.b_y;  // flat index of candidate 0
   const int rq = dp / 4;  // 16-byte chunks of a candidate row
 
-  // Resident rows [r_lo, r_hi) of dst from global memory by cp.async:
-  // src(r) is row r's source, null for a zero row; zeros past d. Thread i
-  // copies chunks i, i + blockDim.x, ... in row order (16-byte chunks with
-  // vec, else 4-byte elements), stepping without a division per copy.
+  // Resident rows [r_lo, r_hi) of dst from global memory by cp.async (a
+  // bf16 row through registers, widened as stored): src(r) is row r's
+  // source, null for a zero row; zeros past d. Thread i copies chunks i,
+  // i + blockDim.x, ... in row order (four values a copy with vec, else
+  // one), stepping without a division per copy.
   auto copy = [&](float* dst, int r_lo, int r_hi, int vec, auto src) {
     const int per = vec ? rq : dp;
     const int r_step = blockDim.x / per, c_step = blockDim.x % per;
     for (int r = r_lo + threadIdx.x / per, c = threadIdx.x % per;
          r < r_hi;) {
-      const float* row = src(r);
+      const T* row = src(r);
       if (vec) {
         const bool ok = row != nullptr && 4 * c < a.d;
-        cp_async16(dst + r * a.pitch + 4 * fwd_chunk(r, c),
-                   ok ? row + 4 * c : a.y, ok);
+        copy4_to_f32(dst + r * a.pitch + 4 * fwd_chunk(r, c),
+                     ok ? row + 4 * c : yy, ok, true);
       } else {
         const bool ok = row != nullptr && c < a.d;
-        cp_async4(dst + r * a.pitch + 4 * fwd_chunk(r, c >> 2) + (c & 3),
-                  ok ? row + c : a.y, ok);
+        copy1_to_f32(dst + r * a.pitch + 4 * fwd_chunk(r, c >> 2) + (c & 3),
+                     ok ? row + c : yy, ok);
       }
       r += r_step;
       c += c_step;
@@ -352,11 +363,11 @@ sce_fwd_kernel(FwdArgs a) {
     }
     __syncthreads();
     if (j0 == 0)
-      copy(xr, 0, bm, a.vec_x, [&](int r) -> const float* {
-        return r < nx ? a.x_b + (xrow0 + x0 + r) * a.d : nullptr;
+      copy(xr, 0, bm, a.vec_x, [&](int r) -> const T* {
+        return r < nx ? xb + (xrow0 + x0 + r) * a.d : nullptr;
       });
-    copy(cr, 0, nr_pad, a.vec, [&](int r) -> const float* {
-      return crow[r] < 0 ? nullptr : a.y + (long)crow[r] * a.d;
+    copy(cr, 0, nr_pad, a.vec, [&](int r) -> const T* {
+      return crow[r] < 0 ? nullptr : yy + (long)crow[r] * a.d;
     });
     cp_async_commit();
   };
@@ -528,8 +539,8 @@ constexpr int kStages = 3;  // the raw ring: tile i + 2 lands while i computes
 // One backward call. DY: the block owns candidates and streams positions;
 // else it owns positions and streams candidates.
 struct BwdArgs {
-  const float* x_b;   // (n_b, b_x, d)
-  const float* y;     // (C, d); DIRECT: y_b as (n_b·b_y, d)
+  const void* x_b;    // (n_b, b_x, d), f32 or bf16 (T)
+  const void* y;      // (C, d); DIRECT: y_b as (n_b·b_y, d); as x_b
   const int* idx_y;   // (n_b, b_y); null with DIRECT
   const int* tgt;     // (n_b, b_x)
   const int* cand;    // (n_b, b_y)
@@ -562,10 +573,15 @@ __device__ __forceinline__ float cotangent(float v, float lse2, float g,
   return masked ? 0.f : p * g;
 }
 
-template <bool DY, bool DIRECT, bool CAP>
+template <bool DY, bool DIRECT, bool CAP, typename T>
 __global__ void __launch_bounds__(32 * kBwdMaxWarps, 2)
 sce_bwd_kernel(BwdArgs a) {
   constexpr bool GATHER = !DY && !DIRECT;  // streamed rows arrive by id
+  // bf16 operands: the cotangent is rounded to bf16 before the second
+  // product, as the reference's gw.astype(tile.dtype).
+  constexpr bool ROUND_G = sizeof(T) == 2;
+  const T* const xb = static_cast<const T*>(a.x_b);
+  const T* const yy = static_cast<const T*>(a.y);
   extern __shared__ float4 smem4[];
   const int dp = a.dp, cpr = dp / 2, rq = dp / 4;
   const int s8 = dp / 8;  // k8 steps over the depth
@@ -596,11 +612,11 @@ sce_bwd_kernel(BwdArgs a) {
 
   // A streamed row's source: a position of x_b (dY), a candidate by its
   // id in the ids ring (dX, gathered) or by its place (dX, DIRECT).
-  auto str_row = [&](int t, int r) -> const float* {
+  auto str_row = [&](int t, int r) -> const T* {
     const int row = t * kStreamRows + r;
-    if (DY) return a.x_b + (xrow0 + row) * a.d;
-    if (DIRECT) return a.y + (crow0 + row) * a.d;
-    return a.y + (long)clamp_row(ids[(t & 1) * kStreamRows + r], a.c) * a.d;
+    if (DY) return xb + (xrow0 + row) * a.d;
+    if (DIRECT) return yy + (crow0 + row) * a.d;
+    return yy + (long)clamp_row(ids[(t & 1) * kStreamRows + r], a.c) * a.d;
   };
   // Tile t's raw rows into ring slot sl (zeros past the bucket and past
   // d), with its per-row inputs: dX the candidate ids, dY the positions'
@@ -613,8 +629,8 @@ sce_bwd_kernel(BwdArgs a) {
       const int r_step = blockDim.x / rq, c_step = blockDim.x % rq;
       for (int r = r_first, ch = c_first; r < kStreamRows;) {
         const bool ok = r < live && 4 * ch < a.d;
-        cp_async16(dst + 4 * (r * rq + ch),
-                   ok ? str_row(t, r) + 4 * ch : a.x_b, ok);
+        copy4_to_f32(dst + 4 * (r * rq + ch), ok ? str_row(t, r) + 4 * ch : xb,
+                     ok, true);
         r += r_step;
         ch += c_step;
         if (ch >= rq) {
@@ -626,7 +642,7 @@ sce_bwd_kernel(BwdArgs a) {
       for (int e = threadIdx.x; e < kStreamRows * dp; e += blockDim.x) {
         const int r = e / dp, k = e - r * dp;
         const bool ok = r < live && k < a.d;
-        cp_async4(dst + e, ok ? str_row(t, r) + k : a.x_b, ok);
+        copy1_to_f32(dst + e, ok ? str_row(t, r) + k : xb, ok);
       }
     }
     float* st = stats + sl * kStatRows;
@@ -689,7 +705,7 @@ sce_bwd_kernel(BwdArgs a) {
       for (int e = threadIdx.x; e < 2 * kStreamRows; e += blockDim.x)
         ids[e] = tile_id(e / kStreamRows, e % kStreamRows);
     __syncthreads();
-    const float* src_base = DY ? a.y : a.x_b;
+    const T* src_base = DY ? yy : xb;
     float* oraw = reinterpret_cast<float*>(tile);
     const int op = dp + 4;  // pitch: the rows of a fragment read spread
     if (a.vec_own) {
@@ -697,16 +713,16 @@ sce_bwd_kernel(BwdArgs a) {
         const int rr = e / rq, ch = e - rr * rq;
         const int row = own_row[rr];
         const bool ok = row >= 0 && 4 * ch < a.d;
-        cp_async16(oraw + rr * op + 4 * ch,
-                   ok ? src_base + (long)row * a.d + 4 * ch : a.x_b, ok);
+        copy4_to_f32(oraw + rr * op + 4 * ch,
+                     ok ? src_base + (long)row * a.d + 4 * ch : xb, ok, true);
       }
     } else {
       for (int e = threadIdx.x; e < bm * dp; e += blockDim.x) {
         const int rr = e / dp, k = e - rr * dp;
         const int row = own_row[rr];
         const bool ok = row >= 0 && k < a.d;
-        cp_async4(oraw + rr * op + k,
-                  ok ? src_base + (long)row * a.d + k : a.x_b, ok);
+        copy1_to_f32(oraw + rr * op + k,
+                     ok ? src_base + (long)row * a.d + k : xb, ok);
       }
     }
     cp_async_commit();
@@ -890,6 +906,7 @@ sce_bwd_kernel(BwdArgs a) {
               const bool off = !live || cid < 0 || ct == tg[m][h];
               v = DY ? cotangent<CAP>(v, cl2, cg, off, a.cap)
                      : cotangent<CAP>(v, ls2[m][h], gs[m][h], off, a.cap);
+              if (ROUND_G) v = round_bf16(v);
             }
         }
 
@@ -1083,10 +1100,10 @@ FwdPlan fwd_plan(int d) {
 // DIRECT; `pos` and `loss` are null for the partial LSE, `idx_y` for
 // DIRECT.
 template <bool WITH_POS, bool DIRECT>
-int launch_fwd(const float* x_b, const float* y, const int* idx_y,
+int launch_fwd(const void* x_b, const void* y, const int* idx_y,
                const int* tgt_b, const int* cand, const float* pos,
                float* loss, float* lse, int n_b, int b_x, int b_y, int c,
-               int d, float cap, void* stream) {
+               int d, float cap, int bf16_in, void* stream) {
   if (!shapes_ok(n_b, b_x, b_y, c, d)) return (int)cudaErrorInvalidValue;
   const FwdPlan p = fwd_plan(d);
   if (p.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -1094,20 +1111,25 @@ int launch_fwd(const float* x_b, const float* y, const int* idx_y,
   const long blocks = (long)n_b * ((b_x + bm - 1) / bm);
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   const int dp = padded_depth(d);
+  const int elem = bf16_in ? 2 : 4;
   FwdArgs a{x_b, y, idx_y, tgt_b, cand, pos, loss, lse, b_x, b_y, c, d, dp,
-            cap, p.rows, fwd_pitch(dp), vec_flag(y, d), vec_flag(x_b, d)};
-  auto go = [&](auto cp) {
+            cap, p.rows, fwd_pitch(dp), vec_flag(y, d, elem),
+            vec_flag(x_b, d, elem)};
+  auto go = [&](auto cp, auto t) {
     constexpr bool CP = decltype(cp)::value;
+    using T = decltype(t);
     static bool done[kMaxDevices] = {};
     cudaError_t err =
-        allow_max_smem(sce_fwd_kernel<WITH_POS, DIRECT, CP>, done);
+        allow_max_smem(sce_fwd_kernel<WITH_POS, DIRECT, CP, T>, done);
     if (err != cudaSuccess) return err;
-    sce_fwd_kernel<WITH_POS, DIRECT, CP>
+    sce_fwd_kernel<WITH_POS, DIRECT, CP, T>
         <<<(unsigned)blocks, 32 * p.warps, p.smem,
            static_cast<cudaStream_t>(stream)>>>(a);
     return cudaGetLastError();
   };
-  return (int)(cap > 0.f ? go(std::true_type{}) : go(std::false_type{}));
+  return (int)by_dtype(bf16_in, [&](auto t) {
+    return cap > 0.f ? go(std::true_type{}, t) : go(std::false_type{}, t);
+  });
 }
 
 // The backward's launch shape at depth d: warps a block (128 owned rows up
@@ -1134,10 +1156,10 @@ BwdPlan bwd_plan(int d) {
 
 // Launches dX (DY false) or dY on the tensor cores.
 template <bool DY, bool DIRECT>
-int launch_bwd(const float* x_b, const float* y, const int* idx_y,
+int launch_bwd(const void* x_b, const void* y, const int* idx_y,
                const int* tgt_b, const int* cand, const float* lse,
                const float* g, float* out, int n_b, int b_x, int b_y, int c,
-               int d, float cap, void* stream) {
+               int d, float cap, int bf16_in, void* stream) {
   if (!shapes_ok(n_b, b_x, b_y, c, d)) return (int)cudaErrorInvalidValue;
   const BwdPlan p = bwd_plan(d);
   if (p.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -1145,22 +1167,27 @@ int launch_bwd(const float* x_b, const float* y, const int* idx_y,
   const long blocks = (long)n_b * (((DY ? b_y : b_x) + bm - 1) / bm);
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   const int dp = padded_depth(d);
-  const float* str = DY ? x_b : y;
+  const void* str = DY ? x_b : y;
+  const int elem = bf16_in ? 2 : 4;
   BwdArgs a{x_b, y, idx_y, tgt_b, cand, lse, g, out, b_x, b_y, c, d, dp,
-            cap, vec_flag(str, d), vec_flag(DY ? y : x_b, d),
+            cap, vec_flag(str, d, elem), vec_flag(DY ? y : x_b, d, elem),
             vec_flag(out, d)};
   const dim3 grid((unsigned)blocks, (dp + kOutCols - 1) / kOutCols);
-  auto go = [&](auto cp) {
+  auto go = [&](auto cp, auto t) {
     constexpr bool CP = decltype(cp)::value;
+    using T = decltype(t);
     static bool done[kMaxDevices] = {};
-    cudaError_t err = allow_max_smem(sce_bwd_kernel<DY, DIRECT, CP>, done);
+    cudaError_t err =
+        allow_max_smem(sce_bwd_kernel<DY, DIRECT, CP, T>, done);
     if (err != cudaSuccess) return err;
-    sce_bwd_kernel<DY, DIRECT, CP>
+    sce_bwd_kernel<DY, DIRECT, CP, T>
         <<<grid, 32 * p.warps, p.smem, static_cast<cudaStream_t>(stream)>>>(
         a);
     return cudaGetLastError();
   };
-  return (int)(cap > 0.f ? go(std::true_type{}) : go(std::false_type{}));
+  return (int)by_dtype(bf16_in, [&](auto t) {
+    return cap > 0.f ? go(std::true_type{}, t) : go(std::false_type{}, t);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -1170,16 +1197,18 @@ constexpr int kFoldWarps = 8;
 
 // deep_tc's product, with this library's table of its shared-memory
 // opt-in for each instantiation.
-template <bool A_KM, bool B_KN, bool GATHER>
+template <bool A_KM, bool B_KN, bool GATHER, typename TA, typename TB>
 cudaError_t tc_gemm(const deep_tc::Gemm& g, long batch, cudaStream_t s) {
   static bool done[kMaxDevices] = {};
-  return deep_tc::gemm<A_KM, B_KN, GATHER, false>(g, batch, s, done);
+  return deep_tc::gemm<A_KM, B_KN, GATHER, false, TA, TB>(g, batch, s,
+                                                           done);
 }
 
 // The logits L (n_b, b_x, b_y) of every bucket into ws: candidates
-// gathered by clamped id (or row n·b_y + j with DIRECT).
-template <bool DIRECT>
-cudaError_t deep_logits(const float* x_b, const float* y, const int* idx_y,
+// gathered by clamped id (or row n·b_y + j with DIRECT); x_b and y of
+// element type T.
+template <bool DIRECT, typename T>
+cudaError_t deep_logits(const void* x_b, const void* y, const int* idx_y,
                         float* ws, int n_b, int b_x, int b_y, int c, int d,
                         cudaStream_t s) {
   deep_tc::Gemm g{};
@@ -1201,7 +1230,7 @@ cudaError_t deep_logits(const float* x_b, const float* y, const int* idx_y,
   g.m = b_x;
   g.n = b_y;
   g.k = d;
-  return tc_gemm<false, false, !DIRECT>(g, n_b, s);
+  return tc_gemm<false, false, !DIRECT, T, T>(g, n_b, s);
 }
 
 // The forward's fold of row blockIdx.x · kFoldWarps + warp: the online
@@ -1251,8 +1280,9 @@ fold_kernel(const float* __restrict__ ws, const int* __restrict__ tgt,
 }
 
 // ws (n_b, b_x, b_y) logits → the cotangent gw in place (cotangent<CAP>:
-// 0 where masked, else exp(min(l − lse, 44))·cap′·g).
-template <bool CAP>
+// 0 where masked, else exp(min(l − lse, 44))·cap′·g), rounded to bf16
+// (ROUND_G) before bf16 operands' products, as the reference rounds it.
+template <bool CAP, bool ROUND_G>
 __global__ void __launch_bounds__(256)
 cotangent_kernel(float* __restrict__ ws, const int* __restrict__ tgt,
                  const int* __restrict__ cand, const float* __restrict__ lse,
@@ -1265,20 +1295,25 @@ cotangent_kernel(float* __restrict__ ws, const int* __restrict__ tgt,
     const int j = (int)(e - row * b_y);
     const int id = cand[(row / b_x) * b_y + j];
     const bool masked = id < 0 || id == tgt[row];
-    ws[e] = cotangent<CAP>(ws[e], lse[row] * kLog2e, g[row], masked, cap);
+    const float v = cotangent<CAP>(ws[e], lse[row] * kLog2e, g[row], masked,
+                                   cap);
+    ws[e] = ROUND_G ? round_bf16(v) : v;
   }
 }
 
 template <bool WITH_POS, bool DIRECT>
-int launch_fwd_deep(const float* x_b, const float* y, const int* idx_y,
+int launch_fwd_deep(const void* x_b, const void* y, const int* idx_y,
                     const int* tgt_b, const int* cand, const float* pos,
                     float* loss, float* lse, float* ws, int n_b, int b_x,
-                    int b_y, int c, int d, float cap, void* stream) {
+                    int b_y, int c, int d, float cap, int bf16_in,
+                    void* stream) {
   if (!shapes_ok(n_b, b_x, b_y, c, d, true) || ws == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      deep_logits<DIRECT>(x_b, y, idx_y, ws, n_b, b_x, b_y, c, d, s);
+  cudaError_t err = by_dtype(bf16_in, [&](auto t) {
+    return deep_logits<DIRECT, decltype(t)>(x_b, y, idx_y, ws, n_b, b_x, b_y,
+                                            c, d, s);
+  });
   if (err != cudaSuccess) return (int)err;
   const long rows = (long)n_b * b_x;
   const unsigned blocks = (unsigned)((rows + kFoldWarps - 1) / kFoldWarps);
@@ -1294,28 +1329,29 @@ int launch_fwd_deep(const float* x_b, const float* y, const int* idx_y,
 // dX into dx and dY's slot rows into dy (either may be null, not both)
 // from one cotangent: the logits recomputed into ws and turned into the
 // cotangent there once, then each product reads it.
-template <bool DIRECT>
-int launch_bwd_deep(const float* x_b, const float* y, const int* idx_y,
+template <bool DIRECT, typename T>
+int launch_bwd_deep(const void* x_b, const void* y, const int* idx_y,
                     const int* tgt_b, const int* cand, const float* lse,
                     const float* g, float* dx, float* dy, float* ws, int n_b,
                     int b_x, int b_y, int c, int d, float cap, void* stream) {
   if (!shapes_ok(n_b, b_x, b_y, c, d, true) || ws == nullptr ||
       (dx == nullptr && dy == nullptr))
     return (int)cudaErrorInvalidValue;
+  constexpr bool ROUND_G = sizeof(T) == 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      deep_logits<DIRECT>(x_b, y, idx_y, ws, n_b, b_x, b_y, c, d, s);
+      deep_logits<DIRECT, T>(x_b, y, idx_y, ws, n_b, b_x, b_y, c, d, s);
   if (err != cudaSuccess) return (int)err;
   const long rows = (long)n_b * b_x;
   const long total = rows * b_y;
   const unsigned blocks =
       (unsigned)(total / 256 + 1 < 65536 ? total / 256 + 1 : 65536);
   if (cap > 0.f)
-    cotangent_kernel<true><<<blocks, 256, 0, s>>>(ws, tgt_b, cand, lse, g,
-                                                  rows, b_x, b_y, cap);
+    cotangent_kernel<true, ROUND_G><<<blocks, 256, 0, s>>>(
+        ws, tgt_b, cand, lse, g, rows, b_x, b_y, cap);
   else
-    cotangent_kernel<false><<<blocks, 256, 0, s>>>(ws, tgt_b, cand, lse, g,
-                                                   rows, b_x, b_y, cap);
+    cotangent_kernel<false, ROUND_G><<<blocks, 256, 0, s>>>(
+        ws, tgt_b, cand, lse, g, rows, b_x, b_y, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   deep_tc::Gemm p{};
@@ -1339,7 +1375,7 @@ int launch_bwd_deep(const float* x_b, const float* y, const int* idx_y,
     q.out_batch = (long)b_x * d;
     q.m = b_x;
     q.k = b_y;
-    err = tc_gemm<false, true, !DIRECT>(q, n_b, s);
+    err = tc_gemm<false, true, !DIRECT, float, T>(q, n_b, s);
     if (err != cudaSuccess) return (int)err;
   }
   if (dy != nullptr) {  // slot rows n·b_y + j: Σ_x G[x][j]·x_b[n, x]
@@ -1351,7 +1387,7 @@ int launch_bwd_deep(const float* x_b, const float* y, const int* idx_y,
     p.mz_batch = b_y;
     p.m = b_y;
     p.k = b_x;
-    err = tc_gemm<true, true, false>(p, n_b, s);
+    err = tc_gemm<true, true, false, float, T>(p, n_b, s);
   }
   return (int)err;
 }
@@ -1361,37 +1397,42 @@ int launch_bwd_deep(const float* x_b, const float* y, const int* idx_y,
 // The deep entries: as their resident namesakes below, for any d > 0, with
 // `ws` an (n_b, b_x, b_y) f32 workspace for the logits.
 extern "C" int sce_gather_fwd_deep_launch(
-    const float* x_b, const float* y, const int* idx_y, const int* tgt_b,
+    const void* x_b, const void* y, const int* idx_y, const int* tgt_b,
     const int* cand, const float* pos, float* loss, float* lse, float* ws,
-    int n_b, int b_x, int b_y, int c, int d, float cap, void* stream) {
+    int n_b, int b_x, int b_y, int c, int d, float cap, int bf16_in, void* stream) {
   return launch_fwd_deep<true, false>(x_b, y, idx_y, tgt_b, cand, pos, loss,
                                       lse, ws, n_b, b_x, b_y, c, d, cap,
-                                      stream);
+                                      bf16_in, stream);
 }
 
 extern "C" int sce_gather_plse_fwd_deep_launch(
-    const float* x_b, const float* y, const int* idx_y, const int* tgt_b,
+    const void* x_b, const void* y, const int* idx_y, const int* tgt_b,
     const int* cand, float* plse, float* ws, int n_b, int b_x, int b_y,
-    int c, int d, float cap, void* stream) {
+    int c, int d, float cap, int bf16_in, void* stream) {
   return launch_fwd_deep<false, false>(x_b, y, idx_y, tgt_b, cand, nullptr,
                                        nullptr, plse, ws, n_b, b_x, b_y, c,
-                                       d, cap, stream);
+                                       d, cap, bf16_in, stream);
 }
 
 // dX into dx and dY's slot rows into dy (n_b·b_y, d), either null when
 // not wanted: the logits and their cotangent written into ws once.
 extern "C" int sce_gather_bwd_deep_launch(
-    const float* x_b, const float* y, const int* idx_y, const int* tgt_b,
+    const void* x_b, const void* y, const int* idx_y, const int* tgt_b,
     const int* cand, const float* lse, const float* g, float* dx, float* dy,
     float* ws, int n_b, int b_x, int b_y, int c, int d, float cap,
-    void* stream) {
-  return launch_bwd_deep<false>(x_b, y, idx_y, tgt_b, cand, lse, g, dx, dy,
-                                ws, n_b, b_x, b_y, c, d, cap, stream);
+    int bf16_in, void* stream) {
+  return (int)by_dtype(bf16_in, [&](auto t) {
+    return launch_bwd_deep<false, decltype(t)>(x_b, y, idx_y, tgt_b, cand,
+                                               lse, g, dx, dy, ws, n_b, b_x,
+                                               b_y, c, d, cap, stream);
+  });
 }
 
-// The C interface, bound with ctypes. Shapes: x_b (n_b, b_x, d) f32,
-// y (C, d) f32, idx_y and cand (n_b, b_y) i32, tgt_b, pos, lse, g, loss
-// (n_b, b_x); all contiguous. `cap` > 0 is the logit softcap, 0 none.
+// The C interface, bound with ctypes. Shapes: x_b (n_b, b_x, d) and
+// y (C, d) f32, or both bfloat16 when `bf16_in` is nonzero (dX and dY then
+// take the cotangent rounded to bf16; every output is f32), idx_y and
+// cand (n_b, b_y) i32, tgt_b, pos, lse, g, loss (n_b, b_x) f32; all
+// contiguous. `cap` > 0 is the logit softcap, 0 none.
 // Each returns the cudaError_t of its launch (0 on success), and
 // cudaErrorInvalidValue for shapes it does not take. Nothing is
 // synchronised and nothing is allocated: dx (n_b, b_x, d) is written
@@ -1399,45 +1440,45 @@ extern "C" int sce_gather_bwd_deep_launch(
 // per slot, (n_b·b_y, d) (0 for a negative id), which
 // sce_gather_dy_sum_launch then adds into the catalog's (C, d). dX and dY
 // serve the partial LSE too, with the plse in place of the lse.
-extern "C" int sce_gather_fwd_launch(const float* x_b, const float* y,
+extern "C" int sce_gather_fwd_launch(const void* x_b, const void* y,
                                      const int* idx_y, const int* tgt_b,
                                      const int* cand, const float* pos,
                                      float* loss, float* lse, int n_b,
                                      int b_x, int b_y, int c, int d,
-                                     float cap, void* stream) {
+                                     float cap, int bf16_in, void* stream) {
   return launch_fwd<true, false>(x_b, y, idx_y, tgt_b, cand, pos, loss, lse,
-                                 n_b, b_x, b_y, c, d, cap, stream);
+                                 n_b, b_x, b_y, c, d, cap, bf16_in, stream);
 }
 
-extern "C" int sce_gather_plse_fwd_launch(const float* x_b, const float* y,
+extern "C" int sce_gather_plse_fwd_launch(const void* x_b, const void* y,
                                           const int* idx_y,
                                           const int* tgt_b, const int* cand,
                                           float* plse, int n_b, int b_x,
-                                          int b_y, int c, int d, float cap,
+                                          int b_y, int c, int d, float cap, int bf16_in,
                                           void* stream) {
   return launch_fwd<false, false>(x_b, y, idx_y, tgt_b, cand, nullptr,
                                   nullptr, plse, n_b, b_x, b_y, c, d, cap,
-                                  stream);
+                                  bf16_in, stream);
 }
 
-extern "C" int sce_gather_dx_launch(const float* x_b, const float* y,
+extern "C" int sce_gather_dx_launch(const void* x_b, const void* y,
                                     const int* idx_y, const int* tgt_b,
                                     const int* cand, const float* lse,
                                     const float* g, float* dx, int n_b,
                                     int b_x, int b_y, int c, int d,
-                                    float cap, void* stream) {
+                                    float cap, int bf16_in, void* stream) {
   return launch_bwd<false, false>(x_b, y, idx_y, tgt_b, cand, lse, g, dx,
-                                  n_b, b_x, b_y, c, d, cap, stream);
+                                  n_b, b_x, b_y, c, d, cap, bf16_in, stream);
 }
 
-extern "C" int sce_gather_dy_launch(const float* x_b, const float* y,
+extern "C" int sce_gather_dy_launch(const void* x_b, const void* y,
                                     const int* idx_y, const int* tgt_b,
                                     const int* cand, const float* lse,
                                     const float* g, float* dy, int n_b,
                                     int b_x, int b_y, int c, int d,
-                                    float cap, void* stream) {
+                                    float cap, int bf16_in, void* stream) {
   return launch_bwd<true, false>(x_b, y, idx_y, tgt_b, cand, lse, g, dy,
-                                 n_b, b_x, b_y, c, d, cap, stream);
+                                 n_b, b_x, b_y, c, d, cap, bf16_in, stream);
 }
 
 // The forward's plan at depth d: writes the warps a block and the
@@ -1483,7 +1524,7 @@ extern "C" int sce_gather_bwd_plan(int d, int* warps) {
 }
 
 // sce_bucket: the same kernels with direct addressing, over candidates
-// pre-gathered per bucket. y_b (n_b, b_y, d) f32 takes the place of y and
+// pre-gathered per bucket. y_b (n_b, b_y, d), in x_b's element type, takes the place of y and
 // idx_y: candidate j of bucket n is row n·b_y + j of y_b. Shapes otherwise
 // as above. dy_b (n_b, b_y, d) is written whole (no atomics, no zeroing
 // needed): a candidate with a negative id gets an exact 0 row. Replaces
@@ -1498,70 +1539,72 @@ int direct_rows(int n_b, int b_y) {
 
 }  // namespace
 
-extern "C" int sce_bucket_fwd_launch(const float* x_b, const float* y_b,
+extern "C" int sce_bucket_fwd_launch(const void* x_b, const void* y_b,
                                      const int* tgt_b, const int* cand,
                                      const float* pos, float* loss,
                                      float* lse, int n_b, int b_x, int b_y,
-                                     int d, float cap, void* stream) {
+                                     int d, float cap, int bf16_in, void* stream) {
   return launch_fwd<true, true>(x_b, y_b, nullptr, tgt_b, cand, pos, loss,
                                 lse, n_b, b_x, b_y, direct_rows(n_b, b_y), d,
-                                cap, stream);
+                                cap, bf16_in, stream);
 }
 
-extern "C" int sce_bucket_plse_fwd_launch(const float* x_b, const float* y_b,
+extern "C" int sce_bucket_plse_fwd_launch(const void* x_b, const void* y_b,
                                           const int* tgt_b, const int* cand,
                                           float* plse, int n_b, int b_x,
-                                          int b_y, int d, float cap,
+                                          int b_y, int d, float cap, int bf16_in,
                                           void* stream) {
   return launch_fwd<false, true>(x_b, y_b, nullptr, tgt_b, cand, nullptr,
                                  nullptr, plse, n_b, b_x, b_y,
-                                 direct_rows(n_b, b_y), d, cap, stream);
+                                 direct_rows(n_b, b_y), d, cap, bf16_in, stream);
 }
 
-extern "C" int sce_bucket_dx_launch(const float* x_b, const float* y_b,
+extern "C" int sce_bucket_dx_launch(const void* x_b, const void* y_b,
                                     const int* tgt_b, const int* cand,
                                     const float* lse, const float* g,
                                     float* dx, int n_b, int b_x, int b_y,
-                                    int d, float cap, void* stream) {
+                                    int d, float cap, int bf16_in, void* stream) {
   return launch_bwd<false, true>(x_b, y_b, nullptr, tgt_b, cand, lse, g, dx,
                                  n_b, b_x, b_y, direct_rows(n_b, b_y), d,
-                                 cap, stream);
+                                 cap, bf16_in, stream);
 }
 
-extern "C" int sce_bucket_dy_launch(const float* x_b, const float* y_b,
+extern "C" int sce_bucket_dy_launch(const void* x_b, const void* y_b,
                                     const int* tgt_b, const int* cand,
                                     const float* lse, const float* g,
                                     float* dy_b, int n_b, int b_x, int b_y,
-                                    int d, float cap, void* stream) {
+                                    int d, float cap, int bf16_in, void* stream) {
   return launch_bwd<true, true>(x_b, y_b, nullptr, tgt_b, cand, lse, g,
                                 dy_b, n_b, b_x, b_y, direct_rows(n_b, b_y),
-                                d, cap, stream);
+                                d, cap, bf16_in, stream);
 }
 
 extern "C" int sce_bucket_fwd_deep_launch(
-    const float* x_b, const float* y_b, const int* tgt_b, const int* cand,
+    const void* x_b, const void* y_b, const int* tgt_b, const int* cand,
     const float* pos, float* loss, float* lse, float* ws, int n_b, int b_x,
-    int b_y, int d, float cap, void* stream) {
+    int b_y, int d, float cap, int bf16_in, void* stream) {
   return launch_fwd_deep<true, true>(x_b, y_b, nullptr, tgt_b, cand, pos,
                                      loss, lse, ws, n_b, b_x, b_y,
-                                     direct_rows(n_b, b_y), d, cap, stream);
+                                     direct_rows(n_b, b_y), d, cap, bf16_in, stream);
 }
 
 extern "C" int sce_bucket_plse_fwd_deep_launch(
-    const float* x_b, const float* y_b, const int* tgt_b, const int* cand,
-    float* plse, float* ws, int n_b, int b_x, int b_y, int d, float cap,
+    const void* x_b, const void* y_b, const int* tgt_b, const int* cand,
+    float* plse, float* ws, int n_b, int b_x, int b_y, int d, float cap, int bf16_in,
     void* stream) {
   return launch_fwd_deep<false, true>(x_b, y_b, nullptr, tgt_b, cand,
                                       nullptr, nullptr, plse, ws, n_b, b_x,
                                       b_y, direct_rows(n_b, b_y), d, cap,
-                                      stream);
+                                      bf16_in, stream);
 }
 
 extern "C" int sce_bucket_bwd_deep_launch(
-    const float* x_b, const float* y_b, const int* tgt_b, const int* cand,
+    const void* x_b, const void* y_b, const int* tgt_b, const int* cand,
     const float* lse, const float* g, float* dx, float* dy_b, float* ws,
-    int n_b, int b_x, int b_y, int d, float cap, void* stream) {
-  return launch_bwd_deep<true>(x_b, y_b, nullptr, tgt_b, cand, lse, g, dx,
-                               dy_b, ws, n_b, b_x, b_y,
-                               direct_rows(n_b, b_y), d, cap, stream);
+    int n_b, int b_x, int b_y, int d, float cap, int bf16_in, void* stream) {
+  return (int)by_dtype(bf16_in, [&](auto t) {
+    return launch_bwd_deep<true, decltype(t)>(
+        x_b, y_b, nullptr, tgt_b, cand, lse, g, dx, dy_b, ws, n_b, b_x, b_y,
+        direct_rows(n_b, b_y), d, cap, stream);
+  });
 }

@@ -130,6 +130,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Four f32 values global → shared (copy4_to_f32 below, bf16 beside).
+__device__ __forceinline__ void copy4_to_f32(float* dst, const float* src,
+                                             bool valid, bool vec) {
+  if (vec) {
+    cp_async16(dst, src, valid);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cp_async4(dst + j, src + j, valid);
+  }
+}
+__device__ __forceinline__ void copy1_to_f32(float* dst, const float* src,
+                                             bool valid) {
+  cp_async4(dst, src, valid);
+}
+
 // ---------------------------------------------------------------------------
 // Shared-memory tiles of (hi, lo) pairs and their fragments.
 // ---------------------------------------------------------------------------
@@ -156,6 +171,25 @@ __device__ __forceinline__ void mma3x2(float (&t)[4],
   }
 #pragma unroll
   for (int k = 0; k < 2; ++k) mma(t, ah[k], bh[k]);
+}
+
+// One k16 step from zero: mma3x2, or with ONE — operands whose lo parts
+// are 0, as bf16 values' are — its two hi·hi passes alone: the same sum
+// with the zero passes dropped (lo fragments left unread).
+template <bool ONE>
+__device__ __forceinline__ void mma_k16(float (&t)[4],
+                                        const uint32_t (&ah)[2][4],
+                                        const uint32_t (&al)[2][4],
+                                        const uint32_t (&bh)[2][2],
+                                        const uint32_t (&bl)[2][2]) {
+  if constexpr (ONE) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) t[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) mma(t, ah[k], bh[k]);
+  } else {
+    mma3x2(t, ah, al, bh, bl);
+  }
 }
 
 // Loads 4 or 2 tf32 registers from shared memory in one instruction.
@@ -206,6 +240,80 @@ __device__ __forceinline__ void merge_ms(float& m, float& s, float mo,
   const float mn = fmaxf(m, mo);
   s = s * exp_diff(m, mn) + so * exp_diff(mo, mn);
   m = mn;
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 operands: stored as they are, widened to f32 where read.
+// ---------------------------------------------------------------------------
+// A bfloat16 value as stored: the high 16 bits of an f32.
+struct bf16 {
+  uint16_t bits;
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) {
+  return __uint_as_float((uint32_t)v.bits << 16);
+}
+// The two bf16 values packed in a 32-bit word, low half first.
+__device__ __forceinline__ float widen_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float widen_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+// Four values of type T at p (16-byte aligned for f32, 8-byte for bf16)
+// as f32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(widen_lo(w.x), widen_hi(w.x), widen_lo(w.y),
+                     widen_hi(w.y));
+}
+
+// f(T{}) for the operands' element type: bf16 when `bf16_in` (the C
+// entries' flag), else f32 — the one place a launch picks its
+// instantiation.
+template <class F>
+auto by_dtype(int bf16_in, F&& f) {
+  return bf16_in ? f(bf16{}) : f(float{});
+}
+
+// v rounded to the nearest bfloat16 (ties to even; a NaN stays a NaN), as
+// an f32: the reference's `astype(bfloat16)` of the cotangent before its
+// second product (src/repro/kernels/sce_prefetch.py `gw.astype(
+// tile.dtype)`), the rounding torch's bfloat16 cast makes.
+__device__ __forceinline__ float round_bf16(float v) {
+  uint32_t u = __float_as_uint(v);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return __uint_as_float(u | 0x400000u);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// Four values global → shared as f32: f32 by a 16-byte cp.async (`vec`:
+// 16-byte aligned) or four 4-byte ones; bf16 through registers, one 8-byte
+// load (`vec`: 8-byte aligned) or four 2-byte ones, widened as they are
+// stored. Zeros where !valid (nothing is read then). A synchronous store
+// is visible at the same barrier that follows the ring's cp.async wait.
+// (The f32 versions are with the PTX above.)
+__device__ __forceinline__ void copy4_to_f32(float* dst, const bf16* src,
+                                             bool valid, bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid) {
+    if (vec) {
+      v = load4(src);
+    } else {
+      v = make_float4(widen(src[0]), widen(src[1]), widen(src[2]),
+                      widen(src[3]));
+    }
+  }
+  *reinterpret_cast<float4*>(dst) = v;
+}
+// One value global → shared as f32.
+__device__ __forceinline__ void copy1_to_f32(float* dst, const bf16* src,
+                                             bool valid) {
+  *dst = valid ? widen(*src) : 0.f;
 }
 
 // Opts `kernel` in to the full kMaxSmem of dynamic shared memory, once per

@@ -35,7 +35,7 @@
 // The deep variant (FROM_S). The sweep holds its queries' fragments and
 // two catalog tiles over the whole depth, which caps d at kMaxD = 256.
 // Above it (and for the k > kMaxSweepK lists of mips_topk's chain) the
-// caller first computes the score slab S = Y · Qᵀ with deep_gemm.cuh,
+// caller first computes the score slab S = Y · Qᵀ with deep_tc.cuh,
 // whose product walks the depth in chunks of 32 with the very score_step
 // arithmetic of this sweep (catalog rows as A, the same split and k16
 // order), and the sweep reads each tile's scores from S instead of
@@ -44,6 +44,12 @@
 // score is still the swept column bit for bit. The slab costs
 // 2·c·n_q·4 bytes of traffic against 2·c·n_q·d FLOP of products: at
 // d 2304 a byte a 576 FLOP, far above the card's ridge.
+//
+// bfloat16 operands (T = tf32x3::bf16): the catalog tiles and the queries
+// are read as stored and widened to f32 as they are staged (the tiles
+// through registers: there is no 2-byte cp.async), so every score is the
+// f32 sweep's on the widened values bit for bit; target_scores reads its
+// two rows the same way, and stays the swept column.
 
 #pragma once
 
@@ -362,20 +368,13 @@ __device__ __forceinline__ void merge_row_lists(
 }
 
 // Opts `kernel` in to the full kMaxSmem of dynamic shared memory, once per
-// device (the attribute is per device context); `done` is the caller's
-// per-kernel table.
-template <class Kernel>
-cudaError_t allow_max_smem(Kernel kernel, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMaxSmem);
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
-  return err;
-}
+// device; `done` is the caller's per-kernel table. One function for both
+// headers: a kernel instantiated on tf32x3::bf16 brings tf32x3's into
+// argument-dependent lookup.
+using tf32x3::allow_max_smem;
+static_assert(kMaxSmem == tf32x3::kMaxSmem &&
+                  kMaxDevices == tf32x3::kMaxDevices,
+              "one opt-in table shape");
 
 // ---------------------------------------------------------------------------
 // The tensor-core sweep
@@ -432,8 +431,8 @@ inline size_t sweep_smem_bytes(int d, int k) {
 // period > 0, the tiles s, s + period, s + 2·period, … (a pre-pass over a
 // sample: no lists written, only τ published).
 struct Sweep {
-  const float* q;               // (n_q, d) query rows
-  const float* y;               // (c, d) catalog rows
+  const void* q;                // (n_q, d) query rows, f32 or bf16 (T)
+  const void* y;                // (c, d) catalog rows, as q
   const unsigned char* valid;   // (c,) bool mask, or null
   float* part_vals;             // (n_q, S, k) split lists, or null
   int* part_ids;
@@ -441,7 +440,7 @@ struct Sweep {
   int n_q, c, d, k, period;
   int id_offset;                // global id of y's first row
   int c_lo, c_hi;               // global-id window [c_lo, c_hi)
-  int vec;                      // 16-byte tile copies (d % 4 == 0, aligned)
+  int vec;                      // 4-value tile copies (d % 4 == 0, aligned)
   int seeded;                   // τ comes from a pre-pass
   const float* s;               // FROM_S: the scores (c, n_q), row-major
 };
@@ -456,24 +455,36 @@ __device__ __forceinline__ int valid_flag(const Sweep& a, long c0, int nc,
          gid < a.c_hi;
 }
 
-// Starts the cp.async copy of catalog rows [c0, c0 + nc) into a staged
-// tile at pitch p: 16-byte copies when `vec`, else 4-byte ones; thread
-// tid takes the units tid, tid + n_threads, … of the rows in order, its
-// (row, unit) stepped without a division a unit. The depth padding
-// [d, dp) is never written.
-__device__ __forceinline__ void copy_tile(float* dst, const float* y, long c0,
+// Starts the copy of catalog rows [c0, c0 + nc) into a staged f32 tile
+// at pitch p: f32 by cp.async, 16-byte copies when `vec`, else 4-byte
+// ones; bf16 through registers (8-byte loads when `vec`, else 2-byte),
+// widened as stored — visible, as the copies are, after the barrier that
+// follows the ring's wait. Thread tid takes the units tid,
+// tid + n_threads, … of the rows in order, its (row, unit) stepped
+// without a division a unit. The depth padding [d, dp) is never written.
+template <typename T>
+__device__ __forceinline__ void copy_tile(float* dst, const T* y, long c0,
                                           int nc, int d, int p, int vec,
                                           int tid, int n_threads) {
-  const float* src = y + c0 * d;
-  const int w = vec ? 4 : 1;  // floats a copy
+  const T* src = y + c0 * d;
+  const int w = vec ? 4 : 1;  // values a copy
   const int units = d / w;    // copies a row
   const int dr = n_threads / units;
   const int du = n_threads - dr * units;
   int r = tid / units;
   int u = tid - r * units;
   while (r < nc) {
-    if (vec) cp_async16(dst + r * p + 4 * u, src + (long)r * d + 4 * u);
-    else cp_async4(dst + r * p + u, src + (long)r * d + u);
+    if constexpr (sizeof(T) == 2) {
+      if (vec)
+        *reinterpret_cast<float4*>(dst + r * p + 4 * u) =
+            tf32x3::load4(src + (long)r * d + 4 * u);
+      else
+        dst[r * p + u] = tf32x3::widen(src[(long)r * d + u]);
+    } else if (vec) {
+      cp_async16(dst + r * p + 4 * u, src + (long)r * d + 4 * u);
+    } else {
+      cp_async4(dst + r * p + u, src + (long)r * d + u);
+    }
     r += dr;
     u += du;
     if (u >= units) {
@@ -574,7 +585,7 @@ __device__ void merge_rows(float* lv, int* li, float* cv, int* ci, int* cnt,
 // tile whose filter left a buffer past kMergeAt, around its merges.
 // Returns the ring of tiles, which the caller may reuse once it returns.
 template <int NQT, int SLOTS, bool SAMPLE = false, bool FROM_S = false,
-          class OnTile>
+          typename T = float, class OnTile>
 __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
                                         OnTile&& on_tile) {
   using C = Cfg<NQT>;
@@ -617,7 +628,9 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
     const int js = e >> 6;
     const int r = row0 + 8 * (js / k8s) + (l >> 2);
     const int kk = 8 * (js % k8s) + 2 * (l & 3) + u;
-    const float v = r < a.n_q && kk < d ? a.q[(long)r * d + kk] : 0.f;
+    const float v = r < a.n_q && kk < d
+                        ? tf32x3::widen(static_cast<const T*>(a.q)[(long)r * d + kk])
+                        : 0.f;
     uint32_t* f = reinterpret_cast<uint32_t*>(qf + js * 32 + l);
     tf32x3::split(v, f[u], f[2 + u]);
   }
@@ -651,8 +664,8 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
     const long c0 = tile_c0(i);
     const int nc = a.c - c0 < kTile ? (int)(a.c - c0) : kTile;
     if (!FROM_S)
-      copy_tile(ring + (i & 1) * kTile * p, a.y, c0, nc, d, p, a.vec, tid,
-                THREADS);
+      copy_tile(ring + (i & 1) * kTile * p, static_cast<const T*>(a.y), c0,
+                nc, d, p, a.vec, tid, THREADS);
     return tid < kTile ? valid_flag(a, c0, nc, tid) : 0;
   };
 
@@ -888,7 +901,8 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
 // id_offset + c). One warp a run of 8 rows, kTargetWarps warps a block.
 constexpr int kTargetWarps = 4;
 
-__device__ __forceinline__ void target_scores(const float* x, const float* y,
+template <typename T>
+__device__ __forceinline__ void target_scores(const T* x, const T* y,
                                               const int* targets, float* out,
                                               int n, int c, int d,
                                               int id_offset) {
@@ -900,8 +914,8 @@ __device__ __forceinline__ void target_scores(const float* x, const float* y,
   const int r = r0 + gq;
   const long local = r < n ? (long)targets[r] - id_offset : -1;
   const bool owned = local >= 0 && local < c;
-  const float* xr = x + (long)(r < n ? r : 0) * d;
-  const float* yr = y + (owned ? local : 0) * d;
+  const T* xr = x + (long)(r < n ? r : 0) * d;
+  const T* yr = y + (owned ? local : 0) * d;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int s16 = 0; s16 < depth16(d) / 16; ++s16) {
     uint32_t ah[2][4], al[2][4], bh[2][2], bl[2][2];
@@ -910,9 +924,10 @@ __device__ __forceinline__ void target_scores(const float* x, const float* y,
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int kd = 16 * s16 + 8 * kk + 2 * qd + u;
-        tf32x3::split(r < n && kd < d ? xr[kd] : 0.f, bh[kk][u], bl[kk][u]);
-        tf32x3::split(owned && kd < d ? yr[kd] : 0.f, ah[kk][2 * u],
-                      al[kk][2 * u]);
+        tf32x3::split(r < n && kd < d ? tf32x3::widen(xr[kd]) : 0.f,
+                      bh[kk][u], bl[kk][u]);
+        tf32x3::split(owned && kd < d ? tf32x3::widen(yr[kd]) : 0.f,
+                      ah[kk][2 * u], al[kk][2 * u]);
         ah[kk][2 * u + 1] = 0u;
         al[kk][2 * u + 1] = 0u;
       }
@@ -932,12 +947,12 @@ __device__ __forceinline__ void target_scores(const float* x, const float* y,
 // distinct real column or −inf, so the k-th of a row's union, taken by
 // tau_select_kernel, is a safe τ for the sweep: the k-th of ≈ a sample's
 // top, where the blocks' own lists start from nothing.
-template <int NQT, bool FROM_S>
+template <int NQT, bool FROM_S, typename T>
 __global__ void __launch_bounds__(Cfg<NQT>::kThreads, Cfg<NQT>::kMinBlocks)
 sample_kernel(Sweep a) {
   extern __shared__ float4 smem4[];
-  sweep<NQT, 1, true, FROM_S>(a, smem4,
-                              [](const auto&, const int*, long) {});
+  sweep<NQT, 1, true, FROM_S, T>(a, smem4,
+                                 [](const auto&, const int*, long) {});
 }
 
 // The k-th largest of v[0, n) (k ≤ 32): k times the largest left, one copy
@@ -1004,7 +1019,7 @@ tau_select_kernel(const float* __restrict__ uv, int n, int k,
 // a static here would be one object in every library a process loads (a
 // template's static local is a unique global symbol), so one library's
 // opt-in would stand for the other's kernel.
-template <int NQT, bool FROM_S = false>
+template <int NQT, bool FROM_S = false, typename T = float>
 cudaError_t seed_tau(const Sweep& a, float* uv, int pre_split,
                      int pre_period, bool (&done)[kMaxDevices],
                      cudaStream_t s) {
@@ -1015,13 +1030,13 @@ cudaError_t seed_tau(const Sweep& a, float* uv, int pre_split,
   if (a.k > 32 || uv == nullptr ||
       tau_select_smem_bytes(n_union) > 48 * 1024)
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_max_smem(sample_kernel<NQT, FROM_S>, done);
+  cudaError_t err = allow_max_smem(sample_kernel<NQT, FROM_S, T>, done);
   if (err != cudaSuccess) return err;
   Sweep pre = a;
   pre.part_vals = uv;
   pre.part_ids = nullptr;
   pre.period = pre_period;
-  sample_kernel<NQT, FROM_S>
+  sample_kernel<NQT, FROM_S, T>
       <<<dim3((a.n_q + C::kQB - 1) / C::kQB, pre_split), C::kThreads,
          sweep_smem_bytes<NQT, FROM_S>(a.d, a.k), s>>>(pre);
   err = cudaGetLastError();

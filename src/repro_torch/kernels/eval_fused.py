@@ -12,10 +12,15 @@ tensors only: the CPU path is ``kernels/ref.py`` (``eval_fused_ref``,
 ``eval_fused.launches`` and ``eval_tgt_gather.launches`` count the calls
 that launched each kernel.
 
-Above ``MAX_D`` (``mips_topk.is_deep``) the rows go in slabs
+Above ``MAX_D`` (``deep.is_deep``) the rows go in slabs
 (``mips_topk.slab_rows``) through ``eval_fused_deep_launch``, which first
-writes the slab's scores (``csrc/deep_gemm.cuh``) and then sweeps them;
+writes the slab's scores (``csrc/deep_tc.cuh``) and then sweeps them;
 :func:`eval_tgt_gather` takes any depth, by the same arithmetic.
+
+``x`` and ``y`` are float32 or both bfloat16 (``deep.operand_dtype``),
+widened to f32 inside the kernels where they land: every output (f32
+scores and LSE pair, int32 ids and counts) equals the f32 launch's on
+the widened inputs bit for bit.
 """
 from __future__ import annotations
 
@@ -25,9 +30,10 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.mips_topk import (MAX_D, SHALLOW_MAX_K, SWEEP_WM,
-                                          n_sm, on_device, slab_rows,
-                                          sweep_plan)
+from repro_torch.kernels.deep import (MAX_D, SHALLOW_MAX_K, bf16_flag,
+                                      operand_dtype)
+from repro_torch.kernels.mips_topk import (SWEEP_WM, n_sm, on_device,
+                                          slab_rows, sweep_plan)
 
 INT32_MAX = 2**31 - 1
 
@@ -41,9 +47,7 @@ def _check(x, y, targets, k=None, tgt_scores=None, id_offset=0):
     if len({t.device for t in tensors}) != 1:
         raise ValueError(
             f"{name}: tensors on {[str(t.device) for t in tensors]}")
-    if x.dtype != torch.float32 or y.dtype != torch.float32:
-        raise ValueError(f"{name} takes float32 x and y, got {x.dtype}, "
-                         f"{y.dtype}")
+    operand_dtype(name, x, y)
     if targets.dtype != torch.int32:
         raise ValueError(f"{name} takes int32 targets, got {targets.dtype}")
     n = x.shape[0] if x.ndim == 2 else -1
@@ -74,11 +78,11 @@ def _lib() -> ctypes.CDLL:
     stream as ``c_void_p``, ints as ``c_int``, the cap as ``c_float``)."""
     lib = _build.load("eval_fused")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.eval_tgt_gather_launch.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.eval_tgt_gather_launch.argtypes = [p] * 4 + [i] * 5 + [p]
     lib.eval_tgt_gather_launch.restype = ctypes.c_int
-    lib.eval_fused_launch.argtypes = [p] * 16 + [i] * 11 + [f, i, p]
+    lib.eval_fused_launch.argtypes = [p] * 16 + [i] * 11 + [f, i, i, p]
     lib.eval_fused_launch.restype = ctypes.c_int
-    lib.eval_fused_deep_launch.argtypes = [p] * 17 + [i] * 11 + [f, i, p]
+    lib.eval_fused_deep_launch.argtypes = [p] * 17 + [i] * 11 + [f, i, i, p]
     lib.eval_fused_deep_launch.restype = ctypes.c_int
     return lib
 
@@ -94,8 +98,8 @@ def eval_tgt_gather(x, y, targets, *, id_offset: int = 0):
     target column bit for bit; 0 where the target is outside
     ``[id_offset, id_offset + C)``.
 
-    x : (n, d) float32, y : (C, d) float32, targets : (n,) int32; all
-    contiguous CUDA tensors. → (n,) float32.
+    x : (n, d) float32 or bfloat16, y : (C, d) of x's dtype, targets :
+    (n,) int32; all contiguous CUDA tensors. → (n,) float32.
     """
     _check(x, y, targets, id_offset=id_offset)
     n, d = x.shape
@@ -106,7 +110,8 @@ def eval_tgt_gather(x, y, targets, *, id_offset: int = 0):
     with on_device(x.device):
         err = lib.eval_tgt_gather_launch(
             x.data_ptr(), y.data_ptr(), targets.data_ptr(), out.data_ptr(),
-            n, y.shape[0], d, id_offset, _stream(x.device),
+            n, y.shape[0], d, id_offset, bf16_flag(x.dtype),
+            _stream(x.device),
         )
     if err != 0:
         raise RuntimeError(f"eval_tgt_gather launch failed: cudaError {err} "
@@ -124,8 +129,9 @@ def eval_fused(x, y, targets, k: int, *, tgt_scores=None, c_lo: int = 0,
 
     Parameters
     ----------
-    x : (n, d) float32 user states, any d > 0 (above ``MAX_D`` the deep
-        variant); y : (C, d) float32 catalog rows (or
+    x : (n, d) float32 or bfloat16 user states, any d > 0 (above
+        ``MAX_D`` the deep variant); y : (C, d) catalog rows of x's
+        dtype (or
         a shard whose first row has global id ``id_offset``); targets :
         (n,) int32 global target ids. All contiguous CUDA tensors.
     k : list length, 1..512; may exceed the valid columns (the tail is
@@ -210,7 +216,7 @@ def _launch(x, y, outs, k, id_offset, c_lo, c_hi, cap, with_lse,
                 part_ms, tau, uv, vals, ids, gt, eq, m, s) + tail),
             n, c, d, k, pl.query_tiles, pl.n_split, pl.pre_split,
             pl.pre_period, id_offset, c_lo, c_hi, cap, int(with_lse),
-            _stream(dev),
+            bf16_flag(x.dtype), _stream(dev),
         )
     if err != 0:
         raise RuntimeError(

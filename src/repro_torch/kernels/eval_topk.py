@@ -31,9 +31,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.eval_fused import INT32_MAX
-from repro_torch.kernels.mips_topk import (MAX_D, SHALLOW_MAX_K, SWEEP_WM,
-                                          n_sm, on_device, slab_rows,
-                                          sweep_plan)
+from repro_torch.kernels.deep import (MAX_D, SHALLOW_MAX_K, bf16_flag,
+                                      operand_dtype)
+from repro_torch.kernels.mips_topk import (SWEEP_WM, n_sm, on_device,
+                                          slab_rows, sweep_plan)
 
 
 def _check(name, x, y, vec, vec_dtype, k=None, id_offset=0):
@@ -45,9 +46,7 @@ def _check(name, x, y, vec, vec_dtype, k=None, id_offset=0):
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"{name}: tensors on "
                          f"{[str(t.device) for t in tensors]}")
-    if x.dtype != torch.float32 or y.dtype != torch.float32:
-        raise ValueError(f"{name} takes float32 x and y, got {x.dtype}, "
-                         f"{y.dtype}")
+    operand_dtype(name, x, y)
     if vec.dtype != vec_dtype:
         raise ValueError(f"{name} takes {vec_dtype} per-row input, got "
                          f"{vec.dtype}")
@@ -74,11 +73,11 @@ def _lib() -> ctypes.CDLL:
     """The built library with the two entries' C signatures declared."""
     lib = _build.load("eval_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.eval_topk_launch.argtypes = [p] * 12 + [i] * 11 + [p]
+    lib.eval_topk_launch.argtypes = [p] * 12 + [i] * 12 + [p]
     lib.eval_topk_launch.restype = ctypes.c_int
-    lib.eval_topk_deep_launch.argtypes = [p] * 13 + [i] * 11 + [p]
+    lib.eval_topk_deep_launch.argtypes = [p] * 13 + [i] * 12 + [p]
     lib.eval_topk_deep_launch.restype = ctypes.c_int
-    lib.eval_tgt_scores_launch.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.eval_tgt_scores_launch.argtypes = [p] * 4 + [i] * 5 + [p]
     lib.eval_tgt_scores_launch.restype = ctypes.c_int
     return lib
 
@@ -92,8 +91,8 @@ def _two_pass_tgt_scores(x, y, targets, *, id_offset: int = 0):
     the card, bit for bit the column ``eval_topk`` sweeps; 0 where the
     target is outside ``[id_offset, id_offset + C)``.
 
-    x : (n, d) float32, y : (C, d) float32, targets : (n,) int32; all
-    contiguous CUDA tensors. → (n,) float32.
+    x : (n, d) float32 or bfloat16, y : (C, d) of x's dtype, targets :
+    (n,) int32; all contiguous CUDA tensors. → (n,) float32.
     """
     _check("eval_tgt_scores", x, y, targets, torch.int32,
            id_offset=id_offset)
@@ -104,7 +103,8 @@ def _two_pass_tgt_scores(x, y, targets, *, id_offset: int = 0):
     with on_device(x.device):
         err = _lib().eval_tgt_scores_launch(
             x.data_ptr(), y.data_ptr(), targets.data_ptr(), out.data_ptr(),
-            n, y.shape[0], d, id_offset, _stream(x.device))
+            n, y.shape[0], d, id_offset, bf16_flag(x.dtype),
+            _stream(x.device))
     if err != 0:
         raise RuntimeError(f"eval_tgt_scores launch failed: cudaError {err} "
                            f"(n={n}, C={y.shape[0]}, d={d})")
@@ -119,8 +119,9 @@ def _two_pass_topk(x, y, tgt_scores, k: int, *, c_lo: int = 0, c_hi=None,
 
     Parameters
     ----------
-    x : (n, d) float32 user states; y : (C, d) float32 catalog rows (or a
-        shard whose first row has global id ``id_offset``); tgt_scores :
+    x : (n, d) float32 or bfloat16 user states; y : (C, d) catalog rows
+        of x's dtype (or a shard whose first row has global id
+        ``id_offset``); tgt_scores :
         (n,) float32 thresholds (``eval_tgt_scores``). All contiguous
         CUDA tensors.
     k : list length, 1..512; may exceed the valid columns (the tail is
@@ -192,7 +193,8 @@ def _launch(x, y, outs, k, id_offset, c_lo, c_hi, scores=None):
                 x, y, tgt_scores, part_vals, part_ids, part_cnt, tau, uv,
                 vals, ids, gt, eq) + tail),
             n, c, d, k, pl.query_tiles, pl.n_split, pl.pre_split,
-            pl.pre_period, id_offset, c_lo, c_hi, _stream(dev))
+            pl.pre_period, id_offset, c_lo, c_hi, bf16_flag(x.dtype),
+            _stream(dev))
     if err != 0:
         raise RuntimeError(f"eval_topk launch failed: cudaError {err} "
                            f"(n={n}, C={c}, d={d}, k={k}, plan={pl})")

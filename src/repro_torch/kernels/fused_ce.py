@@ -7,7 +7,7 @@ positive, the one-hot and the softcap (``kernels/linear_sce.py``'s
 ``linear_ce_split``; above d 256 its deep entries, on no planes).
 Three wrappers, each with its own launch counter:
 
-* :func:`fused_lse_fwd` — per-position lse (N,);
+* :func:`fused_lse_fwd` — per-position lse (N,) f32;
 * :func:`fused_lse_dx` — dX = ``(p·g) Y`` (N, d);
 * :func:`fused_lse_dy` — dY = ``(p·g)ᵀ X`` (C, d), every row written once.
 
@@ -17,7 +17,9 @@ them with the lse; backward the gradients recompute the tiles).
 :func:`fused_ce_loss` is ``fused_lse − x·y[targets]``: the positive's
 gradient comes from autograd through the gather, as in the reference.
 CUDA tensors only; the CPU path is ``kernels/ref.py``, chosen by
-``kernels/ops.py``.
+``kernels/ops.py``. ``x`` and ``y`` f32 or both bfloat16, as
+``linear_sce.py`` takes them; the lse is f32, dX and dY in the
+operands' types.
 """
 from __future__ import annotations
 
@@ -90,6 +92,9 @@ def fused_lse(x, y):
 
 
 def fused_ce_loss(x, y, targets):
-    """Per-position full CE ``lse(x·yᵀ) − x·y[targets]`` (N,) on the card."""
-    pos = torch.einsum("nd,nd->n", x, y[targets.long()])
-    return fused_lse(x, y) - pos
+    """Per-position full CE ``lse(x·yᵀ) − x·y[targets]`` (N,) on the card,
+    in ``x``'s type; the positive in f32 from the rows as stored, as the
+    reference takes it (``fused_ce.py:271-276``)."""
+    pos = torch.einsum("nd,nd->n", x.to(torch.float32),
+                       y[targets.long()].to(torch.float32))
+    return (fused_lse(x, y) - pos).to(x.dtype)

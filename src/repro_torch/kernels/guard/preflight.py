@@ -32,8 +32,10 @@ MAX_K = 512  # kMaxSweepK of csrc/topk_tile.cuh (the top-k list length)
 # lists to kMaxK = 1024.
 K_MAX = {"mips_topk": 1024}
 
-# The kernels take float32 data (int32 ids); bf16 is not ported.
-_DTYPES = ("float32",)
+# The kernels take float32 or bfloat16 operands (int32 ids), the
+# reference's two; a plan's shared memory is the same for both (bf16 is
+# widened where it lands).
+_DTYPES = ("float32", "bfloat16")
 
 # What a non-positive chunk is repaired to (clamped to the axis): the
 # defaults every ``ops`` entry ships with.
@@ -59,7 +61,7 @@ PREFLIGHT_RULES = (
   ===============  ============================================  =======
   unknown_kernel   the group is one of KNOWN_KERNELS             raise
   positive_dims    rows / cols / d / k are >= 1                  raise
-  dtype_supported  the data is float32 (the .cu files take f32)  raise
+  dtype_supported  float32 or bfloat16 (the .cu files take both) raise
   k_max            k <= 512 (kMaxSweepK: the top-k list slots);  raise
                    mips_topk k <= 1024 (its deep chain)
   positive_block   the plain version's chunk is >= 1             repair

@@ -31,6 +31,16 @@ a slab by ``csrc/deep_tc.cuh``'s 3xTF32 product and folded (the
 forward), or recomputed, turned into the cotangent once and multiplied
 back into dX (accumulated over the chunks in order) and dW's chunk rows
 — both from one launch when autograd needs both.
+
+``x`` and ``w`` are float32 or both bfloat16 (``deep.operand_dtype``):
+the split widens bf16 rows into planes whose lo is 0, which the forward,
+dX and dW then read in one TF32 pass a product (their lo passes would
+add zeros), the deep product reads them as stored (one pass as well),
+and both backwards round the
+cotangent to bf16 before its product (the reference's
+``gw.astype(w.dtype)``). Outputs keep the reference's types: the loss in
+``x``'s, the lse f32, dX in ``x``'s and dW in ``w``'s, accumulated in f32
+and rounded once. ``lse`` and ``g`` go to the kernels as f32.
 """
 from __future__ import annotations
 
@@ -40,30 +50,22 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.deep import (DEEP_SMEM, MAX_D, bf16_flag,
+                                      f32_like, f32_rows, is_deep,
+                                      operand_dtype, slab_rows)
 
-MAX_D = 256  # kMaxD in csrc/tf32x3_tile.cuh
 DEPTH_ALIGN = 16  # kDepthAlign in csrc/tf32x3_tile.cuh
 MAX_SMEM = 232_448  # a block's opt-in shared memory on sm_90
 PAIR_SMEM = 233_472 // 2 - 1024  # two blocks an SM, 1 KB reserved each
 FWD_MAX_WARPS = 8  # kFwdMaxWarps in csrc/linear_ce.cu
-DEEP_SMEM = 229_376  # deep_tc::kSmem: the deep product's shared memory
-SLAB_BYTES = 1 << 28  # a deep call's logits slab at most
-CHUNK_ALIGN = 128  # deep_tc::kBN: a chunk is whole output tiles wide
-
-
-def is_deep(d: int) -> bool:
-    """Whether depth ``d`` takes the deep variant: exactly where the
-    resident kernels cannot, ``d > MAX_D``."""
-    return d > MAX_D
 
 
 def deep_chunk(n: int, c: int) -> int:
-    """Catalog rows a deep call's slab holds: the most multiple of
-    ``CHUNK_ALIGN`` whose ``(n, chunk)`` f32 slab fits ``SLAB_BYTES`` (at
-    least ``CHUNK_ALIGN``), no more than the catalog needs."""
-    chunk = max(CHUNK_ALIGN,
-                SLAB_BYTES // (4 * n) // CHUNK_ALIGN * CHUNK_ALIGN)
-    return min(chunk, -(-c // CHUNK_ALIGN) * CHUNK_ALIGN)
+    """Catalog rows a deep call's slab holds: ``deep.slab_rows`` of the
+    catalog against ``n`` positions, a multiple of 4 (the slab's rows
+    start 16-byte aligned) and of 128 from there up, its ``(n, chunk)``
+    f32 slab within ``deep.SLAB_BYTES``."""
+    return slab_rows(c, n, multiple=4)
 
 
 def padded_depth(d: int) -> int:
@@ -158,16 +160,16 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("linear_ce")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.linear_ce_splits.argtypes = [i] * 5 + [f]
-    lib.linear_ce_fwd_launch.argtypes = [p] * 6 + [i] * 5 + [f, p]
-    lib.linear_ce_dx_launch.argtypes = [p] * 7 + [i] * 5 + [f, p]
-    lib.linear_ce_dw_launch.argtypes = [p] * 6 + [i] * 4 + [f, p]
-    lib.linear_ce_split_launch.argtypes = [p] * 4 + [i] * 3 + [p]
+    lib.linear_ce_fwd_launch.argtypes = [p] * 6 + [i] * 5 + [f, i, p]
+    lib.linear_ce_dx_launch.argtypes = [p] * 7 + [i] * 5 + [f, i, p]
+    lib.linear_ce_dw_launch.argtypes = [p] * 6 + [i] * 4 + [f, i, p]
+    lib.linear_ce_split_launch.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.linear_ce_fwd_plan.argtypes = [i] + [ctypes.POINTER(i)] * 2
     lib.linear_ce_bwd_plan.argtypes = [i, i] + [ctypes.POINTER(i)] * 2
-    lib.linear_ce_fwd_deep_launch.argtypes = [p] * 7 + [i] * 5 + [f, p]
-    lib.linear_ce_bwd_deep_launch.argtypes = [p] * 8 + [i] * 5 + [f, p]
+    lib.linear_ce_fwd_deep_launch.argtypes = [p] * 7 + [i] * 5 + [f, i, p]
+    lib.linear_ce_bwd_deep_launch.argtypes = [p] * 8 + [i] * 5 + [f, i, p]
     L = ctypes.c_long
-    lib.deep_tc_launch.argtypes = [p] * 5 + [i] * 6 + [L] * 5 + [i] * 6 + [p]
+    lib.deep_tc_launch.argtypes = [p] * 5 + [i] * 6 + [L] * 5 + [i] * 7 + [p]
     for fn in (lib.linear_ce_splits, lib.linear_ce_fwd_plan,
                lib.linear_ce_bwd_plan,
                lib.linear_ce_fwd_launch,
@@ -187,8 +189,9 @@ def _check(x, w, targets, *rows):
         raise ValueError("linear_ce kernels take CUDA tensors only")
     if any(t.device != x.device for t in tensors):
         raise ValueError("linear_ce inputs lie on different devices")
-    if any(t.dtype != torch.float32 for t in (x, w) + rows):
-        raise TypeError("linear_ce takes float32 x, w, lse and g")
+    operand_dtype("linear_ce", x, w)
+    if any(t.dtype != torch.float32 for t in rows):
+        raise TypeError("linear_ce takes float32 lse and g")
     if targets is not None and targets.dtype != torch.int32:
         raise TypeError("linear_ce takes int32 targets")
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[1]:
@@ -218,6 +221,8 @@ def _cap(logit_softcap) -> float:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
 
 
 def _call(name, args, shape, device):
@@ -261,8 +266,8 @@ def _fwd(x, w, targets, logit_softcap, planes=None):
     loss = torch.empty_like(lse) if pluck else None
     _call("linear_ce_fwd_launch",
           (xp.data_ptr(), wp.data_ptr(), _ptr(targets), part.data_ptr(),
-           _ptr(loss), lse.data_ptr(), *shape, s, int(pluck), cap),
-          shape, x.device)
+           _ptr(loss), lse.data_ptr(), *shape, s, int(pluck), cap,
+           bf16_flag(x.dtype)), shape, x.device)
     return loss, lse
 
 
@@ -283,27 +288,31 @@ def _fwd_deep(x, w, targets, cap, shape):
     _call("linear_ce_fwd_deep_launch",
           (x.data_ptr(), w.data_ptr(), _ptr(targets), slab.data_ptr(),
            state.data_ptr(), _ptr(loss), lse.data_ptr(), *shape, chunk,
-           int(targets is not None), cap), shape, x.device)
+           int(targets is not None), cap, bf16_flag(x.dtype)), shape,
+          x.device)
     return loss, lse
 
 
 def _bwd_deep(x, w, targets, lse, g, logit_softcap, want_dx, want_dw):
     """The deep backward: ``(dx, dw)``, each None unless wanted, one
-    launch that writes each chunk's cotangent once for both."""
+    launch that writes each chunk's cotangent once for both; in ``x``'s
+    and ``w``'s types."""
+    lse, g = f32_rows(lse, g)
     shape = _check(x, w, targets, lse, g)
     slab, chunk = _slab(shape, x.device)
-    dx = torch.empty_like(x) if want_dx else None
-    dw = torch.empty_like(w) if want_dw else None
+    dx, dw = f32_like(x, want_dx), f32_like(w, want_dw)
     _call("linear_ce_bwd_deep_launch",
           (x.data_ptr(), w.data_ptr(), _ptr(targets), lse.data_ptr(),
            g.data_ptr(), _ptr(dx), _ptr(dw), slab.data_ptr(), *shape, chunk,
-           int(targets is not None), _cap(logit_softcap)), shape, x.device)
-    return dx, dw
+           int(targets is not None), _cap(logit_softcap),
+           bf16_flag(x.dtype)), shape, x.device)
+    return (None if dx is None else dx.to(x.dtype),
+            None if dw is None else dw.to(w.dtype))
 
 
 def _split(x, w):
     """The (hi, lo) planes of ``x`` and ``w``: ``(N, dp / 8, 2, 8)``,
-    ``(C, dp / 8, 2, 8)`` f32, one launch."""
+    ``(C, dp / 8, 2, 8)`` f32, one launch (bf16 rows: lo 0)."""
     shape = _check(x, w, None)
     n, c, d = shape
     if is_deep(d):
@@ -313,8 +322,8 @@ def _split(x, w):
     xp = torch.empty((n, blocks, 2, 8), dtype=torch.float32, device=x.device)
     wp = torch.empty((c, blocks, 2, 8), dtype=torch.float32, device=x.device)
     _call("linear_ce_split_launch",
-          (x.data_ptr(), w.data_ptr(), xp.data_ptr(), wp.data_ptr(), *shape),
-          shape, x.device)
+          (x.data_ptr(), w.data_ptr(), xp.data_ptr(), wp.data_ptr(), *shape,
+           bf16_flag(x.dtype)), shape, x.device)
     return xp, wp
 
 
@@ -338,6 +347,7 @@ def _planes(x, w, planes):
 def _dx(x, w, targets, lse, g, logit_softcap, planes=None):
     if is_deep(x.shape[-1]):
         return _bwd_deep(x, w, targets, lse, g, logit_softcap, True, False)[0]
+    lse, g = f32_rows(lse, g)
     shape = _check(x, w, targets, lse, g)
     n, _, d = shape
     cap = _cap(logit_softcap)
@@ -346,30 +356,32 @@ def _dx(x, w, targets, lse, g, logit_softcap, planes=None):
     s = _splits(1, *shape, pluck, cap, x.device)
     part = (torch.empty((s, n, d), dtype=torch.float32, device=x.device)
             if s > 1 else None)
-    dx = torch.empty_like(x)
+    dx = f32_like(x)
     _call("linear_ce_dx_launch",
           (xp.data_ptr(), wp.data_ptr(), _ptr(targets), lse.data_ptr(),
            g.data_ptr(), _ptr(part), dx.data_ptr(), *shape, s, int(pluck),
-           cap), shape, x.device)
-    return dx
+           cap, bf16_flag(x.dtype)), shape, x.device)
+    return dx.to(x.dtype)
 
 
 def _dw(x, w, targets, lse, g, logit_softcap, planes=None):
     if is_deep(x.shape[-1]):
         return _bwd_deep(x, w, targets, lse, g, logit_softcap, False, True)[1]
+    lse, g = f32_rows(lse, g)
     shape = _check(x, w, targets, lse, g)
     cap = _cap(logit_softcap)
     xp, wp = _planes(x, w, planes)
-    dw = torch.empty_like(w)
+    dw = f32_like(w)
     _call("linear_ce_dw_launch",
           (xp.data_ptr(), wp.data_ptr(), _ptr(targets), lse.data_ptr(),
            g.data_ptr(), dw.data_ptr(), *shape, int(targets is not None),
-           cap), shape, x.device)
-    return dw
+           cap, bf16_flag(x.dtype)), shape, x.device)
+    return dw.to(w.dtype)
 
 
 def linear_ce_fwd(x, w, targets, *, logit_softcap=None, planes=None):
-    """Forward kernel: ``(loss, lse)``, each (N,) f32; ``loss = lse −`` the
+    """Forward kernel: ``(loss, lse)``, each (N,) f32 (the autograd entry
+    returns the loss in ``x``'s type); ``loss = lse −`` the
     target's capped logit (a target outside ``[0, C)`` plucks 0, so its
     loss is exactly its lse — the contract of ``ops.linear_ce_loss``, which
     the plain version keeps too). Matches
@@ -408,7 +420,9 @@ def linear_ce_dw(x, w, targets, lse, g, *, logit_softcap=None, planes=None):
 def deep_tc_product(a, b, *, a_km=False, b_kn=False, idx=None, out=None,
                     m_zero=None):
     """The deep variants' product (``csrc/deep_tc.cuh``) on its own, for
-    tests and probes: ``C[t] = A[t] · B[t]ᵀ`` in 3xTF32 over a batch.
+    tests and probes: ``C[t] = A[t] · B[t]ᵀ`` in 3xTF32 over a batch (f32
+    out; ``a`` and ``b`` f32, or both bfloat16 — one TF32 pass — without
+    ``idx`` or ``out``).
     ``a`` (T, M, K), or (T, K, M) with ``a_km``; ``b`` (T, N, K), or
     (T, K, N) with ``b_kn`` — or, with ``idx`` (T, N) (with ``b_kn``
     (T, K)) int32, a table (R, K) (``b_kn``: (R, N)) whose rows
@@ -437,6 +451,7 @@ def deep_tc_product(a, b, *, a_km=False, b_kn=False, idx=None, out=None,
             a[0].numel(), 0 if idx is not None else b[0].numel(),
             0 if idx is None else idx.shape[1], m * n, m, b.shape[0], t,
             int(a_km), int(b_kn), int(idx is not None), int(acc),
+            bf16_flag(operand_dtype("deep_tc_product", a, b)),
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"deep_tc_launch failed: cudaError {err} "
@@ -463,7 +478,7 @@ class LinearCELoss(torch.autograd.Function):
                                   planes=planes or None)
         ctx.save_for_backward(x, w, targets, lse, *planes)
         ctx.logit_softcap = logit_softcap
-        return loss
+        return loss.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):

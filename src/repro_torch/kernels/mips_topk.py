@@ -20,9 +20,14 @@ Deep variants (:func:`is_deep`): where the resident kernels cannot take
 the shape — ``d > MAX_D``, or in the chain ``k > SHALLOW_MAX_K`` — the
 wrapper cuts the queries into slabs (:func:`slab_rows`) and, per slab,
 the source's ``*_deep_launch`` entries first write the score slab
-``S = Y · Qᵀ`` (``csrc/deep_gemm.cuh``: 3xTF32 over depth chunks of 32)
-into a workspace, then run the same sweep or chain on it. Below those
-limits the resident kernels run as before.
+``S = Y · Qᵀ`` (``csrc/deep_tc.cuh``: 3xTF32 on ``wgmma`` over depth
+chunks of 32) into a workspace, then run the same sweep or chain on it.
+Below those limits the resident kernels run as before.
+
+``q`` and ``y`` are float32 or both bfloat16 (``deep.operand_dtype``):
+bf16 operands are widened to f32 inside the kernels as they are staged,
+so the outputs (f32 values, int32 ids) equal the f32 launch's on the
+widened inputs bit for bit.
 """
 from __future__ import annotations
 
@@ -35,12 +40,11 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.deep import (MAX_D, SHALLOW_MAX_K, bf16_flag,
+                                      is_deep, operand_dtype, slab_rows)
 
 TILE_C = 64  # catalog rows per tile (kTileC, kTile in the sources)
 MAX_K = 1024  # kMaxK: the deep k > 32 chain's lists
-SHALLOW_MAX_K = 512  # kMaxSweepK: the sweeps' and the resident chain's
-MAX_D = 256  # kMaxD: the depth the resident kernels stage whole
-SCORE_BYTES = 1 << 30  # a deep call's score slab at most (one row if more)
 MAX_SMEM = 232448  # bytes of shared memory one block may opt in to on sm_90
 SM_SMEM = 233472  # bytes of shared memory of one SM (1 KB of it per block)
 SMALL_K = 32  # k up to this takes the tensor-core sweep
@@ -88,23 +92,6 @@ def split_bounds(c: int, n_split: int, s: int):
     tiles = -(-c // TILE_C)
     lo = s * tiles // n_split * TILE_C
     return min(lo, c), min((s + 1) * tiles // n_split * TILE_C, c)
-
-
-def is_deep(d: int, k: int) -> bool:
-    """Whether a call at depth ``d`` and list length ``k`` takes the deep
-    variant: exactly where the resident kernels cannot, ``d > MAX_D`` or
-    ``k > SHALLOW_MAX_K``."""
-    return d > MAX_D or k > SHALLOW_MAX_K
-
-
-def slab_rows(n_q: int, c: int) -> int:
-    """Query rows a deep call scores at a time: as many as keep its
-    ``(C, rows)`` f32 score slab within ``SCORE_BYTES`` (a multiple of 128
-    above 128 rows, at least one row), at most ``n_q``."""
-    rows = max(1, SCORE_BYTES // (4 * max(c, 1)))
-    if rows >= 128:
-        rows -= rows % 128
-    return min(n_q, rows)
 
 
 def partial_smem_bytes(rows_per_thread: int, d: int, k: int,
@@ -317,8 +304,7 @@ def _check(q, y, valid, k, id_offset, kcap=None):
         raise ValueError("mips_topk kernel takes CUDA tensors only")
     if q.device != y.device:
         raise ValueError(f"q on {q.device} but y on {y.device}")
-    if q.dtype != torch.float32 or y.dtype != torch.float32:
-        raise TypeError(f"mips_topk takes float32, got {q.dtype}, {y.dtype}")
+    operand_dtype("mips_topk", q, y)
     if q.ndim != 2 or y.ndim != 2 or q.shape[1] != y.shape[1]:
         raise ValueError(f"need q (n_q, d), y (C, d); got {q.shape}, {y.shape}")
     if not (q.is_contiguous() and y.is_contiguous()):
@@ -349,13 +335,13 @@ def _lib() -> ctypes.CDLL:
     stream as ``c_void_p``, ints as ``c_int``)."""
     lib = _build.load("mips_topk")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mips_topk_launch.argtypes = [p] * 9 + [i] * 9 + [p]
+    lib.mips_topk_launch.argtypes = [p] * 9 + [i] * 10 + [p]
     lib.mips_topk_launch.restype = ctypes.c_int
-    lib.mips_topk_select_launch.argtypes = [p] * 14 + [i] * 11 + [p]
+    lib.mips_topk_select_launch.argtypes = [p] * 14 + [i] * 12 + [p]
     lib.mips_topk_select_launch.restype = ctypes.c_int
-    lib.mips_topk_deep_launch.argtypes = [p] * 10 + [i] * 9 + [p]
+    lib.mips_topk_deep_launch.argtypes = [p] * 10 + [i] * 10 + [p]
     lib.mips_topk_deep_launch.restype = ctypes.c_int
-    lib.mips_topk_select_deep_launch.argtypes = [p] * 15 + [i] * 11 + [p]
+    lib.mips_topk_select_deep_launch.argtypes = [p] * 15 + [i] * 12 + [p]
     lib.mips_topk_select_deep_launch.restype = ctypes.c_int
     return lib
 
@@ -417,7 +403,8 @@ def _select_launch(q, y, k: int, vals, ids, *, valid, id_offset: int,
             count.data_ptr(), bv.data_ptr(), bi.data_ptr(),
             part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
             ids.data_ptr(), n_q, c, d, k, id_offset, sp.n_split, sp.period,
-            sp.collect_split, sp.kcap, fin.n_split, fin.split_cols, stream,
+            sp.collect_split, sp.kcap, fin.n_split, fin.split_cols,
+            bf16_flag(q.dtype), stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -433,9 +420,10 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0, kcap=None):
 
     Parameters
     ----------
-    q : (n_q, d) float32 CUDA tensor, contiguous; any d > 0 (above
-        ``MAX_D`` the deep variant, :func:`is_deep`).
-    y : (C, d) float32 CUDA tensor, contiguous (catalog, or a shard).
+    q : (n_q, d) float32 or bfloat16 CUDA tensor, contiguous; any d > 0
+        (above ``MAX_D`` the deep variant, :func:`is_deep`).
+    y : (C, d) CUDA tensor of q's dtype, contiguous (catalog, or a
+        shard).
     k : top-k size, clamped to ``C``; at most ``MAX_K`` (1024) after the
         clamp (above ``SHALLOW_MAX_K`` the deep variant).
     valid : optional (C,) contiguous bool — rows with False are never
@@ -509,7 +497,7 @@ def _sweep_launch(q, y, k: int, *, valid, id_offset: int, scores=None):
             at + 8 * nk, at + 8 * nk + 4 * ns, tau,
             tau + 4 * n_q if nu else None, at, at + 4 * nk, n_q, c, d, k,
             p.query_tiles, p.n_split,
-            p.pre_split, p.pre_period, id_offset,
+            p.pre_split, p.pre_period, id_offset, bf16_flag(q.dtype),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

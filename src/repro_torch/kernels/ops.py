@@ -10,9 +10,9 @@ the kernel guard (``kernels/guard``, policy ``REPRO_GUARD`` ∈ {off,
 warn, strict}) and then launches the hand-written kernel:
 
   * ``guard.checked_blocks`` preflights the wrapper's launch plan
-    (float32; ``d <= 256`` for the full-CE kernels, any d for the
-    others, whose deep variants take d > 256; ``k <= 512``, 1024 for
-    ``mips_topk``; its shared memory per block within 227 KB) and raises a structured ``KernelPreflightError``
+    (float32 or bfloat16; any d, the deep variants taking d > 256;
+    ``k <= 512``, 1024 for ``mips_topk``; its shared memory per block
+    within 227 KB) and raises a structured ``KernelPreflightError``
     instead of a refused launch;
   * ``guard.kernel_enabled`` consults the memoized conformance verdict
     of the kernel's group on that device (running its canaries on first

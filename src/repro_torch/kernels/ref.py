@@ -7,6 +7,14 @@ full-catalog CE with the TF32 split of its backward's inputs).
 They are the CPU path of ``kernels/ops.py`` and the yardstick the tests
 and ``chip_smoke.py`` hold each CUDA kernel against. No production path
 takes them for a CUDA tensor.
+
+bfloat16 operands compute the function the kernels compute, the
+reference's: the values widened to f32, every product accumulated in
+f32, the cotangent of the logits rounded to bf16 before its product
+(:func:`_bf16_cotangent`, the reference's ``gw.astype(tile.dtype)``),
+and the reference's output types (losses in the inputs' type; lse,
+scores, the LSE pair and ``fused_lse`` f32; gradients by autograd in the
+operands' types).
 """
 from __future__ import annotations
 
@@ -14,6 +22,29 @@ import torch
 
 from repro_torch import take_rows
 from repro_torch.kernels.topk_merge import ID_PAD, NEG_INF, merge_topk_tile
+
+
+class _RoundCotangent(torch.autograd.Function):
+    """The identity forward; backward, the cotangent rounded to bfloat16
+    (and kept in its f32 tensor)."""
+
+    @staticmethod
+    def forward(ctx, logits):
+        return logits.view_as(logits)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def _bf16_cotangent(logits, operand_dtype):
+    """``logits`` of bfloat16 operands pass their cotangent back to the
+    product rounded to bf16, as the kernels' dX / dY / dW and the
+    reference round it before the second product; other types pass it as
+    it is."""
+    if operand_dtype == torch.bfloat16 and logits.requires_grad:
+        return _RoundCotangent.apply(logits)
+    return logits
 
 
 def _masked_neg_logits(x_b, y_b, tgt_b, cand_ids, logit_softcap=None):
@@ -25,6 +56,7 @@ def _masked_neg_logits(x_b, y_b, tgt_b, cand_ids, logit_softcap=None):
     (the exact yardstick of the 3xTF32 backward), else f32."""
     dt = _ce_dtype(x_b)
     neg = torch.einsum("nxd,nyd->nxy", x_b.to(dt), y_b.to(dt))
+    neg = _bf16_cotangent(neg, x_b.dtype)
     if logit_softcap is not None:
         neg = logit_softcap * torch.tanh(neg / logit_softcap)
     collide = cand_ids[:, None, :] == tgt_b[:, :, None]
@@ -325,7 +357,7 @@ def _online_lse(x, w, chunk: int, logit_softcap=None, targets=None):
         if rows.shape[0] < chunk:
             rows = torch.cat([rows, rows.new_zeros(chunk - rows.shape[0],
                                                    rows.shape[1])])
-        logits = x32 @ rows.T  # (N, chunk)
+        logits = _bf16_cotangent(x32 @ rows.T, x.dtype)  # (N, chunk)
         capped = logits if cap is None else cap * torch.tanh(logits / cap)
         idx = torch.arange(lo, lo + chunk, device=dev)
         real = (idx < c)[None, :]
@@ -356,8 +388,9 @@ def linear_ce_loss_ref(x, w, targets, *, logit_softcap=None,
 def fused_lse_ref(x, y, *, logit_softcap=None, chunk: int = 512):
     """Full-catalog logsumexp per position, chunked over the catalog — the
     plain version of ``kernels/fused_ce.py::fused_lse`` (and, with
-    ``logit_softcap``, the lse ``linear_ce_loss_ref`` sweeps). → (N,)."""
-    return _online_lse(x, y, chunk, logit_softcap)[0].to(x.dtype)
+    ``logit_softcap``, the lse ``linear_ce_loss_ref`` sweeps). → (N,) f32
+    (f64 for f64 ``x``), as the reference's kernel returns it."""
+    return _online_lse(x, y, chunk, logit_softcap)[0]
 
 
 def fused_ce_loss_ref(x, y, targets, *, chunk: int = 512):
@@ -380,7 +413,8 @@ def _ce_cotangent_chunks(x, w, targets, lse, g, logit_softcap, chunk):
     """Per catalog chunk ``(lo, rows, gw)``: the chunk's rows of ``w`` in
     the working type and ``gw = (exp(l − lse) − onehot(targets))·
     (1 − (l/cap)²)·g`` over its capped logits ``l`` (no one-hot when
-    ``targets`` is None, no cap factor without a cap)."""
+    ``targets`` is None, no cap factor without a cap), rounded to bf16 for
+    bfloat16 operands."""
     c = w.shape[0]
     chunk = max(1, min(chunk, c))
     dt = _ce_dtype(x)
@@ -399,7 +433,10 @@ def _ce_cotangent_chunks(x, w, targets, lse, g, logit_softcap, chunk):
             p = p - (idx[None, :] == tid).to(dt)
         if cap is not None:
             p = p * (1.0 - (capped / cap) ** 2)
-        yield lo, rows, p * g32
+        gw = p * g32
+        if x.dtype == torch.bfloat16:
+            gw = gw.to(torch.bfloat16).to(dt)
+        yield lo, rows, gw
 
 
 def linear_ce_dx_ref(x, w, targets, lse, g, *, logit_softcap=None,
@@ -458,8 +495,10 @@ def deep_tc_ref(a, b, *, a_km=False, b_kn=False, idx=None, out=None,
                 m_zero=None):
     """The plain version of ``linear_sce.deep_tc_product`` (the arguments
     as there): the same batched product ``A · Bᵀ`` in the working type of
-    ``a`` (f32; f64 for f64 inputs), B's rows gathered by clamped id,
-    zeroed rows, ``out + C`` when ``out`` is given (a new tensor)."""
+    ``a`` (f32, bf16 widened; f64 for f64 inputs), B's rows gathered by
+    clamped id, zeroed rows, ``out + C`` when ``out`` is given (a new
+    tensor)."""
+    a = a.to(_ce_dtype(a))
     a_ = a.transpose(1, 2) if a_km else a
     if idx is not None:
         rows = b[idx.long().clamp(0, b.shape[0] - 1)]  # (T, N|K, K|N)

@@ -24,7 +24,10 @@ kernels are ``kernels/sce_prefetch.py``'s (the same template with
 autograd, as ``sce_prefetch.py``'s classes do; the positive's cotangent
 is ``d_pos = (exp(pos − lse) − 1)·g``. The wrappers take CUDA tensors
 only; the CPU paths are ``kernels/ref.py::sce_bucket_loss_ref`` and
-``sce_bucket_plse_ref``, chosen by ``kernels/ops.py``.
+``sce_bucket_plse_ref``, chosen by ``kernels/ops.py``. Operand and output
+types as ``sce_prefetch.py``'s: ``x_b`` and ``y_b`` float32 or both
+bfloat16, loss in ``pos_logit``'s type, lse and plse f32, dX and dY in
+the operands' types.
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.sce_prefetch import _cap, _logits_ws, is_deep
+from repro_torch.kernels.deep import (bf16_flag, f32_like, f32_rows,
+                                      is_deep, operand_dtype)
+from repro_torch.kernels.sce_prefetch import _cap, _logits_ws
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,15 +52,16 @@ def _lib() -> ctypes.CDLL:
     for name in ("sce_bucket_fwd_launch", "sce_bucket_dx_launch",
                  "sce_bucket_dy_launch"):
         fn = getattr(lib, name)
-        fn.argtypes = [p] * 7 + [i] * 4 + [f, p]
+        fn.argtypes = [p] * 7 + [i] * 4 + [f, i, p]
         fn.restype = ctypes.c_int
-    lib.sce_bucket_plse_fwd_launch.argtypes = [p] * 5 + [i] * 4 + [f, p]
+    lib.sce_bucket_plse_fwd_launch.argtypes = [p] * 5 + [i] * 4 + [f, i, p]
     lib.sce_bucket_plse_fwd_launch.restype = ctypes.c_int
-    lib.sce_bucket_fwd_deep_launch.argtypes = [p] * 8 + [i] * 4 + [f, p]
+    lib.sce_bucket_fwd_deep_launch.argtypes = [p] * 8 + [i] * 4 + [f, i, p]
     lib.sce_bucket_fwd_deep_launch.restype = ctypes.c_int
-    lib.sce_bucket_bwd_deep_launch.argtypes = [p] * 9 + [i] * 4 + [f, p]
+    lib.sce_bucket_bwd_deep_launch.argtypes = [p] * 9 + [i] * 4 + [f, i, p]
     lib.sce_bucket_bwd_deep_launch.restype = ctypes.c_int
-    lib.sce_bucket_plse_fwd_deep_launch.argtypes = [p] * 6 + [i] * 4 + [f, p]
+    lib.sce_bucket_plse_fwd_deep_launch.argtypes = ([p] * 6 + [i] * 4
+                                                    + [f, i, p])
     lib.sce_bucket_plse_fwd_deep_launch.restype = ctypes.c_int
     return lib
 
@@ -69,8 +75,9 @@ def _check(x_b, y_b, tgt_b, cand_ids, *rows):
         raise ValueError("sce_bucket kernels take CUDA tensors only")
     if any(t.device != x_b.device for t in tensors):
         raise ValueError("sce_bucket inputs lie on different devices")
-    if any(t.dtype != torch.float32 for t in (x_b, y_b) + rows):
-        raise TypeError("sce_bucket takes float32 x_b, y_b, pos/lse and g")
+    operand_dtype("sce_bucket", x_b, y_b)
+    if any(t.dtype != torch.float32 for t in rows):
+        raise TypeError("sce_bucket takes float32 pos/lse and g")
     if any(t.dtype != torch.int32 for t in (tgt_b, cand_ids)):
         raise TypeError("sce_bucket takes int32 tgt_b and cand_ids")
     if x_b.ndim != 3 or y_b.ndim != 3 or x_b.shape[0] != y_b.shape[0] \
@@ -111,7 +118,7 @@ def _launch(name, args, shape, device):
         err = getattr(_lib(), name)(
             *[a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args[:-1]],
-            n_b, b_x, b_y, d, args[-1], stream,
+            n_b, b_x, b_y, d, args[-1], bf16_flag(args[0].dtype), stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} failed: cudaError {err} (n_b={n_b}, "
@@ -120,17 +127,19 @@ def _launch(name, args, shape, device):
 
 def sce_bucket_fwd(x_b, y_b, tgt_b, cand_ids, pos_logit, *,
                    logit_softcap=None):
-    """Forward kernel: ``(loss, lse)``, each (n_b, b_x) f32. ``pos_logit``
-    arrives already capped; ``logit_softcap`` caps the in-bucket logits
-    before the mask. Matches ``ref.sce_bucket_loss_ref``."""
-    shape = _check(x_b, y_b, tgt_b, cand_ids, pos_logit)
-    loss = torch.empty_like(pos_logit)
-    lse = torch.empty_like(pos_logit)
+    """Forward kernel: ``(loss, lse)``, each (n_b, b_x): loss in
+    ``pos_logit``'s type, lse f32. ``pos_logit`` arrives already capped;
+    ``logit_softcap`` caps the in-bucket logits before the mask. Matches
+    ``ref.sce_bucket_loss_ref``."""
+    pos, = f32_rows(pos_logit)
+    shape = _check(x_b, y_b, tgt_b, cand_ids, pos)
+    loss = torch.empty_like(pos)
+    lse = torch.empty_like(pos)
     _launch_fwd("sce_bucket_fwd_launch",
-                (x_b, y_b, tgt_b, cand_ids, pos_logit, loss, lse,
+                (x_b, y_b, tgt_b, cand_ids, pos, loss, lse,
                  _cap(logit_softcap)), shape, x_b.device)
     sce_bucket_fwd.launches += 1
-    return loss, lse
+    return loss.to(pos_logit.dtype), lse
 
 
 def _bwd(x_b, y_b, tgt_b, cand_ids, lse, g, cap, want_dx, want_dy):
@@ -138,10 +147,10 @@ def _bwd(x_b, y_b, tgt_b, cand_ids, lse, g, cap, want_dx, want_dy):
     :func:`sce_bucket_dx` / :func:`sce_bucket_dy`. At ``d ≤ MAX_D`` the
     resident dX and dY kernels, a launch each; above, one deep launch
     that writes the logits' cotangent once and runs both products from
-    it."""
+    it. Both computed in f32, returned in ``x_b``'s and ``y_b``'s types."""
+    lse, g = f32_rows(lse, g)
     shape = _check(x_b, y_b, tgt_b, cand_ids, lse, g)
-    dx = torch.empty_like(x_b) if want_dx else None
-    dy = torch.empty_like(y_b) if want_dy else None
+    dx, dy = f32_like(x_b, want_dx), f32_like(y_b, want_dy)
     head, cap = (x_b, y_b, tgt_b, cand_ids, lse, g), _cap(cap)
     if is_deep(shape[-1]):
         _launch("sce_bucket_bwd_deep_launch",
@@ -156,7 +165,8 @@ def _bwd(x_b, y_b, tgt_b, cand_ids, lse, g, cap, want_dx, want_dy):
                     x_b.device)
     sce_bucket_dx.launches += want_dx
     sce_bucket_dy.launches += want_dy
-    return dx, dy
+    return (None if dx is None else dx.to(x_b.dtype),
+            None if dy is None else dy.to(y_b.dtype))
 
 
 def sce_bucket_dx(x_b, y_b, tgt_b, cand_ids, lse, g, *, logit_softcap=None):
@@ -179,7 +189,7 @@ def sce_bucket_plse_fwd(x_b, y_b, tgt_b, cand_ids, *, logit_softcap=None):
     candidate masked is ``NEG_INF`` (−1e30), never ``−inf``. Matches
     ``ref.sce_bucket_plse_ref``."""
     shape = _check(x_b, y_b, tgt_b, cand_ids)
-    plse = torch.empty(x_b.shape[:2], dtype=torch.float32,
+    plse = torch.empty(tuple(x_b.shape[:2]), dtype=torch.float32,
                        device=x_b.device)
     _launch_fwd("sce_bucket_plse_fwd_launch",
                 (x_b, y_b, tgt_b, cand_ids, plse, _cap(logit_softcap)),
@@ -213,7 +223,8 @@ class SCEBucketLoss(torch.autograd.Function):
         cap = ctx.logit_softcap
         need = ctx.needs_input_grad
         dx, dy = _bwd(*args, cap, need[0], need[1])
-        d_pos = (torch.exp(pos_logit - lse) - 1.0) * g if need[4] else None
+        d_pos = (((torch.exp(pos_logit.float() - lse) - 1.0) * g.float())
+                 .to(pos_logit.dtype) if need[4] else None)
         return dx, dy, None, None, d_pos, None
 
 

@@ -46,6 +46,16 @@ product over depth chunks of 32, then folded (the forward), or, in one
 backward launch, recomputed with the same product, turned into the
 cotangent once and multiplied back into dX and dY's slot rows — both
 from that one cotangent when autograd needs both.
+
+``x_b`` and ``y`` are float32 or both bfloat16 (``deep.operand_dtype``),
+as the reference's kernels take them: bf16 operands are read as stored
+and widened to f32 inside the kernels, every product accumulates in f32,
+and dX and dY round their cotangent to bf16 before the second product
+(the reference's ``gw.astype(tile.dtype)``). The outputs keep the
+reference's types: loss in ``pos_logit``'s, lse and plse f32, dX in
+``x_b``'s and dY in ``y``'s — accumulated in f32 (the gathered dY's
+workspace and in-order sum too) and rounded once at the end. The
+per-row inputs (``pos_logit``, ``g``) go to the kernels as f32.
 """
 from __future__ import annotations
 
@@ -55,9 +65,11 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.linear_sce import DEEP_SMEM, MAX_SMEM, padded_depth
+from repro_torch.kernels.deep import (DEEP_SMEM, MAX_D, bf16_flag,
+                                      f32_like, f32_rows, is_deep,
+                                      operand_dtype)
+from repro_torch.kernels.linear_sce import MAX_SMEM, padded_depth
 
-MAX_D = 256  # kMaxD in csrc/tf32x3_tile.cuh: above it, the deep variant
 STREAM_ROWS = 32  # kStreamRows: rows of a streamed backward tile
 STAGES = 3  # kStages: the backward's raw ring
 
@@ -131,12 +143,6 @@ def library_bwd_plan(d: int):
     return warps.value, smem
 
 
-def is_deep(d: int) -> bool:
-    """Whether depth ``d`` takes the deep variant: exactly where the
-    resident kernels cannot, ``d > MAX_D``."""
-    return d > MAX_D
-
-
 def planned_smem(d: int) -> int:
     """Shared memory per block of the largest launch at depth d: the
     forward's (:func:`fwd_plan`) or dX / dY's (:func:`bwd_plan`), or the
@@ -156,9 +162,9 @@ def _lib() -> ctypes.CDLL:
     for name in ("sce_gather_fwd_launch", "sce_gather_dx_launch",
                  "sce_gather_dy_launch"):
         fn = getattr(lib, name)
-        fn.argtypes = [p] * 8 + [i] * 5 + [f, p]
+        fn.argtypes = [p] * 8 + [i] * 5 + [f, i, p]
         fn.restype = ctypes.c_int
-    lib.sce_gather_plse_fwd_launch.argtypes = [p] * 6 + [i] * 5 + [f, p]
+    lib.sce_gather_plse_fwd_launch.argtypes = [p] * 6 + [i] * 5 + [f, i, p]
     lib.sce_gather_plse_fwd_launch.restype = ctypes.c_int
     lib.sce_gather_bwd_plan.argtypes = [i, p]
     lib.sce_gather_bwd_plan.restype = ctypes.c_int
@@ -166,11 +172,12 @@ def _lib() -> ctypes.CDLL:
     lib.sce_gather_fwd_plan.restype = ctypes.c_int
     lib.sce_gather_dy_sum_launch.argtypes = [p] * 4 + [i] * 3 + [p]
     lib.sce_gather_dy_sum_launch.restype = ctypes.c_int
-    lib.sce_gather_fwd_deep_launch.argtypes = [p] * 9 + [i] * 5 + [f, p]
+    lib.sce_gather_fwd_deep_launch.argtypes = [p] * 9 + [i] * 5 + [f, i, p]
     lib.sce_gather_fwd_deep_launch.restype = ctypes.c_int
-    lib.sce_gather_bwd_deep_launch.argtypes = [p] * 10 + [i] * 5 + [f, p]
+    lib.sce_gather_bwd_deep_launch.argtypes = [p] * 10 + [i] * 5 + [f, i, p]
     lib.sce_gather_bwd_deep_launch.restype = ctypes.c_int
-    lib.sce_gather_plse_fwd_deep_launch.argtypes = [p] * 7 + [i] * 5 + [f, p]
+    lib.sce_gather_plse_fwd_deep_launch.argtypes = ([p] * 7 + [i] * 5
+                                                    + [f, i, p])
     lib.sce_gather_plse_fwd_deep_launch.restype = ctypes.c_int
     return lib
 
@@ -178,14 +185,15 @@ def _lib() -> ctypes.CDLL:
 def _check(x_b, y, idx_y, tgt_b, cand_ids, *rows):
     """Device, type, shape and contiguity of one call; returns
     ``(n_b, b_x, b_y, C, d)``. ``rows`` are the (n_b, b_x) f32 inputs
-    (``pos`` or ``lse`` and ``g``)."""
+    (``pos`` or ``lse`` and ``g``, as ``deep.f32_rows`` passes them)."""
     tensors = (x_b, y, idx_y, tgt_b, cand_ids) + rows
     if not all(t.is_cuda for t in tensors):
         raise ValueError("sce_gather kernels take CUDA tensors only")
     if any(t.device != x_b.device for t in tensors):
         raise ValueError("sce_gather inputs lie on different devices")
-    if any(t.dtype != torch.float32 for t in (x_b, y) + rows):
-        raise TypeError("sce_gather takes float32 x_b, y, pos/lse and g")
+    operand_dtype("sce_gather", x_b, y)
+    if any(t.dtype != torch.float32 for t in rows):
+        raise TypeError("sce_gather takes float32 pos/lse and g")
     if any(t.dtype != torch.int32 for t in (idx_y, tgt_b, cand_ids)):
         raise TypeError("sce_gather takes int32 idx_y, tgt_b and cand_ids")
     if x_b.ndim != 3 or y.ndim != 2 or x_b.shape[2] != y.shape[1]:
@@ -231,13 +239,15 @@ def _launch_fwd(name, args, shape, device):
 
 
 def _launch(name, args, shape, device):
+    """``args``: the pointers' tensors (x_b first, whose type is the
+    operands'), then the cap."""
     n_b, b_x, b_y, c, d = shape
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(_lib(), name)(
             *[a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args[:-1]],
-            n_b, b_x, b_y, c, d, args[-1], stream,
+            n_b, b_x, b_y, c, d, args[-1], bf16_flag(args[0].dtype), stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -248,17 +258,19 @@ def _launch(name, args, shape, device):
 
 def sce_gather_fwd(x_b, y, idx_y, tgt_b, cand_ids, pos_logit, *,
                    logit_softcap=None):
-    """Forward kernel: ``(loss, lse)``, each (n_b, b_x) f32. ``pos_logit``
-    arrives already capped; ``logit_softcap`` caps the in-bucket logits
-    before the mask. Matches ``ref.sce_gather_loss_ref``."""
-    shape = _check(x_b, y, idx_y, tgt_b, cand_ids, pos_logit)
-    loss = torch.empty_like(pos_logit)
-    lse = torch.empty_like(pos_logit)
+    """Forward kernel: ``(loss, lse)``, each (n_b, b_x): loss in
+    ``pos_logit``'s type, lse f32. ``pos_logit`` arrives already capped;
+    ``logit_softcap`` caps the in-bucket logits before the mask. Matches
+    ``ref.sce_gather_loss_ref``."""
+    pos, = f32_rows(pos_logit)
+    shape = _check(x_b, y, idx_y, tgt_b, cand_ids, pos)
+    loss = torch.empty_like(pos)
+    lse = torch.empty_like(pos)
     _launch_fwd("sce_gather_fwd_launch",
-                (x_b, y, idx_y, tgt_b, cand_ids, pos_logit, loss, lse,
+                (x_b, y, idx_y, tgt_b, cand_ids, pos, loss, lse,
                  _cap(logit_softcap)), shape, x_b.device)
     sce_gather_fwd.launches += 1
-    return loss, lse
+    return loss.to(pos_logit.dtype), lse
 
 
 def _bwd(x_b, y, idx_y, tgt_b, cand_ids, lse, g, cap, want_dx, want_dy):
@@ -267,10 +279,12 @@ def _bwd(x_b, y, idx_y, tgt_b, cand_ids, lse, g, cap, want_dx, want_dy):
     exact 0 row for a negative id), then :func:`sce_gather_dy_sum` into
     the zeroed ``(C, d)``. At ``d ≤ MAX_D`` the resident dX and dY
     kernels, a launch each; above, one deep launch that writes the
-    logits' cotangent once and runs both products from it."""
+    logits' cotangent once and runs both products from it. Both are
+    computed in f32 and returned in ``x_b``'s and ``y``'s types."""
+    lse, g = f32_rows(lse, g)
     shape = _check(x_b, y, idx_y, tgt_b, cand_ids, lse, g)
     n_b, _, b_y, c, d = shape
-    dx = torch.empty_like(x_b) if want_dx else None
+    dx = f32_like(x_b, want_dx)
     ws = (torch.empty(n_b * b_y, d, dtype=torch.float32, device=x_b.device)
           if want_dy else None)
     head, cap = (x_b, y, idx_y, tgt_b, cand_ids, lse, g), _cap(cap)
@@ -286,8 +300,11 @@ def _bwd(x_b, y, idx_y, tgt_b, cand_ids, lse, g, cap, want_dx, want_dy):
             _launch("sce_gather_dy_launch", head + (ws, cap), shape,
                     x_b.device)
     dy = (sce_gather_dy_sum(ws, *dy_sum_keys(idx_y, cand_ids, c),
-                            torch.zeros_like(y)) if want_dy else None)
-    return dx, dy
+                            torch.zeros(y.shape, dtype=torch.float32,
+                                        device=y.device))
+          if want_dy else None)
+    return (None if dx is None else dx.to(x_b.dtype),
+            None if dy is None else dy.to(y.dtype))
 
 
 def _grads(dx_fn, dy_fn, args, cap, want_dx, want_dy):
@@ -380,7 +397,7 @@ def sce_gather_plse_fwd(x_b, y, idx_y, tgt_b, cand_ids, *,
     candidate masked is ``NEG_INF`` (−1e30), never ``−inf``. Matches
     ``ref.sce_gather_plse_ref``."""
     shape = _check(x_b, y, idx_y, tgt_b, cand_ids)
-    plse = torch.empty(x_b.shape[:2], dtype=torch.float32,
+    plse = torch.empty(tuple(x_b.shape[:2]), dtype=torch.float32,
                        device=x_b.device)
     _launch_fwd("sce_gather_plse_fwd_launch",
                 (x_b, y, idx_y, tgt_b, cand_ids, plse, _cap(logit_softcap)),
@@ -436,7 +453,8 @@ class SCEGatherLoss(torch.autograd.Function):
         need = ctx.needs_input_grad
         dx, dy = _grads(sce_gather_dx, sce_gather_dy, args, cap, need[0],
                         need[1])
-        d_pos = (torch.exp(pos_logit - lse) - 1.0) * g if need[5] else None
+        d_pos = (((torch.exp(pos_logit.float() - lse) - 1.0) * g.float())
+                 .to(pos_logit.dtype) if need[5] else None)
         return dx, dy, None, None, None, d_pos, None
 
 

@@ -22,6 +22,13 @@ LAYER_KEYS = (
 
 
 def _tensor(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of its type; a bfloat16 leaf (numpy's
+    ``ml_dtypes`` type, which torch cannot read) through its exact f32
+    values."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 

@@ -80,8 +80,8 @@ library's at every depth; and an lse more than 44 below a logit, where
 the kernels cap exp's argument (their one deviation from the plain
 version), holds the capped formula.
 
-The deep variants' product (``csrc/deep_tc.cuh``, behind every deep SCE
-and full-CE entry): in each of its 16 operand options (A M-major, B
+The deep variants' product (``csrc/deep_tc.cuh``, behind every deep
+entry: the score slabs, SCE and the full CE): in each of its 16 operand options (A M-major, B
 N-major, B gathered by a clamped id, the accumulate epilogue; zeroed rows
 with A M-major) at ragged shapes, K = 37 among them, within
 ``1e-5·max|C| + 2e-4·|C|`` of the plain version in f64, and a second
@@ -104,6 +104,19 @@ self-column rule; ``eval_tgt_scores`` is bit for bit the column
 The kernel guard: every conformance canary passes on the card, and a
 broken kernel raises ``KernelConformanceError`` under ``warn``.
 
+bfloat16 operands (every family, resident and deep): ``mips_topk``
+(k ≤ 32, the k > 32 chain, deep slabs at gemma-2's d 2304 and k 1024),
+``eval_fused`` / ``eval_tgt_gather`` / ``eval_topk`` / ``eval_tgt_scores``,
+the SCE and partial-LSE forwards (gathered and direct) and the full-CE
+forwards on bf16 inputs equal the f32 kernels on the widened inputs bit
+for bit and repeat; the backwards (SCE loss, partial LSE, ``sce_bucket``,
+``linear_ce_loss``, ``fused_lse``) come out in the operands' type within
+``3e-2`` of the largest value of the plain versions, which round the
+cotangent to bf16 as the kernels do, and repeat bit for bit;
+``deep_tc.cuh``'s one TF32 pass on bf16 operands equals its three passes
+on the widened ones in every orientation the slabs and gradients use; a
+bf16 / f32 mix, float16 and float64 raise ``TypeError``.
+
 Checkpoints: a train state restored onto ``cuda`` keeps the CUDA
 generator's state, so the next Mix Ω draw (``make_bucket_centers``)
 equals the uninterrupted generator's bit for bit, and its params and
@@ -119,7 +132,7 @@ import torch
 
 from repro_torch.kernels import eval_fused as eval_kernel
 from repro_torch.kernels import eval_topk as topk_kernel
-from repro_torch.kernels import fused_ce, guard, linear_sce
+from repro_torch.kernels import deep, fused_ce, guard, linear_sce
 from repro_torch.kernels import mips_topk as kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sce_bucket, sce_prefetch
@@ -882,8 +895,10 @@ def test_eval_kernels_raise_on_what_they_do_not_take(dev):
         eval_kernel.eval_fused(x.cpu(), y.cpu(), t.cpu(), 3)
     with pytest.raises(ValueError):
         eval_kernel.eval_fused(x, y.cpu(), t, 3)
-    with pytest.raises(ValueError):
+    with pytest.raises(TypeError):  # f64 (f32 or bf16 operands only)
         eval_kernel.eval_fused(x.double(), y.double(), t, 3)
+    with pytest.raises(TypeError):  # a bf16 / f32 mix
+        eval_kernel.eval_fused(x.bfloat16(), y, t, 3)
     with pytest.raises(ValueError):
         eval_kernel.eval_fused(x, y, t.long(), 3)
     with pytest.raises(ValueError):
@@ -1623,12 +1638,12 @@ def test_train_state_restores_onto_cuda_with_the_generator(dev, tmp_path):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("k", [10, 320, 1_024])
 def test_deep_mips_topk_in_several_slabs_matches_plain(dev, monkeypatch, k):
-    """The queries in slabs of 16 rows (``SCORE_BYTES`` patched down): the
+    """The queries in slabs of 16 rows (``deep.SLAB_BYTES`` patched down): the
     ids and values equal the plain version's bit for bit on integers, and
     each slab's collect counts land in ``last_counts``."""
     g = _gen(dev, k)
     q, y = _ints(g, dev, 70, 300), _ints(g, dev, 3_000, 300)
-    monkeypatch.setattr(kernel, "SCORE_BYTES", 4 * 3_000 * 16)
+    monkeypatch.setattr(deep, "SLAB_BYTES", 4 * 3_000 * 16)
     assert kernel.slab_rows(70, 3_000) == 16
     got = ops.mips_topk(q, y, k)
     torch.cuda.synchronize()
@@ -1642,7 +1657,7 @@ def test_deep_eval_fused_in_several_slabs_matches_plain(dev, monkeypatch):
     30 (the token-rank protocol): ids, counts and the threshold equal the
     plain version's bit for bit on integers, the LSE within 1e-5."""
     x, y, t = _eval_problem(dev, 5, 50, 2_000, 2_304, True, 0, 1, 1_990)
-    monkeypatch.setattr(kernel, "SCORE_BYTES", 4 * 2_000 * 16)
+    monkeypatch.setattr(deep, "SLAB_BYTES", 4 * 2_000 * 16)
     kw = dict(c_lo=1, c_hi=1_990, logit_softcap=30.0, with_lse=True)
     got = ops.eval_fused(x, y, t, 1, **kw)
     want = ref.eval_fused_ref(x, y, t, 1, **kw)
@@ -1756,10 +1771,10 @@ def test_deep_tc_product_matches_plain(dev, m, n, k, a_km, b_kn, gather,
 
 
 def _deep_ce(dev, monkeypatch, n, c, d, chunk):
-    """A deep full-CE problem in several catalog chunks (``SLAB_BYTES``
+    """A deep full-CE problem in several catalog chunks (``deep.SLAB_BYTES``
     patched down to ``chunk`` rows, the last ragged) with a target in the
     last chunk and, at rows 1 and 2, targets outside ``[0, C)``."""
-    monkeypatch.setattr(linear_sce, "SLAB_BYTES", 4 * n * chunk)
+    monkeypatch.setattr(deep, "SLAB_BYTES", 4 * n * chunk)
     assert linear_sce.deep_chunk(n, c) == chunk and c % chunk
     x, w, t, gr = _ce_problem(dev, n + c + d, n, c, d, zero_rows=True)
     t[0] = c - 1
@@ -1825,3 +1840,271 @@ def test_deep_full_ce_repeats_bit_for_bit(dev, monkeypatch):
             pair, linear_sce._bwd_deep(x, w, pl, lse, gr, None, True, True)))
         assert torch.equal(pair[0], linear_sce._dx(x, w, pl, lse, gr, None))
         assert torch.equal(pair[1], linear_sce._dw(x, w, pl, lse, gr, None))
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 operands: every family, resident and deep
+# ---------------------------------------------------------------------------
+def _bf16(*ts):
+    """The tensors rounded to bfloat16 (the bf16 operands) and their
+    widened f32 copies (what the f32 kernels get)."""
+    bf = tuple(t.to(torch.bfloat16) for t in ts)
+    return bf, tuple(t.float() for t in bf)
+
+
+def _close_bf16(got, want):
+    """A bf16 output against the plain version's: the type, and within
+    the reference's bf16 tolerance (``tests/test_kernels.py``: 3e-2) of
+    the largest value — one rounding of an f32 sum, and a cotangent
+    rounded to bf16 on either side of a tie."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.double(), want.double()
+    assert torch.isfinite(g).all()
+    assert ((g - w).abs() <= 3e-2 * w.abs().max().item()).all(), \
+        (g - w).abs().max().item()
+
+
+@pytest.mark.parametrize("n_q,c,d,k", [
+    (8, 5_000, 64, 10),      # the tensor-core sweep, pre-pass
+    (33, 4_100, 64, 10),
+    (37, 1_100, 33, 10),     # d % 4 != 0: 2-byte loads
+    (40, 3_000, 64, 320),    # the k > 32 chain
+    (20, 2_000, 64, 512),
+    (33, 3_000, 300, 10),    # deep: the slab on deep_tc, then the sweep
+    (20, 4_096, 2_304, 128),  # gemma-2's positions selection
+    (12, 5_000, 2_304, 1_024),  # ... and its vocabulary selection
+    (16, 3_000, 64, 1_024),  # the deep chain at a resident depth
+])
+def test_bf16_mips_topk_equals_f32_on_widened_inputs(dev, n_q, c, d, k):
+    """bf16 q and y: values and ids equal the f32 kernel's on the widened
+    inputs bit for bit (each value exact in f32 and TF32, each product
+    exact in f32), a second launch repeats them, and the plain version on
+    the bf16 inputs agrees within 1e-5 of the largest score."""
+    g = _gen(dev, n_q + c + d + k)
+    (q, y), (qw, yw) = _bf16(torch.randn(n_q, d, generator=g, device=dev),
+                             torch.randn(c, d, generator=g, device=dev))
+    vm = torch.rand(c, generator=g, device=dev) > 0.2
+    got = kernel.mips_topk(q, y, k, valid=vm)
+    want = kernel.mips_topk(qw, yw, k, valid=vm)
+    again = kernel.mips_topk(q, y, k, valid=vm)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    for a, b, c_ in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c_)
+    _assert_match(got, ref.mips_topk_ref(q, y, k, valid=vm),
+                  (qw @ yw.T).abs().max().item(), False)
+
+
+@pytest.mark.parametrize("n,c,d,k,cap,deep_", [
+    (128, 20_000, 64, 10, 30.0, False),
+    (40, 1_037, 33, 17, None, False),
+    (40, 3_000, 300, 10, 30.0, True),
+    (64, 5_000, 2_304, 1, 30.0, True),  # token rank
+])
+def test_bf16_eval_equals_f32_on_widened_inputs(dev, n, c, d, k, cap, deep_):
+    """eval_fused (vals, ids, gt, eq, tgt and the LSE pair),
+    eval_tgt_gather, eval_topk and eval_tgt_scores on bf16 x and y equal
+    the f32 kernels on the widened inputs bit for bit, and repeat."""
+    x, y, t = _eval_problem(dev, n + c, n, c, d, False, 0, 1, c - 10)
+    (x, y), (xw, yw) = _bf16(x, y)
+    kw = dict(c_lo=1, c_hi=c - 10, logit_softcap=cap, with_lse=True)
+    got = eval_kernel.eval_fused(x, y, t, k, **kw)
+    want = eval_kernel.eval_fused(xw, yw, t, k, **kw)
+    again = eval_kernel.eval_fused(x, y, t, k, **kw)
+    assert torch.equal(eval_kernel.eval_tgt_gather(x, y, t), got[4])
+    tk = topk_kernel.eval_topk(x, y, got[4], k, c_lo=1, c_hi=c - 10)
+    tk_w = topk_kernel.eval_topk(xw, yw, want[4], k, c_lo=1, c_hi=c - 10)
+    ts = topk_kernel.eval_tgt_scores(x, y, t)
+    torch.cuda.synchronize()
+    for a, b, c_ in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c_)
+    for a, b in zip(tk, tk_w):
+        assert torch.equal(a, b)
+    assert torch.equal(ts, topk_kernel.eval_tgt_scores(xw, yw, t))
+    assert eval_kernel.eval_fused.launches > 0
+
+
+@pytest.mark.parametrize("shape,cap", [
+    ((3, 100, 50, 16, 257), None),
+    ((5, 23, 50, 36, 300), 30.0),
+    ((2, 33, 100, 2_304, 400), 30.0),  # deep
+])
+def test_bf16_sce_forwards_equal_f32_on_widened_inputs(dev, shape, cap):
+    """The gathered and direct SCE forwards and partial LSEs on bf16 x_b
+    and y: the lse / plse equal the f32 kernels' on the widened inputs bit
+    for bit, the loss is their f32 loss rounded to bf16 (pos_logit's
+    type), and a second launch repeats them."""
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, sum(shape), *shape)
+    (x_b, y, pos), (xw, yw, pw) = _bf16(x_b, y, pos)
+    kw = dict(logit_softcap=cap)
+    got = sce_prefetch.sce_gather_fwd(x_b, y, idx, tgt, cand, pos, **kw)
+    want = sce_prefetch.sce_gather_fwd(xw, yw, idx, tgt, cand, pw, **kw)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0].to(torch.bfloat16))
+    again = sce_prefetch.sce_gather_fwd(x_b, y, idx, tgt, cand, pos, **kw)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    plse = sce_prefetch.sce_gather_plse_fwd(x_b, y, idx, tgt, cand, **kw)
+    assert torch.equal(plse, sce_prefetch.sce_gather_plse_fwd(
+        xw, yw, idx, tgt, cand, **kw))
+    y_b = y[idx.long().clamp(0, y.shape[0] - 1)].contiguous()
+    yw_b = yw[idx.long().clamp(0, y.shape[0] - 1)].contiguous()
+    b_got = sce_bucket.sce_bucket_fwd(x_b, y_b, tgt, cand, pos, **kw)
+    b_want = sce_bucket.sce_bucket_fwd(xw, yw_b, tgt, cand, pw, **kw)
+    assert torch.equal(b_got[1], b_want[1])
+    assert torch.equal(b_got[0], b_want[0].to(torch.bfloat16))
+    assert torch.equal(
+        sce_bucket.sce_bucket_plse_fwd(x_b, y_b, tgt, cand, **kw),
+        sce_bucket.sce_bucket_plse_fwd(xw, yw_b, tgt, cand, **kw))
+    _close_bf16(got[0], ref.sce_gather_loss_ref(x_b, y, idx, tgt, cand, pos,
+                                                cap))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape,cap", [
+    ((3, 100, 50, 16, 257), None),
+    ((5, 23, 50, 36, 300), 30.0),
+    ((4, 70, 64, 64, 200), None),
+    ((2, 33, 100, 2_304, 400), 30.0),  # deep: one backward launch
+    ((2, 16, 24, 2_304, 50), None),
+])
+def test_bf16_sce_backwards_match_plain(dev, shape, cap):
+    """Autograd through the SCE loss, the partial LSE and their sce_bucket
+    twins on bf16 leaves: gradients in the leaves' types, within the bf16
+    tolerance of the plain versions (which round the cotangent to bf16 as
+    the kernels and the reference do), and repeating bit for bit."""
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, sum(shape) + 1,
+                                                  *shape)
+    x_b = x_b * 3.0
+    (x_b, y, pos), _ = _bf16(x_b, y, pos)
+    up = torch.rand(pos.shape, generator=_gen(dev, 5), device=dev)
+
+    def grads(fn, leaves, *rest):
+        ls = [t.clone().requires_grad_(True) for t in leaves]
+        out = fn(*ls[:2], *rest, *ls[2:])
+        return out, torch.autograd.grad((out.float() * up).sum(), ls)
+
+    y_b = y[idx.long().clamp(0, y.shape[0] - 1)].contiguous()
+    cases = (
+        (lambda a, b, *r: ops.sce_gather_loss(a, b, *r, logit_softcap=cap),
+         lambda a, b, *r: ref.sce_gather_loss_ref(a, b, *r, cap),
+         (x_b, y, pos), (idx, tgt, cand)),
+        (lambda a, b, *r: ops.sce_gather_plse(a, b, *r, logit_softcap=cap),
+         lambda a, b, *r: ref.sce_gather_plse_ref(a, b, *r, cap),
+         (x_b, y), (idx, tgt, cand)),
+        (lambda a, b, *r: ops.sce_bucket_loss(a, b, *r, logit_softcap=cap),
+         lambda a, b, *r: ref.sce_bucket_loss_ref(a, b, *r, cap),
+         (x_b, y_b, pos), (tgt, cand)),
+    )
+    for fn, plain, leaves, rest in cases:
+        out, got = grads(fn, leaves, *rest)
+        _, again = grads(fn, leaves, *rest)
+        want_out, want = grads(plain, leaves, *rest)
+        _close_bf16(out.detach(), want_out.detach())
+        for a, b, c_ in zip(got, want, again):
+            assert a.dtype == torch.bfloat16
+            _close_bf16(a, b)
+            assert torch.equal(a, c_)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n,c,d,cap", [
+    (300, 5_000, 64, 30.0),     # resident: planes with lo 0
+    (129, 3_001, 40, None),
+    (70, 1_037, 288, None),     # deep
+    (33, 2_000, 2_304, 30.0),
+])
+def test_bf16_full_ce_matches(dev, n, c, d, cap):
+    """linear_ce_loss and fused_lse on bf16 x and w: the forward's lse
+    equals the f32 kernel's on the widened inputs bit for bit and the loss
+    is its f32 loss rounded to bf16; dX and dW (dY) in the operands'
+    types within the bf16 tolerance of the plain versions (cotangent
+    rounded to bf16), repeating bit for bit."""
+    x, w, t, gr = _ce_problem(dev, n + c + d, n, c, d)
+    (x, w), (xw, ww) = _bf16(x, w)
+    loss, lse = linear_sce.linear_ce_fwd(x, w, t, logit_softcap=cap)
+    loss_w, lse_w = linear_sce.linear_ce_fwd(xw, ww, t, logit_softcap=cap)
+    assert torch.equal(lse, lse_w) and torch.equal(loss, loss_w)
+    assert torch.equal(fused_ce.fused_lse_fwd(x, w),
+                       fused_ce.fused_lse_fwd(xw, ww))
+    if d <= 256:  # the split: each bf16 value its own hi, lo 0
+        xp, _ = linear_sce.linear_ce_split(x, w)
+        assert torch.equal(xp, ref.tf32x3_planes_ref(xw))
+        assert (xp[:, :, 1] == 0).all()
+    for fn, plain in (
+            (lambda a, b: ops.linear_ce_loss(a, b, t, logit_softcap=cap),
+             lambda a, b: ref.linear_ce_loss_ref(a, b, t,
+                                                 logit_softcap=cap)),
+            (lambda a, b: ops.fused_lse(a, b),
+             lambda a, b: ref.fused_lse_ref(a, b))):
+        outs = []
+        for f in (fn, fn, plain):
+            ls = [x.clone().requires_grad_(True),
+                  w.clone().requires_grad_(True)]
+            out = f(*ls)
+            outs.append((out.detach(), torch.autograd.grad(
+                (out.float() * gr).sum(), ls)))
+        (o1, g1), (_, g2), (ow, gw) = outs
+        assert o1.dtype == ow.dtype
+        _close_bf16(o1, ow)
+        for a, b, c_ in zip(g1, gw, g2):
+            assert a.dtype == torch.bfloat16
+            _close_bf16(a, b)
+            assert torch.equal(a, c_)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("t,m,n,k,a_km,b_kn", [
+    (1, 4_096, 128, 2_304, False, False),  # the score slab: C rows as A
+    (2, 300, 77, 37, False, False),
+    (2, 130, 200, 300, True, False),
+    (3, 129, 140, 41, False, True),
+    (1, 257, 131, 520, True, True),
+])
+def test_bf16_deep_tc_product(dev, t, m, n, k, a_km, b_kn):
+    """deep_tc.cuh on bf16 operands (one TF32 pass) at ragged shapes, in
+    each orientation the slabs and gradients use: equal to the three-pass
+    f32 product on the widened operands bit for bit, within 1e-5·max|C| +
+    2e-4·|C| of the f64 plain version, and repeating."""
+    g = _gen(dev, m + n + k)
+    a = torch.randn((t, k, m) if a_km else (t, m, k), generator=g,
+                    device=dev)
+    b = torch.randn((t, k, n) if b_kn else (t, n, k), generator=g,
+                    device=dev)
+    (a, b), (aw, bw) = _bf16(a, b)
+    kw = dict(a_km=a_km, b_kn=b_kn)
+    got = linear_sce.deep_tc_product(a, b, **kw)
+    again = linear_sce.deep_tc_product(a, b, **kw)
+    three = linear_sce.deep_tc_product(aw, bw, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, three)
+    _close(got, ref.deep_tc_ref(aw.double(), bw.double(), **kw).float(),
+           rtol=2e-4)
+
+
+def test_bf16_refusals(dev):
+    """A bf16 / f32 mix, float64 and float16 raise TypeError in every
+    family; the deep product takes no bf16 gather or accumulate."""
+    q = torch.zeros(4, 64, device=dev)
+    y = torch.zeros(20, 64, device=dev)
+    t = torch.zeros(4, dtype=torch.int32, device=dev)
+    for a, b in ((q.bfloat16(), y), (q, y.bfloat16()), (q.half(), y.half()),
+                 (q.double(), y.double())):
+        with pytest.raises(TypeError):
+            kernel.mips_topk(a, b, 3)
+        with pytest.raises(TypeError):
+            eval_kernel.eval_tgt_gather(a, b, t)
+        with pytest.raises(TypeError):
+            linear_sce.linear_ce_fwd(a, b, t)
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, 4, 2, 16, 24, 8, 100)
+    with pytest.raises(TypeError):
+        sce_prefetch.sce_gather_fwd(x_b.bfloat16(), y, idx, tgt, cand, pos)
+    with pytest.raises(TypeError):
+        sce_bucket.sce_bucket_fwd(x_b.bfloat16(), y[idx.long()].half(), tgt,
+                                  cand, pos)
+    a = torch.zeros(1, 8, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        linear_sce.deep_tc_product(a, torch.zeros(20, 16, device=dev,
+                                                  dtype=torch.bfloat16),
+                                   idx=torch.zeros(1, 8, dtype=torch.int32,
+                                                   device=dev))

@@ -1,7 +1,7 @@
 """The deep variants' plain versions and plans, on the CPU.
 
 Above d = 256 (and, in ``mips_topk``'s chain, above k = 512) the CUDA
-kernels run their deep variants (``csrc/deep_gemm.cuh``'s depth-chunked
+kernels run their deep variants (``csrc/deep_tc.cuh``'s depth-chunked
 product, then the same selection or fold). Their yardstick is the plain
 PyTorch versions of ``kernels/ref.py``, which take any d and k: here
 those are held, at d 300 and gemma-2's 2304 with small n, against the
@@ -25,7 +25,7 @@ import torch
 from repro.kernels import guard as jguard
 from repro.kernels import mips_topk as jax_mips
 from repro.kernels import ops as jops
-from repro_torch.kernels import guard, linear_sce
+from repro_torch.kernels import deep, guard, linear_sce
 from repro_torch.kernels import mips_topk as kernel
 from repro_torch.kernels import ref, sce_prefetch
 
@@ -220,13 +220,15 @@ def test_deep_plans_fit_shared_memory_for_every_depth(n_q, c):
 
 
 def test_slab_rows_bound_the_score_slab():
+    # one sizer for every deep slab (deep.slab_rows): 1 GiB of f32
     assert kernel.slab_rows(8_192, 256_000) == 1_024
     assert kernel.slab_rows(128, 256_000) == 128
     assert kernel.slab_rows(5, 10) == 5
     assert kernel.slab_rows(10, 2**30) == 1
     for n_q, c in ((8_192, 256_000), (4_096, 173_520), (100, 3_000_000)):
         rows = kernel.slab_rows(n_q, c)
-        assert 4 * c * rows <= kernel.SCORE_BYTES or rows == 1
+        assert 4 * c * rows <= deep.SLAB_BYTES or rows == 1
+        assert rows < 128 or rows % 128 == 0
 
 
 def test_the_sce_resident_plans_take_every_depth_to_256():

@@ -42,7 +42,7 @@ import torch
 from repro.kernels import fused_ce as jfused
 from repro.kernels import linear_sce as jlinear
 from repro.kernels import ops as jops
-from repro_torch.kernels import linear_sce, ref
+from repro_torch.kernels import deep, linear_sce, ref
 
 MAX_EXP = 44.0  # the kernels' cap on exp's argument
 NEG_INF = -1e30
@@ -251,14 +251,18 @@ def test_deep_fused_model_matches_the_jax_kernel(n, c, d, chunk, family):
 
 
 def test_deep_chunk_fills_the_slab_budget():
-    align = linear_sce.CHUNK_ALIGN
+    # the score slab's sizer (deep.slab_rows) with the catalog rows a
+    # multiple of 4 (16-byte rows of the f32 slab), of 128 from 128 up
     for n, c in ((4_096, 256_000), (8_192, 256_000), (37, 1_000),
-                 (100_000, 256_000), (4_096, 100)):
+                 (100_000, 256_000), (4_096, 100), (5_000_000, 256_000)):
         chunk = linear_sce.deep_chunk(n, c)
-        assert chunk % align == 0 and chunk >= align
-        assert chunk <= -(-c // align) * align
-        assert 4 * n * chunk <= linear_sce.SLAB_BYTES or chunk == align
-    assert linear_sce.deep_chunk(4_096, 256_000) == 16_384
+        assert chunk % 4 == 0 and chunk >= 4
+        whole = -(-c // 4) * 4  # the whole catalog in one chunk
+        assert chunk <= whole
+        assert (chunk == whole or chunk < deep.SLAB_ALIGN
+                or chunk % deep.SLAB_ALIGN == 0)
+        assert 4 * n * chunk <= deep.SLAB_BYTES or chunk == 4
+    assert linear_sce.deep_chunk(4_096, 256_000) == 65_536
     assert not linear_sce.is_deep(256) and linear_sce.is_deep(257)
 
 

@@ -346,8 +346,8 @@ def test_preflight_rules_and_error_type():
         (dict(kernel="nope"), "unknown_kernel"),
         (dict(rows=0), "positive_dims"),
         (dict(k=0), "positive_dims"),
-        (dict(dtype=torch.bfloat16), "dtype_supported"),
         (dict(dtype="float64"), "dtype_supported"),
+        (dict(dtype=torch.float16), "dtype_supported"),
         # no group keeps a flat depth cap (linear_sce at d 257 is planned
         # below); mips_topk's deep chain takes k to 1024, the sweeps'
         # lists to 512
@@ -363,6 +363,11 @@ def test_preflight_rules_and_error_type():
         assert ei.value.rule == rule
     ok = guard.preflight(**base, smem_bytes=232_448)
     assert ok.repairs == [] and ok.smem_bytes == 232_448
+    # bfloat16, the reference's other type, is planned like float32 (the
+    # kernels widen it where it lands: the same shared memory)
+    bf16 = guard.preflight(**{**base, "dtype": torch.bfloat16},
+                           smem_bytes=232_448)
+    assert bf16.repairs == [] and bf16.smem_bytes == 232_448
     deep = guard.preflight(**{**base, "kernel": "linear_sce", "d": 257,
                               "k": None}, smem_bytes=229_376)
     assert deep.params["d"] == 257 and deep.repairs == []

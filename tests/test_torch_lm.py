@@ -14,6 +14,12 @@ runs with its kernel guard off and, on the (1, 1) mesh, its plain
 selection (``build_sce_config`` patched to ``use_kernel=False``: its
 kernel path fails inside ``shard_map`` on jax 0.9, ROADMAP queue 3).
 
+The same SCE step with ``dtype="bfloat16"`` on both sides (gemma-2's
+published type): loss within 2e-2 relative, parameters within 2e-2 of
+their norm, each tensor within that plus the reference's own update of
+it (an AdamW step on a near-zero gradient moves a parameter by about lr
+whatever the gradient's sign).
+
 Tolerances: loss within ``2e-5`` and grad norm within ``1e-4`` relative
 per step (f32 sums in another order through 2 layers and the loss);
 metrics of the token-rank evaluation equal (no near-ties at these
@@ -280,3 +286,88 @@ def test_trainer_lm_family_resumes_bit_for_bit(tmp_path):
                           **kw)
     assert resumed["steps"] == 2
     assert first["losses"] + resumed["losses"] == straight["losses"]
+
+
+# -- gemma-2's smoke LM step in bf16 ------------------------------------------
+def test_bf16_lm_sce_step_matches_reference(monkeypatch):
+    """Two steps of ``make_lm_train_step(..., sce_mode="exact")`` on a
+    (1, 1) mesh at gemma-2's smoke config with ``dtype="bfloat16"`` on
+    both sides (bf16 parameters and activations into the kernels' plain
+    versions; AdamW moments and the microbatch accumulator f32), from the
+    same weights and batches, the reference's Mix draw injected and its
+    plain selection (``use_kernel=False``, as ``test_torch_lm.py``): each
+    step's loss within 2e-2 relative, the parameters after the steps
+    within 2e-2 of their whole norm, each tensor within 2e-2 of its norm
+    plus the reference's own update of it, in bf16 both."""
+    from repro.configs import get_arch as jax_get_arch
+    from repro.configs.common import ShapeSpec as JaxShapeSpec
+    from repro.launch import steps as jax_steps
+    from repro.launch.mesh import make_host_mesh as jax_host_mesh
+    from repro.models import transformer as jtf
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as ttf
+    from repro_torch.models.convert import transformer_params_from_jax
+    from repro_torch.optim.optimizers import tree_leaves
+
+    batch, seq = 2, 32
+    build = jax_steps.build_sce_config
+    monkeypatch.setattr(jax_steps, "build_sce_config",
+                        lambda *a, **kw: build(*a, **dict(kw,
+                                                          use_kernel=False)))
+    jarch = jax_get_arch("gemma2-2b")
+    jcfg = dataclasses.replace(jarch.make_smoke_config(), dtype="bfloat16")
+    cfg = ttf.TransformerConfig(**{f.name: getattr(jcfg, f.name)
+                                   for f in dataclasses.fields(
+                                       ttf.TransformerConfig)})
+    arch = get_arch("gemma2-2b")
+    dims = {"global_batch": batch, "seq_len": seq}
+    jstep, (jinit, _), jsce = jax_steps.make_lm_train_step(
+        jarch, jcfg, jax_host_mesh(max_data=batch),
+        JaxShapeSpec("train_smoke", "train", dims), sce_mode="exact")
+    tstep, (tinit, _), _ = steps.make_lm_train_step(
+        arch, cfg, ShapeSpec("train_smoke", "train", dims),
+        mesh=make_host_mesh(max_data=batch), sce_mode="exact")
+    jp = jtf.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = transformer_params_from_jax(
+        jax.tree.map(lambda a: np.array(a, copy=True), jp), device="cpu")
+    assert tp["embed"].dtype == torch.bfloat16
+    start = [t.clone() for t in tree_leaves(tp)]
+    js, ts = jinit(jp), tinit(tp)
+    data = SequenceDataset(SeqDataConfig(n_items=cfg.vocab, seq_len=seq,
+                                         batch_size=batch, min_len_frac=1.0))
+    cur = Cursor(seed=0)
+    jstep = jax.jit(jstep)
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    guard.set_policy("off")
+    try:
+        for i in range(2):
+            b, cur = data.next_batch(cur)
+            key = jax.random.PRNGKey(300 + i)
+            om = jax.random.normal(jax.random.fold_in(key, 0),
+                                   (jsce.n_buckets, batch * seq),
+                                   jnp.float32)
+            jp, js, jm = jstep(jp, js, jax.tree.map(jnp.asarray, b), key)
+            tp, ts, tm = tstep(tp, ts, train.to_device(b, "cpu"),
+                               omega=torch.from_numpy(np.array(om)))
+            assert float(tm["loss"]) == pytest.approx(float(jm["loss"]),
+                                                      rel=2e-2)
+    finally:
+        guard.set_policy(None)
+        torch.set_num_threads(before)
+    want = transformer_params_from_jax(
+        jax.tree.map(lambda a: np.array(a, copy=True), jp), device="cpu")
+    leaves, wleaves = tree_leaves(tp), tree_leaves(want)
+    assert len(leaves) == len(wleaves) == len(start) > 0
+    for i, (got, ref_, p0) in enumerate(zip(leaves, wleaves, start)):
+        assert got.dtype == ref_.dtype == torch.bfloat16, i
+        err = (got.double() - ref_.double()).norm()
+        step = (ref_.double() - p0.double()).norm()
+        assert err <= 2e-2 * ref_.double().norm() + step, (i, float(err))
+    whole = torch.cat([t.double().reshape(-1) for t in wleaves])
+    diff = torch.cat([(a.double() - b.double()).reshape(-1)
+                      for a, b in zip(leaves, wleaves)])
+    assert diff.norm() <= 2e-2 * whole.norm()
