@@ -240,12 +240,16 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    L2 beside its plain version, a PyTorch computation of its function
    and its 3xTF32 bound. Then the same kernels on bf16 operands
    (``lm_bf16_kernel_phase``): both selections, the three
-   ``sce_gather_plse`` launches and the deep backward, ``eval_fused`` /
-   ``eval_tgt_gather`` and the deep ``linear_ce`` forward and backward;
-   every forward, selection and eval output equal to the f32 kernel on
-   the widened inputs bit for bit, the backwards within ``3e-2`` of their
-   scale of the plain versions (the cotangent rounded to bf16 on both
-   sides) and repeating; each timed beside its plain version, a PyTorch
+   ``sce_gather_plse`` launches and the deep backward, the in-order dY
+   sum into the bf16 table, ``eval_fused`` / ``eval_tgt_gather`` and the
+   deep ``linear_ce`` (and ``fused_lse``, timed only) forward and
+   backward; every selection and eval output (the score slab's one TF32
+   pass) equal to the f32 kernel on the widened inputs bit for bit, the
+   deep SCE and ``linear_ce`` (the bf16 ``wgmma`` product) repeating bit
+   for bit, their forwards within ``1e-5`` and backwards within ``3e-2``
+   of their scale of the plain versions (the cotangent rounded to bf16
+   on both sides), the bf16 dY sum the f32 sum rounded once bit for bit;
+   each timed beside its plain version, a PyTorch
    call in bf16 and its bound at bf16's rates (3.35 TB/s at 2 B a value,
    989 TFLOP/s) with the one-TF32-pass time beside it. Then the main
    path in bf16, its counts from 0:
@@ -3590,18 +3594,23 @@ def lm_bf16_kernel_phase(dev, cfg):
     published type, which the main path runs): ``mips_topk`` at both
     selections, the three ``sce_gather_plse`` launches and the deep
     backward as autograd runs it (n_b 128, b_x 128, b_y 1024, d 2304,
-    cap 30), ``eval_fused`` / ``eval_tgt_gather`` at 8,192 × 256,000 (k 1,
-    the LSE), and the deep ``linear_ce`` forward and one-launch backward
-    at N 4,096 (cap 30, the target plucked). Every forward, selection and
-    eval output equals the f32 kernel's on the widened inputs bit for bit
-    (a bf16 value is exact in f32 and TF32, a product of two exact in
-    f32); each also against its plain version on the bf16 inputs: values
-    within ``1e-5`` of their scale (selections, the lse) or the bf16
-    tolerance ``3e-2`` of their scale (bf16 outputs: losses, gradients,
-    whose cotangent is rounded to bf16 on both sides). Then each timed
-    with a cold L2 beside its plain version, a PyTorch call of the same
-    function in bf16 and its bound at bf16's rates (:func:`bf16_bound`,
-    the one-TF32-pass time beside it)."""
+    cap 30), the in-order dY sum into the bf16 table, ``eval_fused`` /
+    ``eval_tgt_gather`` at 8,192 × 256,000 (k 1, the LSE), and the deep
+    ``linear_ce`` forward and one-launch backward at N 4,096 (cap 30, the
+    target plucked). The selections and eval outputs (the score slab's
+    one TF32 pass) equal the f32 kernel's on the widened inputs bit for
+    bit (a bf16 value is exact in f32 and TF32, a product of two exact in
+    f32); the deep SCE and ``linear_ce`` take their products on the bf16
+    ``wgmma`` (``deep_tc.cuh`` ``gemm_bf16``: the depth summed in the
+    tensor cores, other bits than the f32 kernels' 3xTF32 steps), and
+    repeat bit for bit; the bf16 dY sum equals the f32 sum rounded once
+    bit for bit. Each also against its plain version on the bf16 inputs:
+    values within ``1e-5`` of their scale (selections, the lse) or the
+    bf16 tolerance ``3e-2`` of their scale (bf16 outputs: losses,
+    gradients, whose cotangent is rounded to bf16 on both sides). Then
+    each timed with a cold L2 beside its plain version, a PyTorch call of
+    the same function in bf16 and its bound at bf16's rates
+    (:func:`bf16_bound`, the one-TF32-pass time beside it)."""
     import torch
 
     from repro_torch.kernels import eval_fused as ek
@@ -3621,11 +3630,10 @@ def lm_bf16_kernel_phase(dev, cfg):
                             device=dev, dtype=torch.int32)
     errs, runs, bounds = {}, {}, {}
 
-    def same(what, got, want):
+    def same(what, got, want, of="the f32 kernel on the widened inputs"):
         check(len(got) == len(want) and all(
             torch.equal(a, b) for a, b in zip(got, want)),
-            f"lm bf16 {what}: differs from the f32 kernel on the widened "
-            f"inputs")
+            f"lm bf16 {what}: differs from {of}")
 
     def within(what, got, want, tol):
         err = (got.double() - want.double()).abs().max().item()
@@ -3655,7 +3663,7 @@ def lm_bf16_kernel_phase(dev, cfg):
     args = (x_b, y, iy, tgt_b, iy)
     plse = sce_prefetch.sce_gather_plse_fwd(*args, logit_softcap=LM_CAP)
     same("sce_gather_plse_fwd", (plse,), (sce_prefetch.sce_gather_plse_fwd(
-        x_b.float(), y.float(), iy, tgt_b, iy, logit_softcap=LM_CAP),))
+        *args, logit_softcap=LM_CAP),), "a second launch")
     errs["sce_gather_plse_fwd_lm_bf16"] = within(
         "plse", plse, ref.sce_gather_plse_ref(*args, LM_CAP), 1e-5)
     g_up = torch.rand(n_b, b_x, generator=g, device=dev)
@@ -3716,6 +3724,27 @@ def lm_bf16_kernel_phase(dev, cfg):
         lambda: plain_grads(None),
         lambda: (lambda p: (torch.bmm(p, y_b),
                             torch.bmm(p.transpose(1, 2), x_b)))(lib_cot()))
+    # the in-order dY sum into the bf16 table: each row's f32 sum rounded
+    # once, equal to the f32 table's rounded to bf16
+    ws = torch.randn(n_b * b_y, d, generator=g, device=dev)
+    keys, order = sce_prefetch.dy_sum_keys(iy, iy, vocab)
+    dyz = torch.zeros_like(y)
+    got = sce_prefetch.sce_gather_dy_sum(ws, keys, order, dyz)
+    same("sce_gather_dy_sum", (got,), (sce_prefetch.sce_gather_dy_sum(
+        ws, keys, order, torch.zeros(vocab, d, device=dev)).to(bf),),
+        "the f32 sum rounded once")
+    errs["sce_gather_dy_sum_lm_bf16"] = within(
+        "dY sum", got, sce_prefetch.dy_sum_plain(ws, iy, iy, vocab, bf), 3e-2)
+    del got
+    lib_c = torch.zeros(vocab, d, device=dev)
+    runs["sce_gather_dy_sum_lm_bf16"] = (
+        lambda: sce_prefetch.sce_gather_dy_sum(ws, keys, order, dyz),
+        lambda: sce_prefetch.dy_sum_plain(ws, iy, iy, vocab, bf),
+        lambda: lib_c.index_add_(0, iy.reshape(-1).long(), ws).to(bf))
+    kept = int((iy >= 0).sum())
+    u_rows = int(torch.unique(iy[iy >= 0]).numel())
+    bounds["sce_gather_dy_sum_lm_bf16"] = bf16_bound(
+        4 * iy.numel() + 8 * kept + 4 * kept * d + 2 * u_rows * d, 0, 0)
     pairs = unmasked_pairs(tgt_b, iy)
     rows = int(torch.unique(iy[iy >= 0]).numel())
     common = 2 * (n_b * b_x * d + rows * d) + 4 * (2 * n_b * b_y + n_b * b_x)
@@ -3773,13 +3802,15 @@ def lm_bf16_kernel_phase(dev, cfg):
     gr = torch.rand(LM_SEQ, generator=g, device=dev) + 0.5
     loss, lse = linear_sce._fwd(x, y, targets, LM_CAP)
     same("linear_ce forward", (loss, lse), linear_sce._fwd(
-        x.float(), y.float(), targets, LM_CAP))
+        x, y, targets, LM_CAP), "a second launch")
     errs["linear_ce_fwd_lm_bf16"] = within(
         "linear_ce lse", lse, ref.fused_lse_ref(x, y, logit_softcap=LM_CAP),
         1e-5)
     pair = linear_sce._bwd_deep(x, y, targets, lse, gr, LM_CAP, True, True)
     check(pair[0].dtype == pair[1].dtype == bf,
           "lm bf16: the full-CE gradients are not bf16")
+    same("linear_ce backward", pair, linear_sce._bwd_deep(
+        x, y, targets, lse, gr, LM_CAP, True, True), "a second launch")
     cargs = (x, y, targets, lse, gr)
     errs["linear_ce_bwd_lm_bf16"] = max(
         within("linear_ce dX", pair[0], ref.linear_ce_dx_ref(
@@ -3791,19 +3822,34 @@ def lm_bf16_kernel_phase(dev, cfg):
                       (lse - loss).detach())
     runs["linear_ce_fwd_lm_bf16"] = ce["linear_ce_fwd_lm"]
     runs["linear_ce_bwd_lm_bf16"] = ce["linear_ce_bwd_lm"]
+    # fused_lse's deep entries (no pluck, no cap; no LM path runs them:
+    # their times go to --json only)
+    f_lse = linear_sce._fwd(x, y, None, None)[1]
+    errs["fused_lse_fwd_lm_bf16"] = within(
+        "fused_lse", f_lse, ref.fused_lse_ref(x, y), 1e-5)
+    pair = linear_sce._bwd_deep(x, y, None, f_lse, gr, None, True, True)
+    errs["fused_lse_bwd_lm_bf16"] = max(
+        within("fused_lse dX", pair[0], ref.linear_ce_dx_ref(
+            x, y, None, f_lse, gr), 3e-2),
+        within("fused_lse dY", pair[1], ref.linear_ce_dw_ref(
+            x, y, None, f_lse, gr), 3e-2))
+    del pair
+    fe = full_ce_runs("fused_lse", x, y, None, None, f_lse, gr, None)
+    runs["fused_lse_fwd_lm_bf16"] = fe["fused_lse_fwd_lm"]
+    runs["fused_lse_bwd_lm_bf16"] = fe["fused_lse_bwd_lm"]
     n = LM_SEQ
     io = 2 * (n * d + vocab * d)
-    bounds["linear_ce_fwd_lm_bf16"] = bf16_bound(io + 4 * 4 * n,
-                                                 2 * n * vocab * d, n * vocab)
-    bounds["linear_ce_bwd_lm_bf16"] = bf16_bound(2 * io + 4 * 4 * n,
-                                                 3 * 2 * n * vocab * d,
-                                                 n * vocab)
+    for fam in ("linear_ce", "fused_lse"):
+        bounds[f"{fam}_fwd_lm_bf16"] = bf16_bound(
+            io + 4 * 4 * n, 2 * n * vocab * d, n * vocab)
+        bounds[f"{fam}_bwd_lm_bf16"] = bf16_bound(
+            2 * io + 4 * 4 * n, 3 * 2 * n * vocab * d, n * vocab)
 
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     timings = {}
     with torch.no_grad():
         for name, (kern, plain, lib) in runs.items():
-            reps = 2 if "linear_ce" in name or "eval_fused" in name else 5
+            reps = 2 if "_ce_" in name or "fused" in name else 5
             timings[name] = {"ms": time_ms(kern, reps, flush),
                              "plain_ms": time_ms(plain, 1, flush),
                              "library_ms": time_ms(lib, 2, flush),
@@ -3814,10 +3860,11 @@ def lm_bf16_kernel_phase(dev, cfg):
               f"{t['plain_ms']:.3f} ms, library (bf16) "
               f"{t['library_ms']:.4f} ms, bound {bound_text(t)}; max |Δ| "
               f"from the plain version {t['max_abs_err']:.3e}")
-    print("  lm bf16: every forward, selection and eval output equals the "
-          "f32 kernel's on the widened inputs bit for bit; the backwards "
-          "within 3e-2 of their scale of the plain versions and repeat bit "
-          "for bit ok")
+    print("  lm bf16: the selections and eval outputs equal the f32 kernel's "
+          "on the widened inputs bit for bit; the deep SCE and linear_ce "
+          "(the bf16 wgmma product) repeat bit for bit, forwards within "
+          "1e-5 and backwards within 3e-2 of their scale of the plain "
+          "versions; the bf16 dY sum is the f32 sum rounded once ok")
     return {"timings": timings}
 
 
@@ -4510,9 +4557,8 @@ def main() -> int:
             "bound_by": tt["bound_by"],
             "library_ms": tt["library_ms"],
         })
-    # the in-order dY sum runs on the bf16 path too (its workspace is f32:
-    # the same kernel, timed in the f32 entry)
-    tt = lm["kernels"]["timings"]["sce_gather_dy_sum_lm"]
+    # the in-order dY sum on the bf16 path: into the bf16 table
+    tt = lm["kernels_bf16"]["timings"]["sce_gather_dy_sum_lm_bf16"]
     kernels.append({
         "name": "sce_gather_dy_sum_lm_bf16", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sce_gather.cu",

@@ -5,7 +5,7 @@ phase. Needs an NVIDIA GPU.
 
     python3 probes/deep_tc_turns.py digests TREE LABEL
     python3 probes/deep_tc_turns.py times TREE LABEL
-    python3 probes/deep_tc_turns.py profile TREE LABEL
+    python3 probes/deep_tc_turns.py profile TREE LABEL [bf16]
 
 imports ``repro_torch`` (and ``chip_smoke.py``) from ``TREE`` — a checkout
 of any commit, for example the parent unpacked with ``git archive`` into
@@ -24,11 +24,16 @@ centres at unit scale, the table at 0.02):
   the target plucked) and its one-launch backward at 4,096 × 256,000.
   Equal digests in two trees are equal bits. Where the tree takes
   bfloat16 operands, ``bf16`` holds, for the same inputs rounded to bf16,
-  whether each deep output (both selections, ``eval_fused`` and
-  ``eval_tgt_gather``, the partial LSE's forward, the ``linear_ce``
-  forward) equals the f32 launch on the widened inputs bit for bit, and
-  the bf16 outputs' own digests; a tree that refuses bf16 prints
-  ``"refused"``.
+  each deep output's digest, whether it equals the f32 launch on the
+  widened inputs bit for bit and whether a second launch repeats it:
+  both selections, ``eval_fused`` and ``eval_tgt_gather`` (the score
+  slab's one TF32 pass), the partial LSE's forward and its one-launch
+  backward, the loss's forward, dX and dY, the bucket twins', the
+  ``linear_ce`` forward and its one-launch backward; and ``dy_sum``, the
+  in-order dY sum of one f32 workspace into the bf16 table (a tree
+  whose sum writes f32 only: its f32 table rounded to bf16), whose equal
+  digests show the sum's order unchanged; a tree that refuses bf16
+  prints ``"refused"``.
 * ``times``: device ms (CUDA events, the mean of 5 calls, each after a
   1 GiB L2 flush) of ``sce_gather_plse_fwd``, the partial LSE's backward
   as autograd runs it (``sce_prefetch._grads``: logits, cotangent, dX,
@@ -36,7 +41,13 @@ centres at unit scale, the table at 0.02):
   ``mips_topk`` at k 128 over the 4,096 positions and at k 1024 over the
   vocabulary, and ``eval_fused`` at 8,192 × 256,000 (k 1, the LSE, cap
   30; 3 calls); that backward and both ``mips_topk`` calls split by
-  kernel in launch order (``torch.profiler``, one warm call).
+  kernel in launch order (``torch.profiler``, one warm call). Where the
+  tree takes bf16 (``bf16``): the same SCE calls on bf16 x_b and y, the
+  partial LSE's dY wrapper alone (logits, cotangent, slot rows, keys and
+  sort, zeroing, the in-order sum), the sum alone into the bf16 table
+  (the f32 sum and its cast in a tree without one), the deep
+  ``linear_ce`` forward and one-launch backward at 4,096 × 256,000 (cap
+  30, plucked; 2 calls), and the bf16 backward split by kernel.
 * ``profile``: the tree's depth-chunked product (``csrc/deep_tc.cuh``,
   its element-typed kernel) built from a copy with ``clock64()`` read
   around each phase of its depth loop (summed per warp, read back
@@ -52,6 +63,15 @@ centres at unit scale, the table at 0.02):
   ``cycles_per_warp_chunk`` counts the loop's phases only; at the dense
   495 TFLOP/s of TF32 a chunk's three passes of a 128 × 128 × 32 tile
   take ≈ 1,660 cycles of an SM.
+  With ``bf16`` (a tree with ``deep_tc.cuh``'s ``gemm_bf16``): the bf16
+  product's phases on bf16 operands, per warp role — the consumer
+  warpgroups' ``wait`` (the stage's full barrier), ``issue`` (four
+  ``wgmma`` and the commit), ``drain`` (``wgmma`` wait for the stage
+  before, freeing it), ``epilogue`` (the tile's last wait and its f32
+  stores); the producer warpgroup's ``empty`` (waiting for a free stage)
+  and ``copy`` (TMA issue, gathered or register-staged copies) — and
+  the consumers' cycles per 64-deep stage; at the dense 989 TFLOP/s a
+  stage of a 128 × 128 × 64 tile takes ≈ 510 cycles of an SM.
 
 Every line carries ``nvidia-smi``'s card name and power limit. Run two
 trees in turns (parent, change, change, parent) in one call to compare
@@ -71,9 +91,14 @@ CAP = 30.0
 
 
 def _digest(*tensors):
+    import torch
+
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        t = t.detach().contiguous()
+        if t.dtype == torch.bfloat16:  # its bits (numpy has no bf16)
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -152,47 +177,91 @@ def digests(tree, label):
 
 
 def _bf16_digests(torch, args, q, xs, xe, te, tl):
-    """For each deep output on bf16 operands: equal to the f32 launch on
-    the widened inputs (bool), and its digest; "refused" where the tree
-    takes f32 only."""
-    from repro_torch.kernels import eval_fused, linear_sce, sce_prefetch
+    """For each deep output on bf16 operands: its digest, equal to the f32
+    launch on the widened inputs (bool), repeated by a second launch
+    (bool); "refused" where the tree takes f32 only."""
+    from repro_torch.kernels import (eval_fused, linear_sce, sce_bucket,
+                                     sce_prefetch)
     from repro_torch.kernels.mips_topk import mips_topk
 
     bf = torch.bfloat16
     x_b, y, idx, tgt, cand = args
     xb, yb, qb, xsb, xeb = (t.to(bf) for t in (x_b, y, q, xs, xe))
     w = lambda t: t.float()  # noqa: E731 — the widened copy
+    g = torch.Generator(device=x_b.device).manual_seed(26)
+    gg = torch.rand(N_B, B_X, generator=g, device=x_b.device)
+    pos = CAP * torch.tanh(torch.randn(N_B, B_X, generator=g,
+                                       device=x_b.device)).to(bf)
+    gr = torch.rand(N_POS, generator=g, device=x_b.device) + 0.5
+    kw = dict(logit_softcap=CAP)
+
+    def sce_loss(a, b):
+        loss, lse = sce_prefetch.sce_gather_fwd(a, b, idx, tgt, cand,
+                                                pos.to(a.dtype), **kw)
+        r = (a, b, idx, tgt, cand, lse, gg)
+        return (loss, lse, sce_prefetch.sce_gather_dx(*r, **kw),
+                sce_prefetch.sce_gather_dy(*r, **kw))
+
+    def plse_pair(a, b):
+        plse = sce_prefetch.sce_gather_plse_fwd(a, b, idx, tgt, cand, **kw)
+        return (plse,) + tuple(sce_prefetch._grads(
+            sce_prefetch.sce_gather_plse_dx, sce_prefetch.sce_gather_plse_dy,
+            (a, b, idx, tgt, cand, plse, gg), CAP, True, True))
+
+    def bucket(a, b):
+        b_ = b[idx.long()]
+        bl, blse = sce_bucket.sce_bucket_fwd(a, b_, tgt, cand,
+                                             pos.to(a.dtype), **kw)
+        r = (a, b_, tgt, cand, blse, gg)
+        return (bl, blse, sce_bucket.sce_bucket_dx(*r, **kw),
+                sce_bucket.sce_bucket_dy(*r, **kw))
+
+    def ce(a, b):
+        loss, lse = linear_sce._fwd(a, b, tl, CAP)
+        return (loss, lse) + tuple(linear_sce._bwd_deep(
+            a, b, tl, lse, gr, CAP, True, True))
+
+    pairs = ((xb, yb), (w(xb), w(yb)))
     runs = {
-        "mips_topk_k128": (lambda: mips_topk(qb, xsb, 128),
-                           lambda: mips_topk(w(qb), w(xsb), 128)),
-        "mips_topk_k1024": (lambda: mips_topk(qb, yb, 1024),
-                            lambda: mips_topk(w(qb), w(yb), 1024)),
-        "eval_fused": tuple(
-            (lambda a=a, b=b: eval_fused.eval_fused(
-                a, b, te, 1, c_lo=1, c_hi=C, logit_softcap=CAP,
-                with_lse=True)) for a, b in ((xeb, yb), (w(xeb), w(yb)))),
-        "eval_tgt_gather": tuple(
-            (lambda a=a, b=b: (eval_fused.eval_tgt_gather(a, b, te),))
-            for a, b in ((xeb, yb), (w(xeb), w(yb)))),
-        "sce_gather_plse_fwd": tuple(
-            (lambda a=a, b=b: (sce_prefetch.sce_gather_plse_fwd(
-                a, b, idx, tgt, cand, logit_softcap=CAP),))
-            for a, b in ((xb, yb), (w(xb), w(yb)))),
-        "linear_ce_fwd": tuple(
-            (lambda a=a, b=b: linear_sce._fwd(a, b, tl, CAP))
-            for a, b in ((xsb, yb), (w(xsb), w(yb)))),
+        "mips_topk_k128": (lambda a, b: mips_topk(a, b, 128),
+                           ((qb, xsb), (w(qb), w(xsb)))),
+        "mips_topk_k1024": (lambda a, b: mips_topk(a, b, 1024),
+                            ((qb, yb), (w(qb), w(yb)))),
+        "eval_fused": (lambda a, b: eval_fused.eval_fused(
+            a, b, te, 1, c_lo=1, c_hi=C, logit_softcap=CAP, with_lse=True),
+            ((xeb, yb), (w(xeb), w(yb)))),
+        "eval_tgt_gather": (lambda a, b: (eval_fused.eval_tgt_gather(
+            a, b, te),), ((xeb, yb), (w(xeb), w(yb)))),
+        "sce_gather_plse": (plse_pair, pairs),
+        "sce_gather": (sce_loss, pairs),
+        "sce_bucket": (bucket, pairs),
+        "linear_ce": (ce, ((xsb, yb), (w(xsb), w(yb)))),
     }
     out = {}
-    for name, (got_fn, want_fn) in runs.items():
+    for name, (fn, (ins, wide)) in runs.items():
         try:
-            got = got_fn()
+            got = fn(*ins)
         except TypeError:
             return "refused"
-        want = want_fn()
+        again = fn(*ins)
+        want = fn(*wide)
         torch.cuda.synchronize()
-        out[name] = {"equal_f32_widened": all(
-            torch.equal(a, b) for a, b in zip(got, want)),
-            "digest": _digest(*got)}
+        out[name] = {"digest": _digest(*got),
+                     "equal_f32_widened": all(
+                         torch.equal(a, b.to(a.dtype))
+                         for a, b in zip(got, want)),
+                     "repeats": all(torch.equal(a, b)
+                                    for a, b in zip(got, again))}
+        del got, again, want
+    ws = torch.randn(N_B * B_Y, D, generator=g, device=x_b.device)
+    keys = sce_prefetch.dy_sum_keys(idx, cand, C)
+    try:
+        table = sce_prefetch.sce_gather_dy_sum(
+            ws, *keys, torch.zeros(C, D, device=x_b.device, dtype=bf))
+    except TypeError:  # a tree whose sum writes f32 only
+        table = sce_prefetch.sce_gather_dy_sum(
+            ws, *keys, torch.zeros(C, D, device=x_b.device)).to(bf)
+    out["dy_sum"] = {"digest": _digest(table)}
     return out
 
 
@@ -252,9 +321,66 @@ def times(tree, label):
         split = _kernel_split(torch, pair)
         mips_split = {k: _kernel_split(torch, runs[k])
                       for k in ("mips_topk_k128", "mips_topk_k1024")}
+    del runs
+    bf16 = _bf16_times(torch, cs, args, pos, gg, xs, te, flush)
     print(label, json.dumps({"ms": ms, "bwd_kernels": split,
-                             "mips_kernels": mips_split,
+                             "mips_kernels": mips_split, "bf16": bf16,
                              "card": cs.smi()}), flush=True)
+
+
+def _bf16_times(torch, cs, args, pos, gg, xs, te, flush):
+    """Device ms of the deep SCE and ``linear_ce`` calls on bf16 operands
+    (see the module docstring), and the bf16 backward split by kernel;
+    "refused" in a tree that takes f32 only."""
+    from repro_torch.kernels import linear_sce, sce_prefetch
+
+    bf = torch.bfloat16
+    x_b, y, idx, tgt, cand = args
+    xb, yb, xsb = x_b.to(bf), y.to(bf), xs.to(bf)
+    kw = dict(logit_softcap=CAP)
+    try:
+        plse = sce_prefetch.sce_gather_plse_fwd(xb, yb, idx, tgt, cand, **kw)
+    except TypeError:
+        return "refused"
+    bargs = (xb, yb, idx, tgt, cand, plse, gg)
+    ws = torch.randn(N_B * B_Y, D, device=x_b.device)
+    keys = sce_prefetch.dy_sum_keys(idx, cand, C)
+    table = torch.zeros(C, D, device=x_b.device, dtype=bf)
+    try:
+        sce_prefetch.sce_gather_dy_sum(ws, *keys, table)
+        dy_sum = lambda: sce_prefetch.sce_gather_dy_sum(  # noqa: E731
+            ws, *keys, table)
+    except TypeError:  # the f32 sum, then its cast
+        table = torch.zeros(C, D, device=x_b.device)
+        dy_sum = lambda: sce_prefetch.sce_gather_dy_sum(  # noqa: E731
+            ws, *keys, table).to(bf)
+    tl = te[:N_POS].contiguous()
+    _, lse = linear_sce._fwd(xsb, yb, tl, CAP)
+    gr = torch.rand(N_POS, device=x_b.device) + 0.5
+
+    def pair():
+        return sce_prefetch._grads(
+            sce_prefetch.sce_gather_plse_dx, sce_prefetch.sce_gather_plse_dy,
+            bargs, CAP, True, True)
+
+    runs = {
+        "sce_gather_plse_fwd": lambda: sce_prefetch.sce_gather_plse_fwd(
+            xb, yb, idx, tgt, cand, **kw),
+        "sce_gather_plse_bwd": pair,
+        "sce_gather_plse_dy": lambda: sce_prefetch.sce_gather_plse_dy(
+            *bargs, **kw),
+        "sce_gather_dy_sum": dy_sum,
+        "sce_gather_fwd": lambda: sce_prefetch.sce_gather_fwd(
+            xb, yb, idx, tgt, cand, pos.to(bf), **kw),
+        "linear_ce_fwd": lambda: linear_sce._fwd(xsb, yb, tl, CAP),
+        "linear_ce_bwd": lambda: linear_sce._bwd_deep(
+            xsb, yb, tl, lse, gr, CAP, True, True),
+    }
+    with torch.no_grad():
+        ms = {k: cs.time_ms(f, 2 if k.startswith("linear") else 5, flush)
+              for k, f in runs.items()}
+        split = _kernel_split(torch, pair)
+    return {"ms": ms, "bwd_kernels": split}
 
 
 _TC_HEAD = ("template <bool A_KM, bool B_KN, bool GATHER, bool ACC, "
@@ -308,6 +434,65 @@ _TC_PATCH = [  # deep_tc.cuh: prologue, wait, issue, copies, drain, add, epilogu
 _TC_PHASES = ("prologue", "wait", "issue", "copies", "drain", "add",
               "epilogue")
 
+_BF_PATCH = [  # gemm_bf16_kernel: consumer wait, issue, drain, epilogue;
+    # producer empty, copy
+    ("template <bool A_KM, bool B_KN, bool GATHER, bool ACC>\n"
+     "__global__ void __launch_bounds__(kBThreads, 1)",
+     "__device__ unsigned long long kProf[8];\n"
+     "template <bool A_KM, bool B_KN, bool GATHER, bool ACC>\n"
+     "__global__ void __launch_bounds__(kBThreads, 1)"),
+    ("        mbar_wait(empty + s, (uint32_t)((it / kBStages) & 1) ^ 1u);\n",
+     "        const long long Qa = clock64();\n"
+     "        mbar_wait(empty + s, (uint32_t)((it / kBStages) & 1) ^ 1u);\n"
+     "        const long long Qb = clock64();\n"
+     "        QE += Qb - Qa;\n"),
+    ("          mbar_arrive_cp_async(full + s);\n        }\n",
+     "          mbar_arrive_cp_async(full + s);\n        }\n"
+     "        asm volatile(\"\" ::: \"memory\");\n"
+     "        QC += clock64() - Qb;\n"),
+    ("    long it = 0;\n    for (long t = blockIdx.x; t < g.tiles;",
+     "    long long QE = 0, QC = 0;\n"
+     "    long it = 0;\n    for (long t = blockIdx.x; t < g.tiles;"),
+    ("    return;\n  }\n\n  // the consumer warpgroups",
+     "    if ((threadIdx.x & 31) == 0) {\n"
+     "      atomicAdd(&kProf[4], (unsigned long long)QE);\n"
+     "      atomicAdd(&kProf[5], (unsigned long long)QC);\n    }\n"
+     "    return;\n  }\n\n  // the consumer warpgroups"),
+    ("  long it = 0;\n  for (long t = blockIdx.x; t < g.tiles; t += gridDim.x) {\n",
+     "  long long PW = 0, PI = 0, PD = 0, PE = 0, NS = 0;\n"
+     "  long it = 0;\n  for (long t = blockIdx.x; t < g.tiles; t += gridDim.x) {\n"),
+    ("      mbar_wait(full + s, (uint32_t)((it / kBStages) & 1));\n",
+     "      asm volatile(\"\" ::: \"memory\");\n"
+     "      const long long Pa = clock64();\n"
+     "      mbar_wait(full + s, (uint32_t)((it / kBStages) & 1));\n"
+     "      const long long Pb = clock64();\n"),
+    ("      wgmma_commit();\n      wgmma_wait<1>();",
+     "      wgmma_commit();\n"
+     "      const long long Pc = clock64();\n"
+     "      wgmma_wait<1>();"),
+    ("      if (prev >= 0) mbar_arrive(empty + prev);\n      prev = s;\n",
+     "      if (prev >= 0) mbar_arrive(empty + prev);\n      prev = s;\n"
+     "      asm volatile(\"\" ::: \"memory\");\n"
+     "      const long long Pd = clock64();\n"
+     "      PW += Pb - Pa; PI += Pc - Pb; PD += Pd - Pc; ++NS;\n"),
+    ("    wgmma_wait<0>();\n    fence_regs(acc);\n    mbar_arrive(empty + prev);\n",
+     "    const long long Pe = clock64();\n"
+     "    wgmma_wait<0>();\n    fence_regs(acc);\n    mbar_arrive(empty + prev);\n"),
+    ("            if (n + 1 < g.n) o[1] = ACC ? o[1] + v1 : v1;\n"
+     "          }\n        }\n      }\n    }\n  }\n}\n",
+     "            if (n + 1 < g.n) o[1] = ACC ? o[1] + v1 : v1;\n"
+     "          }\n        }\n      }\n    }\n"
+     "    asm volatile(\"\" ::: \"memory\");\n"
+     "    PE += clock64() - Pe;\n  }\n"
+     "  if ((threadIdx.x & 31) == 0) {\n"
+     "    atomicAdd(&kProf[0], (unsigned long long)PW);\n"
+     "    atomicAdd(&kProf[1], (unsigned long long)PI);\n"
+     "    atomicAdd(&kProf[2], (unsigned long long)PD);\n"
+     "    atomicAdd(&kProf[3], (unsigned long long)PE);\n"
+     "    atomicAdd(&kProf[6], (unsigned long long)NS);\n  }\n}\n"),
+]
+_BF_PHASES = ("wait", "issue", "drain", "epilogue")
+
 _GETTER = """
 extern "C" int deep_prof_read(unsigned long long* out) {
   static const unsigned long long zero[8] = {};
@@ -318,8 +503,9 @@ extern "C" int deep_prof_read(unsigned long long* out) {
 """
 
 
-def profile(tree, label):
-    """The clock profile (see the module docstring) of TREE's product."""
+def profile(tree, label, kind="f32"):
+    """The clock profile (see the module docstring) of TREE's product, or
+    of its bf16 product with ``kind`` "bf16"."""
     import ctypes
 
     work = Path(tempfile.mkdtemp(prefix="deep_prof_"))
@@ -330,6 +516,12 @@ def profile(tree, label):
     header, patch, ns, phases = ("deep_tc.cuh", _TC_PATCH, "deep_tc",
                                  _TC_PHASES)
     text = (csrc / header).read_text()
+    if kind == "bf16":
+        if "gemm_bf16_kernel" not in text:
+            print(label, json.dumps({"profile": "no bf16 product"}),
+                  flush=True)
+            return
+        patch, phases = _BF_PATCH, _BF_PHASES
     for old, new in patch:
         if text.count(old) != 1:
             raise SystemExit(f"profile: anchor not found once in {header}: "
@@ -345,6 +537,9 @@ def profile(tree, label):
     lib.deep_prof_read.argtypes = [ctypes.c_void_p]
     buf = (ctypes.c_ulonglong * 8)()
     kw = dict(logit_softcap=CAP)
+    if kind == "bf16":
+        args = tuple(t.to(torch.bfloat16) if t.is_floating_point() else t
+                     for t in args)
     plse = sce_prefetch.sce_gather_plse_fwd(*args, **kw)
     bargs = args + (plse, gg)
 
@@ -365,6 +560,18 @@ def profile(tree, label):
     for name, v in (("logits", logits),
                     ("dx", [a - b for a, b in zip(dx, logits)]),
                     ("dy", [a - b for a, b in zip(dy, logits)])):
+        if kind == "bf16":
+            cyc = v[:4]
+            total = sum(cyc)
+            prod = v[4] + v[5]
+            out[name] = {
+                "consumer_share": {p: round(c / max(total, 1), 4)
+                                   for p, c in zip(phases, cyc)},
+                "producer_share": {"empty": round(v[4] / max(prod, 1), 4),
+                                   "copy": round(v[5] / max(prod, 1), 4)},
+                "cycles_per_warp_stage": round(
+                    sum(cyc[:3]) / max(v[6], 1), 1)}
+            continue
         cyc = v[:len(phases)]
         total = sum(cyc)
         chunks = v[7]
@@ -372,11 +579,11 @@ def profile(tree, label):
             "share": {p: round(c / total, 4) for p, c in zip(phases, cyc)},
             "cycles_per_warp_chunk": round(
                 sum(cyc[1:-1]) / max(chunks, 1), 1)}
-    print(label, json.dumps({"product": ns, "profile": out,
+    print(label, json.dumps({"product": ns, "kind": kind, "profile": out,
                              "card": cs.smi()}), flush=True)
 
 
 if __name__ == "__main__":
     mode, tree, label = sys.argv[1:4]
     {"digests": digests, "times": times, "profile": profile}[mode](
-        tree, label)
+        tree, label, *sys.argv[4:])

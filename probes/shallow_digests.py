@@ -19,7 +19,12 @@ inputs drawn from fixed seeds on the card:
 * ``sce_gather`` forward, dX and dY, ``sce_gather_plse`` forward, dX and
   dY and ``sce_bucket`` forward, dX and dY at the training shape
   (n_b = b_x = 320, b_y = 256, d = 64), cap 30;
-* ``linear_ce`` forward, dX and dW at N 4,096, C 173,520, d 64.
+* ``linear_ce`` forward, dX and dW at N 4,096, C 173,520, d 64;
+* ``bf16``: in a tree that takes bfloat16 operands, the same resident
+  calls (serving's ``mips_topk`` at n_q 512, ``eval_fused``, the three
+  SCE families' forward, dX and dY, ``linear_ce``'s forward, dX and dW)
+  on those inputs rounded to bf16 — dY's in-order sum into the bf16
+  table included ("refused" where the tree takes f32 only).
 
 Run the parent and the change in one call and compare the lines.
 """
@@ -29,9 +34,14 @@ import sys
 
 
 def _digest(*tensors):
+    import torch
+
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        t = t.detach().contiguous()
+        if t.dtype == torch.bfloat16:  # its bits (numpy has no bf16)
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -114,6 +124,43 @@ def main(tree, label):
                                    logit_softcap=30.0)
     out["linear_ce"] = _digest(ll, *torch.autograd.grad(
         (ll * gg.reshape(-1)[:4_096]).sum(), lleaves))
+    torch.cuda.synchronize()
+    bf = torch.bfloat16
+    try:
+        mips_topk(q.to(bf), y.to(bf), 10, valid=window)
+    except TypeError:
+        out["bf16"] = "refused"
+    else:
+        yb, xb, pb = y.to(bf), x_b.to(bf), pos.to(bf)
+        o = {"mips_topk_serve_512": _digest(*mips_topk(
+            q.to(bf), yb, 10, valid=window))}
+        o["eval_fused"] = _digest(*eval_fused.eval_fused(
+            xe.to(bf), yb, te, 10, c_lo=1, c_hi=173_511, logit_softcap=30.0,
+            with_lse=True))
+        loss, lse = sce_prefetch.sce_gather_fwd(xb, yb, idx, tgt_b, cand,
+                                                pb, **kw)
+        args = (xb, yb, idx, tgt_b, cand, lse, gg)
+        o["sce_gather"] = _digest(loss, lse,
+                                  sce_prefetch.sce_gather_dx(*args, **kw),
+                                  sce_prefetch.sce_gather_dy(*args, **kw))
+        plse = sce_prefetch.sce_gather_plse_fwd(xb, yb, idx, tgt_b, cand,
+                                                **kw)
+        args = (xb, yb, idx, tgt_b, cand, plse, gg)
+        o["sce_gather_plse"] = _digest(
+            plse, sce_prefetch.sce_gather_plse_dx(*args, **kw),
+            sce_prefetch.sce_gather_plse_dy(*args, **kw))
+        y_bb = yb[idx.long()]
+        bl, blse = sce_bucket.sce_bucket_fwd(xb, y_bb, tgt_b, cand, pb, **kw)
+        bargs = (xb, y_bb, tgt_b, cand, blse, gg)
+        o["sce_bucket"] = _digest(bl, blse,
+                                  sce_bucket.sce_bucket_dx(*bargs, **kw),
+                                  sce_bucket.sce_bucket_dy(*bargs, **kw))
+        lleaves = [t.to(bf).requires_grad_(True) for t in (xl, y)]
+        ll = linear_sce.linear_ce_loss(lleaves[0], lleaves[1], tl,
+                                       logit_softcap=30.0)
+        o["linear_ce"] = _digest(ll, *torch.autograd.grad(
+            (ll.float() * gg.reshape(-1)[:4_096]).sum(), lleaves))
+        out["bf16"] = o
     torch.cuda.synchronize()
     print(label, json.dumps(out), flush=True)
 

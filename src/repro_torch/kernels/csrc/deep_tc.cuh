@@ -1,7 +1,8 @@
 // deep_tc — the depth-chunked product of every deep variant (d > 256),
-// designed for Hopper's tensor cores. A batched C[b] = A[b] · B[b]ᵀ in
-// 3xTF32 for any depth K, in a fixed 224 KB of shared memory, on f32 or
-// bfloat16 operands.
+// designed for Hopper's tensor cores. A batched C[b] = A[b] · B[b]ᵀ for
+// any depth K: in 3xTF32 on f32 operands (gemm), and on bfloat16
+// operands either as one TF32 pass (gemm with TA = TB = bf16: the score
+// slab) or at the bf16 rate (gemm_bf16, below: the deep SCE and full CE).
 //
 // Which TPU kernels it serves: at d > 256 it takes every product of
 //   * sce_gather.cu's deep entries — the in-bucket logits, dX = G · Y[idx]
@@ -30,11 +31,11 @@
 // target_scores' for the same pair bit for bit, and SCE's forward, dX and
 // dY read logits of one arithmetic.
 //
-// bfloat16 (TA or TB = bf16): the operand is staged as stored, 8 values a
-// 16-byte copy, and widened to f32 where the split reads it. A bf16 value
-// is its own TF32 hi (lo = 0), and the product of two is exact in f32, so
-// with ONE (set whenever an operand is bf16; an f32 operand beside it
-// must hold bf16 values, as the rounded cotangent G does) each k8 step
+// bfloat16 in gemm (TA = TB = bf16; the score slab of mips_topk.cu and
+// eval_fused.cu, whose scores must equal eval_tgt_gather's bit for bit):
+// the operand is staged as stored, 8 values a 16-byte copy, and widened
+// to f32 where the split reads it. A bf16 value is its own TF32 hi (lo =
+// 0), and the product of two is exact in f32, so with ONE each k8 step
 // issues the hi·hi `wgmma` only and the lo planes are never written: the
 // lo·hi and hi·lo passes it drops are exact zeros, and the result is the
 // three-pass result on the widened operands bit for bit (up to the sign
@@ -91,6 +92,7 @@
 // steps' products).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -127,6 +129,10 @@ struct Gemm {
   int m, n, k;
   int vec_a, vec_b;  // set by gemm(): 16-byte copies allowed
   int vec_o;         // set by gemm(): 8-byte output pairs allowed
+  // set by gemm_bf16(): operands that come by TMA, and the tile walk
+  int tma_a, tma_b;
+  int n_fast;        // consecutive tiles share an A tile (else a B tile)
+  long tiles;        // output tiles over the batch
 };
 
 using tf32x3::bf16;
@@ -556,6 +562,532 @@ cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
   g.n = n_q;
   g.k = d;
   return gemm<false, false, false, false, T, T>(g, 1, st, done);
+}
+
+// ---------------------------------------------------------------------------
+// gemm_bf16: the same product (the Gemm struct, A_KM, B_KN, GATHER, ACC,
+// m_zero, the f32 output and its epilogue) for bf16 × bf16 operands at the
+// tensor cores' bf16 rate: `wgmma` m64n128k16 .f32.bf16.bf16 reads both
+// operands as stored, from shared memory in its 128-byte-swizzled layout,
+// and accumulates over the whole depth in the tensor cores (f32). Used by
+// the deep SCE (sce_gather.cu: the logits, dX = G · Y[idx], Gᵀ · x_b) and
+// the deep full CE (linear_ce.cu: the chunk's logits, dX += G · W_chunk,
+// dW_chunk = Gᵀ · X) on bf16 operands, G their bf16 cotangent; the score
+// slab keeps the one-TF32 pass above, so that its scores stay tied to
+// eval_tgt_gather's bit for bit.
+//
+// What bounds it on an H100: 2·M·N·K FLOP at the dense bf16 989 TFLOP/s;
+// the bytes (each operand once at 2 B a value, the f32 output once) where
+// the depth is short (Gᵀ · x_b: K = b_x = 128).
+//
+// Design (Hopper's usual shape, cuda_guide.md "Warp Specialization"):
+//   * a persistent grid, one block an SM, walking 128 × 128 output tiles
+//     (n fastest where A is the larger operand, so a tile of A is read
+//     once while B's rows stay in L2; else m fastest). The tile, from
+//     the clock profile by phase (probes/deep_tc_turns.py profile bf16):
+//     the gathered products wait on their copies and dY's slot rows
+//     (K = b_x = 128) on their f32 stores, which a wider tile moves
+//     neither of; the SCE slabs are 1,024–18,432 tiles, so 128 × 128
+//     leaves no SM idle;
+//   * one producer warpgroup keeps a ring of kBStages stages of 64 depths
+//     (16 KB an operand) in flight, across tile boundaries: dense operands
+//     whose rows start 16-byte aligned come by TMA (one thread, a 3-D
+//     tensor map with the batch, zeros past the edges, completion on the
+//     stage's mbarrier); gathered rows (the TMA does not gather) by
+//     16-byte cp.async of its 128 threads into the same swizzled layout,
+//     the ids loaded apart from the copies (N-major: a stage ahead),
+//     tracked by the same mbarrier (cp.async.mbarrier.arrive.noinc); rows
+//     not 16-byte aligned through registers (2-byte loads, 16-byte shared
+//     stores) — one kernel, three ways in. (A 1-row TMA box per gathered
+//     row, which the address-keyed swizzle allows, was tried: 3.3–3.8×
+//     slower on the SCE logits and dX, 128 boxes of 128 bytes a stage;
+//     PERF.md.)
+//   * two consumer warpgroups of 64 output rows each issue four
+//     m64n128k16 `wgmma` a stage, keep one stage's group in flight and
+//     free the stage before (the empty mbarrier), and read the
+//     accumulators only after the tile's last group has landed (a read
+//     while a wgmma is in flight serializes them all: ptxas C7514).
+// Layouts (the TMA's SWIZZLE_128B, 1024-byte aligned stages): K-major
+// (A, or B without B_KN) 128 rows × 128 bytes, the 16-byte chunk c of row
+// r at c ^ (r mod 8); M- or N-major (A_KM, B_KN) two halves of 64 columns,
+// each 64 depth rows × 128 bytes swizzled alike — wgmma's transpose bits
+// take them as they are. Shared memory kBStages · 32 KB + barriers.
+
+constexpr int kBBK = 64;            // depth a stage: 128 bytes of bf16
+constexpr int kBStages = 6;
+constexpr int kBTile = kBM * kBBK * 2;  // bytes of one operand's stage
+constexpr int kBConsumers = 256;    // two warpgroups of 64 output rows
+constexpr int kBThreads = kBConsumers + 128;  // + the producer warpgroup
+constexpr size_t kBSmem = (size_t)kBStages * 2 * kBTile + 1024 + 256;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* b, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+// An arrival once this thread's cp.async copies so far have landed.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_u32(b))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(b)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A 3-D box of the tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A wgmma descriptor of a 128-byte-swizzled operand at p: lbo the stride
+// between 64-column halves (M- or N-major; K-major: unused, 16), sbo
+// 1024 bytes between groups of 8 rows.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d += A·Bᵀ on a 64 × 128 × 16 tile of bf16 from shared memory; TA / TB 1
+// for an M- / N-major operand.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, 1, 1, 1, %66, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "n"(TA), "n"(TB));
+}
+
+// The units of a producer thread pt (1,024 16-byte units of 8 values a
+// stage, 8 a thread): K-major, row (pt >> 3) + 16·i, 16-byte chunk
+// pt & 7; M- or N-major, depth row (pt >> 4) + 8·i, 8-column group
+// pt & 15 of 128 columns.
+template <bool MN>
+__device__ __forceinline__ int unit_row(int pt, int i) {
+  return MN ? (pt >> 4) + 8 * i : (pt >> 3) + 16 * i;
+}
+
+// A gathered operand's source ids of this thread's units: rows base + r
+// of the tile (K-major: fixed for the tile; MN-major: the stage's depth
+// rows), 0 past lim. Loaded apart from the copies, so that the eight
+// loads are in flight together (and, MN-major, a stage ahead).
+template <bool MN>
+__device__ __forceinline__ void load_ids(int (&ids)[8], const int* idx,
+                                         int lim, int base, int pt) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = base + unit_row<MN>(pt, i);
+    ids[i] = r < lim ? idx[r] : 0;
+  }
+}
+
+// One operand's stage written by the producer warpgroup's 128 threads
+// (thread pt) as the TMA would write it, for rows the TMA cannot take:
+// gathered rows by 16-byte cp.async (vec: rows 16-byte aligned), rows
+// not 16-byte aligned by 2-byte loads through registers and 16-byte
+// shared stores. K-major (!MN): rows r0 .. r0 + 127 of extent `extent`
+// (gathered: row r is src row clamp(ids)), depths k0 .. k0 + 63 of
+// `depth`. MN-major: depth rows k0 .. k0 + 63 (gathered: src rows
+// clamp(ids)), columns r0 .. r0 + 127 of `extent`. Values past either
+// edge are 0.
+template <bool MN, bool GATHER>
+__device__ __forceinline__ void copy_stage(unsigned char* tile,
+                                           const bf16* src, long ld,
+                                           int extent, int depth, int r0,
+                                           int k0, const int (&ids)[8],
+                                           int rows, bool vec, int pt) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = unit_row<MN>(pt, i);
+    long row;
+    int col, n;
+    uint32_t off;
+    if (!MN) {
+      const int c = pt & 7;
+      row = r0 + r;
+      col = k0 + 8 * c;
+      n = row < extent ? depth - col : 0;
+      off = r * 128 + ((c ^ (r & 7)) << 4);
+    } else {
+      const int c = pt & 15;
+      row = k0 + r;
+      col = r0 + 8 * c;
+      n = row < depth ? extent - col : 0;
+      off = (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+    }
+    n = n < 0 ? 0 : (n > 8 ? 8 : n);
+    if (GATHER) row = ids[i] < 0 ? 0 : (ids[i] >= rows ? rows - 1 : ids[i]);
+    const bf16* p = n > 0 ? src + row * ld + col : src;
+    if (vec) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       smem_u32(tile + off)),
+                   "l"(p), "r"(2 * n)
+                   : "memory");
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < n) w[j >> 1] |= (uint32_t)p[j].bits << (16 * (j & 1));
+      *reinterpret_cast<uint4*>(tile + off) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+template <bool A_KM, bool B_KN, bool GATHER, bool ACC>
+__global__ void __launch_bounds__(kBThreads, 1)
+    gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b, Gemm g) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* const full =
+      reinterpret_cast<uint64_t*>(smem + (size_t)kBStages * 2 * kBTile);
+  uint64_t* const empty = full + kBStages;
+  const int tid = threadIdx.x;
+  const bool copies = !g.tma_a || !g.tma_b;
+  if (tid == 0) {
+    for (int s = 0; s < kBStages; ++s) {
+      mbar_init(full + s, 1 + (copies ? 128 : 0));
+      mbar_init(empty + s, kBConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int gm = (g.m + kBM - 1) / kBM, gn = (g.n + kBN - 1) / kBN;
+  const int chunks = (g.k + kBBK - 1) / kBBK;
+  // output tile → (m0, n0, batch)
+  auto tile_of = [&](long t, long& m0, int& n0, long& bt) {
+    bt = t / ((long)gm * gn);
+    const long r = t - bt * gm * gn;
+    const long mt = g.n_fast ? r / gn : r % gm;
+    const long nt = g.n_fast ? r % gn : r / gm;
+    m0 = mt * kBM;
+    n0 = (int)nt * kBN;
+  };
+
+  if (tid >= kBConsumers) {  // the producer warpgroup
+    const int pt = tid - kBConsumers;
+    const bool sync_copy = (!g.tma_a && !g.vec_a) || (!g.tma_b && !g.vec_b);
+    const int tx = (g.tma_a ? kBTile : 0) + (g.tma_b ? kBTile : 0);
+    long it = 0;
+    for (long t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+      long m0, bt;
+      int n0;
+      tile_of(t, m0, n0, bt);
+      const bf16* const A = static_cast<const bf16*>(g.a) + bt * g.a_batch;
+      const bf16* const B =
+          static_cast<const bf16*>(g.b) + (GATHER ? 0 : bt * g.b_batch);
+      const int* const idx = GATHER ? g.b_idx + bt * g.idx_batch : nullptr;
+      // gathered ids: K-major once a tile; N-major a stage ahead
+      int ids[8] = {}, next[8] = {};
+      if (GATHER)
+        load_ids<B_KN>(B_KN ? next : ids, idx, B_KN ? g.k : g.n,
+                       B_KN ? 0 : n0, pt);
+      for (int c = 0; c < chunks; ++c, ++it) {
+        const int s = (int)(it % kBStages);
+        mbar_wait(empty + s, (uint32_t)((it / kBStages) & 1) ^ 1u);
+        unsigned char* const ta = smem + (size_t)s * 2 * kBTile;
+        unsigned char* const tb = ta + kBTile;
+        const int k0 = c * kBBK;
+        if (pt == 0) {
+          mbar_arrive_tx(full + s, tx);
+          if (g.tma_a) {
+            if (!A_KM) {
+              tma_load(ta, &map_a, k0, (int)m0, (int)bt, full + s);
+            } else {
+              tma_load(ta, &map_a, (int)m0, k0, (int)bt, full + s);
+              tma_load(ta + kBTile / 2, &map_a, (int)m0 + 64, k0, (int)bt,
+                       full + s);
+            }
+          }
+          if (g.tma_b) {
+            if (!B_KN) {
+              tma_load(tb, &map_b, k0, n0, (int)bt, full + s);
+            } else {
+              tma_load(tb, &map_b, n0, k0, (int)bt, full + s);
+              tma_load(tb + kBTile / 2, &map_b, n0 + 64, k0, (int)bt,
+                       full + s);
+            }
+          }
+        }
+        if (!g.tma_a)
+          copy_stage<A_KM, false>(ta, A, g.lda, g.m, g.k, (int)m0, k0, ids,
+                                  0, false, pt);
+        if (GATHER && B_KN) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) ids[i] = next[i];
+          if (c + 1 < chunks) load_ids<true>(next, idx, g.k, k0 + kBBK, pt);
+        }
+        if (!g.tma_b)
+          copy_stage<B_KN, GATHER>(tb, B, g.ldb, g.n, g.k, n0, k0, ids,
+                                   g.b_rows, g.vec_b, pt);
+        if (sync_copy) {  // registers' stores (and any cp.async)
+          asm volatile("cp.async.wait_all;\n" ::: "memory");
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_arrive(full + s);
+        } else if (copies) {
+          mbar_arrive_cp_async(full + s);
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // the consumer warpgroups: rows 64·wg .. 64·wg + 63 of each tile
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int wg = warp >> 2;
+  const uint32_t lbo_a = A_KM ? 8192 : 16, lbo_b = B_KN ? 8192 : 16;
+  long it = 0;
+  for (long t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+    long m0, bt;
+    int n0;
+    tile_of(t, m0, n0, bt);
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    int prev = -1;
+    for (int c = 0; c < chunks; ++c, ++it) {
+      const int s = (int)(it % kBStages);
+      mbar_wait(full + s, (uint32_t)((it / kBStages) & 1));
+      if (copies) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      const unsigned char* const ta = smem + (size_t)s * 2 * kBTile;
+      const unsigned char* const tb = ta + kBTile;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBBK / 16; ++kk) {
+        const uint64_t da = sw128_desc(
+            ta + wg * (kBTile / 2) + kk * (A_KM ? 2048 : 32), lbo_a);
+        const uint64_t db = sw128_desc(tb + kk * (B_KN ? 2048 : 32), lbo_b);
+        wgmma_bf16<A_KM ? 1 : 0, B_KN ? 1 : 0>(acc, da, db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the stage before has been read: free it
+      if (prev >= 0) mbar_arrive(empty + prev);
+      prev = s;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(empty + prev);
+
+    // acc[4j + 2h + u]: row 16·(warp & 3) + gq + 8h of the warpgroup's 64,
+    // column 8j + 2q + u (wgmma's accumulator layout).
+    float* out = g.out + bt * g.out_batch;
+    if (g.vec_o == 2) {
+      // 16-byte stores: lanes q and q ^ 1 swap a pair, so that an even q
+      // holds 4 columns of row h = 0 and an odd q 4 columns of row h = 1
+      const int hh = q & 1;
+      const long m = m0 + 64 * wg + 16 * (warp & 3) + gq + 8 * hh;
+      const bool live = m < g.m;
+      const bool zero = live && g.m_zero != nullptr &&
+                        g.m_zero[bt * g.mz_batch + m] < 0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float r0 = __shfl_xor_sync(
+            0xffffffffu, hh ? acc[4 * j] : acc[4 * j + 2], 1);
+        const float r1 = __shfl_xor_sync(
+            0xffffffffu, hh ? acc[4 * j + 1] : acc[4 * j + 3], 1);
+        float4 v = hh ? make_float4(r0, r1, acc[4 * j + 2], acc[4 * j + 3])
+                      : make_float4(acc[4 * j], acc[4 * j + 1], r0, r1);
+        const int n = n0 + 8 * j + 2 * (q & 2);
+        if (!live || n >= g.n) continue;
+        if (zero) v = make_float4(0.f, 0.f, 0.f, 0.f);
+        float* o = out + m * g.ldo + n;
+        if (n + 3 < g.n) {
+          if (ACC) {
+            const float4 w = *reinterpret_cast<const float4*>(o);
+            v = make_float4(w.x + v.x, w.y + v.y, w.z + v.z, w.w + v.w);
+          }
+          *reinterpret_cast<float4*>(o) = v;
+        } else {
+          const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (n + u < g.n) o[u] = ACC ? o[u] + e[u] : e[u];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long m = m0 + 64 * wg + 16 * (warp & 3) + gq + 8 * h;
+        if (m >= g.m) continue;
+        const bool zero =
+            g.m_zero != nullptr && g.m_zero[bt * g.mz_batch + m] < 0;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int n = n0 + 8 * j + 2 * q;
+          if (n >= g.n) continue;
+          float* o = out + m * g.ldo + n;
+          float v0 = zero ? 0.f : acc[4 * j + 2 * h];
+          float v1 = zero ? 0.f : acc[4 * j + 2 * h + 1];
+          if (g.vec_o && n + 1 < g.n) {
+            if (ACC) {
+              const float2 w = *reinterpret_cast<const float2*>(o);
+              v0 = w.x + v0;
+              v1 = w.y + v1;
+            }
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            o[0] = ACC ? o[0] + v0 : v0;
+            if (n + 1 < g.n) o[1] = ACC ? o[1] + v1 : v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched once through the runtime's entry-point
+// lookup (no link against libcuda); null where libcuda lacks it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A bf16 operand's tensor map: `batch` matrices `outer` rows of `inner`
+// values, rows ld values apart, matrices `batch_ld` apart; boxes of 64
+// values × box_rows rows, 128-byte swizzle, zeros out of range.
+inline bool bf16_map(CUtensorMap* map, const void* base, long inner,
+                     long outer, long batch, long ld, long batch_ld,
+                     int box_rows) {
+  const EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  if (batch <= 1) batch_ld = ld * outer;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer,
+                              (cuuint64_t)(batch < 1 ? 1 : batch)};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2,
+                                 (cuuint64_t)batch_ld * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t el[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(base), dims, strides, box, el,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The card's SM count (the persistent grid), per device.
+inline int sm_count() {
+  static int n[tf32x3::kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < tf32x3::kMaxDevices && n[dev] > 0) return n[dev];
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < tf32x3::kMaxDevices) n[dev] = v;
+  return v;
+}
+
+// Launches `batch` bf16 products on stream s (shapes and options as
+// gemm()); `done` the caller's shared-memory opt-in table.
+// cudaErrorInvalidValue for an empty shape, and where
+// cuTensorMapEncodeTiled refuses a tensor map.
+template <bool A_KM, bool B_KN, bool GATHER, bool ACC>
+cudaError_t gemm_bf16(Gemm g, long batch, cudaStream_t s,
+                      bool (&done)[tf32x3::kMaxDevices]) {
+  if (g.m <= 0 || g.n <= 0 || g.k <= 0 || batch <= 0 ||
+      batch > 0x7fffffffL)
+    return cudaErrorInvalidValue;
+  const long gm = (g.m + kBM - 1) / kBM, gn = (g.n + kBN - 1) / kBN;
+  g.tiles = gm * gn * batch;
+  g.n_fast = g.m > g.n;
+  g.vec_a = vec_ok(g.a, g.a_batch, g.lda, 2);
+  g.vec_b = vec_ok(g.b, GATHER ? 0 : g.b_batch, g.ldb, 2);
+  // the output's widest stores: 16 bytes (2), 8 (1) or 4 (0)
+  g.vec_o = vec_ok(g.out, g.out_batch, g.ldo, 4)
+                ? 2
+                : g.ldo % 2 == 0 && g.out_batch % 2 == 0 &&
+                      reinterpret_cast<uintptr_t>(g.out) % 8 == 0;
+  CUtensorMap ma{}, mb{};
+  g.tma_a = g.vec_a;
+  g.tma_b = g.vec_b && !GATHER;
+  if (g.tma_a && !(A_KM ? bf16_map(&ma, g.a, g.m, g.k, batch, g.lda,
+                                   g.a_batch, 64)
+                        : bf16_map(&ma, g.a, g.k, g.m, batch, g.lda,
+                                   g.a_batch, kBM)))
+    return cudaErrorInvalidValue;
+  if (g.tma_b && !(B_KN ? bf16_map(&mb, g.b, g.n, g.k, batch, g.ldb,
+                                   g.b_batch, 64)
+                        : bf16_map(&mb, g.b, g.k, g.n, batch, g.ldb,
+                                   g.b_batch, kBN)))
+    return cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidValue;
+  auto kernel = gemm_bf16_kernel<A_KM, B_KN, GATHER, ACC>;
+  cudaError_t err = tf32x3::allow_max_smem(kernel, done);
+  if (err != cudaSuccess) return err;
+  const long grid = g.tiles < sms ? g.tiles : sms;
+  kernel<<<(unsigned)grid, kBThreads, kBSmem, s>>>(ma, mb, g);
+  return cudaGetLastError();
 }
 
 }  // namespace deep_tc

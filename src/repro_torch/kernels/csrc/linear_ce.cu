@@ -128,7 +128,8 @@
 // chunks of `chunk` rows that a slab budget fixes (kernels/linear_sce.py
 // deep_chunk), as the deep eval_fused walks its score slabs:
 //   * forward: per chunk, the (N, chunk) logits slab by deep_tc.cuh's
-//     3xTF32 product (positions as A, catalog rows as B), then
+//     3xTF32 product (positions as A, catalog rows as B; bf16 operands
+//     on its bf16 `wgmma` product, gemm_bf16), then
 //     deep_fold_kernel, a warp per row: the softcap, the online (m, s)
 //     merged after the chunks before it, the target's logit plucked from
 //     the same slab value in its chunk; deep_finish_kernel writes lse and
@@ -150,9 +151,11 @@
 // into planes whose lo is 0, so the forward, dX and dW (ONE) take one
 // TF32 pass a product — the lo passes would add exact zeros — and dX and
 // dW round the cotangent to bf16 before its product, as the reference's
-// gw.astype(w.dtype); the deep entries read bf16 x and w as stored
-// (deep_tc.cuh, one pass) and round the slab's cotangent the same way.
-// Every output is f32; the wrapper rounds dX and dW once.
+// gw.astype(w.dtype); the deep entries read bf16 x and w as stored into
+// deep_tc.cuh's bf16 `wgmma` (gemm_bf16) and write the chunk's cotangent
+// rounded once as bf16 (rows of 16 bytes beside the f32 logits slab),
+// which dX's and dW's products read at the bf16 rate. Every output is
+// f32; the wrapper rounds dX and dW once.
 //
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -1027,6 +1030,21 @@ cudaError_t tc_gemm(const deep_tc::Gemm& g, cudaStream_t s, long batch = 1) {
   return deep_tc::gemm<A_KM, B_KN, GATHER, ACC, TA, TB>(g, batch, s, done);
 }
 
+// deep_tc's bf16 product (gemm_bf16: bf16 × bf16 at the bf16 rate), with
+// its own opt-in table.
+template <bool A_KM, bool B_KN, bool ACC, bool GATHER = false>
+cudaError_t bf16_gemm(const deep_tc::Gemm& g, cudaStream_t s,
+                      long batch = 1) {
+  static bool done[kMaxDevices] = {};
+  return deep_tc::gemm_bf16<A_KM, B_KN, GATHER, ACC>(g, batch, s, done);
+}
+
+// The bf16 cotangent slab's row pitch: the chunk rounded up to 8 values,
+// so that its rows start 16-byte aligned and the products take G by TMA.
+__host__ __device__ inline int g_pitch(int chunk) {
+  return (chunk + 7) / 8 * 8;
+}
+
 
 // Calls f(std::integral_constant<bool, v>).
 template <class F>
@@ -1034,7 +1052,8 @@ cudaError_t with_bool(bool v, F&& f) {
   return v ? f(True{}) : f(False{});
 }
 
-// slab[r][j] = x[r] · w[c0 + j] for j < cc, at pitch ld; x, w of type T.
+// slab[r][j] = x[r] · w[c0 + j] for j < cc, at pitch ld; x, w of type T
+// (bf16: gemm_bf16).
 template <typename T>
 cudaError_t chunk_logits(const void* x, const void* w, float* slab, int ld,
                          int n, int c0, int cc, int d, cudaStream_t s) {
@@ -1048,7 +1067,10 @@ cudaError_t chunk_logits(const void* x, const void* w, float* slab, int ld,
   g.m = n;
   g.n = cc;
   g.k = d;
-  return tc_gemm<false, false, false, false, T>(g, s);
+  if constexpr (sizeof(T) == 2)
+    return bf16_gemm<false, false, false>(g, s);
+  else
+    return tc_gemm<false, false, false, false, T>(g, s);
 }
 
 // One chunk of the forward, a warp per row: the online (m, s) of the
@@ -1112,31 +1134,34 @@ deep_finish_kernel(const float* __restrict__ state, float* __restrict__ loss,
   if (PLUCK) loss[r] = l2 - state[3L * r + 2];
 }
 
-// The chunk's logits in the slab → the cotangent in place:
-// (p − onehot)·cap′·g, the resident backward's entry (cotangent above),
-// rounded to bf16 (ROUND_G) before bf16 operands' products.
-template <bool PLUCK, bool CAP, bool ROUND_G>
+// The chunk's logits in the slab → the cotangent (p − onehot)·cap′·g,
+// the resident backward's entry (cotangent above): f32 in place, or (BF)
+// for bf16 operands rounded to bf16 once, as the reference's
+// gw.astype(w.dtype), into gb (n rows at pitch g_pitch(ld)).
+// A block per row at a time, its threads along the chunk.
+template <bool PLUCK, bool CAP, bool BF>
 __global__ void __launch_bounds__(256)
-deep_cotangent_kernel(float* __restrict__ slab, int ld,
-                      const int* __restrict__ tgt,
+deep_cotangent_kernel(float* __restrict__ slab, bf16* __restrict__ gb,
+                      int ld, const int* __restrict__ tgt,
                       const float* __restrict__ lse,
                       const float* __restrict__ g, int n, int c0, int cc,
                       float cap) {
-  const long total = (long)n * cc;
-  for (long e = (long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (long)gridDim.x * blockDim.x) {
-    const long row = e / cc;
-    const int j = (int)(e - row * cc);
-    float* p = slab + row * ld + j;
-    const float l = logit<CAP>(*p, cap);
-    const float v = cotangent<PLUCK, CAP>(l, lse[row], g[row], true,
-                                          PLUCK && tgt[row] == c0 + j, cap);
-    *p = ROUND_G ? round_bf16(v) : v;
+  const int ldg = g_pitch(ld);
+  for (long row = blockIdx.x; row < n; row += gridDim.x) {
+    const float ls = lse[row], gr = g[row];
+    const int t = PLUCK ? tgt[row] - c0 : -1;
+    float* const p = slab + row * ld;
+    for (int j = threadIdx.x; j < cc; j += blockDim.x) {
+      const float l = logit<CAP>(p[j], cap);
+      const float v =
+          cotangent<PLUCK, CAP>(l, ls, gr, true, PLUCK && t == j, cap);
+      if (BF)
+        gb[row * ldg + j].bits =
+            (uint16_t)(__float_as_uint(round_bf16(v)) >> 16);
+      else
+        p[j] = v;
+    }
   }
-}
-
-unsigned grid_of(long total) {
-  return (unsigned)(total / 256 + 1 < 65536 ? total / 256 + 1 : 65536);
 }
 
 }  // namespace
@@ -1388,23 +1413,27 @@ extern "C" int linear_ce_fwd_deep_launch(const void* x, const void* w,
 }
 
 // dX (n, d) and dW (c, d) — either may be null, not both — for the
-// upstream cotangent g (n,), each chunk's cotangent written once (rounded
-// to bf16 with bf16_in) and read by both products: dX += G · w_chunk over
-// the chunks in order (the first writes), dW's chunk rows = Gᵀ · x, each
-// written once; both f32.
+// upstream cotangent g (n,), each chunk's cotangent written once and read
+// by both products: dX += G · w_chunk over the chunks in order (the first
+// writes), dW's chunk rows = Gᵀ · x, each written once; both f32. With
+// bf16_in the cotangent is rounded to bf16 into gslab, (n, ⌈chunk / 8⌉·8)
+// bf16 (null for f32 operands), and both products run on gemm_bf16.
 extern "C" int linear_ce_bwd_deep_launch(const void* x, const void* w,
                                          const int* tgt, const float* lse,
                                          const float* g, float* dx, float* dw,
-                                         float* slab, int n, int c, int d,
-                                         int chunk, int pluck, float cap,
-                                         int bf16_in, void* stream) {
+                                         float* slab, void* gslab, int n,
+                                         int c, int d, int chunk, int pluck,
+                                         float cap, int bf16_in,
+                                         void* stream) {
   if (!shapes_ok(n, c, d, true) || chunk < 1 || chunk % 4 != 0 ||
-      (pluck && tgt == nullptr) || (dx == nullptr && dw == nullptr))
+      (pluck && tgt == nullptr) || (dx == nullptr && dw == nullptr) ||
+      (bf16_in && gslab == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* const gb = static_cast<bf16*>(gslab);
   return (int)by_dtype(bf16_in, [&](auto t) {
   using T = decltype(t);
-  constexpr bool RG = sizeof(T) == 2;
+  constexpr bool BF = sizeof(T) == 2;
   return with_flags(pluck != 0, cap > 0.f, [&](auto pl, auto cp) {
     constexpr bool PL = decltype(pl)::value;
     constexpr bool CP = decltype(cp)::value;
@@ -1413,14 +1442,14 @@ extern "C" int linear_ce_bwd_deep_launch(const void* x, const void* w,
       cudaError_t err =
           chunk_logits<T>(x, w, slab, chunk, n, (int)c0, cc, d, st);
       if (err != cudaSuccess) return err;
-      deep_cotangent_kernel<PL, CP, RG>
-          <<<grid_of((long)n * cc), 256, 0, st>>>(slab, chunk, tgt, lse, g, n,
-                                                  (int)c0, cc, cap);
+      deep_cotangent_kernel<PL, CP, BF>
+          <<<(unsigned)(n < (1 << 20) ? n : 1 << 20), 256, 0, st>>>(
+              slab, gb, chunk, tgt, lse, g, n, (int)c0, cc, cap);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
       deep_tc::Gemm p{};
-      p.a = slab;
-      p.lda = chunk;
+      p.a = BF ? static_cast<const void*>(gb) : slab;
+      p.lda = BF ? g_pitch(chunk) : chunk;
       p.ldo = d;
       p.n = d;
       p.ldb = d;
@@ -1430,8 +1459,12 @@ extern "C" int linear_ce_bwd_deep_launch(const void* x, const void* w,
         q.out = dx;
         q.m = n;
         q.k = cc;
-        err = c0 == 0 ? tc_gemm<false, true, false, false, float, T>(q, st)
-                      : tc_gemm<false, true, true, false, float, T>(q, st);
+        if constexpr (BF)
+          err = c0 == 0 ? bf16_gemm<false, true, false>(q, st)
+                        : bf16_gemm<false, true, true>(q, st);
+        else
+          err = c0 == 0 ? tc_gemm<false, true, false, false, float, T>(q, st)
+                        : tc_gemm<false, true, true, false, float, T>(q, st);
         if (err != cudaSuccess) return err;
       }
       if (dw != nullptr) {  // dW[c0 + j] = Σ_r G[r][j]·x[r]
@@ -1439,7 +1472,10 @@ extern "C" int linear_ce_bwd_deep_launch(const void* x, const void* w,
         p.out = dw + c0 * d;
         p.m = cc;
         p.k = n;
-        err = tc_gemm<true, true, false, false, float, T>(p, st);
+        if constexpr (BF)
+          err = bf16_gemm<true, true, false>(p, st);
+        else
+          err = tc_gemm<true, true, false, false, float, T>(p, st);
         if (err != cudaSuccess) return err;
       }
     }
@@ -1448,25 +1484,40 @@ extern "C" int linear_ce_bwd_deep_launch(const void* x, const void* w,
   });
 }
 
-// deep_tc.cuh's product on its own, in every operand option (the entry
-// of tests and probes; the deep variants above call it inline): `batch`
-// products C[t] = A[t] · B[t]ᵀ of deep_tc::Gemm's shapes, out = C or,
-// with acc, out += C. With bf16_in both operands are bfloat16 (one TF32
-// pass; without gather or acc, the options no bf16 caller needs).
+// deep_tc.cuh's products on their own, in every operand option (the
+// entry of tests and probes; the deep variants above call them inline):
+// `batch` products C[t] = A[t] · B[t]ᵀ of deep_tc::Gemm's shapes, out = C
+// or, with acc, out += C. f32 operands: the 3xTF32 product. With bf16_in
+// both operands are bfloat16: gemm_bf16 (every option), or with one_pass
+// the score slab's one TF32 pass (without gather or acc, the options no
+// slab needs).
 extern "C" int deep_tc_launch(const void* a, const void* b,
                               const int* idx, const int* m_zero, float* out,
                               int m, int n, int k, int lda, int ldb, int ldo,
                               long a_batch, long b_batch, long idx_batch,
                               long out_batch, long mz_batch, int b_rows,
                               int batch, int a_km, int b_kn, int gather,
-                              int acc, int bf16_in, void* stream) {
+                              int acc, int bf16_in, int one_pass,
+                              void* stream) {
   if ((gather && (idx == nullptr || b_rows < 1)) ||
-      (bf16_in && (gather || acc)))
+      (one_pass && (!bf16_in || gather || acc)))
     return (int)cudaErrorInvalidValue;
   deep_tc::Gemm g{a,   a_batch,   lda, b,      b_batch,  ldb,
                   idx, idx_batch, b_rows, out, out_batch, ldo,
                   m_zero, mz_batch, m, n, k, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16_in && !one_pass)
+    return (int)with_bool(a_km != 0, [&](auto akm) {
+      return with_bool(b_kn != 0, [&](auto bkn) {
+        return with_bool(gather != 0, [&](auto gat) {
+          return with_bool(acc != 0, [&](auto ac) {
+            return bf16_gemm<decltype(akm)::value, decltype(bkn)::value,
+                             decltype(ac)::value, decltype(gat)::value>(
+                g, st, batch);
+          });
+        });
+      });
+    });
   if (bf16_in)
     return (int)with_bool(a_km != 0, [&](auto akm) {
       return with_bool(b_kn != 0, [&](auto bkn) {

@@ -193,16 +193,18 @@
 //   * the logits L[n] = x_b[n] · Y[idx[n]]ᵀ (n_b, b_x, b_y) f32 into a
 //     workspace, by deep_tc.cuh's product (positions as A, candidates
 //     gathered by id as B, 3xTF32 k16 steps over depth chunks of 32, the
-//     resident kernels' arithmetic; bf16 operands in one TF32 pass, and
-//     the cotangent rounded to bf16 before dX's and dY's products);
+//     resident kernels' arithmetic; bf16 operands on its bf16 `wgmma`
+//     product, gemm_bf16, the cotangent written as bf16 for dX's and
+//     dY's products);
 //   * the forward: fold_kernel, a warp per (bucket, position) row, folds
 //     the row's softcapped, masked logits into the online (m, s) and
 //     writes loss and lse (or the plse) as above;
 //   * the backward (one entry for dX and dY, *_bwd_deep_launch)
 //     recomputes L with the same product (the same bits, so the
 //     forward's lse and the backward's exp(l − lse) come from one
-//     rounding) and turns it in place into the cotangent G once
-//     (cotangent_kernel: the softcap, the mask, the capped exp, g); then
+//     rounding) and turns it into the cotangent G once (cotangent_kernel:
+//     the softcap, the mask, the capped exp, g; f32 in place, or bf16
+//     operands' G rounded once into a bf16 buffer of 16-byte rows); then
 //     dX = G · Y[idx] and the slot rows Gᵀ · x_b, both read that one G,
 //     by the same product, each a d-wide output tiled 128 columns a
 //     block, no atomics: dX repeats bit for bit and the gathered dY's
@@ -217,11 +219,13 @@
 // resident kernels.
 //
 // bfloat16 operands (the entries' bf16_in): x_b and y are read as stored
-// and widened to f32 where they land (the resident kernels' staging,
-// deep_tc.cuh's split), and dX and dY round the cotangent to bf16 before
-// their products, as the reference's gw.astype(tile.dtype). Every output
-// is f32: dX, and dY's workspace and in-order sum, are rounded to bf16
-// once by the wrapper (the reference adds bf16 partials into dY).
+// — widened to f32 where they land in the resident kernels' staging,
+// taken as bf16 by the deep entries' bf16 `wgmma` (gemm_bf16) — and dX
+// and dY round the cotangent to bf16 before their products, as the
+// reference's gw.astype(tile.dtype). dX and dY's workspace are f32, dX
+// rounded to bf16 once by the wrapper; the in-order sum writes a bf16
+// catalog's rows as bf16, each f32 sum rounded once (the reference adds
+// bf16 partials into dY).
 //
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -1007,50 +1011,81 @@ sce_bwd_kernel(BwdArgs a) {
 // catalog in the reference's order.
 // ---------------------------------------------------------------------------
 constexpr int kSumThreads = 256;
+constexpr int kSumGroups = 4;  // 4-depth groups a thread, 32 groups apart
 
 // keys: the n_slots catalog rows of the flat slots n·b_y + j (clamped to
 // [0, C)), sorted, a slot that adds nothing (a negative id) keyed C so
 // that it sorts last; order: the slot of each, ascending within a key (a
-// stable sort). One thread per (sorted slot, four depths) that starts a
-// run of equal keys below C adds the run's workspace rows from 0 in
-// ascending (bucket, slot) order — the order of the reference's
-// read-modify-write into the aliased dY — and writes the catalog row
-// once. Rows no bucket selected keep the zeros the wrapper put there. On
-// a shard of the distributed exact mode most slots are another shard's:
-// keyed C, they cost no walk.
+// stable sort). A warp per (sorted slot, segment of 128 four-depth
+// groups) — lane l takes groups l, l + 32, l + 64, l + 96 of the
+// segment, so each load of the warp is 512 contiguous bytes and four are
+// in flight a thread — that starts a run of equal keys below C adds the
+// run's workspace rows from 0 in ascending (bucket, slot) order — the
+// order of the reference's read-modify-write into the aliased dY — and
+// writes the catalog row once (TO bf16: each f32 sum rounded once). Rows
+// no bucket selected keep the zeros the wrapper put there. On a shard of
+// the distributed exact mode most slots are another shard's: keyed C,
+// they cost no walk.
+template <typename TO>
 __global__ void __launch_bounds__(kSumThreads)
 dy_sum_kernel(const float* __restrict__ ws, const int* __restrict__ keys,
-              const long long* __restrict__ order, float* __restrict__ dy,
+              const long long* __restrict__ order, TO* __restrict__ dy,
               int n_slots, int d, int c, int vec) {
   const int dq = (d + 3) / 4;
-  const long e = (long)blockIdx.x * kSumThreads + threadIdx.x;
-  if (e >= (long)n_slots * dq) return;
-  const int p = (int)(e / dq), k = 4 * (int)(e - (long)p * dq);
+  const int segs = (dq + 32 * kSumGroups - 1) / (32 * kSumGroups);
+  const long w = ((long)blockIdx.x * kSumThreads + threadIdx.x) >> 5;
+  if (w >= (long)n_slots * segs) return;  // warp-uniform
+  const int p = (int)(w / segs);
+  const int g0 = (int)(w - (long)p * segs) * 32 * kSumGroups +
+                 (threadIdx.x & 31);
   const int key = keys[p];
   if (key < 0 || key >= c || (p > 0 && keys[p - 1] == key)) return;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[kSumGroups][4] = {};
   for (int i = p; i < n_slots && keys[i] == key; ++i) {
-    const float* src = ws + order[i] * d + k;
-    if (vec) {
-      const float4 v = *reinterpret_cast<const float4*>(src);
-      acc[0] += v.x;
-      acc[1] += v.y;
-      acc[2] += v.z;
-      acc[3] += v.w;
+    const float* src = ws + order[i] * d;
+#pragma unroll
+    for (int u = 0; u < kSumGroups; ++u) {
+      const int k = 4 * (g0 + 32 * u);
+      if (k >= d) continue;
+      if (vec) {
+        const float4 v = *reinterpret_cast<const float4*>(src + k);
+        acc[u][0] += v.x;
+        acc[u][1] += v.y;
+        acc[u][2] += v.z;
+        acc[u][3] += v.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k + j < d) acc[u][j] += src[k + j];
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kSumGroups; ++u) {
+    const int k = 4 * (g0 + 32 * u);
+    if (k >= d) continue;
+    TO* dst = dy + (long)key * d + k;
+    if constexpr (sizeof(TO) == 2) {  // bf16: the f32 sum rounded once
+      uint32_t b[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        b[j] = __float_as_uint(round_bf16(acc[u][j])) >> 16;
+      if (vec) {
+        *reinterpret_cast<uint2*>(dst) =
+            make_uint2(b[0] | (b[1] << 16), b[2] | (b[3] << 16));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k + j < d) dst[j].bits = (uint16_t)b[j];
+      }
+    } else if (vec) {
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (k + j < d) acc[j] += src[j];
+        if (k + j < d) dst[j] = acc[u][j];
     }
-  }
-  float* dst = dy + (long)key * d + k;
-  if (vec) {
-    *reinterpret_cast<float4*>(dst) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (k + j < d) dst[j] = acc[j];
   }
 }
 
@@ -1204,6 +1239,20 @@ cudaError_t tc_gemm(const deep_tc::Gemm& g, long batch, cudaStream_t s) {
                                                            done);
 }
 
+// deep_tc's bf16 product (gemm_bf16: bf16 × bf16 at the bf16 rate), with
+// its own opt-in table.
+template <bool A_KM, bool B_KN, bool GATHER>
+cudaError_t bf16_gemm(const deep_tc::Gemm& g, long batch, cudaStream_t s) {
+  static bool done[kMaxDevices] = {};
+  return deep_tc::gemm_bf16<A_KM, B_KN, GATHER, false>(g, batch, s, done);
+}
+
+// The bf16 cotangent's row pitch: b_y rounded up to 8 values, so that its
+// rows start 16-byte aligned and the products take G by TMA.
+__host__ __device__ inline int g_pitch(int b_y) {
+  return (b_y + 7) / 8 * 8;
+}
+
 // The logits L (n_b, b_x, b_y) of every bucket into ws: candidates
 // gathered by clamped id (or row n·b_y + j with DIRECT); x_b and y of
 // element type T.
@@ -1230,7 +1279,10 @@ cudaError_t deep_logits(const void* x_b, const void* y, const int* idx_y,
   g.m = b_x;
   g.n = b_y;
   g.k = d;
-  return tc_gemm<false, false, !DIRECT, T, T>(g, n_b, s);
+  if constexpr (sizeof(T) == 2)
+    return bf16_gemm<false, false, !DIRECT>(g, n_b, s);
+  else
+    return tc_gemm<false, false, !DIRECT, T, T>(g, n_b, s);
 }
 
 // The forward's fold of row blockIdx.x · kFoldWarps + warp: the online
@@ -1279,25 +1331,34 @@ fold_kernel(const float* __restrict__ ws, const int* __restrict__ tgt,
   }
 }
 
-// ws (n_b, b_x, b_y) logits → the cotangent gw in place (cotangent<CAP>:
-// 0 where masked, else exp(min(l − lse, 44))·cap′·g), rounded to bf16
-// (ROUND_G) before bf16 operands' products, as the reference rounds it.
-template <bool CAP, bool ROUND_G>
+// ws (n_b, b_x, b_y) logits → the cotangent gw (cotangent<CAP>: 0 where
+// masked, else exp(min(l − lse, 44))·cap′·g): f32 in place, or (BF) for
+// bf16 operands rounded to bf16 once, as the reference's
+// gw.astype(tile.dtype), into gb (n_b·b_x rows at pitch g_pitch(b_y)) —
+// the logits stay in ws.
+// A block per (bucket, position) row at a time, its threads along the
+// row.
+template <bool CAP, bool BF>
 __global__ void __launch_bounds__(256)
-cotangent_kernel(float* __restrict__ ws, const int* __restrict__ tgt,
-                 const int* __restrict__ cand, const float* __restrict__ lse,
-                 const float* __restrict__ g, long rows, int b_x, int b_y,
-                 float cap) {
-  const long total = rows * b_y;
-  for (long e = (long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (long)gridDim.x * blockDim.x) {
-    const long row = e / b_y;
-    const int j = (int)(e - row * b_y);
-    const int id = cand[(row / b_x) * b_y + j];
-    const bool masked = id < 0 || id == tgt[row];
-    const float v = cotangent<CAP>(ws[e], lse[row] * kLog2e, g[row], masked,
-                                   cap);
-    ws[e] = ROUND_G ? round_bf16(v) : v;
+cotangent_kernel(float* __restrict__ ws, bf16* __restrict__ gb,
+                 const int* __restrict__ tgt, const int* __restrict__ cand,
+                 const float* __restrict__ lse, const float* __restrict__ g,
+                 long rows, int b_x, int b_y, float cap) {
+  const int ldg = g_pitch(b_y);
+  for (long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const int t = tgt[row];
+    const float l2 = lse[row] * kLog2e, gr = g[row];
+    const int* const cd = cand + (row / b_x) * b_y;
+    float* const w = ws + row * b_y;
+    for (int j = threadIdx.x; j < b_y; j += blockDim.x) {
+      const int id = cd[j];
+      const float v = cotangent<CAP>(w[j], l2, gr, id < 0 || id == t, cap);
+      if (BF)
+        gb[row * ldg + j].bits =
+            (uint16_t)(__float_as_uint(round_bf16(v)) >> 16);
+      else
+        w[j] = v;
+    }
   }
 }
 
@@ -1328,36 +1389,38 @@ int launch_fwd_deep(const void* x_b, const void* y, const int* idx_y,
 
 // dX into dx and dY's slot rows into dy (either may be null, not both)
 // from one cotangent: the logits recomputed into ws and turned into the
-// cotangent there once, then each product reads it.
+// cotangent once (f32 in ws; bf16 operands: bf16 into gws), then each
+// product reads it.
 template <bool DIRECT, typename T>
 int launch_bwd_deep(const void* x_b, const void* y, const int* idx_y,
                     const int* tgt_b, const int* cand, const float* lse,
-                    const float* g, float* dx, float* dy, float* ws, int n_b,
-                    int b_x, int b_y, int c, int d, float cap, void* stream) {
+                    const float* g, float* dx, float* dy, float* ws,
+                    void* gws, int n_b, int b_x, int b_y, int c, int d,
+                    float cap, void* stream) {
+  constexpr bool BF = sizeof(T) == 2;
   if (!shapes_ok(n_b, b_x, b_y, c, d, true) || ws == nullptr ||
-      (dx == nullptr && dy == nullptr))
+      (BF && gws == nullptr) || (dx == nullptr && dy == nullptr))
     return (int)cudaErrorInvalidValue;
-  constexpr bool ROUND_G = sizeof(T) == 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bf16* const gb = static_cast<bf16*>(gws);
   cudaError_t err =
       deep_logits<DIRECT, T>(x_b, y, idx_y, ws, n_b, b_x, b_y, c, d, s);
   if (err != cudaSuccess) return (int)err;
   const long rows = (long)n_b * b_x;
-  const long total = rows * b_y;
-  const unsigned blocks =
-      (unsigned)(total / 256 + 1 < 65536 ? total / 256 + 1 : 65536);
+  const unsigned blocks = (unsigned)(rows < (1L << 20) ? rows : 1L << 20);
   if (cap > 0.f)
-    cotangent_kernel<true, ROUND_G><<<blocks, 256, 0, s>>>(
-        ws, tgt_b, cand, lse, g, rows, b_x, b_y, cap);
+    cotangent_kernel<true, BF><<<blocks, 256, 0, s>>>(
+        ws, gb, tgt_b, cand, lse, g, rows, b_x, b_y, cap);
   else
-    cotangent_kernel<false, ROUND_G><<<blocks, 256, 0, s>>>(
-        ws, tgt_b, cand, lse, g, rows, b_x, b_y, cap);
+    cotangent_kernel<false, BF><<<blocks, 256, 0, s>>>(
+        ws, gb, tgt_b, cand, lse, g, rows, b_x, b_y, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  const int ldg = BF ? g_pitch(b_y) : b_y;
   deep_tc::Gemm p{};
-  p.a = ws;
-  p.a_batch = (long)b_x * b_y;
-  p.lda = b_y;
+  p.a = BF ? static_cast<const void*>(gb) : ws;
+  p.a_batch = (long)b_x * ldg;
+  p.lda = ldg;
   p.ldb = d;
   p.ldo = d;
   p.n = d;
@@ -1375,7 +1438,10 @@ int launch_bwd_deep(const void* x_b, const void* y, const int* idx_y,
     q.out_batch = (long)b_x * d;
     q.m = b_x;
     q.k = b_y;
-    err = tc_gemm<false, true, !DIRECT, float, T>(q, n_b, s);
+    if constexpr (BF)
+      err = bf16_gemm<false, true, !DIRECT>(q, n_b, s);
+    else
+      err = tc_gemm<false, true, !DIRECT, float, T>(q, n_b, s);
     if (err != cudaSuccess) return (int)err;
   }
   if (dy != nullptr) {  // slot rows n·b_y + j: Σ_x G[x][j]·x_b[n, x]
@@ -1387,7 +1453,10 @@ int launch_bwd_deep(const void* x_b, const void* y, const int* idx_y,
     p.mz_batch = b_y;
     p.m = b_y;
     p.k = b_x;
-    err = tc_gemm<true, true, false, float, T>(p, n_b, s);
+    if constexpr (BF)
+      err = bf16_gemm<true, true, false>(p, n_b, s);
+    else
+      err = tc_gemm<true, true, false, float, T>(p, n_b, s);
   }
   return (int)err;
 }
@@ -1415,16 +1484,18 @@ extern "C" int sce_gather_plse_fwd_deep_launch(
 }
 
 // dX into dx and dY's slot rows into dy (n_b·b_y, d), either null when
-// not wanted: the logits and their cotangent written into ws once.
+// not wanted: the logits written into ws and their cotangent once — in
+// ws, or with bf16_in into gws, (n_b·b_x, ⌈b_y / 8⌉·8) bf16 (null for
+// f32 operands).
 extern "C" int sce_gather_bwd_deep_launch(
     const void* x_b, const void* y, const int* idx_y, const int* tgt_b,
     const int* cand, const float* lse, const float* g, float* dx, float* dy,
-    float* ws, int n_b, int b_x, int b_y, int c, int d, float cap,
-    int bf16_in, void* stream) {
+    float* ws, void* gws, int n_b, int b_x, int b_y, int c, int d,
+    float cap, int bf16_in, void* stream) {
   return (int)by_dtype(bf16_in, [&](auto t) {
     return launch_bwd_deep<false, decltype(t)>(x_b, y, idx_y, tgt_b, cand,
-                                               lse, g, dx, dy, ws, n_b, b_x,
-                                               b_y, c, d, cap, stream);
+                                               lse, g, dx, dy, ws, gws, n_b,
+                                               b_x, b_y, c, d, cap, stream);
   });
 }
 
@@ -1496,20 +1567,26 @@ extern "C" int sce_gather_fwd_plan(int d, int* warps, int* rows) {
 // the workspace ws (n_slots, d) — the slots' rows that sce_gather_dy_launch
 // wrote — per catalog row, in ascending slot order. keys (n_slots,) i32
 // are the slots' clamped catalog rows, C for a slot that adds nothing,
-// sorted; order (n_slots,) i64 the slot of each from a stable sort.
+// sorted; order (n_slots,) i64 the slot of each from a stable sort. dy
+// is f32, or bf16 with bf16_out (each row's f32 sum rounded once).
 extern "C" int sce_gather_dy_sum_launch(const float* ws, const int* keys,
-                                        const long long* order, float* dy,
+                                        const long long* order, void* dy,
                                         int n_slots, int d, int c,
-                                        void* stream) {
+                                        int bf16_out, void* stream) {
   if (n_slots <= 0 || d <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
-  const long threads = (long)n_slots * ((d + 3) / 4);
+  const int segs = ((d + 3) / 4 + 32 * kSumGroups - 1) / (32 * kSumGroups);
+  const long threads = (long)n_slots * segs * 32;
   const long blocks = (threads + kSumThreads - 1) / kSumThreads;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(ws) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(dy) % 16 == 0;
-  dy_sum_kernel<<<(unsigned)blocks, kSumThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(ws, keys, order, dy,
-                                                       n_slots, d, c, vec);
+                  reinterpret_cast<uintptr_t>(dy) % (bf16_out ? 8 : 16) == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_out)
+    dy_sum_kernel<<<(unsigned)blocks, kSumThreads, 0, s>>>(
+        ws, keys, order, static_cast<bf16*>(dy), n_slots, d, c, vec);
+  else
+    dy_sum_kernel<<<(unsigned)blocks, kSumThreads, 0, s>>>(
+        ws, keys, order, static_cast<float*>(dy), n_slots, d, c, vec);
   return (int)cudaGetLastError();
 }
 
@@ -1601,10 +1678,11 @@ extern "C" int sce_bucket_plse_fwd_deep_launch(
 extern "C" int sce_bucket_bwd_deep_launch(
     const void* x_b, const void* y_b, const int* tgt_b, const int* cand,
     const float* lse, const float* g, float* dx, float* dy_b, float* ws,
-    int n_b, int b_x, int b_y, int d, float cap, int bf16_in, void* stream) {
+    void* gws, int n_b, int b_x, int b_y, int d, float cap, int bf16_in,
+    void* stream) {
   return (int)by_dtype(bf16_in, [&](auto t) {
     return launch_bwd_deep<true, decltype(t)>(
-        x_b, y_b, nullptr, tgt_b, cand, lse, g, dx, dy_b, ws, n_b, b_x, b_y,
-        direct_rows(n_b, b_y), d, cap, stream);
+        x_b, y_b, nullptr, tgt_b, cand, lse, g, dx, dy_b, ws, gws, n_b, b_x,
+        b_y, direct_rows(n_b, b_y), d, cap, stream);
   });
 }

@@ -14,8 +14,10 @@ against one budget, ``SLAB_BYTES``.
 
 Operands (:func:`operand_dtype`): float32, or bfloat16 — the reference's
 two (``src/repro/kernels/guard/preflight.py``) — both operands of a
-product in one type. A bf16 operand is read as stored and widened to f32
-inside the kernel, where it lands; every product accumulates in f32.
+product in one type. A bf16 operand is read as stored: widened to f32
+inside the kernel where it lands (the resident kernels, the score slab's
+one TF32 pass), or taken as bf16 by ``deep_tc.cuh``'s bf16 ``wgmma``
+product (the deep SCE and full CE); every product accumulates in f32.
 """
 from __future__ import annotations
 
@@ -36,16 +38,18 @@ def is_deep(d: int, k: int = 0) -> bool:
     return d > MAX_D or k > SHALLOW_MAX_K
 
 
-def slab_rows(n: int, width: int, *, multiple: int = 1) -> int:
+def slab_rows(n: int, width: int, *, multiple: int = 1,
+              entry_bytes: int = 4) -> int:
     """Rows of ``n`` that one deep launch takes, so that its ``(rows,
-    width)`` f32 slab stays within ``SLAB_BYTES``: a multiple of
-    ``SLAB_ALIGN`` from there up, else of ``multiple``; at least
-    ``multiple``, at most ``n`` rounded up to ``multiple``.
-    ``mips_topk`` and the eval sweeps take query rows against a catalog
-    of ``width`` (multiple 1); the full CE takes catalog rows against
-    ``width`` positions (multiple 4: the slab's rows start 16-byte
-    aligned)."""
-    rows = max(1, SLAB_BYTES // (4 * max(width, 1)))
+    width)`` slab of ``entry_bytes`` an entry (f32: 4) stays within
+    ``SLAB_BYTES``: a multiple of ``SLAB_ALIGN`` from there up, else of
+    ``multiple``; at least ``multiple``, at most ``n`` rounded up to
+    ``multiple``. ``mips_topk`` and the eval sweeps take query rows
+    against a catalog of ``width`` (multiple 1); the full CE takes catalog
+    rows against ``width`` positions (multiple 4: the slab's rows start
+    16-byte aligned; on bf16 operands 6 bytes an entry, the f32 logits
+    and their bf16 cotangent)."""
+    rows = max(1, SLAB_BYTES // (entry_bytes * max(width, 1)))
     rows -= rows % (SLAB_ALIGN if rows >= SLAB_ALIGN else multiple)
     return min(max(rows, multiple), -(-n // multiple) * multiple)
 

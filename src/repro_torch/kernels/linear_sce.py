@@ -27,18 +27,20 @@ tensors only; the CPU path is ``kernels/ref.py``, chosen by
 Above ``MAX_D`` (:func:`is_deep`) the same wrappers launch the deep
 entries of ``csrc/linear_ce.cu``: no planes; the catalog in chunks of
 :func:`deep_chunk` rows, each chunk's ``(N, chunk)`` logits written into
-a slab by ``csrc/deep_tc.cuh``'s 3xTF32 product and folded (the
-forward), or recomputed, turned into the cotangent once and multiplied
-back into dX (accumulated over the chunks in order) and dW's chunk rows
-— both from one launch when autograd needs both.
+a slab by ``csrc/deep_tc.cuh``'s 3xTF32 product (bf16 operands: its
+bf16 ``wgmma`` product, ``gemm_bf16``) and folded (the forward), or
+recomputed, turned into the cotangent once and multiplied back into dX
+(accumulated over the chunks in order) and dW's chunk rows — both from
+one launch when autograd needs both.
 
 ``x`` and ``w`` are float32 or both bfloat16 (``deep.operand_dtype``):
 the split widens bf16 rows into planes whose lo is 0, which the forward,
 dX and dW then read in one TF32 pass a product (their lo passes would
-add zeros), the deep product reads them as stored (one pass as well),
-and both backwards round the
-cotangent to bf16 before its product (the reference's
-``gw.astype(w.dtype)``). Outputs keep the reference's types: the loss in
+add zeros); the deep products read them as stored at the bf16 rate, the
+backward's cotangent rounded once into a bf16 slab beside the f32
+logits (:func:`_cotangent_slab`). Both backwards round the cotangent to
+bf16 before its product (the reference's ``gw.astype(w.dtype)``).
+Outputs keep the reference's types: the loss in
 ``x``'s, the lse f32, dX in ``x``'s and dW in ``w``'s, accumulated in f32
 and rounded once. ``lse`` and ``g`` go to the kernels as f32.
 """
@@ -60,12 +62,14 @@ PAIR_SMEM = 233_472 // 2 - 1024  # two blocks an SM, 1 KB reserved each
 FWD_MAX_WARPS = 8  # kFwdMaxWarps in csrc/linear_ce.cu
 
 
-def deep_chunk(n: int, c: int) -> int:
+def deep_chunk(n: int, c: int, dtype=torch.float32) -> int:
     """Catalog rows a deep call's slab holds: ``deep.slab_rows`` of the
     catalog against ``n`` positions, a multiple of 4 (the slab's rows
     start 16-byte aligned) and of 128 from there up, its ``(n, chunk)``
-    f32 slab within ``deep.SLAB_BYTES``."""
-    return slab_rows(c, n, multiple=4)
+    f32 slab — on bf16 operands with the backward's ``(n, chunk)`` bf16
+    cotangent beside it — within ``deep.SLAB_BYTES``."""
+    return slab_rows(c, n, multiple=4,
+                     entry_bytes=6 if dtype == torch.bfloat16 else 4)
 
 
 def padded_depth(d: int) -> int:
@@ -167,9 +171,9 @@ def _lib() -> ctypes.CDLL:
     lib.linear_ce_fwd_plan.argtypes = [i] + [ctypes.POINTER(i)] * 2
     lib.linear_ce_bwd_plan.argtypes = [i, i] + [ctypes.POINTER(i)] * 2
     lib.linear_ce_fwd_deep_launch.argtypes = [p] * 7 + [i] * 5 + [f, i, p]
-    lib.linear_ce_bwd_deep_launch.argtypes = [p] * 8 + [i] * 5 + [f, i, p]
+    lib.linear_ce_bwd_deep_launch.argtypes = [p] * 9 + [i] * 5 + [f, i, p]
     L = ctypes.c_long
-    lib.deep_tc_launch.argtypes = [p] * 5 + [i] * 6 + [L] * 5 + [i] * 7 + [p]
+    lib.deep_tc_launch.argtypes = [p] * 5 + [i] * 6 + [L] * 5 + [i] * 8 + [p]
     for fn in (lib.linear_ce_splits, lib.linear_ce_fwd_plan,
                lib.linear_ce_bwd_plan,
                lib.linear_ce_fwd_launch,
@@ -271,17 +275,27 @@ def _fwd(x, w, targets, logit_softcap, planes=None):
     return loss, lse
 
 
-def _slab(shape, device):
+def _slab(shape, dtype, device):
     """A deep call's ``(N, chunk)`` f32 logits slab and its chunk."""
     n, c, _ = shape
-    chunk = deep_chunk(n, c)
+    chunk = deep_chunk(n, c, dtype)
     return torch.empty((n, chunk), dtype=torch.float32, device=device), chunk
+
+
+def _cotangent_slab(n, chunk, dtype, device):
+    """The deep backward's bf16 cotangent for bf16 operands, ``(N,
+    chunk)`` at a row pitch of ``chunk`` rounded up to 8 (rows 16-byte
+    aligned, as the bf16 product's TMA takes them); None for f32, whose
+    cotangent overwrites the logits slab."""
+    if dtype != torch.bfloat16:
+        return None
+    return torch.empty((n, -(-chunk // 8) * 8), dtype=dtype, device=device)
 
 
 def _fwd_deep(x, w, targets, cap, shape):
     """The deep forward: ``(loss or None, lse)``, one launch."""
     n = shape[0]
-    slab, chunk = _slab(shape, x.device)
+    slab, chunk = _slab(shape, x.dtype, x.device)
     state = torch.empty((n, 3), dtype=torch.float32, device=x.device)
     lse = torch.empty((n,), dtype=torch.float32, device=x.device)
     loss = torch.empty_like(lse) if targets is not None else None
@@ -299,12 +313,13 @@ def _bwd_deep(x, w, targets, lse, g, logit_softcap, want_dx, want_dw):
     and ``w``'s types."""
     lse, g = f32_rows(lse, g)
     shape = _check(x, w, targets, lse, g)
-    slab, chunk = _slab(shape, x.device)
+    slab, chunk = _slab(shape, x.dtype, x.device)
     dx, dw = f32_like(x, want_dx), f32_like(w, want_dw)
     _call("linear_ce_bwd_deep_launch",
           (x.data_ptr(), w.data_ptr(), _ptr(targets), lse.data_ptr(),
-           g.data_ptr(), _ptr(dx), _ptr(dw), slab.data_ptr(), *shape, chunk,
-           int(targets is not None), _cap(logit_softcap),
+           g.data_ptr(), _ptr(dx), _ptr(dw), slab.data_ptr(),
+           _ptr(_cotangent_slab(shape[0], chunk, x.dtype, x.device)),
+           *shape, chunk, int(targets is not None), _cap(logit_softcap),
            bf16_flag(x.dtype)), shape, x.device)
     return (None if dx is None else dx.to(x.dtype),
             None if dw is None else dw.to(w.dtype))
@@ -418,11 +433,12 @@ def linear_ce_dw(x, w, targets, lse, g, *, logit_softcap=None, planes=None):
 
 
 def deep_tc_product(a, b, *, a_km=False, b_kn=False, idx=None, out=None,
-                    m_zero=None):
+                    m_zero=None, one_pass=False):
     """The deep variants' product (``csrc/deep_tc.cuh``) on its own, for
-    tests and probes: ``C[t] = A[t] · B[t]ᵀ`` in 3xTF32 over a batch (f32
-    out; ``a`` and ``b`` f32, or both bfloat16 — one TF32 pass — without
-    ``idx`` or ``out``).
+    tests and probes: ``C[t] = A[t] · B[t]ᵀ`` over a batch, f32 out.
+    ``a`` and ``b`` f32: 3xTF32; both bfloat16: the bf16 product
+    (``gemm_bf16``, every option), or with ``one_pass`` the score slab's
+    one TF32 pass (without ``idx`` or ``out``).
     ``a`` (T, M, K), or (T, K, M) with ``a_km``; ``b`` (T, N, K), or
     (T, K, N) with ``b_kn`` — or, with ``idx`` (T, N) (with ``b_kn``
     (T, K)) int32, a table (R, K) (``b_kn``: (R, N)) whose rows
@@ -451,7 +467,7 @@ def deep_tc_product(a, b, *, a_km=False, b_kn=False, idx=None, out=None,
             a[0].numel(), 0 if idx is not None else b[0].numel(),
             0 if idx is None else idx.shape[1], m * n, m, b.shape[0], t,
             int(a_km), int(b_kn), int(idx is not None), int(acc),
-            bf16_flag(operand_dtype("deep_tc_product", a, b)),
+            bf16_flag(operand_dtype("deep_tc_product", a, b)), int(one_pass),
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"deep_tc_launch failed: cudaError {err} "

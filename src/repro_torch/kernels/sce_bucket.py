@@ -39,7 +39,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.deep import (bf16_flag, f32_like, f32_rows,
                                       is_deep, operand_dtype)
-from repro_torch.kernels.sce_prefetch import _cap, _logits_ws
+from repro_torch.kernels.sce_prefetch import _cap, _cotangent_ws, _logits_ws
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,7 +58,7 @@ def _lib() -> ctypes.CDLL:
     lib.sce_bucket_plse_fwd_launch.restype = ctypes.c_int
     lib.sce_bucket_fwd_deep_launch.argtypes = [p] * 8 + [i] * 4 + [f, i, p]
     lib.sce_bucket_fwd_deep_launch.restype = ctypes.c_int
-    lib.sce_bucket_bwd_deep_launch.argtypes = [p] * 9 + [i] * 4 + [f, i, p]
+    lib.sce_bucket_bwd_deep_launch.argtypes = [p] * 10 + [i] * 4 + [f, i, p]
     lib.sce_bucket_bwd_deep_launch.restype = ctypes.c_int
     lib.sce_bucket_plse_fwd_deep_launch.argtypes = ([p] * 6 + [i] * 4
                                                     + [f, i, p])
@@ -154,8 +154,9 @@ def _bwd(x_b, y_b, tgt_b, cand_ids, lse, g, cap, want_dx, want_dy):
     head, cap = (x_b, y_b, tgt_b, cand_ids, lse, g), _cap(cap)
     if is_deep(shape[-1]):
         _launch("sce_bucket_bwd_deep_launch",
-                head + (dx, dy, _logits_ws(shape, x_b.device), cap), shape,
-                x_b.device)
+                head + (dx, dy, _logits_ws(shape, x_b.device),
+                        _cotangent_ws(shape, x_b.dtype, x_b.device), cap),
+                shape, x_b.device)
     else:
         if want_dx:
             _launch("sce_bucket_dx_launch", head + (dx, cap), shape,

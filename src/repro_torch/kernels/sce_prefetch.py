@@ -42,20 +42,24 @@ the CPU paths are ``kernels/ref.py::sce_gather_loss_ref`` and
 Above ``MAX_D`` (:func:`is_deep`) every wrapper launches the source's
 deep variant (``*_deep_launch``): the logits are written once into an
 ``(n_b, b_x, b_y)`` f32 workspace by ``csrc/deep_tc.cuh``'s 3xTF32
-product over depth chunks of 32, then folded (the forward), or, in one
-backward launch, recomputed with the same product, turned into the
-cotangent once and multiplied back into dX and dY's slot rows — both
-from that one cotangent when autograd needs both.
+product over depth chunks of 32 (bf16 operands: its bf16 ``wgmma``
+product, ``gemm_bf16``), then folded (the forward), or, in one backward
+launch, recomputed with the same product, turned into the cotangent
+once and multiplied back into dX and dY's slot rows — both from that
+one cotangent when autograd needs both (bf16 operands: the cotangent
+rounded once into a bf16 buffer, :func:`_cotangent_ws`).
 
 ``x_b`` and ``y`` are float32 or both bfloat16 (``deep.operand_dtype``),
 as the reference's kernels take them: bf16 operands are read as stored
-and widened to f32 inside the kernels, every product accumulates in f32,
-and dX and dY round their cotangent to bf16 before the second product
-(the reference's ``gw.astype(tile.dtype)``). The outputs keep the
-reference's types: loss in ``pos_logit``'s, lse and plse f32, dX in
-``x_b``'s and dY in ``y``'s — accumulated in f32 (the gathered dY's
-workspace and in-order sum too) and rounded once at the end. The
-per-row inputs (``pos_logit``, ``g``) go to the kernels as f32.
+(widened to f32 in the resident kernels, taken as bf16 by the deep
+product), every product accumulates in f32, and dX and dY round their
+cotangent to bf16 before the second product (the reference's
+``gw.astype(tile.dtype)``). The outputs keep the reference's types: loss
+in ``pos_logit``'s, lse and plse f32, dX in ``x_b``'s and dY in ``y``'s
+— accumulated in f32 (the gathered dY's workspace and each row's
+in-order sum too) and rounded once at the end; a bf16 catalog's dY is
+written as bf16 by the sum itself, no f32 ``(C, d)`` table. The per-row
+inputs (``pos_logit``, ``g``) go to the kernels as f32.
 """
 from __future__ import annotations
 
@@ -170,11 +174,11 @@ def _lib() -> ctypes.CDLL:
     lib.sce_gather_bwd_plan.restype = ctypes.c_int
     lib.sce_gather_fwd_plan.argtypes = [i, p, p]
     lib.sce_gather_fwd_plan.restype = ctypes.c_int
-    lib.sce_gather_dy_sum_launch.argtypes = [p] * 4 + [i] * 3 + [p]
+    lib.sce_gather_dy_sum_launch.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.sce_gather_dy_sum_launch.restype = ctypes.c_int
     lib.sce_gather_fwd_deep_launch.argtypes = [p] * 9 + [i] * 5 + [f, i, p]
     lib.sce_gather_fwd_deep_launch.restype = ctypes.c_int
-    lib.sce_gather_bwd_deep_launch.argtypes = [p] * 10 + [i] * 5 + [f, i, p]
+    lib.sce_gather_bwd_deep_launch.argtypes = [p] * 11 + [i] * 5 + [f, i, p]
     lib.sce_gather_bwd_deep_launch.restype = ctypes.c_int
     lib.sce_gather_plse_fwd_deep_launch.argtypes = ([p] * 7 + [i] * 5
                                                     + [f, i, p])
@@ -229,6 +233,18 @@ def _logits_ws(shape, device):
     return torch.empty(n_b * b_x * b_y, dtype=torch.float32, device=device)
 
 
+def _cotangent_ws(shape, dtype, device):
+    """The deep backward's bf16 cotangent for bf16 operands, ``(n_b·b_x,
+    b_y)`` at a row pitch of ``b_y`` rounded up to 8 (rows 16-byte
+    aligned, as the bf16 product's TMA takes them), flat; None for f32
+    operands, whose cotangent overwrites the logits workspace."""
+    if dtype != torch.bfloat16:
+        return None
+    n_b, b_x, b_y = shape[:3]
+    return torch.empty(n_b * b_x * (-(-b_y // 8) * 8), dtype=dtype,
+                       device=device)
+
+
 def _launch_fwd(name, args, shape, device):
     """A forward launch; above ``MAX_D`` the deep entry with its logits
     workspace."""
@@ -280,7 +296,8 @@ def _bwd(x_b, y, idx_y, tgt_b, cand_ids, lse, g, cap, want_dx, want_dy):
     the zeroed ``(C, d)``. At ``d ≤ MAX_D`` the resident dX and dY
     kernels, a launch each; above, one deep launch that writes the
     logits' cotangent once and runs both products from it. Both are
-    computed in f32 and returned in ``x_b``'s and ``y``'s types."""
+    computed in f32 and returned in ``x_b``'s and ``y``'s types: dX
+    rounded here, dY by the sum into a table of ``y``'s type."""
     lse, g = f32_rows(lse, g)
     shape = _check(x_b, y, idx_y, tgt_b, cand_ids, lse, g)
     n_b, _, b_y, c, d = shape
@@ -290,8 +307,9 @@ def _bwd(x_b, y, idx_y, tgt_b, cand_ids, lse, g, cap, want_dx, want_dy):
     head, cap = (x_b, y, idx_y, tgt_b, cand_ids, lse, g), _cap(cap)
     if is_deep(d):
         _launch("sce_gather_bwd_deep_launch",
-                head + (dx, ws, _logits_ws(shape, x_b.device), cap), shape,
-                x_b.device)
+                head + (dx, ws, _logits_ws(shape, x_b.device),
+                        _cotangent_ws(shape, x_b.dtype, x_b.device), cap),
+                shape, x_b.device)
     else:
         if want_dx:
             _launch("sce_gather_dx_launch", head + (dx, cap), shape,
@@ -300,11 +318,9 @@ def _bwd(x_b, y, idx_y, tgt_b, cand_ids, lse, g, cap, want_dx, want_dy):
             _launch("sce_gather_dy_launch", head + (ws, cap), shape,
                     x_b.device)
     dy = (sce_gather_dy_sum(ws, *dy_sum_keys(idx_y, cand_ids, c),
-                            torch.zeros(y.shape, dtype=torch.float32,
-                                        device=y.device))
+                            torch.zeros_like(y))
           if want_dy else None)
-    return (None if dx is None else dx.to(x_b.dtype),
-            None if dy is None else dy.to(y.dtype))
+    return None if dx is None else dx.to(x_b.dtype), dy
 
 
 def _grads(dx_fn, dy_fn, args, cap, want_dx, want_dy):
@@ -331,16 +347,19 @@ def sce_gather_dy_sum(ws, keys, order, dy):
     """The gathered dY's sum kernel: adds the workspace rows ``ws
     (n_slots, d)`` into ``dy (C, d)`` (zeroed by the caller) per catalog
     row, from 0 in ascending slot order; ``(keys, order)`` from
-    :func:`dy_sum_keys` (keys ``C`` add nothing). Writes ``dy`` in place
-    and returns it; :func:`dy_sum_plain` is its plain version."""
+    :func:`dy_sum_keys` (keys ``C`` add nothing). ``dy`` f32, or bf16
+    (a bf16 catalog's gradient: each row's f32 sum rounded once, no f32
+    table). Writes ``dy`` in place and returns it; :func:`dy_sum_plain`
+    is its plain version."""
     n_slots, d = ws.shape
     tensors = (ws, keys, order, dy)
     if not all(t.is_cuda and t.device == ws.device for t in tensors):
         raise ValueError("sce_gather_dy_sum takes CUDA tensors on one device")
-    if (ws.dtype, dy.dtype, keys.dtype, order.dtype) != (
-            torch.float32, torch.float32, torch.int32, torch.int64):
-        raise TypeError("sce_gather_dy_sum takes f32 ws and dy, i32 keys, "
-                        "i64 order")
+    if (ws.dtype, keys.dtype, order.dtype) != (
+            torch.float32, torch.int32, torch.int64) or \
+            dy.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("sce_gather_dy_sum takes f32 ws, f32 or bf16 dy, "
+                        "i32 keys, i64 order")
     if (keys.numel(), order.numel()) != (n_slots,) * 2 or dy.ndim != 2 \
             or dy.shape[1] != d:
         raise ValueError("sce_gather_dy_sum: ws (n_slots, d), keys and "
@@ -351,7 +370,7 @@ def sce_gather_dy_sum(ws, keys, order, dy):
         stream = torch.cuda.current_stream(ws.device).cuda_stream
         err = _lib().sce_gather_dy_sum_launch(
             *(t.data_ptr() for t in tensors), n_slots, d, dy.shape[0],
-            stream)
+            bf16_flag(dy.dtype), stream)
     if err != 0:
         raise RuntimeError(f"sce_gather_dy_sum_launch failed: cudaError "
                            f"{err} (n_slots={n_slots}, d={d})")
@@ -359,14 +378,16 @@ def sce_gather_dy_sum(ws, keys, order, dy):
     return dy
 
 
-def dy_sum_plain(ws, idx_y, cand_ids, c):
+def dy_sum_plain(ws, idx_y, cand_ids, c, dtype=None):
     """The plain version of :func:`sce_gather_dy_sum`: the workspace rows
     of the slots with a non-negative id added into a ``(C, d)`` zero
     tensor at their clamped catalog rows (``index_add_``; on the card its
-    order of addition is not fixed)."""
+    order of addition is not fixed), in ``ws``'s type, then rounded once
+    to ``dtype`` when given (a bf16 table)."""
     keep = cand_ids.reshape(-1) >= 0
     rows = idx_y.reshape(-1).long().clamp(0, c - 1)[keep]
-    return ws.new_zeros(c, ws.shape[1]).index_add_(0, rows, ws[keep])
+    out = ws.new_zeros(c, ws.shape[1]).index_add_(0, rows, ws[keep])
+    return out if dtype is None else out.to(dtype)
 
 
 def sce_gather_dx(x_b, y, idx_y, tgt_b, cand_ids, lse, g, *,

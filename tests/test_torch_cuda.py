@@ -1933,29 +1933,53 @@ def test_bf16_sce_forwards_equal_f32_on_widened_inputs(dev, shape, cap):
     """The gathered and direct SCE forwards and partial LSEs on bf16 x_b
     and y: the lse / plse equal the f32 kernels' on the widened inputs bit
     for bit, the loss is their f32 loss rounded to bf16 (pos_logit's
-    type), and a second launch repeats them."""
+    type), and a second launch repeats them. Deep (d > 256), the logits
+    come from the bf16 product (``gemm_bf16``: the depth summed in the
+    tensor cores, other bits than the f32 kernels' 3xTF32 steps): there
+    the lse / plse lie within ``1e-5·max|·| + 2e-4·|·|`` of the f64 plain
+    version on the widened inputs, the loss is the kernel's lse − pos
+    rounded to bf16, and a second launch repeats them bit for bit."""
     x_b, y, idx, tgt, cand, pos = _gather_problem(dev, sum(shape), *shape)
     (x_b, y, pos), (xw, yw, pw) = _bf16(x_b, y, pos)
+    deep_ = deep.is_deep(shape[3])
     kw = dict(logit_softcap=cap)
+
+    def equal_or_f64(got, want, f64):
+        if deep_:
+            _close(got, f64.float(), rtol=2e-4)
+        else:
+            assert torch.equal(got, want)
+
+    xd, yd, pd = xw.double(), yw.double(), pw.double()
     got = sce_prefetch.sce_gather_fwd(x_b, y, idx, tgt, cand, pos, **kw)
     want = sce_prefetch.sce_gather_fwd(xw, yw, idx, tgt, cand, pw, **kw)
     assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
-    assert torch.equal(got[1], want[1])
-    assert torch.equal(got[0], want[0].to(torch.bfloat16))
+    equal_or_f64(got[1], want[1], ref.sce_gather_loss_ref(
+        xd, yd, idx, tgt, cand, pd, cap) + pd)
+    assert torch.equal(got[0], (want[0] if not deep_ else got[1] - pw)
+                       .to(torch.bfloat16))
     again = sce_prefetch.sce_gather_fwd(x_b, y, idx, tgt, cand, pos, **kw)
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     plse = sce_prefetch.sce_gather_plse_fwd(x_b, y, idx, tgt, cand, **kw)
+    equal_or_f64(plse, sce_prefetch.sce_gather_plse_fwd(
+        xw, yw, idx, tgt, cand, **kw), ref.sce_gather_plse_ref(
+        xd, yd, idx, tgt, cand, cap))
     assert torch.equal(plse, sce_prefetch.sce_gather_plse_fwd(
-        xw, yw, idx, tgt, cand, **kw))
-    y_b = y[idx.long().clamp(0, y.shape[0] - 1)].contiguous()
-    yw_b = yw[idx.long().clamp(0, y.shape[0] - 1)].contiguous()
+        x_b, y, idx, tgt, cand, **kw))
+    rows = idx.long().clamp(0, y.shape[0] - 1)
+    y_b, yw_b = y[rows].contiguous(), yw[rows].contiguous()
     b_got = sce_bucket.sce_bucket_fwd(x_b, y_b, tgt, cand, pos, **kw)
     b_want = sce_bucket.sce_bucket_fwd(xw, yw_b, tgt, cand, pw, **kw)
-    assert torch.equal(b_got[1], b_want[1])
-    assert torch.equal(b_got[0], b_want[0].to(torch.bfloat16))
-    assert torch.equal(
-        sce_bucket.sce_bucket_plse_fwd(x_b, y_b, tgt, cand, **kw),
-        sce_bucket.sce_bucket_plse_fwd(xw, yw_b, tgt, cand, **kw))
+    equal_or_f64(b_got[1], b_want[1], ref.sce_bucket_loss_ref(
+        xd, yd[rows], tgt, cand, pd, cap) + pd)
+    assert torch.equal(b_got[0], (b_want[0] if not deep_ else b_got[1] - pw)
+                       .to(torch.bfloat16))
+    b_plse = sce_bucket.sce_bucket_plse_fwd(x_b, y_b, tgt, cand, **kw)
+    equal_or_f64(b_plse, sce_bucket.sce_bucket_plse_fwd(
+        xw, yw_b, tgt, cand, **kw), ref.sce_bucket_plse_ref(
+        xd, yd[rows], tgt, cand, cap))
+    assert torch.equal(b_plse, sce_bucket.sce_bucket_plse_fwd(
+        x_b, y_b, tgt, cand, **kw))
     _close_bf16(got[0], ref.sce_gather_loss_ref(x_b, y, idx, tgt, cand, pos,
                                                 cap))
     torch.cuda.synchronize()
@@ -2019,14 +2043,30 @@ def test_bf16_full_ce_matches(dev, n, c, d, cap):
     equals the f32 kernel's on the widened inputs bit for bit and the loss
     is its f32 loss rounded to bf16; dX and dW (dY) in the operands'
     types within the bf16 tolerance of the plain versions (cotangent
-    rounded to bf16), repeating bit for bit."""
+    rounded to bf16), repeating bit for bit. Deep (d > 256), the logits
+    come from the bf16 product (other bits than the f32 kernels' 3xTF32
+    steps): there the loss and lse lie within ``1e-5·max|·| + 2e-4·|·|``
+    of the f64 plain versions on the widened inputs and repeat bit for
+    bit."""
     x, w, t, gr = _ce_problem(dev, n + c + d, n, c, d)
     (x, w), (xw, ww) = _bf16(x, w)
     loss, lse = linear_sce.linear_ce_fwd(x, w, t, logit_softcap=cap)
     loss_w, lse_w = linear_sce.linear_ce_fwd(xw, ww, t, logit_softcap=cap)
-    assert torch.equal(lse, lse_w) and torch.equal(loss, loss_w)
-    assert torch.equal(fused_ce.fused_lse_fwd(x, w),
-                       fused_ce.fused_lse_fwd(xw, ww))
+    if deep.is_deep(d):
+        xd, wd = xw.double(), ww.double()
+        _close(lse, ref.fused_lse_ref(xd, wd, logit_softcap=cap).float(),
+               rtol=2e-4)
+        _close(loss, ref.linear_ce_loss_ref(xd, wd, t, logit_softcap=cap)
+               .float(), rtol=2e-4)
+        again = linear_sce.linear_ce_fwd(x, w, t, logit_softcap=cap)
+        assert torch.equal(loss, again[0]) and torch.equal(lse, again[1])
+        f_lse = fused_ce.fused_lse_fwd(x, w)
+        _close(f_lse, ref.fused_lse_ref(xd, wd).float(), rtol=2e-4)
+        assert torch.equal(f_lse, fused_ce.fused_lse_fwd(x, w))
+    else:
+        assert torch.equal(lse, lse_w) and torch.equal(loss, loss_w)
+        assert torch.equal(fused_ce.fused_lse_fwd(x, w),
+                           fused_ce.fused_lse_fwd(xw, ww))
     if d <= 256:  # the split: each bf16 value its own hi, lo 0
         xp, _ = linear_sce.linear_ce_split(x, w)
         assert torch.equal(xp, ref.tf32x3_planes_ref(xw))
@@ -2060,12 +2100,19 @@ def test_bf16_full_ce_matches(dev, n, c, d, cap):
     (2, 130, 200, 300, True, False),
     (3, 129, 140, 41, False, True),
     (1, 257, 131, 520, True, True),
+    (2, 200, 136, 64, True, True),    # 16-byte rows: every operand by TMA
+    (2, 256, 384, 320, False, True),
 ])
 def test_bf16_deep_tc_product(dev, t, m, n, k, a_km, b_kn):
-    """deep_tc.cuh on bf16 operands (one TF32 pass) at ragged shapes, in
-    each orientation the slabs and gradients use: equal to the three-pass
-    f32 product on the widened operands bit for bit, within 1e-5·max|C| +
-    2e-4·|C| of the f64 plain version, and repeating."""
+    """deep_tc.cuh on bf16 operands at ragged shapes, in each orientation
+    the slabs and gradients use. The score slab's one TF32 pass
+    (``one_pass``): equal to the three-pass f32 product on the widened
+    operands bit for bit. The bf16 product (``gemm_bf16``), with and
+    without B gathered by clamped id (ids −2 and past the table) and the
+    accumulate epilogue, zeroed rows with A M-major, rows 16-byte aligned
+    (the TMA; gathered, cp.async) or not (the register-staged copies):
+    within the f32 deep product's ``1e-5·max|C| + 2e-4·|C|`` of the f64
+    plain version and repeating bit for bit. Both routes against f64."""
     g = _gen(dev, m + n + k)
     a = torch.randn((t, k, m) if a_km else (t, m, k), generator=g,
                     device=dev)
@@ -2073,18 +2120,43 @@ def test_bf16_deep_tc_product(dev, t, m, n, k, a_km, b_kn):
                     device=dev)
     (a, b), (aw, bw) = _bf16(a, b)
     kw = dict(a_km=a_km, b_kn=b_kn)
-    got = linear_sce.deep_tc_product(a, b, **kw)
-    again = linear_sce.deep_tc_product(a, b, **kw)
+    got = linear_sce.deep_tc_product(a, b, one_pass=True, **kw)
+    again = linear_sce.deep_tc_product(a, b, one_pass=True, **kw)
     three = linear_sce.deep_tc_product(aw, bw, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, again) and torch.equal(got, three)
     _close(got, ref.deep_tc_ref(aw.double(), bw.double(), **kw).float(),
            rtol=2e-4)
+    rows = 50
+    tab = torch.randn((rows, n) if b_kn else (rows, k), generator=g,
+                      device=dev).to(torch.bfloat16)
+    idx = torch.randint(-2, rows + 2, (t, k if b_kn else n), generator=g,
+                        device=dev, dtype=torch.int32)
+    m_zero = (torch.randint(-1, 3, (t, m), generator=g, device=dev,
+                            dtype=torch.int32) if a_km else None)
+    out0 = torch.randn(t, m, n, generator=g, device=dev)
+    for gather, acc in itertools.product((False, True), repeat=2):
+        bb = tab if gather else b
+        okw = dict(kw, idx=idx if gather else None, m_zero=m_zero)
+        before = linear_sce.deep_tc_product.launches
+        got = linear_sce.deep_tc_product(
+            a, bb, out=out0.clone() if acc else None, **okw)
+        again = linear_sce.deep_tc_product(
+            a, bb, out=out0.clone() if acc else None, **okw)
+        torch.cuda.synchronize()
+        assert linear_sce.deep_tc_product.launches == before + 2
+        assert torch.equal(got, again)
+        want = ref.deep_tc_ref(a.double(), bb.double(),
+                               out=out0.double() if acc else None, **okw)
+        _close(got, want.float(), rtol=2e-4)
+        if m_zero is not None:
+            assert (got[m_zero < 0] == (out0[m_zero < 0] if acc else 0)).all()
 
 
 def test_bf16_refusals(dev):
     """A bf16 / f32 mix, float64 and float16 raise TypeError in every
-    family; the deep product takes no bf16 gather or accumulate."""
+    family; the deep product's one-TF32-pass route (the score slab's)
+    takes no gather, no accumulate and no f32 operands."""
     q = torch.zeros(4, 64, device=dev)
     y = torch.zeros(20, 64, device=dev)
     t = torch.zeros(4, dtype=torch.int32, device=dev)
@@ -2107,4 +2179,118 @@ def test_bf16_refusals(dev):
         linear_sce.deep_tc_product(a, torch.zeros(20, 16, device=dev,
                                                   dtype=torch.bfloat16),
                                    idx=torch.zeros(1, 8, dtype=torch.int32,
-                                                   device=dev))
+                                                   device=dev),
+                                   one_pass=True)
+    with pytest.raises(RuntimeError):
+        linear_sce.deep_tc_product(a, a, out=torch.zeros(1, 8, 8, device=dev),
+                                   one_pass=True)
+    with pytest.raises(RuntimeError):
+        linear_sce.deep_tc_product(a.float(), a.float(), one_pass=True)
+
+
+def test_bf16_forward_lse_is_the_fold_of_the_backward_logits(dev, monkeypatch):
+    """Deep bf16 SCE (gathered and bucket twins) and full CE: the logits the
+    backward recomputes (left in its f32 workspace; the bf16 cotangent goes
+    to its own buffer) equal the forward's bit for bit, so the forward's
+    lse is the fold of the backward's logits: one product, one rounding.
+    The lse lies within 1e-6 relative of that fold in f64."""
+    wss = []
+    real_ws, real_slab = sce_prefetch._logits_ws, linear_sce._slab
+
+    def logits_ws(shape, device):
+        wss.append(real_ws(shape, device))
+        return wss[-1]
+
+    def slab(shape, dtype, device):
+        out = real_slab(shape, dtype, device)
+        wss.append(out[0])
+        return out
+
+    monkeypatch.setattr(sce_prefetch, "_logits_ws", logits_ws)
+    monkeypatch.setattr(sce_bucket, "_logits_ws", logits_ws)
+    monkeypatch.setattr(linear_sce, "_slab", slab)
+    x_b, y, idx, tgt, cand, _ = _gather_problem(dev, 21, 2, 33, 100, 2_304,
+                                                400)
+    (x_b, y), _ = _bf16(x_b, y)
+    g = torch.rand(2, 33, generator=_gen(dev, 22), device=dev)
+    plse = sce_prefetch.sce_gather_plse_fwd(x_b, y, idx, tgt, cand,
+                                            logit_softcap=30.0)
+    fwd = wss.pop().clone()
+    sce_prefetch._grads(sce_prefetch.sce_gather_plse_dx,
+                        sce_prefetch.sce_gather_plse_dy,
+                        (x_b, y, idx, tgt, cand, plse, g), 30.0, True, True)
+    assert torch.equal(wss.pop(), fwd)
+    lg = fwd.view(2, 33, 100).double()
+    lg = 30.0 * torch.tanh(lg / 30.0)
+    hide = (cand[:, None, :] < 0) | (cand[:, None, :] == tgt[:, :, None])
+    fold = torch.logsumexp(torch.where(hide, -math.inf, lg), -1)
+    assert torch.allclose(plse.double(), fold, rtol=1e-6, atol=0)
+    y_b = y[idx.long()].contiguous()
+    lse = sce_bucket.sce_bucket_plse_fwd(x_b, y_b, tgt, cand)
+    fwd = wss.pop().clone()
+    sce_bucket._bwd(x_b, y_b, tgt, cand, lse, g, None, True, True)
+    assert torch.equal(wss.pop(), fwd)
+    x, w, t, gr = _ce_problem(dev, 23, 70, 1_037, 2_304)
+    (x, w), _ = _bf16(x, w)
+    loss, lse = linear_sce._fwd(x, w, t, 30.0)
+    fwd = wss.pop()[:, :1_037].clone()  # one chunk: every logit
+    linear_sce._bwd_deep(x, w, t, lse, gr, 30.0, True, True)
+    assert torch.equal(wss.pop()[:, :1_037], fwd)
+    lg = 30.0 * torch.tanh(fwd.double() / 30.0)
+    assert torch.allclose(lse.double(), torch.logsumexp(lg, -1), rtol=1e-6,
+                          atol=0)
+    assert torch.allclose(loss.double(), torch.logsumexp(lg, -1)
+                          - lg.gather(1, t.long()[:, None])[:, 0],
+                          rtol=1e-5, atol=1e-5)
+
+
+def test_bf16_dy_sum_is_the_f32_sum_rounded_once(dev):
+    """``sce_gather_dy_sum`` into a bf16 table equals its sum into an f32
+    table rounded to bf16 bit for bit (each row's f32 sum, in ascending
+    slot order, rounded once), rows no slot selected exactly 0; and
+    ``dy_sum_plain`` with ``dtype=bf16`` agrees within one bf16 rounding
+    (its ``index_add_`` adds in another order on the card)."""
+    g = _gen(dev, 24)
+    n_b, b_y, d, c = 6, 300, 2_304, 900
+    ws = torch.randn(n_b * b_y, d, generator=g, device=dev)
+    idx = torch.randint(-2, c + 2, (n_b, b_y), generator=g, device=dev,
+                        dtype=torch.int32)
+    cand = idx.clone()
+    cand[:, ::5] = -1
+    keys = sce_prefetch.dy_sum_keys(idx, cand, c)
+    f32 = sce_prefetch.sce_gather_dy_sum(ws, *keys, torch.zeros(
+        c, d, device=dev))
+    before = sce_prefetch.sce_gather_dy_sum.launches
+    bf = sce_prefetch.sce_gather_dy_sum(ws, *keys, torch.zeros(
+        c, d, device=dev, dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    assert sce_prefetch.sce_gather_dy_sum.launches == before + 1
+    assert bf.dtype == torch.bfloat16 and torch.equal(bf, f32.to(bf.dtype))
+    plain = sce_prefetch.dy_sum_plain(ws, idx, cand, c, torch.bfloat16)
+    _close_bf16(bf, plain)
+
+
+@pytest.mark.parametrize("d", [300, 2_304])
+def test_bf16_deep_entries_launch_the_bf16_product(dev, d):
+    """On bf16 operands the deep SCE forward and one-launch backward and
+    the deep full-CE forward and backward run ``gemm_bf16_kernel`` and
+    never the depth-chunked TF32 ``gemm_kernel``, at a depth whose rows
+    are 16-byte aligned (2304: the TMA) and one whose rows are not (300:
+    the register-staged copies) — no route back to the one-TF32 pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x_b, y, idx, tgt, cand, pos = _gather_problem(dev, 25, 2, 33, 100, d,
+                                                  400)
+    (x_b, y, pos), _ = _bf16(x_b, y, pos)
+    x, w, t, gr = _ce_problem(dev, 26, 70, 1_037, d)
+    (x, w), _ = _bf16(x, w)
+    leaves = [a.clone().requires_grad_(True) for a in (x_b, y, x, w)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = sce_prefetch.sce_gather_loss(leaves[0], leaves[1], idx, tgt,
+                                           cand, pos, logit_softcap=30.0)
+        out2 = linear_sce.linear_ce_loss(leaves[2], leaves[3], t)
+        torch.autograd.grad(out.float().sum() + out2.float().sum(), leaves)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert [n for n in names if "deep_tc::gemm_bf16_kernel" in n], names
+    assert not [n for n in names if "deep_tc::gemm_kernel" in n], names
