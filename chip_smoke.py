@@ -243,15 +243,18 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    ``sce_gather_plse`` launches and the deep backward, the in-order dY
    sum into the bf16 table, ``eval_fused`` / ``eval_tgt_gather`` and the
    deep ``linear_ce`` (and ``fused_lse``, timed only) forward and
-   backward; every selection and eval output (the score slab's one TF32
-   pass) equal to the f32 kernel on the widened inputs bit for bit, the
-   deep SCE and ``linear_ce`` (the bf16 ``wgmma`` product) repeating bit
-   for bit, their forwards within ``1e-5`` and backwards within ``3e-2``
-   of their scale of the plain versions (the cotangent rounded to bf16
-   on both sides), the bf16 dY sum the f32 sum rounded once bit for bit;
-   each timed beside its plain version, a PyTorch
-   call in bf16 and its bound at bf16's rates (3.35 TB/s at 2 B a value,
-   989 TFLOP/s) with the one-TF32-pass time beside it. Then the main
+   backward; all of them on the bf16 ``wgmma`` product (``gemm_bf16``;
+   the positions selection's slab cut in depth), repeating bit for bit;
+   the selections' and eval's values and LSE pair within ``1e-5·max|·| +
+   2e-4·|·|`` of the f64 plain version, ids equal wherever the gap is
+   above that; each target score the eval slab's own column bit for bit
+   (so ``eq`` counts it); the SCE and ``linear_ce`` forwards within
+   ``1e-5`` and backwards within ``3e-2`` of their scale of the plain
+   versions (the cotangent rounded to bf16 on both sides), the bf16 dY
+   sum the f32 sum rounded once bit for bit; each timed beside its plain
+   version, a PyTorch call in bf16 and its bound at bf16's rates (3.35
+   TB/s at 2 B a value, 989 TFLOP/s) with the one-TF32-pass time beside
+   it. Then the main
    path in bf16, its counts from 0:
    ``train("gemma2-2b", cfg=…, batch=2, seq_len=4096, steps=4,
    sce_mode="exact")`` under ``warn`` — train_4k's 2 microbatches of one
@@ -3597,14 +3600,17 @@ def lm_bf16_kernel_phase(dev, cfg):
     cap 30), the in-order dY sum into the bf16 table, ``eval_fused`` /
     ``eval_tgt_gather`` at 8,192 × 256,000 (k 1, the LSE), and the deep
     ``linear_ce`` forward and one-launch backward at N 4,096 (cap 30, the
-    target plucked). The selections and eval outputs (the score slab's
-    one TF32 pass) equal the f32 kernel's on the widened inputs bit for
-    bit (a bf16 value is exact in f32 and TF32, a product of two exact in
-    f32); the deep SCE and ``linear_ce`` take their products on the bf16
-    ``wgmma`` (``deep_tc.cuh`` ``gemm_bf16``: the depth summed in the
-    tensor cores, other bits than the f32 kernels' 3xTF32 steps), and
-    repeat bit for bit; the bf16 dY sum equals the f32 sum rounded once
-    bit for bit. Each also against its plain version on the bf16 inputs:
+    target plucked). Every one takes its products on the bf16 ``wgmma``
+    (``deep_tc.cuh`` ``gemm_bf16``: the depth summed in the tensor cores,
+    other bits than the f32 kernels' 3xTF32 steps; the positions
+    selection's 32-tile slab cut into 4 depth ranges summed in order) and
+    repeats bit for bit. The selections' and eval's values and LSE pair
+    lie within ``1e-5·max|·| + 2e-4·|·|`` of the f64 plain version on the
+    same values, ids equal wherever the gap is above that; each target
+    score equals the eval slab's own column (``eval_fused.score_slab``)
+    bit for bit, so ``eq`` counts the target's column; the bf16 dY sum
+    equals the f32 sum rounded once bit for bit. Each also against its
+    plain version on the bf16 inputs:
     values within ``1e-5`` of their scale (selections, the lse) or the
     bf16 tolerance ``3e-2`` of their scale (bf16 outputs: losses,
     gradients, whose cotangent is rounded to bf16 on both sides). Then
@@ -3642,12 +3648,37 @@ def lm_bf16_kernel_phase(dev, cfg):
               f"lm bf16 {what}: |Δ| {err:.3e} above {tol}·{scale:.3e}")
         return err
 
+    def near_f64(what, got, want, scale):
+        """Within 1e-5·scale + 2e-4·|want| of the f64 ``want``."""
+        tol = 1e-5 * scale + 2e-4 * want.abs()
+        bad = int(((got.double() - want).abs() > tol).sum())
+        check(bool(torch.isfinite(got).all()) and bad == 0,
+              f"lm bf16 {what}: {bad} values outside 1e-5·max + 2e-4·|·| "
+              f"of f64")
+        return tol
+
+    def top_f64(what, got, s64, k):
+        """A selection against the f64 top-k of s64: values, then ids
+        where the gap to both neighbours is above the tolerance."""
+        v, order = torch.topk(s64, min(k + 1, s64.shape[1]), dim=1)
+        wv, wi = v[:, :k], order[:, :k].to(torch.int32)
+        tol = near_f64(what, got[0], wv, s64.abs().max().item())
+        inf = torch.full_like(wv[:, :1], float("inf"))
+        nxt = torch.cat([wv[:, 1:], v[:, k:k + 1] if v.shape[1] > k
+                         else -inf], 1)
+        iso = ((torch.cat([inf, wv[:, :-1]], 1) - wv) > tol) & (
+            (wv - nxt) > tol)
+        check(bool(torch.equal(got[1][iso], wi[iso])),
+              f"lm bf16 {what}: ids differ from f64 where the gap is "
+              f"above the tolerance")
+
     # the selections
     sel = {}
     for name, cat, k in (("mips_topk_positions_k128_lm_bf16", x, b_x),
                          ("mips_topk_vocab_k1024_lm_bf16", y, b_y)):
         got = mips_topk(q, cat, k)
-        same(name, got, mips_topk(q.float(), cat.float(), k))
+        same(name, got, mips_topk(q, cat, k), "a second launch")
+        top_f64(name, got, q.double() @ cat.double().T, k)
         want = ref.mips_topk_ref(q, cat, k)
         errs[name] = within(name, got[0], want[0], 1e-5)
         sel[k] = got[1]
@@ -3765,10 +3796,34 @@ def lm_bf16_kernel_phase(dev, cfg):
     xe = torch.randn(n_e, d, generator=g, device=dev).to(bf)
     ekw = dict(c_lo=1, c_hi=cfg.vocab, logit_softcap=LM_CAP, with_lse=True)
     got = ek.eval_fused(xe, y, te, 1, **ekw)
-    same("eval_fused", got, ek.eval_fused(xe.float(), y.float(), te, 1,
-                                          **ekw))
+    same("eval_fused", got, ek.eval_fused(xe, y, te, 1, **ekw),
+         "a second launch")
     tgt_e = ek.eval_tgt_gather(xe, y, te)
     same("eval_tgt_gather", (tgt_e,), (got[4],))
+    same("eval_tgt_gather", (tgt_e,), (ek.eval_tgt_gather(xe, y, te),),
+         "a second launch")
+    # against f64 and the slab, one eval slab (1,024 rows) at a time
+    y64 = y.double()
+    ids_v = torch.arange(vocab, device=dev)
+    ok_v = (ids_v >= 1) & (ids_v < cfg.vocab)
+    for r in range(0, n_e, 1024):
+        rr = slice(r, r + 1024)
+        slab = ek.score_slab(xe[rr], y)  # (vocab, 1,024): the launch's own
+        col = slab[te[rr].long(), torch.arange(slab.shape[1], device=dev)]
+        check(torch.equal(tgt_e[rr].view(torch.int32), col.view(torch.int32)),
+              "lm bf16: a target score is not its slab column bit for bit")
+        del slab, col
+        s64 = xe[rr].double() @ y64.T
+        sv = torch.where(ok_v[None, :], s64, -math.inf)
+        top_f64("eval_fused", (got[0][rr], got[1][rr]), sv, 1)
+        lv = torch.where(ok_v[None, :], LM_CAP * torch.tanh(s64 / LM_CAP),
+                         -math.inf)
+        m64 = lv.amax(1)
+        near_f64("eval m", got[5][rr], m64, m64.abs().max().item())
+        s_64 = torch.exp(lv - m64[:, None]).sum(1)
+        near_f64("eval s", got[6][rr], s_64, s_64.abs().max().item())
+        del s64, sv, lv
+    del y64
     want = ref.eval_fused_ref(xe, y, te, 1, **ekw)
     errs["eval_fused_lm_bf16"] = within("eval vals", got[0], want[0], 1e-5)
     errs["eval_tgt_gather_lm_bf16"] = within("eval tgt", got[4], want[4],
@@ -3860,11 +3915,12 @@ def lm_bf16_kernel_phase(dev, cfg):
               f"{t['plain_ms']:.3f} ms, library (bf16) "
               f"{t['library_ms']:.4f} ms, bound {bound_text(t)}; max |Δ| "
               f"from the plain version {t['max_abs_err']:.3e}")
-    print("  lm bf16: the selections and eval outputs equal the f32 kernel's "
-          "on the widened inputs bit for bit; the deep SCE and linear_ce "
-          "(the bf16 wgmma product) repeat bit for bit, forwards within "
-          "1e-5 and backwards within 3e-2 of their scale of the plain "
-          "versions; the bf16 dY sum is the f32 sum rounded once ok")
+    print("  lm bf16: every kernel on the bf16 wgmma product repeats bit for "
+          "bit; the selections and eval within 1e-5·max + 2e-4·|·| of f64 "
+          "(ids where the gap is above it), every target score its slab "
+          "column bit for bit; SCE and linear_ce forwards within 1e-5 and "
+          "backwards within 3e-2 of their scale of the plain versions; the "
+          "bf16 dY sum is the f32 sum rounded once ok")
     return {"timings": timings}
 
 

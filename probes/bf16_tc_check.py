@@ -1,21 +1,15 @@
 #!/usr/bin/env python3
 """The bf16 product of ``csrc/deep_tc.cuh`` (``gemm_bf16``: ``wgmma``
-m64n128k16 .f32.bf16.bf16) on the card: its bits against the one-TF32
-pass, every operand option against f64, and its time beside PyTorch's
-bf16 product. Needs an NVIDIA GPU.
+m64n128k16 .f32.bf16.bf16) on the card: every operand option against
+f64, its time beside PyTorch's bf16 product, and the bits that tie a
+target score to the score slab. Needs an NVIDIA GPU.
 
-    python3 probes/bf16_tc_check.py [bits] [options] [times]
+    python3 probes/bf16_tc_check.py [options] [times] [slab_bits]
 
 builds the ``linear_ce`` library of this tree (its ``deep_tc_launch``
 entry, wrapped by ``linear_sce.deep_tc_product``) and prints one JSON line
 per mode:
 
-* ``bits``: does one k16 ``wgmma`` on bf16 give the bits of the score
-  slab's route (``one_pass``: two TF32 k8 ``wgmma`` summed from zero,
-  then added to the f32 accumulator)? 256 × 256 products at K 16 (one
-  step each) and K 2304 (the depth summed in the tensor cores against 144
-  f32 adds), inputs ``randn`` rounded to bf16: the share of equal
-  outputs and the largest difference relative to the output's scale.
 * ``options``: every operand option (A M-major, B N-major, B gathered by
   clamped id, the accumulate epilogue, zeroed rows) at ragged shapes and
   at row pitches that are and are not 16-byte aligned (the TMA, the
@@ -31,12 +25,31 @@ per mode:
   × 128) — beside ``torch.matmul`` / ``bmm`` on the same bf16 tensors
   (f32 out) and the bound at the dense bf16 989 TFLOP/s.
 
+* ``slab_bits``: the two questions that tie a target score to the
+  bf16 score slab ``S = Y · Qᵀ`` (catalog rows as A, queries as B), on
+  128 random bf16 catalog rows and 128 queries at gemma-2's d 2304 (TMA
+  stages) and at d 300 (register-staged rows):
+  (a) does an output of ``gemm_bf16`` keep its bits wherever its (row,
+  column) sits in the 128 × 128 tile? A holds the catalog rows rolled by
+  each of 128 shifts, B the queries rolled by each of 128 shifts, one
+  16,384 × 16,384 product; each pair's output at every one of the 128 ×
+  128 (row position, column position) is held against its output at
+  (i, j) of the unrolled tile, bit for bit;
+  (b) does a per-pair chain of ``mma.sync.m16n8k16.row.col.f32.bf16.bf16
+  .f32`` (the catalog row as A row gq, the query as B column gq, the
+  accumulator carried through ascending k16 steps from zero, zeros past
+  d; a small kernel built into ``build/probes/``) give the slab's bits?
+  Each answer as the count of equal outputs out of all, with the
+  largest difference relative to the slab's scale.
+
 Every line carries ``nvidia-smi``'s card name and power limit.
 """
+import ctypes
 import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
@@ -55,25 +68,6 @@ def _smi():
 def _bf(t):
     import torch
     return t.to(torch.bfloat16)
-
-
-def bits():
-    import torch
-
-    from repro_torch.kernels import linear_sce
-
-    g = torch.Generator(device="cuda").manual_seed(1)
-    out = {}
-    for k in (16, 2304):
-        a = _bf(torch.randn(1, 256, k, generator=g, device="cuda"))
-        b = _bf(torch.randn(1, 256, k, generator=g, device="cuda"))
-        native = linear_sce.deep_tc_product(a, b)
-        one = linear_sce.deep_tc_product(a, b, one_pass=True)
-        diff = (native - one).abs()
-        out[f"k{k}"] = {
-            "equal_share": (native == one).double().mean().item(),
-            "max_rel_diff": (diff.max() / one.abs().max()).item()}
-    return out
 
 
 def options():
@@ -194,11 +188,130 @@ def times():
     return out
 
 
+CHAIN_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// One bf16 value of row p at depth k, 0 past d.
+__device__ __forceinline__ uint32_t at(const uint16_t* p, int k, int d) {
+  return k < d ? (uint32_t)p[k] : 0u;
+}
+
+// out[e] = y[ri[e]] · q[ci[e]] by mma.sync m16n8k16 bf16, one warp a run
+// of 8 pairs: pair gq's catalog row as A row gq (rows gq + 8 zero), its
+// query as B column gq; the accumulator carried from zero through the
+// k16 steps in ascending depth; the diagonal (gq, gq) kept.
+__global__ void chain_kernel(const uint16_t* y, const uint16_t* q,
+                             const int* ri, const int* ci, float* out,
+                             int n, int d) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, qd = lane & 3;
+  const int e0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 8;
+  if (e0 >= n) return;
+  const int e = e0 + gq;
+  const bool in = e < n;
+  const uint16_t* yr = y + (long)(in ? ri[e] : 0) * d;
+  const uint16_t* qr = q + (long)(in ? ci[e] : 0) * d;
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k0 = 0; k0 < d; k0 += 16) {
+    const int k = k0 + 2 * qd;
+    const uint32_t a0 = in ? at(yr, k, d) | at(yr, k + 1, d) << 16 : 0u;
+    const uint32_t a2 = in ? at(yr, k + 8, d) | at(yr, k + 9, d) << 16 : 0u;
+    const uint32_t b0 = in ? at(qr, k, d) | at(qr, k + 1, d) << 16 : 0u;
+    const uint32_t b1 = in ? at(qr, k + 8, d) | at(qr, k + 9, d) << 16 : 0u;
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+  }
+  if (in && qd == gq >> 1) out[e] = c[gq & 1];
+}
+
+extern "C" int chain(const void* y, const void* q, const int* ri,
+                     const int* ci, float* out, int n, int d, void* s) {
+  const int warps = 4;
+  chain_kernel<<<(n + 8 * warps - 1) / (8 * warps), 32 * warps, 0,
+                 (cudaStream_t)s>>>((const uint16_t*)y, (const uint16_t*)q,
+                                    ri, ci, out, n, d);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _chain_lib():
+    from repro_torch.kernels import _build
+
+    out = Path(__file__).resolve().parents[1] / "build" / "probes"
+    out.mkdir(parents=True, exist_ok=True)
+    src, lib = out / "bf16_mma_chain.cu", out / "bf16_mma_chain.so"
+    src.write_text(CHAIN_SOURCE)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.chain.argtypes = [p, p, p, p, p, i, i, p]
+    return lib
+
+
+def slab_bits():
+    import torch
+
+    from repro_torch.kernels import linear_sce
+
+    lib = _chain_lib()
+    out = {}
+    t = 128
+    ar = torch.arange(t, device="cuda")
+    for d in (2304, 300):
+        g = torch.Generator(device="cuda").manual_seed(d)
+        y = _bf(torch.randn(t, d, generator=g, device="cuda") * 0.02)
+        q = _bf(torch.randn(t, d, generator=g, device="cuda"))
+        # A's block p holds catalog row i at row position (i + p) mod 128
+        roll = (ar[None, :] - ar[:, None]) % t  # [p, pos] → row
+        a = y[roll.reshape(-1)].contiguous()
+        b = q[roll.reshape(-1)].contiguous()
+        s = linear_sce.deep_tc_product(a[None], b[None])[0]
+        s4 = s.view(t, t, t, t)  # [p, row pos, r, column pos]
+        del s
+        pos = (ar[None, :] + ar[:, None]) % t  # [p, i] → row position
+        v = s4[ar[:, None, None, None], pos[:, :, None, None],
+               ar[None, None, :, None], pos[None, None, :, :]]
+        del s4
+        base = v[0, :, 0, :].contiguous()  # pair (i, j) at (i, j)
+        same = (v.view(torch.int32)
+                == base.view(torch.int32)[None, :, None, :])
+        n_pos = same.numel()
+        eq_pos = int(same.sum().item())
+        del same
+        spread = (v - base[None, :, None, :]).abs().max().item()
+        del v
+        ri = ar.repeat_interleave(t).to(torch.int32)
+        ci = ar.repeat(t).to(torch.int32)
+        chain = torch.empty(t * t, device="cuda")
+        err = lib.chain(y.data_ptr(), q.data_ptr(), ri.data_ptr(),
+                        ci.data_ptr(), chain.data_ptr(), t * t, d,
+                        torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if err != 0:
+            raise RuntimeError(f"chain kernel: cudaError {err}")
+        chain = chain.view(t, t)
+        scale = base.abs().max().item()
+        out[f"d{d}"] = {
+            "a_position_equal": eq_pos, "a_positions": n_pos,
+            "a_max_rel_diff": spread / scale,
+            "b_chain_equal": int((chain.view(torch.int32)
+                                  == base.view(torch.int32)).sum().item()),
+            "b_pairs": t * t,
+            "b_max_rel_diff": (chain - base).abs().max().item() / scale}
+    return out
+
+
 def main():
-    modes = sys.argv[1:] or ["bits", "options", "times"]
+    modes = sys.argv[1:] or ["options", "times", "slab_bits"]
     card = _smi()
     for mode in modes:
-        res = {"bits": bits, "options": options, "times": times}[mode]()
+        res = {"options": options, "times": times,
+               "slab_bits": slab_bits}[mode]()
         print(json.dumps({"mode": mode, "card": card, **res}), flush=True)
 
 

@@ -5,7 +5,8 @@ phase. Needs an NVIDIA GPU.
 
     python3 probes/deep_tc_turns.py digests TREE LABEL
     python3 probes/deep_tc_turns.py times TREE LABEL
-    python3 probes/deep_tc_turns.py profile TREE LABEL [bf16]
+    python3 probes/deep_tc_turns.py profile TREE LABEL [bf16|slab]
+    python3 probes/deep_tc_turns.py slab TREE LABEL [--plain]
 
 imports ``repro_torch`` (and ``chip_smoke.py``) from ``TREE`` — a checkout
 of any commit, for example the parent unpacked with ``git archive`` into
@@ -27,13 +28,17 @@ centres at unit scale, the table at 0.02):
   each deep output's digest, whether it equals the f32 launch on the
   widened inputs bit for bit and whether a second launch repeats it:
   both selections, ``eval_fused`` and ``eval_tgt_gather`` (the score
-  slab's one TF32 pass), the partial LSE's forward and its one-launch
+  slab: in older trees one TF32 pass, equal; on ``gemm_bf16``, not),
+  the partial LSE's forward and its one-launch
   backward, the loss's forward, dX and dY, the bucket twins', the
   ``linear_ce`` forward and its one-launch backward; and ``dy_sum``, the
   in-order dY sum of one f32 workspace into the bf16 table (a tree
   whose sum writes f32 only: its f32 table rounded to bf16), whose equal
-  digests show the sum's order unchanged; a tree that refuses bf16
-  prints ``"refused"``.
+  digests show the sum's order unchanged; ``targets_are_slab_columns``
+  (a tree with ``eval_fused.score_slab``): every bf16
+  ``eval_tgt_gather`` and ``eval_tgt_scores`` score at 8,192 ×
+  256,000 equal to its eval slab's column bit for bit; a tree that
+  refuses bf16 prints ``"refused"``.
 * ``times``: device ms (CUDA events, the mean of 5 calls, each after a
   1 GiB L2 flush) of ``sce_gather_plse_fwd``, the partial LSE's backward
   as autograd runs it (``sce_prefetch._grads``: logits, cotangent, dX,
@@ -72,6 +77,25 @@ centres at unit scale, the table at 0.02):
   and ``copy`` (TMA issue, gathered or register-staged copies) — and
   the consumers' cycles per 64-deep stage; at the dense 989 TFLOP/s a
   stage of a 128 × 128 × 64 tile takes ≈ 510 cycles of an SM.
+  With ``slab``: the product the tree's bf16 score slab runs (the
+  one-TF32 ``gemm`` or ``gemm_bf16``, whichever ``score_slab`` calls),
+  profiled the same way in the bf16 selections and eval of ``slab``
+  below (a getter added to ``mips_topk.cu`` and ``eval_fused.cu``).
+* ``slab``: the bf16 score slab apart from its readers — ``mips_topk``
+  at 128 × 4,096, k 128 and at 128 × 256,000, k 1024, ``eval_fused``
+  at 8,192 × 256,000, k 1 with the LSE and cap 30 (8 slabs of 1,024
+  rows; the target given), ``eval_topk`` at the same shape, k 1, and
+  ``eval_tgt_gather`` / ``eval_tgt_scores`` at 8,192 rows, on bf16
+  operands: the call's device ms (CUDA events, each after a 1 GiB L2
+  flush) beside a PyTorch call of the same function on the same bf16
+  tensors, the bound (``chip_smoke.bf16_bound``) and, with ``--plain``,
+  the plain version (``kernels/ref.py``), and each kernel's device ms
+  in
+  launch order (``torch.profiler``, the flush queued first in the same
+  trace, so every call starts from a cold L2), summed into ``slab`` (the
+  product and, where the depth is split, its reduce), ``readers`` (the
+  sweeps, chains, counts, folds and merges), ``target``
+  (``eval_tgt_gather``) and ``other``.
 
 Every line carries ``nvidia-smi``'s card name and power limit. Run two
 trees in turns (parent, change, change, parent) in one call to compare
@@ -262,6 +286,23 @@ def _bf16_digests(torch, args, q, xs, xe, te, tl):
         table = sce_prefetch.sce_gather_dy_sum(
             ws, *keys, torch.zeros(C, D, device=x_b.device)).to(bf)
     out["dy_sum"] = {"digest": _digest(table)}
+    if hasattr(eval_fused, "score_slab"):  # the eval slab read alone
+        from repro_torch.kernels import eval_topk
+
+        tg = eval_fused.eval_tgt_gather(xeb, yb, te)
+        ts = eval_topk.eval_tgt_scores(xeb, yb, te)
+        same = True
+        for r in range(0, N_EVAL, 1024):
+            rr = slice(r, r + 1024)
+            slab = eval_fused.score_slab(xeb[rr], yb)
+            col = slab[te[rr].long(), torch.arange(slab.shape[1],
+                                                   device=slab.device)]
+            same &= (torch.equal(tg[rr].view(torch.int32),
+                                 col.view(torch.int32)) and
+                     torch.equal(ts[rr].view(torch.int32),
+                                 col.view(torch.int32)))
+            del slab, col
+        out["targets_are_slab_columns"] = same
     return out
 
 
@@ -278,7 +319,8 @@ def _kernel_split(torch, fn):
            if getattr(e, "device_type", None) is not None
            and "CUDA" in str(e.device_type)]
     evs.sort(key=lambda e: e.time_range.start)
-    return [(re.sub(r"\(.*", "", e.name)[:60],
+    return [(re.sub(r"\(.*", "", e.name.replace("(anonymous namespace)::",
+                                                 ""))[:60],
              round(getattr(e, "device_time", 0.0) / 1e3, 4)) for e in evs]
 
 
@@ -381,6 +423,107 @@ def _bf16_times(torch, cs, args, pos, gg, xs, te, flush):
               for k, f in runs.items()}
         split = _kernel_split(torch, pair)
     return {"ms": ms, "bwd_kernels": split}
+
+
+def _slab_inputs(torch, dev, g, y, with_library=False):
+    """The bf16 selections' and eval's inputs, and their calls (name →
+    kernel call); with ``with_library`` name → (kernel call, a PyTorch
+    call of the same function on the bf16 tensors, bound args for
+    ``chip_smoke.bf16_bound``, the plain version's call)."""
+    from repro_torch.kernels import eval_fused, eval_topk, ref
+    from repro_torch.kernels.mips_topk import mips_topk
+
+    bf = torch.bfloat16
+    q = torch.randn(N_B, D, generator=g, device=dev).to(bf)
+    xs = torch.randn(N_POS, D, generator=g, device=dev).to(bf)
+    xe = torch.randn(N_EVAL, D, generator=g, device=dev).to(bf)
+    te = torch.randint(1, C, (N_EVAL,), generator=g, device=dev,
+                       dtype=torch.int32)
+    yb = y.to(bf)
+    win = torch.arange(C, device=dev) >= 1
+    tg = eval_fused.eval_tgt_gather(xe, yb, te)
+
+    def scores():
+        return torch.where(win[None, :], (xe @ yb.T).float(), -1e30)
+
+    def lib_eval(lse):
+        s_ = scores()
+        out = (torch.topk(s_, 1), (s_ > tg[:, None]).sum(1),
+               (s_ == tg[:, None]).sum(1))
+        if lse:
+            out += (torch.logsumexp(CAP * torch.tanh(s_ / CAP), -1),)
+        return out
+
+    n_e, rows = N_EVAL, int(torch.unique(te).numel())
+    io_e = 2 * (n_e * D + C * D) + 4 * 2 * n_e + 8 * n_e
+    ekw = dict(c_lo=1, c_hi=C, logit_softcap=CAP, with_lse=True,
+               tgt_scores=tg)
+    runs = {
+        "mips_topk_k128": (lambda: mips_topk(q, xs, 128),
+                           lambda: torch.topk(q @ xs.T, 128),
+                           (2 * (N_B * D + N_POS * D) + 8 * N_B * 128,
+                            2 * N_B * N_POS * D, 0),
+                           lambda: ref.mips_topk_ref(q, xs, 128)),
+        "mips_topk_k1024": (lambda: mips_topk(q, yb, 1024),
+                            lambda: torch.topk(q @ yb.T, 1024),
+                            (2 * (N_B * D + C * D) + 8 * N_B * 1024,
+                             2 * N_B * C * D, 0),
+                            lambda: ref.mips_topk_ref(q, yb, 1024)),
+        "eval_fused": (lambda: eval_fused.eval_fused(xe, yb, te, 1, **ekw),
+                       lambda: lib_eval(True),
+                       (io_e + 16 * n_e, 2 * n_e * C * D, n_e * C),
+                       lambda: ref.eval_fused_ref(xe, yb, te, 1, **ekw)),
+        "eval_topk": (lambda: eval_topk.eval_topk(xe, yb, tg, 1, c_lo=1,
+                                                  c_hi=C),
+                      lambda: lib_eval(False), (io_e, 2 * n_e * C * D, 0),
+                      lambda: ref._two_pass_topk_ref(xe, yb, tg, 1, c_lo=1,
+                                                     c_hi=C)),
+        "eval_tgt_gather": (lambda: eval_fused.eval_tgt_gather(xe, yb, te),
+                            lambda: (xe * yb[te.long()]).float().sum(-1),
+                            (2 * (n_e * D + rows * D) + 8 * n_e,
+                             2 * n_e * D, 0),
+                            lambda: ref.eval_tgt_gather_ref(xe, yb, te)),
+        "eval_tgt_scores": (lambda: eval_topk.eval_tgt_scores(xe, yb, te),
+                            lambda: (xe * yb[te.long()]).float().sum(-1),
+                            (2 * (n_e * D + rows * D) + 8 * n_e,
+                             2 * n_e * D, 0),
+                            lambda: ref._two_pass_tgt_scores_ref(xe, yb, te)),
+    }
+    if with_library:
+        return runs
+    return {k: v[0] for k, v in runs.items()
+            if k in ("mips_topk_k128", "mips_topk_k1024", "eval_fused")}
+
+
+PLAIN = "--plain" in sys.argv  # slab: also time each plain version
+
+
+def slab(tree, label):
+    torch, cs, dev, g, args, pos, gg = _setup(tree)
+    runs = _slab_inputs(torch, dev, g, args[1], with_library=True)
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    out = {}
+    with torch.no_grad():
+        for name, (fn, lib, bound, plain) in runs.items():
+            reps = 3 if name.startswith("eval_") and "tgt" not in name else 5
+            ms = cs.time_ms(fn, reps, flush)
+            b = cs.bf16_bound(*bound)
+            ks = _kernel_split(torch, lambda: (flush.zero_(), fn()))[1:]
+            parts = {"slab": 0.0, "readers": 0.0, "target": 0.0,
+                     "other": 0.0}
+            for k, t in ks:
+                kind = ("slab" if "gemm" in k or "sum_splits" in k else
+                        "target" if "tgt" in k else
+                        "readers" if any(w in k for w in (
+                            "sweep", "pass", "tau", "select", "merge",
+                            "sample", "finish")) else "other")
+                parts[kind] += t
+            out[name] = {"ms": ms, "library_ms": cs.time_ms(lib, 2, flush),
+                         "plain_ms": (cs.time_ms(plain, 1, flush)
+                                      if PLAIN else None),
+                         "bound_ms": b[0], "bound_by": b[2],
+                         "parts_ms": parts, "kernels": ks}
+    print(label, json.dumps({"slab": out, "card": cs.smi()}), flush=True)
 
 
 _TC_HEAD = ("template <bool A_KM, bool B_KN, bool GATHER, bool ACC, "
@@ -503,6 +646,27 @@ extern "C" int deep_prof_read(unsigned long long* out) {
 """
 
 
+def _shares(v, phases, bf16):
+    """The counters of one profiled call as each phase's share of the
+    warps' cycles (see the module docstring)."""
+    if bf16:
+        cyc = v[:4]
+        total = sum(cyc)
+        prod = v[4] + v[5]
+        return {
+            "consumer_share": {p: round(c / max(total, 1), 4)
+                               for p, c in zip(phases, cyc)},
+            "producer_share": {"empty": round(v[4] / max(prod, 1), 4),
+                               "copy": round(v[5] / max(prod, 1), 4)},
+            "cycles_per_warp_stage": round(sum(cyc[:3]) / max(v[6], 1), 1)}
+    cyc = v[:len(phases)]
+    total = sum(cyc)
+    return {"share": {p: round(c / max(total, 1), 4)
+                      for p, c in zip(phases, cyc)},
+            "cycles_per_warp_chunk": round(
+                sum(cyc[1:-1]) / max(v[7], 1), 1)}
+
+
 def profile(tree, label, kind="f32"):
     """The clock profile (see the module docstring) of TREE's product, or
     of its bf16 product with ``kind`` "bf16"."""
@@ -522,6 +686,11 @@ def profile(tree, label, kind="f32"):
                   flush=True)
             return
         patch, phases = _BF_PATCH, _BF_PHASES
+    if kind == "slab":  # the product the bf16 score slab calls
+        body = text[text.index("cudaError_t score_slab("):]
+        body = body[:body.index("\n}\n")]
+        if "gemm_bf16" in body:
+            patch, phases = _BF_PATCH, _BF_PHASES
     for old, new in patch:
         if text.count(old) != 1:
             raise SystemExit(f"profile: anchor not found once in {header}: "
@@ -529,6 +698,9 @@ def profile(tree, label, kind="f32"):
         text = text.replace(old, new)
     (csrc / header).write_text(text)
     (csrc / "sce_gather.cu").write_text(sce + _GETTER % (ns, ns))
+    for lib_name in ("mips_topk", "eval_fused"):
+        src = csrc / f"{lib_name}.cu"
+        src.write_text(src.read_text() + _GETTER % (ns, ns))
     os.chdir(work)
     torch, cs, dev, g, args, pos, gg = _setup(str(work))
     from repro_torch.kernels import _build, sce_prefetch
@@ -536,6 +708,27 @@ def profile(tree, label, kind="f32"):
     lib = _build.load("sce_gather")
     lib.deep_prof_read.argtypes = [ctypes.c_void_p]
     buf = (ctypes.c_ulonglong * 8)()
+    if kind == "slab":
+        runs = _slab_inputs(torch, dev, g, args[1])
+        out = {}
+        for name, fn in runs.items():
+            lib = _build.load("eval_fused" if name == "eval_fused"
+                              else "mips_topk")
+            lib.deep_prof_read.argtypes = [ctypes.c_void_p]
+            fn()
+            torch.cuda.synchronize()
+            lib.deep_prof_read(buf)  # reset after the warm call
+            fn()
+            torch.cuda.synchronize()
+            if lib.deep_prof_read(buf) != 0:
+                raise SystemExit("profile: deep_prof_read failed")
+            out[name] = _shares([int(v) for v in buf], phases,
+                                patch is _BF_PATCH)
+        print(label, json.dumps({"product": ns, "kind": kind,
+                                 "phases_of": "gemm_bf16" if patch is
+                                 _BF_PATCH else "gemm", "profile": out,
+                                 "card": cs.smi()}), flush=True)
+        return
     kw = dict(logit_softcap=CAP)
     if kind == "bf16":
         args = tuple(t.to(torch.bfloat16) if t.is_floating_point() else t
@@ -560,30 +753,13 @@ def profile(tree, label, kind="f32"):
     for name, v in (("logits", logits),
                     ("dx", [a - b for a, b in zip(dx, logits)]),
                     ("dy", [a - b for a, b in zip(dy, logits)])):
-        if kind == "bf16":
-            cyc = v[:4]
-            total = sum(cyc)
-            prod = v[4] + v[5]
-            out[name] = {
-                "consumer_share": {p: round(c / max(total, 1), 4)
-                                   for p, c in zip(phases, cyc)},
-                "producer_share": {"empty": round(v[4] / max(prod, 1), 4),
-                                   "copy": round(v[5] / max(prod, 1), 4)},
-                "cycles_per_warp_stage": round(
-                    sum(cyc[:3]) / max(v[6], 1), 1)}
-            continue
-        cyc = v[:len(phases)]
-        total = sum(cyc)
-        chunks = v[7]
-        out[name] = {
-            "share": {p: round(c / total, 4) for p, c in zip(phases, cyc)},
-            "cycles_per_warp_chunk": round(
-                sum(cyc[1:-1]) / max(chunks, 1), 1)}
+        out[name] = _shares(v, phases, kind == "bf16")
     print(label, json.dumps({"product": ns, "kind": kind, "profile": out,
                              "card": cs.smi()}), flush=True)
 
 
 if __name__ == "__main__":
     mode, tree, label = sys.argv[1:4]
-    {"digests": digests, "times": times, "profile": profile}[mode](
-        tree, label, *sys.argv[4:])
+    {"digests": digests, "times": times, "profile": profile,
+     "slab": slab}[mode](
+        tree, label, *[a for a in sys.argv[4:] if a != "--plain"])

@@ -11,9 +11,11 @@ of any commit, for example the parent unpacked with ``git archive`` into
 trainers at full width as published (bf16, 26 layers, 2 × 4,096 tokens a
 step): ``lm_train_phase`` (SCE ``exact``, cap 30, 4 steps with the
 token-rank evaluation) and ``lm_full_ce_phase`` (``ce_fused_linear``, 2
-steps), then prints ``LABEL {...}`` with each one's median step (host
-clock), its step phases (device events) and its peak device memory in
-bytes (``max_memory_allocated``), and the card's name and power limit.
+steps), then ``lm_serve_phase`` (the token-rank evaluation of 8,192
+rows on fresh weights, prefill and decode), and prints ``LABEL {...}``
+with each trainer's median step (host clock), its step phases (device
+events) and its peak device memory in bytes (``max_memory_allocated``),
+the evaluation's rows/s, and the card's name and power limit.
 Run parent, change, change, parent in one call to compare.
 """
 import json
@@ -37,9 +39,12 @@ def main(tree, label):
     cfg = cs.lm_config()
     sce = cs.lm_train_phase(dev, cfg)
     ce = cs.lm_full_ce_phase(dev, cfg, sce)
+    served = cs.lm_serve_phase(dev, cfg)
     keys = ("median_step_ms", "breakdown", "peak_bytes")
     print(label, json.dumps({"sce": {k: sce[k] for k in keys},
                              "full_ce": {k: ce[k] for k in keys},
+                             "token_rank_rows_per_s":
+                                 served["eval_rows_per_s"],
                              "card": cs.smi()}), flush=True)
 
 

@@ -1,8 +1,8 @@
 // deep_tc — the depth-chunked product of every deep variant (d > 256),
 // designed for Hopper's tensor cores. A batched C[b] = A[b] · B[b]ᵀ for
 // any depth K: in 3xTF32 on f32 operands (gemm), and on bfloat16
-// operands either as one TF32 pass (gemm with TA = TB = bf16: the score
-// slab) or at the bf16 rate (gemm_bf16, below: the deep SCE and full CE).
+// operands at the bf16 rate (gemm_bf16, below: the deep SCE, the full CE
+// and the score slab).
 //
 // Which TPU kernels it serves: at d > 256 it takes every product of
 //   * sce_gather.cu's deep entries — the in-bucket logits, dX = G · Y[idx]
@@ -16,30 +16,25 @@
 //     `fused_ce_loss` (src/repro/kernels/fused_ce.py);
 //   * the score slabs S = Y · Qᵀ of mips_topk.cu's and eval_fused.cu's
 //     deep entries (score_slab below: catalog rows as A, queries as B, the
-//     orientation of topk_tile.cuh's score_step), behind `mips_topk`
+//     orientation of topk_tile.cuh's score_step and target_scores), behind
+//     `mips_topk`
 //     (src/repro/kernels/mips_topk.py `_mips_kernel`), `eval_fused` and
 //     `eval_topk` (src/repro/kernels/eval_fused.py, eval_topk.py).
 //
-// The arithmetic is topk_tile.cuh's score_step and tf32x3_tile.cuh's:
+// The f32 arithmetic is topk_tile.cuh's score_step and tf32x3_tile.cuh's:
 // every value split into TF32 (hi, lo) (tf32x3::split), each k16 step's
 // three passes (lo·hi, hi·lo of both k8 steps, then hi·hi) summed from
 // zero on the tensor cores and added to the f32 accumulator in ascending
 // depth, k16 steps past K skipped, values out of range 0. On an H100
 // `wgmma` gives the bits of `mma.sync` m16n8k8 for the same passes
 // (SHA-256 of every deep output at gemma-2's shapes,
-// probes/deep_tc_turns.py digests; PERF.md), so a slab score equals
+// probes/deep_tc_turns.py digests; PERF.md), so an f32 slab score equals
 // target_scores' for the same pair bit for bit, and SCE's forward, dX and
-// dY read logits of one arithmetic.
-//
-// bfloat16 in gemm (TA = TB = bf16; the score slab of mips_topk.cu and
-// eval_fused.cu, whose scores must equal eval_tgt_gather's bit for bit):
-// the operand is staged as stored, 8 values a 16-byte copy, and widened
-// to f32 where the split reads it. A bf16 value is its own TF32 hi (lo =
-// 0), and the product of two is exact in f32, so with ONE each k8 step
-// issues the hi·hi `wgmma` only and the lo planes are never written: the
-// lo·hi and hi·lo passes it drops are exact zeros, and the result is the
-// three-pass result on the widened operands bit for bit (up to the sign
-// of a zero sum).
+// dY read logits of one arithmetic. On bf16 operands the slab runs
+// gemm_bf16, and target_scores runs that product's arithmetic (an
+// `mma.sync` m16n8k16 bf16 chain), so the tie holds there too.
+// gemm runs on f32 operands only (its element-typed staging helpers are
+// instantiated on float; bf16 operands take gemm_bf16).
 //
 // Options (template flags): A_KM — A stored (K, M), M contiguous;
 // B_KN — B stored (K, N); GATHER — B's rows (n, or k with B_KN) taken
@@ -54,7 +49,7 @@
 // read 0. out[b·out_batch + m·ldo + n] (f32) for m < M, n < N.
 //
 // What bounds it on an H100: three TF32 passes at the dense 495 TFLOP/s
-// (6·M·N·K FLOP of TF32 per product; with bf16 one pass, 2·M·N·K); the
+// (6·M·N·K FLOP of TF32 per product); the
 // bytes (each operand once, the output once) are a small share at the
 // deep shapes (d 2304).
 //
@@ -76,7 +71,7 @@
 //     and no warp splits or loads a fragment.
 //   * tiles and the instruction: 128 × 128 outputs a block, two
 //     warpgroups of 64 rows, each k8 step three `wgmma` m64n128k8 (tf32,
-//     both operands K-major from shared memory, no swizzle; one with ONE),
+//     both operands K-major from shared memory, no swizzle),
 //     asynchronous: the block splits chunk t + 1 and issues chunk t + 3's
 //     copies while the tensor cores take chunk t, then adds each k16
 //     step's product to its accumulator. One barrier per 32-deep chunk
@@ -84,10 +79,9 @@
 // A plane: per operand and per (hi, lo), depth group c (4 depths) of row
 // r at core(c, r) — row groups of 8 side by side (128 bytes apart), depth
 // groups 2 KB apart; the raw K-major chunk's XOR keeps the split's reads
-// and the copies' writes free of bank conflicts (f32; a bf16 chunk's
-// 8-byte reads take two wavefronts).
-// Shared memory: kStages · 2 · 16 KB raw (a bf16 operand uses half of
-// its share) + 2 · 64 KB planes = 224 KB, one block (two warpgroups) an
+// and the copies' writes free of bank conflicts.
+// Shared memory: kStages · 2 · 16 KB raw + 2 · 64 KB planes = 224 KB,
+// one block (two warpgroups) an
 // SM; three 64-float accumulators a thread (the running sum and both k16
 // steps' products).
 #pragma once
@@ -132,7 +126,12 @@ struct Gemm {
   // set by gemm_bf16(): operands that come by TMA, and the tile walk
   int tma_a, tma_b;
   int n_fast;        // consecutive tiles share an A tile (else a B tile)
-  long tiles;        // output tiles over the batch
+  long tiles;        // output tiles over the batch (and the splits)
+  // gemm_bf16 only: the depth cut into `splits` ranges (0 or 1: one;
+  // split_chunks 64-deep stages each, set by gemm_bf16()), range s
+  // written whole (C over its depths, from zero) at out + s·split_ld
+  int splits, split_chunks;
+  long split_ld;
 };
 
 using tf32x3::bf16;
@@ -192,10 +191,10 @@ __device__ __forceinline__ int core(int c, int r) {
 
 // Unit i (0..3) of this thread's share of one operand's split: row
 // tid & 127, depths 4c .. 4c + 3 with c = (tid >> 7) + 2i, from the landed
-// raw chunk into the (hi, lo) planes (hi only with ONE). K-major raw (KM
-// false): [128 rows][32], 16-byte chunk kc of row r at raw_chunk(kc, r);
-// M- or N-major (KM true): [32][128].
-template <bool KM, bool ONE, typename T>
+// raw chunk into the (hi, lo) planes. K-major raw (KM false): [128
+// rows][32], 16-byte chunk kc of row r at raw_chunk(kc, r); M- or N-major
+// (KM true): [32][128].
+template <bool KM, typename T>
 __device__ __forceinline__ void split_unit(const T* raw, float* pl, int i) {
   const int r = threadIdx.x & (kBM - 1), c = (threadIdx.x >> 7) + 2 * i;
   float4 v;
@@ -209,12 +208,6 @@ __device__ __forceinline__ void split_unit(const T* raw, float* pl, int i) {
                     tf32x3::widen(col[2 * kBM]), tf32x3::widen(col[3 * kBM]));
   }
   const int off = core(c, r);
-  if (ONE) {  // bf16 values: each its own hi, lo 0
-    *reinterpret_cast<uint4*>(pl + off) =
-        make_uint4(tf32x3::to_tf32(v.x), tf32x3::to_tf32(v.y),
-                   tf32x3::to_tf32(v.z), tf32x3::to_tf32(v.w));
-    return;
-  }
   uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
   tf32x3::split(v.x, h0, l0);
   tf32x3::split(v.y, h1, l1);
@@ -283,8 +276,6 @@ __device__ __forceinline__ void fence_regs(float (&d)[64]) {
 template <bool A_KM, bool B_KN, bool GATHER, bool ACC, typename TA,
           typename TB>
 __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Gemm g) {
-  // One pass (hi·hi) when an operand is bf16 (see the note at the top).
-  constexpr bool ONE = sizeof(TA) == 2 || sizeof(TB) == 2;
   using SA = Stage<TA>;
   using SB = Stage<TB>;
   extern __shared__ __align__(128) float smem[];
@@ -386,8 +377,8 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Gemm g) {
     float* pn = planes + pb * 2 * kPlanes;
 #pragma unroll
     for (int i = 2 * h; i < 2 * h + 2; ++i) {
-      split_unit<A_KM, ONE>(ra, pn, i);
-      split_unit<B_KN, ONE>(rb, pn + kPlanes, i);
+      split_unit<A_KM>(ra, pn, i);
+      split_unit<B_KN>(rb, pn + kPlanes, i);
     }
   };
   // The split's writes made visible to the tensor cores' reads (the
@@ -441,16 +432,13 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(Gemm g) {
                                 desc(pb + core(4 * s + 2, 0))};
       const uint64_t lo = (uint64_t)(kPlane * 4) >> 4;  // hi → lo
       if (s == 0 || second) {
-        if (!ONE) {
 #pragma unroll
-          for (int kk = 0; kk < 2; ++kk) {
-            wgmma(p, a_hi[kk] + lo, b_hi[kk], kk);  // lo·hi, from zero first
-            wgmma(p, a_hi[kk], b_hi[kk] + lo, 1);   // hi·lo
-          }
+        for (int kk = 0; kk < 2; ++kk) {
+          wgmma(p, a_hi[kk] + lo, b_hi[kk], kk);  // lo·hi, from zero first
+          wgmma(p, a_hi[kk], b_hi[kk] + lo, 1);   // hi·lo
         }
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
-          wgmma(p, a_hi[kk], b_hi[kk], ONE ? kk : 1);
+        for (int kk = 0; kk < 2; ++kk) wgmma(p, a_hi[kk], b_hi[kk], 1);
         wgmma_commit();
       }
       // half of chunk t + 1's split while the tensor cores take step s
@@ -543,14 +531,48 @@ cudaError_t gemm(Gemm g, long batch, cudaStream_t s,
   return cudaGetLastError();
 }
 
+template <bool A_KM, bool B_KN, bool GATHER, bool ACC>
+cudaError_t gemm_bf16(Gemm g, long batch, cudaStream_t s,
+                      bool (&done)[tf32x3::kMaxDevices]);
+
+// s[i] = p_0[i] + p_1[i] + … + p_{S−1}[i] in that order, p_j = s + j·ld,
+// written over p_0: a split product's partial slabs summed in a fixed
+// order (so the sum repeats bit for bit). V: 4 values a thread (16-byte
+// loads), else 1.
+template <int V>
+__global__ void __launch_bounds__(256)
+    sum_splits_kernel(float* __restrict__ s, long n, long ld, int splits) {
+  const long step = (long)gridDim.x * blockDim.x * V;
+  for (long i = ((long)blockIdx.x * blockDim.x + threadIdx.x) * V; i < n;
+       i += step) {
+    if constexpr (V == 4) {
+      float4 a = *reinterpret_cast<const float4*>(s + i);
+      for (int j = 1; j < splits; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(s + j * ld + i);
+        a = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+      }
+      *reinterpret_cast<float4*>(s + i) = a;
+    } else {
+      float a = s[i];
+      for (int j = 1; j < splits; ++j) a += s[j * ld + i];
+      s[i] = a;
+    }
+  }
+}
+
 // The score slab S (c, n_q), row-major: S[r][j] = y[r] · q[j], catalog
 // rows as A and queries as B — topk_tile.cuh's score_step orientation, so
 // that a slab score equals target_scores' for the pair bit for bit. The
-// deep mips_topk and eval_fused sweeps then read S.
+// deep mips_topk and eval_fused sweeps then read S. f32: gemm's 3xTF32;
+// bf16: gemm_bf16, its depth cut into `splits` ranges when asked (s then
+// holds splits slabs of c·n_q, the partials, summed in order into the
+// first: mips_topk's small slabs, which fill the card only so; a target
+// score is the one-range product, so eval_fused never splits).
+// cudaErrorInvalidValue for splits > 1 on f32 operands.
 template <typename T>
 cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
                        int d, cudaStream_t st,
-                       bool (&done)[tf32x3::kMaxDevices]) {
+                       bool (&done)[tf32x3::kMaxDevices], int splits = 1) {
   Gemm g{};
   g.a = y;
   g.lda = d;
@@ -561,7 +583,24 @@ cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
   g.m = c;
   g.n = n_q;
   g.k = d;
-  return gemm<false, false, false, false, T, T>(g, 1, st, done);
+  if constexpr (sizeof(T) == 2) {
+    const long n = (long)c * n_q;
+    g.splits = splits;
+    g.split_ld = n;
+    cudaError_t err = gemm_bf16<false, false, false, false>(g, 1, st, done);
+    if (err != cudaSuccess || splits <= 1) return err;
+    const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0;
+    const long want = ((vec ? n / 4 : n) + 255) / 256;
+    const long blocks = want < 1056 ? want : 1056;  // 8 a SM at most
+    if (vec)
+      sum_splits_kernel<4><<<(unsigned)blocks, 256, 0, st>>>(s, n, n, splits);
+    else
+      sum_splits_kernel<1><<<(unsigned)blocks, 256, 0, st>>>(s, n, n, splits);
+    return cudaGetLastError();
+  } else {
+    if (splits > 1) return cudaErrorInvalidValue;
+    return gemm<false, false, false, false, T, T>(g, 1, st, done);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -570,11 +609,17 @@ cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
 // tensor cores' bf16 rate: `wgmma` m64n128k16 .f32.bf16.bf16 reads both
 // operands as stored, from shared memory in its 128-byte-swizzled layout,
 // and accumulates over the whole depth in the tensor cores (f32). Used by
-// the deep SCE (sce_gather.cu: the logits, dX = G · Y[idx], Gᵀ · x_b) and
+// the deep SCE (sce_gather.cu: the logits, dX = G · Y[idx], Gᵀ · x_b),
 // the deep full CE (linear_ce.cu: the chunk's logits, dX += G · W_chunk,
-// dW_chunk = Gᵀ · X) on bf16 operands, G their bf16 cotangent; the score
-// slab keeps the one-TF32 pass above, so that its scores stay tied to
-// eval_tgt_gather's bit for bit.
+// dW_chunk = Gᵀ · X), G their bf16 cotangent, and the score slab of the
+// deep mips_topk and eval sweeps (score_slab above), on bf16 operands.
+// An output's bits do not depend on where it sits in its tile, and a
+// per-pair `mma.sync` m16n8k16 bf16 chain from zero in ascending k16
+// steps gives them (probes/bf16_tc_check.py slab_bits): topk_tile.cuh's
+// target_scores runs that chain, so a target score stays the slab's.
+// Optionally the depth is cut into ranges (Gemm::splits), each range a
+// work unit of its own that writes its own partial output: more units
+// where the output has fewer tiles than the card has SMs.
 //
 // What bounds it on an H100: 2·M·N·K FLOP at the dense bf16 989 TFLOP/s;
 // the bytes (each operand once at 2 B a value, the f32 output once) where
@@ -583,7 +628,8 @@ cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
 // Design (Hopper's usual shape, cuda_guide.md "Warp Specialization"):
 //   * a persistent grid, one block an SM, walking 128 × 128 output tiles
 //     (n fastest where A is the larger operand, so a tile of A is read
-//     once while B's rows stay in L2; else m fastest). The tile, from
+//     once while B's rows stay in L2; else m fastest; the depth ranges
+//     outermost). The tile, from
 //     the clock profile by phase (probes/deep_tc_turns.py profile bf16):
 //     the gathered products wait on their copies and dY's slot rows
 //     (K = b_x = 128) on their f32 stores, which a wider tile moves
@@ -807,14 +853,22 @@ __global__ void __launch_bounds__(kBThreads, 1)
   __syncthreads();
   const int gm = (g.m + kBM - 1) / kBM, gn = (g.n + kBN - 1) / kBN;
   const int chunks = (g.k + kBBK - 1) / kBBK;
-  // output tile → (m0, n0, batch)
-  auto tile_of = [&](long t, long& m0, int& n0, long& bt) {
+  const long per_split = g.tiles / g.splits;
+  // work unit → output tile (m0, n0, batch), its depth range's stages
+  // [c0, c1) and its partial's offset
+  auto tile_of = [&](long t, long& m0, int& n0, long& bt, int& c0, int& c1,
+                     long& o_off) {
+    const long sp = t / per_split;
+    t -= sp * per_split;
     bt = t / ((long)gm * gn);
     const long r = t - bt * gm * gn;
     const long mt = g.n_fast ? r / gn : r % gm;
     const long nt = g.n_fast ? r % gn : r / gm;
     m0 = mt * kBM;
     n0 = (int)nt * kBN;
+    c0 = (int)sp * g.split_chunks;
+    c1 = c0 + g.split_chunks < chunks ? c0 + g.split_chunks : chunks;
+    o_off = sp * g.split_ld + bt * g.out_batch;
   };
 
   if (tid >= kBConsumers) {  // the producer warpgroup
@@ -823,9 +877,9 @@ __global__ void __launch_bounds__(kBThreads, 1)
     const int tx = (g.tma_a ? kBTile : 0) + (g.tma_b ? kBTile : 0);
     long it = 0;
     for (long t = blockIdx.x; t < g.tiles; t += gridDim.x) {
-      long m0, bt;
-      int n0;
-      tile_of(t, m0, n0, bt);
+      long m0, bt, o_off;
+      int n0, c0, c1;
+      tile_of(t, m0, n0, bt, c0, c1, o_off);
       const bf16* const A = static_cast<const bf16*>(g.a) + bt * g.a_batch;
       const bf16* const B =
           static_cast<const bf16*>(g.b) + (GATHER ? 0 : bt * g.b_batch);
@@ -834,8 +888,8 @@ __global__ void __launch_bounds__(kBThreads, 1)
       int ids[8] = {}, next[8] = {};
       if (GATHER)
         load_ids<B_KN>(B_KN ? next : ids, idx, B_KN ? g.k : g.n,
-                       B_KN ? 0 : n0, pt);
-      for (int c = 0; c < chunks; ++c, ++it) {
+                       B_KN ? c0 * kBBK : n0, pt);
+      for (int c = c0; c < c1; ++c, ++it) {
         const int s = (int)(it % kBStages);
         mbar_wait(empty + s, (uint32_t)((it / kBStages) & 1) ^ 1u);
         unsigned char* const ta = smem + (size_t)s * 2 * kBTile;
@@ -868,7 +922,7 @@ __global__ void __launch_bounds__(kBThreads, 1)
         if (GATHER && B_KN) {
 #pragma unroll
           for (int i = 0; i < 8; ++i) ids[i] = next[i];
-          if (c + 1 < chunks) load_ids<true>(next, idx, g.k, k0 + kBBK, pt);
+          if (c + 1 < c1) load_ids<true>(next, idx, g.k, k0 + kBBK, pt);
         }
         if (!g.tma_b)
           copy_stage<B_KN, GATHER>(tb, B, g.ldb, g.n, g.k, n0, k0, ids,
@@ -893,14 +947,14 @@ __global__ void __launch_bounds__(kBThreads, 1)
   const uint32_t lbo_a = A_KM ? 8192 : 16, lbo_b = B_KN ? 8192 : 16;
   long it = 0;
   for (long t = blockIdx.x; t < g.tiles; t += gridDim.x) {
-    long m0, bt;
-    int n0;
-    tile_of(t, m0, n0, bt);
+    long m0, bt, o_off;
+    int n0, c0, c1;
+    tile_of(t, m0, n0, bt, c0, c1, o_off);
     float acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     int prev = -1;
-    for (int c = 0; c < chunks; ++c, ++it) {
+    for (int c = c0; c < c1; ++c, ++it) {
       const int s = (int)(it % kBStages);
       mbar_wait(full + s, (uint32_t)((it / kBStages) & 1));
       if (copies) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -925,7 +979,7 @@ __global__ void __launch_bounds__(kBThreads, 1)
 
     // acc[4j + 2h + u]: row 16·(warp & 3) + gq + 8h of the warpgroup's 64,
     // column 8j + 2q + u (wgmma's accumulator layout).
-    float* out = g.out + bt * g.out_batch;
+    float* out = g.out + o_off;
     if (g.vec_o == 2) {
       // 16-byte stores: lanes q and q ^ 1 swap a pair, so that an even q
       // holds 4 columns of row h = 0 and an odd q 4 columns of row h = 1
@@ -1048,9 +1102,10 @@ inline int sm_count() {
 }
 
 // Launches `batch` bf16 products on stream s (shapes and options as
-// gemm()); `done` the caller's shared-memory opt-in table.
-// cudaErrorInvalidValue for an empty shape, and where
-// cuTensorMapEncodeTiled refuses a tensor map.
+// gemm(); g.splits depth ranges, each written at its own split_ld);
+// `done` the caller's shared-memory opt-in table.
+// cudaErrorInvalidValue for an empty shape, a depth range without a
+// stage, and where cuTensorMapEncodeTiled refuses a tensor map.
 template <bool A_KM, bool B_KN, bool GATHER, bool ACC>
 cudaError_t gemm_bf16(Gemm g, long batch, cudaStream_t s,
                       bool (&done)[tf32x3::kMaxDevices]) {
@@ -1058,7 +1113,12 @@ cudaError_t gemm_bf16(Gemm g, long batch, cudaStream_t s,
       batch > 0x7fffffffL)
     return cudaErrorInvalidValue;
   const long gm = (g.m + kBM - 1) / kBM, gn = (g.n + kBN - 1) / kBN;
-  g.tiles = gm * gn * batch;
+  const int chunks = (g.k + kBBK - 1) / kBBK;
+  g.splits = g.splits > 1 ? g.splits : 1;
+  g.split_chunks = (chunks + g.splits - 1) / g.splits;
+  if ((long)(g.splits - 1) * g.split_chunks >= chunks)
+    return cudaErrorInvalidValue;
+  g.tiles = gm * gn * batch * g.splits;
   g.n_fast = g.m > g.n;
   g.vec_a = vec_ok(g.a, g.a_batch, g.lda, 2);
   g.vec_b = vec_ok(g.b, GATHER ? 0 : g.b_batch, g.ldb, 2);

@@ -30,7 +30,8 @@
 // topk_tile.cuh's score_step — 3xTF32 `mma.sync` with the catalog row as
 // A and the query row as B, the same split and k order, k16 steps from
 // zero added in f32 — the sweep in its tiles, eval_tgt_gather in
-// target_scores. So tgt is bit for bit the swept score of the target
+// target_scores (the deep bf16 slab and its target: gemm_bf16's
+// arithmetic, below). So tgt is bit for bit the swept score of the target
 // column, and eq ≥ 1 on every row whose target is valid.
 //
 // What bounds it on an H100. At B = 256 evaluated users, C = 173,520
@@ -66,19 +67,27 @@
 //
 // Deep variants (eval_fused_deep_launch, eval_topk_deep_launch) for
 // d > 256: deep_tc.cuh's product first writes the score slab S = Y · Xᵀ
-// (c, n), catalog rows as A and queries as B with score_step's arithmetic
-// over depth chunks of 32 (`wgmma`, bf16 operands in one TF32 pass), and the same sweep reads its tiles' scores from S
+// (c, n), catalog rows as A and queries as B — f32 operands with
+// score_step's arithmetic over depth chunks of 32 (`wgmma`), bf16
+// operands on gemm_bf16 (bf16 `wgmma`, the depth summed in the tensor
+// cores) — and the same sweep reads its tiles' scores from S
 // (topk_tile.cuh's FROM_S): the counts, the LSE fold, the lists and the
 // merge are this file's code. eval_tgt_gather takes any depth, and a slab
-// score equals its target score bit for bit (the same mma3x2 k16 steps
-// from zero, added in ascending depth order, in the same orientation),
-// so eq still counts the target's own column. The wrapper cuts the rows
-// into slabs that keep S within a fixed budget.
+// score equals its target score bit for bit: f32, the same mma3x2 k16
+// steps from zero, added in ascending depth order, in the same
+// orientation; bf16, an `mma.sync` m16n8k16 chain carried from zero in
+// ascending depth, which gives gemm_bf16's bits wherever the pair sits in
+// its tile (probes/bf16_tc_check.py slab_bits) — so eq still counts the
+// target's own column. The slab is never cut in depth (a target is one
+// product). The wrapper cuts the rows into slabs that keep S within a
+// fixed budget.
 //
-// bfloat16 operands (the entries' bf16_in): x and y are widened to f32 as
-// they are staged (topk_tile.cuh) or split (deep_tc.cuh, one TF32 pass),
-// so every output equals the f32 launch's on the widened inputs bit for
-// bit, and the target score stays the swept column.
+// bfloat16 operands (the entries' bf16_in): resident (d ≤ 256), x and y
+// are widened to f32 as they are staged (topk_tile.cuh), so every output
+// equals the f32 launch's on the widened inputs bit for bit; deep, the
+// scores come from the bf16 product (other bits than the f32 launch,
+// within f32 rounding of f64, repeating bit for bit), and the target
+// score stays the swept column either way.
 //
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -121,7 +130,7 @@ cudaError_t launch_target_scores(const void* x, const void* y,
 }
 
 // deep_tc's score slab, with this library's table of its shared-memory
-// opt-in for each element type.
+// opt-in for each element type (gemm's for f32, gemm_bf16's for bf16).
 template <typename T>
 cudaError_t score_slab(const void* q, const void* y, float* s, int n_q, int c,
                        int d, cudaStream_t st) {
@@ -441,6 +450,20 @@ extern "C" int eval_fused_launch(
       x, y, nullptr, o, part_vals, part_ids, tau, uv, n, c, d, k,
       query_tiles, n_split, pre_split, pre_period, id_offset, c_lo, c_hi,
       with_lse != 0, bf16_in, static_cast<cudaStream_t>(stream));
+}
+
+// The deep variants' score slab alone: scores (c, n) f32 = y · xᵀ, as
+// eval_fused_deep_launch and eval_topk_deep_launch write it before their
+// sweep (the same call), for the tests and probes that hold a target
+// score against its slab column. Returns the cudaError_t (0 on success).
+extern "C" int eval_score_slab_launch(const void* x, const void* y,
+                                      float* scores, int n, int c, int d,
+                                      int bf16_in, void* stream) {
+  if (n <= 0 || c <= 0 || d <= 0 || scores == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(bf16_in ? score_slab<bf16>(x, y, scores, n, c, d, st)
+                       : score_slab<float>(x, y, scores, n, c, d, st));
 }
 
 // eval_fused_launch for any d > 0, on the (c, n) f32 workspace `scores`.

@@ -1488,25 +1488,21 @@ extern "C" int linear_ce_bwd_deep_launch(const void* x, const void* w,
 // entry of tests and probes; the deep variants above call them inline):
 // `batch` products C[t] = A[t] · B[t]ᵀ of deep_tc::Gemm's shapes, out = C
 // or, with acc, out += C. f32 operands: the 3xTF32 product. With bf16_in
-// both operands are bfloat16: gemm_bf16 (every option), or with one_pass
-// the score slab's one TF32 pass (without gather or acc, the options no
-// slab needs).
+// both operands are bfloat16: gemm_bf16.
 extern "C" int deep_tc_launch(const void* a, const void* b,
                               const int* idx, const int* m_zero, float* out,
                               int m, int n, int k, int lda, int ldb, int ldo,
                               long a_batch, long b_batch, long idx_batch,
                               long out_batch, long mz_batch, int b_rows,
                               int batch, int a_km, int b_kn, int gather,
-                              int acc, int bf16_in, int one_pass,
-                              void* stream) {
-  if ((gather && (idx == nullptr || b_rows < 1)) ||
-      (one_pass && (!bf16_in || gather || acc)))
+                              int acc, int bf16_in, void* stream) {
+  if (gather && (idx == nullptr || b_rows < 1))
     return (int)cudaErrorInvalidValue;
   deep_tc::Gemm g{a,   a_batch,   lda, b,      b_batch,  ldb,
                   idx, idx_batch, b_rows, out, out_batch, ldo,
                   m_zero, mz_batch, m, n, k, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16_in && !one_pass)
+  if (bf16_in)
     return (int)with_bool(a_km != 0, [&](auto akm) {
       return with_bool(b_kn != 0, [&](auto bkn) {
         return with_bool(gather != 0, [&](auto gat) {
@@ -1516,13 +1512,6 @@ extern "C" int deep_tc_launch(const void* a, const void* b,
                 g, st, batch);
           });
         });
-      });
-    });
-  if (bf16_in)
-    return (int)with_bool(a_km != 0, [&](auto akm) {
-      return with_bool(b_kn != 0, [&](auto bkn) {
-        return tc_gemm<decltype(akm)::value, decltype(bkn)::value, false,
-                       false, bf16>(g, st, batch);
       });
     });
   return (int)with_bool(a_km != 0, [&](auto akm) {

@@ -86,21 +86,29 @@
 // for d > 256 and, in the chain, 512 < k ≤ 1024, where the kernels above
 // cannot stage their queries and tiles (d) or their 16-row lists (k):
 // deep_tc.cuh's product first writes the score slab S = Y · Qᵀ (c, n_q)
-// in 3xTF32 on `wgmma` (bf16 operands in one TF32 pass), walking the depth
-// in chunks of 32, and the same sweep, passes
-// and finishing sweep then read each tile's scores from S (FROM_S) in
-// place of their products: the thresholds, filters, sorts and merges are
-// unchanged. The wrapper cuts the queries into slabs that keep S within
-// a fixed budget. At gemma-2's selection (128 bucket centres against a
-// 256,000-row vocabulary, d 2304, k 1024) S is 131 MB, 0.08 ms of
-// traffic against 151 GFLOP of products.
+// — f32 operands in 3xTF32 on `wgmma`, walking the depth in chunks of 32;
+// bf16 operands on gemm_bf16, bf16 `wgmma` from TMA stages — and the same
+// sweep, passes and finishing sweep then read each tile's scores from S
+// (FROM_S) in place of their products: the thresholds, filters, sorts
+// and merges are unchanged. The wrapper cuts the queries into slabs that
+// keep S within a fixed budget. At gemma-2's selection (128 bucket
+// centres against a 256,000-row vocabulary, d 2304, k 1024) S is 131 MB,
+// 0.08 ms of traffic against 151 GFLOP of products. A bf16 slab of fewer
+// 128 × 128 tiles than the card has SMs (the 128 × 4,096 positions
+// selection: 32 tiles on 132 SMs) has its depth cut into `depth_splits`
+// ranges, each written as a partial slab, then summed in range order
+// (deep_tc::score_slab): deterministic, and a different rounding from
+// the one-range product (no target score is tied to mips_topk's).
 //
-// bfloat16 operands (the entries' `bf16_in`): q and y are read as stored
-// and widened to f32 as they are staged (the sweep's tiles and the
-// queries' split, the chain's tiles and queries, the deep slab's split).
+// bfloat16 operands (the entries' `bf16_in`): in the resident kernels q
+// and y are read as stored and widened to f32 as they are staged (the
+// sweep's tiles and the queries' split, the chain's tiles and queries).
 // A bf16 value is exact in f32 and in TF32 and the product of two is
-// exact in f32, so the FMA fold and the 3xTF32 steps give the f32 launch's
-// outputs on the widened inputs bit for bit.
+// exact in f32, so the FMA fold and the 3xTF32 steps give the f32
+// launch's outputs on the widened inputs bit for bit. The deep variants
+// score on the bf16 product (the depth summed in the tensor cores): other
+// bits than the f32 launch, within f32 rounding of f64, repeating bit
+// for bit.
 //
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -980,12 +988,12 @@ cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
 }
 
 // deep_tc's score slab, with this library's table of its shared-memory
-// opt-in for each element type.
+// opt-in for each element type (gemm's for f32, gemm_bf16's for bf16).
 template <typename T>
 cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
-                       int d, cudaStream_t st) {
+                       int d, int splits, cudaStream_t st) {
   static bool done[kMaxDevices] = {};
-  return deep_tc::score_slab<T>(q, y, s, n_q, c, d, st, done);
+  return deep_tc::score_slab<T>(q, y, s, n_q, c, d, st, done, splits);
 }
 
 // 1 when rows of y (element size `elem`) can be read 4 values at a time.
@@ -996,10 +1004,11 @@ inline int vec4(const void* y, int d, int elem) {
 }  // namespace
 
 // Every entry takes q and y in one element type: f32, or bfloat16 when
-// `bf16_in` is nonzero (widened to f32 as they are staged; the chain's FMA
-// fold and the sweep's 3xTF32 products then run on exact f32 copies of
-// the values, so the outputs equal the f32 launch on the widened inputs
-// bit for bit). Scores, values and scratch are f32 either way.
+// `bf16_in` is nonzero (resident: widened to f32 as they are staged; the
+// chain's FMA fold and the sweep's 3xTF32 products then run on exact f32
+// copies of the values, so the outputs equal the f32 launch on the
+// widened inputs bit for bit; deep: the bf16 slab). Scores, values and
+// scratch are f32 either way.
 
 // The k ≤ 32 sweep on `stream`: τ seeded — by the pre-pass over tiles s,
 // s + pre_period, … of pre_split splits and its selection, or, when
@@ -1091,7 +1100,9 @@ extern "C" int mips_topk_select_launch(
 // The deep variants: as mips_topk_launch and mips_topk_select_launch, for
 // any d > 0 (and, in the chain, k ≤ kMaxK), with `scores` a (c, n_q) f32
 // workspace that deep_tc::score_slab fills first; the sweeps and passes
-// then read it (FROM_S).
+// then read it (FROM_S). bf16 operands with depth_splits > 1: `scores`
+// holds depth_splits (c, n_q) slabs (the partials; the first ends as the
+// slab); f32 operands take depth_splits 1 only.
 extern "C" int mips_topk_deep_launch(const void* q, const void* y,
                                      const unsigned char* valid,
                                      float* scores, float* part_vals,
@@ -1100,7 +1111,7 @@ extern "C" int mips_topk_deep_launch(const void* q, const void* y,
                                      int d, int k, int query_tiles,
                                      int n_split, int pre_split,
                                      int pre_period, int id_offset, int bf16_in,
-                                     void* stream) {
+                                     int depth_splits, void* stream) {
   if (n_q <= 0 || c <= 0 || d <= 0 || k <= 0 || k > 32 || k > c ||
       scores == nullptr || n_split <= 0 || n_split > 65535 ||
       pre_split < 0 || pre_split > 65535 ||
@@ -1110,7 +1121,7 @@ extern "C" int mips_topk_deep_launch(const void* q, const void* y,
   cudaError_t err = by_dtype(bf16_in, [&](auto t) {
     using T = decltype(t);
     return score_slab(static_cast<const T*>(q), static_cast<const T*>(y),
-                      scores, n_q, c, d, s);
+                      scores, n_q, c, d, depth_splits, s);
   });
   if (err != cudaSuccess) return (int)err;
   Sweep a{q, y, valid, part_vals, part_ids, tau, n_q, c, d, k, 0,
@@ -1129,7 +1140,7 @@ extern "C" int mips_topk_select_deep_launch(
     float* bv, int* bi, float* part_vals, int* part_ids, float* vals,
     int* ids, int n_q, int c, int d, int k, int id_offset, int n_split,
     int period, int collect_split, int kcap, int fin_split,
-    int fin_split_cols, int bf16_in, void* stream) {
+    int fin_split_cols, int bf16_in, int depth_splits, void* stream) {
   if (n_q <= 0 || c <= 0 || d <= 0 || k <= 0 || k > kMaxK || k > c ||
       scores == nullptr || n_split <= 0 || period < n_split ||
       collect_split <= 0 || kcap < k || kcap > kMaxSort ||
@@ -1142,7 +1153,7 @@ extern "C" int mips_topk_select_deep_launch(
   cudaError_t err = by_dtype(bf16_in, [&](auto t) {
     using T = decltype(t);
     return score_slab(static_cast<const T*>(q), static_cast<const T*>(y),
-                      scores, n_q, c, d, s);
+                      scores, n_q, c, d, depth_splits, s);
   });
   if (err != cudaSuccess) return (int)err;
   Pass base{};

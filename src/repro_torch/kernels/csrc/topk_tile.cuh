@@ -35,21 +35,27 @@
 // The deep variant (FROM_S). The sweep holds its queries' fragments and
 // two catalog tiles over the whole depth, which caps d at kMaxD = 256.
 // Above it (and for the k > kMaxSweepK lists of mips_topk's chain) the
-// caller first computes the score slab S = Y · Qᵀ with deep_tc.cuh,
-// whose product walks the depth in chunks of 32 with the very score_step
-// arithmetic of this sweep (catalog rows as A, the same split and k16
-// order), and the sweep reads each tile's scores from S instead of
-// computing them: the filter, the shared threshold, the merges and the
-// hook are the same code. target_scores takes any depth, so the target's
-// score is still the swept column bit for bit. The slab costs
-// 2·c·n_q·4 bytes of traffic against 2·c·n_q·d FLOP of products: at
-// d 2304 a byte a 576 FLOP, far above the card's ridge.
+// caller first computes the score slab S = Y · Qᵀ with deep_tc.cuh —
+// on f32 operands a product that walks the depth in chunks of 32 with
+// the very score_step arithmetic of this sweep (catalog rows as A, the
+// same split and k16 order), on bf16 operands gemm_bf16 (bf16 `wgmma`,
+// the depth summed in the tensor cores) — and the sweep reads each tile's
+// scores from S instead of computing them: the filter, the shared
+// threshold, the merges and the hook are the same code. target_scores
+// takes any depth, in the slab's arithmetic (score_step on f32; on bf16
+// above kMaxD an `mma.sync` m16n8k16 bf16 chain, which gives gemm_bf16's
+// bits: probes/bf16_tc_check.py slab_bits), so the target's score is
+// still the swept column bit for bit. The slab costs 2·c·n_q·4 bytes of
+// traffic against 2·c·n_q·d FLOP of products: at d 2304 a byte a 576
+// FLOP, far above the card's ridge.
 //
-// bfloat16 operands (T = tf32x3::bf16): the catalog tiles and the queries
-// are read as stored and widened to f32 as they are staged (the tiles
-// through registers: there is no 2-byte cp.async), so every score is the
-// f32 sweep's on the widened values bit for bit; target_scores reads its
-// two rows the same way, and stays the swept column.
+// bfloat16 operands (T = tf32x3::bf16), resident (d ≤ kMaxD): the catalog
+// tiles and the queries are read as stored and widened to f32 as they are
+// staged (the tiles through registers: there is no 2-byte cp.async), so
+// every score is the f32 sweep's on the widened values bit for bit;
+// target_scores reads its two rows the same way, and stays the swept
+// column. Deep, the scores are the bf16 product's (other bits than the
+// f32 launch on the widened values).
 
 #pragma once
 
@@ -899,13 +905,81 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
 // order — so it is bit for bit the score the sweep computes for that
 // (query, catalog row) pair; 0 where t_r is outside [id_offset,
 // id_offset + c). One warp a run of 8 rows, kTargetWarps warps a block.
+// bf16 operands above kMaxD: target_scores_bf16 below, the deep slab's
+// arithmetic in the same orientation.
 constexpr int kTargetWarps = 4;
+
+// Two bf16 values of row p at depths k, k + 1 packed as mma.sync takes
+// them (depth k in the low half), 0 past d; `pair`: p 4-byte aligned and
+// d even, one 4-byte load.
+__device__ __forceinline__ uint32_t bf16_pair(const tf32x3::bf16* p, int k,
+                                              int d, bool pair) {
+  if (pair) return k < d ? *reinterpret_cast<const uint32_t*>(p + k) : 0u;
+  const uint32_t lo = k < d ? p[k].bits : 0u;
+  const uint32_t hi = k + 1 < d ? p[k + 1].bits : 0u;
+  return lo | hi << 16;
+}
+
+// d += A·B on an m16n8k16 tile of bf16, f32 accumulate (mma.sync).
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// target_scores on bf16 operands above kMaxD, in deep_tc.cuh gemm_bf16's
+// arithmetic (the score slab's): the target row as A row gq of an
+// m16n8k16 bf16 tile (rows gq + 8 zero), the query row as B column gq,
+// both read as stored; the accumulator carried from zero through the k16
+// steps in ascending depth, over gemm_bf16's 64-deep stages (zeros past
+// d). On an H100 that chain gives the bits gemm_bf16 gives the pair
+// wherever it sits in its tile (probes/bf16_tc_check.py slab_bits), so
+// the target is the slab's column bit for bit. The diagonal (gq, gq) is
+// C register c[gq & 1] of lane 4·gq + (gq >> 1).
+__device__ __forceinline__ void target_scores_bf16(
+    const tf32x3::bf16* x, const tf32x3::bf16* y, const int* targets,
+    float* out, int n, int c, int d, int id_offset) {
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int qd = lane & 3;
+  const int r0 = (blockIdx.x * kTargetWarps + (threadIdx.x >> 5)) * 8;
+  if (r0 >= n) return;  // warp-uniform
+  const int r = r0 + gq;
+  const long local = r < n ? (long)targets[r] - id_offset : -1;
+  const bool owned = local >= 0 && local < c;
+  const tf32x3::bf16* xr = x + (long)(r < n ? r : 0) * d;
+  const tf32x3::bf16* yr = y + (owned ? local : 0) * d;
+  const bool pair = d % 2 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(y) % 4 == 0;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const int steps = (d + 63) / 64 * 4;  // gemm_bf16's k16 steps
+  for (int s16 = 0; s16 < steps; ++s16) {
+    const int k = 16 * s16 + 2 * qd;
+    const uint32_t a[4] = {owned ? bf16_pair(yr, k, d, pair) : 0u, 0u,
+                           owned ? bf16_pair(yr, k + 8, d, pair) : 0u, 0u};
+    const uint32_t b[2] = {r < n ? bf16_pair(xr, k, d, pair) : 0u,
+                           r < n ? bf16_pair(xr, k + 8, d, pair) : 0u};
+    mma_bf16(acc, a, b);
+  }
+  if (r < n && qd == gq >> 1) out[r] = owned ? acc[gq & 1] : 0.f;
+}
 
 template <typename T>
 __device__ __forceinline__ void target_scores(const T* x, const T* y,
                                               const int* targets, float* out,
                                               int n, int c, int d,
                                               int id_offset) {
+  if constexpr (sizeof(T) == 2) {
+    if (d > kMaxD) {  // the deep bf16 slab's arithmetic
+      target_scores_bf16(x, y, targets, out, n, c, d, id_offset);
+      return;
+    }
+  }
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2;
   const int qd = lane & 3;

@@ -14,13 +14,18 @@ that launched each kernel.
 
 Above ``MAX_D`` (``deep.is_deep``) the rows go in slabs
 (``mips_topk.slab_rows``) through ``eval_fused_deep_launch``, which first
-writes the slab's scores (``csrc/deep_tc.cuh``) and then sweeps them;
-:func:`eval_tgt_gather` takes any depth, by the same arithmetic.
+writes the slab's scores (``csrc/deep_tc.cuh``: 3xTF32 on f32 operands,
+``gemm_bf16`` on bf16, never cut in depth) and then sweeps them;
+:func:`eval_tgt_gather` takes any depth, by the same arithmetic (on deep
+bf16 an ``mma.sync`` bf16 chain that gives ``gemm_bf16``'s bits), so
+its score is the slab's column bit for bit.
 
-``x`` and ``y`` are float32 or both bfloat16 (``deep.operand_dtype``),
-widened to f32 inside the kernels where they land: every output (f32
-scores and LSE pair, int32 ids and counts) equals the f32 launch's on
-the widened inputs bit for bit.
+``x`` and ``y`` are float32 or both bfloat16 (``deep.operand_dtype``).
+Resident, bf16 operands are widened to f32 inside the kernels where they
+land: every output (f32 scores and LSE pair, int32 ids and counts)
+equals the f32 launch's on the widened inputs bit for bit. Deep, the
+scores are the bf16 product's: other bits than the f32 launch, within
+f32 rounding of the f64 product, repeating bit for bit.
 """
 from __future__ import annotations
 
@@ -84,6 +89,8 @@ def _lib() -> ctypes.CDLL:
     lib.eval_fused_launch.restype = ctypes.c_int
     lib.eval_fused_deep_launch.argtypes = [p] * 17 + [i] * 11 + [f, i, i, p]
     lib.eval_fused_deep_launch.restype = ctypes.c_int
+    lib.eval_score_slab_launch.argtypes = [p] * 3 + [i] * 4 + [p]
+    lib.eval_score_slab_launch.restype = ctypes.c_int
     return lib
 
 
@@ -94,9 +101,10 @@ def _stream(device) -> int:
 def eval_tgt_gather(x, y, targets, *, id_offset: int = 0):
     """Each row's target score ``x[r] · y[targets[r] − id_offset]`` on
     the card, by the very 3xTF32 ``mma`` sequence (orientation, split, k
-    order) the :func:`eval_fused` sweep runs, so it equals the swept
-    target column bit for bit; 0 where the target is outside
-    ``[id_offset, id_offset + C)``.
+    order) the :func:`eval_fused` sweep runs — on deep bf16 operands the
+    ``mma.sync`` bf16 chain that gives the score slab's bits — so it
+    equals the swept target column bit for bit; 0 where the target is
+    outside ``[id_offset, id_offset + C)``.
 
     x : (n, d) float32 or bfloat16, y : (C, d) of x's dtype, targets :
     (n,) int32; all contiguous CUDA tensors. → (n,) float32.
@@ -117,6 +125,30 @@ def eval_tgt_gather(x, y, targets, *, id_offset: int = 0):
         raise RuntimeError(f"eval_tgt_gather launch failed: cudaError {err} "
                            f"(n={n}, C={y.shape[0]}, d={d})")
     eval_tgt_gather.launches += 1
+    return out
+
+
+def score_slab(x, y):
+    """The deep variant's score slab alone, ``S (C, n)`` f32 with
+    ``S[c, r] = y[c] · x[r]``, as ``eval_fused_deep_launch`` writes it
+    before its sweep (the same library code): for the tests and probes
+    that hold a target score against its slab column. x (n, d), y (C, d),
+    float32 or both bfloat16, contiguous CUDA tensors, d > ``MAX_D``."""
+    _check(x, y, torch.zeros(x.shape[0], dtype=torch.int32,
+                             device=x.device))
+    n, d = x.shape
+    c = y.shape[0]
+    if d <= MAX_D:
+        raise ValueError(f"score_slab is the deep variant's: d {d} <= "
+                         f"{MAX_D}")
+    out = torch.empty((c, n), dtype=torch.float32, device=x.device)
+    with on_device(x.device):
+        err = _lib().eval_score_slab_launch(
+            x.data_ptr(), y.data_ptr(), out.data_ptr(), n, c, d,
+            bf16_flag(x.dtype), _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"eval_score_slab launch failed: cudaError {err} "
+                           f"(n={n}, C={c}, d={d})")
     return out
 
 

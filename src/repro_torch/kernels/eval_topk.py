@@ -15,7 +15,10 @@ The reference keeps these two entries as the oracle of the fused sweep
   column's bits; here ``topk_tile.cuh``'s ``score_step`` (3xTF32
   ``mma.sync``, the sweep's orientation, split and k order) gives the
   same bits from a gather of one row per user, so the value is bit for
-  bit the column :func:`eval_topk` sweeps.
+  bit the column :func:`eval_topk` sweeps. Deep (d > ``MAX_D``) on bf16
+  operands, where the swept slab is ``csrc/deep_tc.cuh``'s
+  ``gemm_bf16``, it is an ``mma.sync`` bf16 chain that gives that
+  product's bits.
 
 Both take CUDA tensors only: the CPU path is ``kernels/ref.py``
 (``eval_topk_ref``, ``eval_tgt_scores_ref``), chosen by

@@ -173,7 +173,7 @@ def _lib() -> ctypes.CDLL:
     lib.linear_ce_fwd_deep_launch.argtypes = [p] * 7 + [i] * 5 + [f, i, p]
     lib.linear_ce_bwd_deep_launch.argtypes = [p] * 9 + [i] * 5 + [f, i, p]
     L = ctypes.c_long
-    lib.deep_tc_launch.argtypes = [p] * 5 + [i] * 6 + [L] * 5 + [i] * 8 + [p]
+    lib.deep_tc_launch.argtypes = [p] * 5 + [i] * 6 + [L] * 5 + [i] * 7 + [p]
     for fn in (lib.linear_ce_splits, lib.linear_ce_fwd_plan,
                lib.linear_ce_bwd_plan,
                lib.linear_ce_fwd_launch,
@@ -433,12 +433,11 @@ def linear_ce_dw(x, w, targets, lse, g, *, logit_softcap=None, planes=None):
 
 
 def deep_tc_product(a, b, *, a_km=False, b_kn=False, idx=None, out=None,
-                    m_zero=None, one_pass=False):
+                    m_zero=None):
     """The deep variants' product (``csrc/deep_tc.cuh``) on its own, for
     tests and probes: ``C[t] = A[t] · B[t]ᵀ`` over a batch, f32 out.
     ``a`` and ``b`` f32: 3xTF32; both bfloat16: the bf16 product
-    (``gemm_bf16``, every option), or with ``one_pass`` the score slab's
-    one TF32 pass (without ``idx`` or ``out``).
+    (``gemm_bf16``, every option).
     ``a`` (T, M, K), or (T, K, M) with ``a_km``; ``b`` (T, N, K), or
     (T, K, N) with ``b_kn`` — or, with ``idx`` (T, N) (with ``b_kn``
     (T, K)) int32, a table (R, K) (``b_kn``: (R, N)) whose rows
@@ -467,7 +466,7 @@ def deep_tc_product(a, b, *, a_km=False, b_kn=False, idx=None, out=None,
             a[0].numel(), 0 if idx is not None else b[0].numel(),
             0 if idx is None else idx.shape[1], m * n, m, b.shape[0], t,
             int(a_km), int(b_kn), int(idx is not None), int(acc),
-            bf16_flag(operand_dtype("deep_tc_product", a, b)), int(one_pass),
+            bf16_flag(operand_dtype("deep_tc_product", a, b)),
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"deep_tc_launch failed: cudaError {err} "

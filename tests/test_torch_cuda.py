@@ -1864,6 +1864,35 @@ def _close_bf16(got, want):
         (g - w).abs().max().item()
 
 
+def _f64_tol(want, scale):
+    """The deep product's tolerance against f64: 1e-5·max|·| + 2e-4·|·|."""
+    return 1e-5 * scale + 2e-4 * want.abs()
+
+
+def _hold_topk_f64(got, s64, k):
+    """A deep bf16 selection (values, ids) against the f64 plain version's
+    top-``k`` of the masked scores ``s64 (n, C)`` (invalid columns at
+    -inf): values within :func:`_f64_tol`, ids equal wherever the
+    reference's value lies further than that from its neighbours, the
+    (k+1)-th included (ties go to the lower id)."""
+    order = torch.sort(s64, dim=1, descending=True, stable=True).indices
+    v = torch.gather(s64, 1, order)
+    wv, wi = v[:, :k], order[:, :k].to(torch.int32)
+    real = torch.isfinite(wv)
+    scale = s64[torch.isfinite(s64)].abs().max().item()
+    tol = _f64_tol(wv, scale)
+    gv = got[0].double()
+    assert (((gv - wv).abs() <= tol) | ~real).all(), \
+        ((gv - wv).abs()[real].max().item(), scale)
+    assert (got[1][~real] == ID_PAD).all()
+    inf = torch.full_like(wv[:, :1], float("inf"))
+    nxt = v[:, k:k + 1] if k < s64.shape[1] else -inf
+    prv = torch.cat([inf, wv[:, :-1]], 1)
+    nxt = torch.cat([wv[:, 1:], nxt], 1)
+    iso = ((prv - wv) > tol) & ((wv - nxt) > tol) & real
+    assert iso.any() and torch.equal(got[1][iso], wi[iso])
+
+
 @pytest.mark.parametrize("n_q,c,d,k", [
     (8, 5_000, 64, 10),      # the tensor-core sweep, pre-pass
     (33, 4_100, 64, 10),
@@ -1871,26 +1900,44 @@ def _close_bf16(got, want):
     (40, 3_000, 64, 320),    # the k > 32 chain
     (20, 2_000, 64, 512),
     (33, 3_000, 300, 10),    # deep: the slab on deep_tc, then the sweep
+    (33, 3_000, 301, 200),   # odd d: rows not 16-byte aligned
     (20, 4_096, 2_304, 128),  # gemma-2's positions selection
     (12, 5_000, 2_304, 1_024),  # ... and its vocabulary selection
     (16, 3_000, 64, 1_024),  # the deep chain at a resident depth
+    (128, 4_096, 2_304, 128),  # the split slab: 32 tiles, 4 ranges
+    (128, 131 * 128, 2_304, 128),  # 131 tiles: 2 ranges
+    (128, 133 * 128, 2_304, 128),  # 133 tiles: one range
 ])
 def test_bf16_mips_topk_equals_f32_on_widened_inputs(dev, n_q, c, d, k):
-    """bf16 q and y: values and ids equal the f32 kernel's on the widened
-    inputs bit for bit (each value exact in f32 and TF32, each product
-    exact in f32), a second launch repeats them, and the plain version on
-    the bf16 inputs agrees within 1e-5 of the largest score."""
+    """bf16 q and y. Resident: values and ids equal the f32 kernel's on the
+    widened inputs bit for bit (each value exact in f32 and TF32, each
+    product exact in f32). Deep (the score slab on ``gemm_bf16``, its
+    depth cut into ``deep.depth_splits`` ranges where its tiles are fewer
+    than the SMs): values within ``1e-5·max|·| + 2e-4·|·|`` of the f64
+    plain version on the widened inputs, ids equal wherever the gap is
+    above that. Either way a second launch repeats them bit for bit, and
+    the plain version on the bf16 inputs agrees within 1e-5 of the
+    largest score."""
     g = _gen(dev, n_q + c + d + k)
     (q, y), (qw, yw) = _bf16(torch.randn(n_q, d, generator=g, device=dev),
                              torch.randn(c, d, generator=g, device=dev))
     vm = torch.rand(c, generator=g, device=dev) > 0.2
     got = kernel.mips_topk(q, y, k, valid=vm)
-    want = kernel.mips_topk(qw, yw, k, valid=vm)
     again = kernel.mips_topk(q, y, k, valid=vm)
     torch.cuda.synchronize()
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
-    for a, b, c_ in zip(got, want, again):
-        assert torch.equal(a, b) and torch.equal(a, c_)
+    for a, c_ in zip(got, again):
+        assert torch.equal(a, c_)
+    if deep.is_deep(d, k):
+        if c in (4_096, 131 * 128, 133 * 128):
+            assert deep.depth_splits(n_q, c, d, kernel.n_sm(q.device)) == \
+                {4_096: 4, 131 * 128: 2, 133 * 128: 1}[c]
+        s64 = qw.double() @ yw.double().T
+        _hold_topk_f64(got, torch.where(vm[None, :], s64, -math.inf), k)
+    else:
+        want = kernel.mips_topk(qw, yw, k, valid=vm)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
     _assert_match(got, ref.mips_topk_ref(q, y, k, valid=vm),
                   (qw @ yw.T).abs().max().item(), False)
 
@@ -1899,29 +1946,77 @@ def test_bf16_mips_topk_equals_f32_on_widened_inputs(dev, n_q, c, d, k):
     (128, 20_000, 64, 10, 30.0, False),
     (40, 1_037, 33, 17, None, False),
     (40, 3_000, 300, 10, 30.0, True),
+    (40, 3_000, 301, 10, None, True),   # odd d: 2-byte target loads
     (64, 5_000, 2_304, 1, 30.0, True),  # token rank
 ])
 def test_bf16_eval_equals_f32_on_widened_inputs(dev, n, c, d, k, cap, deep_):
     """eval_fused (vals, ids, gt, eq, tgt and the LSE pair),
-    eval_tgt_gather, eval_topk and eval_tgt_scores on bf16 x and y equal
-    the f32 kernels on the widened inputs bit for bit, and repeat."""
+    eval_tgt_gather, eval_topk and eval_tgt_scores on bf16 x and y.
+    Resident: equal to the f32 kernels on the widened inputs bit for bit.
+    Deep (the score slab on ``gemm_bf16``): values and the LSE pair within
+    ``1e-5·max|·| + 2e-4·|·|`` of the f64 plain version on the widened
+    inputs, ids equal wherever the gap is above that, gt within the
+    columns that close to the target; eval_tgt_gather and eval_tgt_scores
+    equal the slab's own column bit for bit (read through
+    ``eval_fused.score_slab``, the launch's own slab), so eq counts it.
+    Either way a second launch repeats every output bit for bit."""
     x, y, t = _eval_problem(dev, n + c, n, c, d, False, 0, 1, c - 10)
     (x, y), (xw, yw) = _bf16(x, y)
     kw = dict(c_lo=1, c_hi=c - 10, logit_softcap=cap, with_lse=True)
     got = eval_kernel.eval_fused(x, y, t, k, **kw)
-    want = eval_kernel.eval_fused(xw, yw, t, k, **kw)
     again = eval_kernel.eval_fused(x, y, t, k, **kw)
     assert torch.equal(eval_kernel.eval_tgt_gather(x, y, t), got[4])
     tk = topk_kernel.eval_topk(x, y, got[4], k, c_lo=1, c_hi=c - 10)
-    tk_w = topk_kernel.eval_topk(xw, yw, want[4], k, c_lo=1, c_hi=c - 10)
+    tk_again = topk_kernel.eval_topk(x, y, got[4], k, c_lo=1, c_hi=c - 10)
     ts = topk_kernel.eval_tgt_scores(x, y, t)
     torch.cuda.synchronize()
-    for a, b, c_ in zip(got, want, again):
-        assert torch.equal(a, b) and torch.equal(a, c_)
-    for a, b in zip(tk, tk_w):
-        assert torch.equal(a, b)
-    assert torch.equal(ts, topk_kernel.eval_tgt_scores(xw, yw, t))
+    for a, c_ in zip(got, again):
+        assert torch.equal(a, c_)
+    for a, c_ in zip(tk, tk_again):
+        assert torch.equal(a, c_)
+    assert torch.equal(ts, topk_kernel.eval_tgt_scores(x, y, t))
     assert eval_kernel.eval_fused.launches > 0
+    if not deep_:
+        want = eval_kernel.eval_fused(xw, yw, t, k, **kw)
+        tk_w = topk_kernel.eval_topk(xw, yw, want[4], k, c_lo=1,
+                                     c_hi=c - 10)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        for a, b in zip(tk, tk_w):
+            assert torch.equal(a, b)
+        assert torch.equal(ts, topk_kernel.eval_tgt_scores(xw, yw, t))
+        return
+    slab = eval_kernel.score_slab(x, y)  # (C, n): the launch's own slab
+    owned = (t >= 0) & (t < c)
+    rows = torch.arange(n, device=dev)
+    col = torch.where(owned, slab[t.long().clamp(0, c - 1), rows], 0.0)
+    assert torch.equal(got[4].view(torch.int32), col.view(torch.int32))
+    assert torch.equal(ts.view(torch.int32), col.view(torch.int32))
+    ids = torch.arange(c, device=dev)
+    valid = (ids >= 1) & (ids < c - 10)
+    s64 = xw.double() @ yw.double().T
+    sv = torch.where(valid[None, :], s64, -math.inf)
+    _hold_topk_f64(got[:2], sv, k)
+    assert torch.equal(tk[0], got[0]) and torch.equal(tk[1], got[1])
+    scale = s64.abs().max().item()
+    tgt64 = torch.where(owned, (xw.double() * yw[t.long().clamp(
+        0, c - 1)].double()).sum(1), 0.0)
+    assert ((got[4].double() - tgt64).abs()
+            <= _f64_tol(tgt64, scale)).all()
+    self_ = ids[None, :] == t[:, None].long()
+    near = ((sv - tgt64[:, None]).abs() <= _f64_tol(tgt64, scale)[:, None])
+    gt64 = ((sv > tgt64[:, None]) & ~self_).sum(1)
+    assert ((got[2] - gt64).abs() <= near.sum(1)).all()
+    live = owned & (t >= 1) & (t < c - 10)
+    assert (got[3][live] >= 1).all() and (tk[3][live] >= 1).all()
+    lv = s64 if cap is None else cap * torch.tanh(s64 / cap)
+    lv = torch.where(valid[None, :], lv, -math.inf)
+    m64 = lv.amax(1)
+    s_64 = torch.exp(lv - m64[:, None]).sum(1)
+    assert ((got[5].double() - m64).abs() <= _f64_tol(m64, m64.abs().max()
+                                                        .item())).all()
+    assert ((got[6].double() - s_64).abs() <= _f64_tol(s_64, s_64.abs()
+                                                         .max().item())).all()
 
 
 @pytest.mark.parametrize("shape,cap", [
@@ -2105,14 +2200,14 @@ def test_bf16_full_ce_matches(dev, n, c, d, cap):
 ])
 def test_bf16_deep_tc_product(dev, t, m, n, k, a_km, b_kn):
     """deep_tc.cuh on bf16 operands at ragged shapes, in each orientation
-    the slabs and gradients use. The score slab's one TF32 pass
-    (``one_pass``): equal to the three-pass f32 product on the widened
-    operands bit for bit. The bf16 product (``gemm_bf16``), with and
-    without B gathered by clamped id (ids −2 and past the table) and the
-    accumulate epilogue, zeroed rows with A M-major, rows 16-byte aligned
-    (the TMA; gathered, cp.async) or not (the register-staged copies):
-    within the f32 deep product's ``1e-5·max|C| + 2e-4·|C|`` of the f64
-    plain version and repeating bit for bit. Both routes against f64."""
+    the slabs and gradients use: the bf16 product (``gemm_bf16``, the
+    score slab's product too), with and without B
+    gathered by clamped id (ids −2 and past the table) and the accumulate
+    epilogue, zeroed rows with A M-major, rows 16-byte aligned (the TMA;
+    gathered, cp.async) or not (the register-staged copies): within the
+    f32 deep product's ``1e-5·max|C| + 2e-4·|C|`` of the f64 plain
+    version and repeating bit for bit; the f32 three-pass product on the
+    widened operands within the same tolerance."""
     g = _gen(dev, m + n + k)
     a = torch.randn((t, k, m) if a_km else (t, m, k), generator=g,
                     device=dev)
@@ -2120,12 +2215,9 @@ def test_bf16_deep_tc_product(dev, t, m, n, k, a_km, b_kn):
                     device=dev)
     (a, b), (aw, bw) = _bf16(a, b)
     kw = dict(a_km=a_km, b_kn=b_kn)
-    got = linear_sce.deep_tc_product(a, b, one_pass=True, **kw)
-    again = linear_sce.deep_tc_product(a, b, one_pass=True, **kw)
     three = linear_sce.deep_tc_product(aw, bw, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got, again) and torch.equal(got, three)
-    _close(got, ref.deep_tc_ref(aw.double(), bw.double(), **kw).float(),
+    _close(three, ref.deep_tc_ref(aw.double(), bw.double(), **kw).float(),
            rtol=2e-4)
     rows = 50
     tab = torch.randn((rows, n) if b_kn else (rows, k), generator=g,
@@ -2155,8 +2247,7 @@ def test_bf16_deep_tc_product(dev, t, m, n, k, a_km, b_kn):
 
 def test_bf16_refusals(dev):
     """A bf16 / f32 mix, float64 and float16 raise TypeError in every
-    family; the deep product's one-TF32-pass route (the score slab's)
-    takes no gather, no accumulate and no f32 operands."""
+    family and in the deep product alone."""
     q = torch.zeros(4, 64, device=dev)
     y = torch.zeros(20, 64, device=dev)
     t = torch.zeros(4, dtype=torch.int32, device=dev)
@@ -2175,17 +2266,9 @@ def test_bf16_refusals(dev):
         sce_bucket.sce_bucket_fwd(x_b.bfloat16(), y[idx.long()].half(), tgt,
                                   cand, pos)
     a = torch.zeros(1, 8, 16, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(RuntimeError):
-        linear_sce.deep_tc_product(a, torch.zeros(20, 16, device=dev,
-                                                  dtype=torch.bfloat16),
-                                   idx=torch.zeros(1, 8, dtype=torch.int32,
-                                                   device=dev),
-                                   one_pass=True)
-    with pytest.raises(RuntimeError):
-        linear_sce.deep_tc_product(a, a, out=torch.zeros(1, 8, 8, device=dev),
-                                   one_pass=True)
-    with pytest.raises(RuntimeError):
-        linear_sce.deep_tc_product(a.float(), a.float(), one_pass=True)
+    for b in (a.float(), a.half()):
+        with pytest.raises(TypeError):
+            linear_sce.deep_tc_product(a, b)
 
 
 def test_bf16_forward_lse_is_the_fold_of_the_backward_logits(dev, monkeypatch):
