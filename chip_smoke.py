@@ -243,18 +243,18 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    ``sce_gather_plse`` launches and the deep backward, the in-order dY
    sum into the bf16 table, ``eval_fused`` / ``eval_tgt_gather`` and the
    deep ``linear_ce`` (and ``fused_lse``, timed only) forward and
-   backward; all of them on the bf16 ``wgmma`` product (``gemm_bf16``;
-   the positions selection's slab cut in depth), repeating bit for bit;
+   backward; all of them on the bf16 ``wgmma`` product (``gemm_bf16``),
+   repeating bit for bit;
    the selections' and eval's values and LSE pair within ``1e-5·max|·| +
    2e-4·|·|`` of the f64 plain version, ids equal wherever the gap is
-   above that; each target score the eval slab's own column bit for bit
-   (so ``eq`` counts it); the SCE and ``linear_ce`` forwards within
+   above that, the eval's ``gt`` within the columns that close to the
+   target and ``eq`` ≥ 1; each target score the eval slab's own column
+   bit for bit (so ``eq`` counts it); the SCE and ``linear_ce`` forwards within
    ``1e-5`` and backwards within ``3e-2`` of their scale of the plain
    versions (the cotangent rounded to bf16 on both sides), the bf16 dY
    sum the f32 sum rounded once bit for bit; each timed beside its plain
    version, a PyTorch call in bf16 and its bound at bf16's rates (3.35
-   TB/s at 2 B a value, 989 TFLOP/s) with the one-TF32-pass time beside
-   it. Then the main
+   TB/s at 2 B a value, 989 TFLOP/s). Then the main
    path in bf16, its counts from 0:
    ``train("gemma2-2b", cfg=…, batch=2, seq_len=4096, steps=4,
    sce_mode="exact")`` under ``warn`` — train_4k's 2 microbatches of one
@@ -490,10 +490,7 @@ def bf16_bound(nbytes, flops, exps):
     """The least time of a kernel on bf16 operands: the largest of its
     FLOPs at the card's dense bf16 rate (the least any bf16 product
     takes), its ``exps`` at the SFUs' rate and its bytes (operands at 2 B
-    a value). Returns ``(ms, "bytes" | "operations", basis,
-    tf32_one_pass_ms)``: beside it the time of the one TF32 pass at the
-    dense TF32 rate that the kernels' instruction (bf16 values widened to
-    TF32) allows."""
+    a value). Returns ``(ms, "bytes" | "operations", basis)``."""
     import torch
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -503,13 +500,13 @@ def bf16_bound(nbytes, flops, exps):
              "bytes": nbytes / PEAK_BYTES_S * 1e3}
     basis = max(cands, key=cands.get)
     return (cands[basis], "bytes" if basis == "bytes" else "operations",
-            basis, flops / PEAK_TF32_FLOP_S * 1e3)
+            basis)
 
 
 def bf16_bound_keys(bound):
     """A timing's bound keys from :func:`bf16_bound`."""
     return {"bound_ms": bound[0], "bound_by": bound[1],
-            "bound_basis": bound[2], "tf32_one_pass_ms": bound[3]}
+            "bound_basis": bound[2]}
 
 
 def f32_bound(nbytes, flops):
@@ -531,13 +528,11 @@ def bound_keys(bound):
 
 def bound_text(t):
     """A timing's bound as printed: ms, what bounds it and, for a 3xTF32
-    kernel, its f32 FMA bound (a bf16 kernel: its one TF32 pass)."""
-    if "tf32_one_pass_ms" in t:
-        return (f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
-                f"{t['bound_basis']}; one TF32 pass "
-                f"{t['tf32_one_pass_ms']:.4f} ms)")
+    kernel, its f32 FMA bound."""
     if t.get("bound_basis") in (None, "bytes", "f32 FMAs"):
         return f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
+    if "bound_f32_ms" not in t:  # bf16: the tensor cores or the SFUs
+        return f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bound_basis']})"
     return (f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bound_basis']}; "
             f"as f32 FMAs {t['bound_f32_ms']:.4f} ms)")
 
@@ -3602,13 +3597,15 @@ def lm_bf16_kernel_phase(dev, cfg):
     ``linear_ce`` forward and one-launch backward at N 4,096 (cap 30, the
     target plucked). Every one takes its products on the bf16 ``wgmma``
     (``deep_tc.cuh`` ``gemm_bf16``: the depth summed in the tensor cores,
-    other bits than the f32 kernels' 3xTF32 steps; the positions
-    selection's 32-tile slab cut into 4 depth ranges summed in order) and
-    repeats bit for bit. The selections' and eval's values and LSE pair
+    other bits than the f32 kernels' 3xTF32 steps) and repeats bit for
+    bit. The selections' and eval's values and LSE pair
     lie within ``1e-5·max|·| + 2e-4·|·|`` of the f64 plain version on the
-    same values, ids equal wherever the gap is above that; each target
-    score equals the eval slab's own column (``eval_fused.score_slab``)
-    bit for bit, so ``eq`` counts the target's column; the bf16 dY sum
+    same values, ids equal wherever the gap is above that; the eval's
+    ``gt`` lies between the f64 count of columns above the target by more
+    than that tolerance and the count of those above it less the
+    tolerance, and ``eq`` ≥ 1 on every row; each target score equals the
+    eval slab's own column (``eval_fused.score_slab``) bit for bit, so
+    ``eq`` counts the target's column; the bf16 dY sum
     equals the f32 sum rounded once bit for bit. Each also against its
     plain version on the bf16 inputs:
     values within ``1e-5`` of their scale (selections, the lse) or the
@@ -3616,7 +3613,7 @@ def lm_bf16_kernel_phase(dev, cfg):
     gradients, whose cotangent is rounded to bf16 on both sides). Then
     each timed with a cold L2 beside its plain version, a PyTorch call of
     the same function in bf16 and its bound at bf16's rates
-    (:func:`bf16_bound`, the one-TF32-pass time beside it)."""
+    (:func:`bf16_bound`)."""
     import torch
 
     from repro_torch.kernels import eval_fused as ek
@@ -3658,19 +3655,26 @@ def lm_bf16_kernel_phase(dev, cfg):
         return tol
 
     def top_f64(what, got, s64, k):
-        """A selection against the f64 top-k of s64: values, then ids
-        where the gap to both neighbours is above the tolerance."""
+        """A selection against the f64 top-k of s64 (columns out of the
+        window at -inf): values within the tolerance of the finite
+        scores' largest magnitude, then ids wherever the gap to both
+        neighbours is above it, on at least one entry. Returns that
+        scale."""
         v, order = torch.topk(s64, min(k + 1, s64.shape[1]), dim=1)
         wv, wi = v[:, :k], order[:, :k].to(torch.int32)
-        tol = near_f64(what, got[0], wv, s64.abs().max().item())
+        scale = s64.nan_to_num(neginf=0.0).abs().max().item()
+        check(math.isfinite(scale) and scale > 0,
+              f"lm bf16 {what}: no finite score to scale the tolerance")
+        tol = near_f64(what, got[0], wv, scale)
         inf = torch.full_like(wv[:, :1], float("inf"))
         nxt = torch.cat([wv[:, 1:], v[:, k:k + 1] if v.shape[1] > k
                          else -inf], 1)
         iso = ((torch.cat([inf, wv[:, :-1]], 1) - wv) > tol) & (
             (wv - nxt) > tol)
-        check(bool(torch.equal(got[1][iso], wi[iso])),
+        check(bool(iso.any()) and bool(torch.equal(got[1][iso], wi[iso])),
               f"lm bf16 {what}: ids differ from f64 where the gap is "
-              f"above the tolerance")
+              f"above the tolerance, or no gap is")
+        return scale
 
     # the selections
     sel = {}
@@ -3815,7 +3819,20 @@ def lm_bf16_kernel_phase(dev, cfg):
         del slab, col
         s64 = xe[rr].double() @ y64.T
         sv = torch.where(ok_v[None, :], s64, -math.inf)
-        top_f64("eval_fused", (got[0][rr], got[1][rr]), sv, 1)
+        scale = top_f64("eval_fused", (got[0][rr], got[1][rr]), sv, 1)
+        # gt within the columns that lie within the tolerance of the
+        # target; eq counts at least the target's own column
+        tgt64 = (xe[rr].double() * y64[te[rr].long()]).sum(1)
+        tol_t = near_f64("eval tgt", got[4][rr], tgt64, scale)
+        self_ = ids_v[None, :] == te[rr].long()[:, None]
+        gt64 = ((sv > tgt64[:, None]) & ~self_).sum(1)
+        near = ((sv - tgt64[:, None]).abs() <= tol_t[:, None]).sum(1)
+        check(bool(((got[2][rr].long() - gt64).abs() <= near).all()),
+              "lm bf16 eval gt: differs from the f64 count by more than the "
+              "columns within the tolerance of the target")
+        check(bool((got[3][rr] >= 1).all()),
+              "lm bf16 eval eq: a row counts no column equal to its target")
+        del self_, gt64, near
         lv = torch.where(ok_v[None, :], LM_CAP * torch.tanh(s64 / LM_CAP),
                          -math.inf)
         m64 = lv.amax(1)
@@ -3917,8 +3934,9 @@ def lm_bf16_kernel_phase(dev, cfg):
               f"from the plain version {t['max_abs_err']:.3e}")
     print("  lm bf16: every kernel on the bf16 wgmma product repeats bit for "
           "bit; the selections and eval within 1e-5·max + 2e-4·|·| of f64 "
-          "(ids where the gap is above it), every target score its slab "
-          "column bit for bit; SCE and linear_ce forwards within 1e-5 and "
+          "(ids where the gap is above it; gt within the columns that close "
+          "to the target, eq >= 1), every target score its slab column bit "
+          "for bit; SCE and linear_ce forwards within 1e-5 and "
           "backwards within 3e-2 of their scale of the plain versions; the "
           "bf16 dY sum is the f32 sum rounded once ok")
     return {"timings": timings}

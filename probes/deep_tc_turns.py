@@ -6,7 +6,7 @@ phase. Needs an NVIDIA GPU.
     python3 probes/deep_tc_turns.py digests TREE LABEL
     python3 probes/deep_tc_turns.py times TREE LABEL
     python3 probes/deep_tc_turns.py profile TREE LABEL [bf16|slab]
-    python3 probes/deep_tc_turns.py slab TREE LABEL [--plain]
+    python3 probes/deep_tc_turns.py slab TREE LABEL [--plain] [NAME ...]
 
 imports ``repro_torch`` (and ``chip_smoke.py``) from ``TREE`` — a checkout
 of any commit, for example the parent unpacked with ``git archive`` into
@@ -93,9 +93,9 @@ centres at unit scale, the table at 0.02):
   in
   launch order (``torch.profiler``, the flush queued first in the same
   trace, so every call starts from a cold L2), summed into ``slab`` (the
-  product and, where the depth is split, its reduce), ``readers`` (the
-  sweeps, chains, counts, folds and merges), ``target``
-  (``eval_tgt_gather``) and ``other``.
+  product), ``readers`` (the sweeps, chains, counts, folds and merges),
+  ``target`` (``eval_tgt_gather``) and ``other``. ``NAME``s (say
+  ``mips_topk_k128``) keep only those calls.
 
 Every line carries ``nvidia-smi``'s card name and power limit. Run two
 trees in turns (parent, change, change, parent) in one call to compare
@@ -498,9 +498,10 @@ def _slab_inputs(torch, dev, g, y, with_library=False):
 PLAIN = "--plain" in sys.argv  # slab: also time each plain version
 
 
-def slab(tree, label):
+def slab(tree, label, *names):
     torch, cs, dev, g, args, pos, gg = _setup(tree)
     runs = _slab_inputs(torch, dev, g, args[1], with_library=True)
+    runs = {k: v for k, v in runs.items() if not names or k in names}
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
     out = {}
     with torch.no_grad():
@@ -512,7 +513,7 @@ def slab(tree, label):
             parts = {"slab": 0.0, "readers": 0.0, "target": 0.0,
                      "other": 0.0}
             for k, t in ks:
-                kind = ("slab" if "gemm" in k or "sum_splits" in k else
+                kind = ("slab" if "gemm" in k else
                         "target" if "tgt" in k else
                         "readers" if any(w in k for w in (
                             "sweep", "pass", "tau", "select", "merge",

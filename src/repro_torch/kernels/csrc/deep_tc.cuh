@@ -126,12 +126,7 @@ struct Gemm {
   // set by gemm_bf16(): operands that come by TMA, and the tile walk
   int tma_a, tma_b;
   int n_fast;        // consecutive tiles share an A tile (else a B tile)
-  long tiles;        // output tiles over the batch (and the splits)
-  // gemm_bf16 only: the depth cut into `splits` ranges (0 or 1: one;
-  // split_chunks 64-deep stages each, set by gemm_bf16()), range s
-  // written whole (C over its depths, from zero) at out + s·split_ld
-  int splits, split_chunks;
-  long split_ld;
+  long tiles;        // output tiles over the batch
 };
 
 using tf32x3::bf16;
@@ -535,44 +530,16 @@ template <bool A_KM, bool B_KN, bool GATHER, bool ACC>
 cudaError_t gemm_bf16(Gemm g, long batch, cudaStream_t s,
                       bool (&done)[tf32x3::kMaxDevices]);
 
-// s[i] = p_0[i] + p_1[i] + … + p_{S−1}[i] in that order, p_j = s + j·ld,
-// written over p_0: a split product's partial slabs summed in a fixed
-// order (so the sum repeats bit for bit). V: 4 values a thread (16-byte
-// loads), else 1.
-template <int V>
-__global__ void __launch_bounds__(256)
-    sum_splits_kernel(float* __restrict__ s, long n, long ld, int splits) {
-  const long step = (long)gridDim.x * blockDim.x * V;
-  for (long i = ((long)blockIdx.x * blockDim.x + threadIdx.x) * V; i < n;
-       i += step) {
-    if constexpr (V == 4) {
-      float4 a = *reinterpret_cast<const float4*>(s + i);
-      for (int j = 1; j < splits; ++j) {
-        const float4 b = *reinterpret_cast<const float4*>(s + j * ld + i);
-        a = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-      }
-      *reinterpret_cast<float4*>(s + i) = a;
-    } else {
-      float a = s[i];
-      for (int j = 1; j < splits; ++j) a += s[j * ld + i];
-      s[i] = a;
-    }
-  }
-}
-
 // The score slab S (c, n_q), row-major: S[r][j] = y[r] · q[j], catalog
 // rows as A and queries as B — topk_tile.cuh's score_step orientation, so
 // that a slab score equals target_scores' for the pair bit for bit. The
 // deep mips_topk and eval_fused sweeps then read S. f32: gemm's 3xTF32;
-// bf16: gemm_bf16, its depth cut into `splits` ranges when asked (s then
-// holds splits slabs of c·n_q, the partials, summed in order into the
-// first: mips_topk's small slabs, which fill the card only so; a target
-// score is the one-range product, so eval_fused never splits).
-// cudaErrorInvalidValue for splits > 1 on f32 operands.
+// bf16: gemm_bf16, one product over the whole depth per score, so a
+// query's scores do not depend on the other queries of its slab.
 template <typename T>
 cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
                        int d, cudaStream_t st,
-                       bool (&done)[tf32x3::kMaxDevices], int splits = 1) {
+                       bool (&done)[tf32x3::kMaxDevices]) {
   Gemm g{};
   g.a = y;
   g.lda = d;
@@ -583,24 +550,10 @@ cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
   g.m = c;
   g.n = n_q;
   g.k = d;
-  if constexpr (sizeof(T) == 2) {
-    const long n = (long)c * n_q;
-    g.splits = splits;
-    g.split_ld = n;
-    cudaError_t err = gemm_bf16<false, false, false, false>(g, 1, st, done);
-    if (err != cudaSuccess || splits <= 1) return err;
-    const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0;
-    const long want = ((vec ? n / 4 : n) + 255) / 256;
-    const long blocks = want < 1056 ? want : 1056;  // 8 a SM at most
-    if (vec)
-      sum_splits_kernel<4><<<(unsigned)blocks, 256, 0, st>>>(s, n, n, splits);
-    else
-      sum_splits_kernel<1><<<(unsigned)blocks, 256, 0, st>>>(s, n, n, splits);
-    return cudaGetLastError();
-  } else {
-    if (splits > 1) return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2)
+    return gemm_bf16<false, false, false, false>(g, 1, st, done);
+  else
     return gemm<false, false, false, false, T, T>(g, 1, st, done);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -617,9 +570,6 @@ cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
 // per-pair `mma.sync` m16n8k16 bf16 chain from zero in ascending k16
 // steps gives them (probes/bf16_tc_check.py slab_bits): topk_tile.cuh's
 // target_scores runs that chain, so a target score stays the slab's.
-// Optionally the depth is cut into ranges (Gemm::splits), each range a
-// work unit of its own that writes its own partial output: more units
-// where the output has fewer tiles than the card has SMs.
 //
 // What bounds it on an H100: 2·M·N·K FLOP at the dense bf16 989 TFLOP/s;
 // the bytes (each operand once at 2 B a value, the f32 output once) where
@@ -628,8 +578,7 @@ cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
 // Design (Hopper's usual shape, cuda_guide.md "Warp Specialization"):
 //   * a persistent grid, one block an SM, walking 128 × 128 output tiles
 //     (n fastest where A is the larger operand, so a tile of A is read
-//     once while B's rows stay in L2; else m fastest; the depth ranges
-//     outermost). The tile, from
+//     once while B's rows stay in L2; else m fastest). The tile, from
 //     the clock profile by phase (probes/deep_tc_turns.py profile bf16):
 //     the gathered products wait on their copies and dY's slot rows
 //     (K = b_x = 128) on their f32 stores, which a wider tile moves
@@ -853,22 +802,14 @@ __global__ void __launch_bounds__(kBThreads, 1)
   __syncthreads();
   const int gm = (g.m + kBM - 1) / kBM, gn = (g.n + kBN - 1) / kBN;
   const int chunks = (g.k + kBBK - 1) / kBBK;
-  const long per_split = g.tiles / g.splits;
-  // work unit → output tile (m0, n0, batch), its depth range's stages
-  // [c0, c1) and its partial's offset
-  auto tile_of = [&](long t, long& m0, int& n0, long& bt, int& c0, int& c1,
-                     long& o_off) {
-    const long sp = t / per_split;
-    t -= sp * per_split;
+  // output tile → (m0, n0, batch)
+  auto tile_of = [&](long t, long& m0, int& n0, long& bt) {
     bt = t / ((long)gm * gn);
     const long r = t - bt * gm * gn;
     const long mt = g.n_fast ? r / gn : r % gm;
     const long nt = g.n_fast ? r % gn : r / gm;
     m0 = mt * kBM;
     n0 = (int)nt * kBN;
-    c0 = (int)sp * g.split_chunks;
-    c1 = c0 + g.split_chunks < chunks ? c0 + g.split_chunks : chunks;
-    o_off = sp * g.split_ld + bt * g.out_batch;
   };
 
   if (tid >= kBConsumers) {  // the producer warpgroup
@@ -877,9 +818,9 @@ __global__ void __launch_bounds__(kBThreads, 1)
     const int tx = (g.tma_a ? kBTile : 0) + (g.tma_b ? kBTile : 0);
     long it = 0;
     for (long t = blockIdx.x; t < g.tiles; t += gridDim.x) {
-      long m0, bt, o_off;
-      int n0, c0, c1;
-      tile_of(t, m0, n0, bt, c0, c1, o_off);
+      long m0, bt;
+      int n0;
+      tile_of(t, m0, n0, bt);
       const bf16* const A = static_cast<const bf16*>(g.a) + bt * g.a_batch;
       const bf16* const B =
           static_cast<const bf16*>(g.b) + (GATHER ? 0 : bt * g.b_batch);
@@ -888,8 +829,8 @@ __global__ void __launch_bounds__(kBThreads, 1)
       int ids[8] = {}, next[8] = {};
       if (GATHER)
         load_ids<B_KN>(B_KN ? next : ids, idx, B_KN ? g.k : g.n,
-                       B_KN ? c0 * kBBK : n0, pt);
-      for (int c = c0; c < c1; ++c, ++it) {
+                       B_KN ? 0 : n0, pt);
+      for (int c = 0; c < chunks; ++c, ++it) {
         const int s = (int)(it % kBStages);
         mbar_wait(empty + s, (uint32_t)((it / kBStages) & 1) ^ 1u);
         unsigned char* const ta = smem + (size_t)s * 2 * kBTile;
@@ -922,7 +863,7 @@ __global__ void __launch_bounds__(kBThreads, 1)
         if (GATHER && B_KN) {
 #pragma unroll
           for (int i = 0; i < 8; ++i) ids[i] = next[i];
-          if (c + 1 < c1) load_ids<true>(next, idx, g.k, k0 + kBBK, pt);
+          if (c + 1 < chunks) load_ids<true>(next, idx, g.k, k0 + kBBK, pt);
         }
         if (!g.tma_b)
           copy_stage<B_KN, GATHER>(tb, B, g.ldb, g.n, g.k, n0, k0, ids,
@@ -947,14 +888,14 @@ __global__ void __launch_bounds__(kBThreads, 1)
   const uint32_t lbo_a = A_KM ? 8192 : 16, lbo_b = B_KN ? 8192 : 16;
   long it = 0;
   for (long t = blockIdx.x; t < g.tiles; t += gridDim.x) {
-    long m0, bt, o_off;
-    int n0, c0, c1;
-    tile_of(t, m0, n0, bt, c0, c1, o_off);
+    long m0, bt;
+    int n0;
+    tile_of(t, m0, n0, bt);
     float acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     int prev = -1;
-    for (int c = c0; c < c1; ++c, ++it) {
+    for (int c = 0; c < chunks; ++c, ++it) {
       const int s = (int)(it % kBStages);
       mbar_wait(full + s, (uint32_t)((it / kBStages) & 1));
       if (copies) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -979,7 +920,7 @@ __global__ void __launch_bounds__(kBThreads, 1)
 
     // acc[4j + 2h + u]: row 16·(warp & 3) + gq + 8h of the warpgroup's 64,
     // column 8j + 2q + u (wgmma's accumulator layout).
-    float* out = g.out + o_off;
+    float* out = g.out + bt * g.out_batch;
     if (g.vec_o == 2) {
       // 16-byte stores: lanes q and q ^ 1 swap a pair, so that an even q
       // holds 4 columns of row h = 0 and an odd q 4 columns of row h = 1
@@ -1102,10 +1043,9 @@ inline int sm_count() {
 }
 
 // Launches `batch` bf16 products on stream s (shapes and options as
-// gemm(); g.splits depth ranges, each written at its own split_ld);
-// `done` the caller's shared-memory opt-in table.
-// cudaErrorInvalidValue for an empty shape, a depth range without a
-// stage, and where cuTensorMapEncodeTiled refuses a tensor map.
+// gemm()); `done` the caller's shared-memory opt-in table.
+// cudaErrorInvalidValue for an empty shape, and where
+// cuTensorMapEncodeTiled refuses a tensor map.
 template <bool A_KM, bool B_KN, bool GATHER, bool ACC>
 cudaError_t gemm_bf16(Gemm g, long batch, cudaStream_t s,
                       bool (&done)[tf32x3::kMaxDevices]) {
@@ -1113,12 +1053,7 @@ cudaError_t gemm_bf16(Gemm g, long batch, cudaStream_t s,
       batch > 0x7fffffffL)
     return cudaErrorInvalidValue;
   const long gm = (g.m + kBM - 1) / kBM, gn = (g.n + kBN - 1) / kBN;
-  const int chunks = (g.k + kBBK - 1) / kBBK;
-  g.splits = g.splits > 1 ? g.splits : 1;
-  g.split_chunks = (chunks + g.splits - 1) / g.splits;
-  if ((long)(g.splits - 1) * g.split_chunks >= chunks)
-    return cudaErrorInvalidValue;
-  g.tiles = gm * gn * batch * g.splits;
+  g.tiles = gm * gn * batch;
   g.n_fast = g.m > g.n;
   g.vec_a = vec_ok(g.a, g.a_batch, g.lda, 2);
   g.vec_b = vec_ok(g.b, GATHER ? 0 : g.b_batch, g.ldb, 2);

@@ -93,12 +93,7 @@
 // and merges are unchanged. The wrapper cuts the queries into slabs that
 // keep S within a fixed budget. At gemma-2's selection (128 bucket
 // centres against a 256,000-row vocabulary, d 2304, k 1024) S is 131 MB,
-// 0.08 ms of traffic against 151 GFLOP of products. A bf16 slab of fewer
-// 128 × 128 tiles than the card has SMs (the 128 × 4,096 positions
-// selection: 32 tiles on 132 SMs) has its depth cut into `depth_splits`
-// ranges, each written as a partial slab, then summed in range order
-// (deep_tc::score_slab): deterministic, and a different rounding from
-// the one-range product (no target score is tied to mips_topk's).
+// 0.08 ms of traffic against 151 GFLOP of products.
 //
 // bfloat16 operands (the entries' `bf16_in`): in the resident kernels q
 // and y are read as stored and widened to f32 as they are staged (the
@@ -991,9 +986,9 @@ cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
 // opt-in for each element type (gemm's for f32, gemm_bf16's for bf16).
 template <typename T>
 cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
-                       int d, int splits, cudaStream_t st) {
+                       int d, cudaStream_t st) {
   static bool done[kMaxDevices] = {};
-  return deep_tc::score_slab<T>(q, y, s, n_q, c, d, st, done, splits);
+  return deep_tc::score_slab<T>(q, y, s, n_q, c, d, st, done);
 }
 
 // 1 when rows of y (element size `elem`) can be read 4 values at a time.
@@ -1100,9 +1095,7 @@ extern "C" int mips_topk_select_launch(
 // The deep variants: as mips_topk_launch and mips_topk_select_launch, for
 // any d > 0 (and, in the chain, k ≤ kMaxK), with `scores` a (c, n_q) f32
 // workspace that deep_tc::score_slab fills first; the sweeps and passes
-// then read it (FROM_S). bf16 operands with depth_splits > 1: `scores`
-// holds depth_splits (c, n_q) slabs (the partials; the first ends as the
-// slab); f32 operands take depth_splits 1 only.
+// then read it (FROM_S).
 extern "C" int mips_topk_deep_launch(const void* q, const void* y,
                                      const unsigned char* valid,
                                      float* scores, float* part_vals,
@@ -1111,7 +1104,7 @@ extern "C" int mips_topk_deep_launch(const void* q, const void* y,
                                      int d, int k, int query_tiles,
                                      int n_split, int pre_split,
                                      int pre_period, int id_offset, int bf16_in,
-                                     int depth_splits, void* stream) {
+                                     void* stream) {
   if (n_q <= 0 || c <= 0 || d <= 0 || k <= 0 || k > 32 || k > c ||
       scores == nullptr || n_split <= 0 || n_split > 65535 ||
       pre_split < 0 || pre_split > 65535 ||
@@ -1121,7 +1114,7 @@ extern "C" int mips_topk_deep_launch(const void* q, const void* y,
   cudaError_t err = by_dtype(bf16_in, [&](auto t) {
     using T = decltype(t);
     return score_slab(static_cast<const T*>(q), static_cast<const T*>(y),
-                      scores, n_q, c, d, depth_splits, s);
+                      scores, n_q, c, d, s);
   });
   if (err != cudaSuccess) return (int)err;
   Sweep a{q, y, valid, part_vals, part_ids, tau, n_q, c, d, k, 0,
@@ -1140,7 +1133,7 @@ extern "C" int mips_topk_select_deep_launch(
     float* bv, int* bi, float* part_vals, int* part_ids, float* vals,
     int* ids, int n_q, int c, int d, int k, int id_offset, int n_split,
     int period, int collect_split, int kcap, int fin_split,
-    int fin_split_cols, int bf16_in, int depth_splits, void* stream) {
+    int fin_split_cols, int bf16_in, void* stream) {
   if (n_q <= 0 || c <= 0 || d <= 0 || k <= 0 || k > kMaxK || k > c ||
       scores == nullptr || n_split <= 0 || period < n_split ||
       collect_split <= 0 || kcap < k || kcap > kMaxSort ||
@@ -1153,7 +1146,7 @@ extern "C" int mips_topk_select_deep_launch(
   cudaError_t err = by_dtype(bf16_in, [&](auto t) {
     using T = decltype(t);
     return score_slab(static_cast<const T*>(q), static_cast<const T*>(y),
-                      scores, n_q, c, d, depth_splits, s);
+                      scores, n_q, c, d, s);
   });
   if (err != cudaSuccess) return (int)err;
   Pass base{};

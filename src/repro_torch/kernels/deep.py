@@ -20,8 +20,7 @@ outputs equal the f32 launch's on the widened inputs bit for bit), or
 taken as bf16 by ``deep_tc.cuh``'s bf16 ``wgmma`` product (every deep
 variant: the score slab, the deep SCE and full CE, whose outputs are the
 bf16 product's, within f32 rounding of f64 and repeating bit for bit);
-every product accumulates in f32. :func:`depth_splits` cuts a small bf16
-score slab of ``mips_topk`` in depth, so that it fills the card.
+every product accumulates in f32.
 """
 from __future__ import annotations
 
@@ -32,8 +31,6 @@ SHALLOW_MAX_K = 512  # kMaxSweepK in csrc/topk_tile.cuh
 SLAB_BYTES = 1 << 30  # a deep call's f32 slab at most
 DEEP_SMEM = 229_376  # deep_tc::kSmem: the deep product's shared memory
 SLAB_ALIGN = 128  # deep_tc::kBM / kBN: whole output tiles
-BF16_STAGE = 64  # deep_tc::kBBK: the depth of one gemm_bf16 stage
-MAX_DEPTH_SPLITS = 4  # the most depth ranges of one bf16 score slab
 OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -58,23 +55,6 @@ def slab_rows(n: int, width: int, *, multiple: int = 1,
     rows = max(1, SLAB_BYTES // (entry_bytes * max(width, 1)))
     rows -= rows % (SLAB_ALIGN if rows >= SLAB_ALIGN else multiple)
     return min(max(rows, multiple), -(-n // multiple) * multiple)
-
-
-def depth_splits(n_q: int, c: int, d: int, sms: int) -> int:
-    """Depth ranges of ``mips_topk``'s bf16 score slab ``(c, n_q)`` at
-    depth ``d`` on a card of ``sms`` SMs (``gemm_bf16``'s ``splits``): 1
-    where its 128 × 128 output tiles are at least ``sms``; else enough to
-    fill the SMs, 2 to ``MAX_DEPTH_SPLITS``, each of whole 64-deep stages
-    and none empty (fewer where the depth has fewer stages). The partials
-    are summed in range order. ``eval_fused`` and ``eval_topk`` never
-    split: a target score is the one-range product."""
-    tiles = -(-c // SLAB_ALIGN) * -(-n_q // SLAB_ALIGN)
-    stages = -(-d // BF16_STAGE)
-    want = min(MAX_DEPTH_SPLITS, -(-sms // max(tiles, 1)), stages)
-    if tiles >= sms or want <= 1:
-        return 1
-    per = -(-stages // want)
-    return -(-stages // per)
 
 
 def operand_dtype(op: str, *operands) -> torch.dtype:

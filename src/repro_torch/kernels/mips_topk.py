@@ -21,18 +21,18 @@ the shape — ``d > MAX_D``, or in the chain ``k > SHALLOW_MAX_K`` — the
 wrapper cuts the queries into slabs (:func:`slab_rows`) and, per slab,
 the source's ``*_deep_launch`` entries first write the score slab
 ``S = Y · Qᵀ`` (``csrc/deep_tc.cuh``: f32 in 3xTF32 on ``wgmma`` over
-depth chunks of 32; bf16 on ``gemm_bf16``, bf16 ``wgmma``, its depth cut
-into ``deep.depth_splits`` partial slabs summed in order where the slab
-has fewer tiles than the card has SMs) into a workspace, then run the
-same sweep or chain on it. Below those limits the resident kernels run
-as before.
+depth chunks of 32; bf16 on ``gemm_bf16``, bf16 ``wgmma``) into a
+workspace, then run the same sweep or chain on it. Below those limits
+the resident kernels run as before.
 
 ``q`` and ``y`` are float32 or both bfloat16 (``deep.operand_dtype``).
 Resident, bf16 operands are widened to f32 inside the kernels as they
 are staged, so the outputs (f32 values, int32 ids) equal the f32
 launch's on the widened inputs bit for bit. Deep, they score on the bf16
 product: other bits than the f32 launch, within f32 rounding of the f64
-product, repeating bit for bit.
+product, repeating bit for bit. Each score is one product over the whole
+depth, so a query's outputs do not depend on the other queries of its
+call.
 """
 from __future__ import annotations
 
@@ -46,8 +46,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.deep import (MAX_D, SHALLOW_MAX_K, bf16_flag,
-                                      depth_splits, is_deep, operand_dtype,
-                                      slab_rows)
+                                      is_deep, operand_dtype, slab_rows)
 
 TILE_C = 64  # catalog rows per tile (kTileC, kTile in the sources)
 MAX_K = 1024  # kMaxK: the deep k > 32 chain's lists
@@ -345,9 +344,9 @@ def _lib() -> ctypes.CDLL:
     lib.mips_topk_launch.restype = ctypes.c_int
     lib.mips_topk_select_launch.argtypes = [p] * 14 + [i] * 12 + [p]
     lib.mips_topk_select_launch.restype = ctypes.c_int
-    lib.mips_topk_deep_launch.argtypes = [p] * 10 + [i] * 11 + [p]
+    lib.mips_topk_deep_launch.argtypes = [p] * 10 + [i] * 10 + [p]
     lib.mips_topk_deep_launch.restype = ctypes.c_int
-    lib.mips_topk_select_deep_launch.argtypes = [p] * 15 + [i] * 13 + [p]
+    lib.mips_topk_select_deep_launch.argtypes = [p] * 15 + [i] * 12 + [p]
     lib.mips_topk_select_deep_launch.restype = ctypes.c_int
     return lib
 
@@ -372,13 +371,12 @@ def on_device(device):
 
 
 def _select_launch(q, y, k: int, vals, ids, *, valid, id_offset: int,
-                   kcap, scores=None, splits: int = 1):
+                   kcap, scores=None):
     """Launch the ``k > SMALL_K`` chain into ``vals`` / ``ids`` (checked
     inputs, ``k ≤ C``) and return the per-row collect counts. ``kcap``
     replaces the plan's (``k ≤ kcap ≤ MAX_SORT``): a small one makes rows
     overflow into the finishing sweep. With ``scores`` (a workspace of at
-    least ``splits·C·n_q`` f32) the deep variant runs on it, its bf16 slab
-    in ``splits`` depth ranges."""
+    least ``C·n_q`` f32) the deep variant runs on it."""
     n_q, d = q.shape
     c = y.shape[0]
     sms = n_sm(q.device)
@@ -398,10 +396,9 @@ def _select_launch(q, y, k: int, vals, ids, *, valid, id_offset: int,
     bv, bi = scratch(n_q, sp.kcap)
     part_v, part_i = scratch(n_q, fin.n_split, k)
     lib = _lib()
-    entry, head, tail = lib.mips_topk_select_launch, (), ()
+    entry, head = lib.mips_topk_select_launch, ()
     if scores is not None:
-        entry, head, tail = (lib.mips_topk_select_deep_launch,
-                             (scores.data_ptr(),), (splits,))
+        entry, head = lib.mips_topk_select_deep_launch, (scores.data_ptr(),)
     with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(
@@ -412,7 +409,7 @@ def _select_launch(q, y, k: int, vals, ids, *, valid, id_offset: int,
             part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
             ids.data_ptr(), n_q, c, d, k, id_offset, sp.n_split, sp.period,
             sp.collect_split, sp.kcap, fin.n_split, fin.split_cols,
-            bf16_flag(q.dtype), *tail, stream,
+            bf16_flag(q.dtype), stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -475,11 +472,9 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0, kcap=None):
     return vals, ids
 
 
-def _sweep_launch(q, y, k: int, *, valid, id_offset: int, scores=None,
-                  splits: int = 1):
+def _sweep_launch(q, y, k: int, *, valid, id_offset: int, scores=None):
     """The ``k ≤ SMALL_K`` sweep of checked inputs → ``(vals, ids)``;
-    with ``scores`` (at least ``splits·C·n_q`` f32) the deep variant on
-    it, its bf16 slab in ``splits`` depth ranges."""
+    with ``scores`` (at least ``C·n_q`` f32) the deep variant on it."""
     n_q, d = q.shape
     c = y.shape[0]
     dev = q.device
@@ -497,10 +492,9 @@ def _sweep_launch(q, y, k: int, *, valid, id_offset: int, scores=None,
     at = buf.data_ptr()
     tau = at + 8 * (nk + ns)
     lib = _lib()
-    entry, head, tail = lib.mips_topk_launch, (), ()
+    entry, head = lib.mips_topk_launch, ()
     if scores is not None:
-        entry, head, tail = (lib.mips_topk_deep_launch,
-                             (scores.data_ptr(),), (splits,))
+        entry, head = lib.mips_topk_deep_launch, (scores.data_ptr(),)
     with on_device(dev):
         err = entry(
             q.data_ptr(), y.data_ptr(),
@@ -509,7 +503,7 @@ def _sweep_launch(q, y, k: int, *, valid, id_offset: int, scores=None,
             tau + 4 * n_q if nu else None, at, at + 4 * nk, n_q, c, d, k,
             p.query_tiles, p.n_split,
             p.pre_split, p.pre_period, id_offset, bf16_flag(q.dtype),
-            *tail, torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -522,32 +516,23 @@ def _sweep_launch(q, y, k: int, *, valid, id_offset: int, scores=None,
 def _deep(q, y, k: int, *, valid, id_offset: int, kcap):
     """The deep variant of checked inputs: the queries in slabs of
     :func:`slab_rows`, each scored into one ``(C, rows)`` workspace and
-    selected from it by the sweep (``k ≤ SMALL_K``) or the chain. A bf16
-    slab of fewer tiles than the card has SMs is cut in depth
-    (``deep.depth_splits``): its partial slabs share the workspace, at
-    most 4 × 132 tiles of 64 KB, far inside the slab budget."""
-    n_q, d = q.shape
+    selected from it by the sweep (``k ≤ SMALL_K``) or the chain."""
+    n_q = q.shape[0]
     c = y.shape[0]
     rows = slab_rows(n_q, c)
-    sms = n_sm(q.device)
-    slabs = [(r, min(rows, n_q - r)) for r in range(0, n_q, rows)]
-    splits = [depth_splits(n, c, d, sms) if q.dtype == torch.bfloat16
-              else 1 for _, n in slabs]
-    scores = torch.empty(c * max(n * s for (_, n), s in zip(slabs, splits)),
-                         dtype=torch.float32, device=q.device)
+    scores = torch.empty(c * rows, dtype=torch.float32, device=q.device)
     if k <= SMALL_K:
-        parts = [_sweep_launch(q[r:r + n], y, k, valid=valid,
-                               id_offset=id_offset, scores=scores, splits=s)
-                 for (r, n), s in zip(slabs, splits)]
+        parts = [_sweep_launch(q[r:r + rows], y, k, valid=valid,
+                               id_offset=id_offset, scores=scores)
+                 for r in range(0, n_q, rows)]
         return (torch.cat([v for v, _ in parts]),
                 torch.cat([i for _, i in parts]))
     vals = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
     ids = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
-    counts = [_select_launch(q[r:r + n], y, k, vals[r:r + n],
-                             ids[r:r + n], valid=valid,
-                             id_offset=id_offset, kcap=kcap, scores=scores,
-                             splits=s)
-              for (r, n), s in zip(slabs, splits)]
+    counts = [_select_launch(q[r:r + rows], y, k, vals[r:r + rows],
+                             ids[r:r + rows], valid=valid,
+                             id_offset=id_offset, kcap=kcap, scores=scores)
+              for r in range(0, n_q, rows)]
     mips_topk.last_counts = torch.cat(counts)
     return vals, ids
 

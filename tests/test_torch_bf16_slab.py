@@ -5,18 +5,16 @@ On bf16 operands at d > 256 (and in ``mips_topk``'s chain above k 512)
 the score slab ``S = Y · Qᵀ`` (catalog rows as A, queries as B, f32 out)
 is ``csrc/deep_tc.cuh``'s ``gemm_bf16``: both operands read as stored,
 every product exact, accumulated in f32 over k16 steps in ascending
-depth. A ``mips_topk`` slab of fewer 128 × 128 tiles than the card has
-SMs is cut in depth (``deep.depth_splits``): each range's partial slab
-from zero, the partials summed in range order. ``eval_tgt_gather`` and
-``eval_tgt_scores`` give the one-range product of the target pair, so a
+depth, one product over the whole depth per score. ``eval_tgt_gather``
+and ``eval_tgt_scores`` give the same product of the target pair, so a
 target score is its slab column bit for bit. A CUDA kernel has no CPU
 mode, so here, at d 288 and 300 and catalogs of a few thousand rows:
 
 - the slab modelled by ``tests/test_torch_bf16_tc.py``'s plain model of
-  the bf16 product (``_bf16_product``), with the depth split and summed
-  in order where ``deep.depth_splits`` splits, within
+  the bf16 product (``_bf16_product``), within
   ``1e-5·max|S| + 2e-4·|S|`` of f64;
-- the deep ``mips_topk`` (the sweep at k 10, the chain at k 640) and the
+- the deep ``mips_topk`` (the sweep at k 10, the chain at k 128 and
+  640) and the
   deep ``eval_fused`` with the LSE, computed from the modelled slab as
   the sweeps read it, against the JAX kernels in interpret mode at
   ``tests/test_torch_bf16.py``'s tolerance (3e-2 of each tensor's largest
@@ -24,9 +22,7 @@ mode, so here, at d 288 and 300 and catalogs of a few thousand rows:
   largest score from its neighbours (the (k+1)-th included; ties go to
   the lower id), counts equal;
 - the modelled target score equal to the modelled slab's column bit for
-  bit on every row;
-- ``deep.depth_splits``: one range where the tiles fill the card, 2–4
-  whole-stage ranges, none empty, where they do not.
+  bit on every row.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -38,27 +34,16 @@ import test_torch_bf16_tc as btc
 from repro.kernels import eval_fused as jeval
 from repro.kernels import guard as jguard
 from repro.kernels import mips_topk as jmips
-from repro_torch.kernels import deep, ref
+from repro_torch.kernels import ref
 
 BF = torch.bfloat16
-SMS = 132  # an H100 SXM's SMs
 NEG_INF = -1e30
 
 
-def _slab(q, y, splits=1):
-    """The bf16 score slab ``(C, n_q)`` as the card writes it: the depth
-    in ``splits`` ranges of whole 64-deep stages, each range's product
-    from zero (``_bf16_product``), the partials summed in range order."""
-    d = q.shape[1]
-    stages = -(-d // deep.BF16_STAGE)
-    per = -(-stages // splits) * deep.BF16_STAGE
-    parts = [btc._bf16_product(y[:, k:k + per], q[:, k:k + per])
-             for k in range(0, d, per)]
-    assert len(parts) == splits
-    out = parts[0]
-    for p in parts[1:]:
-        out = out + p
-    return out
+def _slab(q, y):
+    """The bf16 score slab ``(C, n_q)`` as the card writes it
+    (``_bf16_product``: catalog rows as A, queries as B)."""
+    return btc._bf16_product(y, q)
 
 
 def _select(s_t, k):
@@ -91,31 +76,28 @@ def _problem(seed, n_q, c, d):
 
 
 @pytest.mark.parametrize("d", [288, 300])
-@pytest.mark.parametrize("n_q,c", [(6, 2_000), (130, 700)])
-def test_split_slab_model_holds_f64(d, n_q, c):
-    """The split slab (the partials in range order) and the one-range
-    slab both lie within the deep product's tolerance of f64, and the
-    split is the one ``mips_topk`` takes at that shape."""
+@pytest.mark.parametrize("n_q,c", [(6, 2_000), (130, 700), (1, 1),
+                                   (128, 4_096)])
+def test_slab_model_holds_f64(d, n_q, c):
+    """The modelled slab lies within the deep product's tolerance of
+    f64, from one pair to the positions selection's 128 × 4,096."""
     _, q, _, y, _ = _problem(d + n_q, n_q, c, d)
-    splits = deep.depth_splits(n_q, c, d, SMS)
-    assert splits == 3  # 5 stages: ranges of 2, 2 and 1
     want = y.double() @ q.double().T
-    for s in (_slab(q, y, splits), _slab(q, y)):
-        tol = 1e-5 * want.abs().max() + 2e-4 * want.abs()
-        assert ((s.double() - want).abs() <= tol).all()
+    s = _slab(q, y)
+    assert s.shape == (c, n_q) and s.dtype == torch.float32
+    tol = 1e-5 * want.abs().max() + 2e-4 * want.abs()
+    assert ((s.double() - want).abs() <= tol).all()
 
 
 @pytest.mark.parametrize("d", [288, 300])
-@pytest.mark.parametrize("k", [10, 640])
+@pytest.mark.parametrize("k", [10, 128, 640])
 def test_deep_bf16_mips_topk_model_matches_the_jax_kernel(d, k):
-    """The sweep (k 10) and the chain (k 640) read the split slab; their
+    """The sweep (k 10) and the chain (k 128, 640) read the slab; their
     values and ids against the JAX kernel (interpret mode) on the same
     bf16 inputs, with a mask (the (k+1)-th value: the model's)."""
     rng, q, jq, y, jy = _problem(d + k, 6, 1_500, d)
     valid = rng.random(1_500) > 0.2
-    splits = deep.depth_splits(6, 1_500, d, SMS)
-    assert splits > 1
-    s_t = _slab(q, y, splits).T.clone()
+    s_t = _slab(q, y).T.clone()
     s_t[:, ~torch.from_numpy(valid)] = NEG_INF
     vals, ids, nxt = _select(s_t, k)
     want = jmips.mips_topk(jq, jy, k, valid=jnp.asarray(valid),
@@ -145,9 +127,9 @@ def _eval_from_slab(s_t, targets, tgt, k, c_lo, c_hi, cap):
 
 
 @pytest.mark.parametrize("d", [288, 300])
-@pytest.mark.parametrize("k", [1, 10])
+@pytest.mark.parametrize("k", [1, 10, 32])
 def test_deep_bf16_eval_fused_model_matches_the_jax_kernel(d, k):
-    """The eval slab (never split) and its target from the same
+    """The eval slab and its target from the same
     arithmetic: top-k, gt, eq and the LSE (cap 30) against the JAX
     kernels (interpret mode) on the same bf16 inputs; eq ≥ 1 on every row
     (the target's column counts)."""
@@ -187,7 +169,7 @@ def test_deep_bf16_eval_fused_model_matches_the_jax_kernel(d, k):
 @pytest.mark.parametrize("d", [288, 300])
 @pytest.mark.parametrize("c", [700, 2_000])
 def test_target_model_is_the_slab_column_bit_for_bit(d, c):
-    """The target score of every row — the pair's one-range product, as
+    """The target score of every row — the pair's product, as
     ``eval_tgt_gather`` / ``eval_tgt_scores`` compute it — equals the
     modelled eval slab's column for that pair, bit for bit; and the
     plain version ``ref.eval_tgt_gather_ref`` agrees within f32 rounding
@@ -202,23 +184,3 @@ def test_target_model_is_the_slab_column_bit_for_bit(d, c):
     want = (x.double() * y[t.long()].double()).sum(1)
     assert ((tgt.double() - want).abs() <= 1e-5 * want.abs().max()).all()
     assert ((plain.double() - want).abs() <= 1e-5 * want.abs().max()).all()
-
-
-@pytest.mark.parametrize("n_q,c,d,want", [
-    (128, 4_096, 2_304, 4),      # gemma-2's positions selection: 32 tiles
-    (128, 256_000, 2_304, 1),    # its vocabulary selection: 2,000 tiles
-    (128, 131 * 128, 2_304, 2),  # just below the SMs
-    (128, 132 * 128, 2_304, 1),  # the SMs
-    (128, 133 * 128, 2_304, 1),  # just above
-    (6, 2_000, 300, 3),          # 5 stages: 2, 2, 1
-    (16, 3_000, 64, 1),          # one stage: nothing to split
-    (1, 1, 2_304, 4),
-])
-def test_depth_splits(n_q, c, d, want):
-    """One range where the slab's tiles fill the card; else 2–4 ranges of
-    whole 64-deep stages, the last one not empty."""
-    s = deep.depth_splits(n_q, c, d, SMS)
-    assert s == want
-    stages = -(-d // deep.BF16_STAGE)
-    per = -(-stages // s)
-    assert (s - 1) * per < stages <= s * per

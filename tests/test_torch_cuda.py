@@ -1904,16 +1904,15 @@ def _hold_topk_f64(got, s64, k):
     (20, 4_096, 2_304, 128),  # gemma-2's positions selection
     (12, 5_000, 2_304, 1_024),  # ... and its vocabulary selection
     (16, 3_000, 64, 1_024),  # the deep chain at a resident depth
-    (128, 4_096, 2_304, 128),  # the split slab: 32 tiles, 4 ranges
-    (128, 131 * 128, 2_304, 128),  # 131 tiles: 2 ranges
-    (128, 133 * 128, 2_304, 128),  # 133 tiles: one range
+    (128, 4_096, 2_304, 128),  # the positions selection: 32 tiles
+    (128, 131 * 128, 2_304, 128),  # 131 tiles: just below the SMs
+    (128, 133 * 128, 2_304, 128),  # 133 tiles: just above
 ])
 def test_bf16_mips_topk_equals_f32_on_widened_inputs(dev, n_q, c, d, k):
     """bf16 q and y. Resident: values and ids equal the f32 kernel's on the
     widened inputs bit for bit (each value exact in f32 and TF32, each
-    product exact in f32). Deep (the score slab on ``gemm_bf16``, its
-    depth cut into ``deep.depth_splits`` ranges where its tiles are fewer
-    than the SMs): values within ``1e-5·max|·| + 2e-4·|·|`` of the f64
+    product exact in f32). Deep (the score slab on ``gemm_bf16``):
+    values within ``1e-5·max|·| + 2e-4·|·|`` of the f64
     plain version on the widened inputs, ids equal wherever the gap is
     above that. Either way a second launch repeats them bit for bit, and
     the plain version on the bf16 inputs agrees within 1e-5 of the
@@ -1929,9 +1928,6 @@ def test_bf16_mips_topk_equals_f32_on_widened_inputs(dev, n_q, c, d, k):
     for a, c_ in zip(got, again):
         assert torch.equal(a, c_)
     if deep.is_deep(d, k):
-        if c in (4_096, 131 * 128, 133 * 128):
-            assert deep.depth_splits(n_q, c, d, kernel.n_sm(q.device)) == \
-                {4_096: 4, 131 * 128: 2, 133 * 128: 1}[c]
         s64 = qw.double() @ yw.double().T
         _hold_topk_f64(got, torch.where(vm[None, :], s64, -math.inf), k)
     else:
