@@ -3304,6 +3304,67 @@ def lm_eval_check(name, x, y, t, *, exact):
             "lse_rel_err": lse_err, "rank_agreement": rank_agree}
 
 
+SWEEP_KERNELS = ("sample_kernel", "tau_select_kernel", "eval_sweep_kernel",
+                 "eval_fused_merge_kernel")  # the deep sweep's launches
+
+
+def slab_sweep_times(name, xs, y, t, tgt, c_hi, flush, reps=5):
+    """The deep eval sweep of one score slab alone: ``xs`` one slab's rows
+    (1,024 at the token rank) against the vocabulary ``y``. The device
+    time of its kernels (:data:`SWEEP_KERNELS`: the pre-pass and its τ,
+    the sweep, the merge; not the product that writes the slab) in one
+    ``eval_fused`` call (k 1, the LSE, cap 30, window [1, c_hi)) and one
+    ``eval_topk`` call, from ``torch.profiler`` over ``reps`` calls, each
+    after the L2 flush ("not measured" where it saw none); beside the
+    slab's bytes at the card's rate and PyTorch on the kernels' own slab
+    (``eval_fused.score_slab``): ``max(0)``, the counts against the
+    target scores and, with the LSE, the capped ``logsumexp``."""
+    import torch
+
+    from repro_torch.kernels import eval_fused as ek
+    from repro_torch.kernels import eval_topk as tk
+
+    calls = {
+        "lse": lambda: ek.eval_fused(xs, y, t, 1, tgt_scores=tgt, c_lo=1,
+                                     c_hi=c_hi, logit_softcap=LM_CAP,
+                                     with_lse=True),
+        "no_lse": lambda: tk.eval_topk(xs, y, tgt, 1, c_lo=1, c_hi=c_hi)}
+    s = ek.score_slab(xs, y)[1:c_hi]
+
+    def lib(lse):
+        out = s.max(0), (s > tgt).sum(0), (s == tgt).sum(0)
+        if lse:
+            out += (torch.logsumexp(LM_CAP * torch.tanh(s / LM_CAP), 0),)
+        return out
+
+    out = {"rows": xs.shape[0], "C": y.shape[0],
+           "bound_ms": 4 * xs.shape[0] * y.shape[0] / PEAK_BYTES_S * 1e3,
+           "bound_by": "bytes"}
+    for kind, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(ev.device_time_total for ev in prof.key_averages()
+                 if any(k in ev.key for k in SWEEP_KERNELS)) / reps / 1e3
+        out[kind] = {"ms": ms or None,
+                     "library_ms": time_ms(lambda: lib(kind == "lse"), 3,
+                                           flush)}
+    del s
+    f = (lambda v: "not measured" if v is None else f"{v:.4f} ms")
+    print(f"  time {name}: the deep sweep of one slab ({out['rows']} x "
+          f"{out['C']}) alone, with the LSE {f(out['lse']['ms'])} "
+          f"(PyTorch on the slab {out['lse']['library_ms']:.4f} ms), "
+          f"without {f(out['no_lse']['ms'])} (PyTorch "
+          f"{out['no_lse']['library_ms']:.4f} ms); bound "
+          f"{out['bound_ms']:.4f} ms (bytes)")
+    return out
+
+
 def lm_kernel_phase(dev, cfg):
     """The kernels of the LM path at its shapes against their plain
     versions, then timed with a cold L2: ``mips_topk`` (the deep chain:
@@ -3313,7 +3374,8 @@ def lm_kernel_phase(dev, cfg):
     d 2304, cap 30) on that selection, ``eval_fused`` / ``eval_tgt_gather``
     at 8,192 × 256,000 at k 1 with the LSE, and one microbatch's SCE loss
     and gradients through ``sce_loss_sharded`` (exact, the (1, 1) mesh) on
-    the kernel path against the plain path."""
+    the kernel path against the plain path; and the deep sweep of one eval
+    slab alone (:func:`slab_sweep_times`)."""
     import dataclasses
 
     import torch
@@ -3551,6 +3613,8 @@ def lm_kernel_phase(dev, cfg):
                               flush),
         **bound_keys(tf32x3_bound(4 * (n_e * d + n_rows * d + n_e) + 4 * n_e,
                                   2 * n_e * d, 0))}
+    sweep_slab = slab_sweep_times("eval_sweep_slab_lm", xe[:1024], y,
+                                  te[:1024], tgt_e[:1024], cfg.vocab, flush)
     ce_timings, ce_errs = lm_full_ce_kernels(dev, x, y, targets, g, flush)
     timings.update(ce_timings)
     for name, t in timings.items():
@@ -3584,7 +3648,7 @@ def lm_kernel_phase(dev, cfg):
         timings[name]["max_abs_err"] = errs[name]
     return {"cases": cases, "gather_case": gcase, "plse_case": pcase,
             "eval_cases": ecases, "microbatch_sce_err": sce_err,
-            "timings": timings}
+            "timings": timings, "sweep_slab": sweep_slab}
 
 
 def lm_bf16_kernel_phase(dev, cfg):
@@ -3613,7 +3677,8 @@ def lm_bf16_kernel_phase(dev, cfg):
     gradients, whose cotangent is rounded to bf16 on both sides). Then
     each timed with a cold L2 beside its plain version, a PyTorch call of
     the same function in bf16 and its bound at bf16's rates
-    (:func:`bf16_bound`)."""
+    (:func:`bf16_bound`); and the deep sweep of one eval slab alone
+    (:func:`slab_sweep_times`)."""
     import torch
 
     from repro_torch.kernels import eval_fused as ek
@@ -3918,6 +3983,8 @@ def lm_bf16_kernel_phase(dev, cfg):
             2 * io + 4 * 4 * n, 3 * 2 * n * vocab * d, n * vocab)
 
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    sweep_slab = slab_sweep_times("eval_sweep_slab_lm_bf16", xe[:1024], y,
+                                  te[:1024], tgt_e[:1024], cfg.vocab, flush)
     timings = {}
     with torch.no_grad():
         for name, (kern, plain, lib) in runs.items():
@@ -3939,7 +4006,7 @@ def lm_bf16_kernel_phase(dev, cfg):
           "for bit; SCE and linear_ce forwards within 1e-5 and "
           "backwards within 3e-2 of their scale of the plain versions; the "
           "bf16 dY sum is the f32 sum rounded once ok")
-    return {"timings": timings}
+    return {"timings": timings, "sweep_slab": sweep_slab}
 
 
 def full_ce_runs(fam, x, y, tt, cap, lse, gr, pos):

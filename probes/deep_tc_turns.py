@@ -5,8 +5,10 @@ phase. Needs an NVIDIA GPU.
 
     python3 probes/deep_tc_turns.py digests TREE LABEL
     python3 probes/deep_tc_turns.py times TREE LABEL
-    python3 probes/deep_tc_turns.py profile TREE LABEL [bf16|slab]
+    python3 probes/deep_tc_turns.py profile TREE LABEL [bf16|slab|sweep]
     python3 probes/deep_tc_turns.py slab TREE LABEL [--plain] [NAME ...]
+    python3 probes/deep_tc_turns.py sweep TREE LABEL
+    python3 probes/deep_tc_turns.py plans TREE LABEL
 
 imports ``repro_torch`` (and ``chip_smoke.py``) from ``TREE`` — a checkout
 of any commit, for example the parent unpacked with ``git archive`` into
@@ -19,19 +21,26 @@ centres at unit scale, the table at 0.02):
   loss's forward, dX and dY, the partial LSE's forward and its one-launch
   backward (dX and dY from one cotangent), the bucket twins' forward, dX
   and dY; ``mips_topk`` over 4,096 positions at k 128 and over the
-  vocabulary at k 1024; ``eval_fused`` at 8,192 × 256,000, k 1 with the
-  LSE and cap 30, with ``eval_tgt_gather``; ``eval_topk`` (the two-pass
+  vocabulary at k 1024 and k 10 (``mips_topk_k10``, the deep sweep);
+  ``eval_fused`` at 8,192 × 256,000, k 1 with the LSE and cap 30 (its
+  ranks, target and values, then ``eval_fused_lse`` its (m, s) apart),
+  with ``eval_tgt_gather``; ``eval_topk`` (the two-pass
   sweep) at 512 × 256,000, k 10; the deep ``linear_ce`` forward (cap 30,
   the target plucked) and its one-launch backward at 4,096 × 256,000.
   Equal digests in two trees are equal bits. Where the tree takes
   bfloat16 operands, ``bf16`` holds, for the same inputs rounded to bf16,
   each deep output's digest, whether it equals the f32 launch on the
   widened inputs bit for bit and whether a second launch repeats it:
-  both selections, ``eval_fused`` and ``eval_tgt_gather`` (the score
+  the selections, ``eval_fused``, ``eval_topk`` (512 rows, k 10) and
+  ``eval_tgt_gather`` (the score
   slab: in older trees one TF32 pass, equal; on ``gemm_bf16``, not),
   the partial LSE's forward and its one-launch
   backward, the loss's forward, dX and dY, the bucket twins', the
-  ``linear_ce`` forward and its one-launch backward; and ``dy_sum``, the
+  ``linear_ce`` forward and its one-launch backward (``eval_slab`` /
+  ``eval_slab_bf16``: one eval slab of 1,024 rows, ``score_slab``;
+  ``mips_topk_k10``:
+  the deep sweep at k 10 over the vocabulary; ``eval_fused`` with
+  ``digest_ranks`` and ``digest_lse`` apart); and ``dy_sum``, the
   in-order dY sum of one f32 workspace into the bf16 table (a tree
   whose sum writes f32 only: its f32 table rounded to bf16), whose equal
   digests show the sum's order unchanged; ``targets_are_slab_columns``
@@ -81,6 +90,36 @@ centres at unit scale, the table at 0.02):
   one-TF32 ``gemm`` or ``gemm_bf16``, whichever ``score_slab`` calls),
   profiled the same way in the bf16 selections and eval of ``slab``
   below (a getter added to ``mips_topk.cu`` and ``eval_fused.cu``).
+  With ``sweep``: the deep eval sweep that reads the score slab
+  (``topk_tile.cuh``'s ``FROM_S`` in ``eval_fused.cu``'s
+  ``eval_sweep_kernel``), from a copy of the tree's header and
+  ``eval_fused.cu`` with ``clock64()`` marks (picked by what the header
+  holds: the scalar slab loads, or the ring of TMA boxes), on one slab
+  of 1,024 rows against the vocabulary, for ``eval_fused`` (the LSE, cap
+  30) and ``eval_topk`` on bf16 and f32 operands: each phase's share of
+  the warps' cycles — ``sync`` (the per-tile barrier, the next tile's
+  flags and, with the ring, its copies' issue), ``tau``, ``merge``,
+  ``loads`` (the wait for the tile's scores: the scalar loads, or the
+  stage's mbarrier), ``reads`` (the ring's LDS.64), ``hook``, ``filter``,
+  ``tail``, ``prologue`` — the hook's own split (``counts``, ``tanh``,
+  ``max``, ``exps``: each phase's results used before its clock) and the
+  cycles a warp spends on a tile.
+* ``sweep``: the deep eval sweep of the tree: ``eval_fused`` (k 1, the
+  LSE, cap 30) and ``eval_topk`` (k 1) at 8,192 × 256,000 on bf16 and f32
+  operands (device ms, CUDA events, after a 1 GiB flush; 3 calls bf16, 1
+  f32), each split per slab by kind (``torch.profiler``: the slab's
+  product, the pre-pass and its τ, the sweep, the merge;
+  ``sweep_alone`` their sum), and PyTorch on one given slab (the
+  kernels' own, 1,024 rows): ``max(0)``, the counts against the target
+  scores and the capped ``logsumexp`` under the window, beside the
+  slab's bytes at 3.35 TB/s.
+* ``plans``: the deep sweep of one bf16 slab (1,024 rows, the kernels'
+  own; ``eval_fused`` with the LSE and ``eval_topk``) alone
+  (``torch.profiler``, after the flush) under the tree's plan and under
+  others set in its place (``mips_topk.slab_sweep_plan`` patched): 8,
+  12, 24 and 33 splits of blocks of 4 query tiles (33: two whole waves
+  at 4 an SM), 16 without the pre-pass, and blocks of 1 query tile
+  (32-byte rows) in 4 splits. For a tree with ``slab_sweep_plan``.
 * ``slab``: the bf16 score slab apart from its readers — ``mips_topk``
   at 128 × 4,096, k 128 and at 128 × 256,000, k 1024, ``eval_fused``
   at 8,192 × 256,000, k 1 with the LSE and cap 30 (8 slabs of 1,024
@@ -182,9 +221,17 @@ def digests(tree, label):
     xe = torch.randn(N_EVAL, D, generator=g, device=dev)
     te = torch.randint(1, C, (N_EVAL,), generator=g, device=dev,
                        dtype=torch.int32)
-    out["eval_fused"] = _digest(*eval_fused.eval_fused(
-        xe, y, te, 1, c_lo=1, c_hi=C, logit_softcap=CAP, with_lse=True))
+    out["mips_topk_k10"] = _digest(*mips_topk(q, y, 10))
+    ev = eval_fused.eval_fused(xe, y, te, 1, c_lo=1, c_hi=C,
+                               logit_softcap=CAP, with_lse=True)
+    out["eval_fused"] = _digest(*ev[:5])
+    out["eval_fused_lse"] = _digest(*ev[5:])
+    del ev
     out["eval_tgt_gather"] = _digest(eval_fused.eval_tgt_gather(xe, y, te))
+    if hasattr(eval_fused, "score_slab"):  # one eval slab, f32 and bf16
+        out["eval_slab"] = _digest(eval_fused.score_slab(xe[:1024], y))
+        out["eval_slab_bf16"] = _digest(eval_fused.score_slab(
+            xe[:1024].to(torch.bfloat16), y.to(torch.bfloat16)))
     from repro_torch.kernels import eval_topk, linear_sce
 
     tgt_s = eval_topk.eval_tgt_scores(xe[:512], y, te[:512])
@@ -204,8 +251,8 @@ def _bf16_digests(torch, args, q, xs, xe, te, tl):
     """For each deep output on bf16 operands: its digest, equal to the f32
     launch on the widened inputs (bool), repeated by a second launch
     (bool); "refused" where the tree takes f32 only."""
-    from repro_torch.kernels import (eval_fused, linear_sce, sce_bucket,
-                                     sce_prefetch)
+    from repro_torch.kernels import (eval_fused, eval_topk, linear_sce,
+                                     sce_bucket, sce_prefetch)
     from repro_torch.kernels.mips_topk import mips_topk
 
     bf = torch.bfloat16
@@ -251,11 +298,16 @@ def _bf16_digests(torch, args, q, xs, xe, te, tl):
                            ((qb, xsb), (w(qb), w(xsb)))),
         "mips_topk_k1024": (lambda a, b: mips_topk(a, b, 1024),
                             ((qb, yb), (w(qb), w(yb)))),
+        "mips_topk_k10": (lambda a, b: mips_topk(a, b, 10),
+                          ((qb, yb), (w(qb), w(yb)))),
         "eval_fused": (lambda a, b: eval_fused.eval_fused(
             a, b, te, 1, c_lo=1, c_hi=C, logit_softcap=CAP, with_lse=True),
             ((xeb, yb), (w(xeb), w(yb)))),
         "eval_tgt_gather": (lambda a, b: (eval_fused.eval_tgt_gather(
             a, b, te),), ((xeb, yb), (w(xeb), w(yb)))),
+        "eval_topk": (lambda a, b: eval_topk.eval_topk(
+            a[:512], b, eval_topk.eval_tgt_scores(a[:512], b, te[:512]), 10,
+            c_lo=1, c_hi=C), ((xeb, yb), (w(xeb), w(yb)))),
         "sce_gather_plse": (plse_pair, pairs),
         "sce_gather": (sce_loss, pairs),
         "sce_bucket": (bucket, pairs),
@@ -276,6 +328,9 @@ def _bf16_digests(torch, args, q, xs, xe, te, tl):
                          for a, b in zip(got, want)),
                      "repeats": all(torch.equal(a, b)
                                     for a, b in zip(got, again))}
+        if name == "eval_fused":  # the ranks apart from the LSE pair
+            out[name]["digest_ranks"] = _digest(*got[:5])
+            out[name]["digest_lse"] = _digest(*got[5:])
         del got, again, want
     ws = torch.randn(N_B * B_Y, D, generator=g, device=x_b.device)
     keys = sce_prefetch.dy_sum_keys(idx, cand, C)
@@ -287,8 +342,6 @@ def _bf16_digests(torch, args, q, xs, xe, te, tl):
             ws, *keys, torch.zeros(C, D, device=x_b.device)).to(bf)
     out["dy_sum"] = {"digest": _digest(table)}
     if hasattr(eval_fused, "score_slab"):  # the eval slab read alone
-        from repro_torch.kernels import eval_topk
-
         tg = eval_fused.eval_tgt_gather(xeb, yb, te)
         ts = eval_topk.eval_tgt_scores(xeb, yb, te)
         same = True
@@ -670,8 +723,12 @@ def _shares(v, phases, bf16):
 
 def profile(tree, label, kind="f32"):
     """The clock profile (see the module docstring) of TREE's product, or
-    of its bf16 product with ``kind`` "bf16"."""
+    of its bf16 product with ``kind`` "bf16", or of its deep eval sweep
+    with ``kind`` "sweep"."""
     import ctypes
+
+    if kind == "sweep":
+        return _profile_sweep(tree, label)
 
     work = Path(tempfile.mkdtemp(prefix="deep_prof_"))
     shutil.copytree(Path(tree) / "src", work / "src")
@@ -759,8 +816,378 @@ def profile(tree, label, kind="f32"):
                              "card": cs.smi()}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The deep eval sweep that reads the score slab (topk_tile.cuh FROM_S)
+# ---------------------------------------------------------------------------
+SWEEP_ROWS = 1024  # one eval slab: deep.slab_rows(8,192, 256,000)
+_SWEEP_PHASES = ("sync", "tau", "merge", "loads", "hook", "filter", "tail",
+                 "prologue", None, "reads")
+_HOOK_PHASES = ("counts", "tanh", "max", "exps")
+_PF_HEAD = (
+    "__device__ unsigned long long kProfS[16];\n"
+    "#define PF_MARK(j) do { asm volatile(\"\" ::: \"memory\"); "
+    "const long long t_ = clock64(); PF[j] += t_ - pc_; pc_ = t_; "
+    "} while (0)\n")
+_PF_FORCE = (  # the tile's scores have landed: a use of every one
+    "    {\n      unsigned zz_ = 0;\n"
+    "#pragma unroll\n      for (int mt = 0; mt < MT; ++mt)\n"
+    "#pragma unroll\n        for (int nt = 0; nt < NT; ++nt)\n"
+    "#pragma unroll\n          for (int e = 0; e < 4; ++e)\n"
+    "            zz_ |= __float_as_uint(acc[mt][nt][e]);\n"
+    "      asm volatile(\"\" :: \"r\"(zz_));\n    }\n    PF_MARK(3);\n")
+_PF_TAIL = (
+    "  PF_MARK(6);\n"
+    "  if (!SAMPLE && (tid & 31) == 0) {\n"
+    "#pragma unroll\n    for (int j = 0; j < 10; ++j)\n"
+    "      atomicAdd(&kProfS[j], (unsigned long long)PF[j]);\n  }\n")
+# The parent's sweep (scalar FROM_S loads into the fragments), by anchor.
+_SWEEP_PATCH_SCALAR = [
+    ("namespace topk_tile {\n\n", "namespace topk_tile {\n\n" + _PF_HEAD),
+    ("  constexpr int THREADS = C::kThreads;\n  const int d = a.d;\n",
+     "  constexpr int THREADS = C::kThreads;\n  const int d = a.d;\n"
+     "  long long PF[10] = {};\n  long long pc_ = clock64();\n"),
+    ("  for (int i = 0; i < n_tiles; ++i) {\n    cp_async_wait<0>();\n",
+     "  PF_MARK(7);\n"
+     "  for (int i = 0; i < n_tiles; ++i) {\n    cp_async_wait<0>();\n"),
+    ("    const int f_next = i + 1 < n_tiles ? issue(i + 1) : 0;\n"
+     "    cp_async_commit();\n",
+     "    const int f_next = i + 1 < n_tiles ? issue(i + 1) : 0;\n"
+     "    cp_async_commit();\n    PF_MARK(0);\n"),
+    ("(int)0x80808080;\n        }\n    }\n",
+     "(int)0x80808080;\n        }\n    }\n    PF_MARK(1);\n"),
+    ("    if (tid == 0) mreq[(i + 1) % 3] = 0;  // tile i − 2's, read at i − 1\n",
+     "    if (tid == 0) mreq[(i + 1) % 3] = 0;  // tile i − 2's, read at i − 1\n"
+     "    PF_MARK(2);\n"),
+    ("                cr < a.c && qr < a.n_q ? a.s[cr * a.n_q + qr] : 0.f;\n"
+     "          }\n    }\n",
+     "                cr < a.c && qr < a.n_q ? a.s[cr * a.n_q + qr] : 0.f;\n"
+     "          }\n    }\n" + _PF_FORCE),
+    ("    on_tile(acc, fl, c0);\n", "    on_tile(acc, fl, c0);\n    PF_MARK(4);\n"),
+    ("    f_mine = f_next;\n  }\n",
+     "    f_mine = f_next;\n    PF_MARK(5);\n    ++PF[8];\n  }\n"),
+    ("        a.part_ids[o] = li[e];\n      }\n    }\n  }\n  return ring;\n",
+     "        a.part_ids[o] = li[e];\n      }\n    }\n  }\n" + _PF_TAIL +
+     "  return ring;\n"),
+]
+# eval_fused.cu's hook, as the parent runs it, split into its phases (the
+# same arithmetic and order; each phase's results used before its clock).
+_HOOK_BODY = r"""[&](const float (&acc)[MT][NT][4], const int* flags, long c0) {
+        long long h0 = clock64();
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int cc = 16 * (wm * MT + mt) + gq + 8 * h;
+                const float x = acc[mt][nt][2 * h + u];
+                const bool ok = flags[cc] != 0;
+                const bool self =
+                    SELF && a.id_offset + (int)(c0 + cc) == id_r[nt][u];
+                const float sv = ok ? x : kNegInf;
+                gt[nt][u] += sv > t_r[nt][u] && !self;
+                eq[nt][u] += sv == t_r[nt][u] || (self && ok);
+              }
+        {
+          unsigned zz = 0;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) zz |= gt[nt][u] | eq[nt][u];
+          asm volatile("" :: "r"(zz) : "memory");
+        }
+        long long h1 = clock64();
+        HC_ += h1 - h0;
+        if (LSE) {
+          float lv[NT][2][MT][2];
+          unsigned zz = 0;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const float x = acc[mt][nt][2 * h + u];
+                  const float v = cap > 0.f ? cap * tanhf(x / cap) : x;
+                  lv[nt][u][mt][h] =
+                      flags[16 * (wm * MT + mt) + gq + 8 * h] ? v : kNegInf;
+                  zz |= __float_as_uint(lv[nt][u][mt][h]);
+                }
+          asm volatile("" :: "r"(zz) : "memory");
+          long long h2 = clock64();
+          HT_ += h2 - h1;
+          float mx[NT][2];
+          zz = 0;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              float tile_max = kNegInf;
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  tile_max = fmaxf(tile_max, lv[nt][u][mt][h]);
+              mx[nt][u] = fmaxf(m[nt][u], tile_max);
+              zz |= __float_as_uint(mx[nt][u]);
+            }
+          asm volatile("" :: "r"(zz) : "memory");
+          long long h3 = clock64();
+          HM_ += h3 - h2;
+          zz = 0;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float mn = mx[nt][u];
+              float add = 0.f;
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  if (flags[16 * (wm * MT + mt) + gq + 8 * h])
+                    add += expf(lv[nt][u][mt][h] - mn);
+              s[nt][u] = s[nt][u] * expf(m[nt][u] - mn) + add;
+              m[nt][u] = mn;
+              zz |= __float_as_uint(s[nt][u]);
+            }
+          asm volatile("" :: "r"(zz) : "memory");
+          HE_ += clock64() - h3;
+        }
+      });
+"""
+_HOOK_STATE = ("  float* red = sweep<",
+               "  long long HC_ = 0, HT_ = 0, HM_ = 0, HE_ = 0;\n"
+               "  float* red = sweep<")
+_HOOK_TAIL = ("      part_ms[2 * o + 1] = ss;\n    }\n  }\n}\n",
+              "      part_ms[2 * o + 1] = ss;\n    }\n  }\n"
+              "  if ((threadIdx.x & 31) == 0) {\n"
+              "    atomicAdd(&kProfS[10], (unsigned long long)HC_);\n"
+              "    atomicAdd(&kProfS[11], (unsigned long long)HT_);\n"
+              "    atomicAdd(&kProfS[12], (unsigned long long)HM_);\n"
+              "    atomicAdd(&kProfS[13], (unsigned long long)HE_);\n"
+              "  }\n}\n")
+_SWEEP_GETTER = """
+extern "C" int sweep_prof_read(unsigned long long* out) {
+  static const unsigned long long zero[16] = {};
+  cudaError_t e = cudaMemcpyFromSymbol(out, topk_tile::kProfS, sizeof(zero));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(topk_tile::kProfS, zero, sizeof(zero));
+  return (int)e;
+}
+"""
+
+
+def _patch(text, patch, name):
+    for old, new in patch:
+        if text.count(old) != 1:
+            raise SystemExit(f"profile: anchor not found once in {name}: "
+                             f"{old[:60]!r}")
+        text = text.replace(old, new)
+    return text
+
+
+# The ring's sweep (TMA boxes, the stage's mbarrier, shared-memory
+# reads): "loads" is the mbarrier wait, "reads" the stage's LDS.64.
+_SWEEP_PATCH_RING = [
+    _SWEEP_PATCH_SCALAR[0], _SWEEP_PATCH_SCALAR[1], _SWEEP_PATCH_SCALAR[2],
+    ("      slab_copy(i + kSlabStages - 1);\n",
+     "      slab_copy(i + kSlabStages - 1);\n    PF_MARK(0);\n"),
+    _SWEEP_PATCH_SCALAR[4], _SWEEP_PATCH_SCALAR[5],
+    ("                         (uint32_t)((i / kSlabStages) & 1));\n",
+     "                         (uint32_t)((i / kSlabStages) & 1));\n"
+     "      PF_MARK(3);\n"),
+    ("            acc[mt][nt][2 * h + 1] = v.y;\n          }\n    }\n",
+     "            acc[mt][nt][2 * h + 1] = v.y;\n          }\n    }\n" +
+     _PF_FORCE.replace("PF_MARK(3)", "PF_MARK(9)")),
+    _SWEEP_PATCH_SCALAR[7], _SWEEP_PATCH_SCALAR[8], _SWEEP_PATCH_SCALAR[9],
+]
+_HOOK_BODY_RING = (  # the slab's LSE: base-2 units on the SFU
+    _HOOK_BODY.replace("cap > 0.f ? cap * tanhf(x / cap) : x",
+                       "logit2(x, cap, kt, kv)")
+    .replace("expf(", "exp_("))
+
+
+def _sweep_patches(topk):
+    """The clock patch of a tree's deep sweep, picked by what its header
+    holds: the parent's scalar loads, or the ring of TMA boxes."""
+    if "cp.async.bulk.tensor" in topk:
+        return _SWEEP_PATCH_RING, _HOOK_BODY_RING
+    return _SWEEP_PATCH_SCALAR, _HOOK_BODY
+
+
+def _sweep_calls(torch, dev, g, y, rows):
+    """eval_fused (k 1, the LSE, cap 30) and eval_topk (k 1) on ``rows``
+    rows against the vocabulary, on bf16 and on f32 operands: name →
+    (call, its slab's rows, the inputs)."""
+    from repro_torch.kernels import eval_fused, eval_topk
+
+    xe = torch.randn(rows, D, generator=g, device=dev)
+    te = torch.randint(1, C, (rows,), generator=g, device=dev,
+                       dtype=torch.int32)
+    calls = {}
+    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        x_, y_ = xe.to(dt), y.to(dt)
+        tg = eval_fused.eval_tgt_gather(x_, y_, te)
+        calls[f"eval_fused_{tag}"] = (
+            lambda x_=x_, y_=y_, tg=tg: eval_fused.eval_fused(
+                x_, y_, te, 1, tgt_scores=tg, c_lo=1, c_hi=C,
+                logit_softcap=CAP, with_lse=True), (x_, y_, te, tg))
+        calls[f"eval_topk_{tag}"] = (
+            lambda x_=x_, y_=y_, tg=tg: eval_topk.eval_topk(
+                x_, y_, tg, 1, c_lo=1, c_hi=C), (x_, y_, te, tg))
+    return calls
+
+
+def _profile_sweep(tree, label):
+    """The deep eval sweep's clock profile (module docstring: ``profile
+    ... sweep``) on one slab of 1,024 rows."""
+    import ctypes
+
+    work = Path(tempfile.mkdtemp(prefix="sweep_prof_"))
+    shutil.copytree(Path(tree) / "src", work / "src")
+    shutil.copy(Path(tree) / "chip_smoke.py", work / "chip_smoke.py")
+    csrc = work / "src" / "repro_torch" / "kernels" / "csrc"
+    topk = (csrc / "topk_tile.cuh").read_text()
+    patch, hook = _sweep_patches(topk)
+    (csrc / "topk_tile.cuh").write_text(_patch(topk, patch, "topk_tile.cuh"))
+    ev = (csrc / "eval_fused.cu").read_text()
+    start = ev.index("[&](const float (&acc)[MT][NT][4], const int* flags,")
+    end = ev.index("      });\n", start) + len("      });\n")
+    ev = ev[:start] + hook + ev[end:]
+    ev = _patch(ev, [_HOOK_STATE, _HOOK_TAIL], "eval_fused.cu")
+    (csrc / "eval_fused.cu").write_text(ev + _SWEEP_GETTER)
+    os.chdir(work)
+    torch, cs, dev, g, args, pos, gg = _setup(str(work))
+    from repro_torch.kernels import _build
+
+    lib = _build.load("eval_fused")
+    lib.sweep_prof_read.argtypes = [ctypes.c_void_p]
+    buf = (ctypes.c_ulonglong * 16)()
+    out = {}
+    with torch.no_grad():
+        for name, (fn, _) in _sweep_calls(torch, dev, g, args[1],
+                                          SWEEP_ROWS).items():
+            fn()
+            torch.cuda.synchronize()
+            lib.sweep_prof_read(buf)  # reset after the warm call
+            fn()
+            torch.cuda.synchronize()
+            if lib.sweep_prof_read(buf) != 0:
+                raise SystemExit("profile: sweep_prof_read failed")
+            v = [int(x) for x in buf]
+            ph = {p: c for p, c in zip(_SWEEP_PHASES, v[:10]) if p}
+            total = sum(ph.values())
+            loop = total - ph["tail"] - ph["prologue"]
+            hook = sum(v[10:14])
+            out[name] = {
+                "share": {p: round(c / max(total, 1), 4)
+                          for p, c in ph.items()},
+                "hook_share": {p: round(c / max(hook, 1), 4)
+                               for p, c in zip(_HOOK_PHASES, v[10:14])},
+                "cycles_per_warp_tile": round(loop / max(v[8], 1), 1),
+                "warp_tiles": v[8]}
+    print(label, json.dumps({"sweep_profile": out, "rows": SWEEP_ROWS,
+                             "card": cs.smi()}), flush=True)
+
+
+def _parts(ks, n_slabs):
+    """A call's kernels (name, ms) summed by kind, per slab."""
+    parts = dict.fromkeys(("slab", "prepass", "sweep", "merge", "target",
+                           "other"), 0.0)
+    for k, t in ks:
+        kind = ("slab" if "gemm" in k else
+                "prepass" if "sample" in k or "tau_select" in k else
+                "sweep" if "sweep_kernel" in k else
+                "merge" if "merge" in k else
+                "target" if "tgt" in k else "other")
+        parts[kind] += t / n_slabs
+    parts["sweep_alone"] = parts["prepass"] + parts["sweep"] + parts["merge"]
+    return {k: round(v, 4) for k, v in parts.items()}
+
+
+def sweep_plans(tree, label):
+    """The deep sweep of TREE under plan variants (module docstring:
+    ``plans``)."""
+    torch, cs, dev, g, args, pos, gg = _setup(tree)
+    from repro_torch.kernels import mips_topk as mk
+
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    calls = _sweep_calls(torch, dev, g, args[1], SWEEP_ROWS)
+    tree_plan = mk.slab_sweep_plan
+    variants = {
+        "tree": tree_plan,
+        "split8": lambda *_: mk.SweepPlan(4, 8, 8, 64),
+        "split12": lambda *_: mk.SweepPlan(4, 12, 12, 96),
+        "split16_nopre": lambda *_: mk.SweepPlan(4, 16, 0, 0),
+        "split24": lambda *_: mk.SweepPlan(4, 24, 16, 128),
+        "split33": lambda *_: mk.SweepPlan(4, 33, 16, 128),
+        "nqt1_split4": lambda *_: mk.SweepPlan(1, 4, 4, 32),
+    }
+    out = {}
+    with torch.no_grad():
+        for vn, plan in variants.items():
+            mk.slab_sweep_plan = plan
+            mk.sweep_plan.cache_clear()
+            for name in ("eval_fused_bf16", "eval_topk_bf16"):
+                fn = calls[name][0]
+                ks = _kernel_split(torch, lambda: (flush.zero_(), fn()))[1:]
+                out[f"{vn}/{name}"] = _parts(ks, 1)
+    mk.slab_sweep_plan = tree_plan
+    mk.sweep_plan.cache_clear()
+    print(label, json.dumps({"plans": out, "card": cs.smi()}), flush=True)
+
+
+def sweep_turns(tree, label):
+    """The deep eval sweep of TREE (module docstring: ``sweep``)."""
+    torch, cs, dev, g, args, pos, gg = _setup(tree)
+    y = args[1]
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    n_slabs = N_EVAL // SWEEP_ROWS
+    out = {}
+    with torch.no_grad():
+        calls = _sweep_calls(torch, dev, g, y, N_EVAL)
+        for name, (fn, (x_, y_, te, tg)) in calls.items():
+            reps = 1 if name.endswith("f32") else 3
+            ks = _kernel_split(torch, lambda: (flush.zero_(), fn()))[1:]
+            out[name] = {"ms": cs.time_ms(fn, reps, flush),
+                         "per_slab_ms": _parts(ks, n_slabs)}
+        del calls
+        # PyTorch on one given slab (the kernel's own, 1,024 rows): the
+        # top-1 (torch.max: the first maximal index), the counts against
+        # the target scores under the window [1, C), and the capped LSE
+        from repro_torch.kernels import eval_fused
+
+        slab_bytes = 4 * SWEEP_ROWS * C
+        for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            xs, ys = (torch.randn(SWEEP_ROWS, D, generator=g, device=dev)
+                      .to(dt), y.to(dt))
+            te = torch.randint(1, C, (SWEEP_ROWS,), generator=g, device=dev,
+                               dtype=torch.int32)
+            tg = eval_fused.eval_tgt_gather(xs, ys, te)
+            s = eval_fused.score_slab(xs, ys)[1:]
+
+            def lib_topk(s=s, tg=tg):
+                return s.max(0), (s > tg).sum(0), (s == tg).sum(0)
+
+            def lib_fused(s=s, tg=tg):
+                return lib_topk(s, tg) + (torch.logsumexp(
+                    CAP * torch.tanh(s / CAP), 0),)
+
+            out[f"library_slab_{tag}"] = {
+                "eval_fused_ms": cs.time_ms(lib_fused, 3, flush),
+                "eval_topk_ms": cs.time_ms(lib_topk, 3, flush),
+                "bound_ms": slab_bytes / cs.PEAK_BYTES_S * 1e3}
+            del s
+    print(label, json.dumps({"sweep": out, "card": cs.smi()}), flush=True)
+
+
 if __name__ == "__main__":
     mode, tree, label = sys.argv[1:4]
     {"digests": digests, "times": times, "profile": profile,
-     "slab": slab}[mode](
+     "slab": slab, "sweep": sweep_turns, "plans": sweep_plans}[mode](
         tree, label, *[a for a in sys.argv[4:] if a != "--plain"])

@@ -530,15 +530,16 @@ template <bool A_KM, bool B_KN, bool GATHER, bool ACC>
 cudaError_t gemm_bf16(Gemm g, long batch, cudaStream_t s,
                       bool (&done)[tf32x3::kMaxDevices]);
 
-// The score slab S (c, n_q), row-major: S[r][j] = y[r] · q[j], catalog
-// rows as A and queries as B — topk_tile.cuh's score_step orientation, so
-// that a slab score equals target_scores' for the pair bit for bit. The
+// The score slab S (c, n_q), row-major at a pitch of ld ≥ n_q floats:
+// S[r·ld + j] = y[r] · q[j], catalog rows as A and queries as B —
+// topk_tile.cuh's score_step orientation, so that a slab score equals
+// target_scores' for the pair bit for bit. The
 // deep mips_topk and eval_fused sweeps then read S. f32: gemm's 3xTF32;
 // bf16: gemm_bf16, one product over the whole depth per score, so a
 // query's scores do not depend on the other queries of its slab.
 template <typename T>
 cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
-                       int d, cudaStream_t st,
+                       int d, int ld, cudaStream_t st,
                        bool (&done)[tf32x3::kMaxDevices]) {
   Gemm g{};
   g.a = y;
@@ -546,7 +547,7 @@ cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
   g.b = q;
   g.ldb = d;
   g.out = s;
-  g.ldo = n_q;
+  g.ldo = ld;
   g.m = c;
   g.n = n_q;
   g.k = d;

@@ -71,8 +71,11 @@
 // score_step's arithmetic over depth chunks of 32 (`wgmma`), bf16
 // operands on gemm_bf16 (bf16 `wgmma`, the depth summed in the tensor
 // cores) — and the same sweep reads its tiles' scores from S
-// (topk_tile.cuh's FROM_S): the counts, the LSE fold, the lists and the
-// merge are this file's code. eval_tgt_gather takes any depth, and a slab
+// (topk_tile.cuh's FROM_S: a ring of slab tiles fed by TMA boxes, at
+// its own plan of 4-warp blocks): the counts, the lists and the merge are
+// this file's code; the LSE folds there in base-2 units on the SFU
+// (logit2 below), where the resident sweep's accurate tanhf and expf
+// set the deep sweep's pace. eval_tgt_gather takes any depth, and a slab
 // score equals its target score bit for bit: f32, the same mma3x2 k16
 // steps from zero, added in ascending depth order, in the same
 // orientation; bf16, an `mma.sync` m16n8k16 chain carried from zero in
@@ -133,11 +136,31 @@ cudaError_t launch_target_scores(const void* x, const void* y,
 // opt-in for each element type (gemm's for f32, gemm_bf16's for bf16).
 template <typename T>
 cudaError_t score_slab(const void* q, const void* y, float* s, int n_q, int c,
-                       int d, cudaStream_t st) {
+                       int d, int ld, cudaStream_t st) {
   static bool done[kMaxDevices] = {};
   return deep_tc::score_slab<T>(static_cast<const T*>(q),
-                                static_cast<const T*>(y), s, n_q, c, d, st,
-                                done);
+                                static_cast<const T*>(y), s, n_q, c, d, ld,
+                                st, done);
+}
+
+// The deep sweep's LSE logit (FROM_S): softcap(x)·log2(e), folded in
+// base-2 units on the SFU — cap·tanh(x / cap) as cap·(1 − 2 / (1 +
+// e^{2x/cap})) by ex2.approx and rcp.approx (kt = 2·log2(e) / cap,
+// kv = cap·log2(e)), within ≈ 3e-7·cap; x·log2(e) without a cap. The
+// resident sweep's accurate tanhf, its true division and expf took 72 %
+// of the deep sweep's fold and set its pace (PERF.md, the sweep's clock
+// profile); a slab read at its byte rate leaves ≈ 40 instructions an
+// element to the fold.
+__device__ __forceinline__ float rcp_approx(float a) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(a));
+  return r;
+}
+
+__device__ __forceinline__ float logit2(float x, float cap, float kt,
+                                        float kv) {
+  if (cap <= 0.f) return x * tf32x3::kLog2e;
+  return fmaf(-2.f * kv, rcp_approx(1.f + tf32x3::exp2_approx(x * kt)), kv);
 }
 
 // (m, s) of two disjoint column sets → (m, s) of their union.
@@ -150,10 +173,14 @@ __device__ __forceinline__ void lse_combine(float& m, float& s, float m2,
 
 // SELF: eval_fused's self-column rule (the target's own column never in
 // gt, always in eq). Without it (eval_topk) the counts go by score alone
-// and `targets` is not read.
+// and `targets` is not read. FROM_S folds the LSE in base-2 units
+// (logit2, exp2 on the SFU) and returns m in natural units after the
+// sweep; the resident sweep keeps tanhf and expf.
 template <int NQT, int SLOTS, bool LSE, bool SELF, bool FROM_S, typename T>
-__global__ void __launch_bounds__(Cfg<NQT>::kThreads, Cfg<NQT>::kMinBlocks)
-eval_sweep_kernel(Sweep a, const float* __restrict__ tgt,
+__global__ void __launch_bounds__(Cfg<NQT>::kThreads,
+                                  sweep_min_blocks<NQT, FROM_S>())
+eval_sweep_kernel(const __grid_constant__ Sweep a,
+                  const float* __restrict__ tgt,
                   const int* __restrict__ targets, int* __restrict__ part_cnt,
                   float* __restrict__ part_ms, float cap) {
   using C = Cfg<NQT>;
@@ -185,6 +212,13 @@ eval_sweep_kernel(Sweep a, const float* __restrict__ tgt,
       m[nt][u] = kNegInf;
       s[nt][u] = 0.f;
     }
+  const float kt = cap > 0.f ? 2.f * tf32x3::kLog2e / cap : 0.f;
+  const float kv = cap > 0.f ? cap * tf32x3::kLog2e : 0.f;
+  // e^a: expf resident, 2^a (base-2 units) on the slab
+  auto exp_ = [](float a) {
+    if constexpr (FROM_S) return tf32x3::exp2_approx(a);
+    else return expf(a);
+  };
 
   float* red = sweep<NQT, SLOTS, false, FROM_S, T>(
       a, smem4,
@@ -208,7 +242,9 @@ eval_sweep_kernel(Sweep a, const float* __restrict__ tgt,
                 gt[nt][u] += sv > t_r[nt][u] && !self;
                 eq[nt][u] += sv == t_r[nt][u] || (self && ok);
                 if (LSE) {
-                  const float v = cap > 0.f ? cap * tanhf(x / cap) : x;
+                  const float v =
+                      FROM_S ? logit2(x, cap, kt, kv)
+                             : cap > 0.f ? cap * tanhf(x / cap) : x;
                   lv[mt][h] = ok ? v : kNegInf;
                   tile_max = fmaxf(tile_max, lv[mt][h]);
                 }
@@ -221,12 +257,19 @@ eval_sweep_kernel(Sweep a, const float* __restrict__ tgt,
 #pragma unroll
                 for (int h = 0; h < 2; ++h)
                   if (flags[16 * (wm * MT + mt) + gq + 8 * h])
-                    add += expf(lv[mt][h] - mn);
-              s[nt][u] = s[nt][u] * expf(m[nt][u] - mn) + add;
+                    add += exp_(lv[mt][h] - mn);
+              s[nt][u] = s[nt][u] * exp_(m[nt][u] - mn) + add;
               m[nt][u] = mn;
             }
           }
       });
+  if constexpr (FROM_S && LSE) {  // m back to natural units
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        if (m[nt][u] != kNegInf) m[nt][u] *= 0.6931471805599453f;
+  }
 
   // The 8 lanes of a query (gq = 0..7) in a fixed shuffle tree, then the
   // WM warps of its column in warp order through the free tile ring.
@@ -332,12 +375,16 @@ struct Seed {
 };
 
 template <int NQT, int SLOTS, bool LSE, bool SELF, bool FROM_S, typename T>
-cudaError_t launch_sweep(const Sweep& a, const EvalOut& o, int n_split,
+cudaError_t launch_sweep(const Sweep& a_in, const EvalOut& o, int n_split,
                          const Seed& pre, cudaStream_t st) {
   using C = Cfg<NQT>;
   static bool done[kMaxDevices] = {}, done_pre[kMaxDevices] = {};
-  const size_t smem = sweep_smem_bytes<NQT, FROM_S>(a.d, a.k);
+  const size_t smem = sweep_smem_bytes<NQT, FROM_S>(a_in.d, a_in.k);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  Sweep a = a_in;
+  if constexpr (FROM_S) {
+    if (!slab_map<NQT>(a)) return cudaErrorInvalidValue;
+  }
   cudaError_t err =
       allow_max_smem(eval_sweep_kernel<NQT, SLOTS, LSE, SELF, FROM_S, T>, done);
   if (err != cudaSuccess) return err;
@@ -384,16 +431,19 @@ int launch_eval(const void* x, const void* y, float* scores,
           id_offset, c_lo, c_hi,
           d % 4 == 0 && reinterpret_cast<uintptr_t>(y) % (4 * elem) == 0,
           pre_split > 0};
-  if (FROM_S) {
-    cudaError_t err = bf16_in ? score_slab<bf16>(x, y, scores, n, c, d, st)
-                              : score_slab<float>(x, y, scores, n, c, d, st);
+  if (FROM_S) {  // at the sweep's row pitch, slab_ld(n)
+    const int ld = slab_ld(n);
+    cudaError_t err =
+        bf16_in ? score_slab<bf16>(x, y, scores, n, c, d, ld, st)
+                : score_slab<float>(x, y, scores, n, c, d, ld, st);
     if (err != cudaSuccess) return (int)err;
     a.s = scores;
     a.vec = 0;
   }
   auto go = [&](auto t) {
     using T = decltype(t);
-    return dispatch<kSlotsLarge>(query_tiles, k, [&](auto nqt, auto slots) {
+    return dispatch<kSlotsLarge, FROM_S>(query_tiles, k, [&](auto nqt,
+                                                            auto slots) {
       constexpr int NQT = decltype(nqt)::value;
       constexpr int SLOTS = decltype(slots)::value;
       const Seed pre{uv, pre_split, pre_period};
@@ -462,11 +512,12 @@ extern "C" int eval_score_slab_launch(const void* x, const void* y,
   if (n <= 0 || c <= 0 || d <= 0 || scores == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(bf16_in ? score_slab<bf16>(x, y, scores, n, c, d, st)
-                       : score_slab<float>(x, y, scores, n, c, d, st));
+  return (int)(bf16_in ? score_slab<bf16>(x, y, scores, n, c, d, n, st)
+                       : score_slab<float>(x, y, scores, n, c, d, n, st));
 }
 
-// eval_fused_launch for any d > 0, on the (c, n) f32 workspace `scores`.
+// eval_fused_launch for any d > 0, on the (c, slab_ld(n)) f32 workspace
+// `scores` (topk_tile.cuh: the slab's tensor map wants 16-byte rows).
 extern "C" int eval_fused_deep_launch(
     const void* x, const void* y, const float* tgt, const int* targets,
     float* part_vals, int* part_ids, int* part_cnt, float* part_ms, int* tau,
@@ -508,7 +559,8 @@ extern "C" int eval_topk_launch(
       false, bf16_in, static_cast<cudaStream_t>(stream));
 }
 
-// eval_topk_launch for any d > 0, on the (c, n) f32 workspace `scores`.
+// eval_topk_launch for any d > 0, on the (c, slab_ld(n)) f32 workspace
+// `scores`.
 extern "C" int eval_topk_deep_launch(
     const void* x, const void* y, const float* tgt, float* part_vals,
     int* part_ids, int* part_cnt, int* tau, float* uv, float* vals, int* ids,

@@ -122,8 +122,9 @@ using tf32x3::by_dtype;
 // k ≤ 32: the tensor-core sweep and its merge
 // ---------------------------------------------------------------------------
 template <int NQT, int SLOTS, bool FROM_S, typename T>
-__global__ void __launch_bounds__(Cfg<NQT>::kThreads, Cfg<NQT>::kMinBlocks)
-mips_sweep_kernel(Sweep a) {
+__global__ void __launch_bounds__(Cfg<NQT>::kThreads,
+                                  sweep_min_blocks<NQT, FROM_S>())
+mips_sweep_kernel(const __grid_constant__ Sweep a) {
   extern __shared__ float4 smem4[];
   sweep<NQT, SLOTS, false, FROM_S, T>(a, smem4,
                                       [](const auto&, const int*, long) {});
@@ -142,13 +143,17 @@ mips_topk_merge_kernel(const float* __restrict__ part_vals,
 
 // τ seeded (the pre-pass when pre_split > 0), the sweep, the merge.
 template <int NQT, int SLOTS, bool FROM_S, typename T>
-cudaError_t launch_sweep(const Sweep& a, float* uv, float* vals, int* ids,
+cudaError_t launch_sweep(const Sweep& a_in, float* uv, float* vals, int* ids,
                          int n_split, int pre_split, int pre_period,
                          cudaStream_t s) {
   using C = Cfg<NQT>;
   static bool done[kMaxDevices] = {}, done_pre[kMaxDevices] = {};
-  const size_t smem = sweep_smem_bytes<NQT, FROM_S>(a.d, a.k);
+  const size_t smem = sweep_smem_bytes<NQT, FROM_S>(a_in.d, a_in.k);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  Sweep a = a_in;
+  if constexpr (FROM_S) {
+    if (!slab_map<NQT>(a)) return cudaErrorInvalidValue;
+  }
   cudaError_t err =
       allow_max_smem(mips_sweep_kernel<NQT, SLOTS, FROM_S, T>, done);
   if (err != cudaSuccess) return err;
@@ -986,9 +991,9 @@ cudaError_t select_chain(const Pass& base, const SelectScratch& w, int k,
 // opt-in for each element type (gemm's for f32, gemm_bf16's for bf16).
 template <typename T>
 cudaError_t score_slab(const T* q, const T* y, float* s, int n_q, int c,
-                       int d, cudaStream_t st) {
+                       int d, int ld, cudaStream_t st) {
   static bool done[kMaxDevices] = {};
-  return deep_tc::score_slab<T>(q, y, s, n_q, c, d, st, done);
+  return deep_tc::score_slab<T>(q, y, s, n_q, c, d, ld, st, done);
 }
 
 // 1 when rows of y (element size `elem`) can be read 4 values at a time.
@@ -1093,9 +1098,10 @@ extern "C" int mips_topk_select_launch(
 }
 
 // The deep variants: as mips_topk_launch and mips_topk_select_launch, for
-// any d > 0 (and, in the chain, k ≤ kMaxK), with `scores` a (c, n_q) f32
-// workspace that deep_tc::score_slab fills first; the sweeps and passes
-// then read it (FROM_S).
+// any d > 0 (and, in the chain, k ≤ kMaxK), with `scores` an f32
+// workspace that deep_tc::score_slab fills first — (c, slab_ld(n_q)) for
+// the sweep, whose tensor map wants 16-byte rows; (c, n_q) for the chain —
+// and the sweeps and passes then read (FROM_S).
 extern "C" int mips_topk_deep_launch(const void* q, const void* y,
                                      const unsigned char* valid,
                                      float* scores, float* part_vals,
@@ -1114,13 +1120,13 @@ extern "C" int mips_topk_deep_launch(const void* q, const void* y,
   cudaError_t err = by_dtype(bf16_in, [&](auto t) {
     using T = decltype(t);
     return score_slab(static_cast<const T*>(q), static_cast<const T*>(y),
-                      scores, n_q, c, d, s);
+                      scores, n_q, c, d, slab_ld(n_q), s);
   });
   if (err != cudaSuccess) return (int)err;
   Sweep a{q, y, valid, part_vals, part_ids, tau, n_q, c, d, k, 0,
           id_offset, id_offset, id_offset + c, 0, pre_split > 0};
   a.s = scores;
-  return (int)dispatch<1>(query_tiles, k, [&](auto nqt, auto slots) {
+  return (int)dispatch<1, true>(query_tiles, k, [&](auto nqt, auto slots) {
     return launch_sweep<decltype(nqt)::value, decltype(slots)::value, true,
                         float>(a, uv, vals, ids, n_split, pre_split,
                                pre_period, s);
@@ -1146,7 +1152,7 @@ extern "C" int mips_topk_select_deep_launch(
   cudaError_t err = by_dtype(bf16_in, [&](auto t) {
     using T = decltype(t);
     return score_slab(static_cast<const T*>(q), static_cast<const T*>(y),
-                      scores, n_q, c, d, s);
+                      scores, n_q, c, d, n_q, s);
   });
   if (err != cudaSuccess) return (int)err;
   Pass base{};

@@ -41,7 +41,29 @@
 // same split and k16 order), on bf16 operands gemm_bf16 (bf16 `wgmma`,
 // the depth summed in the tensor cores) — and the sweep reads each tile's
 // scores from S instead of computing them: the filter, the shared
-// threshold, the merges and the hook are the same code. target_scores
+// threshold, the merges and the hook are the same code, on the same
+// (row, column) values. What bounds that read on an H100 is the slab's
+// bytes: 4·c·n_q once at 3.35 TB/s (a 1,024-row eval slab of the
+// 256,000-token vocabulary: 1.05 GB, 0.313 ms), 25 GB/s an SM, so by
+// Little's law at ≈ 1 µs of latency ≥ 25 KB in flight an SM. A tile of
+// the slab (64 catalog rows × the block's QB query columns) therefore
+// comes by one TMA box (`cp.async.bulk.tensor.2d` on the slab's tensor
+// map, slab_map) into a ring of kSlabStages shared-memory stages, issued
+// by one thread kSlabStages − 1 tiles ahead of the fold and completing on
+// the stage's mbarrier. A box of 32 columns lands in the TMA's 128-byte
+// swizzle (the 16-byte chunk c of row r at c ^ (r & 7)), so a
+// half-warp's fragment reads (rows gq, columns 2q, 2q + 1, by LDS.64)
+// take two wavefronts where unswizzled 128-byte rows take four; a box of
+// 8 columns (QB 8) lands as it is, its 32-byte rows in one. A 1-D bulk
+// copy a catalog row (128 bytes) would issue only about every 20 cycles
+// on an SM, half the byte rate (the sweep's clock profile, PERF.md); a
+// box a tile issues once. The slab's rows are slab_ld(n_q) floats apart,
+// a multiple of 4 (a tensor map's rows are 16-byte multiples). A FROM_S
+// block holds neither fragments nor tiles, so its own plan (mips_topk.py
+// slab_sweep_plan) runs blocks of 4 query tiles, 4 an SM
+// (sweep_min_blocks): 16 warps and 64 KB of copies in flight an SM, where
+// Cfg<16>'s 8 warps, loading 32 scalars a thread a tile, would have
+// nothing in flight while they fold. target_scores
 // takes any depth, in the slab's arithmetic (score_step on f32; on bf16
 // above kMaxD an `mma.sync` m16n8k16 bf16 chain, which gives gemm_bf16's
 // bits: probes/bf16_tc_check.py slab_bits), so the target's score is
@@ -64,6 +86,7 @@
 
 #include <type_traits>
 
+#include "deep_tc.cuh"
 #include "tf32x3_tile.cuh"
 
 namespace topk_tile {
@@ -400,6 +423,39 @@ __host__ __device__ inline int tile_pitch(int d) {
   return (depth16(d) + 31) / 32 * 32 + 8;
 }
 
+// FROM_S: the ring's stages (a stage: 64 rows of QB floats as the TMA
+// writes its box, 1024-byte aligned for its swizzle), and the slab's row
+// pitch for n_q query columns (a multiple of 4: a tensor map's rows are
+// 16-byte multiples). The slab's writer (deep_tc::score_slab) and its
+// readers take the same slab_ld.
+constexpr int kSlabStages = 3;
+
+__host__ __device__ constexpr int slab_ld(int n_q) {
+  return (n_q + 3) / 4 * 4;
+}
+
+// A 2-D box of the tensor map (inner coordinate x, outer y) into shared
+// memory, completing on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(deep_tc::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(deep_tc::smem_u32(bar))
+      : "memory");
+}
+
+// The float index of the slab's (row r, column col) in a stage of QB
+// columns: 32 columns in the TMA's 128-byte swizzle, 8 as they are.
+template <int QB>
+__device__ __forceinline__ int stage_at(int r, int col) {
+  if constexpr (QB == 32)
+    return r * QB + (((col >> 2) ^ (r & 7)) << 2) + (col & 3);
+  else
+    return r * QB + col;
+}
+
 // One block of the sweep: 8·NQT query rows (NQT n8 tiles) against 64-row
 // catalog tiles, split over WM × WN warps; each warp computes MT m16
 // tiles of catalog rows by NT n8 tiles of queries. MIN_BLOCKS blocks
@@ -417,17 +473,29 @@ struct Cfg {
   static_assert(kWM * kMT * 16 == kTile && kWN * kNT == NQT, "NQT");
 };
 
+// Blocks of the sweep an SM holds (__launch_bounds__' second argument):
+// the resident Cfg's, or FROM_S's (4 query tiles at most, no fragments,
+// no tiles: 4 blocks of 4 warps, 128 registers a thread).
+template <int NQT, bool FROM_S>
+constexpr int sweep_min_blocks() {
+  static_assert(!FROM_S || NQT <= 4, "FROM_S takes 1 or 4 query tiles");
+  return FROM_S ? 4 : Cfg<NQT>::kMinBlocks;
+}
+
 // Shared memory of one sweep block: the queries' B fragments (hi, lo),
 // two catalog tiles and their valid flags, the merge requests, and per
 // row a candidate count, a (value, id) list of k and a buffer of kCap.
-// FROM_S holds no fragments and no tiles, only the 4·WM·QB words that
-// eval_fused's reduction takes in their place.
+// FROM_S holds no fragments and no catalog tiles: in their place the
+// ring of kSlabStages slab tiles (64 rows of QB floats), 1 KB to align
+// it, and its mbarriers (2 words each); eval_fused's reduction reuses
+// the ring.
 template <int NQT, bool FROM_S = false>
 inline size_t sweep_smem_bytes(int d, int k) {
   constexpr size_t QB = Cfg<NQT>::kQB;
   const size_t dp = depth16(d);
-  const size_t stage = FROM_S ? 4 * Cfg<NQT>::kWM * QB
-                              : 2 * QB * dp + 2 * kTile * (size_t)tile_pitch(d);
+  const size_t stage =
+      FROM_S ? (size_t)kSlabStages * kTile * QB + 256 + 2 * kSlabStages
+             : 2 * QB * dp + 2 * kTile * (size_t)tile_pitch(d);
   return 4 * (stage + 2 * kTile + 4 + QB + 2 * QB * ((size_t)k + kCap));
 }
 
@@ -449,7 +517,31 @@ struct Sweep {
   int vec;                      // 4-value tile copies (d % 4 == 0, aligned)
   int seeded;                   // τ comes from a pre-pass
   const float* s;               // FROM_S: the scores (c, n_q), row-major
+  CUtensorMap map;              // FROM_S: s's tensor map (slab_map)
 };
+
+// FROM_S: the slab's tensor map for blocks of NQT query tiles: 2-D (the
+// n_q columns inner, the c rows outer), rows slab_ld(n_q) floats apart,
+// boxes of QB columns × 64 rows, 128-byte swizzle for QB = 32 (none for
+// QB = 8), zeros past either edge. False where the driver refuses it.
+template <int NQT>
+inline bool slab_map(Sweep& a) {
+  constexpr int QB = Cfg<NQT>::kQB;
+  static_assert(QB == 8 || QB == 32, "FROM_S takes 1 or 4 query tiles");
+  const deep_tc::EncodeTiled enc = deep_tc::tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)a.n_q, (cuuint64_t)a.c};
+  const cuuint64_t strides[1] = {(cuuint64_t)slab_ld(a.n_q) * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)QB, (cuuint32_t)kTile};
+  const cuuint32_t el[2] = {1, 1};
+  return enc(&a.map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+             const_cast<float*>(a.s), dims, strides, box, el,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             QB == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 // Column c0 + tid of a tile of nc columns: 1 if it is in the tile, its
 // mask byte (if any) is set and its global id is in the window.
@@ -580,8 +672,11 @@ __device__ void merge_rows(float* lv, int* li, float* cv, int* ci, int* cnt,
 // The sweep of one block (every thread calls). Stages its QB query rows
 // once as split B fragments, streams its tiles by cp.async into a double
 // buffer (the next tile's copy overlaps this tile's products), and scores
-// each tile with score_step. The warp (wm, wn) = (warp % WM, warp / WM)
-// holds, for m16 tile mt, n8 tile nt and accumulator e, the score of
+// each tile with score_step; FROM_S reads each tile's scores from the
+// slab's ring instead (a TMA box kSlabStages − 1 tiles ahead, then the
+// stage's mbarrier, then one LDS.64 a pair of columns). The warp
+// (wm, wn) = (warp % WM, warp / WM) holds, for m16 tile mt, n8 tile nt
+// and accumulator e, the score of
 // catalog row 16·(wm·MT + mt) + gq + 8·(e >> 1) of the tile against query
 // row 8·(wn·NT + nt) + 2q + (e & 1) of the block (lane = 4·gq + q).
 // `on_tile(acc, flags, c0)` then sees the tile's scores, its 64 valid
@@ -603,11 +698,17 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
   const int p = tile_pitch(d);
   const int k8s = dp / 8;
   uint4* qf = reinterpret_cast<uint4*>(smem4);  // (NQT, dp / 8, 32)
-  // 2×(64, p); FROM_S: 4·WM·QB words for the caller's reduction only
-  float* ring = FROM_S ? reinterpret_cast<float*>(smem4)
+  // 2×(64, p); FROM_S: kSlabStages×(64, QB) from the first 1024-byte
+  // boundary, then the stages' mbarriers
+  float* ring = FROM_S ? reinterpret_cast<float*>(
+                             (reinterpret_cast<uintptr_t>(smem4) + 1023) &
+                             ~uintptr_t(1023))
                        : reinterpret_cast<float*>(qf + NQT * k8s * 32);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + kSlabStages * kTile * QB);
   int* flags = reinterpret_cast<int*>(
-      ring + (FROM_S ? 4 * WM * QB : 2 * kTile * p));  // 2 × 64
+      FROM_S ? reinterpret_cast<float*>(full + kSlabStages)
+             : ring + 2 * kTile * p);  // 2 × 64
   int* mreq = flags + 2 * kTile;  // merge requests by tile mod 3
   int* cnt = mreq + 4;                                    // (QB,)
   float* lv = reinterpret_cast<float*>(cnt + QB);         // (QB, k)
@@ -650,6 +751,10 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
   }
   for (int e = tid; e < QB; e += THREADS) cnt[e] = 0;
   if (tid < 4) mreq[tid] = 0;
+  if (FROM_S && tid == 0) {
+    for (int j = 0; j < kSlabStages; ++j) deep_tc::mbar_init(full + j, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
 
   const long tiles = ((long)a.c + kTile - 1) / kTile;
   long first, step;
@@ -674,11 +779,23 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
                 nc, d, p, a.vec, tid, THREADS);
     return tid < kTile ? valid_flag(a, c0, nc, tid) : 0;
   };
+  // FROM_S (thread 0): tile j's box of the slab (its 64 rows, the
+  // block's QB columns; zeros past c and n_q, which the flags and rows
+  // mask) into stage j mod kSlabStages, the stage's mbarrier armed with
+  // the box's bytes.
+  auto slab_copy = [&](int j) {
+    uint64_t* bar = full + j % kSlabStages;
+    deep_tc::mbar_arrive_tx(bar, 4 * kTile * QB);
+    tma_load_2d(ring + (j % kSlabStages) * kTile * QB, &a.map, row0,
+                (int)tile_c0(j), bar);
+  };
 
   if (n_tiles > 0) {
     const int f = issue(0);
     if (tid < kTile) flags[tid] = f;
   }
+  if (FROM_S && tid == 0)
+    for (int j = 0; j < kSlabStages - 1 && j < n_tiles; ++j) slab_copy(j);
   cp_async_commit();
   float best[NT][2];  // a pre-pass's: the best of the lane's columns
   int tk[NT][2];      // the rows' τ as last read
@@ -692,13 +809,18 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
   int f_mine = n_tiles > 0 && tid < kTile ? flags[tid] : 1;  // tile i's
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<0>();
-    // Tile i has landed for every thread; tile i − 1 is no longer read and
-    // its candidates are complete. Are all of tile i's columns valid?
+    // Tile i has landed for every thread (FROM_S: its stage's mbarrier,
+    // below); tile i − 1 is no longer read and its candidates are
+    // complete. Are all of tile i's columns valid?
     const int all_valid = __syncthreads_and(tid >= kTile || f_mine);
     // The next tile's valid flags are read into a register here and stored
     // after this tile's filter, so their load does not stall the copy.
     const int f_next = i + 1 < n_tiles ? issue(i + 1) : 0;
     cp_async_commit();
+    // FROM_S: tile i − 1's stage is free (every thread has read it); the
+    // tile kSlabStages − 1 ahead goes there.
+    if (FROM_S && tid == 0 && i + kSlabStages - 1 < n_tiles)
+      slab_copy(i + kSlabStages - 1);
     // The rows' τ, read now, used after the products: every tile, or,
     // when a pre-pass seeded it, every 8th (the blocks' merges raise it
     // little then).
@@ -727,19 +849,23 @@ __device__ __forceinline__ float* sweep(const Sweep& a, float4* smem4,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
     if constexpr (FROM_S) {
-      // The tile's scores from the slab (0 past the catalog and n_q: the
-      // filter and the hook mask those by their flags and rows).
-      const long c0s = tile_c0(i);
+      // The tile's scores from its stage once its box has landed (zeros
+      // past the catalog and n_q: the filter and the hook mask those by
+      // their flags and rows).
+      deep_tc::mbar_wait(full + i % kSlabStages,
+                         (uint32_t)((i / kSlabStages) & 1));
+      const float* sb = ring + (i % kSlabStages) * kTile * QB;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const long cr = c0s + 16 * (wm * MT + mt) + gq + 8 * (e >> 1);
-            const int qr = row0 + 8 * (wn * NT + nt) + 2 * qd + (e & 1);
-            acc[mt][nt][e] =
-                cr < a.c && qr < a.n_q ? a.s[cr * a.n_q + qr] : 0.f;
+          for (int h = 0; h < 2; ++h) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                sb + stage_at<QB>(16 * (wm * MT + mt) + gq + 8 * h,
+                                  8 * (wn * NT + nt) + 2 * qd));
+            acc[mt][nt][2 * h] = v.x;
+            acc[mt][nt][2 * h + 1] = v.y;
           }
     }
 #pragma unroll 2
@@ -1022,8 +1148,9 @@ __device__ __forceinline__ void target_scores(const T* x, const T* y,
 // tau_select_kernel, is a safe τ for the sweep: the k-th of ≈ a sample's
 // top, where the blocks' own lists start from nothing.
 template <int NQT, bool FROM_S, typename T>
-__global__ void __launch_bounds__(Cfg<NQT>::kThreads, Cfg<NQT>::kMinBlocks)
-sample_kernel(Sweep a) {
+__global__ void __launch_bounds__(Cfg<NQT>::kThreads,
+                                  sweep_min_blocks<NQT, FROM_S>())
+sample_kernel(const __grid_constant__ Sweep a) {
   extern __shared__ float4 smem4[];
   sweep<NQT, 1, true, FROM_S, T>(a, smem4,
                                  [](const auto&, const int*, long) {});
@@ -1121,15 +1248,17 @@ cudaError_t seed_tau(const Sweep& a, float* uv, int pre_split,
 }
 
 // Calls f(NQT, SLOTS) with both as std::integral_constant: the block's
-// n8 query tiles (1, 4 or 16) and the list width (a lane holds 1 entry
-// for k ≤ 32, 8 for k ≤ 256, 16 above; at most MAX_SLOTS).
-template <int MAX_SLOTS, class F>
+// n8 query tiles (1, 4 or 16; FROM_S 1 or 4) and the list width (a lane
+// holds 1 entry for k ≤ 32, 8 for k ≤ 256, 16 above; at most MAX_SLOTS).
+template <int MAX_SLOTS, bool FROM_S = false, class F>
 cudaError_t dispatch(int query_tiles, int k, F&& f) {
   auto by_nqt = [&](auto slots) -> cudaError_t {
     switch (query_tiles) {
       case 1: return f(std::integral_constant<int, 1>{}, slots);
       case 4: return f(std::integral_constant<int, 4>{}, slots);
-      case 16: return f(std::integral_constant<int, 16>{}, slots);
+      case 16:
+        if constexpr (FROM_S) return cudaErrorInvalidValue;
+        else return f(std::integral_constant<int, 16>{}, slots);
       default: return cudaErrorInvalidValue;
     }
   };

@@ -38,7 +38,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.deep import (MAX_D, SHALLOW_MAX_K, bf16_flag,
                                       operand_dtype)
 from repro_torch.kernels.mips_topk import (SWEEP_WM, n_sm, on_device,
-                                          slab_rows, sweep_plan)
+                                          slab_ld, slab_rows, sweep_plan)
 
 INT32_MAX = 2**31 - 1
 
@@ -207,7 +207,7 @@ def eval_fused(x, y, targets, k: int, *, tgt_scores=None, c_lo: int = 0,
         _launch(x, y, outs, k, id_offset, c_lo, c_hi, cap, with_lse)
     else:
         rows = slab_rows(n, c)
-        scores = empty(c * rows)
+        scores = empty(c * slab_ld(rows))
         for r in range(0, n, rows):
             _launch(x[r:r + rows], y,
                     tuple(t if t is None else t[r:r + rows] for t in outs),

@@ -37,7 +37,7 @@ from repro_torch.kernels.eval_fused import INT32_MAX
 from repro_torch.kernels.deep import (MAX_D, SHALLOW_MAX_K, bf16_flag,
                                       operand_dtype)
 from repro_torch.kernels.mips_topk import (SWEEP_WM, n_sm, on_device,
-                                          slab_rows, sweep_plan)
+                                          slab_ld, slab_rows, sweep_plan)
 
 
 def _check(name, x, y, vec, vec_dtype, k=None, id_offset=0):
@@ -160,7 +160,7 @@ def _two_pass_topk(x, y, tgt_scores, k: int, *, c_lo: int = 0, c_hi=None,
         _launch(x, y, outs, k, id_offset, c_lo, c_hi)
     else:  # the deep variant, a slab of rows at a time
         rows = slab_rows(n, c)
-        scores = empty(c * rows)
+        scores = empty(c * slab_ld(rows))
         for r in range(0, n, rows):
             _launch(x[r:r + rows], y, tuple(t[r:r + rows] for t in outs), k,
                     id_offset, c_lo, c_hi, scores)

@@ -56,6 +56,9 @@ SMALL_K = 32  # k up to this takes the tensor-core sweep
 QUERY_TILES = (1, 4, 16)  # n8 query tiles a sweep block may hold (Cfg)
 SWEEP_WM = {1: 4, 4: 4, 16: 2}  # Cfg::kWM: warps across a tile's rows
 SWEEP_CAP = TILE_C + 32  # kCap: candidate slots a row of a sweep block
+SLAB_QUERY_TILES = (1, 4)  # n8 query tiles a deep (FROM_S) sweep block holds
+SLAB_STAGES = 3  # kSlabStages: the deep sweep's ring of slab tiles
+SLAB_MIN_BLOCKS = 4  # sweep_min_blocks<NQT, true>: its blocks an SM
 MERGE_CAP = 1024  # kMergeCap: entries a sweep's merge block gathers
 PRE_SAMPLE = 8  # the pre-pass reads one tile in PRE_SAMPLE
 PRE_UNION = 8192  # most pre-pass entries a row's τ selection holds
@@ -120,21 +123,31 @@ def merge_smem_bytes(k: int) -> int:
     return 8 * 8 * (k + 32)
 
 
+def slab_ld(n_q: int) -> int:
+    """The deep sweep's score slab row pitch in floats for ``n_q`` query
+    columns (``slab_ld`` in ``topk_tile.cuh``): a multiple of 4, as the
+    slab's tensor map wants 16-byte rows. The wrappers allocate
+    ``C·slab_ld(rows)`` floats for a slab of ``rows`` queries."""
+    return -(-n_q // 4) * 4
+
+
 def sweep_smem_bytes(query_tiles: int, d: int, k: int) -> int:
     """Shared memory of one tensor-core sweep block, as
     ``sweep_smem_bytes`` in ``topk_tile.cuh`` lays it out (the source
     refuses a launch above ``MAX_SMEM``, so a plan that disagreed would
     raise): the queries' B fragments (hi, lo) at the depth rounded up to
     16, two catalog tiles at a pitch ≡ 8 mod 32 floats — above ``MAX_D``
-    (the deep variant, which reads the score slab) in their place only
-    the ``4·WM·QB`` words of ``eval_fused``'s reduction —, their valid
-    flags, four merge-request words, per-row counts, and per row a
-    (value, id) list of ``k`` and a candidate buffer of ``SWEEP_CAP``."""
+    (the deep variant, which reads the score slab) in their place the
+    ring of ``SLAB_STAGES`` slab tiles (64 rows of the block's query
+    columns, as the TMA writes a box), 1 KB to align it and its
+    mbarriers —, their valid flags, four merge-request words,
+    per-row counts, and per row a (value, id) list of ``k`` and a
+    candidate buffer of ``SWEEP_CAP``."""
     qb = 8 * query_tiles
     dp = -(-d // 16) * 16
     pitch = -(-dp // 32) * 32 + 8
-    stage = (4 * SWEEP_WM[query_tiles] * qb if d > MAX_D
-             else 2 * qb * dp + 2 * TILE_C * pitch)
+    stage = (SLAB_STAGES * TILE_C * qb + 256 + 2 * SLAB_STAGES
+             if d > MAX_D else 2 * qb * dp + 2 * TILE_C * pitch)
     return 4 * (stage + 2 * TILE_C + 4 + qb + 2 * qb * (k + SWEEP_CAP))
 
 
@@ -246,7 +259,11 @@ def sweep_plan(n_q: int, c: int, d: int, k: int, n_sm: int) -> SweepPlan:
     tile in ``PRE_SAMPLE``, strided over up to ``n_split`` blocks of about
     four tiles each, its union within ``PRE_UNION`` entries a row. On the
     H100 it beat τ by ``atomicMax`` alone, and one tile in 8 beat one in
-    4 (``probes/topk_variants.py``, PERF.md §6)."""
+    4 (``probes/topk_variants.py``, PERF.md §6).
+    Above ``MAX_D`` the deep sweep, which reads the score slab, takes its
+    own plan (:func:`slab_sweep_plan`)."""
+    if d > MAX_D:
+        return slab_sweep_plan(n_q, c, k, n_sm)
     fits = [t for t in QUERY_TILES if sweep_smem_bytes(t, d, k) <= MAX_SMEM]
     nqt = next((t for t in fits if 8 * t >= n_q), fits[-1])
     per_sm = min({1: 4, 4: 2, 16: 1}[nqt],
@@ -254,11 +271,42 @@ def sweep_plan(n_q: int, c: int, d: int, k: int, n_sm: int) -> SweepPlan:
     n_qb = -(-n_q // (8 * nqt))
     tiles = -(-c // TILE_C)
     n_split = min(tiles, -(-per_sm * n_sm // n_qb))
+    return SweepPlan(nqt, n_split, *_pre_pass(tiles, n_split, nqt, k))
+
+
+def _pre_pass(tiles: int, n_split: int, nqt: int, k: int):
+    """``(pre_split, pre_period)`` of a sweep's pre-pass (see
+    :func:`sweep_plan`)."""
     pre = 0
     if k <= SMALL_K and tiles >= 16 * PRE_SAMPLE:
         pre = min(n_split, tiles // (4 * PRE_SAMPLE),
                   PRE_UNION // (8 * SWEEP_WM[nqt]))
-    return SweepPlan(nqt, n_split, pre, pre * PRE_SAMPLE)
+    return pre, pre * PRE_SAMPLE
+
+
+@functools.lru_cache(maxsize=256)
+def slab_sweep_plan(n_q: int, c: int, k: int, n_sm: int) -> SweepPlan:
+    """The deep sweep's plan: it reads the ``(C, n_q)`` score slab through
+    a ring of TMA boxes and holds neither query fragments nor catalog
+    tiles, so its blocks are smaller than the resident ones.
+
+    Block height: 1 query tile where it holds the call's rows, else 4
+    (``SLAB_QUERY_TILES``: boxes of 32 columns, 128-byte rows), 4 warps.
+    Blocks an SM: as many as shared memory allows, at most
+    ``SLAB_MIN_BLOCKS`` (the kernels' ``__launch_bounds__``): 4 at k 1,
+    16 warps and 8 tiles of copies in flight an SM.
+    Splits: as many as fill that one wave without a second, partial one
+    (rounded down over the row blocks), at most one per tile.
+    Pre-pass: as :func:`sweep_plan`'s."""
+    fits = [t for t in SLAB_QUERY_TILES
+            if sweep_smem_bytes(t, MAX_D + 1, k) <= MAX_SMEM]
+    nqt = next((t for t in fits if 8 * t >= n_q), fits[-1])
+    per_sm = min(SLAB_MIN_BLOCKS,
+                 SM_SMEM // (sweep_smem_bytes(nqt, MAX_D + 1, k) + 1024))
+    n_qb = -(-n_q // (8 * nqt))
+    tiles = -(-c // TILE_C)
+    n_split = min(tiles, max(1, per_sm * n_sm // n_qb))
+    return SweepPlan(nqt, n_split, *_pre_pass(tiles, n_split, nqt, k))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -474,7 +522,8 @@ def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0, kcap=None):
 
 def _sweep_launch(q, y, k: int, *, valid, id_offset: int, scores=None):
     """The ``k ≤ SMALL_K`` sweep of checked inputs → ``(vals, ids)``;
-    with ``scores`` (at least ``C·n_q`` f32) the deep variant on it."""
+    with ``scores`` (at least ``C·slab_ld(n_q)`` f32) the deep variant on
+    it."""
     n_q, d = q.shape
     c = y.shape[0]
     dev = q.device
@@ -515,12 +564,14 @@ def _sweep_launch(q, y, k: int, *, valid, id_offset: int, scores=None):
 
 def _deep(q, y, k: int, *, valid, id_offset: int, kcap):
     """The deep variant of checked inputs: the queries in slabs of
-    :func:`slab_rows`, each scored into one ``(C, rows)`` workspace and
+    :func:`slab_rows`, each scored into one ``(C, slab_ld(rows))``
+    workspace (the chain reads it at a pitch of ``rows``) and
     selected from it by the sweep (``k ≤ SMALL_K``) or the chain."""
     n_q = q.shape[0]
     c = y.shape[0]
     rows = slab_rows(n_q, c)
-    scores = torch.empty(c * rows, dtype=torch.float32, device=q.device)
+    scores = torch.empty(c * slab_ld(rows), dtype=torch.float32,
+                         device=q.device)
     if k <= SMALL_K:
         parts = [_sweep_launch(q[r:r + rows], y, k, valid=valid,
                                id_offset=id_offset, scores=scores)

@@ -97,6 +97,15 @@ partial LSE): the tolerances of ``sce_gather``; its forward and dX equal
 ``sce_gather``'s bit for bit on ``y_b = y[idx]`` (the same tile walk),
 and its dY — written, not added — repeats bit for bit.
 
+The deep sweep that reads the score slab (``topk_tile.cuh`` ``FROM_S``:
+a ring of TMA boxes) at d 300 on f32 and bf16 operands, C not a
+multiple of 64 and below one tile, n not a multiple of the block, a
+window that cuts tiles, one slab and several: ``eval_fused``,
+``eval_topk`` and the deep ``mips_topk`` (k ≤ 32, a mask) equal PyTorch
+on the kernels' own slab (``eval_fused.score_slab``) bit for bit — values,
+ids, ``gt``, ``eq``, the target score —, ``(m, s)`` lie within f64
+tolerance of it, and a second launch repeats every output.
+
 ``eval_topk`` / ``eval_tgt_scores``: as ``eval_fused``, without the
 self-column rule; ``eval_tgt_scores`` is bit for bit the column
 ``eval_topk`` sweeps (``eq >= 1`` on every row whose target is valid).
@@ -1665,6 +1674,93 @@ def test_deep_eval_fused_in_several_slabs_matches_plain(dev, monkeypatch):
         assert torch.equal(a, b)
     assert torch.allclose(got[5] + torch.log(got[6]),
                           want[5] + torch.log(want[6]), rtol=1e-5, atol=0)
+
+
+def _on_slab(s, k, *, c_lo=None, c_hi=None, targets=None, tgt=None,
+             valid=None):
+    """The deep sweep's outputs computed by PyTorch from its slab ``s``
+    (C, n): the top-k by (value descending, lower id first) over the
+    valid columns (``ID_PAD`` past them), and with ``tgt`` the counts with
+    the self-column rule. ``valid`` (C,) bool, or the window."""
+    c, n = s.shape
+    gid = torch.arange(c, device=s.device)
+    if valid is None:
+        valid = (gid >= c_lo) & (gid < c_hi)
+    sv = torch.where(valid[:, None], s, torch.tensor(-1e30, device=s.device))
+    order = torch.argsort(sv.T, dim=1, descending=True, stable=True)[:, :k]
+    vals = torch.gather(sv.T, 1, order)
+    ids = torch.where(vals == -1e30, ID_PAD, order).to(torch.int32)
+    if tgt is None:
+        return vals, ids
+    self_ = gid[:, None] == targets[None, :].long()
+    gt = ((sv > tgt) & ~self_).sum(0).to(torch.int32)
+    eq = ((sv == tgt) | (self_ & valid[:, None])).sum(0).to(torch.int32)
+    return vals, ids, gt, eq
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,k,c_lo,c_hi,rows", [
+    (37, 1_000, 1, 1, 1_000, None),     # C not a multiple of 64
+    (5, 50, 3, 0, 50, None),            # C below one tile
+    (130, 3_001, 10, 70, 2_990, None),  # n not a multiple of 32, a window
+    (70, 2_000, 1, 1, 1_990, 16),       # several slabs of 16 rows
+])
+def test_deep_sweep_equals_pytorch_on_its_own_slab(dev, monkeypatch, dtype,
+                                                   n, c, k, c_lo, c_hi,
+                                                   rows):
+    """The deep sweep that reads the score slab through its ring of TMA
+    boxes: ``eval_fused`` (cap 30, the LSE), ``eval_topk`` and the deep
+    ``mips_topk`` (k ≤ 32) at d 300 give, on the slab that the kernels
+    score (``eval_fused.score_slab``: a score does not depend on its
+    slab's other rows), the values, ids, ``gt``, ``eq`` and target score
+    of PyTorch on that slab bit for bit, and ``(m, s)`` within
+    ``1e-5·max + 2e-4·|·|`` of f64 (``lse`` within 1e-5 relative); a
+    second launch repeats every output bit for bit."""
+    g = _gen(dev, n + c)
+    x = torch.randn(n, 300, generator=g, device=dev).to(dtype)
+    y = (0.5 * torch.randn(c, 300, generator=g, device=dev)).to(dtype)
+    t = torch.randint(max(0, c_lo - 3), min(c, c_hi + 3), (n,),
+                      generator=g, device=dev, dtype=torch.int32)
+    if rows is not None:
+        monkeypatch.setattr(deep, "SLAB_BYTES", 4 * c * rows)
+        assert kernel.slab_rows(n, c) == rows
+    s = eval_kernel.score_slab(x, y)
+    tgt = s[t.long(), torch.arange(n, device=dev)]
+    kw = dict(c_lo=c_lo, c_hi=c_hi, logit_softcap=30.0, with_lse=True)
+    got = ops.eval_fused(x, y, t, k, **kw)
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, ops.eval_fused(x, y, t, k, **kw)))
+    assert torch.equal(got[4].view(torch.int32), tgt.view(torch.int32))
+    want = _on_slab(s, k, c_lo=c_lo, c_hi=c_hi, targets=t, tgt=tgt)
+    for a, b in zip(got[:4], want):
+        assert torch.equal(a, b)
+    gid = torch.arange(c, device=dev)
+    ok = (gid >= c_lo) & (gid < c_hi)
+    lv = torch.where(ok[:, None], 30.0 * torch.tanh(s.double() / 30.0),
+                     -math.inf)
+    m64 = lv.amax(0)
+    s64 = torch.exp(lv - m64).sum(0)
+    for v, w in ((got[5], m64), (got[6], s64)):
+        assert ((v.double() - w).abs()
+                <= 1e-5 * w.abs().max() + 2e-4 * w.abs()).all()
+    lse = got[5].double() + torch.log(got[6].double())
+    lse64 = m64 + torch.log(s64)
+    assert ((lse - lse64).abs() <= 1e-5 * lse64.abs()).all()
+    # eval_topk: the same sweep without the self-column rule or the LSE
+    two = topk_kernel.eval_topk(x, y, tgt, k, c_lo=c_lo, c_hi=c_hi)
+    assert all(torch.equal(a, b) for a, b in zip(
+        two, topk_kernel.eval_topk(x, y, tgt, k, c_lo=c_lo, c_hi=c_hi)))
+    want = _on_slab(s, k, c_lo=c_lo, c_hi=c_hi,
+                    targets=torch.full_like(t, -1), tgt=tgt)
+    for a, b in zip(two, want):
+        assert torch.equal(a, b)
+    # the deep mips_topk at k ≤ 32 over a mask
+    valid = torch.rand(c, generator=g, device=dev) > 0.3
+    sel = kernel.mips_topk(x, y, k, valid=valid)
+    again = kernel.mips_topk(x, y, k, valid=valid)
+    assert torch.equal(sel[0], again[0]) and torch.equal(sel[1], again[1])
+    want = _on_slab(s, k, valid=valid)
+    assert torch.equal(sel[0], want[0]) and torch.equal(sel[1], want[1])
 
 
 def test_deep_kernels_repeat_bit_for_bit(dev):
