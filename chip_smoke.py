@@ -270,7 +270,33 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    the 520 tokens within ``3e-2`` of their scale (bf16; ``1e-3`` in
    f32). Last, the f32 step still driven at reduced depth (2 layers of
    26, the published widths): 2 SCE steps and 2 full-CE steps.
-19. Prints the kernels' JSON line, the card's name and power limit, and
+19. BERT4Rec at full width (``b4r_phase``): ``configs/bert4rec.py`` as
+   published — 1,000,000 items (1,000,016 rows with [MASK] and the
+   padding), d 64, L 200, 2 blocks, 2 heads, f32 — random weights from a
+   seed. First its kernels at its shapes against their plain versions
+   (phases 4, 6 and 11's tolerances), each timed with a cold L2 beside its
+   plain version, a PyTorch call and its bound: ``mips_topk`` at a
+   microbatch's two SCE selections (320 bucket centres against 25,600
+   positions at k 320 under a ≈ 15 % cloze mask, against the 10⁶ catalog
+   at k 512), at serving's bucket 512 (k 10), serve_p99 (512 × 10⁶,
+   k 100) and retrieval_cand (1 × 10⁶ gathered candidates, k 100); the
+   three ``sce_gather_plse`` launches and the dY sum at n_b 320, b_x 320,
+   b_y 512 on that selection; ``eval_fused`` / ``eval_tgt_gather`` at
+   B 256 against the catalog (k 10). Then the main path, each run's
+   counts from 0: ``train("bert4rec", cfg=…, batch=1024, steps=4,
+   sce_mode="exact")`` (train_batch's 65,536 sequences cut to 1,024, in
+   its 8 microbatches of 128, each with its cloze mask; ``mips_topk`` at
+   k 320 and 512, the three ``sce_gather_plse`` launches and the dY sum
+   once a microbatch; finite losses; median step, phases by ``mark``,
+   peak memory); phase 12's evaluation with BERT4Rec's cloze score
+   function (8 × 256 users, ranks inside the f64 band of a dense on-card
+   oracle that masks the held-out item); phase 5's server as
+   ``RetrievalServer("bert4rec")`` at buckets 8 / 32 / 512, k 10; then
+   ``make_seqrec_serve_step`` at serve_p99 (512 histories, k 100, only
+   phantom rows masked) and ``make_seqrec_retrieval_step`` at
+   retrieval_cand (1 × 10⁶ candidates, k 100), each against a dense
+   on-card oracle with the tie rule and timed by the host clock.
+20. Prints the kernels' JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``. ``mips_topk`` has
    three entries: all its main-path launches timed at serving's largest
    bucket, and its training selections (k = 320 over the positions,
@@ -288,8 +314,11 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    at B = 256). The LM path's entries (``*_lm``) carry phase 18's f32
    runs' launches (reduced depth) and its f32 times at gemma-2's shapes
    (``mips_topk`` one per selection); the ``*_lm_bf16`` entries the
-   published bf16 runs' launches and the bf16 times. Every entry must
-   have launched at least once on its main path.
+   published bf16 runs' launches and the bf16 times. The ``*_b4r``
+   entries carry phase 19's runs' launches (``mips_topk`` one per shape:
+   the two selections with the trainer's launches at that k, the server's
+   and each serve step's) and its times at BERT4Rec's shapes. Every entry
+   must have launched at least once on its main path.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. ``--json PATH`` also writes every case, time and count to PATH.
@@ -306,7 +335,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-N_PHASES = 19
+N_PHASES = 20
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_S = 3.35e12
@@ -652,16 +681,17 @@ def kernel_phase(dev):
 # ---------------------------------------------------------------------------
 def step_breakdown(server, hist, reps=20):
     """Where one serve step's time goes, per bucket: CUDA events between
-    the step's phases (tokens to the card, SASRec forward, the mips_topk
-    selection, results to the host) and the host clock around the whole
-    step. The device timeline between two events includes any wait for
-    the host to enqueue the next launch."""
+    the step's phases (tokens to the card, the encoder's forward, the
+    mips_topk selection, results to the host) and the host clock around
+    the whole step. The device timeline between two events includes any
+    wait for the host to enqueue the next launch."""
     import torch
 
     from repro_torch.eval.streaming import streaming_topk
     from repro_torch.models import sasrec
 
     cfg, params, dev = server.cfg, server.params, server.device
+    model = encoder(cfg)
     y = sasrec.loss_catalog(params, cfg)
     out = {}
     for bucket in server.router.buckets:
@@ -676,7 +706,7 @@ def step_breakdown(server, hist, reps=20):
                 ev[0].record()
                 tok = torch.from_numpy(tokens).to(dev)
                 ev[1].record()
-                x = sasrec.forward(params, cfg, tok)[:, -1].contiguous()
+                x = model.forward(params, cfg, tok)[:, -1].contiguous()
                 ev[2].record()
                 vals, ids = streaming_topk(x, y, server.top_k, c_lo=1,
                                            c_hi=cfg.n_items)
@@ -701,18 +731,27 @@ def step_breakdown(server, hist, reps=20):
     return out
 
 
-def server_phase(dev):
+def encoder(cfg):
+    """The model module whose ``forward`` encodes ``cfg``'s histories:
+    BERT4Rec's for a bidirectional config, SASRec's otherwise."""
+    from repro_torch.models import bert4rec, sasrec
+
+    return sasrec if cfg.causal else bert4rec
+
+
+def server_phase(dev, arch="sasrec-sce"):
     import numpy as np
     import torch
 
-    from repro_torch.configs.sasrec_sce import make_config
+    from repro_torch.configs import get_arch
     from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
     from repro_torch.kernels.mips_topk import mips_topk
     from repro_torch.launch.serve import RetrievalServer
     from repro_torch.models import sasrec
 
-    cfg = make_config()
-    check(cfg.catalog_loss_size == C_SERVE and cfg.n_items == N_ITEMS,
+    cfg = get_arch(arch).make_config()
+    check(arch != "sasrec-sce" or (cfg.catalog_loss_size == C_SERVE
+                                   and cfg.n_items == N_ITEMS),
           "sasrec-sce catalog changed")
     data = SequenceDataset(SeqDataConfig(
         n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=512,
@@ -722,8 +761,8 @@ def server_phase(dev):
     mips_topk.launches = 0  # the main path starts here
     t0 = time.monotonic()
     server = RetrievalServer(
-        "sasrec-sce", cfg=cfg, buckets=BUCKETS, top_k=K, queue_size=1024,
-        seed=0, device="cuda",
+        arch, cfg=cfg, buckets=BUCKETS, top_k=K, queue_size=1024,
+        seed=0, device=dev,
     )
     setup_s = time.monotonic() - t0
     warm_launches = mips_topk.launches
@@ -761,7 +800,7 @@ def server_phase(dev):
     # Dense on-card oracle, same params and tie rule.
     with torch.inference_mode():
         tok = torch.from_numpy(hist).to(dev)
-        hidden = sasrec.forward(server.params, cfg, tok)[:, -1]
+        hidden = encoder(cfg).forward(server.params, cfg, tok)[:, -1]
         y = sasrec.loss_catalog(server.params, cfg)
         raw = hidden @ y.T
         gid = torch.arange(y.shape[0], device=dev)
@@ -790,9 +829,11 @@ def server_phase(dev):
     p50 = lats[len(lats) // 2]
     p99 = lats[min(len(lats) - 1, int(len(lats) * 0.99))]
     out = {
+        "arch": arch,
         "config": {"n_items": cfg.n_items, "max_len": cfg.max_len,
                    "d_model": cfg.d_model, "n_layers": cfg.n_layers,
-                   "n_heads": cfg.n_heads, "catalog_rows": C_SERVE},
+                   "n_heads": cfg.n_heads,
+                   "catalog_rows": cfg.catalog_loss_size},
         "setup_s": setup_s, "warm_launches": warm_launches,
         "launches": launches, "serve_launches": launches - warm_launches,
         "async_requests": n_async, "waves": list(waves),
@@ -804,7 +845,8 @@ def server_phase(dev):
         "ready": health["ready"], "guard_policy": health["guard_policy"],
         "conformance": health["conformance"],
     }
-    print(f"  server: set-up {setup_s:.2f} s ({warm_launches} warm-up "
+    print(f"  server ({arch}): set-up {setup_s:.2f} s ({warm_launches} "
+          f"warm-up "
           f"launches); {n_async} async requests in waves {waves}: "
           f"{out['async_req_s']:.1f} req/s, p50 {p50:.3f} ms, p99 "
           f"{p99:.3f} ms (n={n_async}, p99 = max); bulk 512 in "
@@ -1866,30 +1908,54 @@ def eval_kernel_phase(dev):
 N_EVAL_BATCHES = 8
 
 
-def eval_phase(dev):
+def dense_cloze_scores(params, cfg, batch):
+    """BERT4Rec's dense leave-one-out oracle (``core/metrics.py``'s
+    ``dense_scores`` is SASRec's): keep the sequences with at least 2
+    real items, put [MASK] on the held-out last item, and score the whole
+    catalog ``Y (n_items, d)`` at that position; the padding id 0 scores
+    ``-inf``. → ``(scores (B', n_items), host targets)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import bert4rec
+
+    tokens = np.asarray(batch["tokens"])
+    tokens = tokens[(tokens != 0).sum(axis=1) >= 2]
+    targets = tokens[:, -1].copy()
+    masked = tokens.copy()
+    masked[:, -1] = bert4rec.mask_token_id(cfg)
+    dev = params["item_emb"].device
+    with torch.no_grad():
+        hidden = bert4rec.forward(params, cfg,
+                                  torch.from_numpy(masked).to(dev))
+        scores = hidden[:, -1] @ bert4rec.item_embeddings(params, cfg).T
+    scores[:, 0] = -torch.inf
+    return scores, targets
+
+
+def eval_phase(dev, arch="sasrec-sce"):
     import statistics
 
     import numpy as np
     import torch
 
-    from repro_torch.configs.sasrec_sce import make_config
+    from repro_torch.configs import get_arch
     from repro_torch.core import metrics
     from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
     from repro_torch.eval import (
         MetricAccumulator,
+        default_score_fn,
         evaluate_streaming,
         ranks_from_counts,
-        sasrec_score_fn,
         streaming_eval_scores,
     )
     from repro_torch.eval.harness import _keep_and_targets
     from repro_torch.kernels import eval_fused as ek
     from repro_torch.kernels.mips_topk import sweep_plan
-    from repro_torch.models import sasrec
 
-    cfg = make_config()
+    cfg = get_arch(arch).make_config()
     b = EVAL_B[1]
-    params = sasrec.init_params(cfg, seed=0, device=dev)
+    params = encoder(cfg).init_params(cfg, seed=0, device=dev)
     data = SequenceDataset(SeqDataConfig(
         n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=b,
     ))
@@ -1921,11 +1987,13 @@ def eval_phase(dev):
 
     # The dense on-card oracle, and both sets of ranks against the band.
     dense_acc = MetricAccumulator(KS, cfg.n_items)
-    score_fn = sasrec_score_fn(cfg)
+    score_fn = default_score_fn(cfg)
+    dense_scores = (metrics.dense_scores if cfg.causal
+                    else dense_cloze_scores)
     n_amb = n_users = n_same = 0
     tols = []
     for batch in batches:
-        scores, tg = metrics.dense_scores(params, cfg, batch)
+        scores, tg = dense_scores(params, cfg, batch)
         dense_rank = metrics.rank_of_target(scores, tg)
         top = torch.sort(scores, dim=1, descending=True,
                          stable=True).indices[:, :max(KS)]
@@ -1968,7 +2036,7 @@ def eval_phase(dev):
                     torch.cuda.get_device_properties(dev)
                     .multi_processor_count)
     scratch_bytes = b * pl.n_split * (8 * max(KS) + 8) + 4 * b
-    print(f"  evaluation: {N_EVAL_BATCHES} batches of {b} users × L "
+    print(f"  evaluation ({arch}): {N_EVAL_BATCHES} batches of {b} users × L "
           f"{cfg.max_len}, C {cfg.catalog_loss_size}, in {wall_s:.3f} s "
           f"({n_users} users, {n_users / wall_s:.0f} users/s, host clock); "
           f"launches {launches}; {n_amb} ranks the f64 band leaves open "
@@ -1979,12 +2047,13 @@ def eval_phase(dev):
         print(f"  {key:8s} {streamed[key]:.6f}  {dense[key]:.6f}")
     print(f"  peak device memory of the streaming evaluation: "
           f"{(peak - live) / 2**20:.1f} MiB above the {live / 2**20:.1f} MiB "
-          f"live before it (torch.cuda.max_memory_allocated; the SASRec "
+          f"live before it (torch.cuda.max_memory_allocated; the "
           f"forward's activations included); eval_fused's split scratch "
           f"B·S·(8k + 8) + 4·B B = {scratch_bytes / 2**20:.2f} MiB (S = "
           f"{pl.n_split}); dense scores B·C·4 B = {dense_bytes / 2**20:.1f} "
           f"MiB per batch")
-    return {"batches": N_EVAL_BATCHES, "batch": b, "users": n_users,
+    return {"arch": arch, "batches": N_EVAL_BATCHES, "batch": b,
+            "users": n_users,
             "wall_s": wall_s, "launches": launches, "streamed": streamed,
             "dense": dense, "ambiguous_ranks": n_amb,
             "ranks_equal_to_dense": n_same, "scratch_bytes": scratch_bytes,
@@ -4398,6 +4467,378 @@ def lm_phase(dev):
             "full_ce_f32": full_ce32}
 
 
+# ---------------------------------------------------------------------------
+# BERT4Rec at full width
+# ---------------------------------------------------------------------------
+B4R_BATCH = 1024  # train_batch's 65,536 sequences cut to one card
+B4R_MICRO = 8  # train_batch's microbatches: 128 sequences each
+B4R_STEPS = 4
+B4R_POS = B4R_BATCH // B4R_MICRO * 200  # 25,600 positions a microbatch
+B4R_N_B, B4R_B_X, B4R_B_Y = 320, 320, 512  # build_sce_config(25,600, 10⁶)
+B4R_TOP_K = 100  # serve_p99's and retrieval_cand's top-k (the steps' own)
+B4R_SERVE = 512  # serve_p99's histories
+B4R_PHASES = (("h2d",) + ("forward", "select", "loss_forward", "backward")
+              * B4R_MICRO + ("optimizer",))
+# The kernels line's BERT4Rec entries: (name, the TPU kernel it replaces,
+# the timing of the kernel phase it carries).
+B4R_MIPS = ("positions_k320", "catalog_k512", "serve_b512_k10",
+            "serve_p99_k100", "retrieval_k100")
+
+
+def b4r_config():
+    """bert4rec as published (``configs/bert4rec.py``): 10⁶ items, d 64,
+    L 200, 2 blocks, 2 heads, f32."""
+    from repro_torch.configs.bert4rec import make_config
+
+    cfg = make_config()
+    check((cfg.n_items, cfg.catalog_loss_size, cfg.n_rows, cfg.d_model,
+           cfg.max_len, cfg.n_layers, cfg.n_heads, cfg.causal)
+          == (1_000_000, 1_000_000, 1_000_016, D, 200, 2, 2, False),
+          f"bert4rec's published config changed: {cfg}")
+    return cfg
+
+
+def b4r_kernel_phase(dev, cfg):
+    """BERT4Rec's kernels alone at its shapes against their plain
+    versions, each timed with a cold L2 beside its plain version, a
+    PyTorch call of its function and its bound: ``mips_topk`` at the two
+    SCE selections of a microbatch (320 bucket centres against 25,600
+    positions at k 320 under a cloze mask of ≈ 15 % valid, and against
+    the 10⁶ catalog rows at k 512), at serving's bucket 512 (k 10, window
+    [1, 10⁶)), at serve_p99 (512 × 10⁶, k 100, window [0, 10⁶)) and at
+    retrieval_cand (1 × 10⁶ gathered candidates, k 100); the three
+    ``sce_gather_plse`` launches and the dY sum at n_b 320, b_x 320,
+    b_y 512, d 64 on that selection; ``eval_fused`` / ``eval_tgt_gather``
+    at B 256 against the catalog (k 10). Phase 6's and 11's tolerances."""
+    import torch
+
+    from repro_torch.core import sce
+    from repro_torch.kernels import eval_fused as ek
+    from repro_torch.kernels import ref, sce_prefetch
+    from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.kernels.ref import mips_topk_ref
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    c = cfg.catalog_loss_size
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    x = randn(B4R_POS, D)  # one microbatch's hidden states
+    y = randn(c, D, scale=0.02)  # the catalog at its init scale
+    valid = torch.rand(B4R_POS, generator=g, device=dev) < 0.15  # cloze
+    targets = torch.randint(1, cfg.n_items, (B4R_POS,), generator=g,
+                            device=dev, dtype=torch.int32)
+    scfg = sce.SCEConfig.from_alpha_beta(B4R_POS, cfg.n_items,
+                                         bucket_size_y=B4R_B_Y,
+                                         use_kernel=True)
+    check((scfg.n_buckets, scfg.bucket_size_x, scfg.bucket_size_y)
+          == (B4R_N_B, B4R_B_X, B4R_B_Y), f"BERT4Rec's SCE shape {scfg}")
+    b = sce.make_bucket_centers(x, B4R_N_B, use_mix=True, valid_mask=valid,
+                                generator=g)
+    gid = torch.arange(c, device=dev)
+    serve_q = randn(B4R_SERVE, D)
+    cand = torch.randperm(c, generator=g, device=dev)
+    mips_inputs = {  # name: (q, catalog, k, valid)
+        "positions_k320": (b, x, B4R_B_X, valid),
+        "catalog_k512": (b, y, B4R_B_Y, None),
+        "serve_b512_k10": (serve_q, y, K, (gid >= 1) & (gid < cfg.n_items)),
+        "serve_p99_k100": (serve_q, y, B4R_TOP_K, gid < cfg.n_items),
+        "retrieval_k100": (serve_q[:1], y[cand], B4R_TOP_K, None),
+    }
+    cases = [run_case(f"b4r_{name}", q, cat, k, valid=vm)
+             for name, (q, cat, k, vm) in mips_inputs.items()]
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    timings = {}
+    for (name, (q, cat, k, vm)), case in zip(mips_inputs.items(), cases):
+        def library(q=q, cat=cat, k=k, vm=vm):
+            s_ = torch.matmul(q, cat.T)
+            if vm is not None:
+                s_ = torch.where(vm[None, :], s_, NEG_INF)
+            return torch.topk(s_, k)
+
+        bd, by = bound_ms(q.shape[0], cat.shape[0], D, k,
+                          valid=vm is not None)
+        timings[f"mips_topk_{name}"] = {
+            "ms": time_ms(lambda: mips_topk(q, cat, k, valid=vm), 20, flush),
+            "plain_ms": time_ms(lambda: mips_topk_ref(q, cat, k, valid=vm),
+                                1, flush),
+            "library_ms": time_ms(library, 20, flush),
+            "bound_ms": bd, "bound_by": by,
+            "max_abs_err": case["max_abs_err"]}
+
+    # The partial LSE of the exact mode on the (1, 1) mesh (every
+    # candidate owned) on that selection, and the gathered dY's sum.
+    idx_x, idx_y = sce.select_buckets(b, x, y, scfg, valid_mask=valid)
+    x_b = x[idx_x.long()].contiguous()
+    tgt_b = targets[idx_x.long()]
+    pcase = plse_case("b4r_plse", x_b, y, idx_y, tgt_b, idx_y)
+    pargs = (x_b, y, idx_y, tgt_b, idx_y)
+    g_up = torch.rand(x_b.shape[:2], generator=g, device=dev)
+    plse = sce_prefetch.sce_gather_plse_fwd(*pargs)
+    leaves = [t.clone().requires_grad_(True) for t in (x_b, y)]
+    out = (ref.sce_gather_plse_ref(leaves[0], leaves[1], *pargs[2:])
+           * g_up).sum()
+    y_b = y[idx_y.long()]
+    hide = (idx_y[:, None, :] < 0) | (idx_y[:, None, :] == tgt_b[:, :, None])
+    bias = torch.where(hide, NEG_INF, 0.0)
+    probs = torch.rand(B4R_N_B, B4R_B_X, B4R_B_Y, generator=g, device=dev)
+    ws = torch.empty(B4R_N_B * B4R_B_Y, D, device=dev)
+
+    def dy_kernel():  # the dY kernel alone, into the workspace
+        sce_prefetch._launch(
+            "sce_gather_dy_launch",
+            (x_b, y, idx_y, tgt_b, idx_y, plse, g_up, ws, 0.0),
+            (B4R_N_B, B4R_B_X, B4R_B_Y, c, D), dev)
+        return ws
+
+    def dy_plain():
+        p = torch.where(hide, 0.0, torch.exp(torch.bmm(
+            x_b, y_b.transpose(1, 2)) - plse[..., None]) * g_up[..., None])
+        return torch.bmm(p.transpose(1, 2), x_b).reshape(-1, D)
+
+    dy_kernel()
+    keys, order = sce_prefetch.dy_sum_keys(idx_y, idx_y, c)
+    dyz = torch.zeros_like(y)
+    got = sce_prefetch.sce_gather_dy_sum(ws, keys, order, dyz)
+    want = sce_prefetch.dy_sum_plain(ws, idx_y, idx_y, c)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    check(bool((err <= 1e-5 * want.abs().max() + 2e-4 * want.abs()).all()),
+          f"b4r sce_gather_dy_sum differs by {err.max().item():.3e}")
+    sum_err = err.max().item()
+    lib_c = torch.zeros_like(y)
+    runs = {
+        "sce_gather_plse_fwd": (
+            lambda: sce_prefetch.sce_gather_plse_fwd(*pargs),
+            lambda: ref.sce_gather_plse_ref(*pargs),
+            lambda: torch.logsumexp(torch.baddbmm(
+                bias, x_b, y_b.transpose(1, 2)), dim=-1)),
+        "sce_gather_plse_dx": (
+            lambda: sce_prefetch.sce_gather_plse_dx(*pargs, plse, g_up),
+            lambda: torch.autograd.grad(out, leaves[0], retain_graph=True),
+            lambda: torch.bmm(probs, y_b)),
+        "sce_gather_plse_dy": (dy_kernel, dy_plain,
+                               lambda: torch.bmm(probs.transpose(1, 2),
+                                                 x_b)),
+        "sce_gather_dy_sum": (
+            lambda: sce_prefetch.sce_gather_dy_sum(ws, keys, order, dyz),
+            lambda: sce_prefetch.dy_sum_plain(ws, idx_y, idx_y, c),
+            lambda: lib_c.index_add_(0, idx_y.reshape(-1).long(), ws)),
+    }
+    bounds = plse_bounds(*pargs)
+    bounds["sce_gather_dy_sum"] = dy_sum_bound(idx_y, idx_y, D)
+    errs = {"sce_gather_plse_fwd": pcase["max_abs_err"]["plse"],
+            "sce_gather_plse_dx": pcase["max_abs_err"]["dx"],
+            "sce_gather_plse_dy": pcase["max_abs_err"]["dy"],
+            "sce_gather_dy_sum": sum_err}
+    with torch.no_grad():
+        for name, (kern, plain, lib) in runs.items():
+            timings[name] = {"ms": time_ms(kern, 20, flush),
+                             "plain_ms": time_ms(plain, 3, flush),
+                             "library_ms": time_ms(lib, 20, flush),
+                             "max_abs_err": errs[name],
+                             **bound_keys(bounds[name])}
+
+    # The evaluation's sweep: 256 users against the catalog, 8 targets
+    # planted at the top of their rows.
+    xe = randn(EVAL_B[1], D)
+    te = torch.randint(1, cfg.n_items, (EVAL_B[1],), generator=g,
+                       device=dev, dtype=torch.int32)
+    ye = y.clone()
+    ye[te[:8].long()] = 0.05 * xe[:8]
+    window = dict(c_lo=1, c_hi=cfg.n_items)
+    ecase = eval_case("b4r_eval_b256", xe, ye, te, K, **window)
+    tgt = ek.eval_tgt_gather(xe, ye, te)
+    wmask = (gid >= 1) & (gid < cfg.n_items)
+
+    def fused_library():
+        s_ = torch.where(wmask[None, :], torch.matmul(xe, ye.T), NEG_INF)
+        return (torch.topk(s_, K), (s_ > tgt[:, None]).sum(1),
+                (s_ == tgt[:, None]).sum(1))
+
+    bf, bg = eval_bounds(EVAL_B[1], c, D, K, int(torch.unique(te).numel()))
+    for name, kern, plain, lib, bound, err in (
+            ("eval_fused",
+             lambda: ek.eval_fused(xe, ye, te, K, tgt_scores=tgt, **window),
+             lambda: ref.eval_fused_ref(xe, ye, te, K, tgt_scores=tgt,
+                                        **window),
+             fused_library, bf, ecase["max_abs_err"]),
+            ("eval_tgt_gather", lambda: ek.eval_tgt_gather(xe, ye, te),
+             lambda: ref.eval_tgt_gather_ref(xe, ye, te),
+             lambda: (xe * ye[te.long()]).sum(-1), bg, ecase["tgt_err"])):
+        timings[name] = {"ms": time_ms(kern, 20, flush),
+                         "plain_ms": time_ms(plain, 2, flush),
+                         "library_ms": time_ms(lib, 20, flush),
+                         "bound_ms": bound[0], "bound_by": bound[1],
+                         "max_abs_err": err}
+    for name, t in timings.items():
+        print(f"  time {name} (BERT4Rec): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms, "
+              f"bound {bound_text(t)}")
+    return {"cases": cases, "plse_case": pcase, "eval_case": ecase,
+            "dy_sum_max_abs_err": sum_err, "timings": timings}
+
+
+def b4r_train_phase(dev, cfg):
+    """``train("bert4rec", cfg=…, batch=1024, steps=4, sce_mode="exact")``
+    at full width under the guard's ``warn``: train_batch's 8
+    microbatches of 128 sequences, each with its cloze mask, SCE (n_b
+    320, b_x 320, b_y 512) through ``mips_topk`` at k 320 and 512 and
+    ``sce_gather_plse`` with the dY sum, once a microbatch; guarded AdamW.
+    The launch counts from 0 around the run, its median step and phases
+    (``mark``), and the peak memory."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import eval_fused, sce_prefetch
+    from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.launch.train import train
+
+    counters = (mips_topk, *(getattr(sce_prefetch, n) for n in GATHER + PLSE),
+                sce_prefetch.sce_gather_dy_sum, eval_fused.eval_fused,
+                eval_fused.eval_tgt_gather)
+    marks = StepMarks(B4R_PHASES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters:  # the BERT4Rec main path starts here
+        fn.launches = 0
+    mips_topk.launches_by_k.clear()
+    t0 = time.monotonic()
+    out = train("bert4rec", cfg=cfg, batch=B4R_BATCH, steps=B4R_STEPS,
+                seed=0, sce_mode="exact", log_every=1, device=dev,
+                guard_policy="warn", mark=marks)
+    wall_s = time.monotonic() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}  # ... ends here
+    by_k = dict(mips_topk.launches_by_k)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = out["losses"]
+    n_mb = B4R_STEPS * B4R_MICRO
+    check(len(losses) == B4R_STEPS and all(math.isfinite(v) for v in losses),
+          f"BERT4Rec losses {losses}")
+    check(out["skipped_steps"] == 0, f"{out['skipped_steps']} steps skipped")
+    check(by_k == {B4R_B_X: n_mb, B4R_B_Y: n_mb},
+          f"mips_topk by k {by_k}, not {B4R_B_X} and {B4R_B_Y} {n_mb} "
+          f"times each")
+    for name in PLSE + ("sce_gather_dy_sum",):
+        check(launches[name] == n_mb,
+              f"{name} launched {launches[name]} times, not {n_mb}")
+    for name in GATHER + ("eval_fused", "eval_tgt_gather"):
+        check(launches[name] == 0, f"{name} launched in the BERT4Rec steps")
+    median_ms = statistics.median(out["step_s"][1:]) * 1e3
+    bd = marks.breakdown()
+    print(f"  bert4rec ({cfg.n_items:,} items, d {cfg.d_model}, L "
+          f"{cfg.max_len}, {cfg.n_layers} blocks, {cfg.n_heads} heads, "
+          f"{cfg.dtype}): {B4R_STEPS} steps of {B4R_BATCH} sequences in "
+          f"{B4R_MICRO} microbatches in {wall_s:.2f} s (set-up included); "
+          f"loss {' → '.join(f'{v:.4f}' for v in losses)}; median step "
+          f"{median_ms:.1f} ms (host clock, steps 2–{B4R_STEPS}); launches "
+          f"{launches}, mips_topk by k {by_k}")
+    total = sum(bd.values())
+    print("  step breakdown: " + " + ".join(
+        f"{p} {bd[p + '_ms']:.2f}" for p in dict.fromkeys(B4R_PHASES))
+        + f" = {total:.2f} ms (device events, all {B4R_MICRO} microbatches,"
+        f" mean of steps 2–{B4R_STEPS})")
+    print(f"  peak device memory of the run: {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated; {live / 2**30:.2f} GiB live before)")
+    return {"losses": losses, "step_s": out["step_s"], "wall_s": wall_s,
+            "median_step_ms": median_ms, "breakdown": bd,
+            "launches": launches, "mips_topk_launches_by_k": by_k,
+            "peak_bytes": peak, "live_bytes_before": live}
+
+
+def b4r_serve_steps_phase(dev, cfg):
+    """``make_seqrec_serve_step`` at serve_p99 (512 histories, k 100, only
+    the phantom rows masked) and ``make_seqrec_retrieval_step`` at
+    retrieval_cand (1 history against the 10⁶ catalog ids in a random
+    order, k 100: positions back) on random weights, each held against
+    a dense on-card oracle with the tie rule (values within
+    ``1e-4·max|score|``, ids where the gap is above it) and timed by the
+    host clock; ``mips_topk``'s launches counted from 0 around each."""
+    import torch
+
+    from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+    from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.launch.steps import (make_seqrec_retrieval_step,
+                                          make_seqrec_serve_step)
+    from repro_torch.models import bert4rec
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = bert4rec.init_params(cfg, seed=0, device=dev)
+    hist = SequenceDataset(SeqDataConfig(
+        n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=B4R_SERVE,
+    )).next_batch(Cursor(seed=1))[0]["tokens"]
+    tok = torch.from_numpy(hist).to(dev)
+    cand = torch.randperm(cfg.catalog_loss_size,
+                          generator=torch.Generator().manual_seed(2)).to(
+        device=dev, dtype=torch.int32)
+    y = bert4rec.item_embeddings(params, cfg)  # = the loss catalog here
+    out = {}
+    for name, step, args in (
+            ("serve_p99", make_seqrec_serve_step(cfg), (tok,)),
+            ("retrieval_cand", make_seqrec_retrieval_step(cfg),
+             (tok[:1], cand))):
+        mips_topk.launches = 0  # this step's path starts here
+        vals, ids = step(params, *args)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step(params, *args)[1].cpu()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = mips_topk.launches  # ... ends here
+        check(launches == 6, f"{name}: mips_topk launched {launches} times "
+              f"in 6 calls")
+        with torch.inference_mode():
+            x = bert4rec.forward(params, cfg, args[0])[:, -1]
+            rows = y if name == "serve_p99" else y[cand.long()]
+            raw = x @ rows.T
+            want_v, want_i = dense_topk(raw, B4R_TOP_K + 1)
+        scale = raw.abs().max().item()
+        tol = 1e-4 * scale
+        err = compare((vals, ids), (want_v[:, :B4R_TOP_K],
+                                    want_i[:, :B4R_TOP_K]),
+                      want_v[:, B4R_TOP_K], tol, exact=False)
+        check(bool(((ids >= 0) & (ids < rows.shape[0])).all()),
+              f"{name}: an id outside [0, {rows.shape[0]})")
+        ms.sort()
+        out[name] = {"n_q": int(args[0].shape[0]), "k": B4R_TOP_K,
+                     "candidates": rows.shape[0], "launches": launches,
+                     "oracle_max_abs_err": err, "oracle_tol": tol,
+                     "ms": ms, "median_ms": ms[len(ms) // 2]}
+        print(f"  {name}: {args[0].shape[0]} × {rows.shape[0]:,}, k "
+              f"{B4R_TOP_K}: median {out[name]['median_ms']:.3f} ms a call "
+              f"(host clock to the ids on the host, of 5: "
+              f"{', '.join(f'{t:.3f}' for t in ms)}); oracle max err "
+              f"{err:.3e} (tol {tol:.3e}), ids equal where isolated; "
+              f"mips_topk launches {launches}")
+    return out
+
+
+def b4r_phase(dev):
+    """Phase 19: BERT4Rec as published (10⁶ items): its kernels at its
+    shapes, then the main path — SCE training, the cloze evaluation,
+    ``RetrievalServer("bert4rec")`` and the serve and retrieval steps."""
+    import torch
+
+    cfg = b4r_config()
+    kern = b4r_kernel_phase(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = b4r_train_phase(dev, cfg)
+    evaluation = eval_phase(dev, "bert4rec")
+    server = server_phase(dev, "bert4rec")
+    steps_ = b4r_serve_steps_phase(dev, cfg)
+    print(f"  card: {smi()}")
+    return {"kernels": kern, "train": trained, "eval": evaluation,
+            "server": server, "serve_steps": steps_}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=Path, default=None,
@@ -4477,6 +4918,9 @@ def main() -> int:
     phase(18, "the LM path at full width: gemma-2-2b trains with SCE, is "
               "evaluated by token rank and decodes")
     lm = lm_phase(dev)
+    phase(19, "BERT4Rec at full width: 10⁶ items, trained with SCE, "
+              "evaluated by cloze leave-one-out, served")
+    b4r = b4r_phase(dev)
 
     t = timings[512]  # the serve_p99 bucket
     mips = {"route": "cuda",
@@ -4707,6 +5151,49 @@ def main() -> int:
         "launches": bf_launch["sce_gather_dy_sum"],
         **{k: tt[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}})
+    # BERT4Rec (phase 19): its kernels at its shapes, with the launches of
+    # its own main-path runs (training, evaluation, the server, the serve
+    # and retrieval steps), each counted from 0 around the run.
+    bk = b4r["kernels"]["timings"]
+    b_by_k = b4r["train"]["mips_topk_launches_by_k"]
+    b_launch = b4r["train"]["launches"]
+    b_steps = b4r["serve_steps"]
+    for name, timing, src, replaces, launches in (
+            ("mips_topk_b4r_positions_k320", "mips_topk_positions_k320",
+             "mips_topk.cu", "mips_topk.py:52", b_by_k.get(B4R_B_X, 0)),
+            ("mips_topk_b4r_catalog_k512", "mips_topk_catalog_k512",
+             "mips_topk.cu", "mips_topk.py:52", b_by_k.get(B4R_B_Y, 0)),
+            ("mips_topk_b4r_serve_b512_k10", "mips_topk_serve_b512_k10",
+             "mips_topk.cu", "mips_topk.py:52", b4r["server"]["launches"]),
+            ("mips_topk_b4r_serve_p99_k100", "mips_topk_serve_p99_k100",
+             "mips_topk.cu", "mips_topk.py:52",
+             b_steps["serve_p99"]["launches"]),
+            ("mips_topk_b4r_retrieval_k100", "mips_topk_retrieval_k100",
+             "mips_topk.cu", "mips_topk.py:52",
+             b_steps["retrieval_cand"]["launches"]),
+            ("sce_gather_plse_fwd_b4r", "sce_gather_plse_fwd",
+             "sce_gather.cu", "sce_prefetch.py:497",
+             b_launch["sce_gather_plse_fwd"]),
+            ("sce_gather_plse_dx_b4r", "sce_gather_plse_dx",
+             "sce_gather.cu", "sce_prefetch.py:497",
+             b_launch["sce_gather_plse_dx"]),
+            ("sce_gather_plse_dy_b4r", "sce_gather_plse_dy",
+             "sce_gather.cu", "sce_prefetch.py:497",
+             b_launch["sce_gather_plse_dy"]),
+            ("sce_gather_dy_sum_b4r", "sce_gather_dy_sum", "sce_gather.cu",
+             "sce_prefetch.py:250", b_launch["sce_gather_dy_sum"]),
+            ("eval_fused_b4r", "eval_fused", "eval_fused.cu",
+             "eval_fused.py:104", b4r["eval"]["launches"]["eval_fused"]),
+            ("eval_tgt_gather_b4r", "eval_tgt_gather", "eval_fused.cu",
+             "eval_fused.py:82", b4r["eval"]["launches"]["eval_tgt_gather"])):
+        tt = bk[timing]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": launches,
+            **{k: tt[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}})
     missing = [k["name"] for k in kernels if k["launches"] < 1]
     check(not missing, f"kernels of a main path launched no time: {missing}")
     if args.json is not None:
@@ -4725,7 +5212,7 @@ def main() -> int:
             "conformance": conformance, "trainer_exact_guard_off": exact_off,
             "bucket_cases": bcases, "two_pass_cases": tkcases,
             "guard_timings": gtimes, "drills": drills, "checkpoints": ckpt,
-            "lm": lm, "kernels": kernels,
+            "lm": lm, "bert4rec": b4r, "kernels": kernels,
         }, indent=1))
     print(f"[{N_PHASES}/{N_PHASES}] summary")
     print(json.dumps({"kernels": kernels}))

@@ -58,7 +58,8 @@ def register(spec: ArchSpec) -> ArchSpec:
 
 
 # The MoE archs (kimi_k2, granite_moe) wait for models/moe.py.
-_ARCH_MODULES = ["deepseek_coder_33b", "yi_6b", "gemma2_2b", "sasrec_sce"]
+_ARCH_MODULES = ["deepseek_coder_33b", "yi_6b", "gemma2_2b", "bert4rec",
+                 "sasrec_sce"]
 
 
 def _load_all() -> None:
@@ -67,7 +68,7 @@ def _load_all() -> None:
 
 
 def get_arch(name: str) -> ArchSpec:
-    if not _REGISTRY:
+    if name not in _REGISTRY:  # one arch module may be imported already
         _load_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
@@ -75,8 +76,7 @@ def get_arch(name: str) -> ArchSpec:
 
 
 def list_archs() -> Tuple[str, ...]:
-    if not _REGISTRY:
-        _load_all()
+    _load_all()
     return tuple(_REGISTRY)
 
 
@@ -97,5 +97,21 @@ def lm_shapes(*, long_ctx_skip: Optional[str]) -> Tuple[ShapeSpec, ...]:
             "decode",
             {"seq_len": 524288, "global_batch": 1},
             skip=long_ctx_skip,
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# The recsys shapes (BERT4Rec's)
+# ---------------------------------------------------------------------------
+def recsys_shapes() -> Tuple[ShapeSpec, ...]:
+    return (
+        ShapeSpec("train_batch", "train", {"batch": 65536}),
+        ShapeSpec("serve_p99", "serve", {"batch": 512}),
+        ShapeSpec("serve_bulk", "serve", {"batch": 262144}),
+        ShapeSpec(
+            "retrieval_cand",
+            "retrieval",
+            {"batch": 1, "n_candidates": 1_000_000},
         ),
     )

@@ -6,13 +6,15 @@ protocol.
   ``streaming`` — the scorer front end (one ``eval_fused`` sweep), the
       serving top-k, the metric accumulator and the memory models.
   ``harness``   — the leave-one-out entry point ``evaluate_streaming`` over a
-      ``score_fn`` (SASRec), and ``evaluate_streaming_lm`` (every
-      next-token position of a transformer LM), single-device.
+      ``score_fn`` (SASRec, BERT4Rec's Cloze), and
+      ``evaluate_streaming_lm`` (every next-token position of a
+      transformer LM), single-device.
 
 ``core.metrics`` (dense ``(B, C)`` scores) is the oracle the tests and
 ``chip_smoke.py`` hold this package against.
 """
 from repro_torch.eval.harness import (
+    bert4rec_score_fn,
     default_score_fn,
     evaluate_streaming,
     evaluate_streaming_lm,
@@ -34,6 +36,7 @@ from repro_torch.eval.streaming import (
 __all__ = [
     "MetricAccumulator",
     "TokenRankAccumulator",
+    "bert4rec_score_fn",
     "default_score_fn",
     "dense_eval_elements",
     "eval_peak_elements",

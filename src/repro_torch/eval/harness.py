@@ -1,5 +1,5 @@
-"""Leave-one-out streaming evaluation (port of the single-device,
-SASRec part of ``repro/eval/harness.py``).
+"""Leave-one-out streaming evaluation (port of the single-device part
+of ``repro/eval/harness.py``).
 
 The same protocol and metrics as the dense oracle
 ``core/metrics.py::evaluate_seqrec``, scored through
@@ -13,14 +13,16 @@ right-aligned eval sequences with the held-out target still in the last
 column, ``states`` the ``(B, d)`` contiguous user states at the scoring
 position and ``catalog`` the shard-even ``(C_pad, d)`` item table
 (``loss_catalog``; the phantom rows are masked by id window).
+``sasrec_score_fn`` hides the target and re-right-aligns;
+``bert4rec_score_fn`` replaces it with [MASK] (the Cloze protocol).
 
 The LM's held-out token-rank protocol (:func:`evaluate_streaming_lm`)
 scores every next-token position against the vocabulary through the
 same sweep (``lm_score_fn``), with the online LSE for the next-token
 loss.
 
-Left out, with their ROADMAP.md queue: the sharded path (``mesh=``,
-queue 14) and BERT4Rec's cloze score function (queue 1 item 13).
+Left out, with its ROADMAP.md queue: the sharded path (``mesh=``,
+queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -56,15 +58,24 @@ def sasrec_score_fn(cfg) -> ScoreFn:
     return fn
 
 
+def bert4rec_score_fn(cfg) -> ScoreFn:
+    """Cloze leave-one-out: replace the held-out item with [MASK] and
+    score that position (the Sun et al. 2019 eval protocol)."""
+    from repro_torch.models import bert4rec as b4r
+    from repro_torch.models import sasrec
+
+    def fn(params, tokens):
+        masked = tokens.clone()
+        masked[:, -1] = b4r.mask_token_id(cfg)
+        hidden = b4r.forward(params, cfg, masked)
+        return hidden[:, -1].contiguous(), sasrec.loss_catalog(params, cfg)
+
+    return fn
+
+
 def default_score_fn(cfg) -> ScoreFn:
-    """SASRec for causal configs; BERT4Rec's cloze protocol is not
-    ported."""
-    if not cfg.causal:
-        raise NotImplementedError(
-            "bert4rec_score_fn (non-causal configs) is not ported: "
-            "ROADMAP.md queue 1 item 13"
-        )
-    return sasrec_score_fn(cfg)
+    """SASRec for causal configs, BERT4Rec otherwise."""
+    return sasrec_score_fn(cfg) if cfg.causal else bert4rec_score_fn(cfg)
 
 
 def _keep_and_targets(tokens: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -38,6 +38,7 @@ from repro_torch.kernels import mips_topk as _mips_topk
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sce_bucket as _sce_bucket
 from repro_torch.kernels import sce_prefetch as _sce_prefetch
+from repro_torch.kernels.topk_merge import merge_fn
 
 _TWO_PASS_DEPRECATION = (
     "the two-pass eval scorer ({name}) is deprecated as a production "
@@ -121,14 +122,23 @@ def sce_bucket_plse(x_b, y_b, tgt_b, cand_ids, *, logit_softcap=None):
     return _sce_bucket.sce_bucket_plse(*args, logit_softcap=logit_softcap)
 
 
-def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0, kcap=None):
+def mips_topk(q, y, k: int, *, valid=None, id_offset: int = 0, kcap=None,
+              merge_impl: str = "rounds"):
     """Per-row top-``k`` of ``q @ yᵀ`` → ``(vals (n_q, k) f32, ids
     (n_q, k) int32)``; ``k`` clamped to ``C``, ties to the lower id,
     ``ID_PAD`` on starved slots. ``kcap`` sizes the card's ``k > 32``
-    collect buffer (no effect on the result, nor on the CPU). See
-    ``kernels/mips_topk.py``."""
+    collect buffer (no effect on the result, nor on the CPU).
+
+    ``merge_impl`` (``"rounds"`` or ``"bitonic"``, else ``ValueError``)
+    picks the tile merge the CPU's plain version streams its tiles
+    through (``topk_merge.merge_fn``). On the card the kernel keeps its
+    own merge: the reference's contract makes both merges' outputs
+    identical (values, ids, tie order, ``ID_PAD``), so the kernel's
+    output is that of either. See ``kernels/mips_topk.py``."""
+    merge_fn(merge_impl)  # validates the name on every device
     if _device_kind("mips_topk", q, y) == "cpu":
-        return _ref.mips_topk_ref(q, y, k, valid=valid, id_offset=id_offset)
+        return _ref.mips_topk_ref(q, y, k, valid=valid, id_offset=id_offset,
+                                  merge_impl=merge_impl)
     kk = min(k, y.shape[0])
     _gate("mips_topk", q, rows=q.shape[0], cols=y.shape[0], d=q.shape[-1],
           k=kk, smem=_sweep_smem(q, y, kk, _mips_topk.planned_smem))

@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch import take_rows
-from repro_torch.kernels.topk_merge import ID_PAD, NEG_INF, merge_topk_tile
+from repro_torch.kernels.topk_merge import (ID_PAD, NEG_INF, merge_fn,
+                                            merge_topk_tile)
 
 
 class _RoundCotangent(torch.autograd.Function):
@@ -110,17 +111,20 @@ def sce_gather_plse_ref(x_b, y, idx_y, tgt_b, cand_ids, logit_softcap=None):
 
 
 def mips_topk_ref(q, y, k: int, *, valid=None, chunk: int = 512,
-                  id_offset: int = 0):
+                  id_offset: int = 0, merge_impl: str = "rounds"):
     """Chunked streaming per-row top-``k`` of ``q @ yᵀ`` — the plain
     version of ``kernels/mips_topk.py``.
 
     Walks ``(chunk, d)`` catalog slices in f32, carrying only the
-    ``(n_q, k)`` value/id buffers through :func:`merge_topk_tile`.
+    ``(n_q, k)`` value/id buffers through the tile merge ``merge_impl``
+    names (``topk_merge.merge_fn``: :func:`merge_topk_tile`, or the
+    bitonic merge, with the same outputs).
     ``k`` is clamped to ``C``; rows with ``valid == 0`` and nothing past
     ``C`` are ever selected; ids are ``id_offset + row`` (int32), ties go
     to the lower id and starved slots hold ``(NEG_INF, ID_PAD)``.
     → ``(vals (n_q, k) f32, ids (n_q, k) int32)``.
     """
+    merge = merge_fn(merge_impl)
     n_q = q.shape[0]
     c = y.shape[0]
     k = min(k, c)
@@ -137,7 +141,7 @@ def mips_topk_ref(q, y, k: int, *, valid=None, chunk: int = 512,
         col = torch.arange(
             id_offset + lo, id_offset + hi, dtype=torch.int32, device=q.device
         ).expand(n_q, -1)
-        vals, ids = merge_topk_tile(vals, ids, s, col, k)
+        vals, ids = merge(vals, ids, s, col, k)
     return vals, ids
 
 

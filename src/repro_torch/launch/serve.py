@@ -3,8 +3,10 @@
 
 Requests arrive as user histories on a bounded queue; a worker thread
 drains them with continuous micro-batching into a static set of batch
-shape buckets, and each micro-batch runs the serve step: SASRec forward,
-the last position's hidden state, then the hand-written ``mips_topk``
+shape buckets, and each micro-batch runs the serve step: the seqrec
+arch's forward (SASRec, or BERT4Rec's bidirectional encoder for
+``RetrievalServer("bert4rec")``), the last position's hidden state, then
+the hand-written ``mips_topk``
 kernel over the catalog (``kernels.ops.mips_topk`` via
 ``eval.streaming.streaming_topk``) — no ``(B, C)`` score matrix.
 
@@ -55,6 +57,8 @@ Differences from the JAX server:
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec-sce \\
       --requests 64 --buckets 8,32 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch bert4rec \\
+      --requests 11 --buckets 4,8 --device cpu
 """
 from __future__ import annotations
 
@@ -241,8 +245,9 @@ class RetrievalServer:
         (``CheckpointManager.restore_params_latest``) and set
         ``restored_step``; raises ``FileNotFoundError`` when it holds no
         intact port checkpoint. Not together with ``params``.
-    params : model parameters (``models.sasrec.init_params`` layout);
-        ``None`` (and no ``ckpt_dir``) = random init from ``seed``.
+    params : model parameters (``models.sasrec.init_params`` layout,
+        BERT4Rec's [MASK] row included); ``None`` (and no ``ckpt_dir``)
+        = random init from ``seed``.
     device : ``None`` = ``cuda`` (raises without one); ``"cpu"`` runs the
         plain kernel versions on the CPU.
     defer_readiness : skip the constructor's readiness gate; the server

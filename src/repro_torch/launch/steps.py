@@ -1,8 +1,9 @@
 """Step factories (port of the seqrec and LM steps of
 ``repro/launch/steps.py``: the training steps with any registry loss, on
-one device or on a ``(data, model)`` mesh with distributed SCE, the
-single-device MIPS serving step, and the LM's prefill and decode
-steps)."""
+one device or on a ``(data, model)`` mesh with distributed SCE — SASRec's
+next-item and BERT4Rec's cloze objective —, the single-device seqrec
+serving steps (MIPS top-k, top-100, candidate re-rank), and the LM's
+prefill and decode steps)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,8 +17,9 @@ from repro_torch.core.distributed_sce import round_up, sce_loss_sharded
 from repro_torch.core.losses import ce_chunked, ce_fused_linear, make_loss
 from repro_torch.core.sce import SCEConfig, sce_loss
 from repro_torch.eval.streaming import streaming_topk
-from repro_torch.kernels import guard
+from repro_torch.kernels import guard, ops
 from repro_torch.launch.mesh import dp_size
+from repro_torch.models import bert4rec as b4r_lib
 from repro_torch.models import sasrec as sasrec_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.optim.optimizers import (
@@ -216,16 +218,26 @@ def _unflatten(tree, leaves):
 
 
 # ---------------------------------------------------------------------------
-# Sequential recommenders (SASRec, the paper's own domain)
+# Sequential recommenders (BERT4Rec / SASRec, the paper's own domain)
 # ---------------------------------------------------------------------------
 def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
                            sce_mode: str = "exact"):
-    """The training step of a causal seqrec model: SASRec forward → the
+    """The training step of a seqrec model: the encoder's forward → the
     loss ``arch.train_loss`` names (:func:`_vocab_loss`; ``build_sce_config``
     defaults to ``use_kernel=True``) → autograd → guarded AdamW at lr
     1e-3. No dropout, as in the reference step, which passes no dropout
     key to the forward. Another registry loss is one
     ``dataclasses.replace(arch, train_loss=name)`` away.
+
+    A causal config (SASRec) predicts each position's next item from
+    the batch's ``targets`` where ``valid``. A bidirectional one
+    (BERT4Rec, ``cfg.causal`` false) takes ``tokens`` only and applies
+    the cloze mask per microbatch (``models/bert4rec.py``): the masked
+    positions are the valid ones, their unmasked tokens the targets. Per
+    microbatch the mask is drawn first from ``generator``, then the
+    loss's draw, as the reference splits its microbatch key (``k_mask``,
+    ``k_loss``); ``cloze`` injects the mask's uniform draw instead, a
+    ``(B, L)`` float tensor cut into microbatches like the batch.
 
     With ``mesh`` (``launch/mesh.py``) and ``sce_mode`` ``"exact"`` or
     ``"union"``, SCE is ``core.distributed_sce.sce_loss_sharded`` over the
@@ -239,22 +251,22 @@ def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
 
     Returns ``(train_step, (opt_init, opt_update), sce_cfg)`` with
     ``train_step(params, opt_state, batch, *, generator=None,
-    omega=None, mark=None) -> (params, opt_state, metrics)``. ``batch``
-    holds ``tokens``/``targets`` (B, L) int32 and ``valid`` (B, L) bool
-    on the params' device, and optionally a ``loss_cap``; the bucket
-    centres are drawn from ``generator`` unless ``omega`` injects the
-    draw (SCE only). ``mark``, when given, is called with each phase's
+    omega=None, cloze=None, mark=None) -> (params, opt_state,
+    metrics)``. ``batch`` holds ``tokens`` (B, L) int32 and, for a causal
+    config, ``targets`` (B, L) int32 and ``valid`` (B, L) bool, on the
+    params' device, and optionally a ``loss_cap``; the bucket centres are
+    drawn from ``generator`` unless ``omega`` injects the draw (SCE only;
+    one microbatch). ``mark``, when given, is called with each phase's
     name where the phase's launches end: ``"forward"``, then the SCE
     losses' ``"select"`` and ``"loss_forward"`` (another loss: one
     ``"loss_forward"``), ``"backward"`` and ``"optimizer"``
     (``chip_smoke.py`` records a CUDA event at each).
     """
-    if not cfg.causal:
-        raise NotImplementedError("the BERT4Rec step is not ported")
     if sce_mode not in ("exact", "union", "gspmd"):
         raise ValueError(f"sce_mode {sce_mode!r}")
     if mesh is not None and not mesh.member:
         raise ValueError(f"this rank is outside the {mesh.shape} mesh")
+    bidirectional = not cfg.causal
     opt_init, opt_update = make_optimizer(arch.optimizer, 1e-3)
     gb = shape.dims["batch"]
     dp = dp_size(mesh) if mesh is not None else 1
@@ -282,13 +294,22 @@ def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
     def loss_and_grad(params, mb, generator, omega, mark=None):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with torch.enable_grad():
-            hidden = sasrec_lib.forward(leaves, cfg, mb["tokens"])
+            tokens = mb["tokens"]
+            if bidirectional:
+                masked, is_masked = b4r_lib.apply_cloze_mask(
+                    tokens, cfg, generator=generator,
+                    uniform=mb.get("cloze"))
+                hidden = b4r_lib.forward(leaves, cfg, masked)
+                targets, valid = tokens, is_masked
+            else:
+                hidden = sasrec_lib.forward(leaves, cfg, tokens)
+                targets, valid = mb["targets"], mb["valid"]
             x = hidden.reshape(-1, hidden.shape[-1])
             y = sasrec_lib.loss_catalog(leaves, cfg)  # shard-even slice
             if mark:
                 mark("forward")
             loss, sentinels = _vocab_loss(
-                x, y, mb["targets"].reshape(-1), mb["valid"].reshape(-1),
+                x, y, targets.reshape(-1), valid.reshape(-1),
                 generator, loss_name=arch.train_loss, sce_cfg=sce_cfg,
                 sce_mode=sce_mode, mesh=mesh,
                 logit_softcap=getattr(cfg, "final_softcap", None),
@@ -303,8 +324,13 @@ def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
         return loss.detach(), sentinels, _unflatten(params, grads)
 
     def train_step(params, opt_state, batch, *, generator=None, omega=None,
-                   mark=None):
+                   cloze=None, mark=None):
         batch, loss_cap = _pop_loss_cap(batch)
+        if cloze is not None:
+            if not bidirectional:
+                raise ValueError("cloze injects BERT4Rec's mask draw; this "
+                                 "config is causal")
+            batch["cloze"] = cloze
         loss, sentinels, grads = _accumulate_microbatches(
             functools.partial(loss_and_grad, mark=mark), params, batch,
             generator, n_micro, accum_dtype, omega=omega, with_aux=True,
@@ -452,24 +478,99 @@ def make_lm_decode_step(cfg):
     return decode_step
 
 
-def make_seqrec_mips_serve_step(cfg, *, top_k: int = 10):
+def _last_states(cfg, params, tokens) -> torch.Tensor:
+    """The encoder's hidden state at the last position, ``(B, d)``
+    contiguous: BERT4Rec's bidirectional forward for a non-causal
+    config, SASRec's otherwise."""
+    lib = sasrec_lib if cfg.causal else b4r_lib
+    return lib.forward(params, cfg, tokens)[:, -1].contiguous()
+
+
+def _one_device(mesh, step: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"the mesh path of {step} is not ported: ROADMAP.md queue 1 "
+            f"item 14")
+
+
+def make_seqrec_mips_serve_step(cfg, *, top_k: int = 10, mesh=None):
     """MIPS-backed retrieval serving (the ``launch/serve.py`` step):
-    encode the request batch, take each history's last hidden state, and
-    stream the catalog through ``kernels.ops.mips_topk`` (via
+    encode the request batch (SASRec, or BERT4Rec's bidirectional
+    encoder), take each history's last hidden state, and stream the
+    catalog through ``kernels.ops.mips_topk`` (via
     ``eval.streaming.streaming_topk``) — no ``(B, C)`` score matrix.
 
     Only global ids in ``[1, n_items)`` serve: the padding row 0 and the
     phantom rows of the shard-even catalog slice are masked. Ties go to
     the lower id. ``serve_step(params, tokens)`` → ``(vals (B, top_k)
-    f32, ids (B, top_k) int32)`` on the tokens' device. Single device
-    only: the mesh path is not ported.
+    f32, ids (B, top_k) int32)`` on the tokens' device. Single device:
+    ``mesh`` raises ``NotImplementedError`` (queue 1 item 14).
     """
+    _one_device(mesh, "make_seqrec_mips_serve_step")
 
     @torch.inference_mode()
     def serve_step(params, tokens):
-        hidden = sasrec_lib.forward(params, cfg, tokens)
-        x_last = hidden[:, -1].contiguous()  # (B, d)
+        x_last = _last_states(cfg, params, tokens)
         y = sasrec_lib.loss_catalog(params, cfg)  # shard-even slice
         return streaming_topk(x_last, y, top_k, c_lo=1, c_hi=cfg.n_items)
 
     return serve_step
+
+
+def make_seqrec_serve_step(cfg, *, top_k: int = 100, mesh=None):
+    """The top-``top_k`` items of each history's last state against the
+    catalog (the reference's ``make_seqrec_serve_step``, the shapes
+    ``serve_p99`` / ``serve_bulk``). As in the reference, only the
+    phantom rows ``>= n_items`` are masked: the padding row 0 may serve.
+
+    The reference scores densely and takes ``lax.top_k``; here the
+    catalog streams through ``kernels.ops.mips_topk`` under the window
+    ``[0, n_items)``: no ``(B, C)`` score matrix (2 GB in f32 at 512 ×
+    10⁶), and the reference's tie rule, the lower id first, which
+    ``torch.topk`` does not promise. ``serve_step(params, tokens)`` →
+    ``(vals (B, top_k) f32, ids (B, top_k) int32)``. Single device:
+    ``mesh`` raises ``NotImplementedError`` (queue 1 item 14).
+    """
+    _one_device(mesh, "make_seqrec_serve_step")
+
+    @torch.inference_mode()
+    def serve_step(params, tokens):
+        x_last = _last_states(cfg, params, tokens)
+        y = sasrec_lib.loss_catalog(params, cfg)  # shard-even slice
+        return streaming_topk(x_last, y, top_k, c_lo=0, c_hi=cfg.n_items)
+
+    return serve_step
+
+
+def make_seqrec_retrieval_step(cfg, *, top_k: int = 100, mesh=None):
+    """Re-rank a candidate list for one (or few) user states (the
+    reference's ``make_seqrec_retrieval_step``, the shape
+    ``retrieval_cand``: 1 user, 10⁶ candidates).
+
+    ``retrieval_step(params, tokens, candidate_ids)`` → ``(vals (B,
+    top_k) f32, idx (B, top_k) int32)``: ``idx`` are positions in
+    ``candidate_ids``, not item ids, as the reference's ``lax.top_k``
+    over the candidate scores returns them. The candidates' rows are
+    gathered from the shard-even catalog slice and run through
+    ``kernels.ops.mips_topk`` with their positions as ids, so ties go to
+    the earlier candidate, as in the reference. Every candidate id must
+    lie in ``[0, catalog_loss_size)`` (``ValueError`` otherwise). Single
+    device: ``mesh`` raises ``NotImplementedError`` (queue 1 item 14).
+    """
+    _one_device(mesh, "make_seqrec_retrieval_step")
+
+    @torch.inference_mode()
+    def retrieval_step(params, tokens, candidate_ids):
+        x_last = _last_states(cfg, params, tokens)
+        y = sasrec_lib.loss_catalog(params, cfg)
+        if candidate_ids.ndim != 1 or candidate_ids.numel() == 0:
+            raise ValueError(f"candidate_ids must be a non-empty (N,) "
+                             f"tensor, got {tuple(candidate_ids.shape)}")
+        lo, hi = (int(v) for v in torch.aminmax(candidate_ids))
+        if lo < 0 or hi >= y.shape[0]:
+            raise ValueError(f"candidate ids span [{lo}, {hi}], outside "
+                             f"the catalog [0, {y.shape[0]})")
+        cand = y[candidate_ids.long()]
+        return ops.mips_topk(x_last, cand, top_k)
+
+    return retrieval_step

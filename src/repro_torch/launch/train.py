@@ -4,7 +4,13 @@
 ``train("sasrec-sce", steps=N)`` draws random SASRec weights from
 ``seed``, streams ``SequenceDataset`` batches from ``Cursor(seed)`` and
 steps ``launch/steps.py::make_seqrec_train_step`` (SCE on the kernel
-path, guarded AdamW). ``train("gemma2-2b", seq_len=T)`` (and the other
+path, guarded AdamW). ``train("bert4rec")`` does the same for BERT4Rec:
+its batches hold the tokens only, and the step draws the cloze mask of
+each microbatch from the run's generator before the loss's draw. The
+seqrec step takes the microbatches of the arch's train shape at the
+run's batch (bert4rec's ``train_batch``: 8, each ``batch / 8``
+sequences; sasrec-sce's ``train_paper``: 1); the reference's trainer
+runs one. ``train("gemma2-2b", seq_len=T)`` (and the other
 registered LMs) does the same for a transformer LM: random weights
 (``models/transformer.py``), ``batch`` full-length pseudo-language
 sequences of ``T`` tokens a step, ``make_lm_train_step`` (the arch's
@@ -126,7 +132,7 @@ from repro_torch.launch.elastic import (
 )
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_lm_train_step, make_seqrec_train_step
-from repro_torch.models import sasrec, transformer
+from repro_torch.models import bert4rec, sasrec, transformer
 from repro_torch.optim.optimizers import tree_map
 
 # Step times the straggler watchdog's median reads: the most recent ones,
@@ -171,7 +177,7 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
           train_loss: Optional[str] = None) -> Dict[str, Any]:
     """Train ``arch_name`` for ``steps`` steps of ``batch`` sequences (the
     global batch: each rank of the mesh steps its data shard of it) —
-    SASRec's of ``cfg.max_len`` items, an LM's of ``seq_len`` tokens.
+    a seqrec model's of ``cfg.max_len`` items, an LM's of ``seq_len`` tokens.
 
     ``mark``, when given, is called with ``"start"`` once a step's host
     batch is ready, with ``"h2d"`` once it is on the device, then with
@@ -243,7 +249,11 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
             min_len_frac=1.0,
         ))
     else:
-        shape = ShapeSpec("train_smoke", "train", {"batch": batch})
+        # The arch's train shape names the run, so the step takes that
+        # shape's microbatches (bert4rec's train_batch: 8; sasrec-sce's
+        # train_paper: 1) at the run's batch.
+        name = next(s.name for s in arch.shapes if s.kind == "train")
+        shape = ShapeSpec(name, "train", {"batch": batch})
         data = SequenceDataset(SeqDataConfig(
             n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=batch,
         ))
@@ -254,6 +264,9 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
                          f"batch {batch}")
     rows = batch_slice(mesh, batch)
     lead = world()[0] == 0
+    # BERT4Rec masks inside the step: its batches carry the tokens only.
+    batch_keys = (("tokens",) if not getattr(cfg, "causal", True)
+                  else ("tokens", "targets", "valid"))
     if lm:
         step_fn, (opt_init, _), _ = make_lm_train_step(
             arch, cfg, shape, mesh=mesh, sce_mode=sce_mode)
@@ -261,7 +274,8 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     else:
         step_fn, (opt_init, _), _ = make_seqrec_train_step(
             arch, cfg, shape, mesh=mesh, sce_mode=sce_mode)
-        params = sasrec.init_params(cfg, seed=seed, device=device)
+        init = sasrec.init_params if cfg.causal else bert4rec.init_params
+        params = init(cfg, seed=seed, device=device)
     state = TrainState(
         params=params, opt_state=opt_init(params),
         generator=torch.Generator(device=device).manual_seed(seed),
@@ -360,7 +374,8 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
                 if mark:
                     mark("start")
                 dev_batch = to_device(
-                    {k: v[rows] for k, v in host_batch.items()}, device)
+                    {k: v[rows] for k, v in host_batch.items()
+                     if k in batch_keys}, device)
                 cap = guard.loss_cap()
                 dev_batch["loss_cap"] = torch.full(
                     (), cap, dtype=torch.float32, device=device)

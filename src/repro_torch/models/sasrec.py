@@ -1,13 +1,15 @@
 """SASRec — the SCE paper's backbone (port of ``repro/models/sasrec.py``):
 item + learned positional embeddings, causal self-attention blocks,
 LayerNorm, a tanh-GELU FFN; items are scored by the inner product of the
-last hidden state with the item-embedding table.
+last hidden state with the item-embedding table. The same encoder with
+``causal=False`` and a [MASK] row is BERT4Rec (``models/bert4rec.py``).
 
 Parameters are a plain dict of tensors in the reference's layout
 (``item_emb``, ``pos_emb``, ``ln_f_g``, ``ln_f_b`` and ``layers`` whose
 leaves are stacked ``(n_layers, …)``, matmul weights ``(d_in, d_out)``),
 so ``models/convert.py`` copies a JAX pytree across without reshaping.
-This slice ports the inference forward (no dropout) that serving runs.
+The forward has no dropout: no train step of the reference passes a
+dropout key, and parity runs keep it off.
 """
 from __future__ import annotations
 
@@ -114,10 +116,10 @@ def init_params(cfg: SeqRecConfig, *, seed: int = 0,
 
 def forward(params: Params, cfg: SeqRecConfig, tokens) -> torch.Tensor:
     """Hidden states (B, L, D) of ``tokens`` (B, L) item ids (0 =
-    padding). Padded positions are attended like any other (the
-    reference has no key-padding mask); callers mask them downstream."""
-    if not cfg.causal:
-        raise NotImplementedError("the bidirectional encoder is not ported")
+    padding): causal attention, or bidirectional for ``cfg.causal =
+    False`` (BERT4Rec, ``models/bert4rec.py``). Padded positions are
+    attended like any other (the reference has no key-padding mask);
+    callers mask them downstream."""
     b, l = tokens.shape
     x = take_rows(params["item_emb"], tokens)
     x = x * cfg.d_model**0.5
@@ -130,7 +132,7 @@ def forward(params: Params, cfg: SeqRecConfig, tokens) -> torch.Tensor:
         q, k, v = (h @ lp["wqkv"]).split(cfg.d_model, dim=-1)
         o = attention(
             q.reshape(b, l, h_, dh), k.reshape(b, l, h_, dh),
-            v.reshape(b, l, h_, dh), causal=True,
+            v.reshape(b, l, h_, dh), causal=cfg.causal,
         )
         x = x + o.reshape(b, l, cfg.d_model) @ lp["wo"]
         h2 = layer_norm(x, lp["ln2_g"], lp["ln2_b"])

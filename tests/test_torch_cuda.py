@@ -126,6 +126,17 @@ cotangent to bf16 as the kernels do, and repeat bit for bit;
 on the widened ones in every orientation the slabs and gradients use; a
 bf16 / f32 mix, float16 and float64 raise ``TypeError``.
 
+BERT4Rec and the seqrec serve steps (at the smoke config and at d 64,
+2 blocks over a 20,000-item catalog): one SCE train step on the card's
+kernels (the cloze mask and Ω injected, ``mips_topk`` launched twice)
+against the same step on the CPU's plain versions — loss and grad norm
+within ``1e-5`` relative, params within ``1e-5·max|p|`` but for under
+1 % of elements, which Adam may move by a full ±lr step each way from a
+near-zero gradient (``2·lr``) —; the MIPS serve step, the top-100 serve
+step and the retrieval step against the same steps on the CPU, values
+within ``1e-5·max|score|``, ids or positions equal where isolated, tied
+copies lower id first.
+
 Checkpoints: a train state restored onto ``cuda`` keeps the CUDA
 generator's state, so the next Mix Ω draw (``make_bucket_centers``)
 equals the uninterrupted generator's bit for bit, and its params and
@@ -2469,3 +2480,104 @@ def test_bf16_deep_entries_launch_the_bf16_product(dev, d):
     names = [e.key for e in prof.key_averages()]
     assert [n for n in names if "deep_tc::gemm_bf16_kernel" in n], names
     assert not [n for n in names if "deep_tc::gemm_kernel" in n], names
+
+
+# ---------------------------------------------------------------------------
+# BERT4Rec's train step and the seqrec serve steps on the card
+# ---------------------------------------------------------------------------
+def _bert4rec_cfg(which):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import bert4rec
+
+    if which == "smoke":
+        return get_arch("bert4rec").make_smoke_config()
+    # the published width and depth on a 20,000-item catalog
+    return bert4rec.make_config(n_items=20_000, max_len=50)
+
+
+@pytest.mark.parametrize("which", ["smoke", "wide"])
+def test_bert4rec_step_on_the_card_matches_plain(dev, which):
+    """One BERT4Rec SCE step (the cloze mask and Ω injected, the same
+    weights) on the card's kernels and on the CPU's plain versions: the
+    loss and grad norm within ``1e-5`` relative, the params within
+    ``1e-5·max|p|`` but where Adam turns a near-zero gradient's f32 noise
+    into a full ±lr step (``2·lr``)."""
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+    from repro_torch.launch import steps
+    from repro_torch.models import bert4rec
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = _bert4rec_cfg(which)
+    batch = 2
+    arch = get_arch("bert4rec")
+    shape = ShapeSpec("train_smoke", "train", {"batch": batch})
+    tokens = SequenceDataset(SeqDataConfig(
+        n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=batch,
+    )).next_batch(Cursor(seed=2))[0]["tokens"]
+    g = torch.Generator().manual_seed(3)
+    cloze = torch.rand(batch, cfg.max_len, generator=g)
+    out = {}
+    for where in ("cpu", dev):
+        step, (opt_init, _), sce_cfg = steps.make_seqrec_train_step(
+            arch, cfg, shape)
+        omega = torch.randn(sce_cfg.n_buckets, batch * cfg.max_len,
+                            generator=torch.Generator().manual_seed(4))
+        params = bert4rec.init_params(cfg, seed=0, device=where)
+        launches = kernel.mips_topk.launches
+        params, _, m = step(
+            params, opt_init(params),
+            {"tokens": torch.from_numpy(tokens).to(where)},
+            omega=omega.to(where), cloze=cloze.to(where))
+        out[str(where)] = (float(m["loss"]), float(m["grad_norm"]),
+                           [p.cpu() for p in tree_leaves(params)],
+                           kernel.mips_topk.launches - launches)
+    (lc, gc_, pc, nc), (lg, gg, pg, ng) = out["cpu"], out[str(dev)]
+    assert nc == 0 and ng == 2  # the card's step selected on the kernel
+    assert math.isfinite(lg) and lg == pytest.approx(lc, rel=1e-5)
+    assert gg == pytest.approx(gc_, rel=1e-5)
+    for a, b in zip(pg, pc):
+        diff = (a - b).abs()
+        assert bool((diff <= 2 * 1e-3).all())
+        assert (diff > 1e-5 * b.abs().max()).float().mean().item() < 0.01
+
+
+@pytest.mark.parametrize("which", ["smoke", "wide"])
+def test_serve_steps_on_the_card_match_plain(dev, which):
+    """The three seqrec serve steps of a BERT4Rec model on the card
+    against the same steps on the CPU's plain versions: values within
+    ``1e-5·max|score|``, ids (or candidate positions) equal wherever the
+    neighbouring scores are further apart; tied copies lower id first."""
+    from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+    from repro_torch.launch import steps
+    from repro_torch.models import bert4rec
+
+    cfg = _bert4rec_cfg(which)
+    hist = torch.from_numpy(SequenceDataset(SeqDataConfig(
+        n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=12,
+    )).next_batch(Cursor(seed=5))[0]["tokens"])
+    g = torch.Generator().manual_seed(6)
+    cand = torch.randint(0, cfg.n_items, (cfg.n_items // 2,), generator=g,
+                         dtype=torch.int32)
+    cand[-50:] = cand[:50]  # repeated candidates tie exactly
+    params = {where: bert4rec.init_params(cfg, seed=1, device=where)
+              for where in ("cpu", dev)}
+    for where in params:  # 80 copied rows: exact ties between ids
+        emb = params[where]["item_emb"]
+        emb[cfg.n_items // 2:cfg.n_items // 2 + 80] = emb[1:81]
+    runs = (
+        (steps.make_seqrec_mips_serve_step(cfg, top_k=10), ()),
+        (steps.make_seqrec_serve_step(cfg), ()),
+        (steps.make_seqrec_retrieval_step(cfg), (cand,)),
+    )
+    for step, extra in runs:
+        h = hist[:1] if extra else hist  # retrieval: one user
+        before = kernel.mips_topk.launches
+        got = step(params[dev], h.to(dev), *(e.to(dev) for e in extra))
+        assert kernel.mips_topk.launches == before + 1
+        want = step(params["cpu"], h, *extra)
+        got = tuple(t.cpu() for t in got)
+        scale = want[0].abs().max().item()
+        _assert_match(got, want, scale, False)
+        tie = got[0][:, 1:] == got[0][:, :-1]
+        assert bool((got[1][:, 1:][tie] > got[1][:, :-1][tie]).all())

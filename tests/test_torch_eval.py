@@ -236,12 +236,17 @@ def test_evaluate_streaming_marks_each_phase_in_order(model):
 
 
 def test_evaluate_streaming_refuses_what_is_not_ported(model):
+    """The sharded path raises; a bidirectional config, once refused,
+    now takes BERT4Rec's cloze score function by default."""
     cfg, _, _, tp, batch = model
     with pytest.raises(NotImplementedError, match="queue 14"):
         evaluate_streaming(tp, cfg, batch, mesh=object())
     bidir = dataclasses.replace(cfg, causal=False)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        evaluate_streaming(tp, bidir, batch)
+    assert harness.default_score_fn(bidir).__qualname__.startswith(
+        "bert4rec_score_fn")
+    got = evaluate_streaming(tp, bidir, batch, ks=KS)
+    assert set(got) == {f"{m}@{k}" for m in ("hr", "ndcg", "cov")
+                        for k in KS}
 
 
 # ---------------------------------------------------------------------------
