@@ -296,7 +296,34 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    phantom rows masked) and ``make_seqrec_retrieval_step`` at
    retrieval_cand (1 × 10⁶ candidates, k 100), each against a dense
    on-card oracle with the tie rule and timed by the host clock.
-20. Prints the kernels' JSON line, the card's name and power limit, and
+20. granite-moe-3b-a800m at full width (``granite_phase``):
+   ``configs/granite_moe.py`` as published — 32 layers, d 1536, 24 query
+   heads (padded to 32) over 8 KV heads of 64, 40 experts (padded to 48)
+   top-8 of d_ff 512 at capacity factor 1.25, vocabulary 49,155 (49,168
+   table rows: a ragged last tile), no final softcap, bfloat16 with remat
+   — random weights from a seed. First phase 18's bf16 kernel checks at
+   its shapes (``lm_bf16_kernel_phase``: SCE's parameters at 4,096
+   positions, n_b 128, b_x 128, b_y 512, no cap; ``mips_topk`` at k 128
+   and 512, ``sce_gather_plse`` and its deep backward, the dY sum into
+   the bf16 (49,168, 1536) table, ``eval_fused`` / ``eval_tgt_gather`` at
+   8,192 × 49,168, the deep ``linear_ce``); then one MoE block at its
+   widths (4,096 tokens): forward and backward repeat bit for bit (the
+   combine is a gather summed in a fixed order, no atomics), timed.
+   Then the main path, each run's counts from 0: ``train(
+   "granite-moe-3b-a800m", cfg=…, batch=8, seq_len=4096, steps=4,
+   sce_mode="exact")`` — train_4k's 256 sequences cut to 8, in its 8
+   microbatches of one sequence; finite, falling losses; the median step,
+   its phases, the peak memory and the mark that reached it, the MoE
+   assignments dropped per step; then 2 steps of ``ce_fused_linear``;
+   on fresh weights the token rank's rows/s, the parameters as stored,
+   and prefill 512 + 8 decode steps against a forward over 520 tokens,
+   each path's drops and the (layer, token) pairs routed unlike the
+   forward counted (a decode step drops none), then the same at a
+   capacity factor at which nothing drops (printed), then with every
+   token routed to all 40 experts (no choice to flip, nothing dropped)
+   in bf16 (printed) and held on the same weights in f32: the last
+   logits within ``1e-3`` of the scale.
+21. Prints the kernels' JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``. ``mips_topk`` has
    three entries: all its main-path launches timed at serving's largest
    bucket, and its training selections (k = 320 over the positions,
@@ -317,8 +344,10 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    published bf16 runs' launches and the bf16 times. The ``*_b4r``
    entries carry phase 19's runs' launches (``mips_topk`` one per shape:
    the two selections with the trainer's launches at that k, the server's
-   and each serve step's) and its times at BERT4Rec's shapes. Every entry
-   must have launched at least once on its main path.
+   and each serve step's) and its times at BERT4Rec's shapes. The
+   ``*_granite`` entries carry phase 20's runs' launches and its times
+   at granite's shapes. Every entry must have launched at least once on
+   its main path.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. ``--json PATH`` also writes every case, time and count to PATH.
@@ -335,7 +364,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-N_PHASES = 20
+N_PHASES = 21
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_S = 3.35e12
@@ -3281,18 +3310,13 @@ def ckpt_phase(dev):
 # The LM path at full width: gemma-2-2b
 # ---------------------------------------------------------------------------
 LM_SEQ = 4096  # train_4k's sequence length
-LM_BATCH = 2  # train_4k's 256 sequences cut to one card: its 2 microbatches
 LM_STEPS = 4
 LM_EVAL_SEQS = 2  # held-out sequences: 8,192 token-rank rows
 LM_PROMPT = 512
 LM_DECODE = 8
 LM_CAP = 30.0  # gemma-2's final softcap
-LM_PHASES = ("h2d",) + ("forward", "select", "loss_forward",
-                        "backward") * 2 + ("optimizer",)
 LM_CE_STEPS = 2  # the full-CE baseline's steps
 LM_F32_STEPS = 2  # the f32 step at reduced depth
-LM_CE_PHASES = ("h2d",) + ("forward", "loss_forward",
-                           "backward") * 2 + ("optimizer",)
 
 
 def lm_config():
@@ -3720,9 +3744,13 @@ def lm_kernel_phase(dev, cfg):
             "timings": timings, "sweep_slab": sweep_slab}
 
 
-def lm_bf16_kernel_phase(dev, cfg):
+def lm_bf16_kernel_phase(dev, cfg, *, sce_cfg=None, cap=LM_CAP,
+                         tag="lm_bf16", extras=True):
     """The LM path's kernels on bf16 operands at gemma-2's shapes (the
-    published type, which the main path runs): ``mips_topk`` at both
+    published type, which the main path runs; another LM's with its
+    ``cfg``, ``sce_cfg`` and final softcap ``cap``, its entries named
+    ``*_{tag}``, and without ``extras``: ``fused_lse``'s deep entries and
+    the one-slab sweep, which no LM path runs): ``mips_topk`` at both
     selections, the three ``sce_gather_plse`` launches and the deep
     backward as autograd runs it (n_b 128, b_x 128, b_y 1024, d 2304,
     cap 30), the in-order dY sum into the bf16 table, ``eval_fused`` /
@@ -3757,7 +3785,7 @@ def lm_bf16_kernel_phase(dev, cfg):
     bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(12)
     vocab, d = cfg.vocab_padded, cfg.d_model
-    sce_cfg = lm_sce_config(cfg)
+    sce_cfg = sce_cfg or lm_sce_config(cfg)
     n_b, b_x, b_y = (sce_cfg.n_buckets, sce_cfg.bucket_size_x,
                      sce_cfg.bucket_size_y)
     y = (torch.randn(vocab, d, generator=g, device=dev) * 0.02).to(bf)
@@ -3766,6 +3794,9 @@ def lm_bf16_kernel_phase(dev, cfg):
     targets = torch.randint(1, cfg.vocab, (LM_SEQ,), generator=g,
                             device=dev, dtype=torch.int32)
     errs, runs, bounds = {}, {}, {}
+
+    def capped(s_):
+        return s_ if cap is None else cap * torch.tanh(s_ / cap)
 
     def same(what, got, want, of="the f32 kernel on the widened inputs"):
         check(len(got) == len(want) and all(
@@ -3812,8 +3843,8 @@ def lm_bf16_kernel_phase(dev, cfg):
 
     # the selections
     sel = {}
-    for name, cat, k in (("mips_topk_positions_k128_lm_bf16", x, b_x),
-                         ("mips_topk_vocab_k1024_lm_bf16", y, b_y)):
+    for name, cat, k in ((f"mips_topk_positions_k{b_x}_{tag}", x, b_x),
+                         (f"mips_topk_vocab_k{b_y}_{tag}", y, b_y)):
         got = mips_topk(q, cat, k)
         same(name, got, mips_topk(q, cat, k), "a second launch")
         top_f64(name, got, q.double() @ cat.double().T, k)
@@ -3830,66 +3861,65 @@ def lm_bf16_kernel_phase(dev, cfg):
     x_b = x[ix.long()].contiguous()
     tgt_b = targets[ix.long()]
     args = (x_b, y, iy, tgt_b, iy)
-    plse = sce_prefetch.sce_gather_plse_fwd(*args, logit_softcap=LM_CAP)
+    plse = sce_prefetch.sce_gather_plse_fwd(*args, logit_softcap=cap)
     same("sce_gather_plse_fwd", (plse,), (sce_prefetch.sce_gather_plse_fwd(
-        *args, logit_softcap=LM_CAP),), "a second launch")
-    errs["sce_gather_plse_fwd_lm_bf16"] = within(
-        "plse", plse, ref.sce_gather_plse_ref(*args, LM_CAP), 1e-5)
+        *args, logit_softcap=cap),), "a second launch")
+    errs[f"sce_gather_plse_fwd_{tag}"] = within(
+        "plse", plse, ref.sce_gather_plse_ref(*args, cap), 1e-5)
     g_up = torch.rand(n_b, b_x, generator=g, device=dev)
 
     def plain_grads(i):
         with torch.enable_grad():  # also inside the timing's no_grad
             leaves = [t.clone().requires_grad_(True) for t in (x_b, y)]
             out = ref.sce_gather_plse_ref(leaves[0], leaves[1], iy, tgt_b,
-                                          iy, LM_CAP)
+                                          iy, cap)
             return torch.autograd.grad((out * g_up).sum(),
                                        leaves if i is None else leaves[i])
 
     pair = sce_prefetch._grads(
         sce_prefetch.sce_gather_plse_dx, sce_prefetch.sce_gather_plse_dy,
-        args + (plse, g_up), LM_CAP, True, True)
+        args + (plse, g_up), cap, True, True)
     want = plain_grads(None)
     check(pair[0].dtype == pair[1].dtype == bf,
           "lm bf16: the SCE gradients are not bf16")
-    errs["sce_gather_plse_dx_lm_bf16"] = within("dX", pair[0], want[0], 3e-2)
-    errs["sce_gather_plse_dy_lm_bf16"] = within("dY", pair[1], want[1], 3e-2)
-    errs["sce_gather_plse_bwd_lm_bf16"] = max(
-        errs["sce_gather_plse_dx_lm_bf16"], errs["sce_gather_plse_dy_lm_bf16"])
+    errs[f"sce_gather_plse_dx_{tag}"] = within("dX", pair[0], want[0], 3e-2)
+    errs[f"sce_gather_plse_dy_{tag}"] = within("dY", pair[1], want[1], 3e-2)
+    errs[f"sce_gather_plse_bwd_{tag}"] = max(
+        errs[f"sce_gather_plse_dx_{tag}"], errs[f"sce_gather_plse_dy_{tag}"])
     again = sce_prefetch._grads(
         sce_prefetch.sce_gather_plse_dx, sce_prefetch.sce_gather_plse_dy,
-        args + (plse, g_up), LM_CAP, True, True)
+        args + (plse, g_up), cap, True, True)
     same("the deep SCE backward, twice", pair, again)
     del pair, want, again
     y_b = y[iy.long()]
     hide = (iy[:, None, :] < 0) | (iy[:, None, :] == tgt_b[:, :, None])
 
     def lib_logits():
-        l_ = torch.bmm(x_b, y_b.transpose(1, 2))
-        return LM_CAP * torch.tanh(l_ / LM_CAP)
+        return capped(torch.bmm(x_b, y_b.transpose(1, 2)))
 
     def lib_cot():
         c_ = lib_logits()
         return torch.where(hide, 0.0, torch.exp(c_ - plse[..., None])
-                           * (1 - (c_ / LM_CAP) ** 2)
+                           * (1.0 if cap is None else 1 - (c_ / cap) ** 2)
                            * g_up[..., None]).to(bf)
 
-    kw = dict(logit_softcap=LM_CAP)
-    runs["sce_gather_plse_fwd_lm_bf16"] = (
+    kw = dict(logit_softcap=cap)
+    runs[f"sce_gather_plse_fwd_{tag}"] = (
         lambda: sce_prefetch.sce_gather_plse_fwd(*args, **kw),
-        lambda: ref.sce_gather_plse_ref(*args, LM_CAP),
+        lambda: ref.sce_gather_plse_ref(*args, cap),
         lambda: torch.logsumexp(torch.where(hide, NEG_INF, lib_logits()),
                                 -1))
-    runs["sce_gather_plse_dx_lm_bf16"] = (
+    runs[f"sce_gather_plse_dx_{tag}"] = (
         lambda: sce_prefetch.sce_gather_plse_dx(*args, plse, g_up, **kw),
         lambda: plain_grads(0), lambda: torch.bmm(lib_cot(), y_b))
-    runs["sce_gather_plse_dy_lm_bf16"] = (
+    runs[f"sce_gather_plse_dy_{tag}"] = (
         lambda: sce_prefetch.sce_gather_plse_dy(*args, plse, g_up, **kw),
         lambda: plain_grads(1),
         lambda: torch.bmm(lib_cot().transpose(1, 2), x_b))
-    runs["sce_gather_plse_bwd_lm_bf16"] = (
+    runs[f"sce_gather_plse_bwd_{tag}"] = (
         lambda: sce_prefetch._grads(
             sce_prefetch.sce_gather_plse_dx, sce_prefetch.sce_gather_plse_dy,
-            args + (plse, g_up), LM_CAP, True, True),
+            args + (plse, g_up), cap, True, True),
         lambda: plain_grads(None),
         lambda: (lambda p: (torch.bmm(p, y_b),
                             torch.bmm(p.transpose(1, 2), x_b)))(lib_cot()))
@@ -3902,28 +3932,28 @@ def lm_bf16_kernel_phase(dev, cfg):
     same("sce_gather_dy_sum", (got,), (sce_prefetch.sce_gather_dy_sum(
         ws, keys, order, torch.zeros(vocab, d, device=dev)).to(bf),),
         "the f32 sum rounded once")
-    errs["sce_gather_dy_sum_lm_bf16"] = within(
+    errs[f"sce_gather_dy_sum_{tag}"] = within(
         "dY sum", got, sce_prefetch.dy_sum_plain(ws, iy, iy, vocab, bf), 3e-2)
     del got
     lib_c = torch.zeros(vocab, d, device=dev)
-    runs["sce_gather_dy_sum_lm_bf16"] = (
+    runs[f"sce_gather_dy_sum_{tag}"] = (
         lambda: sce_prefetch.sce_gather_dy_sum(ws, keys, order, dyz),
         lambda: sce_prefetch.dy_sum_plain(ws, iy, iy, vocab, bf),
         lambda: lib_c.index_add_(0, iy.reshape(-1).long(), ws).to(bf))
     kept = int((iy >= 0).sum())
     u_rows = int(torch.unique(iy[iy >= 0]).numel())
-    bounds["sce_gather_dy_sum_lm_bf16"] = bf16_bound(
+    bounds[f"sce_gather_dy_sum_{tag}"] = bf16_bound(
         4 * iy.numel() + 8 * kept + 4 * kept * d + 2 * u_rows * d, 0, 0)
     pairs = unmasked_pairs(tgt_b, iy)
     rows = int(torch.unique(iy[iy >= 0]).numel())
     common = 2 * (n_b * b_x * d + rows * d) + 4 * (2 * n_b * b_y + n_b * b_x)
-    bounds["sce_gather_plse_fwd_lm_bf16"] = bf16_bound(
+    bounds[f"sce_gather_plse_fwd_{tag}"] = bf16_bound(
         common + 4 * n_b * b_x, 2 * pairs * d, pairs)
-    bounds["sce_gather_plse_dx_lm_bf16"] = bf16_bound(
+    bounds[f"sce_gather_plse_dx_{tag}"] = bf16_bound(
         common + 8 * n_b * b_x + 2 * n_b * b_x * d, 4 * pairs * d, pairs)
-    bounds["sce_gather_plse_dy_lm_bf16"] = bf16_bound(
+    bounds[f"sce_gather_plse_dy_{tag}"] = bf16_bound(
         common + 8 * n_b * b_x + 2 * vocab * d, 4 * pairs * d, pairs)
-    bounds["sce_gather_plse_bwd_lm_bf16"] = bf16_bound(
+    bounds[f"sce_gather_plse_bwd_{tag}"] = bf16_bound(
         common + 8 * n_b * b_x + 2 * n_b * b_x * d + 2 * vocab * d,
         6 * pairs * d, pairs)
 
@@ -3932,7 +3962,7 @@ def lm_bf16_kernel_phase(dev, cfg):
     te = torch.randint(1, cfg.vocab, (n_e,), generator=g, device=dev,
                        dtype=torch.int32)
     xe = torch.randn(n_e, d, generator=g, device=dev).to(bf)
-    ekw = dict(c_lo=1, c_hi=cfg.vocab, logit_softcap=LM_CAP, with_lse=True)
+    ekw = dict(c_lo=1, c_hi=cfg.vocab, logit_softcap=cap, with_lse=True)
     got = ek.eval_fused(xe, y, te, 1, **ekw)
     same("eval_fused", got, ek.eval_fused(xe, y, te, 1, **ekw),
          "a second launch")
@@ -3967,8 +3997,7 @@ def lm_bf16_kernel_phase(dev, cfg):
         check(bool((got[3][rr] >= 1).all()),
               "lm bf16 eval eq: a row counts no column equal to its target")
         del self_, gt64, near
-        lv = torch.where(ok_v[None, :], LM_CAP * torch.tanh(s64 / LM_CAP),
-                         -math.inf)
+        lv = torch.where(ok_v[None, :], capped(s64), -math.inf)
         m64 = lv.amax(1)
         near_f64("eval m", got[5][rr], m64, m64.abs().max().item())
         s_64 = torch.exp(lv - m64[:, None]).sum(1)
@@ -3976,8 +4005,8 @@ def lm_bf16_kernel_phase(dev, cfg):
         del s64, sv, lv
     del y64
     want = ref.eval_fused_ref(xe, y, te, 1, **ekw)
-    errs["eval_fused_lm_bf16"] = within("eval vals", got[0], want[0], 1e-5)
-    errs["eval_tgt_gather_lm_bf16"] = within("eval tgt", got[4], want[4],
+    errs[f"eval_fused_{tag}"] = within("eval vals", got[0], want[0], 1e-5)
+    errs[f"eval_tgt_gather_{tag}"] = within("eval tgt", got[4], want[4],
                                              1e-5)
     del got, want
     window = torch.arange(vocab, device=dev)
@@ -3987,73 +4016,75 @@ def lm_bf16_kernel_phase(dev, cfg):
         s_ = torch.where(window[None, :], (xe @ y.T).float(), NEG_INF)
         return (torch.topk(s_, 1), (s_ > tgt_e[:, None]).sum(1),
                 (s_ == tgt_e[:, None]).sum(1),
-                torch.logsumexp(LM_CAP * torch.tanh(s_ / LM_CAP), -1))
+                torch.logsumexp(capped(s_), -1))
 
-    runs["eval_fused_lm_bf16"] = (
+    runs[f"eval_fused_{tag}"] = (
         lambda: ek.eval_fused(xe, y, te, 1, tgt_scores=tgt_e, **ekw),
         lambda: ref.eval_fused_ref(xe, y, te, 1, tgt_scores=tgt_e, **ekw),
         eval_library)
-    bounds["eval_fused_lm_bf16"] = bf16_bound(
+    bounds[f"eval_fused_{tag}"] = bf16_bound(
         2 * (n_e * d + vocab * d) + 4 * 2 * n_e + 8 * n_e + 16 * n_e,
         2 * n_e * vocab * d, n_e * vocab)
     n_rows = int(torch.unique(te).numel())
-    runs["eval_tgt_gather_lm_bf16"] = (
+    runs[f"eval_tgt_gather_{tag}"] = (
         lambda: ek.eval_tgt_gather(xe, y, te),
         lambda: ref.eval_tgt_gather_ref(xe, y, te),
         lambda: (xe * y[te.long()]).float().sum(-1))
-    bounds["eval_tgt_gather_lm_bf16"] = bf16_bound(
+    bounds[f"eval_tgt_gather_{tag}"] = bf16_bound(
         2 * (n_e * d + n_rows * d) + 4 * n_e + 4 * n_e, 2 * n_e * d, 0)
 
     # the full-CE baseline's deep linear_ce: one microbatch
     gr = torch.rand(LM_SEQ, generator=g, device=dev) + 0.5
-    loss, lse = linear_sce._fwd(x, y, targets, LM_CAP)
+    loss, lse = linear_sce._fwd(x, y, targets, cap)
     same("linear_ce forward", (loss, lse), linear_sce._fwd(
-        x, y, targets, LM_CAP), "a second launch")
-    errs["linear_ce_fwd_lm_bf16"] = within(
-        "linear_ce lse", lse, ref.fused_lse_ref(x, y, logit_softcap=LM_CAP),
+        x, y, targets, cap), "a second launch")
+    errs[f"linear_ce_fwd_{tag}"] = within(
+        "linear_ce lse", lse, ref.fused_lse_ref(x, y, logit_softcap=cap),
         1e-5)
-    pair = linear_sce._bwd_deep(x, y, targets, lse, gr, LM_CAP, True, True)
+    pair = linear_sce._bwd_deep(x, y, targets, lse, gr, cap, True, True)
     check(pair[0].dtype == pair[1].dtype == bf,
           "lm bf16: the full-CE gradients are not bf16")
     same("linear_ce backward", pair, linear_sce._bwd_deep(
-        x, y, targets, lse, gr, LM_CAP, True, True), "a second launch")
+        x, y, targets, lse, gr, cap, True, True), "a second launch")
     cargs = (x, y, targets, lse, gr)
-    errs["linear_ce_bwd_lm_bf16"] = max(
+    errs[f"linear_ce_bwd_{tag}"] = max(
         within("linear_ce dX", pair[0], ref.linear_ce_dx_ref(
-            *cargs, logit_softcap=LM_CAP), 3e-2),
+            *cargs, logit_softcap=cap), 3e-2),
         within("linear_ce dW", pair[1], ref.linear_ce_dw_ref(
-            *cargs, logit_softcap=LM_CAP), 3e-2))
+            *cargs, logit_softcap=cap), 3e-2))
     del pair
-    ce = full_ce_runs("linear_ce", x, y, targets, LM_CAP, lse, gr,
+    ce = full_ce_runs("linear_ce", x, y, targets, cap, lse, gr,
                       (lse - loss).detach())
-    runs["linear_ce_fwd_lm_bf16"] = ce["linear_ce_fwd_lm"]
-    runs["linear_ce_bwd_lm_bf16"] = ce["linear_ce_bwd_lm"]
-    # fused_lse's deep entries (no pluck, no cap; no LM path runs them:
-    # their times go to --json only)
-    f_lse = linear_sce._fwd(x, y, None, None)[1]
-    errs["fused_lse_fwd_lm_bf16"] = within(
-        "fused_lse", f_lse, ref.fused_lse_ref(x, y), 1e-5)
-    pair = linear_sce._bwd_deep(x, y, None, f_lse, gr, None, True, True)
-    errs["fused_lse_bwd_lm_bf16"] = max(
-        within("fused_lse dX", pair[0], ref.linear_ce_dx_ref(
-            x, y, None, f_lse, gr), 3e-2),
-        within("fused_lse dY", pair[1], ref.linear_ce_dw_ref(
-            x, y, None, f_lse, gr), 3e-2))
-    del pair
-    fe = full_ce_runs("fused_lse", x, y, None, None, f_lse, gr, None)
-    runs["fused_lse_fwd_lm_bf16"] = fe["fused_lse_fwd_lm"]
-    runs["fused_lse_bwd_lm_bf16"] = fe["fused_lse_bwd_lm"]
+    runs[f"linear_ce_fwd_{tag}"] = ce["linear_ce_fwd_lm"]
+    runs[f"linear_ce_bwd_{tag}"] = ce["linear_ce_bwd_lm"]
+    if extras:
+        # fused_lse's deep entries (no pluck, no cap; no LM path runs
+        # them: their times go to --json only)
+        f_lse = linear_sce._fwd(x, y, None, None)[1]
+        errs[f"fused_lse_fwd_{tag}"] = within(
+            "fused_lse", f_lse, ref.fused_lse_ref(x, y), 1e-5)
+        pair = linear_sce._bwd_deep(x, y, None, f_lse, gr, None, True, True)
+        errs[f"fused_lse_bwd_{tag}"] = max(
+            within("fused_lse dX", pair[0], ref.linear_ce_dx_ref(
+                x, y, None, f_lse, gr), 3e-2),
+            within("fused_lse dY", pair[1], ref.linear_ce_dw_ref(
+                x, y, None, f_lse, gr), 3e-2))
+        del pair
+        fe = full_ce_runs("fused_lse", x, y, None, None, f_lse, gr, None)
+        runs[f"fused_lse_fwd_{tag}"] = fe["fused_lse_fwd_lm"]
+        runs[f"fused_lse_bwd_{tag}"] = fe["fused_lse_bwd_lm"]
     n = LM_SEQ
     io = 2 * (n * d + vocab * d)
     for fam in ("linear_ce", "fused_lse"):
-        bounds[f"{fam}_fwd_lm_bf16"] = bf16_bound(
+        bounds[f"{fam}_fwd_{tag}"] = bf16_bound(
             io + 4 * 4 * n, 2 * n * vocab * d, n * vocab)
-        bounds[f"{fam}_bwd_lm_bf16"] = bf16_bound(
+        bounds[f"{fam}_bwd_{tag}"] = bf16_bound(
             2 * io + 4 * 4 * n, 3 * 2 * n * vocab * d, n * vocab)
 
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
-    sweep_slab = slab_sweep_times("eval_sweep_slab_lm_bf16", xe[:1024], y,
-                                  te[:1024], tgt_e[:1024], cfg.vocab, flush)
+    sweep_slab = (slab_sweep_times(f"eval_sweep_slab_{tag}", xe[:1024], y,
+                                   te[:1024], tgt_e[:1024], cfg.vocab,
+                                   flush) if extras else None)
     timings = {}
     with torch.no_grad():
         for name, (kern, plain, lib) in runs.items():
@@ -4068,7 +4099,7 @@ def lm_bf16_kernel_phase(dev, cfg):
               f"{t['plain_ms']:.3f} ms, library (bf16) "
               f"{t['library_ms']:.4f} ms, bound {bound_text(t)}; max |Δ| "
               f"from the plain version {t['max_abs_err']:.3e}")
-    print("  lm bf16: every kernel on the bf16 wgmma product repeats bit for "
+    print(f"  {tag}: every kernel on the bf16 wgmma product repeats bit for "
           "bit; the selections and eval within 1e-5·max + 2e-4·|·| of f64 "
           "(ids where the gap is above it; gt within the columns that close "
           "to the target, eq >= 1), every target score its slab column bit "
@@ -4199,14 +4230,62 @@ def lm_full_ce_kernels(dev, x, y, t, g, flush):
     return timings, errs
 
 
-def lm_full_ce_phase(dev, cfg, sce):
-    """gemma-2-2b's full-CE baseline, the paper's comparison at LM scale:
-    ``train("gemma2-2b", …, steps=2, train_loss="ce_fused_linear")`` from
-    the SCE run's seed (the same initial parameters and batches), the
-    softcap 30 inside the deep ``linear_ce`` (no SCE selection, no
-    evaluation): its launch counts from 0 around the run, finite and
-    falling loss, its median step, phases and peak memory printed beside
-    SCE's (``sce``: :func:`lm_train_phase`'s result)."""
+def lm_micro(arch):
+    """train_4k's microbatches of an LM arch: one sequence each, so also
+    the sequences a step here (gemma-2: 2, granite: 8)."""
+    from repro_torch.configs import get_arch
+
+    return get_arch(arch).microbatches["train_4k"]
+
+
+def lm_phases(n_micro, sce=True):
+    """The ``mark`` phases of an LM step of ``n_micro`` microbatches."""
+    per = ("forward", "select", "loss_forward", "backward") if sce else (
+        "forward", "loss_forward", "backward")
+    return ("h2d",) + per * n_micro + ("optimizer",)
+
+
+class MemMarks(StepMarks):
+    """:class:`StepMarks` that also reads, at each mark, the bytes the
+    caching allocator holds for tensors and their peak since the reset
+    (host-side counters: no sync)."""
+
+    def __init__(self, phases):
+        super().__init__(phases)
+        self.mem = []
+
+    def __call__(self, name):
+        import torch
+
+        super().__call__(name)
+        if name == "start":
+            self.mem.append([])
+        self.mem[-1].append((name, torch.cuda.memory_allocated(),
+                             torch.cuda.max_memory_allocated()))
+
+    def peak_phase(self):
+        """(step, index of the phase, its name, the peak) of the mark
+        where the run's peak was first seen, and each step's allocated
+        bytes at its start."""
+        peak = max(m[2] for step in self.mem for m in step)
+        for i, step in enumerate(self.mem):
+            for j, (name, _, top) in enumerate(step):
+                if top == peak:
+                    return {"step": i, "mark": j, "phase": name,
+                            "peak": peak,
+                            "start_bytes": [st[0][1] for st in self.mem]}
+        return None
+
+
+def lm_full_ce_phase(dev, cfg, sce, arch="gemma2-2b"):
+    """An LM's full-CE baseline, the paper's comparison at LM scale:
+    ``train(arch, …, steps=2, train_loss="ce_fused_linear")`` from the
+    SCE run's seed (the same initial parameters and batches), the final
+    softcap (gemma-2's 30; granite has none) inside the deep
+    ``linear_ce`` (no SCE selection, no evaluation): its launch counts
+    from 0 around the run, finite and falling loss, its median step,
+    phases and peak memory printed beside SCE's (``sce``:
+    :func:`lm_train_phase`'s result)."""
     import statistics
 
     import torch
@@ -4214,9 +4293,11 @@ def lm_full_ce_phase(dev, cfg, sce):
     from repro_torch.kernels import guard, linear_sce
     from repro_torch.launch.train import train
 
+    n_micro = lm_micro(arch)
+    phases = lm_phases(n_micro, sce=False)
     counters = (linear_sce.linear_ce_fwd, linear_sce.linear_ce_dx,
                 linear_sce.linear_ce_dw, linear_sce.linear_ce_split)
-    marks = StepMarks(LM_CE_PHASES)
+    marks = MemMarks(phases)
     guard.run_conformance(device=dev)  # the canaries' launches come first
     gc.collect()
     torch.cuda.empty_cache()
@@ -4226,7 +4307,7 @@ def lm_full_ce_phase(dev, cfg, sce):
     for fn in counters:  # the full-CE LM path starts here
         fn.launches = 0
     t0 = time.monotonic()
-    out = train("gemma2-2b", cfg=cfg, batch=LM_BATCH, seq_len=LM_SEQ,
+    out = train(arch, cfg=cfg, batch=n_micro, seq_len=LM_SEQ,
                 steps=LM_CE_STEPS, seed=0, log_every=1, device=dev,
                 guard_policy="warn", mark=marks,
                 train_loss="ce_fused_linear")
@@ -4234,7 +4315,7 @@ def lm_full_ce_phase(dev, cfg, sce):
     launches = {fn.__name__: fn.launches for fn in counters}  # ... ends here
     peak = torch.cuda.max_memory_allocated(dev)
     losses = out["losses"]
-    n_mb = LM_CE_STEPS * 2
+    n_mb = LM_CE_STEPS * n_micro
     check(len(losses) == LM_CE_STEPS
           and all(math.isfinite(v) for v in losses),
           f"full-CE LM losses {losses}")
@@ -4249,84 +4330,102 @@ def lm_full_ce_phase(dev, cfg, sce):
     median_ms = statistics.median(out["step_s"][1:]) * 1e3
     bd = marks.breakdown()
     sce_bd = sce["breakdown"]
-    print(f"  gemma-2-2b {cfg.dtype} ({lm_depth(cfg)}), "
+    print(f"  {arch} {cfg.dtype} ({lm_depth(cfg, arch)}), "
           f"train_loss=ce_fused_linear: {LM_CE_STEPS} "
-          f"steps of {LM_BATCH} × {LM_SEQ} tokens in {wall_s:.2f} s; loss "
+          f"steps of {n_micro} × {LM_SEQ} tokens in {wall_s:.2f} s; loss "
           f"{' → '.join(f'{v:.4f}' for v in losses)}; median step "
           f"{median_ms:.1f} ms against SCE's {sce['median_step_ms']:.1f} ms "
           f"(host clock, steps 2–); launches {launches}")
     print("  full-CE step breakdown: " + " + ".join(
-        f"{p} {bd[p + '_ms']:.1f}" for p in dict.fromkeys(LM_CE_PHASES))
+        f"{p} {bd[p + '_ms']:.1f}" for p in dict.fromkeys(phases))
         + f" = {sum(bd.values()):.1f} ms; SCE's: " + " + ".join(
-            f"{p} {sce_bd[p + '_ms']:.1f}" for p in dict.fromkeys(LM_PHASES))
-        + f" = {sum(sce_bd.values()):.1f} ms (device events, both "
-          f"microbatches, steps 2–)")
+            f"{p} {sce_bd[p + '_ms']:.1f}"
+            for p in dict.fromkeys(lm_phases(n_micro)))
+        + f" = {sum(sce_bd.values()):.1f} ms (device events, all "
+          f"{n_micro} microbatches, steps 2–)")
     print(f"  peak device memory: full CE {peak / 2**30:.2f} GiB against "
           f"SCE's {sce['peak_bytes'] / 2**30:.2f} GiB (max_memory_allocated;"
           f" {live / 2**30:.2f} GiB live before)")
     return {"losses": losses, "step_s": out["step_s"], "wall_s": wall_s,
             "median_step_ms": median_ms, "breakdown": bd,
             "launches": launches, "peak_bytes": peak,
-            "live_bytes_before": live}
+            "live_bytes_before": live, "peak_phase": marks.peak_phase()}
 
 
-def lm_depth(cfg):
+def lm_depth(cfg, arch="gemma2-2b"):
     """The layers, and ``reduced`` where depth was cut."""
-    from repro_torch.configs.gemma2_2b import make_config
+    from repro_torch.configs import get_arch
 
-    full = make_config().n_layers
+    full = get_arch(arch).make_config().n_layers
     return (f"{cfg.n_layers} layers" if cfg.n_layers == full else
             f"{cfg.n_layers} layers, reduced from {full}")
 
 
-def lm_train_phase(dev, cfg, steps=LM_STEPS):
-    """``train("gemma2-2b", cfg=…, batch=2, seq_len=4096, steps=4,
-    sce_mode="exact")`` at full width under the guard's ``warn``: 2
-    microbatches of one sequence (4,096 positions) a step, SCE (n_b 128,
-    b_x 128, b_y 1024, cap 30) through the deep ``mips_topk`` chain and
-    ``sce_gather_plse``, guarded AdamW written in place, and after the
-    last step the token-rank evaluation of 2 held-out sequences (8,192
-    rows: ``eval_fused`` at k 1 with the LSE). The launch counts from 0
-    around the run, its median step and phases (``mark``), and the peak
-    memory."""
+def lm_train_phase(dev, cfg, steps=LM_STEPS, arch="gemma2-2b"):
+    """``train(arch, cfg=…, batch=n, seq_len=4096, steps=4,
+    sce_mode="exact")`` at full width under the guard's ``warn``: train_4k's
+    n microbatches of one sequence (4,096 positions; gemma-2: 2, granite:
+    8) a step, SCE at the arch's parameters (gemma-2: n_b 128, b_x 128,
+    b_y 1024, cap 30; granite: b_y 512, no cap) through the deep
+    ``mips_topk`` chain and ``sce_gather_plse``, the arch's optimizer's
+    guarded update written in place, and after the last step the
+    token-rank evaluation of 2 held-out sequences (8,192 rows:
+    ``eval_fused`` at k 1 with the LSE). The launch counts from 0 around
+    the run, its median step and phases (``mark``), the peak memory and
+    the mark where it was reached; for an MoE model the assignments its
+    forwards dropped, per step (``models/moe.py::count_drops``)."""
+    import contextlib
     import statistics
 
     import torch
 
-    from repro_torch.kernels import eval_fused, sce_prefetch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import eval_fused, guard, sce_prefetch
     from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.launch.steps import build_sce_config
     from repro_torch.launch.train import train
+    from repro_torch.models import moe
 
+    n_micro = lm_micro(arch)
+    phases = lm_phases(n_micro)
+    sce_cfg = build_sce_config(
+        LM_SEQ, cfg.vocab, bucket_size_y=get_arch(arch).sce_bucket_size_y,
+        logit_softcap=cfg.final_softcap)
     counters = (mips_topk, *(getattr(sce_prefetch, n) for n in GATHER + PLSE),
                 sce_prefetch.sce_gather_dy_sum, eval_fused.eval_fused,
                 eval_fused.eval_tgt_gather)
-    marks = StepMarks(LM_PHASES)
+    marks = MemMarks(phases)
+    guard.run_conformance(device=dev)  # the canaries' launches come first
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     live = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
+    counting = (moe.count_drops() if cfg.moe is not None
+                else contextlib.nullcontext([]))
     for fn in counters:  # the LM main path starts here
         fn.launches = 0
     mips_topk.launches_by_k.clear()
     t0 = time.monotonic()
-    out = train("gemma2-2b", cfg=cfg, batch=LM_BATCH, seq_len=LM_SEQ,
-                steps=steps, seed=0, sce_mode="exact", log_every=1,
-                eval_every=steps, eval_users=LM_EVAL_SEQS, device=dev,
-                guard_policy="warn", mark=marks)
+    with counting as drops:
+        out = train(arch, cfg=cfg, batch=n_micro, seq_len=LM_SEQ,
+                    steps=steps, seed=0, sce_mode="exact", log_every=1,
+                    eval_every=steps, eval_users=LM_EVAL_SEQS, device=dev,
+                    guard_policy="warn", mark=marks)
     wall_s = time.monotonic() - t0
     launches = {fn.__name__: fn.launches for fn in counters}  # ... ends here
     by_k = dict(mips_topk.launches_by_k)
     peak = torch.cuda.max_memory_allocated(dev)
     losses = out["losses"]
-    n_mb = steps * 2  # two microbatches a step
+    n_mb = steps * n_micro
     check(len(losses) == steps and all(math.isfinite(v) for v in losses),
           f"LM losses {losses}")
     check(losses[-1] < losses[0], f"LM loss {losses[-1]} is not below the "
           f"first step's {losses[0]}")
     check(out["skipped_steps"] == 0, f"{out['skipped_steps']} steps skipped")
-    check(by_k == {128: n_mb, 1024: n_mb},
-          f"mips_topk by k {by_k}, not 128 and 1024 {n_mb} times each")
+    b_x, b_y = sce_cfg.bucket_size_x, sce_cfg.bucket_size_y
+    check(by_k == {b_x: n_mb, b_y: n_mb},
+          f"mips_topk by k {by_k}, not {b_x} and {b_y} {n_mb} times each")
     for name in PLSE + ("sce_gather_dy_sum",):
         check(launches[name] == n_mb,
               f"{name} launched {launches[name]} times, not {n_mb}")
@@ -4338,49 +4437,99 @@ def lm_train_phase(dev, cfg, steps=LM_STEPS):
     ev = out["eval"]
     check(ev["n_tokens"] == LM_EVAL_SEQS * (LM_SEQ - 1)
           and math.isfinite(ev["loss"]), f"token-rank eval {ev}")
+    dropped = None
+    if cfg.moe is not None:
+        # the steps' forwards: n_micro × n_layers routings a step, then
+        # the evaluation's
+        per_step = n_micro * cfg.n_layers
+        check(len(drops) >= steps * per_step, f"{len(drops)} MoE routings "
+              f"counted, fewer than the steps' {steps * per_step}")
+        dropped = [int(sum(int(n) for n, _ in
+                           drops[i * per_step:(i + 1) * per_step]))
+                   for i in range(steps)]
+        assigned = sum(a for _, a in drops[:per_step])
+        check(all(0 <= v <= assigned for v in dropped),
+              f"MoE drops {dropped} of {assigned}")
     median_ms = statistics.median(out["step_s"][1:]) * 1e3
     bd = marks.breakdown()
-    print(f"  gemma-2-2b {cfg.dtype} ({lm_depth(cfg)}; "
-          f"{cfg.param_count():,} parameters): "
-          f"{steps} steps of {LM_BATCH} × {LM_SEQ} tokens in "
-          f"{wall_s:.2f} s (evaluation and set-up included); loss "
-          f"{' → '.join(f'{v:.4f}' for v in losses)}; median step "
-          f"{median_ms:.1f} ms (host clock, steps 2–{steps}); launches "
-          f"{launches}, mips_topk by k {by_k}; [eval] {ev}")
+    print(f"  {arch} {cfg.dtype} ({lm_depth(cfg, arch)}; "
+          f"{cfg.param_count():,} parameters; SCE n_b {sce_cfg.n_buckets}, "
+          f"b_x {b_x}, b_y {b_y}, cap {sce_cfg.logit_softcap}): "
+          f"{steps} steps of {n_micro} × {LM_SEQ} tokens in "
+          f"{n_micro} microbatches in {wall_s:.2f} s (evaluation and set-up "
+          f"included); loss {' → '.join(f'{v:.4f}' for v in losses)}; "
+          f"median step {median_ms:.1f} ms (host clock, steps 2–{steps}); "
+          f"launches {launches}, mips_topk by k {by_k}; [eval] {ev}")
+    if dropped is not None:
+        print(f"  MoE assignments dropped per step (capacity "
+              f"{cfg.moe.capacity(LM_SEQ)} a sequence, "
+              f"{cfg.moe.n_experts} experts, top-{cfg.moe.top_k}): "
+              f"{dropped} of {assigned} ({dropped[-1] / assigned:.3%} in "
+              f"the last)")
     total = sum(bd.values())
-    sce_ms = bd["select_ms"] + bd["loss_forward_ms"]
+    sce_ms = sum(bd[p + "_ms"] for p in ("select", "loss_forward"))
     print("  step breakdown: " + " + ".join(
-        f"{p} {bd[p + '_ms']:.1f}" for p in dict.fromkeys(LM_PHASES))
-        + f" = {total:.1f} ms (device events, both microbatches,"
+        f"{p} {bd[p + '_ms']:.1f}" for p in dict.fromkeys(phases))
+        + f" = {total:.1f} ms (device events, all {n_micro} microbatches,"
         f" mean of steps 2–{steps}); SCE's selection and loss forward "
         f"{sce_ms:.1f} ms = {sce_ms / total:.1%} of it (its backward "
         f"kernels run inside the backward phase)")
+    pk = marks.peak_phase()
     print(f"  peak device memory of the run: {peak / 2**30:.2f} GiB "
-          f"(max_memory_allocated; {live / 2**30:.2f} GiB live before)")
+          f"(max_memory_allocated; {live / 2**30:.2f} GiB live before), "
+          f"first reached by mark {pk['mark']} ({pk['phase']}) of step "
+          f"{pk['step'] + 1}; allocated at each step's start "
+          + ", ".join(f"{v / 2**30:.2f}" for v in pk["start_bytes"])
+          + " GiB")
     return {"losses": losses, "step_s": out["step_s"], "wall_s": wall_s,
             "median_step_ms": median_ms, "breakdown": bd,
             "launches": launches, "mips_topk_launches_by_k": by_k,
             "eval": ev, "peak_bytes": peak, "live_bytes_before": live,
-            "dtype": cfg.dtype, "n_layers": cfg.n_layers}
+            "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+            "peak_phase": pk, "moe_dropped": dropped,
+            "sce": (sce_cfg.n_buckets, b_x, b_y)}
 
 
-def lm_serve_phase(dev, cfg):
+def lm_serve_phase(dev, cfg, arch="gemma2-2b"):
     """On random weights (seed 1): the token-rank evaluation of 2
     held-out sequences timed by its phases (rows/s), then a 512-token
     prompt prefilled and 8 tokens decoded, the last decode's logits held
     to a forward over all 520 tokens (teacher forcing: the decoded tokens
-    are the sequence's own)."""
+    are the sequence's own). An MoE model routes the prefill, each
+    one-token decode step and the forward each by its own capacity, and
+    a token's top-k can differ between the paths where two router
+    probabilities lie within rounding: either changes the token's FFN,
+    and the change cascades. So the drops of each path and the (layer,
+    token) pairs routed unlike the forward are counted and printed beside
+    the difference, then the same at a capacity factor at which nothing
+    can drop (``n_experts / top_k``); the comparison is held on the same
+    weights with every token routed to every expert (top-k =
+    ``n_experts``, capacity L: no choice to flip, nothing dropped; the
+    sort, ranks, dispatch and combine still run): printed in bf16 (the
+    layers' bf16 rounding in two orders), held on the weights widened to
+    f32 (exact) within ``1e-3`` of the scale."""
+    import dataclasses
+
     import torch
 
     from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
     from repro_torch.eval import evaluate_streaming_lm
     from repro_torch.launch.steps import (make_lm_decode_step,
                                           make_lm_prefill_step)
-    from repro_torch.models import transformer
+    from repro_torch.models import moe, transformer
+
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
 
     gc.collect()
     torch.cuda.empty_cache()
     params = transformer.init_params(cfg, seed=1, device=dev)
+    leaves = tree_leaves(params)
+    n_values = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"  parameters as stored (padded: heads, experts, vocabulary): "
+          f"{n_values:,} values, {n_bytes:,} B; {cfg.param_count():,} "
+          f"counted as the reference counts them")
+    del leaves
     held, _ = SequenceDataset(SeqDataConfig(
         n_items=cfg.vocab, seq_len=LM_SEQ, batch_size=LM_EVAL_SEQS,
         min_len_frac=1.0)).heldout_batch(Cursor(seed=0))
@@ -4399,45 +4548,159 @@ def lm_serve_phase(dev, cfg):
           + ", ".join(f"{p} {bd[p + '_ms']:.1f}" for p in EVAL_PHASES)
           + f" ms; {ev}")
     tok = torch.from_numpy(held["tokens"][:1, :LM_PROMPT + LM_DECODE]).to(dev)
-    prefill = make_lm_prefill_step(cfg, cache_len=LM_PROMPT + LM_DECODE)
-    decode = make_lm_decode_step(cfg)
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    logits, cache = prefill(params, tok[:, :LM_PROMPT])
-    torch.cuda.synchronize()
-    prefill_ms = (time.monotonic() - t0) * 1e3
-    step_ms = []
-    for j in range(LM_DECODE):
-        t0 = time.monotonic()
-        logits, cache = decode(params, cache, tok[:, LM_PROMPT + j:
-                                                  LM_PROMPT + j + 1],
-                               LM_PROMPT + j)
+    routed = []  # an MoE model's expert ids, one (1, S) tensor a routing
+    dispatch = moe.dispatch
+
+    def spy(probs, cfg_, capacity):
+        r = dispatch(probs, cfg_, capacity)
+        routed.append(r.expert)
+        return r
+
+    def decode_run(cfg_, params_):
+        """Prefill, decode, then the forward → (last logits, the
+        forward's, prefill ms, decode ms, drops of prefill / decode /
+        forward, the (layer, position) pairs whose top-k experts differ
+        between the prefill or decode path and the forward)."""
+        prefill = make_lm_prefill_step(cfg_, cache_len=LM_PROMPT + LM_DECODE)
+        decode = make_lm_decode_step(cfg_)
+        drops = {}
+        routed.clear()
         torch.cuda.synchronize()
-        step_ms.append((time.monotonic() - t0) * 1e3)
-    with torch.no_grad():
-        hidden, _ = transformer.forward(params, cfg, tok)
-        want = transformer.logits_from_hidden(params, cfg, hidden[:, -1:])
-    err = (logits - want).abs().max().item()
-    scale = want[..., :cfg.vocab].abs().max().item()
-    check(bool(torch.isfinite(logits[..., :cfg.vocab]).all())
-          and logits.shape == (1, 1, cfg.vocab_padded),
-          f"decode logits {tuple(logits.shape)}")
+        t0 = time.monotonic()
+        with moe.count_drops() as d_:
+            logits, cache = prefill(params_, tok[:, :LM_PROMPT])
+        torch.cuda.synchronize()
+        prefill_ms = (time.monotonic() - t0) * 1e3
+        drops["prefill"] = d_
+        step_ms = []
+        with moe.count_drops() as d_:
+            for j in range(LM_DECODE):
+                t0 = time.monotonic()
+                logits, cache = decode(params_, cache, tok[
+                    :, LM_PROMPT + j:LM_PROMPT + j + 1], LM_PROMPT + j)
+                torch.cuda.synchronize()
+                step_ms.append((time.monotonic() - t0) * 1e3)
+        drops["decode"] = d_
+        with torch.no_grad(), moe.count_drops() as d_:
+            hidden, _ = transformer.forward(params_, cfg_, tok)
+            want = transformer.logits_from_hidden(params_, cfg_,
+                                                  hidden[:, -1:])
+        drops["forward"] = d_
+        counts = {k: int(sum(int(n) for n, _ in v)) for k, v in drops.items()}
+        flips = None
+        if cfg_.moe is not None:
+            n_l, k = cfg_.n_layers, cfg_.moe.top_k
+            ids = [e.reshape(-1, k).sort(-1).values for e in routed]
+            pre, dec, fwd = (ids[:n_l], ids[n_l:n_l * (1 + LM_DECODE)],
+                             ids[n_l * (1 + LM_DECODE):])
+            check(len(fwd) == n_l, f"{len(routed)} MoE routings recorded")
+            flips = sum(int((pre[i] != fwd[i][:LM_PROMPT]).any(-1).sum())
+                        for i in range(n_l))
+            flips += sum(int((dec[j * n_l + i][0] != fwd[i][LM_PROMPT + j])
+                             .any()) for j in range(LM_DECODE)
+                         for i in range(n_l))
+        return logits, want, prefill_ms, step_ms, counts, flips
+
+    def held_to(logits, want):
+        err = (logits - want).abs().max().item()
+        scale = want[..., :cfg.vocab].abs().max().item()
+        check(bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+              and logits.shape == (1, 1, cfg.vocab_padded),
+              f"decode logits {tuple(logits.shape)}")
+        return err, scale, bool(logits.argmax(-1).eq(want.argmax(-1)).all())
+
     # f32: 1e-3 of the scale; bf16 (8 bits of mantissa, the KV cache and
     # the attention in another order): the reference's bf16 tolerance
     tol = 1e-3 if cfg.dtype == "float32" else 3e-2
-    check(err <= tol * scale, f"the last decode's logits differ from the "
-          f"forward's by {err:.3e} (scale {scale:.3e}, tolerance {tol})")
-    top_equal = bool(logits.argmax(-1).eq(want.argmax(-1)).all())
-    print(f"  prefill {LM_PROMPT} tokens {prefill_ms:.1f} ms, {LM_DECODE} "
-          f"decode steps {', '.join(f'{t:.1f}' for t in step_ms)} ms (host "
-          f"clock); the last decode's logits against a forward over "
-          f"{LM_PROMPT + LM_DECODE} tokens: max |Δ| {err:.3e} (scale "
-          f"{scale:.3f}, tolerance {tol} of it, {cfg.dtype}), the same "
-          f"argmax: {top_equal} ok")
-    return {"eval": ev, "eval_s": eval_s, "eval_rows_per_s": rows / eval_s,
-            "eval_breakdown": bd, "prefill_ms": prefill_ms,
-            "decode_ms": step_ms, "decode_max_abs_err": err,
-            "decode_scale": scale, "decode_argmax_equal": top_equal}
+    moe.dispatch = spy
+    try:
+        logits, want, prefill_ms, step_ms, counts, flips = decode_run(
+            cfg, params)
+        err, scale, top_equal = held_to(logits, want)
+        out = {"eval": ev, "eval_s": eval_s,
+               "eval_rows_per_s": rows / eval_s, "eval_breakdown": bd,
+               "prefill_ms": prefill_ms, "decode_ms": step_ms,
+               "decode_max_abs_err": err, "decode_scale": scale,
+               "decode_argmax_equal": top_equal, "param_values": n_values,
+               "param_bytes": n_bytes}
+        n_pairs = cfg.n_layers * (LM_PROMPT + LM_DECODE)
+        print(f"  prefill {LM_PROMPT} tokens {prefill_ms:.1f} ms, "
+              f"{LM_DECODE} decode steps "
+              f"{', '.join(f'{t:.1f}' for t in step_ms)} ms (host clock); "
+              f"the last decode's logits against a forward over "
+              f"{LM_PROMPT + LM_DECODE} tokens: max |Δ| {err:.3e} (scale "
+              f"{scale:.3f}, tolerance {tol} of it, {cfg.dtype}), the same "
+              f"argmax: {top_equal}"
+              + ("" if cfg.moe is None else
+                 f"; MoE assignments dropped: prefill {counts['prefill']}, "
+                 f"decode {counts['decode']}, forward {counts['forward']}; "
+                 f"(layer, token) pairs routed to other experts than the "
+                 f"forward's: {flips} of {n_pairs}"))
+        if cfg.moe is None:
+            check(err <= tol * scale, f"the last decode's logits differ "
+                  f"from the forward's by {err:.3e} (scale {scale:.3e}, "
+                  f"tolerance {tol})")
+            print("  decode against the forward ok")
+            return out
+        # An MoE model: a routing unlike the forward's (a drop, or a top-k
+        # that rounding reorders where two router probabilities nearly
+        # tie) changes that token's FFN, and such a change cascades into
+        # later layers and tokens. So: the same at a capacity factor that
+        # drops nothing (printed: what the near-ties alone do), then where
+        # the routing has no choice to make — every token to every expert
+        # (top-k = n_experts, capacity = L: nothing drops) — in bf16
+        # (printed: 32 layers of bf16 rounding in two orders) and held on
+        # the same weights widened to f32 (exact) within 1e-3.
+        check(counts["decode"] == 0, f"a one-token decode step dropped "
+              f"{counts['decode']} assignments")
+        m = cfg.moe
+        roomy = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+        logits, want, _, _, counts_r, flips_r = decode_run(roomy, params)
+        err_r, scale_r, top_r = held_to(logits, want)
+        check(sum(counts_r.values()) == 0, f"capacity factor "
+              f"{roomy.moe.capacity_factor} dropped {counts_r}")
+        every = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, top_k=m.n_experts, capacity_factor=1.0))
+        logits, want, _, _, counts_e, flips_e = decode_run(every, params)
+        err_e, scale_e, top_e = held_to(logits, want)
+        check(sum(counts_e.values()) == 0 and flips_e == 0,
+              f"top-{m.n_experts}: drops {counts_e}, {flips_e} routings "
+              f"unlike the forward's")
+        del logits, want
+        p32 = tree_map(lambda t: t.float(), params)
+        logits, want, _, _, counts_f, flips_f = decode_run(
+            dataclasses.replace(every, dtype="float32"), p32)
+        err_f, scale_f, top_f = held_to(logits, want)
+        del p32, logits, want
+        tol32 = 1e-3
+        check(sum(counts_f.values()) == 0 and flips_f == 0,
+              f"top-{m.n_experts} in f32: drops {counts_f}, {flips_f} "
+              f"routings unlike the forward's")
+        check(err_f <= tol32 * scale_f, f"the last decode's logits differ "
+              f"from the forward's by {err_f:.3e} in f32 with every token "
+              f"routed to every expert (scale {scale_f:.3e}, tolerance "
+              f"{tol32})")
+        print(f"  at capacity factor {roomy.moe.capacity_factor} (nothing "
+              f"dropped): max |Δ| {err_r:.3e} (scale {scale_r:.3f}), the "
+              f"same argmax {top_r}, {flips_r} of {n_pairs} pairs routed "
+              f"unlike the forward; every token to all {m.n_experts} experts"
+              f" (no choice, nothing dropped): bf16 max |Δ| {err_e:.3e} "
+              f"(scale {scale_e:.3f}), the same argmax {top_e}; on the same "
+              f"weights in f32 max |Δ| {err_f:.3e} (scale {scale_f:.3f}, "
+              f"tolerance {tol32} of it), the same argmax {top_f} ok")
+        out.update(moe_dropped=counts, moe_flips=flips,
+                   no_drops={"max_abs_err": err_r, "scale": scale_r,
+                             "argmax_equal": top_r, "flips": flips_r},
+                   every_expert_bf16={"max_abs_err": err_e,
+                                      "scale": scale_e,
+                                      "argmax_equal": top_e},
+                   every_expert_f32={"max_abs_err": err_f,
+                                     "scale": scale_f,
+                                     "argmax_equal": top_f})
+        return out
+    finally:
+        moe.dispatch = dispatch
 
 
 def lm_phase(dev):
@@ -4839,6 +5102,149 @@ def b4r_phase(dev):
             "server": server, "serve_steps": steps_}
 
 
+# ---------------------------------------------------------------------------
+# granite-moe-3b-a800m at full width
+# ---------------------------------------------------------------------------
+GRANITE = "granite-moe-3b-a800m"
+# The kernels line's granite entries: (name, source, the TPU kernel it
+# replaces); their launches come from phase 20's runs.
+GRANITE_KERNELS = (
+    ("mips_topk_positions_k128_granite", "mips_topk.cu", "mips_topk.py:52"),
+    ("mips_topk_vocab_k512_granite", "mips_topk.cu", "mips_topk.py:52"),
+    ("sce_gather_plse_fwd_granite", "sce_gather.cu", "sce_prefetch.py:497"),
+    ("sce_gather_plse_dx_granite", "sce_gather.cu", "sce_prefetch.py:497"),
+    ("sce_gather_plse_dy_granite", "sce_gather.cu", "sce_prefetch.py:497"),
+    ("sce_gather_plse_bwd_granite", "sce_gather.cu", "sce_prefetch.py:497"),
+    ("sce_gather_dy_sum_granite", "sce_gather.cu", "sce_prefetch.py:250"),
+    ("eval_fused_granite", "eval_fused.cu", "eval_fused.py:104"),
+    ("eval_tgt_gather_granite", "eval_fused.cu", "eval_fused.py:82"),
+    ("linear_ce_fwd_granite", "linear_ce.cu", "linear_sce.py:60"),
+    ("linear_ce_bwd_granite", "linear_ce.cu", "linear_sce.py:121"),
+)
+
+
+def granite_config():
+    """granite-moe-3b-a800m as published (``configs/granite_moe.py``)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(GRANITE).make_config()
+    m = cfg.moe
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_heads_padded,
+           cfg.n_kv_heads, cfg.head_dim, m.n_experts, m.n_experts_padded,
+           m.top_k, m.d_ff, m.capacity_factor, cfg.vocab, cfg.vocab_padded,
+           cfg.dtype, cfg.final_softcap, cfg.remat, cfg.tie_embeddings)
+          == (32, 1536, 24, 32, 8, 64, 40, 48, 8, 512, 1.25, 49_155,
+              49_168, "bfloat16", None, True, True),
+          f"granite's published config changed: {cfg}")
+    return cfg
+
+
+def granite_block_phase(dev, cfg, reps=5):
+    """One MoE block of granite at its widths (layer 0 of seed 3's
+    weights, 4,096 tokens of N(0, 1) in bf16): ``apply_moe``'s output,
+    aux and the gradients of ``sum(y · w) + aux`` with respect to the
+    input and every weight repeat bit for bit over two runs, the drops
+    counted; then forward and forward + backward timed (CUDA events, mean
+    of ``reps``)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    params = moe.init_moe(g, cfg.d_model, cfg.moe, dtype=cfg.torch_dtype,
+                          device=dev)
+    x = torch.randn(1, LM_SEQ, cfg.d_model, generator=g,
+                    device=dev).to(cfg.torch_dtype)
+    w = torch.randn(x.shape, generator=g, device=dev).to(cfg.torch_dtype)
+    names = sorted(params)
+
+    def run():
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        xx = x.detach().requires_grad_(True)
+        y, aux = moe.apply_moe(leaves, xx, cfg.moe)
+        grads = torch.autograd.grad((y.float() * w.float()).sum() + aux,
+                                    [xx] + [leaves[k] for k in names])
+        return (y.detach(), aux.detach()) + tuple(grads)
+
+    with moe.count_drops() as drops:
+        first = run()
+    again = run()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "granite's MoE block does not repeat bit for bit")
+    check(all(bool(torch.isfinite(t).all()) for t in first),
+          "granite's MoE block gave a non-finite value")
+    dropped, assigned = int(drops[0][0]), drops[0][1]
+    del first, again
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        a_ = torch.cuda.Event(enable_timing=True)
+        b_ = torch.cuda.Event(enable_timing=True)
+        a_.record()
+        for _ in range(reps):
+            fn()
+        b_.record()
+        torch.cuda.synchronize()
+        return a_.elapsed_time(b_) / reps
+
+    with torch.no_grad():
+        fwd_ms = timed(lambda: moe.apply_moe(params, x, cfg.moe))
+    both_ms = timed(run)
+    print(f"  MoE block (d {cfg.d_model}, {cfg.moe.n_experts} experts "
+          f"padded to {cfg.moe.n_experts_padded}, top-{cfg.moe.top_k}, "
+          f"capacity {cfg.moe.capacity(LM_SEQ)}, {LM_SEQ} tokens, "
+          f"{cfg.dtype}): output, aux and every gradient repeat bit for "
+          f"bit ok; {dropped} of {assigned} assignments dropped; forward "
+          f"{fwd_ms:.3f} ms, forward + backward {both_ms:.3f} ms (CUDA "
+          f"events, mean of {reps})")
+    return {"dropped": dropped, "assigned": assigned, "fwd_ms": fwd_ms,
+            "fwd_bwd_ms": both_ms}
+
+
+def granite_phase(dev):
+    """Phase 20: granite-moe-3b-a800m as published: its kernels at its
+    shapes on bf16, one MoE block, then the main path — SCE training, the
+    full-CE baseline, token rank, prefill and decode."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_sce_config
+
+    cfg = granite_config()
+    sce_cfg = build_sce_config(
+        LM_SEQ, cfg.vocab, bucket_size_y=get_arch(GRANITE).sce_bucket_size_y,
+        logit_softcap=cfg.final_softcap)
+    m = cfg.moe
+    print(f"  {GRANITE} as published: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} query heads (padded to "
+          f"{cfg.n_heads_padded}) over {cfg.n_kv_heads} KV heads of "
+          f"{cfg.head_dim}, {m.n_experts} experts (padded to "
+          f"{m.n_experts_padded}) top-{m.top_k} of d_ff {m.d_ff}, capacity "
+          f"factor {m.capacity_factor} ({m.capacity(LM_SEQ)} slots an "
+          f"expert at {LM_SEQ} tokens), vocabulary {cfg.vocab:,} "
+          f"({cfg.vocab_padded:,} rows), final softcap {cfg.final_softcap},"
+          f" {cfg.dtype}; {cfg.param_count():,} parameters, "
+          f"{cfg.active_param_count():,} active; SCE at {LM_SEQ} positions:"
+          f" n_b {sce_cfg.n_buckets}, b_x {sce_cfg.bucket_size_x}, b_y "
+          f"{sce_cfg.bucket_size_y}")
+    kern = lm_bf16_kernel_phase(dev, cfg, sce_cfg=sce_cfg,
+                                cap=cfg.final_softcap, tag="granite",
+                                extras=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    block = granite_block_phase(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = lm_train_phase(dev, cfg, arch=GRANITE)
+    full_ce = lm_full_ce_phase(dev, cfg, trained, arch=GRANITE)
+    served = lm_serve_phase(dev, cfg, arch=GRANITE)
+    print(f"  card: {smi()}")
+    return {"kernels": kern, "block": block, "train": trained,
+            "full_ce": full_ce, "serve": served}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=Path, default=None,
@@ -4921,6 +5327,9 @@ def main() -> int:
     phase(19, "BERT4Rec at full width: 10⁶ items, trained with SCE, "
               "evaluated by cloze leave-one-out, served")
     b4r = b4r_phase(dev)
+    phase(20, "granite-moe-3b-a800m at full width: its MoE FFN trains with "
+          "SCE, is evaluated by token rank and decodes")
+    granite = granite_phase(dev)
 
     t = timings[512]  # the serve_p99 bucket
     mips = {"route": "cuda",
@@ -5194,6 +5603,36 @@ def main() -> int:
             "launches": launches,
             **{k: tt[k] for k in ("max_abs_err", "ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms")}})
+    # granite (phase 20): its kernels at its shapes, with the launches of
+    # its own main-path runs (SCE training and its evaluation, the
+    # full-CE baseline), each counted from 0 around the run.
+    gk = granite["kernels"]["timings"]
+    g_launch = granite["train"]["launches"]
+    g_by_k = granite["train"]["mips_topk_launches_by_k"]
+    g_ce = granite["full_ce"]["launches"]
+    g_counts = {
+        "mips_topk_positions_k128_granite": g_by_k.get(128, 0),
+        "mips_topk_vocab_k512_granite": g_by_k.get(512, 0),
+        "sce_gather_plse_fwd_granite": g_launch["sce_gather_plse_fwd"],
+        "sce_gather_plse_dx_granite": g_launch["sce_gather_plse_dx"],
+        "sce_gather_plse_dy_granite": g_launch["sce_gather_plse_dy"],
+        # each backward is one launch, counted on dX's and dY's wrappers
+        "sce_gather_plse_bwd_granite": g_launch["sce_gather_plse_dx"],
+        "sce_gather_dy_sum_granite": g_launch["sce_gather_dy_sum"],
+        "eval_fused_granite": g_launch["eval_fused"],
+        "eval_tgt_gather_granite": g_launch["eval_tgt_gather"],
+        "linear_ce_fwd_granite": g_ce["linear_ce_fwd"],
+        "linear_ce_bwd_granite": g_ce["linear_ce_dx"],
+    }
+    for name, src, replaces in GRANITE_KERNELS:
+        tt = gk[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": g_counts[name],
+            **{k: tt[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}})
     missing = [k["name"] for k in kernels if k["launches"] < 1]
     check(not missing, f"kernels of a main path launched no time: {missing}")
     if args.json is not None:
@@ -5212,7 +5651,8 @@ def main() -> int:
             "conformance": conformance, "trainer_exact_guard_off": exact_off,
             "bucket_cases": bcases, "two_pass_cases": tkcases,
             "guard_timings": gtimes, "drills": drills, "checkpoints": ckpt,
-            "lm": lm, "bert4rec": b4r, "kernels": kernels,
+            "lm": lm, "bert4rec": b4r, "granite": granite,
+            "kernels": kernels,
         }, indent=1))
     print(f"[{N_PHASES}/{N_PHASES}] summary")
     print(json.dumps({"kernels": kernels}))

@@ -57,9 +57,8 @@ def register(spec: ArchSpec) -> ArchSpec:
     return spec
 
 
-# The MoE archs (kimi_k2, granite_moe) wait for models/moe.py.
-_ARCH_MODULES = ["deepseek_coder_33b", "yi_6b", "gemma2_2b", "bert4rec",
-                 "sasrec_sce"]
+_ARCH_MODULES = ["deepseek_coder_33b", "yi_6b", "gemma2_2b", "kimi_k2",
+                 "granite_moe", "bert4rec", "sasrec_sce"]
 
 
 def _load_all() -> None:

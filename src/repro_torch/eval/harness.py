@@ -129,7 +129,7 @@ def evaluate_streaming(
     """
     if mesh is not None:
         raise NotImplementedError(
-            "the sharded eval path is not ported: ROADMAP.md queue 14"
+            "the sharded eval path is not ported: ROADMAP.md queue 1 item 14"
         )
     if score_fn is None:
         score_fn = default_score_fn(cfg)
@@ -231,7 +231,7 @@ def evaluate_streaming_lm(
     """
     if mesh is not None:
         raise NotImplementedError(
-            "the sharded eval path is not ported: ROADMAP.md queue 14"
+            "the sharded eval path is not ported: ROADMAP.md queue 1 item 14"
         )
     from repro_torch.core.sce import apply_softcap
 

@@ -24,6 +24,7 @@ from repro_torch.models import sasrec as sasrec_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.optim.optimizers import (
     global_norm,
+    leaf_slices,
     make_optimizer,
     tree_leaves,
     tree_map,
@@ -195,9 +196,11 @@ def _accumulate_microbatches(loss_and_grad_fn, params, batch, generator,
     for i in range(n_micro):
         mb = {k: v[i] for k, v in parts.items()}
         loss, aux, grads = call(mb, None)
-        # in place: acc + g / n, without a second accumulator
-        tree_map(lambda a, g: a.add_(g.to(accum_dtype) / n_micro), acc,
-                 grads)
+        # in place: acc + g / n, without a second accumulator, a large
+        # leaf in slices (elementwise: the same values)
+        for leaf in zip(tree_leaves(acc), tree_leaves(grads)):
+            for a, g in leaf_slices(*leaf):
+                a.add_(g.to(accum_dtype) / n_micro)
         del grads
         acc_loss = loss / n_micro if acc_loss is None else \
             acc_loss + loss / n_micro
@@ -363,8 +366,10 @@ def make_lm_train_step(arch, cfg, shape, *, mesh=None,
     global-bucket loss; the other losses with the cap where they take
     it) plus the MoE aux loss (0 for the dense archs) → autograd → the
     gradients averaged over ``arch.microbatches[shape.name]``
-    microbatches (capped so each spans the data axis) → guarded AdamW at
-    lr 3e-4, written in place (:func:`_apply_update_guarded`).
+    microbatches (capped so each spans the data axis) in
+    ``arch.accum_dtype`` → the guarded update of ``arch.optimizer``
+    (AdamW; kimi-k2's Adafactor) at lr 3e-4, written in place
+    (:func:`_apply_update_guarded`).
 
     SCE's parametrisation (``build_sce_config``) follows the positions a
     microbatch holds on a shard — all of them with ``gspmd`` — with the

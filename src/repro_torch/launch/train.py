@@ -14,10 +14,14 @@ runs one. ``train("gemma2-2b", seq_len=T)`` (and the other
 registered LMs) does the same for a transformer LM: random weights
 (``models/transformer.py``), ``batch`` full-length pseudo-language
 sequences of ``T`` tokens a step, ``make_lm_train_step`` (the arch's
-loss — SCE with the final softcap —, guarded AdamW written in place).
-At the length of one of the arch's train shapes (4096: ``train_4k``) the
-step splits the batch into that shape's microbatches (gemma-2: 2); the
-reference's trainer runs every length as one microbatch. As in the reference, the mesh is always
+loss — SCE with the final softcap —, plus an MoE model's balance loss,
+the arch's optimizer's guarded update written in place). At the length
+of one of the arch's train shapes (4096: ``train_4k``) the step splits
+the batch into that shape's microbatches (gemma-2: 2; granite: 8, so
+``train("granite-moe-3b-a800m", cfg=make_config(), batch=8,
+seq_len=4096)`` steps 8 microbatches of one sequence); the reference's
+trainer runs every length as one microbatch. As in the reference, the
+mesh is always
 ``make_host_mesh(max_data=batch)`` over the ranks of the
 ``torch.distributed`` world (no process group, or one card: a (1, 1)
 mesh), and ``sce_mode`` defaults to ``"exact"``: SCE runs as

@@ -1,5 +1,5 @@
-"""Carry SASRec and transformer-LM weights and their AdamW state across
-from the JAX package.
+"""Carry SASRec and transformer-LM weights (the MoE LMs' included) and
+their AdamW or Adafactor state across from the JAX package.
 
 The port keeps the reference's parameter layout, so conversion is a
 copy: each numpy leaf of the JAX pytree becomes a tensor of the same
@@ -54,10 +54,12 @@ def sasrec_params_from_jax(tree: Mapping, *, device=None):
     return out
 
 
-TRANSFORMER_LAYER_KEYS = ("wq", "wk", "wv", "wo", "norm_attn", "norm_mlp",
-                          "mlp")
+TRANSFORMER_LAYER_KEYS = ("wq", "wk", "wv", "wo", "norm_attn", "norm_mlp")
+TRANSFORMER_FFN_KEYS = ("mlp", "moe")  # one of them: dense or MoE
 TRANSFORMER_POST_NORMS = ("norm_attn_post", "norm_mlp_post")
 MLP_KEYS = ("w_gate", "w_up", "w_down")
+MOE_KEYS = ("router",) + MLP_KEYS
+MOE_SHARED = "shared"
 
 
 def _tree(tree, device):
@@ -73,24 +75,34 @@ def transformer_params_from_jax(tree: Mapping, *, device=None):
     arrays: ``embed`` (V_pad, d), ``norm_final`` (d,), ``unembed`` when
     the embeddings are untied, and ``layers`` stacked ``(n_layers, …)``:
     ``wq``, ``wk``, ``wv``, ``wo``, ``norm_attn``, ``norm_mlp``, the
-    post-block norms when present, and ``mlp`` with ``w_gate``, ``w_up``
-    and ``w_down``. Raises ``KeyError`` on a missing or unexpected key
-    (the MoE layout included). The tensors land on ``device``: ``cuda``
-    unless given (raises without CUDA)."""
+    post-block norms when present, and either ``mlp`` with ``w_gate``,
+    ``w_up`` and ``w_down`` or, for an MoE model, ``moe`` with
+    ``router``, the experts' ``w_gate``, ``w_up``, ``w_down`` and
+    optionally ``shared`` (the shared experts' three). Raises
+    ``KeyError`` on a missing or unexpected key. The tensors land on
+    ``device``: ``cuda`` unless given (raises without CUDA)."""
     device = resolve_device(device)
     top = set(tree) - {"unembed"}
     if top != {"embed", "norm_final", "layers"}:
         raise KeyError(f"expected keys embed, norm_final, layers "
                        f"[, unembed], got {sorted(tree)}")
     layers = tree["layers"]
-    extra = set(layers) - set(TRANSFORMER_LAYER_KEYS)
-    if not set(TRANSFORMER_LAYER_KEYS) <= set(layers) or \
-            extra not in (set(), set(TRANSFORMER_POST_NORMS)):
-        raise KeyError(f"expected layer keys {TRANSFORMER_LAYER_KEYS} "
-                       f"[+ {TRANSFORMER_POST_NORMS}], got {sorted(layers)}")
-    if set(layers["mlp"]) != set(MLP_KEYS):
+    ffn = set(layers) & set(TRANSFORMER_FFN_KEYS)
+    extra = set(layers) - set(TRANSFORMER_LAYER_KEYS) - ffn
+    if not set(TRANSFORMER_LAYER_KEYS) <= set(layers) or len(ffn) != 1 \
+            or extra not in (set(), set(TRANSFORMER_POST_NORMS)):
+        raise KeyError(f"expected layer keys {TRANSFORMER_LAYER_KEYS}, one "
+                       f"of {TRANSFORMER_FFN_KEYS} [+ "
+                       f"{TRANSFORMER_POST_NORMS}], got {sorted(layers)}")
+    if "mlp" in layers and set(layers["mlp"]) != set(MLP_KEYS):
         raise KeyError(f"expected mlp keys {MLP_KEYS}, got "
                        f"{sorted(layers['mlp'])}")
+    if "moe" in layers:
+        moe = layers["moe"]
+        if set(moe) - {MOE_SHARED} != set(MOE_KEYS) or (
+                MOE_SHARED in moe and set(moe[MOE_SHARED]) != set(MLP_KEYS)):
+            raise KeyError(f"expected moe keys {MOE_KEYS} [+ {MOE_SHARED}: "
+                           f"{MLP_KEYS}], got {sorted(moe)}")
     return _tree(tree, device)
 
 
@@ -109,4 +121,31 @@ def adamw_state_from_jax(opt_state, *, device=None) -> OptState:
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                           device=device),
         inner={k: _tree(inner[k], device) for k in ("m", "v")},
+    )
+
+
+def adafactor_state_from_jax(opt_state, *, device=None) -> OptState:
+    """The port's Adafactor state from the reference's ``OptState(step,
+    inner={"v": tree})``, its leaves numpy arrays, each parameter's
+    entry ``{"vr", "vc"}`` (factored) or ``{"v"}``: the step a 0-d int32
+    tensor, the moments f32 trees on ``device`` (``cuda`` unless given;
+    raises without CUDA)."""
+    device = resolve_device(device)
+    step, inner = opt_state
+    if set(inner) != {"v"}:
+        raise KeyError(f"expected Adafactor moments 'v', got {sorted(inner)}")
+
+    def check(t):
+        if not isinstance(t, Mapping):
+            raise KeyError("an Adafactor leaf state is not a dict")
+        if set(t) in ({"vr", "vc"}, {"v"}):
+            return
+        for v in t.values():
+            check(v)
+
+    check(inner["v"])
+    return OptState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=device),
+        inner={"v": _tree(inner["v"], device)},
     )

@@ -1,19 +1,21 @@
 """Decoder-only transformer LM (port of ``repro/models/transformer.py``,
 llama / gemma-style, plain PyTorch).
 
-What the registered dense archs use: GQA, RoPE, SwiGLU, RMSNorm with a
+What the registered archs use: GQA, RoPE, SwiGLU, RMSNorm with a
 ``1 + γ`` gain; gemma-2's alternating local (sliding-window) and global
 attention, attention and final-logit softcaps, post-block norms, tied
-embeddings scaled by ``sqrt(d_model)``; a decode path over a dense KV
-cache whose local layers keep a rolling ``window``-sized cache. The MoE
-FFN (kimi-k2, granite) is not ported: ``TransformerConfig(moe=...)``
-raises.
+embeddings scaled by ``sqrt(d_model)``; the MoE FFN of granite and
+kimi-k2 (``models/moe.py``, ``cfg.moe``) in place of the dense SwiGLU;
+a decode path over a dense KV cache whose local layers keep a rolling
+``window``-sized cache.
 
 Parameters are a plain dict in the reference's layout — ``embed``
 (V_pad, d), ``norm_final`` (d,), optionally ``unembed``, and ``layers``
 whose leaves are stacked ``(n_layers, …)`` with matmul weights
-``(d_in, d_out)`` (``mlp`` holding ``w_gate``, ``w_up``, ``w_down``) —
-so ``models/convert.py`` copies a JAX pytree across without reshaping.
+``(d_in, d_out)`` (``mlp`` holding ``w_gate``, ``w_up``, ``w_down``; an
+MoE model's ``moe`` holding ``router``, the experts' ``w_gate``,
+``w_up``, ``w_down`` and optionally ``shared``) — so
+``models/convert.py`` copies a JAX pytree across without reshaping.
 The layers run in groups of ``len(attn_pattern)`` (one local and one
 global layer for gemma-2), each group checkpointed
 (``torch.utils.checkpoint``) when ``cfg.remat`` is set and gradients
@@ -26,12 +28,13 @@ decides how to touch the vocabulary (SCE, or the streamed full CE).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, take_rows
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     NEG_INF,
     apply_rope,
@@ -62,7 +65,7 @@ class TransformerConfig:
     use_post_norm: bool = False  # gemma-2 style post-block norms
     tie_embeddings: bool = True
     scale_embeddings: bool = False  # gemma-style sqrt(d_model) scaling
-    moe: Optional[Any] = None
+    moe: Optional[moe_lib.MoEConfig] = None
     dtype: str = "float32"
     remat: bool = True
     q_chunk: int = 1024
@@ -71,10 +74,6 @@ class TransformerConfig:
     vocab_pad_multiple: int = 16
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                "the MoE FFN (models/moe.py) is not ported: ROADMAP.md "
-                "queue 1 item 16")
         if self.n_layers % len(self.attn_pattern):
             raise ValueError("n_layers must be a multiple of the attention "
                              "pattern length")
@@ -113,10 +112,26 @@ class TransformerConfig:
         d, dh = self.d_model, self.head_dim
         hp = self.n_heads_padded
         attn = d * (hp + 2 * self.n_kv_heads) * dh + hp * dh * d
-        ffn = 3 * d * self.d_ff
+        if self.moe is not None:
+            m = self.moe
+            ffn = m.n_experts * 3 * d * m.d_ff + d * m.n_experts
+            ffn += m.n_shared_experts * 3 * d * m.d_ff
+        else:
+            ffn = 3 * d * self.d_ff
         norms = (4 if self.use_post_norm else 2) * d
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * (attn + ffn + norms) + emb + d
+
+    def active_param_count(self) -> int:
+        """Parameters a token uses (MoE: its top_k and the shared experts
+        only), as the reference counts them."""
+        if self.moe is None:
+            return self.param_count()
+        m, d = self.moe, self.d_model
+        all_experts = self.n_layers * m.n_experts * 3 * d * m.d_ff
+        active = (self.n_layers * (m.top_k + m.n_shared_experts)
+                  * 3 * d * m.d_ff)
+        return self.param_count() - all_experts + active
 
 
 Params = dict
@@ -127,8 +142,9 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0,
     """Random parameters from ``seed`` on ``device`` (``cuda`` unless
     given; raises without CUDA), drawn there by a ``torch.Generator`` of
     that device: truncated-normal fan-in matmul weights, N(0, 0.02²)
-    tables, zero norm gains (the ``1 + γ`` RMSNorm). The same seed gives
-    the same weights on the same kind of device."""
+    tables, zero norm gains (the ``1 + γ`` RMSNorm); an MoE model's
+    layers take ``moe_lib.init_moe``'s weights in place of the SwiGLU's.
+    The same seed gives the same weights on the same kind of device."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = cfg.torch_dtype
@@ -155,10 +171,15 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0,
     if cfg.use_post_norm:
         layers["norm_attn_post"] = zeros(n, d)
         layers["norm_mlp_post"] = zeros(n, d)
-    mlp = [init_swiglu(gen, d, ff, dtype=dt, device=device)
-           for _ in range(n)]
-    layers["mlp"] = {k: torch.stack([m[k] for m in mlp]) for k in mlp[0]}
-    del mlp
+    if cfg.moe is not None:
+        per_layer = [moe_lib.init_moe(gen, d, cfg.moe, dtype=dt,
+                                      device=device) for _ in range(n)]
+        layers["moe"] = _stack(per_layer)
+    else:
+        per_layer = [init_swiglu(gen, d, ff, dtype=dt, device=device)
+                     for _ in range(n)]
+        layers["mlp"] = _stack(per_layer)
+    del per_layer
     params = {
         "embed": embed_init(gen, (cfg.vocab_padded, d), dtype=dt,
                             device=device),
@@ -177,10 +198,22 @@ def output_embedding(params, cfg: TransformerConfig):
     return params["embed"] if cfg.tie_embeddings else params["unembed"]
 
 
+def _stack(trees):
+    """Per-layer nested dicts of tensors → one dict of stacked leaves."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _slice(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def _layer(params, i: int):
     """Layer ``i``'s slice of the stacked layer parameters."""
-    return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
-                else v[i]) for k, v in params["layers"].items()}
+    return _slice(params["layers"], i)
 
 
 def _embed(params, cfg: TransformerConfig, tokens):
@@ -209,10 +242,17 @@ def _attn_out(cfg: TransformerConfig, out, lp):
 
 
 def _mlp_block(cfg: TransformerConfig, x, lp):
-    out = swiglu(lp["mlp"], rms_norm(x, lp["norm_mlp"]))
+    """The FFN block → ``(out, aux)``: the dense SwiGLU (aux a 0-d f32
+    zero) or the MoE FFN with its balance loss."""
+    h = rms_norm(x, lp["norm_mlp"])
+    if cfg.moe is not None:
+        out, aux = moe_lib.apply_moe(lp["moe"], h, cfg.moe)
+    else:
+        out = swiglu(lp["mlp"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.use_post_norm:
         out = rms_norm(out, lp["norm_mlp_post"])
-    return out
+    return out, aux
 
 
 def _window(cfg: TransformerConfig, layer_type: str):
@@ -222,14 +262,15 @@ def _window(cfg: TransformerConfig, layer_type: str):
 def forward(params, cfg: TransformerConfig, tokens,
             positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, L) int → ``(hidden (B, L, d), aux_loss)``; ``aux_loss``
-    is a 0-d f32 zero (the MoE balance loss of the reference, which the
-    dense archs do not have)."""
+    is the MoE balance loss summed over the layers, in f32 (a 0-d zero
+    for the dense archs), as the reference's scan sums it."""
     b, l = tokens.shape
     if positions is None:
         positions = torch.arange(l, device=tokens.device)[None, :]
     x = _embed(params, cfg, tokens)
 
     def group(x, g):
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, layer_type in enumerate(cfg.attn_pattern):
             lp = _layer(params, g * cfg.group_size + gi)
             q, k, v = _qkv(cfg, x, lp, positions)
@@ -238,15 +279,19 @@ def forward(params, cfg: TransformerConfig, tokens,
                                 softcap=cfg.attn_softcap,
                                 q_chunk=cfg.q_chunk)
             x = x + _attn_out(cfg, out, lp)
-            x = x + _mlp_block(cfg, x, lp)
-        return x
+            mlp_out, aux = _mlp_block(cfg, x, lp)
+            x = x + mlp_out
+            aux_total = aux_total + aux
+        return x, aux_total
 
     remat = cfg.remat and torch.is_grad_enabled()
+    auxes = []
     for g in range(cfg.n_groups):
-        x = (checkpoint(group, x, g, use_reentrant=False) if remat
-             else group(x, g))
+        x, aux = (checkpoint(group, x, g, use_reentrant=False) if remat
+                  else group(x, g))
+        auxes.append(aux)
     x = rms_norm(x, params["norm_final"])
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, torch.stack(auxes).sum()
 
 
 def logits_from_hidden(params, cfg: TransformerConfig, hidden):
@@ -301,7 +346,7 @@ def prefill(params, cfg: TransformerConfig, tokens, *,
                                 softcap=cfg.attn_softcap,
                                 q_chunk=cfg.q_chunk)
             x = x + _attn_out(cfg, out, lp)
-            x = x + _mlp_block(cfg, x, lp)
+            x = x + _mlp_block(cfg, x, lp)[0]
             caches[f"k{gi}"].append(_to_cache(cfg, k, layer_type, cache_len))
             caches[f"v{gi}"].append(_to_cache(cfg, v, layer_type, cache_len))
     x = rms_norm(x, params["norm_final"])
@@ -354,6 +399,6 @@ def decode_step(params, cfg: TransformerConfig, cache, tokens, pos: int):
                                 softcap=cfg.attn_softcap,
                                 kv_valid=valid[None, :].expand(b, -1))
             x = x + _attn_out(cfg, out, lp)
-            x = x + _mlp_block(cfg, x, lp)
+            x = x + _mlp_block(cfg, x, lp)[0]
     x = rms_norm(x, params["norm_final"])
     return logits_from_hidden(params, cfg, x), new

@@ -2014,6 +2014,8 @@ def _hold_topk_f64(got, s64, k):
     (128, 4_096, 2_304, 128),  # the positions selection: 32 tiles
     (128, 131 * 128, 2_304, 128),  # 131 tiles: just below the SMs
     (128, 133 * 128, 2_304, 128),  # 133 tiles: just above
+    (128, 4_096, 1_536, 128),  # granite's positions selection
+    (128, 49_168, 1_536, 512),  # ... its vocabulary: a ragged last tile
 ])
 def test_bf16_mips_topk_equals_f32_on_widened_inputs(dev, n_q, c, d, k):
     """bf16 q and y. Resident: values and ids equal the f32 kernel's on the
@@ -2051,6 +2053,7 @@ def test_bf16_mips_topk_equals_f32_on_widened_inputs(dev, n_q, c, d, k):
     (40, 3_000, 300, 10, 30.0, True),
     (40, 3_000, 301, 10, None, True),   # odd d: 2-byte target loads
     (64, 5_000, 2_304, 1, 30.0, True),  # token rank
+    (64, 49_168, 1_536, 1, None, True),  # granite's: ragged, no cap
 ])
 def test_bf16_eval_equals_f32_on_widened_inputs(dev, n, c, d, k, cap, deep_):
     """eval_fused (vals, ids, gt, eq, tgt and the LSE pair),
@@ -2189,6 +2192,7 @@ def test_bf16_sce_forwards_equal_f32_on_widened_inputs(dev, shape, cap):
     ((4, 70, 64, 64, 200), None),
     ((2, 33, 100, 2_304, 400), 30.0),  # deep: one backward launch
     ((2, 16, 24, 2_304, 50), None),
+    ((2, 128, 512, 1_536, 49_168), None),  # granite: its ragged bf16 table
 ])
 def test_bf16_sce_backwards_match_plain(dev, shape, cap):
     """Autograd through the SCE loss, the partial LSE and their sce_bucket
@@ -2235,6 +2239,7 @@ def test_bf16_sce_backwards_match_plain(dev, shape, cap):
     (129, 3_001, 40, None),
     (70, 1_037, 288, None),     # deep
     (33, 2_000, 2_304, 30.0),
+    (256, 49_168, 1_536, None),  # granite's full CE: a ragged last chunk
 ])
 def test_bf16_full_ce_matches(dev, n, c, d, cap):
     """linear_ce_loss and fused_lse on bf16 x and w: the forward's lse
@@ -2581,3 +2586,107 @@ def test_serve_steps_on_the_card_match_plain(dev, which):
         _assert_match(got, want, scale, False)
         tie = got[0][:, 1:] == got[0][:, :-1]
         assert bool((got[1][:, 1:][tie] > got[1][:, :-1][tie]).all())
+
+
+def test_granite_moe_block_on_the_card_matches_cpu(dev):
+    """granite's MoE block at its widths (d 1536, 40 experts padded to
+    48, top-8, d_ff 512; 1,024 tokens, capacity 256, bf16 weights and
+    input, offset by 1 so that some experts overflow) on the card against
+    the same block on the CPU. The router's
+    input lies on a grid of 1/8 and its weights on one of 1/64, so its
+    f32 logits are exact on both devices and both route alike: expert
+    ids, ranks, keep masks and dispatch indices equal exactly, the
+    combine weights within 1e-6. The output and the gradients of
+    ``sum(y · w) + aux`` (bf16 products in another order) within the
+    bf16 tolerance of the CPU's, aux within 1e-5 relative, and a second
+    run on the card repeats every value bit for bit (no atomics in the
+    combine)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+
+    cfg = get_arch("granite-moe-3b-a800m").make_config().moe
+    d, n = 1_536, 1_024
+    g = torch.Generator().manual_seed(7)
+    params = moe.init_moe(g, d, cfg, dtype=torch.bfloat16)
+    params["router"] = torch.randint(-64, 65, params["router"].shape,
+                                     generator=g).float() / 64
+    # a shared offset makes some experts popular: assignments drop
+    x = (torch.randint(-16, 17, (1, n, d), generator=g).float() / 8
+         + 1).to(torch.bfloat16)
+    w = torch.randn(1, n, d, generator=g).to(torch.bfloat16)
+
+    def run(where):
+        leaves = {k: v.to(where).requires_grad_(True)
+                  for k, v in params.items()}
+        xx = x.to(where).requires_grad_(True)
+        y, aux = moe.apply_moe(leaves, xx, cfg)
+        names = sorted(leaves)
+        grads = torch.autograd.grad(
+            (y.float() * w.to(where).float()).sum() + aux,
+            [xx] + [leaves[k] for k in names])
+        probs = torch.softmax(torch.einsum(
+            "bld,de->ble", xx.detach().float(), leaves["router"].detach()),
+            -1)
+        r = moe.dispatch(probs, cfg, cfg.capacity(n))
+        return [y.detach(), aux.detach(), *grads], r
+
+    got, r_dev = run(dev)
+    again, _ = run(dev)
+    want, r_cpu = run("cpu")
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for field in ("expert", "rank", "keep", "dispatch_idx"):
+        assert torch.equal(getattr(r_dev, field).cpu(), getattr(r_cpu, field))
+    assert (r_dev.weight.cpu() - r_cpu.weight).abs().max() <= 1e-6
+    assert int((~r_cpu.keep).sum()) > 0  # capacity 256 drops some
+    assert float(got[1]) == pytest.approx(float(want[1]), rel=1e-5)
+    for a, b in zip([got[0]] + got[2:], [want[0]] + want[2:]):
+        _close_bf16(a.cpu(), b)
+
+
+def test_moe_lm_step_on_the_card_matches_plain(dev):
+    """One SCE ``exact`` step of granite's smoke LM (2 sequences of 32
+    tokens, the Mix draw injected, the same weights) on the card's
+    kernels and on the CPU's plain versions: loss and grad norm within
+    ``1e-5`` relative, the parameters within ``1e-5·max|p|`` but where
+    Adam turns a near-zero gradient's f32 noise into a full ±lr step."""
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    arch = get_arch("granite-moe-3b-a800m")
+    cfg = arch.make_smoke_config()
+    batch, seq = 2, 32
+    shape = ShapeSpec("train_smoke", "train",
+                      {"global_batch": batch, "seq_len": seq})
+    host = SequenceDataset(SeqDataConfig(
+        n_items=cfg.vocab, seq_len=seq, batch_size=batch,
+        min_len_frac=1.0)).next_batch(Cursor(seed=2))[0]
+    out = {}
+    for where in ("cpu", dev):
+        step, (opt_init, _), sce_cfg = steps.make_lm_train_step(
+            arch, cfg, shape, mesh=make_host_mesh(max_data=batch),
+            sce_mode="exact")
+        omega = torch.randn(sce_cfg.n_buckets, batch * seq,
+                            generator=torch.Generator().manual_seed(4))
+        params = tree_map(lambda t: t.to(where), transformer.init_params(
+            cfg, seed=0, device="cpu"))
+        launches = kernel.mips_topk.launches
+        batch_t = {k: torch.from_numpy(v).to(where) for k, v in host.items()}
+        params, _, m = step(params, opt_init(params), batch_t,
+                            omega=omega.to(where))
+        out[str(where)] = (float(m["loss"]), float(m["grad_norm"]),
+                           [p.cpu() for p in tree_leaves(params)],
+                           kernel.mips_topk.launches - launches)
+    (lc, gc_, pc, nc), (lg, gg, pg, ng) = out["cpu"], out[str(dev)]
+    assert nc == 0 and ng == 2  # the card's step selected on the kernel
+    assert math.isfinite(lg) and lg == pytest.approx(lc, rel=1e-5)
+    assert gg == pytest.approx(gc_, rel=1e-5)
+    for a, b in zip(pg, pc):
+        diff = (a - b).abs()
+        assert bool((diff <= 2 * 3e-4).all())
+        assert (diff > 1e-5 * b.abs().max()).float().mean().item() < 0.01

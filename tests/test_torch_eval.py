@@ -239,7 +239,7 @@ def test_evaluate_streaming_refuses_what_is_not_ported(model):
     """The sharded path raises; a bidirectional config, once refused,
     now takes BERT4Rec's cloze score function by default."""
     cfg, _, _, tp, batch = model
-    with pytest.raises(NotImplementedError, match="queue 14"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
         evaluate_streaming(tp, cfg, batch, mesh=object())
     bidir = dataclasses.replace(cfg, causal=False)
     assert harness.default_score_fn(bidir).__qualname__.startswith(

@@ -6,7 +6,9 @@ Both sides start from the same weights (the reference's
 ``transformer.init_params``, carried across by
 ``transformer_params_from_jax``) and step the same batches
 (``SequenceDataset``, ``Cursor(seed)``), at gemma-2-2b's smoke config
-(vocabulary 1024) and a variant with vocabulary 1000 (8 phantom rows).
+(vocabulary 1024) and a variant with vocabulary 1000 (8 phantom rows),
+and at the MoE LMs' smoke configs (granite-moe-3b-a800m with AdamW,
+kimi-k2 with a shared expert and Adafactor; SCE plus the balance loss).
 SCE's Mix draw is the reference's own — ``fold_in(key, 0)`` of the
 step's key, which the LM step passes to the loss whole — injected into
 the port's step; dropout does not exist in either step. The reference
@@ -15,7 +17,7 @@ selection (``build_sce_config`` patched to ``use_kernel=False``: its
 kernel path fails inside ``shard_map`` on jax 0.9, ROADMAP queue 3).
 
 The same SCE step with ``dtype="bfloat16"`` on both sides (gemma-2's
-published type): loss within 2e-2 relative, parameters within 2e-2 of
+and granite's published type): loss within 2e-2 relative, parameters within 2e-2 of
 their norm, each tensor within that plus the reference's own update of
 it (an AdamW step on a near-zero gradient moves a parameter by about lr
 whatever the gradient's sign).
@@ -48,9 +50,11 @@ from repro_torch.eval import evaluate_streaming_lm, lm_targets_and_valid
 from repro_torch.launch import steps, train
 from repro_torch.models import transformer as ttf
 from repro_torch.models.convert import (
+    adafactor_state_from_jax,
     adamw_state_from_jax,
     transformer_params_from_jax,
 )
+from repro_torch.models.moe import MoEConfig
 from repro_torch.optim.optimizers import tree_leaves
 
 BATCH = 2
@@ -65,14 +69,21 @@ def _one_thread():
     torch.set_num_threads(before)
 
 
-def _configs(vocab=None):
-    jarch = jax_get_arch("gemma2-2b")
+def _port_config(jcfg):
+    kw = {f.name: getattr(jcfg, f.name)
+          for f in dataclasses.fields(ttf.TransformerConfig)}
+    if jcfg.moe is not None:
+        kw["moe"] = MoEConfig(**{f.name: getattr(jcfg.moe, f.name)
+                                 for f in dataclasses.fields(MoEConfig)})
+    return ttf.TransformerConfig(**kw)
+
+
+def _configs(vocab=None, arch="gemma2-2b"):
+    jarch = jax_get_arch(arch)
     jcfg = jarch.make_smoke_config()
     if vocab is not None:
         jcfg = dataclasses.replace(jcfg, vocab=vocab)
-    kw = {f.name: getattr(jcfg, f.name)
-          for f in dataclasses.fields(ttf.TransformerConfig)}
-    return jarch, jcfg, get_arch("gemma2-2b"), ttf.TransformerConfig(**kw)
+    return jarch, jcfg, get_arch(arch), _port_config(jcfg)
 
 
 def _np_tree(tree):
@@ -153,6 +164,29 @@ def test_sce_step_on_one_by_one_mesh_matches_reference(monkeypatch, vocab):
     _check_steps(rows)
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "kimi-k2-1t-a32b"])
+def test_moe_sce_step_on_one_by_one_mesh_matches_reference(monkeypatch,
+                                                           arch):
+    """The MoE LMs' smoke configs through two steps of the reference
+    trainer's default path (``sce_mode="exact"`` on a (1, 1) mesh, the
+    Mix draw injected, the reference's plain selection): SCE without a
+    softcap plus the balance loss, granite's AdamW and kimi-k2's
+    Adafactor (a shared expert, untied embeddings)."""
+    build = jax_steps.build_sce_config
+    monkeypatch.setattr(jax_steps, "build_sce_config",
+                        lambda *a, **kw: build(*a, **dict(kw,
+                                                          use_kernel=False)))
+    jarch, jcfg, arch_, cfg = _configs(arch=arch)
+    assert arch_.optimizer == jarch.optimizer
+    guard.set_policy("off")
+    try:
+        rows = _run_both(jarch, jcfg, arch_, cfg, n_steps=2, mesh=True,
+                         sce_mode="exact", omega=True)
+    finally:
+        guard.set_policy(None)
+    _check_steps(rows)
+
+
 def test_ce_fused_linear_step_with_softcap_at_two_microbatches():
     """``train_loss="ce_fused_linear"`` (the full-CE baseline, softcap 30
     inside the tile; the reference's Pallas kernel in interpret mode) at
@@ -214,25 +248,41 @@ def test_lm_and_heldout_batches_match_reference():
 
 
 def test_converters_carry_params_and_adamw_state():
-    for vocab, tied in ((None, True), (1000, False)):
-        _, jcfg, _, cfg = _configs(vocab)
+    """Dense and MoE parameters (granite's experts; kimi-k2's shared
+    expert and untied table) and the arch's AdamW or Adafactor state
+    carry across leaf for leaf; a tree with an unknown layer key or an
+    MoE block without its router raises."""
+    from repro.optim import make_optimizer
+    for arch, vocab, tied in (("gemma2-2b", None, True),
+                              ("gemma2-2b", 1000, False),
+                              ("granite-moe-3b-a800m", None, True),
+                              ("kimi-k2-1t-a32b", None, False)):
+        jarch, jcfg, _, cfg = _configs(vocab, arch=arch)
         jcfg = dataclasses.replace(jcfg, tie_embeddings=tied)
         jp = jtf.init_params(jax.random.PRNGKey(1), jcfg)
         tp = transformer_params_from_jax(_np_tree(jp), device="cpu")
         assert ("unembed" in tp) == (not tied)
+        assert ("moe" in tp["layers"]) == (jcfg.moe is not None)
         for a, b in zip(tree_leaves(tp), jax.tree.leaves(jp)):
             assert np.array_equal(a.numpy(), np.asarray(b))
-        from repro.optim import make_optimizer
-        jinit, jupd = make_optimizer("adamw", 3e-4)
+        jinit, jupd = make_optimizer(jarch.optimizer, 3e-4)
         js = jinit(jp)
         grads = jax.tree.map(jnp.ones_like, jp)
         _, js = jupd(grads, js, jp)
-        ts = adamw_state_from_jax(_np_tree(js), device="cpu")
+        convert = (adamw_state_from_jax if jarch.optimizer == "adamw"
+                   else adafactor_state_from_jax)
+        ts = convert(_np_tree(js), device="cpu")
         assert int(ts.step) == int(js.step) == 1
         for a, b in zip(tree_leaves(ts.inner), jax.tree.leaves(js.inner)):
             assert np.array_equal(a.numpy(), np.asarray(b))
-    bad = _np_tree(jp)
-    bad["layers"]["moe"] = bad["layers"].pop("mlp")
+        if jcfg.moe is not None:
+            bad = _np_tree(jp)
+            del bad["layers"]["moe"]["router"]
+            with pytest.raises(KeyError):
+                transformer_params_from_jax(bad, device="cpu")
+    bad = _np_tree(jtf.init_params(jax.random.PRNGKey(1),
+                                   _configs()[1]))
+    bad["layers"]["ffn"] = bad["layers"].pop("mlp")
     with pytest.raises(KeyError):
         transformer_params_from_jax(bad, device="cpu")
 
@@ -288,17 +338,30 @@ def test_trainer_lm_family_resumes_bit_for_bit(tmp_path):
     assert first["losses"] + resumed["losses"] == straight["losses"]
 
 
-# -- gemma-2's smoke LM step in bf16 ------------------------------------------
+# -- gemma-2's and granite's smoke LM steps in bf16 ----------------------------
 def test_bf16_lm_sce_step_matches_reference(monkeypatch):
+    """gemma-2's smoke LM step in bf16 (see :func:`_bf16_lm_sce_step`)."""
+    _bf16_lm_sce_step(monkeypatch, "gemma2-2b")
+
+
+def test_bf16_moe_lm_sce_step_matches_reference(monkeypatch):
+    """granite's smoke LM step in bf16: its MoE FFN, the router in f32
+    (see :func:`_bf16_lm_sce_step`)."""
+    _bf16_lm_sce_step(monkeypatch, "granite-moe-3b-a800m")
+
+
+def _bf16_lm_sce_step(monkeypatch, arch_name):
     """Two steps of ``make_lm_train_step(..., sce_mode="exact")`` on a
-    (1, 1) mesh at gemma-2's smoke config with ``dtype="bfloat16"`` on
+    (1, 1) mesh at gemma-2's (or granite's: its MoE FFN) smoke config
+    with ``dtype="bfloat16"`` on
     both sides (bf16 parameters and activations into the kernels' plain
     versions; AdamW moments and the microbatch accumulator f32), from the
     same weights and batches, the reference's Mix draw injected and its
     plain selection (``use_kernel=False``, as ``test_torch_lm.py``): each
     step's loss within 2e-2 relative, the parameters after the steps
     within 2e-2 of their whole norm, each tensor within 2e-2 of its norm
-    plus the reference's own update of it, in bf16 both."""
+    plus the reference's own update of it, in bf16 both (an MoE
+    model's router in f32)."""
     from repro.configs import get_arch as jax_get_arch
     from repro.configs.common import ShapeSpec as JaxShapeSpec
     from repro.launch import steps as jax_steps
@@ -317,12 +380,10 @@ def test_bf16_lm_sce_step_matches_reference(monkeypatch):
     monkeypatch.setattr(jax_steps, "build_sce_config",
                         lambda *a, **kw: build(*a, **dict(kw,
                                                           use_kernel=False)))
-    jarch = jax_get_arch("gemma2-2b")
+    jarch = jax_get_arch(arch_name)
     jcfg = dataclasses.replace(jarch.make_smoke_config(), dtype="bfloat16")
-    cfg = ttf.TransformerConfig(**{f.name: getattr(jcfg, f.name)
-                                   for f in dataclasses.fields(
-                                       ttf.TransformerConfig)})
-    arch = get_arch("gemma2-2b")
+    cfg = _port_config(jcfg)
+    arch = get_arch(arch_name)
     dims = {"global_batch": batch, "seq_len": seq}
     jstep, (jinit, _), jsce = jax_steps.make_lm_train_step(
         jarch, jcfg, jax_host_mesh(max_data=batch),
@@ -362,8 +423,11 @@ def test_bf16_lm_sce_step_matches_reference(monkeypatch):
         jax.tree.map(lambda a: np.array(a, copy=True), jp), device="cpu")
     leaves, wleaves = tree_leaves(tp), tree_leaves(want)
     assert len(leaves) == len(wleaves) == len(start) > 0
+    # bf16 but an MoE model's f32 router
+    assert [t.dtype for t in leaves].count(torch.float32) == (
+        0 if cfg.moe is None else 1)
     for i, (got, ref_, p0) in enumerate(zip(leaves, wleaves, start)):
-        assert got.dtype == ref_.dtype == torch.bfloat16, i
+        assert got.dtype == ref_.dtype, i
         err = (got.double() - ref_.double()).norm()
         step = (ref_.double() - p0.double()).norm()
         assert err <= 2e-2 * ref_.double().norm() + step, (i, float(err))
@@ -371,3 +435,20 @@ def test_bf16_lm_sce_step_matches_reference(monkeypatch):
     diff = torch.cat([(a.double() - b.double()).reshape(-1)
                       for a, b in zip(leaves, wleaves)])
     assert diff.norm() <= 2e-2 * whole.norm()
+
+
+def test_trainer_kimi_adafactor_resumes_bit_for_bit(tmp_path):
+    """``train("kimi-k2-1t-a32b", device="cpu")`` at its smoke config (MoE
+    with a shared expert, Adafactor's factored state in the checkpoint):
+    5 steps equal 3 steps plus a run resumed from their checkpoint bit
+    for bit."""
+    kw = dict(batch=BATCH, seq_len=16, seed=0, log_every=0, device="cpu")
+    straight = train.train("kimi-k2-1t-a32b", steps=5, **kw)
+    ck = str(tmp_path / "ck")
+    first = train.train("kimi-k2-1t-a32b", steps=3, ckpt_dir=ck,
+                        ckpt_every=3, **kw)
+    resumed = train.train("kimi-k2-1t-a32b", steps=5, ckpt_dir=ck,
+                          ckpt_every=3, **kw)
+    assert resumed["steps"] == 2
+    assert first["losses"] + resumed["losses"] == straight["losses"]
+    assert all(np.isfinite(straight["losses"]))

@@ -5,11 +5,19 @@ Both sides run the same weights: ``repro.models.transformer.init_params``
 draws them, ``models/convert.py::transformer_params_from_jax`` carries
 them across. The configs are the smoke configs of gemma-2-2b (local and
 global attention, both softcaps, post-block norms, tied and scaled
-embeddings, GQA) and yi-6b (untied, plain llama), and gemma-2's with a
+embeddings, GQA), yi-6b (untied, plain llama), the two MoE LMs —
+granite-moe-3b-a800m (4 experts, top-2, padded to 16) and kimi-k2 (8
+experts, top-2, a shared expert, untied) — and gemma-2's with a
 vocabulary of 1000, whose 8 padded rows are phantoms. Inputs are numpy
 draws from a seed. Tolerances: values within ``2e-5`` of the tensor's
 largest magnitude (f32 sums in another order), gradients within
-``1e-4`` of theirs.
+``1e-4`` of theirs; the MoE balance loss within ``1e-5`` relative. The
+MoE models route the same tokens on both sides (drops included: the
+smoke configs' capacity factor 1.25 drops assignments at these lengths);
+the check of the last decode step against a forward runs them with a
+capacity factor at which nothing can drop (``n_experts / top_k``), since
+a forward over the whole sequence drops other assignments than the
+prefill and the one-token decode steps.
 """
 import dataclasses
 
@@ -25,6 +33,7 @@ from repro.models import transformer as jtf
 from repro_torch.models import layers as tl
 from repro_torch.models import transformer as ttf
 from repro_torch.models.convert import transformer_params_from_jax
+from repro_torch.models.moe import MoEConfig, count_drops
 
 
 def _close(got, want, tol=2e-5):
@@ -39,13 +48,29 @@ def _close(got, want, tol=2e-5):
 def _configs(name):
     """(reference cfg, port cfg) of the named variant."""
     arch = {"gemma": "gemma2-2b", "gemma1000": "gemma2-2b",
-            "yi": "yi-6b"}[name]
+            "yi": "yi-6b", "granite": "granite-moe-3b-a800m",
+            "kimi": "kimi-k2-1t-a32b"}[name]
     jcfg = jax_get_arch(arch).make_smoke_config()
     if name == "gemma1000":
         jcfg = dataclasses.replace(jcfg, vocab=1000)
+    return jcfg, port_config(jcfg)
+
+
+def port_config(jcfg):
+    """The port's TransformerConfig (and MoEConfig) of a reference one."""
     kw = {f.name: getattr(jcfg, f.name)
           for f in dataclasses.fields(ttf.TransformerConfig)}
-    return jcfg, ttf.TransformerConfig(**kw)
+    if jcfg.moe is not None:
+        kw["moe"] = MoEConfig(**{f.name: getattr(jcfg.moe, f.name)
+                                 for f in dataclasses.fields(MoEConfig)})
+    return ttf.TransformerConfig(**kw)
+
+
+def _no_drops(jcfg):
+    """The config with a capacity factor at which no assignment drops."""
+    moe = dataclasses.replace(
+        jcfg.moe, capacity_factor=jcfg.moe.n_experts / jcfg.moe.top_k)
+    return dataclasses.replace(jcfg, moe=moe)
 
 
 def _params(jcfg, seed=0):
@@ -133,7 +158,8 @@ def test_long_q_attention_gradient_matches_reference():
 # ---------------------------------------------------------------------------
 # The model
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", ["gemma", "yi", "gemma1000"])
+@pytest.mark.parametrize("name", ["gemma", "yi", "gemma1000", "granite",
+                                  "kimi"])
 def test_forward_and_logits_match_reference(name):
     jcfg, cfg = _configs(name)
     jp, tp = _params(jcfg)
@@ -142,7 +168,12 @@ def test_forward_and_logits_match_reference(name):
                                                       jnp.asarray(tok))
     th, taux = ttf.forward(tp, cfg, torch.from_numpy(tok))
     _close(th, jh)
-    assert float(taux) == float(jaux) == 0.0
+    if cfg.moe is None:
+        assert float(taux) == float(jaux) == 0.0
+    else:
+        assert float(jaux) > 0
+        assert float(taux) == pytest.approx(float(jaux), rel=1e-5)
+        assert cfg.active_param_count() == jcfg.active_param_count()
     jl_ = jtf.logits_from_hidden(jp, jcfg, jh)
     tl_ = ttf.logits_from_hidden(tp, cfg, th)
     _close(tl_, jl_)
@@ -152,11 +183,13 @@ def test_forward_and_logits_match_reference(name):
 
 
 @pytest.mark.parametrize("name,remat,q_chunk", [
-    ("gemma", False, 1024), ("gemma", True, 8), ("yi", True, 1024)])
+    ("gemma", False, 1024), ("gemma", True, 8), ("yi", True, 1024),
+    ("granite", True, 8), ("kimi", False, 1024)])
 def test_forward_gradients_match_reference(name, remat, q_chunk):
     """jax.grad and autograd of one linear functional of the hidden
-    states agree on every parameter, with the layer groups checkpointed
-    (``remat``) or not, through the long-q path or not."""
+    states (plus 10 × the MoE balance loss) agree on every parameter,
+    with the layer groups checkpointed (``remat``) or not, through the
+    long-q path or not."""
     jcfg, cfg = _configs(name)
     jcfg = dataclasses.replace(jcfg, remat=remat, q_chunk=q_chunk)
     cfg = dataclasses.replace(cfg, remat=remat, q_chunk=q_chunk)
@@ -164,13 +197,16 @@ def test_forward_gradients_match_reference(name, remat, q_chunk):
     tok = _tokens(jcfg.vocab, 2, 16)
     w = np.random.default_rng(4).standard_normal(
         (2, 16, jcfg.d_model)).astype(np.float32)
-    want = jax.jit(jax.grad(lambda p: jnp.sum(
-        jtf.forward(p, jcfg, jnp.asarray(tok))[0] * w)))(jp)
+    def jloss(p):
+        h, aux = jtf.forward(p, jcfg, jnp.asarray(tok))
+        return jnp.sum(h * w) + 10.0 * aux
+
+    want = jax.jit(jax.grad(jloss))(jp)
     from repro_torch.optim.optimizers import tree_leaves, tree_map
     leaves = tree_map(lambda t: t.clone().requires_grad_(True), tp)
     flat = tree_leaves(leaves)
-    out = (ttf.forward(leaves, cfg, torch.from_numpy(tok))[0]
-           * torch.from_numpy(w)).sum()
+    h, aux = ttf.forward(leaves, cfg, torch.from_numpy(tok))
+    out = (h * torch.from_numpy(w)).sum() + 10.0 * aux
     got = torch.autograd.grad(out, flat, allow_unused=True)
     for t, a, b in zip(flat, got, jax.tree.leaves(want)):
         if a is None:  # yi's untied unembed: no part in the hidden states
@@ -179,17 +215,12 @@ def test_forward_gradients_match_reference(name, remat, q_chunk):
         _close(a, b, 1e-4)
 
 
-@pytest.mark.parametrize("name", ["gemma", "yi"])
-def test_prefill_and_decode_match_reference(name):
-    """A prompt of 20 tokens (gemma's local window is 16, so its rolling
-    cache wraps) and 6 decode steps (the reference's jitted): the caches and every step's logits
-    equal the reference's, and the last step's logits those of a forward
-    over all 26 tokens."""
-    jcfg, cfg = _configs(name)
-    jp, tp = _params(jcfg, seed=3)
-    tok = _tokens(jcfg.vocab, 2, 26, seed=5)
-    prompt, rest = tok[:, :20], tok[:, 20:]
-    cache_len = 26
+def _prefill_decode(jp, jcfg, tp, cfg, tok, n_prompt):
+    """Prefill ``n_prompt`` tokens and decode the rest on both sides (the
+    reference's jitted), holding the caches and every step's logits to
+    the reference's → the port's last logits."""
+    prompt, rest = tok[:, :n_prompt], tok[:, n_prompt:]
+    cache_len = tok.shape[1]
     jh, jc = jax.jit(jtf.prefill, static_argnums=1,
                      static_argnames="cache_len")(
         jp, jcfg, jnp.asarray(prompt), cache_len=cache_len)
@@ -199,7 +230,7 @@ def test_prefill_and_decode_match_reference(name):
     assert sorted(tc) == sorted(jc)
     for key in jc:
         _close(tc[key], jc[key])
-    pos = 20
+    pos = n_prompt
     logits = None
     jdecode = jax.jit(jtf.decode_step, static_argnums=1)
     for j in range(rest.shape[1]):
@@ -208,25 +239,54 @@ def test_prefill_and_decode_match_reference(name):
         logits, tc = ttf.decode_step(tp, cfg, tc, torch.from_numpy(step), pos)
         _close(logits, jlog)
         pos += 1
+    return logits
+
+
+@pytest.mark.parametrize("name", ["gemma", "yi", "granite", "kimi"])
+def test_prefill_and_decode_match_reference(name):
+    """A prompt of 20 tokens (gemma's local window is 16, so its rolling
+    cache wraps) and 6 decode steps: the caches and every step's logits
+    equal the reference's, and the last step's logits those of a forward
+    over all 26 tokens (an MoE model's at a capacity factor at which the
+    prefill, the decode steps and the forward drop nothing: counted)."""
+    jcfg, cfg = _configs(name)
+    jp, tp = _params(jcfg, seed=3)
+    tok = _tokens(jcfg.vocab, 2, 26, seed=5)
+    logits = _prefill_decode(jp, jcfg, tp, cfg, tok, 20)
+    if cfg.moe is not None:
+        jcfg = _no_drops(jcfg)
+        cfg = port_config(jcfg)
+        with count_drops() as drops:
+            logits = _prefill_decode(jp, jcfg, tp, cfg, tok, 20)
+            full, _ = ttf.forward(tp, cfg, torch.from_numpy(tok))
+        n_calls = cfg.n_layers * (1 + 6 + 1)  # prefill, decodes, forward
+        assert len(drops) == n_calls
+        assert sum(int(n) for n, _ in drops) == 0
+    else:
+        full, _ = ttf.forward(tp, cfg, torch.from_numpy(tok))
     # the last decode step's logits are the forward's at that position
     # (teacher forcing: the decoded tokens are the sequence's own)
-    full, _ = ttf.forward(tp, cfg, torch.from_numpy(tok))
     want = ttf.logits_from_hidden(tp, cfg, full[:, -1:])
     _close(logits, want.detach().numpy(), 1e-4)
-    empty = ttf.init_cache(cfg, 2, cache_len)
-    jempty = jtf.init_cache(jcfg, 2, cache_len)
+    empty = ttf.init_cache(cfg, 2, tok.shape[1])
+    jempty = jtf.init_cache(jcfg, 2, tok.shape[1])
     assert {k: tuple(v.shape) for k, v in empty.items()} == \
         {k: tuple(v.shape) for k, v in jempty.items()}
 
 
-def test_moe_config_raises():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ttf.TransformerConfig(vocab=8, n_layers=1, d_model=8, n_heads=2,
-                              n_kv_heads=1, head_dim=4, d_ff=8, moe=object())
-
-
 def test_init_params_has_the_reference_layout():
-    jcfg, cfg = _configs("gemma")
+    _hold_init_layout("gemma")
+
+
+@pytest.mark.parametrize("name", ["granite", "kimi"])
+def test_moe_init_params_has_the_reference_layout(name):
+    """``layers["moe"]`` in place of ``mlp``: the router, the padded
+    experts and kimi-k2's shared expert, with the reference's shapes."""
+    _hold_init_layout(name)
+
+
+def _hold_init_layout(name):
+    jcfg, cfg = _configs(name)
     jp = jtf.init_params(jax.random.PRNGKey(0), jcfg)
     tp = ttf.init_params(cfg, seed=0, device="cpu")
     shapes = jax.tree.map(lambda a: tuple(a.shape), jp)
