@@ -323,7 +323,34 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    token routed to all 40 experts (no choice to flip, nothing dropped)
    in bf16 (printed) and held on the same weights in f32: the last
    logits within ``1e-3`` of the scale.
-21. Prints the kernels' JSON line, the card's name and power limit, and
+21. Distribution on one card, a world of one (``dist_phase``). (a) The
+   sharded entry points on a ``(1, 1)`` mesh against ``mesh=None``, equal
+   (metrics exactly, tensors bit for bit) and timed by the host clock
+   beside them, their kernels' launches counted from 0:
+   ``evaluate_streaming`` for SASRec-SCE (C 173,511) and BERT4Rec (10⁶
+   items) at 256 users, ``evaluate_streaming_lm`` at gemma-2-2b's
+   published widths in bf16 (vocabulary 256,000, d 2304, softcap 30;
+   depth cut to 2 of 26 layers, random weights) over 1,024 rows, BERT4Rec's
+   three serve steps (serve_p99's 512 histories, retrieval_cand's 1 ×
+   10⁶ candidates) and ``RetrievalServer(mesh=)`` at SASRec's buckets.
+   (b) Each model shard's local stage of a 4-way split of the same
+   catalogs in turn (C/4 rows at ``id_offset = j·C/4``): the shards'
+   ``eval_tgt_gather`` summed (the psum: the owner's score and exact
+   zeros), each shard's ``eval_fused`` against it, merged by the
+   collectives' own ``merge_gathered_topk`` / ``merge_gathered_lse`` and
+   the summed counts — ids, values, ``gt``, ``eq`` and the target score
+   equal to the unsharded ``eval_fused`` bit for bit, the LSE within
+   ``1e-5`` relative; the serve steps' ``mips_topk`` stage likewise, bit
+   for bit; shard 0's kernels held against their plain versions on the
+   same inputs (at ``eval_case``'s and ``run_case``'s tolerances) and
+   timed at the shard's shape. (c)
+   ``train("sasrec-sce", grad_compression="int8", n_hosts=4)`` at full
+   width for 4 steps (its host batches bit for bit the 1-host batches;
+   its losses beside the uncompressed run's), and a compressed run
+   checkpointed at step 1 and resumed to 4 that repeats the
+   uninterrupted one bit for bit, its last checkpoint (the
+   error-feedback residual included) too.
+22. Prints the kernels' JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``. ``mips_topk`` has
    three entries: all its main-path launches timed at serving's largest
    bucket, and its training selections (k = 320 over the positions,
@@ -346,8 +373,13 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    the two selections with the trainer's launches at that k, the server's
    and each serve step's) and its times at BERT4Rec's shapes. The
    ``*_granite`` entries carry phase 20's runs' launches and its times
-   at granite's shapes. Every entry must have launched at least once on
-   its main path.
+   at granite's shapes. The ``*_shard4*`` entries carry phase 21's
+   times of shard 0 of 4, that shard's kernel against its plain version
+   (``max_abs_err``), the 4-way merge against the unsharded kernel
+   (``merge_max_abs_err``: 0, bit for bit) and the launches of its
+   sharded entry points (the evaluation of their model, the server, the
+   top-100 serve step).
+   Every entry must have launched at least once on its main path.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. ``--json PATH`` also writes every case, time and count to PATH.
@@ -364,7 +396,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-N_PHASES = 21
+N_PHASES = 22
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_S = 3.35e12
@@ -1747,6 +1779,20 @@ def rank_band(x, y, t, ok, gid, tol):
     return lo, hi, torch.where(ok[None, :], s64, NEG_INF)
 
 
+def isolated_ids_agree(s64, ids, want_ids, k, gap):
+    """Whether the ids agree wherever the dense f64 scores ``s64`` put
+    the slot's value more than ``gap`` from both of its neighbours."""
+    import torch
+
+    top = torch.topk(s64, min(k + 1, s64.shape[1]), dim=1).values
+    if top.shape[1] == k:
+        top = torch.cat([top, torch.full_like(top[:, :1], NEG_INF)], 1)
+    prv = torch.cat([torch.full_like(top[:, :1], float("inf")),
+                     top[:, :k - 1]], 1)
+    isolated = ((prv - top[:, :k]) > gap) & ((top[:, :k] - top[:, 1:]) > gap)
+    return bool((ids == want_ids)[isolated].all())
+
+
 def eval_case(name, x, y, t, k, *, c_lo, c_hi, id_offset=0, cap=None,
               with_lse=False, exact=False):
     """``eval_fused`` (and the ``eval_tgt_gather`` it calls) against the
@@ -1779,16 +1825,7 @@ def eval_case(name, x, y, t, k, *, c_lo, c_hi, id_offset=0, cap=None,
     else:
         check(err <= tol, f"{name}: values differ by {err} > {tol}")
         check(tgt_err <= tol, f"{name}: tgt differs by {tgt_err} > {tol}")
-        # ids where consecutive dense scores are more than 1e-4·max apart
-        top = torch.topk(s64, min(k + 1, s64.shape[1]), dim=1).values
-        if top.shape[1] == k:
-            top = torch.cat([top, torch.full_like(top[:, :1], NEG_INF)], 1)
-        gap = 1e-4 * scale
-        prv = torch.cat([torch.full_like(top[:, :1], float("inf")),
-                         top[:, :k - 1]], 1)
-        isolated = ((prv - top[:, :k]) > gap) & ((top[:, :k] - top[:, 1:])
-                                                 > gap)
-        check(bool((ids == want[1])[isolated].all()),
+        check(isolated_ids_agree(s64, ids, want[1], k, 1e-4 * scale),
               f"{name}: isolated ids differ from the plain version")
     lse_err = 0.0
     if with_lse:
@@ -2654,15 +2691,8 @@ def topk_case(name, x, y, t, k, *, c_lo, c_hi, id_offset=0):
     hi = ((s64 >= t64 - tol) & ok[None, :]).sum(1)
     check(bool(((gt >= lo) & (gt + eq <= hi)).all()),
           f"{name}: gt/eq outside the f64 band")
-    top = torch.topk(torch.where(ok[None, :], s64, NEG_INF),
-                     min(k + 1, y.shape[0]), dim=1).values
-    if top.shape[1] == k:
-        top = torch.cat([top, torch.full_like(top[:, :1], NEG_INF)], 1)
-    gap = 1e-4 * scale
-    prv = torch.cat([torch.full_like(top[:, :1], float("inf")),
-                     top[:, :k - 1]], 1)
-    isolated = ((prv - top[:, :k]) > gap) & ((top[:, :k] - top[:, 1:]) > gap)
-    check(bool((ids == want[1])[isolated].all()),
+    check(isolated_ids_agree(torch.where(ok[None, :], s64, NEG_INF), ids,
+                             want[1], k, 1e-4 * scale),
           f"{name}: isolated ids differ from the plain version")
     valid_t = (t >= max(c_lo, id_offset)) & (t < min(c_hi, id_offset
                                                      + y.shape[0]))
@@ -5245,6 +5275,548 @@ def granite_phase(dev):
             "full_ce": full_ce, "serve": served}
 
 
+# ---------------------------------------------------------------------------
+# Distribution on one card (phase 21)
+# ---------------------------------------------------------------------------
+SHARDS4 = 4  # the model-axis split each shard's local stage is run for
+DIST_USERS = 256  # eval users of the seqrec sweeps (EVAL_B[1])
+DIST_LM_SEQS, DIST_LM_T = 4, 256  # 1,024 token-rank rows at gemma's vocab
+# The kernels line's shard entries: (name, timing, source, the TPU kernel
+# it replaces, the sharded entry point whose launches it carries).
+DIST_KERNELS = (
+    ("mips_topk_shard4_serve_b512_k10", "mips_sasrec", "mips_topk.cu",
+     "mips_topk.py:52", "RetrievalServer_sasrec-sce"),
+    ("mips_topk_shard4_b4r_serve_p99_k100", "mips_b4r", "mips_topk.cu",
+     "mips_topk.py:52", "serve_step_bert4rec"),
+    ("eval_fused_shard4", "eval_fused_sasrec", "eval_fused.cu",
+     "eval_fused.py:104", "evaluate_streaming_sasrec-sce"),
+    ("eval_tgt_gather_shard4", "eval_tgt_gather_sasrec", "eval_fused.cu",
+     "eval_fused.py:82", "evaluate_streaming_sasrec-sce"),
+    ("eval_fused_shard4_b4r", "eval_fused_b4r", "eval_fused.cu",
+     "eval_fused.py:104", "evaluate_streaming_bert4rec"),
+    ("eval_tgt_gather_shard4_b4r", "eval_tgt_gather_b4r", "eval_fused.cu",
+     "eval_fused.py:82", "evaluate_streaming_bert4rec"),
+    ("eval_fused_shard4_lm_bf16", "eval_fused_lm", "eval_fused.cu",
+     "eval_fused.py:104", "evaluate_streaming_lm_gemma2-2b"),
+    ("eval_tgt_gather_shard4_lm_bf16", "eval_tgt_gather_lm", "eval_fused.cu",
+     "eval_fused.py:82", "evaluate_streaming_lm_gemma2-2b"),
+)
+
+
+def shard_blocks(y):
+    """The catalog's ``SHARDS4`` model blocks and their ``id_offset``s."""
+    per = y.shape[0] // SHARDS4
+    check(per * SHARDS4 == y.shape[0], f"{y.shape[0]} rows do not split 4 ways")
+    return [(y[j * per:(j + 1) * per], j * per) for j in range(SHARDS4)]
+
+
+def shard_eval(x, y, t, k, *, c_lo, c_hi, cap=None, with_lse=False):
+    """The sharded evaluation's local stages, one model shard after the
+    other as ``eval/harness.py``'s sharded sweep runs them: each shard's
+    ``eval_tgt_gather`` at its ``id_offset`` summed over the shards (the
+    owner's score and exact zeros: the ``psum``) before the sweeps, each
+    shard's ``eval_fused`` against it, and the collectives' own merges
+    (``merge_gathered_topk``, ``merge_gathered_lse``; the counts summed)
+    → ``(vals, ids, gt, eq, tgt, lse or None)``."""
+    import torch
+
+    from repro_torch.dist.collectives import (merge_gathered_lse,
+                                              merge_gathered_topk)
+    from repro_torch.kernels import ops
+
+    blocks = shard_blocks(y)
+    tgt = torch.stack([ops.eval_tgt_gather(x, y_j, t, id_offset=off)
+                       for y_j, off in blocks]).sum(0)
+    outs = [ops.eval_fused(x, y_j, t, k, tgt_scores=tgt, c_lo=c_lo,
+                           c_hi=c_hi, id_offset=off, logit_softcap=cap,
+                           with_lse=with_lse) for y_j, off in blocks]
+    vals, ids = merge_gathered_topk(torch.stack([o[0] for o in outs]),
+                                    torch.stack([o[1] for o in outs]), k)
+    gt = torch.stack([o[2] for o in outs]).sum(0)
+    eq = torch.stack([o[3] for o in outs]).sum(0)
+    lse = None
+    if with_lse:
+        lse = merge_gathered_lse(torch.stack([o[5] for o in outs]),
+                                 torch.stack([o[6] for o in outs]))
+    return vals, ids, gt, eq, tgt, lse
+
+
+def shard_topk(x, y, k, *, c_lo, c_hi):
+    """The mesh serve steps' local stage per model shard (``mips_topk``
+    over the block at its ``id_offset`` under the window), merged by
+    ``merge_gathered_topk`` → ``(vals, ids)``."""
+    import torch
+
+    from repro_torch.dist.collectives import merge_gathered_topk
+    from repro_torch.eval.streaming import streaming_topk
+
+    outs = [streaming_topk(x, y_j, k, c_lo=c_lo, c_hi=c_hi, id_offset=off)
+            for y_j, off in shard_blocks(y)]
+    return merge_gathered_topk(torch.stack([o[0] for o in outs]),
+                               torch.stack([o[1] for o in outs]), k)
+
+
+def equal_bits(name, got, want):
+    """Hold every output of a merged shard-by-shard stage against the
+    unsharded kernel's bit for bit; returns the largest |Δ| of the
+    values (0 when equal)."""
+    import torch
+
+    err = 0.0
+    for what, a, b in zip(("vals", "ids", "gt", "eq", "tgt"), got, want):
+        check(a.shape == b.shape, f"{name} {what}: shape {tuple(a.shape)} "
+              f"against {tuple(b.shape)}")
+        if a.is_floating_point():
+            err = max(err, (a - b).abs().max().item())
+        check(torch.equal(a, b), f"{name} {what}: the 4-way merge differs "
+              f"from the unsharded kernel (max |Δ| "
+              f"{(a.double() - b.double()).abs().max().item():.3e})")
+    return err
+
+
+def shard_vs_plain(name, x, y0, t, k, tgt, win, kw):
+    """One model shard's ``eval_fused`` (given the ``psum``'d target
+    scores ``tgt``, as the sharded sweep runs it) and ``eval_tgt_gather``
+    against their plain versions on the same inputs, at the tolerance of
+    :func:`eval_case`: values and the gather within ``1e-5·max|score|``,
+    ids equal where isolated, ``gt`` and ``gt + eq`` apart by no more
+    than the columns within that tolerance of the target, the LSE within
+    1e-5 relative → the largest |Δ| of each kernel."""
+    import torch
+
+    from repro_torch.kernels import eval_fused as ek
+    from repro_torch.kernels import ref
+
+    off = kw["id_offset"]
+    got = ek.eval_fused(x, y0, t, k, tgt_scores=tgt, **kw)
+    got_t = ek.eval_tgt_gather(x, y0, t, id_offset=off)
+    torch.cuda.synchronize()
+    want = ref.eval_fused_ref(x, y0, t, k, tgt_scores=tgt, **kw)
+    want_t = ref.eval_tgt_gather_ref(x, y0, t, id_offset=off)
+    s64 = torch.where(win[None, :], x.double() @ y0.double().T, NEG_INF)
+    scale = s64[:, win].abs().max().item()
+    tol = 1e-5 * scale
+    err = (got[0] - want[0]).abs().max().item()
+    tgt_err = (got_t - want_t).abs().max().item()
+    check(err <= tol, f"{name}: values differ by {err} > {tol}")
+    check(tgt_err <= tol, f"{name}: the gather differs by {tgt_err} > {tol}")
+    check(isolated_ids_agree(s64, got[1], want[1], k, 1e-4 * scale),
+          f"{name}: isolated ids differ from the plain version")
+    near = ((s64 - tgt.double()[:, None]).abs() <= tol).sum(1)
+    for what, a, b in (("gt", got[2], want[2]),
+                       ("gt + eq", got[2] + got[3], want[2] + want[3])):
+        check(bool(((a - b).abs() <= near).all()),
+              f"{name}: {what} differs from the plain version by more than "
+              f"the columns within {tol:.3e} of the target")
+    lse_err = 0.0
+    if kw["with_lse"]:
+        lse, want_lse = got[5] + torch.log(got[6]), want[5] + torch.log(want[6])
+        lse_err = ((lse - want_lse).abs()
+                   / want_lse.abs().clamp_min(1e-6)).max().item()
+        check(lse_err <= 1e-5, f"{name}: lse relative error {lse_err}")
+    print(f"  {name}: eval_fused against its plain version max |Δ| vals "
+          f"{err:.3e}, eval_tgt_gather {tgt_err:.3e} (tol {tol:.3e}), lse "
+          f"rel {lse_err:.3e}; isolated ids equal, counts within the band")
+    return {"eval_fused": err, "eval_tgt_gather": tgt_err, "lse_rel": lse_err,
+            "tol": tol}
+
+
+def dist_kernel_checks(dev, x, y, t, k, tag, *, c_lo, c_hi, cap=None,
+                       with_lse=False, reps=20):
+    """(b) for one catalog: the 4-way shard-by-shard eval merge against the
+    unsharded ``eval_fused``, then shard 0's ``eval_fused`` and
+    ``eval_tgt_gather`` timed at the shard's shape (C/4 rows) beside
+    their plain versions and one PyTorch call each."""
+    import torch
+
+    from repro_torch.kernels import eval_fused as ek
+    from repro_torch.kernels import ops, ref
+
+    whole = ops.eval_fused(x, y, t, k, c_lo=c_lo, c_hi=c_hi,
+                           logit_softcap=cap, with_lse=with_lse)
+    got = shard_eval(x, y, t, k, c_lo=c_lo, c_hi=c_hi, cap=cap,
+                     with_lse=with_lse)
+    torch.cuda.synchronize()
+    err = equal_bits(f"{tag} eval", got[:5], whole[:5])
+    lse_err = None
+    if with_lse:
+        lse = whole[5] + torch.log(whole[6])
+        lse_err = ((got[5] - lse).abs() / lse.abs().clamp_min(1e-6)).max()
+        lse_err = lse_err.item()
+        check(lse_err <= 1e-5, f"{tag} eval: the merged LSE is {lse_err:.3e} "
+              f"from the unsharded one (relative; the f32 fold tolerance "
+              f"is 1e-5)")
+    print(f"  {tag}: B {x.shape[0]} × C {y.shape[0]:,} (4 shards of "
+          f"{y.shape[0] // SHARDS4:,}), d {x.shape[1]} {str(x.dtype)[6:]}, "
+          f"k {k}: vals, ids, gt, eq, tgt of the 4-way merge equal the "
+          f"unsharded eval_fused bit for bit (max |Δ| {err:.1e})"
+          + (f"; LSE max relative |Δ| {lse_err:.3e}" if with_lse else ""))
+    y0, off = shard_blocks(y)[0]
+    n, d, c = x.shape[0], x.shape[1], y0.shape[0]
+    kw = dict(c_lo=c_lo, c_hi=c_hi, id_offset=off, logit_softcap=cap,
+              with_lse=with_lse)
+    tgt = got[4]
+    gid = off + torch.arange(c, device=dev)
+    win = (gid >= c_lo) & (gid < c_hi)
+    plain_err = shard_vs_plain(f"{tag} shard 0", x, y0, t, k, tgt, win, kw)
+
+    def library():
+        s_ = torch.where(win[None, :], (x @ y0.T).float(), NEG_INF)
+        out = (torch.topk(s_, k), (s_ > tgt[:, None]).sum(1),
+               (s_ == tgt[:, None]).sum(1))
+        if with_lse:
+            out += (torch.logsumexp(s_ if cap is None
+                                    else cap * torch.tanh(s_ / cap), -1),)
+        return out
+
+    # the gather on this shard needs only the rows whose target it owns
+    # (the others get 0 unread): their x rows, the distinct target rows
+    owned = (t >= off) & (t < off + c)
+    n_own, n_rows = int(owned.sum()), int(torch.unique(t[owned]).numel())
+    if x.dtype == torch.bfloat16:
+        bf = bf16_bound(2 * (n * d + c * d) + 8 * n + 8 * n * k + 16 * n,
+                        2 * n * c * d, n * c if with_lse else 0)[:2]
+        bg = bf16_bound(2 * (n_own * d + n_rows * d) + 8 * n, 2 * n_own * d,
+                        0)[:2]
+    else:
+        bf = eval_bounds(n, c, d, k, 0)[0][:2]
+        bg = tf32x3_bound(4 * (n_own * d + n_rows * d + n) + 4 * n,
+                          2 * n_own * d, 0)[:2]
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    timings = {}
+    for name, fn, plain, lib, bound in (
+            ("eval_fused", lambda: ek.eval_fused(x, y0, t, k, tgt_scores=tgt,
+                                                 **kw),
+             lambda: ref.eval_fused_ref(x, y0, t, k, tgt_scores=tgt, **kw),
+             library, bf),
+            ("eval_tgt_gather",
+             lambda: ek.eval_tgt_gather(x, y0, t, id_offset=off),
+             lambda: ref.eval_tgt_gather_ref(x, y0, t, id_offset=off),
+             lambda: (x * y0[(t.long() - off).clamp(0, c - 1)]).float()
+             .sum(-1), bg)):
+        timings[f"{name}_{tag}"] = tt = {
+            "ms": time_ms(fn, reps, flush),
+            "plain_ms": time_ms(plain, 1, flush),
+            "library_ms": time_ms(lib, reps, flush),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "max_abs_err": plain_err[name], "merge_max_abs_err": err,
+            "shape": [n, c, d, k]}
+        print(f"  time {name} on shard 0 of 4 ({tag}, B {n} × {c:,}): kernel "
+              f"{tt['ms']:.4f} ms, plain {tt['plain_ms']:.3f} ms, library "
+              f"{tt['library_ms']:.4f} ms, bound {bound_text(tt)}")
+    del flush
+    return timings, {"max_abs_err": err, "lse_rel_err": lse_err,
+                     "shard0_vs_plain": plain_err}
+
+
+def dist_topk_checks(dev, x, y, k, tag, *, c_lo, c_hi, reps=20):
+    """(b) for a serve step's catalog stage: the 4-way shard-by-shard
+    ``mips_topk`` merge against the unsharded kernel bit for bit, and
+    shard 0's launch timed."""
+    import torch
+
+    from repro_torch.eval.streaming import _window, streaming_topk
+    from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.kernels.ref import mips_topk_ref
+
+    whole = streaming_topk(x, y, k, c_lo=c_lo, c_hi=c_hi)
+    got = shard_topk(x, y, k, c_lo=c_lo, c_hi=c_hi)
+    torch.cuda.synchronize()
+    err = equal_bits(f"{tag} serve", got, whole)
+    print(f"  {tag}: n_q {x.shape[0]} × C {y.shape[0]:,} (4 shards), k {k}, "
+          f"window [{c_lo}, {c_hi}): the 4-way mips_topk merge equals the "
+          f"unsharded kernel bit for bit (vals, ids; max |Δ| {err:.1e})")
+    (y0, off) = shard_blocks(y)[0]
+    valid = _window(y0.shape[0], c_lo, c_hi, off, y0.device)
+    plain = run_case(f"{tag} shard 0 of 4", x, y0, k, valid=valid,
+                     id_offset=off)
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+
+    def library():
+        s_ = torch.where(valid[None, :], x @ y0.T, NEG_INF)
+        return torch.topk(s_, k)
+
+    b, by = bound_ms(x.shape[0], y0.shape[0], x.shape[1], k)
+    tt = {"ms": time_ms(lambda: mips_topk(x, y0, k, valid=valid,
+                                          id_offset=off), reps, flush),
+          "plain_ms": time_ms(lambda: mips_topk_ref(
+              x, y0, k, valid=valid, id_offset=off), 1, flush),
+          "library_ms": time_ms(library, reps, flush),
+          "bound_ms": b, "bound_by": by, "max_abs_err": plain["max_abs_err"],
+          "merge_max_abs_err": err,
+          "shape": [x.shape[0], y0.shape[0], x.shape[1], k]}
+    print(f"  time mips_topk on shard 0 of 4 ({tag}): kernel {tt['ms']:.4f} "
+          f"ms, plain {tt['plain_ms']:.3f} ms, library "
+          f"{tt['library_ms']:.4f} ms, bound {b:.4f} ms ({by})")
+    del flush
+    return tt
+
+
+def host_ms(fn, reps=3):
+    """Median host-clock time of ``fn`` (its results on the host), after
+    one warm call → (ms, result of the last call)."""
+    import torch
+
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], out
+
+
+def same_result(name, a, b):
+    """A sharded entry point's answer against the one-device one: equal
+    (metric dicts exactly; tensors bit for bit) → max |Δ| (0.0)."""
+    import torch
+
+    if isinstance(a, dict):
+        check(a == b, f"{name}: the (1, 1) mesh's metrics differ: {a} "
+              f"against {b}")
+        return 0.0
+    err = 0.0
+    for x, y in zip(a, b):
+        x, y = torch.as_tensor(x), torch.as_tensor(y)  # the server's numpy
+        if x.is_floating_point():
+            err = max(err, (x - y).abs().max().item())
+        check(torch.equal(x, y), f"{name}: the (1, 1) mesh's answer differs "
+              f"(max |Δ| {err:.3e})")
+    return err
+
+
+def dist_entry_points(dev):
+    """(a): the public entry points on a (1, 1) mesh against ``mesh=None``
+    at full width — SASRec-SCE's and BERT4Rec's evaluation, gemma-2-2b's
+    token rank (its published widths in bf16, depth cut to 2 of 26
+    layers, random weights: 1,024 rows at the 256,000-token vocabulary
+    with the softcap), BERT4Rec's three serve steps and the SASRec
+    server — each equal and timed by the host clock, the kernels' launches of its
+    sharded calls counted from 0. Returns the timings and the inputs (b)
+    reuses."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gemma2_2b import make_config as gemma_config
+    from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.eval import evaluate_streaming, evaluate_streaming_lm
+    from repro_torch.eval.harness import (_keep_and_targets, default_score_fn,
+                                          lm_score_fn, lm_targets_and_valid)
+    from repro_torch.launch import steps
+    from repro_torch.kernels import eval_fused as ek
+    from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.launch.serve import RetrievalServer
+    from repro_torch.models import transformer
+
+    mesh = make_mesh((1, 1))
+    out, inputs = {}, {}
+    counters = (mips_topk, ek.eval_fused, ek.eval_tgt_gather)
+
+    def pair(name, one, sharded):
+        ms1, a = host_ms(one)
+        for fn in counters:  # this sharded path starts here
+            fn.launches = 0
+        ms2, b = host_ms(sharded)
+        launches = {fn.__name__: fn.launches for fn in counters}  # ... ends
+        err = same_result(name, b, a)
+        out[name] = {"ms": ms2, "one_device_ms": ms1, "max_abs_diff": err,
+                     "launches": launches}
+        print(f"  {name}: the (1, 1) mesh equals mesh=None (max |Δ| "
+              f"{err:.1e}); {ms2:.3f} ms against {ms1:.3f} ms a call (host "
+              f"clock, median of 3 after a warm call); launches of the 4 "
+              f"sharded calls {launches}")
+
+    for arch in ("sasrec-sce", "bert4rec"):
+        cfg = get_arch(arch).make_config()
+        params = encoder(cfg).init_params(cfg, seed=0, device=dev)
+        batch = SequenceDataset(SeqDataConfig(
+            n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=DIST_USERS,
+        )).eval_batch(Cursor(seed=0))[0]
+        pair(f"evaluate_streaming_{arch}",
+             lambda: evaluate_streaming(params, cfg, batch),
+             lambda: evaluate_streaming(params, cfg, batch, mesh=mesh))
+        tokens, targets = _keep_and_targets(batch["tokens"])
+        with torch.no_grad():
+            x, y = default_score_fn(cfg)(params, torch.from_numpy(tokens)
+                                         .to(dev))
+        inputs[arch] = (cfg, params, x, y, torch.from_numpy(
+            targets.astype(np.int32)).to(dev))
+        if arch == "sasrec-sce":
+            hist = batch["tokens"][:BUCKETS[-1]]
+            while hist.shape[0] < BUCKETS[-1]:
+                hist = np.concatenate([hist, hist])[:BUCKETS[-1]]
+            kw = dict(cfg=cfg, params=params, buckets=BUCKETS, device=dev)
+            servers = (RetrievalServer(arch, **kw),
+                       RetrievalServer(arch, mesh=mesh, **kw))
+            pair("RetrievalServer_sasrec-sce", lambda: servers[0].score(hist),
+                 lambda: servers[1].score(hist))
+            for s in servers:
+                s.close()
+            del servers
+    cfg, params = inputs["bert4rec"][:2]
+    hist = torch.from_numpy(SequenceDataset(SeqDataConfig(
+        n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=B4R_SERVE,
+    )).next_batch(Cursor(seed=1))[0]["tokens"]).to(dev)
+    cand = torch.randperm(cfg.catalog_loss_size,
+                          generator=torch.Generator().manual_seed(2)).to(
+        device=dev, dtype=torch.int32)
+    for name, make, args, k in (
+            ("mips_serve_step", steps.make_seqrec_mips_serve_step, (hist,),
+             K),
+            ("serve_step", steps.make_seqrec_serve_step, (hist,), B4R_TOP_K),
+            ("retrieval_step", steps.make_seqrec_retrieval_step,
+             (hist[:1], cand), B4R_TOP_K)):
+        one, sharded = make(cfg, top_k=k), make(cfg, top_k=k, mesh=mesh)
+        pair(f"{name}_bert4rec", lambda: one(params, *args),
+             lambda: sharded(params, *args))
+    inputs["b4r_hist"] = hist
+    del cand
+
+    # gemma-2-2b's token rank: published widths in bf16, one pair of its
+    # local and global layers
+    lcfg = dataclasses.replace(gemma_config(), n_layers=2)
+    check((lcfg.vocab, lcfg.vocab_padded, lcfg.d_model, lcfg.final_softcap,
+           lcfg.dtype) == (256_000, 256_000, 2304, LM_CAP, "bfloat16"),
+          f"gemma-2-2b's published config changed: {lcfg}")
+    lparams = transformer.init_params(lcfg, seed=0, device=dev)
+    toks = SequenceDataset(SeqDataConfig(
+        n_items=lcfg.vocab, seq_len=DIST_LM_T, batch_size=DIST_LM_SEQS,
+        min_len_frac=1.0)).heldout_batch(Cursor(seed=0))[0]
+    pair("evaluate_streaming_lm_gemma2-2b",
+         lambda: evaluate_streaming_lm(lparams, lcfg, toks),
+         lambda: evaluate_streaming_lm(lparams, lcfg, toks, mesh=mesh))
+    targets, _ = lm_targets_and_valid(toks["tokens"])
+    with torch.no_grad():
+        x, y = lm_score_fn(lcfg)(lparams, torch.from_numpy(toks["tokens"])
+                                 .to(dev))
+    inputs["lm"] = (lcfg, x, y, torch.from_numpy(
+        targets.reshape(-1).astype(np.int32)).to(dev))
+    del lparams
+    return out, inputs
+
+
+def dist_train_checks(dev):
+    """(c): ``train("sasrec-sce", grad_compression="int8", n_hosts=4)`` at
+    full width — its host batches bit for bit the one-host batches, its
+    losses beside the uncompressed run's — and a checkpointed, resumed
+    compressed run repeating the uninterrupted one bit for bit, the
+    error-feedback residual included."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.sasrec_sce import make_config
+    from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+    from repro_torch.launch.train import _host_batch, train
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = make_config()
+    batch = N_POS // cfg.max_len
+    data = SequenceDataset(SeqDataConfig(
+        n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=batch))
+    for i in range(4):
+        one, c1 = _host_batch(data, Cursor(seed=0, step=i))
+        four, c4 = _host_batch(data, Cursor(seed=0, step=i), 4)
+        check(set(one) == set(four) and all(
+            np.array_equal(one[k], four[k]) for k in one) and c1 == c4,
+            f"step {i}: the 4-host batch differs from the 1-host batch")
+    kw = dict(cfg=cfg, batch=batch, steps=4, seed=0, device=dev,
+              log_every=0)
+    plain = train("sasrec-sce", **kw)
+    comp = train("sasrec-sce", grad_compression="int8", n_hosts=4, **kw)
+    print(f"  4 steps of {batch} × {cfg.max_len}: the 4-host batches equal "
+          f"the 1-host ones bit for bit; losses int8-compressed "
+          f"{[round(v, 6) for v in comp['losses']]} against uncompressed "
+          f"{[round(v, 6) for v in plain['losses']]}; median step "
+          f"{statistics.median(comp['step_s'][1:]) * 1e3:.3f} against "
+          f"{statistics.median(plain['step_s'][1:]) * 1e3:.3f} ms (host "
+          f"clock, steps 2–4)")
+    ckw = dict(kw, grad_compression="int8", ckpt_every=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = train("sasrec-sce", ckpt_dir=f"{tmp}/a", **ckw)
+        train("sasrec-sce", ckpt_dir=f"{tmp}/b", **dict(ckw, steps=2))
+        rest = train("sasrec-sce", ckpt_dir=f"{tmp}/b", **ckw)
+        check(rest["steps"] == 2 and rest["losses"] == whole["losses"][2:],
+              f"the resumed compressed run's losses {rest['losses']} differ "
+              f"from the uninterrupted {whole['losses'][2:]}")
+        (sa, ta), (sb, tb) = (CheckpointManager(f"{tmp}/{d}").restore_latest()
+                              for d in "ab")
+        la, lb = tree_leaves(ta), tree_leaves(tb)
+        check(sa == sb == 3 and len(la) == len(lb) and all(
+            np.array_equal(np.asarray(a.cpu() if hasattr(a, "cpu") else a),
+                           np.asarray(b.cpu() if hasattr(b, "cpu") else b))
+            for a, b in zip(la, lb)),
+            "the resumed compressed run's last checkpoint differs")
+        n_ef = len(tree_leaves(ta["opt_state"][1]["ef"]))
+    print(f"  compressed run checkpointed at step 1, resumed to 4: losses "
+          f"and the step-3 checkpoint ({len(la)} leaves, {n_ef} of them the "
+          f"error-feedback residual) equal the uninterrupted run's bit for "
+          f"bit")
+    return {"losses_int8_hosts4": comp["losses"],
+            "losses_uncompressed": plain["losses"],
+            "step_s_int8": comp["step_s"], "step_s_uncompressed":
+            plain["step_s"], "resumed_losses": rest["losses"],
+            "ckpt_leaves": len(la), "ef_leaves": n_ef}
+
+
+def dist_phase(dev):
+    """Phase 21: distributed inference and data-parallel training on one
+    card, a world of one. (a) the sharded entry points on a (1, 1) mesh
+    against ``mesh=None``; (b) each model shard's local stage of a 4-way
+    split of the same catalogs in turn, merged by the collectives' own
+    merge functions and held against the unsharded kernels bit for bit
+    (the LSE within 1e-5 relative), shard 0's kernels timed; (c) int8
+    gradient compression with 4 emulated hosts, and its resume."""
+    import torch
+
+    t0 = time.monotonic()
+    gc.collect()  # what earlier phases left in reference cycles
+    torch.cuda.empty_cache()
+    entry, inputs = dist_entry_points(dev)
+    timings, merges = {}, {}
+    for arch, tag in (("sasrec-sce", "sasrec"), ("bert4rec", "b4r")):
+        cfg, _, x, y, t = inputs[arch]
+        tt, merges[tag] = dist_kernel_checks(dev, x, y, t, K, tag, c_lo=1,
+                                             c_hi=cfg.n_items)
+        timings.update(tt)
+    lcfg, x, y, t = inputs["lm"]
+    tt, merges["lm"] = dist_kernel_checks(dev, x, y, t, 1, "lm", c_lo=1,
+                                          c_hi=lcfg.vocab, cap=LM_CAP,
+                                          with_lse=True)
+    timings.update(tt)
+    cfg, params, x, y, _ = inputs["sasrec-sce"]
+    q = x[:BUCKETS[-1]] if x.shape[0] >= BUCKETS[-1] else torch.cat(
+        [x] * (-(-BUCKETS[-1] // x.shape[0])))[:BUCKETS[-1]]
+    timings["mips_sasrec"] = dist_topk_checks(dev, q.contiguous(), y, K,
+                                              "sasrec", c_lo=1,
+                                              c_hi=cfg.n_items)
+    cfg, params = inputs["bert4rec"][:2]
+    from repro_torch.launch.steps import _last_states
+    from repro_torch.models.sasrec import loss_catalog
+
+    with torch.inference_mode():
+        q = _last_states(cfg, params, inputs["b4r_hist"])
+    timings["mips_b4r"] = dist_topk_checks(dev, q, loss_catalog(params, cfg),
+                                           B4R_TOP_K, "b4r", c_lo=0,
+                                           c_hi=cfg.n_items)
+    del inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = dist_train_checks(dev)
+    wall_s = time.monotonic() - t0
+    print(f"  phase 21 in {wall_s:.1f} s (host clock); card: {smi()}")
+    return {"entry_points": entry, "merges": merges, "timings": timings,
+            "train": trained, "wall_s": wall_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=Path, default=None,
@@ -5330,6 +5902,10 @@ def main() -> int:
     phase(20, "granite-moe-3b-a800m at full width: its MoE FFN trains with "
           "SCE, is evaluated by token rank and decodes")
     granite = granite_phase(dev)
+    phase(21, "distribution on one card: the sharded entry points on a "
+              "(1, 1) mesh, a 4-way shard-by-shard merge, int8 gradient "
+              "compression over 4 emulated hosts")
+    dist = dist_phase(dev)
 
     t = timings[512]  # the serve_p99 bucket
     mips = {"route": "cuda",
@@ -5633,6 +6209,19 @@ def main() -> int:
             "launches": g_counts[name],
             **{k: tt[k] for k in ("max_abs_err", "ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms")}})
+    # distribution (phase 21): shard 0 of 4's times, the launches of the
+    # sharded entry points on the (1, 1) mesh
+    for name, timing, src, replaces, entry in DIST_KERNELS:
+        tt = dist["timings"][timing]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": dist["entry_points"][entry]["launches"][
+                name.split("_shard4")[0]],
+            **{k: tt[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "merge_max_abs_err")}})
     missing = [k["name"] for k in kernels if k["launches"] < 1]
     check(not missing, f"kernels of a main path launched no time: {missing}")
     if args.json is not None:
@@ -5652,6 +6241,7 @@ def main() -> int:
             "bucket_cases": bcases, "two_pass_cases": tkcases,
             "guard_timings": gtimes, "drills": drills, "checkpoints": ckpt,
             "lm": lm, "bert4rec": b4r, "granite": granite,
+            "distribution": dist,
             "kernels": kernels,
         }, indent=1))
     print(f"[{N_PHASES}/{N_PHASES}] summary")

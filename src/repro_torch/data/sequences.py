@@ -13,7 +13,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from repro_torch.data.pipeline import Cursor
+from repro_torch.data.pipeline import Cursor, ShardedCursor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +85,17 @@ class SequenceDataset:
         valid &= targets != cfg.pad_id
         return {"tokens": tokens, "targets": targets, "valid": valid}, \
             cursor.advance()
+
+    def next_batch_sharded(
+        self, scursor: ShardedCursor
+    ) -> Tuple[Dict[str, np.ndarray], ShardedCursor]:
+        """This host's rows of the GLOBAL batch at ``scursor``: the whole
+        global batch is generated (its draws are batch-shaped, so a row
+        depends on the whole batch's draw order) and the host's
+        contiguous block sliced out, which keeps the global stream bit
+        for bit the same under any number of hosts."""
+        batch, _ = self.next_batch(scursor.cursor)
+        return scursor.shard(batch), scursor.advance()
 
     def eval_batch(
         self, cursor: Cursor

@@ -1,7 +1,7 @@
 """The (data, model) mesh over a ``torch.distributed`` process group, and
 the slices of the batch and the catalog each rank owns (port of what the
-distributed SCE path needs of ``repro/dist/sharding.py`` and of
-``repro.dist.make_mesh``).
+distributed SCE, evaluation and serving paths need of
+``repro/dist/sharding.py`` and of ``repro.dist.make_mesh``).
 
 Mesh axes, as in the reference:
 
@@ -23,8 +23,10 @@ is (1, 1).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
+import torch
 import torch.distributed as dist
 
 MODEL_AXIS = "model"
@@ -147,6 +149,47 @@ def batch_slice(mesh: Mesh, global_rows: int) -> slice:
     rank of the shard."""
     return host_batch_slice(global_rows, data_shard_index(mesh),
                             dp_size(mesh))
+
+
+def batch_rows(mesh: Mesh, global_rows: int,
+               n_micro: int = 1) -> Union[slice, np.ndarray]:
+    """The rows of a global batch this rank holds when a step splits it
+    into ``n_micro`` microbatches and shards each GLOBAL microbatch over
+    the data axes, as the reference does: its data shard's block of every
+    microbatch, microbatch-major (cut into ``n_micro`` equal parts, part
+    ``i`` is this rank's block of microbatch ``i``). One microbatch, or
+    one data shard: the contiguous :func:`batch_slice`. Raises
+    ``ValueError`` when the rows do not divide."""
+    if n_micro == 1 or dp_size(mesh) == 1:
+        return batch_slice(mesh, global_rows)
+    if global_rows % n_micro:
+        raise ValueError(f"global batch rows {global_rows} not divisible "
+                         f"by {n_micro} microbatches")
+    per = global_rows // n_micro
+    block = batch_slice(mesh, per)
+    return np.concatenate([np.arange(i * per + block.start,
+                                     i * per + block.stop)
+                           for i in range(n_micro)])
+
+
+def pad_rows(t: torch.Tensor, multiple: int) -> torch.Tensor:
+    """``t`` with its last row repeated until the rows divide
+    ``multiple`` (the data-axis product: the sharded evaluation's rows);
+    the padded rows' results are dropped."""
+    pad = (-t.shape[0]) % multiple
+    if pad:
+        t = torch.cat([t, t[-1:].expand((pad,) + tuple(t.shape[1:]))])
+    return t
+
+
+def local_catalog(y: torch.Tensor, mesh: Mesh) -> Tuple[torch.Tensor, int]:
+    """The serving layout of the reference's ``seqrec_serve_shardings``
+    as this rank sees it: the catalog rows over ``model`` — this rank's
+    block of the (shard-even) table ``y`` and the global id of its first
+    row — and everything else replicated (every rank holds the whole
+    parameter tree; the encoder reads the full item table)."""
+    rows = catalog_slice(mesh, y.shape[0])
+    return y[rows], rows.start
 
 
 def catalog_slice(mesh: Mesh, catalog_rows: int) -> slice:

@@ -21,8 +21,18 @@ scores every next-token position against the vocabulary through the
 same sweep (``lm_score_fn``), with the online LSE for the next-token
 loss.
 
-Left out, with its ROADMAP.md queue: the sharded path (``mesh=``,
-queue 1 item 14).
+Sharded path: with a ``mesh`` (``dist/sharding.py::make_mesh``) every
+rank of it calls the evaluation with the same global batch; the eval
+rows go over the data axes (padded to their product by repeating the
+last row) and the catalog rows over ``model``. Each model shard sends
+``ops.eval_tgt_gather`` over its slice at its ``id_offset``: the owner
+adds the target's score and the others exact zeros, ``psum``'d over
+``model`` BEFORE the sweep, so every shard compares its columns against
+the same target bits. Then one ``ops.eval_fused`` sweep a shard, the rank
+counts ``psum``'d, the top-k merged by
+``dist.collectives.distributed_topk_from_local`` and the LM's LSE by
+``distributed_lse_from_local``; the rows are gathered over the data
+axes, so every rank folds the whole batch (:func:`_rank_topk_sharded`).
 """
 from __future__ import annotations
 
@@ -31,12 +41,26 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.collectives import (
+    distributed_lse_from_local,
+    distributed_topk_from_local,
+    gather_rows,
+    psum,
+)
+from repro_torch.dist.sharding import (
+    MODEL_AXIS,
+    batch_slice,
+    dp_size,
+    local_catalog,
+    pad_rows,
+)
 from repro_torch.eval.streaming import (
     MetricAccumulator,
     TokenRankAccumulator,
     ranks_from_counts,
     streaming_eval_scores,
 )
+from repro_torch.kernels import ops
 
 ScoreFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
@@ -111,7 +135,9 @@ def evaluate_streaming(
         ``SequenceDataset.eval_batch`` gives it.
     ks : metric cutoffs.
     score_fn : the model protocol (default: :func:`default_score_fn`).
-    mesh : not ported (raises).
+    mesh : optional ``(data, model)`` mesh: the sharded path (module
+        docstring); every rank of the mesh calls with the same batch and
+        gets the whole batch's metrics.
     block_c : the plain version's chunk.
     accumulator : fold into an existing ``MetricAccumulator`` (several
         batches); a fresh one otherwise.
@@ -127,10 +153,6 @@ def evaluate_streaming(
     values of the dense oracle ``core.metrics.topk_metrics`` wherever
     the ranks are unambiguous.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded eval path is not ported: ROADMAP.md queue 1 item 14"
-        )
     if score_fn is None:
         score_fn = default_score_fn(cfg)
     mark = mark or (lambda name: None)
@@ -143,15 +165,53 @@ def evaluate_streaming(
         mark("h2d")
         states, catalog = score_fn(params, tokens)
         mark("forward")
-        vals, ids, gt, eq, _tgt, _m, _s = streaming_eval_scores(
-            states, catalog, targets, max(ks),
-            block_c=block_c, c_lo=1, c_hi=cfg.n_items,
-        )
+        if mesh is None:
+            vals, ids, gt, eq, _tgt, _m, _s = streaming_eval_scores(
+                states, catalog, targets, max(ks),
+                block_c=block_c, c_lo=1, c_hi=cfg.n_items,
+            )
+        else:
+            vals, ids, gt, eq, _tgt = _rank_topk_sharded(
+                states, catalog, targets, max(ks), mesh=mesh,
+                block_c=block_c, c_lo=1, c_hi=cfg.n_items,
+            )
         mark("sweep")
     acc = accumulator or MetricAccumulator(ks, cfg.n_items)
     acc.update(ranks_from_counts(gt, eq), ids)
     mark("fold")
     return acc.result()
+
+
+def _rank_topk_sharded(states, catalog, targets, k, *, mesh, block_c, c_lo,
+                       c_hi, with_lse=False, logit_softcap=None):
+    """The sharded sweep over precomputed eval rows (the module
+    docstring's path; the reference's ``_rank_topk_sharded``): every rank
+    of ``mesh`` passes the same ``(B, d)`` states, ``(C, d)`` catalog and
+    ``(B,)`` targets → ``(vals, ids, gt, eq, tgt)``, plus the merged
+    ``lse`` with ``with_lse``, each over all ``B`` rows on every rank."""
+    if not mesh.member:
+        raise ValueError(f"this rank is outside the {mesh.shape} mesh")
+    model, data, dp = mesh.axis(MODEL_AXIS), mesh.axis("data"), dp_size(mesh)
+    b = states.shape[0]
+    states, targets = pad_rows(states, dp), pad_rows(targets, dp)
+    rows = batch_slice(mesh, states.shape[0])
+    x_l, t_l = states[rows].contiguous(), targets[rows].contiguous()
+    y_l, offset = local_catalog(catalog, mesh)
+    # The target's score from the shard that owns its row (the others add
+    # exact zeros), summed BEFORE the sweep: every shard ranks its columns
+    # against the same bits.
+    tgt = psum(ops.eval_tgt_gather(x_l, y_l, t_l, block_c=block_c,
+                                   id_offset=offset), model)
+    vals_l, ids_l, gt_l, eq_l, _t, m_l, s_l = ops.eval_fused(
+        x_l, y_l, t_l, k, tgt_scores=tgt, block_c=block_c, c_lo=c_lo,
+        c_hi=c_hi, id_offset=offset, logit_softcap=logit_softcap,
+        with_lse=with_lse,
+    )
+    vals, ids = distributed_topk_from_local(vals_l, ids_l, k, model)
+    outs = [vals, ids, psum(gt_l, model), psum(eq_l, model), tgt]
+    if with_lse:
+        outs.append(distributed_lse_from_local(m_l, s_l, model))
+    return tuple(gather_rows(o, data)[:b] for o in outs)
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +279,11 @@ def evaluate_streaming_lm(
     eval_batch : dict with ``"tokens"`` (B, T); its ``"targets"`` /
         ``"valid"`` are used when present, else
         :func:`lm_targets_and_valid`.
-    ks : metric cutoffs. mesh : not ported (raises). block_c : the plain
-        version's chunk. accumulator : fold into an existing one.
+    ks : metric cutoffs. mesh : optional — the vocabulary rows over
+        ``model`` and the ``B·T`` rows over the data axes, as
+        :func:`evaluate_streaming`'s; the per-shard LSE carries merge by
+        ``distributed_lse_from_local``. block_c : the plain version's
+        chunk. accumulator : fold into an existing one.
     mark : optional hook, called with ``"start"``, ``"h2d"``,
         ``"forward"``, ``"sweep"`` and ``"fold"`` as each phase ends.
 
@@ -229,10 +292,6 @@ def evaluate_streaming_lm(
     dict — ``hr@k`` / ``ndcg@k`` / ``mean_rank`` / ``loss`` /
     ``n_tokens`` (``TokenRankAccumulator.result``).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded eval path is not ported: ROADMAP.md queue 1 item 14"
-        )
     from repro_torch.core.sce import apply_softcap
 
     mark = mark or (lambda name: None)
@@ -253,11 +312,17 @@ def evaluate_streaming_lm(
         mark("h2d")
         states, catalog = lm_score_fn(cfg)(params, tok)
         mark("forward")
-        _, _, gt, eq, tgt, m, s = streaming_eval_scores(
-            states, catalog, t_flat, 1, block_c=block_c, c_lo=1,
-            c_hi=cfg.vocab, with_lse=True, logit_softcap=cap,
-        )
-        lse = m + torch.log(s)
+        if mesh is None:
+            _, _, gt, eq, tgt, m, s = streaming_eval_scores(
+                states, catalog, t_flat, 1, block_c=block_c, c_lo=1,
+                c_hi=cfg.vocab, with_lse=True, logit_softcap=cap,
+            )
+            lse = m + torch.log(s)
+        else:
+            _, _, gt, eq, tgt, lse = _rank_topk_sharded(
+                states, catalog, t_flat, 1, mesh=mesh, block_c=block_c,
+                c_lo=1, c_hi=cfg.vocab, with_lse=True, logit_softcap=cap,
+            )
         nll = (lse - apply_softcap(tgt, cap)).cpu().numpy()
         mark("sweep")
     ranks = ranks_from_counts(gt, eq)[v_flat]

@@ -83,15 +83,16 @@ class TrainState:
     cursor: Cursor
     step: int = -1
 
-    def to_ckpt(self) -> Dict[str, Any]:
+    def to_ckpt(self, *, n_hosts: int = 1) -> Dict[str, Any]:
         return {
             "params": self.params,
             "opt_state": self.opt_state,
             "key": self.generator.get_state(),
-            # Through ShardedCursor, so the topology (host 0 of 1: one
-            # process writes checkpoints) is recorded; restore ignores it
-            # (the resharding contract).
-            "cursor": ShardedCursor(self.cursor).to_state(),
+            # Through ShardedCursor, so the topology at save time (host 0
+            # of ``n_hosts``) is recorded; restore ignores it (the
+            # resharding contract).
+            "cursor": ShardedCursor(self.cursor, host_id=0,
+                                    n_hosts=n_hosts).to_state(),
             "step": self.step,
         }
 

@@ -1,5 +1,5 @@
-"""Retrieval server — MIPS top-k over the catalog on one H100 (port of
-``repro/launch/serve.py``, single device).
+"""Retrieval server — MIPS top-k over the catalog on one H100, or on a
+``(data, model)`` mesh (port of ``repro/launch/serve.py``).
 
 Requests arrive as user histories on a bounded queue; a worker thread
 drains them with continuous micro-batching into a static set of batch
@@ -41,8 +41,17 @@ Differences from the JAX server:
   random init with ``seed``. A checkpoint the JAX package wrote is not
   the port's (its structure is a pickle only JAX reads): restore it with
   ``repro``'s manager and carry it across with
-  ``models/convert.py::sasrec_params_from_jax``. The mesh path is not
-  ported.
+  ``models/convert.py::sasrec_params_from_jax``.
+* ``mesh=`` (``dist/sharding.py::make_mesh``) serves on a mesh of
+  ``torch.distributed`` ranks: the catalog on ``model``, the requests on
+  the data axes (``steps.make_seqrec_mips_serve_step(mesh=)``), every
+  bucket dividing the data axes (refused at construction otherwise). The
+  ranks run one program together, as the reference's one controller
+  drives its devices: every rank constructs the server and scores the
+  same requests in the same order (``score()``), and each gets every
+  answer. The async queue micro-batches by arrival, which differs from
+  process to process, so over several processes serve through
+  ``score()``.
 * The readiness gate (``kernels/guard``) runs the ``mips_topk``
   conformance verdict on the server's device at construction, before
   the buckets are warmed (warming runs the kernel). A failed verdict
@@ -77,6 +86,7 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
+from repro_torch.dist.sharding import dp_size
 from repro_torch.kernels import guard
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import sasrec as sasrec_lib
@@ -250,6 +260,9 @@ class RetrievalServer:
         = random init from ``seed``.
     device : ``None`` = ``cuda`` (raises without one); ``"cpu"`` runs the
         plain kernel versions on the CPU.
+    mesh : optional ``Mesh`` — catalog on ``"model"``, requests on the
+        data axes (module docstring); every bucket must divide the data
+        axes. ``None`` = one device.
     defer_readiness : skip the constructor's readiness gate; the server
         stays not ready (and cold) until ``refresh_readiness()`` passes.
     """
@@ -259,7 +272,8 @@ class RetrievalServer:
                  degraded_top_k: Optional[int] = None, queue_size: int = 64,
                  deadline_s: Optional[float] = None,
                  ckpt_dir: Optional[str] = None, params=None,
-                 seed: int = 0, device=None, defer_readiness: bool = False):
+                 seed: int = 0, device=None, mesh=None,
+                 defer_readiness: bool = False):
         if ckpt_dir is not None and params is not None:
             raise ValueError("pass ckpt_dir or params, not both")
         self.device = resolve_device(device)
@@ -268,6 +282,17 @@ class RetrievalServer:
             raise ValueError(f"serve.py serves seqrec archs, not {arch_name}")
         self.cfg = self.arch.make_smoke_config() if cfg is None else cfg
         self.router = BucketRouter(buckets)
+        self.mesh = mesh
+        if mesh is not None:
+            if not mesh.member:
+                raise ValueError(f"this rank is outside the {mesh.shape} "
+                                 f"mesh")
+            dp = dp_size(mesh)
+            bad = [b for b in self.router.buckets if b % dp]
+            if bad:
+                raise ValueError(f"buckets {bad} do not divide over the "
+                                 f"data axes ({dp}) of the {mesh.shape} "
+                                 f"mesh")
         self.top_k = int(top_k)
         self.degraded_top_k = (
             max(1, self.top_k // 2) if degraded_top_k is None
@@ -288,7 +313,7 @@ class RetrievalServer:
             )
         self.params = _to_device(params, self.device)
         self._step = steps_lib.make_seqrec_mips_serve_step(
-            self.cfg, top_k=self.top_k
+            self.cfg, top_k=self.top_k, mesh=mesh
         )
 
         # Device work and the counters it moves run under one lock: the

@@ -1,9 +1,9 @@
 """Step factories (port of the seqrec and LM steps of
-``repro/launch/steps.py``: the training steps with any registry loss, on
-one device or on a ``(data, model)`` mesh with distributed SCE — SASRec's
-next-item and BERT4Rec's cloze objective —, the single-device seqrec
-serving steps (MIPS top-k, top-100, candidate re-rank), and the LM's
-prefill and decode steps)."""
+``repro/launch/steps.py``: the training steps with any registry loss and
+optional int8 gradient compression, on one device or on a ``(data,
+model)`` mesh — SASRec's next-item and BERT4Rec's cloze objective —, the
+seqrec serving steps (MIPS top-k, top-100, candidate re-rank) on one
+device or on a mesh, and the LM's prefill and decode steps)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,12 +16,25 @@ import torch.distributed as dist
 from repro_torch.core.distributed_sce import round_up, sce_loss_sharded
 from repro_torch.core.losses import ce_chunked, ce_fused_linear, make_loss
 from repro_torch.core.sce import SCEConfig, sce_loss
+from repro_torch.dist.collectives import (
+    all_gather,
+    distributed_topk_from_local,
+    gather_rows,
+    psum,
+)
+from repro_torch.dist.sharding import (
+    MODEL_AXIS,
+    batch_slice,
+    data_shard_index,
+    local_catalog,
+)
 from repro_torch.eval.streaming import streaming_topk
 from repro_torch.kernels import guard, ops
 from repro_torch.launch.mesh import dp_size
 from repro_torch.models import bert4rec as b4r_lib
 from repro_torch.models import sasrec as sasrec_lib
 from repro_torch.models import transformer as tf_lib
+from repro_torch.optim.compression import with_error_feedback_compression
 from repro_torch.optim.optimizers import (
     global_norm,
     leaf_slices,
@@ -34,6 +47,11 @@ from repro_torch.optim.optimizers import (
 # ---------------------------------------------------------------------------
 # Shared helpers
 # ---------------------------------------------------------------------------
+def _member(mesh):
+    if mesh is not None and not mesh.member:
+        raise ValueError(f"this rank is outside the {mesh.shape} mesh")
+
+
 def _pop_loss_cap(batch):
     """Split the optional ``"loss_cap"`` scalar out of a train batch:
     ``(batch without it, cap or None)``. Without a cap the step runs
@@ -109,6 +127,22 @@ _SENTINEL_KERNEL = {
 }
 
 
+# The losses that are a mean of per-position terms with no draw and no
+# in-batch negatives: on a data axis > 1 each shard's sum and count are
+# summed over the axis. Every other loss (the sampled ones, in-batch CE,
+# RECE, SCE's global buckets) sees the global rows, as under the
+# reference's GSPMD, so its draws are one process's.
+_PER_POSITION = ("ce", "ce_chunked", "ce_fused", "ce_fused_linear")
+
+
+def _gather_plain(t, axis):
+    """The global rows of a tensor without a gradient (bool through
+    uint8: gloo gathers no bool)."""
+    if t.dtype == torch.bool:
+        return all_gather(t.to(torch.uint8), axis).flatten(0, 1).bool()
+    return all_gather(t, axis).flatten(0, 1)
+
+
 def _vocab_loss(x, y, targets, valid, generator, *, loss_name, sce_cfg,
                 sce_mode: str, mesh, logit_softcap: Optional[float] = None,
                 omega=None, mark=None):
@@ -127,26 +161,43 @@ def _vocab_loss(x, y, targets, valid, generator, *, loss_name, sce_cfg,
     shard's). ``mark`` sees the SCE losses' own ``"select"`` and
     ``"loss_forward"``, or one ``"loss_forward"`` after any other loss.
 
+    On a data axis above 1 (``x``, ``targets``, ``valid``: this rank's
+    rows), every loss but distributed SCE is the GLOBAL batch's, as the
+    reference's: a :data:`_PER_POSITION` loss sums each shard's share
+    ``mean · n_local / n_global`` over ``data`` (the sums and the counts
+    summed before dividing); any other runs on the rows gathered over
+    ``data`` (:func:`~repro_torch.dist.collectives.gather_rows`), the
+    same draws on every rank, as ``1/D`` of it on each. Either way each
+    rank's gradient is its share of the global loss's, which the step
+    sums over ``data``, and the value returned is the global loss.
+
     Returns ``(loss, sentinels)``: the kernel guard's on-device numerics
     counters (``kernels/guard/sentinels.py``) — the loss's own
     ``aux["sentinels"]``, else the non-finite count of the loss under
     :data:`_SENTINEL_KERNEL`'s name — empty under guard policy ``off``.
     """
     aux = {}
-    if loss_name == "sce":
-        if sce_mode in ("exact", "union") and mesh is not None:
-            loss = sce_loss_sharded(x, y, targets, cfg=sce_cfg, mesh=mesh,
-                                    valid_mask=valid, mode=sce_mode,
-                                    generator=generator, omega=omega,
-                                    mark=mark)
-        else:
-            loss = sce_loss(x, y, targets, cfg=sce_cfg, valid_mask=valid,
-                            generator=generator, omega=omega, mark=mark)
+    data = mesh.axis("data") if mesh is not None else None
+    data = data if data is not None and data.size > 1 else None
+    if loss_name == "sce" and sce_mode in ("exact", "union") \
+            and mesh is not None:
+        loss = sce_loss_sharded(x, y, targets, cfg=sce_cfg, mesh=mesh,
+                                valid_mask=valid, mode=sce_mode,
+                                generator=generator, omega=omega, mark=mark)
+        data = None  # its mean already runs over the data axes
     else:
-        if omega is not None:
+        if omega is not None and loss_name != "sce":
             raise ValueError(f"omega injects SCE's bucket draw; the train "
                              f"loss is {loss_name!r}")
-        if loss_name == "ce_chunked":
+        per_position = loss_name in _PER_POSITION
+        if data is not None and not per_position:
+            x = gather_rows(x, data)
+            targets = _gather_plain(targets, data)
+            valid = _gather_plain(valid, data)
+        if loss_name == "sce":
+            loss = sce_loss(x, y, targets, cfg=sce_cfg, valid_mask=valid,
+                            generator=generator, omega=omega, mark=mark)
+        elif loss_name == "ce_chunked":
             loss, aux = ce_chunked(x, y, targets, valid_mask=valid,
                                    logit_softcap=logit_softcap)
         elif loss_name == "ce_fused_linear":
@@ -156,8 +207,16 @@ def _vocab_loss(x, y, targets, valid, generator, *, loss_name, sce_cfg,
             loss, aux = make_loss(loss_name)(x, y, targets,
                                              valid_mask=valid,
                                              generator=generator)
-        if mark:
+        if mark and loss_name != "sce":
             mark("loss_forward")
+        if data is not None and per_position:
+            n_l = (valid.sum(dtype=torch.float32) if valid is not None
+                   else torch.tensor(float(x.shape[0]), device=x.device))
+            n_g = psum(n_l, data)
+            loss = psum(loss * (torch.clamp(n_l, min=1.0)
+                                / torch.clamp(n_g, min=1.0)), data)
+        elif data is not None:
+            loss = psum(loss / data.size, data)
     if guard.policy() == "off":
         return loss, {}
     sentinels = aux.get("sentinels")
@@ -223,8 +282,39 @@ def _unflatten(tree, leaves):
 # ---------------------------------------------------------------------------
 # Sequential recommenders (BERT4Rec / SASRec, the paper's own domain)
 # ---------------------------------------------------------------------------
+def n_microbatches(arch, shape, mesh=None) -> int:
+    """The microbatches a train step of ``shape`` takes: the arch's for
+    the shape's name, capped so that each spans the data axes (a row a
+    shard at least), as the reference caps them."""
+    gb = shape.dims.get("batch", shape.dims.get("global_batch"))
+    dp = dp_size(mesh) if mesh is not None else 1
+    return max(1, min(arch.microbatches.get(shape.name, 1), gb // dp))
+
+
+def _optimizer(arch, lr, grad_compression):
+    """The arch's optimizer, wrapped in int8 error-feedback compression
+    with ``grad_compression="int8"``."""
+    opt = make_optimizer(arch.optimizer, lr)
+    if grad_compression is None:
+        return opt
+    if grad_compression != "int8":
+        raise ValueError(f"grad_compression {grad_compression!r}")
+    return with_error_feedback_compression(opt)
+
+
+def _global_uniform(tokens, generator, mesh):
+    """BERT4Rec's cloze draw on a data axis > 1: the GLOBAL microbatch's
+    ``(D·b, L)`` uniform, as one process draws it, and this shard's
+    block of it."""
+    dp = dp_size(mesh)
+    u = torch.rand((dp * tokens.shape[0],) + tuple(tokens.shape[1:]),
+                   generator=generator, device=tokens.device)
+    return u.chunk(dp)[data_shard_index(mesh)]
+
+
 def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
-                           sce_mode: str = "exact"):
+                           sce_mode: str = "exact",
+                           grad_compression: Optional[str] = None):
     """The training step of a seqrec model: the encoder's forward → the
     loss ``arch.train_loss`` names (:func:`_vocab_loss`; ``build_sce_config``
     defaults to ``use_kernel=True``) → autograd → guarded AdamW at lr
@@ -246,11 +336,18 @@ def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
     ``"union"``, SCE is ``core.distributed_sce.sce_loss_sharded`` over the
     mesh, as the reference trainer runs it; ``mesh=None`` or ``"gspmd"``
     keeps ``core.sce.sce_loss``. On a mesh each rank passes its data
-    shard of the global batch (``dist.sharding.batch_slice``), the SCE
-    config follows the per-shard position count with ``n_b`` rounded to
-    the model axis, and with a data axis above 1 the step sums the
-    gradients over the data group before the guarded update (the
-    reference gets that sum from ``jit``).
+    shard of the global batch, the SCE config follows the per-shard
+    position count with ``n_b`` rounded to the model axis, and with a
+    data axis above 1 every loss is the global batch's
+    (:func:`_vocab_loss`) and the step sums the gradients over the data
+    group before the guarded update (the reference gets that sum from
+    ``jit``). With microbatches the reference shards each GLOBAL
+    microbatch, so a rank's rows are its block of every microbatch,
+    microbatch-major: ``dist.sharding.batch_rows(mesh, B,
+    n_microbatches(arch, shape, mesh))``. BERT4Rec's
+    cloze draw there is the global microbatch's, cut to the shard's
+    block. ``grad_compression="int8"`` wraps the optimizer in
+    ``optim/compression.py``'s error feedback.
 
     Returns ``(train_step, (opt_init, opt_update), sce_cfg)`` with
     ``train_step(params, opt_state, batch, *, generator=None,
@@ -267,24 +364,13 @@ def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
     """
     if sce_mode not in ("exact", "union", "gspmd"):
         raise ValueError(f"sce_mode {sce_mode!r}")
-    if mesh is not None and not mesh.member:
-        raise ValueError(f"this rank is outside the {mesh.shape} mesh")
+    _member(mesh)
     bidirectional = not cfg.causal
-    opt_init, opt_update = make_optimizer(arch.optimizer, 1e-3)
+    opt_init, opt_update = _optimizer(arch, 1e-3, grad_compression)
     gb = shape.dims["batch"]
     dp = dp_size(mesh) if mesh is not None else 1
     tp = mesh.shape["model"] if mesh is not None else 1
-    n_micro = max(1, min(arch.microbatches.get(shape.name, 1), gb // dp))
-    if dp > 1 and not (arch.train_loss == "sce"
-                       and sce_mode in ("exact", "union")):
-        raise NotImplementedError(
-            "on a data axis > 1 only distributed SCE (sce_mode exact or "
-            "union) is ported: another loss would average each rank's "
-            "shard, not the global batch")
-    if n_micro > 1 and dp > 1:
-        raise NotImplementedError(
-            "microbatches on a data axis > 1 are not ported: the reference "
-            "shards each global microbatch, a rank here holds one block")
+    n_micro = n_microbatches(arch, shape, mesh)
     n_pos = (gb // n_micro // dp) * cfg.max_len
     if n_pos <= 0:
         raise ValueError(f"batch {gb} / {n_micro} microbatches / {dp} data "
@@ -299,9 +385,11 @@ def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
         with torch.enable_grad():
             tokens = mb["tokens"]
             if bidirectional:
+                uniform = mb.get("cloze")
+                if uniform is None and dp > 1:
+                    uniform = _global_uniform(tokens, generator, mesh)
                 masked, is_masked = b4r_lib.apply_cloze_mask(
-                    tokens, cfg, generator=generator,
-                    uniform=mb.get("cloze"))
+                    tokens, cfg, generator=generator, uniform=uniform)
                 hidden = b4r_lib.forward(leaves, cfg, masked)
                 targets, valid = tokens, is_masked
             else:
@@ -356,7 +444,8 @@ def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
 # LM transformers
 # ---------------------------------------------------------------------------
 def make_lm_train_step(arch, cfg, shape, *, mesh=None,
-                       sce_mode: str = "union"):
+                       sce_mode: str = "union",
+                       grad_compression: Optional[str] = None):
     """The training step of a transformer LM (the reference's
     ``make_lm_train_step``): ``transformer.forward`` over each
     microbatch's tokens → the loss ``arch.train_loss`` names on the
@@ -369,7 +458,10 @@ def make_lm_train_step(arch, cfg, shape, *, mesh=None,
     microbatches (capped so each spans the data axis) in
     ``arch.accum_dtype`` → the guarded update of ``arch.optimizer``
     (AdamW; kimi-k2's Adafactor) at lr 3e-4, written in place
-    (:func:`_apply_update_guarded`).
+    (:func:`_apply_update_guarded`), with ``grad_compression="int8"``
+    through ``optim/compression.py``'s error feedback. On a data axis
+    above 1 every loss is the global batch's and a rank's rows are its
+    block of every microbatch, as in :func:`make_seqrec_train_step`.
 
     SCE's parametrisation (``build_sce_config``) follows the positions a
     microbatch holds on a shard — all of them with ``gspmd`` — with the
@@ -386,24 +478,13 @@ def make_lm_train_step(arch, cfg, shape, *, mesh=None,
     """
     if sce_mode not in ("exact", "union", "gspmd"):
         raise ValueError(f"sce_mode {sce_mode!r}")
-    if mesh is not None and not mesh.member:
-        raise ValueError(f"this rank is outside the {mesh.shape} mesh")
-    opt_init, opt_update = make_optimizer(arch.optimizer, 3e-4)
+    _member(mesh)
+    opt_init, opt_update = _optimizer(arch, 3e-4, grad_compression)
     gb = shape.dims["global_batch"]
     seq = shape.dims["seq_len"]
     dp = dp_size(mesh) if mesh is not None else 1
     tp = mesh.shape["model"] if mesh is not None else 1
-    n_micro = max(1, min(arch.microbatches.get(shape.name, 1), gb // dp))
-    if dp > 1 and not (arch.train_loss == "sce"
-                       and sce_mode in ("exact", "union")):
-        raise NotImplementedError(
-            "on a data axis > 1 only distributed SCE (sce_mode exact or "
-            "union) is ported: another loss would average each rank's "
-            "shard, not the global batch")
-    if n_micro > 1 and dp > 1:
-        raise NotImplementedError(
-            "microbatches on a data axis > 1 are not ported: the reference "
-            "shards each global microbatch, a rank here holds one block")
+    n_micro = n_microbatches(arch, shape, mesh)
     n_pos = ((gb // n_micro) * seq if sce_mode == "gspmd"
              else (gb // n_micro // dp) * seq)
     if n_pos <= 0:
@@ -491,11 +572,38 @@ def _last_states(cfg, params, tokens) -> torch.Tensor:
     return lib.forward(params, cfg, tokens)[:, -1].contiguous()
 
 
-def _one_device(mesh, step: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"the mesh path of {step} is not ported: ROADMAP.md queue 1 "
-            f"item 14")
+def _sharded_topk(x_l, y, k, *, c_lo, c_hi, mesh):
+    """The mesh paths' catalog stage: this rank's top-``min(k, C/M)`` of
+    its catalog block (``local_catalog``) through ``ops.mips_topk`` at
+    the block's ``id_offset`` under the window ``[c_lo, c_hi)``, merged
+    over ``model`` by ``distributed_topk_from_local`` (ties to the lower
+    global id) → ``(vals, ids)`` of this rank's rows."""
+    y_l, offset = local_catalog(y, mesh)
+    vals_l, ids_l = streaming_topk(x_l, y_l, k, c_lo=c_lo, c_hi=c_hi,
+                                   id_offset=offset)
+    return distributed_topk_from_local(vals_l, ids_l, k,
+                                       mesh.axis(MODEL_AXIS))
+
+
+def _data_sharded(cfg, mesh, k, c_lo):
+    """The serve step over ``mesh``: every rank passes the same global
+    ``(B, L)`` request batch; it encodes its data shard's rows
+    (``batch_slice``; the data axes must divide ``B``), selects over its
+    catalog block (:func:`_sharded_topk`) and gathers the rows over
+    ``data``, so each rank returns the whole batch's ``(vals, ids)``."""
+    @torch.inference_mode()
+    def serve_step(params, tokens):
+        b, dp = tokens.shape[0], dp_size(mesh)
+        if b % dp:
+            raise ValueError(f"{b} requests do not divide over the data "
+                             f"axes ({dp})")
+        x_l = _last_states(cfg, params, tokens[batch_slice(mesh, b)])
+        vals, ids = _sharded_topk(x_l, sasrec_lib.loss_catalog(params, cfg),
+                                  k, c_lo=c_lo, c_hi=cfg.n_items, mesh=mesh)
+        data = mesh.axis("data")
+        return gather_rows(vals, data), gather_rows(ids, data)
+
+    return serve_step
 
 
 def make_seqrec_mips_serve_step(cfg, *, top_k: int = 10, mesh=None):
@@ -508,10 +616,15 @@ def make_seqrec_mips_serve_step(cfg, *, top_k: int = 10, mesh=None):
     Only global ids in ``[1, n_items)`` serve: the padding row 0 and the
     phantom rows of the shard-even catalog slice are masked. Ties go to
     the lower id. ``serve_step(params, tokens)`` → ``(vals (B, top_k)
-    f32, ids (B, top_k) int32)`` on the tokens' device. Single device:
-    ``mesh`` raises ``NotImplementedError`` (queue 1 item 14).
+    f32, ids (B, top_k) int32)`` on the tokens' device. With ``mesh``
+    (every rank calling with the same batch): the requests over the data
+    axes, the catalog over ``model``, each shard's candidates merged by
+    ``distributed_topk_from_local`` — (value, global id) pairs cross the
+    wire, never embeddings — and every rank gets the whole batch.
     """
-    _one_device(mesh, "make_seqrec_mips_serve_step")
+    _member(mesh)
+    if mesh is not None:
+        return _data_sharded(cfg, mesh, top_k, c_lo=1)
 
     @torch.inference_mode()
     def serve_step(params, tokens):
@@ -533,10 +646,15 @@ def make_seqrec_serve_step(cfg, *, top_k: int = 100, mesh=None):
     ``[0, n_items)``: no ``(B, C)`` score matrix (2 GB in f32 at 512 ×
     10⁶), and the reference's tie rule, the lower id first, which
     ``torch.topk`` does not promise. ``serve_step(params, tokens)`` →
-    ``(vals (B, top_k) f32, ids (B, top_k) int32)``. Single device:
-    ``mesh`` raises ``NotImplementedError`` (queue 1 item 14).
+    ``(vals (B, top_k) f32, ids (B, top_k) int32)``. With ``mesh``: as
+    :func:`make_seqrec_mips_serve_step`'s, each shard streaming its block
+    with the phantom rows shut out by the window's ``c_hi``, merged by
+    ``distributed_topk_from_local`` (the reference merges a dense
+    ``(chunk, C/M)`` block through ``distributed_topk``).
     """
-    _one_device(mesh, "make_seqrec_serve_step")
+    _member(mesh)
+    if mesh is not None:
+        return _data_sharded(cfg, mesh, top_k, c_lo=0)
 
     @torch.inference_mode()
     def serve_step(params, tokens):
@@ -559,10 +677,18 @@ def make_seqrec_retrieval_step(cfg, *, top_k: int = 100, mesh=None):
     gathered from the shard-even catalog slice and run through
     ``kernels.ops.mips_topk`` with their positions as ids, so ties go to
     the earlier candidate, as in the reference. Every candidate id must
-    lie in ``[0, catalog_loss_size)`` (``ValueError`` otherwise). Single
-    device: ``mesh`` raises ``NotImplementedError`` (queue 1 item 14).
+    lie in ``[0, catalog_loss_size)`` (``ValueError`` otherwise).
+
+    With ``mesh`` (every rank passing the same tokens and candidates,
+    both replicated as in the reference): each model shard runs
+    ``mips_topk`` over the candidates it owns (the rest masked), and the
+    shards' lists merge by (value, position) —
+    ``distributed_topk_from_local(ties="id")`` — since positions
+    interleave across shards, so the earlier candidate still wins a tie.
+    The reference ``pmax``-es a dense ``(B, n_cand)`` score matrix over
+    ``model`` instead.
     """
-    _one_device(mesh, "make_seqrec_retrieval_step")
+    _member(mesh)
 
     @torch.inference_mode()
     def retrieval_step(params, tokens, candidate_ids):
@@ -575,7 +701,15 @@ def make_seqrec_retrieval_step(cfg, *, top_k: int = 100, mesh=None):
         if lo < 0 or hi >= y.shape[0]:
             raise ValueError(f"candidate ids span [{lo}, {hi}], outside "
                              f"the catalog [0, {y.shape[0]})")
-        cand = y[candidate_ids.long()]
-        return ops.mips_topk(x_last, cand, top_k)
+        if mesh is None:
+            return ops.mips_topk(x_last, y[candidate_ids.long()], top_k)
+        k = min(top_k, candidate_ids.numel())  # one device's clamp
+        y_l, offset = local_catalog(y, mesh)
+        local = candidate_ids.long() - offset
+        owned = (local >= 0) & (local < y_l.shape[0])
+        cand = y_l[local.clamp(0, y_l.shape[0] - 1)]
+        vals_l, idx_l = ops.mips_topk(x_last, cand, k, valid=owned)
+        return distributed_topk_from_local(vals_l, idx_l, k,
+                                           mesh.axis(MODEL_AXIS), ties="id")
 
     return retrieval_step

@@ -28,7 +28,12 @@ mesh), and ``sce_mode`` defaults to ``"exact"``: SCE runs as
 ``core/distributed_sce.py::sce_loss_sharded`` on that mesh, ``"union"``
 in its union mode, ``"gspmd"`` as the global-bucket ``core/sce.py``
 loss. Each rank steps its data shard of every global batch
-(``dist.sharding.batch_slice``). The default configuration is the arch's
+(``dist.sharding.batch_rows``: with microbatches, its block of every
+global microbatch). ``n_hosts`` emulates that many hosts, each drawing
+its slice of the global batch through its own ``ShardedCursor``
+(:func:`_host_batch`: bit for bit the one-host batch), and
+``grad_compression="int8"`` runs the optimizer on int8 error-feedback
+gradients (``optim/compression.py``). The default configuration is the arch's
 smoke configuration, as in the reference; pass ``cfg=make_config()`` for
 the paper's full width. It runs on ``cuda`` unless ``device="cpu"`` is
 given, and raises when no device is given and CUDA is missing.
@@ -41,7 +46,8 @@ the card) of ``eval_users`` held-out users drawn once from
 token-rank evaluation (``evaluate_streaming_lm``) of every next-token
 position of ``eval_users`` held-out sequences
 (``SequenceDataset.heldout_batch``); each prints ``[eval] step N:
-{...}``.
+{...}``. With a ``model`` axis above 1 the evaluation runs on the mesh
+(the sharded path of ``eval/harness.py``), as the reference's.
 
 Fault tolerance, as in the reference (``checkpoint/manager.py``,
 ``launch/elastic.py``):
@@ -78,12 +84,13 @@ Fault tolerance, as in the reference (``checkpoint/manager.py``,
     ``loss``, ``skipped``, ``grad_norm``, tripped ``sentinels``): the
     curve the kill drills compare step for step.
 
-Checkpoints are written under a single process only: ``ckpt_dir`` under
-a ``torch.distributed`` world of more than one process raises.
-
-Left out, with their ROADMAP.md queue: the sharded evaluation,
-checkpoints over several processes, ``--n-hosts`` emulation and
-gradient compression (item 14); the MoE LMs (item 16).
+Under a ``torch.distributed`` world of several processes rank 0 writes
+the checkpoints and every rank restores them; every rank reaches a
+barrier before and after each save. Rank 0's save policy decides for
+all (its clock is the one the last save reset), and a signal on any rank
+stops all at once.
+The state is replicated over the ranks, so a run saved on a world of 2
+resumes on a world of 1, and the other way round.
 
 Usage::
 
@@ -98,9 +105,11 @@ Usage::
     # step 7 the RuntimeError, or with --ckpt-dir the rollback
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec-sce \\
         --steps 10 --device cpu --guard strict --chaos-nan-at 5
-    # two processes on the CPU (a (2, 1) mesh on gloo)
+    # two processes on the CPU (a (2, 1) mesh on gloo), int8 gradient
+    # compression, two emulated hosts
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
-        --arch sasrec-sce --steps 4 --device cpu
+        --arch sasrec-sce --steps 4 --device cpu --grad-compression int8 \\
+        --n-hosts 2
     # the LM family: gemma-2's smoke config, 2 sequences of 32 tokens
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
         --steps 4 --batch 2 --seq-len 32 --eval-every 2 --device cpu
@@ -124,8 +133,13 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ShapeSpec, get_arch
-from repro_torch.data import Cursor, SeqDataConfig, SequenceDataset
-from repro_torch.dist.sharding import batch_slice, world
+from repro_torch.data import (
+    Cursor,
+    SeqDataConfig,
+    SequenceDataset,
+    ShardedCursor,
+)
+from repro_torch.dist.sharding import batch_rows, world
 from repro_torch.eval import evaluate_streaming, evaluate_streaming_lm
 from repro_torch.kernels import guard as kguard
 from repro_torch.launch.elastic import (
@@ -135,7 +149,11 @@ from repro_torch.launch.elastic import (
     TrainState,
 )
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.steps import make_lm_train_step, make_seqrec_train_step
+from repro_torch.launch.steps import (
+    make_lm_train_step,
+    make_seqrec_train_step,
+    n_microbatches,
+)
 from repro_torch.models import bert4rec, sasrec, transformer
 from repro_torch.optim.optimizers import tree_map
 
@@ -163,9 +181,47 @@ def _host_metrics(metrics):
             {n: int(v) for n, v in zip(names, row[3:])})
 
 
-def _host_batch(data, cursor):
-    """The next global host batch at ``cursor`` → ``(batch, cursor)``."""
-    return data.next_batch(cursor)
+def _host_batch(data, cursor, n_hosts: int = 1):
+    """The next global host batch at ``cursor`` → ``(batch, cursor)``.
+
+    With ``n_hosts > 1`` each emulated host draws its own slice through
+    its own :class:`ShardedCursor` and the batch is their concatenation:
+    bit for bit the one-host batch for every ``n_hosts``, through the
+    per-host code path."""
+    if n_hosts == 1:
+        return data.next_batch(cursor)
+    parts = [data.next_batch_sharded(
+        ShardedCursor(cursor, host_id=h, n_hosts=n_hosts))[0]
+        for h in range(n_hosts)]
+    return ({k: np.concatenate([p[k] for p in parts]) for k in parts[0]},
+            cursor.advance())
+
+
+def _agree(flag: bool) -> bool:
+    """``flag`` raised on any rank of a world of several processes →
+    True on every rank: a decision each rank could take alone (a
+    signal), taken by all, so every rank reaches the same barriers."""
+    if world()[1] == 1:
+        return flag
+    t = torch.tensor([int(flag)])
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def _lead_decides(flag: bool) -> bool:
+    """Rank 0's ``flag`` on every rank: a save is due by the writer's own
+    policy (only rank 0 saves, so only its clock was reset by the last
+    save), and every rank reaches the same barriers."""
+    if world()[1] == 1:
+        return flag
+    t = torch.tensor([int(flag)])
+    dist.broadcast(t, src=0)
+    return bool(t.item())
+
+
+def _barrier() -> None:
+    if world()[1] > 1:
+        dist.barrier()
 
 
 def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
@@ -178,7 +234,9 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
           metrics_file: Optional[str] = None, max_strikes: int = 3,
           guard_factor: float = 100.0, chaos_nan_at: Optional[int] = None,
           guard_policy: Optional[str] = None, mark=None,
-          train_loss: Optional[str] = None) -> Dict[str, Any]:
+          train_loss: Optional[str] = None,
+          grad_compression: Optional[str] = None,
+          n_hosts: int = 1) -> Dict[str, Any]:
     """Train ``arch_name`` for ``steps`` steps of ``batch`` sequences (the
     global batch: each rank of the mesh steps its data shard of it) —
     a seqrec model's of ``cfg.max_len`` items, an LM's of ``seq_len`` tokens.
@@ -213,6 +271,8 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     ``warn`` / ``strict``) sets the process-wide kernel-guard policy.
     ``train_loss`` replaces the arch's own loss (a registry name, e.g.
     ``"ce_fused_linear"``: the full-CE baseline of an SCE arch).
+    ``grad_compression`` (``"int8"`` or None) and ``n_hosts`` (emulated
+    hosts; ``batch`` must divide) are the module docstring's.
 
     Returns ``first_loss``, ``final_loss``, ``steps`` (steps run in this
     call, a rolled-back stretch counted again), ``mean_step_s`` (host
@@ -235,10 +295,8 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     if arch.family not in ("seqrec", "lm"):
         raise NotImplementedError(f"{arch.family} training is not ported")
     lm = arch.family == "lm"
-    if ckpt_dir and world()[1] > 1:
-        raise NotImplementedError(
-            f"checkpoints under a torch.distributed world of {world()[1]} "
-            f"processes are not ported (ROADMAP.md queue 1 item 14)")
+    if n_hosts < 1 or batch % n_hosts:
+        raise ValueError(f"batch {batch} not divisible by n_hosts {n_hosts}")
     cfg = cfg if cfg is not None else arch.make_smoke_config()
     if lm:
         # A run at the length of one of the arch's train shapes takes its
@@ -266,20 +324,23 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
         raise ValueError(f"rank {world()[0]} is outside the {mesh.shape} "
                          f"mesh: the world must fit a data axis dividing "
                          f"batch {batch}")
-    rows = batch_slice(mesh, batch)
     lead = world()[0] == 0
     # BERT4Rec masks inside the step: its batches carry the tokens only.
     batch_keys = (("tokens",) if not getattr(cfg, "causal", True)
                   else ("tokens", "targets", "valid"))
     if lm:
         step_fn, (opt_init, _), _ = make_lm_train_step(
-            arch, cfg, shape, mesh=mesh, sce_mode=sce_mode)
+            arch, cfg, shape, mesh=mesh, sce_mode=sce_mode,
+            grad_compression=grad_compression)
         params = transformer.init_params(cfg, seed=seed, device=device)
     else:
         step_fn, (opt_init, _), _ = make_seqrec_train_step(
-            arch, cfg, shape, mesh=mesh, sce_mode=sce_mode)
+            arch, cfg, shape, mesh=mesh, sce_mode=sce_mode,
+            grad_compression=grad_compression)
         init = sasrec.init_params if cfg.causal else bert4rec.init_params
         params = init(cfg, seed=seed, device=device)
+    # this rank's rows: its block of every global microbatch
+    rows = batch_rows(mesh, batch, n_microbatches(arch, shape, mesh))
     state = TrainState(
         params=params, opt_state=opt_init(params),
         generator=torch.Generator(device=device).manual_seed(seed),
@@ -297,7 +358,8 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
             return state, None
         restored = TrainState.from_ckpt(
             tree, opt_template=state.opt_state, device=device)
-        print(f"[restore] resumed from step {last}")
+        if lead:
+            print(f"[restore] resumed from step {last}")
         return restored, last
 
     if mgr is not None:
@@ -321,6 +383,7 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
             n_items=cfg.n_items, seq_len=cfg.max_len, batch_size=eval_users,
         )).eval_batch(Cursor(seed=seed))
     evaluate = evaluate_streaming_lm if lm else evaluate_streaming
+    eval_mesh = mesh if mesh.shape["model"] > 1 else None
 
     guard = DivergenceGuard(max_strikes=max_strikes,
                             cap_factor=guard_factor)
@@ -338,7 +401,11 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
         metrics_fh.flush()
 
     def save_state(blocking: bool):
-        mgr.save(state.step, state.to_ckpt(), blocking=blocking)
+        _barrier()
+        if lead:  # the state is replicated: one rank writes it
+            mgr.save(state.step, state.to_ckpt(n_hosts=n_hosts),
+                     blocking=blocking)
+        _barrier()
 
     losses, times, caps, sentinel_log = [], [], [], []
     recent = deque(maxlen=WATCHDOG_WINDOW)
@@ -350,7 +417,7 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
         with PreemptionHandler() as preemption:
             step = state.step + 1
             while step < steps:
-                if preemption.preempted:
+                if _agree(preemption.preempted):
                     preempted = True
                     break
                 if step == chaos_nan_at and not chaos_fired:
@@ -362,7 +429,8 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
                         lambda p: p * float("nan")
                         if p.is_floating_point() else p, state.params)
                 t0 = time.perf_counter()
-                host_batch, new_cursor = _host_batch(data, state.cursor)
+                host_batch, new_cursor = _host_batch(data, state.cursor,
+                                                     n_hosts)
                 t_data = time.perf_counter() - t0
                 # Straggler mitigation: a stalled data load reuses the
                 # previous batch (bounded staleness) instead of blocking.
@@ -420,15 +488,18 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
                             f"steps at step {step} and no --ckpt-dir to "
                             f"roll back to")
                     mgr.wait()  # an in-flight async save must land first
+                    _barrier()
                     rolled, last = restore_or(state)
                     if last is None:
                         raise RuntimeError("diverged and no intact "
                                            "checkpoint to roll back to")
                     state = rolled
                     state.cursor = guard.reseed(state.cursor)
-                    print(f"[guard] rolled back to verified step {last} "
-                          f"(rollback #{guard.rollbacks}, data offset "
-                          f"+{guard.reseed_stride * guard.rollbacks})")
+                    if lead:
+                        offset = guard.reseed_stride * guard.rollbacks
+                        print(f"[guard] rolled back to verified step "
+                              f"{last} (rollback #{guard.rollbacks}, data "
+                              f"offset +{offset})")
                     step = state.step + 1
                     continue
 
@@ -439,14 +510,15 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
                     print(f"step {step:5d}  loss {loss:.4f}  "
                           f"{dt * 1e3:.0f} ms")
                 if do_eval and (step + 1) % eval_every == 0:
-                    eval_metrics = evaluate(state.params, cfg, eval_batch)
+                    eval_metrics = evaluate(state.params, cfg, eval_batch,
+                                            mesh=eval_mesh)
                     shown = {k: round(v, 4) for k, v in eval_metrics.items()}
                     if lead:
                         print(f"[eval] step {step}: {shown}")
-                if mgr is not None and mgr.should_save(step):
+                if mgr is not None and _lead_decides(mgr.should_save(step)):
                     save_state(blocking=False)
                 step += 1
-            if preemption.preempted and not preempted:
+            if not preempted and _agree(preemption.preempted):
                 preempted = True  # the signal came during the last step
 
         if mgr is not None:
@@ -529,13 +601,21 @@ def main() -> None:
                     help="kernel-guard policy (default: REPRO_GUARD or "
                          "'warn'): preflight, conformance canaries, "
                          "numerics sentinels")
+    ap.add_argument("--grad-compression", choices=["int8"],
+                    help="int8 error-feedback gradient compression")
+    ap.add_argument("--n-hosts", type=int, default=1,
+                    help="emulated hosts: the batch is the concatenation "
+                         "of per-host ShardedCursor slices, the same "
+                         "global stream for any value")
     args = ap.parse_args()
     # Under torchrun (WORLD_SIZE > 1) join its group: gloo on the CPU.
     launched = int(os.environ.get("WORLD_SIZE", "1")) > 1
     if launched:
         if resolve_device(args.device).type != "cpu":
-            raise NotImplementedError("a run over several processes is "
-                                      "ported on the CPU only (--device cpu)")
+            raise NotImplementedError(
+                "a run over several processes runs on the CPU only "
+                "(--device cpu): NCCL puts one rank on each card, and the "
+                "4-chip cell comes first (ROADMAP.md queue 1 item 14)")
         dist.init_process_group("gloo", init_method="env://")
     try:
         out = train(args.arch, steps=args.steps, batch=args.batch,
@@ -549,7 +629,9 @@ def main() -> None:
                     metrics_file=args.metrics_file,
                     max_strikes=args.max_strikes,
                     guard_factor=args.guard_factor,
-                    chaos_nan_at=args.chaos_nan_at, guard_policy=args.guard)
+                    chaos_nan_at=args.chaos_nan_at, guard_policy=args.guard,
+                    grad_compression=args.grad_compression,
+                    n_hosts=args.n_hosts)
         if world()[0] == 0:
             print(json.dumps(out))
     finally:

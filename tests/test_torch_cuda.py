@@ -137,6 +137,17 @@ step and the retrieval step against the same steps on the CPU, values
 within ``1e-5·max|score|``, ids or positions equal where isolated, tied
 copies lower id first.
 
+The sharded paths' local stages (a 4-way model split, each shard's
+stage run in turn on the card, as ``chip_smoke.py``'s distribution phase
+runs them at full width): the shards' ``eval_tgt_gather`` at their
+``id_offset`` summed, each shard's ``eval_fused`` against that target
+score, merged by ``dist.collectives.merge_gathered_topk`` /
+``merge_gathered_lse`` and the summed counts, equal the unsharded
+``eval_fused`` bit for bit (values, ids, ``gt``, ``eq``, the target
+score; f32 and bf16, rows tied across shards, phantom rows in the last
+shard), the LSE within ``1e-5`` relative; the serve steps'
+``mips_topk`` stage likewise, bit for bit.
+
 Checkpoints: a train state restored onto ``cuda`` keeps the CUDA
 generator's state, so the next Mix Ω draw (``make_bucket_centers``)
 equals the uninterrupted generator's bit for bit, and its params and
@@ -2690,3 +2701,68 @@ def test_moe_lm_step_on_the_card_matches_plain(dev):
         diff = (a - b).abs()
         assert bool((diff <= 2 * 3e-4).all())
         assert (diff > 1e-5 * b.abs().max()).float().mean().item() < 0.01
+
+
+# ---------------------------------------------------------------------------
+# The sharded paths' local stages: a 4-way merge against one launch
+# ---------------------------------------------------------------------------
+def _shard_problem(dev, seed, n, c, d, dtype):
+    g = _gen(dev, seed)
+    x = torch.randn(n, d, generator=g, device=dev).to(dtype)
+    y = (torch.randn(c, d, generator=g, device=dev) * 0.3).to(dtype)
+    per = c // 4
+    y[3 * per + 5:3 * per + 9] = y[7:11]  # rows tied across shards
+    t = torch.randint(1, c - 9, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    t[:4] = torch.arange(3 * per + 5, 3 * per + 9, device=dev)
+    return x, y, t, [(y[j * per:(j + 1) * per], j * per) for j in range(4)]
+
+
+@pytest.mark.parametrize("n,c,d,k,dtype,with_lse,cap", [
+    (100, 4 * 2_500, 64, 10, torch.float32, False, None),
+    (64, 4 * 1_000, 64, 10, torch.float32, True, 30.0),
+    (96, 4 * 3_000, 300, 1, torch.bfloat16, True, 30.0),
+    (40, 4 * 800, 2_304, 5, torch.bfloat16, False, None),
+])
+def test_sharded_eval_merge_equals_unsharded(dev, n, c, d, k, dtype,
+                                             with_lse, cap):
+    from repro_torch.dist.collectives import (merge_gathered_lse,
+                                              merge_gathered_topk)
+
+    x, y, t, blocks = _shard_problem(dev, 31, n, c, d, dtype)
+    kw = dict(c_lo=1, c_hi=c - 9, logit_softcap=cap, with_lse=with_lse)
+    whole = ops.eval_fused(x, y, t, k, **kw)
+    tgt = torch.stack([ops.eval_tgt_gather(x, y_j, t, id_offset=off)
+                       for y_j, off in blocks]).sum(0)
+    outs = [ops.eval_fused(x, y_j, t, k, tgt_scores=tgt, id_offset=off, **kw)
+            for y_j, off in blocks]
+    vals, ids = merge_gathered_topk(torch.stack([o[0] for o in outs]),
+                                    torch.stack([o[1] for o in outs]), k)
+    got = (vals, ids, sum(o[2] for o in outs), sum(o[3] for o in outs), tgt)
+    for a, b in zip(got, whole[:5]):
+        assert torch.equal(a, b)
+    if with_lse:
+        lse = merge_gathered_lse(torch.stack([o[5] for o in outs]),
+                                 torch.stack([o[6] for o in outs]))
+        want = whole[5] + torch.log(whole[6])
+        assert ((lse - want).abs() / want.abs()).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("n,c,d,k,dtype,c_lo", [
+    (512, 4 * 2_500, 64, 10, torch.float32, 1),
+    (33, 4 * 2_000, 64, 100, torch.float32, 0),
+    (16, 4 * 1_500, 2_304, 128, torch.bfloat16, 1),
+])
+def test_sharded_mips_topk_merge_equals_unsharded(dev, n, c, d, k, dtype,
+                                                  c_lo):
+    from repro_torch.dist.collectives import merge_gathered_topk
+    from repro_torch.eval.streaming import streaming_topk
+
+    x, y, _, blocks = _shard_problem(dev, 32, n, c, d, dtype)
+    whole = streaming_topk(x, y, k, c_lo=c_lo, c_hi=c - 9)
+    outs = [streaming_topk(x, y_j, k, c_lo=c_lo, c_hi=c - 9, id_offset=off)
+            for y_j, off in blocks]
+    got = merge_gathered_topk(torch.stack([o[0] for o in outs]),
+                              torch.stack([o[1] for o in outs]), k)
+    for a, b in zip(got, whole):
+        assert torch.equal(a, b)

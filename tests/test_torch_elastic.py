@@ -235,7 +235,7 @@ def test_straggler_watchdog_reuses_the_previous_batch(monkeypatch, capsys):
     loads, t_first = [], []
     watchdog = 3.0
 
-    def slow_fourth(data, cursor):
+    def slow_fourth(data, cursor, n_hosts=1):
         loads.append(cursor.step)
         t_first.append(time.perf_counter())
         if len(loads) == 4:
@@ -243,7 +243,7 @@ def test_straggler_watchdog_reuses_the_previous_batch(monkeypatch, capsys):
             # steps so far, so above watchdog × their median however
             # loaded the host is.
             time.sleep(watchdog * (t_first[-1] - t_first[0]) + 0.05)
-        return real(data, cursor)
+        return real(data, cursor, n_hosts)
 
     monkeypatch.setattr(train_mod, "_host_batch", slow_fourth)
     out = train_mod.train("sasrec-sce", steps=6, skip_stragglers=True,
@@ -288,9 +288,23 @@ def test_metrics_file_rows(tmp_path):
 
 def test_checkpoints_under_a_world_of_several_processes_raise(
         monkeypatch, tmp_path):
-    monkeypatch.setattr(train_mod, "world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        train_mod.train("sasrec-sce", steps=1, ckpt_dir=str(tmp_path), **KW)
+    """Checkpoints under a world of several processes no longer raise:
+    rank 0 writes, so rank 1 of 2 writes nothing, and reaches a barrier
+    around each save (recorded here; the world's own runs are
+    ``tests/test_torch_dist_train.py``'s)."""
+    calls = []
+    monkeypatch.setattr(train_mod, "world", lambda: (1, 2))
+    monkeypatch.setattr(train_mod.dist, "barrier",
+                        lambda: calls.append("barrier"))
+    monkeypatch.setattr(train_mod.dist, "all_reduce",
+                        lambda t, op=None: calls.append("agree"))
+    monkeypatch.setattr(train_mod.dist, "broadcast",
+                        lambda t, src: calls.append("lead"))
+    out = train_mod.train("sasrec-sce", steps=2, ckpt_dir=str(tmp_path),
+                          ckpt_every=2, **KW)
+    assert out["steps"] == 2
+    assert not list(tmp_path.iterdir())
+    assert calls.count("barrier") == 2
 
 
 # ---------------------------------------------------------------------------

@@ -236,11 +236,15 @@ def test_evaluate_streaming_marks_each_phase_in_order(model):
 
 
 def test_evaluate_streaming_refuses_what_is_not_ported(model):
-    """The sharded path raises; a bidirectional config, once refused,
-    now takes BERT4Rec's cloze score function by default."""
+    """Nothing is refused any more: the sharded path on a (1, 1) mesh is
+    the one-device evaluation (its meshes of several ranks are
+    ``tests/test_torch_dist_infer.py``'s), and a bidirectional config
+    takes BERT4Rec's cloze score function by default."""
+    from repro_torch.dist.sharding import make_mesh
+
     cfg, _, _, tp, batch = model
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        evaluate_streaming(tp, cfg, batch, mesh=object())
+    assert evaluate_streaming(tp, cfg, batch, mesh=make_mesh((1, 1))) == \
+        evaluate_streaming(tp, cfg, batch)
     bidir = dataclasses.replace(cfg, causal=False)
     assert harness.default_score_fn(bidir).__qualname__.startswith(
         "bert4rec_score_fn")

@@ -315,8 +315,11 @@ def test_evaluate_streaming_lm_matches_reference(vocab):
     assert np.array_equal(targets, tbatch["targets"])
     assert np.array_equal(valid, tbatch["valid"])
     assert evaluate_streaming_lm(tp, cfg, {"tokens": tbatch["tokens"]}) == got
-    with pytest.raises(NotImplementedError):
-        evaluate_streaming_lm(tp, cfg, tbatch, mesh=object())
+    # the sharded path on a (1, 1) mesh is the one-device evaluation
+    from repro_torch.dist.sharding import make_mesh
+
+    assert evaluate_streaming_lm(tp, cfg, tbatch, mesh=make_mesh((1, 1))) \
+        == got
 
 
 def test_trainer_lm_family_resumes_bit_for_bit(tmp_path):

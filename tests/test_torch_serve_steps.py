@@ -155,15 +155,26 @@ def test_retrieval_step_matches_jax(arch_name):
 
 
 def test_serve_steps_refuse_a_mesh_and_bad_candidates():
-    cfg = get_arch("bert4rec").make_smoke_config()
-    for make in (steps.make_seqrec_mips_serve_step,
-                 steps.make_seqrec_serve_step,
-                 steps.make_seqrec_retrieval_step):
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            make(cfg, mesh=object())
+    """A rank outside the mesh is refused; on a (1, 1) mesh each step is
+    its one-device self bit for bit (meshes of several ranks:
+    ``tests/test_torch_dist_infer.py``); bad candidates are refused."""
+    from repro_torch.dist.sharding import Mesh, make_mesh
     from repro_torch.models import bert4rec
 
+    cfg = get_arch("bert4rec").make_smoke_config()
     params = bert4rec.init_params(cfg, seed=0, device="cpu")
+    hist = torch.from_numpy(_hist(cfg, n=4))
+    cand = torch.arange(3, 90, dtype=torch.int32)
+    outside = Mesh({"data": 1, "model": 1}, None,
+                   {"data": None, "model": None})
+    for make, args in ((steps.make_seqrec_mips_serve_step, (hist,)),
+                       (steps.make_seqrec_serve_step, (hist,)),
+                       (steps.make_seqrec_retrieval_step, (hist, cand))):
+        with pytest.raises(ValueError, match="outside"):
+            make(cfg, mesh=outside)
+        for a, b in zip(make(cfg, mesh=make_mesh((1, 1)))(params, *args),
+                        make(cfg)(params, *args)):
+            assert torch.equal(a, b)
     step = steps.make_seqrec_retrieval_step(cfg, top_k=5)
     hist = torch.from_numpy(_hist(cfg, n=1))
     for bad in ([0, cfg.catalog_loss_size], [-1, 3]):

@@ -458,11 +458,13 @@ def test_step_path_follows_mesh_and_sce_mode(monkeypatch):
         assert calls.pop() == want and not calls
     with pytest.raises(ValueError, match="sce_mode"):
         steps.make_seqrec_train_step(arch, cfg, shape, sce_mode="ring")
+    # every loss now runs on a data axis > 1 (against one process's
+    # global step: tests/test_torch_dist_train.py), microbatches too
     wide = Mesh({"data": 2, "model": 1}, {"data": 0, "model": 0},
                 {"data": None, "model": None})
-    with pytest.raises(NotImplementedError, match="only distributed SCE"):
-        steps.make_seqrec_train_step(arch, cfg, shape, mesh=wide,
-                                     sce_mode="gspmd")
+    steps.make_seqrec_train_step(arch, cfg, shape, mesh=wide,
+                                 sce_mode="gspmd")
+    assert steps.n_microbatches(arch, shape, wide) == 1
     outside = Mesh({"data": 1, "model": 1}, None,
                    {"data": None, "model": None})
     with pytest.raises(ValueError, match="outside"):
