@@ -350,7 +350,33 @@ It imports nothing of JAX or of the JAX package ``repro``. Phases:
    checkpointed at step 1 and resumed to 4 that repeats the
    uninterrupted one bit for bit, its last checkpoint (the
    error-feedback residual included) too.
-22. Prints the kernels' JSON line, the card's name and power limit, and
+22. The CTR models and SchNet at their published widths
+   (``recsys_gnn_phase``); neither family runs a kernel of the port (the
+   reference computes them without Pallas), so every launch counter of
+   ``repro_torch.kernels`` must stay where it was around the phase.
+   dcn-v2, dlrm-rm2 and xdeepfm at ``make_config()``: ``train(name,
+   cfg=…, batch=65536, steps=4)`` (train_batch as published, guarded
+   AdamW, the clickstream drawn on the host before each step's ``start``
+   mark): finite losses, the median step from ``start`` to
+   ``optimizer`` and its phases from CUDA events, the peak memory; then,
+   on random weights and random rows, the serve step at serve_p99 (512
+   rows) and serve_bulk (262,144 rows) by the host clock, the first 512
+   probabilities within ``2e-5`` of an f64 forward of the same rows, and
+   the retrieval step at retrieval_cand (one user, 10⁶ candidates in
+   chunks of 4,096, top 100) by the host clock, its values within
+   ``1e-4·max|s|`` of the top 100 of every candidate's f64 score and its
+   positions equal wherever an f64 score stands further than that from
+   its neighbours. SchNet at ``make_config(shape)`` on molecule (128
+   molecules of 30 nodes and 64 bonds), full_graph_sm (2,708 nodes and
+   10,556 directed edges padded to multiples of 512) and minibatch_lg
+   (1,024 seeds, fanouts 15 and 10, sampled from a Reddit-sized graph of
+   232,965 nodes and 229 M directed edges built on the host, its build
+   time printed): the first step's loss within ``1e-5`` relative and
+   gradients within ``1e-4·max|g|`` of the same step on f64 copies, then
+   4 AdamW steps through ``make_gnn_train_step`` — median step, phases,
+   peak memory. ogb_products is not run (its ``(E, 300)`` RBF features
+   alone are 138 GiB).
+23. Prints the kernels' JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``. ``mips_topk`` has
    three entries: all its main-path launches timed at serving's largest
    bucket, and its training selections (k = 320 over the positions,
@@ -396,7 +422,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-N_PHASES = 22
+N_PHASES = 23
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_S = 3.35e12
@@ -5817,6 +5843,395 @@ def dist_phase(dev):
             "train": trained, "wall_s": wall_s}
 
 
+# ---------------------------------------------------------------------------
+# The CTR models and SchNet at published widths (phase 22)
+# ---------------------------------------------------------------------------
+RECSYS_ARCHS = ("dcn-v2", "dlrm-rm2", "xdeepfm")
+RECSYS_BATCH = 65_536  # train_batch as published
+RECSYS_STEPS = 4
+RECSYS_SERVE = (("serve_p99", 512, 10), ("serve_bulk", 262_144, 3))
+RECSYS_CANDS = 1_000_000  # retrieval_cand's candidates, one user
+RECSYS_TOP_K = 100  # the retrieval step's own
+RECSYS_PROB_TOL = 2e-5  # |p − p_f64| of the click probabilities
+RECSYS_SCORE_TOL = 1e-4  # × max|score|: retrieval values, and the id gap
+STEP_PHASES = ("h2d", "forward", "backward", "optimizer")
+GNN_STEPS = 4
+GNN_SHAPES = ("molecule", "full_graph_sm", "minibatch_lg")
+GNN_PAD = 512  # full-graph node and edge counts padded to a multiple
+GNN_GRAD_TOL = 1e-4  # × max|g| a leaf: the first step against f64
+
+
+class PeakMarks(StepMarks):
+    """``StepMarks`` that also keep, for each phase, the most device
+    memory allocated since the mark before it (the allocator's peak,
+    read and reset at each mark: host-side, no sync)."""
+
+    def __init__(self, phases):
+        super().__init__(phases)
+        self.peaks = {}
+
+    def __call__(self, name):
+        import torch
+
+        super().__call__(name)
+        self.peaks[name] = max(self.peaks.get(name, 0),
+                               torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+
+def kernel_counters():
+    """Every launch counter of the port's kernel wrappers (each function
+    of ``repro_torch.kernels`` with an int ``launches``), by name."""
+    import importlib
+    import pkgutil
+
+    from repro_torch import kernels
+
+    out = {}
+    for m in pkgutil.iter_modules(kernels.__path__):
+        mod = importlib.import_module(f"repro_torch.kernels.{m.name}")
+        for fn in vars(mod).values():
+            if callable(fn) and isinstance(getattr(fn, "launches", None),
+                                           int):
+                out.setdefault(f"{fn.__module__}.{fn.__name__}", fn)
+    return out
+
+
+def step_totals(marks):
+    """Per step, the device ms from its ``start`` mark to its last one."""
+    return [m[0][1].elapsed_time(m[-1][1]) for m in marks.steps]
+
+
+def peak_window(dev):
+    """Collect garbage, empty the cache and start a peak-memory window →
+    the bytes live at its start."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def recsys_train_run(dev, name):
+    """``train(name, cfg=make_config(), batch=65536, steps=4)``: the
+    published widths and train_batch, guarded AdamW. The host draws each
+    batch before the step's ``start`` mark, so the clickstream's cost
+    stays out of the device time; the median of steps 2–4 from ``start``
+    to ``optimizer``, its phases, the peak memory, finite losses."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+
+    cfg = get_arch(name).make_config()
+    marks = PeakMarks(STEP_PHASES)
+    live = peak_window(dev)
+    t0 = time.monotonic()
+    out = train(name, cfg=cfg, batch=RECSYS_BATCH, steps=RECSYS_STEPS,
+                seed=0, log_every=0, device=dev, mark=marks)
+    wall_s = time.monotonic() - t0
+    peak = max(torch.cuda.max_memory_allocated(dev), *marks.peaks.values())
+    losses = out["losses"]
+    check(len(losses) == RECSYS_STEPS
+          and all(math.isfinite(v) for v in losses),
+          f"{name}: losses {losses}")
+    check(out["skipped_steps"] == 0, f"{name}: {out['skipped_steps']} "
+          f"steps skipped")
+    totals = step_totals(marks)
+    median_ms = statistics.median(totals[1:])
+    host_ms = statistics.median(out["step_s"][1:]) * 1e3
+    bd = marks.breakdown()
+    rows = sum(cfg.vocab_sizes)
+    print(f"  {name} ({len(cfg.vocab_sizes)} fields, {rows:,} table rows × "
+          f"{cfg.embed_dim}, {cfg.param_count():,} parameters): "
+          f"{RECSYS_STEPS} steps of {RECSYS_BATCH:,} rows in {wall_s:.2f} s"
+          f" (set-up and the clickstream included); loss "
+          f"{' → '.join(f'{v:.4f}' for v in losses)}; median step "
+          f"{median_ms:.2f} ms (device events start → optimizer, steps 2–"
+          f"{RECSYS_STEPS}; host clock with the batch's draw "
+          f"{host_ms:.1f} ms)")
+    print("  step breakdown: " + " + ".join(
+        f"{p} {bd[p + '_ms']:.2f}" for p in STEP_PHASES)
+        + f" = {sum(bd.values()):.2f} ms (mean of steps 2–{RECSYS_STEPS})")
+    print(f"  peak device memory: {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated; {live / 2**30:.2f} GiB live before); "
+          f"by the phase that reached it: " + ", ".join(
+              f"{p} {v / 2**30:.2f}" for p, v in marks.peaks.items()))
+    return {"losses": losses, "step_ms": totals, "median_step_ms": median_ms,
+            "host_step_ms": host_ms, "breakdown": bd, "wall_s": wall_s,
+            "peak_bytes": peak, "live_bytes_before": live,
+            "peak_bytes_by_phase": marks.peaks}
+
+
+def recsys_serve_run(dev, name):
+    """The serve step at serve_p99 and serve_bulk and the retrieval step
+    at retrieval_cand on random weights (seed 0) and random rows (uniform
+    ids in each field), timed by the host clock to the result on the
+    device; the first 512 probabilities held against an f64 forward of
+    the same rows within ``RECSYS_PROB_TOL``, the retrieval's values
+    against the top 100 of the f64 scores of every candidate within
+    ``RECSYS_SCORE_TOL·max|s|`` and its positions wherever an f64 score
+    stands further than that from its neighbours."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+    from repro_torch.optim.optimizers import tree_map
+
+    arch = get_arch(name)
+    cfg = arch.make_config()
+    peak_window(dev)
+    params = steps.RECSYS_INIT[name](cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    n = max(r for _, r, _ in RECSYS_SERVE)
+    dense = torch.randn(n, getattr(cfg, "n_dense", 1), generator=g,
+                        device=dev)
+    sparse = torch.stack([torch.randint(0, v, (n, cfg.hot), generator=g,
+                                        device=dev, dtype=torch.int32)
+                          for v in cfg.vocab_sizes], dim=1)
+    fwd = steps.recsys_forward_fn(name)
+    p64 = tree_map(lambda p: p.double(), params)
+    with torch.inference_mode():
+        want = torch.sigmoid(fwd(p64, cfg, dense[:512].double(),
+                                 sparse[:512]))
+    serve = steps.make_recsys_serve_step(arch, cfg)
+    out = {}
+    for shape, rows, reps in RECSYS_SERVE:
+        d, s_ = dense[:rows], sparse[:rows]
+        got = serve(params, d, s_)
+        torch.cuda.synchronize()
+        err = (got[:512].double() - want).abs().max().item()
+        check(got.shape == (rows,) and bool(torch.isfinite(got).all()),
+              f"{name} {shape}: output {tuple(got.shape)}")
+        check(err <= RECSYS_PROB_TOL, f"{name} {shape}: probabilities "
+              f"{err:.3e} from f64 > {RECSYS_PROB_TOL}")
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            serve(params, d, s_)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        ms.sort()
+        out[shape] = {"rows": rows, "ms": ms, "median_ms": ms[len(ms) // 2],
+                      "f64_max_abs_err": err, "tol": RECSYS_PROB_TOL}
+        print(f"  {name} {shape}: {rows:,} rows, median "
+              f"{out[shape]['median_ms']:.3f} ms a call (host clock to the "
+              f"result on the card, of {reps}: "
+              f"{', '.join(f'{t:.3f}' for t in ms)}); first 512 "
+              f"probabilities within {err:.2e} of f64 (tol "
+              f"{RECSYS_PROB_TOL})")
+    cand = torch.randperm(cfg.vocab_sizes[0], generator=g, device=dev)[
+        :RECSYS_CANDS].to(torch.int32)
+    retrieve = steps.make_recsys_retrieval_step(arch, cfg,
+                                                top_k=RECSYS_TOP_K)
+    vals, ids = retrieve(params, dense[:1], sparse[:1], cand)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        retrieve(params, dense[:1], sparse[:1], cand)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ms.sort()
+    with torch.inference_mode():
+        s64 = recsys.retrieval_scores(fwd, p64, cfg, dense[:1].double(),
+                                      sparse[:1], cand, chunk=4096)
+    del p64
+    tol = RECSYS_SCORE_TOL * s64.abs().max().item()
+    want_v, want_i = dense_topk(s64[None], RECSYS_TOP_K + 1)
+    err = compare((vals[None], ids[None]),
+                  (want_v[:, :RECSYS_TOP_K], want_i[:, :RECSYS_TOP_K]),
+                  want_v[:, RECSYS_TOP_K], tol, exact=False)
+    out["retrieval_cand"] = {"candidates": RECSYS_CANDS, "k": RECSYS_TOP_K,
+                             "ms": ms, "median_ms": ms[1],
+                             "f64_max_abs_err": err, "tol": tol}
+    print(f"  {name} retrieval_cand: 1 user × {RECSYS_CANDS:,} candidates "
+          f"in chunks of 4,096, top {RECSYS_TOP_K}: median {ms[1]:.2f} ms a "
+          f"call (of 3: {', '.join(f'{t:.2f}' for t in ms)}); values within "
+          f"{err:.2e} of f64 (tol {tol:.2e}), positions equal where "
+          f"isolated")
+    return out
+
+
+def gnn_batches(shape, dims):
+    """SchNet's batches of ``shape`` (its ``dims``) for ``GNN_STEPS``
+    steps, as numpy (the molecules and the sampled subgraphs change every
+    step, the full graph does not), and what building them cost on the
+    host."""
+    import resource
+
+    import numpy as np
+
+    from repro_torch.data import (Cursor, GraphDataConfig, NeighborSampler,
+                                  batched_molecules, random_graph)
+
+    t0 = time.monotonic()
+    if shape == "molecule":
+        out = []
+        for i in range(GNN_STEPS):
+            b, _ = batched_molecules(
+                Cursor(seed=0, step=i), n_mols=dims["batch"],
+                nodes_per_mol=dims["n_nodes"],
+                edges_per_mol=dims["n_edges"], d_feat=dims["d_feat"])
+            b.pop("n_graphs")
+            out.append(b)
+        return out, {"host_s": time.monotonic() - t0}
+    if shape == "full_graph_sm":
+        # n_edges directed edges: random_graph symmetrises its draw
+        g = random_graph(GraphDataConfig(
+            n_nodes=dims["n_nodes"], n_edges=dims["n_edges"] // 2,
+            d_feat=dims["d_feat"], seed=0))
+        n, e = dims["n_nodes"], g["edge_index"].shape[1]
+        n_pad, e_pad = -(-n // GNN_PAD) * GNN_PAD, -(-e // GNN_PAD) * GNN_PAD
+        b = {"node_feats": np.pad(g["node_feats"], ((0, n_pad - n), (0, 0))),
+             "positions": np.pad(g["positions"], ((0, n_pad - n), (0, 0))),
+             "edge_index": np.pad(g["edge_index"], ((0, 0), (0, e_pad - e))),
+             "edge_valid": np.arange(e_pad) < e,
+             "node_valid": np.arange(n_pad) < n,
+             "targets": np.pad(g["targets"], (0, n_pad - n))}
+        return [b] * GNN_STEPS, {"host_s": time.monotonic() - t0,
+                                 "nodes": n_pad, "edges": e_pad}
+    g = random_graph(GraphDataConfig(
+        n_nodes=dims["n_nodes"], n_edges=dims["n_edges"],
+        d_feat=dims["d_feat"], seed=0))
+    t_graph = time.monotonic() - t0
+    sampler = NeighborSampler(g["edge_index"], dims["n_nodes"])
+    t_csr = time.monotonic() - t0 - t_graph
+    out, real = [], []
+    for i in range(GNN_STEPS):
+        s_, _ = sampler.sample(Cursor(seed=0, step=i), dims["batch_nodes"],
+                               (dims["fanout0"], dims["fanout1"]))
+        ids = s_["node_ids"]
+        real.append(int(s_["n_real_nodes"]))
+        out.append({"node_feats": g["node_feats"][ids],
+                    "positions": g["positions"][ids],
+                    "edge_index": s_["edge_index"],
+                    "edge_valid": s_["edge_valid"],
+                    "seed_local": s_["seed_local"],
+                    "targets": g["targets"][ids[s_["seed_local"]]]})
+    info = {"host_s": time.monotonic() - t0, "graph_s": t_graph,
+            "csr_s": t_csr, "directed_edges": int(g["edge_index"].shape[1]),
+            "max_rss_gib": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss / 2**20,
+            "nodes": int(out[0]["node_feats"].shape[0]),
+            "edges": int(out[0]["edge_index"].shape[1]),
+            "real_nodes": real}
+    del g, sampler
+    return out, info
+
+
+def gnn_run(dev, shape):
+    """SchNet at ``make_config(shape)``: the first step on f32 and on f64
+    copies of the same weights and batch — the loss within ``1e-5``
+    relative and each gradient (AdamW's first moment, ``(1 − β₁)·g``)
+    within ``GNN_GRAD_TOL·max|g|`` — then ``GNN_STEPS`` guarded AdamW
+    steps through ``make_gnn_train_step``: finite losses, the median step
+    from ``start`` to ``optimizer``, its phases, the peak memory."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_arch
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import schnet
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    arch = get_arch("schnet")
+    cfg = arch.make_config(shape)
+    spec = arch.shape(shape)
+    step, (opt_init, _) = steps.make_gnn_train_step(
+        arch, cfg, ShapeSpec(shape, spec.kind, dict(spec.dims)))
+    batches, info = gnn_batches(shape, spec.dims)
+    first = to_device(batches[0], dev)
+    moments = {}
+    for dt in (torch.float64, torch.float32):
+        p = tree_map(lambda t: t.to(dt),
+                     schnet.init_params(cfg, seed=0, device=dev))
+        b = {k: v.to(dt) if v.is_floating_point() else v
+             for k, v in first.items()}
+        _, st, m = step(p, opt_init(p), b)
+        moments[dt] = ([t.double() for t in tree_leaves(st.inner["m"])],
+                       float(m["loss"]))
+    (m64, l64), (m32, l32) = moments[torch.float64], moments[torch.float32]
+    rel = max(((a - w).abs().max() / w.abs().max().clamp(min=1e-300)).item()
+              for a, w in zip(m32, m64))
+    check(abs(l32 - l64) <= 1e-5 * abs(l64), f"schnet {shape}: loss {l32} "
+          f"against f64 {l64}")
+    check(rel <= GNN_GRAD_TOL, f"schnet {shape}: a gradient {rel:.3e}·max|g|"
+          f" from f64 > {GNN_GRAD_TOL}")
+    del moments, first
+    params = schnet.init_params(cfg, seed=0, device=dev)
+    state = opt_init(params)
+    marks = StepMarks(STEP_PHASES)
+    live = peak_window(dev)
+    losses = []
+    for b in batches:
+        marks("start")
+        b = to_device(b, dev)
+        marks("h2d")
+        params, state, m = step(params, state, b, mark=marks)
+        losses.append(float(m["loss"]))
+        check(not bool(m["skipped"]), f"schnet {shape}: a step skipped")
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(v) for v in losses), f"schnet {shape}: losses "
+          f"{losses}")
+    totals = step_totals(marks)
+    median_ms = statistics.median(totals[1:])
+    bd = marks.breakdown()
+    n_e = batches[0]["edge_index"].shape[1]
+    print(f"  schnet {shape} (d_feat {cfg.d_feat}, {cfg.n_interactions} "
+          f"interactions, d {cfg.d_hidden}, {cfg.n_rbf} RBFs): "
+          f"{batches[0]['node_feats'].shape[0]:,} nodes, {n_e:,} edges a "
+          f"step; host batches {info['host_s']:.2f} s"
+          + (f" (the {info['directed_edges']:,}-edge graph "
+             f"{info['graph_s']:.2f} s, its CSR {info['csr_s']:.2f} s, host "
+             f"max RSS {info['max_rss_gib']:.1f} GiB; real nodes a step "
+             f"{info['real_nodes']})" if "graph_s" in info else "")
+          + f"; first step against f64: loss {l32:.6f} ({l64:.6f}), "
+          f"gradients within {rel:.2e}·max|g|; losses "
+          f"{' → '.join(f'{v:.4f}' for v in losses)}; median step "
+          f"{median_ms:.3f} ms (device events, steps 2–{GNN_STEPS}): "
+          + " + ".join(f"{p} {bd[p + '_ms']:.3f}" for p in STEP_PHASES)
+          + f"; peak {peak / 2**20:.1f} MiB ({live / 2**20:.1f} MiB live "
+          f"before)")
+    return {"losses": losses, "step_ms": totals, "median_step_ms": median_ms,
+            "breakdown": bd, "peak_bytes": peak, "loss_f32": l32,
+            "loss_f64": l64, "grad_rel_err": rel, **info}
+
+
+def recsys_gnn_phase(dev):
+    """Phase 22: the CTR models and SchNet at their published widths —
+    none of them runs a kernel of the port (the reference runs them
+    without Pallas), so every launch counter must stay where it was."""
+    counters = kernel_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    t0 = time.monotonic()
+    out = {}
+    for name in RECSYS_ARCHS:
+        out[name] = {"train": recsys_train_run(dev, name),
+                     **recsys_serve_run(dev, name)}
+    for shape in GNN_SHAPES:
+        out[f"schnet_{shape}"] = gnn_run(dev, shape)
+    print("  schnet ogb_products: not run — 2 × 61,859,140 directed edges, "
+          "whose (E, 300) RBF features alone are 138 GiB in f32 (edge "
+          "sharding over several cards, ROADMAP.md queue 1 item 14)")
+    moved = {k: fn.launches - before[k] for k, fn in counters.items()
+             if fn.launches != before[k]}
+    check(not moved, f"kernels launched by the CTR or SchNet paths: {moved}")
+    wall_s = time.monotonic() - t0
+    print(f"  none of the {len(counters)} kernel launch counters moved; "
+          f"phase 22 in {wall_s:.1f} s (host clock); card: {smi()}")
+    out["wall_s"] = wall_s
+    out["counters_watched"] = len(counters)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", type=Path, default=None,
@@ -5906,6 +6321,10 @@ def main() -> int:
               "(1, 1) mesh, a 4-way shard-by-shard merge, int8 gradient "
               "compression over 4 emulated hosts")
     dist = dist_phase(dev)
+    phase(22, "recsys and SchNet at published widths: dcn-v2, dlrm-rm2 and "
+              "xdeepfm trained, served and retrieving; SchNet trained on "
+              "three graph regimes")
+    recsys_gnn = recsys_gnn_phase(dev)
 
     t = timings[512]  # the serve_p99 bucket
     mips = {"route": "cuda",
@@ -6241,7 +6660,7 @@ def main() -> int:
             "bucket_cases": bcases, "two_pass_cases": tkcases,
             "guard_timings": gtimes, "drills": drills, "checkpoints": ckpt,
             "lm": lm, "bert4rec": b4r, "granite": granite,
-            "distribution": dist,
+            "distribution": dist, "recsys_gnn": recsys_gnn,
             "kernels": kernels,
         }, indent=1))
     print(f"[{N_PHASES}/{N_PHASES}] summary")

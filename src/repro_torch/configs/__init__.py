@@ -1,4 +1,4 @@
-"""Arch registry of the port (only the archs ported so far)."""
+"""Arch registry of the port (every arch of the reference)."""
 from repro_torch.configs.common import ArchSpec, ShapeSpec, get_arch, register
 
 __all__ = ["ArchSpec", "ShapeSpec", "get_arch", "register"]

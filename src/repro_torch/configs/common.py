@@ -3,8 +3,7 @@
 Each ``configs/<id>.py`` registers one :class:`ArchSpec`: the published
 configuration, its input shapes, a reduced smoke configuration and the
 training policy the train step reads (loss, optimizer, dtype,
-microbatching, SCE candidate bucket size). The port registers only the
-archs it has ported.
+microbatching, SCE candidate bucket size).
 """
 from __future__ import annotations
 
@@ -58,7 +57,8 @@ def register(spec: ArchSpec) -> ArchSpec:
 
 
 _ARCH_MODULES = ["deepseek_coder_33b", "yi_6b", "gemma2_2b", "kimi_k2",
-                 "granite_moe", "bert4rec", "sasrec_sce"]
+                 "granite_moe", "bert4rec", "sasrec_sce", "dcn_v2",
+                 "dlrm_rm2", "xdeepfm", "schnet"]
 
 
 def _load_all() -> None:
@@ -101,7 +101,7 @@ def lm_shapes(*, long_ctx_skip: Optional[str]) -> Tuple[ShapeSpec, ...]:
 
 
 # ---------------------------------------------------------------------------
-# The recsys shapes (BERT4Rec's)
+# The recsys shapes (BERT4Rec's and the CTR models')
 # ---------------------------------------------------------------------------
 def recsys_shapes() -> Tuple[ShapeSpec, ...]:
     return (

@@ -45,11 +45,14 @@ EXIT_PREEMPTED = 42
 # Checkpointable train state
 # ---------------------------------------------------------------------------
 def _unflatten_like(template, leaves):
-    """``template``'s structure (dicts, NamedTuples) over ``leaves`` in
-    ``tree_leaves`` order, each as a tensor like the template's leaf."""
+    """``template``'s structure (dicts, lists, NamedTuples) over
+    ``leaves`` in ``tree_leaves`` order, each as a tensor like the
+    template's leaf."""
     if isinstance(template, dict):
         return {k: _unflatten_like(template[k], leaves)
                 for k in sorted(template)}
+    if isinstance(template, list):
+        return [_unflatten_like(v, leaves) for v in template]
     if isinstance(template, tuple):
         items = [_unflatten_like(v, leaves) for v in template]
         return (type(template)(*items) if hasattr(template, "_fields")
@@ -61,6 +64,8 @@ def _unflatten_like(template, leaves):
 def _to_tensors(tree, device):
     if isinstance(tree, dict):
         return {k: _to_tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):  # the CTR models' per-field tables
+        return [_to_tensors(v, device) for v in tree]
     return torch.as_tensor(tree).to(device)
 
 

@@ -1,9 +1,10 @@
-"""Step factories (port of the seqrec and LM steps of
-``repro/launch/steps.py``: the training steps with any registry loss and
-optional int8 gradient compression, on one device or on a ``(data,
-model)`` mesh — SASRec's next-item and BERT4Rec's cloze objective —, the
-seqrec serving steps (MIPS top-k, top-100, candidate re-rank) on one
-device or on a mesh, and the LM's prefill and decode steps)."""
+"""Step factories (port of ``repro/launch/steps.py``: the seqrec and LM
+training steps with any registry loss and optional int8 gradient
+compression, on one device or on a ``(data, model)`` mesh — SASRec's
+next-item and BERT4Rec's cloze objective —, the seqrec serving steps
+(MIPS top-k, top-100, candidate re-rank) on one device or on a mesh, the
+LM's prefill and decode steps, the CTR models' BCE training step and
+their serve and retrieval steps, and SchNet's regression step)."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,7 +33,9 @@ from repro_torch.eval.streaming import streaming_topk
 from repro_torch.kernels import guard, ops
 from repro_torch.launch.mesh import dp_size
 from repro_torch.models import bert4rec as b4r_lib
+from repro_torch.models import recsys as recsys_lib
 from repro_torch.models import sasrec as sasrec_lib
+from repro_torch.models import schnet as schnet_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.optim.compression import with_error_feedback_compression
 from repro_torch.optim.optimizers import (
@@ -274,9 +277,20 @@ def _unflatten(tree, leaves):
     def walk(t):
         if isinstance(t, dict):
             return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
         return next(it)
 
     return walk(tree)
+
+
+def _grads(loss, leaves, params):
+    """``loss``'s gradients as a tree like ``params`` (zeros where a leaf
+    took no part)."""
+    flat = tree_leaves(leaves)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return _unflatten(params, [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(flat, grads)])
 
 
 # ---------------------------------------------------------------------------
@@ -406,13 +420,10 @@ def make_seqrec_train_step(arch, cfg, shape, *, mesh=None,
                 logit_softcap=getattr(cfg, "final_softcap", None),
                 omega=omega, mark=mark,
             )
-            flat = tree_leaves(leaves)
-            grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(flat, grads)]
+            grads = _grads(loss, leaves, params)
         if mark:
             mark("backward")
-        return loss.detach(), sentinels, _unflatten(params, grads)
+        return loss.detach(), sentinels, grads
 
     def train_step(params, opt_state, batch, *, generator=None, omega=None,
                    cloze=None, mark=None):
@@ -512,13 +523,10 @@ def make_lm_train_step(arch, cfg, shape, *, mesh=None,
                 logit_softcap=cfg.final_softcap, omega=omega, mark=mark,
             )
             loss = loss + aux
-            flat = tree_leaves(leaves)
-            grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(flat, grads)]
+            grads = _grads(loss, leaves, params)
         if mark:
             mark("backward")
-        return loss.detach(), sentinels, _unflatten(params, grads)
+        return loss.detach(), sentinels, grads
 
     def train_step(params, opt_state, batch, *, generator=None, omega=None,
                    mark=None):
@@ -713,3 +721,202 @@ def make_seqrec_retrieval_step(cfg, *, top_k: int = 100, mesh=None):
                                            mesh.axis(MODEL_AXIS), ties="id")
 
     return retrieval_step
+
+
+# ---------------------------------------------------------------------------
+# CTR recsys (DCN-v2 / DLRM / xDeepFM)
+# ---------------------------------------------------------------------------
+_RECSYS_FWD = {
+    "dcn-v2": recsys_lib.dcn_v2_forward,
+    "dlrm-rm2": recsys_lib.dlrm_forward,
+    "xdeepfm": recsys_lib.xdeepfm_forward,
+}
+RECSYS_INIT = {
+    "dcn-v2": recsys_lib.init_dcn_v2,
+    "dlrm-rm2": recsys_lib.init_dlrm,
+    "xdeepfm": recsys_lib.init_xdeepfm,
+}
+
+
+def recsys_forward_fn(arch_name: str):
+    """The forward of a CTR arch: ``fwd(params, cfg, dense, sparse_ids)
+    -> logits (B,)``."""
+    return _RECSYS_FWD[arch_name]
+
+
+def make_recsys_train_step(arch, cfg, shape, *, mesh=None,
+                           grad_compression: Optional[str] = None):
+    """The training step of a CTR model (the reference's
+    ``make_recsys_train_step``): the forward of ``arch.name`` → the BCE of
+    the click logits (``bce_logits_loss``) → autograd → the gradients
+    averaged over the arch's microbatches for ``shape`` (none for the
+    published CTR archs) → guarded AdamW at lr 1e-3, written in place
+    (:func:`_apply_update_guarded`), with ``grad_compression="int8"``
+    through ``optim/compression.py``'s error feedback. The embedding
+    tables' gradients are dense, as the reference's.
+
+    On a mesh with a data axis above 1 each rank passes its rows of the
+    global batch (``dist.sharding.batch_rows``); its loss is its share of
+    the global mean (its mean over ``dp``, summed over ``data``), and the
+    step sums the gradients over the data group before the update, so the
+    update is the global batch's.
+
+    Returns ``(train_step, (opt_init, opt_update))`` with
+    ``train_step(params, opt_state, batch, *, generator=None, mark=None)
+    -> (params, opt_state, metrics)``: ``batch`` holds ``dense`` (B,
+    n_dense) f32, ``sparse_ids`` (B, n_fields, hot) int32 and ``labels``
+    (B,) f32 on the params' device, and optionally a ``loss_cap``; the
+    step draws nothing (``generator`` is accepted for the trainer's one
+    call form). ``mark`` sees ``"forward"``, ``"backward"`` (each
+    microbatch) and ``"optimizer"``.
+    """
+    _member(mesh)
+    opt_init, opt_update = _optimizer(arch, 1e-3, grad_compression)
+    fwd = recsys_forward_fn(arch.name)
+    n_micro = n_microbatches(arch, shape, mesh)
+    dp = dp_size(mesh) if mesh is not None else 1
+    data = mesh.axis("data") if dp > 1 else None
+
+    def loss_and_grad(params, mb, generator, omega, mark=None):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            logits = fwd(leaves, cfg, mb["dense"], mb["sparse_ids"])
+            if mark:
+                mark("forward")
+            loss = recsys_lib.bce_logits_loss(logits, mb["labels"])
+            if data is not None:
+                loss = psum(loss / dp, data)
+            grads = _grads(loss, leaves, params)
+        if mark:
+            mark("backward")
+        return loss.detach(), grads
+
+    def train_step(params, opt_state, batch, *, generator=None, mark=None):
+        batch, loss_cap = _pop_loss_cap(batch)
+        loss, grads = _accumulate_microbatches(
+            functools.partial(loss_and_grad, mark=mark), params, batch,
+            generator, n_micro)
+        if data is not None:
+            for g in tree_leaves(grads):
+                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=data.group)
+        out = _apply_update_guarded(opt_update, loss, grads, params,
+                                    opt_state, loss_cap)
+        if mark:
+            mark("optimizer")
+        return out
+
+    return train_step, (opt_init, opt_update)
+
+
+def make_recsys_serve_step(arch, cfg, *, chunk: int = 65536):
+    """``serve_step(params, dense, sparse_ids) -> (B,)`` click
+    probabilities (the sigmoid of the logits), the rows scored ``chunk``
+    at a time: serve_bulk's 262,144 rows would hold xDeepFM's MLP and
+    CIN activations four times over. Rows are independent, so each row's
+    value is the one-call value."""
+    fwd = recsys_forward_fn(arch.name)
+
+    @torch.inference_mode()
+    def serve_step(params, dense, sparse_ids):
+        return torch.cat([
+            torch.sigmoid(fwd(params, cfg, d, s))
+            for d, s in zip(dense.split(chunk), sparse_ids.split(chunk))])
+
+    return serve_step
+
+
+def make_recsys_retrieval_step(arch, cfg, *, item_field: int = 0,
+                               chunk: int = 4096, top_k: int = 100):
+    """``retrieval_step(params, dense_user, sparse_user, candidate_ids) ->
+    (vals (top_k,), idx (top_k,) int32)``: one user's row scored with
+    each candidate in ``item_field`` (``recsys.retrieval_scores``,
+    ``chunk`` candidates a forward: at 4,096 xDeepFM's CIN product is 1.25
+    GB), then ``torch.topk``. ``idx`` are positions in ``candidate_ids``,
+    as the reference's ``lax.top_k`` returns them; neither promises an
+    order among tied scores."""
+    fwd = recsys_forward_fn(arch.name)
+
+    @torch.inference_mode()
+    def retrieval_step(params, dense_user, sparse_user, candidate_ids):
+        scores = recsys_lib.retrieval_scores(
+            fwd, params, cfg, dense_user, sparse_user, candidate_ids,
+            item_field=item_field, chunk=chunk)
+        vals, idx = torch.topk(scores, top_k)
+        return vals, idx.to(torch.int32)
+
+    return retrieval_step
+
+
+# ---------------------------------------------------------------------------
+# GNN (SchNet)
+# ---------------------------------------------------------------------------
+def make_gnn_train_step(arch, cfg, shape, *, mesh=None):
+    """SchNet's regression step (the reference's ``make_gnn_train_step``):
+    the loss by the batch's regime → autograd → guarded AdamW at lr
+    1e-3, in place.
+
+    * ``shape.kind == "train_sampled"`` (minibatch_lg): the node energies
+      of a sampled subgraph (padded edges off through ``edge_valid``) at
+      its seeds ``seed_local``, against ``targets`` (one a seed);
+    * a batch with ``graph_ids`` (molecule): the energy of each of the
+      shape's ``batch`` graphs against ``targets`` (one a graph);
+    * else full-batch node regression (full_graph_sm, ogb_products): each
+      node's energy against ``targets``, the mean over ``node_valid``
+      where given, padded edges off through ``edge_valid``.
+
+    Each loss is a mean square error. A data axis above 1 raises
+    ``NotImplementedError``: the graph batches have no rows to shard
+    (edge sharding over several cards is ROADMAP.md queue 1 item 14).
+
+    Returns ``(train_step, (opt_init, opt_update))`` with
+    ``train_step(params, opt_state, batch, *, generator=None, mark=None)
+    -> (params, opt_state, metrics)``; ``mark`` sees ``"forward"``,
+    ``"backward"`` and ``"optimizer"``.
+    """
+    _member(mesh)
+    if mesh is not None and dp_size(mesh) > 1:
+        raise NotImplementedError(
+            "SchNet on a data axis above 1: its graphs have no rows to "
+            "shard (edge sharding is ROADMAP.md queue 1 item 14)")
+    opt_init, opt_update = _optimizer(arch, 1e-3, None)
+    kind = shape.kind
+    n_graphs = int(shape.dims.get("batch", 1))
+
+    def loss_fn(p, batch):
+        if kind == "train_sampled":
+            e, _ = schnet_lib.node_energies(
+                p, cfg, batch["node_feats"], batch["positions"],
+                batch["edge_index"], edge_valid=batch["edge_valid"])
+            pred = torch.index_select(e, 0, batch["seed_local"].long())
+            return torch.square(pred - batch["targets"]).mean()
+        if "graph_ids" in batch:  # batched molecules → per-graph energy
+            energy, _ = schnet_lib.forward(
+                p, cfg, batch["node_feats"], batch["positions"],
+                batch["edge_index"], batch["graph_ids"], n_graphs)
+            return torch.square(energy - batch["targets"]).mean()
+        e, _ = schnet_lib.node_energies(
+            p, cfg, batch["node_feats"], batch["positions"],
+            batch["edge_index"], edge_valid=batch.get("edge_valid"))
+        err = torch.square(e - batch["targets"])
+        if "node_valid" in batch:
+            w = batch["node_valid"].to(err.dtype)
+            return (err * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return err.mean()
+
+    def train_step(params, opt_state, batch, *, generator=None, mark=None):
+        batch, loss_cap = _pop_loss_cap(batch)
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss = loss_fn(leaves, batch)
+            if mark:
+                mark("forward")
+            grads = _grads(loss, leaves, params)
+        if mark:
+            mark("backward")
+        out = _apply_update_guarded(opt_update, loss.detach(), grads, params,
+                                    opt_state, loss_cap)
+        if mark:
+            mark("optimizer")
+        return out
+
+    return train_step, (opt_init, opt_update)

@@ -1,5 +1,5 @@
-"""Trainer (port of the seqrec and LM families of
-``repro/launch/train.py``).
+"""Trainer (port of ``repro/launch/train.py``: the seqrec, LM, CTR recsys
+and GNN families).
 
 ``train("sasrec-sce", steps=N)`` draws random SASRec weights from
 ``seed``, streams ``SequenceDataset`` batches from ``Cursor(seed)`` and
@@ -20,7 +20,14 @@ of one of the arch's train shapes (4096: ``train_4k``) the step splits
 the batch into that shape's microbatches (gemma-2: 2; granite: 8, so
 ``train("granite-moe-3b-a800m", cfg=make_config(), batch=8,
 seq_len=4096)`` steps 8 microbatches of one sequence); the reference's
-trainer runs every length as one microbatch. As in the reference, the
+trainer runs every length as one microbatch. ``train("dcn-v2")`` (and
+``dlrm-rm2``, ``xdeepfm``) streams ``ClickstreamDataset`` batches of
+``batch`` rows (``dense``, ``sparse_ids``, ``labels``) from the config's
+fields and steps ``make_recsys_train_step`` (BCE on the click logits,
+guarded AdamW); ``train("schnet")`` steps ``make_gnn_train_step`` on
+``batched_molecules`` batches of ``batch`` molecules of 10 nodes and 20
+bonds (the reference's molecule regime) with the config's ``d_feat``.
+As in the reference, the
 mesh is always
 ``make_host_mesh(max_data=batch)`` over the ranks of the
 ``torch.distributed`` world (no process group, or one card: a (1, 1)
@@ -113,6 +120,11 @@ Usage::
     # the LM family: gemma-2's smoke config, 2 sequences of 32 tokens
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
         --steps 4 --batch 2 --seq-len 32 --eval-every 2 --device cpu
+    # the CTR family (dlrm-rm2, xdeepfm alike) and SchNet
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 \\
+        --steps 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch schnet \\
+        --steps 4 --device cpu
 """
 from __future__ import annotations
 
@@ -134,10 +146,13 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ShapeSpec, get_arch
 from repro_torch.data import (
+    ClickDataConfig,
+    ClickstreamDataset,
     Cursor,
     SeqDataConfig,
     SequenceDataset,
     ShardedCursor,
+    batched_molecules,
 )
 from repro_torch.dist.sharding import batch_rows, world
 from repro_torch.eval import evaluate_streaming, evaluate_streaming_lm
@@ -150,16 +165,28 @@ from repro_torch.launch.elastic import (
 )
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import (
+    RECSYS_INIT,
+    make_gnn_train_step,
     make_lm_train_step,
+    make_recsys_train_step,
     make_seqrec_train_step,
     n_microbatches,
 )
-from repro_torch.models import bert4rec, sasrec, transformer
+from repro_torch.models import bert4rec, sasrec, schnet, transformer
 from repro_torch.optim.optimizers import tree_map
 
 # Step times the straggler watchdog's median reads: the most recent ones,
 # so its cost a step stays flat however long the run.
 WATCHDOG_WINDOW = 32
+# The molecules of a SchNet run: the reference trainer's smoke regime.
+GNN_NODES, GNN_EDGES = 10, 20
+# What each family's step reads of a host batch.
+BATCH_KEYS = {
+    "lm": ("tokens", "targets", "valid"),
+    "seqrec": ("tokens", "targets", "valid"),
+    "recsys": ("dense", "sparse_ids", "labels"),
+    "gnn": ("node_feats", "positions", "edge_index", "graph_ids", "targets"),
+}
 
 
 def to_device(host_batch, device) -> Dict[str, torch.Tensor]:
@@ -187,7 +214,10 @@ def _host_batch(data, cursor, n_hosts: int = 1):
     With ``n_hosts > 1`` each emulated host draws its own slice through
     its own :class:`ShardedCursor` and the batch is their concatenation:
     bit for bit the one-host batch for every ``n_hosts``, through the
-    per-host code path."""
+    per-host code path. ``data`` may also be a function of the cursor
+    alone (SchNet's molecules), which has no per-host path."""
+    if callable(data):
+        return data(cursor)
     if n_hosts == 1:
         return data.next_batch(cursor)
     parts = [data.next_batch_sharded(
@@ -261,6 +291,13 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     (``step``, ``loss``, ``skipped``, ``grad_norm``, and the tripped
     ``sentinels`` when any).
 
+    A CTR arch takes ``batch`` clickstream rows a step and SchNet
+    ``batch`` molecules (see the module docstring); neither has an eval
+    protocol, so ``eval_every`` warns and evaluates nothing, as in the
+    reference. SchNet takes no ``n_hosts`` above 1 (``ValueError``, as
+    the reference), no ``grad_compression`` (``ValueError``), and no data
+    axis above 1 (``NotImplementedError``).
+
     ``max_strikes`` / ``guard_factor`` configure the divergence guard;
     ``chaos_nan_at`` is the fault-injection hook of the divergence drill:
     the first time the loop reaches that step, the params are multiplied
@@ -292,13 +329,36 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     arch = get_arch(arch_name)
     if train_loss is not None:
         arch = dataclasses.replace(arch, train_loss=train_loss)
-    if arch.family not in ("seqrec", "lm"):
-        raise NotImplementedError(f"{arch.family} training is not ported")
-    lm = arch.family == "lm"
+    family = arch.family
+    lm = family == "lm"
+    if family == "gnn" and n_hosts > 1:
+        raise ValueError("--n-hosts emulation needs a sharded dataset; "
+                         "the gnn molecule stream has none")
+    if family == "gnn" and grad_compression is not None:
+        raise ValueError("SchNet's step takes no gradient compression")
     if n_hosts < 1 or batch % n_hosts:
         raise ValueError(f"batch {batch} not divisible by n_hosts {n_hosts}")
     cfg = cfg if cfg is not None else arch.make_smoke_config()
-    if lm:
+    if family == "recsys":
+        shape = ShapeSpec(next(s.name for s in arch.shapes
+                               if s.kind == "train"), "train",
+                          {"batch": batch})
+        data = ClickstreamDataset(ClickDataConfig(
+            vocab_sizes=cfg.vocab_sizes, batch_size=batch,
+            n_dense=getattr(cfg, "n_dense", 1),
+        ))
+    elif family == "gnn":
+        dims = {"batch": batch, "n_nodes": GNN_NODES, "n_edges": GNN_EDGES,
+                "d_feat": cfg.d_feat}
+        shape = ShapeSpec("molecule", "train", dims)
+
+        def data(cursor):
+            mols, cur = batched_molecules(
+                cursor, n_mols=batch, nodes_per_mol=GNN_NODES,
+                edges_per_mol=GNN_EDGES, d_feat=cfg.d_feat)
+            mols.pop("n_graphs")  # the shape's batch
+            return mols, cur
+    elif lm:
         # A run at the length of one of the arch's train shapes takes its
         # name, and with it the arch's microbatches for it (gemma-2's
         # train_4k: 2); any other length is a smoke run of one.
@@ -327,20 +387,30 @@ def train(arch_name: str, *, cfg=None, steps: int = 50, batch: int = 8,
     lead = world()[0] == 0
     # BERT4Rec masks inside the step: its batches carry the tokens only.
     batch_keys = (("tokens",) if not getattr(cfg, "causal", True)
-                  else ("tokens", "targets", "valid"))
+                  else BATCH_KEYS[family])
     if lm:
         step_fn, (opt_init, _), _ = make_lm_train_step(
             arch, cfg, shape, mesh=mesh, sce_mode=sce_mode,
             grad_compression=grad_compression)
         params = transformer.init_params(cfg, seed=seed, device=device)
+    elif family == "recsys":
+        step_fn, (opt_init, _) = make_recsys_train_step(
+            arch, cfg, shape, mesh=mesh, grad_compression=grad_compression)
+        params = RECSYS_INIT[arch.name](cfg, seed=seed, device=device)
+    elif family == "gnn":
+        step_fn, (opt_init, _) = make_gnn_train_step(arch, cfg, shape,
+                                                     mesh=mesh)
+        params = schnet.init_params(cfg, seed=seed, device=device)
     else:
         step_fn, (opt_init, _), _ = make_seqrec_train_step(
             arch, cfg, shape, mesh=mesh, sce_mode=sce_mode,
             grad_compression=grad_compression)
         init = sasrec.init_params if cfg.causal else bert4rec.init_params
         params = init(cfg, seed=seed, device=device)
-    # this rank's rows: its block of every global microbatch
-    rows = batch_rows(mesh, batch, n_microbatches(arch, shape, mesh))
+    # this rank's rows: its block of every global microbatch (a graph
+    # batch, on one rank only, is whole)
+    rows = (slice(None) if family == "gnn"
+            else batch_rows(mesh, batch, n_microbatches(arch, shape, mesh)))
     state = TrainState(
         params=params, opt_state=opt_init(params),
         generator=torch.Generator(device=device).manual_seed(seed),

@@ -1,2 +1,3 @@
-"""Models of the port: SASRec (``sasrec.py``), its layers and the
+"""Models of the port: SASRec, BERT4Rec, the transformer LMs and their MoE
+FFN, the CTR models (``recsys.py``), SchNet, their layers and the
 weight converter from the JAX package (``convert.py``)."""

@@ -1,5 +1,6 @@
-"""Carry SASRec and transformer-LM weights (the MoE LMs' included) and
-their AdamW or Adafactor state across from the JAX package.
+"""Carry SASRec, transformer-LM (the MoE LMs' included), CTR-model and
+SchNet weights and their AdamW or Adafactor state across from the JAX
+package.
 
 The port keeps the reference's parameter layout, so conversion is a
 copy: each numpy leaf of the JAX pytree becomes a tensor of the same
@@ -63,9 +64,12 @@ MOE_SHARED = "shared"
 
 
 def _tree(tree, device):
-    """Nested dicts of numpy leaves → the same dicts of tensors."""
+    """Nested dicts and lists of numpy leaves → the same dicts and lists
+    of tensors."""
     if isinstance(tree, Mapping):
         return {k: _tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree(v, device) for v in tree]
     return _tensor(tree, device)
 
 
@@ -106,11 +110,67 @@ def transformer_params_from_jax(tree: Mapping, *, device=None):
     return _tree(tree, device)
 
 
+# The CTR models' top-level layouts (``models/recsys.py``): DCN-v2, DLRM,
+# xDeepFM. Lists hold one table a field or one weight a layer; MLPs are
+# dicts of ``w{i}`` / ``b{i}``.
+RECSYS_LAYOUTS = (
+    ("tables", "cross_w", "cross_b", "deep", "head_w", "head_b"),
+    ("tables", "bot", "top"),
+    ("tables", "linear", "cin_w", "cin_head", "dnn", "bias"),
+)
+RECSYS_LISTS = ("tables", "cross_w", "cross_b", "linear", "cin_w")
+RECSYS_MLPS = ("deep", "bot", "top", "dnn")
+
+
+def recsys_params_from_jax(tree: Mapping, *, device=None):
+    """The port's DCN-v2, DLRM or xDeepFM parameters from a JAX pytree of
+    ``repro.models.recsys``' layout, its leaves numpy arrays: the
+    ``tables``, ``linear``, ``cin_w``, ``cross_w`` and ``cross_b`` lists
+    stay lists, each MLP a dict of ``w{i}`` / ``b{i}``. Raises
+    ``KeyError`` on a layout that is none of the three. The tensors land
+    on ``device``: ``cuda`` unless given (raises without CUDA)."""
+    device = resolve_device(device)
+    if not any(set(tree) == set(lay) for lay in RECSYS_LAYOUTS):
+        raise KeyError(f"expected one of the layouts {RECSYS_LAYOUTS}, got "
+                       f"{sorted(tree)}")
+    for k in set(tree) & set(RECSYS_LISTS):
+        if not isinstance(tree[k], (list, tuple)):
+            raise KeyError(f"{k!r} is not a list")
+    for k in set(tree) & set(RECSYS_MLPS):
+        n = len(tree[k]) // 2
+        if set(tree[k]) != {f"{c}{i}" for c in "wb" for i in range(n)}:
+            raise KeyError(f"expected MLP keys w0..w{n - 1}, b0..b{n - 1} "
+                           f"in {k!r}, got {sorted(tree[k])}")
+    return _tree(tree, device)
+
+
+SCHNET_KEYS = ("embed", "interactions", "head_w1", "head_b1", "head_w2",
+               "head_b2")
+SCHNET_INTERACTION_KEYS = ("w_in", "w_filter1", "w_filter2", "w_out1",
+                           "b_filter1", "b_filter2", "b_out1")
+
+
+def schnet_params_from_jax(tree: Mapping, *, device=None):
+    """The port's SchNet parameters from a JAX pytree of
+    ``repro.models.schnet.init_params``' layout (numpy leaves): ``embed``
+    (d_feat, d), the ``interactions`` stacked ``(n_interactions, …)``,
+    the head's two layers. Raises ``KeyError`` on a missing or unexpected
+    key; the tensors land on ``device`` (``cuda`` unless given)."""
+    device = resolve_device(device)
+    if set(tree) != set(SCHNET_KEYS):
+        raise KeyError(f"expected keys {SCHNET_KEYS}, got {sorted(tree)}")
+    if set(tree["interactions"]) != set(SCHNET_INTERACTION_KEYS):
+        raise KeyError(f"expected interaction keys "
+                       f"{SCHNET_INTERACTION_KEYS}, got "
+                       f"{sorted(tree['interactions'])}")
+    return _tree(tree, device)
+
+
 def adamw_state_from_jax(opt_state, *, device=None) -> OptState:
     """The port's AdamW state from the reference's ``OptState(step,
     inner={"m": tree, "v": tree})``, its leaves numpy arrays
     (``jax.tree.map(np.asarray, opt_state)``), for any parameter layout
-    (SASRec's, the transformer's): the step becomes a 0-d int32 tensor,
+    (SASRec's, the transformer's, the CTR models' lists): the step becomes a 0-d int32 tensor,
     ``m`` and ``v`` f32 trees of the parameters' nested dicts, on
     ``device`` (``cuda`` unless given; raises without CUDA)."""
     device = resolve_device(device)

@@ -1,5 +1,5 @@
-"""Shared layers (port of ``repro/models/layers.py``: what SASRec and the
-decoder-only transformer LM use).
+"""Shared layers (port of ``repro/models/layers.py``: what SASRec, the
+decoder-only transformer LM and the CTR models' MLPs use).
 
 Weights keep the reference's layout: matmul weights are ``(d_in,
 d_out)`` and applied as ``x @ w``, tables are ``(rows, d)``. Random
@@ -33,11 +33,12 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], *,
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], *,
-               dtype=torch.float32, device=None) -> torch.Tensor:
-    """N(0, 0.02²) embedding-table init."""
+               scale: float = 0.02, dtype=torch.float32,
+               device=None) -> torch.Tensor:
+    """N(0, scale²) embedding-table init (0.02 by default)."""
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (w * 0.02).to(dtype=dtype, device=device)
+    return (w * scale).to(dtype=dtype, device=device)
 
 
 def layer_norm(x, gamma, beta, eps: float = 1e-6):
@@ -218,3 +219,28 @@ def swiglu(params, x):
     """``(silu(x @ w_gate) · (x @ w_up)) @ w_down``."""
     gate = F.silu(x @ params["w_gate"])
     return (gate * (x @ params["w_up"])) @ params["w_down"]
+
+
+def init_mlp(gen: torch.Generator, sizes: Sequence[int], *,
+             dtype=torch.float32, device=None):
+    """A plain MLP's weights for ``sizes = (d_in, h1, …, d_out)``:
+    ``w{i}`` (sizes[i], sizes[i + 1]) fan-in initialised, ``b{i}`` zero."""
+    n = len(sizes) - 1
+    out = {f"w{i}": dense_init(gen, (sizes[i], sizes[i + 1]), dtype=dtype,
+                               device=device) for i in range(n)}
+    out.update({f"b{i}": torch.zeros(sizes[i + 1], dtype=dtype,
+                                     device=device) for i in range(n)})
+    return out
+
+
+def mlp_apply(params, x, activation=F.relu, final_activation=None):
+    """``x`` through the MLP: ``activation`` (ReLU) between layers, and
+    ``final_activation`` after the last one if given."""
+    n = sum(1 for k in params if k.startswith("w"))
+    for i in range(n):
+        x = x @ params[f"w{i}"] + params[f"b{i}"]
+        if i < n - 1:
+            x = activation(x)
+        elif final_activation is not None:
+            x = final_activation(x)
+    return x

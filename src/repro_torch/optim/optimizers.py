@@ -34,9 +34,13 @@ class OptState(NamedTuple):
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts of the same structure."""
+    """``fn`` over the leaves of nested dicts and lists of the same
+    structure (a tuple is a leaf: the updates' per-leaf results)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, list):
+        return [tree_map(fn, t, *(r[i] for r in rest))
+                for i, t in enumerate(tree)]
     return fn(tree, *rest)
 
 
@@ -154,7 +158,7 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         step = state.step + 1
         upd = _leaf_update(step, sched(step))
         # (p, m, v) tuples are leaves to tree_map, which recurses into
-        # dicts only.
+        # dicts and lists only.
         flat = tree_map(upd, params, grads, state.inner["m"],
                         state.inner["v"])
         new_p, new_m, new_v = (tree_map(lambda t, i=i: t[i], flat)

@@ -327,8 +327,24 @@ def dtrain_cases(spec, inputs, out):
         train_mod.CheckpointManager = real
 
 
+def recsys_case(spec, inputs, out):
+    """``train("dcn-v2")`` on the world's (world, 1) mesh: its losses and
+    grad norms (from its metrics file); rank 0 saves the last step."""
+    from repro_torch.launch.train import train
+
+    metrics = Path(f"{spec['recsys_ckpt']}.{dist.get_rank()}.jsonl")
+    res = train("dcn-v2", steps=2, batch=8, device="cpu", log_every=0,
+                ckpt_dir=spec["recsys_ckpt"], ckpt_every=2,
+                metrics_file=str(metrics))
+    out["recsys_losses"] = np.array(res["losses"])
+    out["recsys_grad_norms"] = np.array([
+        json.loads(line)["grad_norm"]
+        for line in metrics.read_text().splitlines()])
+
+
 TASKS = {"sce": sce_cases, "merge": merge_cases, "step": step_case,
-         "train": train_case, "infer": infer_cases, "dtrain": dtrain_cases}
+         "train": train_case, "infer": infer_cases, "dtrain": dtrain_cases,
+         "recsys": recsys_case}
 
 
 def main(rank: int, world: int, root: Path) -> None:

@@ -2766,3 +2766,117 @@ def test_sharded_mips_topk_merge_equals_unsharded(dev, n, c, d, k, dtype,
                               torch.stack([o[1] for o in outs]), k)
     for a, b in zip(got, whole):
         assert torch.equal(a, b)
+
+
+def _launch_counts():
+    """Every kernel wrapper's launch counter (the recsys and GNN paths
+    must move none)."""
+    return {name: getattr(mod, name).launches
+            for mod in (eval_kernel, topk_kernel, fused_ce, linear_sce,
+                        kernel, sce_bucket, sce_prefetch)
+            for name in dir(mod)
+            if isinstance(getattr(getattr(mod, name), "launches", None), int)}
+
+
+@pytest.mark.parametrize("name", ["dcn-v2", "dlrm-rm2", "xdeepfm"])
+def test_recsys_forward_on_the_card_matches_f64(dev, name):
+    """A CTR model at its published dense widths (each field's table cut
+    to 2,000 rows) on the card against the same forward on f64 copies of
+    the weights: 5,000 rows (two blocks of xDeepFM's CIN), logits within
+    ``1e-5·max|l|`` (f32 fold order), the BCE within ``1e-5`` relative,
+    the serve step's probabilities (chunks of 2,048 rows) within ``2e-6``;
+    no kernel of the port launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import ClickDataConfig, ClickstreamDataset, Cursor
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+    from repro_torch.optim.optimizers import tree_map
+
+    arch = get_arch(name)
+    cfg = dataclasses.replace(arch.make_config(), vocab_sizes=tuple(
+        min(v, 2_000) for v in arch.make_config().vocab_sizes))
+    b = ClickstreamDataset(ClickDataConfig(
+        vocab_sizes=cfg.vocab_sizes, batch_size=5_000,
+        n_dense=getattr(cfg, "n_dense", 1))).next_batch(Cursor(seed=1))[0]
+    dense, sparse, labels = (torch.from_numpy(b[k]).to(dev)
+                             for k in ("dense", "sparse_ids", "labels"))
+    params = steps.RECSYS_INIT[name](cfg, seed=0, device=dev)
+    p64 = tree_map(lambda p: p.double(), params)
+    fwd = steps.recsys_forward_fn(name)
+    before = _launch_counts()
+    with torch.no_grad():
+        got = fwd(params, cfg, dense, sparse)
+        want = fwd(p64, cfg, dense.double(), sparse)
+        probs = steps.make_recsys_serve_step(arch, cfg, chunk=2_048)(
+            params, dense, sparse)
+    assert _launch_counts() == before
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    assert (got.double() - want).abs().max().item() <= \
+        1e-5 * want.abs().max().item()
+    loss = recsys.bce_logits_loss(got, labels).item()
+    assert loss == pytest.approx(
+        recsys.bce_logits_loss(want, labels.double()).item(), rel=1e-5)
+    assert (probs.double() - torch.sigmoid(want)).abs().max().item() <= 2e-6
+
+
+@pytest.mark.parametrize("shape", ["molecule", "full_graph_sm"])
+def test_schnet_on_the_card_matches_f64(dev, shape):
+    """SchNet at ``make_config(shape)`` on the card against f64 copies of
+    the same weights and graph: 128 molecules of 30 nodes and 64 bonds,
+    or the 2,708-node graph with its 10,556 directed edges padded to
+    multiples of 512 (``edge_valid`` off on the padding): energies within
+    ``1e-5·max|e|``, every parameter's gradient of the regime's MSE within
+    ``1e-4·max|g|`` (``index_add`` adds with atomics on the card: the
+    order of the sums differs from run to run); no kernel of the port
+    launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import (Cursor, GraphDataConfig, batched_molecules,
+                                  random_graph)
+    from repro_torch.launch.steps import _unflatten
+    from repro_torch.models import schnet
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = get_arch("schnet").make_config(shape)
+    if shape == "molecule":
+        g, _ = batched_molecules(Cursor(seed=2), n_mols=128,
+                                 nodes_per_mol=30, edges_per_mol=64,
+                                 d_feat=cfg.d_feat)
+        ev = None
+    else:
+        g = random_graph(GraphDataConfig(n_nodes=2_708, n_edges=5_278,
+                                         d_feat=cfg.d_feat, seed=2))
+        e = g["edge_index"].shape[1]
+        pad = -(-e // 512) * 512 - e
+        g["edge_index"] = np.pad(g["edge_index"], ((0, 0), (0, pad)))
+        ev = torch.from_numpy(np.arange(e + pad) < e).to(dev)
+    feats, pos, ei = (torch.from_numpy(g[k]).to(dev)
+                      for k in ("node_feats", "positions", "edge_index"))
+    params = schnet.init_params(cfg, seed=3, device=dev)
+    out = {}
+    before = _launch_counts()
+    for dt in (torch.float32, torch.float64):
+        leaves = [p.to(dt).requires_grad_(True) for p in tree_leaves(params)]
+        p = _unflatten(params, leaves)
+        if shape == "molecule":
+            e_, _ = schnet.forward(p, cfg, feats.to(dt), pos.to(dt), ei,
+                                   torch.from_numpy(g["graph_ids"]).to(dev),
+                                   128)
+            loss = torch.square(
+                e_ - torch.from_numpy(g["targets"]).to(dev, dt)).mean()
+        else:
+            e_, _ = schnet.node_energies(p, cfg, feats.to(dt), pos.to(dt),
+                                         ei, ev)
+            loss = torch.square(
+                e_ - torch.from_numpy(g["targets"]).to(dev, dt)).mean()
+        out[dt] = (e_.detach(), torch.autograd.grad(loss, leaves))
+    assert _launch_counts() == before
+    (e32, g32), (e64, g64) = out[torch.float32], out[torch.float64]
+    assert (e32.double() - e64).abs().max().item() <= \
+        1e-5 * e64.abs().max().item()
+    for a, w in zip(g32, g64):
+        assert (a.double() - w).abs().max().item() <= \
+            1e-4 * w.abs().max().item()
